@@ -87,10 +87,19 @@ soak-digest:
 demo:
 	bash scripts/basic_aggregation_test.sh
 
+# ---- PyTorch/CUDA port (sybil_tpu_torch) ----------------------------
+# CPU tests of the port against sybil_tpu; the H100 smoke run builds the
+# CUDA kernels and drives the port's main path on the card
+test-torch:
+	$(CPUENV) $(PY) -m pytest tests/test_torch_*.py -q
+
+chip-smoke:
+	$(PY) chip_smoke.py
+
 clean:
-	rm -rf $(DB) sybil_tpu/native/build/*.so
+	rm -rf $(DB) sybil_tpu/native/build/*.so sybil_tpu_torch/csrc/build
 
 .PHONY: all native fake-data fake-uptime fake-people fake-sessions \
         testquery test testv coverage bench benchmarks bench-device \
         bench-write bench-overflow bench-gate soak soak-ingest \
-        soak-digest demo clean
+        soak-digest demo clean test-torch chip-smoke

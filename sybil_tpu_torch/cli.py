@@ -1,0 +1,269 @@
+"""CLI of the port (reference: sybil_tpu/cli.py, main.go:14-24).
+
+    python -m sybil_tpu_torch <query|version> [flags]
+
+`query` takes the reference's flags plus `-device` (cuda by default,
+cpu for the plain PyTorch versions of the kernels).  The other
+subcommands of the reference are not ported yet and exit non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from . import constants, debug as dbg
+from .config import Flags
+from .table import Table, list_tables
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("-dir", "--dir", default="./db/")
+    p.add_argument("-table", "--table", default="")
+    p.add_argument("-debug", "--debug", action="store_true")
+    # -profile captures a torch.profiler device/host trace
+    p.add_argument("-profile", "--profile", action="store_true")
+    p.add_argument("-profile-dir", "--profile-dir", default="./profile")
+
+
+def _base_flags(args) -> Flags:
+    flags = Flags(dir=args.dir, table=args.table, debug=args.debug,
+                  profile=getattr(args, "profile", False),
+                  profile_dir=getattr(args, "profile_dir", "./profile"))
+    if args.debug:
+        dbg.DEBUG_FLAG = True
+    return flags
+
+
+# ---------------------------------------------------------------------------
+def _query_parser():
+    p = argparse.ArgumentParser(prog="query")
+    _add_common(p)
+    p.add_argument("-op", "--op", default="avg")
+    p.add_argument("-tables", "--tables", action="store_true")
+    p.add_argument("-info", "--info", action="store_true")
+    p.add_argument("-limit", "--limit", type=int, default=100)
+    p.add_argument("-print", "--print", dest="print_", action="store_true",
+                   default=True)
+    p.add_argument("-samples", "--samples", action="store_true")
+    p.add_argument("-export", "--export", action="store_true",
+                   help="export scanned data to db/TABLE/export/*.tsv.gz")
+    p.add_argument("-json", "--json", action="store_true")
+    p.add_argument("-sort", "--sort", default="$COUNT")
+    p.add_argument("-sort-asc", "--sort-asc", action="store_true")
+    p.add_argument("-prune-sort", "--prune-sort", default="$COUNT")
+    p.add_argument("-time", "--time", action="store_true")
+    p.add_argument("-time-col", "--time-col", default="time")
+    p.add_argument("-time-bucket", "--time-bucket", type=int, default=3600)
+    p.add_argument("-weight-col", "--weight-col", default="")
+    p.add_argument("-loghist", "--loghist", action="store_true")
+    p.add_argument("-tdigest", "--tdigest", action="store_true")
+    p.add_argument("-encode-results", "--encode-results", action="store_true")
+    p.add_argument("-encode-flags", "--encode-flags", action="store_true")
+    p.add_argument("-decode-flags", "--decode-flags", action="store_true")
+    p.add_argument("-int-filter", "--int-filter", default="")
+    p.add_argument("-int-bucket", "--int-bucket", type=int, default=0)
+    p.add_argument("-str-replace", "--str-replace", default="")
+    p.add_argument("-str-filter", "--str-filter", default="")
+    p.add_argument("-set-filter", "--set-filter", default="")
+    p.add_argument("-update-info", "--update-info", action="store_true")
+    p.add_argument("-int", "--int", dest="ints", default="")
+    p.add_argument("-str", "--str", dest="strs", default="")
+    p.add_argument("-set", "--set", dest="sets", default="")
+    p.add_argument("-sample-cols", "--sample-cols", default="")
+    p.add_argument("-group", "--group", default="")
+    p.add_argument("-distinct", "--distinct", default="")
+    p.add_argument("-distinct-limit", "--distinct-limit", type=int, default=-1)
+    p.add_argument("-read-log", "--read-log", action="store_true")
+    p.add_argument("-cache-queries", "--cache-queries", action="store_true")
+    # accepted for reference-CLI compatibility; no-ops here: slab
+    # recycling and key-table shortening are obviated by the HBM
+    # residency cache and columnar loads (cmd_query.go:62,99,102)
+    p.add_argument("-recycle-mem", "--recycle-mem", action="store_true",
+                   default=True)
+    p.add_argument("-fast-recycle", "--fast-recycle", action="store_true")
+    p.add_argument("-shorten-key-table", "--shorten-key-table",
+                   action="store_true")
+    p.add_argument("-device-batch", "--device-batch", type=int, default=16)
+    p.add_argument("-data-shards", "--data-shards", type=int, default=0,
+                   help="shard the scan over an N-device mesh")
+    # multi-host: join N processes into one mesh (parallel/multihost.py);
+    # the TPU-native alternative to shipping encode-flags/encode-results
+    # blobs between independent binaries
+    p.add_argument("-dist-coordinator", "--dist-coordinator", default="",
+                   help="host:port of process 0 (enables jax.distributed)")
+    p.add_argument("-dist-pid", "--dist-pid", type=int, default=-1)
+    p.add_argument("-dist-nproc", "--dist-nproc", type=int, default=0)
+    # multi-value flag separators, overridable so values may contain
+    # commas/colons (the Go client API passes ASCII 30/31,
+    # api/cmd_query.go:15-16,163-164)
+    p.add_argument("-field-separator", "--field-separator", default=",")
+    p.add_argument("-filter-separator", "--filter-separator", default=":")
+    # the port's counterpart of JAX_PLATFORMS: "cuda" runs the kernels,
+    # "cpu" their plain PyTorch versions
+    p.add_argument("-device", "--device", default="cuda",
+                   help="torch device of the scan: cuda (default) or cpu")
+    return p
+
+
+def _flags_from_query_args(args) -> Flags:
+    flags = _base_flags(args)
+    flags.op = args.op
+    flags.list_tables = args.tables
+    flags.print_info = args.info
+    flags.limit = args.limit
+    flags.samples = args.samples
+    flags.export = args.export
+    flags.json = args.json
+    flags.sort = args.sort
+    flags.sort_asc = args.sort_asc
+    flags.prune_by = args.prune_sort
+    flags.time = args.time
+    flags.time_col = args.time_col
+    flags.time_bucket = args.time_bucket
+    flags.weight_col = args.weight_col
+    flags.log_hist = args.loghist
+    flags.tdigest = args.tdigest
+    flags.encode_results = args.encode_results
+    flags.encode_flags = args.encode_flags
+    flags.decode_flags = args.decode_flags
+    flags.int_filters = args.int_filter
+    flags.hist_bucket = args.int_bucket
+    flags.str_replace = args.str_replace
+    flags.str_filters = args.str_filter
+    flags.set_filters = args.set_filter
+    flags.update_table_info = args.update_info
+    flags.ints = args.ints
+    flags.strs = args.strs
+    flags.sets = args.sets
+    flags.sample_cols = args.sample_cols
+    flags.groups = args.group
+    flags.distinct = args.distinct
+    flags.num_distinct = args.distinct_limit
+    flags.read_log = args.read_log
+    flags.cache_queries = args.cache_queries
+    flags.device_batch = args.device_batch
+    flags.data_shards = args.data_shards
+    flags.dist_coordinator = args.dist_coordinator
+    flags.dist_process_id = args.dist_pid
+    flags.dist_num_processes = args.dist_nproc
+    flags.field_separator = args.field_separator
+    flags.filter_separator = args.filter_separator
+    flags.device = args.device
+    return flags
+
+
+def cmd_query(argv):
+    args = _query_parser().parse_args(argv)
+    flags = _flags_from_query_args(args)
+    return run_query_flags(flags)
+
+
+def run_query_flags(flags: Flags) -> int:
+    from . import printer
+    from .query.spec import QueryParams
+
+    if flags.decode_flags:
+        # query arrives serialized on stdin (node protocol, config.go:185);
+        # non-zero fields overlay the command line, like gob decode-into
+        flags = flags.merge_decoded(sys.stdin.read())
+        flags.decode_flags = False
+
+    if flags.encode_flags:
+        f = Flags(**{**vars(flags)})
+        f.encode_flags = False
+        print(f.encode())
+        return 0
+
+    if flags.list_tables:
+        printer.print_tables(list_tables(flags), flags)
+        return 0
+
+    if not flags.table:
+        _query_parser().print_help()
+        return 1
+
+    t = Table(flags.table, flags)
+    if not t.exists():
+        dbg.error(flags.table, "table can not be loaded or does not exist in",
+                  flags.dir)
+
+    if flags.print_info:
+        t.load_info()
+        printer.print_table_info(t.table_info(), flags)
+        return 0
+
+    if flags.update_table_info:
+        raise NotImplementedError("-update-info is not ported yet "
+                                  "(ROADMAP A16)")
+
+    if flags.export:
+        raise NotImplementedError("-export is not ported yet (ROADMAP A16)")
+
+    from .profiler import device_trace
+    from .query.engine import run_query
+    params = QueryParams.from_flags(flags)
+    with device_trace(flags.profile_dir if flags.profile else None):
+        qr = run_query(t, params, flags)
+
+    if flags.samples:
+        printer.print_samples(qr.samples, params, flags)
+        return 0
+    printer.print_results(qr, params, flags)
+    return 0
+
+
+def cmd_version(argv):
+    p = argparse.ArgumentParser(prog="version")
+    p.add_argument("-json", "--json", action="store_true")
+    args = p.parse_args(argv)
+    info = {
+        "version": constants.VERSION,
+        "engine": "torch-cuda",
+        "features": {"dense-group-by": True, "device-decode-bucket2": True},
+    }
+    if args.json:
+        print(json.dumps(info, sort_keys=True))
+    else:
+        for k, v in info.items():
+            print(k, ":", v)
+    return 0
+
+
+COMMANDS = {
+    "query": cmd_query,
+    "version": cmd_version,
+}
+# the reference's other subcommands, still to be ported (ROADMAP A16)
+NOT_PORTED = ("ingest", "digest", "trim", "index", "rebuild", "inspect",
+              "aggregate")
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in NOT_PORTED:
+        print(f"sybil_tpu_torch: '{argv[0]}' is not ported yet; use "
+              f"python -m sybil_tpu {argv[0]}", file=sys.stderr)
+        return 2
+    if not argv or argv[0] not in COMMANDS:
+        print("usage: sybil_tpu_torch <%s>" % "|".join(sorted(COMMANDS)),
+              file=sys.stderr)
+        return 1
+    from .ops.kernels import DeviceUnavailable
+    try:
+        return COMMANDS[argv[0]](argv[1:]) or 0
+    except dbg.SybilError:
+        # already logged by dbg.error; die with a clean one-line fatal
+        # like the reference's Error = log.Fatalln (debug.go:26-27)
+        return 1
+    except DeviceUnavailable as e:
+        print("ERROR:", e, file=sys.stderr)
+        return 1
+    except NotImplementedError as e:
+        print("ERROR:", e, file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

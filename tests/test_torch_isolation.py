@@ -1,0 +1,93 @@
+"""The port stands alone: no file of sybil_tpu_torch/ (nor chip_smoke.py)
+imports jax or sybil_tpu, and a process that refuses both imports runs a
+port query to the end."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+from sybil_tpu_torch.config import Flags
+from sybil_tpu_torch.table import Table
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "sybil_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "sybil_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_port_source_imports_jax_or_reference():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+BLOCKER = """
+import importlib.abc, sys
+FORBIDDEN = {forbidden!r}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
+            raise ImportError("import of " + name + " refused")
+        return None
+
+for mod in list(sys.modules):
+    if any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN):
+        del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+for name in FORBIDDEN:
+    try:
+        __import__(name)
+    except ImportError:
+        continue
+    raise SystemExit("the import hook let " + name + " through")
+sys.argv = ["sybil_tpu_torch"] + {argv!r}
+import runpy
+runpy.run_module("sybil_tpu_torch", run_name="__main__")
+"""
+
+
+def test_port_query_runs_with_jax_and_reference_refused(tmp_path):
+    d = str(tmp_path / "db")
+    t = Table("uptime", Flags(dir=d, table="uptime", skip_compact=True))
+    rng = np.random.default_rng(3)
+    n = 3000
+    t.ingest_columns(ints={"ping": rng.integers(0, 150, n)},
+                     strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)]})
+    argv = ["query", "-dir", d, "-table", "uptime", "-group", "host",
+            "-int", "ping", "-op", "avg", "-json", "-device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                              argv=argv)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads(proc.stdout)
+    assert sum(r["Count"] for r in rows) == n
+    assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}

@@ -1,0 +1,317 @@
+"""The port's query path end to end against the JAX reference, on CPU.
+
+A bench-shaped uptime table (a few blocks; hosts and pings with missing
+rows) is written by sybil_tpu.  sybil_tpu_torch's run_query and its
+`query -json` output must equal the reference's: group keys, counts,
+samples, exact sums (through the averages) and the printed text byte
+for byte.  The on-disk format is shared both ways."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import sybil_tpu.digest as ref_digest
+import sybil_tpu_torch.digest as port_digest
+from sybil_tpu import blocks as ref_blocks
+from sybil_tpu import cli as ref_cli
+from sybil_tpu.config import Flags as RefFlags
+from sybil_tpu.query.engine import run_query as ref_run_query
+from sybil_tpu.query.spec import AggDef as RefAgg
+from sybil_tpu.query.spec import QueryParams as RefParams
+from sybil_tpu.table import Table as RefTable
+from sybil_tpu_torch import blocks as port_blocks
+from sybil_tpu_torch import cli as port_cli
+from sybil_tpu_torch.config import Flags
+from sybil_tpu_torch.ops import kernels, residency
+from sybil_tpu_torch.query.engine import run_query
+from sybil_tpu_torch.query.spec import AggDef, QueryParams
+from sybil_tpu_torch.table import Table
+
+HOSTS = ["www.facebook.com", "www.yahoo.com", "www.google.com",
+         "www.reddit.com", "github.com"]
+STATII = ["200", "403", "404", "500", "503"]
+N_ROWS = 9000
+CHUNK = 2048
+
+
+def _columns(seed: int):
+    rng = np.random.default_rng(seed)
+    n = N_ROWS
+    ints = {"ping": np.abs(rng.normal(60, 20, n)).astype(np.int64),
+            "weight": rng.choice([1, 10, 100], n).astype(np.int64),
+            "index_int": np.arange(n, dtype=np.int64) % 4000}
+    strs = {"host": [HOSTS[i] for i in rng.integers(0, 5, n)],
+            "status": [STATII[i] for i in rng.integers(0, 5, n)]}
+    valid = {"host": rng.random(n) > 0.07, "ping": rng.random(n) > 0.11,
+             "weight": rng.random(n) > 0.2}
+    return ints, strs, valid
+
+
+def _ingest(table, digest_mod, seed):
+    """Two bulk ingests with a small block size: the second tops up the
+    first's partial block, as the digest path does."""
+    old = digest_mod.CHUNK_SIZE
+    digest_mod.CHUNK_SIZE = CHUNK
+    try:
+        ints, strs, valid = _columns(seed)
+        half = N_ROWS // 2
+        for lo, hi in ((0, half), (half, N_ROWS)):
+            table.ingest_columns(
+                ints={k: v[lo:hi] for k, v in ints.items()},
+                strs={k: v[lo:hi] for k, v in strs.items()},
+                valid={k: v[lo:hi] for k, v in valid.items()})
+    finally:
+        digest_mod.CHUNK_SIZE = old
+
+
+@pytest.fixture(scope="module")
+def ref_table(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("refdb"))
+    t = RefTable("uptime", RefFlags(dir=d, table="uptime", skip_compact=True))
+    _ingest(t, ref_digest, 11)
+    return d
+
+
+QUERIES = {
+    "host-avg-ping": (("host",), ("ping",), ""),
+    "host-status": (("host", "status"), ("ping",), ""),
+    "weight-column": (("host",), ("ping",), "weight"),
+    "two-aggs": (("host",), ("ping", "weight"), ""),
+    "int-group-key": (("weight",), ("ping",), ""),
+    "no-groups": ((), ("ping",), ""),
+}
+
+
+def _snapshot(qr):
+    rows = {}
+    for k, r in qr.results.items():
+        rows[k] = (tuple(r.key_tuple), r.count, r.samples,
+                   {c: (h.count, h.avg) for c, h in r.hists.items()})
+    cum = qr.cumulative
+    return rows, (cum.count, cum.samples), qr.matched_count
+
+
+@pytest.mark.parametrize("batch", [2, 16])
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_run_query_matches_reference(ref_table, name, batch):
+    groups, aggs, w = QUERIES[name]
+    want = ref_run_query(
+        RefTable("uptime", RefFlags(dir=ref_table, table="uptime")),
+        RefParams(groups=groups, aggs=tuple(RefAgg(a, "avg") for a in aggs),
+                  weight_col=w),
+        RefFlags(dir=ref_table, table="uptime", device_batch=batch))
+    flags = Flags(dir=ref_table, table="uptime", device="cpu",
+                  device_batch=batch)
+    got = run_query(
+        Table("uptime", flags),
+        QueryParams(groups=groups, aggs=tuple(AggDef(a, "avg") for a in aggs),
+                    weight_col=w), flags)
+    assert _snapshot(got) == _snapshot(want)
+    assert [r.group_key for r in got.sorted] == \
+        [r.group_key for r in want.sorted]
+
+
+def _exact_sums(engine_mod, monkeypatch, run):
+    """{key tuple: (count, samples, ((present, Σkw, Σkw·v) per agg))} from
+    the accumulator as finish() finds it (parked batches, or the rows
+    they were merged into), summed in Python ints — the exact integers
+    the averages are made of."""
+    seen = []
+    orig = engine_mod._Accumulator.finish
+
+    def spy(self):
+        self._materialize()
+        seen.append({kt: (r["count"], r["samples"],
+                          tuple((a is not None, a and a["count"],
+                                 a and a["wv"]) for a in r["aggs"]))
+                     for kt, r in self.rows.items()})
+        return orig(self)
+
+    monkeypatch.setattr(engine_mod._Accumulator, "finish", spy)
+    run()
+    monkeypatch.setattr(engine_mod._Accumulator, "finish", orig)
+    return seen[0]
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_exact_int64_sums_match_reference(ref_table, name, monkeypatch):
+    import sybil_tpu.query.engine as ref_engine
+    import sybil_tpu_torch.query.engine as port_engine
+    groups, aggs, w = QUERIES[name]
+    want = _exact_sums(ref_engine, monkeypatch, lambda: ref_run_query(
+        RefTable("uptime", RefFlags(dir=ref_table, table="uptime")),
+        RefParams(groups=groups, aggs=tuple(RefAgg(a, "avg") for a in aggs),
+                  weight_col=w),
+        RefFlags(dir=ref_table, table="uptime", device_batch=2)))
+    flags = Flags(dir=ref_table, table="uptime", device="cpu",
+                  device_batch=2)
+    got = _exact_sums(port_engine, monkeypatch, lambda: run_query(
+        Table("uptime", flags),
+        QueryParams(groups=groups, aggs=tuple(AggDef(a, "avg") for a in aggs),
+                    weight_col=w), flags))
+    assert got == want and len(got) >= 1
+    assert all(isinstance(v[0], int) for v in got.values())
+
+
+def _cli_out(main, argv, capsys):
+    capsys.readouterr()
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fmt", ["-json", "text"])
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_cli_output_matches_reference_bytes(ref_table, name, fmt, capsys):
+    groups, aggs, w = QUERIES[name]
+    argv = ["query", "-dir", ref_table, "-table", "uptime", "-op", "avg",
+            "-int", ",".join(aggs)]
+    if groups:
+        argv += ["-group", ",".join(groups)]
+    if w:
+        argv += ["-weight-col", w]
+    if fmt == "-json":
+        argv.append("-json")
+    want = _cli_out(ref_cli.main, argv, capsys)
+    got = _cli_out(port_cli.main, argv + ["-device", "cpu"], capsys)
+    assert got == want
+    if fmt == "-json":
+        assert len(json.loads(got)) >= 1
+
+
+def _read_all(blocks_mod, table_dir, schema, names):
+    import os
+    out = []
+    for entry in sorted(os.listdir(table_dir)):
+        bdir = os.path.join(table_dir, entry)
+        if not entry.startswith("block") or not os.path.isdir(bdir):
+            continue
+        info = blocks_mod.load_block_info(bdir)
+        cols = blocks_mod.load_block_columns(bdir, schema, names)
+        out.append((info.num_records, info.int_exact,
+                    {k: (getattr(c, "values", getattr(c, "ids", None)),
+                         c.valid) for k, c in cols.items()}))
+    return out
+
+
+def _same_blocks(a, b):
+    assert len(a) == len(b)
+    for (na, ea, ca), (nb, eb, cb) in zip(a, b):
+        assert na == nb and ea == eb and set(ca) == set(cb)
+        for k in ca:
+            np.testing.assert_array_equal(ca[k][0], cb[k][0])
+            np.testing.assert_array_equal(ca[k][1], cb[k][1])
+
+
+def test_port_written_table_reads_back_through_reference(tmp_path):
+    d = str(tmp_path)
+    flags = Flags(dir=d, table="uptime", skip_compact=True, device="cpu")
+    _ingest(Table("uptime", flags), port_digest, 5)
+    names = ["host", "status", "ping", "weight", "index_int"]
+    rt = RefTable("uptime", RefFlags(dir=d, table="uptime"))
+    assert rt.load_info()
+    pt = Table("uptime", flags)
+    assert pt.load_info()
+    assert rt.schema.to_json() == pt.schema.to_json()
+    assert rt.dicts.get("host").strings == pt.dicts.get("host").strings
+    _same_blocks(_read_all(ref_blocks, rt.dir, rt.schema, names),
+                 _read_all(port_blocks, pt.dir, pt.schema, names))
+    want = ref_run_query(rt, RefParams(groups=("host",),
+                                       aggs=(RefAgg("ping", "avg"),)),
+                         RefFlags(dir=d, table="uptime"))
+    got = run_query(pt, QueryParams(groups=("host",),
+                                    aggs=(AggDef("ping", "avg"),)), flags)
+    assert _snapshot(got) == _snapshot(want)
+
+
+def test_reference_written_table_reads_back_through_port(ref_table):
+    names = ["host", "status", "ping", "weight", "index_int"]
+    rt = RefTable("uptime", RefFlags(dir=ref_table, table="uptime"))
+    pt = Table("uptime", Flags(dir=ref_table, table="uptime"))
+    assert rt.load_info() and pt.load_info()
+    assert [b.num_records for b in pt.block_infos().values()] == \
+        [b.num_records for b in rt.block_infos().values()]
+    _same_blocks(_read_all(ref_blocks, rt.dir, rt.schema, names),
+                 _read_all(port_blocks, pt.dir, pt.schema, names))
+
+
+def test_same_table_written_by_both_is_identical(tmp_path):
+    """Same columns, same seed: the two writers produce the same blocks."""
+    da, db = str(tmp_path / "a"), str(tmp_path / "b")
+    _ingest(RefTable("uptime", RefFlags(dir=da, table="uptime",
+                                        skip_compact=True)), ref_digest, 3)
+    _ingest(Table("uptime", Flags(dir=db, table="uptime",
+                                  skip_compact=True)), port_digest, 3)
+    rt = RefTable("uptime", RefFlags(dir=da, table="uptime"))
+    pt = Table("uptime", Flags(dir=db, table="uptime"))
+    assert rt.load_info() and pt.load_info()
+    names = ["host", "status", "ping", "weight", "index_int"]
+    _same_blocks(_read_all(ref_blocks, rt.dir, rt.schema, names),
+                 _read_all(port_blocks, pt.dir, pt.schema, names))
+
+
+def test_default_device_without_cuda_raises(ref_table, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device exists")
+    assert Flags().device == "cuda"
+    t = Table("uptime", Flags(dir=ref_table, table="uptime"))
+    with pytest.raises(kernels.DeviceUnavailable, match="device cpu"):
+        run_query(t, QueryParams(groups=("host",),
+                                 aggs=(AggDef("ping", "avg"),)), t.flags)
+    rc = port_cli.main(["query", "-dir", ref_table, "-table", "uptime",
+                        "-group", "host", "-int", "ping", "-json"])
+    assert rc == 1
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("change,item", [
+    ({"read_log": True}, "A13"),
+    ({"cache_queries": True}, "A13"),
+    ({"data_shards": 2}, "A14"),
+])
+def test_unported_engine_modes_raise(ref_table, change, item):
+    flags = dataclasses.replace(
+        Flags(dir=ref_table, table="uptime", device="cpu"), **change)
+    with pytest.raises(NotImplementedError, match=item):
+        run_query(Table("uptime", flags),
+                  QueryParams(groups=("host",),
+                              aggs=(AggDef("ping", "avg"),)), flags)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["-int-filter", "ping:gt:50"], "B6"),
+    (["-op", "hist"], "B6"),
+    (["-time", "-time-col", "index_int", "-time-bucket", "100"], "B8"),
+    (["-distinct", "status"], "B9"),
+    (["-group", "index_int,weight"], "B7"),
+])
+def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
+                                                      capsys):
+    base = ["query", "-dir", ref_table, "-table", "uptime", "-int", "ping",
+            "-device", "cpu", "-json"]
+    if "-group" not in argv:
+        base += ["-group", "host"]
+    assert port_cli.main(base + argv) == 2
+    assert item in capsys.readouterr().err
+
+
+def test_other_subcommands_are_not_ported(capsys):
+    assert port_cli.main(["digest", "-dir", "x", "-table", "t"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+    assert port_cli.main(["version", "-json"]) == 0
+    assert json.loads(capsys.readouterr().out)["engine"] == "torch-cuda"
+
+
+def test_warm_query_reuses_resident_columns(ref_table):
+    flags = Flags(dir=ref_table, table="uptime", device="cpu",
+                  device_batch=16)
+    t = Table("uptime", flags)
+    params = QueryParams(groups=("host",), aggs=(AggDef("ping", "avg"),))
+    residency.CACHE.clear()
+    cold = run_query(t, params, flags)
+    misses = residency.CACHE.misses
+    warm = run_query(t, params, flags)
+    assert residency.CACHE.misses == misses
+    assert _snapshot(cold) == _snapshot(warm)
