@@ -1,0 +1,160 @@
+// K5 outlier_compact: the outlier rows of one histogram aggregation in
+// the packed download buffer.
+//
+// Replaces sybil_tpu/ops/scan.py:_mask_positions (the first kmax set
+// rows of a mask, in row order, by cumsum + searchsorted) and the
+// outlier section of pack_outputs: row j of the section is
+// [key_0 .. key_{K-1}, value, live] padded with zeros to W words, for
+// the j-th set row of the mask.  key_k is the group key (MISSING = -1
+// where the key column is missing); a scan without group columns has
+// one zero key.  When fewer than kmax rows are set, the reference
+// gathers row R-1 for each remaining entry (searchsorted returns R,
+// clipped to R-1), so padding rows hold row R-1's keys and value with
+// live = 0; this kernel writes the same words.
+//
+// Bound: memory, one read of the 1 B mask per row; the section itself
+// is at most kmax * W words.  Design, three launches on one stream:
+//   1. count: each CTA counts the set rows of its TILE-row tile;
+//   2. scan:  one CTA turns the tile counts into exclusive offsets and
+//             the total;
+//   3. write: each CTA whose offset is below kmax ranks its set rows in
+//             row order (a warp ballot and a block scan per 256 rows)
+//             and writes those with rank < kmax; then all CTAs together
+//             write the padding rows [total, kmax).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 4096;
+constexpr int SCAN_THREADS = 1024;
+constexpr int MAXK = 16;
+
+}  // namespace
+
+// Mirrored field for field by OutlierCompactArgs in ops/scan.py (ctypes).
+struct OutlierCompactArgs {
+  const unsigned char* mask;   // [R]
+  const long long* vals;       // [R]
+  const long long* key_vals[MAXK];
+  const unsigned char* key_valid[MAXK];
+  long long* out;              // [kmax, W] rows of the download buffer
+  int* offsets;                // [ntiles + 1] scratch: counts, then offsets
+  long long R;
+  int kmax;
+  int W;
+  int nkeys;                   // group columns; 0 = one zero key
+  int ntiles;
+};
+
+namespace {
+
+__device__ void write_row(const OutlierCompactArgs& a, long long j,
+                          long long r, long long live) {
+  long long* o = a.out + j * a.W;
+  const int K = a.nkeys > 0 ? a.nkeys : 1;
+  for (int k = 0; k < a.nkeys; ++k)
+    o[k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
+  if (a.nkeys == 0) o[0] = 0;
+  o[K] = a.vals[r];
+  o[K + 1] = live;
+  for (int k = K + 2; k < a.W; ++k) o[k] = 0;
+}
+
+__global__ void __launch_bounds__(THREADS) count_tiles(
+    const OutlierCompactArgs a) {
+  const long long lo = (long long)blockIdx.x * TILE;
+  int n = 0;
+  for (int i = threadIdx.x; i < TILE; i += THREADS) {
+    const long long r = lo + i;
+    if (r < a.R && a.mask[r]) ++n;
+  }
+  __shared__ int s_n;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  if (n) atomicAdd(&s_n, n);
+  __syncthreads();
+  if (threadIdx.x == 0) a.offsets[blockIdx.x] = s_n;
+}
+
+// Block-wide exclusive scan of one int per thread; returns the prefix
+// and writes the block total to *total.  All threads must call it.
+template <int NT>
+__device__ int block_scan(int x, int* total) {
+  __shared__ int s_warp[NT / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < NT / 32 ? s_warp[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < NT / 32) s_warp[lane] = w;  // inclusive warp totals
+  }
+  __syncthreads();
+  const int before = warp ? s_warp[warp - 1] : 0;
+  *total = s_warp[NT / 32 - 1];
+  __syncthreads();
+  return before + inc - x;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(
+    const OutlierCompactArgs a) {
+  int carry = 0;
+  for (int base = 0; base < a.ntiles; base += SCAN_THREADS) {
+    const int i = base + threadIdx.x;
+    const int x = i < a.ntiles ? a.offsets[i] : 0;
+    int total;
+    const int pre = block_scan<SCAN_THREADS>(x, &total);
+    if (i < a.ntiles) a.offsets[i] = carry + pre;
+    carry += total;
+  }
+  if (threadIdx.x == 0) a.offsets[a.ntiles] = carry;
+}
+
+__global__ void __launch_bounds__(THREADS) write_rows(
+    const OutlierCompactArgs a) {
+  const long long lo = (long long)blockIdx.x * TILE;
+  int rank = a.offsets[blockIdx.x];
+  const int total = a.offsets[a.ntiles];
+  if (rank < a.kmax) {
+    for (int i = 0; i < TILE && rank < a.kmax; i += THREADS) {
+      const long long r = lo + i + threadIdx.x;
+      const bool set = r < a.R && a.mask[r];
+      int n;
+      const int pre = block_scan<THREADS>(set ? 1 : 0, &n);
+      if (set && rank + pre < a.kmax) write_row(a, rank + pre, r, 1);
+      rank += n;
+    }
+  }
+  // padding entries gather row R-1, as the reference's clipped
+  // searchsorted does
+  for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
+       j < a.kmax; j += (long long)gridDim.x * THREADS)
+    if (j >= total) write_row(a, j, a.R - 1, 0);
+}
+
+}  // namespace
+
+// Runs the three steps on `stream`.  Returns cudaError_t.
+extern "C" int outlier_compact(const OutlierCompactArgs* args, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  count_tiles<<<args->ntiles, THREADS, 0, s>>>(*args);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scan_tiles<<<1, SCAN_THREADS, 0, s>>>(*args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  write_rows<<<args->ntiles, THREADS, 0, s>>>(*args);
+  return cudaGetLastError();
+}

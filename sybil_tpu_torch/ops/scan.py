@@ -1,26 +1,37 @@
 """The dense scan: group-by + aggregate over a batch of column blocks.
 
 Port of sybil_tpu/ops/scan.py for the dense strategy (group keys with a
-known bounded cardinality, BASELINE config 1 `group by host, avg ping`).
-The device-free parts are copies of the reference's: the static
-ScanConfig with its slot arithmetic, and the packed-download layout
-(main_width, table_prefix, dense_table_plan, dense_keys_np,
-packed_layout) that the engine's reader shares with the writer.
+known bounded cardinality): BASELINE config 1 `group by host, avg ping`
+and the filtered histogram queries of configs 2 and 3.  The device-free
+parts are copies of the reference's: the static ScanConfig with its slot
+arithmetic, and the packed-download layout (main_width, table_prefix,
+dense_table_plan, dense_keys_np, packed_layout) that the engine's reader
+shares with the writer.
 
-The device work is two hand-written CUDA kernels (csrc/):
+The device work is four hand-written CUDA kernels (csrc/), run in this
+order by scan_packed:
 
-K2 dense_scan  one fused pass over the rows: row-in-range, key lanes,
-               mixed-radix gid with MISSING = digit 0 and a spill
-               count, weight and aggregation lanes, exact int64
-               per-slot sums over the compact [g+1] reduce space
-K3 dense_pack  the meta row and the compact keyless table of the one
-               download buffer, word for word the reference's `main`
+K2 dense_scan       one fused pass over the rows: row-in-range and the
+                    int/str/regex filters, key lanes, mixed-radix gid with
+                    MISSING = digit 0 and a spill count, weight and
+                    aggregation lanes, exact int64 per-slot sums and the
+                    histogram aggregations' per-slot min/max over the
+                    compact [g+1] reduce space; each row's gid for K4
+K4 dense_hist       per histogram aggregation: bucket ids (basic or
+                    multihist), exact per-(slot, bucket) weighted counts,
+                    and the outlier mask, values and count
+K5 outlier_compact  per tracked histogram aggregation: the first kmax
+                    outlier rows [keys, value, live] of the download
+K3 dense_pack       the meta row, the compact keyless table with the
+                    histogram min/max words, and the dense histogram gid
+                    and bucket sections; with K5's rows, word for word the
+                    reference's `main`
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.  scan_packed raises
 NotImplementedError, naming the ROADMAP item, for every scan shape
-this slice does not carry yet (sorted/enumerated strategies, filters,
-time rollups, histograms, distinct counts, samples, mesh scans).
+this slice does not carry yet (sorted/enumerated strategies, set
+filters, time rollups, distinct counts, samples, mesh scans).
 """
 
 from __future__ import annotations
@@ -407,14 +418,17 @@ def check_supported(config: ScanConfig) -> None:
     def no(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
     if config.strategy != "dense":
+        if any(a.num_values > 0 for a in config.aggs):
+            no("histograms under the sorted scan strategy (-tdigest, "
+               "unbounded or spilled group keys)", "B7")
         no("the sorted scan strategy (unbounded or spilled group keys, "
            "-tdigest) and the enumerated top-k strategy", "B7, B10")
-    if config.filters:
-        no("scan filters", "B6")
+    if any(f.kind == "set" for f in config.filters):
+        no("set filters (in/nin over set columns)", "B6b")
+    if len(config.filters) > _MAXF:
+        no(f"more than {_MAXF} filters", "B6b")
     if config.time_col or config.window:
         no("time rollups", "B8")
-    if config.track_outliers or any(a.num_values > 0 for a in config.aggs):
-        no("histogram aggregations", "B6")
     if config.distinct_cols or config.hll:
         no("count distinct", "B9")
     if config.want_matched_mask:
@@ -451,16 +465,56 @@ def _batch_shape(cols) -> tuple[int, int]:
     return int(some.shape[0]), int(some.shape[1])
 
 
+def hist_aggs(config: ScanConfig) -> list[int]:
+    """Indices of the histogram aggregations (num_values > 0), in order:
+    the order of their min/max columns, meta words and sections."""
+    return [ai for ai, a in enumerate(config.aggs) if a.num_values > 0]
+
+
+def _grid(dev, R: int, tab_bytes: int, use_shared: bool) -> int:
+    """CTAs of a grid-stride row kernel: as many as fit the SMs (at most
+    8 a SM, fewer when each holds a large shared table)."""
+    per_sm = max(1, min(8, (228 << 10) // (tab_bytes + 1024))) \
+        if use_shared else 8
+    return max(1, min(-(-R // 256), _sm_count(dev) * per_sm))
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_tensor(t, shape, dtype, what, dev, kernel):
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
+                         f"{list(shape)} tensor on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_col(cols, name, B, C, dev, kernel):
+    """-> (values, valid) of column `name`, checked as int64 and bool
+    [B, C] contiguous tensors on `dev`."""
+    v, m = cols[name]
+    _check_tensor(v, (B, C), torch.int64, f"values of {name}", dev, kernel)
+    _check_tensor(m, (B, C), torch.bool, f"validity of {name}", dev, kernel)
+    return v, m
+
+
 # ---------------------------------------------------------------------------
 # K2 dense_scan
 # ---------------------------------------------------------------------------
 
 _MAXK = 16
 _MAXA = 32
-# per-CTA private sum tables up to this size live in shared memory
-# (the H100 lets one CTA opt in to 227 KB); larger tables add to global
-# memory directly
+_MAXF = 16
+# per-CTA private tables up to this size live in shared memory (the H100
+# lets one CTA opt in to 227 KB); larger tables update global memory
+# directly
 SHARED_TABLE_BYTES = 200 << 10
+# filter op codes of csrc/dense_scan.cu; any other op never matches
+FILTER_OPS = {"gt": 0, "lt": 1, "eq": 2, "neq": 3, "re": 4, "nre": 5}
+_NEVER = 6
+_BIG = 2 ** 62                  # empty-slot min/max sentinel
 
 
 class DenseScanArgs(ctypes.Structure):
@@ -475,26 +529,66 @@ class DenseScanArgs(ctypes.Structure):
         ("agg_dmin", ctypes.c_longlong * _MAXA),
         ("agg_dmax", ctypes.c_longlong * _MAXA),
         ("agg_bias", ctypes.c_longlong * _MAXA),
+        ("f_vals", ctypes.c_void_p * _MAXF),
+        ("f_valid", ctypes.c_void_p * _MAXF),
+        ("f_bits", ctypes.c_void_p * _MAXF),
+        ("f_bits_len", ctypes.c_longlong * _MAXF),
+        ("filter_vals", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
         ("nrec", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
         ("spill", ctypes.c_void_p),
+        ("mins", ctypes.c_void_p),
+        ("maxs", ctypes.c_void_p),
+        ("gid_out", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
+        ("f_op", ctypes.c_int * _MAXF),
+        ("agg_mm", ctypes.c_int * _MAXA),
         ("log2C", ctypes.c_int),
         ("nkeys", ctypes.c_int),
         ("naggs", ctypes.c_int),
+        ("nfilters", ctypes.c_int),
         ("slots", ctypes.c_int),
         ("Sc", ctypes.c_int),
         ("L", ctypes.c_int),
+        ("H", ctypes.c_int),
         ("has_weight", ctypes.c_int),
         ("pad_", ctypes.c_int),
     ]
 
 
-def dense_scan_plain(config: ScanConfig, cols, nrec):
-    """Plain PyTorch version of K2: lanes [R, 2+3A] + index_add_ over
-    the compact reduce space.  -> (sums int64 [Sc, L], spill int64 [1])."""
+def _filter_ok(f: FilterSpec, v, ok, fv, bitsets):
+    """One non-set filter over flat values (reference _front_end)."""
+    if f.op == "gt":
+        return ok & (v > fv)
+    if f.op == "lt":
+        return ok & (v < fv)
+    if f.op == "eq":
+        return ok & (v == fv)
+    if f.op == "neq":
+        return ok & (v != fv)
+    if f.op in ("re", "nre"):
+        bits = bitsets[f.bitset_idx]
+        hit = bits[v.clamp(0, bits.shape[0] - 1)]
+        return ok & (hit if f.op == "re" else ~hit)
+    return torch.zeros_like(ok)          # unknown op never matches
+
+
+def _weight_plain(config: ScanConfig, flat, R: int, dev):
+    if config.weight_col:
+        wv, wm = flat[config.weight_col]
+        return torch.where(wm, wv, 1)
+    return torch.ones(R, dtype=torch.int64, device=dev)
+
+
+def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
+                     bitsets=()):
+    """Plain PyTorch version of K2: filters, lanes [R, 2+3A] + index_add_
+    over the compact reduce space, scatter min/max of kept values.
+    -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs" int64
+    [Sc, H], "gid" int32 [R] (dead rows Sc-1) or None without hist
+    aggs}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = nrec.device
@@ -502,6 +596,9 @@ def dense_scan_plain(config: ScanConfig, cols, nrec):
     flat = _flat_cols(cols, R)
     matched = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
                < nrec[:, None]).reshape(R)
+    for i, f in enumerate(config.filters):
+        v, ok = flat[f.col]
+        matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
     if not config.key_bounds:
         gid = torch.where(matched, 0, slots - 1).to(torch.int32)
         spill = torch.zeros((), dtype=torch.int64, device=dev)
@@ -518,72 +615,77 @@ def dense_scan_plain(config: ScanConfig, cols, nrec):
         spill = (spilled & matched).sum(dtype=torch.int64)
     if compact:
         gid = torch.where(gid == slots - 1, Sc - 1, gid)
-    if config.weight_col:
-        wv, wm = flat[config.weight_col]
-        weight = torch.where(wm, wv, 1)
-    else:
-        weight = torch.ones(R, dtype=torch.int64, device=dev)
+    weight = _weight_plain(config, flat, R, dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     lanes = [torch.where(matched, weight, zero), matched.to(torch.int64)]
     vbias = config.agg_vbias or (0,) * len(config.aggs)
-    for agg, bias in zip(config.aggs, vbias):
+    hist = hist_aggs(config)
+    mins = torch.full((Sc, len(hist)), _BIG, dtype=torch.int64, device=dev)
+    maxs = torch.full((Sc, len(hist)), -_BIG, dtype=torch.int64, device=dev)
+    for ai, (agg, bias) in enumerate(zip(config.aggs, vbias)):
         v, populated = flat[agg.col]
         keep = matched & populated & ~((v > agg.discard_max) |
                                        (v < agg.discard_min))
         kw = torch.where(keep, weight, zero)
         lanes += [(matched & populated).to(torch.int64), kw, kw * (v - bias)]
+        if ai in hist:
+            j = hist.index(ai)
+            idx, kv = gid[keep].to(torch.int64), v[keep]
+            mins[:, j].scatter_reduce_(0, idx, kv, "amin")
+            maxs[:, j].scatter_reduce_(0, idx, kv, "amax")
     sums = torch.zeros((Sc, len(lanes)), dtype=torch.int64, device=dev)
     sums.index_add_(0, gid.to(torch.int64), torch.stack(lanes, dim=1))
-    return sums, spill.reshape(1)
+    return {"sums": sums, "spill": spill.reshape(1), "mins": mins,
+            "maxs": maxs, "gid": gid if hist else None}
 
 
-def _check_lane(t, B, C, dtype, what, dev):
-    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != (B, C)
-            or not t.is_contiguous()):
-        raise ValueError(f"dense_scan: {what} must be a contiguous {dtype} "
-                         f"[{B}, {C}] tensor on {dev}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-
-
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def dense_scan(config: ScanConfig, cols, nrec):
-    """K2: -> (sums int64 [Sc, L], spill int64 [1]).
+def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
+               bitsets=()):
+    """K2: -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs"
+    int64 [Sc, H], "gid" int32 [R] or None}, as dense_scan_plain.
 
     cols: {name: (values int64 [B, C], valid bool [B, C])}; nrec int32
-    [B].  CUDA tensors launch the kernel (csrc/dense_scan.cu); CPU
-    tensors take dense_scan_plain.
+    [B]; filter_vals int64 [F] (one constant per filter); bitsets: bool
+    regex bitsets indexed by FilterSpec.bitset_idx.  CUDA tensors launch
+    the kernel (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
 
-    Replaces sybil_tpu/ops/scan.py:_front_end, _dense_gid, _agg_row_data
-    and the plain _dense_reduce of _scan_dense.  Bound by memory (9 B
-    read per row per referenced column); one grid-stride pass with a
-    per-CTA shared-memory sum table, or global atomics when the table
-    exceeds SHARED_TABLE_BYTES (see the source note)."""
+    Replaces sybil_tpu/ops/scan.py:_front_end (filters included),
+    _dense_gid, _agg_row_data and the plain _dense_reduce sums and min/max
+    of _scan_dense.  Bound by memory (9 B read per row per referenced
+    column); one grid-stride pass with per-CTA shared-memory tables, or
+    global atomics when they exceed SHARED_TABLE_BYTES (see the source
+    note)."""
     B, C = _batch_shape(cols)
     dev = nrec.device
+    nf = len(config.filters)
+    if filter_vals is None:
+        filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
-        return dense_scan_plain(config, cols, nrec)
+        return dense_scan_plain(config, cols, nrec, filter_vals, bitsets)
     if dev.type != "cuda":
         raise ValueError(f"dense_scan: unsupported device {dev}")
     if C & (C - 1):
         raise ValueError(f"dense_scan: C must be a power of two, got {C}")
-    if (nrec.dtype != torch.int32 or tuple(nrec.shape) != (B,)
-            or not nrec.is_contiguous()):
-        raise ValueError("dense_scan: nrec must be a contiguous int32 [B]")
+    _check_tensor(nrec, (B,), torch.int32, "nrec", dev, "dense_scan")
+    _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
+                  "dense_scan")
     nk, na = len(config.key_bounds), len(config.aggs)
-    if nk > _MAXK or na > _MAXA:
+    if nk > _MAXK or na > _MAXA or nf > _MAXF:
         raise NotImplementedError(
-            f"dense_scan takes at most {_MAXK} group keys and {_MAXA} "
-            f"aggregations, got {nk} and {na}")
-    for name, (v, m) in cols.items():
-        _check_lane(v, B, C, torch.int64, f"values of {name}", dev)
-        _check_lane(m, B, C, torch.bool, f"validity of {name}", dev)
+            f"dense_scan takes at most {_MAXK} group keys, {_MAXA} "
+            f"aggregations and {_MAXF} filters, got {nk}, {na} and {nf}")
+    for name in cols:
+        _check_col(cols, name, B, C, dev, "dense_scan")
     slots, Sc, _ = reduce_space(config)
     L = 2 + 3 * na
+    hist = hist_aggs(config)
+    H = len(hist)
+    R = B * C
     sums = torch.empty((Sc, L), dtype=torch.int64, device=dev)
     spill = torch.empty(1, dtype=torch.int64, device=dev)
+    mins = torch.empty((Sc, H), dtype=torch.int64, device=dev)
+    maxs = torch.empty((Sc, H), dtype=torch.int64, device=dev)
+    gid = torch.empty(R, dtype=torch.int32, device=dev) if H else None
 
     a = DenseScanArgs()
     for i, (g, (mn, card)) in enumerate(zip(config.group_cols,
@@ -597,33 +699,321 @@ def dense_scan(config: ScanConfig, cols, nrec):
         a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
         a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
         a.agg_bias[i] = bias
+        a.agg_mm[i] = hist.index(i) if i in hist else -1
+    for i, f in enumerate(config.filters):
+        v, m = cols[f.col]
+        a.f_vals[i], a.f_valid[i] = v.data_ptr(), m.data_ptr()
+        a.f_op[i] = FILTER_OPS.get(f.op, _NEVER)
+        if f.op in ("re", "nre"):
+            bits = bitsets[f.bitset_idx]
+            _check_tensor(bits, (bits.shape[0],), torch.bool,
+                          f"bitset {f.bitset_idx}", dev, "dense_scan")
+            a.f_bits[i], a.f_bits_len[i] = bits.data_ptr(), bits.shape[0]
+    a.filter_vals = filter_vals.data_ptr()
     if config.weight_col:
         v, m = cols[config.weight_col]
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
     a.nrec, a.sums, a.spill = nrec.data_ptr(), sums.data_ptr(), spill.data_ptr()
-    a.R, a.log2C = B * C, C.bit_length() - 1
-    a.nkeys, a.naggs, a.slots, a.Sc, a.L = nk, na, slots, Sc, L
+    a.mins, a.maxs = mins.data_ptr(), maxs.data_ptr()
+    a.gid_out = gid.data_ptr() if H else None
+    a.R, a.log2C = R, C.bit_length() - 1
+    a.nkeys, a.naggs, a.nfilters = nk, na, nf
+    a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
 
-    tab_bytes = Sc * L * 8
-    use_shared = tab_bytes <= SHARED_TABLE_BYTES
-    per_sm = max(1, min(8, (228 << 10) // (tab_bytes + 1024))) \
-        if use_shared else 8
-    grid = max(1, min(-(-(B * C) // 256), _sm_count(dev) * per_sm))
+    tab_bytes = _k2_table_bytes(config)
+    use_shared = dense_scan_path(config) == "shared"
     fn = kernels.lib("dense_scan").dense_scan
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), int(use_shared), grid,
+    kernels.check(fn(ctypes.byref(a), int(use_shared),
+                     _grid(dev, R, tab_bytes, use_shared),
                      kernels.stream_handle(dev)), "dense_scan")
     kernels.LAUNCHES["dense_scan"] += 1
-    return sums, spill
+    return {"sums": sums, "spill": spill, "mins": mins, "maxs": maxs,
+            "gid": gid}
+
+
+def _k2_table_bytes(config: ScanConfig) -> int:
+    """K2's per-CTA tables: [Sc, L] sums and [Sc, H] mins and maxs."""
+    _, Sc, _ = reduce_space(config)
+    return Sc * (2 + 3 * len(config.aggs) + 2 * len(hist_aggs(config))) * 8
 
 
 def dense_scan_path(config: ScanConfig) -> str:
     """Which form of K2 a config takes: "shared" or "global"."""
+    return ("shared" if _k2_table_bytes(config) <= SHARED_TABLE_BYTES
+            else "global")
+
+
+# ---------------------------------------------------------------------------
+# K4 dense_hist
+# ---------------------------------------------------------------------------
+
+_MAXSUB = 64
+
+
+class DenseHistArgs(ctypes.Structure):
+    """Mirror of struct DenseHistArgs in csrc/dense_hist.cu."""
+    _fields_ = [
+        ("gid", ctypes.c_void_p),
+        ("vals", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+        ("w_vals", ctypes.c_void_p),
+        ("w_valid", ctypes.c_void_p),
+        ("counts", ctypes.c_void_p),
+        ("out_mask", ctypes.c_void_p),
+        ("out_val", ctypes.c_void_p),
+        ("nout", ctypes.c_void_p),
+        ("sub_min", ctypes.c_longlong * _MAXSUB),
+        ("sub_max", ctypes.c_longlong * _MAXSUB),
+        ("sub_bs", ctypes.c_longlong * _MAXSUB),
+        ("sub_nv", ctypes.c_longlong * _MAXSUB),
+        ("sub_off", ctypes.c_longlong * _MAXSUB),
+        ("R", ctypes.c_longlong),
+        ("hist_min", ctypes.c_longlong),
+        ("bucket_size", ctypes.c_longlong),
+        ("dmin", ctypes.c_longlong),
+        ("dmax", ctypes.c_longlong),
+        ("nv", ctypes.c_int),
+        ("nsub", ctypes.c_int),
+        ("Sc", ctypes.c_int),
+        ("has_weight", ctypes.c_int),
+    ]
+
+
+def hist_bucket_plain(agg: AggSpec, v):
+    """-> (bucket id int64 [R], in a bucket range bool, is-outlier bool):
+    the reference's _hist_bucket, with Go's truncating division."""
+    def tdiv(x, d):
+        return torch.div(x, d, rounding_mode="trunc")
+    if agg.sub_edges:
+        bv = torch.zeros_like(v)
+        assigned = torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+        is_out = torch.zeros_like(assigned)
+        for (smin, smax, sbs, snv, soff) in agg.sub_edges:
+            inrange = (v >= smin) & (v <= smax) & ~assigned
+            raw = tdiv(v - smin, sbs)
+            is_out = is_out | (inrange & (raw >= snv))
+            bv = torch.where(inrange, raw.clamp(0, snv - 1) + soff, bv)
+            assigned = assigned | inrange
+        return bv, assigned, is_out
+    nv = agg.num_values
+    raw = tdiv(v - agg.hist_min, agg.bucket_size)
+    return (raw.clamp(0, nv - 1), torch.ones_like(v, dtype=torch.bool),
+            raw >= nv)
+
+
+def dense_hist_plain(config: ScanConfig, ai: int, cols, gid):
+    """Plain PyTorch version of K4 for aggregation `ai`: -> {"hist" int64
+    [Sc, nv], and with track_outliers "out_mask" bool [R], "out_val"
+    int64 [R], "nout" int64 [1] (else None)}."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    dev = gid.device
     _, Sc, _ = reduce_space(config)
-    L = 2 + 3 * len(config.aggs)
-    return "shared" if Sc * L * 8 <= SHARED_TABLE_BYTES else "global"
+    agg = config.aggs[ai]
+    nv = agg.num_values
+    flat = _flat_cols(cols, R)
+    v, m = flat[agg.col]
+    keep = (gid != Sc - 1) & m & ~((v > agg.discard_max) |
+                                   (v < agg.discard_min))
+    bv, inrange, is_out = hist_bucket_plain(agg, v)
+    hc = keep & inrange
+    weight = _weight_plain(config, flat, R, dev)
+    flat_id = gid.to(torch.int64) * nv + bv
+    counts = torch.zeros(Sc * nv, dtype=torch.int64, device=dev)
+    counts.index_add_(0, flat_id[hc], weight[hc])
+    out = {"hist": counts.reshape(Sc, nv), "out_mask": None,
+           "out_val": None, "nout": None}
+    if config.track_outliers:
+        mask = hc & is_out
+        out["out_mask"] = mask
+        out["out_val"] = torch.where(mask, v, 0)
+        out["nout"] = mask.sum(dtype=torch.int64).reshape(1)
+    return out
+
+
+def dense_hist(config: ScanConfig, ai: int, cols, gid):
+    """K4 for aggregation `ai`: as dense_hist_plain.  CUDA tensors launch
+    the kernel (csrc/dense_hist.cu); CPU tensors take dense_hist_plain.
+
+    gid: K2's int32 [R] reduce-space gid (dead rows Sc-1).  Replaces
+    sybil_tpu/ops/scan.py:_hist_bucket, _hist_matmul / _hist_scatter and
+    _outlier_outputs.  Bound by memory; a per-CTA shared [Sc, nv] table
+    of exact 64-bit atomic adds, or global atomics when it exceeds
+    SHARED_TABLE_BYTES (see the source note)."""
+    B, C = _batch_shape(cols)
+    dev = gid.device
+    if dev.type == "cpu":
+        return dense_hist_plain(config, ai, cols, gid)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_hist: unsupported device {dev}")
+    R = B * C
+    agg = config.aggs[ai]
+    nv = agg.num_values
+    if nv <= 0:
+        raise ValueError(f"dense_hist: aggregation {ai} has no buckets")
+    if len(agg.sub_edges) > _MAXSUB:
+        raise NotImplementedError(
+            f"dense_hist takes at most {_MAXSUB} multihist sub-ranges, got "
+            f"{len(agg.sub_edges)}")
+    if not agg.sub_edges and agg.bucket_size <= 0:
+        raise ValueError(f"dense_hist: bucket size {agg.bucket_size}")
+    _check_tensor(gid, (R,), torch.int32, "gid", dev, "dense_hist")
+    v, m = _check_col(cols, agg.col, B, C, dev, "dense_hist")
+    _, Sc, _ = reduce_space(config)
+    counts = torch.empty((Sc, nv), dtype=torch.int64, device=dev)
+    out = {"hist": counts, "out_mask": None, "out_val": None, "nout": None}
+    a = DenseHistArgs()
+    a.gid, a.vals, a.valid = gid.data_ptr(), v.data_ptr(), m.data_ptr()
+    if config.weight_col:
+        wv, wm = _check_col(cols, config.weight_col, B, C, dev,
+                            "dense_hist")
+        a.w_vals, a.w_valid, a.has_weight = wv.data_ptr(), wm.data_ptr(), 1
+    a.counts = counts.data_ptr()
+    if config.track_outliers:
+        out["out_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
+        out["out_val"] = torch.empty(R, dtype=torch.int64, device=dev)
+        out["nout"] = torch.empty(1, dtype=torch.int64, device=dev)
+        a.out_mask = out["out_mask"].data_ptr()
+        a.out_val = out["out_val"].data_ptr()
+        a.nout = out["nout"].data_ptr()
+    for i, (smin, smax, sbs, snv, soff) in enumerate(agg.sub_edges):
+        a.sub_min[i], a.sub_max[i], a.sub_bs[i] = smin, smax, sbs
+        a.sub_nv[i], a.sub_off[i] = snv, soff
+    a.nsub = len(agg.sub_edges)
+    a.R, a.hist_min, a.bucket_size = R, agg.hist_min, agg.bucket_size
+    a.dmin, a.dmax = agg.discard_min, agg.discard_max
+    a.nv, a.Sc = nv, Sc
+    tab_bytes = Sc * nv * 8
+    use_shared = dense_hist_path(config, ai) == "shared"
+    fn = kernels.lib("dense_hist").dense_hist
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), int(use_shared),
+                     _grid(dev, R, tab_bytes, use_shared),
+                     kernels.stream_handle(dev)), "dense_hist")
+    kernels.LAUNCHES["dense_hist"] += 1
+    return out
+
+
+def dense_hist_path(config: ScanConfig, ai: int) -> str:
+    """Which form of K4 an aggregation takes: "shared" or "global"."""
+    _, Sc, _ = reduce_space(config)
+    tab = Sc * config.aggs[ai].num_values * 8
+    return "shared" if tab <= SHARED_TABLE_BYTES else "global"
+
+
+# ---------------------------------------------------------------------------
+# K5 outlier_compact
+# ---------------------------------------------------------------------------
+
+_OUTLIER_TILE = 4096           # rows per CTA (TILE in the source)
+
+
+class OutlierCompactArgs(ctypes.Structure):
+    """Mirror of struct OutlierCompactArgs in csrc/outlier_compact.cu."""
+    _fields_ = [
+        ("mask", ctypes.c_void_p),
+        ("vals", ctypes.c_void_p),
+        ("key_vals", ctypes.c_void_p * _MAXK),
+        ("key_valid", ctypes.c_void_p * _MAXK),
+        ("out", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("kmax", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("nkeys", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
+    ]
+
+
+def key_rows(config: ScanConfig, cols, idx):
+    """Group keys of rows `idx` (int64 [n]) -> int64 [n, K]: the value,
+    or MISSING where the key is missing; one zero key without group
+    columns (the reference's sorted_gkeys rows)."""
+    if not config.group_cols:
+        return torch.zeros((idx.numel(), 1), dtype=torch.int64,
+                           device=idx.device)
+    B, C = _batch_shape(cols)
+    out = []
+    for g in config.group_cols:
+        v, m = cols[g]
+        v, m = v.reshape(B * C)[idx], m.reshape(B * C)[idx]
+        out.append(torch.where(m, v, MISSING))
+    return torch.stack(out, dim=1)
+
+
+def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
+                          row0: int) -> None:
+    """Plain PyTorch version of K5: writes rows [row0, row0 + kmax) of
+    `main` in place (the reference's _mask_positions + gather)."""
+    R = mask.numel()
+    kmax = min(config.max_out, R)
+    K = config.n_key_cols
+    W = main.shape[1]
+    dev = main.device
+    idx = torch.nonzero(mask).reshape(-1)[:kmax]
+    n = idx.numel()
+    pos = torch.full((kmax,), R - 1, dtype=torch.int64, device=dev)
+    pos[:n] = idx
+    block = torch.zeros((kmax, W), dtype=torch.int64, device=dev)
+    block[:, :K] = key_rows(config, cols, pos)
+    block[:, K] = vals[pos]
+    block[:n, K + 1] = 1
+    main[row0: row0 + kmax] = block
+
+
+def outlier_compact(config: ScanConfig, cols, mask, vals, main,
+                    row0: int) -> None:
+    """K5: writes the outlier section at rows [row0, row0 + kmax) of the
+    download buffer `main` in place, as outlier_compact_plain.  CUDA
+    tensors launch the kernel (csrc/outlier_compact.cu); CPU tensors
+    take the plain version.
+
+    mask bool [R], vals int64 [R] from K4.  Replaces sybil_tpu/ops/
+    scan.py:_mask_positions and the outlier section of pack_outputs.
+    Bound by memory (one mask byte per row); a tile count, one small
+    scan, and a ranked write (see the source note)."""
+    dev = main.device
+    if dev.type == "cpu":
+        outlier_compact_plain(config, cols, mask, vals, main, row0)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"outlier_compact: unsupported device {dev}")
+    B, C = _batch_shape(cols)
+    R = B * C
+    kmax = min(config.max_out, R)
+    W = main.shape[1]
+    _check_tensor(mask, (R,), torch.bool, "mask", dev, "outlier_compact")
+    _check_tensor(vals, (R,), torch.int64, "vals", dev, "outlier_compact")
+    if (main.dtype != torch.int64 or main.dim() != 2
+            or not main.is_contiguous() or row0 + kmax > main.shape[0]
+            or W < config.n_key_cols + 2):
+        raise ValueError("outlier_compact: main must be a contiguous int64 "
+                         f"[rows, W] with rows >= {row0 + kmax}")
+    if len(config.group_cols) > _MAXK:
+        raise NotImplementedError(
+            f"outlier_compact takes at most {_MAXK} group keys")
+    ntiles = -(-R // _OUTLIER_TILE)
+    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    a = OutlierCompactArgs()
+    a.mask, a.vals = mask.data_ptr(), vals.data_ptr()
+    for i, g in enumerate(config.group_cols):
+        v, m = _check_col(cols, g, B, C, dev, "outlier_compact")
+        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    a.out = main.data_ptr() + row0 * W * 8
+    a.offsets = offsets.data_ptr()
+    a.R, a.kmax, a.W = R, kmax, W
+    a.nkeys, a.ntiles = len(config.group_cols), ntiles
+    fn = kernels.lib("outlier_compact").outlier_compact
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
+                  "outlier_compact")
+    kernels.LAUNCHES["outlier_compact"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -631,6 +1021,7 @@ def dense_scan_path(config: ScanConfig) -> str:
 # ---------------------------------------------------------------------------
 
 _MAXC = 2 + 3 * _MAXA
+_MAXH = _MAXA
 
 
 class DensePackArgs(ctypes.Structure):
@@ -638,8 +1029,17 @@ class DensePackArgs(ctypes.Structure):
     _fields_ = [
         ("sums", ctypes.c_void_p),
         ("spill", ctypes.c_void_p),
+        ("mins", ctypes.c_void_p),
+        ("maxs", ctypes.c_void_p),
+        ("nout", ctypes.c_void_p * _MAXH),
+        ("hist", ctypes.c_void_p * _MAXH),
         ("main", ctypes.c_void_p),
         ("rows", ctypes.c_longlong),
+        ("out_lo", ctypes.c_longlong),
+        ("out_hi", ctypes.c_longlong),
+        ("gid_row", ctypes.c_longlong),
+        ("hist_row", ctypes.c_longlong * _MAXH),
+        ("hist_nv", ctypes.c_int * _MAXH),
         ("lane", ctypes.c_int * _MAXC),
         ("ncols", ctypes.c_int),
         ("i32", ctypes.c_int),
@@ -648,6 +1048,8 @@ class DensePackArgs(ctypes.Structure):
         ("compact", ctypes.c_int),
         ("L", ctypes.c_int),
         ("W", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("Ph", ctypes.c_int),
         ("pad_", ctypes.c_int),
     ]
 
@@ -668,25 +1070,42 @@ def _wire_lanes(plan: dict) -> list[int]:
     return lanes
 
 
-def dense_pack_plain(config: ScanConfig, sums, spill, R: int):
+def outlier_rows(config: ScanConfig, R: int) -> tuple[int, int]:
+    """[lo, hi) rows of `main` that K5 writes (empty without tracked
+    histogram aggregations); K3 writes every other row."""
+    layout = packed_layout(config, R)
+    lo = layout["table"][0] + layout["table"][1]
+    if not (config.track_outliers and hist_aggs(config)):
+        return lo, lo
+    return lo, lo + layout["kmax_out"] * len(hist_aggs(config))
+
+
+def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
+                     R: int) -> None:
     """Plain PyTorch version of K3: expand, mask, stack and view into the
-    packed `main` buffer [rows, W] int64."""
-    dev = sums.device
+    packed `main` buffer [rows, W] int64, in place, outside K5's rows."""
+    dev = main.device
     slots, Sc, compact = reduce_space(config)
-    if compact:
-        full = torch.zeros((slots, sums.shape[1]), dtype=torch.int64,
-                           device=dev)
-        full[:Sc - 1] = sums[:Sc - 1]
-    else:
-        full = sums
+    sums = k2["sums"]
+
+    def expand(t, fill):
+        """compact [Sc, X] -> [slots, X]: rows [0, Sc-1) map 1:1, the
+        rest (padding and the dead slot) read as `fill`."""
+        if not compact:
+            return t
+        full = torch.full((slots, t.shape[1]), fill, dtype=t.dtype,
+                          device=dev)
+        full[:Sc - 1] = t[:Sc - 1]
+        return full
+
+    full = expand(sums, 0)
     live_row = torch.arange(slots, device=dev) < slots - 1
     lane_vals = [torch.where(live_row, full[:, 0], 0),
                  torch.where(live_row, full[:, 1], 0)]
     for ai in range(len(config.aggs)):
         lane_vals += [(full[:, 2 + 3 * ai] > 0).to(torch.int64),
                       full[:, 3 + 3 * ai], full[:, 4 + 3 * ai]]
-    num_groups = ((lane_vals[0] > 0) | (lane_vals[1] > 0)).sum(
-        dtype=torch.int64)
+    live = (lane_vals[0] > 0) | (lane_vals[1] > 0)
     plan = dense_table_plan(config, R)
     layout = packed_layout(config, R)
     W = layout["W"]
@@ -697,59 +1116,109 @@ def dense_pack_plain(config: ScanConfig, sums, spill, R: int):
         table = a32.view(torch.int64)            # [slots, npack]
     else:
         table = torch.stack([lane_vals[li] for li in lanes], dim=1)
+    H = len(hist_aggs(config))
+    if H:
+        mins, maxs = expand(k2["mins"], _BIG), expand(k2["maxs"], -_BIG)
+        mm = torch.stack([mins, maxs], dim=2).reshape(slots, 2 * H)
+        table = torch.cat([table, mm], dim=1)
     trows = layout["table"][1]
     flat = torch.zeros(trows * W, dtype=torch.int64, device=dev)
     flat[: table.numel()] = table.reshape(-1)
     meta = torch.zeros(W, dtype=torch.int64, device=dev)
-    meta[0] = num_groups
-    meta[1] = spill.reshape(())
-    return torch.cat([meta, flat]).reshape(1 + trows, W)
+    meta[0] = live.sum(dtype=torch.int64)
+    meta[1] = k2["spill"].reshape(())
+    for i, n in enumerate(nouts):
+        if n is not None:
+            meta[2 + i] = n.reshape(())
+    lo, hi = outlier_rows(config, R)
+    main[:lo] = torch.cat([meta, flat]).reshape(lo, W)
+    if not H:
+        return
+
+    def flat_rows(t, rows):
+        out = torch.zeros(rows * W, dtype=torch.int64, device=dev)
+        out[: t.numel()] = t.reshape(-1)
+        return out.reshape(rows, W)
+
+    Ph = layout["Ph"]
+    gidx = torch.cat([torch.nonzero(live).reshape(-1),
+                      torch.nonzero(~live).reshape(-1)])[:Ph]
+    tail = [flat_rows(gidx, layout["hist_gids"][1])]
+    for ai, h in zip(hist_aggs(config), hists):
+        tail.append(flat_rows(expand(h, 0)[gidx], layout[f"hist{ai}"][1]))
+    if layout["hist_gids"][0] != hi:
+        raise AssertionError("dense_pack: unexpected section between the "
+                             "outlier rows and the hist gids")
+    main[hi:] = torch.cat(tail)
 
 
-def dense_pack(config: ScanConfig, sums, spill, R: int):
-    """K3: the packed download buffer `main` [rows, W] int64.  CUDA
-    tensors launch the kernel (csrc/dense_pack.cu); CPU tensors take
-    dense_pack_plain.
+def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
+               R: int) -> None:
+    """K3: writes the packed download buffer `main` [rows, W] int64 in
+    place, all but K5's outlier rows.  CUDA tensors launch the kernel
+    (csrc/dense_pack.cu); CPU tensors take dense_pack_plain.
 
-    Replaces the dense compact part of sybil_tpu/ops/scan.py:
-    _scan_dense (expand, dead slot, num_groups) and pack_outputs.  A few
-    KB: bound by launch latency; one thread per slot (see the source
-    note)."""
-    dev = sums.device
+    k2: K2's outputs; hists: K4's [Sc, nv] counts and nouts its outlier
+    counts (None without tracking), one per histogram aggregation.
+    Replaces the dense compact part of sybil_tpu/ops/scan.py:_scan_dense
+    (expand, dead slot, num_groups, min/max) and pack_outputs (meta,
+    compact table, dense hist sections).  A few KB: bound by launch
+    latency; one CTA (see the source note)."""
+    dev = main.device
     if dev.type == "cpu":
-        return dense_pack_plain(config, sums, spill, R)
+        dense_pack_plain(config, k2, hists, nouts, main, R)
+        return
     if dev.type != "cuda":
         raise ValueError(f"dense_pack: unsupported device {dev}")
     slots, Sc, compact = reduce_space(config)
+    hist = hist_aggs(config)
+    H = len(hist)
     L = 2 + 3 * len(config.aggs)
-    if (sums.dtype != torch.int64 or tuple(sums.shape) != (Sc, L)
-            or not sums.is_contiguous()):
-        raise ValueError(f"dense_pack: sums must be a contiguous int64 "
-                         f"[{Sc}, {L}], got {sums.dtype} {tuple(sums.shape)}")
-    if spill.dtype != torch.int64 or spill.numel() != 1 or \
-            spill.device != dev:
-        raise ValueError("dense_pack: spill must be one int64 on the device")
-    plan = dense_table_plan(config, R)
-    if plan["i64_cols"]:
-        raise NotImplementedError("hist min/max columns (ROADMAP B6)")
+    _check_tensor(k2["sums"], (Sc, L), torch.int64, "sums", dev,
+                  "dense_pack")
+    _check_tensor(k2["spill"], (1,), torch.int64, "spill", dev, "dense_pack")
+    _check_tensor(k2["mins"], (Sc, H), torch.int64, "mins", dev,
+                  "dense_pack")
+    _check_tensor(k2["maxs"], (Sc, H), torch.int64, "maxs", dev,
+                  "dense_pack")
+    if len(hists) != H or len(nouts) != H:
+        raise ValueError(f"dense_pack: expected {H} hist tables and outlier "
+                         f"counts, got {len(hists)} and {len(nouts)}")
     layout = packed_layout(config, R)
     rows, W = layout["rows"], layout["W"]
-    main = torch.empty((rows, W), dtype=torch.int64, device=dev)
+    _check_tensor(main, (rows, W), torch.int64, "main", dev, "dense_pack")
+    plan = dense_table_plan(config, R)
     lanes = _wire_lanes(plan)
     a = DensePackArgs()
-    a.sums, a.spill, a.main = sums.data_ptr(), spill.data_ptr(), main.data_ptr()
-    a.rows = rows
+    a.sums, a.spill = k2["sums"].data_ptr(), k2["spill"].data_ptr()
+    a.mins, a.maxs = k2["mins"].data_ptr(), k2["maxs"].data_ptr()
+    for i, (ai, h, n) in enumerate(zip(hist, hists, nouts)):
+        nv = config.aggs[ai].num_values
+        _check_tensor(h, (Sc, nv), torch.int64, f"hist of agg {ai}", dev,
+                      "dense_pack")
+        a.hist[i], a.hist_nv[i] = h.data_ptr(), nv
+        a.hist_row[i] = layout[f"hist{ai}"][0]
+        if n is not None:
+            _check_tensor(n, (1,), torch.int64, "nout", dev, "dense_pack")
+            a.nout[i] = n.data_ptr()
+    a.main, a.rows = main.data_ptr(), rows
+    a.out_lo, a.out_hi = outlier_rows(config, R)
+    if H:
+        a.gid_row, a.Ph = layout["hist_gids"][0], layout["Ph"]
+        if a.gid_row != a.out_hi:
+            raise AssertionError("dense_pack: unexpected section between "
+                                 "the outlier rows and the hist gids")
     for i, li in enumerate(lanes):
         a.lane[i] = li
     a.ncols, a.i32 = len(lanes), int(plan["i32"])
-    a.slots, a.Sc, a.compact, a.L, a.W = slots, Sc, int(compact), L, W
+    a.slots, a.Sc, a.compact, a.L, a.W, a.H = (slots, Sc, int(compact), L,
+                                                W, H)
     fn = kernels.lib("dense_pack").dense_pack
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "dense_pack")
     kernels.LAUNCHES["dense_pack"] += 1
-    return main
 
 
 # ---------------------------------------------------------------------------
@@ -760,10 +1229,51 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
                 bitsets=(), time_bucket=None, set_aux=None):
     """-> (packed {"main": [rows, W] int64}, raw device outputs).
 
-    Same arguments as the reference's scan_packed_jit; the filter,
-    bitset, time and set inputs belong to shapes this slice rejects."""
+    Same arguments as the reference's scan_packed_jit: filter_vals int64
+    [F] and the regex bitsets are device constants; the time and set
+    inputs belong to shapes this slice rejects.  Runs K2, then K4 and K5
+    per histogram aggregation, then K3.  `raw` keeps what escalation
+    fetches when a packed section overflows: "agg{ai}_hist" [Sc, nv],
+    "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" for the key
+    lanes (key_rows)."""
     check_supported(config)
     B, C = _batch_shape(cols)
-    sums, spill = dense_scan(config, cols, nrec)
-    main = dense_pack(config, sums, spill, B * C)
-    return {"main": main}, {"sums": sums, "spill": spill}
+    R = B * C
+    k2 = dense_scan(config, cols, nrec, filter_vals, bitsets)
+    layout = packed_layout(config, R)
+    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
+                       device=nrec.device)
+    raw = {k: v for k, v in k2.items() if k != "gid"}
+    raw["cols"] = cols
+    hists, nouts = [], []
+    for ai in hist_aggs(config):
+        h = dense_hist(config, ai, cols, k2["gid"])
+        raw[f"agg{ai}_hist"] = h["hist"]
+        hists.append(h["hist"])
+        nouts.append(h["nout"])
+        if config.track_outliers:
+            raw[f"agg{ai}_out_mask"] = h["out_mask"]
+            raw[f"agg{ai}_out_val"] = h["out_val"]
+            outlier_compact(config, cols, h["out_mask"], h["out_val"], main,
+                            layout[f"out{ai}"][0])
+    dense_pack(config, k2, hists, nouts, main, R)
+    return {"main": main}, raw
+
+
+def fetch_outliers(config: ScanConfig, raw: dict, ai: int):
+    """Every outlier row of aggregation `ai` -> numpy (keys [n, K],
+    values [n]): the escalation when nout exceeds the packed section."""
+    mask = raw[f"agg{ai}_out_mask"]
+    idx = torch.nonzero(mask).reshape(-1)
+    keys = key_rows(config, raw["cols"], idx)
+    return (keys.cpu().numpy(),
+            raw[f"agg{ai}_out_val"][idx].cpu().numpy())
+
+
+def fetch_hist_rows(raw: dict, ai: int, slots_idx: np.ndarray) -> np.ndarray:
+    """Bucket rows of aggregation `ai` at live slots `slots_idx` -> numpy
+    [n, nv]: the escalation when live groups exceed hist_prefix.  Live
+    slots lie below the dead row, where compact rows map 1:1."""
+    h = raw[f"agg{ai}_hist"]
+    idx = torch.from_numpy(np.asarray(slots_idx, dtype=np.int64)).to(h.device)
+    return h[idx].cpu().numpy()

@@ -6,9 +6,11 @@ cache, the row-store scan, samples or meshes.  The plan:
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
            K1 and kept resident, ops/residency.py) -> one scan_packed
-           call per batch (K2 + K3, ops/scan.py) -> one packed buffer
-           copied to pinned host memory without blocking
-  merge    the host merges the (small) per-batch group tables
+           call per batch (K2, then K4 + K5 per histogram, then K3;
+           ops/scan.py) -> one packed buffer copied to pinned host
+           memory without blocking
+  merge    the host merges the (small) per-batch group tables, bucket
+           matrices and outlier rows
   finish   translate group keys to display strings (aggregate.go:284-324),
            sort (aggregate.go:469-525), build the Cumulative row
 
@@ -754,7 +756,7 @@ class BatchLoader:
         cols = {}
         if any(bound.col_types[n] == SET_VAL for n in bound.needed_cols):
             raise NotImplementedError(
-                "set columns (set filters) are not ported yet (ROADMAP B6)")
+                "set columns (set filters) are not ported yet (ROADMAP B6b)")
 
         for bi, bdir in enumerate(self.block_dirs):
             exp = self.expected.get(bdir)
@@ -877,6 +879,15 @@ class _ScanCtx:
         self.timer = timer
         self.C = C
         self.device = device
+        self.refresh_consts()
+
+    def refresh_consts(self):
+        """Filter constants and regex bitsets as device constants; call
+        again after BoundQuery.refresh_str_filters re-resolves them."""
+        from ..ops.residency import device_const
+        self.jfv = device_const(self.bound.filter_vals, self.device)
+        self.jbits = tuple(device_const(b, self.device)
+                           for b in self.bound.bitsets)
 
 
 PIPELINE = 4   # batches in flight before the oldest download blocks
@@ -924,8 +935,8 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
     pending: list[tuple] = []
 
     def drain_one() -> None:
-        cfg, packed, R = pending.pop(0)
-        if acc.absorb_packed(packed, R, cfg) > 0:
+        cfg, packed, out, R = pending.pop(0)
+        if acc.absorb_packed(packed, out, R, cfg) > 0:
             # a group key fell outside its declared bound (outlier-
             # resistant IntInfo, or stats that grew after bind); the
             # reference redoes the scan on the sorted strategy
@@ -951,8 +962,11 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
             cols, nrec = loader.load()
         nrec[len(batch):] = 0  # padded repeats contribute nothing
         with timer.phase("dispatch"):
-            packed, _ = scan_packed(cfg, cols, device_const(nrec, device))
-        pending.append((cfg, packed, R))
+            packed, out = scan_packed(cfg, cols, device_const(nrec, device),
+                                      ctx.jfv, ctx.jbits)
+        # the raw outputs stay beside the packed buffer until it drains:
+        # escalation fetches from them when a packed section overflows
+        pending.append((cfg, packed, out, R))
         _start_d2h(packed)
         if len(pending) >= PIPELINE:
             with timer.phase("drain"):
@@ -1148,13 +1162,17 @@ class _Accumulator:
         self.rows = kept_rows
 
 
-    def absorb_packed(self, packed, R: int, config=None) -> int:
-        """Parse the single packed download (ops/scan.py dense_pack):
-        row 0 meta [num_groups, spill, ...]; then the dense group table
-        (the compact keyless form, or the keyed form of mesh scans).
-        Returns the dense-strategy spill count (>0 => this batch's rows
-        were NOT absorbed)."""
+    def absorb_packed(self, packed, out, R: int, config=None) -> int:
+        """Parse the single packed download (ops/scan.py scan_packed):
+        row 0 meta [num_groups, spill, nout per hist agg, ...]; then the
+        dense group table (the compact keyless form, or the keyed form of
+        mesh scans); then per-hist-agg compacted outlier rows; then the
+        dense hist gids and bucket matrices.  The raw device outputs in
+        `out` are touched only when the meta row reports that a packed
+        section overflowed.  Returns the dense-strategy spill count (>0
+        => this batch's rows were NOT absorbed)."""
         from ..ops.scan import (SENTINEL, dense_keys_np, dense_table_plan,
+                                fetch_hist_rows, fetch_outliers, hist_aggs,
                                 packed_layout, table_prefix)
         if config is None:
             config = self.bound.config
@@ -1170,11 +1188,13 @@ class _Accumulator:
             off, rows = layout[name]
             return main[off: off + rows].reshape(-1)[:count]
 
+        hist_ais = hist_aggs(config)
         meta = main[0]
         num_groups = int(meta[0])
         spill = int(meta[1])
         if spill > 0:
             return spill
+        nouts = {ai: int(meta[2 + i]) for i, ai in enumerate(hist_ais)}
         if num_groups > config.max_groups:
             warn("group cap", config.max_groups,
                  "exceeded; highest-keyed groups dropped")
@@ -1210,6 +1230,16 @@ class _Accumulator:
             samples = table[:, K + 1]
         active = np.nonzero((samples != 0) | (counts != 0))[0]
         self.matched_count += int(samples[active].sum())
+
+        if hist_ais and dense:
+            Ph = layout["Ph"]
+            hists_small = {
+                ai: section_flat(f"hist{ai}",
+                                 Ph * config.aggs[ai].num_values)
+                .reshape(Ph, config.aggs[ai].num_values)
+                for ai in hist_ais}
+            gids = section_flat("hist_gids", Ph)
+            hist_row_of = {int(g): i for i, g in enumerate(gids)}
 
         aggdata = []
         vbias = config.agg_vbias or ()
@@ -1247,6 +1277,29 @@ class _Accumulator:
                     "min": table[:, base + 3],
                     "max": table[:, base + 4],
                 }
+            if ai in nouts and dense:  # dense hist agg: bucket matrix
+                if num_groups > layout["Ph"]:
+                    # actives overflow the compaction: gather ONLY the
+                    # active slots' bucket rows on device (never the
+                    # full [Sc, nv] matrix) before fetching
+                    hact = fetch_hist_rows(out, ai, active)
+                    pos = {int(g): i for i, g in enumerate(active)}
+                    d["hist_get"] = lambda gi, h=hact, m=pos: h[m[gi]]
+                else:
+                    hsmall = hists_small[ai]
+                    d["hist_get"] = (
+                        lambda gi, h=hsmall, m=hist_row_of:
+                        h[m[gi]] if gi in m else None)
+            if ai in nouts and nouts[ai] > 0:  # outlier fix-up rows
+                kmax = layout["kmax_out"]
+                off = layout[f"out{ai}"][0]
+                block = main[off: off + kmax]
+                if nouts[ai] > kmax:  # escalate to the full arrays
+                    d["outlier_pairs"] = fetch_outliers(config, out, ai)
+                else:
+                    flags_col = block[:, K + 1] != 0
+                    d["outlier_pairs"] = (block[flags_col, :K],
+                                          block[flags_col, K])
             aggdata.append(d)
 
         # columnar fast lane: simple shapes park the active rows as
@@ -1254,7 +1307,7 @@ class _Accumulator:
         # per-row dict churn entirely.  A prune_cap does NOT exclude
         # parking: maybe_prune materializes on demand, and it only ever
         # acts from the second batch on.
-        if (not p.distincts and p.num_distinct <= 0
+        if (not p.distincts and not hist_ais and p.num_distinct <= 0
                 and not config.track_outliers):
             sel = active
             ak = keys[sel]
@@ -1273,6 +1326,7 @@ class _Accumulator:
         # bulk-convert the active rows to plain Python once: per-element
         # `int(np_scalar)` in the loop below costs ~200ns a pop
         self._materialize()
+        active_l = active.tolist()
         keys_l = keys[active].tolist()
         counts_l = counts[active].tolist()
         samples_l = samples[active].tolist()
@@ -1280,19 +1334,18 @@ class _Accumulator:
                   d["wv"][active].tolist(), d["min"][active].tolist(),
                   d["max"][active].tolist()) for d in aggdata]
         rows_map = self.rows
-        n_aggs = len(aggdata)
-        for i in range(len(keys_l)):
+        for i, gi in enumerate(active_l):
             kt = tuple(keys_l[i])
             if kt and kt[0] == SENTINEL:
                 continue
             row = rows_map.get(kt)
             if row is None:
-                row = {"count": 0, "samples": 0, "aggs": [None] * n_aggs,
-                       "distinct": None}
+                row = {"count": 0, "samples": 0,
+                       "aggs": [None] * len(aggdata), "distinct": None}
                 rows_map[kt] = row
             row["count"] += counts_l[i]
             row["samples"] += samples_l[i]
-            for ai in range(n_aggs):
+            for ai, d in enumerate(aggdata):
                 ex, cnt, wv, mn_l, mx_l = agg_l[ai]
                 if not ex[i]:
                     continue
@@ -1307,6 +1360,20 @@ class _Accumulator:
                     mn, mx = mn_l[i], mx_l[i]
                     cur["min"] = mn if cur["min"] is None else min(cur["min"], mn)
                     cur["max"] = mx if cur["max"] is None else max(cur["max"], mx)
+                if "hist_get" in d:
+                    h = d["hist_get"](gi)
+                    if h is not None:
+                        cur["hist"] = (h if cur["hist"] is None
+                                       else cur["hist"] + h)
+
+        for ai, d in enumerate(aggdata):
+            if "outlier_pairs" not in d:
+                continue
+            gk, ov = d["outlier_pairs"]
+            for krow, v in zip(gk, ov):
+                row = self.rows.get(tuple(int(k) for k in krow))
+                if row is not None and row["aggs"][ai] is not None:
+                    row["aggs"][ai]["outliers"].append(int(v))
         self.batches += 1
         return 0
 

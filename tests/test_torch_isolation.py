@@ -91,3 +91,31 @@ def test_port_query_runs_with_jax_and_reference_refused(tmp_path):
     rows = json.loads(proc.stdout)
     assert sum(r["Count"] for r in rows) == n
     assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
+
+
+def test_port_hist_query_runs_with_jax_and_reference_refused(tmp_path):
+    """The filter front end, the histogram and outlier kernels' plain
+    versions and the hist printer run in the refusing process too."""
+    d = str(tmp_path / "db")
+    t = Table("uptime", Flags(dir=d, table="uptime", skip_compact=True))
+    rng = np.random.default_rng(4)
+    n = 3000
+    t.ingest_columns(ints={"ping": rng.integers(0, 150, n)},
+                     strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)],
+                           "status": [f"s{i}" for i in
+                                      rng.integers(0, 3, n)]})
+    argv = ["query", "-dir", d, "-table", "uptime", "-group", "host",
+            "-int", "ping", "-op", "hist", "-loghist", "-str-filter",
+            "status:neq:s1", "-int-filter", "ping:gt:10", "-json",
+            "-device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                              argv=argv)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads(proc.stdout)
+    assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
+    assert all(r["ping"]["samples"] == r["Count"] for r in rows)
+    assert all(len(r["ping"]["percentiles"]) == 100 for r in rows)

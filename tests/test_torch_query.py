@@ -1,10 +1,11 @@
 """The port's query path end to end against the JAX reference, on CPU.
 
 A bench-shaped uptime table (a few blocks; hosts and pings with missing
-rows) is written by sybil_tpu.  sybil_tpu_torch's run_query and its
-`query -json` output must equal the reference's: group keys, counts,
-samples, exact sums (through the averages) and the printed text byte
-for byte.  The on-disk format is shared both ways."""
+rows) and a small user_sessions table are written by sybil_tpu.
+sybil_tpu_torch's run_query and its `query -json` output must equal the
+reference's: group keys, counts, samples, exact sums (through the
+averages), histogram buckets, min/max, outliers and percentiles, and the
+printed text byte for byte.  The on-disk format is shared both ways."""
 
 import dataclasses
 import json
@@ -20,6 +21,7 @@ from sybil_tpu import cli as ref_cli
 from sybil_tpu.config import Flags as RefFlags
 from sybil_tpu.query.engine import run_query as ref_run_query
 from sybil_tpu.query.spec import AggDef as RefAgg
+from sybil_tpu.query.spec import FilterDef as RefFilter
 from sybil_tpu.query.spec import QueryParams as RefParams
 from sybil_tpu.table import Table as RefTable
 from sybil_tpu_torch import blocks as port_blocks
@@ -27,7 +29,7 @@ from sybil_tpu_torch import cli as port_cli
 from sybil_tpu_torch.config import Flags
 from sybil_tpu_torch.ops import kernels, residency
 from sybil_tpu_torch.query.engine import run_query
-from sybil_tpu_torch.query.spec import AggDef, QueryParams
+from sybil_tpu_torch.query.spec import AggDef, FilterDef, QueryParams
 from sybil_tpu_torch.table import Table
 
 HOSTS = ["www.facebook.com", "www.yahoo.com", "www.google.com",
@@ -40,9 +42,17 @@ CHUNK = 2048
 def _columns(seed: int):
     rng = np.random.default_rng(seed)
     n = N_ROWS
+    # latency: a heavy tail (0.5% of rows 7-13x the median, 0.1% 30-100x)
+    # that overflows the hist range the outlier-resistant IntInfo sets
+    u = rng.random(n)
+    latency = np.where(u < 0.001, rng.integers(90000, 300000, n),
+                       np.where(u < 0.006, rng.integers(20000, 40000, n),
+                                np.abs(rng.normal(3000, 800, n))))
+    latency = latency.astype(np.int64)
     ints = {"ping": np.abs(rng.normal(60, 20, n)).astype(np.int64),
             "weight": rng.choice([1, 10, 100], n).astype(np.int64),
-            "index_int": np.arange(n, dtype=np.int64) % 4000}
+            "index_int": np.arange(n, dtype=np.int64) % 4000,
+            "latency": latency}
     strs = {"host": [HOSTS[i] for i in rng.integers(0, 5, n)],
             "status": [STATII[i] for i in rng.integers(0, 5, n)]}
     valid = {"host": rng.random(n) > 0.07, "ping": rng.random(n) > 0.11,
@@ -75,6 +85,39 @@ def ref_table(tmp_path_factory):
     return d
 
 
+ACTIONS = ["pageload", "pageunload", "click", "notif", "hover", "tooltip",
+           "type", "chat", "comment"]
+PAGES = ["login", "home", "friends", "settings", "feed", "groups",
+         "explore", "404"]
+
+
+@pytest.fixture(scope="module")
+def sessions_table(tmp_path_factory):
+    """user_sessions as scripts/fakedata/activity_generator.py shapes it
+    (action, page, weight in {1, 10, 100}), small, with missing rows."""
+    d = str(tmp_path_factory.mktemp("sessdb"))
+    t = RefTable("user_sessions", RefFlags(dir=d, table="user_sessions",
+                                           skip_compact=True))
+    rng = np.random.default_rng(23)
+    n = 7000
+    old = ref_digest.CHUNK_SIZE
+    ref_digest.CHUNK_SIZE = CHUNK
+    try:
+        t.ingest_columns(
+            ints={"weight": rng.choice([1, 10, 100], n).astype(np.int64)},
+            strs={"action": [ACTIONS[i] for i in rng.integers(0, 9, n)],
+                  "page": [PAGES[i] for i in rng.integers(0, 8, n)]},
+            valid={"action": rng.random(n) > 0.05,
+                   "weight": rng.random(n) > 0.1})
+    finally:
+        ref_digest.CHUNK_SIZE = old
+    return d
+
+
+# name -> (groups, aggs, weight column, op, hist type, filters
+# (col, op, value, kind), table)
+C2_FILTERS = (("action", "neq", "pageload", "str"),
+              ("weight", "gt", "5", "int"))
 QUERIES = {
     "host-avg-ping": (("host",), ("ping",), ""),
     "host-status": (("host", "status"), ("ping",), ""),
@@ -82,34 +125,88 @@ QUERIES = {
     "two-aggs": (("host",), ("ping", "weight"), ""),
     "int-group-key": (("weight",), ("ping",), ""),
     "no-groups": ((), ("ping",), ""),
+    # config 3's shape: status eq 200, group by host, hist ping
+    "c3-hist": (("host",), ("ping",), "", "hist", "basic",
+                (("status", "eq", "200", "str"),)),
+    "c3-loghist": (("host",), ("ping",), "", "hist", "multi",
+                   (("status", "eq", "200", "str"),)),
+    # config 2's shape on user_sessions
+    "c2-sessions-hist": (("action", "page"), ("weight",), "", "hist",
+                         "basic", C2_FILTERS, "user_sessions"),
+    "regex-filter-weighted-hist": (("status",), ("ping",), "weight", "hist",
+                                   "basic", (("host", "re", "yahoo|git",
+                                              "str"),
+                                             ("ping", "lt", "90", "int"))),
+    "never-ingested-neq-avg": (("host",), ("ping", "weight"), "", "avg",
+                               "basic", (("status", "neq", "999", "str"),
+                                         ("weight", "neq", "10", "int"))),
+    # values above the hist range: outlier rows (basic), sub-ranges and
+    # sub-outliers (multihist)
+    "tail-outliers-hist": (("status",), ("latency",), "", "hist", "basic",
+                           (("ping", "gt", "40", "int"),)),
+    "tail-outliers-loghist": (("host", "status"), ("latency",), "weight",
+                              "hist", "multi", ()),
+    # 4000 live groups > hist_prefix: the bucket-row escalation
+    "index-int-hist": (("index_int",), ("ping",), "", "hist", "basic", ()),
 }
+
+
+def _query(name):
+    q = QUERIES[name] + (None,) * (7 - len(QUERIES[name]))
+    groups, aggs, w, op, htype, filters, table = q
+    return (groups, aggs, w, op or "avg", htype or "basic", filters or (),
+            table or "uptime")
+
+
+def _params(name, agg_cls, filter_cls, params_cls):
+    groups, aggs, w, op, htype, filters, _ = _query(name)
+    return params_cls(
+        groups=groups, aggs=tuple(agg_cls(a, op, htype) for a in aggs),
+        filters=tuple(filter_cls(*f) for f in filters), weight_col=w)
+
+
+def _table_dir(name, request) -> tuple[str, str]:
+    table = _query(name)[6]
+    fixture = "ref_table" if table == "uptime" else "sessions_table"
+    return request.getfixturevalue(fixture), table
+
+
+def _hist_state(h):
+    """Everything a hist shows: count, mean, min/max, bucket counts,
+    outliers and percentiles."""
+    st = [h.count, h.avg, h.min, h.max]
+    vals = getattr(h, "values", None)
+    if vals is not None:
+        st.append(tuple(np.asarray(vals).tolist()))
+    st.append(tuple(getattr(h, "outliers", ()) or ()))
+    if h.percentile_mode:
+        st.append(tuple(h.get_percentiles()))
+        st.append(h.get_stddev())
+    return tuple(st)
 
 
 def _snapshot(qr):
     rows = {}
     for k, r in qr.results.items():
         rows[k] = (tuple(r.key_tuple), r.count, r.samples,
-                   {c: (h.count, h.avg) for c, h in r.hists.items()})
+                   {c: _hist_state(h) for c, h in r.hists.items()})
     cum = qr.cumulative
     return rows, (cum.count, cum.samples), qr.matched_count
 
 
 @pytest.mark.parametrize("batch", [2, 16])
 @pytest.mark.parametrize("name", sorted(QUERIES))
-def test_run_query_matches_reference(ref_table, name, batch):
-    groups, aggs, w = QUERIES[name]
+def test_run_query_matches_reference(request, name, batch):
+    d, table = _table_dir(name, request)
     want = ref_run_query(
-        RefTable("uptime", RefFlags(dir=ref_table, table="uptime")),
-        RefParams(groups=groups, aggs=tuple(RefAgg(a, "avg") for a in aggs),
-                  weight_col=w),
-        RefFlags(dir=ref_table, table="uptime", device_batch=batch))
-    flags = Flags(dir=ref_table, table="uptime", device="cpu",
-                  device_batch=batch)
-    got = run_query(
-        Table("uptime", flags),
-        QueryParams(groups=groups, aggs=tuple(AggDef(a, "avg") for a in aggs),
-                    weight_col=w), flags)
+        RefTable(table, RefFlags(dir=d, table=table)),
+        _params(name, RefAgg, RefFilter, RefParams),
+        RefFlags(dir=d, table=table, device_batch=batch))
+    flags = Flags(dir=d, table=table, device="cpu", device_batch=batch)
+    got = run_query(Table(table, flags),
+                    _params(name, AggDef, FilterDef, QueryParams), flags)
     assert _snapshot(got) == _snapshot(want)
+    assert len(got.results) >= 1
     assert [r.group_key for r in got.sorted] == \
         [r.group_key for r in want.sorted]
 
@@ -126,7 +223,12 @@ def _exact_sums(engine_mod, monkeypatch, run):
         self._materialize()
         seen.append({kt: (r["count"], r["samples"],
                           tuple((a is not None, a and a["count"],
-                                 a and a["wv"]) for a in r["aggs"]))
+                                 a and a["wv"], a and a["min"],
+                                 a and a["max"],
+                                 a and a["hist"] is not None
+                                 and tuple(a["hist"].tolist()),
+                                 a and tuple(a["outliers"]))
+                                for a in r["aggs"]))
                      for kt, r in self.rows.items()})
         return orig(self)
 
@@ -137,21 +239,18 @@ def _exact_sums(engine_mod, monkeypatch, run):
 
 
 @pytest.mark.parametrize("name", sorted(QUERIES))
-def test_exact_int64_sums_match_reference(ref_table, name, monkeypatch):
+def test_exact_int64_sums_match_reference(request, name, monkeypatch):
     import sybil_tpu.query.engine as ref_engine
     import sybil_tpu_torch.query.engine as port_engine
-    groups, aggs, w = QUERIES[name]
+    d, table = _table_dir(name, request)
     want = _exact_sums(ref_engine, monkeypatch, lambda: ref_run_query(
-        RefTable("uptime", RefFlags(dir=ref_table, table="uptime")),
-        RefParams(groups=groups, aggs=tuple(RefAgg(a, "avg") for a in aggs),
-                  weight_col=w),
-        RefFlags(dir=ref_table, table="uptime", device_batch=2)))
-    flags = Flags(dir=ref_table, table="uptime", device="cpu",
-                  device_batch=2)
+        RefTable(table, RefFlags(dir=d, table=table)),
+        _params(name, RefAgg, RefFilter, RefParams),
+        RefFlags(dir=d, table=table, device_batch=2)))
+    flags = Flags(dir=d, table=table, device="cpu", device_batch=2)
     got = _exact_sums(port_engine, monkeypatch, lambda: run_query(
-        Table("uptime", flags),
-        QueryParams(groups=groups, aggs=tuple(AggDef(a, "avg") for a in aggs),
-                    weight_col=w), flags))
+        Table(table, flags), _params(name, AggDef, FilterDef, QueryParams),
+        flags))
     assert got == want and len(got) >= 1
     assert all(isinstance(v[0], int) for v in got.values())
 
@@ -164,14 +263,21 @@ def _cli_out(main, argv, capsys):
 
 @pytest.mark.parametrize("fmt", ["-json", "text"])
 @pytest.mark.parametrize("name", sorted(QUERIES))
-def test_cli_output_matches_reference_bytes(ref_table, name, fmt, capsys):
-    groups, aggs, w = QUERIES[name]
-    argv = ["query", "-dir", ref_table, "-table", "uptime", "-op", "avg",
+def test_cli_output_matches_reference_bytes(request, name, fmt, capsys):
+    d, table = _table_dir(name, request)
+    groups, aggs, w, op, htype, filters, _ = _query(name)
+    argv = ["query", "-dir", d, "-table", table, "-op", op,
             "-int", ",".join(aggs)]
     if groups:
         argv += ["-group", ",".join(groups)]
     if w:
         argv += ["-weight-col", w]
+    if htype == "multi":
+        argv.append("-loghist")
+    for kind in ("int", "str"):
+        toks = [":".join(f[:3]) for f in filters if f[3] == kind]
+        if toks:
+            argv += [f"-{kind}-filter", ",".join(toks)]
     if fmt == "-json":
         argv.append("-json")
     want = _cli_out(ref_cli.main, argv, capsys)
@@ -281,15 +387,23 @@ def test_unported_engine_modes_raise(ref_table, change, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-int-filter", "ping:gt:50"], "B6"),
-    (["-op", "hist"], "B6"),
+    (["-set-filter", "tags:in:a"], "B6b"),
+    (["-op", "hist", "-tdigest"], "B7"),
     (["-time", "-time-col", "index_int", "-time-bucket", "100"], "B8"),
     (["-distinct", "status"], "B9"),
     (["-group", "index_int,weight"], "B7"),
 ])
 def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
-                                                      capsys):
-    base = ["query", "-dir", ref_table, "-table", "uptime", "-int", "ping",
+                                                      capsys, tmp_path):
+    d = ref_table
+    if "-set-filter" in argv:
+        # set filters need a set column: a small table of the port's own
+        d = str(tmp_path)
+        Table("uptime", Flags(dir=d, table="uptime",
+                              skip_compact=True)).ingest_columns(
+            ints={"ping": np.arange(6)}, strs={"host": ["a", "b"] * 3},
+            sets={"tags": [["a"], ["b", "a"], [], ["c"], ["a"], ["b"]]})
+    base = ["query", "-dir", d, "-table", "uptime", "-int", "ping",
             "-device", "cpu", "-json"]
     if "-group" not in argv:
         base += ["-group", "host"]

@@ -136,11 +136,14 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+    # set filters (B6b) and histograms under the sorted strategy (B7)
+    # stay unported; int/str filters and dense histograms are ported
     change = {
-        "filters": {"filters": (port.FilterSpec("k0", "eq", "int"),)},
+        "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
         "time": {"time_col": "k0"},
         "hist": {"aggs": (dataclasses.replace(pcfg.aggs[0],
-                                              num_values=10),)},
+                                              num_values=10),),
+                 "force_sorted": True},
         "distinct": {"distinct_cols": ("v0",)},
         "samples": {"want_matched_mask": True},
         "sorted": {"force_sorted": True},
