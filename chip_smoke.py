@@ -8,27 +8,43 @@ Phases (any failure exits non-zero before the result lines):
      kernels from sybil_tpu_torch/csrc, one nvcc per source, in parallel
   2. build an uptime table of N rows (default 8,388,608 = 128 full
      blocks) with the port's Table.ingest_columns and bench.py's
-     generator and seed, and a user_sessions table of N rows with
+     generator and seed, and two user_sessions tables of N rows from
      scripts/fakedata/activity_generator.columns (its seed rule, 1M-row
-     steps, as scripts/bench_configs.py builds it)
+     steps, as scripts/bench_configs.py builds it): the bulk table as
+     generated, and the same rows stably sorted by time, as digestion
+     orders a table
   3. K1 decode_bucket2 against its plain PyTorch version on the card,
      bit for bit: the table's real host and ping containers, then edge
-     blocks (u8/u16/i32 deltas, short, missing, invalid rows)
+     blocks (u8/u16/i32 deltas, short, missing, invalid rows); K6
+     decode_value on both user_sessions tables' time containers (value
+     encoded) and the host decoder; then edge batches through
+     decode_column_batch, each kernel against its plain version: value
+     blocks with int8/16/32/64 deltas, large bases, invalid rows, short
+     and missing blocks, str-id blocks of 6000 distinct values, bucket-v1
+     blocks (K1's v1 mode, ids out of range), and a batch mixing kinds
   4. K2 dense_scan, K4 dense_hist, K5 outlier_compact and K3 dense_pack
      against their plain versions, word for word: on the decoded uptime
      batch (group by host avg ping, a weight column, three keys whose sum
      table exceeds shared memory, a value-biased int32-packed config,
      partial blocks, a spilling key bound; config 3 `status eq 200, group
      by host, hist ping` and its -loghist form), on the decoded
-     user_sessions batch (config 2), then synthetic edge batches (MISSING
-     and negative keys, invalid and out-of-bound values, zero and invalid
-     weights, no groups, near 8192 slots, non-compact tables; every
-     filter op, weighted hists, multihist sub-outliers, more outliers
-     than the packed section holds, a hist table in global memory)
+     user_sessions batch (config 2), on config 4 `group by action, avg
+     weight, 1 h time buckets` over both user_sessions tables and over
+     the bulk table's rows shuffled into arrival order (K2's windowed and
+     global forms each), its -op hist form with outlier rows, then
+     synthetic edge batches (MISSING and negative keys, invalid and
+     out-of-bound values, zero and invalid weights, no groups, near 8192
+     slots, non-compact tables; every filter op, weighted hists,
+     multihist sub-outliers, more outliers than the packed section holds,
+     a hist table in global memory; negative times, times beyond 2^31,
+     spilled quotients, rows without the time column, a span wider than
+     8 bands, a time rollup's tracked outliers)
   5. the main path through the port's CLI on cuda, one batch of all
      blocks, the launch counts reset just before each query and read just
      after: config 1 `-group host -int ping -op avg`, config 3 (and with
-     -loghist) and config 2; every group's count, sum and bucket counts
+     -loghist), config 2 and config 4 on both user_sessions tables (cold:
+     K1 twice, K6, K2, K3 once each); every group's count, sum and bucket
+     counts, and every (time bucket, action) row's count and weight sum,
      against a numpy group-by of the generated arrays.  Then cold and
      warm queries through run_query for each config, checking via the
      counts that warm queries run no decode (residency) and the scan
@@ -38,7 +54,7 @@ Phases (any failure exits non-zero before the result lines):
      kernel's time from CUDA events beside its bound (the larger of
      bytes / 3.35 TB/s and integer operations / the INT32 rate), its
      plain version's time and, where one torch call computes the same
-     function, that call's time
+     function, that call's time; K2 on config 4 in both forms per table
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -67,8 +83,9 @@ STATII = ["200", "403", "404", "500", "503"]
 BENCH_SEED = 1337               # bench.py:59 (fresh table)
 BENCH_NOW = 1_755_000_000
 STEP = 1_000_000
-KERNELS = ("decode_bucket2", "dense_scan", "dense_hist", "outlier_compact",
-           "dense_pack")
+KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
+           "outlier_compact", "dense_pack")
+C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
 FILL = 0x5A5A5A5A5A5A5A5A        # poison for buffers a kernel must write
 
 
@@ -120,11 +137,14 @@ def build_table(root: str, n_rows: int):
                       "ping": np.concatenate(pings)}
 
 
-def build_sessions(root: str, n_rows: int):
+def build_sessions(root: str, sorted_root: str, n_rows: int):
     """user_sessions from scripts/fakedata/activity_generator.columns,
     1M-row steps with start_index (scripts/bench_configs.py:38-61),
-    written by the port.  Returns (Table, Flags, {"action", "page":
-    list indices, "weight"})."""
+    written by the port; then the same rows stably sorted by time, as
+    digestion orders a table (columnar.sort_batch_by_time), written in
+    the same steps into a second, time-sorted table.  Returns (Table,
+    Flags, sorted Table, its Flags, {"action", "page": list indices,
+    "weight", "time"}, ACTIONS, PAGES)."""
     import numpy as np
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -139,19 +159,30 @@ def build_sessions(root: str, n_rows: int):
     t = Table("user_sessions", flags)
     aidx = {s: i for i, s in enumerate(ACTIONS)}
     pidx = {s: i for i, s in enumerate(PAGES)}
-    acts, pages, weights = [], [], []
+    steps = []
     for start in range(0, n_rows, STEP):
         n = min(STEP, n_rows - start)
         ints, strs = columns(n, start_index=start)
         t.ingest_columns(ints=ints, strs=strs)
-        acts.append(np.fromiter((aidx[s] for s in strs["action"]),
-                                dtype=np.int64, count=n))
-        pages.append(np.fromiter((pidx[s] for s in strs["page"]),
-                                 dtype=np.int64, count=n))
-        weights.append(ints["weight"])
-    return t, flags, {"action": np.concatenate(acts),
-                      "page": np.concatenate(pages),
-                      "weight": np.concatenate(weights)}, ACTIONS, PAGES
+        steps.append((ints, strs))
+    ints = {k: np.concatenate([st[0][k] for st in steps]) for k in steps[0][0]}
+    strs = {k: [x for st in steps for x in st[1][k]] for k in steps[0][1]}
+    del steps
+    sflags = Flags(dir=sorted_root, table="user_sessions", skip_compact=True,
+                   device_batch=1024)
+    ts = Table("user_sessions", sflags)
+    perm = np.argsort(ints["time"], kind="stable")
+    for start in range(0, n_rows, STEP):
+        sel = perm[start: start + STEP]
+        ts.ingest_columns(ints={k: v[sel] for k, v in ints.items()},
+                          strs={k: [v[i] for i in sel.tolist()]
+                                for k, v in strs.items()})
+    us = {"action": np.fromiter((aidx[x] for x in strs["action"]),
+                                dtype=np.int64, count=n_rows),
+          "page": np.fromiter((pidx[x] for x in strs["page"]),
+                              dtype=np.int64, count=n_rows),
+          "weight": ints["weight"], "time": ints["time"]}
+    return t, flags, ts, sflags, us, ACTIONS, PAGES
 
 
 def numpy_groupby(hosts, pings) -> dict:
@@ -204,6 +235,22 @@ def numpy_hist(gidx, ngroups: int, matched, v, agg) -> list:
                     "values": cells[g].astype(np.int64),
                     "outliers": v[sel & out]})
     return res
+
+
+def numpy_rollup(times, actions, weights, tb: int) -> dict:
+    """{(time bucket, action index): (count, Σweight)}: config 4's
+    straightforward reference (every generated row has all three
+    columns; Go's truncating division)."""
+    import numpy as np
+    q = np.where(times >= 0, times // tb, -((-times) // tb))
+    key = (q * tb) * 16 + actions
+    uk, inv = np.unique(key, return_inverse=True)
+    cnt = np.bincount(inv)
+    wsum = np.bincount(inv, weights=weights.astype(np.float64))
+    if wsum.max() >= 2**53:
+        fail("numpy_rollup: a weight sum is not exact in float64")
+    return {(int(k // 16), int(k % 16)): (int(c), int(w))
+            for k, c, w in zip(uk.tolist(), cnt.tolist(), wsum.tolist())}
 
 
 def str_buckets(agg, values, outliers) -> dict:
@@ -335,17 +382,144 @@ def edge_containers():
     ]
 
 
+def k6_inputs(containers, C: int, device):
+    """K6 value-mode inputs of value containers (all present)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops.decode import value_batch
+    idx = list(range(len(containers)))
+    arrays = value_batch(containers, idx, C)
+    src = np.arange(len(idx), dtype=np.int32)
+    return [torch.from_numpy(a).to(device) for a in (*arrays, src)]
+
+
+def decode_check(what: str, containers, C: int, device, errs: dict):
+    """decode_column_batch on the card (one kernel launch per encoding,
+    each writing its own rows) against the same call with every kernel
+    swapped for its plain version, on the same card tensors."""
+    from sybil_tpu_torch.ops import decode
+    kinds, _ = decode.classify_containers(containers, C)
+    got = decode.decode_column_batch(containers, C, device)
+    names = ("decode_bucket2", "decode_bucket_v1", "decode_value",
+             "decode_ids")
+    kernels_ = {n: getattr(decode, n) for n in names}
+    try:
+        for n in names:
+            setattr(decode, n, getattr(decode, n + "_plain"))
+        want = decode.decode_column_batch(containers, C, device)
+    finally:
+        for n, f in kernels_.items():
+            setattr(decode, n, f)
+    used = {"decode_bucket2" for k in kinds if k in ("bucket2", "bucket")}
+    used |= {"decode_value" for k in kinds if k in ("value", "str_value")}
+    for k in used:
+        check_equal(f"{k} {what} values", got[0], want[0], errs[k])
+        check_equal(f"{k} {what} valid", got[1], want[1], errs[k])
+    return sorted(set(kinds))
+
+
+def v1_container(rng, n: int, card: int, p_valid: float, shift: int = 0):
+    """A bucket-v1 block as the v1 encoder wrote it (cross-segment id
+    deltas from an id_base meta, no seg_bases; tests/test_storage.py:
+    181-215); shift moves ids out of [0, n) to exercise the clamp."""
+    import numpy as np
+
+    from sybil_tpu_torch.blocks import _narrow
+    values = rng.integers(0, card, n).astype(np.int64)
+    valid = rng.random(n) < p_valid
+    rows = np.nonzero(valid)[0].astype(np.int64)
+    order = np.argsort(values[rows], kind="stable")
+    sorted_rows = rows[order]
+    uniq, starts = np.unique(values[rows][order], return_index=True)
+    offsets = np.empty(len(uniq) + 1, dtype=np.int32)
+    offsets[:-1] = starts
+    offsets[-1] = len(sorted_rows)
+    deltas = np.zeros(len(sorted_rows), dtype=np.int64)
+    deltas[1:] = sorted_rows[1:] - sorted_rows[:-1]
+    return MemContainer(
+        {"type": "int", "encoding": "bucket", "num_records": n,
+         "cardinality": len(uniq), "id_base": int(sorted_rows[0]) + shift,
+         "version": 1},
+        {"uniq": uniq.astype(np.int64), "offsets": offsets,
+         "id_deltas": _narrow(deltas)})
+
+
+def b5_edge_containers():
+    """Value, str-id, v1-bucket and mixed edge batches -> list of
+    (label, containers, C)."""
+    import numpy as np
+
+    from sybil_tpu_torch.blocks import (IntColumnData, StrColumnData,
+                                        encode_int_column, encode_str_column)
+    rng = np.random.default_rng(11)
+
+    def value(n, step_lo, step_hi, base, p_valid, want_dt):
+        steps = rng.integers(step_lo, step_hi, n).astype(np.int64)
+        steps[steps == 0] = 1
+        v = base + np.cumsum(steps)
+        meta, s = encode_int_column(IntColumnData(v, rng.random(n) < p_valid))
+        if meta["encoding"] != "value" or (
+                want_dt and s["deltas"].dtype != np.dtype(want_dt)):
+            fail(f"edge value block: {meta['encoding']} "
+                 f"{s.get('deltas', np.zeros(0)).dtype}, not {want_dt}")
+        return MemContainer(meta, s)
+
+    def str_ids(n, card, p_valid):
+        ids = rng.integers(0, card, n).astype(np.int32)
+        meta, s = encode_str_column(StrColumnData(
+            ids, rng.random(n) < p_valid, [f"u{i}" for i in range(card)]))
+        if meta["encoding"] != "value":
+            fail("edge str block is not value-encoded")
+        return MemContainer(meta, s)
+
+    def bucket2(n, card):
+        meta, s = encode_int_column(IntColumnData(
+            rng.integers(0, card, n).astype(np.int64), rng.random(n) < 0.9))
+        return MemContainer(meta, s)
+
+    C = 65536
+    return [
+        ("value i8 deltas", [value(C, 1, 100, 1 << 40, 1.0, "i1"),
+                             value(C, -100, 120, -(1 << 41), 1.0, "i1")], C),
+        ("value i16 deltas", [value(C, -3000, 30000, 1_755_000_000, 1.0,
+                                    "i2")], C),
+        ("value i32 deltas, invalid rows",
+         [value(C, -2_000_000, 2_000_000, 1_755_000_000, 0.7, None),
+          value(C, 1, 100, 5, 0.6, None)], C),
+        ("value i64 deltas", [value(C, -(1 << 40), 1 << 40, 1 << 50, 1.0,
+                                    "i8")], C),
+        ("value short and missing blocks",
+         [None, value(5100, 1, 50, 1 << 33, 0.99, None), None,
+          value(60000, -40, 90, -(1 << 35), 0.9, None)], C),
+        ("str ids, 6000 distinct", [str_ids(C, 6000, 0.9),
+                                    str_ids(7000, 6000, 0.97), None], C),
+        ("bucket v1", [v1_container(rng, C, 50, 0.9),
+                       v1_container(rng, 40000, 7, 0.8),
+                       v1_container(rng, 700, 3, 1.0)], C),
+        ("bucket v1, ids shifted out of range",
+         [v1_container(rng, 4096, 9, 0.8, shift=-100),
+          v1_container(rng, 4096, 4, 0.9, shift=300)], 4096),
+        ("mixed kinds", [value(C, 1, 100, 1 << 40, 0.9, None),
+                         bucket2(C, 12), None, v1_container(rng, 6000, 20, 0.8),
+                         str_ids(C, 6000, 0.9),
+                         value(60000, -3000, 30000, -5, 0.95, None), None,
+                         bucket2(3000, 40)], C),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: K2-K5
 # ---------------------------------------------------------------------------
 
 def query_params(groups, aggs, weight="", op="avg", htype="basic",
-                 filters=()):
+                 filters=(), time_bucket=0):
     from sybil_tpu_torch.query.spec import AggDef, FilterDef, QueryParams
     return QueryParams(groups=tuple(groups),
                        aggs=tuple(AggDef(a, op, htype) for a in aggs),
                        filters=tuple(FilterDef(*f) for f in filters),
-                       weight_col=weight)
+                       weight_col=weight, time_bucket=time_bucket,
+                       time_col="time" if time_bucket else "")
 
 
 def bound_query(table, flags, params):
@@ -379,10 +553,11 @@ def decoded_cols(table, names, C: int, device):
     return out, dirs
 
 
-def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
-    """K2, then K4 and K5 per histogram aggregation, then K3, each against
-    its plain version on the same inputs; the kernels' buffer against
-    scan_packed's.  -> (K2 outputs, main)."""
+def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
+    """K2 (in each form that applies: windowed and global for a windowed
+    rollup), then K4 and K5 per histogram aggregation, then K3, each
+    against its plain version on the same inputs; the kernels' buffer
+    against scan_packed's.  -> (K2 outputs, main)."""
     import torch
 
     from sybil_tpu_torch.ops import scan
@@ -392,14 +567,17 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
     dev = nrec.device
     if fv is None:
         fv = torch.zeros(0, dtype=torch.int64, device=dev)
-    k2 = scan.dense_scan(cfg, cols, nrec, fv, bits)
-    k2p = scan.dense_scan_plain(cfg, cols, nrec, fv, bits)
-    for key in ("sums", "spill", "mins", "maxs", "gid"):
-        if (k2[key] is None) != (k2p[key] is None):
-            fail(f"K2 {what} {key}: kernel and plain disagree on presence")
-        if k2[key] is not None:
-            check_equal(f"K2 {what} {key}", k2[key], k2p[key],
-                        errs["dense_scan"])
+    k2p = scan.dense_scan_plain(cfg, cols, nrec, fv, bits, tb)
+    forms = ["windowed", "global"] if scan.windowed(cfg) else [None]
+    for form in forms:
+        k2 = scan.dense_scan(cfg, cols, nrec, fv, bits, tb, form=form)
+        for key in ("sums", "spill", "mins", "maxs", "gid"):
+            if (k2[key] is None) != (k2p[key] is None):
+                fail(f"K2 {what} {key}: kernel and plain disagree on "
+                     f"presence")
+            if k2[key] is not None:
+                check_equal(f"K2 {what} {form or ''} {key}", k2[key],
+                            k2p[key], errs["dense_scan"])
     layout = scan.packed_layout(cfg, R)
     shape = (layout["rows"], layout["W"])
     main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
@@ -417,15 +595,15 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
         if cfg.track_outliers:
             off, kmax = layout[f"out{ai}"]
             scan.outlier_compact(cfg, cols, h["out_mask"], h["out_val"],
-                                 main, off)
+                                 main, off, tb)
             scan.outlier_compact_plain(cfg, cols, h["out_mask"],
-                                       h["out_val"], main_p, off)
+                                       h["out_val"], main_p, off, tb)
             check_equal(f"K5 {what} agg{ai} rows", main[off: off + kmax],
                         main_p[off: off + kmax], errs["outlier_compact"])
     scan.dense_pack(cfg, k2, hists, nouts, main, R)
     scan.dense_pack_plain(cfg, k2, hists, nouts, main_p, R)
     check_equal(f"K3 {what} main", main, main_p, errs["dense_pack"])
-    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits)
+    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
     if not torch.equal(packed["main"], main):
         fail(f"{what}: scan_packed's buffer differs from the kernels' own")
     return k2, main
@@ -490,6 +668,38 @@ EDGE_SCANS = {
                         {"hist": [(0, 10, 20, 0, 400)]}),
     "hist, not compact": ([(0, 126)], 1, False, False, False,
                           {"hist": [(0, 10, 20, 0, 400)]}),
+    # time rollups: "time" = (lo, hi, bucket, time_i32, window, sorted,
+    # share of rows with the time column, spill margin); the time key's
+    # bound is the data's quotient range, cut by the margin on each side
+    "time: negative times, windowed": ([(0, 9)], 1, True, False, False,
+                                       {"time": (-3_000_000, 3_000_000,
+                                                 3600, True, 128, True, 0.97,
+                                                 0)}),
+    "time: beyond 2^31, int64 division": ([(0, 9)], 1, False, False, False,
+                                          {"time": (1 << 31, (1 << 31)
+                                                    + 2_400_000, 3600, False,
+                                                    0, False, 1.0, 0)}),
+    "time: int64, negative, windowed": ([(0, 5)], 2, True, False, False,
+                                        {"time": (-(1 << 40), 1 << 40,
+                                                  1 << 33, False, 128, True,
+                                                  0.97, 0)}),
+    "time: spilled quotient": ([(0, 9)], 1, False, False, False,
+                               {"time": (0, 2_400_000, 3600, True, 0, False,
+                                         1.0, 20)}),
+    "time: spilled quotient, windowed": ([(0, 9)], 1, False, False, False,
+                                         {"time": (0, 2_400_000, 3600, True,
+                                                   128, True, 1.0, 20)}),
+    "time: rows without the time column": ([(0, 9)], 1, True, False, False,
+                                           {"time": (0, 2_400_000, 3600,
+                                                     True, 128, True, 0.5,
+                                                     0)}),
+    "time: span wider than 8 bands": ([(0, 9)], 1, True, False, False,
+                                      {"time": (0, 2_400_000, 3600, True,
+                                                128, False, 0.97, 0)}),
+    "time: hist, tracked outliers": ([(0, 9)], 1, True, False, False,
+                                     {"hist": [(0, 10, 20, 0, 400)],
+                                      "time": (-1_000_000, 1_400_000, 3600,
+                                               True, 256, True, 0.97, 0)}),
 }
 MULTI_EDGES = ((200, 300, 8, 20, 0), (100, 199, 4, 20, 20),
                (0, 99, 3, 30, 40))   # top range first; 70 buckets
@@ -497,11 +707,12 @@ MULTI_EDGES = ((200, 300, 8, 20, 0), (100, 199, 4, 20, 20),
 
 def edge_scan(name: str, device, B: int = 3, C: int = 65536):
     """A synthetic dense-scan batch -> (ScanConfig, cols, nrec,
-    filter_vals, bitsets)."""
+    filter_vals, bitsets, time bucket)."""
     import numpy as np
     import torch
 
-    from sybil_tpu_torch.ops.scan import AggSpec, FilterSpec, ScanConfig
+    from sybil_tpu_torch.ops.scan import (AggSpec, FilterSpec, ScanConfig,
+                                          windowed)
     bounds, A, weight, vbias, i32, extra = EDGE_SCANS[name]
     rng = np.random.default_rng(len(name))
     R = B * C
@@ -564,10 +775,22 @@ def edge_scan(name: str, device, B: int = 3, C: int = 65536):
         nrows = [not weight, True]
         for _ in aggs:
             nrows += [True, not weight, False]
+    tb, tkw = 1, {}
+    if "time" in extra:
+        lo, hi, tb, i32, window, sort, tvalid, margin = extra["time"]
+        t = rng.integers(lo, hi, R)
+        if sort:
+            t = np.sort(t)
+        put("t", t, rng.random(R) < tvalid)
+        q = np.where(t >= 0, t // tb, -((-t) // tb))
+        qmin, card = int(q.min()) + margin, int(q.max() - q.min()) + 1
+        bounds = [(qmin, card - 2 * margin)] + bounds
+        tkw = dict(time_col="t", time_i32=i32, window=window,
+                   window_chunk=8192 if window else 0)
     cfg = ScanConfig(group_cols=tuple(groups), aggs=tuple(aggs),
                      filters=tuple(filters),
                      weight_col="w" if weight else "",
-                     key_bounds=tuple(bounds),
+                     key_bounds=tuple(bounds), **tkw,
                      agg_vbias=(tuple(a.discard_min for a in aggs)
                                 if vbias else ()),
                      lane_row_bounds=tuple(rb), lane_nrows=tuple(nrows),
@@ -578,7 +801,10 @@ def edge_scan(name: str, device, B: int = 3, C: int = 65536):
     if extra.get("partial"):
         nrec[:] = [0, 700, 1]
     fv = torch.tensor(fvals, dtype=torch.int64, device=device)
-    return cfg, cols, torch.from_numpy(nrec).to(device), fv, bits
+    if "time" in extra and (cfg.window > 0) != windowed(cfg):
+        fail(f"edge scan {name}: window {cfg.window} of "
+             f"{cfg.dense_slots} slots")
+    return cfg, cols, torch.from_numpy(nrec).to(device), fv, bits, tb
 
 
 # ---------------------------------------------------------------------------
@@ -675,8 +901,8 @@ def timed_queries(card, label, table, params, qflags, rows, B, expect):
         qr = run_query(table, params, qflags)
         warm.append(time.perf_counter() - t0)
     wl = dict(kernels.LAUNCHES)
-    if wl["decode_bucket2"] != 0:
-        fail(f"{label}: warm queries ran the decode kernel: {wl}")
+    if wl["decode_bucket2"] != 0 or wl["decode_value"] != 0:
+        fail(f"{label}: warm queries ran a decode kernel: {wl}")
     for k, n in expect.items():
         if wl[k] != 5 * n:
             fail(f"{label}: warm queries: expected {k} {n}x per batch: {wl}")
@@ -747,7 +973,8 @@ def main(argv=None) -> int:
     import numpy as np
 
     from sybil_tpu_torch.ops import kernels, residency, scan
-    from sybil_tpu_torch.ops.decode import decode_bucket2, decode_bucket2_plain
+    from sybil_tpu_torch.ops.decode import (decode_bucket2, decode_bucket2_plain,
+                                            decode_value, decode_value_plain)
     from sybil_tpu_torch.ops.residency import device_const
     from sybil_tpu_torch.query.engine import run_query
 
@@ -779,11 +1006,14 @@ def main(argv=None) -> int:
         say(f"built uptime table: {args.rows} rows, {nblocks} blocks in "
             f"{time.perf_counter() - t0:.1f}s (host CPU)")
         t0 = time.perf_counter()
-        stable, sflags, us, actions, pages = build_sessions(
-            os.path.join(root, "us"), args.rows)
-        say(f"built user_sessions table: {args.rows} rows, "
-            f"{len(stable.block_infos())} blocks in "
+        stable, sflags, ttable, tflags, us, actions, pages = build_sessions(
+            os.path.join(root, "us"), os.path.join(root, "us_sorted"),
+            args.rows)
+        say(f"built user_sessions tables (bulk and time-sorted): "
+            f"{args.rows} rows, {len(stable.block_infos())} and "
+            f"{len(ttable.block_infos())} blocks in "
             f"{time.perf_counter() - t0:.1f}s (host CPU)")
+        tables4 = {"bulk": (stable, sflags), "time-sorted": (ttable, tflags)}
         C = 65536 if args.rows > 8192 else 128
         while C < min(args.rows, 65536):
             C *= 2
@@ -817,6 +1047,44 @@ def main(argv=None) -> int:
         say(f"K1 decode_bucket2 == plain (tolerance 0) on the table's host "
             f"and ping columns and {len(edges)} edge batches: "
             + ", ".join(label for label, _, _ in edges))
+
+        # K6 on the real time containers of both user_sessions tables
+        k6_main = {}
+        for tlabel, (t4, _) in tables4.items():
+            tdirs = sorted(t4.block_infos())
+            typ = t4.schema.col_type("time")
+            cs = [blocks.open_column(d, typ, "time") for d in tdirs]
+            encs = {c.meta["encoding"] for c in cs}
+            dts = {str(c.read("deltas").dtype) for c in cs
+                   if c.meta["encoding"] == "value"}
+            if encs != {"value"}:
+                fail(f"{tlabel} table: time is {encs}-encoded, not value")
+            ins = k6_inputs(cs, C, dev)
+            got = decode_value(*ins, C)
+            want = decode_value_plain(*ins, C)
+            check_equal(f"K6 {tlabel} time values", got[0], want[0],
+                        errs["decode_value"])
+            check_equal(f"K6 {tlabel} time valid", got[1], want[1],
+                        errs["decode_value"])
+            for bi in (0, len(cs) - 1):
+                host = blocks.decode_int_container(cs[bi])
+                n = len(host.values)
+                if not (np.array_equal(got[0][bi, :n].cpu().numpy(),
+                                       host.values)
+                        and np.array_equal(got[1][bi, :n].cpu().numpy(),
+                                           host.valid)):
+                    fail(f"K6 {tlabel} time block {bi} differs from the "
+                         f"host decoder")
+            k6_main[tlabel] = ins
+            say(f"K6 decode_value == plain (tolerance 0) on the {tlabel} "
+                f"table's time column ({len(cs)} value blocks, deltas "
+                f"{sorted(dts)})")
+        b5 = b5_edge_containers()
+        for label, cs, cc in b5:
+            kinds = decode_check(label, cs, cc, dev, errs)
+            say(f"  decode edge batch {label}: kinds {kinds} == plain")
+        say(f"K6 decode_value and K1's v1 mode == plain (tolerance 0) on "
+            f"{len(b5)} edge batches, mixed kinds included")
 
         # ---- phase 4: K2-K5 ----------------------------------------------
         cols, _ = decoded_cols(table, ["host", "ping", "status", "weight"],
@@ -899,11 +1167,71 @@ def main(argv=None) -> int:
                 f"{scan.dense_hist_path(b.config, 0)} track_outliers="
                 f"{b.config.track_outliers} groups={int(main[0, 0])} "
                 f"nout={int(main[0, 2])}")
+        # config 4 as run_query binds it, on both decoded tables; its
+        # -op hist form with outlier tracking forced on (the bench data
+        # cannot overflow the hist range, so its outlier rows are the
+        # padding rows, whose time key K5 writes too); and the bulk
+        # table's rows shuffled on the card, as a table written in
+        # arrival order would hold them, windowed as the bind windows
+        # blocks that span the whole range (the CPU tests' wide table)
+        params4 = query_params(["action"], ["weight"],
+                               time_bucket=C4_BUCKET)
+        c4 = {}
+        for tlabel, (t4, f4) in tables4.items():
+            b4 = bound_query(t4, f4, params4)
+            cols4, dirs4 = decoded_cols(t4, ["time", "action", "weight"], C,
+                                        dev)
+            nrec4 = torch.from_numpy(np.array(
+                [t4.block_infos()[d].num_records for d in dirs4],
+                dtype=np.int32)).to(dev)
+            c4[tlabel] = (b4.config, cols4, nrec4)
+            k2t, _ = scan_check(f"config 4 {tlabel}", b4.config, cols4,
+                                nrec4, errs, tb=C4_BUCKET)
+            hcfg = dataclasses.replace(bound_query(t4, f4, query_params(
+                ["action"], ["weight"], op="hist",
+                time_bucket=C4_BUCKET)).config, track_outliers=True)
+            _, hmain = scan_check(f"config 4 -op hist {tlabel}", hcfg,
+                                  cols4, nrec4, errs, tb=C4_BUCKET)
+            band, chunk = scan.window_band(b4.config, C)
+            say(f"K2/K3 == plain: config 4 {tlabel}: slots="
+                f"{b4.config.dense_slots} window={b4.config.window} "
+                f"window_chunk={b4.config.window_chunk} band={band} "
+                f"chunk={chunk} time_i32={b4.config.time_i32} key_bounds="
+                f"{b4.config.key_bounds} path="
+                f"{scan.dense_scan_path(b4.config)} spill="
+                f"{int(k2t['spill'].item())}; -op hist K2/K4/K5/K3 == "
+                f"plain (K4 {scan.dense_hist_path(hcfg, 0)}, outlier rows "
+                f"{int(hmain[0, 2])})")
+            if int(k2t["spill"].item()) != 0:
+                fail(f"config 4 {tlabel}: exact bounds spilled")
+        cfg4b, cols4b, nrec4b = c4["bulk"]
+        # the records of every block (rows below its nrec), permuted
+        # among themselves
+        pos = torch.nonzero((torch.arange(C, device=dev)[None, :]
+                             < nrec4b[:, None]).reshape(-1)).reshape(-1)
+        perm = pos[torch.randperm(pos.numel(), device=dev,
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(4))]
+        cols4s = {}
+        for k, (v, m) in cols4b.items():
+            v2, m2 = v.clone().reshape(-1), m.clone().reshape(-1)
+            v2[pos], m2[pos] = v.reshape(-1)[perm], m.reshape(-1)[perm]
+            cols4s[k] = (v2.reshape(v.shape), m2.reshape(m.shape))
+        nrec4s = nrec4b
+        cfg4s = dataclasses.replace(cfg4b, window=896)
+        if not scan.windowed(cfg4s):
+            fail("the arrival-order config 4 is not windowed")
+        scan_check("config 4 arrival order", cfg4s, cols4s, nrec4s, errs,
+                   tb=C4_BUCKET)
+        c4["arrival order"] = (cfg4s, cols4s, nrec4s)
+        say("K2 (windowed and global) and K3 == plain: config 4 with the "
+            "bulk table's rows in arrival order, window 896")
+
         for label in EDGE_SCANS:
-            cfg, ecols, enrec, efv, ebits = edge_scan(label, dev)
+            cfg, ecols, enrec, efv, ebits, etb = edge_scan(label, dev)
             k2e, emain = scan_check(label, cfg, ecols, enrec, errs, efv,
-                                    ebits)
-            if (int(k2e["spill"].item()) > 0) != (label == "spill"):
+                                    ebits, etb)
+            if (int(k2e["spill"].item()) > 0) != ("spill" in label):
                 fail(f"edge scan {label}: unexpected spill "
                      f"{k2e['spill'].item()}")
             if label == "outliers beyond the packed rows" and \
@@ -912,10 +1240,23 @@ def main(argv=None) -> int:
             if label == "hist table in global memory" and \
                     scan.dense_hist_path(cfg, 0) != "global":
                 fail(f"edge scan {label}: K4 took the shared path")
+            if label == "time: span wider than 8 bands":
+                band, chunk = scan.window_band(cfg, C)
+                sums = scan.dense_scan_plain(cfg, ecols, enrec, efv, ebits,
+                                             etb)["sums"]
+                live = torch.nonzero(sums[:, 1]).reshape(-1)
+                span = int(live.max() - live.min()) + 1
+                if span <= 8 * band:
+                    fail(f"edge scan {label}: span {span} <= 8 bands of "
+                         f"{band}")
+            if label == "time: hist, tracked outliers" and \
+                    int(emain[0, 2]) == 0:
+                fail(f"edge scan {label}: no outlier rows")
         say(f"K2-K5 == plain on {len(EDGE_SCANS)} synthetic edge batches "
             f"(3 x 65536 rows): " + ", ".join(EDGE_SCANS))
-        say("K2 dense_scan, K4 dense_hist, K5 outlier_compact and K3 "
-            "dense_pack == plain, word for word (tolerance 0)")
+        say("K2 dense_scan (time key; shared, global and windowed forms), "
+            "K4 dense_hist, K5 outlier_compact (time key) and K3 dense_pack "
+            "== plain, word for word (tolerance 0)")
 
         # ---- phase 5: the main path ------------------------------------
         launches = {k: 0 for k in KERNELS}
@@ -994,10 +1335,48 @@ def main(argv=None) -> int:
                 f"{nout} outliers); launches {ll}; wall {wall:.3f}s")
             for k in KERNELS:
                 launches[k] += ll[k]
+        # config 4 on both user_sessions tables, cold (cache cleared)
+        want4 = numpy_rollup(us["time"], us["action"], us["weight"],
+                             C4_BUCKET)
+        cold4 = {"decode_bucket2": 2, "decode_value": 1, "dense_scan": 1,
+                 "dense_pack": 1, "dense_hist": 0, "outlier_compact": 0}
+        for tlabel, (t4, _) in tables4.items():
+            residency.CACHE.clear()
+            nb = len(t4.block_infos())
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", t4.flags.dir, "-table", "user_sessions",
+                 "-group", "action", "-int", "weight", "-op", "avg",
+                 "-time", "-time-bucket", str(C4_BUCKET), "-time-col",
+                 "time", "-json", "-device-batch", str(nb),
+                 "-device", "cuda"])
+            if rc != 0:
+                fail(f"config 4 {tlabel}: port CLI query exited {rc}")
+            if ll != cold4:
+                fail(f"config 4 {tlabel}: cold launches {ll}, expected "
+                     f"{cold4}")
+            got4 = {}
+            for tb_s, rows_ in json.loads(out).items():
+                for r in rows_:
+                    got4[(int(tb_s), actions.index(r["action"]))] = r
+            if set(got4) != set(want4):
+                fail(f"config 4 {tlabel}: (time bucket, action) keys "
+                     f"differ: {len(got4)} vs numpy {len(want4)}")
+            for k, (cnt, wsum) in want4.items():
+                r = got4[k]
+                if r["Count"] != cnt or r["Samples"] != cnt or \
+                        r["weight"] != wsum / cnt:
+                    fail(f"config 4 {tlabel} {k}: port {r} vs numpy "
+                         f"count={cnt} sum={wsum}")
+            say(f"main path: CLI config 4 on cuda, {tlabel} table == numpy "
+                f"group-by ({len(want4)} (time bucket, action) rows, "
+                f"{args.rows} rows, count and weight sum each); cold "
+                f"launches {ll}; wall {wall:.3f}s")
+            for k in KERNELS:
+                launches[k] += ll[k]
         missing = [k for k in KERNELS if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the four CLI queries: {launches}")
+        say(f"main path launches over the six CLI queries: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -1017,6 +1396,20 @@ def main(argv=None) -> int:
                 f, device="cuda", device_batch=nb), args.rows, nb,
                 {"dense_scan": 1, "dense_hist": 1, "dense_pack": 1,
                  "outlier_compact": track})
+        for tlabel, (t4, f4) in tables4.items():
+            nb = len(t4.block_infos())
+            qr4 = timed_queries(card, f"config 4 {tlabel}", t4, params4,
+                                dataclasses.replace(f4, device="cuda",
+                                                    device_batch=nb),
+                                args.rows, nb,
+                                {"dense_scan": 1, "dense_pack": 1,
+                                 "dense_hist": 0, "outlier_compact": 0})
+            got4 = {(tb_, actions.index(r.group_key.rstrip("\t"))):
+                    (r.count, r.hists["weight"].avg)
+                    for tb_, rs in qr4.time_results.items()
+                    for r in rs.values()}
+            if got4 != {k: (c, w / c) for k, (c, w) in want4.items()}:
+                fail(f"config 4 {tlabel}: warm query differs from numpy")
 
         # ---- phase 6: kernel times --------------------------------------
         ins, cs = k1_main["ping"]
@@ -1035,17 +1428,21 @@ def main(argv=None) -> int:
             Sc = scan.reduce_space(cfg)[1]
             L = 2 + 3 * len(cfg.aggs)
             H = len(scan.hist_aggs(cfg))
-            return (len(sub) * R * 9 + (R * 4 if H else 0) + B * 4
+            B_, C_ = next(iter(sub.values()))[0].shape
+            R_ = B_ * C_
+            return (len(sub) * R_ * 9 + (R_ * 4 if H else 0) + B_ * 4
                     + Sc * (L + 2 * H) * 8 + 8)
 
-        def k2_ops(cfg):
+        def k2_ops(cfg, R=R):
             # integer operations a row needs: block range test, each
             # filter's compare, each key's digit (test, subtract, clamp,
             # multiply-add), each aggregation's lanes (tests, adds, a
-            # multiply) and min/max
+            # multiply) and min/max; a rollup's time quotient (an int32
+            # division, about 20 instructions, or a 64-bit one, about 70)
+            tq = (20 if cfg.time_i32 else 70) if cfg.time_col else 0
             return R * (6 + 3 * len(cfg.filters) + 8 * len(cfg.group_cols)
                         + 12 * len(cfg.aggs)
-                        + 2 * len(scan.hist_aggs(cfg)))
+                        + 2 * len(scan.hist_aggs(cfg)) + tq + 2)
 
         # K2 on three shapes: config 1 (the PR-1 row), config 3, config 2
         c3 = bound["config 3"]
@@ -1088,7 +1485,122 @@ def main(argv=None) -> int:
         k2_lib3 = cuda_ms(lambda: torch.zeros(
             (Sc3, L3), dtype=torch.int64, device=dev).index_add_(
                 0, gid3, lanes), iters=5)
-        del lanes, gid1, gid3
+        # and at config 2 (K2's own gids, 5 lanes)
+        Sc2 = scan.reduce_space(c2.config)[1]
+        L2 = 2 + 3 * len(c2.config.aggs)
+        gid2 = scan.dense_scan(c2.config, c2cols, snrec, c2fv)["gid"].to(
+            torch.int64)
+        lanes = torch.ones((R, L2), dtype=torch.int64, device=dev)
+        k2_lib2 = cuda_ms(lambda: torch.zeros(
+            (Sc2, L2), dtype=torch.int64, device=dev).index_add_(
+                0, gid2, lanes), iters=5)
+        say(f"[{card}] dense_scan config 2: index_add_ over prebuilt lanes "
+            f"{k2_lib2:.4f} ms")
+        del lanes, gid1, gid3, gid2
+
+        # K2 on config 4: each table, each form that applies
+        k2_c4 = {}
+        for tlabel, (cfg4, cols4, nrec4) in c4.items():
+            R4 = int(nrec4.shape[0]) * C
+            sub4 = cols4
+            nbytes = k2_bytes(cfg4, sub4)
+            pms = cuda_ms(lambda: scan.dense_scan_plain(
+                cfg4, sub4, nrec4, None, (), C4_BUCKET), iters=3, warmup=1)
+            # one torch call: index_add_ of prebuilt lanes by K2's gids
+            gcfg = dataclasses.replace(cfg4, aggs=(dataclasses.replace(
+                cfg4.aggs[0], num_values=1, bucket_size=1),))
+            gid4 = scan.dense_scan(gcfg, sub4, nrec4, None, (), C4_BUCKET)[
+                "gid"].to(torch.int64)
+            Sc4 = scan.reduce_space(cfg4)[1]
+            L4 = 2 + 3 * len(cfg4.aggs)
+            lanes = torch.ones((R4, L4), dtype=torch.int64, device=dev)
+            lib = cuda_ms(lambda: torch.zeros(
+                (Sc4, L4), dtype=torch.int64, device=dev).index_add_(
+                    0, gid4, lanes), iters=5)
+            del lanes, gid4
+            for form in ("windowed", "global"):
+                ms = cuda_ms(lambda: scan.dense_scan(
+                    cfg4, sub4, nrec4, None, (), C4_BUCKET, form=form))
+                k2_c4[(tlabel, form)] = (ms, pms, nbytes, k2_ops(cfg4, R4),
+                                         lib)
+                say(f"[{card}] dense_scan config 4 {tlabel} {form}: "
+                    f"{ms:.4f} ms (bound "
+                    f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms bytes, "
+                    f"{k2_ops(cfg4, R4) / INT32_OPS_PER_S * 1e3:.4f} ms "
+                    f"ops; plain {pms:.4f} ms; index_add_ {lib:.4f} ms; "
+                    f"window {cfg4.window}, band/chunk "
+                    f"{scan.window_band(cfg4, C)})")
+
+        # K6 on the bulk table's time column
+        dl, bits6, bases6, src6 = k6_main["bulk"]
+        B6 = int(src6.shape[0])
+        k6_ms = cuda_ms(lambda: decode_value(dl, bits6, bases6, src6, C))
+        k6_plain = cuda_ms(lambda: decode_value_plain(dl, bits6, bases6,
+                                                      src6, C), iters=5)
+        sh6 = torch.arange(8, dtype=torch.uint8, device=dev)
+
+        def k6_lib():
+            v = torch.cumsum(dl.to(torch.int64), dim=1) + bases6[:, None]
+            m = ((bits6[:, :, None] >> sh6) & 1).reshape(B6, C) > 0
+            return v, m
+        k6_lib_ms = cuda_ms(k6_lib, iters=5)
+        # deltas and bits read once, bases and the row map, values and
+        # validity written
+        k6_bytes = (dl.numel() * dl.element_size() + bits6.numel()
+                    + B6 * 12 + B6 * C * 9)
+        # per entry: widen, the scan's add, a shift and mask, two stores
+        k6_ops = B6 * C * 6
+        say(f"[{card}] decode_value bulk time ({dl.dtype} deltas): "
+            f"{k6_ms:.4f} ms (plain {k6_plain:.4f} ms; cumsum + unpack "
+            f"{k6_lib_ms:.4f} ms)")
+
+        # K6's id mode and K1's v1 mode run off the main path (no bench
+        # column needs them): one edge block of each, 65,536 rows,
+        # repeated for as many rows as the main path's batches
+        from sybil_tpu_torch.ops.decode import (bucket_v1_batch,
+                                                decode_bucket_v1,
+                                                decode_bucket_v1_plain,
+                                                decode_ids, decode_ids_plain,
+                                                ids_batch)
+        edge_of = {label: cs for label, cs, _ in b5}
+        rows_idx = list(range(B6))
+        src_all = torch.arange(B6, dtype=torch.int32, device=dev)
+        ids_t, bits_t = (torch.from_numpy(a).to(dev) for a in ids_batch(
+            [edge_of["str ids, 6000 distinct"][0]] * B6, rows_idx, C))
+        got = decode_ids(ids_t, bits_t, src_all, C)
+        want = decode_ids_plain(ids_t, bits_t, src_all, C)
+        check_equal(f"K6 ids {B6} blocks values", got[0], want[0],
+                    errs["decode_value"])
+        check_equal(f"K6 ids {B6} blocks valid", got[1], want[1],
+                    errs["decode_value"])
+        kid_ms = cuda_ms(lambda: decode_ids(ids_t, bits_t, src_all, C))
+        kid_plain = cuda_ms(lambda: decode_ids_plain(ids_t, bits_t, src_all,
+                                                     C), iters=5)
+        kid_lib = cuda_ms(lambda: (
+            ids_t.to(torch.int64),
+            ((bits_t[:, :, None] >> sh6) & 1).reshape(B6, C) > 0), iters=5)
+        kid_bytes = B6 * C * 4 + bits_t.numel() + B6 * 4 + B6 * C * 9
+        kid_ops = B6 * C * 4
+        v1_ins = [torch.from_numpy(a).to(dev) for a in bucket_v1_batch(
+            [edge_of["bucket v1"][0]] * B6, rows_idx)]
+        got = decode_bucket_v1(*v1_ins, src_all, C)
+        want = decode_bucket_v1_plain(*v1_ins, src_all, C)
+        check_equal(f"K1 v1 {B6} blocks values", got[0], want[0],
+                    errs["decode_bucket2"])
+        check_equal(f"K1 v1 {B6} blocks valid", got[1], want[1],
+                    errs["decode_bucket2"])
+        v1_ms = cuda_ms(lambda: decode_bucket_v1(*v1_ins, src_all, C))
+        v1_plain = cuda_ms(lambda: decode_bucket_v1_plain(*v1_ins, src_all,
+                                                          C), iters=5)
+        v1_live = int(v1_ins[1].sum().item())
+        v1_K = v1_ins[3].shape[1]
+        v1_bytes = (v1_live * v1_ins[0].element_size() + B6 * v1_K * (4 + 8)
+                    + B6 * 4 * 3 + B6 * C * 9)
+        v1_ops = v1_live * 20
+        say(f"[{card}] decode_ids {B6} str-id blocks: {kid_ms:.4f} ms (plain "
+            f"{kid_plain:.4f} ms; widen + unpack {kid_lib:.4f} ms); "
+            f"decode_bucket_v1 {B6} v1 blocks ({v1_ins[0].dtype} deltas, "
+            f"{v1_live} postings): {v1_ms:.4f} ms (plain {v1_plain:.4f} ms)")
 
         # K4 on config 3 (and, in the text, -loghist and config 2)
         k4_times = {}
@@ -1194,22 +1706,41 @@ def main(argv=None) -> int:
         k2c3 = k2_times["config 3"]
         k4c3 = k4_times["config 3"]
         rows_out = []
-        for name, rep, ms, pms, nbytes, ops, lib in (
-                ("decode_bucket2", "sybil_tpu/ops/decode.py:86", k1_ms,
-                 k1_plain, k1_bytes, k1_ops, None),
-                ("dense_scan", "sybil_tpu/ops/scan.py:629", k2c3[0],
-                 k2c3[1], k2c3[2], k2c3[3], k2_lib3),
-                ("dense_hist", "sybil_tpu/ops/scan.py:497", k4c3[0],
-                 k4c3[1], k4c3[2], k4c3[3], k4c3[4]),
-                ("outlier_compact", "sybil_tpu/ops/scan.py:1802", k5_ms,
-                 k5_plain, k5_bytes, k5_ops, k5_lib_ms),
-                ("dense_pack", "sybil_tpu/ops/scan.py:1825", k3_ms,
-                 k3_plain, k3_bytes, 0, None)):
+        c4rows = tuple(
+            (f"dense_scan", f"config 4, {tl} table, {form} form",
+             "sybil_tpu/ops/scan.py:704", *k2_c4[(tl, form)])
+            for tl, form in (("time-sorted", "windowed"),
+                             ("bulk", "windowed"), ("bulk", "global"),
+                             ("arrival order", "windowed"),
+                             ("arrival order", "global")))
+        for name, what, rep, ms, pms, nbytes, ops, lib in (
+                ("decode_bucket2", "config 1 ping column",
+                 "sybil_tpu/ops/decode.py:86", k1_ms, k1_plain, k1_bytes,
+                 k1_ops, None),
+                ("decode_bucket2", f"v1 mode, {B6} edge blocks, off the main "
+                 "path", "sybil_tpu/ops/decode.py:61", v1_ms, v1_plain,
+                 v1_bytes, v1_ops, None),
+                ("decode_value", "config 4 time column, bulk table",
+                 "sybil_tpu/ops/decode.py:40", k6_ms, k6_plain, k6_bytes,
+                 k6_ops, k6_lib_ms),
+                ("decode_value", f"id mode, {B6} str-id edge blocks, off the "
+                 "main path", "sybil_tpu/ops/decode.py:51", kid_ms,
+                 kid_plain, kid_bytes, kid_ops, kid_lib),
+                ("dense_scan", "config 3", "sybil_tpu/ops/scan.py:629",
+                 k2c3[0], k2c3[1], k2c3[2], k2c3[3], k2_lib3),
+                *c4rows,
+                ("dense_hist", "config 3", "sybil_tpu/ops/scan.py:497",
+                 k4c3[0], k4c3[1], k4c3[2], k4c3[3], k4c3[4]),
+                ("outlier_compact", "config 3 -loghist",
+                 "sybil_tpu/ops/scan.py:1802", k5_ms, k5_plain, k5_bytes,
+                 k5_ops, k5_lib_ms),
+                ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
+                 k3_ms, k3_plain, k3_bytes, 0, None)):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             rows_out.append({
-                "name": name, "route": "cuda",
+                "name": name, "shape": what, "route": "cuda",
                 "source": f"sybil_tpu_torch/csrc/{name}.cu",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": max(errs[name]) if errs[name] else 0.0,
@@ -1217,7 +1748,8 @@ def main(argv=None) -> int:
                 "bound_ms": bound_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": lib})
-            say(f"[{card}] {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+            say(f"[{card}] {name} ({what}): {ms:.4f} ms (bound "
+                f"{bound_ms:.4f} ms by "
                 f"{rows_out[-1]['bound_by']}: {nbytes} B, {ops} int ops; "
                 f"plain {pms:.4f} ms"
                 + (f"; library {lib:.4f} ms" if lib is not None else "")

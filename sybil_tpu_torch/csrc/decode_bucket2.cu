@@ -1,29 +1,36 @@
-// K1 decode_bucket2: bucket-v2 column decode for a batch of blocks.
+// K1 decode_bucket2: bucket column decode for a batch of blocks, both
+// on-disk layouts.
 //
-// Replaces sybil_tpu/ops/decode.py:_decode_bucket2_jit (and, for this
-// encoding, the reassembly gather of decode_column_batch).  A bucket-v2
-// container stores, per distinct value, a CSR segment of posting row
-// ids, delta-encoded WITHIN the segment (each segment's first delta is
-// 0) plus the segment's first row id (blocks.py:_bucket_encode).  For
-// posting p of a block:
+// Replaces sybil_tpu/ops/decode.py:_decode_bucket2_jit (v2) and
+// _decode_bucket_jit (v1), and, for these encodings, the reassembly
+// gather of decode_column_batch.  A bucket container stores, per
+// distinct value, a CSR segment of posting row ids.  v2 (blocks.py:
+// _bucket_encode) delta-encodes the ids WITHIN each segment (each
+// segment's first delta is 0) and keeps each segment's first row id in
+// seg_bases; v1 delta-encodes them ACROSS segments from one id_base per
+// block, so a segment boundary may jump backwards.  For posting p:
 //     slot = searchsorted(offsets, p, side="right")
-//     start = slot > 0 ? offsets[slot-1] : 0
-//     row  = seg_bases[slot] + cum[p] - cum[start]      (int32, wrapping)
+//     v2: start = slot > 0 ? offsets[slot-1] : 0
+//         row = seg_bases[slot] + cum[p] - cum[start]   (int32, wrapping)
+//     v1: row = id_base + cum[p]                        (int32, wrapping)
 //     out[row] = uniq[slot], valid[row] = 1   when 0 <= row < C
-// with cum the inclusive prefix sum of the deltas.
+// with cum the inclusive prefix sum of the deltas' int32 casts.
 //
-// Bound: memory.  The block reads its deltas (1-4 B per posting) and
+// Bound: memory.  The block reads its deltas (1-8 B per posting) and
 // writes 9 B per output row (int64 value + bool validity); everything
 // else is small.  Design: one CTA per OUTPUT row of the [B, C] batch.
-// The CTA zeroes its row (a missing block stops there), stages its
-// block's offsets, seg_bases and uniq in dynamic shared memory (20 B per
-// slot, 160 KB at the K = 8192 cap), then walks the postings in tiles
-// of 1024 with a running cub::BlockScan.  The head posting of each
-// segment records cum[start] in a per-slot shared array, so a posting
-// whose segment began in an earlier tile still finds it; rows scatter
-// straight into the block's row of the output through the row -> block
-// map, so no gather reassembles block order afterwards.  The delta type
-// is a template parameter, so no widening pass runs first.
+// src_of_row maps each row to its block; -1 marks a row whose block
+// lacks the column (zeroed here) and -2 a row that another launch of
+// the batch writes (a block of another encoding: left alone).  The CTA
+// zeroes its row, stages its block's offsets, seg_bases and uniq in
+// dynamic shared memory (20 B per slot, 160 KB at the K = 8192 cap),
+// then walks the postings in tiles of 1024 with a running
+// cub::BlockScan.  In v2 the head posting of each segment records
+// cum[start] in a per-slot shared array, so a posting whose segment
+// began in an earlier tile still finds it; rows scatter straight into
+// the block's row of the output, so no gather reassembles block order
+// afterwards.  The delta type and the layout are template parameters,
+// so no widening pass runs first.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,14 +51,14 @@ struct RunningPrefix {
   }
 };
 
-template <typename D>
+template <typename D, bool V1>
 __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
     const D* __restrict__ deltas,        // [b, P]
     const int* __restrict__ counts,      // [b] postings per block
     const int* __restrict__ offsets,     // [b, K] CSR offsets[1:], 2^31-1 pad
     const long long* __restrict__ uniq,  // [b, K]
-    const int* __restrict__ seg_bases,   // [b, K]
-    const int* __restrict__ src_of_row,  // [B] block index, -1 = missing
+    const int* __restrict__ bases,       // v2: seg_bases [b, K]; v1: [b]
+    const int* __restrict__ src_of_row,  // [B] block, -1 zero, -2 skip
     long long* __restrict__ values,      // [B, C]
     bool* __restrict__ valid,            // [B, C]
     int P, int K, int C) {
@@ -64,6 +71,8 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
   __shared__ typename Scan::TempStorage scan_tmp;
 
   const int row = blockIdx.x;
+  const int src = src_of_row[row];
+  if (src == -2) return;  // another launch writes this row
   // C is a power of two >= 128: 16-byte stores zero the row
   longlong2* vrow = reinterpret_cast<longlong2*>(values + (size_t)row * C);
   uint4* mrow = reinterpret_cast<uint4*>(valid + (size_t)row * C);
@@ -71,17 +80,16 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
     vrow[i] = make_longlong2(0, 0);
   for (int i = threadIdx.x; i < C / 16; i += THREADS)
     mrow[i] = make_uint4(0, 0, 0, 0);
-  const int src = src_of_row[row];
   if (src < 0) return;  // the whole CTA leaves: a missing block is zeros
 
   const int* off_g = offsets + (size_t)src * K;
-  const int* sb_g = seg_bases + (size_t)src * K;
   const long long* uq_g = uniq + (size_t)src * K;
   for (int i = threadIdx.x; i < K; i += THREADS) {
     s_off[i] = off_g[i];
-    s_sb[i] = sb_g[i];
+    if (!V1) s_sb[i] = bases[(size_t)src * K + i];
     s_uniq[i] = uq_g[i];
   }
+  const unsigned id_base = V1 ? static_cast<unsigned>(bases[src]) : 0u;
   __syncthreads();  // also orders the zeroing before the scatter
 
   const int n = counts[src];
@@ -96,8 +104,8 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
       const int p = p0 + j;
-      // u8/u16 zero-extend, i32 keeps its bits: the int32 cast of the
-      // reference's cumsum
+      // unsigned types zero-extend, signed ones sign-extend, int64 keeps
+      // its low 32 bits: the int32 cast of the reference's cumsum
       cum[j] = p < n ? static_cast<unsigned>(static_cast<int>(d_g[p])) : 0u;
     }
     Scan(scan_tmp).InclusiveSum(cum, cum, prefix);
@@ -112,6 +120,7 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
         if (s_off[mid] <= p) lo = mid + 1; else hi = mid;
       }
       slot[j] = lo;
+      if (V1) continue;
       const int start = lo > 0 ? s_off[lo - 1] : 0;
       if (p == start) s_segcum[min(lo, K - 1)] = cum[j];
     }
@@ -121,8 +130,9 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
       const int p = p0 + j;
       if (p >= n) continue;
       const int s = min(slot[j], K - 1);
-      const int id = static_cast<int>(static_cast<unsigned>(s_sb[s]) +
-                                      cum[j] - s_segcum[s]);
+      const int id = V1 ? static_cast<int>(id_base + cum[j])
+                        : static_cast<int>(static_cast<unsigned>(s_sb[s]) +
+                                           cum[j] - s_segcum[s]);
       if (id >= 0 && id < C) {
         out_v[id] = s_uniq[s];
         out_m[id] = true;
@@ -132,47 +142,61 @@ __global__ void __launch_bounds__(THREADS) decode_bucket2_kernel(
   }
 }
 
-template <typename D>
+template <typename D, bool V1>
 cudaError_t launch(const void* deltas, const void* counts,
-                   const void* offsets, const void* uniq,
-                   const void* seg_bases, const void* src_of_row,
-                   void* values, void* valid, int B, int P, int K, int C,
-                   cudaStream_t stream) {
+                   const void* offsets, const void* uniq, const void* bases,
+                   const void* src_of_row, void* values, void* valid, int B,
+                   int P, int K, int C, cudaStream_t stream) {
   const size_t smem = (size_t)K * (sizeof(long long) + 3 * sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
-      decode_bucket2_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_bucket2_kernel<D, V1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  decode_bucket2_kernel<D><<<B, THREADS, smem, stream>>>(
+  decode_bucket2_kernel<D, V1><<<B, THREADS, smem, stream>>>(
       static_cast<const D*>(deltas), static_cast<const int*>(counts),
       static_cast<const int*>(offsets), static_cast<const long long*>(uniq),
-      static_cast<const int*>(seg_bases),
-      static_cast<const int*>(src_of_row), static_cast<long long*>(values),
-      static_cast<bool*>(valid), P, K, C);
+      static_cast<const int*>(bases), static_cast<const int*>(src_of_row),
+      static_cast<long long*>(values), static_cast<bool*>(valid), P, K, C);
   return cudaGetLastError();
+}
+
+template <typename D>
+cudaError_t launch_layout(int v1, const void* deltas, const void* counts,
+                          const void* offsets, const void* uniq,
+                          const void* bases, const void* src_of_row,
+                          void* values, void* valid, int B, int P, int K,
+                          int C, cudaStream_t s) {
+  return v1 ? launch<D, true>(deltas, counts, offsets, uniq, bases,
+                              src_of_row, values, valid, B, P, K, C, s)
+            : launch<D, false>(deltas, counts, offsets, uniq, bases,
+                               src_of_row, values, valid, B, P, K, C, s);
 }
 
 }  // namespace
 
-// dtype: 0 = uint8, 1 = uint16, 2 = int32 deltas.  Returns cudaError_t.
-extern "C" int decode_bucket2(const void* deltas, int dtype,
+// dtype: 0 uint8, 1 uint16, 2 int32, 3 int8, 4 int16, 5 int64 deltas.
+// v1: 0 = v2 layout (bases = seg_bases [b, K]), 1 = v1 layout (bases =
+// id_base [b]).  Returns cudaError_t.
+extern "C" int decode_bucket2(const void* deltas, int dtype, int v1,
                               const void* counts, const void* offsets,
-                              const void* uniq, const void* seg_bases,
+                              const void* uniq, const void* bases,
                               const void* src_of_row, void* values,
                               void* valid, int B, int P, int K, int C,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K1_CASE(code, T)                                                   \
+  case code:                                                               \
+    return launch_layout<T>(v1, deltas, counts, offsets, uniq, bases,      \
+                            src_of_row, values, valid, B, P, K, C, s);
   switch (dtype) {
-    case 0:
-      return launch<uint8_t>(deltas, counts, offsets, uniq, seg_bases,
-                             src_of_row, values, valid, B, P, K, C, s);
-    case 1:
-      return launch<uint16_t>(deltas, counts, offsets, uniq, seg_bases,
-                              src_of_row, values, valid, B, P, K, C, s);
-    case 2:
-      return launch<int32_t>(deltas, counts, offsets, uniq, seg_bases,
-                             src_of_row, values, valid, B, P, K, C, s);
+    K1_CASE(0, uint8_t)
+    K1_CASE(1, uint16_t)
+    K1_CASE(2, int32_t)
+    K1_CASE(3, int8_t)
+    K1_CASE(4, int16_t)
+    K1_CASE(5, int64_t)
     default:
       return cudaErrorInvalidValue;
   }
+#undef K1_CASE
 }

@@ -5,9 +5,11 @@
 // rows of a mask, in row order, by cumsum + searchsorted) and the
 // outlier section of pack_outputs: row j of the section is
 // [key_0 .. key_{K-1}, value, live] padded with zeros to W words, for
-// the j-th set row of the mask.  key_k is the group key (MISSING = -1
-// where the key column is missing); a scan without group columns has
-// one zero key.  When fewer than kmax rows are set, the reference
+// the j-th set row of the mask.  The keys are the reference's
+// sorted_gkeys row: in a rollup the time key trunc_div(t, tb) * tb first
+// (Go's division, int32 arithmetic under time_i32, from the time lane
+// as it lies), then each group key (MISSING = -1 where the key column is
+// missing); a scan with neither has one zero key.  When fewer than kmax rows are set, the reference
 // gathers row R-1 for each remaining entry (searchsorted returns R,
 // clipped to R-1), so padding rows hold row R-1's keys and value with
 // live = 0; this kernel writes the same words.
@@ -41,24 +43,50 @@ struct OutlierCompactArgs {
   const long long* vals;       // [R]
   const long long* key_vals[MAXK];
   const unsigned char* key_valid[MAXK];
+  const long long* t_vals;     // time column (has_time)
   long long* out;              // [kmax, W] rows of the download buffer
   int* offsets;                // [ntiles + 1] scratch: counts, then offsets
   long long R;
+  long long tb;                // time bucket (> 0)
   int kmax;
   int W;
-  int nkeys;                   // group columns; 0 = one zero key
+  int nkeys;                   // group columns; none and no time = one zero key
   int ntiles;
+  int has_time;                // key 0 is the time key
+  int time_i32;
 };
 
 namespace {
 
+// The reference's _trunc_div for d > 0 (as in dense_scan.cu).
+template <typename T, typename U>
+__device__ __forceinline__ T go_trunc_div(T x, T d) {
+  const T ax = x < 0 ? static_cast<T>(U(0) - static_cast<U>(x)) : x;
+  T q = ax / d;
+  if (ax < 0 && q * d != ax) --q;
+  return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
+}
+
+__device__ long long time_key(const OutlierCompactArgs& a, long long t) {
+  if (a.time_i32) {
+    const int tb = static_cast<int>(a.tb);
+    const int q = go_trunc_div<int, unsigned>(static_cast<int>(t), tb);
+    return static_cast<int>(static_cast<unsigned>(q) *
+                            static_cast<unsigned>(tb));
+  }
+  const long long q = go_trunc_div<long long, unsigned long long>(t, a.tb);
+  return (long long)((unsigned long long)q * (unsigned long long)a.tb);
+}
+
 __device__ void write_row(const OutlierCompactArgs& a, long long j,
                           long long r, long long live) {
   long long* o = a.out + j * a.W;
-  const int K = a.nkeys > 0 ? a.nkeys : 1;
+  const int nk = a.nkeys + a.has_time;
+  const int K = nk > 0 ? nk : 1;
+  if (a.has_time) o[0] = time_key(a, a.t_vals[r]);
   for (int k = 0; k < a.nkeys; ++k)
-    o[k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
-  if (a.nkeys == 0) o[0] = 0;
+    o[a.has_time + k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
+  if (nk == 0) o[0] = 0;
   o[K] = a.vals[r];
   o[K + 1] = live;
   for (int k = K + 2; k < a.W; ++k) o[k] = 0;

@@ -21,8 +21,8 @@ import shutil
 import subprocess
 import threading
 
-SOURCES = ("decode_bucket2", "dense_scan", "dense_hist", "outlier_compact",
-           "dense_pack")
+SOURCES = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
+           "outlier_compact", "dense_pack")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")

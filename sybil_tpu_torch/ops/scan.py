@@ -1,8 +1,9 @@
 """The dense scan: group-by + aggregate over a batch of column blocks.
 
 Port of sybil_tpu/ops/scan.py for the dense strategy (group keys with a
-known bounded cardinality): BASELINE config 1 `group by host, avg ping`
-and the filtered histogram queries of configs 2 and 3.  The device-free
+known bounded cardinality): BASELINE config 1 `group by host, avg ping`,
+the filtered histogram queries of configs 2 and 3, and the time rollups
+of config 4.  The device-free
 parts are copies of the reference's: the static ScanConfig with its slot
 arithmetic, and the packed-download layout (main_width, table_prefix,
 dense_table_plan, dense_keys_np, packed_layout) that the engine's reader
@@ -12,16 +13,21 @@ The device work is four hand-written CUDA kernels (csrc/), run in this
 order by scan_packed:
 
 K2 dense_scan       one fused pass over the rows: row-in-range and the
-                    int/str/regex filters, key lanes, mixed-radix gid with
-                    MISSING = digit 0 and a spill count, weight and
-                    aggregation lanes, exact int64 per-slot sums and the
-                    histogram aggregations' per-slot min/max over the
-                    compact [g+1] reduce space; each row's gid for K4
+                    int/str/regex filters, the time key (rows without
+                    the time column unmatched, Go-truncated bucket
+                    quotient), key lanes, mixed-radix gid with MISSING =
+                    digit 0 and a spill count, weight and aggregation
+                    lanes, exact int64 per-slot sums and the histogram
+                    aggregations' per-slot min/max over the compact
+                    [g+1] reduce space, or band by band over each row
+                    chunk's live-gid span for a windowed rollup; each
+                    row's gid for K4
 K4 dense_hist       per histogram aggregation: bucket ids (basic or
                     multihist), exact per-(slot, bucket) weighted counts,
                     and the outlier mask, values and count
 K5 outlier_compact  per tracked histogram aggregation: the first kmax
-                    outlier rows [keys, value, live] of the download
+                    outlier rows [time key?, keys, value, live] of the
+                    download
 K3 dense_pack       the meta row, the compact keyless table with the
                     histogram min/max words, and the dense histogram gid
                     and bucket sections; with K5's rows, word for word the
@@ -30,8 +36,8 @@ K3 dense_pack       the meta row, the compact keyless table with the
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.  scan_packed raises
 NotImplementedError, naming the ROADMAP item, for every scan shape
-this slice does not carry yet (sorted/enumerated strategies, set
-filters, time rollups, distinct counts, samples, mesh scans).
+the port does not carry yet (sorted/enumerated strategies, set filters,
+distinct counts, samples, cache-group scans, mesh scans).
 """
 
 from __future__ import annotations
@@ -427,8 +433,6 @@ def check_supported(config: ScanConfig) -> None:
         no("set filters (in/nin over set columns)", "B6b")
     if len(config.filters) > _MAXF:
         no(f"more than {_MAXF} filters", "B6b")
-    if config.time_col or config.window:
-        no("time rollups", "B8")
     if config.distinct_cols or config.hll:
         no("count distinct", "B9")
     if config.want_matched_mask:
@@ -441,13 +445,19 @@ def check_supported(config: ScanConfig) -> None:
         no("query-cache group scans", "A13")
 
 
+def windowed(config: ScanConfig) -> bool:
+    """The reference's windowed reduce applies (scan.py:965): a rollup
+    whose bind-time window is narrower than the slot table."""
+    return 0 < config.window < config.dense_slots
+
+
 def reduce_space(config: ScanConfig) -> tuple[int, int, bool]:
     """-> (slots, Sc, compact).  The dense reduce runs over the COMPACT
     [g+1] rows (real mixed-radix gids < g, the dead slot remapped to g)
-    whenever that is smaller than the lane-padded slot count
-    (reference _scan_dense)."""
+    whenever that is smaller than the lane-padded slot count, unless the
+    rollup is windowed (reference _scan_dense)."""
     slots = config.dense_slots
-    if config.key_bounds:
+    if config.key_bounds and not windowed(config):
         g = 1
         for (_, card) in config.key_bounds:
             g *= card + 1
@@ -536,6 +546,8 @@ class DenseScanArgs(ctypes.Structure):
         ("filter_vals", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
+        ("t_vals", ctypes.c_void_p),
+        ("t_valid", ctypes.c_void_p),
         ("nrec", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
         ("spill", ctypes.c_void_p),
@@ -543,6 +555,7 @@ class DenseScanArgs(ctypes.Structure):
         ("maxs", ctypes.c_void_p),
         ("gid_out", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
+        ("tb", ctypes.c_longlong),
         ("f_op", ctypes.c_int * _MAXF),
         ("agg_mm", ctypes.c_int * _MAXA),
         ("log2C", ctypes.c_int),
@@ -554,6 +567,10 @@ class DenseScanArgs(ctypes.Structure):
         ("L", ctypes.c_int),
         ("H", ctypes.c_int),
         ("has_weight", ctypes.c_int),
+        ("has_time", ctypes.c_int),
+        ("time_i32", ctypes.c_int),
+        ("band", ctypes.c_int),
+        ("chunk", ctypes.c_int),
         ("pad_", ctypes.c_int),
     ]
 
@@ -575,6 +592,39 @@ def _filter_ok(f: FilterSpec, v, ok, fv, bitsets):
     return torch.zeros_like(ok)          # unknown op never matches
 
 
+def _trunc_div(x, d: int):
+    """The reference's _trunc_div (Go division): floor of |x| / d (|x|
+    wraps at the dtype's minimum), negated for negative x."""
+    q = torch.div(x.abs(), d, rounding_mode="floor")
+    return torch.where(x >= 0, q, -q)
+
+
+def _wrap32(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def time_key(config: ScanConfig, tv, time_bucket: int):
+    """-> (bucket quotient q, key lane q * tb int64) of time values `tv`
+    (reference _front_end 412-422, _dense_gid 588-597): int32 arithmetic
+    when the bind proved the column and bucket fit it (time_i32)."""
+    if config.time_i32:
+        tb32 = _wrap32(int(time_bucket))
+        q = _trunc_div(tv.to(torch.int32), tb32)
+        return q, (q * tb32).to(torch.int64)
+    q = _trunc_div(tv, int(time_bucket))
+    return q, q * int(time_bucket)
+
+
+def _time_bucket_arg(config: ScanConfig, time_bucket, kernel: str) -> int:
+    """The bucket width a kernel divides by: positive, and below 2^31
+    when the division runs in int32."""
+    tb = int(time_bucket)
+    if config.time_col and not (0 < tb and (not config.time_i32
+                                            or tb < 2**31)):
+        raise ValueError(f"{kernel}: time bucket {tb} out of range")
+    return tb
+
+
 def _weight_plain(config: ScanConfig, flat, R: int, dev):
     if config.weight_col:
         wv, wm = flat[config.weight_col]
@@ -583,9 +633,10 @@ def _weight_plain(config: ScanConfig, flat, R: int, dev):
 
 
 def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
-                     bitsets=()):
-    """Plain PyTorch version of K2: filters, lanes [R, 2+3A] + index_add_
-    over the compact reduce space, scatter min/max of kept values.
+                     bitsets=(), time_bucket: int = 1):
+    """Plain PyTorch version of K2: filters, the time key, lanes [R,
+    2+3A] + index_add_ over the reduce space, scatter min/max of kept
+    values.
     -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs" int64
     [Sc, H], "gid" int32 [R] (dead rows Sc-1) or None without hist
     aggs}."""
@@ -599,17 +650,28 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     for i, f in enumerate(config.filters):
         v, ok = flat[f.col]
         matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
+    digits = []                      # (digit, spilled) per key, in order
+    if config.time_col:
+        # rows without the time column are skipped entirely
+        tv, tm = flat[config.time_col]
+        matched = matched & tm
+        mn, card = config.key_bounds[0] if config.key_bounds else (0, 0)
+        q, _ = time_key(config, tv, time_bucket)
+        digits.append((q - mn + 1, (q < mn) | (q >= mn + card)))
+    for g, (mn, card) in zip(config.group_cols,
+                             config.key_bounds[len(digits):]):
+        v, m = flat[g]
+        k = torch.where(m, v, MISSING)
+        digits.append((torch.where(k == MISSING, 0, k - mn + 1),
+                       (k != MISSING) & ((k < mn) | (k >= mn + card))))
     if not config.key_bounds:
         gid = torch.where(matched, 0, slots - 1).to(torch.int32)
         spill = torch.zeros((), dtype=torch.int64, device=dev)
     else:
         gid = torch.zeros(R, dtype=torch.int32, device=dev)
         spilled = torch.zeros(R, dtype=torch.bool, device=dev)
-        for g, (mn, card) in zip(config.group_cols, config.key_bounds):
-            v, m = flat[g]
-            k = torch.where(m, v, MISSING)
-            digit = torch.where(k == MISSING, 0, k - mn + 1)
-            spilled |= (k != MISSING) & ((k < mn) | (k >= mn + card))
+        for (digit, sp), (_, card) in zip(digits, config.key_bounds):
+            spilled |= sp
             gid = gid * (card + 1) + digit.clamp(0, card).to(torch.int32)
         gid = torch.where(matched, gid, slots - 1)
         spill = (spilled & matched).sum(dtype=torch.int64)
@@ -640,20 +702,25 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
 
 
 def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
-               bitsets=()):
+               bitsets=(), time_bucket: int = 1, form: str | None = None):
     """K2: -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs"
     int64 [Sc, H], "gid" int32 [R] or None}, as dense_scan_plain.
 
     cols: {name: (values int64 [B, C], valid bool [B, C])}; nrec int32
     [B]; filter_vals int64 [F] (one constant per filter); bitsets: bool
-    regex bitsets indexed by FilterSpec.bitset_idx.  CUDA tensors launch
-    the kernel (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
+    regex bitsets indexed by FilterSpec.bitset_idx; time_bucket: the
+    rollup's bucket width (a time_col config).  form: "shared",
+    "global" or "windowed" (default dense_scan_path's choice; all give
+    the same words).  CUDA tensors launch the kernel
+    (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
 
-    Replaces sybil_tpu/ops/scan.py:_front_end (filters included),
-    _dense_gid, _agg_row_data and the plain _dense_reduce sums and min/max
-    of _scan_dense.  Bound by memory (9 B read per row per referenced
-    column); one grid-stride pass with per-CTA shared-memory tables, or
-    global atomics when they exceed SHARED_TABLE_BYTES (see the source
+    Replaces sybil_tpu/ops/scan.py:_front_end (filters and the time key
+    included), _dense_gid, _agg_row_data and the _dense_reduce sums and
+    min/max of _scan_dense, plain and windowed.  Bound by memory (9 B
+    read per row per referenced column); one grid-stride pass with
+    per-CTA shared-memory tables, or global atomics when they exceed
+    SHARED_TABLE_BYTES, or, for a windowed rollup, shared [band, L]
+    tables swept over each row chunk's live-gid span (see the source
     note)."""
     B, C = _batch_shape(cols)
     dev = nrec.device
@@ -661,11 +728,19 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     if filter_vals is None:
         filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
-        return dense_scan_plain(config, cols, nrec, filter_vals, bitsets)
+        return dense_scan_plain(config, cols, nrec, filter_vals, bitsets,
+                                time_bucket)
     if dev.type != "cuda":
         raise ValueError(f"dense_scan: unsupported device {dev}")
     if C & (C - 1):
         raise ValueError(f"dense_scan: C must be a power of two, got {C}")
+    form = form or dense_scan_path(config)
+    if form not in ("shared", "global", "windowed") or (
+            form == "windowed" and not windowed(config)) or (
+            form == "shared" and _k2_table_bytes(config)
+            > SHARED_TABLE_BYTES):
+        raise ValueError(f"dense_scan: form {form!r} does not apply")
+    tb = _time_bucket_arg(config, time_bucket, "dense_scan")
     _check_tensor(nrec, (B,), torch.int32, "nrec", dev, "dense_scan")
     _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
                   "dense_scan")
@@ -688,11 +763,16 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     gid = torch.empty(R, dtype=torch.int32, device=dev) if H else None
 
     a = DenseScanArgs()
-    for i, (g, (mn, card)) in enumerate(zip(config.group_cols,
-                                            config.key_bounds)):
-        v, m = cols[g]
-        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    nt = 1 if config.time_col else 0
+    for i, (mn, card) in enumerate(config.key_bounds):
         a.key_min[i], a.key_card[i] = mn, card
+        if i >= nt:
+            v, m = cols[config.group_cols[i - nt]]
+            a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    if config.time_col:
+        v, m = cols[config.time_col]
+        a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
+        a.tb, a.time_i32 = tb, int(config.time_i32)
     vbias = config.agg_vbias or (0,) * na
     for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
         v, m = cols[agg.col]
@@ -720,28 +800,62 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     a.nkeys, a.naggs, a.nfilters = nk, na, nf
     a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
 
-    tab_bytes = _k2_table_bytes(config)
-    use_shared = dense_scan_path(config) == "shared"
+    if form == "windowed":
+        a.band, a.chunk = window_band(config, C)
+        # [band, L] sums, [band, H] mins and maxs, the chunk's gids
+        smem = a.band * _k2_slot_bytes(config) + a.chunk * 4
+        per_sm = max(1, min(8, (228 << 10) // (smem + 1024)))
+        grid = max(1, min(R // a.chunk, _sm_count(dev) * per_sm))
+    else:
+        grid = _grid(dev, R, _k2_table_bytes(config), form == "shared")
     fn = kernels.lib("dense_scan").dense_scan
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), int(use_shared),
-                     _grid(dev, R, tab_bytes, use_shared),
+    kernels.check(fn(ctypes.byref(a), _K2_FORMS[form], grid,
                      kernels.stream_handle(dev)), "dense_scan")
     kernels.LAUNCHES["dense_scan"] += 1
     return {"sums": sums, "spill": spill, "mins": mins, "maxs": maxs,
             "gid": gid}
 
 
+def _k2_slot_bytes(config: ScanConfig) -> int:
+    """Bytes of one slot of K2's tables: L sums, H mins and H maxs."""
+    return (2 + 3 * len(config.aggs) + 2 * len(hist_aggs(config))) * 8
+
+
 def _k2_table_bytes(config: ScanConfig) -> int:
     """K2's per-CTA tables: [Sc, L] sums and [Sc, H] mins and maxs."""
     _, Sc, _ = reduce_space(config)
-    return Sc * (2 + 3 * len(config.aggs) + 2 * len(hist_aggs(config))) * 8
+    return Sc * _k2_slot_bytes(config)
+
+
+_K2_FORMS = {"global": 0, "shared": 1, "windowed": 2}
+# the windowed form's row chunk (its gids stay in shared memory) and
+# band budget
+_WINDOW_CHUNK = 8192
+_BAND_BYTES = 160 << 10
+
+
+def window_band(config: ScanConfig, C: int) -> tuple[int, int]:
+    """-> (band slots, chunk rows) of K2's windowed form: the chunk is
+    the reference's window_chunk (C when 0), at most _WINDOW_CHUNK rows,
+    rounded down to a power of two so chunks tile every block; the band
+    is the bind-time window, cut to the shared budget.  Both are the
+    kernel's own choice: any band and chunk give the same sums."""
+    wc = min(C, config.window_chunk) if config.window_chunk else C
+    wc = min(wc, _WINDOW_CHUNK)
+    chunk = 1 << (max(wc, 1).bit_length() - 1)
+    _, Sc, _ = reduce_space(config)
+    band = min(config.window, _BAND_BYTES // _k2_slot_bytes(config), Sc)
+    return max(1, band), chunk
 
 
 def dense_scan_path(config: ScanConfig) -> str:
-    """Which form of K2 a config takes: "shared" or "global"."""
+    """Which form of K2 a config takes: "windowed" for a windowed
+    rollup, else "shared" when the per-CTA tables fit, else "global"."""
+    if windowed(config):
+        return "windowed"
     return ("shared" if _k2_table_bytes(config) <= SHARED_TABLE_BYTES
             else "global")
 
@@ -920,25 +1034,34 @@ class OutlierCompactArgs(ctypes.Structure):
         ("vals", ctypes.c_void_p),
         ("key_vals", ctypes.c_void_p * _MAXK),
         ("key_valid", ctypes.c_void_p * _MAXK),
+        ("t_vals", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
+        ("tb", ctypes.c_longlong),
         ("kmax", ctypes.c_int),
         ("W", ctypes.c_int),
         ("nkeys", ctypes.c_int),
         ("ntiles", ctypes.c_int),
+        ("has_time", ctypes.c_int),
+        ("time_i32", ctypes.c_int),
     ]
 
 
-def key_rows(config: ScanConfig, cols, idx):
-    """Group keys of rows `idx` (int64 [n]) -> int64 [n, K]: the value,
-    or MISSING where the key is missing; one zero key without group
-    columns (the reference's sorted_gkeys rows)."""
-    if not config.group_cols:
+def key_rows(config: ScanConfig, cols, idx, time_bucket: int = 1):
+    """Keys of rows `idx` (int64 [n]) -> int64 [n, K]: the time key
+    trunc_div(t, tb) * tb first in a rollup (from the time lane as it
+    lies, valid or not), then each group key's value, or MISSING where
+    it is missing; one zero key without either (the reference's
+    sorted_gkeys rows, scan.py:403-433, 1032)."""
+    if not config.group_cols and not config.time_col:
         return torch.zeros((idx.numel(), 1), dtype=torch.int64,
                            device=idx.device)
     B, C = _batch_shape(cols)
     out = []
+    if config.time_col:
+        tv = cols[config.time_col][0].reshape(B * C)[idx]
+        out.append(time_key(config, tv, time_bucket)[1])
     for g in config.group_cols:
         v, m = cols[g]
         v, m = v.reshape(B * C)[idx], m.reshape(B * C)[idx]
@@ -947,7 +1070,7 @@ def key_rows(config: ScanConfig, cols, idx):
 
 
 def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
-                          row0: int) -> None:
+                          row0: int, time_bucket: int = 1) -> None:
     """Plain PyTorch version of K5: writes rows [row0, row0 + kmax) of
     `main` in place (the reference's _mask_positions + gather)."""
     R = mask.numel()
@@ -960,18 +1083,19 @@ def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
     pos = torch.full((kmax,), R - 1, dtype=torch.int64, device=dev)
     pos[:n] = idx
     block = torch.zeros((kmax, W), dtype=torch.int64, device=dev)
-    block[:, :K] = key_rows(config, cols, pos)
+    block[:, :K] = key_rows(config, cols, pos, time_bucket)
     block[:, K] = vals[pos]
     block[:n, K + 1] = 1
     main[row0: row0 + kmax] = block
 
 
 def outlier_compact(config: ScanConfig, cols, mask, vals, main,
-                    row0: int) -> None:
+                    row0: int, time_bucket: int = 1) -> None:
     """K5: writes the outlier section at rows [row0, row0 + kmax) of the
-    download buffer `main` in place, as outlier_compact_plain.  CUDA
-    tensors launch the kernel (csrc/outlier_compact.cu); CPU tensors
-    take the plain version.
+    download buffer `main` in place, as outlier_compact_plain; a
+    rollup's rows start with their time key.  CUDA tensors launch the
+    kernel (csrc/outlier_compact.cu); CPU tensors take the plain
+    version.
 
     mask bool [R], vals int64 [R] from K4.  Replaces sybil_tpu/ops/
     scan.py:_mask_positions and the outlier section of pack_outputs.
@@ -979,7 +1103,8 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     scan, and a ranked write (see the source note)."""
     dev = main.device
     if dev.type == "cpu":
-        outlier_compact_plain(config, cols, mask, vals, main, row0)
+        outlier_compact_plain(config, cols, mask, vals, main, row0,
+                              time_bucket)
         return
     if dev.type != "cuda":
         raise ValueError(f"outlier_compact: unsupported device {dev}")
@@ -997,6 +1122,7 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     if len(config.group_cols) > _MAXK:
         raise NotImplementedError(
             f"outlier_compact takes at most {_MAXK} group keys")
+    tb = _time_bucket_arg(config, time_bucket, "outlier_compact")
     ntiles = -(-R // _OUTLIER_TILE)
     offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
     a = OutlierCompactArgs()
@@ -1004,6 +1130,11 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     for i, g in enumerate(config.group_cols):
         v, m = _check_col(cols, g, B, C, dev, "outlier_compact")
         a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    if config.time_col:
+        tv, _ = _check_col(cols, config.time_col, B, C, dev,
+                           "outlier_compact")
+        a.t_vals, a.has_time = tv.data_ptr(), 1
+        a.tb, a.time_i32 = tb, int(config.time_i32)
     a.out = main.data_ptr() + row0 * W * 8
     a.offsets = offsets.data_ptr()
     a.R, a.kmax, a.W = R, kmax, W
@@ -1226,25 +1357,28 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
 # ---------------------------------------------------------------------------
 
 def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
-                bitsets=(), time_bucket=None, set_aux=None):
+                bitsets=(), time_bucket: int = 1, set_aux=None):
     """-> (packed {"main": [rows, W] int64}, raw device outputs).
 
     Same arguments as the reference's scan_packed_jit: filter_vals int64
-    [F] and the regex bitsets are device constants; the time and set
-    inputs belong to shapes this slice rejects.  Runs K2, then K4 and K5
-    per histogram aggregation, then K3.  `raw` keeps what escalation
-    fetches when a packed section overflows: "agg{ai}_hist" [Sc, nv],
-    "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" for the key
-    lanes (key_rows)."""
+    [F] and the regex bitsets are device constants; time_bucket is the
+    rollup's bucket width (a host int: K2 and K5 take it as a scalar
+    argument); set inputs belong to shapes the port rejects.  Runs K2,
+    then K4 and K5 per histogram aggregation, then K3.  `raw` keeps what
+    escalation fetches when a packed section overflows: "agg{ai}_hist"
+    [Sc, nv], "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" and
+    "time_bucket" for the key lanes (key_rows)."""
     check_supported(config)
     B, C = _batch_shape(cols)
     R = B * C
-    k2 = dense_scan(config, cols, nrec, filter_vals, bitsets)
+    time_bucket = int(time_bucket)
+    k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket)
     layout = packed_layout(config, R)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
                        device=nrec.device)
     raw = {k: v for k, v in k2.items() if k != "gid"}
     raw["cols"] = cols
+    raw["time_bucket"] = time_bucket
     hists, nouts = [], []
     for ai in hist_aggs(config):
         h = dense_hist(config, ai, cols, k2["gid"])
@@ -1255,7 +1389,7 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
             raw[f"agg{ai}_out_mask"] = h["out_mask"]
             raw[f"agg{ai}_out_val"] = h["out_val"]
             outlier_compact(config, cols, h["out_mask"], h["out_val"], main,
-                            layout[f"out{ai}"][0])
+                            layout[f"out{ai}"][0], time_bucket)
     dense_pack(config, k2, hists, nouts, main, R)
     return {"main": main}, raw
 
@@ -1265,7 +1399,7 @@ def fetch_outliers(config: ScanConfig, raw: dict, ai: int):
     values [n]): the escalation when nout exceeds the packed section."""
     mask = raw[f"agg{ai}_out_mask"]
     idx = torch.nonzero(mask).reshape(-1)
-    keys = key_rows(config, raw["cols"], idx)
+    keys = key_rows(config, raw["cols"], idx, raw["time_bucket"])
     return (keys.cpu().numpy(),
             raw[f"agg{ai}_out_val"][idx].cpu().numpy())
 

@@ -5,7 +5,7 @@ cache, the row-store scan, samples or meshes.  The plan:
 
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
-           K1 and kept resident, ops/residency.py) -> one scan_packed
+           K1 and K6 and kept resident, ops/residency.py) -> one scan_packed
            call per batch (K2, then K4 + K5 per histogram, then K3;
            ops/scan.py) -> one packed buffer copied to pinned host
            memory without blocking
@@ -963,7 +963,8 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
         nrec[len(batch):] = 0  # padded repeats contribute nothing
         with timer.phase("dispatch"):
             packed, out = scan_packed(cfg, cols, device_const(nrec, device),
-                                      ctx.jfv, ctx.jbits)
+                                      ctx.jfv, ctx.jbits,
+                                      params.time_bucket or 1)
         # the raw outputs stay beside the packed buffer until it drains:
         # escalation fetches from them when a packed section overflows
         pending.append((cfg, packed, out, R))

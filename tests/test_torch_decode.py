@@ -111,14 +111,114 @@ def test_decode_matches_reference(tmp_path, name):
     np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
 
 
-def test_decode_value_encoding_not_ported(tmp_path):
-    v = np.arange(6000, dtype=np.int64)      # > 5000 distinct: value enc.
-    meta, s = ref_blocks.encode_int_column(
-        ref_blocks.IntColumnData(v, np.ones(len(v), bool)))
-    assert meta["encoding"] == "value"
-    c = _container(tmp_path, "v", meta, s)
-    with pytest.raises(NotImplementedError, match="B5"):
-        decode_column_batch([c], 8192, "cpu")
+def _value_block(rng, n, step_lo, step_hi, base, p_valid=1.0):
+    """A value-encoded int block: distinct values (a walk whose steps lie
+    in [step_lo, step_hi)), so the delta dtype follows the step range."""
+    steps = rng.integers(step_lo, step_hi, n).astype(np.int64)
+    steps[steps == 0] = 1
+    v = base + np.cumsum(steps)
+    m = rng.random(n) < p_valid
+    meta, s = ref_blocks.encode_int_column(ref_blocks.IntColumnData(v, m))
+    assert meta["encoding"] == "value", meta
+    return meta, s
+
+
+def _str_value_block(rng, n, card, p_valid):
+    meta, s = _str_block(rng, n, card, p_valid)
+    assert meta["encoding"] == "value", meta
+    return meta, s
+
+
+def _v1_block(rng, n, card, p_valid, id_base_shift=0):
+    """A bucket-v1 block, written as tests/test_storage.py writes one:
+    cross-segment id deltas from an id_base meta, no seg_bases."""
+    values = rng.integers(0, card, n).astype(np.int64)
+    valid = rng.random(n) < p_valid
+    rows = np.nonzero(valid)[0].astype(np.int64)
+    order = np.argsort(values[rows], kind="stable")
+    sorted_rows = rows[order]
+    uniq, starts = np.unique(values[rows][order], return_index=True)
+    offsets = np.empty(len(uniq) + 1, dtype=np.int32)
+    offsets[:-1] = starts
+    offsets[-1] = len(sorted_rows)
+    deltas = np.empty(len(sorted_rows), dtype=np.int64)
+    deltas[0] = 0
+    deltas[1:] = sorted_rows[1:] - sorted_rows[:-1]
+    meta = {"type": "int", "encoding": "bucket", "num_records": n,
+            "cardinality": len(uniq),
+            "id_base": int(sorted_rows[0]) + id_base_shift, "version": 1}
+    return meta, {"uniq": uniq.astype(np.int64), "offsets": offsets,
+                  "id_deltas": ref_blocks._narrow(deltas)}
+
+
+def _b5_case(name, rng):
+    """-> (list of (meta, sections) or None, C, expected kinds)."""
+    if name == "value-i8-deltas":
+        return [_value_block(rng, 8192, 1, 100, 1 << 40),
+                _value_block(rng, 6000, 1, 120, -(1 << 41))], 8192, "i1"
+    if name == "value-i16-deltas":
+        return [_value_block(rng, 8192, -3000, 30000, 1_755_000_000),
+                _value_block(rng, 8192, 1, 100, 0, 0.8)], 8192, "i2"
+    if name == "value-i32-deltas":
+        # unix timestamps: a large base, int32 steps, invalid rows
+        return [_value_block(rng, 8192, -2_000_000, 2_000_000,
+                             1_755_000_000, 0.7),
+                _value_block(rng, 5500, 1, 100, 5)], 8192, "i4"
+    if name == "value-i64-deltas":
+        return [_value_block(rng, 8192, -(1 << 40), 1 << 40, 1 << 50),
+                _value_block(rng, 8000, 1, 100, -7, 0.75)], 8192, "i8"
+    if name == "value-short-and-missing":
+        return [None, _value_block(rng, 5100, 1, 50, 1 << 33, 0.99), None,
+                _value_block(rng, 8000, -40, 90, -(1 << 35), 0.9)], 8192, \
+            None
+    if name == "str-value-6000":
+        return [_str_value_block(rng, 8192, 6000, 0.9),
+                _str_value_block(rng, 7000, 6000, 0.97), None], 8192, None
+    if name == "bucket-v1":
+        return [_v1_block(rng, 1000, 7, 0.9), _v1_block(rng, 1024, 300, 0.6),
+                _v1_block(rng, 700, 2, 1.0)], 1024, None
+    if name == "bucket-v1-shifted-ids":
+        # an id_base that pushes ids below 0 and past C: dropped rows
+        return [_v1_block(rng, 1024, 9, 0.8, id_base_shift=-100),
+                _v1_block(rng, 1024, 4, 0.9, id_base_shift=300)], 1024, None
+    if name == "mixed-kinds":
+        return [_value_block(rng, 8192, 1, 100, 1 << 40, 0.9),
+                _int_block(rng, 8192, 12, 0.9), None,
+                _v1_block(rng, 6000, 20, 0.8),
+                _str_value_block(rng, 8192, 6000, 0.9),
+                _value_block(rng, 8000, -3000, 30000, -5, 0.95), None,
+                _str_block(rng, 3000, 40, 0.9)], 8192, None
+    raise KeyError(name)
+
+
+B5_CASES = ["value-i8-deltas", "value-i16-deltas", "value-i32-deltas",
+            "value-i64-deltas", "value-short-and-missing", "str-value-6000",
+            "bucket-v1", "bucket-v1-shifted-ids", "mixed-kinds"]
+
+
+@pytest.mark.parametrize("name", B5_CASES)
+def test_decode_other_encodings_match_reference(tmp_path, name):
+    """Value, str-value, v1-bucket and mixed batches: the port's batch
+    equals the reference's word for word over the whole [B, C],
+    padding rows included (a value block's rows past its records hold
+    the carried last value)."""
+    rng = np.random.default_rng(100 + B5_CASES.index(name))
+    encoded, C, dt = _b5_case(name, rng)
+    containers = [None if e is None else _container(tmp_path, f"b{i}", *e)
+                  for i, e in enumerate(encoded)]
+    if dt is not None:
+        wide = np.result_type(*[c.read("deltas").dtype
+                                for c in containers if c is not None])
+        assert wide == np.dtype(dt)
+    rv, rm, rn = ref_decode(containers, C)
+    pv, pm, pn = decode_column_batch(containers, C, "cpu")
+    assert pn == rn
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
+    if name.startswith("value") or name == "mixed-kinds":
+        kinds = [c.meta["encoding"] if c is not None else None
+                 for c in containers]
+        assert "value" in kinds
 
 
 def test_decode_oversized_block_is_value_error(tmp_path):

@@ -136,8 +136,9 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
-    # set filters (B6b) and histograms under the sorted strategy (B7)
-    # stay unported; int/str filters and dense histograms are ported
+    # set filters (B6b), histograms under the sorted strategy and a time
+    # rollup without a bound on its quotient (sorted, B7) stay unported;
+    # int/str filters, dense histograms and dense rollups are ported
     change = {
         "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
         "time": {"time_col": "k0"},
