@@ -38,23 +38,42 @@ Phases (any failure exits non-zero before the result lines):
      multihist sub-outliers, more outliers than the packed section holds,
      a hist table in global memory; negative times, times beyond 2^31,
      spilled quotients, rows without the time column, a span wider than
-     8 bands, a time rollup's tracked outliers)
+     8 bands, a time rollup's tracked outliers).  Then the sorted strategy:
+     K7 sorted_front, sort_permute, K8 segment_reduce, K9 hist_pairs (both
+     entries), K5 over the sorted keys and K10 sorted_pack against their
+     plain versions, word for word, on this slice's two paths (path 1:
+     config 3 with -tdigest, an int32 packed key, its (host, ping) pairs
+     against numpy; path 2: config 4 at 5-minute buckets, 80,660 slots
+     past the dense cap, on both user_sessions tables) and on synthetic
+     sorted batches (int64 packed keys, a packed spill, values at min - 1,
+     three unpacked keys with MISSING and negative values, both time
+     divisions, weights and filters, multihist and value-identity layouts
+     with live outliers, groups past prefix_rows, pairs past Hcap, the
+     group cap, no keys)
   5. the main path through the port's CLI on cuda, one batch of all
      blocks, the launch counts reset just before each query and read just
      after: config 1 `-group host -int ping -op avg`, config 3 (and with
      -loghist), config 2 and config 4 on both user_sessions tables (cold:
      K1 twice, K6, K2, K3 once each); every group's count, sum and bucket
      counts, and every (time bucket, action) row's count and weight sum,
-     against a numpy group-by of the generated arrays.  Then cold and
-     warm queries through run_query for each config, checking via the
-     counts that warm queries run no decode (residency) and the scan
-     kernels once per batch, also through a three-batch pipeline
+     against a numpy group-by of the generated arrays; then path 1 (each
+     host's count, kept rows, the (host, ping) pairs the engine absorbs
+     and the percentiles of a t-digest of numpy's pairs), path 2 on both
+     tables (every (5-minute bucket, action) row's count and weight sum),
+     and a small table whose dense key bound spills, retried on the sorted
+     strategy, against numpy.  Then cold and warm queries through
+     run_query for each config and path, checking via the counts that
+     warm queries run no decode (residency) and the scan kernels once per
+     batch, also through a three-batch pipeline
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
      bytes / 3.35 TB/s and integer operations / the INT32 rate), its
      plain version's time and, where one torch call computes the same
-     function, that call's time; K2 on config 4 in both forms per table
+     function, that call's time; K2 on config 4 in both forms per table;
+     K7, sort_permute, K8, K9, K5 (sorted keys) and K10 at both paths'
+     shapes, and the stable torch.sort calls between them on a line of
+     their own
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -84,8 +103,18 @@ BENCH_SEED = 1337               # bench.py:59 (fresh table)
 BENCH_NOW = 1_755_000_000
 STEP = 1_000_000
 KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
-           "outlier_compact", "dense_pack")
+           "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
+           "hist_pairs", "sorted_pack")
+# the launch-counted wrappers: each source's, and sort_permute, the
+# second kernel of sorted_front.cu
+COUNTED = KERNELS + ("sort_permute",)
 C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
+P2_BUCKET = 300                 # config 4 zoomed in to 5-minute buckets
+# this slice's two paths: config 3 with -tdigest, config 4 at 300 s
+P1_ARGV = ["-group", "host", "-int", "ping", "-op", "hist", "-tdigest",
+           "-str-filter", "status:eq:200"]
+P2_ARGV = ["-group", "action", "-int", "weight", "-op", "avg", "-time",
+           "-time-bucket", str(P2_BUCKET), "-time-col", "time"]
 FILL = 0x5A5A5A5A5A5A5A5A        # poison for buffers a kernel must write
 
 
@@ -251,6 +280,74 @@ def numpy_rollup(times, actions, weights, tb: int) -> dict:
         fail("numpy_rollup: a weight sum is not exact in float64")
     return {(int(k // 16), int(k % 16)): (int(c), int(w))
             for k, c, w in zip(uk.tolist(), cnt.tolist(), wsum.tolist())}
+
+
+def numpy_pairs(hosts, status, pings, agg) -> dict:
+    """{(host, value): rows}: path 1's (group, value) pairs, the kept rows
+    (status 200, ping inside the discard bounds) counted by host and by
+    the lower edge of their bucket (the value itself when bucket_size is
+    1) — the straightforward reference of -tdigest's sparse pairs."""
+    import numpy as np
+    keep = ((status == STATII.index("200")) & (pings >= agg.discard_min)
+            & (pings <= agg.discard_max))
+    v = pings[keep]
+    edge = agg.hist_min + (v - agg.hist_min) // agg.bucket_size \
+        * agg.bucket_size
+    key = hosts[keep] * (1 << 40) + edge
+    uk, cnt = np.unique(key, return_counts=True)
+    return {(HOSTS[int(k) >> 40], int(k) & ((1 << 40) - 1)): int(c)
+            for k, c in zip(uk.tolist(), cnt.tolist())}
+
+
+def numpy_tdigest_percentiles(pairs: dict, host: str, agg) -> list:
+    """The percentiles the engine prints for one host of a one-batch
+    -tdigest query, from numpy's pairs: the host's (value, count) pairs in
+    value order fed to one TDigest (as _absorb_hist_pairs feeds a batch),
+    merged into a TDigestHist (as _make_result does)."""
+    from sybil_tpu_torch.query.hist import TDigest, TDigestHist
+    items = sorted((v, c) for (h, v), c in pairs.items() if h == host)
+    td = TDigest()
+    td.add_many([v for v, _ in items], [c for _, c in items])
+    h = TDigestHist(agg.discard_min, agg.discard_max // 10)
+    h.count = sum(c for _, c in items)
+    h.td.merge(td)
+    return h.get_percentiles()
+
+
+def spill_table(root: str):
+    """A small table whose int group key g passes its IntInfo bound: the
+    outlier-resistant IntInfo ignores one value of 1,000,000, and one
+    block's exact bounds are removed, as a block written before they
+    existed has none, so the bind keeps the IntInfo bound and the dense
+    scan spills.  -> (directory, blocks, {g: (count, Σv)})."""
+    import numpy as np
+
+    from sybil_tpu_torch import codec, digest
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.table import Table
+    rng = np.random.default_rng(77)
+    n = 2048
+    g = rng.integers(0, 20, n).astype(np.int64)
+    g[1500] = 1_000_000
+    v = rng.integers(0, 100, n).astype(np.int64)
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = 512
+    try:
+        Table("spill", Flags(dir=root, table="spill", skip_compact=True)
+              ).ingest_columns(ints={"g": g, "v": v})
+    finally:
+        digest.CHUNK_SIZE = old
+    blocks_ = sorted(b for b in os.listdir(os.path.join(root, "spill"))
+                     if b.startswith("block"))
+    info = os.path.join(root, "spill", blocks_[0], "info.json")
+    meta = codec.read_json(info)
+    meta["int_exact"] = {}
+    codec.write_json_atomic(info, meta)
+    want = {}
+    for k in np.unique(g).tolist():
+        sel = g == k
+        want[str(k)] = (int(sel.sum()), int(v[sel].sum()))
+    return root, len(blocks_), want
 
 
 def str_buckets(agg, values, outliers) -> dict:
@@ -808,6 +905,256 @@ def edge_scan(name: str, device, B: int = 3, C: int = 65536):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the sorted strategy (K7-K10, sort_permute, K5 over kmat)
+# ---------------------------------------------------------------------------
+
+def check_outs(kernel, what, got: dict, want: dict, keys, errs):
+    """Each named output of a kernel against its plain version."""
+    for key in keys:
+        if (got[key] is None) != (want[key] is None):
+            fail(f"{kernel} {what} {key}: kernel and plain disagree on "
+                 f"presence")
+        if got[key] is not None:
+            check_equal(f"{kernel} {what} {key}", got[key], want[key],
+                        errs[kernel])
+
+
+def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
+    """K7, the sorts (sort_permute between them), K8, K9's two entries,
+    K5 over kmat and K10, each kernel against its plain version on the
+    same inputs, word for word; the kernels' buffers against
+    scan_packed's.  -> (main, table, {"front", "order", "k8", "preps",
+    "pairs"})."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    scan.check_supported(cfg)
+    if cfg.strategy != "sorted":
+        fail(f"{what}: strategy {cfg.strategy}, not sorted")
+    B, C = next(iter(cols.values()))[0].shape
+    R = B * C
+    dev = nrec.device
+    if fv is None:
+        fv = torch.zeros(0, dtype=torch.int64, device=dev)
+    front = scan.sorted_front(cfg, cols, nrec, fv, bits, tb)
+    check_outs("sorted_front", what, front, scan.sorted_front_plain(
+        cfg, cols, nrec, fv, bits, tb), ("key", "keys", "idxm", "spill"),
+        errs)
+    if front["key"] is not None:
+        skey, p = torch.sort(front["key"], stable=True)
+        order = {"skey": skey, "p": p, "base": None}
+    else:
+        keys = front["keys"]
+        _, p = torch.sort(keys[-1], stable=True)
+        base = None
+        for k in range(keys.shape[0] - 2, -1, -1):
+            nb, g = scan.sort_permute(base, p, keys[k])
+            nbp, gp = scan.sort_permute_plain(base, p, keys[k])
+            check_equal(f"sort_permute {what} perm", nb, nbp,
+                        errs["sort_permute"])
+            check_equal(f"sort_permute {what} key {k}", g, gp,
+                        errs["sort_permute"])
+            base = nb
+            _, p = torch.sort(g, stable=True)
+        order = {"skey": None, "p": p, "base": base}
+    if not torch.equal(scan.sorted_perm(scan.sort_rows(cfg, front)),
+                       scan.sorted_perm(order)):
+        fail(f"{what}: sort_rows gives another order")
+    k8 = scan.segment_reduce(cfg, cols, front, order, tb)
+    check_outs("segment_reduce", what, k8, scan.segment_reduce_plain(
+        cfg, cols, front, order, tb), ("sums", "mins", "maxs", "keys",
+                                       "kmat", "sidxm", "gid",
+                                       "num_groups"), errs)
+    layout = scan.packed_layout(cfg, R)
+    shape = (layout["rows"], layout["W"])
+    main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
+    main_p = torch.full(shape, FILL, dtype=torch.int64, device=dev)
+    preps, pairs, nouts = [], [], []
+    for ai in scan.hist_aggs(cfg):
+        prep = scan.hist_prep(cfg, ai, cols, k8)
+        check_outs("hist_pairs", f"{what} agg{ai} prep", prep,
+                   scan.hist_prep_plain(cfg, ai, cols, k8),
+                   ("pairkey", "w", "out_mask", "out_val", "nout"), errs)
+        spk, si2 = torch.sort(prep["pairkey"], stable=True)
+        hp = scan.hist_pairs(cfg, ai, spk, si2, prep["w"], k8["kmat"])
+        check_outs("hist_pairs", f"{what} agg{ai}", hp,
+                   scan.hist_pairs_plain(cfg, ai, spk, si2, prep["w"],
+                                         k8["kmat"]),
+                   ("hp_mask", "hp_bv", "hp_w", "hp_keys", "npairs"), errs)
+        preps.append(prep)
+        pairs.append(hp)
+        nouts.append(prep["nout"])
+        if cfg.track_outliers:
+            off, kmax = layout[f"out{ai}"]
+            scan.outlier_compact(cfg, cols, prep["out_mask"],
+                                 prep["out_val"], main, off, tb,
+                                 kmat=k8["kmat"])
+            scan.outlier_compact_plain(cfg, cols, prep["out_mask"],
+                                       prep["out_val"], main_p, off, tb,
+                                       kmat=k8["kmat"])
+            check_equal(f"K5 {what} agg{ai} rows (kmat keys)",
+                        main[off: off + kmax], main_p[off: off + kmax],
+                        errs["outlier_compact"])
+    table = scan.sorted_pack(cfg, k8, front["spill"], pairs, nouts, main, R)
+    table_p = scan.sorted_pack_plain(cfg, k8, front["spill"], pairs, nouts,
+                                     main_p, R)
+    check_equal(f"sorted_pack {what} table", table, table_p,
+                errs["sorted_pack"])
+    check_equal(f"sorted_pack {what} main", main, main_p,
+                errs["sorted_pack"])
+    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
+    if not (torch.equal(packed["main"], main)
+            and torch.equal(packed["table"], table)):
+        fail(f"{what}: scan_packed's buffers differ from the kernels' own")
+    return main, table, {"front": front, "order": order, "k8": k8,
+                         "preps": preps, "pairs": pairs}
+
+
+# name -> options.  keys: [(lo, hi) of the values, pack bound (min, card)
+# or None]; time: (lo, hi, bucket, time_i32); hist: per aggregation
+# "basic" | "multi" | "identity" (value-identity buckets, as -tdigest
+# binds them, here narrower than the values so outliers are live) | None;
+# filters: (col, op, kind, constant); extra: ScanConfig fields
+SORTED_EDGES = {
+    "packed key past 2^31 (int64)": dict(
+        keys=[((0, 60000), (0, 60000)), ((0, 50000), (0, 50000))],
+        hist=[None]),
+    "packed spill": dict(keys=[((0, 12), (0, 9)), ((0, 4), (0, 4))],
+                         hist=["basic"], track=True),
+    # values of min - 1 pack as digit 0, as MISSING does: K8 reads them
+    "packed key, values at min - 1": dict(
+        keys=[((4, 14), (5, 9)), ((0, 3), (0, 3))], hist=[None]),
+    "three unpacked int keys, MISSING and negative values": dict(
+        keys=[((-5, 4), None), ((-3, 3), None), ((-1000, 1000), None)],
+        hist=[None, None]),
+    "time key, int64 division": dict(
+        keys=[((0, 5), None)],
+        time=((1 << 33) - 5_000_000, (1 << 33) + 5_000_000, 7, False),
+        hist=["basic"], track=True),
+    "time key, int32 division": dict(
+        keys=[((0, 9), None)], time=(-400_000, 900_000, 100, True),
+        hist=[None]),
+    "weighted rows, filters": dict(
+        keys=[((0, 9), (0, 9))], hist=["basic", None], weight=True,
+        track=True, filters=[("fi", "gt", "int", 10),
+                             ("fs", "neq", "str", 4),
+                             ("fs", "re", "str", 0)]),
+    "multihist, live outliers": dict(keys=[((0, 6), (0, 6))],
+                                     hist=["multi"], weight=True, track=True),
+    "value-identity buckets, live outliers": dict(
+        keys=[((0, 4), (0, 4))], hist=["identity"], track=True),
+    "groups past prefix_rows": dict(keys=[((0, 20000), None)], hist=[None]),
+    "hist pairs past Hcap": dict(keys=[((0, 3000), None)], hist=["basic"],
+                                 weight=True),
+    "group cap: max_groups 1000 under 5000 groups": dict(
+        keys=[((0, 5000), None)], hist=["basic"],
+        extra=dict(max_groups=1000)),
+    "no group keys, value bias": dict(keys=[], hist=[None, "basic"],
+                                      vbias=True),
+}
+
+
+def sorted_edge(name: str, device, B: int = 3, C: int = 65536):
+    """A synthetic sorted-strategy batch -> (ScanConfig, cols, nrec,
+    filter_vals, bitsets, time bucket)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops.scan import AggSpec, FilterSpec, ScanConfig
+    o = SORTED_EDGES[name]
+    rng = np.random.default_rng(len(name) + 100)
+    R = B * C
+    cols = {}
+
+    def put(col, v, p_valid):
+        cols[col] = (torch.from_numpy(np.asarray(v, np.int64).reshape(B, C))
+                     .to(device),
+                     torch.from_numpy((rng.random(R) < p_valid)
+                                      .reshape(B, C)).to(device))
+
+    groups, pack = [], []
+    for i, ((lo, hi), pb) in enumerate(o["keys"]):
+        put(f"k{i}", rng.integers(lo, hi, R), 0.9)
+        groups.append(f"k{i}")
+        pack.append(pb)
+    tkw, tb = {}, 1
+    if "time" in o:
+        lo, hi, tb, i32 = o["time"]
+        put("t", rng.integers(lo, hi, R), 0.95)
+        tkw = dict(time_col="t", time_i32=i32)
+        pack = []
+    aggs = []
+    for a, h in enumerate(o["hist"]):
+        put(f"v{a}", np.where(rng.random(R) < 0.03,
+                              rng.integers(500, 3000, R),
+                              rng.integers(-20, 400, R)), 0.85)
+        if h is None:
+            aggs.append(AggSpec(f"v{a}", hist_min=0, bucket_size=0,
+                                num_values=0, discard_min=-10,
+                                discard_max=2500))
+        elif h == "multi":
+            aggs.append(AggSpec(f"v{a}", hist_min=0, bucket_size=0,
+                                num_values=70, discard_min=0,
+                                discard_max=2500, sub_edges=MULTI_EDGES))
+        elif h == "identity":
+            aggs.append(AggSpec(f"v{a}", hist_min=0, bucket_size=1,
+                                num_values=402, discard_min=0,
+                                discard_max=2500))
+        else:
+            aggs.append(AggSpec(f"v{a}", hist_min=0, bucket_size=10,
+                                num_values=40, discard_min=0,
+                                discard_max=2500))
+    filters, fvals = [], []
+    if o.get("filters"):
+        put("fi", rng.integers(0, 80, R), 0.9)
+        put("fs", rng.integers(0, 10, R), 0.9)
+        for col, op, kind, val in o["filters"]:
+            filters.append(FilterSpec(col, op, kind,
+                                      0 if op in ("re", "nre") else -1))
+            fvals.append(val)
+    bits = (torch.from_numpy(np.array([i % 3 == 0 for i in range(10)]))
+            .to(device),)
+    if o.get("weight"):
+        put("w", rng.integers(0, 101, R), 0.8)
+    cfg = ScanConfig(
+        group_cols=tuple(groups), aggs=tuple(aggs), filters=tuple(filters),
+        weight_col="w" if o.get("weight") else "", force_sorted=True,
+        sort_pack=(tuple(pack) if pack and all(p is not None for p in pack)
+                   else ()),
+        track_outliers=bool(o.get("track")),
+        agg_vbias=(tuple(a.discard_min for a in aggs) if o.get("vbias")
+                   else ()), **tkw, **o.get("extra", {}))
+    nrec = torch.tensor([C, 700, C - 3], dtype=torch.int32, device=device)
+    return (cfg, cols, nrec, torch.tensor(fvals, dtype=torch.int64,
+                                          device=device), bits, tb)
+
+
+def sorted_edge_expect(name, cfg, main, R):
+    """Each edge batch reaches the edge it is named for."""
+    from sybil_tpu_torch.ops import scan
+    meta = main[0].tolist()
+    H = len(scan.hist_aggs(cfg))
+    layout = scan.packed_layout(cfg, R)
+    ok = {
+        "packed key past 2^31 (int64)":
+            scan.pack_sentinel(cfg)[1] is not None
+            and str(scan.pack_sentinel(cfg)[1]) == "torch.int64",
+        "packed spill": meta[1] > 0,
+        "groups past prefix_rows": meta[0] > scan.table_prefix(cfg),
+        "hist pairs past Hcap": meta[7 + H] > layout.get("Hcap", 0),
+        "group cap: max_groups 1000 under 5000 groups":
+            meta[0] > cfg.max_groups,
+    }.get(name, True)
+    if cfg.track_outliers and name != "packed spill":
+        ok = ok and meta[2] > 0
+    if (meta[1] > 0) != (name == "packed spill"):
+        ok = False
+    if not ok:
+        fail(f"sorted edge batch {name}: meta {meta[:8 + 2 * H]} misses "
+             f"its edge")
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -852,6 +1199,12 @@ def snapshot(qr):
     for k, r in qr.results.items():
         hs = {}
         for c, h in r.hists.items():
+            if hasattr(h, "td"):
+                # a t-digest's centroids, and so its percentiles and its
+                # running mean, depend on how the pairs were batched: only
+                # its counts are exact
+                hs[c] = (h.count, h.samples)
+                continue
             hs[c] = (h.count, h.avg, h.min, h.max,
                      tuple(np.asarray(getattr(h, "values", ())).tolist()),
                      tuple(getattr(h, "outliers", ()) or ()),
@@ -1017,7 +1370,7 @@ def main(argv=None) -> int:
         C = 65536 if args.rows > 8192 else 128
         while C < min(args.rows, 65536):
             C *= 2
-        errs = {k: [] for k in KERNELS}
+        errs = {k: [] for k in COUNTED}
 
         # ---- phase 3: K1 -------------------------------------------------
         from sybil_tpu_torch import blocks
@@ -1258,8 +1611,73 @@ def main(argv=None) -> int:
             "K4 dense_hist, K5 outlier_compact (time key) and K3 dense_pack "
             "== plain, word for word (tolerance 0)")
 
+        # ---- phase 4: the sorted strategy (K7-K10, sort_permute, K5) ----
+        # path 1: config 3 with -tdigest, as run_query binds it
+        b_p1 = bound_query(table, flags, query_params(
+            ["host"], ["ping"], op="hist", htype="tdigest",
+            filters=c3_filters))
+        cfg_p1 = b_p1.config
+        cols_p1 = {k: cols[k] for k in b_p1.needed_cols}
+        fv_p1 = device_const(b_p1.filter_vals, dev)
+        bits_p1 = tuple(device_const(x, dev) for x in b_p1.bitsets)
+        if not scan.sort_packed(cfg_p1) or \
+                scan.pack_sentinel(cfg_p1)[1] != torch.int32:
+            fail(f"path 1: not an int32 packed sort: {cfg_p1.sort_pack}")
+        main_p1, _, parts_p1 = sorted_check(
+            "path 1 (config 3 -tdigest)", cfg_p1, cols_p1, nrec, errs,
+            fv_p1, bits_p1)
+        agg_p1 = cfg_p1.aggs[0]
+        want_pairs = numpy_pairs(up["host"], up["status"], up["ping"],
+                                 agg_p1)
+        hp = parts_p1["pairs"][0]
+        idx = torch.nonzero(hp["hp_mask"]).reshape(-1)
+        hosts_dict = table.dicts.get("host").strings
+        got_pairs = {}
+        for k, bv, w in zip(hp["hp_keys"][idx, 0].tolist(),
+                            hp["hp_bv"][idx].tolist(), hp["hp_w"][idx].tolist()):
+            got_pairs[(hosts_dict[k], agg_p1.hist_min
+                       + bv * agg_p1.bucket_size)] = w
+        if got_pairs != want_pairs:
+            fail(f"path 1: the device's (host, ping) pairs differ from "
+                 f"numpy: {len(got_pairs)} vs {len(want_pairs)}")
+        say(f"K7/K8/K9/K5/K10 == plain: path 1 (config 3 -tdigest): "
+            f"int32 packed key, nv={agg_p1.num_values} bs="
+            f"{agg_p1.bucket_size}, groups={int(main_p1[0, 0])} (sentinel "
+            f"segment included), hist pairs={len(got_pairs)} == numpy's "
+            f"(host, ping) counts, outliers={int(main_p1[0, 2])}")
+        # path 2: config 4 at 5-minute buckets on both user_sessions tables
+        params_p2 = query_params(["action"], ["weight"], time_bucket=P2_BUCKET)
+        p2 = {}
+        for tlabel, (t4, f4) in tables4.items():
+            cfg4, cols4, nrec4 = c4[tlabel]
+            cfg_p2 = bound_query(t4, f4, params_p2).config
+            if cfg_p2.strategy != "sorted" or scan.sort_packed(cfg_p2):
+                fail(f"path 2 {tlabel}: strategy {cfg_p2.strategy}, packed "
+                     f"{scan.sort_packed(cfg_p2)}")
+            main_p2, table_p2, parts = sorted_check(
+                f"path 2 (config 4, 5-minute buckets) {tlabel}", cfg_p2,
+                cols4, nrec4, errs, tb=P2_BUCKET)
+            ng = int(main_p2[0, 0])
+            if ng <= scan.table_prefix(cfg_p2):
+                fail(f"path 2 {tlabel}: {ng} groups fit the prefix")
+            p2[tlabel] = (cfg_p2, cols4, nrec4, parts)
+            say(f"K7/sort_permute/K8/K10 == plain: path 2 (config 4, "
+                f"{P2_BUCKET} s buckets) {tlabel}: unpacked keys (time, "
+                f"action), time_i32={cfg_p2.time_i32}, groups={ng} "
+                f"(prefix {scan.table_prefix(cfg_p2)}), table "
+                f"{tuple(table_p2.shape)}")
+        for label in SORTED_EDGES:
+            cfg, ecols, enrec, efv, ebits, etb = sorted_edge(label, dev)
+            emain, _, _ = sorted_check(label, cfg, ecols, enrec, errs, efv,
+                                       ebits, etb)
+            sorted_edge_expect(label, cfg, emain,
+                               next(iter(ecols.values()))[0].numel())
+        say(f"K7-K10, sort_permute and K5 (kmat keys) == plain on "
+            f"{len(SORTED_EDGES)} synthetic sorted batches (3 x 65536 "
+            f"rows): " + ", ".join(SORTED_EDGES))
+
         # ---- phase 5: the main path ------------------------------------
-        launches = {k: 0 for k in KERNELS}
+        launches = {k: 0 for k in COUNTED}
         want = numpy_groupby(up["host"], up["ping"])
         argv_q = ["query", "-dir", table.flags.dir, "-table", "uptime",
                   "-group", "host", "-int", "ping", "-op", "avg", "-json",
@@ -1282,7 +1700,7 @@ def main(argv=None) -> int:
         say(f"main path: CLI query group by host avg ping on cuda == numpy "
             f"group-by ({len(want)} groups, {args.rows} rows); launches "
             f"{l1}; wall {cli_wall:.3f}s")
-        for k in KERNELS:
+        for k in COUNTED:
             launches[k] += l1[k]
 
         hist_argv = {
@@ -1333,13 +1751,13 @@ def main(argv=None) -> int:
             say(f"main path: CLI {label} on cuda == numpy group-by ({ng} "
                 f"groups, {args.rows} rows, count, sum, bucket counts, "
                 f"{nout} outliers); launches {ll}; wall {wall:.3f}s")
-            for k in KERNELS:
+            for k in COUNTED:
                 launches[k] += ll[k]
         # config 4 on both user_sessions tables, cold (cache cleared)
         want4 = numpy_rollup(us["time"], us["action"], us["weight"],
                              C4_BUCKET)
-        cold4 = {"decode_bucket2": 2, "decode_value": 1, "dense_scan": 1,
-                 "dense_pack": 1, "dense_hist": 0, "outlier_compact": 0}
+        cold4 = dict({k: 0 for k in COUNTED}, decode_bucket2=2,
+                     decode_value=1, dense_scan=1, dense_pack=1)
         for tlabel, (t4, _) in tables4.items():
             residency.CACHE.clear()
             nb = len(t4.block_infos())
@@ -1371,12 +1789,155 @@ def main(argv=None) -> int:
                 f"group-by ({len(want4)} (time bucket, action) rows, "
                 f"{args.rows} rows, count and weight sum each); cold "
                 f"launches {ll}; wall {wall:.3f}s")
-            for k in KERNELS:
+            for k in COUNTED:
                 launches[k] += ll[k]
-        missing = [k for k in KERNELS if launches[k] == 0]
+
+        # path 1 through the CLI, cold: -tdigest on uptime.  The (host,
+        # ping) pairs the engine absorbs are recorded on their way in
+        from sybil_tpu_torch.query import engine as port_engine
+        absorbed = []
+        real_absorb = port_engine._Accumulator._absorb_hist_pairs
+
+        def record_pairs(self, ai, hkeys, hbv, hw, spec):
+            absorbed.append((hkeys.copy(), hbv.copy(), hw.copy()))
+            return real_absorb(self, ai, hkeys, hbv, hw, spec)
+
+        residency.CACHE.clear()
+        port_engine._Accumulator._absorb_hist_pairs = record_pairs
+        try:
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", table.flags.dir, "-table", "uptime",
+                 *P1_ARGV, "-json", "-device-batch", str(B), "-device",
+                 "cuda"])
+        finally:
+            port_engine._Accumulator._absorb_hist_pairs = real_absorb
+        if rc != 0:
+            fail(f"path 1: port CLI query exited {rc}")
+        # K5 runs when the bind tracks outliers; exact bounds that prove
+        # the value-identity buckets hold every kept ping turn it off
+        track1 = int(cfg_p1.track_outliers)
+        cold1 = dict({k: 0 for k in COUNTED}, decode_bucket2=3,
+                     sorted_front=1, segment_reduce=1, hist_pairs=2,
+                     outlier_compact=track1, sorted_pack=1)
+        if ll != cold1:
+            fail(f"path 1: cold launches {ll}, expected {cold1}")
+        got_pairs = {}
+        for hkeys, hbv, hw in absorbed:
+            for k, bv, w in zip(hkeys[:, 0].tolist(), hbv.tolist(),
+                                hw.tolist()):
+                key = (hosts_dict[k] if k >= 0 else "",
+                       agg_p1.hist_min + bv * agg_p1.bucket_size)
+                got_pairs[key] = got_pairs.get(key, 0) + w
+        if got_pairs != want_pairs:
+            fail(f"path 1: the engine's (host, ping) pairs differ from "
+                 f"numpy: {len(got_pairs)} vs {len(want_pairs)}")
+        rows = {r["host"]: r for r in json.loads(out)}
+        ok200 = up["status"] == STATII.index("200")
+        for i, h in enumerate(HOSTS):
+            sel = (up["host"] == i) & ok200
+            n_kept = sum(c for (hh, _), c in want_pairs.items() if hh == h)
+            s_kept = sum(v * c for (hh, v), c in want_pairs.items()
+                         if hh == h)
+            r = rows.get(h)
+            if r is None or r["Count"] != int(sel.sum()) or \
+                    r["Samples"] != int(sel.sum()) or \
+                    r["ping"]["samples"] != n_kept:
+                fail(f"path 1 host {h}: port {r} vs numpy count "
+                     f"{int(sel.sum())}, kept {n_kept}")
+            if r["ping"]["percentiles"] != numpy_tdigest_percentiles(
+                    want_pairs, h, agg_p1):
+                fail(f"path 1 host {h}: percentiles differ from a t-digest "
+                     f"of numpy's pairs")
+            if s_kept != int(up["ping"][sel & (up["ping"] >= agg_p1.
+                                               discard_min)
+                                        & (up["ping"] <= agg_p1.
+                                           discard_max)].sum()):
+                fail(f"path 1 host {h}: pairs do not sum to Σping")
+        if set(rows) != set(HOSTS):
+            fail(f"path 1: groups {sorted(rows)}")
+        say(f"main path: CLI path 1 (config 3 -tdigest) on cuda == numpy "
+            f"group-by ({len(rows)} hosts, {args.rows} rows: count, kept "
+            f"rows, {len(want_pairs)} (host, ping) pairs with their counts, "
+            f"percentiles of a t-digest of numpy's pairs); cold launches "
+            f"{ll}; wall {wall:.3f}s")
+        for k in COUNTED:
+            launches[k] += ll[k]
+
+        # path 2 through the CLI, cold, on both user_sessions tables
+        want_p2 = numpy_rollup(us["time"], us["action"], us["weight"],
+                               P2_BUCKET)
+        cold2 = dict({k: 0 for k in COUNTED}, decode_bucket2=2,
+                     decode_value=1, sorted_front=1, sort_permute=1,
+                     segment_reduce=1, sorted_pack=1)
+        for tlabel, (t4, _) in tables4.items():
+            residency.CACHE.clear()
+            nb = len(t4.block_infos())
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", t4.flags.dir, "-table", "user_sessions",
+                 *P2_ARGV, "-json", "-device-batch", str(nb), "-device",
+                 "cuda"])
+            if rc != 0:
+                fail(f"path 2 {tlabel}: port CLI query exited {rc}")
+            if ll != cold2:
+                fail(f"path 2 {tlabel}: cold launches {ll}, expected "
+                     f"{cold2}")
+            got2 = {}
+            for tb_s, rows_ in json.loads(out).items():
+                for r in rows_:
+                    got2[(int(tb_s), actions.index(r["action"]))] = r
+            if set(got2) != set(want_p2):
+                fail(f"path 2 {tlabel}: (time bucket, action) keys differ: "
+                     f"{len(got2)} vs numpy {len(want_p2)}")
+            for k, (cnt, wsum) in want_p2.items():
+                r = got2[k]
+                if r["Count"] != cnt or r["Samples"] != cnt or \
+                        r["weight"] != wsum / cnt:
+                    fail(f"path 2 {tlabel} {k}: port {r} vs numpy "
+                         f"count={cnt} sum={wsum}")
+            say(f"main path: CLI path 2 (config 4, {P2_BUCKET} s buckets) on "
+                f"cuda, {tlabel} table == numpy group-by ({len(want_p2)} "
+                f"(time bucket, action) rows, {args.rows} rows, count and "
+                f"weight sum each); cold launches {ll}; wall {wall:.3f}s")
+            for k in COUNTED:
+                launches[k] += ll[k]
+
+        # a dense key bound that spills, retried on the sorted strategy
+        sroot, snb, want_s = spill_table(os.path.join(root, "spill"))
+        seen = []
+        real_scan = scan.scan_packed
+
+        def record_strategy(cfg, *a, **kw):
+            seen.append(cfg.strategy)
+            return real_scan(cfg, *a, **kw)
+
+        scan.scan_packed = record_strategy
+        try:
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", sroot, "-table", "spill", "-group", "g",
+                 "-int", "v", "-json", "-device-batch", "2", "-device",
+                 "cuda"])
+        finally:
+            scan.scan_packed = real_scan
+        if rc != 0:
+            fail(f"spill retry: port CLI query exited {rc}")
+        nbatch = -(-snb // 2)
+        if not seen or seen[0] != "dense" or \
+                seen[-nbatch:] != ["sorted"] * nbatch or \
+                seen.count("sorted") != nbatch:
+            fail(f"spill retry: strategies {seen}, expected dense, then "
+                 f"{nbatch} sorted batches")
+        got_s = {r["g"]: (r["Count"], r["v"]) for r in json.loads(out)}
+        if got_s != {k: (c, sv / c) for k, (c, sv) in want_s.items()}:
+            fail(f"spill retry: result differs from numpy: {got_s}")
+        say(f"spill retry on cuda: {snb} blocks, strategies {seen} "
+            f"(dense spilled, every batch rescanned sorted); result == numpy "
+            f"group-by ({len(want_s)} groups, the 1,000,000 key past its "
+            f"IntInfo bound included); launches {ll}")
+
+        missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the six CLI queries: {launches}")
+        say(f"main path launches over the nine CLI queries: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -1410,6 +1971,39 @@ def main(argv=None) -> int:
                     for r in rs.values()}
             if got4 != {k: (c, w / c) for k, (c, w) in want4.items()}:
                 fail(f"config 4 {tlabel}: warm query differs from numpy")
+        # this slice's paths through run_query
+        flags_p1 = dataclasses.replace(flags, device="cuda", device_batch=B,
+                                       tdigest=True)
+        params_p1 = query_params(["host"], ["ping"], op="hist",
+                                 htype="tdigest", filters=c3_filters)
+        qr1 = timed_queries(card, "path 1 (config 3 -tdigest)", table,
+                            params_p1, flags_p1, args.rows, B,
+                            {"sorted_front": 1, "segment_reduce": 1,
+                             "hist_pairs": 2, "outlier_compact": track1,
+                             "sorted_pack": 1, "dense_scan": 0})
+        for i, h in enumerate(HOSTS):
+            r = qr1.results[h + "\t"]
+            hh = r.hists["ping"]
+            if r.count != int(((up["host"] == i) & ok200).sum()) or \
+                    hh.get_percentiles() != numpy_tdigest_percentiles(
+                        want_pairs, h, agg_p1):
+                fail(f"path 1: warm query host {h} differs from numpy")
+        for tlabel, (t4, f4) in tables4.items():
+            nb = len(t4.block_infos())
+            qr2 = timed_queries(card, f"path 2 (config 4, {P2_BUCKET} s) "
+                                f"{tlabel}", t4, params_p2,
+                                dataclasses.replace(f4, device="cuda",
+                                                    device_batch=nb),
+                                args.rows, nb,
+                                {"sorted_front": 1, "sort_permute": 1,
+                                 "segment_reduce": 1, "sorted_pack": 1,
+                                 "dense_scan": 0})
+            got2 = {(tb_, actions.index(r.group_key.rstrip("\t"))):
+                    (r.count, r.hists["weight"].avg)
+                    for tb_, rs in qr2.time_results.items()
+                    for r in rs.values()}
+            if got2 != {k: (c, w / c) for k, (c, w) in want_p2.items()}:
+                fail(f"path 2 {tlabel}: warm query differs from numpy")
 
         # ---- phase 6: kernel times --------------------------------------
         ins, cs = k1_main["ping"]
@@ -1703,6 +2297,177 @@ def main(argv=None) -> int:
                        iters=200)
         say(f"[{card}] dense_pack config 1 (PR-1 shape): {k3c1:.4f} ms")
 
+        # the sorted strategy's kernels at both paths' shapes (path 2 on
+        # the bulk table), and the library sorts between them
+        sorted_rows = []
+        z64 = torch.zeros(0, dtype=torch.int64, device=dev)
+        cfg_p2b, cols_p2b, nrec_p2b, _ = p2["bulk"]
+        for plabel, cfg, sub, nr, fv, bits, tb in (
+                ("path 1", cfg_p1, cols_p1, nrec, fv_p1, bits_p1, 1),
+                (f"path 2 bulk", cfg_p2b, cols_p2b, nrec_p2b, z64, (),
+                 P2_BUCKET)):
+            Bn, Cn = next(iter(sub.values()))[0].shape
+            Rn = Bn * Cn
+            K = cfg.n_key_cols
+            S = cfg.max_groups
+            L = 2 + 3 * len(cfg.aggs)
+            H = len(scan.hist_aggs(cfg))
+            F = len(cfg.filters)
+            packed = scan.sort_packed(cfg)
+            tq = (20 if cfg.time_i32 else 70) if cfg.time_col else 0
+            # K7: each key, filter and time column read once (9 B a row),
+            # nrec and the constants; idxm and the packed key or the key
+            # lanes written.  Per row: the block range test, each
+            # filter's compare, each key's lane and digit, the time
+            # quotient
+            keyb = ((4 if scan.pack_sentinel(cfg)[1] == torch.int32 else 8)
+                    if packed else 8 * K)
+            k7_cols = {*cfg.group_cols, *(f.col for f in cfg.filters),
+                       *([cfg.time_col] if cfg.time_col else [])}
+            k7_bytes = (len(k7_cols) * Rn * 9 + Bn * 4 + F * 8
+                        + Rn * (4 + keyb) + 8)
+            k7_ops = Rn * (6 + 3 * F + 6 * K + tq)
+            k7_ms = cuda_ms(lambda: scan.sorted_front(cfg, sub, nr, fv, bits,
+                                                      tb))
+            k7_plain = cuda_ms(lambda: scan.sorted_front_plain(
+                cfg, sub, nr, fv, bits, tb), iters=5)
+            sorted_rows.append(("sorted_front", plabel,
+                                "sybil_tpu/ops/scan.py:1071", k7_ms, k7_plain,
+                                k7_bytes, k7_ops, None))
+            front = scan.sorted_front(cfg, sub, nr, fv, bits, tb)
+            # the sorts: one stable torch.sort (CUB radix sort) per key
+            # lane, or of the packed key
+            skey = front["key"] if packed else front["keys"][-1]
+            sort_ms = cuda_ms(lambda: torch.sort(skey, stable=True))
+            nsorts = 1 if packed else K
+            order = scan.sort_rows(cfg, front)
+            if not packed:
+                keys0 = front["keys"][0]
+                p_last = torch.sort(front["keys"][-1], stable=True)[1]
+                sp_ms = cuda_ms(lambda: scan.sort_permute(None, p_last,
+                                                          keys0))
+                sp_plain = cuda_ms(lambda: scan.sort_permute_plain(
+                    None, p_last, keys0), iters=5)
+                sp_lib = cuda_ms(lambda: keys0[p_last], iters=5)
+                # p read, the key lane gathered once, the gathered lane
+                # written; an index load and a store a row
+                sorted_rows.append(("sort_permute", plabel,
+                                    "sybil_tpu/ops/scan.py:1119", sp_ms,
+                                    sp_plain, Rn * 24, Rn * 4, sp_lib))
+            k8 = scan.segment_reduce(cfg, sub, front, order, tb)
+            k8_ms = cuda_ms(lambda: scan.segment_reduce(cfg, sub, front,
+                                                        order, tb))
+            k8_plain = cuda_ms(lambda: scan.segment_reduce_plain(
+                cfg, sub, front, order, tb), iters=5)
+            # one torch call: index_add_ of prebuilt lanes into [S+1, L]
+            # by each sorted row's slot (row 5's yardstick)
+            cg = torch.where((k8["sidxm"] < 0) & (k8["gid"] < S), k8["gid"],
+                             S).to(torch.int64)
+            lanes = torch.ones((Rn, L), dtype=torch.int64, device=dev)
+            k8_lib = cuda_ms(lambda: torch.zeros(
+                (S + 1, L), dtype=torch.int64, device=dev).index_add_(
+                    0, cg, lanes), iters=5)
+            del lanes, cg
+            # p (and the running permutation) read, idxm gathered, the
+            # packed key or the key lanes, the aggregation and weight
+            # columns read once; kmat, sidxm, gid and the tables written.
+            # Per row: the boundary test, a block scan, a 5-step warp-run
+            # sum per lane, a min and a max per hist agg
+            ncol = len(cfg.aggs) + (1 if cfg.weight_col else 0)
+            k8_bytes = (Rn * 8 * (1 if order["base"] is None else 2) + Rn * 4
+                        + (Rn * keyb if packed else Rn * 8 * K)
+                        + ncol * Rn * 9 + Rn * (8 * K + 8)
+                        + (S + 1) * L * 8 + S * K * 8 + S * H * 16)
+            k8_ops = Rn * (12 + 12 * L + 12 * H)
+            sorted_rows.append(("segment_reduce", plabel,
+                                "sybil_tpu/ops/scan.py:1133", k8_ms,
+                                k8_plain, k8_bytes, k8_ops, k8_lib))
+            layout = scan.packed_layout(cfg, Rn)
+            mainx = torch.empty((layout["rows"], layout["W"]),
+                                dtype=torch.int64, device=dev)
+            pairs, nouts = [], []
+            for ai in scan.hist_aggs(cfg):
+                prep = scan.hist_prep(cfg, ai, sub, k8)
+                agg = cfg.aggs[ai]
+                kp_ms = cuda_ms(lambda: scan.hist_prep(cfg, ai, sub, k8))
+                kp_plain = cuda_ms(lambda: scan.hist_prep_plain(
+                    cfg, ai, sub, k8), iters=5)
+                track = cfg.track_outliers
+                kp_bytes = (Rn * (4 + 4 + 9) + (Rn * 9 if cfg.weight_col
+                                                else 0)
+                            + Rn * 16 + (Rn * 9 + 8 if track else 0))
+                kp_ops = Rn * (14 + 4 * len(agg.sub_edges))
+                sorted_rows.append(("hist_pairs", f"{plabel}, prep",
+                                    "sybil_tpu/ops/scan.py:1247", kp_ms,
+                                    kp_plain, kp_bytes, kp_ops, None))
+                pk = prep["pairkey"]
+                pair_sort_ms = cuda_ms(lambda: torch.sort(pk, stable=True))
+                spk, si2 = torch.sort(pk, stable=True)
+                hpx = scan.hist_pairs(cfg, ai, spk, si2, prep["w"],
+                                      k8["kmat"])
+                kq_ms = cuda_ms(lambda: scan.hist_pairs(
+                    cfg, ai, spk, si2, prep["w"], k8["kmat"]))
+                kq_plain = cuda_ms(lambda: scan.hist_pairs_plain(
+                    cfg, ai, spk, si2, prep["w"], k8["kmat"]), iters=5)
+                # one torch call: index_add_ of the rows' weights into
+                # their (group, bucket) segment
+                pb = torch.ones(Rn, dtype=torch.bool, device=dev)
+                pb[1:] = spk[1:] != spk[:-1]
+                seg = torch.cumsum(pb.to(torch.int64), 0) - 1
+                sw = prep["w"][si2]
+                kq_lib = cuda_ms(lambda: torch.zeros(
+                    Rn, dtype=torch.int64, device=dev).index_add_(0, seg, sw),
+                    iters=5)
+                del pb, seg, sw
+                kq_bytes = (Rn * 24 + Rn * 8 * K + Rn * 17 + Rn * 8 * K + 8)
+                kq_ops = Rn * 30
+                sorted_rows.append(("hist_pairs", f"{plabel}, pairs",
+                                    "sybil_tpu/ops/scan.py:1256", kq_ms,
+                                    kq_plain, kq_bytes, kq_ops, kq_lib))
+                say(f"[{card}] sorts, {plabel}: pair-key sort (int64 [R], "
+                    f"stable torch.sort) {pair_sort_ms:.4f} ms")
+                pairs.append(hpx)
+                nouts.append(prep["nout"])
+                if track:
+                    off, kmax = layout[f"out{ai}"]
+                    mk, vk = prep["out_mask"], prep["out_val"]
+                    kmat = k8["kmat"]
+                    k5s_ms = cuda_ms(lambda: scan.outlier_compact(
+                        cfg, sub, mk, vk, mainx, off, tb, kmat=kmat),
+                        iters=50)
+                    k5s_plain = cuda_ms(lambda: scan.outlier_compact_plain(
+                        cfg, sub, mk, vk, mainx, off, tb, kmat=kmat), iters=5)
+                    k5s_lib = cuda_ms(lambda: kmat[torch.nonzero(mk)
+                                                   .reshape(-1)[:kmax]],
+                                      iters=20)
+                    n5s = int(prep["nout"].item())
+                    sorted_rows.append((
+                        "outlier_compact", f"{plabel} (kmat keys, {n5s} "
+                        f"outliers)", "sybil_tpu/ops/scan.py:1802", k5s_ms,
+                        k5s_plain, Rn + min(n5s, kmax) * (8 * K + 8)
+                        + kmax * layout["W"] * 8, Rn * 2 + kmax * layout["W"],
+                        k5s_lib))
+            spill_t = front["spill"]
+            kpk_ms = cuda_ms(lambda: scan.sorted_pack(cfg, k8, spill_t, pairs,
+                                                      nouts, mainx, Rn),
+                             iters=50)
+            kpk_plain = cuda_ms(lambda: scan.sorted_pack_plain(
+                cfg, k8, spill_t, pairs, nouts, mainx, Rn), iters=5)
+            Wt = scan.table_width(cfg)
+            Hcap = layout.get("Hcap", 0)
+            kpk_bytes = ((S + 1) * L * 8 + S * K * 8 + S * H * 16 + 16
+                         + S * Wt * 8 + scan.table_prefix(cfg) * layout["W"]
+                         * 8 + H * (Rn + Hcap * (K + 3) * 8
+                                    + Hcap * layout["W"] * 8))
+            sorted_rows.append(("sorted_pack", plabel,
+                                "sybil_tpu/ops/scan.py:1865", kpk_ms,
+                                kpk_plain, kpk_bytes, S * Wt, None))
+            say(f"[{card}] sorts, {plabel}: {nsorts} x stable torch.sort of "
+                f"{skey.dtype} [{Rn}] {sort_ms:.4f} ms each "
+                f"({nsorts * sort_ms:.4f} ms); K7 {k7_ms:.4f}, K8 "
+                f"{k8_ms:.4f}, pack {kpk_ms:.4f} ms")
+            del front, order, k8, pairs, nouts, mainx
+
         k2c3 = k2_times["config 3"]
         k4c3 = k4_times["config 3"]
         rows_out = []
@@ -1735,13 +2500,15 @@ def main(argv=None) -> int:
                  "sybil_tpu/ops/scan.py:1802", k5_ms, k5_plain, k5_bytes,
                  k5_ops, k5_lib_ms),
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
-                 k3_ms, k3_plain, k3_bytes, 0, None)):
+                 k3_ms, k3_plain, k3_bytes, 0, None),
+                *sorted_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             rows_out.append({
                 "name": name, "shape": what, "route": "cuda",
-                "source": f"sybil_tpu_torch/csrc/{name}.cu",
+                "source": "sybil_tpu_torch/csrc/" + (
+                    "sorted_front" if name == "sort_permute" else name) + ".cu",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": max(errs[name]) if errs[name] else 0.0,
                 "ms": ms, "plain_ms": pms,

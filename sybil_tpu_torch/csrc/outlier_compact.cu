@@ -9,7 +9,10 @@
 // sorted_gkeys row: in a rollup the time key trunc_div(t, tb) * tb first
 // (Go's division, int32 arithmetic under time_i32, from the time lane
 // as it lies), then each group key (MISSING = -1 where the key column is
-// missing); a scan with neither has one zero key.  When fewer than kmax rows are set, the reference
+// missing); a scan with neither has one zero key.  Under the sorted
+// strategy the mask and values are in sorted order and a row's keys are
+// its row of K8's kmat [R, K] (the reference's sorted_gkeys there).  When
+// fewer than kmax rows are set, the reference
 // gathers row R-1 for each remaining entry (searchsorted returns R,
 // clipped to R-1), so padding rows hold row R-1's keys and value with
 // live = 0; this kernel writes the same words.
@@ -44,6 +47,7 @@ struct OutlierCompactArgs {
   const long long* key_vals[MAXK];
   const unsigned char* key_valid[MAXK];
   const long long* t_vals;     // time column (has_time)
+  const long long* kmat;       // [R, kmat_K] sorted keys, or null
   long long* out;              // [kmax, W] rows of the download buffer
   int* offsets;                // [ntiles + 1] scratch: counts, then offsets
   long long R;
@@ -54,6 +58,8 @@ struct OutlierCompactArgs {
   int ntiles;
   int has_time;                // key 0 is the time key
   int time_i32;
+  int kmat_K;
+  int pad_;
 };
 
 namespace {
@@ -82,11 +88,16 @@ __device__ void write_row(const OutlierCompactArgs& a, long long j,
                           long long r, long long live) {
   long long* o = a.out + j * a.W;
   const int nk = a.nkeys + a.has_time;
-  const int K = nk > 0 ? nk : 1;
-  if (a.has_time) o[0] = time_key(a, a.t_vals[r]);
-  for (int k = 0; k < a.nkeys; ++k)
-    o[a.has_time + k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
-  if (nk == 0) o[0] = 0;
+  int K = nk > 0 ? nk : 1;
+  if (a.kmat) {
+    K = a.kmat_K;
+    for (int k = 0; k < K; ++k) o[k] = a.kmat[r * K + k];
+  } else {
+    if (a.has_time) o[0] = time_key(a, a.t_vals[r]);
+    for (int k = 0; k < a.nkeys; ++k)
+      o[a.has_time + k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
+    if (nk == 0) o[0] = 0;
+  }
   o[K] = a.vals[r];
   o[K + 1] = live;
   for (int k = K + 2; k < a.W; ++k) o[k] = 0;

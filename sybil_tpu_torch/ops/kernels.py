@@ -22,14 +22,17 @@ import subprocess
 import threading
 
 SOURCES = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
-           "outlier_compact", "dense_pack")
+           "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
+           "hist_pairs", "sorted_pack")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+# one count per wrapper: a source's name, and sort_permute, the second
+# kernel of sorted_front.cu
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + ("sort_permute",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

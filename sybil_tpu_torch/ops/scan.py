@@ -1,16 +1,17 @@
-"""The dense scan: group-by + aggregate over a batch of column blocks.
+"""The scan: filter + group-by + aggregate over a batch of column blocks.
 
 Port of sybil_tpu/ops/scan.py for the dense strategy (group keys with a
-known bounded cardinality): BASELINE config 1 `group by host, avg ping`,
-the filtered histogram queries of configs 2 and 3, and the time rollups
-of config 4.  The device-free
-parts are copies of the reference's: the static ScanConfig with its slot
-arithmetic, and the packed-download layout (main_width, table_prefix,
-dense_table_plan, dense_keys_np, packed_layout) that the engine's reader
-shares with the writer.
+known bounded cardinality: BASELINE config 1 `group by host, avg ping`,
+the filtered histogram queries of configs 2 and 3, the time rollups of
+config 4) and the sorted strategy (every other group-by: -tdigest,
+unbounded or spilled keys, rollups past DENSE_WINDOW_SLOT_CAP, the group
+cap).  The device-free parts are copies of the reference's: the static
+ScanConfig with its slot arithmetic, and the packed-download layout
+(main_width, table_prefix, dense_table_plan, dense_keys_np,
+packed_layout) that the engine's reader shares with the writer.
 
-The device work is four hand-written CUDA kernels (csrc/), run in this
-order by scan_packed:
+The device work is hand-written CUDA kernels (csrc/), run by scan_packed
+in this order.  Dense:
 
 K2 dense_scan       one fused pass over the rows: row-in-range and the
                     int/str/regex filters, the time key (rows without
@@ -33,11 +34,33 @@ K3 dense_pack       the meta row, the compact keyless table with the
                     and bucket sections; with K5's rows, word for word the
                     reference's `main`
 
+Sorted:
+
+K7 sorted_front     the front end as in K2, then the packed mixed-radix
+                    sort key (int32 or int64, spill count) or the K key
+                    lanes, and the row index with the matched flag in its
+                    sign bit
+(sorts)             torch.sort(stable=True): one sort of the packed key,
+                    or one per key lane, least significant first, with
+                    the sort_permute kernel between them
+K8 segment_reduce   the sorted rows' keys (kmat), segment boundaries and
+                    gids, num_groups, the key table at segment starts,
+                    exact lane sums and hist min/max per group under the
+                    group cap
+K9 hist_pairs       per histogram aggregation: bucket ids, pair keys and
+                    weights, outlier mask and values (hist_prep); after a
+                    stable sort of the pair keys, the (group, bucket)
+                    segment starts, buckets, weight sums and keys
+K5 outlier_compact  the outlier rows, keyed by kmat
+K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
+                    escalation), the meta row, its prefix and the sparse
+                    hist pair sections of `main`
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.  scan_packed raises
 NotImplementedError, naming the ROADMAP item, for every scan shape
-the port does not carry yet (sorted/enumerated strategies, set filters,
-distinct counts, samples, cache-group scans, mesh scans).
+the port does not carry yet (the enumerated strategy and device prune,
+set filters, distinct counts, samples, cache-group scans, mesh scans).
 """
 
 from __future__ import annotations
@@ -423,12 +446,6 @@ def check_supported(config: ScanConfig) -> None:
     shape the port does not carry yet."""
     def no(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-    if config.strategy != "dense":
-        if any(a.num_values > 0 for a in config.aggs):
-            no("histograms under the sorted scan strategy (-tdigest, "
-               "unbounded or spilled group keys)", "B7")
-        no("the sorted scan strategy (unbounded or spilled group keys, "
-           "-tdigest) and the enumerated top-k strategy", "B7, B10")
     if any(f.kind == "set" for f in config.filters):
         no("set filters (in/nin over set columns)", "B6b")
     if len(config.filters) > _MAXF:
@@ -437,8 +454,14 @@ def check_supported(config: ScanConfig) -> None:
         no("count distinct", "B9")
     if config.want_matched_mask:
         no("samples", "A13")
-    if config.prune_topk > 0:
-        no("device-side top-k pruning", "B10")
+    # the reference's pack reads prune_topk only off the dense strategy
+    # (pack_outputs 1875): the enumerated strategy and the device prune
+    if config.prune_topk > 0 and config.strategy != "dense":
+        no("device-side top-k pruning and the enumerated strategy", "B10")
+    if config.n_key_cols > _MAXK or len(config.aggs) > _MAXA:
+        raise NotImplementedError(
+            f"the scan kernels take at most {_MAXK} keys and {_MAXA} "
+            f"aggregations")
     if config.no_compact_table:
         no("the keyed dense table of mesh scans", "B11")
     if config.vg_span > 0 or "__cg__" in config.group_cols:
@@ -1035,6 +1058,7 @@ class OutlierCompactArgs(ctypes.Structure):
         ("key_vals", ctypes.c_void_p * _MAXK),
         ("key_valid", ctypes.c_void_p * _MAXK),
         ("t_vals", ctypes.c_void_p),
+        ("kmat", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
@@ -1045,6 +1069,8 @@ class OutlierCompactArgs(ctypes.Structure):
         ("ntiles", ctypes.c_int),
         ("has_time", ctypes.c_int),
         ("time_i32", ctypes.c_int),
+        ("kmat_K", ctypes.c_int),
+        ("pad_", ctypes.c_int),
     ]
 
 
@@ -1070,9 +1096,13 @@ def key_rows(config: ScanConfig, cols, idx, time_bucket: int = 1):
 
 
 def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
-                          row0: int, time_bucket: int = 1) -> None:
+                          row0: int, time_bucket: int = 1,
+                          kmat=None) -> None:
     """Plain PyTorch version of K5: writes rows [row0, row0 + kmax) of
-    `main` in place (the reference's _mask_positions + gather)."""
+    `main` in place (the reference's _mask_positions + gather).  With
+    `kmat` (int64 [R, K], the sorted strategy's sorted keys) the mask
+    and values are in sorted order and each row's keys are its kmat row;
+    without, the keys come from the columns (key_rows)."""
     R = mask.numel()
     kmax = min(config.max_out, R)
     K = config.n_key_cols
@@ -1083,28 +1113,30 @@ def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
     pos = torch.full((kmax,), R - 1, dtype=torch.int64, device=dev)
     pos[:n] = idx
     block = torch.zeros((kmax, W), dtype=torch.int64, device=dev)
-    block[:, :K] = key_rows(config, cols, pos, time_bucket)
+    block[:, :K] = (key_rows(config, cols, pos, time_bucket) if kmat is None
+                    else kmat[pos])
     block[:, K] = vals[pos]
     block[:n, K + 1] = 1
     main[row0: row0 + kmax] = block
 
 
 def outlier_compact(config: ScanConfig, cols, mask, vals, main,
-                    row0: int, time_bucket: int = 1) -> None:
+                    row0: int, time_bucket: int = 1, kmat=None) -> None:
     """K5: writes the outlier section at rows [row0, row0 + kmax) of the
     download buffer `main` in place, as outlier_compact_plain; a
     rollup's rows start with their time key.  CUDA tensors launch the
     kernel (csrc/outlier_compact.cu); CPU tensors take the plain
     version.
 
-    mask bool [R], vals int64 [R] from K4.  Replaces sybil_tpu/ops/
+    mask bool [R], vals int64 [R] from K4 (or K9 in sorted order, with
+    K8's kmat as the key rows).  Replaces sybil_tpu/ops/
     scan.py:_mask_positions and the outlier section of pack_outputs.
     Bound by memory (one mask byte per row); a tile count, one small
     scan, and a ranked write (see the source note)."""
     dev = main.device
     if dev.type == "cpu":
         outlier_compact_plain(config, cols, mask, vals, main, row0,
-                              time_bucket)
+                              time_bucket, kmat)
         return
     if dev.type != "cuda":
         raise ValueError(f"outlier_compact: unsupported device {dev}")
@@ -1127,14 +1159,20 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
     a = OutlierCompactArgs()
     a.mask, a.vals = mask.data_ptr(), vals.data_ptr()
-    for i, g in enumerate(config.group_cols):
-        v, m = _check_col(cols, g, B, C, dev, "outlier_compact")
-        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
-    if config.time_col:
-        tv, _ = _check_col(cols, config.time_col, B, C, dev,
-                           "outlier_compact")
-        a.t_vals, a.has_time = tv.data_ptr(), 1
-        a.tb, a.time_i32 = tb, int(config.time_i32)
+    if kmat is not None:
+        K = config.n_key_cols
+        _check_tensor(kmat, (R, K), torch.int64, "kmat", dev,
+                      "outlier_compact")
+        a.kmat, a.kmat_K = kmat.data_ptr(), K
+    else:
+        for i, g in enumerate(config.group_cols):
+            v, m = _check_col(cols, g, B, C, dev, "outlier_compact")
+            a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+        if config.time_col:
+            tv, _ = _check_col(cols, config.time_col, B, C, dev,
+                               "outlier_compact")
+            a.t_vals, a.has_time = tv.data_ptr(), 1
+            a.tb, a.time_i32 = tb, int(config.time_i32)
     a.out = main.data_ptr() + row0 * W * 8
     a.offsets = offsets.data_ptr()
     a.R, a.kmax, a.W = R, kmax, W
@@ -1353,25 +1391,929 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
 
 
 # ---------------------------------------------------------------------------
+# the sorted strategy: K7 sorted_front, the sorts, K8 segment_reduce, K9
+# hist_pairs, K5 over the sorted keys, K10 sorted_pack
+# ---------------------------------------------------------------------------
+
+_IDX_BIT = -2 ** 31          # the matched flag in the sign bit of idxm
+
+
+def sort_packed(config: ScanConfig) -> bool:
+    """The reference's mixed-radix single sort key applies (_scan_sorted
+    1084): a sort_pack entry for every key lane and no distinct keys."""
+    return (bool(config.sort_pack) and not config.distinct_cols
+            and len(config.sort_pack) == config.n_key_cols)
+
+
+def pack_sentinel(config: ScanConfig) -> tuple[int, torch.dtype]:
+    """-> (the packed key of unmatched and spilled rows = the radix
+    product, the key's dtype: int32 when the product allows)."""
+    sent = 1
+    for (_, card) in config.sort_pack:
+        sent *= card + 1
+    return sent, (torch.int32 if sent < 2 ** 31 - 1 else torch.int64)
+
+
+def _key_lanes(config: ScanConfig, flat, R: int, dev, time_bucket: int):
+    """-> (key lanes int64 [R] in key order [time?, *groups], one zero
+    lane without either; the time column's validity or None): the
+    reference's _front_end keys (403-433)."""
+    keys, tvalid = [], None
+    if config.time_col:
+        tv, tvalid = flat[config.time_col]
+        keys.append(time_key(config, tv, time_bucket)[1])
+    for g in config.group_cols:
+        v, m = flat[g]
+        keys.append(torch.where(m, v, MISSING))
+    if not keys:
+        keys = [torch.zeros(R, dtype=torch.int64, device=dev)]
+    return keys, tvalid
+
+
+class SortedFrontArgs(ctypes.Structure):
+    """Mirror of struct SortedFrontArgs in csrc/sorted_front.cu."""
+    _fields_ = [
+        ("key_vals", ctypes.c_void_p * _MAXK),
+        ("key_valid", ctypes.c_void_p * _MAXK),
+        ("pack_min", ctypes.c_longlong * _MAXK),
+        ("pack_card", ctypes.c_longlong * _MAXK),
+        ("f_vals", ctypes.c_void_p * _MAXF),
+        ("f_valid", ctypes.c_void_p * _MAXF),
+        ("f_bits", ctypes.c_void_p * _MAXF),
+        ("f_bits_len", ctypes.c_longlong * _MAXF),
+        ("filter_vals", ctypes.c_void_p),
+        ("t_vals", ctypes.c_void_p),
+        ("t_valid", ctypes.c_void_p),
+        ("nrec", ctypes.c_void_p),
+        ("key_out", ctypes.c_void_p),
+        ("idxm", ctypes.c_void_p),
+        ("spill", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("tb", ctypes.c_longlong),
+        ("sent", ctypes.c_longlong),
+        ("f_op", ctypes.c_int * _MAXF),
+        ("log2C", ctypes.c_int),
+        ("nkeys", ctypes.c_int),
+        ("ngroups", ctypes.c_int),
+        ("nfilters", ctypes.c_int),
+        ("has_time", ctypes.c_int),
+        ("time_i32", ctypes.c_int),
+        ("packed", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
+                       bitsets=(), time_bucket: int = 1):
+    """Plain PyTorch version of K7: the reference's _front_end and the
+    sort operands of _scan_sorted (1076-1104, 1117-1118).
+    -> {"key": the packed key [R] (int32 or int64; the sentinel for
+    unmatched and spilled rows) or None, "keys": int64 [K, R] key lanes
+    (SENTINEL for unmatched rows) or None, "idxm": int32 [R] row index
+    with the matched flag in its sign bit, "spill": int64 [1]}."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    dev = nrec.device
+    flat = _flat_cols(cols, R)
+    matched = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+               < nrec[:, None]).reshape(R)
+    for i, f in enumerate(config.filters):
+        v, ok = flat[f.col]
+        matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
+    keys, tvalid = _key_lanes(config, flat, R, dev, time_bucket)
+    if tvalid is not None:
+        matched = matched & tvalid
+    idx = torch.arange(R, dtype=torch.int32, device=dev)
+    idxm = torch.where(matched, idx | _IDX_BIT, idx)
+    out = {"key": None, "keys": None, "idxm": idxm}
+    if sort_packed(config):
+        sent, dtype = pack_sentinel(config)
+        packed = torch.zeros(R, dtype=torch.int64, device=dev)
+        bad = torch.zeros(R, dtype=torch.bool, device=dev)
+        for (mn, card), k in zip(config.sort_pack, keys):
+            digit = torch.where(k == MISSING, 0, k - mn + 1)
+            bad |= (digit < 0) | (digit > card)
+            packed = packed * (card + 1) + digit
+        out["spill"] = (matched & bad).sum(dtype=torch.int64).reshape(1)
+        out["key"] = torch.where(matched & ~bad, packed, sent).to(dtype)
+    else:
+        out["spill"] = torch.zeros(1, dtype=torch.int64, device=dev)
+        out["keys"] = torch.stack([torch.where(matched, k, SENTINEL)
+                                   for k in keys])
+    return out
+
+
+def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
+                 bitsets=(), time_bucket: int = 1):
+    """K7: as sorted_front_plain.  CUDA tensors launch the kernel
+    (csrc/sorted_front.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
+    int/str/regex filters, the time key, the key lanes) and the sort
+    operands of _scan_sorted (1076-1104, 1117-1118).  Bound by memory:
+    one pass, 9 B read per row per referenced column, the key and idxm
+    written."""
+    B, C = _batch_shape(cols)
+    dev = nrec.device
+    nf = len(config.filters)
+    if filter_vals is None:
+        filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        return sorted_front_plain(config, cols, nrec, filter_vals, bitsets,
+                                  time_bucket)
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_front: unsupported device {dev}")
+    if C & (C - 1):
+        raise ValueError(f"sorted_front: C must be a power of two, got {C}")
+    R = B * C
+    if R >= 2 ** 31:
+        raise ValueError(f"sorted_front: {R} rows do not fit the int32 index")
+    tb = _time_bucket_arg(config, time_bucket, "sorted_front")
+    _check_tensor(nrec, (B,), torch.int32, "nrec", dev, "sorted_front")
+    _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
+                  "sorted_front")
+    K = config.n_key_cols
+    if K > _MAXK or nf > _MAXF:
+        raise NotImplementedError(
+            f"sorted_front takes at most {_MAXK} keys and {_MAXF} filters")
+    for name in cols:
+        _check_col(cols, name, B, C, dev, "sorted_front")
+    a = SortedFrontArgs()
+    for i, g in enumerate(config.group_cols):
+        v, m = cols[g]
+        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    if config.time_col:
+        v, m = cols[config.time_col]
+        a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
+        a.tb, a.time_i32 = tb, int(config.time_i32)
+    for i, f in enumerate(config.filters):
+        v, m = cols[f.col]
+        a.f_vals[i], a.f_valid[i] = v.data_ptr(), m.data_ptr()
+        a.f_op[i] = FILTER_OPS.get(f.op, _NEVER)
+        if f.op in ("re", "nre"):
+            bits = bitsets[f.bitset_idx]
+            _check_tensor(bits, (bits.shape[0],), torch.bool,
+                          f"bitset {f.bitset_idx}", dev, "sorted_front")
+            a.f_bits[i], a.f_bits_len[i] = bits.data_ptr(), bits.shape[0]
+    a.filter_vals = filter_vals.data_ptr()
+    idxm = torch.empty(R, dtype=torch.int32, device=dev)
+    spill = torch.empty(1, dtype=torch.int64, device=dev)
+    out = {"key": None, "keys": None, "idxm": idxm, "spill": spill}
+    if sort_packed(config):
+        sent, dtype = pack_sentinel(config)
+        for i, (mn, card) in enumerate(config.sort_pack):
+            a.pack_min[i], a.pack_card[i] = mn, card
+        out["key"] = torch.empty(R, dtype=dtype, device=dev)
+        a.key_out, a.sent = out["key"].data_ptr(), sent
+        a.packed = 1 if dtype == torch.int32 else 2
+    else:
+        out["keys"] = torch.empty((K, R), dtype=torch.int64, device=dev)
+        a.key_out = out["keys"].data_ptr()
+    a.idxm, a.spill, a.nrec = idxm.data_ptr(), spill.data_ptr(), nrec.data_ptr()
+    a.R, a.log2C = R, C.bit_length() - 1
+    a.nkeys, a.ngroups, a.nfilters = K, len(config.group_cols), nf
+    fn = kernels.lib("sorted_front").sorted_front
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "sorted_front")
+    kernels.LAUNCHES["sorted_front"] += 1
+    return out
+
+
+def sort_permute_plain(base, p, nxt):
+    """Plain PyTorch version of the sort_permute kernel: -> (base[p], or
+    p without a base; nxt at those rows, or None)."""
+    perm = p if base is None else base[p]
+    return perm, (None if nxt is None else nxt[perm])
+
+
+def sort_permute(base, p, nxt):
+    """One step between the stable sorts of the unpacked keys: composes
+    the running permutation with the last sort's indices and gathers the
+    next key lane through it (int64 [R] each).  CUDA tensors launch the
+    kernel (csrc/sorted_front.cu); CPU tensors take the plain version.
+
+    Replaces the operand permutation inside the reference's multi-key
+    lax.sort (scan.py:1119).  Bound by memory: random 8 B gathers."""
+    dev = p.device
+    if dev.type == "cpu":
+        return sort_permute_plain(base, p, nxt)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_permute: unsupported device {dev}")
+    R = p.numel()
+    _check_tensor(p, (R,), torch.int64, "p", dev, "sort_permute")
+    if base is not None:
+        _check_tensor(base, (R,), torch.int64, "base", dev, "sort_permute")
+    if nxt is not None:
+        _check_tensor(nxt, (R,), torch.int64, "nxt", dev, "sort_permute")
+    perm = p if base is None else torch.empty_like(p)
+    gathered = None if nxt is None else torch.empty_like(nxt)
+    fn = kernels.lib("sorted_front").sort_permute
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(base.data_ptr() if base is not None else None,
+                     p.data_ptr(),
+                     nxt.data_ptr() if nxt is not None else None,
+                     perm.data_ptr() if base is not None else None,
+                     gathered.data_ptr() if gathered is not None else None,
+                     R, _grid(dev, R, 0, False), kernels.stream_handle(dev)),
+                  "sort_permute")
+    kernels.LAUNCHES["sort_permute"] += 1
+    return perm, gathered
+
+
+def sort_rows(config: ScanConfig, front: dict) -> dict:
+    """The stable sorts of _scan_sorted (scan.py:1105, 1119): the packed
+    key in one torch.sort(stable=True) (CUB's radix sort on the card), or
+    the K key lanes lexicographically, one stable sort per lane from the
+    least significant up, each on the lane permuted by the sorts so far
+    (sort_permute), which gives lax.sort's order, ties in row order.
+    -> {"skey": the sorted packed key or None, "p": the last sort's
+    indices int64 [R], "base": the permutation before it or None}; row
+    i of the sorted order is base[p[i]] (p[i] without a base)."""
+    if front["key"] is not None:
+        skey, p = torch.sort(front["key"], stable=True)
+        return {"skey": skey, "p": p, "base": None}
+    keys = front["keys"]
+    _, p = torch.sort(keys[-1], stable=True)
+    base = None
+    for k in range(keys.shape[0] - 2, -1, -1):
+        base, g = sort_permute(base, p, keys[k])
+        _, p = torch.sort(g, stable=True)
+    return {"skey": None, "p": p, "base": base}
+
+
+def sorted_perm(order: dict):
+    """The full sorted order base[p] (p without a base), int64 [R]."""
+    return order["p"] if order["base"] is None else order["base"][order["p"]]
+
+
+class SegmentReduceArgs(ctypes.Structure):
+    """Mirror of struct SegmentReduceArgs in csrc/segment_reduce.cu."""
+    _fields_ = [
+        ("p", ctypes.c_void_p),
+        ("base", ctypes.c_void_p),
+        ("idxm", ctypes.c_void_p),
+        ("skey", ctypes.c_void_p),
+        ("keys", ctypes.c_void_p),
+        ("key_vals", ctypes.c_void_p * _MAXK),
+        ("key_valid", ctypes.c_void_p * _MAXK),
+        ("pack_min", ctypes.c_longlong * _MAXK),
+        ("pack_card", ctypes.c_longlong * _MAXK),
+        ("t_vals", ctypes.c_void_p),
+        ("agg_vals", ctypes.c_void_p * _MAXA),
+        ("agg_valid", ctypes.c_void_p * _MAXA),
+        ("agg_dmin", ctypes.c_longlong * _MAXA),
+        ("agg_dmax", ctypes.c_longlong * _MAXA),
+        ("agg_bias", ctypes.c_longlong * _MAXA),
+        ("w_vals", ctypes.c_void_p),
+        ("w_valid", ctypes.c_void_p),
+        ("kmat", ctypes.c_void_p),
+        ("sidxm", ctypes.c_void_p),
+        ("gid", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("mins", ctypes.c_void_p),
+        ("maxs", ctypes.c_void_p),
+        ("keys_tbl", ctypes.c_void_p),
+        ("num_groups", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("tb", ctypes.c_longlong),
+        ("sent", ctypes.c_longlong),
+        ("agg_mm", ctypes.c_int * _MAXA),
+        ("S", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("ngroups", ctypes.c_int),
+        ("naggs", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
+        ("has_time", ctypes.c_int),
+        ("time_i32", ctypes.c_int),
+        ("has_weight", ctypes.c_int),
+        ("packed", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+_SEG_TILE = 4096               # rows per CTA of the tile scans (TILE)
+
+
+def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
+                         time_bucket: int = 1):
+    """Plain PyTorch version of K8: the segments of the sorted rows and
+    their sums (reference _scan_sorted 1106-1233).
+    -> {"sums" int64 [S+1, L] (row S, the dead slot, stays 0), "mins" /
+    "maxs" int64 [S, H], "keys" int64 [S, K] (each segment's keys at its
+    start, 0 past num_groups), "kmat" int64 [R, K] (sorted keys,
+    SENTINEL for unmatched rows), "sidxm" int32 [R] (idxm in sorted
+    order), "gid" int32 [R] (segment of each sorted row), "num_groups"
+    int64 [1]}."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    dev = front["idxm"].device
+    S = config.max_groups
+    perm = sorted_perm(order)
+    sidxm = front["idxm"][perm]
+    smatched = sidxm < 0
+    sidx = (sidxm & 0x7FFFFFFF).to(torch.int64)
+    flat = _flat_cols(cols, R)
+    if order["skey"] is not None:
+        # original key values: one gather per key (scan.py:1109-1111)
+        keys, _ = _key_lanes(config, flat, R, dev, time_bucket)
+        kmat = torch.stack([torch.where(smatched, k[sidx], SENTINEL)
+                            for k in keys], dim=1)
+        skey = order["skey"]
+        differs = skey[1:] != skey[:-1]
+    else:
+        kmat = front["keys"][:, perm].t().contiguous()
+        differs = (kmat[1:] != kmat[:-1]).any(dim=1)
+    pb = torch.ones(R, dtype=torch.bool, device=dev)
+    pb[1:] = differs
+    gid = torch.cumsum(pb.to(torch.int32), 0, dtype=torch.int32) - 1
+    contrib = smatched & (gid < S)
+    cgid = torch.where(contrib, gid, S).to(torch.int64)
+    # lanes of _agg_row_data, read at the sorted rows
+    weight = _weight_plain(config, flat, R, dev)[sidx]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = [torch.where(contrib, weight, zero), contrib.to(torch.int64)]
+    vbias = config.agg_vbias or (0,) * len(config.aggs)
+    hist = hist_aggs(config)
+    mins = torch.full((S + 1, len(hist)), _BIG, dtype=torch.int64,
+                      device=dev)
+    maxs = torch.full((S + 1, len(hist)), -_BIG, dtype=torch.int64,
+                      device=dev)
+    for ai, (agg, bias) in enumerate(zip(config.aggs, vbias)):
+        v, populated = flat[agg.col]
+        v, populated = v[sidx], populated[sidx]
+        keep = contrib & populated & ~((v > agg.discard_max) |
+                                       (v < agg.discard_min))
+        kw = torch.where(keep, weight, zero)
+        lanes += [(contrib & populated).to(torch.int64), kw, kw * (v - bias)]
+        if ai in hist:
+            j = hist.index(ai)
+            mins[:, j].scatter_reduce_(0, cgid[keep], v[keep], "amin")
+            maxs[:, j].scatter_reduce_(0, cgid[keep], v[keep], "amax")
+    sums = torch.zeros((S + 1, len(lanes)), dtype=torch.int64, device=dev)
+    sums.index_add_(0, cgid, torch.stack(lanes, dim=1))
+    K = kmat.shape[1]
+    keys_tbl = torch.zeros((S, K), dtype=torch.int64, device=dev)
+    starts = torch.nonzero(pb).reshape(-1)
+    live = gid[starts] < S
+    keys_tbl[gid[starts][live].to(torch.int64)] = kmat[starts[live]]
+    return {"sums": sums, "mins": mins[:S].contiguous(),
+            "maxs": maxs[:S].contiguous(), "keys": keys_tbl, "kmat": kmat,
+            "sidxm": sidxm, "gid": gid,
+            "num_groups": (gid[-1:] + 1).to(torch.int64)}
+
+
+def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
+                   time_bucket: int = 1):
+    """K8: as segment_reduce_plain.  CUDA tensors launch the kernel
+    (csrc/segment_reduce.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_scan_sorted 1106-1233: the sorted
+    row index and matched flag, the key gathers, the boundary flags and
+    the gid cumsum, num_groups, the searchsorted segment starts and the
+    key table, _agg_row_data's lanes read at the sorted rows (never
+    materialised) and their exact nibble scatter-add, the hist
+    aggregations' scatter min/max, and kmat.  Bound by memory (random
+    gathers of the columns at the sorted rows); a tile scan for the gid,
+    and one atomic per warp run of equal gids (see the source note)."""
+    dev = front["idxm"].device
+    if dev.type == "cpu":
+        return segment_reduce_plain(config, cols, front, order, time_bucket)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce: unsupported device {dev}")
+    B, C = _batch_shape(cols)
+    R = B * C
+    S = config.max_groups
+    K = config.n_key_cols
+    A = len(config.aggs)
+    L = 2 + 3 * A
+    hist = hist_aggs(config)
+    H = len(hist)
+    tb = _time_bucket_arg(config, time_bucket, "segment_reduce")
+    _check_tensor(front["idxm"], (R,), torch.int32, "idxm", dev,
+                  "segment_reduce")
+    _check_tensor(order["p"], (R,), torch.int64, "p", dev, "segment_reduce")
+    a = SegmentReduceArgs()
+    a.p, a.idxm = order["p"].data_ptr(), front["idxm"].data_ptr()
+    if order["base"] is not None:
+        _check_tensor(order["base"], (R,), torch.int64, "base", dev,
+                      "segment_reduce")
+        a.base = order["base"].data_ptr()
+    if order["skey"] is not None:
+        sent, dtype = pack_sentinel(config)
+        _check_tensor(order["skey"], (R,), dtype, "skey", dev,
+                      "segment_reduce")
+        a.skey, a.sent = order["skey"].data_ptr(), sent
+        a.packed = 1 if dtype == torch.int32 else 2
+        for i, (mn, card) in enumerate(config.sort_pack):
+            a.pack_min[i], a.pack_card[i] = mn, card
+    else:
+        _check_tensor(front["keys"], (K, R), torch.int64, "keys", dev,
+                      "segment_reduce")
+        a.keys = front["keys"].data_ptr()
+    for i, g in enumerate(config.group_cols):
+        v, m = _check_col(cols, g, B, C, dev, "segment_reduce")
+        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    if config.time_col:
+        v, _ = _check_col(cols, config.time_col, B, C, dev, "segment_reduce")
+        a.t_vals, a.has_time = v.data_ptr(), 1
+        a.tb, a.time_i32 = tb, int(config.time_i32)
+    vbias = config.agg_vbias or (0,) * A
+    for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
+        v, m = _check_col(cols, agg.col, B, C, dev, "segment_reduce")
+        a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
+        a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
+        a.agg_bias[i] = bias
+        a.agg_mm[i] = hist.index(i) if i in hist else -1
+    if config.weight_col:
+        v, m = _check_col(cols, config.weight_col, B, C, dev,
+                          "segment_reduce")
+        a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
+    ntiles = -(-R // _SEG_TILE)
+    out = {"sums": torch.empty((S + 1, L), dtype=torch.int64, device=dev),
+           "mins": torch.empty((S, H), dtype=torch.int64, device=dev),
+           "maxs": torch.empty((S, H), dtype=torch.int64, device=dev),
+           "keys": torch.empty((S, K), dtype=torch.int64, device=dev),
+           "kmat": torch.empty((R, K), dtype=torch.int64, device=dev),
+           "sidxm": torch.empty(R, dtype=torch.int32, device=dev),
+           "gid": torch.empty(R, dtype=torch.int32, device=dev),
+           "num_groups": torch.empty(1, dtype=torch.int64, device=dev)}
+    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    a.kmat, a.sidxm = out["kmat"].data_ptr(), out["sidxm"].data_ptr()
+    a.gid, a.sums = out["gid"].data_ptr(), out["sums"].data_ptr()
+    a.mins, a.maxs = out["mins"].data_ptr(), out["maxs"].data_ptr()
+    a.keys_tbl = out["keys"].data_ptr()
+    a.num_groups, a.offsets = out["num_groups"].data_ptr(), offsets.data_ptr()
+    a.R = R
+    a.S, a.L, a.H, a.K = S, L, H, K
+    a.ngroups, a.naggs, a.ntiles = len(config.group_cols), A, ntiles
+    fn = kernels.lib("segment_reduce").segment_reduce
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "segment_reduce")
+    kernels.LAUNCHES["segment_reduce"] += 1
+    return out
+
+
+class HistPairsArgs(ctypes.Structure):
+    """Mirror of struct HistPairsArgs in csrc/hist_pairs.cu."""
+    _fields_ = [
+        ("sidxm", ctypes.c_void_p),
+        ("gid", ctypes.c_void_p),
+        ("vals", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+        ("w_vals", ctypes.c_void_p),
+        ("w_valid", ctypes.c_void_p),
+        ("pairkey", ctypes.c_void_p),
+        ("w", ctypes.c_void_p),
+        ("out_mask", ctypes.c_void_p),
+        ("out_val", ctypes.c_void_p),
+        ("nout", ctypes.c_void_p),
+        ("spk", ctypes.c_void_p),
+        ("si2", ctypes.c_void_p),
+        ("kmat", ctypes.c_void_p),
+        ("hp_mask", ctypes.c_void_p),
+        ("hp_bv", ctypes.c_void_p),
+        ("hp_w", ctypes.c_void_p),
+        ("hp_keys", ctypes.c_void_p),
+        ("npairs", ctypes.c_void_p),
+        ("seg", ctypes.c_void_p),
+        ("segstart", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("sub_min", ctypes.c_longlong * _MAXSUB),
+        ("sub_max", ctypes.c_longlong * _MAXSUB),
+        ("sub_bs", ctypes.c_longlong * _MAXSUB),
+        ("sub_nv", ctypes.c_longlong * _MAXSUB),
+        ("sub_off", ctypes.c_longlong * _MAXSUB),
+        ("R", ctypes.c_longlong),
+        ("hist_min", ctypes.c_longlong),
+        ("bucket_size", ctypes.c_longlong),
+        ("dmin", ctypes.c_longlong),
+        ("dmax", ctypes.c_longlong),
+        ("nv", ctypes.c_longlong),
+        ("sent_pk", ctypes.c_longlong),
+        ("S", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("nsub", ctypes.c_int),
+        ("has_weight", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def hist_prep_plain(config: ScanConfig, ai: int, cols, k8: dict):
+    """Plain PyTorch version of K9's first entry for histogram
+    aggregation `ai` over the sorted rows (reference _scan_sorted
+    1247-1255, _outlier_outputs): -> {"pairkey" int64 [R] (cgid·nv + bv,
+    (S+1)·nv where the row adds to no bucket), "w" int64 [R], and with
+    track_outliers "out_mask" bool [R], "out_val" int64 [R], "nout" int64
+    [1] (else None)}."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    sidxm = k8["sidxm"]
+    dev = sidxm.device
+    S = config.max_groups
+    agg = config.aggs[ai]
+    nv = agg.num_values
+    smatched = sidxm < 0
+    sidx = (sidxm & 0x7FFFFFFF).to(torch.int64)
+    gid = k8["gid"]
+    contrib = smatched & (gid < S)
+    flat = _flat_cols(cols, R)
+    v, populated = flat[agg.col]
+    v, populated = v[sidx], populated[sidx]
+    keep = contrib & populated & ~((v > agg.discard_max) |
+                                   (v < agg.discard_min))
+    bv, inrange, is_out = hist_bucket_plain(agg, v)
+    hc = keep & inrange
+    pairkey = torch.where(hc, gid.to(torch.int64) * nv + bv, (S + 1) * nv)
+    w = torch.where(hc, _weight_plain(config, flat, R, dev)[sidx]
+                    if config.weight_col else 1, 0)
+    out = {"pairkey": pairkey, "w": w, "out_mask": None, "out_val": None,
+           "nout": None}
+    if config.track_outliers:
+        mask = hc & is_out
+        out["out_mask"] = mask
+        out["out_val"] = torch.where(mask, v, 0)
+        out["nout"] = mask.sum(dtype=torch.int64).reshape(1)
+    return out
+
+
+def hist_pairs_plain(config: ScanConfig, ai: int, spk, si2, w, kmat):
+    """Plain PyTorch version of K9's second entry, after the stable sort
+    of the pair keys (reference _scan_sorted 1256-1266): -> {"hp_mask"
+    bool [R] (the first row of each (group, bucket) segment), "hp_bv"
+    int64 [R], "hp_w" int64 [R] (the segment's weight sum at its first
+    row), "hp_keys" int64 [R, K] = kmat[si2], "npairs" int64 [1]}."""
+    R = spk.numel()
+    dev = spk.device
+    nv = config.aggs[ai].num_values
+    sent_pk = (config.max_groups + 1) * nv
+    pb = torch.ones(R, dtype=torch.bool, device=dev)
+    pb[1:] = spk[1:] != spk[:-1]
+    seg = torch.cumsum(pb.to(torch.int64), 0) - 1
+    wsum = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
+        0, seg, w[si2])[seg]
+    valid = pb & (spk < sent_pk)
+    return {"hp_mask": valid, "hp_bv": torch.where(valid, spk % nv, 0),
+            "hp_w": torch.where(valid, wsum, 0), "hp_keys": kmat[si2],
+            "npairs": valid.sum(dtype=torch.int64).reshape(1)}
+
+
+def _hist_args(config: ScanConfig, ai: int, R: int) -> HistPairsArgs:
+    agg = config.aggs[ai]
+    if len(agg.sub_edges) > _MAXSUB:
+        raise NotImplementedError(
+            f"hist_pairs takes at most {_MAXSUB} multihist sub-ranges")
+    if not agg.sub_edges and agg.bucket_size <= 0:
+        raise ValueError(f"hist_pairs: bucket size {agg.bucket_size}")
+    a = HistPairsArgs()
+    for i, (smin, smax, sbs, snv, soff) in enumerate(agg.sub_edges):
+        a.sub_min[i], a.sub_max[i], a.sub_bs[i] = smin, smax, sbs
+        a.sub_nv[i], a.sub_off[i] = snv, soff
+    a.nsub = len(agg.sub_edges)
+    a.R, a.hist_min, a.bucket_size = R, agg.hist_min, agg.bucket_size
+    a.dmin, a.dmax = agg.discard_min, agg.discard_max
+    a.nv = agg.num_values
+    a.sent_pk = (config.max_groups + 1) * agg.num_values
+    a.S, a.K = config.max_groups, config.n_key_cols
+    a.ntiles = -(-R // _SEG_TILE)
+    return a
+
+
+def hist_prep(config: ScanConfig, ai: int, cols, k8: dict):
+    """K9, first entry: as hist_prep_plain.  CUDA tensors launch the
+    kernel (csrc/hist_pairs.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_hist_bucket (the bucket math of K4),
+    the pair key and weight of the sparse histogram (1247-1255) and
+    _outlier_outputs of the sorted strategy.  Bound by memory: random
+    gathers of the value and weight columns at the sorted rows."""
+    sidxm = k8["sidxm"]
+    dev = sidxm.device
+    if dev.type == "cpu":
+        return hist_prep_plain(config, ai, cols, k8)
+    if dev.type != "cuda":
+        raise ValueError(f"hist_prep: unsupported device {dev}")
+    B, C = _batch_shape(cols)
+    R = B * C
+    agg = config.aggs[ai]
+    if agg.num_values <= 0:
+        raise ValueError(f"hist_prep: aggregation {ai} has no buckets")
+    _check_tensor(sidxm, (R,), torch.int32, "sidxm", dev, "hist_prep")
+    _check_tensor(k8["gid"], (R,), torch.int32, "gid", dev, "hist_prep")
+    a = _hist_args(config, ai, R)
+    v, m = _check_col(cols, agg.col, B, C, dev, "hist_prep")
+    a.sidxm, a.gid = sidxm.data_ptr(), k8["gid"].data_ptr()
+    a.vals, a.valid = v.data_ptr(), m.data_ptr()
+    if config.weight_col:
+        wv, wm = _check_col(cols, config.weight_col, B, C, dev, "hist_prep")
+        a.w_vals, a.w_valid, a.has_weight = wv.data_ptr(), wm.data_ptr(), 1
+    out = {"pairkey": torch.empty(R, dtype=torch.int64, device=dev),
+           "w": torch.empty(R, dtype=torch.int64, device=dev),
+           "out_mask": None, "out_val": None, "nout": None}
+    a.pairkey, a.w = out["pairkey"].data_ptr(), out["w"].data_ptr()
+    if config.track_outliers:
+        out["out_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
+        out["out_val"] = torch.empty(R, dtype=torch.int64, device=dev)
+        out["nout"] = torch.empty(1, dtype=torch.int64, device=dev)
+        a.out_mask = out["out_mask"].data_ptr()
+        a.out_val = out["out_val"].data_ptr()
+        a.nout = out["nout"].data_ptr()
+    fn = kernels.lib("hist_pairs").hist_prep
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "hist_prep")
+    kernels.LAUNCHES["hist_pairs"] += 1
+    return out
+
+
+def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat):
+    """K9, second entry: as hist_pairs_plain.  CUDA tensors launch the
+    kernel (csrc/hist_pairs.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_scan_sorted 1256-1266 after the pair
+    sort: the segment starts, hp_bv, the segment weight sums (the
+    reference's segment_sum broadcast) and hp_keys.  Bound by memory;
+    a tile scan numbers the segments, one atomic per warp run adds the
+    weights (see the source note)."""
+    dev = spk.device
+    if dev.type == "cpu":
+        return hist_pairs_plain(config, ai, spk, si2, w, kmat)
+    if dev.type != "cuda":
+        raise ValueError(f"hist_pairs: unsupported device {dev}")
+    R = spk.numel()
+    K = config.n_key_cols
+    for t, what in ((spk, "spk"), (si2, "si2"), (w, "w")):
+        _check_tensor(t, (R,), torch.int64, what, dev, "hist_pairs")
+    _check_tensor(kmat, (R, K), torch.int64, "kmat", dev, "hist_pairs")
+    a = _hist_args(config, ai, R)
+    out = {"hp_mask": torch.empty(R, dtype=torch.bool, device=dev),
+           "hp_bv": torch.empty(R, dtype=torch.int64, device=dev),
+           "hp_w": torch.empty(R, dtype=torch.int64, device=dev),
+           "hp_keys": torch.empty((R, K), dtype=torch.int64, device=dev),
+           "npairs": torch.empty(1, dtype=torch.int64, device=dev)}
+    seg = torch.empty(R, dtype=torch.int32, device=dev)
+    segstart = torch.empty(R, dtype=torch.int32, device=dev)
+    offsets = torch.empty(a.ntiles + 1, dtype=torch.int32, device=dev)
+    a.spk, a.si2, a.w, a.kmat = (spk.data_ptr(), si2.data_ptr(),
+                                 w.data_ptr(), kmat.data_ptr())
+    a.hp_mask, a.hp_bv = out["hp_mask"].data_ptr(), out["hp_bv"].data_ptr()
+    a.hp_w, a.hp_keys = out["hp_w"].data_ptr(), out["hp_keys"].data_ptr()
+    a.npairs, a.seg = out["npairs"].data_ptr(), seg.data_ptr()
+    a.segstart, a.offsets = segstart.data_ptr(), offsets.data_ptr()
+    fn = kernels.lib("hist_pairs").hist_pairs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "hist_pairs")
+    kernels.LAUNCHES["hist_pairs"] += 1
+    return out
+
+
+class SortedPackArgs(ctypes.Structure):
+    """Mirror of struct SortedPackArgs in csrc/sorted_pack.cu."""
+    _fields_ = [
+        ("sums", ctypes.c_void_p),
+        ("mins", ctypes.c_void_p),
+        ("maxs", ctypes.c_void_p),
+        ("keys_tbl", ctypes.c_void_p),
+        ("num_groups", ctypes.c_void_p),
+        ("spill", ctypes.c_void_p),
+        ("nout", ctypes.c_void_p * _MAXH),
+        ("hp_mask", ctypes.c_void_p * _MAXH),
+        ("hp_keys", ctypes.c_void_p * _MAXH),
+        ("hp_bv", ctypes.c_void_p * _MAXH),
+        ("hp_w", ctypes.c_void_p * _MAXH),
+        ("npairs", ctypes.c_void_p * _MAXH),
+        ("hp_row", ctypes.c_longlong * _MAXH),
+        ("table", ctypes.c_void_p),
+        ("main", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("agg_mm", ctypes.c_int * _MAXA),
+        ("S", ctypes.c_int),
+        ("P", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("A", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("Hcap", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def table_width(config: ScanConfig) -> int:
+    """Columns of the keyed group table: K keys, count, samples, and
+    (exists, count, wv, min, max) per aggregation."""
+    return config.n_key_cols + 2 + 5 * len(config.aggs)
+
+
+def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
+                      main, R: int):
+    """Plain PyTorch version of K10: the keyed [S, K+2+5A] table and the
+    packed `main` buffer, in place, outside K5's rows (reference
+    pack_outputs 1865-1872, 1902-1965, 1979-1998).  -> the table."""
+    dev = main.device
+    K, A = config.n_key_cols, len(config.aggs)
+    S = config.max_groups
+    sums = k8["sums"][:S]
+    hist = hist_aggs(config)
+    cols = [k8["keys"][:, k] for k in range(K)] + [sums[:, 0], sums[:, 1]]
+    for ai in range(A):
+        if ai in hist:
+            mn = k8["mins"][:, hist.index(ai)]
+            mx = k8["maxs"][:, hist.index(ai)]
+        else:
+            mn = torch.full((S,), _BIG, dtype=torch.int64, device=dev)
+            mx = torch.full((S,), -_BIG, dtype=torch.int64, device=dev)
+        cols += [(sums[:, 2 + 3 * ai] > 0).to(torch.int64),
+                 sums[:, 3 + 3 * ai], sums[:, 4 + 3 * ai], mn, mx]
+    table = torch.stack(cols, dim=1)
+    layout = packed_layout(config, R)
+    W, P = layout["W"], table_prefix(config)
+    meta = torch.zeros(W, dtype=torch.int64, device=dev)
+    meta[0] = k8["num_groups"].reshape(())
+    meta[1] = spill.reshape(())
+    H = len(hist)
+    for i, n in enumerate(nouts):
+        if n is not None:
+            meta[2 + i] = n.reshape(())
+    for i, hp in enumerate(pairs):
+        meta[7 + H + i] = hp["npairs"].reshape(())
+    lo, hi = outlier_rows(config, R)
+    head = torch.zeros((lo, W), dtype=torch.int64, device=dev)
+    head[0] = meta
+    head[1:1 + P, :table.shape[1]] = table[:P]
+    main[:lo] = head
+    Hcap = layout.get("Hcap", 0)
+    for ai, hp in zip(hist, pairs):
+        idx = torch.nonzero(hp["hp_mask"]).reshape(-1)[:Hcap]
+        n = idx.numel()
+        pos = torch.full((Hcap,), R - 1, dtype=torch.int64, device=dev)
+        pos[:n] = idx
+        block = torch.zeros((Hcap, W), dtype=torch.int64, device=dev)
+        block[:, :K] = hp["hp_keys"][pos]
+        block[:, K] = hp["hp_bv"][pos]
+        block[:, K + 1] = hp["hp_w"][pos]
+        block[:n, K + 2] = 1
+        off, _ = layout[f"hpair{ai}"]
+        main[off: off + Hcap] = block
+    return table
+
+
+def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
+                R: int):
+    """K10: as sorted_pack_plain.  CUDA tensors launch the kernel
+    (csrc/sorted_pack.cu); CPU tensors take the plain version.
+
+    k8: K8's outputs; spill: K7's pack spill [1]; pairs: K9's second
+    outputs and nouts its outlier counts (None without tracking), one per
+    histogram aggregation.  Replaces the keyed table of sybil_tpu/ops/
+    scan.py:pack_outputs (1865-1872), its meta row (1902-1965) and the
+    sparse hist pair sections (1979-1991, _mask_positions).  Bound by
+    memory (the [S, K+2+5A] table and one byte of hp_mask per row)."""
+    dev = main.device
+    if dev.type == "cpu":
+        return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R)
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_pack: unsupported device {dev}")
+    K, A = config.n_key_cols, len(config.aggs)
+    S = config.max_groups
+    L = 2 + 3 * A
+    hist = hist_aggs(config)
+    H = len(hist)
+    layout = packed_layout(config, R)
+    rows, W = layout["rows"], layout["W"]
+    _check_tensor(main, (rows, W), torch.int64, "main", dev, "sorted_pack")
+    _check_tensor(k8["sums"], (S + 1, L), torch.int64, "sums", dev,
+                  "sorted_pack")
+    _check_tensor(k8["mins"], (S, H), torch.int64, "mins", dev, "sorted_pack")
+    _check_tensor(k8["maxs"], (S, H), torch.int64, "maxs", dev, "sorted_pack")
+    _check_tensor(k8["keys"], (S, K), torch.int64, "keys", dev, "sorted_pack")
+    _check_tensor(k8["num_groups"], (1,), torch.int64, "num_groups", dev,
+                  "sorted_pack")
+    _check_tensor(spill, (1,), torch.int64, "spill", dev, "sorted_pack")
+    if len(pairs) != H or len(nouts) != H:
+        raise ValueError(f"sorted_pack: expected {H} hist pair sets and "
+                         f"outlier counts, got {len(pairs)} and {len(nouts)}")
+    table = torch.empty((S, table_width(config)), dtype=torch.int64,
+                        device=dev)
+    a = SortedPackArgs()
+    a.sums, a.mins, a.maxs = (k8["sums"].data_ptr(), k8["mins"].data_ptr(),
+                              k8["maxs"].data_ptr())
+    a.keys_tbl, a.num_groups = k8["keys"].data_ptr(), \
+        k8["num_groups"].data_ptr()
+    a.spill = spill.data_ptr()
+    for i, (ai, hp, n) in enumerate(zip(hist, pairs, nouts)):
+        _check_tensor(hp["hp_mask"], (R,), torch.bool, "hp_mask", dev,
+                      "sorted_pack")
+        _check_tensor(hp["hp_keys"], (R, K), torch.int64, "hp_keys", dev,
+                      "sorted_pack")
+        for key in ("hp_bv", "hp_w"):
+            _check_tensor(hp[key], (R,), torch.int64, key, dev, "sorted_pack")
+        _check_tensor(hp["npairs"], (1,), torch.int64, "npairs", dev,
+                      "sorted_pack")
+        a.hp_mask[i], a.hp_keys[i] = (hp["hp_mask"].data_ptr(),
+                                      hp["hp_keys"].data_ptr())
+        a.hp_bv[i], a.hp_w[i] = hp["hp_bv"].data_ptr(), hp["hp_w"].data_ptr()
+        a.npairs[i] = hp["npairs"].data_ptr()
+        a.hp_row[i] = layout[f"hpair{ai}"][0]
+        if n is not None:
+            _check_tensor(n, (1,), torch.int64, "nout", dev, "sorted_pack")
+            a.nout[i] = n.data_ptr()
+    for i in range(A):
+        a.agg_mm[i] = hist.index(i) if i in hist else -1
+    ntiles = -(-R // _SEG_TILE)
+    offsets = torch.empty((max(H, 1), ntiles + 1), dtype=torch.int32,
+                          device=dev)
+    a.table, a.main, a.offsets = (table.data_ptr(), main.data_ptr(),
+                                  offsets.data_ptr())
+    a.R = R
+    a.S, a.P, a.K, a.A, a.L, a.H, a.W = (S, table_prefix(config), K, A, L,
+                                         H, W)
+    a.Hcap, a.ntiles = layout.get("Hcap", 0), ntiles
+    lo, hi = outlier_rows(config, R)
+    if (lo != 1 + a.P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)):
+        raise AssertionError("sorted_pack: unexpected section order")
+    fn = kernels.lib("sorted_pack").sorted_pack
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
+                  "sorted_pack")
+    kernels.LAUNCHES["sorted_pack"] += 1
+    return table
+
+
+def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
+                 time_bucket: int):
+    """The sorted strategy: K7, the sorts, K8, per histogram aggregation
+    K9 (prep, the pair sort, pairs) and K5 over kmat, then K10."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    front = sorted_front(config, cols, nrec, filter_vals, bitsets,
+                         time_bucket)
+    order = sort_rows(config, front)
+    k8 = segment_reduce(config, cols, front, order, time_bucket)
+    layout = packed_layout(config, R)
+    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
+                       device=nrec.device)
+    raw = {"kmat": k8["kmat"], "cols": cols, "time_bucket": time_bucket}
+    pairs, nouts = [], []
+    for ai in hist_aggs(config):
+        prep = hist_prep(config, ai, cols, k8)
+        spk, si2 = torch.sort(prep["pairkey"], stable=True)
+        hp = hist_pairs(config, ai, spk, si2, prep["w"], k8["kmat"])
+        for key in ("hp_mask", "hp_bv", "hp_w", "hp_keys"):
+            raw[f"agg{ai}_{key}"] = hp[key]
+        pairs.append(hp)
+        nouts.append(prep["nout"])
+        if config.track_outliers:
+            raw[f"agg{ai}_out_mask"] = prep["out_mask"]
+            raw[f"agg{ai}_out_val"] = prep["out_val"]
+            outlier_compact(config, cols, prep["out_mask"], prep["out_val"],
+                            main, layout[f"out{ai}"][0], time_bucket,
+                            kmat=k8["kmat"])
+    table = sorted_pack(config, k8, front["spill"], pairs, nouts, main, R)
+    return {"main": main, "table": table}, raw
+
+
+# ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
 
 def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
                 bitsets=(), time_bucket: int = 1, set_aux=None):
-    """-> (packed {"main": [rows, W] int64}, raw device outputs).
+    """-> (packed {"main": [rows, W] int64, and on the sorted strategy
+    "table": the keyed [S, K+2+5A] group table}, raw device outputs).
 
     Same arguments as the reference's scan_packed_jit: filter_vals int64
     [F] and the regex bitsets are device constants; time_bucket is the
-    rollup's bucket width (a host int: K2 and K5 take it as a scalar
-    argument); set inputs belong to shapes the port rejects.  Runs K2,
-    then K4 and K5 per histogram aggregation, then K3.  `raw` keeps what
-    escalation fetches when a packed section overflows: "agg{ai}_hist"
-    [Sc, nv], "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" and
+    rollup's bucket width (a host int: the kernels take it as a scalar
+    argument); set inputs belong to shapes the port rejects.  Dense: K2,
+    then K4 and K5 per histogram aggregation, then K3.  Sorted: K7, the
+    sorts, K8, K9 and K5 per histogram aggregation, then K10.  `raw`
+    keeps what escalation fetches when a packed section overflows:
+    "agg{ai}_hist" [Sc, nv] (dense), "agg{ai}_hp_*" [R] and "kmat" [R, K]
+    (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" and
     "time_bucket" for the key lanes (key_rows)."""
     check_supported(config)
     B, C = _batch_shape(cols)
     R = B * C
     time_bucket = int(time_bucket)
+    if config.strategy != "dense":
+        return _scan_sorted(config, cols, nrec, filter_vals, bitsets,
+                            time_bucket)
     k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket)
     layout = packed_layout(config, R)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
@@ -1399,9 +2341,28 @@ def fetch_outliers(config: ScanConfig, raw: dict, ai: int):
     values [n]): the escalation when nout exceeds the packed section."""
     mask = raw[f"agg{ai}_out_mask"]
     idx = torch.nonzero(mask).reshape(-1)
-    keys = key_rows(config, raw["cols"], idx, raw["time_bucket"])
+    if "kmat" in raw:
+        keys = raw["kmat"][idx]
+    else:
+        keys = key_rows(config, raw["cols"], idx, raw["time_bucket"])
     return (keys.cpu().numpy(),
             raw[f"agg{ai}_out_val"][idx].cpu().numpy())
+
+
+def fetch_hist_pairs(raw: dict, ai: int):
+    """Every sparse hist pair of aggregation `ai` -> numpy (keys [n, K],
+    buckets [n], weight sums [n]): the sorted strategy's escalation when
+    the pairs exceed the packed section."""
+    idx = torch.nonzero(raw[f"agg{ai}_hp_mask"]).reshape(-1)
+    return (raw[f"agg{ai}_hp_keys"][idx].cpu().numpy(),
+            raw[f"agg{ai}_hp_bv"][idx].cpu().numpy(),
+            raw[f"agg{ai}_hp_w"][idx].cpu().numpy())
+
+
+def fetch_table(packed: dict, n: int) -> np.ndarray:
+    """The first n rows of the sorted strategy's keyed group table ->
+    numpy: the escalation when live groups exceed the packed prefix."""
+    return packed["table"][:n].cpu().numpy()
 
 
 def fetch_hist_rows(raw: dict, ai: int, slots_idx: np.ndarray) -> np.ndarray:

@@ -6,11 +6,13 @@ cache, the row-store scan, samples or meshes.  The plan:
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
            K1 and K6 and kept resident, ops/residency.py) -> one scan_packed
-           call per batch (K2, then K4 + K5 per histogram, then K3;
-           ops/scan.py) -> one packed buffer copied to pinned host
-           memory without blocking
+           call per batch (dense: K2, K4 + K5 per histogram, K3; sorted:
+           K7, the sorts, K8, K9 + K5 per histogram, K10; ops/scan.py)
+           -> one packed buffer copied to pinned host memory without
+           blocking; a dense key bound that spills restarts the scan on
+           the unpacked sorted strategy
   merge    the host merges the (small) per-batch group tables, bucket
-           matrices and outlier rows
+           matrices, sparse hist pairs and outlier rows
   finish   translate group keys to display strings (aggregate.go:284-324),
            sort (aggregate.go:469-525), build the Cumulative row
 
@@ -861,12 +863,42 @@ def _run_query_inner(table: Table, params: QueryParams,
     B = max(1, min(flags.device_batch, max(len(block_dirs), 1)))
 
     ctx = _ScanCtx(bound, infos, params, timer, C, device)
+    _maybe_device_prune(bound, params, block_dirs, B)
     acc = _scan_dirs(ctx, block_dirs, B, allow_prune=True)
 
     with timer.phase("finish"):
         qr = acc.finish()
     timer.report("query")
     return qr
+
+
+def _maybe_device_prune(bound: BoundQuery, params: QueryParams,
+                        block_dirs: list[str], B: int) -> None:
+    """Ask for PruneResults on the device (ScanConfig.prune_topk), as the
+    reference does (engine.py:1158-1190): when a scan spans more than
+    CHUNKS_BEFORE_GC = 16 blocks, has plain-count/avg aggregations, no
+    time rollup and no distinct, and prunes by $COUNT or an aggregation's
+    mean, each batch may ship only its top 10*limit (<= 1000) group rows.
+    The dense strategy ignores it; the sorted strategy's device prune is
+    not ported (B10), so check_supported rejects it there."""
+    import dataclasses as _dc
+
+    p = params
+    if not p.prune_by or p.limit <= 0 or len(block_dirs) <= 16:
+        return
+    if p.distincts or p.time_bucket > 0:
+        return
+    if any(a.num_values > 0 for a in bound.config.aggs):
+        return
+    pagg = -1
+    if p.prune_by != SORT_COUNT:
+        cols = [a.col for a in p.aggs]
+        if p.prune_by not in cols:
+            return
+        pagg = cols.index(p.prune_by)
+    cap = min(p.limit * 10, 1000)
+    bound.config = _dc.replace(bound.config, prune_topk=cap,
+                               prune_agg=pagg)
 
 
 class _ScanCtx:
@@ -922,62 +954,78 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
                allow_prune: bool):
     """Scan a set of block dirs into a fresh accumulator through the
     batch pipeline: up to PIPELINE batches are in flight before the
-    oldest one's download is absorbed."""
+    oldest one's download is absorbed.  When a batch reports a dense key
+    bound spill, the whole scan restarts once on the unpacked sorted
+    strategy, as the reference's does (engine.py:1429-1592)."""
+    import dataclasses as _dc
+
     from ..ops.residency import device_const
     from ..ops.scan import scan_packed
 
     bound, params, timer = ctx.bound, ctx.params, ctx.timer
     C, device, infos = ctx.C, ctx.device, ctx.infos
-
-    acc = _Accumulator(bound)
-    if not allow_prune:
-        acc.prune_cap = 0
-    pending: list[tuple] = []
-
-    def drain_one() -> None:
-        cfg, packed, out, R = pending.pop(0)
-        if acc.absorb_packed(packed, out, R, cfg) > 0:
-            # a group key fell outside its declared bound (outlier-
-            # resistant IntInfo, or stats that grew after bind); the
-            # reference redoes the scan on the sorted strategy
-            raise NotImplementedError(
-                "a dense key bound spilled; the sorted-strategy retry is "
-                "not ported yet (ROADMAP B7)")
-        if allow_prune:
-            acc.maybe_prune()
-
-    def stop_early() -> bool:
-        return allow_prune and acc.distinct_limit_hit()
-
     expected = {d: infos[d].num_records for d in block_dirs if d in infos}
-    for s in range(0, len(block_dirs), B):
-        if stop_early():
-            break
-        batch = block_dirs[s: s + B]
-        cfg = bound.config
-        batch_dirs = batch + [batch[-1]] * (B - len(batch))  # pad
-        R = B * C
-        with timer.phase("load"):
-            loader = BatchLoader(bound, batch_dirs, C, expected, device)
-            cols, nrec = loader.load()
-        nrec[len(batch):] = 0  # padded repeats contribute nothing
-        with timer.phase("dispatch"):
-            packed, out = scan_packed(cfg, cols, device_const(nrec, device),
-                                      ctx.jfv, ctx.jbits,
-                                      params.time_bucket or 1)
-        # the raw outputs stay beside the packed buffer until it drains:
-        # escalation fetches from them when a packed section overflows
-        pending.append((cfg, packed, out, R))
-        _start_d2h(packed)
-        if len(pending) >= PIPELINE:
+
+    for attempt in range(2):
+        acc = _Accumulator(bound)
+        if not allow_prune:
+            acc.prune_cap = 0
+        pending: list[tuple] = []
+        spilled = False
+
+        def drain_one() -> bool:
+            cfg, packed, out, R = pending.pop(0)
+            if acc.absorb_packed(packed, out, R, cfg) > 0:
+                return False
+            if allow_prune:
+                acc.maybe_prune()
+            return True
+
+        def stop_early() -> bool:
+            return allow_prune and acc.distinct_limit_hit()
+
+        for s in range(0, len(block_dirs), B):
+            if stop_early():
+                break
+            batch = block_dirs[s: s + B]
+            cfg = bound.config
+            batch_dirs = batch + [batch[-1]] * (B - len(batch))  # pad
+            R = B * C
+            with timer.phase("load"):
+                loader = BatchLoader(bound, batch_dirs, C, expected, device)
+                cols, nrec = loader.load()
+            nrec[len(batch):] = 0  # padded repeats contribute nothing
+            with timer.phase("dispatch"):
+                packed, out = scan_packed(cfg, cols,
+                                          device_const(nrec, device),
+                                          ctx.jfv, ctx.jbits,
+                                          params.time_bucket or 1)
+            # the raw outputs stay beside the packed buffer until it
+            # drains: escalation fetches from them when a packed section
+            # overflows
+            pending.append((cfg, packed, out, R))
+            _start_d2h(packed)
+            if len(pending) >= PIPELINE:
+                with timer.phase("drain"):
+                    if not drain_one():
+                        spilled = True
+                        break
+        while not spilled and pending:
+            if stop_early():
+                pending.clear()
+                break
             with timer.phase("drain"):
-                drain_one()
-    while pending:
-        if stop_early():
-            pending.clear()
-            break
-        with timer.phase("drain"):
-            drain_one()
+                if not drain_one():
+                    spilled = True
+        if not spilled:
+            return acc
+        # a group key fell outside its declared bound (outlier-resistant
+        # IntInfo, or stats that grew after bind): redo the scan on the
+        # unpacked sorted strategy, which has no static key bounds
+        debug("key bound spilled; retrying on unpacked sorted strategy")
+        bound.config = _dc.replace(bound.config, force_sorted=True,
+                                   sort_pack=())
+        pending.clear()
     return acc
 
 
@@ -1165,15 +1213,18 @@ class _Accumulator:
 
     def absorb_packed(self, packed, out, R: int, config=None) -> int:
         """Parse the single packed download (ops/scan.py scan_packed):
-        row 0 meta [num_groups, spill, nout per hist agg, ...]; then the
-        dense group table (the compact keyless form, or the keyed form of
-        mesh scans); then per-hist-agg compacted outlier rows; then the
-        dense hist gids and bucket matrices.  The raw device outputs in
-        `out` are touched only when the meta row reports that a packed
-        section overflowed.  Returns the dense-strategy spill count (>0
-        => this batch's rows were NOT absorbed)."""
+        row 0 meta [num_groups, spill, nout per hist agg, npairs,
+        overflow, pruned, 0, 0, nhistpairs per hist agg]; then the group
+        table (the dense compact keyless form, or the keyed prefix of the
+        sorted strategy); then per-hist-agg compacted outlier rows; then
+        the dense hist gids and bucket matrices, or the sorted strategy's
+        sparse hist pairs.  The device outputs (`out`, and the sorted
+        strategy's full table in packed["table"]) are touched only when
+        the meta row reports that a packed section overflowed.  Returns
+        the spill count (>0 => this batch's rows were NOT absorbed)."""
         from ..ops.scan import (SENTINEL, dense_keys_np, dense_table_plan,
-                                fetch_hist_rows, fetch_outliers, hist_aggs,
+                                fetch_hist_pairs, fetch_hist_rows,
+                                fetch_outliers, fetch_table, hist_aggs,
                                 packed_layout, table_prefix)
         if config is None:
             config = self.bound.config
@@ -1196,6 +1247,8 @@ class _Accumulator:
         if spill > 0:
             return spill
         nouts = {ai: int(meta[2 + i]) for i, ai in enumerate(hist_ais)}
+        nhps = {ai: int(meta[7 + len(hist_ais) + i])
+                for i, ai in enumerate(hist_ais)}
         if num_groups > config.max_groups:
             warn("group cap", config.max_groups,
                  "exceeded; highest-keyed groups dropped")
@@ -1225,7 +1278,9 @@ class _Accumulator:
             counts = colmap.get("count", samples)
         else:
             n = P if dense else min(num_groups, S)
-            table = main[1: 1 + n]
+            # the sorted strategy's live groups past the prefix: fetch the
+            # table's first n rows from the device (escalation)
+            table = fetch_table(packed, n) if n > P else main[1: 1 + n]
             keys = table[:, :K]
             counts = table[:, K]
             samples = table[:, K + 1]
@@ -1375,8 +1430,80 @@ class _Accumulator:
                 row = self.rows.get(tuple(int(k) for k in krow))
                 if row is not None and row["aggs"][ai] is not None:
                     row["aggs"][ai]["outliers"].append(int(v))
+
+        if hist_ais and not dense:
+            # the sorted strategy ships sparse (group keys, bucket, Σw)
+            # rows instead of bucket matrices
+            for ai in hist_ais:
+                if nhps[ai] == 0:
+                    continue
+                if nhps[ai] > layout["Hcap"]:   # escalate to full arrays
+                    hkeys, hbv, hw = fetch_hist_pairs(out, ai)
+                else:
+                    off, rows = layout[f"hpair{ai}"]
+                    block = main[off: off + rows]
+                    hvalid = block[:, K + 2] != 0
+                    hkeys = block[hvalid, :K]
+                    hbv = block[hvalid, K]
+                    hw = block[hvalid, K + 1]
+                self._absorb_hist_pairs(ai, hkeys, hbv, hw,
+                                        config.aggs[ai])
         self.batches += 1
         return 0
+
+    def _absorb_hist_pairs(self, ai: int, hkeys: np.ndarray,
+                           hbv: np.ndarray, hw: np.ndarray, spec) -> None:
+        """Merge sparse (group keys, bucket, Σw) hist rows into the group
+        table (reference engine.py:2208-2265): one np.add.at builds a
+        [unique groups, nv] delta added per group, or, for -tdigest, the
+        pairs' exact values feed each group's t-digest."""
+        if hkeys.shape[0] == 0:
+            return
+        _, _, hist_type = self.bound.agg_layouts[ai]
+        nv = spec.num_values
+        ukeys, inv = np.unique(hkeys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        if hist_type == "tdigest":
+            from .hist import TDigest
+            vals = spec.hist_min + np.asarray(hbv, dtype=np.int64) \
+                * spec.bucket_size
+            order = np.argsort(inv, kind="stable")
+            sinv = inv[order]
+            starts = np.searchsorted(sinv, np.arange(ukeys.shape[0]))
+            ends = np.append(starts[1:], sinv.size)
+            svals, sws = vals[order], np.asarray(hw)[order]
+            for u, krow in enumerate(ukeys.tolist()):
+                row = self.rows.get(tuple(krow))
+                if row is None or row["aggs"][ai] is None:
+                    continue
+                cur = row["aggs"][ai]
+                td = cur.get("td")
+                if td is None:
+                    td = cur["td"] = TDigest()
+                td.add_many(svals[starts[u]:ends[u]],
+                            sws[starts[u]:ends[u]])
+            return
+        U = ukeys.shape[0]
+        if U * nv <= 64_000_000:
+            delta = np.zeros((U, nv), dtype=np.int64)
+            np.add.at(delta, (inv, hbv.astype(np.int64)), hw)
+            for u, krow in enumerate(ukeys.tolist()):
+                row = self.rows.get(tuple(krow))
+                if row is None or row["aggs"][ai] is None:
+                    continue
+                cur = row["aggs"][ai]
+                cur["hist"] = (delta[u].copy() if cur["hist"] is None
+                               else cur["hist"] + delta[u])
+        else:  # a huge group count times a huge bucket count
+            for krow, b, w in zip(hkeys.tolist(), hbv.tolist(),
+                                  hw.tolist()):
+                row = self.rows.get(tuple(krow))
+                if row is None or row["aggs"][ai] is None:
+                    continue
+                cur = row["aggs"][ai]
+                if cur["hist"] is None:
+                    cur["hist"] = np.zeros(nv, dtype=np.int64)
+                cur["hist"][int(b)] += int(w)
 
     def finish(self) -> QueryResults:
         p = self.params

@@ -388,13 +388,16 @@ def test_unported_engine_modes_raise(ref_table, change, item):
 
 @pytest.mark.parametrize("argv,item", [
     (["-set-filter", "tags:in:a"], "B6b"),
-    (["-op", "hist", "-tdigest"], "B7"),
-    # a rollup whose slot product (4000 quotients x 6 x 6) exceeds
-    # DENSE_WINDOW_SLOT_CAP takes the sorted strategy
+    # -tdigest, a rollup past DENSE_WINDOW_SLOT_CAP (4000 quotients x 6 x
+    # 6 slots) and int keys past the dense slot cap take the sorted
+    # strategy, which tests/test_torch_sorted.py holds against the
+    # reference; on it samples, distinct counts and the device prune
+    # stay unported
+    (["-op", "hist", "-tdigest", "-samples"], "A13"),
     (["-time", "-time-col", "index_int", "-time-bucket", "1", "-group",
-      "host,status"], "B7"),
+      "host,status", "-distinct", "weight"], "B9"),
     (["-distinct", "status"], "B9"),
-    (["-group", "index_int,weight"], "B7"),
+    (["-group", "index_int,weight"], "B10"),
 ])
 def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
                                                       capsys, tmp_path):
@@ -406,6 +409,20 @@ def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
                               skip_compact=True)).ingest_columns(
             ints={"ping": np.arange(6)}, strs={"host": ["a", "b"] * 3},
             sets={"tags": [["a"], ["b", "a"], [], ["c"], ["a"], ["b"]]})
+    if item == "B10":
+        # the device prune asks for more than 16 blocks: a table of the
+        # port's own, whose exact int keys pack into one sort key
+        d = str(tmp_path)
+        old = port_digest.CHUNK_SIZE
+        port_digest.CHUNK_SIZE = 64
+        try:
+            Table("uptime", Flags(dir=d, table="uptime",
+                                  skip_compact=True)).ingest_columns(
+                ints={"ping": np.arange(1100) % 90,
+                      "index_int": np.arange(1100) * 7,
+                      "weight": np.arange(1100) % 3})
+        finally:
+            port_digest.CHUNK_SIZE = old
     base = ["query", "-dir", d, "-table", "uptime", "-int", "ping",
             "-device", "cpu", "-json"]
     if "-group" not in argv:

@@ -136,21 +136,27 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
-    # set filters (B6b), histograms under the sorted strategy and a time
-    # rollup without a bound on its quotient (sorted, B7) stay unported;
-    # int/str filters, dense histograms and dense rollups are ported
+    # set filters (B6b), count distinct (B9), samples (A13) and, on the
+    # sorted strategy, the device prune (B10) stay unported.  A time
+    # rollup without a bound on its quotient, histograms under the sorted
+    # strategy and the sorted strategy itself are ported
+    # (tests/test_torch_sorted.py); here each carries a part that is not
     change = {
         "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
-        "time": {"time_col": "k0"},
+        "time": {"time_col": "k0", "prune_topk": 1000},
         "hist": {"aggs": (dataclasses.replace(pcfg.aggs[0],
                                               num_values=10),),
-                 "force_sorted": True},
+                 "force_sorted": True, "distinct_cols": ("v0",)},
         "distinct": {"distinct_cols": ("v0",)},
         "samples": {"want_matched_mask": True},
-        "sorted": {"force_sorted": True},
+        "sorted": {"force_sorted": True, "prune_topk": 1000},
     }[what]
+    item = {"filters": "B6b", "time": "B10", "hist": "B9", "distinct": "B9",
+            "samples": "A13", "sorted": "B10"}[what]
     bad = dataclasses.replace(pcfg, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert what in ("filters", "distinct", "samples") or \
+        bad.strategy == "sorted"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port.scan_packed(bad, {k: (torch.from_numpy(v), torch.from_numpy(m))
                                for k, (v, m) in cols.items()},
                          torch.from_numpy(nrec))
