@@ -12,7 +12,9 @@ Phases (any failure exits non-zero before the result lines):
      scripts/fakedata/activity_generator.columns (its seed rule, 1M-row
      steps, as scripts/bench_configs.py builds it): the bulk table as
      generated, and the same rows stably sorted by time, as digestion
-     orders a table
+     orders a table; and config 5's two partitions of N / 2 rows each
+     (bench_configs.py:64-98: userid ~ Zipf(1.2) folded over 200,000
+     users, weights, seed 900 + p * 1000, 1M-row steps, device_batch 64)
   3. K1 decode_bucket2 against its plain PyTorch version on the card,
      bit for bit: the table's real host and ping containers, then edge
      blocks (u8/u16/i32 deltas, short, missing, invalid rows); K6
@@ -49,7 +51,16 @@ Phases (any failure exits non-zero before the result lines):
      three unpacked keys with MISSING and negative values, both time
      divisions, weights and filters, multihist and value-identity layouts
      with live outliers, groups past prefix_rows, pairs past Hcap, the
-     group cap, no keys)
+     group cap, no keys).  Then the enumerated strategy: K7's enum form,
+     K11 enum_segments, K12 topk_rows and K10's enum_pack against their
+     plain versions on config 5's real batches of both partitions ($COUNT
+     and f32 mean scores, the mean's winners against numpy) and on
+     synthetic enumerated batches (ties across k, fewer live groups than
+     k, R below the prefix, a packed spill, filters with MISSING keys, two
+     keys with a weight column, mean scores with and without a value
+     bias, every row unmatched), K12 alone on tie pile-ups, -inf ties,
+     int64 scores and k = R, and the sorted strategy's device prune (K10's
+     prune form, K12 over the slots, prune_gather) on config 5's batch
   5. the main path through the port's CLI on cuda, one batch of all
      blocks, the launch counts reset just before each query and read just
      after: config 1 `-group host -int ping -op avg`, config 3 (and with
@@ -60,9 +71,18 @@ Phases (any failure exits non-zero before the result lines):
      host's count, kept rows, the (host, ping) pairs the engine absorbs
      and the percentiles of a t-digest of numpy's pairs), path 2 on both
      tables (every (5-minute bucket, action) row's count and weight sum),
-     and a small table whose dense key bound spills, retried on the sorted
-     strategy, against numpy.  Then cold and warm queries through
-     run_query for each config and path, checking via the counts that
+     a small table whose dense key bound spills, retried on the sorted
+     strategy, against numpy; config 5: `query -encode-results` on each
+     partition (K7, K11, K12 and K10 once per batch, K8 never; each
+     shipped group and the Cumulative row against numpy), `aggregate`
+     over the two result directories (the printed counts are numpy's
+     top 100, each group's count and mean against numpy), the
+     -prune-sort weight form (the printed users are numpy's top 100 by
+     the f32 mean score) and a 4-batch form; the sorted device prune
+     (one user's rows of partition 1 grouped by the second: K7, K8,
+     K10, K12 and prune_gather once, the 100 busiest seconds in order
+     against numpy).  Then cold and warm queries
+     through run_query for each config and path, checking via the counts that
      warm queries run no decode (residency) and the scan kernels once per
      batch, also through a three-batch pipeline
   6. timings: query walls (median of 5) and rows/s, and the engine's
@@ -72,8 +92,10 @@ Phases (any failure exits non-zero before the result lines):
      plain version's time and, where one torch call computes the same
      function, that call's time; K2 on config 4 in both forms per table;
      K7, sort_permute, K8, K9, K5 (sorted keys) and K10 at both paths'
-     shapes, and the stable torch.sort calls between them on a line of
-     their own
+     shapes, config 5's K7 enum form, K11, K12 ($COUNT and mean scores),
+     K10 enum_pack and the device prune's forms, `aggregate`'s wall, and
+     the stable torch.sort calls between them on lines of their own with
+     their radix-pass bound
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -104,10 +126,12 @@ BENCH_NOW = 1_755_000_000
 STEP = 1_000_000
 KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
-           "hist_pairs", "sorted_pack")
-# the launch-counted wrappers: each source's, and sort_permute, the
-# second kernel of sorted_front.cu
-COUNTED = KERNELS + ("sort_permute",)
+           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows")
+# the launch-counted wrappers: each source's, and those of a source's
+# other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
+ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
+                 "prune_gather": "sorted_pack"}
+COUNTED = KERNELS + tuple(ENTRY_SOURCES)
 C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
 P2_BUCKET = 300                 # config 4 zoomed in to 5-minute buckets
 # this slice's two paths: config 3 with -tdigest, config 4 at 300 s
@@ -116,6 +140,21 @@ P1_ARGV = ["-group", "host", "-int", "ping", "-op", "hist", "-tdigest",
 P2_ARGV = ["-group", "action", "-int", "weight", "-op", "avg", "-time",
            "-time-bucket", str(P2_BUCKET), "-time-col", "time"]
 FILL = 0x5A5A5A5A5A5A5A5A        # poison for buffers a kernel must write
+# config 5 (scripts/bench_configs.py:64-98, 171-201): group by userid, avg
+# weight, the default -limit 100 and -prune-sort $COUNT, on each of two
+# partitions, then `aggregate`
+C5_CARD = 200_000
+C5_ARGV = ["-table", "sessions_zipf", "-group", "userid", "-int", "weight",
+           "-op", "avg", "-limit", "100"]
+C5_BATCH = 64                   # bench_configs.py:478-479
+C5_NOW = 1_755_000_000
+# the sorted device prune on the main path: one user's rows of config 5's
+# partition grouped by the second (about 2.4M values, a radix past
+# ENUM_RADIX_CAP): the user's 100 busiest seconds
+C5_USER = 10
+C5_USER_ARGV = ["-table", "sessions_zipf", "-group", "time", "-int",
+                "weight", "-op", "avg", "-limit", "100", "-str-filter",
+                f"userid:eq:person{C5_USER}"]
 
 
 def fail(msg: str) -> None:
@@ -348,6 +387,67 @@ def spill_table(root: str):
         sel = g == k
         want[str(k)] = (int(sel.sum()), int(v[sel].sum()))
     return root, len(blocks_), want
+
+
+def build_zipf_partitions(root: str, n_rows: int):
+    """Config 5's two directory 'nodes' as scripts/bench_configs.py:64-98
+    builds them, written by the port: n_rows // 2 rows each in 1M-row
+    steps, seed 900 + p * 1000 (p = 0, 1; nothing to resume), userid =
+    person{zipf(1.2) % 200,000}, weight from {1, 10, 100}, time over the
+    four weeks before 1,755,000,000; device_batch 64.  Below full size the
+    blocks shrink so that each partition keeps more than 16 (the device
+    prune's gate).  -> [(Table, Flags, uid int64 [n], weight int64 [n],
+    time int64 [n])]."""
+    import numpy as np
+
+    from sybil_tpu_torch import digest
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.table import Table
+    per = n_rows // 2
+    chunk = 65536
+    while chunk > 128 and per // chunk < 17:
+        chunk //= 2
+    out = []
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = chunk
+    try:
+        for p in range(2):
+            flags = Flags(dir=os.path.join(root, f"db-p{p + 1}"),
+                          table="sessions_zipf", skip_compact=True,
+                          device_batch=C5_BATCH)
+            t = Table("sessions_zipf", flags)
+            rng = np.random.default_rng(900 + p * 1000)
+            uids, ws, tms = [], [], []
+            for start in range(0, per, STEP):
+                m = min(STEP, per - start)
+                uid = rng.zipf(1.2, size=m) % C5_CARD
+                w = rng.choice([1, 10, 100], m).astype("int64")
+                tm = C5_NOW + rng.integers(-2419200, 0, m)
+                t.ingest_columns(
+                    ints={"weight": w, "time": tm},
+                    strs={"userid": [f"person{u}" for u in uid]})
+                uids.append(uid.astype(np.int64))
+                ws.append(w)
+                tms.append(tm)
+            t.load_info()
+            out.append((t, flags, np.concatenate(uids), np.concatenate(ws),
+                        np.concatenate(tms)))
+    finally:
+        digest.CHUNK_SIZE = old
+    return out
+
+
+def numpy_users(uid, w) -> tuple:
+    """{user: rows} and {user: Σweight} of one partition's generated
+    arrays, as int64 [C5_CARD] arrays: config 5's straightforward
+    reference."""
+    import numpy as np
+    cnt = np.bincount(uid, minlength=C5_CARD).astype(np.int64)
+    wsum = np.bincount(uid, weights=w.astype(np.float64),
+                       minlength=C5_CARD)
+    if wsum.max() >= 2**53:
+        fail("numpy_users: a weight sum is not exact in float64")
+    return cnt, wsum.astype(np.int64)
 
 
 def str_buckets(agg, values, outliers) -> dict:
@@ -938,8 +1038,8 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
         fv = torch.zeros(0, dtype=torch.int64, device=dev)
     front = scan.sorted_front(cfg, cols, nrec, fv, bits, tb)
     check_outs("sorted_front", what, front, scan.sorted_front_plain(
-        cfg, cols, nrec, fv, bits, tb), ("key", "keys", "idxm", "spill"),
-        errs)
+        cfg, cols, nrec, fv, bits, tb), ("key", "keys", "idxm", "spill",
+                                         "totals"), errs)
     if front["key"] is not None:
         skey, p = torch.sort(front["key"], stable=True)
         order = {"skey": skey, "p": p, "base": None}
@@ -960,6 +1060,7 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     if not torch.equal(scan.sorted_perm(scan.sort_rows(cfg, front)),
                        scan.sorted_perm(order)):
         fail(f"{what}: sort_rows gives another order")
+    S = cfg.max_groups
     k8 = scan.segment_reduce(cfg, cols, front, order, tb)
     check_outs("segment_reduce", what, k8, scan.segment_reduce_plain(
         cfg, cols, front, order, tb), ("sums", "mins", "maxs", "keys",
@@ -995,11 +1096,22 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
             check_equal(f"K5 {what} agg{ai} rows (kmat keys)",
                         main[off: off + kmax], main_p[off: off + kmax],
                         errs["outlier_compact"])
-    table = scan.sorted_pack(cfg, k8, front["spill"], pairs, nouts, main, R)
-    table_p = scan.sorted_pack_plain(cfg, k8, front["spill"], pairs, nouts,
-                                     main_p, R)
-    check_equal(f"sorted_pack {what} table", table, table_p,
-                errs["sorted_pack"])
+    k10 = scan.sorted_pack(cfg, k8, front["spill"], pairs, nouts, main, R)
+    k10p = scan.sorted_pack_plain(cfg, k8, front["spill"], pairs, nouts,
+                                  main_p, R)
+    check_outs("sorted_pack", what, k10, k10p, ("table", "score"), errs)
+    table = k10["table"]
+    if k10["score"] is not None:
+        # the device prune: K12 over the slots' scores, then the gather
+        P = scan.table_prefix(cfg)
+        pidx = scan.topk_rows(k10["score"], P)
+        check_equal(f"topk_rows {what} (prune, {k10['score'].dtype} [{S}])",
+                    pidx, scan.topk_rows_plain(k10["score"], P),
+                    errs["topk_rows"])
+        table = scan.prune_gather(cfg, table, pidx, main)
+        check_equal(f"prune_gather {what} table", table,
+                    scan.prune_gather_plain(cfg, k10p["table"], pidx, main_p),
+                    errs["prune_gather"])
     check_equal(f"sorted_pack {what} main", main, main_p,
                 errs["sorted_pack"])
     packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
@@ -1155,6 +1267,257 @@ def sorted_edge_expect(name, cfg, main, R):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the enumerated strategy (K7 enum form, K11, K12, K10 enum_pack)
+# ---------------------------------------------------------------------------
+
+def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
+    """K7's enum form, the sort, K11, K12 and K10's enum_pack, each kernel
+    against its plain version on the same inputs, word for word; the
+    kernels' buffers against scan_packed's.  -> (main, table, {"front",
+    "skey", "p", "seg", "widx"})."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    scan.check_supported(cfg)
+    if cfg.strategy != "sorted" or scan.enum_radix(cfg) <= 0:
+        fail(f"{what}: not the enumerated strategy")
+    B, C = next(iter(cols.values()))[0].shape
+    R = B * C
+    dev = nrec.device
+    if fv is None:
+        fv = torch.zeros(0, dtype=torch.int64, device=dev)
+    front = scan.sorted_front(cfg, cols, nrec, fv, bits)
+    check_outs("sorted_front", f"{what} (enum form)", front,
+               scan.sorted_front_plain(cfg, cols, nrec, fv, bits),
+               ("key", "keys", "idxm", "spill", "totals"), errs)
+    skey, p = torch.sort(front["key"], stable=True)
+    seg = scan.enum_segments(cfg, cols, skey, p)
+    check_outs("enum_segments", what, seg,
+               scan.enum_segments_plain(cfg, cols, skey, p),
+               ("gid", "sums", "score", "num_groups"), errs)
+    k = min(scan.table_prefix(cfg), R)
+    widx = scan.topk_rows(seg["score"], k)
+    check_equal(f"topk_rows {what} ({seg['score'].dtype} [{R}], k {k})",
+                widx, scan.topk_rows_plain(seg["score"], k),
+                errs["topk_rows"])
+    layout = scan.packed_layout(cfg, R)
+    shape = (layout["rows"], layout["W"])
+    main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
+    main_p = torch.full(shape, FILL, dtype=torch.int64, device=dev)
+    table = scan.enum_pack(cfg, skey, seg, widx, front["spill"],
+                           front["totals"], main)
+    table_p = scan.enum_pack_plain(cfg, skey, seg, widx, front["spill"],
+                                   front["totals"], main_p)
+    check_equal(f"enum_pack {what} table", table, table_p, errs["enum_pack"])
+    check_equal(f"enum_pack {what} main", main, main_p, errs["enum_pack"])
+    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits)
+    if not (torch.equal(packed["main"], main)
+            and torch.equal(packed["table"], table)):
+        fail(f"{what}: scan_packed's buffers differ from the kernels' own")
+    return main, table, {"front": front, "skey": skey, "p": p, "seg": seg,
+                         "widx": widx}
+
+
+# name -> options.  keys: [(lo, hi) of the values, (min, card) bound];
+# zipf: draw keys from a Zipf law of this exponent; aggs: [(lo, hi) of the
+# values, discard (min, max)]; vbias; weight; prune: (prune_topk,
+# prune_agg); filters (col, op, kind, constant); p_valid: share of rows
+# with the key; nrec; B, C: the batch shape
+ENUM_EDGES = {
+    "ties across the k boundary": dict(
+        keys=[((0, 3000), (0, 3000))], zipf=1.2, prune=(500, -1)),
+    "fewer live groups than k": dict(keys=[((0, 40), (0, 40))],
+                                     prune=(1000, -1)),
+    "R < Pfull": dict(keys=[((0, 300), (0, 300))], prune=(1000, -1), B=1,
+                      C=512),
+    "a packed spill": dict(keys=[((0, 600), (0, 500)), ((0, 4), (0, 4))],
+                           prune=(200, -1)),
+    "filters, MISSING keys": dict(
+        keys=[((3, 3003), (3, 3000))], p_valid=0.7, prune=(300, -1),
+        filters=[("fi", "gt", "int", 10), ("fs", "neq", "str", 4),
+                 ("fs", "re", "str", 0)]),
+    "two keys, a weight column": dict(
+        keys=[((0, 900), (0, 900)), ((2, 11), (2, 9))], weight=True,
+        prune=(500, -1)),
+    "prune_agg: negative means, a value bias": dict(
+        keys=[((0, 5000), (0, 5000))], aggs=[((-900, -10), (-800, -20))],
+        vbias=True, weight=True, prune=(1000, 0)),
+    "prune_agg without a bias": dict(
+        keys=[((0, 5000), (0, 5000))], aggs=[((-300, 300), (-250, 250))],
+        prune=(700, 0)),
+    "all rows unmatched": dict(keys=[((0, 800), (0, 800))], prune=(1000, 0),
+                               nrec=(0, 0, 0)),
+}
+
+
+def enum_edge(name: str, device):
+    """A synthetic enumerated batch -> (ScanConfig, cols, nrec,
+    filter_vals, bitsets)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops.scan import AggSpec, FilterSpec, ScanConfig
+    o = ENUM_EDGES[name]
+    B, C = o.get("B", 3), o.get("C", 65536)
+    R = B * C
+    rng = np.random.default_rng(len(name) + 200)
+    cols = {}
+
+    def put(col, v, p_valid):
+        cols[col] = (torch.from_numpy(np.asarray(v, np.int64).reshape(B, C))
+                     .to(device),
+                     torch.from_numpy((rng.random(R) < p_valid)
+                                      .reshape(B, C)).to(device))
+
+    groups, pack = [], []
+    for i, ((lo, hi), pb) in enumerate(o["keys"]):
+        v = (lo + (rng.zipf(o["zipf"], R) - 1) % (hi - lo) if o.get("zipf")
+             else rng.integers(lo, hi, R))
+        put(f"k{i}", v, o.get("p_valid", 0.95))
+        groups.append(f"k{i}")
+        pack.append(pb)
+    aggs = []
+    for a, ((lo, hi), (dmin, dmax)) in enumerate(
+            o.get("aggs", [((0, 90), (0, 100))])):
+        put(f"v{a}", rng.integers(lo, hi, R), 0.85)
+        aggs.append(AggSpec(f"v{a}", hist_min=dmin, bucket_size=0,
+                            num_values=0, discard_min=dmin,
+                            discard_max=dmax))
+    filters, fvals = [], []
+    for col, op, kind, val in o.get("filters", ()):
+        if col not in cols:
+            put(col, rng.integers(0, 80 if col == "fi" else 10, R), 0.9)
+        filters.append(FilterSpec(col, op, kind,
+                                  0 if op in ("re", "nre") else -1))
+        fvals.append(val)
+    bits = (torch.from_numpy(np.array([i % 3 != 0 for i in range(10)]))
+            .to(device),)
+    if o.get("weight"):
+        put("w", rng.integers(0, 101, R), 0.8)
+    prune_topk, prune_agg = o["prune"]
+    cfg = ScanConfig(
+        group_cols=tuple(groups), aggs=tuple(aggs), filters=tuple(filters),
+        weight_col="w" if o.get("weight") else "", sort_pack=tuple(pack),
+        key_bounds=tuple(pack), force_sorted=True,
+        agg_vbias=(tuple(a.discard_min for a in aggs) if o.get("vbias")
+                   else ()), prune_topk=prune_topk, prune_agg=prune_agg)
+    nrec = torch.tensor(o.get("nrec", [C, C - 300, C - 3][:B]),
+                        dtype=torch.int32, device=device)
+    return (cfg, cols, nrec, torch.tensor(fvals, dtype=torch.int64,
+                                          device=device), bits)
+
+
+def enum_edge_expect(name, cfg, main):
+    """Each enumerated edge batch reaches the edge it is named for."""
+    from sybil_tpu_torch.ops import scan
+    meta = main[0].tolist()
+    P = scan.table_prefix(cfg)
+    live = int((main[1:, 0] != scan.SENTINEL).sum().item())
+    ok = meta[4] == P and (meta[1] > 0) == (name == "a packed spill")
+    if name == "all rows unmatched":
+        ok = ok and meta[0] == 0 and live == 0 and meta[5] == meta[6] == 0
+    elif name in ("fewer live groups than k", "R < Pfull"):
+        ok = ok and 0 < meta[0] < P and live == meta[0]
+    else:
+        ok = ok and meta[0] > P
+    if name == "ties across the k boundary":
+        counts = main[1:, 1]
+        ok = ok and int((counts == counts[-1]).sum().item()) > 1
+    if name == "filters, MISSING keys":
+        ok = ok and bool((main[1:, 0] == scan.MISSING).any().item())
+    if not ok:
+        fail(f"enum edge batch {name}: meta {meta[:7]}, {live} live rows, "
+             f"misses its edge")
+
+
+def enum_winners_expect(what, cfg, cols, nrec, table):
+    """The mean-scored enumerated winners by numpy over a decoded batch of
+    config 5's shape (one key, one aggregation, no filter or weight
+    column): per packed key its rows, kept rows and biased sum wv =
+    Σ(value - bias); the score f32(wv) / f32(kept rows); the first Pk
+    groups by score descending, ties to the lower packed key; against
+    the table's keys, counts, kept rows and wv."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import scan
+    if (len(cfg.group_cols) != 1 or len(cfg.aggs) != 1 or cfg.filters
+            or cfg.weight_col or cfg.prune_agg != 0):
+        fail(f"{what}: enum_winners_expect takes config 5's shape")
+    (mn, card), = cfg.sort_pack
+    kv, km = (x.cpu().numpy().reshape(-1) for x in cols[cfg.group_cols[0]])
+    B, C = cols[cfg.group_cols[0]][0].shape
+    inr = (np.arange(C)[None, :] < nrec.cpu().numpy()[:, None]).reshape(-1)
+    digit = np.where(km, kv - mn + 1, 0)
+    ok = inr & (digit >= 0) & (digit <= card)
+    digit = digit[ok]
+    agg = cfg.aggs[0]
+    av, am = (x.cpu().numpy().reshape(-1)[ok] for x in cols[agg.col])
+    keep = am & (av >= agg.discard_min) & (av <= agg.discard_max)
+    bias = cfg.agg_vbias[0] if cfg.agg_vbias else 0
+    cnt = np.bincount(digit, minlength=card + 1)
+    kept = np.bincount(digit, weights=keep.astype(np.float64),
+                       minlength=card + 1)
+    wv = np.bincount(digit, weights=np.where(keep, av - bias, 0).astype(
+        np.float64), minlength=card + 1)
+    if np.abs(wv).max() >= 2 ** 53:
+        fail(f"{what}: a wv sum is not exact in float64")
+    kept, wv = kept.astype(np.int64), wv.astype(np.int64)
+    groups = np.nonzero(cnt)[0]
+    if (kept[groups] == 0).any():
+        fail(f"{what}: a group without kept rows (-inf score)")
+    score = (wv[groups].astype(np.float32)
+             / kept[groups].astype(np.float32))
+    n = min(scan.table_prefix(cfg), B * C, len(groups))
+    win = groups[np.lexsort((groups, -score))[:n]]
+    t = table[:n].cpu().numpy()
+    want = np.stack([np.where(win == 0, scan.MISSING, win - 1 + mn),
+                     cnt[win], cnt[win], kept[win], wv[win]], 1)
+    if not np.array_equal(t[:, [0, 1, 2, 4, 5]], want):
+        fail(f"{what}: the f32-scored winners differ from numpy's")
+
+
+def numpy_mean_top(table, cfg, cnt, ws, limit=100) -> list:
+    """-prune-sort weight's printed users by numpy, on one batch: the
+    device's winners by f32(Σ(weight - bias)) / f32(rows), ties to the
+    lower packed key (the lower dictionary id), then the printer's stable
+    sort by count (-sort's default), the first `limit`."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import scan
+    sid = np.full(C5_CARD, -1, np.int64)
+    for i, s in enumerate(table.dicts.get("userid").strings):
+        sid[int(s[len("person"):])] = i
+    users = np.nonzero(cnt)[0]
+    bias = cfg.agg_vbias[0] if cfg.agg_vbias else 0
+    score = ((ws[users] - cnt[users] * bias).astype(np.float32)
+             / cnt[users].astype(np.float32))
+    win = users[np.lexsort((sid[users], -score))[:scan.table_prefix(cfg)]]
+    return win[np.argsort(-cnt[win], kind="stable")][:limit].tolist()
+
+
+def topk_edges(device):
+    """K12 alone -> [(label, score, k)]: more than 64 equal maxima inside
+    one 1,024-row tile, -inf ties (f32), int64 scores, int32 ties over a
+    tiny range, k = R."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(17)
+    s = np.zeros(16 * 1024, np.int32)
+    s[:200] = 7
+    f = np.where(rng.random(1 << 20) < 0.3,
+                 rng.integers(-5, 5, 1 << 20) / 4.0, -np.inf)
+    out = [("200 equal maxima in one 1,024-row tile, k 150", s, 150),
+           ("f32 with -inf ties, k 1000", f.astype(np.float32), 1000),
+           ("int64 scores past 2^40, k 300",
+            (rng.integers(-3, 3, 1 << 20) * (1 << 40)).astype(np.int64), 300),
+           ("int32 ties over 50 values, k 1000",
+            rng.integers(-1, 50, 1 << 20).astype(np.int32), 1000),
+           ("k = R = 777", rng.integers(0, 4, 777).astype(np.int64), 777)]
+    return [(label, torch.from_numpy(x).to(device), k)
+            for label, x, k in out]
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -1171,6 +1534,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sort_bound_ms(R: int, key_bytes: int) -> float:
+    """The least time of a stable torch.sort of R keys of key_bytes with
+    its int64 indices (CUB's LSD radix sort): the index array written
+    once, then one pass per 8 bits of key (4 for int32, 8 for int64), each
+    reading and writing the key and the index; bytes / 3.35 TB/s."""
+    passes = key_bytes
+    return R * (8 + passes * 2 * (key_bytes + 8)) / HBM_BYTES_PER_S * 1e3
 
 
 def median(xs):
@@ -1344,6 +1716,9 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.3f}s")
     if tuple(sorted(kernels.SOURCES)) != tuple(sorted(KERNELS)):
         fail(f"kernel sources {kernels.SOURCES} are not {KERNELS}")
+    if kernels.ENTRY_SOURCES != ENTRY_SOURCES:
+        fail(f"counted entries {kernels.ENTRY_SOURCES} are not "
+             f"{ENTRY_SOURCES}")
     for name in kernels.SOURCES:
         with open(os.path.join(kernels.BUILD_DIR, name + ".log")) as f:
             for line in f:
@@ -1367,6 +1742,32 @@ def main(argv=None) -> int:
             f"{len(ttable.block_infos())} blocks in "
             f"{time.perf_counter() - t0:.1f}s (host CPU)")
         tables4 = {"bulk": (stable, sflags), "time-sorted": (ttable, tflags)}
+        t0 = time.perf_counter()
+        parts = build_zipf_partitions(os.path.join(root, "c5"), args.rows)
+        from sybil_tpu_torch.query import engine as port_engine
+        params5 = query_params(["userid"], ["weight"])   # -limit 100, $COUNT
+        c5, c5_time = [], []
+        for pi_, (t5, f5, uid5, w5, tm5) in enumerate(parts):
+            c5_time.append(tm5)
+            dirs5 = [d for d in t5.block_infos()]
+            b5q = bound_query(t5, f5, params5)
+            port_engine._maybe_device_prune(b5q, params5, dirs5, C5_BATCH)
+            cfg5 = b5q.config
+            nb5 = -(-len(dirs5) // C5_BATCH)
+            c5.append((t5, f5, uid5, w5, dirs5, cfg5, nb5))
+            say(f"built config 5 partition {pi_ + 1}: {len(uid5)} rows, "
+                f"{len(dirs5)} blocks of up to "
+                f"{max(b.num_records for b in t5.block_infos().values())} "
+                f"rows, {nb5} batch(es) at device_batch {C5_BATCH}; userid "
+                f"cardinality {len(t5.dicts.get('userid').strings)} "
+                f"({len(np.unique(uid5))} users drawn); prune_topk "
+                f"{cfg5.prune_topk}, enum_radix {scan.enum_radix(cfg5)}, "
+                f"strategy {cfg5.strategy}, lane_row_bounds "
+                f"{cfg5.lane_row_bounds}")
+            if scan.enum_radix(cfg5) <= 0:
+                fail(f"config 5 partition {pi_ + 1} is not enumerable")
+        say(f"built config 5's two partitions in "
+            f"{time.perf_counter() - t0:.1f}s (host CPU)")
         C = 65536 if args.rows > 8192 else 128
         while C < min(args.rows, 65536):
             C *= 2
@@ -1676,6 +2077,88 @@ def main(argv=None) -> int:
             f"{len(SORTED_EDGES)} synthetic sorted batches (3 x 65536 "
             f"rows): " + ", ".join(SORTED_EDGES))
 
+        # ---- phase 4: the enumerated strategy and the device prune -----
+        from sybil_tpu_torch import blocks as blocks5
+        from sybil_tpu_torch.ops.decode import decode_column_batch
+
+        def c5_batches(entry):
+            """Config 5's real batches of one partition, as _scan_dirs
+            builds them: device_batch blocks each, the last padded with
+            repeats of its last block (records 0)."""
+            t5, _, _, _, dirs5, _, _ = entry
+            infos5 = t5.block_infos()
+            maxrec = max(i.num_records for i in infos5.values())
+            C5 = 65536 if maxrec > 8192 else 1 << (maxrec - 1).bit_length()
+            out = []
+            for s0 in range(0, len(dirs5), C5_BATCH):
+                bd = dirs5[s0: s0 + C5_BATCH]
+                pad = bd + [bd[-1]] * (C5_BATCH - len(bd))
+                cols5 = {}
+                for name in ("userid", "weight"):
+                    typ = t5.schema.col_type(name)
+                    v, m, _ = decode_column_batch(
+                        [blocks5.open_column(d, typ, name) for d in pad], C5,
+                        dev)
+                    cols5[name] = (v, m)
+                nr = np.zeros(C5_BATCH, np.int32)
+                nr[:len(bd)] = [min(infos5[d].num_records, C5) for d in bd]
+                out.append((cols5, torch.from_numpy(nr).to(dev)))
+            return out
+
+        c5_main = []
+        for pi_, entry in enumerate(c5):
+            cfg5 = entry[5]
+            for bi, (cols5, nr5) in enumerate(c5_batches(entry)):
+                main5, table5, parts5 = enum_check(
+                    f"config 5 partition {pi_ + 1} batch {bi + 1}", cfg5,
+                    cols5, nr5, errs)
+                # -prune-sort weight: the f32 mean score on the same batch
+                cfg5w = dataclasses.replace(cfg5, prune_agg=0)
+                _, table5w, _ = enum_check(
+                    f"config 5 partition {pi_ + 1} batch {bi + 1}, f32 "
+                    f"score", cfg5w, cols5, nr5, errs)
+                enum_winners_expect(f"config 5 partition {pi_ + 1} batch "
+                                    f"{bi + 1}", cfg5w, cols5, nr5, table5w)
+                if pi_ == 0 and bi == 0:
+                    c5_main = (cfg5, cols5, nr5, parts5)
+                say(f"K7 (enum form)/K11/K12/K10 enum_pack == plain: config "
+                    f"5 partition {pi_ + 1} batch {bi + 1}, $COUNT and f32 "
+                    f"mean scores (the mean's winners == numpy's): radix "
+                    f"{scan.enum_radix(cfg5)}, live groups "
+                    f"{int(main5[0, 0])}, pruned {int(main5[0, 4])}, totals "
+                    f"({int(main5[0, 5])}, {int(main5[0, 6])}), spill "
+                    f"{int(main5[0, 1])}, top count {int(main5[1, 1])}")
+        # the sorted strategy's device prune on config 5's batch: the same
+        # bind without the packed key
+        cfg5, cols5, nr5, _ = c5_main
+        cfg_sp = dataclasses.replace(cfg5, sort_pack=())
+        if scan.enum_radix(cfg_sp) or cfg_sp.strategy != "sorted":
+            fail("config 5 without sort_pack is not the sorted strategy")
+        main_sp, table_sp, _ = sorted_check(
+            "config 5, sorted device prune (unpacked key)", cfg_sp, cols5,
+            nr5, errs)
+        if int(main_sp[0, 4]) != scan.table_prefix(cfg_sp):
+            fail("the sorted device prune set no pruned marker")
+        for wk in (-1, 0):
+            cfg_m = dataclasses.replace(cfg_sp, prune_agg=wk)
+            sorted_check(f"config 5, sorted device prune, prune_agg {wk}",
+                         cfg_m, cols5, nr5, errs)
+        say(f"K7/sort/K8/K10 (prune form)/K12/prune_gather == plain: config "
+            f"5's batch on the sorted strategy, $COUNT and mean scores over "
+            f"{cfg_sp.max_groups} slots, pruned {int(main_sp[0, 4])}")
+        for label in ENUM_EDGES:
+            cfg, ecols, enrec, efv, ebits = enum_edge(label, dev)
+            emain, _, _ = enum_check(label, cfg, ecols, enrec, errs, efv,
+                                     ebits)
+            enum_edge_expect(label, cfg, emain)
+        for label, sc, kk in topk_edges(dev):
+            check_equal(f"topk_rows {label}", scan.topk_rows(sc, kk),
+                        scan.topk_rows_plain(sc, kk), errs["topk_rows"])
+        say(f"K7 (enum form), K11, K12 and K10 enum_pack == plain on "
+            f"{len(ENUM_EDGES)} synthetic enumerated batches: "
+            + ", ".join(ENUM_EDGES) + "; K12 alone on "
+            + ", ".join(label for label, _, _ in topk_edges(dev)))
+
         # ---- phase 5: the main path ------------------------------------
         launches = {k: 0 for k in COUNTED}
         want = numpy_groupby(up["host"], up["ping"])
@@ -1934,10 +2417,180 @@ def main(argv=None) -> int:
             f"group-by ({len(want_s)} groups, the 1,000,000 key past its "
             f"IntInfo bound included); launches {ll}")
 
+        # config 5 through the CLI, cold: each partition answers `query
+        # -encode-results` (a node of the reference's protocol), then
+        # `aggregate` merges the two result directories on the host
+        resdir = os.path.join(root, "c5_results")
+        os.makedirs(resdir)
+        want5 = [numpy_users(e[2], e[3]) for e in c5]
+
+        def enum_launches(nb):
+            return {"sorted_front": nb, "enum_segments": nb, "topk_rows": nb,
+                    "enum_pack": nb, "sorted_pack": 0, "prune_gather": 0,
+                    "segment_reduce": 0, "dense_scan": 0}
+
+        def check_users(label, rows, cnt, ws, exact=True):
+            """Every printed group's count and mean weight against numpy;
+            -> the printed counts."""
+            for r in rows:
+                u = int(r["userid"][len("person"):])
+                mean = ws[u] / cnt[u] if cnt[u] else None
+                ok = r["Count"] == cnt[u] and r["Samples"] == cnt[u] and (
+                    r["weight"] == mean if exact else
+                    abs(r["weight"] - mean) <= 1e-12 * mean)
+                if not ok:
+                    fail(f"{label} user {u}: port {r} vs numpy count "
+                         f"{cnt[u]} weight sum {ws[u]}")
+            return sorted(r["Count"] for r in rows)
+
+        def top_counts(cnt, n=100):
+            return sorted(np.sort(cnt)[-n:].tolist())
+
+        shipped = 0       # numpy's rows of the groups the nodes ship
+        for pi_, (t5, f5, uid5, w5, dirs5, cfg5, nb5) in enumerate(c5):
+            residency.CACHE.clear()
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", t5.flags.dir, *C5_ARGV, "-encode-results",
+                 "-device-batch", str(C5_BATCH), "-device", "cuda"])
+            if rc != 0:
+                fail(f"config 5 partition {pi_ + 1}: port CLI exited {rc}")
+            for k, n in enum_launches(nb5).items():
+                if ll[k] != n:
+                    fail(f"config 5 partition {pi_ + 1}: {k} launched "
+                         f"{ll[k]}x, expected {n}: {ll}")
+            with open(os.path.join(resdir, f"node{pi_ + 1}.json"), "w") as f:
+                f.write(out)
+            spec = json.loads(out)["QuerySpec"]
+            cnt, ws = want5[pi_]
+            for r in spec["results"]:
+                u = int(r["group_key"].split("\t")[0][len("person"):])
+                h = r["hists"]["weight"]
+                if r["count"] != cnt[u] or h["avg"] != ws[u] / cnt[u]:
+                    fail(f"config 5 node {pi_ + 1} user {u}: shipped count "
+                         f"{r['count']} avg {h['avg']} vs numpy {cnt[u]}, "
+                         f"{ws[u]}")
+                shipped += int(cnt[u])
+            if (spec["cumulative"]["count"] != len(uid5)
+                    or spec["matched_count"] != len(uid5)):
+                fail(f"config 5 node {pi_ + 1}: Cumulative "
+                     f"{spec['cumulative']['count']}, matched "
+                     f"{spec['matched_count']}, rows {len(uid5)}")
+            say(f"main path: CLI config 5 partition {pi_ + 1} -encode-results "
+                f"on cuda: {len(spec['results'])} groups shipped, each "
+                f"group's count and mean weight == numpy; Cumulative and "
+                f"matched == {len(uid5)} rows; cold launches {ll}; wall "
+                f"{wall:.3f}s")
+            for k in COUNTED:
+                launches[k] += ll[k]
+
+        def run_aggregate(extra):
+            """`aggregate` in-process over the results directory, with an
+            empty stdin (no encoded flags)."""
+            old_stdin = sys.stdin
+            sys.stdin = io.StringIO("")
+            try:
+                return run_cli(["aggregate", *C5_ARGV[2:], *extra, resdir])
+            finally:
+                sys.stdin = old_stdin
+
+        rc, out, agg_wall, la = run_aggregate(["-json"])
+        if rc != 0 or any(la.values()):
+            fail(f"aggregate exited {rc}, launches {la}")
+        cnt_all = want5[0][0] + want5[1][0]
+        ws_all = want5[0][1] + want5[1][1]
+        # the reference's merge averages the nodes' float means
+        # (aggregator.py merge_results -> BasicHist.combine): the mean
+        # weight is held to 1e-12 relative, counts exactly
+        got_counts = check_users("aggregate", json.loads(out), cnt_all,
+                                 ws_all, exact=False)
+        if got_counts != top_counts(cnt_all):
+            fail("aggregate: the printed counts are not numpy's top-100")
+        # TOTAL merges the groups the nodes shipped (aggregator.py
+        # aggregate_specs), not the nodes' Cumulative rows
+        rc, text, _, _ = run_aggregate([])
+        total_line = text.splitlines()[0]
+        if (rc != 0 or total_line.split()[:2] != ["TOTAL", str(shipped)]):
+            fail(f"aggregate text output starts with {total_line!r}, not "
+                 f"TOTAL {shipped} (numpy's rows of the shipped groups)")
+        say(f"main path: aggregate over both nodes == numpy over "
+            f"{args.rows} rows: 100 groups, counts == numpy's top-100 "
+            f"counts, mean weights within 1e-12; the nodes' Cumulative "
+            f"counts sum to {sum(len(e[2]) for e in c5)}; text begins "
+            f"{total_line!r} (== numpy's rows of the shipped groups); wall "
+            f"{agg_wall:.3f}s, no kernel launched")
+        # the f32 score: prune by the weight's mean; and a multi-batch
+        # scan (device_batch 16), where the host prune runs too
+        t5, f5, uid5, w5, dirs5, cfg5, nb5 = c5[0]
+        cnt1, ws1 = want5[0]
+        for label, extra, nb in (
+                ("-prune-sort weight", ["-prune-sort", "weight"], nb5),
+                ("device_batch 16", ["-device-batch", "16"],
+                 -(-len(dirs5) // 16))):
+            residency.CACHE.clear()
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", t5.flags.dir, *C5_ARGV, "-json",
+                 "-device-batch", str(C5_BATCH), *extra, "-device", "cuda"])
+            if rc != 0:
+                fail(f"config 5 {label}: port CLI exited {rc}")
+            for k, n in enum_launches(nb).items():
+                if ll[k] != n:
+                    fail(f"config 5 {label}: {k} launched {ll[k]}x, "
+                         f"expected {n}: {ll}")
+            rows5 = json.loads(out)
+            counts = check_users(f"config 5 {label}", rows5, cnt1, ws1)
+            if label == "-prune-sort weight":
+                users = [int(r["userid"][len("person"):]) for r in rows5]
+                if users != numpy_mean_top(t5, cfg5, cnt1, ws1):
+                    fail(f"config 5 {label}: the printed users are not "
+                         f"numpy's top 100 by the f32 mean score")
+            elif counts != top_counts(cnt1):
+                fail(f"config 5 {label}: the counts are not numpy's top-100")
+            say(f"main path: CLI config 5 {label} on cuda (partition 1): "
+                f"{len(counts)} printed groups == numpy; launches {ll}; "
+                f"wall {wall:.3f}s")
+            for k in COUNTED:
+                launches[k] += ll[k]
+
+        # the sorted strategy's device prune: one user's rows of
+        # partition 1 grouped by the second (past ENUM_RADIX_CAP)
+        residency.CACHE.clear()
+        rc, out, wall, ll = run_cli(
+            ["query", "-dir", t5.flags.dir, *C5_USER_ARGV, "-json",
+             "-device-batch", str(C5_BATCH), "-device", "cuda"])
+        if rc != 0:
+            fail(f"config 5 by the second: port CLI exited {rc}")
+        for k, n in {"sorted_front": nb5, "segment_reduce": nb5,
+                     "sorted_pack": nb5, "topk_rows": nb5,
+                     "prune_gather": nb5, "enum_segments": 0,
+                     "enum_pack": 0, "dense_scan": 0}.items():
+            if ll[k] != n:
+                fail(f"config 5 by the second: {k} launched {ll[k]}x, "
+                     f"expected {n}: {ll}")
+        sel = uid5 == C5_USER
+        secs, inv = np.unique(c5_time[0][sel], return_inverse=True)
+        hc = np.bincount(inv)
+        hw = np.bincount(inv, weights=w5[sel].astype(np.float64)).astype(
+            np.int64)
+        rows_h = json.loads(out)
+        # the device's winners by count, ties to the lower packed key (the
+        # earlier second), in the printer's stable order by count
+        top = np.lexsort((secs, -hc))[:100]
+        got_h = [(int(r["time"]), r["Count"], r["weight"]) for r in rows_h]
+        if got_h != [(int(secs[i]), int(hc[i]), hw[i] / hc[i]) for i in top]:
+            fail(f"config 5 by the second: the printed seconds differ from "
+                 f"numpy's 100 busiest (ties to the earlier second)")
+        say(f"main path: CLI config 5, person{C5_USER}'s 100 busiest "
+            f"seconds (partition 1, the sorted device prune) on cuda == "
+            f"numpy, in order ({len(secs)} seconds, counts "
+            f"{hc[top[0]]}..{hc[top[-1]]}); launches {ll}; wall "
+            f"{wall:.3f}s")
+        for k in COUNTED:
+            launches[k] += ll[k]
+
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the nine CLI queries: {launches}")
+        say(f"main path launches over the fifteen CLI queries: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -2004,6 +2657,17 @@ def main(argv=None) -> int:
                     for r in rs.values()}
             if got2 != {k: (c, w / c) for k, (c, w) in want_p2.items()}:
                 fail(f"path 2 {tlabel}: warm query differs from numpy")
+
+        # config 5 per node through run_query, and `aggregate`
+        for pi_, (t5, f5, uid5, w5, dirs5, cfg5, nb5) in enumerate(c5):
+            timed_queries(card, f"config 5 node {pi_ + 1}", t5, params5,
+                          dataclasses.replace(f5, device="cuda",
+                                              device_batch=C5_BATCH),
+                          len(uid5), 1, enum_launches(nb5))
+        agg_walls = [run_aggregate(["-json"])[2] for _ in range(5)]
+        say(f"[{card}] config 5 aggregate (two nodes' results, host only) "
+            f"wall median of 5: {median(agg_walls) * 1e3:.3f} ms; walls "
+            f"{[round(x * 1e3, 3) for x in agg_walls]}")
 
         # ---- phase 6: kernel times --------------------------------------
         ins, cs = k1_main["ping"]
@@ -2425,7 +3089,8 @@ def main(argv=None) -> int:
                                     "sybil_tpu/ops/scan.py:1256", kq_ms,
                                     kq_plain, kq_bytes, kq_ops, kq_lib))
                 say(f"[{card}] sorts, {plabel}: pair-key sort (int64 [R], "
-                    f"stable torch.sort) {pair_sort_ms:.4f} ms")
+                    f"stable torch.sort) {pair_sort_ms:.4f} ms (bound "
+                    f"{sort_bound_ms(Rn, 8):.4f} ms)")
                 pairs.append(hpx)
                 nouts.append(prep["nout"])
                 if track:
@@ -2464,9 +3129,146 @@ def main(argv=None) -> int:
                                 kpk_plain, kpk_bytes, S * Wt, None))
             say(f"[{card}] sorts, {plabel}: {nsorts} x stable torch.sort of "
                 f"{skey.dtype} [{Rn}] {sort_ms:.4f} ms each "
-                f"({nsorts * sort_ms:.4f} ms); K7 {k7_ms:.4f}, K8 "
-                f"{k8_ms:.4f}, pack {kpk_ms:.4f} ms")
+                f"({nsorts * sort_ms:.4f} ms; bound "
+                f"{sort_bound_ms(Rn, skey.element_size()):.4f} ms each); K7 "
+                f"{k7_ms:.4f}, K8 {k8_ms:.4f}, pack {kpk_ms:.4f} ms")
             del front, order, k8, pairs, nouts, mainx
+
+        # config 5's kernels at its first batch (partition 1), the sort
+        # between them, and the sorted device prune at its [S] table
+        cfg5, cols5, nr5, parts5 = c5_main
+        R5 = nr5.numel() * cols5["userid"][0].shape[1]
+        L5 = 2 + 3 * len(cfg5.aggs)
+        P5 = scan.table_prefix(cfg5)
+        Pk5 = min(P5, R5)
+        skey5, p5, seg5 = parts5["skey"], parts5["p"], parts5["seg"]
+        Smax5 = scan.enum_slots(cfg5, R5)
+        ng5 = int(seg5["num_groups"].item())
+        c5_rows = []
+        k7e_ms = cuda_ms(lambda: scan.sorted_front(cfg5, cols5, nr5))
+        k7e_plain = cuda_ms(lambda: scan.sorted_front_plain(cfg5, cols5, nr5),
+                            iters=5)
+        # the columns it reads (9 B a row each: the keys, the filters'
+        # columns and the weight column where bound; config 5: userid
+        # alone) and nrec; the 4 B key written, the spill and the totals.
+        # Per row: the range test, the key's digit, the weight
+        k7_cols = (len(cfg5.group_cols) + len({f.col for f in cfg5.filters})
+                   + (1 if cfg5.weight_col else 0))
+        c5_rows.append(("sorted_front", "config 5, enum form",
+                        "sybil_tpu/ops/scan.py:1420", k7e_ms, k7e_plain,
+                        R5 * (9 * k7_cols + 4) + nr5.numel() * 4 + 24,
+                        R5 * 16, None))
+        key5 = parts5["front"]["key"]
+        sort5_ms = cuda_ms(lambda: torch.sort(key5, stable=True))
+        say(f"[{card}] sorts, config 5: 1 x stable torch.sort of int32 "
+            f"[{R5}] {sort5_ms:.4f} ms (bound {sort_bound_ms(R5, 4):.4f} "
+            f"ms)")
+        k11_ms = cuda_ms(lambda: scan.enum_segments(cfg5, cols5, skey5, p5))
+        k11_plain = cuda_ms(lambda: scan.enum_segments_plain(
+            cfg5, cols5, skey5, p5), iters=5)
+        g11 = seg5["gid"].to(torch.int64)
+        lanes = torch.ones((R5, L5), dtype=torch.int64, device=dev)
+        k11_lib = cuda_ms(lambda: torch.zeros(
+            (Smax5, L5), dtype=torch.int64, device=dev).index_add_(
+                0, g11, lanes), iters=5)
+        del lanes, g11
+        # the sorted key (each row and its neighbour, counted once) and p
+        # read; each aggregation's column and the weight column where
+        # bound gathered at the sorted rows (9 B a row each; config 5:
+        # weight alone); gid and the score written; the segment sums and
+        # ends written.  Per row: the boundary, a block scan, a 5-step
+        # warp-run sum a lane
+        k11_cols = len(cfg5.aggs) + (1 if cfg5.weight_col else 0)
+        c5_rows.append(("enum_segments", "config 5",
+                        "sybil_tpu/ops/scan.py:1484", k11_ms, k11_plain,
+                        R5 * (4 + 8 + 9 * k11_cols + 4
+                              + seg5["score"].element_size())
+                        + Smax5 * (L5 * 8 + 4),
+                        R5 * (12 + 12 * L5), k11_lib))
+        sc5 = seg5["score"]
+        k12_ms = cuda_ms(lambda: scan.topk_rows(sc5, Pk5))
+        k12_plain = cuda_ms(lambda: scan.topk_rows_plain(sc5, Pk5), iters=5)
+        k12_lib = cuda_ms(lambda: torch.topk(sc5, Pk5), iters=5)
+        # the scores read once, k indices written; per row and pass a
+        # key transform and a compare
+        c5_rows.append(("topk_rows", f"config 5, int64 [{R5}], k {Pk5}",
+                        "sybil_tpu/ops/scan.py:1369", k12_ms, k12_plain,
+                        R5 * 8 + Pk5 * 4, R5 * 4 * 9, k12_lib))
+        cfg5w = dataclasses.replace(cfg5, prune_agg=0)
+        sc5w = scan.enum_segments(cfg5w, cols5, skey5, p5)["score"]
+        k12w_ms = cuda_ms(lambda: scan.topk_rows(sc5w, Pk5))
+        k12w_plain = cuda_ms(lambda: scan.topk_rows_plain(sc5w, Pk5),
+                             iters=5)
+        k12w_lib = cuda_ms(lambda: torch.topk(sc5w, Pk5), iters=5)
+        c5_rows.append(("topk_rows", f"config 5 -prune-sort weight, f32 "
+                        f"[{R5}], k {Pk5}", "sybil_tpu/ops/scan.py:1369",
+                        k12w_ms, k12w_plain, R5 * 4 + Pk5 * 4, R5 * 4 * 5,
+                        k12w_lib))
+        widx5 = parts5["widx"]
+        lay5 = scan.packed_layout(cfg5, R5)
+        mainx = torch.empty((lay5["rows"], lay5["W"]), dtype=torch.int64,
+                            device=dev)
+        spill5, tot5 = parts5["front"]["spill"], parts5["front"]["totals"]
+        kep_ms = cuda_ms(lambda: scan.enum_pack(cfg5, skey5, seg5, widx5,
+                                                spill5, tot5, mainx),
+                         iters=50)
+        kep_plain = cuda_ms(lambda: scan.enum_pack_plain(
+            cfg5, skey5, seg5, widx5, spill5, tot5, mainx), iters=5)
+        Wt5 = scan.table_width(cfg5)
+        # per winner: its index, key, the next key, gid and L sums read;
+        # the table row and the main row written
+        c5_rows.append(("enum_pack", f"config 5 ({Pk5} winners)",
+                        "sybil_tpu/ops/scan.py:1548", kep_ms,
+                        kep_plain, Pk5 * (4 + 8 + 4 + L5 * 8)
+                        + P5 * (Wt5 + lay5["W"]) * 8 + 40, P5 * Wt5, None))
+        # the sorted device prune at config 5's batch (unpacked key)
+        cfg_sp = dataclasses.replace(cfg5, sort_pack=())
+        front_sp = scan.sorted_front(cfg_sp, cols5, nr5)
+        order_sp = scan.sort_rows(cfg_sp, front_sp)
+        k8_sp = scan.segment_reduce(cfg_sp, cols5, front_sp, order_sp)
+        lay_sp = scan.packed_layout(cfg_sp, R5)
+        main_sp = torch.empty((lay_sp["rows"], lay_sp["W"]),
+                              dtype=torch.int64, device=dev)
+        S_sp = cfg_sp.max_groups
+        kpp_ms = cuda_ms(lambda: scan.sorted_pack(
+            cfg_sp, k8_sp, front_sp["spill"], [], [], main_sp, R5), iters=50)
+        kpp_plain = cuda_ms(lambda: scan.sorted_pack_plain(
+            cfg_sp, k8_sp, front_sp["spill"], [], [], main_sp, R5), iters=5)
+        k10_sp = scan.sorted_pack(cfg_sp, k8_sp, front_sp["spill"], [], [],
+                                  main_sp, R5)
+        Wt_sp = scan.table_width(cfg_sp)
+        c5_rows.append(("sorted_pack", f"config 5 sorted device prune, "
+                        f"table and score over {S_sp} slots",
+                        "sybil_tpu/ops/scan.py:1886", kpp_ms, kpp_plain,
+                        (S_sp + 1) * L5 * 8 + S_sp * 8 + 16 + S_sp * Wt_sp * 8
+                        + S_sp * 8, S_sp * (Wt_sp + 8), None))
+        sc_sp = k10_sp["score"]
+        k12s_ms = cuda_ms(lambda: scan.topk_rows(sc_sp, P5))
+        k12s_plain = cuda_ms(lambda: scan.topk_rows_plain(sc_sp, P5),
+                             iters=5)
+        k12s_lib = cuda_ms(lambda: torch.topk(sc_sp, P5), iters=5)
+        c5_rows.append(("topk_rows", f"config 5 sorted device prune, int64 "
+                        f"[{S_sp}], k {P5}", "sybil_tpu/ops/scan.py:1896",
+                        k12s_ms, k12s_plain, S_sp * 8 + P5 * 4,
+                        S_sp * 4 * 9, k12s_lib))
+        pidx_sp = scan.topk_rows(sc_sp, P5)
+        tbl_sp = k10_sp["table"]
+        kpg_ms = cuda_ms(lambda: scan.prune_gather(cfg_sp, tbl_sp, pidx_sp,
+                                                   main_sp), iters=50)
+        kpg_plain = cuda_ms(lambda: scan.prune_gather_plain(
+            cfg_sp, tbl_sp, pidx_sp, main_sp), iters=5)
+        kpg_lib = cuda_ms(lambda: tbl_sp[pidx_sp.to(torch.int64)], iters=20)
+        c5_rows.append(("prune_gather", f"config 5 sorted device prune "
+                        f"({P5} rows)",
+                        "sybil_tpu/ops/scan.py:1900", kpg_ms, kpg_plain,
+                        P5 * (4 + Wt_sp * 8 * 2 + lay_sp["W"] * 8),
+                        P5 * lay_sp["W"], kpg_lib))
+        say(f"[{card}] config 5 device work per batch: K7 {k7e_ms:.4f} + "
+            f"sort {sort5_ms:.4f} + K11 {k11_ms:.4f} + K12 {k12_ms:.4f} + "
+            f"K10 {kep_ms:.4f} = "
+            f"{k7e_ms + sort5_ms + k11_ms + k12_ms + kep_ms:.4f} ms "
+            f"({ng5} live groups of {R5} rows)")
+        del front_sp, order_sp, k8_sp, k10_sp, main_sp, mainx
 
         k2c3 = k2_times["config 3"]
         k4c3 = k4_times["config 3"]
@@ -2501,14 +3303,14 @@ def main(argv=None) -> int:
                  k5_ops, k5_lib_ms),
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
-                *sorted_rows):
+                *sorted_rows, *c5_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             rows_out.append({
                 "name": name, "shape": what, "route": "cuda",
-                "source": "sybil_tpu_torch/csrc/" + (
-                    "sorted_front" if name == "sort_permute" else name) + ".cu",
+                "source": "sybil_tpu_torch/csrc/"
+                + ENTRY_SOURCES.get(name, name) + ".cu",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": max(errs[name]) if errs[name] else 0.0,
                 "ms": ms, "plain_ms": pms,

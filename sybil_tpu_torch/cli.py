@@ -1,9 +1,10 @@
 """CLI of the port (reference: sybil_tpu/cli.py, main.go:14-24).
 
-    python -m sybil_tpu_torch <query|version> [flags]
+    python -m sybil_tpu_torch <query|aggregate|version> [flags]
 
 `query` takes the reference's flags plus `-device` (cuda by default,
-cpu for the plain PyTorch versions of the kernels).  The other
+cpu for the plain PyTorch versions of the kernels); `aggregate` merges
+per-node `query -encode-results` outputs on the host.  The other
 subcommands of the reference are not ported yet and exit non-zero.
 """
 
@@ -231,13 +232,32 @@ def cmd_version(argv):
     return 0
 
 
+def cmd_aggregate(argv):
+    """Merge per-node -encode-results files from directories (the node
+    protocol's master side, node_aggregator.go).  Host work only: no
+    device is read or needed."""
+    p = _query_parser()
+    p.add_argument("dirs", nargs="*")
+    args = p.parse_args(argv)
+    flags = _flags_from_query_args(args)
+    stdin_flags = sys.stdin.read().strip() if not sys.stdin.isatty() else ""
+    if stdin_flags:
+        flags = Flags.decode(stdin_flags)
+        flags.encode_flags = False
+    from .parallel.aggregator import stitch_results
+    from .query.spec import QueryParams
+    params = QueryParams.from_flags(flags)
+    stitch_results(args.dirs, params, flags)
+    return 0
+
+
 COMMANDS = {
     "query": cmd_query,
+    "aggregate": cmd_aggregate,
     "version": cmd_version,
 }
 # the reference's other subcommands, still to be ported (ROADMAP A16)
-NOT_PORTED = ("ingest", "digest", "trim", "index", "rebuild", "inspect",
-              "aggregate")
+NOT_PORTED = ("ingest", "digest", "trim", "index", "rebuild", "inspect")
 
 
 def main(argv=None):

@@ -27,6 +27,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr int THREADS = 1024;
@@ -65,33 +67,6 @@ struct DensePackArgs {
 };
 
 namespace {
-
-// Block-wide exclusive scan of one int per thread (THREADS threads);
-// returns the prefix and writes the block total to *total.
-__device__ int block_scan(int x, int* total) {
-  __shared__ int s_warp[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = s_warp[lane];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp ? s_warp[warp - 1] : 0;
-  *total = s_warp[THREADS / 32 - 1];
-  __syncthreads();
-  return before + inc - x;
-}
 
 // compact: rows [0, Sc-1) map 1:1, the rest (padding and the dead slot)
 // read as empty; otherwise the tables are already slot-sized
@@ -148,7 +123,7 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
       }
     }
     int n;
-    const int pre = block_scan(live ? 1 : 0, &n);
+    const int pre = block_scan<THREADS>(live ? 1 : 0, &n);
     if (live && nlive + pre < a.Ph) s_gidx[nlive + pre] = s;
     nlive += n;
   }
@@ -159,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
     const int s = base + threadIdx.x;
     const bool dead = s < a.slots && !slot_live(a, s);
     int n;
-    const int pre = block_scan(dead ? 1 : 0, &n);
+    const int pre = block_scan<THREADS>(dead ? 1 : 0, &n);
     if (dead && nlive + ndead + pre < a.Ph) s_gidx[nlive + ndead + pre] = s;
     ndead += n;
   }

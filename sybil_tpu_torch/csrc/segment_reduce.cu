@@ -45,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -202,35 +204,6 @@ __global__ void __launch_bounds__(THREADS) count_tiles(
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(&s_n, n);
   __syncthreads();
   if (threadIdx.x == 0) a.offsets[blockIdx.x] = s_n;
-}
-
-// Block-wide exclusive scan of one int per thread (outlier_compact.cu's);
-// returns the prefix and writes the block total to *total.  All threads
-// must call it.
-template <int NT>
-__device__ int block_scan(int x, int* total) {
-  __shared__ int s_warp[NT / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < NT / 32 ? s_warp[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < NT / 32) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp ? s_warp[warp - 1] : 0;
-  *total = s_warp[NT / 32 - 1];
-  __syncthreads();
-  return before + inc - x;
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(

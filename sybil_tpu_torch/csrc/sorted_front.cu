@@ -20,6 +20,14 @@
 // column is unmatched; the time key is trunc_div(t, tb) * tb with Go's
 // division, in int32 arithmetic under time_i32 like the reference's.
 //
+// In its enum form (a template parameter, chosen when the engine runs the
+// enumerated strategy) it replaces the front end of _scan_enum
+// (1420-1435, 1596-1597): the same packed key, always int32 there since
+// the radix is at most 2^21, the spill count, and the whole-scan totals
+// totals[0] = sum of the matched rows' weights (1 where the weight column
+// is missing or absent) and totals[1] = matched rows, exact and wrapping
+// mod 2^64 like the reference's int64 sums; idxm is not written.
+//
 // sort_permute replaces the operand permutation inside the reference's
 // multi-key lax.sort (1119): the port sorts the key lanes one stable
 // torch.sort at a time, least significant first, so between two sorts
@@ -28,8 +36,9 @@
 //
 // Bound: memory.  sorted_front reads 9 B per referenced column per row
 // and writes 4 B of idxm plus the 4 or 8 B packed key, or 8 B per key
-// lane; one grid-stride pass, the spill count summed per CTA and added
-// once.  sort_permute reads p and gathers 8 B twice per row.
+// lane (the enum form: the 4 B key, and the weight column read); one
+// grid-stride pass, the spill count and the totals summed per CTA and
+// added once.  sort_permute reads p and gathers 8 B twice per row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,8 +67,11 @@ struct SortedFrontArgs {
   const unsigned char* t_valid;
   const int* nrec;                    // [B] valid records per block
   void* key_out;                      // int32/int64 [R] packed, int64 [K, R]
-  int* idxm;                          // [R]
+  int* idxm;                          // [R] (not in the enum form)
   unsigned long long* spill;          // [1]
+  unsigned long long* totals;         // [2] enum form: sum w, matched rows
+  const long long* w_vals;            // weight column (has_weight)
+  const unsigned char* w_valid;
   long long R;
   long long tb;                       // time bucket (> 0)
   long long sent;                     // packed sentinel
@@ -71,7 +83,7 @@ struct SortedFrontArgs {
   int has_time;                       // lane 0 is the time key
   int time_i32;
   int packed;                         // 0 unpacked, 1 int32, 2 int64 key
-  int pad_;
+  int has_weight;
 };
 
 namespace {
@@ -127,23 +139,32 @@ __device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
   return a.key_valid[g][r] ? a.key_vals[g][r] : -1ll;
 }
 
+template <bool ENUM>
 __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     const SortedFrontArgs a) {
   __shared__ long long s_fv[MAXF];
-  __shared__ unsigned long long s_spill;
+  __shared__ unsigned long long s_spill, s_count, s_samples;
   if (threadIdx.x < a.nfilters) s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
-  if (threadIdx.x == 0) s_spill = 0ull;
+  if (threadIdx.x == 0) s_spill = s_count = s_samples = 0ull;
   __syncthreads();
   const long long cmask = (1ll << a.log2C) - 1;
-  unsigned long long my_spill = 0ull;
+  unsigned long long my_spill = 0ull, my_count = 0ull, my_samples = 0ull;
   for (long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
        r < a.R; r += (long long)gridDim.x * THREADS) {
     bool matched = (r & cmask) < a.nrec[r >> a.log2C];
     for (int i = 0; matched && i < a.nfilters; ++i)
       matched = passes(a, i, r, s_fv[i]);
     if (a.has_time && matched) matched = a.t_valid[r] != 0;
-    a.idxm[r] = matched ? (int)((unsigned)r | 0x80000000u) : (int)r;
-    if (a.packed) {
+    if (ENUM) {
+      if (matched) {
+        my_count += a.has_weight && a.w_valid[r]
+                        ? (unsigned long long)a.w_vals[r] : 1ull;
+        ++my_samples;
+      }
+    } else {
+      a.idxm[r] = matched ? (int)((unsigned)r | 0x80000000u) : (int)r;
+    }
+    if (ENUM || a.packed) {
       unsigned long long acc = 0ull;
       bool bad = false;
       for (int k = 0; k < a.nkeys; ++k) {
@@ -157,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
         acc = acc * (unsigned long long)(card + 1) + (unsigned long long)digit;
       }
       const long long out = matched && !bad ? (long long)acc : a.sent;
-      if (a.packed == 1)
+      if (ENUM || a.packed == 1)
         static_cast<int*>(a.key_out)[r] = (int)out;
       else
         static_cast<long long*>(a.key_out)[r] = out;
@@ -169,8 +190,16 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     }
   }
   if (my_spill) atomicAdd(&s_spill, my_spill);
+  if (ENUM) {
+    if (my_count) atomicAdd(&s_count, my_count);
+    if (my_samples) atomicAdd(&s_samples, my_samples);
+  }
   __syncthreads();
   if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
+  if (ENUM && threadIdx.x == 0) {
+    if (s_count) atomicAdd(a.totals, s_count);
+    if (s_samples) atomicAdd(a.totals + 1, s_samples);
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) sort_permute_kernel(
@@ -187,16 +216,24 @@ __global__ void __launch_bounds__(THREADS) sort_permute_kernel(
 
 }  // namespace
 
-// Zeroes the spill count, then one grid-stride pass on `stream`.
+// Zeroes the spill count (and the enum form's totals), then one
+// grid-stride pass on `stream`, the enum form when `enum_form` is set.
 // Returns cudaError_t.
-extern "C" int sorted_front(const SortedFrontArgs* args, int grid,
-                            void* stream) {
+extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
+                            int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->R >= (1ll << 31)) return cudaErrorInvalidValue;
+  if (args->R >= (1ll << 31) || (enum_form && args->packed != 1))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long),
                                     s);
   if (err != cudaSuccess) return err;
-  sorted_front_kernel<<<grid, THREADS, 0, s>>>(*args);
+  if (enum_form) {
+    err = cudaMemsetAsync(args->totals, 0, 2 * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return err;
+    sorted_front_kernel<true><<<grid, THREADS, 0, s>>>(*args);
+  } else {
+    sorted_front_kernel<false><<<grid, THREADS, 0, s>>>(*args);
+  }
   return cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // K10 sorted_pack: the keyed group table and the packed download buffer of
-// the sorted scan strategy.
+// the sorted scan strategy, with the device prune's score and gather, and
+// the enumerated strategy's table (enum_pack).
 //
 // Replaces sybil_tpu/ops/scan.py:pack_outputs for a non-dense scan:
 //   table    [S, K+2+5A] (1865-1872): each slot's keys, count, samples,
@@ -7,8 +8,8 @@
 //            wv, min, max (+2^62 / -2^62 for an avg aggregation); it stays
 //            on the device for the engine's escalation;
 //   meta     row 0 (1902-1965): [num_groups, spill, nout per hist agg,
-//            npairs = 0, overflow = 0, pruned = 0, 0, 0, nhistpairs per
-//            hist agg], zero-padded to W;
+//            npairs = 0, overflow = 0, pruned, total count, total samples,
+//            nhistpairs per hist agg], zero-padded to W;
 //   prefix   rows 1..P: the table's first P rows, zero-padded to W;
 //   pairs    per histogram aggregation (1979-1991), Hcap rows [keys,
 //            bucket, Σw, live] of the first Hcap rows of hp_mask in row
@@ -17,16 +18,41 @@
 // K5 writes the outlier rows between the prefix and the pair sections;
 // this kernel leaves them alone.
 //
+// The device prune (prune_topk > 0, 1874-1900, 1961-1963): the prefix is
+// not written; each slot's score (live = count > 0 or samples > 0; by
+// $COUNT its count where live else -1, int64; by an aggregation's mean
+// f32(wv) / f32(max(count, 1)) where live and count > 0, else -inf, with
+// IEEE division) goes to `score` for K12, and the meta row gets pruned =
+// min(prune_topk, S, P) and the sums of the count and samples columns over
+// the whole [S] table.  prune_gather then writes table[pidx] (K12's
+// winners, in their order) as the prefix and as the pruned table.
+//
+// enum_pack replaces the readout of _scan_enum (1547-1607) and its part of
+// pack_outputs (1866-1879, 1902-1960): for each of the Pk = min(P, R)
+// winners of K12 (row indices into the sorted packed keys) its live flag
+// (the last row of a segment whose key is below the radix), its keys (the
+// mixed-radix digits of its packed key, digit 0 = MISSING, else digit - 1
+// + min; SENTINEL when dead), its lanes from K11's sums (0 when dead),
+// min/max +2^62 / -2^62; padding rows to P (SENTINEL keys, zero lanes);
+// the meta row [num_groups, spill, 0, 0, pruned = P, total count, total
+// samples].
+//
 // Bound: memory.  The table is S x (K+2+5A) words (100,000 slots by
 // default), written once and its prefix copied; the pair sections read
-// one byte of hp_mask per row and write Hcap x W words.  Design: one
-// grid-stride launch for the table, the prefix and the meta row; then, for
-// all histogram aggregations at once (gridDim.y), K5's compaction: count
-// the set rows per TILE-row tile, scan the counts (one CTA each), rank
-// and write the first Hcap rows, then the padding rows.
+// one byte of hp_mask per row and write Hcap x W words; the prune reads
+// the table's sums once more.  Design: one grid-stride launch for the
+// table, the prefix and the meta row (plus one for the prune score and
+// totals, per-CTA sums and one atomic each); then, for all histogram
+// aggregations at once (gridDim.y), K5's compaction: count the set rows
+// per TILE-row tile, scan the counts (one CTA each), rank and write the
+// first Hcap rows, then the padding rows.  prune_gather and enum_pack are
+// one grid-stride launch each over P rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "block_scan.cuh"
+#include <math_constants.h>
 
 namespace {
 
@@ -34,7 +60,9 @@ constexpr int THREADS = 256;
 constexpr int TILE = 4096;
 constexpr int SCAN_THREADS = 1024;
 constexpr int MAXA = 32;
+constexpr int MAXK = 16;
 constexpr long long BIG = 1ll << 62;
+constexpr long long SENTINEL = 0x7fffffffffffffffll;
 constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
@@ -57,6 +85,7 @@ struct SortedPackArgs {
   long long* table;                     // [S, K+2+5A]
   long long* main;                      // [rows, W]
   int* offsets;                         // [H, ntiles + 1] scratch
+  void* score;                          // [S] prune score, int64 or f32
   long long R;
   int agg_mm[MAXA];                     // hist index of each agg, -1 = none
   int S;
@@ -68,6 +97,32 @@ struct SortedPackArgs {
   int W;
   int Hcap;
   int ntiles;
+  int prune;                            // the device prune's form
+  int prune_agg;                        // -1: $COUNT, else the agg
+  int pruned;                           // min(prune_topk, S, P)
+};
+
+// Mirrored field for field by EnumPackArgs in ops/scan.py (ctypes).
+struct EnumPackArgs {
+  const int* skey;                      // [R] sorted packed key
+  const int* gid;                       // [R] K11's segment of each row
+  const unsigned long long* sums;       // [Smax, L] K11's segment sums
+  const int* widx;                      // [Pk] K12's winners
+  const long long* num_groups;          // [1] live segments
+  const long long* spill;               // [1]
+  const long long* totals;              // [2] total count, total samples
+  long long* table;                     // [P, K+2+5A]
+  long long* main;                      // [1 + P, W]
+  long long pack_min[MAXK];
+  long long pack_card[MAXK];
+  long long R;
+  int radix;
+  int Pk;
+  int P;
+  int K;
+  int A;
+  int L;
+  int W;
   int pad_;
 };
 
@@ -101,7 +156,7 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
       }
       a.table[g * Wt + c] = v;
     }
-    if (g < a.P) a.main[(1 + g) * a.W + c] = v;
+    if (g < a.P && !a.prune) a.main[(1 + g) * a.W + c] = v;
   }
   if (blockIdx.x == 0 && threadIdx.x < a.W) {
     const int c = threadIdx.x;
@@ -112,9 +167,116 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
       v = a.spill[0];
     } else if (c < 2 + a.H) {
       v = a.nout[c - 2] ? a.nout[c - 2][0] : 0ll;
+    } else if (c == 4 + a.H) {
+      v = a.prune ? a.pruned : 0;
     } else if (c >= 7 + a.H && c < 7 + 2 * a.H) {
       v = a.npairs[c - 7 - a.H][0];
     }
+    a.main[c] = v;
+  }
+}
+
+// The device prune: each slot's score, and the count and sample totals of
+// the [S] table added into meta words 5 + H and 6 + H (zero from
+// table_kernel, which runs first on the stream).
+__global__ void __launch_bounds__(THREADS) prune_score_kernel(
+    const SortedPackArgs a) {
+  __shared__ unsigned long long s_count, s_samples;
+  if (threadIdx.x == 0) s_count = s_samples = 0ull;
+  __syncthreads();
+  unsigned long long my_count = 0ull, my_samples = 0ull;
+  for (long long g = (long long)blockIdx.x * THREADS + threadIdx.x; g < a.S;
+       g += (long long)gridDim.x * THREADS) {
+    const unsigned long long* s = a.sums + g * a.L;
+    const long long cnt = (long long)s[0], smp = (long long)s[1];
+    my_count += s[0];
+    my_samples += s[1];
+    const bool live = cnt > 0 || smp > 0;
+    if (a.prune_agg >= 0) {
+      const long long acnt = (long long)s[3 + 3 * a.prune_agg];
+      const long long wv = (long long)s[4 + 3 * a.prune_agg];
+      static_cast<float*>(a.score)[g] =
+          live && acnt > 0
+              ? __fdiv_rn(__ll2float_rn(wv),
+                          __ll2float_rn(acnt > 1 ? acnt : 1ll))
+              : -CUDART_INF_F;
+    } else {
+      static_cast<long long*>(a.score)[g] = live ? cnt : -1ll;
+    }
+  }
+  if (my_count) atomicAdd(&s_count, my_count);
+  if (my_samples) atomicAdd(&s_samples, my_samples);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long* meta = reinterpret_cast<unsigned long long*>(a.main);
+    if (s_count) atomicAdd(meta + 5 + a.H, s_count);
+    if (s_samples) atomicAdd(meta + 6 + a.H, s_samples);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) prune_gather_kernel(
+    const long long* table, const int* pidx, long long* main,
+    long long* ptable, int P, int Wt, int W) {
+  const long long n = (long long)P * W;
+  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < n;
+       idx += (long long)gridDim.x * THREADS) {
+    const long long j = idx / W;
+    const int c = (int)(idx - j * W);
+    long long v = 0;
+    if (c < Wt) {
+      v = table[(long long)pidx[j] * Wt + c];
+      ptable[j * Wt + c] = v;
+    }
+    main[(1 + j) * W + c] = v;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) enum_pack_kernel(
+    const EnumPackArgs a) {
+  const int K = a.K, L = a.L, Wt = a.K + 2 + 5 * a.A;
+  for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x; j < a.P;
+       j += (long long)gridDim.x * THREADS) {
+    bool live = false;
+    int key = 0, seg = 0;
+    if (j < a.Pk) {
+      const long long w = a.widx[j];
+      key = a.skey[w];
+      live = key < a.radix && (w == a.R - 1 || a.skey[w + 1] != key);
+      seg = a.gid[w];
+    }
+    long long* row = a.table + j * Wt;
+    long long g = key;
+    for (int k = K - 1; k >= 0; --k) {
+      const long long radix = a.pack_card[k] + 1;
+      const long long d = g % radix;
+      g /= radix;
+      row[k] = !live ? SENTINEL
+                     : d == 0 ? -1ll
+                              : (long long)((unsigned long long)d - 1ull +
+                                            (unsigned long long)a.pack_min[k]);
+    }
+    const unsigned long long* s = a.sums + (size_t)seg * L;
+    row[K] = live ? (long long)s[0] : 0ll;
+    row[K + 1] = live ? (long long)s[1] : 0ll;
+    for (int ai = 0; ai < a.A; ++ai) {
+      long long* o = row + K + 2 + 5 * ai;
+      o[0] = live && (long long)s[2 + 3 * ai] > 0;
+      o[1] = live ? (long long)s[3 + 3 * ai] : 0ll;
+      o[2] = live ? (long long)s[4 + 3 * ai] : 0ll;
+      o[3] = BIG;
+      o[4] = -BIG;
+    }
+    long long* m = a.main + (1 + j) * a.W;
+    for (int c = 0; c < a.W; ++c) m[c] = c < Wt ? row[c] : 0ll;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < a.W) {
+    const int c = threadIdx.x;
+    long long v = 0;
+    if (c == 0) v = a.num_groups[0];
+    else if (c == 1) v = a.spill[0];
+    else if (c == 4) v = a.P;
+    else if (c == 5) v = a.totals[0];
+    else if (c == 6) v = a.totals[1];
     a.main[c] = v;
   }
 }
@@ -136,33 +298,6 @@ __global__ void __launch_bounds__(THREADS) count_tiles(
   __syncthreads();
   if (threadIdx.x == 0)
     a.offsets[(size_t)blockIdx.y * (a.ntiles + 1) + blockIdx.x] = s_n;
-}
-
-// Block-wide exclusive scan of one int per thread (outlier_compact.cu's).
-template <int NT>
-__device__ int block_scan(int x, int* total) {
-  __shared__ int s_warp[NT / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < NT / 32 ? s_warp[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < NT / 32) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp ? s_warp[warp - 1] : 0;
-  *total = s_warp[NT / 32 - 1];
-  __syncthreads();
-  return before + inc - x;
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(
@@ -216,24 +351,61 @@ __global__ void __launch_bounds__(THREADS) write_pairs(
 
 }  // namespace
 
-// Runs the table launch, then the pair compaction for every histogram
-// aggregation, on `stream`.  Returns cudaError_t.
+// Runs the table launch (and the prune score launch under the device
+// prune), then the pair compaction for every histogram aggregation, on
+// `stream`.  Returns cudaError_t.
 extern "C" int sorted_pack(const SortedPackArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SortedPackArgs& a = *args;
   if (a.A > MAXA || a.H > MAXA || a.W < 7 + 2 * a.H || a.P > a.S ||
-      a.ntiles != (int)((a.R + TILE - 1) / TILE))
+      a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
+      (a.prune && (a.score == nullptr || a.prune_agg >= a.A)))
     return cudaErrorInvalidValue;
   const long long n = (long long)a.S * a.W;
   const int grid = (int)((n + THREADS - 1) / THREADS < 1024
                              ? (n + THREADS - 1) / THREADS : 1024);
   table_kernel<<<grid > 0 ? grid : 1, THREADS, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.H == 0 || a.Hcap == 0) return err;
+  if (err != cudaSuccess) return err;
+  if (a.prune) {
+    const int g2 = (int)((a.S + THREADS - 1) / THREADS < 264
+                             ? (a.S + THREADS - 1) / THREADS : 264);
+    prune_score_kernel<<<g2 > 0 ? g2 : 1, THREADS, 0, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (a.H == 0 || a.Hcap == 0) return cudaSuccess;
   count_tiles<<<dim3(a.ntiles, a.H), THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   scan_tiles<<<a.H, SCAN_THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   write_pairs<<<dim3(a.ntiles, a.H), THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The device prune's second launch: main rows 1..P and ptable [P, Wt] =
+// table[pidx].  Returns cudaError_t.
+extern "C" int prune_gather(const long long* table, const int* pidx,
+                            long long* main, long long* ptable, int S, int P,
+                            int Wt, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P < 1 || P > S || W < Wt) return cudaErrorInvalidValue;
+  const long long n = (long long)P * W;
+  const int grid = (int)((n + THREADS - 1) / THREADS < 1024
+                             ? (n + THREADS - 1) / THREADS : 1024);
+  prune_gather_kernel<<<grid, THREADS, 0, s>>>(table, pidx, main, ptable, P,
+                                               Wt, W);
+  return cudaGetLastError();
+}
+
+// The enumerated strategy's table, meta row and prefix.  Returns
+// cudaError_t.
+extern "C" int enum_pack(const EnumPackArgs* args, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const EnumPackArgs& a = *args;
+  if (a.K < 1 || a.K > MAXK || a.A > MAXA || a.L != 2 + 3 * a.A ||
+      a.Pk < 1 || a.Pk > a.P || a.W < 7 || a.W < a.K + 2 + 5 * a.A)
+    return cudaErrorInvalidValue;
+  const int grid = (a.P + THREADS - 1) / THREADS;
+  enum_pack_kernel<<<grid, THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` holds one kernel family behind a plain C entry
 point.  It is compiled by `nvcc` for `sm_90a` into its own shared
-library on first use, named by the hash of its source and flags, into
+library on first use, named by the hash of its source (with the shared
+headers of csrc/) and flags, into
 `csrc/build/` (listed in .gitignore), and loaded with ctypes.  Sources
 are compiled in parallel, one `nvcc` process each.  Importing this
 module builds nothing: the first wrapper call on a CUDA tensor does.
@@ -23,16 +24,19 @@ import threading
 
 SOURCES = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
-           "hist_pairs", "sorted_pack")
+           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# one count per wrapper: a source's name, and sort_permute, the second
-# kernel of sorted_front.cu
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + ("sort_permute",)}
+# the wrappers that launch a source's other kernels: sort_permute
+# (sorted_front.cu), enum_pack and prune_gather (sorted_pack.cu)
+ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
+                 "prune_gather": "sorted_pack"}
+# one count per wrapper: a source's name, and each entry above
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -53,8 +57,13 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by the hash of its source, the shared
+    headers of csrc/ and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -1,14 +1,18 @@
 """The scan: filter + group-by + aggregate over a batch of column blocks.
 
-Port of sybil_tpu/ops/scan.py for the dense strategy (group keys with a
-known bounded cardinality: BASELINE config 1 `group by host, avg ping`,
-the filtered histogram queries of configs 2 and 3, the time rollups of
-config 4) and the sorted strategy (every other group-by: -tdigest,
-unbounded or spilled keys, rollups past DENSE_WINDOW_SLOT_CAP, the group
-cap).  The device-free parts are copies of the reference's: the static
-ScanConfig with its slot arithmetic, and the packed-download layout
-(main_width, table_prefix, dense_table_plan, dense_keys_np,
-packed_layout) that the engine's reader shares with the writer.
+Port of sybil_tpu/ops/scan.py for its three strategies: dense (group keys
+with a known bounded cardinality: BASELINE config 1 `group by host, avg
+ping`, the filtered histogram queries of configs 2 and 3, the time
+rollups of config 4), enumerated (a device-pruned group-by whose keys are
+exactly bounded past the dense caps: config 5's skewed top-k) and sorted
+(every other group-by: -tdigest, unbounded or spilled keys, rollups past
+DENSE_WINDOW_SLOT_CAP, the group cap; with the device prune when the
+engine asks for it).  The device-free parts are copies of the
+reference's: the static ScanConfig with its slot arithmetic, the
+enumerated strategy's eligibility (enum_radix), and the
+packed-download layout (main_width, table_prefix, dense_table_plan,
+dense_keys_np, packed_layout) that the engine's reader shares with the
+writer.
 
 The device work is hand-written CUDA kernels (csrc/), run by scan_packed
 in this order.  Dense:
@@ -54,13 +58,30 @@ K9 hist_pairs       per histogram aggregation: bucket ids, pair keys and
 K5 outlier_compact  the outlier rows, keyed by kmat
 K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
                     escalation), the meta row, its prefix and the sparse
-                    hist pair sections of `main`
+                    hist pair sections of `main`; under the device prune
+                    (prune_topk) each row's score and the table totals
+                    instead of the prefix, then (prune_gather, after K12)
+                    the top rows as the prefix
+
+Enumerated:
+
+K7 sorted_front     its enum form: the packed int32 key (the radix for
+                    unmatched and spilled rows), the spill count and the
+                    whole-scan totals (Σ matched weight, matched rows)
+(sort)             torch.sort(stable=True) of the packed key
+K11 enum_segments   segments of the sorted keys, their exact lane sums,
+                    num_groups (live segments) and the prune score at
+                    each live segment's end row (-1 or -inf elsewhere)
+K12 topk_rows       exact top-k row indices, as lax.top_k: value
+                    descending, ties to the lower index
+K10 enum_pack       the winners' decoded keys and lanes, the meta row
+                    with the pruned marker and the totals, the prefix
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.  scan_packed raises
 NotImplementedError, naming the ROADMAP item, for every scan shape
-the port does not carry yet (the enumerated strategy and device prune,
-set filters, distinct counts, samples, cache-group scans, mesh scans).
+the port does not carry yet (set filters, distinct counts, samples,
+cache-group scans, mesh scans).
 """
 
 from __future__ import annotations
@@ -437,13 +458,51 @@ def config_from_fields(d: dict) -> ScanConfig:
     return ScanConfig(**{k: v for k, v in d.items() if k in known})
 
 
+# enumerated strategy: largest packed-key radix eligible (bounds the
+# mixed-radix pack; the readout itself is radix-independent row-space)
+ENUM_RADIX_CAP = 1 << 21
+
+
+def enum_radix(config: ScanConfig) -> int:
+    """Packed-key radix for the enumerated strategy; 0 = ineligible
+    (a copy of the reference's).
+
+    Eligible when the scan is a device-pruned (prune_topk) group-by
+    whose keys are all exactly bounded (sort_pack) with a modest radix
+    product and no hist/distinct/outlier/sample lanes — the
+    high-cardinality top-k shape (BASELINE config 5)."""
+    if config.prune_topk <= 0 or config.dense_slots:
+        return 0
+    if config.no_compact_table:
+        # mesh scans: the shuffle payload carries at most table_slots
+        # rows, which would silently truncate a [radix] enum table
+        return 0
+    pack = config.sort_pack
+    if not pack or config.distinct_cols or config.time_col:
+        return 0
+    if len(pack) != max(len(config.group_cols), 1) or not config.group_cols:
+        return 0
+    if any(a.num_values > 0 for a in config.aggs):
+        return 0
+    if config.track_outliers or config.want_matched_mask:
+        return 0
+    radix = 1
+    for (_, card) in pack:
+        radix *= card + 1
+        if radix > ENUM_RADIX_CAP:
+            return 0
+    return radix
+
+
 # ---------------------------------------------------------------------------
 # what this slice carries
 # ---------------------------------------------------------------------------
 
 def check_supported(config: ScanConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scan
-    shape the port does not carry yet."""
+    shape the port does not carry yet.  All three strategies are ported,
+    the enumerated one and the sorted strategy's device prune
+    (prune_topk) included."""
     def no(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
     if any(f.kind == "set" for f in config.filters):
@@ -454,10 +513,6 @@ def check_supported(config: ScanConfig) -> None:
         no("count distinct", "B9")
     if config.want_matched_mask:
         no("samples", "A13")
-    # the reference's pack reads prune_topk only off the dense strategy
-    # (pack_outputs 1875): the enumerated strategy and the device prune
-    if config.prune_topk > 0 and config.strategy != "dense":
-        no("device-side top-k pruning and the enumerated strategy", "B10")
     if config.n_key_cols > _MAXK or len(config.aggs) > _MAXA:
         raise NotImplementedError(
             f"the scan kernels take at most {_MAXK} keys and {_MAXA} "
@@ -1448,6 +1503,9 @@ class SortedFrontArgs(ctypes.Structure):
         ("key_out", ctypes.c_void_p),
         ("idxm", ctypes.c_void_p),
         ("spill", ctypes.c_void_p),
+        ("totals", ctypes.c_void_p),
+        ("w_vals", ctypes.c_void_p),
+        ("w_valid", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
@@ -1459,18 +1517,21 @@ class SortedFrontArgs(ctypes.Structure):
         ("has_time", ctypes.c_int),
         ("time_i32", ctypes.c_int),
         ("packed", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("has_weight", ctypes.c_int),
     ]
 
 
 def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
                        bitsets=(), time_bucket: int = 1):
     """Plain PyTorch version of K7: the reference's _front_end and the
-    sort operands of _scan_sorted (1076-1104, 1117-1118).
-    -> {"key": the packed key [R] (int32 or int64; the sentinel for
-    unmatched and spilled rows) or None, "keys": int64 [K, R] key lanes
-    (SENTINEL for unmatched rows) or None, "idxm": int32 [R] row index
-    with the matched flag in its sign bit, "spill": int64 [1]}."""
+    sort operands of _scan_sorted (1076-1104, 1117-1118), or of
+    _scan_enum (1420-1435, 1596-1597) when enum_radix(config) > 0.
+    -> {"key": the packed key [R] (int32 or int64; the sentinel = the
+    radix for unmatched and spilled rows) or None, "keys": int64 [K, R]
+    key lanes (SENTINEL for unmatched rows) or None, "idxm": int32 [R]
+    row index with the matched flag in its sign bit (None in the enum
+    form), "spill": int64 [1], "totals": int64 [2] = (Σ matched weight,
+    matched rows) in the enum form, else None}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = nrec.device
@@ -1485,7 +1546,11 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
         matched = matched & tvalid
     idx = torch.arange(R, dtype=torch.int32, device=dev)
     idxm = torch.where(matched, idx | _IDX_BIT, idx)
-    out = {"key": None, "keys": None, "idxm": idxm}
+    out = {"key": None, "keys": None, "idxm": idxm, "totals": None}
+    if enum_radix(config):
+        out["idxm"] = None
+        w = torch.where(matched, _weight_plain(config, flat, R, dev), 0)
+        out["totals"] = torch.stack([w.sum(), matched.sum(dtype=torch.int64)])
     if sort_packed(config):
         sent, dtype = pack_sentinel(config)
         packed = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -1510,9 +1575,11 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
 
     Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
     int/str/regex filters, the time key, the key lanes) and the sort
-    operands of _scan_sorted (1076-1104, 1117-1118).  Bound by memory:
-    one pass, 9 B read per row per referenced column, the key and idxm
-    written."""
+    operands of _scan_sorted (1076-1104, 1117-1118); in its enum form
+    (a template parameter of the kernel) the packed key, spill count and
+    whole-scan totals of _scan_enum (1420-1435, 1596-1597).  Bound by
+    memory: one pass, 9 B read per row per referenced column, the key
+    and idxm (not in the enum form) written."""
     B, C = _batch_shape(cols)
     dev = nrec.device
     nf = len(config.filters)
@@ -1556,11 +1623,24 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
                           f"bitset {f.bitset_idx}", dev, "sorted_front")
             a.f_bits[i], a.f_bits_len[i] = bits.data_ptr(), bits.shape[0]
     a.filter_vals = filter_vals.data_ptr()
-    idxm = torch.empty(R, dtype=torch.int32, device=dev)
+    enum = enum_radix(config) > 0
     spill = torch.empty(1, dtype=torch.int64, device=dev)
-    out = {"key": None, "keys": None, "idxm": idxm, "spill": spill}
+    out = {"key": None, "keys": None, "idxm": None, "spill": spill,
+           "totals": None}
+    if enum:
+        out["totals"] = torch.empty(2, dtype=torch.int64, device=dev)
+        a.totals = out["totals"].data_ptr()
+        if config.weight_col:
+            v, m = cols[config.weight_col]
+            a.w_vals, a.w_valid, a.has_weight = (v.data_ptr(), m.data_ptr(),
+                                                 1)
+    else:
+        out["idxm"] = torch.empty(R, dtype=torch.int32, device=dev)
+        a.idxm = out["idxm"].data_ptr()
     if sort_packed(config):
         sent, dtype = pack_sentinel(config)
+        if enum and dtype != torch.int32:
+            raise ValueError(f"sorted_front: enum radix {sent} is not int32")
         for i, (mn, card) in enumerate(config.sort_pack):
             a.pack_min[i], a.pack_card[i] = mn, card
         out["key"] = torch.empty(R, dtype=dtype, device=dev)
@@ -1569,13 +1649,14 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     else:
         out["keys"] = torch.empty((K, R), dtype=torch.int64, device=dev)
         a.key_out = out["keys"].data_ptr()
-    a.idxm, a.spill, a.nrec = idxm.data_ptr(), spill.data_ptr(), nrec.data_ptr()
+    a.spill, a.nrec = spill.data_ptr(), nrec.data_ptr()
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.ngroups, a.nfilters = K, len(config.group_cols), nf
     fn = kernels.lib("sorted_front").sorted_front
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+    kernels.check(fn(ctypes.byref(a), int(enum), _grid(dev, R, 0, False),
                      kernels.stream_handle(dev)), "sorted_front")
     kernels.LAUNCHES["sorted_front"] += 1
     return out
@@ -2098,6 +2179,7 @@ class SortedPackArgs(ctypes.Structure):
         ("table", ctypes.c_void_p),
         ("main", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
+        ("score", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("agg_mm", ctypes.c_int * _MAXA),
         ("S", ctypes.c_int),
@@ -2109,7 +2191,9 @@ class SortedPackArgs(ctypes.Structure):
         ("W", ctypes.c_int),
         ("Hcap", ctypes.c_int),
         ("ntiles", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("prune", ctypes.c_int),
+        ("prune_agg", ctypes.c_int),
+        ("pruned", ctypes.c_int),
     ]
 
 
@@ -2119,11 +2203,29 @@ def table_width(config: ScanConfig) -> int:
     return config.n_key_cols + 2 + 5 * len(config.aggs)
 
 
+def prune_score_plain(config: ScanConfig, count, live, acnt, wv):
+    """The device prune's score of each group row (reference pack_outputs
+    1886-1899, _scan_enum 1536-1546): with prune_agg the aggregation's
+    mean f32(wv) / f32(max(acnt, 1)) where the row is live and acnt > 0,
+    else -inf; by $COUNT the count where live, else -1 (int64)."""
+    if config.prune_agg >= 0:
+        return torch.where(
+            live & (acnt > 0),
+            wv.to(torch.float32) / acnt.clamp(min=1).to(torch.float32),
+            torch.tensor(float("-inf"), dtype=torch.float32,
+                         device=wv.device))
+    return torch.where(live, count, -1)
+
+
 def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
                       main, R: int):
     """Plain PyTorch version of K10: the keyed [S, K+2+5A] table and the
     packed `main` buffer, in place, outside K5's rows (reference
-    pack_outputs 1865-1872, 1902-1965, 1979-1998).  -> the table."""
+    pack_outputs 1865-1872, 1902-1965, 1979-1998).  Under the device
+    prune (prune_topk > 0) the prefix rows stay zero for prune_gather,
+    the meta row holds the pruned marker and the table's count and
+    sample totals (1961-1963), and each row's prune score is returned.
+    -> {"table": the table, "score": [S] (int64 or f32) or None}."""
     dev = main.device
     K, A = config.n_key_cols, len(config.aggs)
     S = config.max_groups
@@ -2151,10 +2253,23 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
             meta[2 + i] = n.reshape(())
     for i, hp in enumerate(pairs):
         meta[7 + H + i] = hp["npairs"].reshape(())
+    score = None
+    if config.prune_topk > 0:
+        pi = 4 + H
+        meta[pi] = min(config.prune_topk, S, P)
+        meta[pi + 1] = sums[:, 0].sum()
+        meta[pi + 2] = sums[:, 1].sum()
+        live = (sums[:, 0] > 0) | (sums[:, 1] > 0)
+        ai = config.prune_agg
+        score = prune_score_plain(
+            config, sums[:, 0], live,
+            sums[:, 3 + 3 * ai] if ai >= 0 else None,
+            sums[:, 4 + 3 * ai] if ai >= 0 else None)
     lo, hi = outlier_rows(config, R)
     head = torch.zeros((lo, W), dtype=torch.int64, device=dev)
     head[0] = meta
-    head[1:1 + P, :table.shape[1]] = table[:P]
+    if score is None:
+        head[1:1 + P, :table.shape[1]] = table[:P]
     main[:lo] = head
     Hcap = layout.get("Hcap", 0)
     for ai, hp in zip(hist, pairs):
@@ -2169,20 +2284,23 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
         block[:n, K + 2] = 1
         off, _ = layout[f"hpair{ai}"]
         main[off: off + Hcap] = block
-    return table
+    return {"table": table, "score": score}
 
 
 def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
                 R: int):
-    """K10: as sorted_pack_plain.  CUDA tensors launch the kernel
-    (csrc/sorted_pack.cu); CPU tensors take the plain version.
+    """K10: as sorted_pack_plain -> {"table", "score"}.  CUDA tensors
+    launch the kernel (csrc/sorted_pack.cu); CPU tensors take the plain
+    version.
 
     k8: K8's outputs; spill: K7's pack spill [1]; pairs: K9's second
     outputs and nouts its outlier counts (None without tracking), one per
     histogram aggregation.  Replaces the keyed table of sybil_tpu/ops/
     scan.py:pack_outputs (1865-1872), its meta row (1902-1965) and the
-    sparse hist pair sections (1979-1991, _mask_positions).  Bound by
-    memory (the [S, K+2+5A] table and one byte of hp_mask per row)."""
+    sparse hist pair sections (1979-1991, _mask_positions), and under the
+    device prune the score and totals of 1886-1899, 1961-1963 (K12 and
+    prune_gather do the rest).  Bound by memory (the [S, K+2+5A] table
+    and one byte of hp_mask per row)."""
     dev = main.device
     if dev.type == "cpu":
         return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R)
@@ -2242,6 +2360,12 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     a.R = R
     a.S, a.P, a.K, a.A, a.L, a.H, a.W = (S, table_prefix(config), K, A, L,
                                          H, W)
+    score = None
+    if config.prune_topk > 0:
+        score = torch.empty(S, dtype=_score_dtype(config), device=dev)
+        a.score, a.prune = score.data_ptr(), 1
+        a.prune_agg = config.prune_agg
+        a.pruned = min(config.prune_topk, S, a.P)
     a.Hcap, a.ntiles = layout.get("Hcap", 0), ntiles
     lo, hi = outlier_rows(config, R)
     if (lo != 1 + a.P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)):
@@ -2252,13 +2376,65 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "sorted_pack")
     kernels.LAUNCHES["sorted_pack"] += 1
-    return table
+    return {"table": table, "score": score}
+
+
+def _score_dtype(config: ScanConfig) -> torch.dtype:
+    """The prune score's type: f32 for an aggregation's mean, int64 for
+    $COUNT (the reference's int32 or int64 counts order the same)."""
+    return torch.float32 if config.prune_agg >= 0 else torch.int64
+
+
+def prune_gather_plain(config: ScanConfig, table, pidx, main):
+    """Plain PyTorch version of K10's prune_gather: the top rows table[pidx]
+    as the prefix of `main` (rows 1..P, zero-padded to W), in place
+    (reference pack_outputs 1900, 1907).  -> the pruned table [P, Wt]."""
+    ptable = table[pidx.to(torch.int64)]
+    n, Wt = ptable.shape
+    main[1:1 + n] = 0
+    main[1:1 + n, :Wt] = ptable
+    return ptable
+
+
+def prune_gather(config: ScanConfig, table, pidx, main):
+    """K10, prune_gather entry: as prune_gather_plain.  CUDA tensors
+    launch the kernel (csrc/sorted_pack.cu); CPU tensors take the plain
+    version.  pidx: K12's int32 [P] row indices into the [S, Wt] table.
+    Replaces the gather table[pidx] of sybil_tpu/ops/scan.py:pack_outputs
+    (1900) and its prefix.  Bound by memory (P rows read and written)."""
+    dev = main.device
+    if dev.type == "cpu":
+        return prune_gather_plain(config, table, pidx, main)
+    if dev.type != "cuda":
+        raise ValueError(f"prune_gather: unsupported device {dev}")
+    S, Wt = config.max_groups, table_width(config)
+    P = table_prefix(config)
+    W = main.shape[1]
+    _check_tensor(table, (S, Wt), torch.int64, "table", dev, "prune_gather")
+    _check_tensor(pidx, (P,), torch.int32, "pidx", dev, "prune_gather")
+    if (main.dtype != torch.int64 or main.dim() != 2 or W < Wt
+            or not main.is_contiguous() or main.shape[0] < 1 + P):
+        raise ValueError("prune_gather: main must be a contiguous int64 "
+                         f"[rows >= {1 + P}, W >= {Wt}]")
+    ptable = torch.empty((P, Wt), dtype=torch.int64, device=dev)
+    fn = kernels.lib("sorted_pack").prune_gather
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(table.data_ptr(), pidx.data_ptr(), main.data_ptr(),
+                     ptable.data_ptr(), S, P, Wt, W,
+                     kernels.stream_handle(dev)), "prune_gather")
+    kernels.LAUNCHES["prune_gather"] += 1
+    return ptable
 
 
 def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
                  time_bucket: int):
     """The sorted strategy: K7, the sorts, K8, per histogram aggregation
-    K9 (prep, the pair sort, pairs) and K5 over kmat, then K10."""
+    K9 (prep, the pair sort, pairs) and K5 over kmat, then K10; under
+    the device prune K12 picks the top rows of K10's table and
+    prune_gather writes them as the prefix (the returned table is then
+    the pruned one, as the reference's pack returns it)."""
     B, C = _batch_shape(cols)
     R = B * C
     front = sorted_front(config, cols, nrec, filter_vals, bitsets,
@@ -2284,8 +2460,375 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
             outlier_compact(config, cols, prep["out_mask"], prep["out_val"],
                             main, layout[f"out{ai}"][0], time_bucket,
                             kmat=k8["kmat"])
-    table = sorted_pack(config, k8, front["spill"], pairs, nouts, main, R)
+    packed = sorted_pack(config, k8, front["spill"], pairs, nouts, main, R)
+    table = packed["table"]
+    if packed["score"] is not None:
+        pidx = topk_rows(packed["score"], table_prefix(config))
+        table = prune_gather(config, table, pidx, main)
     return {"main": main, "table": table}, raw
+
+
+# ---------------------------------------------------------------------------
+# the enumerated strategy: K7's enum form, the sort, K11 enum_segments,
+# K12 topk_rows, K10 enum_pack
+# ---------------------------------------------------------------------------
+
+def enum_slots(config: ScanConfig, R: int) -> int:
+    """Rows of K11's segment table: one per distinct packed key in
+    [0, radix], and at most one per row."""
+    return min(R, enum_radix(config) + 1)
+
+
+class EnumSegmentsArgs(ctypes.Structure):
+    """Mirror of struct EnumSegmentsArgs in csrc/enum_segments.cu."""
+    _fields_ = [
+        ("skey", ctypes.c_void_p),
+        ("p", ctypes.c_void_p),
+        ("agg_vals", ctypes.c_void_p * _MAXA),
+        ("agg_valid", ctypes.c_void_p * _MAXA),
+        ("agg_dmin", ctypes.c_longlong * _MAXA),
+        ("agg_dmax", ctypes.c_longlong * _MAXA),
+        ("agg_bias", ctypes.c_longlong * _MAXA),
+        ("w_vals", ctypes.c_void_p),
+        ("w_valid", ctypes.c_void_p),
+        ("gid", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("score", ctypes.c_void_p),
+        ("segend", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("num_groups", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("radix", ctypes.c_int),
+        ("Smax", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("naggs", ctypes.c_int),
+        ("ntiles", ctypes.c_int),
+        ("has_weight", ctypes.c_int),
+        ("prune_agg", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def enum_segments_plain(config: ScanConfig, cols, skey, p):
+    """Plain PyTorch version of K11 (reference _scan_enum 1484-1546, its
+    idx-and-gather form): the segments of the sorted packed keys `skey`
+    (int32 [R]; p the sort's int64 indices, the original rows), each live
+    segment's (key below the radix) exact sums of the lanes [w, 1,
+    (exists, kw, kw*(v-bias)) x A] of _agg_row_data, and the prune score
+    at each live segment's last row.
+    -> {"gid" int32 [R] (segment of each sorted row), "sums" int64
+    [enum_slots, L] (0 for the radix segment and past the last one),
+    "score" [R] (int64 count or -1 for $COUNT; f32 mean or -inf with
+    prune_agg), "num_groups" int64 [1] (live segments)}."""
+    R = skey.numel()
+    dev = skey.device
+    radix = enum_radix(config)
+    pb = torch.ones(R, dtype=torch.bool, device=dev)
+    pb[1:] = skey[1:] != skey[:-1]
+    pe = torch.ones(R, dtype=torch.bool, device=dev)
+    pe[:-1] = pb[1:]
+    gid = torch.cumsum(pb.to(torch.int32), 0, dtype=torch.int32) - 1
+    live = skey < radix
+    live_end = pe & live
+    flat = _flat_cols(cols, R)
+    weight = _weight_plain(config, flat, R, dev)[p]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = [torch.where(live, weight, zero), live.to(torch.int64)]
+    vbias = config.agg_vbias or (0,) * len(config.aggs)
+    for agg, bias in zip(config.aggs, vbias):
+        v, populated = flat[agg.col]
+        v, populated = v[p], populated[p]
+        keep = live & populated & ~((v > agg.discard_max) |
+                                    (v < agg.discard_min))
+        kw = torch.where(keep, weight, zero)
+        lanes += [(live & populated).to(torch.int64), kw, kw * (v - bias)]
+    g64 = gid.to(torch.int64)
+    sums = torch.zeros((enum_slots(config, R), len(lanes)), dtype=torch.int64,
+                       device=dev).index_add_(0, g64, torch.stack(lanes, 1))
+    seg = sums[g64]
+    ai = config.prune_agg
+    score = prune_score_plain(config, seg[:, 0], live_end,
+                              seg[:, 3 + 3 * ai] if ai >= 0 else None,
+                              seg[:, 4 + 3 * ai] if ai >= 0 else None)
+    return {"gid": gid, "sums": sums, "score": score,
+            "num_groups": live_end.sum(dtype=torch.int64).reshape(1)}
+
+
+def enum_segments(config: ScanConfig, cols, skey, p):
+    """K11: as enum_segments_plain.  CUDA tensors launch the kernel
+    (csrc/enum_segments.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_scan_enum 1484-1546: the segment
+    boundaries, start rows and live ends, the carrier cumsums minus their
+    cummax-propagated bases (or the gathered int64 lanes' cumsum), the
+    per-segment row counts, num_groups and the prune score.  The port
+    sums each segment directly: every lane exact in u64, whatever the
+    carry plan.  Bound by memory (p read, the aggregation and weight
+    columns gathered at the sorted rows, gid and score written); a tile
+    scan numbers the segments and one atomic per warp run of equal
+    segments adds each lane (see the source note)."""
+    dev = skey.device
+    if dev.type == "cpu":
+        return enum_segments_plain(config, cols, skey, p)
+    if dev.type != "cuda":
+        raise ValueError(f"enum_segments: unsupported device {dev}")
+    B, C = _batch_shape(cols)
+    R = B * C
+    radix = enum_radix(config)
+    if radix <= 0:
+        raise ValueError("enum_segments: the config is not enumerable")
+    A = len(config.aggs)
+    if A > _MAXA:
+        raise NotImplementedError(
+            f"enum_segments takes at most {_MAXA} aggregations")
+    L = 2 + 3 * A
+    _check_tensor(skey, (R,), torch.int32, "skey", dev, "enum_segments")
+    _check_tensor(p, (R,), torch.int64, "p", dev, "enum_segments")
+    a = EnumSegmentsArgs()
+    a.skey, a.p = skey.data_ptr(), p.data_ptr()
+    vbias = config.agg_vbias or (0,) * A
+    for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
+        v, m = _check_col(cols, agg.col, B, C, dev, "enum_segments")
+        a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
+        a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
+        a.agg_bias[i] = bias
+    if config.weight_col:
+        v, m = _check_col(cols, config.weight_col, B, C, dev, "enum_segments")
+        a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
+    Smax = enum_slots(config, R)
+    ntiles = -(-R // _SEG_TILE)
+    out = {"gid": torch.empty(R, dtype=torch.int32, device=dev),
+           "sums": torch.empty((Smax, L), dtype=torch.int64, device=dev),
+           "score": torch.empty(R, dtype=_score_dtype(config), device=dev),
+           "num_groups": torch.empty(1, dtype=torch.int64, device=dev)}
+    segend = torch.empty(Smax, dtype=torch.int32, device=dev)
+    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    a.gid, a.sums = out["gid"].data_ptr(), out["sums"].data_ptr()
+    a.score, a.segend = out["score"].data_ptr(), segend.data_ptr()
+    a.offsets, a.num_groups = offsets.data_ptr(), out["num_groups"].data_ptr()
+    a.R, a.radix, a.Smax, a.L, a.naggs, a.ntiles = R, radix, Smax, L, A, \
+        ntiles
+    a.prune_agg = config.prune_agg
+    fn = kernels.lib("enum_segments").enum_segments
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "enum_segments")
+    kernels.LAUNCHES["enum_segments"] += 1
+    return out
+
+
+# K12 handles k up to this many winners (its one-CTA final sort holds
+# them in shared memory); the engine asks for at most 1000
+TOPK_MAX = 4096
+_TOPK_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
+
+
+def topk_rows_plain(score, k: int):
+    """Plain PyTorch version of K12: the indices of the k largest scores,
+    by value descending, ties to the lower index (jax.lax.top_k(score,
+    k)[1]) -> int32 [k]."""
+    if k > score.numel():
+        raise ValueError(f"topk_rows: k {k} > {score.numel()} rows")
+    idx = torch.sort(score, descending=True, stable=True)[1][:k]
+    return idx.to(torch.int32)
+
+
+def topk_rows(score, k: int):
+    """K12: as topk_rows_plain, for int32, int64 and f32 scores.  CUDA
+    tensors launch the kernel (csrc/topk_rows.cu); CPU tensors take the
+    plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_topk_rows 1369-1399 (the tiled top-k
+    whose fallback makes it equal lax.top_k) and the lax.top_k of the
+    device prune (pack_outputs 1896-1898).  Bound by memory: a radix
+    select of the k-th value over order-preserving integer keys (8 bits
+    a pass), a ranked compaction of the rows above it and the first rows
+    equal to it, then a one-CTA bitonic sort of the winners by (value
+    descending, index ascending); no library sort (see the source
+    note)."""
+    dev = score.device
+    if dev.type == "cpu":
+        return topk_rows_plain(score, k)
+    if dev.type != "cuda":
+        raise ValueError(f"topk_rows: unsupported device {dev}")
+    R = score.numel()
+    if score.dtype not in _TOPK_DTYPES:
+        raise ValueError(f"topk_rows: scores of {score.dtype} are not taken")
+    _check_tensor(score, (R,), score.dtype, "score", dev, "topk_rows")
+    if not 0 < k <= min(R, TOPK_MAX) or R >= 2 ** 31:
+        raise ValueError(f"topk_rows: k {k} must lie in [1, min({R}, "
+                         f"{TOPK_MAX})]")
+    ntiles = -(-R // _SEG_TILE)
+    out = torch.empty(k, dtype=torch.int32, device=dev)
+    state = torch.empty(2, dtype=torch.int64, device=dev)
+    hist = torch.empty(256, dtype=torch.int32, device=dev)
+    offsets = torch.empty((2, ntiles + 1), dtype=torch.int32, device=dev)
+    cand = torch.empty(k, dtype=torch.int32, device=dev)
+    fn = kernels.lib("topk_rows").topk_rows
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(score.data_ptr(), out.data_ptr(), state.data_ptr(),
+                     hist.data_ptr(), offsets.data_ptr(), cand.data_ptr(),
+                     R, k, _TOPK_DTYPES[score.dtype], ntiles,
+                     _grid(dev, R, 0, False), kernels.stream_handle(dev)),
+                  "topk_rows")
+    kernels.LAUNCHES["topk_rows"] += 1
+    return out
+
+
+class EnumPackArgs(ctypes.Structure):
+    """Mirror of struct EnumPackArgs in csrc/sorted_pack.cu."""
+    _fields_ = [
+        ("skey", ctypes.c_void_p),
+        ("gid", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("widx", ctypes.c_void_p),
+        ("num_groups", ctypes.c_void_p),
+        ("spill", ctypes.c_void_p),
+        ("totals", ctypes.c_void_p),
+        ("table", ctypes.c_void_p),
+        ("main", ctypes.c_void_p),
+        ("pack_min", ctypes.c_longlong * _MAXK),
+        ("pack_card", ctypes.c_longlong * _MAXK),
+        ("R", ctypes.c_longlong),
+        ("radix", ctypes.c_int),
+        ("Pk", ctypes.c_int),
+        ("P", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("A", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def enum_pack_plain(config: ScanConfig, skey, seg: dict, widx, spill,
+                    totals, main):
+    """Plain PyTorch version of K10's enum_pack (reference _scan_enum
+    1547-1607, pack_outputs 1866-1879, 1902-1960): the winners' keys
+    (mixed-radix decode of their packed key, digit 0 = MISSING; SENTINEL
+    for a winner that is no live segment's last row) and lanes (0 there),
+    min/max columns 2^62 / -2^62, padding rows to the prefix P; the meta
+    row [num_groups, spill, 0, 0, pruned = P, total count, total
+    samples]; rows 1..P of `main`, in place.  -> the [P, K+2+5A] table."""
+    dev = main.device
+    R = skey.numel()
+    radix = enum_radix(config)
+    K, A = config.n_key_cols, len(config.aggs)
+    P = table_prefix(config)
+    W = main.shape[1]
+    w = widx.to(torch.int64)
+    key = skey[w]
+    end = (w == R - 1) | (skey[(w + 1).clamp(max=R - 1)] != key)
+    wlive = end & (key < radix)
+    lanes = torch.where(wlive[:, None], seg["sums"][seg["gid"][w].to(
+        torch.int64)], 0)
+    g = key.to(torch.int64)
+    kcols = []
+    for (mn, card) in reversed(config.sort_pack):
+        digit = g % (card + 1)
+        g = g // (card + 1)
+        kcols.append(torch.where(digit == 0, MISSING, digit - 1 + mn))
+    kcols.reverse()
+    keys = torch.where(wlive[:, None], torch.stack(kcols, 1), SENTINEL)
+    table = torch.zeros((P, table_width(config)), dtype=torch.int64,
+                        device=dev)
+    table[:, :K] = SENTINEL
+    Pk = w.numel()
+    table[:Pk, :K] = keys
+    table[:Pk, K:K + 2] = lanes[:, :2]
+    for ai in range(A):
+        c = K + 2 + 5 * ai
+        table[:Pk, c] = (lanes[:, 2 + 3 * ai] > 0).to(torch.int64)
+        table[:Pk, c + 1: c + 3] = lanes[:, 3 + 3 * ai: 5 + 3 * ai]
+        table[:, c + 3] = _BIG
+        table[:, c + 4] = -_BIG
+    meta = torch.zeros(W, dtype=torch.int64, device=dev)
+    meta[0] = seg["num_groups"].reshape(())
+    meta[1] = spill.reshape(())
+    meta[4] = P
+    meta[5:7] = totals
+    main[0] = meta
+    main[1:1 + P] = 0
+    main[1:1 + P, :table.shape[1]] = table
+    return table
+
+
+def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
+              main):
+    """K10, enum_pack entry: as enum_pack_plain.  CUDA tensors launch the
+    kernel (csrc/sorted_pack.cu); CPU tensors take the plain version.
+
+    skey: the sorted packed key; seg: K11's outputs; widx: K12's int32
+    [Pk] winners; spill, totals: K7's.  Replaces the winners' readout of
+    sybil_tpu/ops/scan.py:_scan_enum (1547-1607) and the enumerated
+    strategy's table, pruned marker and totals in pack_outputs (1866-1879,
+    1902-1960).  Bound by memory (P rows of a few words)."""
+    dev = main.device
+    if dev.type == "cpu":
+        return enum_pack_plain(config, skey, seg, widx, spill, totals, main)
+    if dev.type != "cuda":
+        raise ValueError(f"enum_pack: unsupported device {dev}")
+    R = skey.numel()
+    K, A = config.n_key_cols, len(config.aggs)
+    L = 2 + 3 * A
+    P = table_prefix(config)
+    Pk = widx.numel()
+    layout = packed_layout(config, R)
+    W = layout["W"]
+    if K > _MAXK or Pk != min(P, R):
+        raise ValueError(f"enum_pack: {Pk} winners for a prefix of {P} "
+                         f"over {R} rows")
+    _check_tensor(main, (layout["rows"], W), torch.int64, "main", dev,
+                  "enum_pack")
+    _check_tensor(skey, (R,), torch.int32, "skey", dev, "enum_pack")
+    _check_tensor(seg["gid"], (R,), torch.int32, "gid", dev, "enum_pack")
+    _check_tensor(seg["sums"], (enum_slots(config, R), L), torch.int64,
+                  "sums", dev, "enum_pack")
+    _check_tensor(seg["num_groups"], (1,), torch.int64, "num_groups", dev,
+                  "enum_pack")
+    _check_tensor(widx, (Pk,), torch.int32, "widx", dev, "enum_pack")
+    _check_tensor(spill, (1,), torch.int64, "spill", dev, "enum_pack")
+    _check_tensor(totals, (2,), torch.int64, "totals", dev, "enum_pack")
+    table = torch.empty((P, table_width(config)), dtype=torch.int64,
+                        device=dev)
+    a = EnumPackArgs()
+    a.skey, a.gid, a.sums = (skey.data_ptr(), seg["gid"].data_ptr(),
+                             seg["sums"].data_ptr())
+    a.widx, a.num_groups = widx.data_ptr(), seg["num_groups"].data_ptr()
+    a.spill, a.totals = spill.data_ptr(), totals.data_ptr()
+    a.table, a.main = table.data_ptr(), main.data_ptr()
+    for i, (mn, card) in enumerate(config.sort_pack):
+        a.pack_min[i], a.pack_card[i] = mn, card
+    a.R, a.radix, a.Pk, a.P = R, enum_radix(config), Pk, P
+    a.K, a.A, a.L, a.W = K, A, L, W
+    fn = kernels.lib("sorted_pack").enum_pack
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
+                  "enum_pack")
+    kernels.LAUNCHES["enum_pack"] += 1
+    return table
+
+
+def _scan_enum(config: ScanConfig, cols, nrec, filter_vals, bitsets):
+    """The enumerated strategy (reference _scan_enum): K7's enum form,
+    one stable sort of the packed key, K11, K12 over the [R] scores for
+    Pk = min(P, R) winners, then K10's enum_pack."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    front = sorted_front(config, cols, nrec, filter_vals, bitsets)
+    skey, p = torch.sort(front["key"], stable=True)
+    seg = enum_segments(config, cols, skey, p)
+    widx = topk_rows(seg["score"], min(table_prefix(config), R))
+    layout = packed_layout(config, R)
+    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
+                       device=nrec.device)
+    table = enum_pack(config, skey, seg, widx, front["spill"],
+                      front["totals"], main)
+    return {"main": main, "table": table}, {"cols": cols, "time_bucket": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -2294,16 +2837,21 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
 
 def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
                 bitsets=(), time_bucket: int = 1, set_aux=None):
-    """-> (packed {"main": [rows, W] int64, and on the sorted strategy
-    "table": the keyed [S, K+2+5A] group table}, raw device outputs).
+    """-> (packed {"main": [rows, W] int64, and off the dense strategy
+    "table": the keyed [S, K+2+5A] group table, or its top P rows under
+    the device prune and on the enumerated strategy}, raw device
+    outputs).
 
     Same arguments as the reference's scan_packed_jit: filter_vals int64
     [F] and the regex bitsets are device constants; time_bucket is the
     rollup's bucket width (a host int: the kernels take it as a scalar
-    argument); set inputs belong to shapes the port rejects.  Dense: K2,
-    then K4 and K5 per histogram aggregation, then K3.  Sorted: K7, the
-    sorts, K8, K9 and K5 per histogram aggregation, then K10.  `raw`
-    keeps what escalation fetches when a packed section overflows:
+    argument); set inputs belong to shapes the port rejects.  Routes as
+    the reference's scan_core: dense (K2, then K4 and K5 per histogram
+    aggregation, then K3), else enumerated when enum_radix(config) > 0
+    (K7 enum form, the sort, K11, K12, K10 enum_pack), else sorted (K7,
+    the sorts, K8, K9 and K5 per histogram aggregation, K10, and under
+    the device prune K12 and K10's prune_gather).  `raw` keeps what
+    escalation fetches when a packed section overflows:
     "agg{ai}_hist" [Sc, nv] (dense), "agg{ai}_hp_*" [R] and "kmat" [R, K]
     (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" and
     "time_bucket" for the key lanes (key_rows)."""
@@ -2312,6 +2860,8 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
     R = B * C
     time_bucket = int(time_bucket)
     if config.strategy != "dense":
+        if enum_radix(config):
+            return _scan_enum(config, cols, nrec, filter_vals, bitsets)
         return _scan_sorted(config, cols, nrec, filter_vals, bitsets,
                             time_bucket)
     k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket)

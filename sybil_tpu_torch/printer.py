@@ -225,6 +225,6 @@ def print_table_info(info: dict, flags: Flags, out=None):
 # ---------------------------------------------------------------------------
 
 def encode_results(qr: QueryResults, params: QueryParams, out=None):
-    raise NotImplementedError(
-        "-encode-results (the node wire format) is not ported yet "
-        "(ROADMAP A16)")
+    out = out or sys.stdout
+    from .parallel.wire import results_to_wire
+    _print_json(results_to_wire(qr, params), out)

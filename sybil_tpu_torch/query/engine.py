@@ -7,7 +7,9 @@ cache, the row-store scan, samples or meshes.  The plan:
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
            K1 and K6 and kept resident, ops/residency.py) -> one scan_packed
            call per batch (dense: K2, K4 + K5 per histogram, K3; sorted:
-           K7, the sorts, K8, K9 + K5 per histogram, K10; ops/scan.py)
+           K7, the sorts, K8, K9 + K5 per histogram, K10, and K12 under
+           the device prune; enumerated: K7, the sort, K11, K12, K10;
+           ops/scan.py)
            -> one packed buffer copied to pinned host memory without
            blocking; a dense key bound that spills restarts the scan on
            the unpacked sorted strategy
@@ -878,9 +880,11 @@ def _maybe_device_prune(bound: BoundQuery, params: QueryParams,
     reference does (engine.py:1158-1190): when a scan spans more than
     CHUNKS_BEFORE_GC = 16 blocks, has plain-count/avg aggregations, no
     time rollup and no distinct, and prunes by $COUNT or an aggregation's
-    mean, each batch may ship only its top 10*limit (<= 1000) group rows.
-    The dense strategy ignores it; the sorted strategy's device prune is
-    not ported (B10), so check_supported rejects it there."""
+    mean, each batch ships only its top 10*limit (<= 1000) group rows and
+    the whole batch's count and sample totals.  The dense strategy ignores
+    it; exactly bounded keys past the dense caps take the enumerated
+    strategy (enum_radix), every other group-by the sorted strategy's
+    device prune."""
     import dataclasses as _dc
 
     p = params
@@ -1214,7 +1218,8 @@ class _Accumulator:
     def absorb_packed(self, packed, out, R: int, config=None) -> int:
         """Parse the single packed download (ops/scan.py scan_packed):
         row 0 meta [num_groups, spill, nout per hist agg, npairs,
-        overflow, pruned, 0, 0, nhistpairs per hist agg]; then the group
+        overflow, pruned, total count, total samples (the last two 0
+        unless pruned), nhistpairs per hist agg]; then the group
         table (the dense compact keyless form, or the keyed prefix of the
         sorted strategy); then per-hist-agg compacted outlier rows; then
         the dense hist gids and bucket matrices, or the sorted strategy's
@@ -1247,9 +1252,15 @@ class _Accumulator:
         if spill > 0:
             return spill
         nouts = {ai: int(meta[2 + i]) for i, ai in enumerate(hist_ais)}
+        # device prune (prune_topk): the marker, then the whole batch's
+        # count and sample totals
+        pi = 4 + len(hist_ais)
+        pruned = int(meta[pi]) if pi < main.shape[1] else 0
+        if pruned:
+            total_count, total_samples = int(meta[pi + 1]), int(meta[pi + 2])
         nhps = {ai: int(meta[7 + len(hist_ais) + i])
                 for i, ai in enumerate(hist_ais)}
-        if num_groups > config.max_groups:
+        if num_groups > config.max_groups and not pruned:
             warn("group cap", config.max_groups,
                  "exceeded; highest-keyed groups dropped")
 
@@ -1277,7 +1288,14 @@ class _Accumulator:
             # (dense_table_plan lane_nrows skip); rebuild them here
             counts = colmap.get("count", samples)
         else:
-            n = P if dense else min(num_groups, S)
+            if dense:
+                n = P
+            elif pruned:
+                # the device already top-k'd the table: only the best
+                # rows were shipped
+                n = min(num_groups, pruned)
+            else:
+                n = min(num_groups, S)
             # the sorted strategy's live groups past the prefix: fetch the
             # table's first n rows from the device (escalation)
             table = fetch_table(packed, n) if n > P else main[1: 1 + n]
@@ -1285,7 +1303,17 @@ class _Accumulator:
             counts = table[:, K]
             samples = table[:, K + 1]
         active = np.nonzero((samples != 0) | (counts != 0))[0]
-        self.matched_count += int(samples[active].sum())
+        if pruned:
+            # kept rows undercount: use the device-side totals, and bank
+            # the dropped rows' sums for the Cumulative row (the
+            # reference's Cumulative keeps pruned rows' counts,
+            # aggregate.go:422-471)
+            self.matched_count += total_samples
+            self.cum_extra_count += total_count - int(counts[active].sum())
+            self.cum_extra_samples += (total_samples
+                                       - int(samples[active].sum()))
+        else:
+            self.matched_count += int(samples[active].sum())
 
         if hist_ais and dense:
             Ph = layout["Ph"]
@@ -1362,9 +1390,10 @@ class _Accumulator:
         # numpy arrays; `finish` consumes them vectorized, skipping the
         # per-row dict churn entirely.  A prune_cap does NOT exclude
         # parking: maybe_prune materializes on demand, and it only ever
-        # acts from the second batch on.
-        if (not p.distincts and not hist_ais and p.num_distinct <= 0
-                and not config.track_outliers):
+        # acts from the second batch on.  A device-pruned batch is not
+        # parked, as the reference's is not.
+        if (not p.distincts and not hist_ais and not pruned
+                and p.num_distinct <= 0 and not config.track_outliers):
             sel = active
             ak = keys[sel]
             if K and len(sel):

@@ -119,3 +119,46 @@ def test_port_hist_query_runs_with_jax_and_reference_refused(tmp_path):
     assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
     assert all(r["ping"]["samples"] == r["Count"] for r in rows)
     assert all(len(r["ping"]["percentiles"]) == 100 for r in rows)
+
+
+def test_port_node_protocol_runs_with_jax_and_reference_refused(tmp_path):
+    """The enumerated strategy's plain versions (K7's enum form, K11, K12,
+    K10's enum_pack), -encode-results and `aggregate` (parallel/) run in
+    the refusing process too."""
+    from sybil_tpu_torch import digest
+    rng = np.random.default_rng(5)
+    n = 9000
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = 512              # 18 blocks: the device prune
+    try:
+        for p in (1, 2):
+            d = str(tmp_path / f"db{p}")
+            Table("z", Flags(dir=d, table="z", skip_compact=True)
+                  ).ingest_columns(
+                ints={"w": rng.integers(1, 9, n)},
+                strs={"u": [f"u{i}" for i in rng.permutation(n)]})
+    finally:
+        digest.CHUNK_SIZE = old
+    env = dict(os.environ, PYTHONPATH=REPO)
+    q = ["-table", "z", "-group", "u", "-int", "w", "-limit", "3"]
+    res = tmp_path / "res"
+    res.mkdir()
+    for p in (1, 2):
+        argv = ["query", "-dir", str(tmp_path / f"db{p}"), *q,
+                "-encode-results", "-device", "cpu"]
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                                  argv=argv)],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
+            input="", timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        (res / f"n{p}.json").write_text(proc.stdout)
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(
+            forbidden=FORBIDDEN, argv=["aggregate", *q[2:], "-json",
+                                       str(res)])],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        input="", timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads(proc.stdout)
+    assert len(rows) == 3 and all(r["Count"] >= 1 for r in rows)

@@ -391,8 +391,9 @@ def test_unported_engine_modes_raise(ref_table, change, item):
     # -tdigest, a rollup past DENSE_WINDOW_SLOT_CAP (4000 quotients x 6 x
     # 6 slots) and int keys past the dense slot cap take the sorted
     # strategy, which tests/test_torch_sorted.py holds against the
-    # reference; on it samples, distinct counts and the device prune
-    # stay unported
+    # reference; on it samples and distinct counts stay unported.  The
+    # device prune (B10) is ported: that case now prints the reference's
+    # bytes (the enumerated strategy, tests/test_torch_enum.py)
     (["-op", "hist", "-tdigest", "-samples"], "A13"),
     (["-time", "-time-col", "index_int", "-time-bucket", "1", "-group",
       "host,status", "-distinct", "weight"], "B9"),
@@ -423,11 +424,16 @@ def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
                       "weight": np.arange(1100) % 3})
         finally:
             port_digest.CHUNK_SIZE = old
-    base = ["query", "-dir", d, "-table", "uptime", "-int", "ping",
-            "-device", "cpu", "-json"]
+    base = ["query", "-dir", d, "-table", "uptime", "-int", "ping", "-json"]
     if "-group" not in argv:
         base += ["-group", "host"]
-    assert port_cli.main(base + argv) == 2
+    if item == "B10":
+        want = _cli_out(ref_cli.main, base + argv, capsys)
+        assert _cli_out(port_cli.main, base + argv + ["-device", "cpu"],
+                        capsys) == want
+        assert len(json.loads(want)) == 100      # the default -limit
+        return
+    assert port_cli.main(base + argv + ["-device", "cpu"]) == 2
     assert item in capsys.readouterr().err
 
 

@@ -136,11 +136,13 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
-    # set filters (B6b), count distinct (B9), samples (A13) and, on the
-    # sorted strategy, the device prune (B10) stay unported.  A time
-    # rollup without a bound on its quotient, histograms under the sorted
-    # strategy and the sorted strategy itself are ported
-    # (tests/test_torch_sorted.py); here each carries a part that is not
+    # set filters (B6b), count distinct (B9) and samples (A13) stay
+    # unported.  A time rollup without a bound on its quotient, histograms
+    # under the sorted strategy and the sorted strategy itself are ported
+    # (tests/test_torch_sorted.py); here each carries a part that is not.
+    # The sorted strategy's device prune (B10) is ported: its two cases,
+    # a time rollup and a forced sorted scan under prune_topk, now equal
+    # the reference's `main` word for word
     change = {
         "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
         "time": {"time_col": "k0", "prune_topk": 1000},
@@ -156,7 +158,19 @@ def test_unported_shapes_raise(what):
     bad = dataclasses.replace(pcfg, **change)
     assert what in ("filters", "distinct", "samples") or \
         bad.strategy == "sorted"
+    tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
+             for k, (v, m) in cols.items()}
+    if item == "B10":
+        rcfg = dataclasses.replace(cfg, **change)
+        packed, _ = ref.scan_packed_jit(
+            rcfg, {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+                   cols.items()},
+            jnp.asarray(nrec), jnp.zeros((0,), jnp.int64), (),
+            jnp.asarray(1, jnp.int64), {})
+        got, _ = port.scan_packed(bad, tcols, torch.from_numpy(nrec))
+        np.testing.assert_array_equal(got["main"].numpy(),
+                                      np.asarray(packed["main"]))
+        assert int(np.asarray(packed["main"])[0, 4]) > 0   # pruned
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.scan_packed(bad, {k: (torch.from_numpy(v), torch.from_numpy(m))
-                               for k, (v, m) in cols.items()},
-                         torch.from_numpy(nrec))
+        port.scan_packed(bad, tcols, torch.from_numpy(nrec))

@@ -237,14 +237,31 @@ def _strategies_seen(monkeypatch):
     ("samples", {"want_matched_mask": True}, "A13"),
 ])
 def test_sorted_shapes_still_unported_raise(what, change, item):
+    """Distinct counts (B9) and samples (A13) raise; the device prune
+    (B10) is ported and equals the reference's `main` and pruned table
+    word for word."""
     cfg, cols, nrec, fvals, bits, tb = _make("unpacked-missing-negative")
     pcfg = dataclasses.replace(
         port.config_from_fields(dataclasses.asdict(cfg)), **change)
     assert pcfg.strategy == "sorted"
+    tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
+             for k, (v, m) in cols.items()}
+    if item == "B10":
+        packed, _ = ref.scan_packed_jit(
+            dataclasses.replace(cfg, **change),
+            {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+             cols.items()}, jnp.asarray(nrec), jnp.zeros((0,), jnp.int64),
+            (), jnp.asarray(1, jnp.int64), {})
+        got, _ = port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
+        np.testing.assert_array_equal(got["main"].numpy(),
+                                      np.asarray(packed["main"]))
+        np.testing.assert_array_equal(got["table"].numpy(),
+                                      np.asarray(packed["table"]))
+        assert int(np.asarray(packed["main"])[0, 4]) == \
+            port.table_prefix(pcfg)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        port.scan_packed(pcfg, {k: (torch.from_numpy(v), torch.from_numpy(m))
-                                for k, (v, m) in cols.items()},
-                         torch.from_numpy(nrec))
+        port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
 
 
 # ---------------------------------------------------------------------------
