@@ -60,7 +60,21 @@ Phases (any failure exits non-zero before the result lines):
      keys with a weight column, mean scores with and without a value
      bias, every row unmatched), K12 alone on tie pile-ups, -inf ties,
      int64 scores and k = R, and the sorted strategy's device prune (K10's
-     prune form, K12 over the slots, prune_gather) on config 5's batch
+     prune form, K12 over the slots, prune_gather) on config 5's batch.
+     Then count distinct: K13 hll_registers and K3's HLL sections on the
+     uptime batch (group by host, distinct index_int: the int hash; by
+     host, distinct status: a str column's hash array, the reference's
+     pair form; by status, distinct host with the hash array padded past
+     the pair form: its row form), K7's distinct lanes, the sorts, K8's
+     pair mask and K10's pair section (group by host, distinct status,
+     ping; config 5's partition 1 by userid, distinct weight, past the
+     packed pair rows), and synthetic batches (MISSING, negative and
+     INT64_MIN/MAX distinct values, every row unmatched, more live slots
+     than the shipped planes, hashes with rest == 0, a time-bucketed
+     distinct with filters, D = 2, pairs with a hist agg), and the former
+     fixed caps: K2, K5, K7, K8, K10 and K11 at 17 filters, 17 keys and 33
+     aggregations, and K2, K7, K8 and K11 past the descriptor words a
+     launch carries in its parameters (60 filters, 50 and 60 aggregations)
   5. the main path through the port's CLI on cuda, one batch of all
      blocks, the launch counts reset just before each query and read just
      after: config 1 `-group host -int ping -op avg`, config 3 (and with
@@ -81,10 +95,16 @@ Phases (any failure exits non-zero before the result lines):
      the f32 mean score) and a 4-batch form; the sorted device prune
      (one user's rows of partition 1 grouped by the second: K7, K8,
      K10, K12 and prune_gather once, the 100 busiest seconds in order
-     against numpy).  Then cold and warm queries
+     against numpy); count distinct: -group host -distinct index_int and
+     -distinct status (K13 once), -group host,status -op distinct (D = 2
+     pairs) and config 5's partition 1 -group userid -distinct weight
+     (the pair escalation), every printed Distinct against a port HLL fed
+     the numpy values of its group.  Then cold and warm queries
      through run_query for each config and path, checking via the counts that
      warm queries run no decode (residency) and the scan kernels once per
-     batch, also through a three-batch pipeline
+     batch, also through a three-batch pipeline, the four distinct queries
+     included (the device HLL's merged registers against the numpy-fed
+     HLLs byte for byte)
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -93,9 +113,11 @@ Phases (any failure exits non-zero before the result lines):
      function, that call's time; K2 on config 4 in both forms per table;
      K7, sort_permute, K8, K9, K5 (sorted keys) and K10 at both paths'
      shapes, config 5's K7 enum form, K11, K12 ($COUNT and mean scores),
-     K10 enum_pack and the device prune's forms, `aggregate`'s wall, and
-     the stable torch.sort calls between them on lines of their own with
-     their radix-pass bound
+     K10 enum_pack and the device prune's forms, `aggregate`'s wall, K13
+     on both hash paths (beside scatter_reduce_ amax), K3's HLL sections,
+     the pairs' K7, K8 and K10, K5 over the sorted keys, and the stable
+     torch.sort calls between them on lines of their own with their
+     radix-pass bound
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -126,7 +148,8 @@ BENCH_NOW = 1_755_000_000
 STEP = 1_000_000
 KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
-           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows")
+           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows",
+           "hll_registers")
 # the launch-counted wrappers: each source's, and those of a source's
 # other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
@@ -710,13 +733,24 @@ def b5_edge_containers():
 # ---------------------------------------------------------------------------
 
 def query_params(groups, aggs, weight="", op="avg", htype="basic",
-                 filters=(), time_bucket=0):
+                 filters=(), time_bucket=0, distincts=()):
     from sybil_tpu_torch.query.spec import AggDef, FilterDef, QueryParams
     return QueryParams(groups=tuple(groups),
                        aggs=tuple(AggDef(a, op, htype) for a in aggs),
                        filters=tuple(FilterDef(*f) for f in filters),
                        weight_col=weight, time_bucket=time_bucket,
-                       time_col="time" if time_bucket else "")
+                       time_col="time" if time_bucket else "",
+                       distincts=tuple(distincts))
+
+
+def dev_bits(bitsets, device):
+    """The bind's bitsets as device constants, a uint64 hash array as its
+    int64 bits (as the engine uploads it)."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops.residency import device_const
+    return tuple(device_const(b.view(np.int64) if b.dtype == np.uint64
+                              else b, device) for b in bitsets)
 
 
 def bound_query(table, flags, params):
@@ -752,9 +786,10 @@ def decoded_cols(table, names, C: int, device):
 
 def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     """K2 (in each form that applies: windowed and global for a windowed
-    rollup), then K4 and K5 per histogram aggregation, then K3, each
-    against its plain version on the same inputs; the kernels' buffer
-    against scan_packed's.  -> (K2 outputs, main)."""
+    rollup), K13 with the device HLL, then K4 and K5 per histogram
+    aggregation, then K3, each against its plain version on the same
+    inputs; the kernels' buffer against scan_packed's.  -> (K2 outputs,
+    main)."""
     import torch
 
     from sybil_tpu_torch.ops import scan
@@ -775,6 +810,12 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
             if k2[key] is not None:
                 check_equal(f"K2 {what} {form or ''} {key}", k2[key],
                             k2p[key], errs["dense_scan"])
+    hll = None
+    if cfg.hll and cfg.distinct_cols:
+        hll = scan.hll_registers(cfg, cols, k2["gid"], bits)
+        check_equal(f"K13 {what} registers", hll,
+                    scan.hll_registers_plain(cfg, cols, k2["gid"], bits),
+                    errs["hll_registers"])
     layout = scan.packed_layout(cfg, R)
     shape = (layout["rows"], layout["W"])
     main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
@@ -797,12 +838,14 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
                                        h["out_val"], main_p, off, tb)
             check_equal(f"K5 {what} agg{ai} rows", main[off: off + kmax],
                         main_p[off: off + kmax], errs["outlier_compact"])
-    scan.dense_pack(cfg, k2, hists, nouts, main, R)
-    scan.dense_pack_plain(cfg, k2, hists, nouts, main_p, R)
+    scan.dense_pack(cfg, k2, hists, nouts, main, R, hll)
+    scan.dense_pack_plain(cfg, k2, hists, nouts, main_p, R, hll)
     check_equal(f"K3 {what} main", main, main_p, errs["dense_pack"])
-    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
+    packed, raw = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
     if not torch.equal(packed["main"], main):
         fail(f"{what}: scan_packed's buffer differs from the kernels' own")
+    if hll is not None and not torch.equal(raw["hll_regs"], hll):
+        fail(f"{what}: scan_packed's registers differ from K13's own")
     return k2, main
 
 
@@ -1065,7 +1108,8 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     check_outs("segment_reduce", what, k8, scan.segment_reduce_plain(
         cfg, cols, front, order, tb), ("sums", "mins", "maxs", "keys",
                                        "kmat", "sidxm", "gid",
-                                       "num_groups"), errs)
+                                       "num_groups", "dmat", "pair_mask"),
+               errs)
     layout = scan.packed_layout(cfg, R)
     shape = (layout["rows"], layout["W"])
     main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
@@ -1515,6 +1559,258 @@ def topk_edges(device):
            ("k = R = 777", rng.integers(0, 4, 777).astype(np.int64), 777)]
     return [(label, torch.from_numpy(x).to(device), k)
             for label, x, k in out]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: count distinct (K13, K3's HLL sections, K7-K10's distinct
+# pairs) and the kernels' former fixed caps (C1)
+# ---------------------------------------------------------------------------
+
+I64_MIN, I64_MAX = -2 ** 63, 2 ** 63 - 1
+# name -> options.  kind: "hll" (the dense strategy's device HLL), "pairs"
+# (the sorted strategy's distinct pairs), "dense", "sorted" or "enum" (the
+# C1 shapes); keys: [(min, card)] of the group keys (dense) or [(lo, hi)]
+# of their values; dist: a str distinct column's dictionary size, "int"
+# for an int column (HLL), or [(lo, hi)] of each distinct column (pairs);
+# crafted: hash entries with rest == 0; time: (lo, hi, bucket); nrec;
+# filters: how many int filters; aggs: how many aggregations (the first
+# two histograms in the dense and sorted C1 shapes, tracked); extra:
+# ScanConfig fields
+DISTINCT_EDGES = {
+    "HLL: int MISSING, negative, INT64_MIN and INT64_MAX values": dict(
+        kind="hll", keys=[(0, 5)], dist="int"),
+    "HLL: every row unmatched": dict(kind="hll", keys=[(0, 5)], dist=40,
+                                     nrec=(0, 0, 0)),
+    "HLL: more live slots than Phll": dict(kind="hll",
+                                           keys=[(0, 4), (0, 5)],
+                                           dist="int"),
+    "HLL: crafted hashes with rest == 0": dict(kind="hll", keys=[(0, 3)],
+                                               dist=30, crafted=True),
+    "HLL: a dictionary past the pair form (rows)": dict(
+        kind="hll", keys=[(0, 5)], dist=6000),
+    "HLL: time-bucketed through K2's time key, filters": dict(
+        kind="hll", keys=[(0, 3)], dist=25, time=(1000, 5000, 500),
+        filters=2),
+    "pairs: D = 2, MISSING and negative values": dict(
+        kind="pairs", keys=[(0, 6), (-3, 3)], dist=[(0, 9), (-4, 4)]),
+    "pairs: filters, a weight, a hist agg, past kmax_pairs": dict(
+        kind="pairs", keys=[(0, 30)], dist=[(-50, 50)], filters=2, aggs=1,
+        weight=True, extra=dict(max_pairs=64)),
+    "pairs: every row unmatched": dict(kind="pairs", keys=[(0, 5)],
+                                       dist=[(0, 9)], nrec=(0, 0, 0)),
+    "C1: 17 filters, 33 aggregations (dense)": dict(
+        kind="dense", keys=[(0, 5)], filters=17, aggs=33, weight=True),
+    "C1: 17 keys, 17 filters, 33 aggregations (sorted)": dict(
+        kind="sorted", keys=[(0, 3)] * 17, filters=17, aggs=33),
+    "C1: 17 packed keys, 33 aggregations (enumerated)": dict(
+        kind="enum", keys=[(0, 1)] * 17, aggs=33,
+        extra=dict(prune_topk=100)),
+    # past the 256 descriptor words a launch carries in its parameters
+    # (csrc/desc.cuh): K2 above, K7, K8 and K11 here read the device copy
+    "C1: 60 filters, 50 aggregations (sorted)": dict(
+        kind="sorted", keys=[(0, 3)] * 2, filters=60, aggs=50),
+    "C1: 60 aggregations (enumerated)": dict(
+        kind="enum", keys=[(0, 1)] * 3, aggs=60,
+        extra=dict(prune_topk=100)),
+}
+
+
+def distinct_edge(name: str, device, B: int = 3, C: int = 65536):
+    """A synthetic batch of DISTINCT_EDGES -> (ScanConfig, cols, nrec,
+    filter_vals, bitsets, time bucket)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops.scan import (HLL_P, AggSpec, FilterSpec,
+                                          ScanConfig)
+    o = DISTINCT_EDGES[name]
+    kind = o["kind"]
+    rng = np.random.default_rng(len(name) + 300)
+    R = B * C
+    cols = {}
+
+    def put(col, v, p_valid):
+        cols[col] = (torch.from_numpy(np.asarray(v, np.int64).reshape(B, C))
+                     .to(device),
+                     torch.from_numpy((rng.random(R) < p_valid)
+                                      .reshape(B, C)).to(device))
+
+    groups, bounds = [], []
+    tkw, tb = {}, 1
+    if "time" in o:
+        lo, hi, tb = o["time"]
+        put("t", rng.integers(lo, hi, R), 0.95)
+        tkw = dict(time_col="t")
+        bounds.append((lo // tb, (hi - lo) // tb + 1))
+    for i, (a, b) in enumerate(o["keys"]):
+        # (min, card) bounds: values in [min, min + card); pairs: [lo, hi)
+        hi = b if kind == "pairs" else a + b
+        put(f"k{i}", rng.integers(a, hi, R), 0.9)
+        groups.append(f"k{i}")
+        bounds.append((a, b))
+    bits, hidx, dist = (), -1, ()
+    if kind == "hll":
+        dist = ("d",)
+        if o["dist"] == "int":
+            put("d", np.where(rng.random(R) < 0.02, rng.choice(
+                [I64_MIN, I64_MAX, -1, -7], R),
+                rng.integers(-5000, 2_000_000, R)), 0.9)
+        else:
+            put("d", rng.integers(0, o["dist"], R), 0.9)
+            hashes = rng.integers(0, 2 ** 63, o["dist"] + 1,
+                                  dtype=np.uint64) * np.uint64(2)
+            if o.get("crafted"):
+                hashes[::3] = (np.arange(len(hashes[::3]), dtype=np.uint64)
+                               << np.uint64(64 - HLL_P))
+            bits = (torch.from_numpy(hashes.view(np.int64)).to(device),)
+            hidx = 0
+    elif kind == "pairs":
+        for j, (lo, hi) in enumerate(o["dist"]):
+            put(f"d{j}", rng.integers(lo, hi, R), 0.85)
+        dist = tuple(f"d{j}" for j in range(len(o["dist"])))
+    filters, fvals = [], []
+    for i in range(o.get("filters", 0)):
+        put(f"f{i}", rng.integers(0, 1000, R), 0.97)
+        filters.append(FilterSpec(f"f{i}", "gt", "int"))
+        fvals.append(i)
+    aggs = []
+    for a in range(o.get("aggs", 0)):
+        put(f"v{a}", np.where(rng.random(R) < 0.03,
+                              rng.integers(500, 3000, R),
+                              rng.integers(-20, 400, R)), 0.85)
+        hist = a < 2 and kind in ("dense", "sorted", "pairs")
+        aggs.append(AggSpec(f"v{a}", hist_min=0, bucket_size=10 if hist
+                            else 0, num_values=40 if hist else 0,
+                            discard_min=-10, discard_max=2500))
+    if o.get("weight"):
+        put("w", rng.integers(0, 101, R), 0.8)
+    kw = dict(tkw, **o.get("extra", {}))
+    if kind in ("hll", "dense"):
+        kw.update(key_bounds=tuple(bounds), track_outliers=kind == "dense")
+    if kind == "hll":
+        kw.update(hll=True, hll_hash_idx=hidx)
+    if kind == "sorted":
+        kw.update(force_sorted=True, track_outliers=True)
+    if kind == "enum":
+        kw.update(sort_pack=tuple(bounds))
+    cfg = ScanConfig(group_cols=tuple(groups), aggs=tuple(aggs),
+                     filters=tuple(filters), distinct_cols=dist,
+                     weight_col="w" if o.get("weight") else "", **kw)
+    nrec = torch.tensor(o.get("nrec", (C, 700, C - 3)), dtype=torch.int32,
+                        device=device)
+    return (cfg, cols, nrec, torch.tensor(fvals, dtype=torch.int64,
+                                          device=device), bits, tb)
+
+
+def distinct_edges_check(device, errs) -> list:
+    """Every DISTINCT_EDGES batch through its strategy's kernels against
+    their plain versions, each reaching the edge it is named for.
+    -> one line per batch."""
+    from sybil_tpu_torch.ops import scan
+    lines = []
+    for name, o in DISTINCT_EDGES.items():
+        cfg, cols, nrec, fv, bits, tb = distinct_edge(name, device)
+        B, C = next(iter(cols.values()))[0].shape
+        R = B * C
+        kind = o["kind"]
+        want = {"hll": "dense", "dense": "dense", "pairs": "sorted",
+                "sorted": "sorted", "enum": "sorted"}[kind]
+        if cfg.strategy != want or (kind == "enum") != (
+                scan.enum_radix(cfg) > 0):
+            fail(f"distinct edge {name}: strategy {cfg.strategy}, enum "
+                 f"radix {scan.enum_radix(cfg)}")
+        if kind in ("hll", "dense"):
+            _, main = scan_check(name, cfg, cols, nrec, errs, fv, bits, tb)
+        elif kind == "enum":
+            main, _, _ = enum_check(name, cfg, cols, nrec, errs, fv, bits)
+        else:
+            main, _, _ = sorted_check(name, cfg, cols, nrec, errs, fv, bits,
+                                      tb)
+        meta = main[0].tolist()
+        H = len(scan.hist_aggs(cfg))
+        layout = scan.packed_layout(cfg, R)
+        ok = True
+        if "every row unmatched" in name:
+            ok = meta[0] == (0 if kind == "hll" else 1) and meta[2 + H] == 0
+        elif "more live slots" in name:
+            ok = meta[0] > layout["Phll"]
+        elif "past kmax_pairs" in name or kind == "pairs":
+            ok = meta[2 + H] > (layout["kmax_pairs"]
+                                if "past kmax" in name else 0)
+        elif "C1" in name:
+            ok = (len(cfg.filters), len(cfg.aggs), cfg.n_key_cols) == (
+                o.get("filters", 0), o["aggs"], len(o["keys"]))
+        if not ok:
+            fail(f"distinct edge {name}: meta {meta[:8 + 2 * H]} misses "
+                 f"its edge")
+        lines.append(f"{name}: groups {meta[0]}, npairs {meta[2 + H]}")
+    return lines
+
+
+def np_hash_int(v):
+    """FNV-1a 64 over the 8 little-endian bytes of each int64, then
+    splitmix64's finaliser, in numpy uint64 (the host HLL's int fast
+    path, vectorised) -> uint64."""
+    import numpy as np
+    u = np.asarray(v, np.int64).view(np.uint64)
+    h = np.full(u.shape, 0xcbf29ce484222325, np.uint64)
+    with np.errstate(over="ignore"):
+        for i in range(8):
+            h = (h ^ ((u >> np.uint64(8 * i)) & np.uint64(0xFF))) * \
+                np.uint64(0x100000001b3)
+        h = h + np.uint64(0x9E3779B97F4A7C15)
+        h = (h ^ (h >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        h = (h ^ (h >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return h ^ (h >> np.uint64(31))
+
+
+def numpy_hlls(gidx, ngroups: int, values, kind: str, strings=()):
+    """A port HLL per group fed the numpy values of that group: int
+    values by their hashes (np_hash_int, checked here against
+    HLL.add's bytes on a sample), str values (dict ids into `strings`,
+    -1 missing) by HLL.add of each distinct display string and the
+    delimiter.  -> [HLL] * ngroups."""
+    import numpy as np
+
+    from sybil_tpu_torch.constants import GROUP_DELIMITER, MISSING_VALUE
+    from sybil_tpu_torch.query.hll import HLL, hash64
+    out = [HLL() for _ in range(ngroups)]
+    if kind == "int":
+        sample = np.asarray(values[:2000], np.int64)
+        want = np.array([hash64((int(x) & MISSING_VALUE).to_bytes(
+            8, "little")) for x in sample], dtype=np.uint64)
+        if not np.array_equal(np_hash_int(sample), want):
+            fail("np_hash_int differs from the host HLL's hash64")
+        h = np_hash_int(values)
+        order = np.argsort(gidx, kind="stable")
+        starts = np.searchsorted(gidx[order], np.arange(ngroups + 1))
+        for g in range(ngroups):
+            out[g].add_hashes(h[order[starts[g]: starts[g + 1]]])
+        return out
+    pairs = np.unique(np.stack([gidx, values], 1), axis=0)
+    for g, v in pairs.tolist():
+        out[g].add(((strings[v] if v >= 0 else "") + GROUP_DELIMITER)
+                   .encode())
+    return out
+
+
+def hll_check(card, label, qr, keys_of, hlls, regs: bool) -> int:
+    """A query result's Distinct of each group against the numpy-fed
+    HLLs (and, where the device HLL ran, its registers byte for byte).
+    -> groups checked."""
+    import numpy as np
+    got = {keys_of(r): r for r in qr.results.values()}
+    want = {g: h for g, h in enumerate(hlls) if h.registers.any()}
+    if set(got) != set(want):
+        fail(f"{label}: groups {sorted(got)} vs numpy {sorted(want)}")
+    for g, h in want.items():
+        d = got[g].distinct
+        if d.cardinality() != h.cardinality():
+            fail(f"{label} group {g}: Distinct {d.cardinality()} vs numpy "
+                 f"{h.cardinality()}")
+        if regs and not np.array_equal(d.registers, h.registers):
+            fail(f"{label} group {g}: registers differ from numpy's")
+    return len(want)
 
 
 # ---------------------------------------------------------------------------
@@ -2159,6 +2455,86 @@ def main(argv=None) -> int:
             + ", ".join(ENUM_EDGES) + "; K12 alone on "
             + ", ".join(label for label, _, _ in topk_edges(dev)))
 
+        # ---- phase 4: count distinct and the former fixed caps ---------
+        # K13 and K3's HLL sections on the decoded uptime batch: the int
+        # fast path (index_int: every value distinct), a str column's
+        # hash array (the reference's pair form), and the same with the
+        # hash array padded past the pair form (its row form)
+        icols, _ = decoded_cols(table, ["index_int"], C, dev)
+        ucols = dict(cols, index_int=icols["index_int"])
+        del icols
+        hll_ctx = {}
+        for label, g, d in (("group by host, distinct index_int", "host",
+                             "index_int"),
+                            ("group by host, distinct status", "host",
+                             "status"),
+                            ("group by status, distinct host, the hash "
+                             "array padded past the pair form", "status",
+                             "host")):
+            bd = bound_query(table, flags, query_params([g], [],
+                                                        distincts=[d]))
+            cfg = bd.config
+            if not cfg.hll or cfg.strategy != "dense":
+                fail(f"{label}: no device HLL ({cfg.strategy})")
+            bits = list(dev_bits(bd.bitsets, dev))
+            gsmall = 1 + int(np.prod([c + 1 for _, c in cfg.key_bounds]))
+            if "padded" in label:
+                # the missing value's hash stays the last entry
+                hs = bd.bitsets[cfg.hll_hash_idx]
+                pad = np.random.default_rng(7).integers(
+                    0, 2 ** 63, 40000, dtype=np.uint64)
+                big = np.concatenate([hs[:-1], pad, hs[-1:]])
+                bits[cfg.hll_hash_idx] = torch.from_numpy(
+                    big.view(np.int64)).to(dev)
+            nd = bits[cfg.hll_hash_idx].numel() if cfg.hll_hash_idx >= 0 \
+                else 0
+            form = ("rows (int)" if not nd else "pairs" if gsmall * nd
+                    <= 32768 else "rows")
+            sub = {k: ucols[k] for k in bd.needed_cols}
+            k2h, mainh = scan_check(label, cfg, sub, nrec, errs, None,
+                                    tuple(bits))
+            hll_ctx[label] = (cfg, sub, tuple(bits), k2h)
+            say(f"K2/K13/K3 (HLL sections) == plain: {label}: slots="
+                f"{cfg.dense_slots} Sc={scan.reduce_space(cfg)[1]} hash "
+                f"array {nd} entries, the reference's {form} form, live "
+                f"groups {int(mainh[0, 0])}, Phll "
+                f"{scan.packed_layout(cfg, R)['Phll']}")
+        # K7's distinct lanes, the sorts, K8's pair mask and K10's pair
+        # section: group by host, distinct status, ping (its pairs fit the
+        # packed section), and config 5's partition 1 grouped by userid,
+        # distinct weight (past max_pairs)
+        pair_ctx = {}
+        t5_1, f5_1 = c5[0][0], c5[0][1]
+        for label, t, f, g, ds, sub_src, nr in (
+                ("group by host, distinct status, ping", table, flags,
+                 ["host"], ["status", "ping"], ucols, nrec),
+                ("config 5 partition 1, group by userid, distinct weight",
+                 t5_1, f5_1, ["userid"], ["weight"], c5_main[1],
+                 c5_main[2])):
+            bd = bound_query(t, f, query_params(g, [], distincts=ds))
+            cfg = bd.config
+            sub = {k: sub_src[k] for k in bd.needed_cols}
+            Rn = nr.numel() * next(iter(sub.values()))[0].shape[1]
+            mainq, _, parts = sorted_check(label, cfg, sub, nr, errs, None,
+                                           dev_bits(bd.bitsets, dev))
+            kmax = scan.packed_layout(cfg, Rn)["kmax_pairs"]
+            npairs = int(mainq[0, 2])
+            if npairs <= 0 or (npairs > kmax) != ("config 5" in label):
+                fail(f"{label}: {npairs} pairs against {kmax} packed rows")
+            pair_ctx[label] = (cfg, sub, nr, parts)
+            say(f"K7 (distinct lanes)/sorts/K8 (pair mask)/K10 (pair "
+                f"section) == plain: {label}: K + D = {cfg.n_all_keys} "
+                f"lanes, groups {int(mainq[0, 0])}, pairs {npairs} "
+                f"(packed section {kmax} rows)")
+        for line in distinct_edges_check(dev, errs):
+            say(f"  distinct or C1 edge batch == plain: {line}")
+        say(f"K13, K3's HLL sections, K7's distinct lanes, K8's pair mask, "
+            f"K10's pair section, and K2, K5, K7, K8, K10, K11 at 17 "
+            f"filters, 17 keys and 33 aggregations, and past the "
+            f"descriptor words a launch carries (60 filters, 50 and 60 "
+            f"aggregations) == plain on {len(DISTINCT_EDGES)} synthetic "
+            f"batches (tolerance 0)")
+
         # ---- phase 5: the main path ------------------------------------
         launches = {k: 0 for k in COUNTED}
         want = numpy_groupby(up["host"], up["ping"])
@@ -2587,10 +2963,84 @@ def main(argv=None) -> int:
         for k in COUNTED:
             launches[k] += ll[k]
 
+        # count distinct through the CLI: the device HLL (int and str
+        # distinct columns), the distinct pairs of -op distinct (D = 2)
+        # and config 5's partition 1 by userid, distinct weight (more
+        # pairs than the packed section: the escalation)
+        from sybil_tpu_torch.constants import GROUP_DELIMITER
+        from sybil_tpu_torch.query.hll import HLL
+        nb5_1 = c5[0][6]
+        uid5_1, w5_1 = c5[0][2], c5[0][3]
+        sort_steps = 3                    # K + D = 3 lanes: 3 sorts
+        hll_int = numpy_hlls(up["host"], len(HOSTS),
+                             np.arange(args.rows, dtype=np.int64), "int")
+        hll_str = numpy_hlls(up["host"], len(HOSTS), up["status"], "str",
+                             STATII)
+        hll_pair = HLL()
+        for h_, s_ in np.unique(np.stack([up["host"], up["status"]], 1),
+                                axis=0).tolist():
+            hll_pair.add((HOSTS[h_] + GROUP_DELIMITER + STATII[s_]
+                          + GROUP_DELIMITER).encode())
+        distinct_cli = (
+            ("group by host, distinct index_int (device HLL, int)",
+             table.flags.dir, "uptime", B,
+             ["-group", "host", "-distinct", "index_int"],
+             {"hll_registers": 1, "dense_scan": 1, "dense_pack": 1,
+              "sorted_front": 0},
+             lambda r: hll_int[HOSTS.index(r["host"])]),
+            ("group by host, distinct status (device HLL, str)",
+             table.flags.dir, "uptime", B,
+             ["-group", "host", "-distinct", "status"],
+             {"hll_registers": 1, "dense_scan": 1, "dense_pack": 1,
+              "sorted_front": 0},
+             lambda r: hll_str[HOSTS.index(r["host"])]),
+            ("-group host,status -op distinct (pairs, D = 2)",
+             table.flags.dir, "uptime", B,
+             ["-group", "host,status", "-op", "distinct"],
+             {"sorted_front": 1, "sort_permute": sort_steps - 1,
+              "segment_reduce": 1, "sorted_pack": 1, "hll_registers": 0},
+             lambda r: hll_pair),
+            ("config 5 partition 1, group by userid, distinct weight "
+             "(pair escalation)", t5_1.flags.dir, "sessions_zipf", C5_BATCH,
+             ["-group", "userid", "-distinct", "weight"],
+             {"sorted_front": nb5_1, "sort_permute": nb5_1,
+              "segment_reduce": nb5_1, "sorted_pack": nb5_1,
+              "hll_registers": 0, "enum_segments": 0},
+             None))
+        residency.CACHE.clear()
+        for label, ddir, tname, nbq, argv, expect, want_of in distinct_cli:
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", ddir, "-table", tname, *argv, "-json",
+                 "-device-batch", str(nbq), "-device", "cuda"])
+            if rc != 0:
+                fail(f"{label}: port CLI query exited {rc}")
+            for k, n in expect.items():
+                if ll[k] != n:
+                    fail(f"{label}: {k} launched {ll[k]}x, expected {n}: "
+                         f"{ll}")
+            rows_d = json.loads(out)
+            for r in rows_d:
+                if want_of is None:
+                    # the user's weights fed to a host HLL (int path)
+                    u = int(r["userid"][len("person"):])
+                    want_h = HLL()
+                    for wv in np.unique(w5_1[uid5_1 == u]).tolist():
+                        want_h.add(wv.to_bytes(8, "little", signed=True))
+                else:
+                    want_h = want_of(r)
+                if r["Distinct"] != want_h.cardinality():
+                    fail(f"{label}: row {r}: Distinct {r['Distinct']} vs "
+                         f"numpy {want_h.cardinality()}")
+            say(f"main path: CLI {label} on cuda: {len(rows_d)} printed "
+                f"groups' Distinct == port HLLs fed the numpy values; "
+                f"launches {ll}; wall {wall:.3f}s")
+            for k in COUNTED:
+                launches[k] += ll[k]
+
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the fifteen CLI queries: {launches}")
+        say(f"main path launches over the nineteen CLI queries: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -2668,6 +3118,39 @@ def main(argv=None) -> int:
         say(f"[{card}] config 5 aggregate (two nodes' results, host only) "
             f"wall median of 5: {median(agg_walls) * 1e3:.3f} ms; walls "
             f"{[round(x * 1e3, 3) for x in agg_walls]}")
+
+        # count distinct through run_query: walls and phases, K13 once a
+        # batch, the device HLL's merged registers against the numpy-fed
+        # HLLs byte for byte
+        host_of = (lambda r: HOSTS.index(r.group_key.rstrip("\t")))
+        sorted_expect = {"sorted_front": 1, "segment_reduce": 1,
+                         "sorted_pack": 1, "hll_registers": 0,
+                         "dense_scan": 0}
+        for label, t, f, params, nbq, expect, hlls in (
+                ("group by host, distinct index_int (device HLL)", table,
+                 flags, query_params(["host"], [], distincts=["index_int"]),
+                 B, {"hll_registers": 1, "dense_scan": 1, "dense_pack": 1},
+                 hll_int),
+                ("group by host, distinct status (device HLL)", table, flags,
+                 query_params(["host"], [], distincts=["status"]), B,
+                 {"hll_registers": 1, "dense_scan": 1, "dense_pack": 1},
+                 hll_str),
+                ("-op distinct host,status (pairs)", table, flags,
+                 query_params([], [], distincts=["host", "status"]), B,
+                 dict(sorted_expect, sort_permute=sort_steps - 1), None),
+                ("config 5 partition 1, userid, distinct weight (pair "
+                 "escalation)", t5_1, f5_1,
+                 query_params(["userid"], [], distincts=["weight"]),
+                 C5_BATCH, dict(sorted_expect, sort_permute=1), None)):
+            qrd = timed_queries(card, f"distinct {label}", t, params,
+                                dataclasses.replace(f, device="cuda",
+                                                    device_batch=nbq),
+                                args.rows if t is table else len(uid5_1),
+                                nbq if t is table else 1, expect)
+            if hlls is not None:
+                n_ = hll_check(card, label, qrd, host_of, hlls, regs=True)
+                say(f"distinct {label}: {n_} groups' merged registers == "
+                    f"the numpy-fed HLLs' byte for byte")
 
         # ---- phase 6: kernel times --------------------------------------
         ins, cs = k1_main["ping"]
@@ -3270,6 +3753,165 @@ def main(argv=None) -> int:
             f"({ng5} live groups of {R5} rows)")
         del front_sp, order_sp, k8_sp, k10_sp, main_sp, mainx
 
+        # count distinct's kernels: K13 on both hash paths, K3's HLL
+        # sections, and the pairs' K7, sorts, K8 and K10 at group by host,
+        # distinct status, ping
+        from sybil_tpu_torch.ops.scan import HLL_M
+        distinct_rows = []
+        for label, tag in (("group by host, distinct index_int", "int"),
+                           ("group by host, distinct status", "str")):
+            cfg, sub, bits, k2h = hll_ctx[label]
+            gidh = k2h["gid"]
+            slots, Sch, _ = scan.reduce_space(cfg)
+            ms = cuda_ms(lambda: scan.hll_registers(cfg, sub, gidh, bits))
+            pms = cuda_ms(lambda: scan.hll_registers_plain(cfg, sub, gidh,
+                                                           bits),
+                          iters=3, warmup=1)
+            # one torch call: scatter_reduce_ amax on int32 registers from
+            # a prebuilt flat index and rank
+            v, m = sub[cfg.distinct_cols[0]]
+            idx, rank = scan.hll_idx_rank_plain(scan._hll_hashes(
+                cfg, v.reshape(-1), m.reshape(-1), bits))
+            fidx = torch.where(gidh == Sch - 1, slots - 1, gidh).to(
+                torch.int64) * HLL_M + idx
+            lib = cuda_ms(lambda: torch.zeros(
+                slots * HLL_M, dtype=torch.int32, device=dev).scatter_reduce_(
+                    0, fidx, rank, "amax"), iters=5)
+            got_lib = torch.zeros(slots * HLL_M, dtype=torch.int32,
+                                  device=dev).scatter_reduce_(0, fidx, rank,
+                                                              "amax")
+            if not torch.equal(got_lib.to(torch.uint8).reshape(slots, HLL_M),
+                               scan.hll_registers(cfg, sub, gidh, bits)):
+                fail(f"K13 {label}: the scatter_reduce_ yardstick computes "
+                     f"another function")
+            del idx, rank, fidx, got_lib
+            # gid and the distinct column read once, a str column's hash
+            # array (nd int64 entries) read once, the planes written once.
+            # Per row: the slot, the int hash (8 FNV rounds and the
+            # finaliser: 64-bit multiplies of about 4 INT32 operations
+            # each, about 80 in all) or the hash gather, the index and
+            # rank, the register test
+            nd = (bits[cfg.hll_hash_idx].shape[0] if cfg.hll_hash_idx >= 0
+                  else 0)
+            nbytes = R * (4 + 9) + nd * 8 + slots * HLL_M
+            ops = R * (80 if tag == "int" else 20)
+            distinct_rows.append(("hll_registers", f"{label} ({tag} hash)",
+                                  "sybil_tpu/ops/scan.py:892", ms, pms,
+                                  nbytes, ops, lib))
+            say(f"[{card}] hll_registers {label}: {ms:.4f} ms (plain "
+                f"{pms:.4f} ms; scatter_reduce_ amax {lib:.4f} ms)")
+        cfg, sub, bits, k2h = hll_ctx["group by host, distinct index_int"]
+        regs_h = scan.hll_registers(cfg, sub, k2h["gid"], bits)
+        layh = scan.packed_layout(cfg, R)
+        mainh = torch.empty((layh["rows"], layh["W"]), dtype=torch.int64,
+                            device=dev)
+        k3h_ms = cuda_ms(lambda: scan.dense_pack(cfg, k2h, [], [], mainh, R,
+                                                 regs_h), iters=200)
+        k3h_plain = cuda_ms(lambda: scan.dense_pack_plain(
+            cfg, k2h, [], [], mainh, R, regs_h), iters=20)
+        Sch = scan.reduce_space(cfg)[1]
+        # the sums read, the shipped planes read, the buffer written
+        k3h_bytes = (Sch * (2 + 3 * len(cfg.aggs)) * 8 + 8
+                     + layh["Phll"] * HLL_M + layh["rows"] * layh["W"] * 8)
+        distinct_rows.append(("dense_pack", f"HLL sections ({layh['Phll']} "
+                              f"planes, group by host, distinct index_int)",
+                              "sybil_tpu/ops/scan.py:1934", k3h_ms,
+                              k3h_plain, k3h_bytes, 0, None))
+        say(f"[{card}] dense_pack HLL sections: {k3h_ms:.4f} ms (plain "
+            f"{k3h_plain:.4f} ms)")
+        del regs_h, mainh
+        plabel = "group by host, distinct status, ping"
+        cfg, sub, nr, parts = pair_ctx[plabel]
+        K, D = cfg.n_key_cols, len(cfg.distinct_cols)
+        S, L = cfg.max_groups, 2 + 3 * len(cfg.aggs)
+        k7d_ms = cuda_ms(lambda: scan.sorted_front(cfg, sub, nr))
+        k7d_plain = cuda_ms(lambda: scan.sorted_front_plain(cfg, sub, nr),
+                            iters=5)
+        # each key and distinct column read once, nrec; idxm and the K + D
+        # lanes written.  Per row: the range test, each lane's value
+        distinct_rows.append(("sorted_front", f"{plabel}: K + D = {K + D} "
+                              f"lanes", "sybil_tpu/ops/scan.py:435", k7d_ms,
+                              k7d_plain, len(sub) * R * 9 + B * 4
+                              + R * (4 + 8 * (K + D)), R * (6 + 6 * (K + D)),
+                              None))
+        frontd, orderd = parts["front"], parts["order"]
+        for k in range(K + D - 1, -1, -1):
+            lane = frontd["keys"][k]
+            say(f"[{card}] sorts, {plabel}: lane {k} stable torch.sort of "
+                f"int64 [{R}] {cuda_ms(lambda: torch.sort(lane, stable=True)):.4f}"
+                f" ms (bound {sort_bound_ms(R, 8):.4f} ms)")
+        k8d_ms = cuda_ms(lambda: scan.segment_reduce(cfg, sub, frontd,
+                                                     orderd))
+        k8d_plain = cuda_ms(lambda: scan.segment_reduce_plain(
+            cfg, sub, frontd, orderd), iters=5)
+        k8d = parts["k8"]
+        cg = torch.where((k8d["sidxm"] < 0) & (k8d["gid"] < S), k8d["gid"],
+                         S).to(torch.int64)
+        lanes = torch.ones((R, L), dtype=torch.int64, device=dev)
+        k8d_lib = cuda_ms(lambda: torch.zeros(
+            (S + 1, L), dtype=torch.int64, device=dev).index_add_(
+                0, cg, lanes), iters=5)
+        del lanes, cg
+        # p and base read, idxm and the K + D lanes gathered, kmat, dmat,
+        # the pair mask, sidxm and gid written, the tables written.  Per
+        # row: the boundary tests over K + D lanes, a block scan, the
+        # warp-run sums of the two lanes
+        k8d_bytes = (R * 16 + R * 4 + R * 8 * (K + D) + R * (8 * (K + D) + 9)
+                     + (S + 1) * L * 8 + S * K * 8)
+        distinct_rows.append(("segment_reduce", f"{plabel}: the pair mask",
+                              "sybil_tpu/ops/scan.py:1191", k8d_ms,
+                              k8d_plain, k8d_bytes,
+                              R * (12 + 4 * (K + D) + 12 * L), k8d_lib))
+        layd = scan.packed_layout(cfg, R)
+        maind = torch.empty((layd["rows"], layd["W"]), dtype=torch.int64,
+                            device=dev)
+        spd = frontd["spill"]
+        k10d_ms = cuda_ms(lambda: scan.sorted_pack(cfg, k8d, spd, [], [],
+                                                   maind, R), iters=50)
+        k10d_plain = cuda_ms(lambda: scan.sorted_pack_plain(
+            cfg, k8d, spd, [], [], maind, R), iters=5)
+        kmaxd = layd["kmax_pairs"]
+        Wtd = scan.table_width(cfg)
+        k10d_bytes = ((S + 1) * L * 8 + S * K * 8 + 16 + S * Wtd * 8
+                      + scan.table_prefix(cfg) * layd["W"] * 8 + R
+                      + kmaxd * ((K + D) * 8 + layd["W"] * 8))
+        distinct_rows.append(("sorted_pack", f"{plabel}: the pair section "
+                              f"({kmaxd} rows)", "sybil_tpu/ops/scan.py:1925",
+                              k10d_ms, k10d_plain, k10d_bytes, S * Wtd + R,
+                              None))
+        say(f"[{card}] {plabel}: K7 {k7d_ms:.4f}, K8 {k8d_ms:.4f}, K10 "
+            f"{k10d_ms:.4f} ms")
+        del maind
+        # K5 over the sorted keys (kmat) at path 1's shape, outlier
+        # tracking forced on (the bench data has no live outlier rows)
+        cfg_t = dataclasses.replace(cfg_p1, track_outliers=True)
+        front_t = scan.sorted_front(cfg_t, cols_p1, nrec, fv_p1, bits_p1)
+        k8_t = scan.segment_reduce(cfg_t, cols_p1, front_t,
+                                   scan.sort_rows(cfg_t, front_t))
+        prep_t = scan.hist_prep(cfg_t, 0, cols_p1, k8_t)
+        lay_t = scan.packed_layout(cfg_t, R)
+        main_t = torch.empty((lay_t["rows"], lay_t["W"]), dtype=torch.int64,
+                             device=dev)
+        off_t, kmax_t = lay_t["out0"]
+        mk_t, vk_t, kmat_t = prep_t["out_mask"], prep_t["out_val"], \
+            k8_t["kmat"]
+        k5k_ms = cuda_ms(lambda: scan.outlier_compact(
+            cfg_t, cols_p1, mk_t, vk_t, main_t, off_t, 1, kmat=kmat_t),
+            iters=50)
+        k5k_plain = cuda_ms(lambda: scan.outlier_compact_plain(
+            cfg_t, cols_p1, mk_t, vk_t, main_t, off_t, 1, kmat=kmat_t),
+            iters=5)
+        k5k_lib = cuda_ms(lambda: kmat_t[torch.nonzero(mk_t).reshape(-1)
+                                         [:kmax_t]], iters=20)
+        n5k = int(prep_t["nout"].item())
+        Kt = cfg_t.n_key_cols
+        distinct_rows.append((
+            "outlier_compact", f"path 1 over kmat ({n5k} outliers)",
+            "sybil_tpu/ops/scan.py:1802", k5k_ms, k5k_plain,
+            R + min(n5k, kmax_t) * (8 * Kt + 8) + kmax_t * lay_t["W"] * 8,
+            R * 2 + kmax_t * lay_t["W"], k5k_lib))
+        del front_t, k8_t, prep_t, main_t
+
         k2c3 = k2_times["config 3"]
         k4c3 = k4_times["config 3"]
         rows_out = []
@@ -3303,7 +3945,7 @@ def main(argv=None) -> int:
                  k5_ops, k5_lib_ms),
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
-                *sorted_rows, *c5_rows):
+                *sorted_rows, *c5_rows, *distinct_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)

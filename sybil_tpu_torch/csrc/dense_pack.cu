@@ -14,7 +14,11 @@
 // ascending order, as top_k breaks ties toward the lower index), then
 // each aggregation's bucket rows gathered at those gids, flattened
 // row-major.  The outlier rows between the table and the histogram
-// sections are K5's; this kernel leaves them alone.
+// sections are K5's; this kernel leaves them alone.  With the device HLL
+// (1934-1945) it also writes the HLL sections: the gids of the first
+// Phll slots of the same top_k order, then each of those slots' 2^14
+// uint8 registers (K13's planes) as 2048 little-endian int64 words, and
+// leaves the npairs meta word 0.
 //
 // Bound: launch latency.  It reads the small sum, min/max and bucket
 // tables and writes a buffer of a few to a few hundred KB.  Design: one
@@ -28,32 +32,38 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "desc.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr int MAXC = 2 + 3 * 32;
-constexpr int MAXH = 32;
+constexpr int HLL_WORDS = (1 << 14) / 8;  // one register plane, int64 words
 constexpr long long BIG = 1ll << 62;
 
 }  // namespace
 
-// Mirrored field for field by DensePackArgs in ops/scan.py (ctypes).
+// Mirrored field for field by DensePackArgs in ops/scan.py (ctypes).  The
+// per-aggregation and per-column arrays point into the descriptor block
+// (desc.cuh).
 struct DensePackArgs {
+  Desc desc;
   const unsigned long long* sums;   // [Sc, L]
   const unsigned long long* spill;  // [1]
   const long long* mins;            // [Sc, H]
   const long long* maxs;            // [Sc, H]
-  const unsigned long long* nout[MAXH];   // [1] per hist agg, or null
-  const unsigned long long* hist[MAXH];   // [Sc, nv_h] per hist agg
+  const unsigned long long* const* nout;  // [H] [1] per hist agg, or null
+  const unsigned long long* const* hist;  // [H] [Sc, nv_h] per hist agg
+  const long long* hist_row;        // [H] first row of each bucket matrix
+  const long long* hist_nv;         // [H]
+  const long long* lane;  // [ncols] lane of each wire column (even if i32)
+  const unsigned long long* hll;    // [slots, 2048] K13's planes, or null
   unsigned long long* main;         // [rows, W]
   long long rows;
   long long out_lo;                 // [out_lo, out_hi): K5's rows
   long long out_hi;
   long long gid_row;                // first row of the hist gid section
-  long long hist_row[MAXH];         // first row of each bucket matrix
-  int hist_nv[MAXH];
-  int lane[MAXC];  // lane index of each wire column (already even if i32)
+  long long hll_gid_row;            // first row of the HLL gid section
+  long long hll_reg_row;            // first row of the HLL planes
   int ncols;
   int i32;
   int slots;
@@ -63,7 +73,7 @@ struct DensePackArgs {
   int W;
   int H;        // histogram aggregations
   int Ph;       // hist gid rows shipped (0 without hist aggs)
-  int pad_;
+  int Phll;     // HLL planes shipped (0 without the device HLL)
 };
 
 namespace {
@@ -83,7 +93,8 @@ __device__ __forceinline__ bool slot_live(const DensePackArgs& a, int s) {
 
 __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
     const DensePackArgs a) {
-  extern __shared__ int s_gidx[];   // [Ph]
+  extern __shared__ int s_gidx[];   // [max(Ph, Phll)]
+  const int ng = a.Ph > a.Phll ? a.Ph : a.Phll;
   const int wpr = (a.i32 ? a.ncols / 2 : a.ncols) + 2 * a.H;
   int nlive = 0;
   for (int base = 0; base < a.slots; base += THREADS) {
@@ -105,7 +116,7 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
       for (int w = 0; w < npack; ++w) {
         unsigned long long word[2];
         for (int h = 0; h < per; ++h) {
-          const int lane = a.lane[w * per + h];
+          const int lane = (int)desc_at(a.desc, a.lane, w * per + h);
           unsigned long long x = src >= 0 ? row[lane] : 0ull;
           if (lane == 0) x = count;
           if (lane == 1) x = samples;
@@ -124,57 +135,73 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
     }
     int n;
     const int pre = block_scan<THREADS>(live ? 1 : 0, &n);
-    if (live && nlive + pre < a.Ph) s_gidx[nlive + pre] = s;
+    if (live && nlive + pre < ng) s_gidx[nlive + pre] = s;
     nlive += n;
   }
   // non-live slots follow the live ones, in ascending order
   int ndead = 0;
-  for (int base = 0; base < a.slots && nlive + ndead < a.Ph;
+  for (int base = 0; base < a.slots && nlive + ndead < ng;
        base += THREADS) {
     const int s = base + threadIdx.x;
     const bool dead = s < a.slots && !slot_live(a, s);
     int n;
     const int pre = block_scan<THREADS>(dead ? 1 : 0, &n);
-    if (dead && nlive + ndead + pre < a.Ph) s_gidx[nlive + ndead + pre] = s;
+    if (dead && nlive + ndead + pre < ng) s_gidx[nlive + ndead + pre] = s;
     ndead += n;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     a.main[0] = (unsigned long long)nlive;
     a.main[1] = *a.spill;
-    for (int h = 0; h < a.H; ++h)
-      if (a.nout[h]) a.main[2 + h] = *a.nout[h];
+    for (int h = 0; h < a.H; ++h) {
+      const unsigned long long* nout = desc_at(a.desc, a.nout, h);
+      if (nout) a.main[2 + h] = *nout;
+    }
+  }
+  if (a.Phll) {
+    unsigned long long* hg = a.main + (size_t)a.hll_gid_row * a.W;
+    for (int i = threadIdx.x; i < a.Phll; i += THREADS) hg[i] = s_gidx[i];
+    unsigned long long* dst = a.main + (size_t)a.hll_reg_row * a.W;
+    for (int i = threadIdx.x; i < a.Phll * HLL_WORDS; i += THREADS)
+      dst[i] = a.hll[(size_t)s_gidx[i / HLL_WORDS] * HLL_WORDS +
+                     i % HLL_WORDS];
   }
   if (a.Ph == 0) return;
   unsigned long long* gids = a.main + (size_t)a.gid_row * a.W;
   for (int i = threadIdx.x; i < a.Ph; i += THREADS) gids[i] = s_gidx[i];
   for (int h = 0; h < a.H; ++h) {
-    const int nv = a.hist_nv[h];
-    unsigned long long* dst = a.main + (size_t)a.hist_row[h] * a.W;
+    const int nv = (int)desc_at(a.desc, a.hist_nv, h);
+    unsigned long long* dst =
+        a.main + (size_t)desc_at(a.desc, a.hist_row, h) * a.W;
+    const auto* hist = desc_at(a.desc, a.hist, h);
     const int n = a.Ph * nv;
     for (int i = threadIdx.x; i < n; i += THREADS) {
       const int src = src_row(a, s_gidx[i / nv]);
-      dst[i] = src >= 0 ? a.hist[h][(size_t)src * nv + i % nv] : 0ull;
+      dst[i] = src >= 0 ? hist[(size_t)src * nv + i % nv] : 0ull;
     }
   }
 }
 
 }  // namespace
 
-// Zeroes the words of `main` this kernel owns (all but K5's outlier rows
-// [out_lo, out_hi)) on `stream`, then writes them.  Returns cudaError_t.
+// Copies the descriptor block and zeroes the words of `main` this kernel
+// owns (all but K5's outlier rows [out_lo, out_hi)) on `stream`, then
+// writes them.  Returns cudaError_t.
 extern "C" int dense_pack(const DensePackArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t row_bytes = (size_t)args->W * sizeof(long long);
-  cudaError_t err = cudaMemsetAsync(args->main, 0, args->out_lo * row_bytes,
-                                    st);
+  if (args->Phll && !args->hll) return cudaErrorInvalidValue;
+  cudaError_t err = desc_upload(args->desc, st);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(args->main, 0, args->out_lo * row_bytes, st);
   if (err != cudaSuccess) return err;
   if (args->rows > args->out_hi) {
     err = cudaMemsetAsync(args->main + (size_t)args->out_hi * args->W, 0,
                           (args->rows - args->out_hi) * row_bytes, st);
     if (err != cudaSuccess) return err;
   }
-  const size_t shm = (size_t)args->Ph * sizeof(int);
+  const size_t shm =
+      (size_t)(args->Ph > args->Phll ? args->Ph : args->Phll) * sizeof(int);
   dense_pack_kernel<<<1, THREADS, shm, st>>>(*args);
   return cudaGetLastError();
 }

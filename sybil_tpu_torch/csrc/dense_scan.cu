@@ -63,32 +63,38 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "desc.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAXK = 16;
-constexpr int MAXA = 32;
-constexpr int MAXF = 16;
 constexpr long long BIG = 1ll << 62;
+constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
 
 }  // namespace
 
-// Mirrored field for field by DenseScanArgs in ops/scan.py (ctypes).
+// Mirrored field for field by DenseScanArgs in ops/scan.py (ctypes).  The
+// per-key, per-aggregation and per-filter arrays point into the
+// descriptor block (desc.cuh), so the counts of keys, aggregations and
+// filters have no fixed cap.
 struct DenseScanArgs {
-  const long long* key_vals[MAXK];    // [time?, *groups]; time's unused
-  const unsigned char* key_valid[MAXK];
-  long long key_min[MAXK];
-  long long key_card[MAXK];
-  const long long* agg_vals[MAXA];
-  const unsigned char* agg_valid[MAXA];
-  long long agg_dmin[MAXA];
-  long long agg_dmax[MAXA];
-  long long agg_bias[MAXA];
-  const long long* f_vals[MAXF];
-  const unsigned char* f_valid[MAXF];
-  const unsigned char* f_bits[MAXF];  // regex bitsets (re/nre) or null
-  long long f_bits_len[MAXF];
-  const long long* filter_vals;       // [F] filter constants, on device
+  Desc desc;
+  const long long* const* key_vals;   // [nkeys] [time?, *groups]; time's unused
+  const unsigned char* const* key_valid;
+  const long long* key_min;           // [nkeys]
+  const long long* key_card;
+  const long long* const* agg_vals;   // [naggs]
+  const unsigned char* const* agg_valid;
+  const long long* agg_dmin;
+  const long long* agg_dmax;
+  const long long* agg_bias;
+  const long long* agg_mm;            // min/max column of each agg, -1 = none
+  const long long* const* f_vals;     // [nfilters]
+  const unsigned char* const* f_valid;
+  const unsigned char* const* f_bits; // regex bitsets (re/nre) or null
+  const long long* f_bits_len;
+  const long long* f_op;  // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre, 6 never
+  const long long* filter_vals;       // [nfilters] filter constants
   const long long* w_vals;
   const unsigned char* w_valid;
   const long long* t_vals;            // time column (has_time)
@@ -101,8 +107,6 @@ struct DenseScanArgs {
   int* gid_out;               // [R] reduce-space gid, or null
   long long R;
   long long tb;               // time bucket (> 0)
-  int f_op[MAXF];             // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre, 6 never
-  int agg_mm[MAXA];           // min/max column of each agg, -1 = none
   int log2C;
   int nkeys;                  // key digits, the time key included
   int naggs;
@@ -121,21 +125,23 @@ struct DenseScanArgs {
 
 namespace {
 
+template <bool HEAD>
 __device__ __forceinline__ bool passes(const DenseScanArgs& a, int i,
                                        long long r, long long fv) {
-  if (!a.f_valid[i][r]) return false;
-  const long long v = a.f_vals[i][r];
-  switch (a.f_op[i]) {
+  if (!desc_at<HEAD>(a.desc, a.f_valid, i)[r]) return false;
+  const long long v = desc_at<HEAD>(a.desc, a.f_vals, i)[r];
+  const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
+  switch (op) {
     case 0: return v > fv;
     case 1: return v < fv;
     case 2: return v == fv;
     case 3: return v != fv;
     case 4:
     case 5: {
-      const long long n = a.f_bits_len[i];
+      const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
       const long long j = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
-      const bool hit = a.f_bits[i][j] != 0;
-      return a.f_op[i] == 4 ? hit : !hit;
+      const bool hit = desc_at<HEAD>(a.desc, a.f_bits, i)[j] != 0;
+      return op == 4 ? hit : !hit;
     }
     default: return false;
   }
@@ -152,27 +158,33 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
   return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
 }
 
-// Row r's match and reduce-space gid.  Returns false for an unmatched
-// row (gid and spill untouched).  TIME (the time key is key 0) is a
-// template parameter and the time digit is peeled off the key loop: a
-// branch on it inside the loop made K2 a third slower or more on scans
-// without a time key (sybil_tpu_torch/k2_ab.py on the H100).
-template <bool TIME>
+// Row r's match and reduce-space gid (s_fv: the first FV_SMEM filter
+// constants).  Returns false for an unmatched row (gid and spill
+// untouched).  TIME (the time key is key 0) is a template parameter and
+// the time digit is peeled off the key loop: a branch on it inside the
+// loop made K2 a third slower or more on scans without a time key
+// (sybil_tpu_torch/k2_ab.py on the H100).  So is HEAD, where the
+// descriptor block lies (desc.cuh).
+template <bool TIME, bool HEAD>
 __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
-                                        const long long* fv, int* gid_out,
+                                        const long long* s_fv, int* gid_out,
                                         bool* spill_out) {
   const long long cmask = (1ll << a.log2C) - 1;
   bool matched = (r & cmask) < a.nrec[r >> a.log2C];
-  for (int i = 0; matched && i < a.nfilters; ++i)
-    matched = passes(a, i, r, fv[i]);
+  // the staged constants first, the rest (past FV_SMEM) from global
+  const int nfs = min(a.nfilters, FV_SMEM);
+  for (int i = 0; matched && i < nfs; ++i)
+    matched = passes<HEAD>(a, i, r, s_fv[i]);
+  for (int i = FV_SMEM; matched && i < a.nfilters; ++i)
+    matched = passes<HEAD>(a, i, r, a.filter_vals[i]);
   if (TIME && matched) matched = a.t_valid[r] != 0;
   if (!matched) return false;
   int gid = 0;
   bool spilled = false;
   int first = 0;
   if (TIME) {
-    const long long mn = a.key_min[0];
-    const long long card = a.key_card[0];
+    const long long mn = desc_at<HEAD>(a.desc, a.key_min, 0);
+    const long long card = desc_at<HEAD>(a.desc, a.key_card, 0);
     const long long t = a.t_vals[r];
     long long q, digit;
     if (a.time_i32) {
@@ -192,9 +204,10 @@ __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
     first = 1;
   }
   for (int i = first; i < a.nkeys; ++i) {
-    const long long k = a.key_valid[i][r] ? a.key_vals[i][r] : -1ll;
-    const long long mn = a.key_min[i];
-    const long long card = a.key_card[i];
+    const long long k = desc_at<HEAD>(a.desc, a.key_valid, i)[r]
+                            ? desc_at<HEAD>(a.desc, a.key_vals, i)[r] : -1ll;
+    const long long mn = desc_at<HEAD>(a.desc, a.key_min, i);
+    const long long card = desc_at<HEAD>(a.desc, a.key_card, i);
     long long digit = 0;
     if (k != -1ll) {
       digit = (long long)((unsigned long long)k - (unsigned long long)mn
@@ -214,6 +227,7 @@ __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
 
 // Adds matched row r's lanes to `row` ([L] sums) and its kept values to
 // `mn`/`mx` ([H] min and max) of its slot.
+template <bool HEAD>
 __device__ __forceinline__ void accumulate(const DenseScanArgs& a,
                                            long long r,
                                            unsigned long long* row,
@@ -223,11 +237,13 @@ __device__ __forceinline__ void accumulate(const DenseScanArgs& a,
   if (w) atomicAdd(row, w);
   atomicAdd(row + 1, 1ull);
   for (int ai = 0; ai < a.naggs; ++ai) {
-    if (!a.agg_valid[ai][r]) continue;
-    const long long v = a.agg_vals[ai][r];
+    if (!desc_at<HEAD>(a.desc, a.agg_valid, ai)[r]) continue;
+    const long long v = desc_at<HEAD>(a.desc, a.agg_vals, ai)[r];
     atomicAdd(row + 2 + 3 * ai, 1ull);
-    if (v > a.agg_dmax[ai] || v < a.agg_dmin[ai]) continue;  // not kept
-    const int mm = a.agg_mm[ai];
+    if (v > desc_at<HEAD>(a.desc, a.agg_dmax, ai) ||
+        v < desc_at<HEAD>(a.desc, a.agg_dmin, ai))
+      continue;  // not kept
+    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
     if (mm >= 0) {
       if (v < *(volatile long long*)(mn + mm)) atomicMin(mn + mm, v);
       if (v > *(volatile long long*)(mx + mm)) atomicMax(mx + mm, v);
@@ -235,22 +251,22 @@ __device__ __forceinline__ void accumulate(const DenseScanArgs& a,
     if (!w) continue;
     atomicAdd(row + 3 + 3 * ai, w);
     const unsigned long long kwv =
-        w * ((unsigned long long)v - (unsigned long long)a.agg_bias[ai]);
+        w * ((unsigned long long)v -
+             (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias, ai));
     if (kwv) atomicAdd(row + 4 + 3 * ai, kwv);
   }
 }
 
-__device__ __forceinline__ void load_filter_vals(const DenseScanArgs& a,
-                                                 long long* s_fv) {
-  if (threadIdx.x < a.nfilters) s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
-}
-
-template <bool SHARED, bool TIME>
-__global__ void __launch_bounds__(THREADS) dense_scan_kernel(
+// At most 32 registers a thread, so the 8 CTAs a SM that the wrapper's
+// grid assumes fit: left free, the descriptor offsets hoisted out of the
+// row loop took 48, 5 CTAs fit, and K2 ran 19% (config 1's shape) and
+// 63% (config 3's) slower, a second wave included (k2_ab.py on the H100).
+template <bool SHARED, bool TIME, bool HEAD>
+__global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_tab[];
   __shared__ unsigned long long s_spill;
-  __shared__ long long s_fv[MAXF];
+  __shared__ long long s_fv[FV_SMEM];
   const int tabn = a.Sc * a.L;
   const int mmn = a.Sc * a.H;
   long long* s_min = reinterpret_cast<long long*>(s_tab + tabn);
@@ -262,7 +278,8 @@ __global__ void __launch_bounds__(THREADS) dense_scan_kernel(
       s_max[i] = -BIG;
     }
   }
-  load_filter_vals(a, s_fv);
+  if (threadIdx.x < min(a.nfilters, FV_SMEM))
+    s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
   if (threadIdx.x == 0) s_spill = 0ull;
   __syncthreads();
   unsigned long long* tab = SHARED ? s_tab : a.sums;
@@ -274,14 +291,14 @@ __global__ void __launch_bounds__(THREADS) dense_scan_kernel(
        r < a.R; r += (long long)gridDim.x * THREADS) {
     int gid;
     bool spilled;
-    if (!row_gid<TIME>(a, r, s_fv, &gid, &spilled)) {
+    if (!row_gid<TIME, HEAD>(a, r, s_fv, &gid, &spilled)) {
       if (a.gid_out) a.gid_out[r] = a.Sc - 1;
       continue;
     }
     if (a.gid_out) a.gid_out[r] = gid;
     my_spill += spilled;
-    accumulate(a, r, tab + (size_t)gid * a.L, mins + (size_t)gid * a.H,
-               maxs + (size_t)gid * a.H);
+    accumulate<HEAD>(a, r, tab + (size_t)gid * a.L,
+                     mins + (size_t)gid * a.H, maxs + (size_t)gid * a.H);
   }
   if (my_spill) atomicAdd(&s_spill, my_spill);
   __syncthreads();
@@ -296,19 +313,20 @@ __global__ void __launch_bounds__(THREADS) dense_scan_kernel(
   if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
 }
 
-template <bool TIME>
+template <bool TIME, bool HEAD>
 __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_band[];
   __shared__ unsigned long long s_spill;
-  __shared__ long long s_fv[MAXF];
+  __shared__ long long s_fv[FV_SMEM];
   __shared__ int s_lo, s_hi;
   const int band = a.band, chunk = a.chunk, L = a.L, H = a.H;
   const int dead = a.Sc - 1;
   long long* s_min = reinterpret_cast<long long*>(s_band + band * L);
   long long* s_max = s_min + band * H;
   int* s_gid = reinterpret_cast<int*>(s_max + band * H);
-  load_filter_vals(a, s_fv);
+  if (threadIdx.x < min(a.nfilters, FV_SMEM))
+    s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
   if (threadIdx.x == 0) s_spill = 0ull;
   unsigned long long my_spill = 0ull;
   const long long nchunks = a.R / chunk;
@@ -324,7 +342,7 @@ __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
     for (int i = threadIdx.x; i < chunk; i += THREADS) {
       int gid;
       bool spilled;
-      if (row_gid<TIME>(a, r0 + i, s_fv, &gid, &spilled)) {
+      if (row_gid<TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled)) {
         my_spill += spilled;
         lo = min(lo, gid);
         hi = max(hi, gid);
@@ -353,8 +371,8 @@ __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
         const int g = s_gid[i];
         if (g < b0 || g >= b0 + band || g == dead) continue;
         const int o = g - b0;
-        accumulate(a, r0 + i, s_band + (size_t)o * L, s_min + (size_t)o * H,
-                   s_max + (size_t)o * H);
+        accumulate<HEAD>(a, r0 + i, s_band + (size_t)o * L,
+                         s_min + (size_t)o * H, s_max + (size_t)o * H);
       }
       __syncthreads();
       const int nrows = min(band, a.Sc - b0);
@@ -382,7 +400,7 @@ __global__ void fill_bounds(long long* mins, long long* maxs, int n) {
   }
 }
 
-template <bool TIME>
+template <bool TIME, bool HEAD>
 cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
                         size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
   cudaError_t err;
@@ -391,20 +409,20 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
       return cudaErrorInvalidValue;
     const size_t shm = (size_t)args->band * (args->L + 2 * args->H) * 8 +
                        (size_t)args->chunk * sizeof(int);
-    err = cudaFuncSetAttribute(dense_scan_windowed<TIME>,
+    err = cudaFuncSetAttribute(dense_scan_windowed<TIME, HEAD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_windowed<TIME><<<grid, THREADS, shm, s>>>(*args);
+    dense_scan_windowed<TIME, HEAD><<<grid, THREADS, shm, s>>>(*args);
   } else if (form == 1) {
     const size_t shm = tab_bytes + mm_bytes;
-    err = cudaFuncSetAttribute(dense_scan_kernel<true, TIME>,
+    err = cudaFuncSetAttribute(dense_scan_kernel<true, TIME, HEAD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_kernel<true, TIME><<<grid, THREADS, shm, s>>>(*args);
+    dense_scan_kernel<true, TIME, HEAD><<<grid, THREADS, shm, s>>>(*args);
   } else if (form == 0) {
-    dense_scan_kernel<false, TIME><<<grid, THREADS, 0, s>>>(*args);
+    dense_scan_kernel<false, TIME, HEAD><<<grid, THREADS, 0, s>>>(*args);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -413,17 +431,19 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
 
 }  // namespace
 
-// Zeroes sums and spill and sets the min/max tables to their sentinels
-// on `stream`, then launches one form: 0 global atomics, 1 per-CTA
-// shared tables, 2 windowed bands (band, chunk set; chunk divides R).
-// Returns cudaError_t.
+// Copies the descriptor block, zeroes sums and spill and sets the
+// min/max tables to their sentinels on `stream`, then launches one form:
+// 0 global atomics, 1 per-CTA shared tables, 2 windowed bands (band,
+// chunk set; chunk divides R).  Returns cudaError_t.
 extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t tab_bytes =
       (size_t)args->Sc * args->L * sizeof(unsigned long long);
   const size_t mm_bytes = (size_t)args->Sc * args->H * 2 * sizeof(long long);
-  cudaError_t err = cudaMemsetAsync(args->sums, 0, tab_bytes, s);
+  cudaError_t err = desc_upload(args->desc, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(args->sums, 0, tab_bytes, s);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return err;
@@ -434,7 +454,14 @@ extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return args->has_time
-             ? launch_form<true>(args, form, grid, tab_bytes, mm_bytes, s)
-             : launch_form<false>(args, form, grid, tab_bytes, mm_bytes, s);
+  const bool head = args->desc.n <= DESC_HEAD;
+  if (args->has_time)
+    return head ? launch_form<true, true>(args, form, grid, tab_bytes,
+                                          mm_bytes, s)
+                : launch_form<true, false>(args, form, grid, tab_bytes,
+                                           mm_bytes, s);
+  return head ? launch_form<false, true>(args, form, grid, tab_bytes,
+                                         mm_bytes, s)
+              : launch_form<false, false>(args, form, grid, tab_bytes,
+                                          mm_bytes, s);
 }

@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "desc.cuh"
 #include <math_constants.h>
 
 namespace {
@@ -51,20 +52,22 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE = 4096;
 constexpr int SCAN_THREADS = 1024;
-constexpr int MAXA = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
-// Mirrored field for field by EnumSegmentsArgs in ops/scan.py (ctypes).
+// Mirrored field for field by EnumSegmentsArgs in ops/scan.py (ctypes).  The
+// per-aggregation arrays point into the descriptor block (desc.cuh), of
+// [naggs] each.
 struct EnumSegmentsArgs {
+  Desc desc;
   const int* skey;                 // [R] sorted packed key
   const long long* p;              // [R] the sort's indices: original rows
-  const long long* agg_vals[MAXA];
-  const unsigned char* agg_valid[MAXA];
-  long long agg_dmin[MAXA];
-  long long agg_dmax[MAXA];
-  long long agg_bias[MAXA];
+  const long long* const* agg_vals;
+  const unsigned char* const* agg_valid;
+  const long long* agg_dmin;
+  const long long* agg_dmax;
+  const long long* agg_bias;
   const long long* w_vals;         // weight column (has_weight)
   const unsigned char* w_valid;
   int* gid;                        // [R]
@@ -180,16 +183,18 @@ __global__ void __launch_bounds__(THREADS) reduce_kernel(
     x = run_sum(live ? 1ull : 0ull, lane, end);
     if (add && x) atomicAdd(row + 1, x);
     for (int ai = 0; ai < a.naggs; ++ai) {
-      const bool valid = live && a.agg_valid[ai][r];
-      const long long v = valid ? a.agg_vals[ai][r] : 0ll;
-      const bool keep = valid && !(v > a.agg_dmax[ai] || v < a.agg_dmin[ai]);
+      const bool valid = live && desc_at(a.desc, a.agg_valid, ai)[r];
+      const long long v = valid ? desc_at(a.desc, a.agg_vals, ai)[r] : 0ll;
+      const bool keep = valid && !(v > desc_at(a.desc, a.agg_dmax, ai) ||
+                                   v < desc_at(a.desc, a.agg_dmin, ai));
       x = run_sum(valid ? 1ull : 0ull, lane, end);
       if (add && x) atomicAdd(row + 2 + 3 * ai, x);
       x = run_sum(keep ? w : 0ull, lane, end);
       if (add && x) atomicAdd(row + 3 + 3 * ai, x);
-      x = run_sum(keep ? w * ((unsigned long long)v -
-                              (unsigned long long)a.agg_bias[ai])
-                       : 0ull, lane, end);
+      const unsigned long long bias =
+          (unsigned long long)desc_at(a.desc, a.agg_bias, ai);
+      x = run_sum(keep ? w * ((unsigned long long)v - bias) : 0ull, lane,
+                  end);
       if (add && x) atomicAdd(row + 4 + 3 * ai, x);
     }
   }
@@ -217,18 +222,21 @@ __global__ void __launch_bounds__(THREADS) score_kernel(
 
 }  // namespace
 
-// Zeroes the sums on `stream`, then runs the four launches; `grid` sizes
+// Copies the descriptor block and zeroes the sums on `stream`, then runs
+// the four launches; `grid` sizes
 // the score pass.  Returns cudaError_t.
 extern "C" int enum_segments(const EnumSegmentsArgs* args, int grid,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EnumSegmentsArgs& a = *args;
   if (a.R < 1 || a.R >= (1ll << 31) ||
-      a.ntiles != (int)((a.R + TILE - 1) / TILE) || a.naggs > MAXA ||
+      a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
       a.L != 2 + 3 * a.naggs || a.Smax < 1 ||
       a.prune_agg >= a.naggs)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(
+  cudaError_t err = desc_upload(a.desc, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(
       a.sums, 0, (size_t)a.Smax * a.L * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return err;
   count_tiles<<<a.ntiles, THREADS, 0, s>>>(a);

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "desc.cuh"
 
 namespace {
 
@@ -38,16 +39,18 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 4096;
 constexpr int SCAN_THREADS = 1024;
-constexpr int MAXK = 16;
 
 }  // namespace
 
 // Mirrored field for field by OutlierCompactArgs in ops/scan.py (ctypes).
+// key_vals and key_valid point into the descriptor block (desc.cuh), of
+// [nkeys] each.
 struct OutlierCompactArgs {
+  Desc desc;
   const unsigned char* mask;   // [R]
   const long long* vals;       // [R]
-  const long long* key_vals[MAXK];
-  const unsigned char* key_valid[MAXK];
+  const long long* const* key_vals;
+  const unsigned char* const* key_valid;
   const long long* t_vals;     // time column (has_time)
   const long long* kmat;       // [R, kmat_K] sorted keys, or null
   long long* out;              // [kmax, W] rows of the download buffer
@@ -75,7 +78,8 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
   return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
 }
 
-__device__ long long time_key(const OutlierCompactArgs& a, long long t) {
+__device__ __forceinline__ long long time_key(const OutlierCompactArgs& a,
+                                              long long t) {
   if (a.time_i32) {
     const int tb = static_cast<int>(a.tb);
     const int q = go_trunc_div<int, unsigned>(static_cast<int>(t), tb);
@@ -86,8 +90,9 @@ __device__ long long time_key(const OutlierCompactArgs& a, long long t) {
   return (long long)((unsigned long long)q * (unsigned long long)a.tb);
 }
 
-__device__ void write_row(const OutlierCompactArgs& a, long long j,
-                          long long r, long long live) {
+__device__ __forceinline__ void write_row(const OutlierCompactArgs& a,
+                                          long long j, long long r,
+                                          long long live) {
   long long* o = a.out + j * a.W;
   const int nk = a.nkeys + a.has_time;
   int K = nk > 0 ? nk : 1;
@@ -97,7 +102,8 @@ __device__ void write_row(const OutlierCompactArgs& a, long long j,
   } else {
     if (a.has_time) o[0] = time_key(a, a.t_vals[r]);
     for (int k = 0; k < a.nkeys; ++k)
-      o[a.has_time + k] = a.key_valid[k][r] ? a.key_vals[k][r] : -1ll;
+      o[a.has_time + k] = desc_at(a.desc, a.key_valid, k)[r]
+                              ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;
     if (nk == 0) o[0] = 0;
   }
   o[K] = a.vals[r];
@@ -159,11 +165,14 @@ __global__ void __launch_bounds__(THREADS) write_rows(
 
 }  // namespace
 
-// Runs the three steps on `stream`.  Returns cudaError_t.
+// Copies the descriptor block, then runs the three steps on `stream`.
+// Returns cudaError_t.
 extern "C" int outlier_compact(const OutlierCompactArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = desc_upload(args->desc, s);
+  if (err != cudaSuccess) return err;
   count_tiles<<<args->ntiles, THREADS, 0, s>>>(*args);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scan_tiles<<<1, SCAN_THREADS, 0, s>>>(*args);
   err = cudaGetLastError();

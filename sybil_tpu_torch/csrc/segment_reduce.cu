@@ -14,6 +14,13 @@
 // kept values (+2^62 / -2^62 when none).  Rows of groups past the cap go
 // to the dead slot S, which adds nothing.
 //
+// With D distinct columns (1191-1198; the lanes are unpacked, the D
+// distinct lanes follow the K group lanes in K7's [K + D, R]) it also
+// writes dmat [R, D], the sorted distinct lanes (kmat beside it holds the
+// group lanes, so [kmat | dmat] is the reference's sorted_keys), and
+// pair_mask [R]: a matched row that starts a new (group, distinct) tuple,
+// row 0 included.  Groups still break on the K group lanes only.
+//
 // The sorted order is row base[p[i]] (p[i] without a base), p the last
 // stable sort's indices.  With a packed key (sort_pack) the keys of a
 // sorted row are decoded from its packed key (digit d > 0 is d - 1 + min;
@@ -26,7 +33,7 @@
 // Bound: memory.  Per row: p and base, the random gathers of idxm, the
 // key lanes (unpacked) and the aggregation and weight columns at the
 // sorted row, and kmat, sidxm and gid written.  Design, four launches:
-//   1. gather: sidxm and kmat per sorted row (grid-stride);
+//   1. gather: sidxm and kmat (and dmat) per sorted row (grid-stride);
 //   2. count:  each CTA counts the boundaries of its TILE-row tile;
 //   3. scan:   one CTA turns the counts into exclusive offsets and
 //              writes num_groups;
@@ -40,46 +47,52 @@
 //              are unsigned 64-bit, wrapping mod 2^64 like the reference's
 //              int64 nibble sums.  Min/max: signed 64-bit atomics after a
 //              warp-run min/max, skipped when the value cannot move the
-//              bound.
+//              bound.  With distinct lanes each row also writes its pair
+//              flag from its dmat row and the one before it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "desc.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 4096;
 constexpr int SCAN_THREADS = 1024;
-constexpr int MAXK = 16;
-constexpr int MAXA = 32;
 constexpr long long BIG = 1ll << 62;
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
 constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
-// Mirrored field for field by SegmentReduceArgs in ops/scan.py (ctypes).
+// Mirrored field for field by SegmentReduceArgs in ops/scan.py (ctypes).  The
+// per-key and per-aggregation arrays point into the descriptor block
+// (desc.cuh): no fixed cap.
 struct SegmentReduceArgs {
+  Desc desc;
   const long long* p;              // [R] the last sort's indices
   const long long* base;           // [R] permutation before it, or null
   const int* idxm;                 // [R] K7's row index | matched bit
   const void* skey;                // packed: sorted key [R], int32/int64
-  const long long* keys;           // unpacked: K7's key lanes [K, R]
-  const long long* key_vals[MAXK];  // group columns
-  const unsigned char* key_valid[MAXK];
-  long long pack_min[MAXK];
-  long long pack_card[MAXK];
+  const long long* keys;           // unpacked: K7's key lanes [K + D, R]
+  const long long* const* key_vals;  // [ngroups] group columns
+  const unsigned char* const* key_valid;
+  const long long* pack_min;       // [K]
+  const long long* pack_card;
   const long long* t_vals;         // time column (has_time)
-  const long long* agg_vals[MAXA];
-  const unsigned char* agg_valid[MAXA];
-  long long agg_dmin[MAXA];
-  long long agg_dmax[MAXA];
-  long long agg_bias[MAXA];
+  const long long* const* agg_vals;  // [naggs]
+  const unsigned char* const* agg_valid;
+  const long long* agg_dmin;
+  const long long* agg_dmax;
+  const long long* agg_bias;
+  const long long* agg_mm;         // min/max column of each agg, -1 = none
   const long long* w_vals;
   const unsigned char* w_valid;
   long long* kmat;                 // [R, K]
+  long long* dmat;                 // [R, D] sorted distinct lanes, or null
+  unsigned char* pair_mask;        // [R] (D > 0), or null
   int* sidxm;                      // [R]
   int* gid;                        // [R]
   unsigned long long* sums;        // [S+1, L]
@@ -91,7 +104,6 @@ struct SegmentReduceArgs {
   long long R;
   long long tb;                    // time bucket (> 0)
   long long sent;                  // packed sentinel
-  int agg_mm[MAXA];                // min/max column of each agg, -1 = none
   int S;
   int L;
   int H;
@@ -103,7 +115,7 @@ struct SegmentReduceArgs {
   int time_i32;
   int has_weight;
   int packed;                      // 0 unpacked, 1 int32, 2 int64 key
-  int pad_;
+  int D;                           // distinct lanes (unpacked only)
 };
 
 namespace {
@@ -118,7 +130,8 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
 }
 
 // Key lane k of original row r (as sorted_front.cu computes it).
-__device__ long long key_lane(const SegmentReduceArgs& a, int k, long long r) {
+__device__ __forceinline__ long long key_lane(const SegmentReduceArgs& a,
+                                              int k, long long r) {
   if (a.has_time && k == 0) {
     const long long t = a.t_vals[r];
     if (a.time_i32) {
@@ -132,7 +145,8 @@ __device__ long long key_lane(const SegmentReduceArgs& a, int k, long long r) {
   }
   const int g = k - a.has_time;
   if (g >= a.ngroups) return 0ll;
-  return a.key_valid[g][r] ? a.key_vals[g][r] : -1ll;
+  return desc_at(a.desc, a.key_valid, g)[r]
+             ? desc_at(a.desc, a.key_vals, g)[r] : -1ll;
 }
 
 __device__ __forceinline__ long long sorted_key(const SegmentReduceArgs& a,
@@ -153,6 +167,8 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
     long long* row = a.kmat + (size_t)i * K;
     if (!a.packed) {
       for (int k = 0; k < K; ++k) row[k] = a.keys[(size_t)k * a.R + r];
+      for (int j = 0; j < a.D; ++j)
+        a.dmat[(size_t)i * a.D + j] = a.keys[(size_t)(K + j) * a.R + r];
       continue;
     }
     long long x = sorted_key(a, i);
@@ -162,14 +178,15 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
       // when min != 0, possibly a value of min - 1, so that key is read
       // from its column
       for (int k = K - 1; k >= 0; --k) {
-        const long long radix = a.pack_card[k] + 1;
+        const long long radix = desc_at(a.desc, a.pack_card, k) + 1;
+        const long long mn = desc_at(a.desc, a.pack_min, k);
         const long long d = x % radix;
         x /= radix;
         if (d != 0)
           row[k] = (long long)((unsigned long long)d - 1ull +
-                               (unsigned long long)a.pack_min[k]);
+                               (unsigned long long)mn);
         else
-          row[k] = a.pack_min[k] == 0 ? -1ll : key_lane(a, k, r);
+          row[k] = mn == 0 ? -1ll : key_lane(a, k, r);
       }
     } else if (m < 0) {  // spilled: matched, sorted under the sentinel
       for (int k = 0; k < K; ++k) row[k] = key_lane(a, k, r);
@@ -186,6 +203,17 @@ __device__ __forceinline__ bool boundary(const SegmentReduceArgs& a,
   const long long* row = a.kmat + (size_t)i * a.K;
   for (int k = 0; k < a.K; ++k)
     if (row[k] != row[k - a.K]) return true;
+  return false;
+}
+
+// Row i starts a new (group, distinct) tuple: a group boundary, or a
+// distinct lane that differs from the row before.
+__device__ __forceinline__ bool pair_boundary(const SegmentReduceArgs& a,
+                                              long long i, bool b) {
+  if (b) return true;
+  const long long* row = a.dmat + (size_t)i * a.D;
+  for (int j = 0; j < a.D; ++j)
+    if (row[j] != row[j - a.D]) return true;
   return false;
 }
 
@@ -268,6 +296,7 @@ __global__ void __launch_bounds__(THREADS) reduce_kernel(
     if (in) {
       a.gid[i] = gid;
       m = a.sidxm[i];
+      if (a.D) a.pair_mask[i] = m < 0 && pair_boundary(a, i, b);
       if (b && gid < S)
         for (int k = 0; k < K; ++k)
           a.keys_tbl[(size_t)gid * K + k] = a.kmat[(size_t)i * K + k];
@@ -291,18 +320,20 @@ __global__ void __launch_bounds__(THREADS) reduce_kernel(
     x = run_sum(contrib ? 1ull : 0ull, lane, end);
     if (add && x) atomicAdd(row + 1, x);
     for (int ai = 0; ai < a.naggs; ++ai) {
-      const bool valid = contrib && a.agg_valid[ai][r];
-      const long long v = valid ? a.agg_vals[ai][r] : 0ll;
-      const bool keep = valid && !(v > a.agg_dmax[ai] || v < a.agg_dmin[ai]);
+      const bool valid = contrib && desc_at(a.desc, a.agg_valid, ai)[r];
+      const long long v = valid ? desc_at(a.desc, a.agg_vals, ai)[r] : 0ll;
+      const bool keep = valid && !(v > desc_at(a.desc, a.agg_dmax, ai) ||
+                                   v < desc_at(a.desc, a.agg_dmin, ai));
       x = run_sum(valid ? 1ull : 0ull, lane, end);
       if (add && x) atomicAdd(row + 2 + 3 * ai, x);
       x = run_sum(keep ? w : 0ull, lane, end);
       if (add && x) atomicAdd(row + 3 + 3 * ai, x);
-      x = run_sum(keep ? w * ((unsigned long long)v -
-                              (unsigned long long)a.agg_bias[ai])
-                       : 0ull, lane, end);
+      const unsigned long long bias =
+          (unsigned long long)desc_at(a.desc, a.agg_bias, ai);
+      x = run_sum(keep ? w * ((unsigned long long)v - bias) : 0ull, lane,
+                  end);
       if (add && x) atomicAdd(row + 4 + 3 * ai, x);
-      const int mm = a.agg_mm[ai];
+      const int mm = (int)desc_at(a.desc, a.agg_mm, ai);
       if (mm >= 0) {
         const long long mn = run_min(keep ? v : BIG, lane, end);
         const long long mx = run_max(keep ? v : -BIG, lane, end);
@@ -327,17 +358,19 @@ __global__ void fill_bounds(long long* mins, long long* maxs, long long n) {
 
 }  // namespace
 
-// Zeroes the sums and the key table and sets the min/max tables to their
-// sentinels on `stream`, then runs the four launches.  `grid` sizes the
-// grid-stride gather.  Returns cudaError_t.
+// Copies the descriptor block, zeroes the sums and the key table and sets
+// the min/max tables to their sentinels on `stream`, then runs the four
+// launches.  `grid` sizes the grid-stride gather.  Returns cudaError_t.
 extern "C" int segment_reduce(const SegmentReduceArgs* args, int grid,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SegmentReduceArgs& a = *args;
   if (a.R >= (1ll << 31) || a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
-      a.K < 1 || a.K > MAXK || a.naggs > MAXA)
+      a.K < 1 || (a.D > 0 && (a.packed || !a.dmat || !a.pair_mask)))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(
+  cudaError_t err = desc_upload(a.desc, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(
       a.sums, 0, (size_t)(a.S + 1) * a.L * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(a.keys_tbl, 0, (size_t)a.S * a.K * sizeof(long long),

@@ -12,8 +12,10 @@
 //             counts in `spill`; unmatched and spilled rows take the
 //             sentinel, the radix product.  int32 when the product is
 //             below 2^31 - 1, else int64;
-//   unpacked  the K key lanes [K, R], SENTINEL (int64 max) for unmatched
-//             rows.
+//   unpacked  the K key lanes [K + D, R], then the D distinct lanes
+//             (dkeys 435-438: the value, MISSING = -1 where it is
+//             missing), SENTINEL (int64 max) in every lane of an
+//             unmatched row.
 // Filters and the time key are K2's (dense_scan.cu), copied: a filter
 // never passes on a missing value; re/nre read the regex bitset at
 // clamp(v, 0, len-1); an unknown op never matches; a row without the time
@@ -43,30 +45,37 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "desc.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAXK = 16;
-constexpr int MAXF = 16;
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
+constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
 
 }  // namespace
 
-// Mirrored field for field by SortedFrontArgs in ops/scan.py (ctypes).
+// Mirrored field for field by SortedFrontArgs in ops/scan.py (ctypes).  The
+// per-key, per-distinct-column and per-filter arrays point into the
+// descriptor block (desc.cuh): no fixed cap on their counts.
 struct SortedFrontArgs {
-  const long long* key_vals[MAXK];    // group columns
-  const unsigned char* key_valid[MAXK];
-  long long pack_min[MAXK];           // per key lane (packed)
-  long long pack_card[MAXK];
-  const long long* f_vals[MAXF];
-  const unsigned char* f_valid[MAXF];
-  const unsigned char* f_bits[MAXF];  // regex bitsets (re/nre) or null
-  long long f_bits_len[MAXF];
-  const long long* filter_vals;       // [F] filter constants, on device
+  Desc desc;
+  const long long* const* key_vals;   // [ngroups] group columns
+  const unsigned char* const* key_valid;
+  const long long* pack_min;          // [nkeys] per key lane (packed)
+  const long long* pack_card;
+  const long long* const* d_vals;     // [ndist] distinct columns
+  const unsigned char* const* d_valid;
+  const long long* const* f_vals;     // [nfilters]
+  const unsigned char* const* f_valid;
+  const unsigned char* const* f_bits; // regex bitsets (re/nre) or null
+  const long long* f_bits_len;
+  const long long* f_op;              // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre
+  const long long* filter_vals;       // [nfilters] filter constants
   const long long* t_vals;            // time column (has_time)
   const unsigned char* t_valid;
   const int* nrec;                    // [B] valid records per block
-  void* key_out;                      // int32/int64 [R] packed, int64 [K, R]
+  void* key_out;             // int32/int64 [R] packed, int64 [K + D, R]
   int* idxm;                          // [R] (not in the enum form)
   unsigned long long* spill;          // [1]
   unsigned long long* totals;         // [2] enum form: sum w, matched rows
@@ -75,7 +84,6 @@ struct SortedFrontArgs {
   long long R;
   long long tb;                       // time bucket (> 0)
   long long sent;                     // packed sentinel
-  int f_op[MAXF];                     // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre
   int log2C;
   int nkeys;                          // key lanes, >= 1
   int ngroups;                        // group columns
@@ -84,25 +92,29 @@ struct SortedFrontArgs {
   int time_i32;
   int packed;                         // 0 unpacked, 1 int32, 2 int64 key
   int has_weight;
+  int ndist;                          // distinct lanes (unpacked only)
+  int pad_;
 };
 
 namespace {
 
+template <bool HEAD>
 __device__ __forceinline__ bool passes(const SortedFrontArgs& a, int i,
                                        long long r, long long fv) {
-  if (!a.f_valid[i][r]) return false;
-  const long long v = a.f_vals[i][r];
-  switch (a.f_op[i]) {
+  if (!desc_at<HEAD>(a.desc, a.f_valid, i)[r]) return false;
+  const long long v = desc_at<HEAD>(a.desc, a.f_vals, i)[r];
+  const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
+  switch (op) {
     case 0: return v > fv;
     case 1: return v < fv;
     case 2: return v == fv;
     case 3: return v != fv;
     case 4:
     case 5: {
-      const long long n = a.f_bits_len[i];
+      const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
       const long long j = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
-      const bool hit = a.f_bits[i][j] != 0;
-      return a.f_op[i] == 4 ? hit : !hit;
+      const bool hit = desc_at<HEAD>(a.desc, a.f_bits, i)[j] != 0;
+      return op == 4 ? hit : !hit;
     }
     default: return false;
   }
@@ -131,20 +143,25 @@ __device__ __forceinline__ long long time_lane(const SortedFrontArgs& a,
 
 // Key lane k of row r: the time key, a group column (MISSING = -1), or
 // the single zero lane of a scan without either.
+template <bool HEAD>
 __device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
                                               int k, long long r) {
   if (a.has_time && k == 0) return time_lane(a, a.t_vals[r]);
   const int g = k - a.has_time;
   if (g >= a.ngroups) return 0ll;
-  return a.key_valid[g][r] ? a.key_vals[g][r] : -1ll;
+  return desc_at<HEAD>(a.desc, a.key_valid, g)[r]
+             ? desc_at<HEAD>(a.desc, a.key_vals, g)[r] : -1ll;
 }
 
-template <bool ENUM>
+// HEAD: where the descriptor block lies (desc.cuh), a template
+// parameter as in K2.
+template <bool ENUM, bool HEAD>
 __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     const SortedFrontArgs a) {
-  __shared__ long long s_fv[MAXF];
   __shared__ unsigned long long s_spill, s_count, s_samples;
-  if (threadIdx.x < a.nfilters) s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
+  __shared__ long long s_fv[FV_SMEM];
+  if (threadIdx.x < min(a.nfilters, FV_SMEM))
+    s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
   if (threadIdx.x == 0) s_spill = s_count = s_samples = 0ull;
   __syncthreads();
   const long long cmask = (1ll << a.log2C) - 1;
@@ -152,8 +169,12 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
   for (long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
        r < a.R; r += (long long)gridDim.x * THREADS) {
     bool matched = (r & cmask) < a.nrec[r >> a.log2C];
-    for (int i = 0; matched && i < a.nfilters; ++i)
-      matched = passes(a, i, r, s_fv[i]);
+    // the staged constants first, the rest (past FV_SMEM) from global
+    const int nfs = min(a.nfilters, FV_SMEM);
+    for (int i = 0; matched && i < nfs; ++i)
+      matched = passes<HEAD>(a, i, r, s_fv[i]);
+    for (int i = FV_SMEM; matched && i < a.nfilters; ++i)
+      matched = passes<HEAD>(a, i, r, a.filter_vals[i]);
     if (a.has_time && matched) matched = a.t_valid[r] != 0;
     if (ENUM) {
       if (matched) {
@@ -168,12 +189,13 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
       unsigned long long acc = 0ull;
       bool bad = false;
       for (int k = 0; k < a.nkeys; ++k) {
-        const long long key = key_lane(a, k, r);
-        const long long card = a.pack_card[k];
+        const long long key = key_lane<HEAD>(a, k, r);
+        const long long card = desc_at<HEAD>(a.desc, a.pack_card, k);
+        const unsigned long long mn =
+            (unsigned long long)desc_at<HEAD>(a.desc, a.pack_min, k);
         const long long digit =
             key == -1ll ? 0ll
-                        : (long long)((unsigned long long)key -
-                                      (unsigned long long)a.pack_min[k] + 1ull);
+                        : (long long)((unsigned long long)key - mn + 1ull);
         bad |= digit < 0 || digit > card;
         acc = acc * (unsigned long long)(card + 1) + (unsigned long long)digit;
       }
@@ -186,7 +208,15 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     } else {
       long long* keys = static_cast<long long*>(a.key_out);
       for (int k = 0; k < a.nkeys; ++k)
-        keys[(size_t)k * a.R + r] = matched ? key_lane(a, k, r) : SENTINEL;
+        keys[(size_t)k * a.R + r] =
+            matched ? key_lane<HEAD>(a, k, r) : SENTINEL;
+      for (int j = 0; j < a.ndist; ++j) {
+        long long v = SENTINEL;
+        if (matched)
+          v = desc_at<HEAD>(a.desc, a.d_valid, j)[r]
+                  ? desc_at<HEAD>(a.desc, a.d_vals, j)[r] : -1ll;
+        keys[(size_t)(a.nkeys + j) * a.R + r] = v;
+      }
     }
   }
   if (my_spill) atomicAdd(&s_spill, my_spill);
@@ -216,23 +246,32 @@ __global__ void __launch_bounds__(THREADS) sort_permute_kernel(
 
 }  // namespace
 
-// Zeroes the spill count (and the enum form's totals), then one
-// grid-stride pass on `stream`, the enum form when `enum_form` is set.
-// Returns cudaError_t.
+// Copies the descriptor block, zeroes the spill count (and the enum
+// form's totals), then one grid-stride pass on `stream`, the enum form
+// when `enum_form` is set.  Returns cudaError_t.
 extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
                             int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->R >= (1ll << 31) || (enum_form && args->packed != 1))
+  if (args->R >= (1ll << 31) || (enum_form && args->packed != 1) ||
+      (args->ndist > 0 && args->packed))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long),
-                                    s);
+  const bool head = args->desc.n <= DESC_HEAD;
+  cudaError_t err = desc_upload(args->desc, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return err;
   if (enum_form) {
     err = cudaMemsetAsync(args->totals, 0, 2 * sizeof(unsigned long long), s);
     if (err != cudaSuccess) return err;
-    sorted_front_kernel<true><<<grid, THREADS, 0, s>>>(*args);
+    if (head)
+      sorted_front_kernel<true, true><<<grid, THREADS, 0, s>>>(*args);
+    else
+      sorted_front_kernel<true, false><<<grid, THREADS, 0, s>>>(*args);
   } else {
-    sorted_front_kernel<false><<<grid, THREADS, 0, s>>>(*args);
+    if (head)
+      sorted_front_kernel<false, true><<<grid, THREADS, 0, s>>>(*args);
+    else
+      sorted_front_kernel<false, false><<<grid, THREADS, 0, s>>>(*args);
   }
   return cudaGetLastError();
 }

@@ -8,13 +8,18 @@
 //            wv, min, max (+2^62 / -2^62 for an avg aggregation); it stays
 //            on the device for the engine's escalation;
 //   meta     row 0 (1902-1965): [num_groups, spill, nout per hist agg,
-//            npairs = 0, overflow = 0, pruned, total count, total samples,
-//            nhistpairs per hist agg], zero-padded to W;
+//            npairs (distinct pairs, else 0), overflow = 0, pruned,
+//            total count, total samples, nhistpairs per hist agg],
+//            zero-padded to W;
 //   prefix   rows 1..P: the table's first P rows, zero-padded to W;
 //   pairs    per histogram aggregation (1979-1991), Hcap rows [keys,
 //            bucket, Σw, live] of the first Hcap rows of hp_mask in row
 //            order; when fewer are set the rest repeat row R-1 with live
-//            = 0, as _mask_positions' clipped searchsorted does.
+//            = 0, as _mask_positions' clipped searchsorted does;
+//   distinct with D distinct columns (1925-1933), kmax_pairs rows [the
+//            K group and D distinct keys, live] of the first kmax_pairs
+//            rows of K8's pair_mask, padded the same way, and meta word
+//            2 + H = npairs, the number of set rows.
 // K5 writes the outlier rows between the prefix and the pair sections;
 // this kernel leaves them alone.
 //
@@ -52,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "desc.cuh"
 #include <math_constants.h>
 
 namespace {
@@ -59,35 +65,40 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE = 4096;
 constexpr int SCAN_THREADS = 1024;
-constexpr int MAXA = 32;
-constexpr int MAXK = 16;
 constexpr long long BIG = 1ll << 62;
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
 constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
-// Mirrored field for field by SortedPackArgs in ops/scan.py (ctypes).
+// Mirrored field for field by SortedPackArgs in ops/scan.py (ctypes).  The
+// per-aggregation arrays point into the descriptor block (desc.cuh): no
+// fixed cap on their count.
 struct SortedPackArgs {
+  Desc desc;
   const unsigned long long* sums;       // [S+1, L]
   const long long* mins;                // [S, H]
   const long long* maxs;                // [S, H]
   const long long* keys_tbl;            // [S, K]
   const long long* num_groups;          // [1]
   const long long* spill;               // [1]
-  const long long* nout[MAXA];          // [1] per hist agg, or null
-  const unsigned char* hp_mask[MAXA];   // [R] per hist agg
-  const long long* hp_keys[MAXA];       // [R, K]
-  const long long* hp_bv[MAXA];         // [R]
-  const long long* hp_w[MAXA];          // [R]
-  const long long* npairs[MAXA];        // [1]
-  long long hp_row[MAXA];               // first row of each pair section
+  const long long* const* nout;         // [H] [1] per hist agg, or null
+  const unsigned char* const* hp_mask;  // [H] [R] per hist agg
+  const long long* const* hp_keys;      // [H] [R, K]
+  const long long* const* hp_bv;        // [H] [R]
+  const long long* const* hp_w;         // [H] [R]
+  const long long* const* npairs;       // [H] [1]
+  const long long* hp_row;              // [H] first row of each pair section
+  const long long* agg_mm;              // [A] hist index of each agg, -1 = none
+  const unsigned char* pair_mask;       // [R] K8's distinct pair mask (D > 0)
+  const long long* kmat;                // [R, K] sorted group keys
+  const long long* dmat;                // [R, D] sorted distinct keys
+  long long pair_row;                   // first row of the distinct section
   long long* table;                     // [S, K+2+5A]
   long long* main;                      // [rows, W]
   int* offsets;                         // [H, ntiles + 1] scratch
   void* score;                          // [S] prune score, int64 or f32
   long long R;
-  int agg_mm[MAXA];                     // hist index of each agg, -1 = none
   int S;
   int P;                                // table rows in main
   int K;
@@ -100,10 +111,15 @@ struct SortedPackArgs {
   int prune;                            // the device prune's form
   int prune_agg;                        // -1: $COUNT, else the agg
   int pruned;                           // min(prune_topk, S, P)
+  int D;                                // distinct columns
+  int kmax_pairs;                       // rows of the distinct section
 };
 
 // Mirrored field for field by EnumPackArgs in ops/scan.py (ctypes).
+// pack_min and pack_card point into the descriptor block (desc.cuh), of
+// [K] each.
 struct EnumPackArgs {
+  Desc desc;
   const int* skey;                      // [R] sorted packed key
   const int* gid;                       // [R] K11's segment of each row
   const unsigned long long* sums;       // [Smax, L] K11's segment sums
@@ -113,8 +129,8 @@ struct EnumPackArgs {
   const long long* totals;              // [2] total count, total samples
   long long* table;                     // [P, K+2+5A]
   long long* main;                      // [1 + P, W]
-  long long pack_min[MAXK];
-  long long pack_card[MAXK];
+  const long long* pack_min;            // [K]
+  const long long* pack_card;
   long long R;
   int radix;
   int Pk;
@@ -145,7 +161,7 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
         v = (long long)s[c - a.K];
       } else {
         const int ai = (c - a.K - 2) / 5, f = (c - a.K - 2) % 5;
-        const int mm = a.agg_mm[ai];
+        const int mm = (int)desc_at(a.desc, a.agg_mm, ai);
         switch (f) {
           case 0: v = (long long)s[2 + 3 * ai] > 0; break;
           case 1: v = (long long)s[3 + 3 * ai]; break;
@@ -158,19 +174,19 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
     }
     if (g < a.P && !a.prune) a.main[(1 + g) * a.W + c] = v;
   }
-  if (blockIdx.x == 0 && threadIdx.x < a.W) {
-    const int c = threadIdx.x;
+  for (int c = threadIdx.x; blockIdx.x == 0 && c < a.W; c += THREADS) {
     long long v = 0;
     if (c == 0) {
       v = a.num_groups[0];
     } else if (c == 1) {
       v = a.spill[0];
     } else if (c < 2 + a.H) {
-      v = a.nout[c - 2] ? a.nout[c - 2][0] : 0ll;
+      const long long* nout = desc_at(a.desc, a.nout, c - 2);
+      v = nout ? nout[0] : 0ll;
     } else if (c == 4 + a.H) {
       v = a.prune ? a.pruned : 0;
     } else if (c >= 7 + a.H && c < 7 + 2 * a.H) {
-      v = a.npairs[c - 7 - a.H][0];
+      v = desc_at(a.desc, a.npairs, c - 7 - a.H)[0];
     }
     a.main[c] = v;
   }
@@ -247,13 +263,14 @@ __global__ void __launch_bounds__(THREADS) enum_pack_kernel(
     long long* row = a.table + j * Wt;
     long long g = key;
     for (int k = K - 1; k >= 0; --k) {
-      const long long radix = a.pack_card[k] + 1;
+      const long long radix = desc_at(a.desc, a.pack_card, k) + 1;
       const long long d = g % radix;
       g /= radix;
+      const unsigned long long mn =
+          (unsigned long long)desc_at(a.desc, a.pack_min, k);
       row[k] = !live ? SENTINEL
                      : d == 0 ? -1ll
-                              : (long long)((unsigned long long)d - 1ull +
-                                            (unsigned long long)a.pack_min[k]);
+                              : (long long)((unsigned long long)d - 1ull + mn);
     }
     const unsigned long long* s = a.sums + (size_t)seg * L;
     row[K] = live ? (long long)s[0] : 0ll;
@@ -269,8 +286,7 @@ __global__ void __launch_bounds__(THREADS) enum_pack_kernel(
     long long* m = a.main + (1 + j) * a.W;
     for (int c = 0; c < a.W; ++c) m[c] = c < Wt ? row[c] : 0ll;
   }
-  if (blockIdx.x == 0 && threadIdx.x < a.W) {
-    const int c = threadIdx.x;
+  for (int c = threadIdx.x; blockIdx.x == 0 && c < a.W; c += THREADS) {
     long long v = 0;
     if (c == 0) v = a.num_groups[0];
     else if (c == 1) v = a.spill[0];
@@ -281,9 +297,20 @@ __global__ void __launch_bounds__(THREADS) enum_pack_kernel(
   }
 }
 
+// Section h of the compaction: histogram aggregation h < H, or the
+// distinct pairs (h == H).
+__device__ __forceinline__ const unsigned char* sec_mask(
+    const SortedPackArgs& a, int h) {
+  return h < a.H ? desc_at(a.desc, a.hp_mask, h) : a.pair_mask;
+}
+
+__device__ __forceinline__ int sec_cap(const SortedPackArgs& a, int h) {
+  return h < a.H ? a.Hcap : a.kmax_pairs;
+}
+
 __global__ void __launch_bounds__(THREADS) count_tiles(
     const SortedPackArgs a) {
-  const unsigned char* mask = a.hp_mask[blockIdx.y];
+  const unsigned char* mask = sec_mask(a, blockIdx.y);
   const long long lo = (long long)blockIdx.x * TILE;
   int n = 0;
   for (int t = threadIdx.x; t < TILE; t += THREADS) {
@@ -312,16 +339,28 @@ __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(
     if (t < a.ntiles) off[t] = carry + pre;
     carry += total;
   }
-  if (threadIdx.x == 0) off[a.ntiles] = carry;
+  if (threadIdx.x == 0) {
+    off[a.ntiles] = carry;
+    if (blockIdx.x == a.H) a.main[2 + a.H] = carry;  // npairs
+  }
 }
 
-__device__ void write_pair(const SortedPackArgs& a, int h, long long j,
-                           long long r, long long live) {
-  long long* o = a.main + (a.hp_row[h] + j) * a.W;
-  const long long* keys = a.hp_keys[h] + r * a.K;
+__device__ __forceinline__ void write_pair(const SortedPackArgs& a, int h,
+                                           long long j, long long r,
+                                           long long live) {
+  if (h == a.H) {  // distinct: [K group keys, D distinct keys, live]
+    long long* o = a.main + (a.pair_row + j) * a.W;
+    for (int k = 0; k < a.K; ++k) o[k] = a.kmat[r * a.K + k];
+    for (int k = 0; k < a.D; ++k) o[a.K + k] = a.dmat[r * a.D + k];
+    o[a.K + a.D] = live;
+    for (int k = a.K + a.D + 1; k < a.W; ++k) o[k] = 0;
+    return;
+  }
+  long long* o = a.main + (desc_at(a.desc, a.hp_row, h) + j) * a.W;
+  const long long* keys = desc_at(a.desc, a.hp_keys, h) + r * a.K;
   for (int k = 0; k < a.K; ++k) o[k] = keys[k];
-  o[a.K] = a.hp_bv[h][r];
-  o[a.K + 1] = a.hp_w[h][r];
+  o[a.K] = desc_at(a.desc, a.hp_bv, h)[r];
+  o[a.K + 1] = desc_at(a.desc, a.hp_w, h)[r];
   o[a.K + 2] = live;
   for (int k = a.K + 3; k < a.W; ++k) o[k] = 0;
 }
@@ -329,43 +368,48 @@ __device__ void write_pair(const SortedPackArgs& a, int h, long long j,
 __global__ void __launch_bounds__(THREADS) write_pairs(
     const SortedPackArgs a) {
   const int h = blockIdx.y;
-  const unsigned char* mask = a.hp_mask[h];
+  const unsigned char* mask = sec_mask(a, h);
+  const int cap = sec_cap(a, h);
   const int* off = a.offsets + (size_t)h * (a.ntiles + 1);
   const long long lo = (long long)blockIdx.x * TILE;
   int rank = off[blockIdx.x];
   const int total = off[a.ntiles];
-  if (rank < a.Hcap) {
-    for (int t = 0; t < TILE && rank < a.Hcap; t += THREADS) {
+  if (rank < cap) {
+    for (int t = 0; t < TILE && rank < cap; t += THREADS) {
       const long long r = lo + t + threadIdx.x;
       const bool set = r < a.R && mask[r];
       int n;
       const int pre = block_scan<THREADS>(set ? 1 : 0, &n);
-      if (set && rank + pre < a.Hcap) write_pair(a, h, rank + pre, r, 1);
+      if (set && rank + pre < cap) write_pair(a, h, rank + pre, r, 1);
       rank += n;
     }
   }
   for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
-       j < a.Hcap; j += (long long)gridDim.x * THREADS)
+       j < cap; j += (long long)gridDim.x * THREADS)
     if (j >= total) write_pair(a, h, j, a.R - 1, 0);
 }
 
 }  // namespace
 
-// Runs the table launch (and the prune score launch under the device
-// prune), then the pair compaction for every histogram aggregation, on
-// `stream`.  Returns cudaError_t.
+// Copies the descriptor block, runs the table launch (and the prune score
+// launch under the device prune), then the pair compaction for every
+// histogram aggregation, on `stream`.  Returns cudaError_t.
 extern "C" int sorted_pack(const SortedPackArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SortedPackArgs& a = *args;
-  if (a.A > MAXA || a.H > MAXA || a.W < 7 + 2 * a.H || a.P > a.S ||
+  if (a.W < 7 + 2 * a.H || a.P > a.S ||
       a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
-      (a.prune && (a.score == nullptr || a.prune_agg >= a.A)))
+      (a.prune && (a.score == nullptr || a.prune_agg >= a.A)) ||
+      (a.D > 0 && (!a.pair_mask || !a.kmat || !a.dmat ||
+                   a.W < a.K + a.D + 1)))
     return cudaErrorInvalidValue;
   const long long n = (long long)a.S * a.W;
   const int grid = (int)((n + THREADS - 1) / THREADS < 1024
                              ? (n + THREADS - 1) / THREADS : 1024);
+  cudaError_t err = desc_upload(a.desc, s);
+  if (err != cudaSuccess) return err;
   table_kernel<<<grid > 0 ? grid : 1, THREADS, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.prune) {
     const int g2 = (int)((a.S + THREADS - 1) / THREADS < 264
@@ -373,12 +417,13 @@ extern "C" int sorted_pack(const SortedPackArgs* args, void* stream) {
     prune_score_kernel<<<g2 > 0 ? g2 : 1, THREADS, 0, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (a.H == 0 || a.Hcap == 0) return cudaSuccess;
-  count_tiles<<<dim3(a.ntiles, a.H), THREADS, 0, s>>>(a);
+  const int nsec = a.H + (a.D > 0 ? 1 : 0);
+  if (nsec == 0) return cudaSuccess;
+  count_tiles<<<dim3(a.ntiles, nsec), THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_tiles<<<a.H, SCAN_THREADS, 0, s>>>(a);
+  scan_tiles<<<nsec, SCAN_THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  write_pairs<<<dim3(a.ntiles, a.H), THREADS, 0, s>>>(a);
+  write_pairs<<<dim3(a.ntiles, nsec), THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -397,14 +442,16 @@ extern "C" int prune_gather(const long long* table, const int* pidx,
   return cudaGetLastError();
 }
 
-// The enumerated strategy's table, meta row and prefix.  Returns
-// cudaError_t.
+// Copies the descriptor block, then writes the enumerated strategy's
+// table, meta row and prefix.  Returns cudaError_t.
 extern "C" int enum_pack(const EnumPackArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EnumPackArgs& a = *args;
-  if (a.K < 1 || a.K > MAXK || a.A > MAXA || a.L != 2 + 3 * a.A ||
+  if (a.K < 1 || a.L != 2 + 3 * a.A ||
       a.Pk < 1 || a.Pk > a.P || a.W < 7 || a.W < a.K + 2 + 5 * a.A)
     return cudaErrorInvalidValue;
+  const cudaError_t err = desc_upload(a.desc, s);
+  if (err != cudaSuccess) return err;
   const int grid = (a.P + THREADS - 1) / THREADS;
   enum_pack_kernel<<<grid, THREADS, 0, s>>>(a);
   return cudaGetLastError();

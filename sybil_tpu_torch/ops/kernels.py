@@ -24,7 +24,8 @@ import threading
 
 SOURCES = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
-           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows")
+           "hist_pairs", "sorted_pack", "enum_segments", "topk_rows",
+           "hll_registers")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")

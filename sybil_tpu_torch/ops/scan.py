@@ -26,7 +26,12 @@ K2 dense_scan       one fused pass over the rows: row-in-range and the
                     aggregations' per-slot min/max over the compact
                     [g+1] reduce space, or band by band over each row
                     chunk's live-gid span for a windowed rollup; each
-                    row's gid for K4
+                    row's gid for K4 and K13
+K13 hll_registers   a count distinct's device HLL: each row's hash (an
+                    int column's FNV-1a and splitmix finaliser, or a str
+                    column's per-id hash array), register index and
+                    rank, the largest rank per (slot, register) in uint8
+                    [slots, 2^14] planes
 K4 dense_hist       per histogram aggregation: bucket ids (basic or
                     multihist), exact per-(slot, bucket) weighted counts,
                     and the outlier mask, values and count
@@ -34,31 +39,34 @@ K5 outlier_compact  per tracked histogram aggregation: the first kmax
                     outlier rows [time key?, keys, value, live] of the
                     download
 K3 dense_pack       the meta row, the compact keyless table with the
-                    histogram min/max words, and the dense histogram gid
-                    and bucket sections; with K5's rows, word for word the
+                    histogram min/max words, the HLL gid and register
+                    sections, and the dense histogram gid and bucket
+                    sections; with K5's rows, word for word the
                     reference's `main`
 
 Sorted:
 
 K7 sorted_front     the front end as in K2, then the packed mixed-radix
                     sort key (int32 or int64, spill count) or the K key
-                    lanes, and the row index with the matched flag in its
-                    sign bit
+                    lanes and the D distinct lanes, and the row index
+                    with the matched flag in its sign bit
 (sorts)             torch.sort(stable=True): one sort of the packed key,
                     or one per key lane, least significant first, with
                     the sort_permute kernel between them
-K8 segment_reduce   the sorted rows' keys (kmat), segment boundaries and
-                    gids, num_groups, the key table at segment starts,
-                    exact lane sums and hist min/max per group under the
-                    group cap
+K8 segment_reduce   the sorted rows' keys (kmat, and the distinct lanes
+                    dmat), segment boundaries and gids, num_groups, the
+                    key table at segment starts, exact lane sums and hist
+                    min/max per group under the group cap, and the
+                    distinct pair mask
 K9 hist_pairs       per histogram aggregation: bucket ids, pair keys and
                     weights, outlier mask and values (hist_prep); after a
                     stable sort of the pair keys, the (group, bucket)
                     segment starts, buckets, weight sums and keys
 K5 outlier_compact  the outlier rows, keyed by kmat
 K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
-                    escalation), the meta row, its prefix and the sparse
-                    hist pair sections of `main`; under the device prune
+                    escalation), the meta row, its prefix, the distinct
+                    pair section and the sparse hist pair sections of
+                    `main`; under the device prune
                     (prune_topk) each row's score and the table totals
                     instead of the prefix, then (prune_gather, after K12)
                     the top rows as the prefix
@@ -78,10 +86,12 @@ K10 enum_pack       the winners' decoded keys and lanes, the meta row
                     with the pruned marker and the totals, the prefix
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
-PyTorch version beside it only for CPU tensors.  scan_packed raises
-NotImplementedError, naming the ROADMAP item, for every scan shape
-the port does not carry yet (set filters, distinct counts, samples,
-cache-group scans, mesh scans).
+PyTorch version beside it only for CPU tensors.  The per-key,
+per-aggregation and per-filter arguments reach a kernel in one
+descriptor block per launch (_set_desc, csrc/desc.cuh), so no kernel
+caps their counts.  scan_packed raises NotImplementedError, naming the ROADMAP
+item, for every scan shape the port does not carry yet (set filters,
+samples, cache-group scans, mesh scans).
 """
 
 from __future__ import annotations
@@ -501,22 +511,15 @@ def enum_radix(config: ScanConfig) -> int:
 def check_supported(config: ScanConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scan
     shape the port does not carry yet.  All three strategies are ported,
-    the enumerated one and the sorted strategy's device prune
-    (prune_topk) included."""
+    the enumerated one, the sorted strategy's device prune (prune_topk)
+    and count distinct (the device HLL and the distinct pairs) included,
+    for any number of keys, filters and aggregations."""
     def no(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
     if any(f.kind == "set" for f in config.filters):
         no("set filters (in/nin over set columns)", "B6b")
-    if len(config.filters) > _MAXF:
-        no(f"more than {_MAXF} filters", "B6b")
-    if config.distinct_cols or config.hll:
-        no("count distinct", "B9")
     if config.want_matched_mask:
         no("samples", "A13")
-    if config.n_key_cols > _MAXK or len(config.aggs) > _MAXA:
-        raise NotImplementedError(
-            f"the scan kernels take at most {_MAXK} keys and {_MAXA} "
-            f"aggregations")
     if config.no_compact_table:
         no("the keyed dense table of mesh scans", "B11")
     if config.vg_span > 0 or "__cg__" in config.group_cols:
@@ -592,9 +595,89 @@ def _check_col(cols, name, B, C, dev, kernel):
 # K2 dense_scan
 # ---------------------------------------------------------------------------
 
-_MAXK = 16
-_MAXA = 32
-_MAXF = 16
+# descriptor words carried in a kernel's parameters (DESC_HEAD of
+# csrc/desc.cuh)
+_DESC_HEAD = 256
+
+
+class Desc(ctypes.Structure):
+    """Mirror of struct Desc in csrc/desc.cuh: a launch's descriptor
+    block."""
+    _fields_ = [("dev", ctypes.c_void_p), ("host", ctypes.c_void_p),
+                ("n", ctypes.c_longlong),
+                ("head", ctypes.c_longlong * _DESC_HEAD)]
+
+
+def _set_desc(args, dev, arrays: dict):
+    """Pack the descriptor arrays `arrays` (name -> int64 words: column
+    pointers, bounds, op codes, one per key, aggregation or filter) into
+    one block and point each named field of `args` at its first word.
+    The block's first _DESC_HEAD words ride in the kernel parameters; a
+    longer block also gets a device buffer on the current stream, which
+    the kernel's C entry point fills on the launch's stream before it
+    launches.  So the kernels take any number of keys, aggregations and
+    filters, and a launch of the usual shapes copies nothing."""
+    words, offs = [], {}
+    for name, vals in arrays.items():
+        offs[name] = len(words)
+        words.extend(int(v) for v in vals)
+    n = len(words)
+    args.desc.n = n
+    args.desc.head[:min(n, _DESC_HEAD)] = words[:_DESC_HEAD]
+    base = 0
+    if n > _DESC_HEAD:
+        host = (ctypes.c_longlong * n)(*words)
+        buf = torch.empty(n, dtype=torch.int64, device=dev)
+        base = buf.data_ptr()
+        args.desc.dev, args.desc.host = base, ctypes.addressof(host)
+        args.desc_keep = (host, buf)        # until the launch is queued
+    for name, off in offs.items():
+        setattr(args, name, base + 8 * off)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _col_ptrs(cols, names):
+    """-> (values pointers, validity pointers) of columns `names`."""
+    return ([cols[n][0].data_ptr() for n in names],
+            [cols[n][1].data_ptr() for n in names])
+
+
+def _filter_desc(config: ScanConfig, cols, bitsets, dev, kernel) -> dict:
+    """The per-filter descriptor arrays of K2 and K7."""
+    d = {"f_vals": [], "f_valid": [], "f_bits": [], "f_bits_len": [],
+         "f_op": []}
+    for f in config.filters:
+        v, m = cols[f.col]
+        d["f_vals"].append(v.data_ptr())
+        d["f_valid"].append(m.data_ptr())
+        d["f_op"].append(FILTER_OPS.get(f.op, _NEVER))
+        bits, n = None, 0
+        if f.op in ("re", "nre"):
+            bits = bitsets[f.bitset_idx]
+            _check_tensor(bits, (bits.shape[0],), torch.bool,
+                          f"bitset {f.bitset_idx}", dev, kernel)
+            n = bits.shape[0]
+        d["f_bits"].append(_ptr(bits))
+        d["f_bits_len"].append(n)
+    return d
+
+
+def _agg_desc(config: ScanConfig, cols) -> dict:
+    """The per-aggregation descriptor arrays of K2, K8 and K11."""
+    vbias = config.agg_vbias or (0,) * len(config.aggs)
+    hist = hist_aggs(config)
+    vals, valid = _col_ptrs(cols, [a.col for a in config.aggs])
+    return {"agg_vals": vals, "agg_valid": valid,
+            "agg_dmin": [a.discard_min for a in config.aggs],
+            "agg_dmax": [a.discard_max for a in config.aggs],
+            "agg_bias": list(vbias),
+            "agg_mm": [hist.index(i) if i in hist else -1
+                       for i in range(len(config.aggs))]}
+
+
 # per-CTA private tables up to this size live in shared memory (the H100
 # lets one CTA opt in to 227 KB); larger tables update global memory
 # directly
@@ -605,22 +688,16 @@ _NEVER = 6
 _BIG = 2 ** 62                  # empty-slot min/max sentinel
 
 
+def _ptr_fields(*names):
+    return [(n, ctypes.c_void_p) for n in names]
+
+
 class DenseScanArgs(ctypes.Structure):
     """Mirror of struct DenseScanArgs in csrc/dense_scan.cu."""
-    _fields_ = [
-        ("key_vals", ctypes.c_void_p * _MAXK),
-        ("key_valid", ctypes.c_void_p * _MAXK),
-        ("key_min", ctypes.c_longlong * _MAXK),
-        ("key_card", ctypes.c_longlong * _MAXK),
-        ("agg_vals", ctypes.c_void_p * _MAXA),
-        ("agg_valid", ctypes.c_void_p * _MAXA),
-        ("agg_dmin", ctypes.c_longlong * _MAXA),
-        ("agg_dmax", ctypes.c_longlong * _MAXA),
-        ("agg_bias", ctypes.c_longlong * _MAXA),
-        ("f_vals", ctypes.c_void_p * _MAXF),
-        ("f_valid", ctypes.c_void_p * _MAXF),
-        ("f_bits", ctypes.c_void_p * _MAXF),
-        ("f_bits_len", ctypes.c_longlong * _MAXF),
+    _fields_ = [("desc", Desc)] + _ptr_fields(
+        "key_vals", "key_valid", "key_min", "key_card", "agg_vals",
+        "agg_valid", "agg_dmin", "agg_dmax", "agg_bias", "agg_mm", "f_vals",
+        "f_valid", "f_bits", "f_bits_len", "f_op") + [
         ("filter_vals", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
@@ -634,8 +711,6 @@ class DenseScanArgs(ctypes.Structure):
         ("gid_out", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
-        ("f_op", ctypes.c_int * _MAXF),
-        ("agg_mm", ctypes.c_int * _MAXA),
         ("log2C", ctypes.c_int),
         ("nkeys", ctypes.c_int),
         ("naggs", ctypes.c_int),
@@ -717,7 +792,7 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     values.
     -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs" int64
     [Sc, H], "gid" int32 [R] (dead rows Sc-1) or None without hist
-    aggs}."""
+    aggs and the device HLL}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = nrec.device
@@ -776,7 +851,7 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     sums = torch.zeros((Sc, len(lanes)), dtype=torch.int64, device=dev)
     sums.index_add_(0, gid.to(torch.int64), torch.stack(lanes, dim=1))
     return {"sums": sums, "spill": spill.reshape(1), "mins": mins,
-            "maxs": maxs, "gid": gid if hist else None}
+            "maxs": maxs, "gid": gid if hist or config.hll else None}
 
 
 def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
@@ -823,10 +898,6 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
                   "dense_scan")
     nk, na = len(config.key_bounds), len(config.aggs)
-    if nk > _MAXK or na > _MAXA or nf > _MAXF:
-        raise NotImplementedError(
-            f"dense_scan takes at most {_MAXK} group keys, {_MAXA} "
-            f"aggregations and {_MAXF} filters, got {nk}, {na} and {nf}")
     for name in cols:
         _check_col(cols, name, B, C, dev, "dense_scan")
     slots, Sc, _ = reduce_space(config)
@@ -838,42 +909,29 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     spill = torch.empty(1, dtype=torch.int64, device=dev)
     mins = torch.empty((Sc, H), dtype=torch.int64, device=dev)
     maxs = torch.empty((Sc, H), dtype=torch.int64, device=dev)
-    gid = torch.empty(R, dtype=torch.int32, device=dev) if H else None
+    gid = (torch.empty(R, dtype=torch.int32, device=dev)
+           if H or config.hll else None)
 
     a = DenseScanArgs()
     nt = 1 if config.time_col else 0
-    for i, (mn, card) in enumerate(config.key_bounds):
-        a.key_min[i], a.key_card[i] = mn, card
-        if i >= nt:
-            v, m = cols[config.group_cols[i - nt]]
-            a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    kv, km = _col_ptrs(cols, config.group_cols)
     if config.time_col:
         v, m = cols[config.time_col]
         a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
-    vbias = config.agg_vbias or (0,) * na
-    for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
-        v, m = cols[agg.col]
-        a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
-        a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
-        a.agg_bias[i] = bias
-        a.agg_mm[i] = hist.index(i) if i in hist else -1
-    for i, f in enumerate(config.filters):
-        v, m = cols[f.col]
-        a.f_vals[i], a.f_valid[i] = v.data_ptr(), m.data_ptr()
-        a.f_op[i] = FILTER_OPS.get(f.op, _NEVER)
-        if f.op in ("re", "nre"):
-            bits = bitsets[f.bitset_idx]
-            _check_tensor(bits, (bits.shape[0],), torch.bool,
-                          f"bitset {f.bitset_idx}", dev, "dense_scan")
-            a.f_bits[i], a.f_bits_len[i] = bits.data_ptr(), bits.shape[0]
+    _set_desc(a, dev, {
+        "key_vals": [0] * nt + kv, "key_valid": [0] * nt + km,
+        "key_min": [mn for mn, _ in config.key_bounds],
+        "key_card": [card for _, card in config.key_bounds],
+        **_agg_desc(config, cols),
+        **_filter_desc(config, cols, bitsets, dev, "dense_scan")})
     a.filter_vals = filter_vals.data_ptr()
     if config.weight_col:
         v, m = cols[config.weight_col]
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
     a.nrec, a.sums, a.spill = nrec.data_ptr(), sums.data_ptr(), spill.data_ptr()
     a.mins, a.maxs = mins.data_ptr(), maxs.data_ptr()
-    a.gid_out = gid.data_ptr() if H else None
+    a.gid_out = _ptr(gid)
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.naggs, a.nfilters = nk, na, nf
     a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
@@ -1108,10 +1166,11 @@ _OUTLIER_TILE = 4096           # rows per CTA (TILE in the source)
 class OutlierCompactArgs(ctypes.Structure):
     """Mirror of struct OutlierCompactArgs in csrc/outlier_compact.cu."""
     _fields_ = [
+        ("desc", Desc),
         ("mask", ctypes.c_void_p),
         ("vals", ctypes.c_void_p),
-        ("key_vals", ctypes.c_void_p * _MAXK),
-        ("key_valid", ctypes.c_void_p * _MAXK),
+        ("key_vals", ctypes.c_void_p),
+        ("key_valid", ctypes.c_void_p),
         ("t_vals", ctypes.c_void_p),
         ("kmat", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
@@ -1206,23 +1265,21 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
             or W < config.n_key_cols + 2):
         raise ValueError("outlier_compact: main must be a contiguous int64 "
                          f"[rows, W] with rows >= {row0 + kmax}")
-    if len(config.group_cols) > _MAXK:
-        raise NotImplementedError(
-            f"outlier_compact takes at most {_MAXK} group keys")
     tb = _time_bucket_arg(config, time_bucket, "outlier_compact")
     ntiles = -(-R // _OUTLIER_TILE)
     offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
     a = OutlierCompactArgs()
     a.mask, a.vals = mask.data_ptr(), vals.data_ptr()
+    kv = km = []
     if kmat is not None:
         K = config.n_key_cols
         _check_tensor(kmat, (R, K), torch.int64, "kmat", dev,
                       "outlier_compact")
         a.kmat, a.kmat_K = kmat.data_ptr(), K
     else:
-        for i, g in enumerate(config.group_cols):
-            v, m = _check_col(cols, g, B, C, dev, "outlier_compact")
-            a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+        for g in config.group_cols:
+            _check_col(cols, g, B, C, dev, "outlier_compact")
+        kv, km = _col_ptrs(cols, config.group_cols)
         if config.time_col:
             tv, _ = _check_col(cols, config.time_col, B, C, dev,
                                "outlier_compact")
@@ -1232,6 +1289,7 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     a.offsets = offsets.data_ptr()
     a.R, a.kmax, a.W = R, kmax, W
     a.nkeys, a.ntiles = len(config.group_cols), ntiles
+    _set_desc(a, dev, {"key_vals": kv, "key_valid": km})
     fn = kernels.lib("outlier_compact").outlier_compact
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -1244,27 +1302,17 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
 # K3 dense_pack
 # ---------------------------------------------------------------------------
 
-_MAXC = 2 + 3 * _MAXA
-_MAXH = _MAXA
-
-
 class DensePackArgs(ctypes.Structure):
     """Mirror of struct DensePackArgs in csrc/dense_pack.cu."""
-    _fields_ = [
-        ("sums", ctypes.c_void_p),
-        ("spill", ctypes.c_void_p),
-        ("mins", ctypes.c_void_p),
-        ("maxs", ctypes.c_void_p),
-        ("nout", ctypes.c_void_p * _MAXH),
-        ("hist", ctypes.c_void_p * _MAXH),
-        ("main", ctypes.c_void_p),
+    _fields_ = [("desc", Desc)] + _ptr_fields(
+        "sums", "spill", "mins", "maxs", "nout", "hist", "hist_row",
+        "hist_nv", "lane", "hll", "main") + [
         ("rows", ctypes.c_longlong),
         ("out_lo", ctypes.c_longlong),
         ("out_hi", ctypes.c_longlong),
         ("gid_row", ctypes.c_longlong),
-        ("hist_row", ctypes.c_longlong * _MAXH),
-        ("hist_nv", ctypes.c_int * _MAXH),
-        ("lane", ctypes.c_int * _MAXC),
+        ("hll_gid_row", ctypes.c_longlong),
+        ("hll_reg_row", ctypes.c_longlong),
         ("ncols", ctypes.c_int),
         ("i32", ctypes.c_int),
         ("slots", ctypes.c_int),
@@ -1274,7 +1322,7 @@ class DensePackArgs(ctypes.Structure):
         ("W", ctypes.c_int),
         ("H", ctypes.c_int),
         ("Ph", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("Phll", ctypes.c_int),
     ]
 
 
@@ -1305,9 +1353,10 @@ def outlier_rows(config: ScanConfig, R: int) -> tuple[int, int]:
 
 
 def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
-                     R: int) -> None:
+                     R: int, hll=None) -> None:
     """Plain PyTorch version of K3: expand, mask, stack and view into the
-    packed `main` buffer [rows, W] int64, in place, outside K5's rows."""
+    packed `main` buffer [rows, W] int64, in place, outside K5's rows;
+    with the device HLL, `hll` is K13's uint8 [slots, HLL_M] planes."""
     dev = main.device
     slots, Sc, compact = reduce_space(config)
     sums = k2["sums"]
@@ -1356,7 +1405,8 @@ def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
             meta[2 + i] = n.reshape(())
     lo, hi = outlier_rows(config, R)
     main[:lo] = torch.cat([meta, flat]).reshape(lo, W)
-    if not H:
+    Ph, Phll = layout.get("Ph", 0), layout.get("Phll", 0)
+    if not (Ph or Phll):
         return
 
     def flat_rows(t, rows):
@@ -1364,33 +1414,48 @@ def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
         out[: t.numel()] = t.reshape(-1)
         return out.reshape(rows, W)
 
-    Ph = layout["Ph"]
+    # lax.top_k(live, n): the live slots ascending, then the others
     gidx = torch.cat([torch.nonzero(live).reshape(-1),
-                      torch.nonzero(~live).reshape(-1)])[:Ph]
-    tail = [flat_rows(gidx, layout["hist_gids"][1])]
-    for ai, h in zip(hist_aggs(config), hists):
-        tail.append(flat_rows(expand(h, 0)[gidx], layout[f"hist{ai}"][1]))
-    if layout["hist_gids"][0] != hi:
+                      torch.nonzero(~live).reshape(-1)])[:max(Ph, Phll)]
+    tail = []
+    if Phll:
+        tail.append(flat_rows(gidx[:Phll], layout["hll_gids"][1]))
+        words = hll[gidx[:Phll]].contiguous().view(torch.int64)
+        tail.append(flat_rows(words, layout["hll_regs"][1]))
+    if Ph:
+        tail.append(flat_rows(gidx[:Ph], layout["hist_gids"][1]))
+        for ai, h in zip(hist_aggs(config), hists):
+            tail.append(flat_rows(expand(h, 0)[gidx[:Ph]],
+                                  layout[f"hist{ai}"][1]))
+    if _tail_row(layout) != hi:
         raise AssertionError("dense_pack: unexpected section between the "
-                             "outlier rows and the hist gids")
+                             "outlier rows and the HLL or hist sections")
     main[hi:] = torch.cat(tail)
 
 
+def _tail_row(layout: dict) -> int:
+    """First row of the dense sections after the outlier rows: the HLL
+    gids, else the hist gids."""
+    return layout["hll_gids" if "hll_gids" in layout else "hist_gids"][0]
+
+
 def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
-               R: int) -> None:
+               R: int, hll=None) -> None:
     """K3: writes the packed download buffer `main` [rows, W] int64 in
     place, all but K5's outlier rows.  CUDA tensors launch the kernel
     (csrc/dense_pack.cu); CPU tensors take dense_pack_plain.
 
     k2: K2's outputs; hists: K4's [Sc, nv] counts and nouts its outlier
-    counts (None without tracking), one per histogram aggregation.
+    counts (None without tracking), one per histogram aggregation; hll:
+    K13's uint8 [slots, HLL_M] planes with the device HLL, else None.
     Replaces the dense compact part of sybil_tpu/ops/scan.py:_scan_dense
     (expand, dead slot, num_groups, min/max) and pack_outputs (meta,
-    compact table, dense hist sections).  A few KB: bound by launch
-    latency; one CTA (see the source note)."""
+    compact table, dense hist sections, the HLL sections 1934-1945).  A
+    few KB (the HLL planes: 16 KB each): bound by launch latency; one CTA
+    (see the source note)."""
     dev = main.device
     if dev.type == "cpu":
-        dense_pack_plain(config, k2, hists, nouts, main, R)
+        dense_pack_plain(config, k2, hists, nouts, main, R, hll)
         return
     if dev.type != "cuda":
         raise ValueError(f"dense_pack: unsupported device {dev}")
@@ -1416,24 +1481,29 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     a = DensePackArgs()
     a.sums, a.spill = k2["sums"].data_ptr(), k2["spill"].data_ptr()
     a.mins, a.maxs = k2["mins"].data_ptr(), k2["maxs"].data_ptr()
-    for i, (ai, h, n) in enumerate(zip(hist, hists, nouts)):
-        nv = config.aggs[ai].num_values
-        _check_tensor(h, (Sc, nv), torch.int64, f"hist of agg {ai}", dev,
-                      "dense_pack")
-        a.hist[i], a.hist_nv[i] = h.data_ptr(), nv
-        a.hist_row[i] = layout[f"hist{ai}"][0]
+    for ai, h, n in zip(hist, hists, nouts):
+        _check_tensor(h, (Sc, config.aggs[ai].num_values), torch.int64,
+                      f"hist of agg {ai}", dev, "dense_pack")
         if n is not None:
             _check_tensor(n, (1,), torch.int64, "nout", dev, "dense_pack")
-            a.nout[i] = n.data_ptr()
+    _set_desc(a, dev, {
+        "nout": [_ptr(n) for n in nouts], "hist": [_ptr(h) for h in hists],
+        "hist_row": [layout[f"hist{ai}"][0] for ai in hist],
+        "hist_nv": [config.aggs[ai].num_values for ai in hist],
+        "lane": lanes})
     a.main, a.rows = main.data_ptr(), rows
     a.out_lo, a.out_hi = outlier_rows(config, R)
     if H:
         a.gid_row, a.Ph = layout["hist_gids"][0], layout["Ph"]
-        if a.gid_row != a.out_hi:
-            raise AssertionError("dense_pack: unexpected section between "
-                                 "the outlier rows and the hist gids")
-    for i, li in enumerate(lanes):
-        a.lane[i] = li
+    if "Phll" in layout:
+        _check_tensor(hll, (slots, HLL_M), torch.uint8, "hll", dev,
+                      "dense_pack")
+        a.hll, a.Phll = hll.data_ptr(), layout["Phll"]
+        a.hll_gid_row = layout["hll_gids"][0]
+        a.hll_reg_row = layout["hll_regs"][0]
+    if (H or "Phll" in layout) and _tail_row(layout) != a.out_hi:
+        raise AssertionError("dense_pack: unexpected section between the "
+                             "outlier rows and the HLL or hist sections")
     a.ncols, a.i32 = len(lanes), int(plan["i32"])
     a.slots, a.Sc, a.compact, a.L, a.W, a.H = (slots, Sc, int(compact), L,
                                                 W, H)
@@ -1443,6 +1513,140 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "dense_pack")
     kernels.LAUNCHES["dense_pack"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K13 hll_registers: the device HLL of a dense count distinct
+# ---------------------------------------------------------------------------
+#
+# torch has no uint64 shift, compare or scatter-max on the CPU, so the
+# plain versions carry the hashes as int64 bit patterns: int64 `*` and `+`
+# wrap as the unsigned ones do, right shifts are masked to be logical, and
+# unsigned compares flip the sign bit of both sides.
+
+_I64_MIN = -2 ** 63
+
+
+def _u64(c: int) -> int:
+    """The int64 with the bit pattern of the unsigned 64-bit constant c."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lshr(x, s: int):
+    """Logical right shift by 0 < s < 64 of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash_int_col_plain(v):
+    """The reference's _hash_int_col (828-841) on int64 values -> the
+    uint64 hashes as int64 bit patterns: FNV-1a 64 over the 8
+    little-endian bytes, then splitmix64's finaliser."""
+    h = torch.full_like(v, _u64(0xcbf29ce484222325))
+    for i in range(8):
+        # the low byte of an arithmetic shift is the logical shift's
+        h = (h ^ ((v >> (8 * i)) & 0xFF)) * 0x100000001b3
+    h = h + _u64(0x9E3779B97F4A7C15)
+    h = (h ^ _lshr(h, 30)) * _u64(0xBF58476D1CE4E5B9)
+    h = (h ^ _lshr(h, 27)) * _u64(0x94D049BB133111EB)
+    return h ^ _lshr(h, 31)
+
+
+def hll_idx_rank_plain(h):
+    """The reference's _hll_idx_rank (844-857) on int64 bit patterns of
+    uint64 hashes -> (register index int32: the top HLL_P bits, rank
+    int32: 64 - bitlen(h << HLL_P) + 1, or 64 - HLL_P + 1 when that is
+    0), as query/hll.py's HLL.add computes them."""
+    idx = _lshr(h, 64 - HLL_P).to(torch.int32)
+    rest = h * (1 << HLL_P)                       # h << HLL_P, wrapping
+    bl = torch.zeros(h.shape, dtype=torch.int32, device=h.device)
+    x = rest
+    for shift in (32, 16, 8, 4, 2, 1):
+        gt = (x ^ _I64_MIN) >= ((1 << shift) ^ _I64_MIN)   # unsigned >=
+        bl = torch.where(gt, bl + shift, bl)
+        x = torch.where(gt, _lshr(x, shift), x)
+    live = rest != 0
+    bl = torch.where(live, bl + 1, 0)
+    rank = torch.where(live, 64 - bl + 1, 64 - HLL_P + 1)
+    return idx, rank.to(torch.int32)
+
+
+def _hll_hashes(config: ScanConfig, v, m, bitsets):
+    """Each row's uint64 hash as int64 bits: the str column's per-dict-id
+    hash array (bitsets[hll_hash_idx], its last entry the missing value's
+    hash) at clamp(id, 0, nd-1), or the int column's value hashed
+    (MISSING where it is missing)."""
+    if config.hll_hash_idx >= 0:
+        hashes = bitsets[config.hll_hash_idx]
+        miss = hashes.shape[0] - 1
+        return hashes[torch.where(m, v, miss).clamp(0, miss)]
+    return hash_int_col_plain(torch.where(m, v, MISSING))
+
+
+def hll_registers_plain(config: ScanConfig, cols, gid, bitsets=()):
+    """Plain PyTorch version of K13 (reference _hll_registers 892-943):
+    -> uint8 [slots, HLL_M], each register the largest rank of the rows
+    that hash to it in their slot (a matched row's gid, the dead slot
+    slots-1 for the rest).  gid: K2's int32 [R] reduce-space gid (dead =
+    Sc-1).  The reference's pair-existence form gives the same registers
+    as this row form."""
+    B, C = _batch_shape(cols)
+    R = B * C
+    slots, Sc, _ = reduce_space(config)
+    v, m = _flat_cols(cols, R)[config.distinct_cols[0]]
+    idx, rank = hll_idx_rank_plain(_hll_hashes(config, v, m, bitsets))
+    slot = torch.where(gid == Sc - 1, slots - 1, gid).to(torch.int64)
+    acc = torch.zeros(slots * HLL_M, dtype=torch.int64, device=gid.device)
+    acc.scatter_reduce_(0, slot * HLL_M + idx, rank.to(torch.int64), "amax")
+    return acc.to(torch.uint8).reshape(slots, HLL_M)
+
+
+class HllArgs(ctypes.Structure):
+    """Mirror of struct HllArgs in csrc/hll_registers.cu."""
+    _fields_ = _ptr_fields("gid", "vals", "valid", "hashes", "regs") + [
+        ("R", ctypes.c_longlong),
+        ("nd", ctypes.c_longlong),
+        ("Sc", ctypes.c_int),
+        ("slots", ctypes.c_int),
+    ]
+
+
+def hll_registers(config: ScanConfig, cols, gid, bitsets=()):
+    """K13: as hll_registers_plain.  CUDA tensors launch the kernel
+    (csrc/hll_registers.cu); CPU tensors take the plain version.
+
+    Replaces sybil_tpu/ops/scan.py:_hash_int_col, _hll_idx_rank,
+    _key_counts and _hll_registers, both forms.  Bound by memory (K2's
+    gid and the distinct column read once, the 2 MB of planes at most
+    kept in L2); the registers are raised by a 32-bit atomicCAS on the
+    word that holds four of them, after a read that skips the rows whose
+    rank cannot raise theirs (see the source note)."""
+    dev = gid.device
+    if dev.type == "cpu":
+        return hll_registers_plain(config, cols, gid, bitsets)
+    if dev.type != "cuda":
+        raise ValueError(f"hll_registers: unsupported device {dev}")
+    B, C = _batch_shape(cols)
+    R = B * C
+    slots, Sc, _ = reduce_space(config)
+    _check_tensor(gid, (R,), torch.int32, "gid", dev, "hll_registers")
+    v, m = _check_col(cols, config.distinct_cols[0], B, C, dev,
+                      "hll_registers")
+    a = HllArgs()
+    a.gid, a.vals, a.valid = gid.data_ptr(), v.data_ptr(), m.data_ptr()
+    if config.hll_hash_idx >= 0:
+        hashes = bitsets[config.hll_hash_idx]
+        _check_tensor(hashes, (hashes.shape[0],), torch.int64, "hashes", dev,
+                      "hll_registers")
+        a.hashes, a.nd = hashes.data_ptr(), hashes.shape[0]
+    regs = torch.empty((slots, HLL_M), dtype=torch.uint8, device=dev)
+    a.regs, a.R, a.Sc, a.slots = regs.data_ptr(), R, Sc, slots
+    fn = kernels.lib("hll_registers").hll_registers
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "hll_registers")
+    kernels.LAUNCHES["hll_registers"] += 1
+    return regs
 
 
 # ---------------------------------------------------------------------------
@@ -1487,15 +1691,9 @@ def _key_lanes(config: ScanConfig, flat, R: int, dev, time_bucket: int):
 
 class SortedFrontArgs(ctypes.Structure):
     """Mirror of struct SortedFrontArgs in csrc/sorted_front.cu."""
-    _fields_ = [
-        ("key_vals", ctypes.c_void_p * _MAXK),
-        ("key_valid", ctypes.c_void_p * _MAXK),
-        ("pack_min", ctypes.c_longlong * _MAXK),
-        ("pack_card", ctypes.c_longlong * _MAXK),
-        ("f_vals", ctypes.c_void_p * _MAXF),
-        ("f_valid", ctypes.c_void_p * _MAXF),
-        ("f_bits", ctypes.c_void_p * _MAXF),
-        ("f_bits_len", ctypes.c_longlong * _MAXF),
+    _fields_ = [("desc", Desc)] + _ptr_fields(
+        "key_vals", "key_valid", "pack_min", "pack_card", "d_vals",
+        "d_valid", "f_vals", "f_valid", "f_bits", "f_bits_len", "f_op") + [
         ("filter_vals", ctypes.c_void_p),
         ("t_vals", ctypes.c_void_p),
         ("t_valid", ctypes.c_void_p),
@@ -1509,7 +1707,6 @@ class SortedFrontArgs(ctypes.Structure):
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
-        ("f_op", ctypes.c_int * _MAXF),
         ("log2C", ctypes.c_int),
         ("nkeys", ctypes.c_int),
         ("ngroups", ctypes.c_int),
@@ -1518,6 +1715,8 @@ class SortedFrontArgs(ctypes.Structure):
         ("time_i32", ctypes.c_int),
         ("packed", ctypes.c_int),
         ("has_weight", ctypes.c_int),
+        ("ndist", ctypes.c_int),
+        ("pad_", ctypes.c_int),
     ]
 
 
@@ -1527,8 +1726,10 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     sort operands of _scan_sorted (1076-1104, 1117-1118), or of
     _scan_enum (1420-1435, 1596-1597) when enum_radix(config) > 0.
     -> {"key": the packed key [R] (int32 or int64; the sentinel = the
-    radix for unmatched and spilled rows) or None, "keys": int64 [K, R]
-    key lanes (SENTINEL for unmatched rows) or None, "idxm": int32 [R]
+    radix for unmatched and spilled rows) or None, "keys": int64 [K + D,
+    R] key lanes, then the D distinct lanes (the value, MISSING where it
+    is missing; SENTINEL in every lane of an unmatched row) or None,
+    "idxm": int32 [R]
     row index with the matched flag in its sign bit (None in the enum
     form), "spill": int64 [1], "totals": int64 [2] = (Σ matched weight,
     matched rows) in the enum form, else None}."""
@@ -1562,6 +1763,10 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
         out["spill"] = (matched & bad).sum(dtype=torch.int64).reshape(1)
         out["key"] = torch.where(matched & ~bad, packed, sent).to(dtype)
     else:
+        # the reference's dkeys (435-438) join the sort after the keys
+        for d in config.distinct_cols:
+            v, m = flat[d]
+            keys.append(torch.where(m, v, MISSING))
         out["spill"] = torch.zeros(1, dtype=torch.int64, device=dev)
         out["keys"] = torch.stack([torch.where(matched, k, SENTINEL)
                                    for k in keys])
@@ -1574,8 +1779,9 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     (csrc/sorted_front.cu); CPU tensors take the plain version.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
-    int/str/regex filters, the time key, the key lanes) and the sort
-    operands of _scan_sorted (1076-1104, 1117-1118); in its enum form
+    int/str/regex filters, the time key, the key lanes, the distinct
+    lanes) and the sort operands of _scan_sorted (1076-1104, 1117-1118);
+    in its enum form
     (a template parameter of the kernel) the packed key, spill count and
     whole-scan totals of _scan_enum (1420-1435, 1596-1597).  Bound by
     memory: one pass, 9 B read per row per referenced column, the key
@@ -1600,28 +1806,14 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
                   "sorted_front")
     K = config.n_key_cols
-    if K > _MAXK or nf > _MAXF:
-        raise NotImplementedError(
-            f"sorted_front takes at most {_MAXK} keys and {_MAXF} filters")
+    D = len(config.distinct_cols)
     for name in cols:
         _check_col(cols, name, B, C, dev, "sorted_front")
     a = SortedFrontArgs()
-    for i, g in enumerate(config.group_cols):
-        v, m = cols[g]
-        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
     if config.time_col:
         v, m = cols[config.time_col]
         a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
-    for i, f in enumerate(config.filters):
-        v, m = cols[f.col]
-        a.f_vals[i], a.f_valid[i] = v.data_ptr(), m.data_ptr()
-        a.f_op[i] = FILTER_OPS.get(f.op, _NEVER)
-        if f.op in ("re", "nre"):
-            bits = bitsets[f.bitset_idx]
-            _check_tensor(bits, (bits.shape[0],), torch.bool,
-                          f"bitset {f.bitset_idx}", dev, "sorted_front")
-            a.f_bits[i], a.f_bits_len[i] = bits.data_ptr(), bits.shape[0]
     a.filter_vals = filter_vals.data_ptr()
     enum = enum_radix(config) > 0
     spill = torch.empty(1, dtype=torch.int64, device=dev)
@@ -1637,18 +1829,27 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     else:
         out["idxm"] = torch.empty(R, dtype=torch.int32, device=dev)
         a.idxm = out["idxm"].data_ptr()
+    pack = ()
     if sort_packed(config):
         sent, dtype = pack_sentinel(config)
         if enum and dtype != torch.int32:
             raise ValueError(f"sorted_front: enum radix {sent} is not int32")
-        for i, (mn, card) in enumerate(config.sort_pack):
-            a.pack_min[i], a.pack_card[i] = mn, card
+        pack = config.sort_pack
         out["key"] = torch.empty(R, dtype=dtype, device=dev)
         a.key_out, a.sent = out["key"].data_ptr(), sent
         a.packed = 1 if dtype == torch.int32 else 2
     else:
-        out["keys"] = torch.empty((K, R), dtype=torch.int64, device=dev)
+        out["keys"] = torch.empty((K + D, R), dtype=torch.int64, device=dev)
         a.key_out = out["keys"].data_ptr()
+        a.ndist = D
+    kv, km = _col_ptrs(cols, config.group_cols)
+    dv, dm = _col_ptrs(cols, config.distinct_cols if not pack else ())
+    _set_desc(a, dev, {
+        "key_vals": kv, "key_valid": km,
+        "pack_min": [mn for mn, _ in pack],
+        "pack_card": [card for _, card in pack],
+        "d_vals": dv, "d_valid": dm,
+        **_filter_desc(config, cols, bitsets, dev, "sorted_front")})
     a.spill, a.nrec = spill.data_ptr(), nrec.data_ptr()
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.ngroups, a.nfilters = K, len(config.group_cols), nf
@@ -1733,25 +1934,11 @@ def sorted_perm(order: dict):
 
 class SegmentReduceArgs(ctypes.Structure):
     """Mirror of struct SegmentReduceArgs in csrc/segment_reduce.cu."""
-    _fields_ = [
-        ("p", ctypes.c_void_p),
-        ("base", ctypes.c_void_p),
-        ("idxm", ctypes.c_void_p),
-        ("skey", ctypes.c_void_p),
-        ("keys", ctypes.c_void_p),
-        ("key_vals", ctypes.c_void_p * _MAXK),
-        ("key_valid", ctypes.c_void_p * _MAXK),
-        ("pack_min", ctypes.c_longlong * _MAXK),
-        ("pack_card", ctypes.c_longlong * _MAXK),
-        ("t_vals", ctypes.c_void_p),
-        ("agg_vals", ctypes.c_void_p * _MAXA),
-        ("agg_valid", ctypes.c_void_p * _MAXA),
-        ("agg_dmin", ctypes.c_longlong * _MAXA),
-        ("agg_dmax", ctypes.c_longlong * _MAXA),
-        ("agg_bias", ctypes.c_longlong * _MAXA),
-        ("w_vals", ctypes.c_void_p),
-        ("w_valid", ctypes.c_void_p),
-        ("kmat", ctypes.c_void_p),
+    _fields_ = [("desc", Desc)] + _ptr_fields(
+        "p", "base", "idxm", "skey", "keys", "key_vals", "key_valid",
+        "pack_min", "pack_card", "t_vals", "agg_vals", "agg_valid",
+        "agg_dmin", "agg_dmax", "agg_bias", "agg_mm", "w_vals", "w_valid",
+        "kmat", "dmat", "pair_mask") + [
         ("sidxm", ctypes.c_void_p),
         ("gid", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
@@ -1763,7 +1950,6 @@ class SegmentReduceArgs(ctypes.Structure):
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
-        ("agg_mm", ctypes.c_int * _MAXA),
         ("S", ctypes.c_int),
         ("L", ctypes.c_int),
         ("H", ctypes.c_int),
@@ -1775,7 +1961,7 @@ class SegmentReduceArgs(ctypes.Structure):
         ("time_i32", ctypes.c_int),
         ("has_weight", ctypes.c_int),
         ("packed", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("D", ctypes.c_int),
     ]
 
 
@@ -1791,7 +1977,10 @@ def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
     start, 0 past num_groups), "kmat" int64 [R, K] (sorted keys,
     SENTINEL for unmatched rows), "sidxm" int32 [R] (idxm in sorted
     order), "gid" int32 [R] (segment of each sorted row), "num_groups"
-    int64 [1]}."""
+    int64 [1], and with distinct columns (1191-1198) "dmat" int64 [R, D]
+    (the sorted distinct lanes: [kmat | dmat] is the reference's
+    sorted_keys) and "pair_mask" bool [R] (a matched row that starts a
+    new tuple of all K + D lanes), else None for both}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = front["idxm"].device
@@ -1809,10 +1998,17 @@ def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
         skey = order["skey"]
         differs = skey[1:] != skey[:-1]
     else:
-        kmat = front["keys"][:, perm].t().contiguous()
+        K = config.n_key_cols
+        kmat = front["keys"][:K, perm].t().contiguous()
         differs = (kmat[1:] != kmat[:-1]).any(dim=1)
     pb = torch.ones(R, dtype=torch.bool, device=dev)
     pb[1:] = differs
+    dmat = pair_mask = None
+    if config.distinct_cols:
+        dmat = front["keys"][config.n_key_cols:, perm].t().contiguous()
+        pair_mask = pb.clone()
+        pair_mask[1:] |= (dmat[1:] != dmat[:-1]).any(dim=1)
+        pair_mask &= smatched
     gid = torch.cumsum(pb.to(torch.int32), 0, dtype=torch.int32) - 1
     contrib = smatched & (gid < S)
     cgid = torch.where(contrib, gid, S).to(torch.int64)
@@ -1847,7 +2043,8 @@ def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
     return {"sums": sums, "mins": mins[:S].contiguous(),
             "maxs": maxs[:S].contiguous(), "keys": keys_tbl, "kmat": kmat,
             "sidxm": sidxm, "gid": gid,
-            "num_groups": (gid[-1:] + 1).to(torch.int64)}
+            "num_groups": (gid[-1:] + 1).to(torch.int64), "dmat": dmat,
+            "pair_mask": pair_mask}
 
 
 def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
@@ -1860,7 +2057,8 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     the gid cumsum, num_groups, the searchsorted segment starts and the
     key table, _agg_row_data's lanes read at the sorted rows (never
     materialised) and their exact nibble scatter-add, the hist
-    aggregations' scatter min/max, and kmat.  Bound by memory (random
+    aggregations' scatter min/max, kmat, and the distinct pairs' mask and
+    sorted keys (1191-1198).  Bound by memory (random
     gathers of the columns at the sorted rows); a tile scan for the gid,
     and one atomic per warp run of equal gids (see the source note)."""
     dev = front["idxm"].device
@@ -1872,6 +2070,7 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     R = B * C
     S = config.max_groups
     K = config.n_key_cols
+    D = len(config.distinct_cols)
     A = len(config.aggs)
     L = 2 + 3 * A
     hist = hist_aggs(config)
@@ -1886,32 +2085,29 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
         _check_tensor(order["base"], (R,), torch.int64, "base", dev,
                       "segment_reduce")
         a.base = order["base"].data_ptr()
+    pack = ()
     if order["skey"] is not None:
         sent, dtype = pack_sentinel(config)
         _check_tensor(order["skey"], (R,), dtype, "skey", dev,
                       "segment_reduce")
         a.skey, a.sent = order["skey"].data_ptr(), sent
         a.packed = 1 if dtype == torch.int32 else 2
-        for i, (mn, card) in enumerate(config.sort_pack):
-            a.pack_min[i], a.pack_card[i] = mn, card
+        pack = config.sort_pack
     else:
-        _check_tensor(front["keys"], (K, R), torch.int64, "keys", dev,
+        _check_tensor(front["keys"], (K + D, R), torch.int64, "keys", dev,
                       "segment_reduce")
         a.keys = front["keys"].data_ptr()
-    for i, g in enumerate(config.group_cols):
-        v, m = _check_col(cols, g, B, C, dev, "segment_reduce")
-        a.key_vals[i], a.key_valid[i] = v.data_ptr(), m.data_ptr()
+    for name in (*config.group_cols, *(g.col for g in config.aggs)):
+        _check_col(cols, name, B, C, dev, "segment_reduce")
     if config.time_col:
         v, _ = _check_col(cols, config.time_col, B, C, dev, "segment_reduce")
         a.t_vals, a.has_time = v.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
-    vbias = config.agg_vbias or (0,) * A
-    for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
-        v, m = _check_col(cols, agg.col, B, C, dev, "segment_reduce")
-        a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
-        a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
-        a.agg_bias[i] = bias
-        a.agg_mm[i] = hist.index(i) if i in hist else -1
+    kv, km = _col_ptrs(cols, config.group_cols)
+    _set_desc(a, dev, {
+        "key_vals": kv, "key_valid": km,
+        "pack_min": [mn for mn, _ in pack],
+        "pack_card": [card for _, card in pack], **_agg_desc(config, cols)})
     if config.weight_col:
         v, m = _check_col(cols, config.weight_col, B, C, dev,
                           "segment_reduce")
@@ -1924,7 +2120,13 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
            "kmat": torch.empty((R, K), dtype=torch.int64, device=dev),
            "sidxm": torch.empty(R, dtype=torch.int32, device=dev),
            "gid": torch.empty(R, dtype=torch.int32, device=dev),
-           "num_groups": torch.empty(1, dtype=torch.int64, device=dev)}
+           "num_groups": torch.empty(1, dtype=torch.int64, device=dev),
+           "dmat": None, "pair_mask": None}
+    if D:
+        out["dmat"] = torch.empty((R, D), dtype=torch.int64, device=dev)
+        out["pair_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
+        a.dmat, a.pair_mask = (out["dmat"].data_ptr(),
+                               out["pair_mask"].data_ptr())
     offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
     a.kmat, a.sidxm = out["kmat"].data_ptr(), out["sidxm"].data_ptr()
     a.gid, a.sums = out["gid"].data_ptr(), out["sums"].data_ptr()
@@ -1932,7 +2134,7 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     a.keys_tbl = out["keys"].data_ptr()
     a.num_groups, a.offsets = out["num_groups"].data_ptr(), offsets.data_ptr()
     a.R = R
-    a.S, a.L, a.H, a.K = S, L, H, K
+    a.S, a.L, a.H, a.K, a.D = S, L, H, K, D
     a.ngroups, a.naggs, a.ntiles = len(config.group_cols), A, ntiles
     fn = kernels.lib("segment_reduce").segment_reduce
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -2162,26 +2364,16 @@ def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat):
 
 class SortedPackArgs(ctypes.Structure):
     """Mirror of struct SortedPackArgs in csrc/sorted_pack.cu."""
-    _fields_ = [
-        ("sums", ctypes.c_void_p),
-        ("mins", ctypes.c_void_p),
-        ("maxs", ctypes.c_void_p),
-        ("keys_tbl", ctypes.c_void_p),
-        ("num_groups", ctypes.c_void_p),
-        ("spill", ctypes.c_void_p),
-        ("nout", ctypes.c_void_p * _MAXH),
-        ("hp_mask", ctypes.c_void_p * _MAXH),
-        ("hp_keys", ctypes.c_void_p * _MAXH),
-        ("hp_bv", ctypes.c_void_p * _MAXH),
-        ("hp_w", ctypes.c_void_p * _MAXH),
-        ("npairs", ctypes.c_void_p * _MAXH),
-        ("hp_row", ctypes.c_longlong * _MAXH),
+    _fields_ = [("desc", Desc)] + _ptr_fields(
+        "sums", "mins", "maxs", "keys_tbl", "num_groups", "spill", "nout",
+        "hp_mask", "hp_keys", "hp_bv", "hp_w", "npairs", "hp_row", "agg_mm",
+        "pair_mask", "kmat", "dmat") + [
+        ("pair_row", ctypes.c_longlong),
         ("table", ctypes.c_void_p),
         ("main", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
         ("score", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
-        ("agg_mm", ctypes.c_int * _MAXA),
         ("S", ctypes.c_int),
         ("P", ctypes.c_int),
         ("K", ctypes.c_int),
@@ -2194,6 +2386,8 @@ class SortedPackArgs(ctypes.Structure):
         ("prune", ctypes.c_int),
         ("prune_agg", ctypes.c_int),
         ("pruned", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("kmax_pairs", ctypes.c_int),
     ]
 
 
@@ -2221,7 +2415,9 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
                       main, R: int):
     """Plain PyTorch version of K10: the keyed [S, K+2+5A] table and the
     packed `main` buffer, in place, outside K5's rows (reference
-    pack_outputs 1865-1872, 1902-1965, 1979-1998).  Under the device
+    pack_outputs 1865-1872, 1902-1965, 1979-1998; with distinct columns
+    the pair section 1925-1933 from K8's pair_mask, kmat and dmat, and
+    its npairs meta word).  Under the device
     prune (prune_topk > 0) the prefix rows stay zero for prune_gather,
     the meta row holds the pruned marker and the table's count and
     sample totals (1961-1963), and each row's prune score is returned.
@@ -2253,6 +2449,8 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
             meta[2 + i] = n.reshape(())
     for i, hp in enumerate(pairs):
         meta[7 + H + i] = hp["npairs"].reshape(())
+    if config.distinct_cols:
+        meta[2 + H] = k8["pair_mask"].sum(dtype=torch.int64)
     score = None
     if config.prune_topk > 0:
         pi = 4 + H
@@ -2271,6 +2469,20 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
     if score is None:
         head[1:1 + P, :table.shape[1]] = table[:P]
     main[:lo] = head
+    if config.distinct_cols:
+        # _mask_positions: the first kmax rows of the mask, padded with
+        # row R-1 (live 0)
+        off, kmax = layout["pairs"]
+        D = len(config.distinct_cols)
+        idx = torch.nonzero(k8["pair_mask"]).reshape(-1)[:kmax]
+        n = idx.numel()
+        pos = torch.full((kmax,), R - 1, dtype=torch.int64, device=dev)
+        pos[:n] = idx
+        block = torch.zeros((kmax, W), dtype=torch.int64, device=dev)
+        block[:, :K] = k8["kmat"][pos]
+        block[:, K:K + D] = k8["dmat"][pos]
+        block[:n, K + D] = 1
+        main[off: off + kmax] = block
     Hcap = layout.get("Hcap", 0)
     for ai, hp in zip(hist, pairs):
         idx = torch.nonzero(hp["hp_mask"]).reshape(-1)[:Hcap]
@@ -2297,10 +2509,11 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     outputs and nouts its outlier counts (None without tracking), one per
     histogram aggregation.  Replaces the keyed table of sybil_tpu/ops/
     scan.py:pack_outputs (1865-1872), its meta row (1902-1965) and the
-    sparse hist pair sections (1979-1991, _mask_positions), and under the
-    device prune the score and totals of 1886-1899, 1961-1963 (K12 and
-    prune_gather do the rest).  Bound by memory (the [S, K+2+5A] table
-    and one byte of hp_mask per row)."""
+    sparse hist pair sections (1979-1991, _mask_positions), the distinct
+    pair section (1925-1933) from K8's pair_mask, kmat and dmat, and
+    under the device prune the score and totals of 1886-1899, 1961-1963
+    (K12 and prune_gather do the rest).  Bound by memory (the [S,
+    K+2+5A] table and one byte of hp_mask or pair_mask per row)."""
     dev = main.device
     if dev.type == "cpu":
         return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R)
@@ -2333,7 +2546,7 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     a.keys_tbl, a.num_groups = k8["keys"].data_ptr(), \
         k8["num_groups"].data_ptr()
     a.spill = spill.data_ptr()
-    for i, (ai, hp, n) in enumerate(zip(hist, pairs, nouts)):
+    for hp, n in zip(pairs, nouts):
         _check_tensor(hp["hp_mask"], (R,), torch.bool, "hp_mask", dev,
                       "sorted_pack")
         _check_tensor(hp["hp_keys"], (R, K), torch.int64, "hp_keys", dev,
@@ -2342,19 +2555,29 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
             _check_tensor(hp[key], (R,), torch.int64, key, dev, "sorted_pack")
         _check_tensor(hp["npairs"], (1,), torch.int64, "npairs", dev,
                       "sorted_pack")
-        a.hp_mask[i], a.hp_keys[i] = (hp["hp_mask"].data_ptr(),
-                                      hp["hp_keys"].data_ptr())
-        a.hp_bv[i], a.hp_w[i] = hp["hp_bv"].data_ptr(), hp["hp_w"].data_ptr()
-        a.npairs[i] = hp["npairs"].data_ptr()
-        a.hp_row[i] = layout[f"hpair{ai}"][0]
         if n is not None:
             _check_tensor(n, (1,), torch.int64, "nout", dev, "sorted_pack")
-            a.nout[i] = n.data_ptr()
-    for i in range(A):
-        a.agg_mm[i] = hist.index(i) if i in hist else -1
+    _set_desc(a, dev, {
+        "nout": [_ptr(n) for n in nouts],
+        **{key: [hp[key].data_ptr() for hp in pairs]
+           for key in ("hp_mask", "hp_keys", "hp_bv", "hp_w", "npairs")},
+        "hp_row": [layout[f"hpair{ai}"][0] for ai in hist],
+        "agg_mm": [hist.index(i) if i in hist else -1 for i in range(A)]})
+    D = len(config.distinct_cols)
+    if D:
+        _check_tensor(k8["pair_mask"], (R,), torch.bool, "pair_mask", dev,
+                      "sorted_pack")
+        _check_tensor(k8["kmat"], (R, K), torch.int64, "kmat", dev,
+                      "sorted_pack")
+        _check_tensor(k8["dmat"], (R, D), torch.int64, "dmat", dev,
+                      "sorted_pack")
+        a.pair_mask, a.kmat = (k8["pair_mask"].data_ptr(),
+                               k8["kmat"].data_ptr())
+        a.dmat, a.D = k8["dmat"].data_ptr(), D
+        a.pair_row, a.kmax_pairs = layout["pairs"]
     ntiles = -(-R // _SEG_TILE)
-    offsets = torch.empty((max(H, 1), ntiles + 1), dtype=torch.int32,
-                          device=dev)
+    offsets = torch.empty((max(H + (1 if D else 0), 1), ntiles + 1),
+                          dtype=torch.int32, device=dev)
     a.table, a.main, a.offsets = (table.data_ptr(), main.data_ptr(),
                                   offsets.data_ptr())
     a.R = R
@@ -2368,7 +2591,8 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
         a.pruned = min(config.prune_topk, S, a.P)
     a.Hcap, a.ntiles = layout.get("Hcap", 0), ntiles
     lo, hi = outlier_rows(config, R)
-    if (lo != 1 + a.P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)):
+    if (lo != 1 + a.P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)
+            or (D and layout["pairs"][0] < hi)):
         raise AssertionError("sorted_pack: unexpected section order")
     fn = kernels.lib("sorted_pack").sorted_pack
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -2444,7 +2668,9 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
     layout = packed_layout(config, R)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
                        device=nrec.device)
-    raw = {"kmat": k8["kmat"], "cols": cols, "time_bucket": time_bucket}
+    raw = {"kmat": k8["kmat"], "dmat": k8["dmat"],
+           "pair_mask": k8["pair_mask"], "cols": cols,
+           "time_bucket": time_bucket}
     pairs, nouts = [], []
     for ai in hist_aggs(config):
         prep = hist_prep(config, ai, cols, k8)
@@ -2482,13 +2708,14 @@ def enum_slots(config: ScanConfig, R: int) -> int:
 class EnumSegmentsArgs(ctypes.Structure):
     """Mirror of struct EnumSegmentsArgs in csrc/enum_segments.cu."""
     _fields_ = [
+        ("desc", Desc),
         ("skey", ctypes.c_void_p),
         ("p", ctypes.c_void_p),
-        ("agg_vals", ctypes.c_void_p * _MAXA),
-        ("agg_valid", ctypes.c_void_p * _MAXA),
-        ("agg_dmin", ctypes.c_longlong * _MAXA),
-        ("agg_dmax", ctypes.c_longlong * _MAXA),
-        ("agg_bias", ctypes.c_longlong * _MAXA),
+        ("agg_vals", ctypes.c_void_p),
+        ("agg_valid", ctypes.c_void_p),
+        ("agg_dmin", ctypes.c_void_p),
+        ("agg_dmax", ctypes.c_void_p),
+        ("agg_bias", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
         ("gid", ctypes.c_void_p),
@@ -2578,20 +2805,15 @@ def enum_segments(config: ScanConfig, cols, skey, p):
     if radix <= 0:
         raise ValueError("enum_segments: the config is not enumerable")
     A = len(config.aggs)
-    if A > _MAXA:
-        raise NotImplementedError(
-            f"enum_segments takes at most {_MAXA} aggregations")
     L = 2 + 3 * A
     _check_tensor(skey, (R,), torch.int32, "skey", dev, "enum_segments")
     _check_tensor(p, (R,), torch.int64, "p", dev, "enum_segments")
     a = EnumSegmentsArgs()
     a.skey, a.p = skey.data_ptr(), p.data_ptr()
-    vbias = config.agg_vbias or (0,) * A
-    for i, (agg, bias) in enumerate(zip(config.aggs, vbias)):
-        v, m = _check_col(cols, agg.col, B, C, dev, "enum_segments")
-        a.agg_vals[i], a.agg_valid[i] = v.data_ptr(), m.data_ptr()
-        a.agg_dmin[i], a.agg_dmax[i] = agg.discard_min, agg.discard_max
-        a.agg_bias[i] = bias
+    for agg in config.aggs:
+        _check_col(cols, agg.col, B, C, dev, "enum_segments")
+    _set_desc(a, dev, {
+        k: v for k, v in _agg_desc(config, cols).items() if k != "agg_mm"})
     if config.weight_col:
         v, m = _check_col(cols, config.weight_col, B, C, dev, "enum_segments")
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
@@ -2681,6 +2903,7 @@ def topk_rows(score, k: int):
 class EnumPackArgs(ctypes.Structure):
     """Mirror of struct EnumPackArgs in csrc/sorted_pack.cu."""
     _fields_ = [
+        ("desc", Desc),
         ("skey", ctypes.c_void_p),
         ("gid", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
@@ -2690,8 +2913,8 @@ class EnumPackArgs(ctypes.Structure):
         ("totals", ctypes.c_void_p),
         ("table", ctypes.c_void_p),
         ("main", ctypes.c_void_p),
-        ("pack_min", ctypes.c_longlong * _MAXK),
-        ("pack_card", ctypes.c_longlong * _MAXK),
+        ("pack_min", ctypes.c_void_p),
+        ("pack_card", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("radix", ctypes.c_int),
         ("Pk", ctypes.c_int),
@@ -2778,7 +3001,7 @@ def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
     Pk = widx.numel()
     layout = packed_layout(config, R)
     W = layout["W"]
-    if K > _MAXK or Pk != min(P, R):
+    if Pk != min(P, R):
         raise ValueError(f"enum_pack: {Pk} winners for a prefix of {P} "
                          f"over {R} rows")
     _check_tensor(main, (layout["rows"], W), torch.int64, "main", dev,
@@ -2800,8 +3023,9 @@ def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
     a.widx, a.num_groups = widx.data_ptr(), seg["num_groups"].data_ptr()
     a.spill, a.totals = spill.data_ptr(), totals.data_ptr()
     a.table, a.main = table.data_ptr(), main.data_ptr()
-    for i, (mn, card) in enumerate(config.sort_pack):
-        a.pack_min[i], a.pack_card[i] = mn, card
+    _set_desc(a, dev, {
+        "pack_min": [mn for mn, _ in config.sort_pack],
+        "pack_card": [card for _, card in config.sort_pack]})
     a.R, a.radix, a.Pk, a.P = R, enum_radix(config), Pk, P
     a.K, a.A, a.L, a.W = K, A, L, W
     fn = kernels.lib("sorted_pack").enum_pack
@@ -2843,18 +3067,20 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
     outputs).
 
     Same arguments as the reference's scan_packed_jit: filter_vals int64
-    [F] and the regex bitsets are device constants; time_bucket is the
+    [F] and the regex bitsets are device constants (the device HLL's
+    uint64 hash array as its int64 bits); time_bucket is the
     rollup's bucket width (a host int: the kernels take it as a scalar
     argument); set inputs belong to shapes the port rejects.  Routes as
     the reference's scan_core: dense (K2, then K4 and K5 per histogram
     aggregation, then K3), else enumerated when enum_radix(config) > 0
     (K7 enum form, the sort, K11, K12, K10 enum_pack), else sorted (K7,
     the sorts, K8, K9 and K5 per histogram aggregation, K10, and under
-    the device prune K12 and K10's prune_gather).  `raw` keeps what
-    escalation fetches when a packed section overflows:
-    "agg{ai}_hist" [Sc, nv] (dense), "agg{ai}_hp_*" [R] and "kmat" [R, K]
-    (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R], and "cols" and
-    "time_bucket" for the key lanes (key_rows)."""
+    the device prune K12 and K10's prune_gather); a dense count distinct
+    runs K13 after K2.  `raw` keeps what escalation fetches when a packed
+    section overflows: "agg{ai}_hist" [Sc, nv] and "hll_regs" [slots,
+    HLL_M] (dense), "agg{ai}_hp_*" [R], "kmat" [R, K], "dmat" [R, D] and
+    "pair_mask" [R] (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R],
+    and "cols" and "time_bucket" for the key lanes (key_rows)."""
     check_supported(config)
     B, C = _batch_shape(cols)
     R = B * C
@@ -2871,6 +3097,10 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
     raw = {k: v for k, v in k2.items() if k != "gid"}
     raw["cols"] = cols
     raw["time_bucket"] = time_bucket
+    hll = None
+    if config.hll and config.distinct_cols:
+        hll = raw["hll_regs"] = hll_registers(config, cols, k2["gid"],
+                                              bitsets)
     hists, nouts = [], []
     for ai in hist_aggs(config):
         h = dense_hist(config, ai, cols, k2["gid"])
@@ -2882,7 +3112,7 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
             raw[f"agg{ai}_out_val"] = h["out_val"]
             outlier_compact(config, cols, h["out_mask"], h["out_val"], main,
                             layout[f"out{ai}"][0], time_bucket)
-    dense_pack(config, k2, hists, nouts, main, R)
+    dense_pack(config, k2, hists, nouts, main, R, hll)
     return {"main": main}, raw
 
 
@@ -2907,6 +3137,20 @@ def fetch_hist_pairs(raw: dict, ai: int):
     return (raw[f"agg{ai}_hp_keys"][idx].cpu().numpy(),
             raw[f"agg{ai}_hp_bv"][idx].cpu().numpy(),
             raw[f"agg{ai}_hp_w"][idx].cpu().numpy())
+
+
+def fetch_pairs(raw: dict) -> np.ndarray:
+    """Every distinct pair -> numpy [n, K + D]: the sorted keys of the
+    rows that start a (group, distinct) tuple, the escalation when the
+    pairs exceed the packed section."""
+    idx = torch.nonzero(raw["pair_mask"]).reshape(-1)
+    return torch.cat([raw["kmat"][idx], raw["dmat"][idx]], 1).cpu().numpy()
+
+
+def fetch_hll(raw: dict) -> np.ndarray:
+    """The full uint8 [slots, HLL_M] register planes -> numpy: the
+    escalation when live groups exceed the shipped planes."""
+    return raw["hll_regs"].cpu().numpy()
 
 
 def fetch_table(packed: dict, n: int) -> np.ndarray:

@@ -14,7 +14,9 @@ cache, the row-store scan, samples or meshes.  The plan:
            blocking; a dense key bound that spills restarts the scan on
            the unpacked sorted strategy
   merge    the host merges the (small) per-batch group tables, bucket
-           matrices, sparse hist pairs and outlier rows
+           matrices, sparse hist pairs, outlier rows, and a count
+           distinct's HLL register planes (the dense strategy's device
+           HLL, K13) or (group, distinct) pairs (the sorted strategy)
   finish   translate group keys to display strings (aggregate.go:284-324),
            sort (aggregate.go:469-525), build the Cumulative row
 
@@ -32,11 +34,12 @@ import numpy as np
 from .. import blocks as blockio
 from ..config import Flags
 from ..constants import (CHUNK_SIZE, GROUP_DELIMITER, INT_VAL,
-                         INTERNAL_RESULT_LIMIT, NO_VAL, SET_VAL, SORT_COUNT,
-                         STR_VAL)
+                         INTERNAL_RESULT_LIMIT, MISSING_VALUE, NO_VAL,
+                         SET_VAL, SORT_COUNT, STR_VAL)
 from ..debug import debug, error, warn
 from ..table import Table
 from .hist import BasicHist, MultiHist, basic_bucket_layout, multi_hist_layout
+from .hll import HLL
 from .spec import QueryParams, Result
 
 MISSING_I64 = -1  # == MaxUint64 in two's complement
@@ -918,12 +921,14 @@ class _ScanCtx:
         self.refresh_consts()
 
     def refresh_consts(self):
-        """Filter constants and regex bitsets as device constants; call
-        again after BoundQuery.refresh_str_filters re-resolves them."""
+        """Filter constants, regex bitsets and the device HLL's uint64
+        hash array (as int64 bits) as device constants; call again after
+        BoundQuery.refresh_str_filters re-resolves them."""
         from ..ops.residency import device_const
         self.jfv = device_const(self.bound.filter_vals, self.device)
-        self.jbits = tuple(device_const(b, self.device)
-                           for b in self.bound.bitsets)
+        self.jbits = tuple(
+            device_const(b.view(np.int64) if b.dtype == np.uint64 else b,
+                         self.device) for b in self.bound.bitsets)
 
 
 PIPELINE = 4   # batches in flight before the oldest download blocks
@@ -1227,9 +1232,10 @@ class _Accumulator:
         strategy's full table in packed["table"]) are touched only when
         the meta row reports that a packed section overflowed.  Returns
         the spill count (>0 => this batch's rows were NOT absorbed)."""
-        from ..ops.scan import (SENTINEL, dense_keys_np, dense_table_plan,
-                                fetch_hist_pairs, fetch_hist_rows,
-                                fetch_outliers, fetch_table, hist_aggs,
+        from ..ops.scan import (HLL_M, SENTINEL, dense_keys_np,
+                                dense_table_plan, fetch_hist_pairs,
+                                fetch_hist_rows, fetch_hll, fetch_outliers,
+                                fetch_pairs, fetch_table, hist_aggs,
                                 packed_layout, table_prefix)
         if config is None:
             config = self.bound.config
@@ -1252,6 +1258,7 @@ class _Accumulator:
         if spill > 0:
             return spill
         nouts = {ai: int(meta[2 + i]) for i, ai in enumerate(hist_ais)}
+        npairs = int(meta[2 + len(hist_ais)])
         # device prune (prune_topk): the marker, then the whole batch's
         # count and sample totals
         pi = 4 + len(hist_ais)
@@ -1477,8 +1484,79 @@ class _Accumulator:
                     hw = block[hvalid, K + 1]
                 self._absorb_hist_pairs(ai, hkeys, hbv, hw,
                                         config.aggs[ai])
+
+        if p.distincts and npairs > 0:
+            # the sorted strategy's (group, distinct) pairs
+            if npairs > layout["kmax_pairs"]:   # escalate to the device
+                skeys = fetch_pairs(out)
+            else:
+                off, rows = layout["pairs"]
+                block = main[off: off + rows]
+                nkall = config.n_all_keys
+                skeys = block[block[:, nkall] != 0, :nkall]
+            self._absorb_distinct(skeys, K)
+        elif p.distincts and config.hll and dense and len(active):
+            # the device HLL: merge the shipped register planes by max
+            Phll = layout["Phll"]
+            gids_h = section_flat("hll_gids", Phll).astype(np.int64)
+            words = section_flat("hll_regs", Phll * (HLL_M // 8))
+            regs = np.ascontiguousarray(
+                words.astype("<i8")).view(np.uint8).reshape(Phll, HLL_M)
+            row_of = {int(g): i for i, g in enumerate(gids_h.tolist())}
+            # live groups past the shipped planes: fetch them all
+            full = fetch_hll(out) if len(active) > Phll else None
+            for i, gi in enumerate(active_l):
+                if full is not None:
+                    plane = full[gi]
+                else:
+                    hr = row_of.get(gi)
+                    if hr is None:
+                        continue
+                    plane = regs[hr]
+                row = self.rows.get(tuple(keys_l[i]))
+                if row is None:
+                    continue
+                if row["distinct"] is None:
+                    row["distinct"] = HLL()
+                np.maximum(row["distinct"].registers, plane,
+                           out=row["distinct"].registers)
         self.batches += 1
         return 0
+
+    def _absorb_distinct(self, skeys: np.ndarray, nkeys: int) -> None:
+        """Feed each (group keys, distinct values) pair into its group's
+        host HLL (reference engine.py:2267-2297): the int fast path's
+        8-byte little-endian packing (MISSING = MaxUint64), or the
+        display strings joined by GROUP_DELIMITER.  SENTINEL rows are
+        unmatched and skipped."""
+        from ..ops.scan import SENTINEL
+        p = self.params
+        int_only = all(self.bound.col_types[d] == INT_VAL
+                       for d in p.distincts)
+        for rowkeys in skeys:
+            kt = tuple(int(k) for k in rowkeys[:nkeys])
+            if kt and kt[0] == SENTINEL:
+                continue
+            row = self.rows.get(kt)
+            if row is None:
+                continue
+            if row["distinct"] is None:
+                row["distinct"] = HLL()
+            dvals = rowkeys[nkeys:]
+            if int_only:
+                buf = b"".join((int(v) & MISSING_VALUE).to_bytes(8, "little")
+                               for v in dvals)
+            else:
+                parts = []
+                for d, v in zip(p.distincts, dvals):
+                    if int(v) == MISSING_I64:
+                        parts.append("")
+                    elif self.bound.col_types[d] == STR_VAL:
+                        parts.append(self.bound._strings(d)[int(v)])
+                    else:
+                        parts.append(str(int(v)))
+                buf = (GROUP_DELIMITER.join(parts) + GROUP_DELIMITER).encode()
+            row["distinct"].add(buf)
 
     def _absorb_hist_pairs(self, ai: int, hkeys: np.ndarray,
                            hbv: np.ndarray, hw: np.ndarray, spec) -> None:

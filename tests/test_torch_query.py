@@ -391,9 +391,11 @@ def test_unported_engine_modes_raise(ref_table, change, item):
     # -tdigest, a rollup past DENSE_WINDOW_SLOT_CAP (4000 quotients x 6 x
     # 6 slots) and int keys past the dense slot cap take the sorted
     # strategy, which tests/test_torch_sorted.py holds against the
-    # reference; on it samples and distinct counts stay unported.  The
-    # device prune (B10) is ported: that case now prints the reference's
-    # bytes (the enumerated strategy, tests/test_torch_enum.py)
+    # reference; on it samples stay unported.  The device prune (B10) and
+    # count distinct (B9) are ported: those cases now print the
+    # reference's bytes (the enumerated strategy, tests/test_torch_enum.py;
+    # the distinct pairs of a rollup and the device HLL,
+    # tests/test_torch_distinct.py)
     (["-op", "hist", "-tdigest", "-samples"], "A13"),
     (["-time", "-time-col", "index_int", "-time-bucket", "1", "-group",
       "host,status", "-distinct", "weight"], "B9"),
@@ -427,14 +429,62 @@ def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
     base = ["query", "-dir", d, "-table", "uptime", "-int", "ping", "-json"]
     if "-group" not in argv:
         base += ["-group", "host"]
-    if item == "B10":
+    if item in ("B9", "B10"):
         want = _cli_out(ref_cli.main, base + argv, capsys)
         assert _cli_out(port_cli.main, base + argv + ["-device", "cpu"],
                         capsys) == want
-        assert len(json.loads(want)) == 100      # the default -limit
+        if item == "B10":
+            assert len(json.loads(want)) == 100      # the default -limit
+        else:
+            assert '"Distinct"' in want
         return
     assert port_cli.main(base + argv + ["-device", "cpu"]) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def wide_table(tmp_path_factory):
+    """600 rows of 33 int columns c0..c32 and 17 group columns (g0..g8
+    str, g9..g16 int), each of two or three values: the shapes past the
+    kernels' former fixed caps."""
+    d = str(tmp_path_factory.mktemp("widedb"))
+    rng = np.random.default_rng(41)
+    n = 600
+    old = ref_digest.CHUNK_SIZE
+    ref_digest.CHUNK_SIZE = 256
+    try:
+        RefTable("wide", RefFlags(dir=d, table="wide",
+                                  skip_compact=True)).ingest_columns(
+            ints={**{f"c{i}": rng.integers(-50, 400, n) for i in range(33)},
+                  **{f"g{i}": rng.integers(0, 3, n) for i in range(9, 17)}},
+            strs={f"g{i}": [("a", "b")[j] for j in rng.integers(0, 2, n)]
+                  for i in range(9)},
+            valid={"c3": rng.random(n) > 0.1, "g2": rng.random(n) > 0.1})
+    finally:
+        ref_digest.CHUNK_SIZE = old
+    return d
+
+
+@pytest.mark.parametrize("fmt", ["text", "json"])
+@pytest.mark.parametrize("what,argv", [
+    ("17 int filters", ["-group", "g0", "-int", "c0", "-int-filter",
+                        ",".join(f"c{i}:gt:-40" for i in range(17))]),
+    ("33 aggregations", ["-group", "g9", "-int",
+                         ",".join(f"c{i}" for i in range(33))]),
+    ("17 group columns", ["-group", ",".join(f"g{i}" for i in range(17)),
+                          "-int", "c1,c2", "-op", "hist"]),
+])
+def test_past_former_kernel_caps_matches_reference(wide_table, what, argv,
+                                                   fmt, capsys):
+    """17 filters, 33 aggregations and 17 group columns: the kernels took
+    at most 16, 32 and 16 before their argument arrays moved to a device
+    buffer; the reference has no cap."""
+    base = ["query", "-dir", wide_table, "-table", "wide", *argv]
+    if fmt == "json":
+        base.append("-json")
+    want = _cli_out(ref_cli.main, base, capsys)
+    assert want
+    assert _cli_out(port_cli.main, base + ["-device", "cpu"], capsys) == want
 
 
 def test_other_subcommands_are_not_ported(capsys):

@@ -5,6 +5,7 @@ sybil_tpu_torch.ops.scan.scan_packed (CPU tensors); the packed download
 buffer `main` must agree word for word.  The port's ScanConfig is built
 from the reference's field dict (config_from_fields)."""
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -136,32 +137,34 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
-    # set filters (B6b), count distinct (B9) and samples (A13) stay
-    # unported.  A time rollup without a bound on its quotient, histograms
-    # under the sorted strategy and the sorted strategy itself are ported
+    # set filters (B6b) and samples (A13) stay unported.  A time rollup
+    # without a bound on its quotient, histograms under the sorted
+    # strategy and the sorted strategy itself are ported
     # (tests/test_torch_sorted.py); here each carries a part that is not.
-    # The sorted strategy's device prune (B10) is ported: its two cases,
-    # a time rollup and a forced sorted scan under prune_topk, now equal
-    # the reference's `main` word for word
-    change = {
-        "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
-        "time": {"time_col": "k0", "prune_topk": 1000},
-        "hist": {"aggs": (dataclasses.replace(pcfg.aggs[0],
-                                              num_values=10),),
-                 "force_sorted": True, "distinct_cols": ("v0",)},
-        "distinct": {"distinct_cols": ("v0",)},
-        "samples": {"want_matched_mask": True},
-        "sorted": {"force_sorted": True, "prune_topk": 1000},
-    }[what]
+    # The sorted strategy's device prune (B10) and count distinct (B9) are
+    # ported: their cases (a time rollup and a forced sorted scan under
+    # prune_topk; the distinct pairs, with and without a histogram) now
+    # equal the reference's `main` word for word
+    def change(c):
+        return {
+            "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
+            "time": {"time_col": "k0", "prune_topk": 1000},
+            "hist": {"aggs": (dataclasses.replace(c.aggs[0], num_values=10,
+                                                  bucket_size=25),),
+                     "force_sorted": True, "distinct_cols": ("v0",)},
+            "distinct": {"distinct_cols": ("v0",)},
+            "samples": {"want_matched_mask": True},
+            "sorted": {"force_sorted": True, "prune_topk": 1000},
+        }[what]
     item = {"filters": "B6b", "time": "B10", "hist": "B9", "distinct": "B9",
             "samples": "A13", "sorted": "B10"}[what]
-    bad = dataclasses.replace(pcfg, **change)
+    bad = dataclasses.replace(pcfg, **change(pcfg))
     assert what in ("filters", "distinct", "samples") or \
         bad.strategy == "sorted"
     tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
              for k, (v, m) in cols.items()}
-    if item == "B10":
-        rcfg = dataclasses.replace(cfg, **change)
+    if item in ("B9", "B10"):
+        rcfg = dataclasses.replace(cfg, **change(cfg))
         packed, _ = ref.scan_packed_jit(
             rcfg, {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
                    cols.items()},
@@ -170,7 +173,34 @@ def test_unported_shapes_raise(what):
         got, _ = port.scan_packed(bad, tcols, torch.from_numpy(nrec))
         np.testing.assert_array_equal(got["main"].numpy(),
                                       np.asarray(packed["main"]))
-        assert int(np.asarray(packed["main"])[0, 4]) > 0   # pruned
+        meta = np.asarray(packed["main"])[0]
+        if item == "B10":
+            assert int(meta[4]) > 0                     # pruned
+        else:
+            assert int(meta[2 + len(port.hist_aggs(bad))]) > 0   # npairs
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port.scan_packed(bad, tcols, torch.from_numpy(nrec))
+
+
+@pytest.mark.parametrize("n", [0, 5, port._DESC_HEAD, port._DESC_HEAD + 40])
+def test_descriptor_block_head_and_device_copy(n):
+    """_set_desc points each field at its first word: byte offsets into
+    the kernel parameters' head while the block fits it, else pointers
+    into a device copy of the whole block, whose host words match."""
+    words = [(-1) ** i * (i * 0x9E3779B97F4A7C15 % 2**62) for i in range(n)]
+    split = n // 3
+    a = port.SortedFrontArgs()
+    port._set_desc(a, torch.device("cpu"),
+                   {"pack_min": words[:split], "pack_card": words[split:]})
+    assert a.desc.n == n
+    assert list(a.desc.head[:min(n, port._DESC_HEAD)]) == \
+        words[:port._DESC_HEAD]
+    base = a.desc.dev or 0
+    assert (base != 0) == (n > port._DESC_HEAD) == bool(a.desc.host)
+    if base:
+        host = (ctypes.c_longlong * n).from_address(a.desc.host)
+        assert list(host) == words
+        assert a.desc_keep[1].numel() == n
+    assert (a.pack_min or 0) - base == 0
+    assert (a.pack_card or 0) - base == 8 * split

@@ -237,16 +237,16 @@ def _strategies_seen(monkeypatch):
     ("samples", {"want_matched_mask": True}, "A13"),
 ])
 def test_sorted_shapes_still_unported_raise(what, change, item):
-    """Distinct counts (B9) and samples (A13) raise; the device prune
-    (B10) is ported and equals the reference's `main` and pruned table
-    word for word."""
+    """Samples (A13) raise; the device prune (B10) and distinct counts
+    (B9, the distinct pairs) are ported and equal the reference's `main`
+    and (pruned) table word for word."""
     cfg, cols, nrec, fvals, bits, tb = _make("unpacked-missing-negative")
     pcfg = dataclasses.replace(
         port.config_from_fields(dataclasses.asdict(cfg)), **change)
     assert pcfg.strategy == "sorted"
     tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
              for k, (v, m) in cols.items()}
-    if item == "B10":
+    if item in ("B9", "B10"):
         packed, _ = ref.scan_packed_jit(
             dataclasses.replace(cfg, **change),
             {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
@@ -257,8 +257,11 @@ def test_sorted_shapes_still_unported_raise(what, change, item):
                                       np.asarray(packed["main"]))
         np.testing.assert_array_equal(got["table"].numpy(),
                                       np.asarray(packed["table"]))
-        assert int(np.asarray(packed["main"])[0, 4]) == \
-            port.table_prefix(pcfg)
+        meta = np.asarray(packed["main"])[0]
+        if item == "B10":
+            assert int(meta[4]) == port.table_prefix(pcfg)
+        else:
+            assert int(meta[2]) > 0                     # npairs
         return
     with pytest.raises(NotImplementedError, match=item):
         port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
