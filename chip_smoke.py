@@ -14,7 +14,11 @@ Phases (any failure exits non-zero before the result lines):
      generated, and the same rows stably sorted by time, as digestion
      orders a table; and config 5's two partitions of N / 2 rows each
      (bench_configs.py:64-98: userid ~ Zipf(1.2) folded over 200,000
-     users, weights, seed 900 + p * 1000, 1M-row steps, device_batch 64)
+     users, weights, seed 900 + p * 1000, 1M-row steps, device_batch 64);
+     and a fourth uptime table of N rows with the `groups` set column, from
+     this script's copy of scripts/fakedata/host_generator.py:columns
+     (seed 1337 + start_index, 1M-row steps, its `now` fixed to
+     BENCH_NOW)
   3. K1 decode_bucket2 against its plain PyTorch version on the card,
      bit for bit: the table's real host and ping containers, then edge
      blocks (u8/u16/i32 deltas, short, missing, invalid rows); K6
@@ -74,7 +78,13 @@ Phases (any failure exits non-zero before the result lines):
      distinct with filters, D = 2, pairs with a hist agg), and the former
      fixed caps: K2, K5, K7, K8, K10 and K11 at 17 filters, 17 keys and 33
      aggregations, and K2, K7, K8 and K11 past the descriptor words a
-     launch carries in its parameters (60 filters, 50 and 60 aggregations)
+     launch carries in its parameters (60 filters, 50 and 60 aggregations).
+     Then set filters and samples: K14 set_match on the sets table's
+     batch (each set value and an unknown literal, has and hit also
+     against numpy) and five edge CSRs; K2's shared and global forms with
+     S1's and S2's set filters, with and without the matched mask, its
+     windowed form on a synthetic rollup; K7's sorted form on S3, S4b and
+     S3 with the mask, its enum form on a synthetic batch with a set filter
   5. the main path through the port's CLI on cuda, one batch of all
      blocks, the launch counts reset just before each query and read just
      after: config 1 `-group host -int ping -op avg`, config 3 (and with
@@ -104,7 +114,14 @@ Phases (any failure exits non-zero before the result lines):
      warm queries run no decode (residency) and the scan kernels once per
      batch, also through a three-batch pipeline, the four distinct queries
      included (the device HLL's merged registers against the numpy-fed
-     HLLs byte for byte)
+     HLLs byte for byte); then S1-S5 on the sets table: S1 `-group host
+     -int ping -op avg -set-filter groups:in:mod3`, S2 (`groups:nin:mod2`
+     and `status:eq:200`), S3 (`-group host,status -op hist -tdigest`,
+     `groups:in:mod5`: the sorted strategy), S4a and S4b (`-samples
+     -limit 10`, K2's and K7's masks: the first matched rows in block
+     order, read back with the port's blocks module) and S5 (an unknown
+     literal: no row, every row), each against numpy, K14 once per set
+     filter
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -117,7 +134,9 @@ Phases (any failure exits non-zero before the result lines):
      on both hash paths (beside scatter_reduce_ amax), K3's HLL sections,
      the pairs' K7, K8 and K10, K5 over the sorted keys, and the stable
      torch.sort calls between them on lines of their own with their
-     radix-pass bound
+     radix-pass bound; S1's cold and warm walls and S2-S4b's phases, K14
+     beside its plain version and two index_add_ passes, K2 at S1's shape
+     and K7 at S3's and S4b's with and without the set filter and mask
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -149,7 +168,7 @@ STEP = 1_000_000
 KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
            "hist_pairs", "sorted_pack", "enum_segments", "topk_rows",
-           "hll_registers")
+           "hll_registers", "set_match")
 # the launch-counted wrappers: each source's, and those of a source's
 # other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
@@ -784,12 +803,29 @@ def decoded_cols(table, names, C: int, device):
     return out, dirs
 
 
-def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
-    """K2 (in each form that applies: windowed and global for a windowed
-    rollup), K13 with the device HLL, then K4 and K5 per histogram
-    aggregation, then K3, each against its plain version on the same
-    inputs; the kernels' buffer against scan_packed's.  -> (K2 outputs,
-    main)."""
+def set_masks_check(what, cfg, fv, set_aux, R, errs):
+    """K14 once per set filter against its plain version, bit for bit ->
+    the kernel's masks (scan.set_filter_masks' list), or None."""
+    from sybil_tpu_torch.ops import scan
+    masks = scan.set_filter_masks(cfg, fv, set_aux, R)
+    for i, f in enumerate(cfg.filters):
+        if f.kind != "set":
+            continue
+        prow, pval, n = set_aux[f.col]
+        want = scan.set_match_plain(prow, pval, n, fv, i, R)
+        for got_w, want_w, name in zip(masks[i], want, ("has", "hit")):
+            check_equal(f"K14 {what} filter {i} {name}", got_w, want_w,
+                        errs["set_match"])
+    return masks
+
+
+def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
+               set_aux=None, forms=None):
+    """K14 per set filter, K2 (in each form that applies: windowed and
+    global for a windowed rollup, or `forms`), K13 with the device HLL,
+    then K4 and K5 per histogram aggregation, then K3, each against its
+    plain version on the same inputs; the kernels' buffer against
+    scan_packed's.  -> (K2 outputs, main)."""
     import torch
 
     from sybil_tpu_torch.ops import scan
@@ -799,11 +835,14 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     dev = nrec.device
     if fv is None:
         fv = torch.zeros(0, dtype=torch.int64, device=dev)
-    k2p = scan.dense_scan_plain(cfg, cols, nrec, fv, bits, tb)
-    forms = ["windowed", "global"] if scan.windowed(cfg) else [None]
+    sm = set_masks_check(what, cfg, fv, set_aux, R, errs)
+    k2p = scan.dense_scan_plain(cfg, cols, nrec, fv, bits, tb, sm)
+    if forms is None:
+        forms = ["windowed", "global"] if scan.windowed(cfg) else [None]
     for form in forms:
-        k2 = scan.dense_scan(cfg, cols, nrec, fv, bits, tb, form=form)
-        for key in ("sums", "spill", "mins", "maxs", "gid"):
+        k2 = scan.dense_scan(cfg, cols, nrec, fv, bits, tb, form=form,
+                             set_masks=sm)
+        for key in ("sums", "spill", "mins", "maxs", "gid", "mask"):
             if (k2[key] is None) != (k2p[key] is None):
                 fail(f"K2 {what} {key}: kernel and plain disagree on "
                      f"presence")
@@ -841,9 +880,12 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     scan.dense_pack(cfg, k2, hists, nouts, main, R, hll)
     scan.dense_pack_plain(cfg, k2, hists, nouts, main_p, R, hll)
     check_equal(f"K3 {what} main", main, main_p, errs["dense_pack"])
-    packed, raw = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
+    packed, raw = scan.scan_packed(cfg, cols, nrec, fv, bits, tb, set_aux)
     if not torch.equal(packed["main"], main):
         fail(f"{what}: scan_packed's buffer differs from the kernels' own")
+    if cfg.want_matched_mask and not torch.equal(raw["matched"],
+                                                 k2["mask"]):
+        fail(f"{what}: scan_packed's matched mask differs from K2's own")
     if hll is not None and not torch.equal(raw["hll_regs"], hll):
         fail(f"{what}: scan_packed's registers differ from K13's own")
     return k2, main
@@ -1062,12 +1104,13 @@ def check_outs(kernel, what, got: dict, want: dict, keys, errs):
                         errs[kernel])
 
 
-def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
-    """K7, the sorts (sort_permute between them), K8, K9's two entries,
-    K5 over kmat and K10, each kernel against its plain version on the
-    same inputs, word for word; the kernels' buffers against
-    scan_packed's.  -> (main, table, {"front", "order", "k8", "preps",
-    "pairs"})."""
+def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
+                 set_aux=None):
+    """K14 per set filter, K7, the sorts (sort_permute between them), K8,
+    K9's two entries, K5 over kmat and K10, each kernel against its plain
+    version on the same inputs, word for word; the kernels' buffers
+    against scan_packed's.  -> (main, table, {"front", "order", "k8",
+    "preps", "pairs"})."""
     import torch
 
     from sybil_tpu_torch.ops import scan
@@ -1079,10 +1122,11 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
     dev = nrec.device
     if fv is None:
         fv = torch.zeros(0, dtype=torch.int64, device=dev)
-    front = scan.sorted_front(cfg, cols, nrec, fv, bits, tb)
+    sm = set_masks_check(what, cfg, fv, set_aux, R, errs)
+    front = scan.sorted_front(cfg, cols, nrec, fv, bits, tb, sm)
     check_outs("sorted_front", what, front, scan.sorted_front_plain(
-        cfg, cols, nrec, fv, bits, tb), ("key", "keys", "idxm", "spill",
-                                         "totals"), errs)
+        cfg, cols, nrec, fv, bits, tb, sm), ("key", "keys", "idxm", "spill",
+                                             "totals", "mask"), errs)
     if front["key"] is not None:
         skey, p = torch.sort(front["key"], stable=True)
         order = {"skey": skey, "p": p, "base": None}
@@ -1158,10 +1202,13 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1):
                     errs["prune_gather"])
     check_equal(f"sorted_pack {what} main", main, main_p,
                 errs["sorted_pack"])
-    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, tb)
+    packed, raw = scan.scan_packed(cfg, cols, nrec, fv, bits, tb, set_aux)
     if not (torch.equal(packed["main"], main)
             and torch.equal(packed["table"], table)):
         fail(f"{what}: scan_packed's buffers differ from the kernels' own")
+    if cfg.want_matched_mask and not torch.equal(raw["matched"],
+                                                 front["mask"]):
+        fail(f"{what}: scan_packed's matched mask differs from K7's own")
     return main, table, {"front": front, "order": order, "k8": k8,
                          "preps": preps, "pairs": pairs}
 
@@ -1314,11 +1361,11 @@ def sorted_edge_expect(name, cfg, main, R):
 # phase 4: the enumerated strategy (K7 enum form, K11, K12, K10 enum_pack)
 # ---------------------------------------------------------------------------
 
-def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
-    """K7's enum form, the sort, K11, K12 and K10's enum_pack, each kernel
-    against its plain version on the same inputs, word for word; the
-    kernels' buffers against scan_packed's.  -> (main, table, {"front",
-    "skey", "p", "seg", "widx"})."""
+def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=(), set_aux=None):
+    """K14 per set filter, K7's enum form, the sort, K11, K12 and K10's
+    enum_pack, each kernel against its plain version on the same inputs,
+    word for word; the kernels' buffers against scan_packed's.  -> (main,
+    table, {"front", "skey", "p", "seg", "widx"})."""
     import torch
 
     from sybil_tpu_torch.ops import scan
@@ -1330,10 +1377,12 @@ def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
     dev = nrec.device
     if fv is None:
         fv = torch.zeros(0, dtype=torch.int64, device=dev)
-    front = scan.sorted_front(cfg, cols, nrec, fv, bits)
+    sm = set_masks_check(what, cfg, fv, set_aux, R, errs)
+    front = scan.sorted_front(cfg, cols, nrec, fv, bits, set_masks=sm)
     check_outs("sorted_front", f"{what} (enum form)", front,
-               scan.sorted_front_plain(cfg, cols, nrec, fv, bits),
-               ("key", "keys", "idxm", "spill", "totals"), errs)
+               scan.sorted_front_plain(cfg, cols, nrec, fv, bits,
+                                       set_masks=sm),
+               ("key", "keys", "idxm", "spill", "totals", "mask"), errs)
     skey, p = torch.sort(front["key"], stable=True)
     seg = scan.enum_segments(cfg, cols, skey, p)
     check_outs("enum_segments", what, seg,
@@ -1354,7 +1403,7 @@ def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=()):
                                    front["totals"], main_p)
     check_equal(f"enum_pack {what} table", table, table_p, errs["enum_pack"])
     check_equal(f"enum_pack {what} main", main, main_p, errs["enum_pack"])
-    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits)
+    packed, _ = scan.scan_packed(cfg, cols, nrec, fv, bits, 1, set_aux)
     if not (torch.equal(packed["main"], main)
             and torch.equal(packed["table"], table)):
         fail(f"{what}: scan_packed's buffers differ from the kernels' own")
@@ -1814,6 +1863,606 @@ def hll_check(card, label, qr, keys_of, hlls, regs: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
+# set filters and samples: the sets table, K14, K2's and K7's set ops and
+# matched mask, and S1-S5
+# ---------------------------------------------------------------------------
+
+# S1-S5 (query flags after -dir, -table): the set-filter and samples
+# queries of the sets table
+S_ARGV = {
+    "S1": ["-group", "host", "-int", "ping", "-op", "avg", "-set-filter",
+           "groups:in:mod3"],
+    "S2": ["-group", "host", "-int", "ping", "-op", "avg", "-set-filter",
+           "groups:nin:mod2", "-str-filter", "status:eq:200"],
+    "S3": ["-group", "host,status", "-int", "ping", "-op", "hist",
+           "-tdigest", "-set-filter", "groups:in:mod5"],
+    "S4a": ["-samples", "-limit", "10", "-set-filter", "groups:in:mod3"],
+    "S4b": ["-samples", "-limit", "10", "-sample-cols", "host,ping,groups",
+            "-group", "host", "-int", "ping", "-op", "hist", "-tdigest"],
+    "S5 in": ["-set-filter", "groups:in:nosuch"],
+    "S5 nin": ["-set-filter", "groups:nin:nosuch"],
+}
+
+
+def uptime_set_columns(n: int, start_index: int):
+    """scripts/fakedata/host_generator.py:columns (seed 1337 +
+    start_index; the `groups` set holds mod2, mod3 and mod5 of index_int,
+    or `none`), with its `now` fixed to bench.py's BENCH_NOW so the table
+    does not depend on the clock.  -> (ints, strs, sets, status ids, host
+    ids)."""
+    import numpy as np
+    rng = np.random.default_rng(BENCH_SEED + start_index)
+    now = BENCH_NOW
+    idx = np.arange(start_index, start_index + n, dtype=np.int64)
+    ints = {
+        "ping": np.abs(rng.normal(60, 20, n)).astype(np.int64),
+        "weight": rng.choice([1, 10, 100], n).astype(np.int64),
+        "time": now + rng.integers(-2419200, 2419200, n),
+        "index_int": idx,
+    }
+    status = rng.integers(0, 5, n)
+    host = rng.integers(0, 5, n)
+    strs = {
+        "status": [STATII[i] for i in status],
+        "host": [HOSTS[i] for i in host],
+        "index_str": [str(i) for i in idx],
+    }
+    sets = {"groups": [
+        [g for m, g in ((2, "mod2"), (3, "mod3"), (5, "mod5"))
+         if i % m == 0] or ["none"] for i in idx.tolist()]}
+    return ints, strs, sets, status, host
+
+
+def build_sets_table(root: str, n_rows: int):
+    """The uptime table with `groups`, written by the port in 1M-row
+    steps.  -> (Table, Flags, {"host", "status": list indices, "ping",
+    "index_int"})."""
+    import numpy as np
+
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.table import Table
+    flags = Flags(dir=root, table="uptime", skip_compact=True,
+                  device_batch=1024)
+    t = Table("uptime", flags)
+    parts = {"host": [], "status": [], "ping": [], "index_int": []}
+    for start in range(0, n_rows, STEP):
+        n = min(STEP, n_rows - start)
+        ints, strs, sets, status, host = uptime_set_columns(n, start)
+        t.ingest_columns(ints=ints, strs=strs, sets=sets)
+        parts["host"].append(host)
+        parts["status"].append(status)
+        parts["ping"].append(ints["ping"])
+        parts["index_int"].append(ints["index_int"])
+    return t, flags, {k: np.concatenate(v) for k, v in parts.items()}
+
+
+def cli_query(table, argv, device="cuda"):
+    """(Flags, QueryParams) of a query command line, as the CLI binds
+    them."""
+    from sybil_tpu_torch.cli import _flags_from_query_args, _query_parser
+    from sybil_tpu_torch.query.spec import QueryParams
+    f = _flags_from_query_args(_query_parser().parse_args(
+        ["-dir", table.flags.dir, "-table", table.name, *argv,
+         "-device", device]))
+    return f, QueryParams.from_flags(f)
+
+
+def set_edge_csrs(device, B: int = 3, C: int = 65536):
+    """Synthetic batch CSRs for K14 -> [(label, prow, pval, n, R, filter
+    constants)]: no entries, one row of 40 entries, entries in rows 0
+    and R-1 only, a random CSR with duplicates read by two filters, an
+    unknown literal."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.query.engine import pad_set_csr
+    R = B * C
+    rng = np.random.default_rng(4242)
+
+    def csr(rows, vals):
+        rows = np.asarray(rows, np.int64)
+        prow, pval = pad_set_csr(rows, np.asarray(vals, np.int64), R)
+        return (torch.from_numpy(prow).to(device),
+                torch.from_numpy(pval).to(device), len(rows))
+
+    k = rng.integers(0, 4, R)
+    rows = np.repeat(np.arange(R), k)
+    vals = rng.integers(0, 6, len(rows))
+    out = [("empty CSR", *csr([], []), [3]),
+           ("one row of 40 entries", *csr([77777] * 40, np.arange(40)),
+            [17, 40]),
+           ("rows 0 and R-1 only", *csr([0, 0, R - 1, R - 1], [5, 5, 5, 2]),
+            [5, 2]),
+           ("random rows, duplicates, two filters", *csr(rows, vals),
+            [2, 4]),
+           ("unknown literal", *csr(rows, vals), [-1])]
+    return [(label, prow, pval, n, R,
+             torch.tensor(f, dtype=torch.int64, device=device))
+            for label, prow, pval, n, f in out]
+
+
+def windowed_set_batch(device, B: int = 3, C: int = 65536):
+    """A synthetic rollup batch for K2's windowed form with a set filter
+    and the matched mask: 200 time quotients of 100 s, rows nearly
+    time-sorted, 5% without the time column, a key k0 of 5 values, a
+    set column s0.  -> (config, cols, nrec, filter constants, set_aux,
+    bucket)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.query.engine import pad_set_csr
+    R = B * C
+    rng = np.random.default_rng(4343)
+    t = np.sort(rng.integers(0, 20_000, R)) + rng.integers(-50, 50, R)
+    cols = {}
+    for name, v, p in (("t", t, 0.95), ("k0", rng.integers(0, 5, R), 0.9),
+                       ("v0", rng.integers(0, 120, R), 0.85)):
+        cols[name] = (torch.from_numpy(np.asarray(v, np.int64).reshape(
+            B, C)).to(device), torch.from_numpy(
+                (rng.random(R) < p).reshape(B, C)).to(device))
+    k = rng.integers(0, 3, R)
+    rows = np.repeat(np.arange(R), k)
+    prow, pval = pad_set_csr(rows, rng.integers(0, 4, len(rows)), R)
+    aux = {"s0": (torch.from_numpy(prow).to(device),
+                  torch.from_numpy(pval).to(device), len(rows))}
+    cfg = scan.ScanConfig(
+        group_cols=("k0",),
+        aggs=(scan.AggSpec("v0", hist_min=0, bucket_size=0, num_values=0,
+                           discard_min=0, discard_max=100),),
+        filters=(scan.FilterSpec("s0", "nin", "set"),),
+        time_col="t", key_bounds=((-1, 202), (0, 5)), window=256,
+        window_chunk=8192, want_matched_mask=True)
+    if not scan.windowed(cfg):
+        fail("the synthetic set rollup is not windowed")
+    nrec = torch.tensor([C, C - 1000, 7], dtype=torch.int32, device=device)
+    fv = torch.tensor([1], dtype=torch.int64, device=device)
+    return cfg, cols, nrec, fv, aux, 100
+
+
+def enum_set_batch(device, B: int = 3, C: int = 65536):
+    """A synthetic enumerated batch with a set filter: a Zipf(1.3) key of
+    300 values packed into one int32 key, prune_topk 50 by $COUNT, a
+    str-like filter and an `in` over s0.  -> (config, cols, nrec, filter
+    constants, set_aux)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.query.engine import pad_set_csr
+    R = B * C
+    rng = np.random.default_rng(4444)
+    cols = {}
+    for name, v, p in (("k0", (rng.zipf(1.3, R) - 1) % 300, 0.9),
+                       ("v0", rng.integers(0, 90, R), 0.85),
+                       ("fs", rng.integers(0, 10, R), 0.9)):
+        cols[name] = (torch.from_numpy(np.asarray(v, np.int64).reshape(
+            B, C)).to(device), torch.from_numpy(
+                (rng.random(R) < p).reshape(B, C)).to(device))
+    k = rng.integers(0, 3, R)
+    rows = np.repeat(np.arange(R), k)
+    prow, pval = pad_set_csr(rows, rng.integers(0, 3, len(rows)), R)
+    aux = {"s0": (torch.from_numpy(prow).to(device),
+                  torch.from_numpy(pval).to(device), len(rows))}
+    cfg = scan.ScanConfig(
+        group_cols=("k0",),
+        aggs=(scan.AggSpec("v0", hist_min=0, bucket_size=0, num_values=0,
+                           discard_min=0, discard_max=100),),
+        filters=(scan.FilterSpec("fs", "neq", "str"),
+                 scan.FilterSpec("s0", "in", "set")),
+        key_bounds=((0, 300),), sort_pack=((0, 300),), prune_topk=50,
+        prune_agg=-1, force_sorted=True)
+    if scan.enum_radix(cfg) <= 0:
+        fail("the synthetic set batch is not enumerable")
+    nrec = torch.tensor([C, C - 300, C - 3], dtype=torch.int32,
+                        device=device)
+    fv = torch.tensor([4, 1], dtype=torch.int64, device=device)
+    return cfg, cols, nrec, fv, aux
+
+
+def sets_kernel_checks(card, table, flags, arr, C: int, device, errs):
+    """K14 on the sets table's batch (every set value and an unknown
+    literal; has and hit also against numpy) and on edge CSRs; K2's
+    shared and global forms with S1's and S2's set filters and the
+    matched mask, its windowed form on a synthetic rollup; K7's sorted
+    form with S3's set filter, S4b's mask and both, its enum form with a
+    set filter; each against its plain version, bit for bit.  -> the
+    batch context for the main path and the timings."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.ops.residency import device_const
+    from sybil_tpu_torch.query.engine import BatchLoader
+    dirs = sorted(table.block_infos())
+    infos = table.block_infos()
+    B = len(dirs)
+    R = B * C
+    _, p1 = cli_query(table, S_ARGV["S1"])
+    b1 = bound_query(table, dataclasses.replace(flags, device=str(device)),
+                     p1)
+    loader = BatchLoader(b1, dirs, C, {d: infos[d].num_records for d in dirs},
+                         device)
+    cols, nrec_np, set_aux = loader.load()
+    nrec = torch.from_numpy(nrec_np).to(device)
+    prow, pval, n = set_aux["groups"]
+    idx = arr["index_int"]
+    want_n = int(np.maximum((idx % 2 == 0).astype(np.int64)
+                            + (idx % 3 == 0) + (idx % 5 == 0), 1).sum())
+    if n != want_n or prow.numel() < n or prow.numel() & (prow.numel() - 1):
+        fail(f"sets batch CSR: {n} entries in {prow.numel()}, numpy "
+             f"{want_n}")
+    # the batch's index_int, in the loader's block order, for numpy
+    icols, _ = decoded_cols(table, ["index_int"], C, device)
+    iv = icols["index_int"][0].reshape(-1).cpu().numpy()
+    in_range = (np.arange(C)[None, :] < nrec_np[:, None]).reshape(-1)
+    gd = table.dicts.get("groups")
+    for name, m in (("mod2", 2), ("mod3", 3), ("mod5", 5), ("none", 0),
+                    ("nosuch", -1)):
+        fid = gd.lookup(name)
+        fvt = torch.tensor([fid], dtype=torch.int64, device=device)
+        has, hit = scan.set_match(prow, pval, n, fvt, 0, R)
+        hp, tp = scan.set_match_plain(prow, pval, n, fvt, 0, R)
+        check_equal(f"K14 sets batch {name} has", has, hp,
+                    errs["set_match"])
+        check_equal(f"K14 sets batch {name} hit", hit, tp,
+                    errs["set_match"])
+        hb = scan.unpack_row_bits(has, R).cpu().numpy()
+        tb = scan.unpack_row_bits(hit, R).cpu().numpy()
+        if m > 0:
+            want = in_range & (iv % m == 0)
+        elif m == 0:
+            want = in_range & (iv % 2 != 0) & (iv % 3 != 0) & (iv % 5 != 0)
+        else:
+            want = np.zeros(R, bool)
+        if not (np.array_equal(hb, in_range) and np.array_equal(tb, want)):
+            fail(f"K14 sets batch {name}: has/hit differ from numpy")
+    edges = set_edge_csrs(device)
+    for label, eprow, epval, en, eR, efv in edges:
+        for fi in range(efv.numel()):
+            got = scan.set_match(eprow, epval, en, efv, fi, eR)
+            want = scan.set_match_plain(eprow, epval, en, efv, fi, eR)
+            for g, w, nm in zip(got, want, ("has", "hit")):
+                check_equal(f"K14 {label} filter {fi} {nm}", g, w,
+                            errs["set_match"])
+    say(f"K14 set_match == plain (bit for bit) on the sets batch ({n} "
+        f"entries in {prow.numel()}; mod2/mod3/mod5/none/unknown, has and "
+        f"hit == numpy) and {len(edges)} edge CSRs: "
+        + ", ".join(e[0] for e in edges))
+
+    ctx = {"cols": cols, "nrec": nrec, "set_aux": set_aux, "B": B, "R": R,
+           "dirs": dirs}
+    for label in ("S1", "S2"):
+        _, p = cli_query(table, S_ARGV[label])
+        bq = bound_query(table, flags, p)
+        fv = device_const(bq.filter_vals, device)
+        sub = {k: cols[k] for k in ("host", "ping")}
+        if label == "S2":
+            sub["status"] = decoded_cols(table, ["status"], C, device)[0][
+                "status"]
+        for mask in (False, True):
+            cfg = dataclasses.replace(bq.config, want_matched_mask=mask)
+            forms = ["shared", "global"]
+            k2, _ = scan_check(f"{label}{' + mask' if mask else ''}", cfg,
+                               sub, nrec, errs, fv, set_aux=set_aux,
+                               forms=forms)
+        ctx[label] = (bq.config, sub, fv)
+        say(f"K2/K14/K3 == plain: {label} with its set filter, with and "
+            f"without the matched mask, forms {forms}")
+    wcfg, wcols, wnrec, wfv, waux, wtb = windowed_set_batch(device)
+    scan_check("synthetic set rollup + mask", wcfg, wcols, wnrec, errs,
+               wfv, tb=wtb, set_aux=waux)
+    say("K2 windowed and global forms == plain on a synthetic rollup with "
+        "a set filter and the matched mask")
+    # K7: S3 (a set filter), S4b (the mask), both
+    _, p3 = cli_query(table, S_ARGV["S3"])
+    b3 = bound_query(table, dataclasses.replace(flags, tdigest=True), p3)
+    _, p4b = cli_query(table, S_ARGV["S4b"])
+    b4b = bound_query(table, dataclasses.replace(flags, tdigest=True), p4b)
+    status = decoded_cols(table, ["status"], C, device)[0]["status"]
+    fv3 = device_const(b3.filter_vals, device)
+    cols3 = {"host": cols["host"], "ping": cols["ping"], "status": status}
+    for label, cfg, fv in (
+            ("S3", b3.config, fv3),
+            ("S4b", b4b.config, None),
+            ("S3 + mask", dataclasses.replace(b3.config,
+                                              want_matched_mask=True), fv3)):
+        sub = {k: cols3[k] for k in ("host", "ping", "status")
+               if k in cfg.group_cols or k in [a.col for a in cfg.aggs]}
+        sorted_check(label, cfg, sub, nrec, errs, fv, set_aux=set_aux)
+        ctx[label] = (cfg, sub, fv)
+    say(f"K7 (sorted form), K14, sorts, K8-K10 == plain on S3 (a set filter, "
+        f"{'packed' if scan.sort_packed(b3.config) else 'unpacked'} key), "
+        f"S4b (the matched mask) and S3 with the mask")
+    ecfg, ecols, enrec, efv, eaux = enum_set_batch(device)
+    enum_check("synthetic enumerated batch with a set filter", ecfg, ecols,
+               enrec, errs, efv, set_aux=eaux)
+    say("K7's enum form, K11, K12, K10 == plain on a synthetic enumerated "
+        "batch with a set filter")
+    return ctx
+
+
+def numpy_rows_of(table, bdir, rows, names):
+    """Rows `rows` of block `bdir` as the port's blocks module reads them
+    back: {column: value} of each present column (a set as its strings)."""
+    from sybil_tpu_torch import blocks
+    data = blocks.load_block_columns(bdir, table.schema, names)
+    out = []
+    for r in rows:
+        row = {}
+        for name, cd in data.items():
+            if isinstance(cd, blocks.IntColumnData):
+                if cd.valid[r]:
+                    row[name] = int(cd.values[r])
+            elif isinstance(cd, blocks.StrColumnData):
+                if cd.valid[r]:
+                    row[name] = table.dicts.get(name).strings[int(cd.ids[r])]
+            else:
+                lo, hi = int(cd.offsets[r]), int(cd.offsets[r + 1])
+                if hi > lo:
+                    strs = table.dicts.get(name).strings
+                    row[name] = [strs[int(v)] for v in cd.values[lo:hi]]
+        out.append(row)
+    return out
+
+
+def sets_main_path(card, table, arr, launches):
+    """S1-S5 through the CLI (S5 through run_query) on cuda, cold from S1
+    on, each against numpy over the generated columns; the samples of S4a
+    and S4b against the first matched rows in block order, read back by
+    the port's blocks module and checked against the generated columns;
+    each run's launches added to `launches`."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import kernels, residency
+    from sybil_tpu_torch.query.engine import run_query
+    idx = arr["index_int"]
+    hosts, status, ping = arr["host"], arr["status"], arr["ping"]
+    nb = len(table.block_infos())
+    N = len(idx)
+    base = ["query", "-dir", table.flags.dir, "-table", "uptime", "-json",
+            "-device-batch", str(nb), "-device", "cuda"]
+    zero = {k: 0 for k in COUNTED}
+
+    def run(label, expect):
+        rc, out, wall, ll = run_cli(base + S_ARGV[label])
+        if rc != 0:
+            fail(f"{label}: port CLI query exited {rc}")
+        if ll != dict(zero, **expect):
+            fail(f"{label}: launches {ll}, expected {expect}")
+        for k in COUNTED:
+            launches[k] += ll[k]
+        return json.loads(out), wall, ll
+
+    residency.CACHE.clear()
+    for label, sel, expect in (
+            ("S1", idx % 3 == 0, dict(decode_bucket2=2, set_match=1,
+                                      dense_scan=1, dense_pack=1)),
+            ("S2", (idx % 2 != 0) & (status == STATII.index("200")),
+             dict(decode_bucket2=1, set_match=1, dense_scan=1,
+                  dense_pack=1))):
+        rows, wall, ll = run(label, expect)
+        want = numpy_groupby(hosts[sel], ping[sel])
+        got = {r["host"]: r for r in rows}
+        if set(got) != set(want):
+            fail(f"{label}: groups {sorted(got)} vs {sorted(want)}")
+        for h, (cnt, s) in want.items():
+            r = got[h]
+            if r["Count"] != cnt or r["Samples"] != cnt or \
+                    r["ping"] != s / cnt:
+                fail(f"{label} group {h}: port {r} vs numpy count={cnt} "
+                     f"sum={s}")
+        say(f"main path: CLI {label} on cuda == numpy group-by "
+            f"({len(want)} groups, {int(sel.sum())} of {N} rows); launches "
+            f"{ll}; wall {wall:.3f}s")
+
+    # S3: the sorted strategy with a set filter
+    f3, p3 = cli_query(table, S_ARGV["S3"])
+    b3 = bound_query(table, f3, p3)
+    agg3 = b3.config.aggs[0]
+    track3 = int(b3.config.track_outliers)
+    rows, wall, ll = run("S3", dict(set_match=1, sorted_front=1,
+                                    segment_reduce=1, hist_pairs=2,
+                                    outlier_compact=track3, sorted_pack=1))
+    sel = idx % 5 == 0
+    keep = sel & (ping >= agg3.discard_min) & (ping <= agg3.discard_max)
+    got = {(r["host"], r["status"]): r for r in rows}
+    want_g = {}
+    for g in np.unique(hosts[sel] * 5 + status[sel]).tolist():
+        gsel = sel & (hosts * 5 + status == g)
+        gkeep = keep & (hosts * 5 + status == g)
+        edge = agg3.hist_min + (ping[gkeep] - agg3.hist_min) \
+            // agg3.bucket_size * agg3.bucket_size
+        vals, cnts = np.unique(edge, return_counts=True)
+        want_g[(HOSTS[g // 5], STATII[g % 5])] = (
+            int(gsel.sum()), int(gkeep.sum()),
+            {(HOSTS[g // 5], int(v)): int(c)
+             for v, c in zip(vals.tolist(), cnts.tolist())})
+    if set(got) != set(want_g):
+        fail(f"S3: groups {sorted(got)} vs {sorted(want_g)}")
+    for k, (cnt, kept, pairs) in want_g.items():
+        r = got[k]
+        if r["Count"] != cnt or r["Samples"] != cnt or \
+                r["ping"]["samples"] != kept:
+            fail(f"S3 group {k}: port {r['Count']}/{r['ping']['samples']} "
+                 f"vs numpy {cnt}/{kept}")
+        if r["ping"]["percentiles"] != numpy_tdigest_percentiles(
+                pairs, k[0], agg3):
+            fail(f"S3 group {k}: percentiles differ from a t-digest of "
+                 f"numpy's pairs")
+    say(f"main path: CLI S3 (sorted, a set filter) on cuda == numpy "
+        f"({len(got)} (host, status) groups: count, kept rows, percentiles "
+        f"of a t-digest of numpy's pairs); launches {ll}; wall {wall:.3f}s")
+
+    # S4a (dense, K2's mask) and S4b (sorted, K7's mask): the samples are
+    # the first matched rows in block order
+    f4b, p4b = cli_query(table, S_ARGV["S4b"])
+    track4b = int(bound_query(table, f4b, p4b).config.track_outliers)
+    first = list(table.block_infos())[0]
+    all_cols = sorted(table.schema.key_table)
+    for label, sel, names, expect in (
+            ("S4a", idx % 3 == 0, all_cols,
+             dict(set_match=1, dense_scan=1, dense_pack=1)),
+            ("S4b", np.ones(N, bool), ["host", "ping", "groups"],
+             dict(sorted_front=1, segment_reduce=1, hist_pairs=2,
+                  outlier_compact=track4b, sorted_pack=1))):
+        rows, wall, ll = run(label, expect)
+        from sybil_tpu_torch import blocks
+        bidx = blocks.load_block_columns(first, table.schema,
+                                         ["index_int"])["index_int"].values
+        brows = [r for r in range(len(bidx))
+                 if sel[int(bidx[r])]][:10]
+        want = numpy_rows_of(table, first, brows, names)
+        if rows != want:
+            fail(f"{label}: the samples are not the first matched rows of "
+                 f"the first block")
+        for r, w in zip(rows, [int(bidx[i]) for i in brows]):
+            if r["host"] != HOSTS[hosts[w]] or r["ping"] != int(ping[w]) \
+                    or ("index_int" in r and r["index_int"] != w):
+                fail(f"{label}: sample {r} differs from the generated row "
+                     f"{w}")
+            if r["groups"] != ([g for m, g in ((2, "mod2"), (3, "mod3"),
+                                               (5, "mod5")) if w % m == 0]
+                               or ["none"]):
+                fail(f"{label}: sample {r} has the wrong groups")
+        say(f"main path: CLI {label} on cuda: {len(rows)} samples == the "
+            f"first matched rows of the first block (index_int "
+            f"{[int(bidx[i]) for i in brows]}); launches {ll}; wall "
+            f"{wall:.3f}s")
+    # S5: an unknown literal, through run_query
+    for label, want_n in (("S5 in", 0), ("S5 nin", N)):
+        f5, p5 = cli_query(table, S_ARGV[label] + ["-device-batch", str(nb)])
+        kernels.reset_launches()
+        qr = run_query(table, p5, f5)
+        ll = dict(kernels.LAUNCHES)
+        if ll != dict(zero, set_match=1, dense_scan=1, dense_pack=1):
+            fail(f"{label}: launches {ll}")
+        if qr.matched_count != want_n or qr.cumulative.count != want_n:
+            fail(f"{label}: {qr.matched_count} rows, numpy {want_n}")
+        for k in COUNTED:
+            launches[k] += ll[k]
+        say(f"main path: {label} (groups:{label.split()[1]}:nosuch) on "
+            f"cuda: {want_n} rows == numpy; launches {ll}")
+
+
+def sets_timed(card, table, arr, rows: int, B: int):
+    """S1 cold and warm (medians of 5, rows/s, the batch pipeline); the
+    phase lines of S2-S4b."""
+    from sybil_tpu_torch.ops import residency
+    from sybil_tpu_torch.query.engine import run_query
+    f1, p1 = cli_query(table, S_ARGV["S1"])
+    qr = timed_queries(card, "S1 (groups:in:mod3)", table, p1,
+                       dataclasses.replace(f1, device_batch=B), rows, B,
+                       {"set_match": 1, "dense_scan": 1, "dense_pack": 1})
+    sel = arr["index_int"] % 3 == 0
+    want = numpy_groupby(arr["host"][sel], arr["ping"][sel])
+    for h, (cnt, s) in want.items():
+        r = qr.results[h + "\t"]
+        if r.count != cnt or r.hists["ping"].avg != s / cnt:
+            fail(f"S1 warm query group {h} differs from numpy")
+    for label in ("S2", "S3", "S4a", "S4b"):
+        f, p = cli_query(table, S_ARGV[label])
+        f = dataclasses.replace(f, device_batch=B)
+        phase_lines(card, label, lambda: run_query(table, p, f),
+                    residency.CACHE.clear)
+
+
+def sets_kernel_times(card, ctx, device):
+    """K14 on S1's batch beside its plain version and the reference's own
+    formula in torch (two index_add_ passes); K2 at S1's shape with the
+    set filter and the mask against the same call without them; K7 at
+    S3's shape with the set filter, S4b's with the mask.  -> kernel table
+    rows (name, shape, replaces, ms, plain ms, bytes, int ops, library
+    ms)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    cols, nrec, set_aux, R = ctx["cols"], ctx["nrec"], ctx["set_aux"], \
+        ctx["R"]
+    B = ctx["B"]
+    prow, pval, n = set_aux["groups"]
+    cfg1, sub1, fv1 = ctx["S1"]
+    W = scan.mask_words(R)
+    out = []
+    ms = cuda_ms(lambda: scan.set_match(prow, pval, n, fv1, 0, R))
+    pms = cuda_ms(lambda: scan.set_match_plain(prow, pval, n, fv1, 0, R),
+                  iters=5)
+    rows64 = prow.to(torch.int64)
+    ones = torch.ones(prow.shape, dtype=torch.int32, device=device)
+
+    def lib_call():
+        hit = torch.zeros(R + 1, dtype=torch.int32, device=device)
+        hit.index_add_(0, rows64, (pval == fv1[0]).to(torch.int32))
+        has = torch.zeros(R + 1, dtype=torch.int32, device=device)
+        has.index_add_(0, rows64, ones)
+        return has, hit
+    lib = cuda_ms(lib_call, iters=5)
+    # the n real entries read once (4 B row id, 8 B value), both masks
+    # written; per entry the compare and the bit (shift, or)
+    out.append(("set_match", f"S1 groups:in:mod3 ({n} entries, R {R})",
+                "sybil_tpu/ops/scan.py:376", ms, pms, n * 12 + 2 * W * 4,
+                n * 4, lib))
+    say(f"[{card}] set_match S1: {ms:.4f} ms (plain {pms:.4f} ms; two "
+        f"index_add_ {lib:.4f} ms)")
+    del rows64, ones
+    sm1 = scan.set_filter_masks(cfg1, fv1, set_aux, R)
+    cfg1m = dataclasses.replace(cfg1, want_matched_mask=True)
+    cfg1n = dataclasses.replace(cfg1, filters=(), want_matched_mask=False)
+    nofv = torch.zeros(0, dtype=torch.int64, device=device)
+    # the same call: parent shape, change shape, change shape, parent
+    t_plain, t_set = [], []
+    for _ in range(2):
+        t_plain.append(cuda_ms(lambda: scan.dense_scan(cfg1n, sub1, nrec,
+                                                       nofv)))
+        t_set.append(cuda_ms(lambda: scan.dense_scan(cfg1m, sub1, nrec, fv1,
+                                                     set_masks=sm1)))
+    pms = cuda_ms(lambda: scan.dense_scan_plain(cfg1m, sub1, nrec, fv1,
+                                                set_masks=sm1), iters=5)
+    Sc = scan.reduce_space(cfg1)[1]
+    L = 2 + 3 * len(cfg1.aggs)
+    base_bytes = len(sub1) * R * 9 + B * 4 + Sc * L * 8 + 8
+    gid = scan.dense_scan(dataclasses.replace(cfg1m, aggs=(
+        dataclasses.replace(cfg1.aggs[0], num_values=1, bucket_size=1),)),
+        sub1, nrec, fv1, set_masks=sm1)["gid"].to(torch.int64)
+    lanes = torch.ones((R, L), dtype=torch.int64, device=device)
+    lib = cuda_ms(lambda: torch.zeros((Sc, L), dtype=torch.int64,
+                                      device=device).index_add_(0, gid,
+                                                                lanes),
+                  iters=5)
+    del lanes, gid
+    ops = R * (6 + 8 * len(cfg1.group_cols) + 12 * len(cfg1.aggs) + 2)
+    out.append(("dense_scan", "S1: a set filter and the matched mask",
+                "sybil_tpu/ops/scan.py:1062", min(t_set), pms,
+                base_bytes + 2 * W * 4 + R, ops + R * 4, lib))
+    say(f"[{card}] dense_scan S1 shape: without a set filter and the mask "
+        f"{t_plain} ms, with both {t_set} ms (alternating, min "
+        f"{min(t_plain):.4f} / {min(t_set):.4f})")
+    for label, rep in (("S3", "sybil_tpu/ops/scan.py:376"),
+                       ("S4b", "sybil_tpu/ops/scan.py:1273")):
+        cfg, sub, fv = ctx[label]
+        sm = scan.set_filter_masks(cfg, fv, set_aux, R)
+        bare = dataclasses.replace(cfg, filters=(), want_matched_mask=False)
+        ms = cuda_ms(lambda: scan.sorted_front(cfg, sub, nrec, fv,
+                                               set_masks=sm))
+        ms0 = cuda_ms(lambda: scan.sorted_front(bare, sub, nrec))
+        pms = cuda_ms(lambda: scan.sorted_front_plain(cfg, sub, nrec, fv,
+                                                      set_masks=sm), iters=5)
+        keyb = 4 if scan.pack_sentinel(cfg)[1] == torch.int32 else 8
+        nk = len([k for k in sub if k in cfg.group_cols])
+        nbytes = (nk * R * 9 + B * 4 + R * (4 + keyb)
+                  + (2 * W * 4 if cfg.filters else 0)
+                  + (R if cfg.want_matched_mask else 0))
+        what = ("S3: a set filter" if label == "S3"
+                else "S4b: the matched mask")
+        out.append(("sorted_front", what, rep, ms, pms, nbytes,
+                    R * (6 + 8 * nk + 4), None))
+        say(f"[{card}] sorted_front {label}: {ms:.4f} ms, without "
+            f"{'the set filter' if label == 'S3' else 'the mask'} "
+            f"{ms0:.4f} ms (plain {pms:.4f} ms)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -2017,9 +2666,14 @@ def main(argv=None) -> int:
              f"{ENTRY_SOURCES}")
     for name in kernels.SOURCES:
         with open(os.path.join(kernels.BUILD_DIR, name + ".log")) as f:
+            fn = ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    say(f"  ptxas {name}: {line.strip()}")
+                if "Function properties for" in line:
+                    # the entry point (mangled: its template arguments
+                    # show as ILb0ELb1E...)
+                    fn = line.rsplit(" ", 1)[-1].strip()
+                elif "registers" in line or "spill" in line:
+                    say(f"  ptxas {name} {fn}: {line.strip()}")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2063,6 +2717,12 @@ def main(argv=None) -> int:
             if scan.enum_radix(cfg5) <= 0:
                 fail(f"config 5 partition {pi_ + 1} is not enumerable")
         say(f"built config 5's two partitions in "
+            f"{time.perf_counter() - t0:.1f}s (host CPU)")
+        t0 = time.perf_counter()
+        stbl, stflags, sarr = build_sets_table(os.path.join(root, "sets"),
+                                               args.rows)
+        say(f"built the sets table (uptime with groups): {args.rows} rows, "
+            f"{len(stbl.block_infos())} blocks in "
             f"{time.perf_counter() - t0:.1f}s (host CPU)")
         C = 65536 if args.rows > 8192 else 128
         while C < min(args.rows, 65536):
@@ -2534,6 +3194,10 @@ def main(argv=None) -> int:
             f"descriptor words a launch carries (60 filters, 50 and 60 "
             f"aggregations) == plain on {len(DISTINCT_EDGES)} synthetic "
             f"batches (tolerance 0)")
+
+        # ---- phase 4: set filters and the matched mask ----------------
+        sets_ctx = sets_kernel_checks(card, stbl, stflags, sarr, C, dev,
+                                      errs)
 
         # ---- phase 5: the main path ------------------------------------
         launches = {k: 0 for k in COUNTED}
@@ -3037,10 +3701,11 @@ def main(argv=None) -> int:
             for k in COUNTED:
                 launches[k] += ll[k]
 
+        sets_main_path(card, stbl, sarr, launches)
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the nineteen CLI queries: {launches}")
+        say(f"main path launches over the twenty-six queries: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -3152,7 +3817,11 @@ def main(argv=None) -> int:
                 say(f"distinct {label}: {n_} groups' merged registers == "
                     f"the numpy-fed HLLs' byte for byte")
 
+        sets_timed(card, stbl, sarr, args.rows, len(stbl.block_infos()))
+
         # ---- phase 6: kernel times --------------------------------------
+        sets_rows = sets_kernel_times(card, sets_ctx, dev)
+        del sets_ctx
         ins, cs = k1_main["ping"]
         deltas, counts = ins[0], ins[1]
         Kk = ins[3].shape[1]
@@ -3945,7 +4614,7 @@ def main(argv=None) -> int:
                  k5_ops, k5_lib_ms),
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
-                *sorted_rows, *c5_rows, *distinct_rows):
+                *sorted_rows, *c5_rows, *distinct_rows, *sets_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)

@@ -15,8 +15,17 @@
 // and passes every filter.  A filter never passes on a missing value;
 // int and str compares read the constant from the device array
 // filter_vals (str literals are dict ids, -1 for a never-ingested one);
-// re/nre read the regex bitset at clamp(v, 0, len-1); any other op never
-// matches (filter.go's default).
+// re/nre read the regex bitset at clamp(v, 0, len-1); a set filter
+// (_front_end's set-CSR branch, 376-381) reads K14's two row bitmasks,
+// `has` and `hit`: in passes on has & hit, nin on has & ~hit (a set
+// column has no validity lane, so the op is read first); any other op
+// never matches (filter.go's default).
+//
+// The matched mask (a samples query, want_matched_mask; _scan_dense
+// 1062-1063): one byte a row of [0, R), the front end's `matched` (in
+// range, every filter, the time column present under a rollup), written
+// before a row is dropped, so a matched row whose key spilled into the
+// dead slot is still 1.  MASK is a template parameter, like TIME.
 //
 // Time key (a rollup): a row without the time column is unmatched.  The
 // key's digit is q - min + 1 with q = trunc_div(t, tb), Go's division
@@ -64,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "desc.cuh"
+#include "filters.cuh"
 
 namespace {
 
@@ -89,11 +99,12 @@ struct DenseScanArgs {
   const long long* agg_dmax;
   const long long* agg_bias;
   const long long* agg_mm;            // min/max column of each agg, -1 = none
-  const long long* const* f_vals;     // [nfilters]
-  const unsigned char* const* f_valid;
+  const long long* const* f_vals;     // [nfilters]; set ops: K14's hit
+  const unsigned char* const* f_valid;  // set ops: K14's has
   const unsigned char* const* f_bits; // regex bitsets (re/nre) or null
   const long long* f_bits_len;
-  const long long* f_op;  // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre, 6 never
+  // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre, 6 never, 7 set in, 8 set nin
+  const long long* f_op;
   const long long* filter_vals;       // [nfilters] filter constants
   const long long* w_vals;
   const unsigned char* w_valid;
@@ -105,6 +116,7 @@ struct DenseScanArgs {
   long long* mins;            // [Sc, H] (H = histogram aggregations)
   long long* maxs;            // [Sc, H]
   int* gid_out;               // [R] reduce-space gid, or null
+  unsigned char* mask;        // [R] matched rows (MASK), or null
   long long R;
   long long tb;               // time bucket (> 0)
   int log2C;
@@ -124,28 +136,6 @@ struct DenseScanArgs {
 };
 
 namespace {
-
-template <bool HEAD>
-__device__ __forceinline__ bool passes(const DenseScanArgs& a, int i,
-                                       long long r, long long fv) {
-  if (!desc_at<HEAD>(a.desc, a.f_valid, i)[r]) return false;
-  const long long v = desc_at<HEAD>(a.desc, a.f_vals, i)[r];
-  const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
-  switch (op) {
-    case 0: return v > fv;
-    case 1: return v < fv;
-    case 2: return v == fv;
-    case 3: return v != fv;
-    case 4:
-    case 5: {
-      const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
-      const long long j = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
-      const bool hit = desc_at<HEAD>(a.desc, a.f_bits, i)[j] != 0;
-      return op == 4 ? hit : !hit;
-    }
-    default: return false;
-  }
-}
 
 // The reference's _trunc_div for d > 0, in the width of T: q = |x| // d
 // (floor division; |x| wraps at T's minimum as jnp.abs does), then
@@ -261,7 +251,7 @@ __device__ __forceinline__ void accumulate(const DenseScanArgs& a,
 // grid assumes fit: left free, the descriptor offsets hoisted out of the
 // row loop took 48, 5 CTAs fit, and K2 ran 19% (config 1's shape) and
 // 63% (config 3's) slower, a second wave included (k2_ab.py on the H100).
-template <bool SHARED, bool TIME, bool HEAD>
+template <bool SHARED, bool TIME, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_tab[];
@@ -291,7 +281,9 @@ __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
        r < a.R; r += (long long)gridDim.x * THREADS) {
     int gid;
     bool spilled;
-    if (!row_gid<TIME, HEAD>(a, r, s_fv, &gid, &spilled)) {
+    const bool matched = row_gid<TIME, HEAD>(a, r, s_fv, &gid, &spilled);
+    if (MASK) a.mask[r] = matched;
+    if (!matched) {
       if (a.gid_out) a.gid_out[r] = a.Sc - 1;
       continue;
     }
@@ -313,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
   if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
 }
 
-template <bool TIME, bool HEAD>
+template <bool TIME, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_band[];
@@ -342,7 +334,10 @@ __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
     for (int i = threadIdx.x; i < chunk; i += THREADS) {
       int gid;
       bool spilled;
-      if (row_gid<TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled)) {
+      const bool matched =
+          row_gid<TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled);
+      if (MASK) a.mask[r0 + i] = matched;
+      if (matched) {
         my_spill += spilled;
         lo = min(lo, gid);
         hi = max(hi, gid);
@@ -400,7 +395,7 @@ __global__ void fill_bounds(long long* mins, long long* maxs, int n) {
   }
 }
 
-template <bool TIME, bool HEAD>
+template <bool TIME, bool HEAD, bool MASK>
 cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
                         size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
   cudaError_t err;
@@ -409,24 +404,35 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
       return cudaErrorInvalidValue;
     const size_t shm = (size_t)args->band * (args->L + 2 * args->H) * 8 +
                        (size_t)args->chunk * sizeof(int);
-    err = cudaFuncSetAttribute(dense_scan_windowed<TIME, HEAD>,
+    err = cudaFuncSetAttribute(dense_scan_windowed<TIME, HEAD, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_windowed<TIME, HEAD><<<grid, THREADS, shm, s>>>(*args);
+    dense_scan_windowed<TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(*args);
   } else if (form == 1) {
     const size_t shm = tab_bytes + mm_bytes;
-    err = cudaFuncSetAttribute(dense_scan_kernel<true, TIME, HEAD>,
+    err = cudaFuncSetAttribute(dense_scan_kernel<true, TIME, HEAD, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_kernel<true, TIME, HEAD><<<grid, THREADS, shm, s>>>(*args);
+    dense_scan_kernel<true, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
+        *args);
   } else if (form == 0) {
-    dense_scan_kernel<false, TIME, HEAD><<<grid, THREADS, 0, s>>>(*args);
+    dense_scan_kernel<false, TIME, HEAD, MASK><<<grid, THREADS, 0, s>>>(
+        *args);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <bool TIME, bool HEAD>
+cudaError_t launch_mask(const DenseScanArgs* args, int form, int grid,
+                        size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
+  return args->mask ? launch_form<TIME, HEAD, true>(args, form, grid,
+                                                    tab_bytes, mm_bytes, s)
+                    : launch_form<TIME, HEAD, false>(args, form, grid,
+                                                     tab_bytes, mm_bytes, s);
 }
 
 }  // namespace
@@ -434,7 +440,8 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
 // Copies the descriptor block, zeroes sums and spill and sets the
 // min/max tables to their sentinels on `stream`, then launches one form:
 // 0 global atomics, 1 per-CTA shared tables, 2 windowed bands (band,
-// chunk set; chunk divides R).  Returns cudaError_t.
+// chunk set; chunk divides R); each writes the matched mask when `mask`
+// is set.  Returns cudaError_t.
 extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -456,12 +463,12 @@ extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
   }
   const bool head = args->desc.n <= DESC_HEAD;
   if (args->has_time)
-    return head ? launch_form<true, true>(args, form, grid, tab_bytes,
+    return head ? launch_mask<true, true>(args, form, grid, tab_bytes,
                                           mm_bytes, s)
-                : launch_form<true, false>(args, form, grid, tab_bytes,
+                : launch_mask<true, false>(args, form, grid, tab_bytes,
                                            mm_bytes, s);
-  return head ? launch_form<false, true>(args, form, grid, tab_bytes,
+  return head ? launch_mask<false, true>(args, form, grid, tab_bytes,
                                          mm_bytes, s)
-              : launch_form<false, false>(args, form, grid, tab_bytes,
+              : launch_mask<false, false>(args, form, grid, tab_bytes,
                                           mm_bytes, s);
 }

@@ -18,9 +18,14 @@
 //             unmatched row.
 // Filters and the time key are K2's (dense_scan.cu), copied: a filter
 // never passes on a missing value; re/nre read the regex bitset at
-// clamp(v, 0, len-1); an unknown op never matches; a row without the time
-// column is unmatched; the time key is trunc_div(t, tb) * tb with Go's
-// division, in int32 arithmetic under time_i32 like the reference's.
+// clamp(v, 0, len-1); a set filter reads K14's bitmasks (in: has & hit,
+// nin: has & ~hit; the op is read first, a set column has no validity
+// lane); an unknown op never matches; a row without the time column is
+// unmatched; the time key is trunc_div(t, tb) * tb with Go's division, in
+// int32 arithmetic under time_i32 like the reference's.  For a samples
+// query the sorted form also writes the matched mask, one byte a row
+// (_scan_sorted 1273-1274; MASK, a template parameter); the enum form
+// never does (enum_radix declines samples).
 //
 // In its enum form (a template parameter, chosen when the engine runs the
 // enumerated strategy) it replaces the front end of _scan_enum
@@ -46,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "desc.cuh"
+#include "filters.cuh"
 
 namespace {
 
@@ -66,11 +72,12 @@ struct SortedFrontArgs {
   const long long* pack_card;
   const long long* const* d_vals;     // [ndist] distinct columns
   const unsigned char* const* d_valid;
-  const long long* const* f_vals;     // [nfilters]
-  const unsigned char* const* f_valid;
+  const long long* const* f_vals;     // [nfilters]; set ops: K14's hit
+  const unsigned char* const* f_valid;  // set ops: K14's has
   const unsigned char* const* f_bits; // regex bitsets (re/nre) or null
   const long long* f_bits_len;
-  const long long* f_op;              // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre
+  // 0 gt, 1 lt, 2 eq, 3 neq, 4 re, 5 nre, 6 never, 7 set in, 8 set nin
+  const long long* f_op;
   const long long* filter_vals;       // [nfilters] filter constants
   const long long* t_vals;            // time column (has_time)
   const unsigned char* t_valid;
@@ -81,6 +88,7 @@ struct SortedFrontArgs {
   unsigned long long* totals;         // [2] enum form: sum w, matched rows
   const long long* w_vals;            // weight column (has_weight)
   const unsigned char* w_valid;
+  unsigned char* mask;                // [R] matched rows (MASK), or null
   long long R;
   long long tb;                       // time bucket (> 0)
   long long sent;                     // packed sentinel
@@ -97,28 +105,6 @@ struct SortedFrontArgs {
 };
 
 namespace {
-
-template <bool HEAD>
-__device__ __forceinline__ bool passes(const SortedFrontArgs& a, int i,
-                                       long long r, long long fv) {
-  if (!desc_at<HEAD>(a.desc, a.f_valid, i)[r]) return false;
-  const long long v = desc_at<HEAD>(a.desc, a.f_vals, i)[r];
-  const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
-  switch (op) {
-    case 0: return v > fv;
-    case 1: return v < fv;
-    case 2: return v == fv;
-    case 3: return v != fv;
-    case 4:
-    case 5: {
-      const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
-      const long long j = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
-      const bool hit = desc_at<HEAD>(a.desc, a.f_bits, i)[j] != 0;
-      return op == 4 ? hit : !hit;
-    }
-    default: return false;
-  }
-}
 
 // The reference's _trunc_div for d > 0 (as in dense_scan.cu).
 template <typename T, typename U>
@@ -154,8 +140,8 @@ __device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
 }
 
 // HEAD: where the descriptor block lies (desc.cuh), a template
-// parameter as in K2.
-template <bool ENUM, bool HEAD>
+// parameter as in K2; MASK: write the matched mask (not with ENUM).
+template <bool ENUM, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     const SortedFrontArgs a) {
   __shared__ unsigned long long s_spill, s_count, s_samples;
@@ -176,6 +162,7 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     for (int i = FV_SMEM; matched && i < a.nfilters; ++i)
       matched = passes<HEAD>(a, i, r, a.filter_vals[i]);
     if (a.has_time && matched) matched = a.t_valid[r] != 0;
+    if (MASK) a.mask[r] = matched;
     if (ENUM) {
       if (matched) {
         my_count += a.has_weight && a.w_valid[r]
@@ -248,12 +235,13 @@ __global__ void __launch_bounds__(THREADS) sort_permute_kernel(
 
 // Copies the descriptor block, zeroes the spill count (and the enum
 // form's totals), then one grid-stride pass on `stream`, the enum form
-// when `enum_form` is set.  Returns cudaError_t.
+// when `enum_form` is set, writing the matched mask when `mask` is set
+// (the sorted form only).  Returns cudaError_t.
 extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
                             int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (args->R >= (1ll << 31) || (enum_form && args->packed != 1) ||
-      (args->ndist > 0 && args->packed))
+      (args->ndist > 0 && args->packed) || (enum_form && args->mask))
     return cudaErrorInvalidValue;
   const bool head = args->desc.n <= DESC_HEAD;
   cudaError_t err = desc_upload(args->desc, s);
@@ -264,14 +252,20 @@ extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
     err = cudaMemsetAsync(args->totals, 0, 2 * sizeof(unsigned long long), s);
     if (err != cudaSuccess) return err;
     if (head)
-      sorted_front_kernel<true, true><<<grid, THREADS, 0, s>>>(*args);
+      sorted_front_kernel<true, true, false><<<grid, THREADS, 0, s>>>(*args);
     else
-      sorted_front_kernel<true, false><<<grid, THREADS, 0, s>>>(*args);
+      sorted_front_kernel<true, false, false><<<grid, THREADS, 0, s>>>(*args);
+  } else if (args->mask) {
+    if (head)
+      sorted_front_kernel<false, true, true><<<grid, THREADS, 0, s>>>(*args);
+    else
+      sorted_front_kernel<false, false, true><<<grid, THREADS, 0, s>>>(*args);
   } else {
     if (head)
-      sorted_front_kernel<false, true><<<grid, THREADS, 0, s>>>(*args);
+      sorted_front_kernel<false, true, false><<<grid, THREADS, 0, s>>>(*args);
     else
-      sorted_front_kernel<false, false><<<grid, THREADS, 0, s>>>(*args);
+      sorted_front_kernel<false, false, false><<<grid, THREADS, 0, s>>>(
+          *args);
   }
   return cudaGetLastError();
 }

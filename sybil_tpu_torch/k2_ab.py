@@ -14,7 +14,10 @@ like config 1 (`group by host, avg ping`) and config 3 (`status eq 200,
 group by host, hist ping`): K2 on both shapes, K3 after each, K5 on
 config 3's shape with outliers tracked (no live outlier row, as on the
 bench table), and the sorted strategy on config 3's filter with a
-packed key: K7, K8 and K10 (`avg ping`).  CUDA events over 20 launches
+packed key: K7, K8 and K10 (`avg ping`); and, for a root that has K14,
+K14 and K2 at config 1's shape with one set filter (1 or 2 entries a
+row) and the matched mask, timed beside the same launch without them.
+CUDA events over 20 launches
 (K3, K5 and K10 200), twice: back to back as a caller issues them
 ("wall", which includes the wrapper's host time whenever that exceeds
 the kernel's), and behind a sleep kernel long enough that the host has
@@ -143,6 +146,27 @@ def time_kernels(root: str) -> str:
          lambda: scan.sorted_pack(c7, k8, front7["spill"], [], [], main10,
                                   R)),
     )
+    if hasattr(scan, "set_match"):
+        import dataclasses
+
+        from sybil_tpu_torch.query.engine import pad_set_csr
+        k = rng.integers(1, 3, R)
+        rows = np.repeat(np.arange(R, dtype=np.int32), k)
+        prow, pval = pad_set_csr(rows, rng.integers(0, 4, len(rows)), R)
+        csr = (torch.from_numpy(prow).to(dev), torch.from_numpy(pval).to(dev),
+               len(rows))
+        cs = dataclasses.replace(
+            c1, filters=(scan.FilterSpec("groups", "in", "set"),),
+            want_matched_mask=True)
+        fvs = torch.tensor([1], dtype=torch.int64, device=dev)
+        sm = scan.set_filter_masks(cs, fvs, {"groups": csr}, R)
+        runs += (
+            (f"K14 one set filter ({len(rows)} entries)", 20,
+             lambda: scan.set_match(*csr, fvs, 0, R)),
+            ("K2 config-1 shape with the set filter and the mask", 20,
+             lambda: scan.dense_scan(cs, cols1, nrec, fvs, set_masks=sm)),
+            ("K2 config-1 shape without them (the same launch)", 20,
+             lambda: scan.dense_scan(c1, cols1, nrec)))
     return "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"

@@ -15,10 +15,17 @@ dense_keys_np, packed_layout) that the engine's reader shares with the
 writer.
 
 The device work is hand-written CUDA kernels (csrc/), run by scan_packed
-in this order.  Dense:
+in this order.  First, per set filter (all strategies):
+
+K14 set_match       the filter's two row bitmasks over the batch's
+                    set-column CSR: `has` (the row holds any entry) and
+                    `hit` (an entry equals the filter constant), which
+                    K2 and K7 read for in / nin
+
+Dense:
 
 K2 dense_scan       one fused pass over the rows: row-in-range and the
-                    int/str/regex filters, the time key (rows without
+                    int/str/regex/set filters, the time key (rows without
                     the time column unmatched, Go-truncated bucket
                     quotient), key lanes, mixed-radix gid with MISSING =
                     digit 0 and a spill count, weight and aggregation
@@ -26,7 +33,8 @@ K2 dense_scan       one fused pass over the rows: row-in-range and the
                     aggregations' per-slot min/max over the compact
                     [g+1] reduce space, or band by band over each row
                     chunk's live-gid span for a windowed rollup; each
-                    row's gid for K4 and K13
+                    row's gid for K4 and K13; a samples query's matched
+                    mask
 K13 hll_registers   a count distinct's device HLL: each row's hash (an
                     int column's FNV-1a and splitmix finaliser, or a str
                     column's per-id hash array), register index and
@@ -49,7 +57,8 @@ Sorted:
 K7 sorted_front     the front end as in K2, then the packed mixed-radix
                     sort key (int32 or int64, spill count) or the K key
                     lanes and the D distinct lanes, and the row index
-                    with the matched flag in its sign bit
+                    with the matched flag in its sign bit; a samples
+                    query's matched mask
 (sorts)             torch.sort(stable=True): one sort of the packed key,
                     or one per key lane, least significant first, with
                     the sort_permute kernel between them
@@ -90,8 +99,8 @@ PyTorch version beside it only for CPU tensors.  The per-key,
 per-aggregation and per-filter arguments reach a kernel in one
 descriptor block per launch (_set_desc, csrc/desc.cuh), so no kernel
 caps their counts.  scan_packed raises NotImplementedError, naming the ROADMAP
-item, for every scan shape the port does not carry yet (set filters,
-samples, cache-group scans, mesh scans).
+item, for every scan shape the port does not carry yet (cache-group
+scans, mesh scans).
 """
 
 from __future__ import annotations
@@ -511,15 +520,12 @@ def enum_radix(config: ScanConfig) -> int:
 def check_supported(config: ScanConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scan
     shape the port does not carry yet.  All three strategies are ported,
-    the enumerated one, the sorted strategy's device prune (prune_topk)
-    and count distinct (the device HLL and the distinct pairs) included,
-    for any number of keys, filters and aggregations."""
+    the enumerated one, the sorted strategy's device prune (prune_topk),
+    count distinct (the device HLL and the distinct pairs), set filters
+    and the samples mask included, for any number of keys, filters and
+    aggregations."""
     def no(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-    if any(f.kind == "set" for f in config.filters):
-        no("set filters (in/nin over set columns)", "B6b")
-    if config.want_matched_mask:
-        no("samples", "A13")
     if config.no_compact_table:
         no("the keyed dense table of mesh scans", "B11")
     if config.vg_span > 0 or "__cg__" in config.group_cols:
@@ -592,6 +598,127 @@ def _check_col(cols, name, B, C, dev, kernel):
 
 
 # ---------------------------------------------------------------------------
+# K14 set_match
+# ---------------------------------------------------------------------------
+
+def mask_words(R: int) -> int:
+    """Words of a row bitmask over R rows: bit r % 32 of word r // 32."""
+    return (R + 31) // 32
+
+
+def pack_row_bits(b, R: int):
+    """bool [R] -> its row bitmask, int32 [mask_words(R)] (the uint32
+    words' bits)."""
+    W = mask_words(R)
+    x = torch.zeros(W * 32, dtype=torch.int64, device=b.device)
+    x[:R] = b.to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64, device=b.device)
+    w = (x.reshape(W, 32) << sh).sum(1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_row_bits(words, R: int):
+    """A row bitmask int32 [mask_words(R)] -> bool [R]."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> sh) & 1).reshape(-1)[:R] != 0
+
+
+def set_match_plain(prow, pval, n: int, filter_vals, fi: int, R: int):
+    """Plain PyTorch version of K14, word for word the reference's
+    set-CSR branch (scan.py:376-381): scatter-adds of (svals == fv) and
+    of ones over row_ids into int32 [R + 1] (the pads, row R, land in
+    the last slot), `> 0` -> (has, hit) as row bitmasks, int32
+    [mask_words(R)] each.  Reads every one of the M entries."""
+    dev = prow.device
+    fv = filter_vals[fi]
+    rows = prow.to(torch.int64)
+    hit = torch.zeros(R + 1, dtype=torch.int32, device=dev).index_add_(
+        0, rows, (pval == fv).to(torch.int32))[:R] > 0
+    has = torch.zeros(R + 1, dtype=torch.int32, device=dev).index_add_(
+        0, rows, torch.ones(rows.shape, dtype=torch.int32, device=dev))[:R] > 0
+    return pack_row_bits(has, R), pack_row_bits(hit, R)
+
+
+def set_match(prow, pval, n: int, filter_vals, fi: int, R: int):
+    """K14: -> (has, hit) row bitmasks, int32 [mask_words(R)] each, of set
+    filter `fi` (constant filter_vals[fi]) over a batch's padded CSR:
+    prow int32 [M] row ids in [0, R) (the pads R), pval int64 [M], the
+    first n entries real.  CUDA tensors launch the kernel
+    (csrc/set_match.cu); CPU tensors take set_match_plain.
+
+    Replaces the set-CSR branch of sybil_tpu/ops/scan.py:_front_end
+    (376-381).  Bound by memory: n * 12 B read, R / 4 B written; one
+    thread per entry, a warp's runs of equal words OR-ed by shuffles, one
+    atomicOr per run."""
+    dev = prow.device
+    if dev.type == "cpu":
+        return set_match_plain(prow, pval, n, filter_vals, fi, R)
+    if dev.type != "cuda":
+        raise ValueError(f"set_match: unsupported device {dev}")
+    M = prow.numel()
+    if not 0 <= n <= M:
+        raise ValueError(f"set_match: {n} entries of {M}")
+    _check_tensor(prow, (M,), torch.int32, "prow", dev, "set_match")
+    _check_tensor(pval, (M,), torch.int64, "pval", dev, "set_match")
+    if not 0 <= fi < filter_vals.numel():
+        raise ValueError(f"set_match: filter {fi} of {filter_vals.numel()}")
+    _check_tensor(filter_vals, (filter_vals.numel(),), torch.int64,
+                  "filter_vals", dev, "set_match")
+    W = mask_words(R)
+    has = torch.empty(W, dtype=torch.int32, device=dev)
+    hit = torch.empty(W, dtype=torch.int32, device=dev)
+    fn = kernels.lib("set_match").set_match
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(prow.data_ptr(), pval.data_ptr(), n,
+                     filter_vals.data_ptr(), fi, has.data_ptr(),
+                     hit.data_ptr(), R, _grid(dev, max(n, 1), 0, False),
+                     kernels.stream_handle(dev)), "set_match")
+    if n:  # no entries: the entry point only clears the masks
+        kernels.LAUNCHES["set_match"] += 1
+    return has, hit
+
+
+def set_filter_masks(config: ScanConfig, filter_vals, set_aux, R: int):
+    """K14 once per set filter of the batch -> a list aligned with
+    config.filters: (has, hit) for a set filter, None for any other, or
+    None when the config has no set filter.  set_aux: {set column:
+    (prow, pval, n)} as the engine's BatchLoader builds it."""
+    if not any(f.kind == "set" for f in config.filters):
+        return None
+    out = []
+    for i, f in enumerate(config.filters):
+        if f.kind != "set":
+            out.append(None)
+            continue
+        prow, pval, n = set_aux[f.col]
+        out.append(set_match(prow, pval, n, filter_vals, i, R))
+    return out
+
+
+def _set_ok(f: FilterSpec, masks, R: int):
+    """A set filter over K14's bitmasks: in = has & hit, else has &
+    ~hit (reference _front_end 380)."""
+    has, hit = (unpack_row_bits(w, R) for w in masks)
+    return (has & hit) if f.op == "in" else (has & ~hit)
+
+
+def _front_filters(config: ScanConfig, flat, matched, filter_vals, bitsets,
+                   set_masks, R: int):
+    """`matched` after every filter of the reference's _front_end."""
+    for i, f in enumerate(config.filters):
+        if f.kind == "set":
+            matched = matched & _set_ok(f, set_masks[i], R)
+            continue
+        v, ok = flat[f.col]
+        matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
+    return matched
+
+
+# ---------------------------------------------------------------------------
 # K2 dense_scan
 # ---------------------------------------------------------------------------
 
@@ -645,15 +772,29 @@ def _col_ptrs(cols, names):
             [cols[n][1].data_ptr() for n in names])
 
 
-def _filter_desc(config: ScanConfig, cols, bitsets, dev, kernel) -> dict:
-    """The per-filter descriptor arrays of K2 and K7."""
+def _filter_desc(config: ScanConfig, cols, bitsets, dev, kernel,
+                 set_masks=None) -> dict:
+    """The per-filter descriptor arrays of K2 and K7.  A set filter's
+    value and validity words point at K14's `hit` and `has` bitmasks
+    (set_masks[i], int32 [ceil(R/32)] each)."""
     d = {"f_vals": [], "f_valid": [], "f_bits": [], "f_bits_len": [],
          "f_op": []}
-    for f in config.filters:
+    B, C = _batch_shape(cols)
+    for i, f in enumerate(config.filters):
+        d["f_op"].append(filter_code(f))
+        if f.kind == "set":
+            has, hit = set_masks[i]
+            for t, what in ((has, "has"), (hit, "hit")):
+                _check_tensor(t, (mask_words(B * C),), torch.int32,
+                              f"set filter {i} {what} bitmask", dev, kernel)
+            d["f_vals"].append(hit.data_ptr())
+            d["f_valid"].append(has.data_ptr())
+            d["f_bits"].append(0)
+            d["f_bits_len"].append(0)
+            continue
         v, m = cols[f.col]
         d["f_vals"].append(v.data_ptr())
         d["f_valid"].append(m.data_ptr())
-        d["f_op"].append(FILTER_OPS.get(f.op, _NEVER))
         bits, n = None, 0
         if f.op in ("re", "nre"):
             bits = bitsets[f.bitset_idx]
@@ -682,10 +823,20 @@ def _agg_desc(config: ScanConfig, cols) -> dict:
 # lets one CTA opt in to 227 KB); larger tables update global memory
 # directly
 SHARED_TABLE_BYTES = 200 << 10
-# filter op codes of csrc/dense_scan.cu; any other op never matches
+# filter op codes of csrc/dense_scan.cu and csrc/sorted_front.cu; any
+# other op never matches; a set filter is `in`, or else `nin` (as the
+# reference's set-CSR branch reads f.op)
 FILTER_OPS = {"gt": 0, "lt": 1, "eq": 2, "neq": 3, "re": 4, "nre": 5}
 _NEVER = 6
+_SET_IN, _SET_NIN = 7, 8
 _BIG = 2 ** 62                  # empty-slot min/max sentinel
+
+
+def filter_code(f: FilterSpec) -> int:
+    """The kernels' op code of filter `f`."""
+    if f.kind == "set":
+        return _SET_IN if f.op == "in" else _SET_NIN
+    return FILTER_OPS.get(f.op, _NEVER)
 
 
 def _ptr_fields(*names):
@@ -709,6 +860,7 @@ class DenseScanArgs(ctypes.Structure):
         ("mins", ctypes.c_void_p),
         ("maxs", ctypes.c_void_p),
         ("gid_out", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("log2C", ctypes.c_int),
@@ -786,13 +938,14 @@ def _weight_plain(config: ScanConfig, flat, R: int, dev):
 
 
 def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
-                     bitsets=(), time_bucket: int = 1):
+                     bitsets=(), time_bucket: int = 1, set_masks=None):
     """Plain PyTorch version of K2: filters, the time key, lanes [R,
     2+3A] + index_add_ over the reduce space, scatter min/max of kept
     values.
     -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs" int64
     [Sc, H], "gid" int32 [R] (dead rows Sc-1) or None without hist
-    aggs and the device HLL}."""
+    aggs and the device HLL, "mask" bool [B, C] (the matched rows) or
+    None without want_matched_mask}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = nrec.device
@@ -800,9 +953,8 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     flat = _flat_cols(cols, R)
     matched = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
                < nrec[:, None]).reshape(R)
-    for i, f in enumerate(config.filters):
-        v, ok = flat[f.col]
-        matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
+    matched = _front_filters(config, flat, matched, filter_vals, bitsets,
+                             set_masks, R)
     digits = []                      # (digit, spilled) per key, in order
     if config.time_col:
         # rows without the time column are skipped entirely
@@ -851,25 +1003,32 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     sums = torch.zeros((Sc, len(lanes)), dtype=torch.int64, device=dev)
     sums.index_add_(0, gid.to(torch.int64), torch.stack(lanes, dim=1))
     return {"sums": sums, "spill": spill.reshape(1), "mins": mins,
-            "maxs": maxs, "gid": gid if hist or config.hll else None}
+            "maxs": maxs, "gid": gid if hist or config.hll else None,
+            "mask": (matched.reshape(B, C) if config.want_matched_mask
+                     else None)}
 
 
 def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
-               bitsets=(), time_bucket: int = 1, form: str | None = None):
+               bitsets=(), time_bucket: int = 1, form: str | None = None,
+               set_masks=None):
     """K2: -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs"
-    int64 [Sc, H], "gid" int32 [R] or None}, as dense_scan_plain.
+    int64 [Sc, H], "gid" int32 [R] or None, "mask" bool [B, C] or None},
+    as dense_scan_plain.
 
     cols: {name: (values int64 [B, C], valid bool [B, C])}; nrec int32
     [B]; filter_vals int64 [F] (one constant per filter); bitsets: bool
     regex bitsets indexed by FilterSpec.bitset_idx; time_bucket: the
-    rollup's bucket width (a time_col config).  form: "shared",
+    rollup's bucket width (a time_col config); set_masks: K14's (has,
+    hit) per set filter (set_filter_masks).  form: "shared",
     "global" or "windowed" (default dense_scan_path's choice; all give
     the same words).  CUDA tensors launch the kernel
     (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
 
-    Replaces sybil_tpu/ops/scan.py:_front_end (filters and the time key
-    included), _dense_gid, _agg_row_data and the _dense_reduce sums and
-    min/max of _scan_dense, plain and windowed.  Bound by memory (9 B
+    Replaces sybil_tpu/ops/scan.py:_front_end (filters, the set ops over
+    K14's bitmasks and the time key included), _dense_gid, _agg_row_data,
+    the _dense_reduce sums and min/max of _scan_dense, plain and
+    windowed, and its matched mask (1062-1063, a template flag of the
+    kernel, written for every row).  Bound by memory (9 B
     read per row per referenced column); one grid-stride pass with
     per-CTA shared-memory tables, or global atomics when they exceed
     SHARED_TABLE_BYTES, or, for a windowed rollup, shared [band, L]
@@ -882,7 +1041,7 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
         filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
         return dense_scan_plain(config, cols, nrec, filter_vals, bitsets,
-                                time_bucket)
+                                time_bucket, set_masks)
     if dev.type != "cuda":
         raise ValueError(f"dense_scan: unsupported device {dev}")
     if C & (C - 1):
@@ -911,6 +1070,8 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     maxs = torch.empty((Sc, H), dtype=torch.int64, device=dev)
     gid = (torch.empty(R, dtype=torch.int32, device=dev)
            if H or config.hll else None)
+    mask = (torch.empty((B, C), dtype=torch.bool, device=dev)
+            if config.want_matched_mask else None)
 
     a = DenseScanArgs()
     nt = 1 if config.time_col else 0
@@ -924,14 +1085,15 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
         "key_min": [mn for mn, _ in config.key_bounds],
         "key_card": [card for _, card in config.key_bounds],
         **_agg_desc(config, cols),
-        **_filter_desc(config, cols, bitsets, dev, "dense_scan")})
+        **_filter_desc(config, cols, bitsets, dev, "dense_scan",
+                       set_masks)})
     a.filter_vals = filter_vals.data_ptr()
     if config.weight_col:
         v, m = cols[config.weight_col]
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
     a.nrec, a.sums, a.spill = nrec.data_ptr(), sums.data_ptr(), spill.data_ptr()
     a.mins, a.maxs = mins.data_ptr(), maxs.data_ptr()
-    a.gid_out = _ptr(gid)
+    a.gid_out, a.mask = _ptr(gid), _ptr(mask)
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.naggs, a.nfilters = nk, na, nf
     a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
@@ -952,7 +1114,7 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
                      kernels.stream_handle(dev)), "dense_scan")
     kernels.LAUNCHES["dense_scan"] += 1
     return {"sums": sums, "spill": spill, "mins": mins, "maxs": maxs,
-            "gid": gid}
+            "gid": gid, "mask": mask}
 
 
 def _k2_slot_bytes(config: ScanConfig) -> int:
@@ -1704,6 +1866,7 @@ class SortedFrontArgs(ctypes.Structure):
         ("totals", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
@@ -1721,7 +1884,7 @@ class SortedFrontArgs(ctypes.Structure):
 
 
 def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
-                       bitsets=(), time_bucket: int = 1):
+                       bitsets=(), time_bucket: int = 1, set_masks=None):
     """Plain PyTorch version of K7: the reference's _front_end and the
     sort operands of _scan_sorted (1076-1104, 1117-1118), or of
     _scan_enum (1420-1435, 1596-1597) when enum_radix(config) > 0.
@@ -1732,24 +1895,26 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
     "idxm": int32 [R]
     row index with the matched flag in its sign bit (None in the enum
     form), "spill": int64 [1], "totals": int64 [2] = (Σ matched weight,
-    matched rows) in the enum form, else None}."""
+    matched rows) in the enum form, else None, "mask": bool [B, C], the
+    matched rows, with want_matched_mask off the enum form, else None}."""
     B, C = _batch_shape(cols)
     R = B * C
     dev = nrec.device
     flat = _flat_cols(cols, R)
     matched = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
                < nrec[:, None]).reshape(R)
-    for i, f in enumerate(config.filters):
-        v, ok = flat[f.col]
-        matched = matched & _filter_ok(f, v, ok, filter_vals[i], bitsets)
+    matched = _front_filters(config, flat, matched, filter_vals, bitsets,
+                             set_masks, R)
     keys, tvalid = _key_lanes(config, flat, R, dev, time_bucket)
     if tvalid is not None:
         matched = matched & tvalid
     idx = torch.arange(R, dtype=torch.int32, device=dev)
     idxm = torch.where(matched, idx | _IDX_BIT, idx)
-    out = {"key": None, "keys": None, "idxm": idxm, "totals": None}
+    out = {"key": None, "keys": None, "idxm": idxm, "totals": None,
+           "mask": (matched.reshape(B, C) if config.want_matched_mask
+                    else None)}
     if enum_radix(config):
-        out["idxm"] = None
+        out["idxm"] = out["mask"] = None
         w = torch.where(matched, _weight_plain(config, flat, R, dev), 0)
         out["totals"] = torch.stack([w.sum(), matched.sum(dtype=torch.int64)])
     if sort_packed(config):
@@ -1774,14 +1939,16 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
 
 
 def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
-                 bitsets=(), time_bucket: int = 1):
-    """K7: as sorted_front_plain.  CUDA tensors launch the kernel
-    (csrc/sorted_front.cu); CPU tensors take the plain version.
+                 bitsets=(), time_bucket: int = 1, set_masks=None):
+    """K7: as sorted_front_plain (set_masks: K14's (has, hit) per set
+    filter).  CUDA tensors launch the kernel (csrc/sorted_front.cu); CPU
+    tensors take the plain version.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
-    int/str/regex filters, the time key, the key lanes, the distinct
-    lanes) and the sort operands of _scan_sorted (1076-1104, 1117-1118);
-    in its enum form
+    int/str/regex filters, the set ops over K14's bitmasks, the time
+    key, the key lanes, the distinct lanes), the sort operands of
+    _scan_sorted (1076-1104, 1117-1118) and its matched mask (1273-1274,
+    a template flag of the kernel); in its enum form
     (a template parameter of the kernel) the packed key, spill count and
     whole-scan totals of _scan_enum (1420-1435, 1596-1597).  Bound by
     memory: one pass, 9 B read per row per referenced column, the key
@@ -1793,7 +1960,7 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
         return sorted_front_plain(config, cols, nrec, filter_vals, bitsets,
-                                  time_bucket)
+                                  time_bucket, set_masks)
     if dev.type != "cuda":
         raise ValueError(f"sorted_front: unsupported device {dev}")
     if C & (C - 1):
@@ -1818,7 +1985,7 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     enum = enum_radix(config) > 0
     spill = torch.empty(1, dtype=torch.int64, device=dev)
     out = {"key": None, "keys": None, "idxm": None, "spill": spill,
-           "totals": None}
+           "totals": None, "mask": None}
     if enum:
         out["totals"] = torch.empty(2, dtype=torch.int64, device=dev)
         a.totals = out["totals"].data_ptr()
@@ -1829,6 +1996,9 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
     else:
         out["idxm"] = torch.empty(R, dtype=torch.int32, device=dev)
         a.idxm = out["idxm"].data_ptr()
+        if config.want_matched_mask:
+            out["mask"] = torch.empty((B, C), dtype=torch.bool, device=dev)
+            a.mask = out["mask"].data_ptr()
     pack = ()
     if sort_packed(config):
         sent, dtype = pack_sentinel(config)
@@ -1849,7 +2019,8 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         "pack_min": [mn for mn, _ in pack],
         "pack_card": [card for _, card in pack],
         "d_vals": dv, "d_valid": dm,
-        **_filter_desc(config, cols, bitsets, dev, "sorted_front")})
+        **_filter_desc(config, cols, bitsets, dev, "sorted_front",
+                       set_masks)})
     a.spill, a.nrec = spill.data_ptr(), nrec.data_ptr()
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.ngroups, a.nfilters = K, len(config.group_cols), nf
@@ -2653,7 +2824,7 @@ def prune_gather(config: ScanConfig, table, pidx, main):
 
 
 def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
-                 time_bucket: int):
+                 time_bucket: int, set_masks=None):
     """The sorted strategy: K7, the sorts, K8, per histogram aggregation
     K9 (prep, the pair sort, pairs) and K5 over kmat, then K10; under
     the device prune K12 picks the top rows of K10's table and
@@ -2662,7 +2833,7 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
     B, C = _batch_shape(cols)
     R = B * C
     front = sorted_front(config, cols, nrec, filter_vals, bitsets,
-                         time_bucket)
+                         time_bucket, set_masks)
     order = sort_rows(config, front)
     k8 = segment_reduce(config, cols, front, order, time_bucket)
     layout = packed_layout(config, R)
@@ -2671,6 +2842,8 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
     raw = {"kmat": k8["kmat"], "dmat": k8["dmat"],
            "pair_mask": k8["pair_mask"], "cols": cols,
            "time_bucket": time_bucket}
+    if front["mask"] is not None:
+        raw["matched"] = front["mask"]
     pairs, nouts = [], []
     for ai in hist_aggs(config):
         prep = hist_prep(config, ai, cols, k8)
@@ -3037,13 +3210,15 @@ def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
     return table
 
 
-def _scan_enum(config: ScanConfig, cols, nrec, filter_vals, bitsets):
+def _scan_enum(config: ScanConfig, cols, nrec, filter_vals, bitsets,
+               set_masks=None):
     """The enumerated strategy (reference _scan_enum): K7's enum form,
     one stable sort of the packed key, K11, K12 over the [R] scores for
     Pk = min(P, R) winners, then K10's enum_pack."""
     B, C = _batch_shape(cols)
     R = B * C
-    front = sorted_front(config, cols, nrec, filter_vals, bitsets)
+    front = sorted_front(config, cols, nrec, filter_vals, bitsets,
+                         set_masks=set_masks)
     skey, p = torch.sort(front["key"], stable=True)
     seg = enum_segments(config, cols, skey, p)
     widx = topk_rows(seg["score"], min(table_prefix(config), R))
@@ -3070,7 +3245,10 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
     [F] and the regex bitsets are device constants (the device HLL's
     uint64 hash array as its int64 bits); time_bucket is the
     rollup's bucket width (a host int: the kernels take it as a scalar
-    argument); set inputs belong to shapes the port rejects.  Routes as
+    argument); set_aux: {set column: (prow int32 [M], pval int64 [M],
+    n real entries)}, the batch CSR the engine's loader keeps resident
+    (row ids in [0, R), the pads R).  First K14 once per set filter, its
+    bitmasks read by K2 or K7.  Routes as
     the reference's scan_core: dense (K2, then K4 and K5 per histogram
     aggregation, then K3), else enumerated when enum_radix(config) > 0
     (K7 enum form, the sort, K11, K12, K10 enum_pack), else sorted (K7,
@@ -3080,21 +3258,27 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
     section overflows: "agg{ai}_hist" [Sc, nv] and "hll_regs" [slots,
     HLL_M] (dense), "agg{ai}_hp_*" [R], "kmat" [R, K], "dmat" [R, D] and
     "pair_mask" [R] (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R],
+    "matched" bool [B, C] under want_matched_mask (dense and sorted),
     and "cols" and "time_bucket" for the key lanes (key_rows)."""
     check_supported(config)
     B, C = _batch_shape(cols)
     R = B * C
     time_bucket = int(time_bucket)
+    set_masks = set_filter_masks(config, filter_vals, set_aux, R)
     if config.strategy != "dense":
         if enum_radix(config):
-            return _scan_enum(config, cols, nrec, filter_vals, bitsets)
+            return _scan_enum(config, cols, nrec, filter_vals, bitsets,
+                              set_masks)
         return _scan_sorted(config, cols, nrec, filter_vals, bitsets,
-                            time_bucket)
-    k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket)
+                            time_bucket, set_masks)
+    k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket,
+                    set_masks=set_masks)
     layout = packed_layout(config, R)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
                        device=nrec.device)
-    raw = {k: v for k, v in k2.items() if k != "gid"}
+    raw = {k: v for k, v in k2.items() if k not in ("gid", "mask")}
+    if k2["mask"] is not None:
+        raw["matched"] = k2["mask"]
     raw["cols"] = cols
     raw["time_bucket"] = time_bucket
     hll = None

@@ -1,18 +1,21 @@
 """Query engine orchestrator.
 
 Port of sybil_tpu/query/engine.py for one device, without the query
-cache, the row-store scan, samples or meshes.  The plan:
+cache, the row-store scan or meshes.  The plan:
 
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
-           K1 and K6 and kept resident, ops/residency.py) -> one scan_packed
-           call per batch (dense: K2, K4 + K5 per histogram, K3; sorted:
+           K1 and K6 and kept resident, ops/residency.py), and each set
+           column's batch CSR (kept resident too) -> one scan_packed
+           call per batch (K14 per set filter; then dense: K2, K4 + K5
+           per histogram, K3; sorted:
            K7, the sorts, K8, K9 + K5 per histogram, K10, and K12 under
            the device prune; enumerated: K7, the sort, K11, K12, K10;
            ops/scan.py)
            -> one packed buffer copied to pinned host memory without
            blocking; a dense key bound that spills restarts the scan on
-           the unpacked sorted strategy
+           the unpacked sorted strategy; a samples query reads its
+           matched rows back from the blocks
   merge    the host merges the (small) per-batch group tables, bucket
            matrices, sparse hist pairs, outlier rows, and a count
            distinct's HLL register planes (the dense strategy's device
@@ -657,10 +660,23 @@ def _pad_pow2(n: int, floor: int = 128) -> int:
     return v
 
 
+def pad_set_csr(rows, vals, R: int):
+    """A batch's set-column CSR padded to a power of two (at least 128)
+    entries, as the loader keeps it: row ids int32 (pad R) and values
+    int64 (pad -2)."""
+    m = _pad_pow2(max(len(rows), 1))
+    prow = np.full(m, R, dtype=np.int32)
+    pval = np.full(m, -2, dtype=np.int64)
+    prow[:len(rows)] = rows
+    pval[:len(vals)] = vals
+    return prow, pval
+
+
 class BatchLoader:
     """Assembles [B, C] device tensors for a batch of blocks, reusing the
     device-resident column cache: each (batch, column) decodes once and
-    later scans only read resident tensors (ops/residency.py)."""
+    later scans only read resident tensors (ops/residency.py).  A set
+    column becomes the batch's flattened CSR, also resident."""
 
     def __init__(self, bound: BoundQuery, block_dirs: list[str], C: int,
                  expected: dict[str, int] | None = None, device="cuda"):
@@ -751,7 +767,11 @@ class BatchLoader:
             self.changed.add(bdir)
 
     def load(self):
-        """-> (cols {name: (values, valid)}, nrec int32 [B] numpy)."""
+        """-> (cols {name: (values, valid)}, nrec int32 [B] numpy,
+        set_aux {set column: (prow int32 [M], pval int64 [M], n)}): a set
+        column's per-block CSR flattened into batch row ids (block bi's
+        rows offset by bi * C) and values, padded to a power of two M
+        with row R and value -2, n real entries."""
         import torch
 
         from ..ops.residency import CACHE, block_col_key
@@ -759,11 +779,17 @@ class BatchLoader:
         bound = self.bound
         B = len(self.block_dirs)
         C = self.C
+        R = B * C
+        schema = bound.table.schema
         nrec = np.zeros(B, dtype=np.int32)
         cols = {}
-        if any(bound.col_types[n] == SET_VAL for n in bound.needed_cols):
-            raise NotImplementedError(
-                "set columns (set filters) are not ported yet (ROADMAP B6b)")
+        set_cols: dict[str, list] = {}
+
+        dense_names = [n for n in bound.needed_cols
+                       if bound.col_types[n] != SET_VAL]
+        for name in bound.needed_cols:
+            if bound.col_types[name] == SET_VAL:
+                set_cols[name] = []
 
         for bi, bdir in enumerate(self.block_dirs):
             exp = self.expected.get(bdir)
@@ -775,7 +801,56 @@ class BatchLoader:
             # start; staleness is caught by the column-length checks below
             nrec[bi] = min(exp, C)
 
-        for name in bound.needed_cols:
+        # set columns get the dense lanes' residency: the per-block CSR
+        # is cached on the host (no disk re-read per batch per query) and
+        # the padded batch arrays stay on the device, keyed like the
+        # dense batch entries, so a warm set-filter query uploads nothing
+        set_batch_keys = {}
+        set_dev: dict[str, tuple] = {}
+        set_ncols: dict[str, list] = {}
+        for name in set_cols:
+            bkeys = tuple(
+                block_col_key(bdir, blockio.column_file(SET_VAL, name),
+                              name, C) for bdir in self.block_dirs)
+            set_batch_keys[name] = ("set_batch", name, bkeys,
+                                    str(self.device))
+            ent = CACHE.get(set_batch_keys[name])
+            if ent is not None:
+                set_dev[name] = ent
+                continue
+            ncols = set_ncols[name] = [-1] * B
+            for bi, bdir in enumerate(self.block_dirs):
+                if not nrec[bi]:
+                    continue
+                ck = ("setcsr",) + bkeys[bi]
+                cd = CACHE.get(ck)
+                if cd is None:
+                    try:
+                        raw = blockio.load_block_columns(
+                            bdir, schema, [name]).get(name)
+                    except Exception as e:  # noqa: BLE001 - torn file
+                        warn("corrupt set column; skipping block",
+                             bdir, e)
+                        self.changed.add(bdir)
+                        continue
+                    if raw is None:
+                        # the block lacks the column (written before it
+                        # existed): no entries, so neither in nor nin
+                        # passes a row of it.  The reference raises here
+                        # (its `raw.offsets` of None)
+                        cd = (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                              -1)
+                    else:
+                        ncol = len(raw.offsets) - 1
+                        rows = np.repeat(np.arange(ncol),
+                                         np.diff(raw.offsets))
+                        cd = (rows, raw.values, ncol)
+                    CACHE.put(ck, cd)
+                self._check_block(bdir, cd[2])
+                ncols[bi] = cd[2]
+                set_cols[name].append((cd[0] + bi * C, cd[1]))
+
+        for name in dense_names:
             typ = bound.col_types[name]
             block_keys = tuple(
                 block_col_key(bdir, blockio.column_file(typ, name), name, C)
@@ -797,18 +872,41 @@ class BatchLoader:
             cols[name] = (ent[0], ent[1])
 
         if not cols:
-            # bare count(*) query: synthesize one lane so the kernel has a
-            # shape to scan; row_in_range does the counting
+            # bare count(*) or set-only query: synthesize one lane so the
+            # kernel has a shape to scan; row_in_range does the counting
             cols["__count__"] = (
                 torch.zeros((B, C), dtype=torch.int64, device=self.device),
                 torch.ones((B, C), dtype=torch.bool, device=self.device))
 
+        set_aux = {}
+        for name, chunks in set_cols.items():
+            if name in set_dev:
+                prow_d, pval_d, ncols, n = set_dev[name]
+                for bdir, ncol in zip(self.block_dirs, ncols):
+                    self._check_block(bdir, ncol)
+                set_aux[name] = (prow_d, pval_d, n)
+                continue
+            if chunks:
+                rows = np.concatenate([c[0] for c in chunks])
+                vals = np.concatenate([c[1] for c in chunks]).astype(np.int64)
+            else:
+                rows = np.zeros(0, dtype=np.int64)
+                vals = np.zeros(0, dtype=np.int64)
+            prow, pval = pad_set_csr(rows, vals, R)
+            dev = (torch.from_numpy(prow).to(self.device),
+                   torch.from_numpy(pval).to(self.device))
+            CACHE.put(set_batch_keys[name],
+                      (dev[0], dev[1], tuple(set_ncols[name]), len(rows)))
+            set_aux[name] = (dev[0], dev[1], len(rows))
         if self.changed:
-            # zero out changed blocks so the kernel scans nothing from them
+            # zero out changed blocks so the kernel scans nothing from
+            # them, after EVERY staleness probe has run, the set-batch
+            # cache hits above included (a set-only query's one
+            # _check_block sits in that loop)
             for bi, bdir in enumerate(self.block_dirs):
                 if bdir in self.changed:
                     nrec[bi] = 0
-        return cols, nrec
+        return cols, nrec, set_aux
 
 
 def run_query(table: Table, params: QueryParams,
@@ -847,7 +945,7 @@ def _run_query_inner(table: Table, params: QueryParams,
             or flags.dist_num_processes > 1):
         raise NotImplementedError(
             "mesh and multi-process scans are not ported yet "
-            "(ROADMAP A14, A15)")
+            "(ROADMAP A14, A15, B11)")
     with timer.phase("bind"):
         if not table.load_info() and not table.exists():
             error("table", table.name,
@@ -963,9 +1061,11 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
                allow_prune: bool):
     """Scan a set of block dirs into a fresh accumulator through the
     batch pipeline: up to PIPELINE batches are in flight before the
-    oldest one's download is absorbed.  When a batch reports a dense key
-    bound spill, the whole scan restarts once on the unpacked sorted
-    strategy, as the reference's does (engine.py:1429-1592)."""
+    oldest one's download is absorbed, and a samples query then reads
+    the batch's matched rows until it holds 4 * limit.  When a batch
+    reports a dense key bound spill, the whole scan restarts once on
+    the unpacked sorted strategy, with a fresh accumulator, as the
+    reference's does (engine.py:1429-1592)."""
     import dataclasses as _dc
 
     from ..ops.residency import device_const
@@ -983,11 +1083,14 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
         spilled = False
 
         def drain_one() -> bool:
-            cfg, packed, out, R = pending.pop(0)
+            cfg, packed, out, R, batch_dirs, nrec = pending.pop(0)
             if acc.absorb_packed(packed, out, R, cfg) > 0:
                 return False
             if allow_prune:
                 acc.maybe_prune()
+            if params.samples and \
+                    len(acc.sample_rows) < max(params.limit, 1) * 4:
+                acc.collect_samples(out, batch_dirs, nrec, C)
             return True
 
         def stop_early() -> bool:
@@ -1002,17 +1105,17 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
             R = B * C
             with timer.phase("load"):
                 loader = BatchLoader(bound, batch_dirs, C, expected, device)
-                cols, nrec = loader.load()
+                cols, nrec, set_aux = loader.load()
             nrec[len(batch):] = 0  # padded repeats contribute nothing
             with timer.phase("dispatch"):
                 packed, out = scan_packed(cfg, cols,
                                           device_const(nrec, device),
                                           ctx.jfv, ctx.jbits,
-                                          params.time_bucket or 1)
+                                          params.time_bucket or 1, set_aux)
             # the raw outputs stay beside the packed buffer until it
             # drains: escalation fetches from them when a packed section
-            # overflows
-            pending.append((cfg, packed, out, R))
+            # overflows, and a samples query reads its matched mask
+            pending.append((cfg, packed, out, R, batch_dirs, nrec))
             _start_d2h(packed)
             if len(pending) >= PIPELINE:
                 with timer.phase("drain"):
@@ -1611,6 +1714,47 @@ class _Accumulator:
                 if cur["hist"] is None:
                     cur["hist"] = np.zeros(nv, dtype=np.int64)
                 cur["hist"][int(b)] += int(w)
+
+    def collect_samples(self, out, batch_dirs, nrec, C) -> None:
+        """Up to 4 * limit sample rows, each {column: value} of a matched
+        row, in block order: the batch's matched mask (raw["matched"])
+        picks the rows, read back from the blocks' host-decoded columns
+        (all columns, or -sample-cols' subset), as the reference's
+        collect_samples (engine.py:2299-2334)."""
+        matched = out["matched"].cpu().numpy()
+        limit = max(self.params.limit, 1)
+        schema = self.bound.table.schema
+        if self.params.sample_cols:
+            # -sample-cols loads only the requested columns
+            # (cmd_query.go:142-146,196)
+            all_cols = [c for c in self.params.sample_cols
+                        if c in schema.key_table]
+        else:
+            all_cols = sorted(schema.key_table)
+        for bi, bdir in enumerate(batch_dirs):
+            if len(self.sample_rows) >= limit * 4 or nrec[bi] == 0:
+                continue
+            rows = np.nonzero(matched[bi, :nrec[bi]])[0]
+            if not len(rows):
+                continue
+            data = blockio.load_block_columns(bdir, schema, all_cols)
+            for r in rows[: limit * 4 - len(self.sample_rows)]:
+                sample = {}
+                for name, cd in data.items():
+                    if isinstance(cd, blockio.IntColumnData):
+                        if cd.valid[r]:
+                            sample[name] = int(cd.values[r])
+                    elif isinstance(cd, blockio.StrColumnData):
+                        if cd.valid[r]:
+                            sample[name] = self.bound._strings(name)[
+                                int(cd.ids[r])]
+                    else:
+                        lo, hi = int(cd.offsets[r]), int(cd.offsets[r + 1])
+                        if hi > lo:
+                            strs = self.bound._strings(name)
+                            sample[name] = [strs[int(v)]
+                                            for v in cd.values[lo:hi]]
+                self.sample_rows.append(sample)
 
     def finish(self) -> QueryResults:
         p = self.params

@@ -162,3 +162,32 @@ def test_port_node_protocol_runs_with_jax_and_reference_refused(tmp_path):
     assert proc.returncode == 0, proc.stderr
     rows = json.loads(proc.stdout)
     assert len(rows) == 3 and all(r["Count"] >= 1 for r in rows)
+
+
+def test_port_set_filter_samples_run_with_jax_and_reference_refused(tmp_path):
+    """Set columns in the loader, K14's plain version, the set ops and the
+    matched mask of K2's plain version, and the sample read-back run in the
+    refusing process too."""
+    d = str(tmp_path / "db")
+    t = Table("uptime", Flags(dir=d, table="uptime", skip_compact=True))
+    rng = np.random.default_rng(6)
+    n = 3000
+    t.ingest_columns(
+        ints={"ping": rng.integers(0, 150, n),
+              "index_int": np.arange(n)},
+        strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)]},
+        sets={"groups": [[g for m, g in ((2, "mod2"), (3, "mod3"))
+                          if i % m == 0] or ["none"] for i in range(n)]})
+    argv = ["query", "-dir", d, "-table", "uptime", "-samples", "-limit",
+            "5", "-set-filter", "groups:in:mod3,groups:nin:mod2", "-json",
+            "-device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                              argv=argv)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads(proc.stdout)
+    assert [r["index_int"] for r in rows] == [3, 9, 15, 21, 27]
+    assert all(r["groups"] == ["mod3"] for r in rows)

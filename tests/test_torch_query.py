@@ -387,15 +387,14 @@ def test_unported_engine_modes_raise(ref_table, change, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-set-filter", "tags:in:a"], "B6b"),
-    # -tdigest, a rollup past DENSE_WINDOW_SLOT_CAP (4000 quotients x 6 x
-    # 6 slots) and int keys past the dense slot cap take the sorted
-    # strategy, which tests/test_torch_sorted.py holds against the
-    # reference; on it samples stay unported.  The device prune (B10) and
-    # count distinct (B9) are ported: those cases now print the
-    # reference's bytes (the enumerated strategy, tests/test_torch_enum.py;
-    # the distinct pairs of a rollup and the device HLL,
+    # every case is ported now and prints the reference's bytes: set
+    # filters (B6b, tests/test_torch_sets.py), samples on the sorted
+    # strategy that -tdigest takes (A13, tests/test_torch_samples.py),
+    # the device prune (B10: the enumerated strategy,
+    # tests/test_torch_enum.py) and count distinct (B9: the distinct pairs
+    # of a rollup past DENSE_WINDOW_SLOT_CAP and the device HLL,
     # tests/test_torch_distinct.py)
+    (["-set-filter", "tags:in:a"], "B6b"),
     (["-op", "hist", "-tdigest", "-samples"], "A13"),
     (["-time", "-time-col", "index_int", "-time-bucket", "1", "-group",
       "host,status", "-distinct", "weight"], "B9"),
@@ -429,17 +428,20 @@ def test_unported_query_shapes_exit_with_roadmap_item(ref_table, argv, item,
     base = ["query", "-dir", d, "-table", "uptime", "-int", "ping", "-json"]
     if "-group" not in argv:
         base += ["-group", "host"]
-    if item in ("B9", "B10"):
-        want = _cli_out(ref_cli.main, base + argv, capsys)
-        assert _cli_out(port_cli.main, base + argv + ["-device", "cpu"],
-                        capsys) == want
-        if item == "B10":
-            assert len(json.loads(want)) == 100      # the default -limit
-        else:
-            assert '"Distinct"' in want
-        return
-    assert port_cli.main(base + argv + ["-device", "cpu"]) == 2
-    assert item in capsys.readouterr().err
+    want = _cli_out(ref_cli.main, base + argv, capsys)
+    assert _cli_out(port_cli.main, base + argv + ["-device", "cpu"],
+                    capsys) == want
+    if item == "B10":
+        assert len(json.loads(want)) == 100      # the default -limit
+    elif item == "B9":
+        assert '"Distinct"' in want
+    elif item == "B6b":
+        # rows 0, 1 and 4 hold "a": hosts a, b, a
+        assert {r["host"]: r["Count"] for r in json.loads(want)} == \
+            {"a": 2, "b": 1}
+    else:
+        assert len(json.loads(want)) == 100      # -limit 100 samples
+        assert all("index_int" in r for r in json.loads(want))
 
 
 @pytest.fixture(scope="module")

@@ -137,14 +137,13 @@ def test_static_layout_matches_reference(name):
 def test_unported_shapes_raise(what):
     cfg, cols, nrec = _make("g1-a1-missing")
     pcfg = port.config_from_fields(dataclasses.asdict(cfg))
-    # set filters (B6b) and samples (A13) stay unported.  A time rollup
-    # without a bound on its quotient, histograms under the sorted
-    # strategy and the sorted strategy itself are ported
-    # (tests/test_torch_sorted.py); here each carries a part that is not.
-    # The sorted strategy's device prune (B10) and count distinct (B9) are
-    # ported: their cases (a time rollup and a forced sorted scan under
-    # prune_topk; the distinct pairs, with and without a histogram) now
-    # equal the reference's `main` word for word
+    # Each case carried a part that was not ported; all are now, and each
+    # equals the reference's `main` word for word: set filters (B6b, over
+    # a set-column CSR of three entries a row, row i holding i % 7, i % 5
+    # and 2), samples (A13, with its matched mask), the sorted strategy's
+    # device prune (B10: a time rollup and a forced sorted scan under
+    # prune_topk) and count distinct (B9: the distinct pairs, with and
+    # without a histogram)
     def change(c):
         return {
             "filters": {"filters": (port.FilterSpec("k0", "in", "set"),)},
@@ -163,24 +162,40 @@ def test_unported_shapes_raise(what):
         bad.strategy == "sorted"
     tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
              for k, (v, m) in cols.items()}
-    if item in ("B9", "B10"):
-        rcfg = dataclasses.replace(cfg, **change(cfg))
-        packed, _ = ref.scan_packed_jit(
-            rcfg, {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
-                   cols.items()},
-            jnp.asarray(nrec), jnp.zeros((0,), jnp.int64), (),
-            jnp.asarray(1, jnp.int64), {})
-        got, _ = port.scan_packed(bad, tcols, torch.from_numpy(nrec))
-        np.testing.assert_array_equal(got["main"].numpy(),
-                                      np.asarray(packed["main"]))
-        meta = np.asarray(packed["main"])[0]
-        if item == "B10":
-            assert int(meta[4]) > 0                     # pruned
-        else:
-            assert int(meta[2 + len(port.hist_aggs(bad))]) > 0   # npairs
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.scan_packed(bad, tcols, torch.from_numpy(nrec))
+    R = B * C
+    fv = np.zeros(0, np.int64)
+    ref_aux, port_aux = {}, {}
+    if item == "B6b":
+        fv = np.array([4], np.int64)
+        prow = np.repeat(np.arange(R, dtype=np.int32), 3)
+        pval = np.stack([np.arange(R) % 7, np.arange(R) % 5,
+                         np.full(R, 2)], 1).reshape(-1).astype(np.int64)
+        ref_aux = {"k0": (jnp.asarray(prow), jnp.asarray(pval))}
+        port_aux = {"k0": (torch.from_numpy(prow), torch.from_numpy(pval),
+                           len(prow))}
+    rcfg = dataclasses.replace(cfg, **change(cfg))
+    packed, out = ref.scan_packed_jit(
+        rcfg, {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+               cols.items()},
+        jnp.asarray(nrec), jnp.asarray(fv), (), jnp.asarray(1, jnp.int64),
+        ref_aux)
+    got, raw = port.scan_packed(bad, tcols, torch.from_numpy(nrec),
+                                torch.from_numpy(fv), (), 1, port_aux)
+    np.testing.assert_array_equal(got["main"].numpy(),
+                                  np.asarray(packed["main"]))
+    meta = np.asarray(packed["main"])[0]
+    if item == "B10":
+        assert int(meta[4]) > 0                     # pruned
+    elif item == "B9":
+        assert int(meta[2 + len(port.hist_aggs(bad))]) > 0   # npairs
+    elif item == "B6b":
+        # rows i with i % 7 == 4 or i % 5 == 4 pass
+        assert int(raw["sums"][:, 1].sum()) == int(
+            ((np.arange(R) % 7 == 4) | (np.arange(R) % 5 == 4)).sum())
+    else:
+        np.testing.assert_array_equal(raw["matched"].numpy(),
+                                      np.asarray(out["matched"]))
+        assert raw["matched"].numpy().all()
 
 
 @pytest.mark.parametrize("n", [0, 5, port._DESC_HEAD, port._DESC_HEAD + 40])

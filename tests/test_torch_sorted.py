@@ -237,34 +237,34 @@ def _strategies_seen(monkeypatch):
     ("samples", {"want_matched_mask": True}, "A13"),
 ])
 def test_sorted_shapes_still_unported_raise(what, change, item):
-    """Samples (A13) raise; the device prune (B10) and distinct counts
-    (B9, the distinct pairs) are ported and equal the reference's `main`
-    and (pruned) table word for word."""
+    """The device prune (B10), distinct counts (B9, the distinct pairs)
+    and samples (A13, the matched mask) are ported and equal the
+    reference's `main`, (pruned) table and mask word for word."""
     cfg, cols, nrec, fvals, bits, tb = _make("unpacked-missing-negative")
     pcfg = dataclasses.replace(
         port.config_from_fields(dataclasses.asdict(cfg)), **change)
     assert pcfg.strategy == "sorted"
     tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
              for k, (v, m) in cols.items()}
-    if item in ("B9", "B10"):
-        packed, _ = ref.scan_packed_jit(
-            dataclasses.replace(cfg, **change),
-            {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
-             cols.items()}, jnp.asarray(nrec), jnp.zeros((0,), jnp.int64),
-            (), jnp.asarray(1, jnp.int64), {})
-        got, _ = port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
-        np.testing.assert_array_equal(got["main"].numpy(),
-                                      np.asarray(packed["main"]))
-        np.testing.assert_array_equal(got["table"].numpy(),
-                                      np.asarray(packed["table"]))
-        meta = np.asarray(packed["main"])[0]
-        if item == "B10":
-            assert int(meta[4]) == port.table_prefix(pcfg)
-        else:
-            assert int(meta[2]) > 0                     # npairs
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
+    packed, out = ref.scan_packed_jit(
+        dataclasses.replace(cfg, **change),
+        {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+         cols.items()}, jnp.asarray(nrec), jnp.zeros((0,), jnp.int64),
+        (), jnp.asarray(1, jnp.int64), {})
+    got, raw = port.scan_packed(pcfg, tcols, torch.from_numpy(nrec))
+    np.testing.assert_array_equal(got["main"].numpy(),
+                                  np.asarray(packed["main"]))
+    np.testing.assert_array_equal(got["table"].numpy(),
+                                  np.asarray(packed["table"]))
+    meta = np.asarray(packed["main"])[0]
+    if item == "B10":
+        assert int(meta[4]) == port.table_prefix(pcfg)
+    elif item == "B9":
+        assert int(meta[2]) > 0                     # npairs
+    else:
+        np.testing.assert_array_equal(raw["matched"].numpy(),
+                                      np.asarray(out["matched"]))
+        assert 0 < int(raw["matched"].sum()) == int(nrec.sum())
 
 
 # ---------------------------------------------------------------------------
