@@ -121,7 +121,22 @@ Phases (any failure exits non-zero before the result lines):
      -limit 10`, K2's and K7's masks: the first matched rows in block
      order, read back with the port's blocks module) and S5 (an unknown
      literal: no row, every row), each against numpy, K14 once per set
-     filter
+     filter; then the query cache on a copy of the uptime table (8 cache
+     groups of 16 full blocks): scripts/bench_cache.py's 15 shapes, and
+     -tdigest and -loghist ones, each through run_query uncached, as a
+     write on an empty cache directory and as a hit, write and hit equal
+     to the uncached answer (group_avg also to numpy), every group hit
+     and no kernel launched on the hit; the CLI's -cache-queries written
+     and hit; group_avg at device_batch 16 (one K2 a group); 16 appended
+     blocks (8 hits, 1 miss); K2 (all three forms), K4, K5, K3, K13, K7,
+     sort_permute, K8, K9 and K10 with the cache-group key against their
+     plain versions at the writes' own vgroup shapes and on seven
+     synthetic batches (vg_first with the windowed form, padding groups,
+     spills, the sorted strategy packed and unpacked); the sweep's warm
+     walls (median of 5 each of uncached, write and hit), the phases of
+     group_avg's and time_avg's write and hit, K2 with and without the
+     cache-group key on the same batch, K7, the sorts, K8 and K5 at the
+     vgroup shapes
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -2628,6 +2643,580 @@ def check_hist_json(label, rows, agg, want, keys_of, group_cols):
 
 
 # ---------------------------------------------------------------------------
+# the query cache (-cache-queries) and the cache-group key
+# ---------------------------------------------------------------------------
+
+# scripts/bench_cache.py:35-95, the reference's sweep
+# (scripts/test_cache_results.py:29-47): 15 shapes over the uptime table,
+# each uncached, as a cache write and as a cache hit; then two shapes off
+# the sweep for the sorted strategy (K7, K8) and tracked outliers (K5)
+CACHE_SWEEP = ("count", "avg", "hist", "time_avg", "group", "distinct",
+               "time_distinct", "group_avg", "group_avg_lim", "group_hist",
+               "re_filter", "group2", "group2_avg", "time_group_10",
+               "time_group_100")
+CACHE_EXTRA = ("group_tdigest", "group_loghist")
+CACHE_TB = 21600                 # bench_cache.py:56
+CACHE_SPAN = 16                  # query/cache.py GROUP_SIZE
+
+
+def cache_params(kind):
+    """bench_cache.py:build_params, with the port's QueryParams."""
+    from sybil_tpu_torch.query.spec import AggDef, FilterDef, QueryParams
+    tb = dict(time_bucket=CACHE_TB, time_col="time")
+    avg = (AggDef("ping", "avg"),)
+    return {
+        "count": QueryParams(),
+        "avg": QueryParams(aggs=avg),
+        "hist": QueryParams(aggs=(AggDef("ping", "hist"),)),
+        "time_avg": QueryParams(aggs=avg, **tb),
+        "group": QueryParams(groups=("host",)),
+        "distinct": QueryParams(distincts=("host",)),
+        "time_distinct": QueryParams(distincts=("host",), **tb),
+        "group_avg": QueryParams(groups=("host",), aggs=avg),
+        "group_avg_lim": QueryParams(groups=("host",), aggs=avg, limit=10),
+        "group_hist": QueryParams(groups=("host",),
+                                  aggs=(AggDef("ping", "hist"),)),
+        "re_filter": QueryParams(aggs=avg, filters=(
+            FilterDef("host", "re", "facebook|google", "str"),)),
+        "group2": QueryParams(groups=("host", "status")),
+        "group2_avg": QueryParams(groups=("host", "status"), aggs=avg),
+        "time_group_10": QueryParams(groups=("host",), aggs=avg, limit=10,
+                                     **tb),
+        "time_group_100": QueryParams(groups=("host",), aggs=avg, limit=100,
+                                      **tb),
+        "group_tdigest": QueryParams(groups=("host",), aggs=(
+            AggDef("ping", "hist", "tdigest"),)),
+        "group_loghist": QueryParams(groups=("host",), aggs=(
+            AggDef("ping", "hist", "multi"),)),
+    }[kind]
+
+
+def cache_snapshot(qr):
+    """snapshot() with each group's distinct count and every time row."""
+    rows = snapshot(qr)
+    dist = {k: r.distinct.cardinality() for k, r in qr.results.items()
+            if r.distinct is not None}
+    trows = {}
+    for tb, rs in qr.time_results.items():
+        for gk, r in rs.items():
+            trows[(tb, gk)] = (
+                r.count, r.samples,
+                {c: (h.count, h.avg) for c, h in r.hists.items()},
+                r.distinct.cardinality() if r.distinct is not None else None)
+    return rows, dist, trows
+
+
+def cache_edge_batch(device, B: int = 64, C: int = 8192):
+    """A synthetic batch of four 16-block cache groups: the third group's
+    last eight blocks and all of the fourth are padding (nrec 0), as
+    _scan_cache_vgroups pads a partial group and a power-of-two group
+    count; key g with MISSING rows, value v past a 5-bucket hist (live
+    outliers), time t sorted within each block (narrow windows)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(4242)
+    R = B * C
+
+    def col(v, p):
+        return (torch.from_numpy(np.asarray(v, np.int64).reshape(B, C)).to(
+                    device),
+                torch.from_numpy(rng.random(R) < p).reshape(B, C).to(device))
+
+    t = np.sort(rng.integers(0, 3000, (B, C)), axis=1) + \
+        np.arange(B)[:, None] * 3000
+    cols = {"g": col(rng.integers(0, 7, R), 0.9),
+            "v": col(rng.integers(0, 1000, R), 0.95),
+            "t": col(t.reshape(-1), 0.97)}
+    nrec = np.full(B, C, np.int32)
+    nrec[40:] = 0
+    nrec[5] = C - 77
+    return cols, torch.from_numpy(nrec).to(device)
+
+
+def cache_edge_configs():
+    """The synthetic batch's cache-group configs (four groups)."""
+    from sybil_tpu_torch.ops import scan
+    ngp = 4
+    avg = scan.AggSpec("v", 0, 0, 0, 0, 1000)
+    hist = scan.AggSpec("v", 0, 100, 5, 0, 1000)
+    cg = ("__cg__", "g")
+    base = dict(filters=(), vg_span=CACHE_SPAN)
+    qmax = 64 * 3000 // 500
+    return {
+        # vg_first: [cg, time, g] under a narrow window, both K2 forms
+        "vg_first windowed rollup, padding groups": scan.ScanConfig(
+            group_cols=cg, aggs=(avg,), time_col="t", time_i32=True,
+            key_bounds=((0, ngp), (0, qmax), (0, 7)), window=64, **base),
+        "vg_first rollup, int64 time, tracked outliers": scan.ScanConfig(
+            group_cols=cg, aggs=(hist,), time_col="t", track_outliers=True,
+            key_bounds=((0, ngp), (0, qmax), (0, 7)), **base),
+        "[cg, g], tracked outliers past the packed section": scan.ScanConfig(
+            group_cols=cg, aggs=(hist,), track_outliers=True, max_out=64,
+            key_bounds=((0, ngp), (0, 7)), **base),
+        "[cg, g], a spilled key bound": scan.ScanConfig(
+            group_cols=cg, aggs=(avg,), key_bounds=((0, ngp), (0, 4)),
+            **base),
+        "[cg] alone, global form": scan.ScanConfig(
+            group_cols=("__cg__",), aggs=(avg, hist), key_bounds=((0, ngp),),
+            **base),
+        "sorted [cg, time, g], hist outliers": scan.ScanConfig(
+            group_cols=cg, aggs=(hist,), time_col="t", track_outliers=True,
+            force_sorted=True, **base),
+        "sorted packed [cg, g], a spill": scan.ScanConfig(
+            group_cols=cg, aggs=(avg,), force_sorted=True,
+            sort_pack=((0, ngp), (0, 4)), **base),
+    }
+
+
+def cache_edge_checks(device, errs) -> list:
+    """K2 (its forms), K4, K5, K3, K7, sort_permute, K8, K9 and K10 with
+    the cache-group key against their plain versions on the synthetic
+    batch.  -> the labels checked."""
+    from sybil_tpu_torch.ops import scan
+    cols, nrec = cache_edge_batch(device)
+    done = []
+    for label, cfg in cache_edge_configs().items():
+        if cfg.strategy == "sorted":
+            main, _, _ = sorted_check(f"cache edge {label}", cfg, cols, nrec,
+                                      errs, tb=500)
+        else:
+            forms = (["windowed", "global"] if scan.windowed(cfg) else
+                     ["shared", "global"] if scan.dense_scan_path(cfg)
+                     == "shared" else ["global"])
+            _, main = scan_check(f"cache edge {label}", cfg, cols, nrec,
+                                 errs, tb=500, forms=forms)
+        spill = int(main[0, 1].item())
+        if ("spill" in label) != (spill > 0):
+            fail(f"cache edge {label}: spill count {spill}")
+        done.append(label)
+    return done
+
+
+def cache_check_captured(captured, errs) -> list:
+    """The kernels at the sweep's own vgroup shapes (the inputs the
+    engine's cache writes handed scan_packed) against their plain
+    versions: K2 in each form that applies, K13, K4, K5, K3; K7, the
+    sorts, K8, K9, K5 over kmat, K10."""
+    from sybil_tpu_torch.ops import scan
+    out = []
+    for kind, (cfg, cols, nrec, fv, bits, tb, set_aux) in captured.items():
+        ngp = cfg.key_bounds[0][1] if cfg.key_bounds else 0
+        what = f"cache {kind} (ngp {ngp})"
+        if cfg.strategy == "sorted":
+            sorted_check(what, cfg, cols, nrec, errs, fv, bits, tb, set_aux)
+        else:
+            forms = (["windowed", "global"] if scan.windowed(cfg) else
+                     ["shared", "global"] if scan.dense_scan_path(cfg)
+                     == "shared" else ["global"])
+            scan_check(what, cfg, cols, nrec, errs, fv, bits, tb, set_aux,
+                       forms=forms)
+        out.append(f"{kind}: {cfg.strategy}"
+                   + (f", K2 {'/'.join(forms)}" if cfg.strategy == "dense"
+                      else ""))
+    return out
+
+
+def cache_phase(card, root, table, up, errs, launches, device):
+    """The query cache on a copy of the uptime table through run_query
+    (and the CLI once): each sweep shape uncached, as a write on an empty
+    cache directory and as a hit, write and hit equal to the uncached
+    answer (group_avg also to numpy); every group hits on the hit run,
+    which launches no kernel; group_avg at device_batch 16 (one group a
+    dispatch); 16 more full blocks appended: every old group hits and the
+    new one misses.  Then the kernels at the captured vgroup shapes and
+    on synthetic batches against their plain versions, the sweep's
+    walls, phase lines, and K2 with and without the cache-group key.
+    Launches of the write and hit runs are added to `launches`.
+    -> the kernel table's rows."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch import debug as dbg
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.ops import kernels, scan
+    from sybil_tpu_torch.query import cache as qcache
+    from sybil_tpu_torch.query.engine import run_query
+    from sybil_tpu_torch.table import Table
+
+    t0 = time.perf_counter()
+    croot = os.path.join(root, "cache_up")
+    shutil.copytree(os.path.join(table.flags.dir, "uptime"),
+                    os.path.join(croot, "uptime"))
+    flags = Flags(dir=croot, table="uptime", skip_compact=True,
+                  device=device.type, device_batch=1024)
+    cflags = dataclasses.replace(flags, cache_queries=True)
+    ctab = Table("uptime", flags)
+    cdir = os.path.join(croot, "uptime", qcache.constants.CACHE_DIR)
+    infos = ctab.block_infos()
+    groups, rest = qcache.stable_groups(list(infos), infos)
+    ng = len(groups)
+    if ng < 1:
+        fail(f"cache phase: {len(infos)} blocks hold no cache group")
+    say(f"cache phase: a copy of the uptime table ({len(infos)} blocks, "
+        f"{ng} cache groups of {qcache.GROUP_SIZE}, {len(rest)} blocks "
+        f"outside them) in {time.perf_counter() - t0:.1f}s")
+
+    def qfiles():
+        # the query cache's files; cache/ also holds the block-info cache
+        return ([f for f in os.listdir(cdir) if f.startswith("q_")]
+                if os.path.isdir(cdir) else [])
+
+    def clear():
+        for f in qfiles():
+            os.remove(os.path.join(cdir, f))
+
+    captured = {}
+    state = {"kind": None}
+    real = scan.scan_packed
+
+    def spy(cfg, cols, nrec, fv=None, bits=(), tb=1, set_aux=None):
+        kind = state["kind"]
+        if kind and scan.has_cg(cfg) and kind not in captured:
+            captured[kind] = (cfg, cols, nrec, fv, bits, tb, set_aux)
+        return real(cfg, cols, nrec, fv, bits, tb, set_aux)
+
+    def nonzero(ll):
+        return {k: v for k, v in ll.items() if v}
+
+    want = numpy_groupby(up["host"], up["ping"])
+    uncached = {}
+    t0 = time.perf_counter()
+    for kind in CACHE_SWEEP + CACHE_EXTRA:
+        params = cache_params(kind)
+        run_query(ctab, params, flags)          # decoded columns resident
+        qr_u = run_query(ctab, params, flags)
+        su = cache_snapshot(qr_u)
+        uncached[kind] = su
+        clear()
+        m0 = qcache.MISSES
+        state["kind"] = kind
+        scan.scan_packed = spy
+        kernels.reset_launches()
+        try:
+            qr_w = run_query(ctab, params, cflags)
+        finally:
+            lw = dict(kernels.LAUNCHES)
+            scan.scan_packed = real
+            state["kind"] = None
+        if qcache.MISSES - m0 != ng or len(qfiles()) != ng:
+            fail(f"cache {kind}: the write missed {qcache.MISSES - m0} "
+                 f"groups and wrote {len(qfiles())} files, not {ng}")
+        h0, m0 = qcache.HITS, qcache.MISSES
+        kernels.reset_launches()
+        qr_h = run_query(ctab, params, cflags)
+        lh = dict(kernels.LAUNCHES)
+        if (qcache.HITS - h0, qcache.MISSES - m0) != (ng, 0):
+            fail(f"cache {kind}: the hit run hit {qcache.HITS - h0} and "
+                 f"missed {qcache.MISSES - m0} of {ng} groups")
+        if not rest and any(lh.values()):
+            fail(f"cache {kind}: a query whose groups all hit launched "
+                 f"kernels: {nonzero(lh)}")
+        if cache_snapshot(qr_w) != su:
+            fail(f"cache {kind}: the write's answer differs from the "
+                 f"uncached one")
+        if cache_snapshot(qr_h) != su:
+            fail(f"cache {kind}: the hit's answer differs from the uncached "
+                 f"one")
+        if kind == "group_avg":
+            for h, (cnt, s) in want.items():
+                for qr in (qr_w, qr_h):
+                    r = qr.results[h + "\t"]
+                    if r.count != cnt or r.hists["ping"].avg != s / cnt:
+                        fail(f"cache group_avg group {h} differs from "
+                             f"numpy")
+        if kind not in captured:
+            fail(f"cache {kind}: no cache-group scan ran")
+        for k in COUNTED:
+            launches[k] += lw[k] + lh[k]
+        cfg = captured[kind][0]
+        say(f"cache {kind}: write and hit == uncached ({len(qr_u.results)} "
+            f"groups, {qr_u.matched_count} rows); {cfg.strategy} strategy, "
+            f"ngp {cfg.key_bounds[0][1]}; launches: write {nonzero(lw)}, hit "
+            f"{nonzero(lh)}")
+    say(f"cache sweep: {len(CACHE_SWEEP)} of {len(CACHE_SWEEP)} shapes (and "
+        f"{len(CACHE_EXTRA)} more) equal their uncached answers written "
+        f"and hit, {ng} of {ng} groups hit, no kernel on an all-hit query "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # the CLI's -cache-queries, written then hit, against numpy
+    clear()
+    argv = ["query", "-dir", croot, "-table", "uptime", "-group", "host",
+            "-int", "ping", "-op", "avg", "-json", "-cache-queries",
+            "-device-batch", "1024", "-device", device.type]
+    for run in ("write", "hit"):
+        rc, out, wall, ll = run_cli(argv)
+        if rc != 0:
+            fail(f"cache CLI {run}: exit {rc}")
+        got = {r["host"]: r for r in json.loads(out)}
+        for h, (cnt, s) in want.items():
+            r = got[h]
+            if r["Count"] != cnt or r["ping"] != s / cnt:
+                fail(f"cache CLI {run} group {h}: {r} vs numpy {cnt}, {s}")
+        for k in COUNTED:
+            launches[k] += ll[k]
+        say(f"main path: CLI -cache-queries group by host avg ping, the "
+            f"{run}, == numpy; launches {nonzero(ll)}; wall {wall:.3f}s")
+
+    # the CLI default device_batch: one group a dispatch
+    clear()
+    p_ga = cache_params("group_avg")
+    kernels.reset_launches()
+    qr = run_query(ctab, p_ga, dataclasses.replace(cflags, device_batch=16))
+    ll = dict(kernels.LAUNCHES)
+    if cache_snapshot(qr) != uncached["group_avg"]:
+        fail("cache group_avg at device_batch 16 differs from uncached")
+    if ll["dense_scan"] != ng or ll["dense_pack"] != ng:
+        fail(f"cache group_avg at device_batch 16: launches {nonzero(ll)}, "
+             f"expected one K2 and one K3 a group")
+    for k in COUNTED:
+        launches[k] += ll[k]
+    say(f"cache group_avg at device_batch 16 (one group a dispatch) == "
+        f"uncached; launches {nonzero(ll)}")
+
+    # kernels at the captured vgroup shapes and on synthetic batches
+    t0 = time.perf_counter()
+    checked = cache_check_captured(captured, errs)
+    edges = cache_edge_checks(device, errs)
+    say(f"cache-group key: K2/K4/K5/K3/K13 and K7/sort_permute/K8/K9/K5/K10 "
+        f"== plain (tolerance 0) at the sweep's vgroup shapes ("
+        + "; ".join(checked) + ") and on synthetic batches ("
+        + "; ".join(edges) + f") in {time.perf_counter() - t0:.1f}s")
+
+    # walls: the median of 5 warm runs of each mode
+    def wall(fn, before=None):
+        ws = []
+        for _ in range(5):
+            if before:
+                before()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            ws.append((time.perf_counter() - t) * 1e3)
+        return median(ws), ws
+
+    sweep_ms = {}
+    for kind in CACHE_SWEEP + CACHE_EXTRA:
+        params = cache_params(kind)
+        mu, wu = wall(lambda: run_query(ctab, params, flags))
+        mw, ww = wall(lambda: run_query(ctab, params, cflags), clear)
+        mh, wh = wall(lambda: run_query(ctab, params, cflags))
+        sweep_ms[kind] = (mu, mw, mh)
+        say(f"[{card}] cache {kind}: warm wall median of 5, uncached "
+            f"{mu:.3f} ms, write {mw:.3f} ms, hit {mh:.3f} ms (walls "
+            f"{[round(x, 3) for x in wu]}, {[round(x, 3) for x in ww]}, "
+            f"{[round(x, 3) for x in wh]})")
+    say(json.dumps({"cache_sweep_ms": {
+        k: {"uncached": u, "write": w, "hit": h}
+        for k, (u, w, h) in sweep_ms.items()}, "card": card}))
+
+    # the engine's phases of a write and of a hit
+    for kind in ("group_avg", "time_avg"):
+        params = cache_params(kind)
+        for run in ("write", "hit"):
+            if run == "write":
+                clear()
+            err = io.StringIO()
+            dbg.DEBUG_FLAG = True
+            with contextlib.redirect_stderr(err):
+                run_query(ctab, params, cflags)
+            dbg.DEBUG_FLAG = False
+            line = [x for x in err.getvalue().splitlines()
+                    if "QUERY TIMING" in x][-1]
+            say(f"[{card}] cache {kind} {run} query phases: "
+                + line.split("QUERY TIMING ", 1)[1])
+
+    # 16 more full blocks: the old groups hit, the new one misses
+    clear()
+    run_query(ctab, p_ga, cflags)          # the cache of the old groups
+    rows_per = max(b.num_records for b in infos.values())
+    n_new = CACHE_SPAN * rows_per
+    rng = np.random.default_rng(BENCH_SEED + len(up["host"]))
+    h_new = rng.integers(0, 5, n_new)
+    s_new = rng.integers(0, 5, n_new)
+    p_new = np.abs(rng.normal(60, 20, n_new)).astype(np.int64)
+    t0 = time.perf_counter()
+    ctab.ingest_columns(
+        ints={"ping": p_new,
+              "weight": rng.choice([1, 10, 100], n_new).astype(np.int64),
+              "time": BENCH_NOW + rng.integers(-2419200, 2419200, n_new),
+              "index_int": np.arange(n_new, dtype=np.int64)
+              + len(up["host"])},
+        strs={"host": [HOSTS[i] for i in h_new],
+              "status": [STATII[i] for i in s_new]})
+    infos2 = ctab.block_infos()
+    groups2, rest2 = qcache.stable_groups(list(infos2), infos2)
+    say(f"cache phase: appended {n_new} rows ({len(infos2) - len(infos)} "
+        f"blocks, {len(groups2)} cache groups now) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if len(groups2) != ng + 1 or len(rest2) != len(rest):
+        fail(f"cache phase: {len(groups2)} groups and {len(rest2)} other "
+             f"blocks after the append")
+    h0, m0 = qcache.HITS, qcache.MISSES
+    kernels.reset_launches()
+    qr = run_query(Table("uptime", flags), p_ga, cflags)
+    ll = dict(kernels.LAUNCHES)
+    hits, misses = qcache.HITS - h0, qcache.MISSES - m0
+    want2 = numpy_groupby(np.concatenate([up["host"], h_new]),
+                          np.concatenate([up["ping"], p_new]))
+    for h, (cnt, s) in want2.items():
+        r = qr.results[h + "\t"]
+        if r.count != cnt or r.hists["ping"].avg != s / cnt:
+            fail(f"cache group_avg after the append: group {h} differs "
+                 f"from numpy")
+    if (hits, misses) != (ng, 1):
+        fail(f"cache group_avg after the append: {hits} hits and {misses} "
+             f"misses, not {ng} and 1")
+    for k in COUNTED:
+        launches[k] += ll[k]
+    say(f"cache group_avg after the append: {hits} hits, {misses} miss(es) "
+        f"== numpy over {len(up['host']) + n_new} rows; launches "
+        f"{nonzero(ll)}")
+    rows = cache_kernel_rows(card, captured, device)
+    del captured
+    shutil.rmtree(croot, ignore_errors=True)
+    return rows
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """cuda_ms behind a sleep kernel long enough that the host has queued
+    every launch before the first starts: the kernels' own time, without
+    the wrappers' host time (as sybil_tpu_torch/k2_ab.py times them)."""
+    import torch
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cache_kernel_rows(card, captured, device) -> list:
+    """Each kernel with the cache-group key at the sweep's vgroup shapes:
+    K2 at group_avg's (beside the same launch without the key, back to
+    back and queued), K7 and K8 at group_tdigest's, K5 at group_loghist's
+    -> the kernel table's rows (name, shape, replaces, ms, plain ms,
+    bytes, operations, library ms)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    rows = []
+
+    def referenced(cfg):
+        return {*scan.key_columns(cfg), *(a.col for a in cfg.aggs),
+                *(f.col for f in cfg.filters),
+                *([cfg.time_col] if cfg.time_col else []),
+                *([cfg.weight_col] if cfg.weight_col else [])}
+
+    cfg, cols, nrec, fv, bits, tb, _ = captured["group_avg"]
+    B, C = next(iter(cols.values()))[0].shape
+    R = B * C
+    ngp = cfg.key_bounds[0][1]
+    ms = cuda_ms(lambda: scan.dense_scan(cfg, cols, nrec, fv, bits, tb))
+    pms = cuda_ms(lambda: scan.dense_scan_plain(cfg, cols, nrec, fv, bits,
+                                                tb), iters=5)
+    Sc = scan.reduce_space(cfg)[1]
+    L = 2 + 3 * len(cfg.aggs)
+    # each referenced column read once (9 B a row; the cache-group key
+    # reads none), nrec, the tables written.  Per row: the range test,
+    # the cache group (a shift and a 32-bit division, about 20), each
+    # key's digit, each aggregation's lanes
+    nbytes = len(referenced(cfg)) * R * 9 + B * 4 + Sc * L * 8 + 8
+    ops = R * (6 + 20 + 8 * len(scan.key_columns(cfg))
+               + 12 * len(cfg.aggs) + 2)
+    rows.append(("dense_scan", f"cache group_avg: the cg digit, ngp {ngp}, "
+                 f"{B} blocks", "sybil_tpu/ops/scan.py:405", ms, pms, nbytes,
+                 ops, None))
+    # the A/B: the same launch without the cache-group key (config 1's
+    # shape over the same batch)
+    base = dataclasses.replace(cfg, group_cols=cfg.group_cols[1:],
+                               key_bounds=cfg.key_bounds[1:], vg_span=0)
+    ab = []
+    for label, c in (("with the cg key", cfg), ("without it", base),
+                     ("with the cg key", cfg), ("without it", base)):
+        ab.append(f"{label} {cuda_ms(lambda: scan.dense_scan(c, cols, nrec, fv, bits, tb)):.4f}"
+                  f" ms wall, {queued_ms(lambda: scan.dense_scan(c, cols, nrec, fv, bits, tb)):.4f}"
+                  f" ms device")
+    say(f"[{card}] K2 A/B at group_avg's batch ({R} rows, ngp {ngp}): "
+        + "; ".join(ab))
+
+    cfg, cols, nrec, fv, bits, tb, _ = captured["group_tdigest"]
+    B, C = next(iter(cols.values()))[0].shape
+    R = B * C
+    K = cfg.n_key_cols
+    F = len(cfg.filters)
+    front = scan.sorted_front(cfg, cols, nrec, fv, bits, tb)
+    ms = cuda_ms(lambda: scan.sorted_front(cfg, cols, nrec, fv, bits, tb))
+    pms = cuda_ms(lambda: scan.sorted_front_plain(cfg, cols, nrec, fv, bits,
+                                                  tb), iters=5)
+    k7_cols = {*scan.key_columns(cfg), *(f.col for f in cfg.filters),
+               *([cfg.time_col] if cfg.time_col else [])}
+    # the key columns read once (9 B a row), nrec; idxm and the K key
+    # lanes written (the cg lane among them).  Per row: the range test,
+    # each filter, each lane, the cg division
+    rows.append(("sorted_front", f"cache group_tdigest: the cg lane, K {K}",
+                 "sybil_tpu/ops/scan.py:405", ms, pms,
+                 len(k7_cols) * R * 9 + B * 4 + F * 8 + R * (4 + 8 * K) + 8,
+                 R * (6 + 3 * F + 6 * K + 20), None))
+    for k in range(K - 1, -1, -1):
+        lane = front["keys"][k]
+        say(f"[{card}] sorts, cache group_tdigest: lane {k} stable "
+            f"torch.sort of int64 [{R}] "
+            f"{cuda_ms(lambda: torch.sort(lane, stable=True)):.4f} ms (bound "
+            f"{sort_bound_ms(R, 8):.4f} ms)")
+    order = scan.sort_rows(cfg, front)
+    ms = cuda_ms(lambda: scan.segment_reduce(cfg, cols, front, order, tb))
+    pms = cuda_ms(lambda: scan.segment_reduce_plain(cfg, cols, front, order,
+                                                    tb), iters=5)
+    S = cfg.max_groups
+    L = 2 + 3 * len(cfg.aggs)
+    ncol = len(cfg.aggs) + (1 if cfg.weight_col else 0)
+    # p and base read, idxm and the K lanes gathered, the aggregation
+    # columns read once; kmat, sidxm, gid and the tables written.  Per
+    # row: the boundary test over K lanes, a block scan, the warp-run
+    # sums of each lane
+    nbytes = (R * 16 + R * 4 + R * 8 * K + ncol * R * 9 + R * (8 * K + 8)
+              + (S + 1) * L * 8 + S * K * 8)
+    rows.append(("segment_reduce", f"cache group_tdigest: the cg lane in "
+                 f"kmat and the key table, K {K}",
+                 "sybil_tpu/ops/scan.py:405", ms, pms, nbytes,
+                 R * (12 + 4 * K + 12 * L), None))
+    del front, order
+
+    cfg, cols, nrec, fv, bits, tb, _ = captured["group_loghist"]
+    B, C = next(iter(cols.values()))[0].shape
+    R = B * C
+    k2 = scan.dense_scan(cfg, cols, nrec, fv, bits, tb)
+    h = scan.dense_hist(cfg, 0, cols, k2["gid"])
+    lay = scan.packed_layout(cfg, R)
+    main = torch.zeros((lay["rows"], lay["W"]), dtype=torch.int64,
+                       device=device)
+    off, kmax = lay["out0"]
+    mk, vk = h["out_mask"], h["out_val"]
+    ms = cuda_ms(lambda: scan.outlier_compact(cfg, cols, mk, vk, main, off,
+                                              tb), iters=50)
+    pms = cuda_ms(lambda: scan.outlier_compact_plain(cfg, cols, mk, vk, main,
+                                                     off, tb), iters=5)
+    n5 = int(h["nout"].item())
+    K = cfg.n_key_cols
+    # the mask read, the live rows' key columns and values gathered, the
+    # section written
+    rows.append(("outlier_compact", f"cache group_loghist: cg key rows "
+                 f"({n5} outliers)", "sybil_tpu/ops/scan.py:424", ms, pms,
+                 R + min(n5, kmax) * (9 * K + 8) + kmax * lay["W"] * 8,
+                 R * 2 + kmax * lay["W"], None))
+    for name, what, _, ms, pms, *_ in rows:
+        say(f"[{card}] {name} ({what}): {ms:.4f} ms (plain {pms:.4f} ms)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -3702,10 +4291,11 @@ def main(argv=None) -> int:
                 launches[k] += ll[k]
 
         sets_main_path(card, stbl, sarr, launches)
+        cache_rows = cache_phase(card, root, table, up, errs, launches, dev)
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
-        say(f"main path launches over the twenty-six queries: {launches}")
+        say(f"main path launches over every query of phase 5: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -4614,7 +5204,8 @@ def main(argv=None) -> int:
                  k5_ops, k5_lib_ms),
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
-                *sorted_rows, *c5_rows, *distinct_rows, *sets_rows):
+                *sorted_rows, *c5_rows, *distinct_rows, *sets_rows,
+                *cache_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)

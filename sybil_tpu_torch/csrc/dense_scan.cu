@@ -27,6 +27,18 @@
 // before a row is dropped, so a matched row whose key spilled into the
 // dead slot is still 1.  MASK is a template parameter, like TIME.
 //
+// Cache-group key (a query-cache group scan, vg_span > 0; _front_end's
+// cg_key, 405-411, 424-428): key 0 is each row's block position over the
+// group span, (r >> log2C) / vg_span, made here from the row index with
+// no column read (the reference's iota: no key column is uploaded).  The
+// span is a power of two (the cache's 16 blocks), so the division is one
+// shift by a loop-invariant count.  Its
+// digit is cg - min + 1 like any key's, never MISSING.  Under a time
+// rollup it leads the time key (vg_first), so a chunk of rows, which
+// lies in one block, still spans one narrow band of gids and the
+// windowed form applies unchanged.  CG is a template parameter, like
+// TIME: the scans without it run the code they ran before.
+//
 // Time key (a rollup): a row without the time column is unmatched.  The
 // key's digit is q - min + 1 with q = trunc_div(t, tb), Go's division
 // (the reference's _trunc_div: floor of |t| / tb, negated for t < 0);
@@ -89,7 +101,8 @@ constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
 // filters have no fixed cap.
 struct DenseScanArgs {
   Desc desc;
-  const long long* const* key_vals;   // [nkeys] [time?, *groups]; time's unused
+  const long long* const* key_vals;   // [nkeys] [cg?, time?, *groups];
+                                      // cg's and time's unused
   const unsigned char* const* key_valid;
   const long long* key_min;           // [nkeys]
   const long long* key_card;
@@ -128,11 +141,11 @@ struct DenseScanArgs {
   int L;
   int H;
   int has_weight;
-  int has_time;               // key 0 is the time key
+  int has_time;               // the time key follows the cg key, if any
   int time_i32;
   int band;                   // windowed form: band width in slots
   int chunk;                  // windowed form: rows per chunk
-  int pad_;
+  int vg_span;                // > 0: key 0 is the cache-group key
 };
 
 namespace {
@@ -150,12 +163,12 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
 
 // Row r's match and reduce-space gid (s_fv: the first FV_SMEM filter
 // constants).  Returns false for an unmatched row (gid and spill
-// untouched).  TIME (the time key is key 0) is a template parameter and
-// the time digit is peeled off the key loop: a branch on it inside the
-// loop made K2 a third slower or more on scans without a time key
-// (sybil_tpu_torch/k2_ab.py on the H100).  So is HEAD, where the
-// descriptor block lies (desc.cuh).
-template <bool TIME, bool HEAD>
+// untouched).  CG (key 0 is the cache-group key) and TIME (the time key
+// comes next) are template parameters and their digits are peeled off
+// the key loop: a branch on the time key inside the loop made K2 a third
+// slower or more on scans without one (sybil_tpu_torch/k2_ab.py on the
+// H100).  So is HEAD, where the descriptor block lies (desc.cuh).
+template <bool CG, bool TIME, bool HEAD>
 __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
                                         const long long* s_fv, int* gid_out,
                                         bool* spill_out) {
@@ -172,9 +185,21 @@ __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
   int gid = 0;
   bool spilled = false;
   int first = 0;
-  if (TIME) {
+  if (CG) {
+    const long long k = r >> (a.log2C + __ffs(a.vg_span) - 1);
     const long long mn = desc_at<HEAD>(a.desc, a.key_min, 0);
     const long long card = desc_at<HEAD>(a.desc, a.key_card, 0);
+    const long long digit =
+        (long long)((unsigned long long)k - (unsigned long long)mn + 1ull);
+    spilled = (k < mn) |
+              (k >= (long long)((unsigned long long)mn +
+                                (unsigned long long)card));
+    gid = (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    first = 1;
+  }
+  if (TIME) {
+    const long long mn = desc_at<HEAD>(a.desc, a.key_min, first);
+    const long long card = desc_at<HEAD>(a.desc, a.key_card, first);
     const long long t = a.t_vals[r];
     long long q, digit;
     if (a.time_i32) {
@@ -189,9 +214,10 @@ __device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
       digit = (long long)((unsigned long long)q - (unsigned long long)mn +
                           1ull);
     }
-    spilled = (q < mn) | (q >= mn + card);
-    gid = (int)(digit < 0 ? 0 : (digit > card ? card : digit));
-    first = 1;
+    spilled |= (q < mn) | (q >= mn + card);
+    gid = gid * (int)(card + 1) +
+          (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    ++first;
   }
   for (int i = first; i < a.nkeys; ++i) {
     const long long k = desc_at<HEAD>(a.desc, a.key_valid, i)[r]
@@ -251,7 +277,7 @@ __device__ __forceinline__ void accumulate(const DenseScanArgs& a,
 // grid assumes fit: left free, the descriptor offsets hoisted out of the
 // row loop took 48, 5 CTAs fit, and K2 ran 19% (config 1's shape) and
 // 63% (config 3's) slower, a second wave included (k2_ab.py on the H100).
-template <bool SHARED, bool TIME, bool HEAD, bool MASK>
+template <bool SHARED, bool CG, bool TIME, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_tab[];
@@ -281,7 +307,8 @@ __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
        r < a.R; r += (long long)gridDim.x * THREADS) {
     int gid;
     bool spilled;
-    const bool matched = row_gid<TIME, HEAD>(a, r, s_fv, &gid, &spilled);
+    const bool matched =
+        row_gid<CG, TIME, HEAD>(a, r, s_fv, &gid, &spilled);
     if (MASK) a.mask[r] = matched;
     if (!matched) {
       if (a.gid_out) a.gid_out[r] = a.Sc - 1;
@@ -305,7 +332,7 @@ __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
   if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
 }
 
-template <bool TIME, bool HEAD, bool MASK>
+template <bool CG, bool TIME, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
     const DenseScanArgs a) {
   extern __shared__ __align__(16) unsigned long long s_band[];
@@ -335,7 +362,7 @@ __global__ void __launch_bounds__(THREADS) dense_scan_windowed(
       int gid;
       bool spilled;
       const bool matched =
-          row_gid<TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled);
+          row_gid<CG, TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled);
       if (MASK) a.mask[r0 + i] = matched;
       if (matched) {
         my_spill += spilled;
@@ -395,7 +422,7 @@ __global__ void fill_bounds(long long* mins, long long* maxs, int n) {
   }
 }
 
-template <bool TIME, bool HEAD, bool MASK>
+template <bool CG, bool TIME, bool HEAD, bool MASK>
 cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
                         size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
   cudaError_t err;
@@ -404,21 +431,22 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
       return cudaErrorInvalidValue;
     const size_t shm = (size_t)args->band * (args->L + 2 * args->H) * 8 +
                        (size_t)args->chunk * sizeof(int);
-    err = cudaFuncSetAttribute(dense_scan_windowed<TIME, HEAD, MASK>,
+    err = cudaFuncSetAttribute(dense_scan_windowed<CG, TIME, HEAD, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_windowed<TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(*args);
+    dense_scan_windowed<CG, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
+        *args);
   } else if (form == 1) {
     const size_t shm = tab_bytes + mm_bytes;
-    err = cudaFuncSetAttribute(dense_scan_kernel<true, TIME, HEAD, MASK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shm);
+    err = cudaFuncSetAttribute(
+        dense_scan_kernel<true, CG, TIME, HEAD, MASK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_kernel<true, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
+    dense_scan_kernel<true, CG, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
         *args);
   } else if (form == 0) {
-    dense_scan_kernel<false, TIME, HEAD, MASK><<<grid, THREADS, 0, s>>>(
+    dense_scan_kernel<false, CG, TIME, HEAD, MASK><<<grid, THREADS, 0, s>>>(
         *args);
   } else {
     return cudaErrorInvalidValue;
@@ -426,13 +454,29 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
   return cudaGetLastError();
 }
 
-template <bool TIME, bool HEAD>
+template <bool CG, bool TIME, bool HEAD>
 cudaError_t launch_mask(const DenseScanArgs* args, int form, int grid,
                         size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
-  return args->mask ? launch_form<TIME, HEAD, true>(args, form, grid,
-                                                    tab_bytes, mm_bytes, s)
-                    : launch_form<TIME, HEAD, false>(args, form, grid,
-                                                     tab_bytes, mm_bytes, s);
+  return args->mask
+             ? launch_form<CG, TIME, HEAD, true>(args, form, grid, tab_bytes,
+                                                 mm_bytes, s)
+             : launch_form<CG, TIME, HEAD, false>(args, form, grid,
+                                                  tab_bytes, mm_bytes, s);
+}
+
+template <bool CG>
+cudaError_t launch_cg(const DenseScanArgs* args, int form, int grid,
+                      size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
+  const bool head = args->desc.n <= DESC_HEAD;
+  if (args->has_time)
+    return head ? launch_mask<CG, true, true>(args, form, grid, tab_bytes,
+                                              mm_bytes, s)
+                : launch_mask<CG, true, false>(args, form, grid, tab_bytes,
+                                               mm_bytes, s);
+  return head ? launch_mask<CG, false, true>(args, form, grid, tab_bytes,
+                                             mm_bytes, s)
+              : launch_mask<CG, false, false>(args, form, grid, tab_bytes,
+                                              mm_bytes, s);
 }
 
 }  // namespace
@@ -441,7 +485,8 @@ cudaError_t launch_mask(const DenseScanArgs* args, int form, int grid,
 // min/max tables to their sentinels on `stream`, then launches one form:
 // 0 global atomics, 1 per-CTA shared tables, 2 windowed bands (band,
 // chunk set; chunk divides R); each writes the matched mask when `mask`
-// is set.  Returns cudaError_t.
+// is set, and makes key 0 the cache-group key when vg_span > 0 (a power
+// of two; with at least one key).  Returns cudaError_t.
 extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -461,14 +506,10 @@ extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const bool head = args->desc.n <= DESC_HEAD;
-  if (args->has_time)
-    return head ? launch_mask<true, true>(args, form, grid, tab_bytes,
-                                          mm_bytes, s)
-                : launch_mask<true, false>(args, form, grid, tab_bytes,
-                                           mm_bytes, s);
-  return head ? launch_mask<false, true>(args, form, grid, tab_bytes,
-                                         mm_bytes, s)
-              : launch_mask<false, false>(args, form, grid, tab_bytes,
-                                          mm_bytes, s);
+  if (args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)) ||
+      (args->vg_span > 0 && args->nkeys < 1))
+    return cudaErrorInvalidValue;
+  return args->vg_span > 0
+             ? launch_cg<true>(args, form, grid, tab_bytes, mm_bytes, s)
+             : launch_cg<false>(args, form, grid, tab_bytes, mm_bytes, s);
 }

@@ -6,10 +6,13 @@
 // outlier section of pack_outputs: row j of the section is
 // [key_0 .. key_{K-1}, value, live] padded with zeros to W words, for
 // the j-th set row of the mask.  The keys are the reference's
-// sorted_gkeys row: in a rollup the time key trunc_div(t, tb) * tb first
-// (Go's division, int32 arithmetic under time_i32, from the time lane
-// as it lies), then each group key (MISSING = -1 where the key column is
-// missing); a scan with neither has one zero key.  Under the sorted
+// sorted_gkeys row: in a query-cache group scan (vg_span > 0) the
+// cache-group key (r >> log2C) / vg_span first (cg_key, 405-411: the
+// row's block position over the group span, no column read), then in a
+// rollup the time key trunc_div(t, tb) * tb (Go's division, int32
+// arithmetic under time_i32, from the time lane as it lies), then each
+// group key (MISSING = -1 where the key column is missing); a scan with
+// none has one zero key.  Under the sorted
 // strategy the mask and values are in sorted order and a row's keys are
 // its row of K8's kmat [R, K] (the reference's sorted_gkeys there).  When
 // fewer than kmax rows are set, the reference
@@ -61,10 +64,11 @@ struct OutlierCompactArgs {
   int W;
   int nkeys;                   // group columns; none and no time = one zero key
   int ntiles;
-  int has_time;                // key 0 is the time key
+  int has_time;                // the time key follows the cg key, if any
   int time_i32;
   int kmat_K;
-  int pad_;
+  int log2C;                   // rows per block, log2
+  int vg_span;                 // > 0: key 0 is the cache-group key
 };
 
 namespace {
@@ -94,16 +98,20 @@ __device__ __forceinline__ void write_row(const OutlierCompactArgs& a,
                                           long long j, long long r,
                                           long long live) {
   long long* o = a.out + j * a.W;
-  const int nk = a.nkeys + a.has_time;
+  const int cg = a.vg_span > 0;
+  const int lead = cg + a.has_time;
+  const int nk = a.nkeys + lead;
   int K = nk > 0 ? nk : 1;
   if (a.kmat) {
     K = a.kmat_K;
     for (int k = 0; k < K; ++k) o[k] = a.kmat[r * K + k];
   } else {
-    if (a.has_time) o[0] = time_key(a, a.t_vals[r]);
+    // vg_span is a power of two
+    if (cg) o[0] = r >> (a.log2C + __ffs(a.vg_span) - 1);
+    if (a.has_time) o[cg] = time_key(a, a.t_vals[r]);
     for (int k = 0; k < a.nkeys; ++k)
-      o[a.has_time + k] = desc_at(a.desc, a.key_valid, k)[r]
-                              ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;
+      o[lead + k] = desc_at(a.desc, a.key_valid, k)[r]
+                        ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;
     if (nk == 0) o[0] = 0;
   }
   o[K] = a.vals[r];
@@ -169,6 +177,8 @@ __global__ void __launch_bounds__(THREADS) write_rows(
 // Returns cudaError_t.
 extern "C" int outlier_compact(const OutlierCompactArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)))
+    return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(args->desc, s);
   if (err != cudaSuccess) return err;
   count_tiles<<<args->ntiles, THREADS, 0, s>>>(*args);

@@ -28,7 +28,10 @@
 // (MISSING, or a value of min - 1 that the bound does not flag), and the
 // spilled rows, which sort under the sentinel with the unmatched ones,
 // gather their keys from the columns, as the reference's `k[sidx]` does
-// for every row.
+// for every row.  A query-cache group scan's cache-group key (vg_span >
+// 0, lane 0; cg_key, 405-411) is made from the row's block position,
+// (r >> log2C) / vg_span, as K7 makes it; unpacked, K7's lanes carry it
+// into kmat and the key table like any key.
 //
 // Bound: memory.  Per row: p and base, the random gathers of idxm, the
 // key lanes (unpacked) and the aggregation and weight columns at the
@@ -116,6 +119,8 @@ struct SegmentReduceArgs {
   int has_weight;
   int packed;                      // 0 unpacked, 1 int32, 2 int64 key
   int D;                           // distinct lanes (unpacked only)
+  int log2C;                       // rows per block, log2
+  int vg_span;                     // > 0: lane 0 is the cache-group key
 };
 
 namespace {
@@ -132,6 +137,11 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
 // Key lane k of original row r (as sorted_front.cu computes it).
 __device__ __forceinline__ long long key_lane(const SegmentReduceArgs& a,
                                               int k, long long r) {
+  if (a.vg_span) {
+    if (k == 0)  // vg_span is a power of two
+      return r >> (a.log2C + __ffs(a.vg_span) - 1);
+    --k;
+  }
   if (a.has_time && k == 0) {
     const long long t = a.t_vals[r];
     if (a.time_i32) {
@@ -366,7 +376,8 @@ extern "C" int segment_reduce(const SegmentReduceArgs* args, int grid,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SegmentReduceArgs& a = *args;
   if (a.R >= (1ll << 31) || a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
-      a.K < 1 || (a.D > 0 && (a.packed || !a.dmat || !a.pair_mask)))
+      a.K < 1 || (a.D > 0 && (a.packed || !a.dmat || !a.pair_mask)) ||
+      a.vg_span < 0 || (a.vg_span & (a.vg_span - 1)))
     return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(a.desc, s);
   if (err != cudaSuccess) return err;

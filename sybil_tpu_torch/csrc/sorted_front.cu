@@ -2,8 +2,8 @@
 // rows, and sort_permute, the step between its stable sorts.
 //
 // sorted_front replaces sybil_tpu/ops/scan.py: _front_end (row-in-range,
-// the int/str/regex filters, the time key, the key lanes [time?, *groups]
-// with MISSING = -1, one zero lane without either) and the sort operands
+// the int/str/regex filters, the time key, the key lanes [cg?, time?,
+// *groups] with MISSING = -1, one zero lane without any) and the sort operands
 // of _scan_sorted (1076-1104, 1117-1118):
 //   idxm[r]   r with the matched flag in its sign bit (the reference's
 //             sort payload);
@@ -16,6 +16,12 @@
 //             (dkeys 435-438: the value, MISSING = -1 where it is
 //             missing), SENTINEL (int64 max) in every lane of an
 //             unmatched row.
+// The cache-group key of a query-cache group scan (vg_span > 0; cg_key,
+// 405-411, 424-428) is lane 0: the row's block position over the group
+// span, (r >> log2C) / vg_span (a power of two: one shift), made from
+// the row index with no column read, never MISSING; a group scan's config has no sort_pack, so it is
+// an unpacked int64 lane sorted like any other.  CG is a template
+// parameter, as in K2.
 // Filters and the time key are K2's (dense_scan.cu), copied: a filter
 // never passes on a missing value; re/nre read the regex bitset at
 // clamp(v, 0, len-1); a set filter reads K14's bitmasks (in: has & hit,
@@ -96,12 +102,12 @@ struct SortedFrontArgs {
   int nkeys;                          // key lanes, >= 1
   int ngroups;                        // group columns
   int nfilters;
-  int has_time;                       // lane 0 is the time key
+  int has_time;                       // the time key follows the cg lane
   int time_i32;
   int packed;                         // 0 unpacked, 1 int32, 2 int64 key
   int has_weight;
   int ndist;                          // distinct lanes (unpacked only)
-  int pad_;
+  int vg_span;                        // > 0: lane 0 is the cache-group key
 };
 
 namespace {
@@ -127,11 +133,16 @@ __device__ __forceinline__ long long time_lane(const SortedFrontArgs& a,
   return (long long)((unsigned long long)q * (unsigned long long)a.tb);
 }
 
-// Key lane k of row r: the time key, a group column (MISSING = -1), or
-// the single zero lane of a scan without either.
-template <bool HEAD>
+// Key lane k of row r: the cache-group key (CG, lane 0), the time key, a
+// group column (MISSING = -1), or the single zero lane of a scan without
+// any.
+template <bool HEAD, bool CG>
 __device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
                                               int k, long long r) {
+  if (CG) {
+    if (k == 0) return r >> (a.log2C + __ffs(a.vg_span) - 1);
+    --k;
+  }
   if (a.has_time && k == 0) return time_lane(a, a.t_vals[r]);
   const int g = k - a.has_time;
   if (g >= a.ngroups) return 0ll;
@@ -140,8 +151,9 @@ __device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
 }
 
 // HEAD: where the descriptor block lies (desc.cuh), a template
-// parameter as in K2; MASK: write the matched mask (not with ENUM).
-template <bool ENUM, bool HEAD, bool MASK>
+// parameter as in K2; MASK: write the matched mask (not with ENUM); CG:
+// lane 0 is the cache-group key (not with ENUM).
+template <bool ENUM, bool HEAD, bool MASK, bool CG>
 __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
     const SortedFrontArgs a) {
   __shared__ unsigned long long s_spill, s_count, s_samples;
@@ -176,7 +188,7 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
       unsigned long long acc = 0ull;
       bool bad = false;
       for (int k = 0; k < a.nkeys; ++k) {
-        const long long key = key_lane<HEAD>(a, k, r);
+        const long long key = key_lane<HEAD, CG>(a, k, r);
         const long long card = desc_at<HEAD>(a.desc, a.pack_card, k);
         const unsigned long long mn =
             (unsigned long long)desc_at<HEAD>(a.desc, a.pack_min, k);
@@ -196,7 +208,7 @@ __global__ void __launch_bounds__(THREADS) sorted_front_kernel(
       long long* keys = static_cast<long long*>(a.key_out);
       for (int k = 0; k < a.nkeys; ++k)
         keys[(size_t)k * a.R + r] =
-            matched ? key_lane<HEAD>(a, k, r) : SENTINEL;
+            matched ? key_lane<HEAD, CG>(a, k, r) : SENTINEL;
       for (int j = 0; j < a.ndist; ++j) {
         long long v = SENTINEL;
         if (matched)
@@ -231,17 +243,41 @@ __global__ void __launch_bounds__(THREADS) sort_permute_kernel(
   }
 }
 
+template <bool CG>
+void launch_sorted(const SortedFrontArgs* args, bool head, int grid,
+                   cudaStream_t s) {
+  if (args->mask) {
+    if (head)
+      sorted_front_kernel<false, true, true, CG><<<grid, THREADS, 0, s>>>(
+          *args);
+    else
+      sorted_front_kernel<false, false, true, CG><<<grid, THREADS, 0, s>>>(
+          *args);
+  } else {
+    if (head)
+      sorted_front_kernel<false, true, false, CG><<<grid, THREADS, 0, s>>>(
+          *args);
+    else
+      sorted_front_kernel<false, false, false, CG><<<grid, THREADS, 0, s>>>(
+          *args);
+  }
+}
+
 }  // namespace
 
 // Copies the descriptor block, zeroes the spill count (and the enum
 // form's totals), then one grid-stride pass on `stream`, the enum form
 // when `enum_form` is set, writing the matched mask when `mask` is set
-// (the sorted form only).  Returns cudaError_t.
+// and making lane 0 the cache-group key when vg_span > 0 (the sorted
+// form only).  Returns cudaError_t.
 extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
                             int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (args->R >= (1ll << 31) || (enum_form && args->packed != 1) ||
-      (args->ndist > 0 && args->packed) || (enum_form && args->mask))
+      (args->ndist > 0 && args->packed) || (enum_form && args->mask) ||
+      args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)) ||
+      (enum_form && args->vg_span) ||
+      (args->vg_span && args->nkeys < 1 + args->has_time))
     return cudaErrorInvalidValue;
   const bool head = args->desc.n <= DESC_HEAD;
   cudaError_t err = desc_upload(args->desc, s);
@@ -252,20 +288,15 @@ extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
     err = cudaMemsetAsync(args->totals, 0, 2 * sizeof(unsigned long long), s);
     if (err != cudaSuccess) return err;
     if (head)
-      sorted_front_kernel<true, true, false><<<grid, THREADS, 0, s>>>(*args);
-    else
-      sorted_front_kernel<true, false, false><<<grid, THREADS, 0, s>>>(*args);
-  } else if (args->mask) {
-    if (head)
-      sorted_front_kernel<false, true, true><<<grid, THREADS, 0, s>>>(*args);
-    else
-      sorted_front_kernel<false, false, true><<<grid, THREADS, 0, s>>>(*args);
-  } else {
-    if (head)
-      sorted_front_kernel<false, true, false><<<grid, THREADS, 0, s>>>(*args);
-    else
-      sorted_front_kernel<false, false, false><<<grid, THREADS, 0, s>>>(
+      sorted_front_kernel<true, true, false, false><<<grid, THREADS, 0, s>>>(
           *args);
+    else
+      sorted_front_kernel<true, false, false, false><<<grid, THREADS, 0, s>>>(
+          *args);
+  } else if (args->vg_span) {
+    launch_sorted<true>(args, head, grid, s);
+  } else {
+    launch_sorted<false>(args, head, grid, s);
   }
   return cudaGetLastError();
 }

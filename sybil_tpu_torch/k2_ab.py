@@ -14,9 +14,12 @@ like config 1 (`group by host, avg ping`) and config 3 (`status eq 200,
 group by host, hist ping`): K2 on both shapes, K3 after each, K5 on
 config 3's shape with outliers tracked (no live outlier row, as on the
 bench table), and the sorted strategy on config 3's filter with a
-packed key: K7, K8 and K10 (`avg ping`); and, for a root that has K14,
+packed key: K7, K8 and K10 (`avg ping`); for a root that has K14,
 K14 and K2 at config 1's shape with one set filter (1 or 2 entries a
-row) and the matched mask, timed beside the same launch without them.
+row) and the matched mask, timed beside the same launch without them;
+and for a root with the query cache's cache-group key, K2 at config 1's
+shape with that key (8 groups of 16 blocks) and K7 unpacked at config
+3's filter with and without it.
 CUDA events over 20 launches
 (K3, K5 and K10 200), twice: back to back as a caller issues them
 ("wall", which includes the wrapper's host time whenever that exceeds
@@ -167,6 +170,24 @@ def time_kernels(root: str) -> str:
              lambda: scan.dense_scan(cs, cols1, nrec, fvs, set_masks=sm)),
             ("K2 config-1 shape without them (the same launch)", 20,
              lambda: scan.dense_scan(c1, cols1, nrec)))
+    if hasattr(scan, "has_cg"):
+        import dataclasses
+
+        # a query-cache group scan at config 1's and path 1's shapes: the
+        # cache-group key (block // 16: 8 groups) ahead of host
+        cg1 = dataclasses.replace(c1, group_cols=("__cg__", "host"),
+                                  key_bounds=((0, B // 16), (0, 5)),
+                                  vg_span=16)
+        cg7 = dataclasses.replace(c7, group_cols=("__cg__", "host"),
+                                  sort_pack=(), vg_span=16)
+        c7u = dataclasses.replace(c7, sort_pack=())
+        runs += (
+            ("K2 config-1 shape with the cache-group key", 20,
+             lambda: scan.dense_scan(cg1, cols1, nrec)),
+            ("K7 config-3 filter, unpacked, with the cache-group key", 20,
+             lambda: scan.sorted_front(cg7, cols, nrec, fv)),
+            ("K7 the same without it", 20,
+             lambda: scan.sorted_front(c7u, cols, nrec, fv)))
     return "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"

@@ -98,9 +98,12 @@ Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.  The per-key,
 per-aggregation and per-filter arguments reach a kernel in one
 descriptor block per launch (_set_desc, csrc/desc.cuh), so no kernel
-caps their counts.  scan_packed raises NotImplementedError, naming the ROADMAP
-item, for every scan shape the port does not carry yet (cache-group
-scans, mesh scans).
+caps their counts.  A query-cache group scan (vg_span > 0, "__cg__" in
+group_cols) asks for the cache-group key, block position // vg_span, as
+its most significant key: K2, K7, K8 and K5 make it from the row index,
+reading no column.  scan_packed raises NotImplementedError, naming the
+ROADMAP item, for the scan shape the port does not carry yet (mesh
+scans).
 """
 
 from __future__ import annotations
@@ -521,15 +524,77 @@ def check_supported(config: ScanConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scan
     shape the port does not carry yet.  All three strategies are ported,
     the enumerated one, the sorted strategy's device prune (prune_topk),
-    count distinct (the device HLL and the distinct pairs), set filters
-    and the samples mask included, for any number of keys, filters and
-    aggregations."""
-    def no(what: str, item: str):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    count distinct (the device HLL and the distinct pairs), set filters,
+    the samples mask and the query cache's group scans (the cache-group
+    key) included, for any number of keys, filters and aggregations."""
     if config.no_compact_table:
-        no("the keyed dense table of mesh scans", "B11")
-    if config.vg_span > 0 or "__cg__" in config.group_cols:
-        no("query-cache group scans", "A13")
+        raise NotImplementedError("the keyed dense table of mesh scans is "
+                                  "not ported yet (ROADMAP B11)")
+
+
+# the query cache's synthesized key: the group column name under which a
+# group scan asks for each row's cache group, block position // vg_span
+CG_COL = "__cg__"
+
+
+def has_cg(config: ScanConfig) -> bool:
+    """The scan synthesizes the cache-group key (reference _front_end
+    405-411, 424-428): no column is read for it."""
+    return config.vg_span > 0 and CG_COL in config.group_cols
+
+
+def key_layout(config: ScanConfig) -> list:
+    """The key lanes in the reference's _front_end order (403-433):
+    CG_COL for the cache-group key, None for the time key, else a group
+    column's name.  Under vg_first the cache-group key leads and the
+    time key follows it; without a time key it stands where CG_COL stands
+    in group_cols."""
+    cg = has_cg(config)
+    out = [CG_COL] if config.vg_first else []
+    if config.time_col:
+        out.append(None)
+    for g in config.group_cols:
+        if g == CG_COL and cg:
+            if not config.vg_first:
+                out.append(CG_COL)
+            continue
+        out.append(g)
+    return out
+
+
+def key_columns(config: ScanConfig) -> list[str]:
+    """The group columns the kernels read: group_cols without the
+    synthesized cache-group key."""
+    return [k for k in key_layout(config) if k is not None and k != CG_COL]
+
+
+def kernel_lead(config: ScanConfig, kernel: str) -> int:
+    """-> the number of synthesized key lanes ahead of the group columns
+    (the cache-group key, then the time key), checking that the key
+    layout is the kernels' [cg?, time?, *groups]."""
+    cg = has_cg(config)
+    lead = ([CG_COL] if cg else []) + ([None] if config.time_col else [])
+    if key_layout(config)[:len(lead)] != lead:
+        raise ValueError(f"{kernel}: the cache-group key must be the first "
+                         f"group column, got {config.group_cols}")
+    return len(lead)
+
+
+def _cg_span(config: ScanConfig, kernel: str) -> int:
+    """The group span a kernel takes: a power of two (one shift; the
+    query cache's is 16 blocks)."""
+    span = config.vg_span
+    if span & (span - 1):
+        raise ValueError(f"{kernel}: the cache-group span must be a power "
+                         f"of two, got {span}")
+    return span
+
+
+def cg_lane(config: ScanConfig, idx, C: int):
+    """The cache-group key of rows idx (int64): (row // C) // vg_span,
+    the block position within the batch over the group span."""
+    return torch.div(torch.div(idx, C, rounding_mode="floor"),
+                     config.vg_span, rounding_mode="floor")
 
 
 def windowed(config: ScanConfig) -> bool:
@@ -876,7 +941,7 @@ class DenseScanArgs(ctypes.Structure):
         ("time_i32", ctypes.c_int),
         ("band", ctypes.c_int),
         ("chunk", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("vg_span", ctypes.c_int),
     ]
 
 
@@ -955,18 +1020,21 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
                < nrec[:, None]).reshape(R)
     matched = _front_filters(config, flat, matched, filter_vals, bitsets,
                              set_masks, R)
-    digits = []                      # (digit, spilled) per key, in order
     if config.time_col:
         # rows without the time column are skipped entirely
-        tv, tm = flat[config.time_col]
-        matched = matched & tm
-        mn, card = config.key_bounds[0] if config.key_bounds else (0, 0)
-        q, _ = time_key(config, tv, time_bucket)
-        digits.append((q - mn + 1, (q < mn) | (q >= mn + card)))
-    for g, (mn, card) in zip(config.group_cols,
-                             config.key_bounds[len(digits):]):
-        v, m = flat[g]
-        k = torch.where(m, v, MISSING)
+        matched = matched & flat[config.time_col][1]
+    digits = []                      # (digit, spilled) per key, in order
+    for lane, (mn, card) in zip(key_layout(config), config.key_bounds):
+        if lane is None:
+            # the bound is on the time key's bucket quotient
+            q, _ = time_key(config, flat[config.time_col][0], time_bucket)
+            digits.append((q - mn + 1, (q < mn) | (q >= mn + card)))
+            continue
+        if lane == CG_COL:
+            k = cg_lane(config, torch.arange(R, device=dev), C)
+        else:
+            v, m = flat[lane]
+            k = torch.where(m, v, MISSING)
         digits.append((torch.where(k == MISSING, 0, k - mn + 1),
                        (k != MISSING) & ((k < mn) | (k >= mn + card))))
     if not config.key_bounds:
@@ -1025,7 +1093,9 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (filters, the set ops over
-    K14's bitmasks and the time key included), _dense_gid, _agg_row_data,
+    K14's bitmasks, the cache-group key and the time key included: the
+    former a template flag of the kernel, made from the row index with
+    no column read), _dense_gid, _agg_row_data,
     the _dense_reduce sums and min/max of _scan_dense, plain and
     windowed, and its matched mask (1062-1063, a template flag of the
     kernel, written for every row).  Bound by memory (9 B
@@ -1074,14 +1144,16 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
             if config.want_matched_mask else None)
 
     a = DenseScanArgs()
-    nt = 1 if config.time_col else 0
-    kv, km = _col_ptrs(cols, config.group_cols)
+    lead = kernel_lead(config, "dense_scan")
+    kv, km = _col_ptrs(cols, key_columns(config))
     if config.time_col:
         v, m = cols[config.time_col]
         a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
+    if has_cg(config):
+        a.vg_span = _cg_span(config, "dense_scan")
     _set_desc(a, dev, {
-        "key_vals": [0] * nt + kv, "key_valid": [0] * nt + km,
+        "key_vals": [0] * lead + kv, "key_valid": [0] * lead + km,
         "key_min": [mn for mn, _ in config.key_bounds],
         "key_card": [card for _, card in config.key_bounds],
         **_agg_desc(config, cols),
@@ -1346,28 +1418,34 @@ class OutlierCompactArgs(ctypes.Structure):
         ("has_time", ctypes.c_int),
         ("time_i32", ctypes.c_int),
         ("kmat_K", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("log2C", ctypes.c_int),
+        ("vg_span", ctypes.c_int),
     ]
 
 
 def key_rows(config: ScanConfig, cols, idx, time_bucket: int = 1):
-    """Keys of rows `idx` (int64 [n]) -> int64 [n, K]: the time key
-    trunc_div(t, tb) * tb first in a rollup (from the time lane as it
-    lies, valid or not), then each group key's value, or MISSING where
-    it is missing; one zero key without either (the reference's
-    sorted_gkeys rows, scan.py:403-433, 1032)."""
-    if not config.group_cols and not config.time_col:
+    """Keys of rows `idx` (int64 [n]) -> int64 [n, K] in key_layout's
+    order: the cache-group key (idx // C) // vg_span of a group scan, the
+    time key trunc_div(t, tb) * tb of a rollup (from the time lane as it
+    lies, valid or not), each group key's value, or MISSING where it is
+    missing; one zero key without any (the reference's sorted_gkeys
+    rows, scan.py:403-433, 1032)."""
+    lay = key_layout(config)
+    if not lay:
         return torch.zeros((idx.numel(), 1), dtype=torch.int64,
                            device=idx.device)
     B, C = _batch_shape(cols)
     out = []
-    if config.time_col:
-        tv = cols[config.time_col][0].reshape(B * C)[idx]
-        out.append(time_key(config, tv, time_bucket)[1])
-    for g in config.group_cols:
-        v, m = cols[g]
-        v, m = v.reshape(B * C)[idx], m.reshape(B * C)[idx]
-        out.append(torch.where(m, v, MISSING))
+    for lane in lay:
+        if lane is None:
+            tv = cols[config.time_col][0].reshape(B * C)[idx]
+            out.append(time_key(config, tv, time_bucket)[1])
+        elif lane == CG_COL:
+            out.append(cg_lane(config, idx, C))
+        else:
+            v, m = cols[lane]
+            v, m = v.reshape(B * C)[idx], m.reshape(B * C)[idx]
+            out.append(torch.where(m, v, MISSING))
     return torch.stack(out, dim=1)
 
 
@@ -1399,8 +1477,9 @@ def outlier_compact_plain(config: ScanConfig, cols, mask, vals, main,
 def outlier_compact(config: ScanConfig, cols, mask, vals, main,
                     row0: int, time_bucket: int = 1, kmat=None) -> None:
     """K5: writes the outlier section at rows [row0, row0 + kmax) of the
-    download buffer `main` in place, as outlier_compact_plain; a
-    rollup's rows start with their time key.  CUDA tensors launch the
+    download buffer `main` in place, as outlier_compact_plain; a group
+    scan's rows start with their cache-group key, then a rollup's with
+    their time key.  CUDA tensors launch the
     kernel (csrc/outlier_compact.cu); CPU tensors take the plain
     version.
 
@@ -1439,9 +1518,17 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
                       "outlier_compact")
         a.kmat, a.kmat_K = kmat.data_ptr(), K
     else:
-        for g in config.group_cols:
+        kernel_lead(config, "outlier_compact")
+        groups = key_columns(config)
+        for g in groups:
             _check_col(cols, g, B, C, dev, "outlier_compact")
-        kv, km = _col_ptrs(cols, config.group_cols)
+        kv, km = _col_ptrs(cols, groups)
+        if has_cg(config):
+            if C & (C - 1):
+                raise ValueError("outlier_compact: C must be a power of "
+                                 f"two, got {C}")
+            a.log2C = C.bit_length() - 1
+            a.vg_span = _cg_span(config, "outlier_compact")
         if config.time_col:
             tv, _ = _check_col(cols, config.time_col, B, C, dev,
                                "outlier_compact")
@@ -1450,7 +1537,7 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     a.out = main.data_ptr() + row0 * W * 8
     a.offsets = offsets.data_ptr()
     a.R, a.kmax, a.W = R, kmax, W
-    a.nkeys, a.ntiles = len(config.group_cols), ntiles
+    a.nkeys, a.ntiles = len(kv), ntiles
     _set_desc(a, dev, {"key_vals": kv, "key_valid": km})
     fn = kernels.lib("outlier_compact").outlier_compact
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -1835,17 +1922,21 @@ def pack_sentinel(config: ScanConfig) -> tuple[int, torch.dtype]:
     return sent, (torch.int32 if sent < 2 ** 31 - 1 else torch.int64)
 
 
-def _key_lanes(config: ScanConfig, flat, R: int, dev, time_bucket: int):
-    """-> (key lanes int64 [R] in key order [time?, *groups], one zero
-    lane without either; the time column's validity or None): the
-    reference's _front_end keys (403-433)."""
+def _key_lanes(config: ScanConfig, flat, R: int, C: int, dev,
+               time_bucket: int):
+    """-> (key lanes int64 [R] in key_layout's order [cg?, time?,
+    *groups], one zero lane without any; the time column's validity or
+    None): the reference's _front_end keys (403-433)."""
     keys, tvalid = [], None
-    if config.time_col:
-        tv, tvalid = flat[config.time_col]
-        keys.append(time_key(config, tv, time_bucket)[1])
-    for g in config.group_cols:
-        v, m = flat[g]
-        keys.append(torch.where(m, v, MISSING))
+    for lane in key_layout(config):
+        if lane is None:
+            tv, tvalid = flat[config.time_col]
+            keys.append(time_key(config, tv, time_bucket)[1])
+        elif lane == CG_COL:
+            keys.append(cg_lane(config, torch.arange(R, device=dev), C))
+        else:
+            v, m = flat[lane]
+            keys.append(torch.where(m, v, MISSING))
     if not keys:
         keys = [torch.zeros(R, dtype=torch.int64, device=dev)]
     return keys, tvalid
@@ -1879,7 +1970,7 @@ class SortedFrontArgs(ctypes.Structure):
         ("packed", ctypes.c_int),
         ("has_weight", ctypes.c_int),
         ("ndist", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("vg_span", ctypes.c_int),
     ]
 
 
@@ -1905,7 +1996,7 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
                < nrec[:, None]).reshape(R)
     matched = _front_filters(config, flat, matched, filter_vals, bitsets,
                              set_masks, R)
-    keys, tvalid = _key_lanes(config, flat, R, dev, time_bucket)
+    keys, tvalid = _key_lanes(config, flat, R, C, dev, time_bucket)
     if tvalid is not None:
         matched = matched & tvalid
     idx = torch.arange(R, dtype=torch.int32, device=dev)
@@ -1946,7 +2037,8 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
 
     Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
     int/str/regex filters, the set ops over K14's bitmasks, the time
-    key, the key lanes, the distinct lanes), the sort operands of
+    key, the key lanes with a group scan's cache-group lane (a template
+    flag of the kernel), the distinct lanes), the sort operands of
     _scan_sorted (1076-1104, 1117-1118) and its matched mask (1273-1274,
     a template flag of the kernel); in its enum form
     (a template parameter of the kernel) the packed key, spill count and
@@ -2012,7 +2104,14 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         out["keys"] = torch.empty((K + D, R), dtype=torch.int64, device=dev)
         a.key_out = out["keys"].data_ptr()
         a.ndist = D
-    kv, km = _col_ptrs(cols, config.group_cols)
+    kernel_lead(config, "sorted_front")
+    groups = key_columns(config)
+    if has_cg(config):
+        if enum:
+            raise ValueError("sorted_front: the enum form takes no "
+                             "cache-group key")
+        a.vg_span = _cg_span(config, "sorted_front")
+    kv, km = _col_ptrs(cols, groups)
     dv, dm = _col_ptrs(cols, config.distinct_cols if not pack else ())
     _set_desc(a, dev, {
         "key_vals": kv, "key_valid": km,
@@ -2023,7 +2122,7 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
                        set_masks)})
     a.spill, a.nrec = spill.data_ptr(), nrec.data_ptr()
     a.R, a.log2C = R, C.bit_length() - 1
-    a.nkeys, a.ngroups, a.nfilters = K, len(config.group_cols), nf
+    a.nkeys, a.ngroups, a.nfilters = K, len(groups), nf
     fn = kernels.lib("sorted_front").sorted_front
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
@@ -2133,6 +2232,8 @@ class SegmentReduceArgs(ctypes.Structure):
         ("has_weight", ctypes.c_int),
         ("packed", ctypes.c_int),
         ("D", ctypes.c_int),
+        ("log2C", ctypes.c_int),
+        ("vg_span", ctypes.c_int),
     ]
 
 
@@ -2163,7 +2264,7 @@ def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
     flat = _flat_cols(cols, R)
     if order["skey"] is not None:
         # original key values: one gather per key (scan.py:1109-1111)
-        keys, _ = _key_lanes(config, flat, R, dev, time_bucket)
+        keys, _ = _key_lanes(config, flat, R, C, dev, time_bucket)
         kmat = torch.stack([torch.where(smatched, k[sidx], SENTINEL)
                             for k in keys], dim=1)
         skey = order["skey"]
@@ -2229,7 +2330,9 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     key table, _agg_row_data's lanes read at the sorted rows (never
     materialised) and their exact nibble scatter-add, the hist
     aggregations' scatter min/max, kmat, and the distinct pairs' mask and
-    sorted keys (1191-1198).  Bound by memory (random
+    sorted keys (1191-1198); a group scan's cache-group lane rides in
+    K7's lanes, and a packed key's column reads make it from the row
+    index.  Bound by memory (random
     gathers of the columns at the sorted rows); a tile scan for the gid,
     and one atomic per warp run of equal gids (see the source note)."""
     dev = front["idxm"].device
@@ -2268,17 +2371,25 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
         _check_tensor(front["keys"], (K + D, R), torch.int64, "keys", dev,
                       "segment_reduce")
         a.keys = front["keys"].data_ptr()
-    for name in (*config.group_cols, *(g.col for g in config.aggs)):
+    kernel_lead(config, "segment_reduce")
+    groups = key_columns(config)
+    for name in (*groups, *(g.col for g in config.aggs)):
         _check_col(cols, name, B, C, dev, "segment_reduce")
     if config.time_col:
         v, _ = _check_col(cols, config.time_col, B, C, dev, "segment_reduce")
         a.t_vals, a.has_time = v.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
-    kv, km = _col_ptrs(cols, config.group_cols)
+    kv, km = _col_ptrs(cols, groups)
     _set_desc(a, dev, {
         "key_vals": kv, "key_valid": km,
         "pack_min": [mn for mn, _ in pack],
         "pack_card": [card for _, card in pack], **_agg_desc(config, cols)})
+    if has_cg(config):
+        if C & (C - 1):
+            raise ValueError("segment_reduce: C must be a power of two, "
+                             f"got {C}")
+        a.log2C = C.bit_length() - 1
+        a.vg_span = _cg_span(config, "segment_reduce")
     if config.weight_col:
         v, m = _check_col(cols, config.weight_col, B, C, dev,
                           "segment_reduce")
@@ -2306,7 +2417,7 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     a.num_groups, a.offsets = out["num_groups"].data_ptr(), offsets.data_ptr()
     a.R = R
     a.S, a.L, a.H, a.K, a.D = S, L, H, K, D
-    a.ngroups, a.naggs, a.ntiles = len(config.group_cols), A, ntiles
+    a.ngroups, a.naggs, a.ntiles = len(groups), A, ntiles
     fn = kernels.lib("segment_reduce").segment_reduce
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -1,7 +1,7 @@
 """Query engine orchestrator.
 
-Port of sybil_tpu/query/engine.py for one device, without the query
-cache, the row-store scan or meshes.  The plan:
+Port of sybil_tpu/query/engine.py for one device, without the row-store
+scan or meshes.  The plan:
 
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
@@ -22,6 +22,11 @@ cache, the row-store scan or meshes.  The plan:
            HLL, K13) or (group, distinct) pairs (the sorted strategy)
   finish   translate group keys to display strings (aggregate.go:284-324),
            sort (aggregate.go:469-525), build the Cumulative row
+
+With -cache-queries each stable group of 16 full blocks answers from its
+cache file (query/cache.py) or is scanned and written; the missed groups
+share dispatches through the cache-group key, which the kernels make
+from each row's block position (_cached_scan, _scan_cache_vgroups).
 
 Block skipping replicates ShouldLoadBlockFromDir's min/max pruning
 (table_block_io.go:110-182).  Query shapes the port does not carry yet
@@ -937,10 +942,7 @@ def _run_query_inner(table: Table, params: QueryParams,
     if flags.read_log:
         raise NotImplementedError(
             "-read-log (scanning the row store) is not ported yet "
-            "(ROADMAP A13)")
-    if flags.cache_queries and not params.samples:
-        raise NotImplementedError(
-            "-cache-queries is not ported yet (ROADMAP A13)")
+            "(ROADMAP A13.1)")
     if (flags.data_shards > 1 or flags.dist_coordinator
             or flags.dist_num_processes > 1):
         raise NotImplementedError(
@@ -966,13 +968,131 @@ def _run_query_inner(table: Table, params: QueryParams,
     B = max(1, min(flags.device_batch, max(len(block_dirs), 1)))
 
     ctx = _ScanCtx(bound, infos, params, timer, C, device)
-    _maybe_device_prune(bound, params, block_dirs, B)
-    acc = _scan_dirs(ctx, block_dirs, B, allow_prune=True)
+    # -read-log raised above, so the cache runs whenever it is asked for
+    # and the query takes no samples
+    if flags.cache_queries and not params.samples:
+        acc = _cached_scan(ctx, table, block_dirs, B)
+    else:
+        _maybe_device_prune(bound, params, block_dirs, B)
+        acc = _scan_dirs(ctx, block_dirs, B, allow_prune=True)
 
     with timer.phase("finish"):
         qr = acc.finish()
     timer.report("query")
     return qr
+
+
+def _cached_scan(ctx: "_ScanCtx", table: Table, block_dirs: list[str],
+                 B: int) -> "_Accumulator":
+    """-cache-queries (the reference's engine.py:1010-1143): each stable
+    group of 16 full blocks answers from its cache file when one exists,
+    and the missed groups are scanned and written.  Groups are formed
+    over ALL full blocks, never the min/max-pruned list, so a changed
+    filter constant cannot shift group boundaries; a pruned block is
+    skipped inside its group's scan, and a wholly pruned group is cached
+    as an empty partial.  The missed groups share one batch pipeline:
+    many a dispatch through the cache-group key (_scan_cache_vgroups)
+    when a vgroup config fits the dense or sorted strategy, else one
+    group a batch (_scan_dirs(groups=...)).  The blocks outside any group
+    (partial blocks, the trailing remainder) are scanned uncached, as
+    extra vgroups when those run.  No device prune in cache mode: a
+    cached partial must be exact."""
+    import dataclasses as _dc
+
+    from . import cache as qcache
+    bound, params, timer = ctx.bound, ctx.params, ctx.timer
+    infos = ctx.infos
+    acc = _Accumulator(bound)
+    with timer.phase("cache_probe"):
+        scanset = set(block_dirs)
+        groups, rest = qcache.stable_groups(list(infos), infos)
+        rest = [d for d in rest if d in scanset]
+        missed: list[tuple[str, list[str]]] = []
+        hits = 0
+        for gdirs in groups:
+            k = qcache.group_cache_key(params, table, gdirs, infos)
+            cached = qcache.load_group_rows(table, k, bound)
+            if cached is None:
+                missed.append((k, gdirs))
+            else:
+                acc.merge_from(cached)
+                hits += 1
+    if hits:
+        debug("query cache:", hits, "group hits,", len(missed), "misses,",
+              len(rest), "uncacheable blocks")
+    missed_live = [(k, [d for d in gdirs if d in scanset])
+                   for k, gdirs in missed]
+    group_accs = {}
+    if not acc.distinct_limit_hit():
+        to_scan = [(k, live) for k, live in missed_live if live]
+        # the largest power-of-two vgroup count whose config still fits
+        # the dense budget (a windowed rollup's download, the HLL planes)
+        # or, unbounded, the sorted strategy
+        use_vg = False
+        vg_cap = 1
+        if to_scan and B >= qcache.GROUP_SIZE and all(
+                len(g) <= qcache.GROUP_SIZE for _, g in to_scan):
+            ng_try = max(1, min(len(to_scan),
+                                max(1, B // qcache.GROUP_SIZE)))
+            ngp = 1
+            while ngp < ng_try:
+                ngp *= 2
+            while ngp >= 1:
+                probe = _dc.replace(
+                    bound.config,
+                    group_cols=("__cg__",) + bound.config.group_cols,
+                    key_bounds=((0, ngp),) + bound.config.key_bounds,
+                    sort_pack=(), vg_span=qcache.GROUP_SIZE)
+                ok_dense = probe.dense_slots > 0 and (
+                    not probe.hll or probe.dense_slots <= 1024) and (
+                    probe.window == 0 or probe.dense_slots <= 16384)
+                ok_sorted = probe.dense_slots == 0 and not probe.hll
+                if ok_dense or ok_sorted:
+                    use_vg = True
+                    vg_cap = ngp
+                    if ok_sorted and bound.config.distinct_cols:
+                        # the pair section grows with the group count
+                        vg_cap = min(ngp, 2)
+                    break
+                ngp //= 2
+        if to_scan and use_vg:
+            vg_groups = list(to_scan)
+            GS = qcache.GROUP_SIZE
+            rest_keys = []
+            for j in range(0, len(rest), GS):
+                rk = ("__REST__", j)
+                rest_keys.append(rk)
+                vg_groups.append((rk, rest[j: j + GS]))
+            group_accs = _scan_cache_vgroups(ctx, vg_groups, B, vg_cap)
+            for rk in rest_keys:
+                ra = group_accs.pop(rk, None)
+                if ra is not None:
+                    acc.merge_from(ra)
+            rest = []
+        elif to_scan:
+            # one group a batch: a group is GROUP_SIZE blocks, so a
+            # larger batch would only pad it
+            group_accs = _scan_dirs(ctx, [], min(B, qcache.GROUP_SIZE),
+                                    allow_prune=False, groups=to_scan)
+    for k, live in missed_live:
+        if live:
+            sub = group_accs.get(k)
+            if sub is None:
+                continue    # the distinct limit stopped the scan first:
+                            # a group not scanned is never cached
+        else:               # every block pruned: cache the empty partial
+            sub = _Accumulator(bound)
+        # one process writes: the port has no multi-process scan (the
+        # reference's mh.is_printer() gate, ROADMAP A15)
+        with timer.phase("cache_save"):
+            qcache.save_group_rows(table, k, sub)
+        acc.merge_from(sub)
+        acc.maybe_prune()
+    if rest and not acc.distinct_limit_hit():
+        sub = _scan_dirs(ctx, rest, min(B, len(rest)), allow_prune=False)
+        acc.merge_from(sub)
+        acc.maybe_prune()
+    return acc
 
 
 def _maybe_device_prune(bound: BoundQuery, params: QueryParams,
@@ -1057,15 +1177,153 @@ def fetch_main(packed) -> np.ndarray:
     return packed["main"].cpu().numpy()
 
 
+def _scan_cache_vgroups(ctx: _ScanCtx, groups, B: int, vg_cap: int):
+    """Scan many 16-block cache groups a dispatch (the reference's
+    engine.py:1193-1331): the config gains the cache-group key "__cg__"
+    (vg_span = GROUP_SIZE), which the kernels make from each row's block
+    position, as the most significant key, so the download's rows carry
+    (cache group, *keys) and the host splits them into one accumulator a
+    group.  A chunk of up to vg_cap groups is padded to a power of two
+    of them, padding blocks and a partial group's padding at nrec = 0;
+    the per-batch caps (HLL planes shipped, distinct pairs, hist pairs,
+    outlier rows) scale with the group count; a chunk whose dense key
+    bound spills is redone alone, blocking, on the sorted strategy.
+    Dispatches pipeline as _scan_dirs's do.  -> {key: acc}."""
+    import dataclasses as _dc
+
+    from ..ops.residency import device_const
+    from ..ops.scan import scan_packed
+    from . import cache as qcache
+
+    bound, timer, C, device = ctx.bound, ctx.timer, ctx.C, ctx.device
+    tb = ctx.params.time_bucket or 1
+    GS = qcache.GROUP_SIZE
+    ngrp_max = max(1, min(B // GS, vg_cap))
+    accs: dict = {}
+
+    def dispatch_chunk(chunk, force_sorted: bool):
+        ng = len(chunk)
+        # a power of two of groups: one config a size class
+        ngp = 1
+        while ngp < ng:
+            ngp *= 2
+        dirs = []
+        pad_pos = []
+        for _, gdirs in chunk:
+            gg = list(gdirs)[:GS]
+            while len(gg) < GS:      # a partial (rest) group: pad, zero
+                pad_pos.append(len(dirs) + len(gg))
+                gg.append(gg[-1])
+            dirs += gg
+        real = len(dirs)
+        if ngp > ng:
+            dirs = dirs + [dirs[-1]] * ((ngp - ng) * GS)
+        base = bound.config
+        vcfg = _dc.replace(
+            base,
+            group_cols=("__cg__",) + base.group_cols,
+            key_bounds=((0, ngp),) + base.key_bounds,
+            sort_pack=(), vg_span=GS,
+            hll_ship=max(base.hll_ship, 2 * ngp) if base.hll
+            else base.hll_ship,
+            # ngp groups share one batch: the per-batch compaction caps
+            # scale, or every vgroup dispatch escalates
+            max_pairs=min(base.max_pairs * ngp, 1 << 20),
+            max_hist_pairs=min(base.max_hist_pairs * ngp, 1 << 20),
+            max_out=min(base.max_out * ngp, 1 << 18),
+            force_sorted=force_sorted or base.force_sorted)
+        with timer.phase("load"):
+            loader = BatchLoader(bound, dirs, C,
+                                 {d: ctx.infos[d].num_records
+                                  for d in dirs if d in ctx.infos}, device)
+            cols, nrec, set_aux = loader.load()
+            nrec[real:] = 0          # padding blocks contribute nothing
+            for pp in pad_pos:       # nor a partial group's padding
+                nrec[pp] = 0
+            Bc = len(dirs)
+        with timer.phase("dispatch"):
+            packed, out = scan_packed(vcfg, cols, device_const(nrec, device),
+                                      ctx.jfv, ctx.jbits, tb, set_aux)
+        _start_d2h(packed)
+        return vcfg, packed, out, Bc
+
+    def drain_chunk(chunk, vcfg, packed, out, Bc):
+        tmp = _Accumulator(bound)
+        tmp.prune_cap = 0
+        with timer.phase("drain"):
+            spill = tmp.absorb_packed(packed, out, Bc * C, vcfg)
+        if spill > 0:
+            # a key fell outside its declared bound: redo this chunk
+            # alone, blocking, on the unpacked sorted strategy
+            debug("vgroup scan spilled; retrying unpacked sorted")
+            vcfg2, packed2, out2, Bc2 = dispatch_chunk(chunk, True)
+            tmp = _Accumulator(bound)
+            tmp.prune_cap = 0
+            with timer.phase("drain"):
+                tmp.absorb_packed(packed2, out2, Bc2 * C, vcfg2)
+        ng = len(chunk)
+        split_rows: list[dict] = [dict() for _ in range(ng)]
+        split_matched = [0] * ng
+        split_batches: list[list] = [[] for _ in range(ng)]
+        if tmp.np_batches and not tmp.rows:
+            # columnar split by the leading cache-group key: each group's
+            # partial stays a parked numpy batch (written columnar, and
+            # merged back columnar on a hit)
+            for ak, counts, samples, aggs in tmp.np_batches:
+                cg = ak[:, 0]
+                for j in range(ng):
+                    sel = np.nonzero(cg == j)[0]
+                    if not len(sel):
+                        continue
+                    split_batches[j].append((
+                        ak[sel][:, 1:], counts[sel], samples[sel],
+                        [(ex[sel], cnt[sel], wv[sel], mn[sel], mx[sel])
+                         for (ex, cnt, wv, mn, mx) in aggs]))
+                    split_matched[j] += int(samples[sel].sum())
+            tmp.np_batches = []
+        else:
+            # hist lanes, distinct registers or pairs: a split by dict
+            tmp._materialize()
+            for kt, row in tmp.rows.items():
+                j = kt[0]
+                if 0 <= j < ng:
+                    split_rows[j][kt[1:]] = row
+                    split_matched[j] += row["samples"]
+        for j, (k, _) in enumerate(chunk):
+            a = _Accumulator(bound)
+            a.prune_cap = 0
+            a.rows = split_rows[j]
+            a.np_batches = split_batches[j]
+            a.matched_count = split_matched[j]
+            a.batches = 1
+            accs[k] = a
+
+    pending: list[tuple] = []
+    for start in range(0, len(groups), ngrp_max):
+        chunk = groups[start: start + ngrp_max]
+        pending.append((chunk, *dispatch_chunk(chunk, False)))
+        if len(pending) >= PIPELINE:
+            drain_chunk(*pending.pop(0))
+    while pending:
+        drain_chunk(*pending.pop(0))
+    return accs
+
+
 def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
-               allow_prune: bool):
+               allow_prune: bool, groups=None):
     """Scan a set of block dirs into a fresh accumulator through the
     batch pipeline: up to PIPELINE batches are in flight before the
     oldest one's download is absorbed, and a samples query then reads
     the batch's matched rows until it holds 4 * limit.  When a batch
     reports a dense key bound spill, the whole scan restarts once on
-    the unpacked sorted strategy, with a fresh accumulator, as the
-    reference's does (engine.py:1429-1592)."""
+    the unpacked sorted strategy, with fresh accumulators, as the
+    reference's does (engine.py:1379-1592).
+
+    groups: [(key, dirs), ...] or None.  When given, every group's
+    batches ride the one pipeline but land in an accumulator of their
+    own, the distinct limit counts the union of the groups, and the
+    return value is {key: acc} for the groups whose batches all
+    completed (the query cache writes each one)."""
     import dataclasses as _dc
 
     from ..ops.residency import device_const
@@ -1073,33 +1331,66 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
 
     bound, params, timer = ctx.bound, ctx.params, ctx.timer
     C, device, infos = ctx.C, ctx.device, ctx.infos
-    expected = {d: infos[d].num_records for d in block_dirs if d in infos}
+    if groups is None:
+        work = [(None, block_dirs[s: s + B])
+                for s in range(0, len(block_dirs), B)]
+        all_dirs = list(block_dirs)
+    else:
+        work = [(k, dirs[s: s + B]) for k, dirs in groups
+                for s in range(0, len(dirs), B)]
+        all_dirs = [d for _, dirs in groups for d in dirs]
+    n_batches: dict = {}
+    for k, _ in work:
+        n_batches[k] = n_batches.get(k, 0) + 1
+    expected = {d: infos[d].num_records for d in all_dirs if d in infos}
 
     for attempt in range(2):
-        acc = _Accumulator(bound)
-        if not allow_prune:
-            acc.prune_cap = 0
+        accs: dict = {}
+        drained: dict = {}
+
+        def get_acc(k):
+            a = accs.get(k)
+            if a is None:
+                a = accs[k] = _Accumulator(bound)
+                if not allow_prune:
+                    a.prune_cap = 0
+            return a
+
+        acc = get_acc(None) if groups is None else None
         pending: list[tuple] = []
         spilled = False
 
         def drain_one() -> bool:
-            cfg, packed, out, R, batch_dirs, nrec = pending.pop(0)
-            if acc.absorb_packed(packed, out, R, cfg) > 0:
+            gkey, cfg, packed, out, R, batch_dirs, nrec = pending.pop(0)
+            a = get_acc(gkey)
+            if a.absorb_packed(packed, out, R, cfg) > 0:
                 return False
+            drained[gkey] = drained.get(gkey, 0) + 1
             if allow_prune:
-                acc.maybe_prune()
-            if params.samples and \
-                    len(acc.sample_rows) < max(params.limit, 1) * 4:
-                acc.collect_samples(out, batch_dirs, nrec, C)
+                a.maybe_prune()
+            if params.samples and groups is None and \
+                    len(a.sample_rows) < max(params.limit, 1) * 4:
+                a.collect_samples(out, batch_dirs, nrec, C)
             return True
 
         def stop_early() -> bool:
-            return allow_prune and acc.distinct_limit_hit()
+            if params.num_distinct <= 0:
+                return False
+            if groups is None:
+                return allow_prune and acc.distinct_limit_hit()
+            # the distinct groups over the UNION of the per-group
+            # partials: a sum of per-accumulator counts would count a key
+            # shared by two cache groups twice and stop early
+            seen = set()
+            for a in accs.values():
+                a._materialize()
+                for kt in a.rows:
+                    seen.add(a._group_part(kt))
+            return len(seen) >= params.num_distinct
 
-        for s in range(0, len(block_dirs), B):
+        for gkey, batch in work:
             if stop_early():
                 break
-            batch = block_dirs[s: s + B]
             cfg = bound.config
             batch_dirs = batch + [batch[-1]] * (B - len(batch))  # pad
             R = B * C
@@ -1115,7 +1406,7 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
             # the raw outputs stay beside the packed buffer until it
             # drains: escalation fetches from them when a packed section
             # overflows, and a samples query reads its matched mask
-            pending.append((cfg, packed, out, R, batch_dirs, nrec))
+            pending.append((gkey, cfg, packed, out, R, batch_dirs, nrec))
             _start_d2h(packed)
             if len(pending) >= PIPELINE:
                 with timer.phase("drain"):
@@ -1130,7 +1421,7 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
                 if not drain_one():
                     spilled = True
         if not spilled:
-            return acc
+            break
         # a group key fell outside its declared bound (outlier-resistant
         # IntInfo, or stats that grew after bind): redo the scan on the
         # unpacked sorted strategy, which has no static key bounds
@@ -1138,7 +1429,10 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
         bound.config = _dc.replace(bound.config, force_sorted=True,
                                    sort_pack=())
         pending.clear()
-    return acc
+    if groups is None:
+        return acc
+    return {k: a for k, a in accs.items()
+            if drained.get(k, 0) == n_batches.get(k)}
 
 
 class _Accumulator:

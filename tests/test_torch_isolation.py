@@ -31,6 +31,8 @@ def _port_sources():
 def test_no_port_source_imports_jax_or_reference():
     sources = _port_sources()
     assert len(sources) > 20
+    assert os.path.join(REPO, "sybil_tpu_torch", "query",
+                        "cache.py") in sources
     bad = []
     for path in sources:
         with open(path) as f:
@@ -191,3 +193,45 @@ def test_port_set_filter_samples_run_with_jax_and_reference_refused(tmp_path):
     rows = json.loads(proc.stdout)
     assert [r["index_int"] for r in rows] == [3, 9, 15, 21, 27]
     assert all(r["groups"] == ["mod3"] for r in rows)
+
+
+def test_port_cached_query_runs_with_jax_and_reference_refused(tmp_path):
+    """The query cache (query/cache.py, the cache-group key in K2's plain
+    version, the vgroup split) runs in the refusing process too: a write,
+    then a hit of every group, with the same answer."""
+    from sybil_tpu_torch import digest
+    d = str(tmp_path / "db")
+    rng = np.random.default_rng(7)
+    n = 40 * 64
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = 64                # 40 full blocks: two groups
+    try:
+        Table("uptime", Flags(dir=d, table="uptime", skip_compact=True)
+              ).ingest_columns(
+            ints={"ping": rng.integers(0, 150, n)},
+            strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)]})
+    finally:
+        digest.CHUNK_SIZE = old
+    argv = ["query", "-dir", d, "-table", "uptime", "-group", "host",
+            "-int", "ping", "-op", "avg", "-json", "-cache-queries",
+            "-device-batch", "64", "-device", "cpu"]
+    # the port's cache counts a 64-row block as full
+    code = BLOCKER.replace(
+        "import runpy\n",
+        "import runpy\nimport sybil_tpu_torch.query.cache as qc\n"
+        "qc.CHUNK_SIZE = 64\n")
+    env = dict(os.environ, PYTHONPATH=REPO, DEBUG="1")
+    outs = []
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", code.format(forbidden=FORBIDDEN,
+                                               argv=argv)],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        outs.append((json.loads(proc.stdout), proc.stderr))
+    assert outs[0][0] == outs[1][0]
+    assert sum(r["Count"] for r in outs[0][0]) == n
+    assert "query cache: 2 group hits" in outs[1][1]
+    assert len([f for f in os.listdir(os.path.join(d, "uptime", "cache"))
+                if f.startswith("q_")]) == 2

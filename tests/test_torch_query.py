@@ -374,7 +374,9 @@ def test_default_device_without_cuda_raises(ref_table, capsys):
 
 @pytest.mark.parametrize("change,item", [
     ({"read_log": True}, "A13"),
-    ({"cache_queries": True}, "A13"),
+    # the query cache runs (tests/test_torch_cache.py); asked for beside
+    # -read-log it still meets the row store's refusal (A13.1)
+    ({"cache_queries": True, "read_log": True}, "A13"),
     ({"data_shards": 2}, "A14"),
 ])
 def test_unported_engine_modes_raise(ref_table, change, item):
