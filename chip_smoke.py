@@ -136,7 +136,25 @@ Phases (any failure exits non-zero before the result lines):
      walls (median of 5 each of uncached, write and hit), the phases of
      group_avg's and time_avg's write and hit, K2 with and without the
      cache-group key on the same batch, K7, the sorts, K8 and K5 at the
-     vgroup shapes
+     vgroup shapes.  Then the mesh scan at -data-shards 8, one batch (16
+     blocks a shard): MULTICHIP_r05.json's sharded shapes at full size
+     (config 3 with -loghist outliers, config 4 at 1 h buckets (dense
+     windowed), path 2 (sorted, about 72,590 groups), -group host,status
+     -op distinct (the pairs), S1's set filter, S4a and S4b (the samples
+     and their mask), config 5's partition 1 under the sorted device
+     prune) and config 1, through run_query (config 1 also through the
+     CLI): first once with K15, K16's shuffle_keys, shuffle_reduce and
+     shuffle_unpack, K12's two-valued form, K3's keyed form and K10 on
+     the merged table each held to its plain version bit for bit, then
+     cold and five warm walls beside five unsharded warm walls, the
+     launches per mesh query (K15, K16 and the shard scans once per
+     shard, the unpack and the pack once), every answer equal to the
+     unsharded one (config 5: the printed counts, each kept user's count
+     and mean against numpy) and to numpy's where the earlier phases have
+     one (configs 1 and 4, path 2, S1); then the exchange over an NCCL
+     process group of world size 1 against the local exchange: config 3
+     -loghist's and path 2's whole sharded scans, packed word for word,
+     and a random buffer through all_to_all and all_gather
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -151,7 +169,12 @@ Phases (any failure exits non-zero before the result lines):
      torch.sort calls between them on lines of their own with their
      radix-pass bound; S1's cold and warm walls and S2-S4b's phases, K14
      beside its plain version and two index_add_ passes, K2 at S1's shape
-     and K7 at S3's and S4b's with and without the set filter and mask
+     and K7 at S3's and S4b's with and without the set filter and mask;
+     the cache-group forms of K2, K8 and K5 beside their torch calls;
+     K15 at config 3 -loghist's and path 2's shard, K16's entries at one
+     owner, the owner's sorts, K12's compaction and the unpack at both,
+     and K3's keyed form at config 3 -loghist, beside their plain
+     versions and torch calls
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -183,11 +206,14 @@ STEP = 1_000_000
 KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
            "hist_pairs", "sorted_pack", "enum_segments", "topk_rows",
-           "hll_registers", "set_match")
+           "hll_registers", "set_match", "shuffle_partition",
+           "shuffle_reduce")
 # the launch-counted wrappers: each source's, and those of a source's
 # other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
-                 "prune_gather": "sorted_pack"}
+                 "prune_gather": "sorted_pack",
+                 "shuffle_keys": "shuffle_reduce",
+                 "shuffle_unpack": "shuffle_reduce"}
 COUNTED = KERNELS + tuple(ENTRY_SOURCES)
 C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
 P2_BUCKET = 300                 # config 4 zoomed in to 5-minute buckets
@@ -844,7 +870,6 @@ def scan_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
     import torch
 
     from sybil_tpu_torch.ops import scan
-    scan.check_supported(cfg)
     B, C = next(iter(cols.values()))[0].shape
     R = B * C
     dev = nrec.device
@@ -1129,7 +1154,6 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
     import torch
 
     from sybil_tpu_torch.ops import scan
-    scan.check_supported(cfg)
     if cfg.strategy != "sorted":
         fail(f"{what}: strategy {cfg.strategy}, not sorted")
     B, C = next(iter(cols.values()))[0].shape
@@ -1384,7 +1408,6 @@ def enum_check(what, cfg, cols, nrec, errs, fv=None, bits=(), set_aux=None):
     import torch
 
     from sybil_tpu_torch.ops import scan
-    scan.check_supported(cfg)
     if cfg.strategy != "sorted" or scan.enum_radix(cfg) <= 0:
         fail(f"{what}: not the enumerated strategy")
     B, C = next(iter(cols.values()))[0].shape
@@ -3130,9 +3153,26 @@ def cache_kernel_rows(card, captured, device) -> list:
     nbytes = len(referenced(cfg)) * R * 9 + B * 4 + Sc * L * 8 + 8
     ops = R * (6 + 20 + 8 * len(scan.key_columns(cfg))
                + 12 * len(cfg.aggs) + 2)
+    # one torch call (row 5's yardstick): index_add_ of prebuilt lanes
+    # into the same reduce rows by each row's gid, the cg digit first
+    krows = scan.key_rows(cfg, cols, torch.arange(R, device=device), tb)
+    gid = torch.zeros(R, dtype=torch.int64, device=device)
+    for i, (mn, card_) in enumerate(cfg.key_bounds):
+        k = krows[:, i]
+        gid = gid * (card_ + 1) + torch.where(k == -1, 0, k - mn + 1).clamp(
+            0, card_)
+    inrange = (torch.arange(C, device=device)[None, :]
+               < nrec.to(torch.int64)[:, None]).reshape(-1)
+    gid = torch.where(inrange, gid, Sc - 1).clamp(max=Sc - 1)
+    lanes = torch.ones((R, L), dtype=torch.int64, device=device)
+    lib = cuda_ms(lambda: torch.zeros((Sc, L), dtype=torch.int64,
+                                      device=device).index_add_(0, gid,
+                                                                lanes),
+                  iters=5)
+    del krows, gid, lanes
     rows.append(("dense_scan", f"cache group_avg: the cg digit, ngp {ngp}, "
                  f"{B} blocks", "sybil_tpu/ops/scan.py:405", ms, pms, nbytes,
-                 ops, None))
+                 ops, lib))
     # the A/B: the same launch without the cache-group key (config 1's
     # shape over the same batch)
     base = dataclasses.replace(cfg, group_cols=cfg.group_cols[1:],
@@ -3176,6 +3216,17 @@ def cache_kernel_rows(card, captured, device) -> list:
                                                     tb), iters=5)
     S = cfg.max_groups
     L = 2 + 3 * len(cfg.aggs)
+    # one torch call (row 14d's yardstick): index_add_ of prebuilt lanes
+    # into [S+1, L] by each sorted row's slot
+    k8 = scan.segment_reduce(cfg, cols, front, order, tb)
+    cg = torch.where((k8["sidxm"] < 0) & (k8["gid"] < S), k8["gid"],
+                     S).to(torch.int64)
+    lanes = torch.ones((R, L), dtype=torch.int64, device=device)
+    lib = cuda_ms(lambda: torch.zeros((S + 1, L), dtype=torch.int64,
+                                      device=device).index_add_(0, cg,
+                                                                lanes),
+                  iters=5)
+    del k8, cg, lanes
     ncol = len(cfg.aggs) + (1 if cfg.weight_col else 0)
     # p and base read, idxm and the K lanes gathered, the aggregation
     # columns read once; kmat, sidxm, gid and the tables written.  Per
@@ -3186,7 +3237,7 @@ def cache_kernel_rows(card, captured, device) -> list:
     rows.append(("segment_reduce", f"cache group_tdigest: the cg lane in "
                  f"kmat and the key table, K {K}",
                  "sybil_tpu/ops/scan.py:405", ms, pms, nbytes,
-                 R * (12 + 4 * K + 12 * L), None))
+                 R * (12 + 4 * K + 12 * L), lib))
     del front, order
 
     cfg, cols, nrec, fv, bits, tb, _ = captured["group_loghist"]
@@ -3205,12 +3256,480 @@ def cache_kernel_rows(card, captured, device) -> list:
                                                      off, tb), iters=5)
     n5 = int(h["nout"].item())
     K = cfg.n_key_cols
+
+    def lib5():
+        # row 13e's yardstick: nonzero, then the first kmax rows' keys
+        # and values gathered
+        idx = torch.nonzero(mk).reshape(-1)[:kmax]
+        return scan.key_rows(cfg, cols, idx, tb), vk[idx]
+    lib = cuda_ms(lib5, iters=20)
     # the mask read, the live rows' key columns and values gathered, the
     # section written
     rows.append(("outlier_compact", f"cache group_loghist: cg key rows "
                  f"({n5} outliers)", "sybil_tpu/ops/scan.py:424", ms, pms,
                  R + min(n5, kmax) * (9 * K + 8) + kmax * lay["W"] * 8,
-                 R * 2 + kmax * lay["W"], None))
+                 R * 2 + kmax * lay["W"], lib))
+    for name, what, _, ms, pms, *_ in rows:
+        say(f"[{card}] {name} ({what}): {ms:.4f} ms (plain {pms:.4f} ms)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the mesh scan (-data-shards) and the hash-partitioned shuffle
+# ---------------------------------------------------------------------------
+
+MESH_D = 8                      # MULTICHIP_r05.json: n_devices 8
+# the wrappers the checked run holds to their plain versions
+MESH_CHECKED = ("shuffle_partition", "shuffle_keys", "shuffle_reduce",
+                "shuffle_unpack", "topk_rows", "dense_pack", "sorted_pack")
+
+
+def mesh_snapshot(qr):
+    """snapshot() with each group's distinct registers and the samples."""
+    rows, cum, matched = snapshot(qr)
+    regs = {k: bytes(r.distinct.registers) for k, r in qr.results.items()
+            if getattr(r, "distinct", None) is not None}
+    tres = {tb: {k: (r.count, r.samples) for k, r in rs.items()}
+            for tb, rs in qr.time_results.items()}
+    return rows, cum, matched, regs, tres, qr.samples
+
+
+def mesh_checked(errs, label_of):
+    """Wrap the mesh path's wrappers (K15; K16's shuffle_keys,
+    shuffle_reduce and shuffle_unpack; K12 as the mesh calls it; K3 and
+    K10 on a merged table) so each call also runs its plain version on
+    the same inputs on the card and is held to it bit for bit (errs), and
+    keep each one's arguments per spec label (label_of(); the first
+    shard's and owner's for K15 and K16), with the sharded_scan calls'.
+    -> (captured {(name, label): args}, undo)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    captured = {}
+    real = {n: getattr(mesh, n) for n in (
+        "shuffle_partition", "shuffle_keys", "shuffle_reduce",
+        "shuffle_unpack", "topk_rows", "sharded_scan")}
+    real_k3, real_k10 = scan.dense_pack, scan.sorted_pack
+
+    def k15(config, part, D, Sc, send, stats):
+        st = stats.clone()
+        real["shuffle_partition"](config, part, D, Sc, send, stats)
+        want = torch.empty_like(send)
+        mesh.shuffle_partition_plain(config, part, D, Sc, want, st)
+        what = f"shuffle_partition {label_of()} ({config.strategy}, D {D}, "
+        check_equal(what + f"Sc {Sc}) send", send, want,
+                    errs["shuffle_partition"])
+        check_equal(what + f"Sc {Sc}) stats", stats[1:], st[1:],
+                    errs["shuffle_partition"])
+        captured.setdefault(("shuffle_partition", label_of()),
+                            (config, part, D, Sc, send, stats))
+
+    def k16k(config, rows):
+        got = real["shuffle_keys"](config, rows)
+        check_equal(f"shuffle_keys {label_of()} {list(rows.shape)}", got,
+                    mesh.shuffle_keys_plain(config, rows),
+                    errs["shuffle_keys"])
+        captured.setdefault(("shuffle_keys", label_of()), (config, rows))
+        return got
+
+    def k16(config, rows, order, merged, flive, ngroups):
+        real["shuffle_reduce"](config, rows, order, merged, flive, ngroups)
+        m2, f2 = torch.empty_like(merged), torch.empty_like(flive)
+        n2 = torch.empty_like(ngroups)
+        mesh.shuffle_reduce_plain(config, rows, order, m2, f2, n2)
+        what = f"shuffle_reduce {label_of()} (N {rows.shape[0]}, cap " \
+            f"{merged.shape[0]})"
+        for part, a, b in (("merged", merged, m2), ("flive", flive, f2),
+                           ("n_groups", ngroups, n2)):
+            check_equal(f"{what} {part}", a, b, errs["shuffle_reduce"])
+        captured.setdefault(("shuffle_reduce", label_of()),
+                            (config, rows, order, merged, flive, ngroups))
+
+    def k16u(config, flat, flive, top, stats, S):
+        got = real["shuffle_unpack"](config, flat, flive, top, stats, S)
+        want = mesh.shuffle_unpack_plain(config, flat, flive, top, stats, S)
+        for key in ("keys", "sums", "mins", "maxs", "meta"):
+            check_equal(f"shuffle_unpack {label_of()} {key}", got[key],
+                        want[key], errs["shuffle_unpack"])
+        for i, (a, b) in enumerate(zip(got["hists"], want["hists"])):
+            check_equal(f"shuffle_unpack {label_of()} hist {i}", a, b,
+                        errs["shuffle_unpack"])
+        captured[("shuffle_unpack", label_of())] = (config, flat, flive, top,
+                                                    stats, S)
+        return got
+
+    def k12(score, k, two_valued=False):
+        got = real["topk_rows"](score, k, two_valued=two_valued)
+        check_equal(f"topk_rows {label_of()} (two-valued {two_valued}, "
+                    f"[{score.numel()}], k {k})", got,
+                    scan.topk_rows_plain(score, k), errs["topk_rows"])
+        captured[("topk_rows", label_of())] = (score, k)
+        return got
+
+    def k3(config, k2, hists, nouts, main, R, hll=None):
+        if "keys" not in k2:
+            return real_k3(config, k2, hists, nouts, main, R, hll)
+        want = main.clone()
+        real_k3(config, k2, hists, nouts, main, R, hll)
+        scan.dense_pack_plain(config, k2, hists, nouts, want, R, hll)
+        check_equal(f"dense_pack keyed {label_of()} (S {config.dense_slots})",
+                    main, want, errs["dense_pack"])
+        captured[("dense_pack", label_of())] = (config, k2, hists, nouts,
+                                                main, R)
+
+    def k10(config, k8, spill, pairs, nouts, main, R, overflow=None):
+        if overflow is None:
+            return real_k10(config, k8, spill, pairs, nouts, main, R)
+        want = main.clone()
+        got = real_k10(config, k8, spill, pairs, nouts, main, R, overflow)
+        w = scan.sorted_pack_plain(config, k8, spill, pairs, nouts, want, R,
+                                   overflow)
+        what = f"sorted_pack merged {label_of()}"
+        keep = torch.ones(main.shape[0], dtype=torch.bool, device=main.device)
+        if got["score"] is not None:
+            # under the device prune the prefix is prune_gather's to write
+            keep[1:1 + scan.table_prefix(config)] = False
+        check_equal(f"{what} main", main[keep], want[keep],
+                    errs["sorted_pack"])
+        check_equal(f"{what} table", got["table"], w["table"],
+                    errs["sorted_pack"])
+        if got["score"] is not None:
+            check_equal(f"{what} score", got["score"], w["score"],
+                        errs["sorted_pack"])
+        captured[("sorted_pack", label_of())] = (config, k8, spill, pairs,
+                                                 nouts, main, R, overflow)
+        return got
+
+    def shard(*args):
+        captured[("sharded_scan", label_of())] = args
+        return real["sharded_scan"](*args)
+
+    for name, fn in (("shuffle_partition", k15), ("shuffle_keys", k16k),
+                     ("shuffle_reduce", k16), ("shuffle_unpack", k16u),
+                     ("topk_rows", k12), ("sharded_scan", shard)):
+        setattr(mesh, name, fn)
+    scan.dense_pack, scan.sorted_pack = k3, k10
+
+    def undo():
+        for name, fn in real.items():
+            setattr(mesh, name, fn)
+        scan.dense_pack, scan.sorted_pack = real_k3, real_k10
+    return captured, undo
+
+
+def mesh_phase(card, specs, errs, launches, device):
+    """The mesh scan on the card: each spec's query through run_query at
+    -data-shards 8 (one batch; the config-1 spec also through the CLI),
+    first once with every mesh kernel held to its plain version
+    (mesh_checked), then cold and warm walls beside the unsharded query's
+    warm walls, the launches per mesh query (K15, K16's entries, the
+    per-shard scan kernels once per shard), each answer equal to the
+    unsharded one and to the spec's numpy check.  Then the exchange's
+    distributed form over an NCCL group of world size 1 against the local
+    form.  Launches of the timed warm mesh queries are added to
+    `launches`.  -> the kernel table's rows."""
+    import torch
+
+    from sybil_tpu_torch.ops import kernels, residency
+    from sybil_tpu_torch.query.engine import run_query
+    current = [""]
+    captured, undo = mesh_checked(errs, lambda: current[0])
+    try:
+        for sp in specs:
+            label, table, params, qflags = (sp["label"], sp["table"],
+                                            sp["params"], sp["flags"])
+            mflags = dataclasses.replace(qflags, data_shards=MESH_D)
+            run_query(table, params, qflags)          # resident columns
+            warm_u = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                qr_u = run_query(table, params, qflags)
+                warm_u.append(time.perf_counter() - t0)
+            current[0] = label
+            t0 = time.perf_counter()
+            qr_c = run_query(table, params, dataclasses.replace(mflags))
+            checked_wall = time.perf_counter() - t0
+            current[0] = ""
+            if sp.get("relaxed"):
+                sp["relaxed"](qr_c, qr_u)
+            elif mesh_snapshot(qr_c) != mesh_snapshot(qr_u):
+                fail(f"mesh {label}: the 8-shard answer differs from the "
+                     f"unsharded one")
+            residency.CACHE.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_query(table, params, dataclasses.replace(mflags))
+            cold = time.perf_counter() - t0
+            kernels.reset_launches()
+            warm = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                qr_m = run_query(table, params, dataclasses.replace(mflags))
+                warm.append(time.perf_counter() - t0)
+            lw = dict(kernels.LAUNCHES)
+            for k in COUNTED:
+                launches[k] += lw[k]
+            per = {k: n / 5 for k, n in lw.items() if n}
+            nb = sp["batches"]
+            for k, n in dict(sp["expect"], shuffle_partition=MESH_D,
+                             shuffle_keys=MESH_D, shuffle_reduce=MESH_D,
+                             shuffle_unpack=1).items():
+                if lw[k] != 5 * n * nb:
+                    fail(f"mesh {label}: expected {k} {n}x per batch over "
+                         f"{nb} batch(es): {per}")
+            if lw["topk_rows"] < 5 * nb:
+                fail(f"mesh {label}: K12 never compacted: {per}")
+            if sp.get("relaxed"):
+                sp["relaxed"](qr_m, qr_u)
+            elif mesh_snapshot(qr_m) != mesh_snapshot(qr_u):
+                fail(f"mesh {label}: the warm 8-shard answer differs from "
+                     f"the unsharded one")
+            if sp.get("check"):
+                sp["check"](qr_m)
+            say(f"[{card}] mesh {label}: -data-shards {MESH_D} == unsharded"
+                + (" == numpy" if sp.get("check") else "")
+                + f"; launches per query {per}; cold wall "
+                f"{cold * 1e3:.3f} ms, warm wall median of 5 "
+                f"{median(warm) * 1e3:.3f} ms (walls "
+                f"{[round(x * 1e3, 3) for x in warm]}); unsharded warm "
+                f"median of 5 {median(warm_u) * 1e3:.3f} ms (walls "
+                f"{[round(x * 1e3, 3) for x in warm_u]}); checked run "
+                f"{checked_wall * 1e3:.1f} ms")
+            if sp.get("phases"):
+                phase_lines(card, f"mesh {label}",
+                            lambda: run_query(table, params,
+                                              dataclasses.replace(mflags)),
+                            residency.CACHE.clear)
+    finally:
+        undo()
+    for sp in specs:
+        for name in ("shuffle_partition", "shuffle_keys", "shuffle_reduce",
+                     "shuffle_unpack"):
+            if (name, sp["label"]) not in captured:
+                fail(f"mesh {sp['label']}: {name} was never checked")
+    mesh_nccl_check(card, captured, device)
+    return mesh_kernel_rows(card, captured, device)
+
+
+def mesh_nccl_check(card, captured, device):
+    """The exchange's distributed form (torch.distributed's
+    all_to_all_single and all_gather_into_tensor) over an NCCL process
+    group of world size 1, on a localhost TCP store: a whole sharded scan
+    of the dense and the sorted captured batch through it, packed, equal
+    word for word to the local form's; then the process group is
+    destroyed.  Multi-rank NCCL needs more cards than this machine has."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from sybil_tpu_torch.ops.scan import pack_parts
+    from sybil_tpu_torch.parallel import mesh
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        nccl = mesh.Mesh(MESH_D, dist.group.WORLD)
+        local = mesh.Mesh(MESH_D)
+        done = []
+        for (name, label), args in captured.items():
+            if name != "sharded_scan" or label not in ("config 3 -loghist",
+                                                       "path 2"):
+                continue
+            cfg, _, cols, nrec, fv, bits, tb, sa = args
+            mains = []
+            for m in (local, nccl):
+                parts = mesh.sharded_scan(cfg, m, cols, nrec, fv, bits, tb,
+                                          sa)
+                packed = pack_parts(cfg, parts)
+                mains.append(packed["main"])
+            torch.cuda.synchronize()
+            if not torch.equal(mains[0], mains[1]):
+                fail(f"mesh {label}: the NCCL exchange's packed answer "
+                     f"differs from the local exchange's")
+            done.append(label)
+        if len(done) != 2:
+            fail(f"mesh: NCCL check ran on {done}")
+        # the exchange alone on a random send buffer
+        g = torch.Generator(device=device).manual_seed(5)
+        send = torch.randint(-2 ** 40, 2 ** 40, (MESH_D, MESH_D, 64, 9),
+                             generator=g, device=device)
+        if not torch.equal(nccl.all_to_all(send), local.all_to_all(send)):
+            fail("mesh: NCCL all_to_all differs from the local transpose")
+        if not torch.equal(nccl.all_gather(send), local.all_gather(send)):
+            fail("mesh: NCCL all_gather differs from the local form")
+    finally:
+        dist.destroy_process_group()
+    say(f"[{card}] mesh: the exchange over NCCL (world size 1) == the "
+        f"local exchange: {', '.join(done)} packed word for word, and "
+        f"all_to_all / all_gather on a random [8, 8, 64, 9] buffer")
+
+
+def mesh_kernel_rows(card, captured, device) -> list:
+    """Each mesh kernel at the captured shapes: K15 at config 3 -loghist's
+    shard (dense, hist lanes) and path 2's (sorted, the 100,000-slot
+    table), K16's entries, K12 two-valued and the unpack at path 2's
+    owner and compaction, K3's keyed form at config 3 -loghist; beside
+    the plain versions and one torch call each where there is one.  ->
+    the kernel table's rows (name, shape, replaces, ms, plain ms, bytes,
+    operations, library ms)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    rows = []
+    for label in ("config 3 -loghist", "path 2"):
+        config, part, D, Sc, send, stats = captured[("shuffle_partition",
+                                                     label)]
+        K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
+        Seff = config.table_slots
+        ms = cuda_ms(lambda: mesh.shuffle_partition(config, part, D, Sc,
+                                                    send, stats), iters=50)
+        s2, st2 = torch.empty_like(send), stats.clone()
+        pms = cuda_ms(lambda: mesh.shuffle_partition_plain(
+            config, part, D, Sc, s2, st2), iters=5)
+        # one torch call's worth of the placement: a stable argsort of
+        # the owners and an index_copy_ of the payload rows
+        payload, live = mesh.build_payload_plain(config, part)
+        owner = torch.where(live, mesh.mix_keys_plain(payload[:, :K]) % D,
+                            D)
+        nlive = int(live.sum().item())
+        buf = torch.zeros((Seff, WP), dtype=torch.int64, device=device)
+        dst = torch.arange(Seff, device=device)
+
+        def lib():
+            order = torch.argsort(owner, stable=True)
+            buf.index_copy_(0, dst, payload[order])
+        lib_ms = cuda_ms(lib, iters=20)
+        dense = config.strategy == "dense"
+        Sr = scan.reduce_space(config)[1] if dense else Seff
+        H = len(scan.hist_aggs(config))
+        # the table read once (lanes, min/max, bucket rows, and the keyed
+        # table's keys), the send buffer and the statistics written.  Per
+        # row: the live test, the hash over 2K halves and the finaliser,
+        # (dense) each key's digit by a 64-bit division and modulo
+        nbytes = (Sr * (2 + 3 * A + 2 * H + nv_total) * 8
+                  + (0 if dense else Seff * K * 8) + D * Sc * WP * 8
+                  + stats.numel() * 8)
+        ops = Seff * (4 + 6 * K + 6 + (60 * K if dense else 0)) + nlive * WP
+        rows.append(("shuffle_partition", f"{label}, one shard ({Seff} "
+                     f"table rows, {nlive} live, D {D}, Sc {Sc}, WP {WP})",
+                     "sybil_tpu/parallel/mesh.py:88", ms, pms, nbytes, ops,
+                     lib_ms))
+
+        config, rows_r = captured[("shuffle_keys", label)]
+        N = rows_r.shape[0]
+        ms = cuda_ms(lambda: mesh.shuffle_keys(config, rows_r), iters=50)
+        pms = cuda_ms(lambda: mesh.shuffle_keys_plain(config, rows_r),
+                      iters=5)
+        # one torch call: the masked transpose, the live mask prebuilt
+        rlive = (rows_r[:, K] > 0) | (rows_r[:, K + 1] > 0)
+        lib_ms = cuda_ms(lambda: torch.where(
+            rlive[None, :], rows_r[:, :K].t(), scan.SENTINEL).contiguous(),
+            iters=20)
+        nl = int(rlive.sum().item())
+        # every row's count and samples words read, a live row's K keys
+        # read, the [K, N] operands written
+        rows.append(("shuffle_keys", f"{label}, one owner ({N} rows, {nl} "
+                     "live)", "sybil_tpu/parallel/mesh.py:156", ms, pms,
+                     N * 2 * 8 + nl * K * 8 + K * N * 8, N * 3 + nl * K,
+                     lib_ms))
+        keys = mesh.shuffle_keys(config, rows_r)
+        for k in range(K - 1, -1, -1):
+            lane = keys[k]
+            say(f"[{card}] sorts, mesh {label}: key {k} stable torch.sort "
+                f"of int64 [{N}] "
+                f"{cuda_ms(lambda: torch.sort(lane, stable=True)):.4f} ms "
+                f"(bound {sort_bound_ms(N, 8):.4f} ms)")
+
+        config, rows_r, order, merged, flive, ngroups = captured[
+            ("shuffle_reduce", label)]
+        cap = merged.shape[0]
+        ms = cuda_ms(lambda: mesh.shuffle_reduce(config, rows_r, order,
+                                                 merged, flive, ngroups),
+                     iters=50)
+        m2, f2, n2 = (torch.empty_like(merged), torch.empty_like(flive),
+                      torch.empty_like(ngroups))
+        pms = cuda_ms(lambda: mesh.shuffle_reduce_plain(
+            config, rows_r, order, m2, f2, n2), iters=5)
+        # one torch call: index_add_ of the sorted summed lanes by each
+        # row's segment (gid and the sorted rows prebuilt), as row 5's
+        # yardstick
+        srows = rows_r[scan.sorted_perm(order)]
+        slive = (srows[:, K] > 0) | (srows[:, K + 1] > 0)
+        skeys = torch.where(slive[:, None], srows[:, :K], scan.SENTINEL)
+        differs = torch.ones(N, dtype=torch.bool, device=device)
+        differs[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
+        gid = torch.cumsum(differs.to(torch.int64), 0) - 1
+        cgid = torch.where(slive & (gid < cap), gid, cap)
+        lanes = srows[:, K:K + n_sum].contiguous()
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (cap + 1, n_sum), dtype=torch.int64, device=device).index_add_(
+                0, cgid, lanes), iters=20)
+        ng = int(ngroups.item())
+        nl = int(slive.sum().item())
+        del srows, skeys, lanes
+        # p (and base) read, every row's count and samples words read
+        # (the live test), a live row's WP words gathered, the merged
+        # table and its live flags written.  Per row: the live test; per
+        # live row: the K-key boundary test against the previous row, a
+        # block scan, a 5-step warp-run reduce a word
+        nbytes = (N * 8 * (1 if order["base"] is None else 2) + N * 2 * 8
+                  + nl * WP * 8 + cap * WP * 8 + cap * 4 + 8)
+        ops = N * 8 + nl * (4 * K + 12 * (n_sum + 2 * A))
+        rows.append(("shuffle_reduce", f"{label}, one owner ({N} rows, {nl} "
+                     f"live, {ng} groups, cap {cap}, WP {WP})",
+                     "sybil_tpu/parallel/mesh.py:146", ms, pms, nbytes, ops,
+                     lib_ms))
+
+        config, flat, flive_a, top, stats_a, S = captured[
+            ("shuffle_unpack", label)]
+        Dn = flat.shape[0]
+        kk = top.numel()
+        score, k12k = captured[("topk_rows", label)]
+        ms = cuda_ms(lambda: scan.topk_rows(score, k12k, two_valued=True),
+                     iters=20)
+        pms = cuda_ms(lambda: scan.topk_rows_plain(score, k12k), iters=5)
+        lib_ms = cuda_ms(lambda: torch.topk(score, k12k), iters=5)
+        rows.append(("topk_rows", f"{label}, the compaction: two-valued "
+                     f"int32 [{Dn}], k {k12k}",
+                     "sybil_tpu/parallel/mesh.py:291", ms, pms,
+                     Dn * 4 + k12k * 4, Dn * 4 * 5, lib_ms))
+        ms = cuda_ms(lambda: mesh.shuffle_unpack(config, flat, flive_a, top,
+                                                 stats_a, S), iters=50)
+        pms = cuda_ms(lambda: mesh.shuffle_unpack_plain(
+            config, flat, flive_a, top, stats_a, S), iters=5)
+        lib_ms = cuda_ms(lambda: torch.index_select(flat, 0,
+                                                    top.to(torch.int64)),
+                         iters=20)
+        L = 2 + 3 * A
+        nbytes = (kk * 4 + kk * 4 + kk * WP * 8 + stats_a.numel() * 8
+                  + S * (K + L + 2 * A + nv_total) * 8 + L * 8
+                  + stats_a.shape[1] * 8)
+        rows.append(("shuffle_unpack", f"{label}, the final table ({S} rows "
+                     f"of {kk} gathered, WP {WP})",
+                     "sybil_tpu/parallel/mesh.py:197", ms, pms, nbytes,
+                     S * (4 + WP), lib_ms))
+
+    config, k2, hists, nouts, main, R = captured[("dense_pack",
+                                                  "config 3 -loghist")]
+    want = main.clone()
+    ms = cuda_ms(lambda: scan.dense_pack(config, k2, hists, nouts, main, R),
+                 iters=50)
+    pms = cuda_ms(lambda: scan.dense_pack_plain(config, k2, hists, nouts,
+                                                want, R), iters=5)
+    S = config.dense_slots
+    A = len(config.aggs)
+    nv = sum(h.shape[1] for h in hists)
+    lay = scan.packed_layout(config, R)
+    rows.append(("dense_pack", f"config 3 -loghist at {MESH_D} shards, the "
+                 f"keyed form ({S} rows)", "sybil_tpu/ops/scan.py:1865", ms,
+                 pms, S * (config.n_key_cols + 2 + 5 * A + nv) * 8
+                 + lay["rows"] * lay["W"] * 8, S * 16, None))
     for name, what, _, ms, pms, *_ in rows:
         say(f"[{card}] {name} ({what}): {ms:.4f} ms (plain {pms:.4f} ms)")
     return rows
@@ -4292,6 +4811,106 @@ def main(argv=None) -> int:
 
         sets_main_path(card, stbl, sarr, launches)
         cache_rows = cache_phase(card, root, table, up, errs, launches, dev)
+
+        # the mesh scan: MULTICHIP_r05.json's eight sharded shapes and
+        # config 1 at -data-shards 8, one batch of each table
+        def mspec(label, t, argv, expect, check=None, relaxed=None,
+                  phases=False, max_groups=0):
+            B = len(t.block_infos())
+            f, p = cli_query(t, argv + ["-device-batch", str(B)])
+            return dict(label=label, table=t, params=p,
+                        flags=dataclasses.replace(f, max_groups=max_groups),
+                        batches=1, expect=expect, check=check,
+                        relaxed=relaxed, phases=phases)
+
+        def check_groupby(label, want_g, col):
+            def check(qr):
+                for h, (cnt, s_) in want_g.items():
+                    r = qr.results.get(h + "\t")
+                    if cnt == 0:
+                        continue
+                    if r is None or r.count != cnt or \
+                            r.hists[col].avg != s_ / cnt:
+                        fail(f"mesh {label}: group {h} differs from numpy")
+            return check
+
+        def check_rollup(label, want_r):
+            def check(qr):
+                got_r = {(tb_, actions.index(r.group_key.rstrip("\t"))):
+                         (r.count, r.hists["weight"].avg)
+                         for tb_, rs in qr.time_results.items()
+                         for r in rs.values()}
+                if got_r != {k: (c, w / c) for k, (c, w) in want_r.items()}:
+                    fail(f"mesh {label}: rows differ from numpy")
+            return check
+
+        cnt5, ws5 = want5[0]
+
+        def relaxed5(qr_m, qr_u):
+            # the device prune keeps the top 1000 rows of another table
+            # order, so ties at its edge may pick other groups: the
+            # printed counts and every kept group's count and mean hold
+            top = [sorted((r.count for r in q.results.values()),
+                          reverse=True) for q in (qr_m, qr_u)]
+            if top[0] != top[1] or qr_m.cumulative.count != len(uid5_1):
+                fail("mesh config 5: the top counts or the Cumulative row "
+                     "differ from the unsharded query's")
+            for r in qr_m.results.values():
+                u = int(r.group_key.split("\t")[0][len("person"):])
+                if r.count != cnt5[u] or \
+                        r.hists["weight"].avg != ws5[u] / cnt5[u]:
+                    fail(f"mesh config 5: user {u} differs from numpy")
+
+        dense_x = {"dense_scan": MESH_D, "dense_pack": 1}
+        sorted_x = {"sorted_front": MESH_D, "segment_reduce": MESH_D,
+                    "sorted_pack": 1}
+        sel1 = sarr["index_int"] % 3 == 0
+        specs = [
+            mspec("config 1", table, ["-group", "host", "-int", "ping",
+                                      "-op", "avg"], dense_x,
+                  check_groupby("config 1", want, "ping"), phases=True),
+            mspec("config 3 -loghist", table, hist_argv["config 3 -loghist"],
+                  dict(dense_x, dense_hist=MESH_D, outlier_compact=int(
+                      bound["config 3 -loghist"].config.track_outliers))),
+            mspec("config 4 (1 h)", ttable,
+                  ["-group", "action", "-int", "weight", "-op", "avg",
+                   "-time", "-time-bucket", str(C4_BUCKET), "-time-col",
+                   "time"], dense_x, check_rollup("config 4", want4)),
+            mspec("path 2", ttable, P2_ARGV, sorted_x,
+                  check_rollup("path 2", want_p2), phases=True),
+            mspec("distinct pairs host,status", table,
+                  ["-group", "host,status", "-op", "distinct"], sorted_x),
+            mspec("S1", stbl, S_ARGV["S1"], dict(dense_x, set_match=MESH_D),
+                  check_groupby("S1", numpy_groupby(sarr["host"][sel1],
+                                                    sarr["ping"][sel1]),
+                                "ping")),
+            mspec("S4a", stbl, S_ARGV["S4a"],
+                  dict(dense_x, set_match=MESH_D)),
+            mspec("S4b", stbl, S_ARGV["S4b"], sorted_x),
+            # about 183,100 users: past the default 100,000-row table the
+            # merged groups overflow it (refused, as the reference does),
+            # so the mesh query holds 2^18 group rows
+            mspec("config 5 partition 1", t5_1, C5_ARGV[2:],
+                  dict(sorted_x, prune_gather=1), relaxed=relaxed5,
+                  max_groups=1 << 18),
+        ]
+        residency.CACHE.clear()
+        mesh_rows = mesh_phase(card, specs, errs, launches, dev)
+        rc, out, wall, ll = run_cli(argv_q + ["-data-shards", str(MESH_D)])
+        if rc != 0:
+            fail(f"mesh config 1: port CLI query exited {rc}")
+        got = {r["host"]: r for r in json.loads(out)}
+        for h, (cnt, s_) in want.items():
+            r = got[h]
+            if r["Count"] != cnt or r["ping"] != s_ / cnt:
+                fail(f"mesh config 1 CLI: group {h} differs from numpy")
+        if ll["shuffle_partition"] != MESH_D or ll["shuffle_reduce"] != \
+                MESH_D or ll["dense_scan"] != MESH_D:
+            fail(f"mesh config 1 CLI: launches {ll}")
+        for k in COUNTED:
+            launches[k] += ll[k]
+        say(f"main path: CLI config 1 -data-shards {MESH_D} on cuda == numpy "
+            f"group-by; launches {ll}; wall {wall:.3f}s")
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
@@ -5205,7 +5824,7 @@ def main(argv=None) -> int:
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
                 *sorted_rows, *c5_rows, *distinct_rows, *sets_rows,
-                *cache_rows):
+                *cache_rows, *mesh_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)

@@ -89,11 +89,12 @@ def _query_parser():
     p.add_argument("-device-batch", "--device-batch", type=int, default=16)
     p.add_argument("-data-shards", "--data-shards", type=int, default=0,
                    help="shard the scan over an N-device mesh")
-    # multi-host: join N processes into one mesh (parallel/multihost.py);
-    # the TPU-native alternative to shipping encode-flags/encode-results
-    # blobs between independent binaries
+    # multi-process: join N processes into one mesh (parallel/
+    # multihost.py); the alternative to shipping encode-flags/
+    # encode-results blobs between independent binaries
     p.add_argument("-dist-coordinator", "--dist-coordinator", default="",
-                   help="host:port of process 0 (enables jax.distributed)")
+                   help="host:port of process 0 (joins a torch.distributed "
+                   "process group)")
     p.add_argument("-dist-pid", "--dist-pid", type=int, default=-1)
     p.add_argument("-dist-nproc", "--dist-nproc", type=int, default=0)
     # multi-value flag separators, overridable so values may contain
@@ -208,10 +209,15 @@ def run_query_flags(flags: Flags) -> int:
     with device_trace(flags.profile_dir if flags.profile else None):
         qr = run_query(t, params, flags)
 
-    if flags.samples:
-        printer.print_samples(qr.samples, params, flags)
-        return 0
-    printer.print_results(qr, params, flags)
+    from .parallel import multihost
+    # every process of a multi-process mesh holds the same merged result;
+    # only process 0 talks to stdout
+    if multihost.is_printer():
+        if flags.samples:
+            printer.print_samples(qr.samples, params, flags)
+        else:
+            printer.print_results(qr, params, flags)
+    multihost.shutdown()
     return 0
 
 

@@ -69,7 +69,7 @@ class Flags:
     skip_outliers: bool = True
     update_table_info: bool = False
     debug: bool = False
-    profile: bool = False            # jax.profiler trace capture
+    profile: bool = False            # torch.profiler trace capture
     profile_dir: str = "./profile"
 
     field_separator: str = ","
@@ -81,8 +81,8 @@ class Flags:
     platform: str = ""               # force jax platform ("cpu" for tests)
     data_shards: int = 0             # >1: shard the scan over a device mesh
     force_sorted: bool = False       # disable the dense MXU group-by path
-    # multi-host runtime (parallel/multihost.py): join N processes into
-    # one mesh via jax.distributed; 0/-1/"" = single process
+    # multi-process runtime (parallel/multihost.py): join N processes
+    # into one mesh via torch.distributed; 0/-1/"" = single process
     dist_coordinator: str = ""       # "host:port" of process 0
     dist_process_id: int = -1
     dist_num_processes: int = 0

@@ -20,6 +20,13 @@
 // uint8 registers (K13's planes) as 2048 little-endian int64 words, and
 // leaves the npairs meta word 0.
 //
+// The keyed form (no_compact_table: mesh scans, pack_outputs 1865-1872)
+// writes a mesh scan's merged table (K16's unpack: `keys` given, every
+// row a slot, no dead slot, min/max of every aggregation, num_groups and
+// the overflow from the shards' merged statistics) as rows 1..slots of W
+// words each, [keys K, count, samples, (exists, count, wv, min, max) per
+// agg], and the meta word 3 + H (the shuffle overflow).
+//
 // Bound: launch latency.  It reads the small sum, min/max and bucket
 // tables and writes a buffer of a few to a few hundred KB.  Design: one
 // CTA of 1024 threads walks the slots in steps of 1024, so a block-wide
@@ -74,6 +81,12 @@ struct DensePackArgs {
   int H;        // histogram aggregations
   int Ph;       // hist gid rows shipped (0 without hist aggs)
   int Phll;     // HLL planes shipped (0 without the device HLL)
+  // the keyed form: a merged table's keys and statistics, else null
+  const long long* keys;        // [slots, K]
+  const long long* num_groups;  // [1]
+  const long long* overflow;    // [1] the shuffle overflow
+  int K;
+  int A;        // aggregations: words in a merged row of mins and maxs
 };
 
 namespace {
@@ -84,25 +97,80 @@ __device__ __forceinline__ int src_row(const DensePackArgs& a, int s) {
   return a.compact ? (s < a.Sc - 1 ? s : -1) : s;
 }
 
+// the scan's own table has a dead slot; a merged table has none
+__device__ __forceinline__ bool dead_slot(const DensePackArgs& a, int s) {
+  return !a.keys && s >= a.slots - 1;
+}
+
 __device__ __forceinline__ bool slot_live(const DensePackArgs& a, int s) {
   const int src = src_row(a, s);
-  if (src < 0 || s >= a.slots - 1) return false;
+  if (src < 0 || dead_slot(a, s)) return false;
   const unsigned long long* row = a.sums + (size_t)src * a.L;
   return (long long)row[0] > 0 || (long long)row[1] > 0;
+}
+
+// Slot s of the compact keyless table (dense_table_plan's columns).
+__device__ __forceinline__ void write_compact(const DensePackArgs& a, int s,
+                                              int src,
+                                              const unsigned long long* row,
+                                              unsigned long long count,
+                                              unsigned long long samples) {
+  const int wpr = (a.i32 ? a.ncols / 2 : a.ncols) + 2 * a.H;
+  unsigned long long* out = a.main + a.W + (size_t)s * wpr;
+  const int per = a.i32 ? 2 : 1;
+  const int npack = a.ncols / per;
+  for (int w = 0; w < npack; ++w) {
+    unsigned long long word[2];
+    for (int h = 0; h < per; ++h) {
+      const int lane = (int)desc_at(a.desc, a.lane, w * per + h);
+      unsigned long long x = src >= 0 ? row[lane] : 0ull;
+      if (lane == 0) x = count;
+      if (lane == 1) x = samples;
+      if (lane >= 2 && (lane - 2) % 3 == 0) x = (long long)x > 0;  // exists
+      word[h] = x;
+    }
+    out[w] = a.i32 ? ((word[0] & 0xffffffffull) | (word[1] << 32))
+                   : word[0];
+  }
+  for (int h = 0; h < a.H; ++h) {
+    const long long mn = src >= 0 ? a.mins[(size_t)src * a.H + h] : BIG;
+    const long long mx = src >= 0 ? a.maxs[(size_t)src * a.H + h] : -BIG;
+    out[npack + 2 * h] = (unsigned long long)mn;
+    out[npack + 2 * h + 1] = (unsigned long long)mx;
+  }
+}
+
+// Row 1 + s of the keyed table (a merged table's row s).
+__device__ __forceinline__ void write_keyed(const DensePackArgs& a, int s,
+                                            const unsigned long long* row,
+                                            unsigned long long count,
+                                            unsigned long long samples) {
+  long long* out =
+      reinterpret_cast<long long*>(a.main) + (size_t)(1 + s) * a.W;
+  for (int k = 0; k < a.K; ++k) out[k] = a.keys[(size_t)s * a.K + k];
+  out[a.K] = (long long)count;
+  out[a.K + 1] = (long long)samples;
+  for (int ai = 0; ai < a.A; ++ai) {
+    long long* o = out + a.K + 2 + 5 * ai;
+    o[0] = (long long)row[2 + 3 * ai] > 0;
+    o[1] = (long long)row[3 + 3 * ai];
+    o[2] = (long long)row[4 + 3 * ai];
+    o[3] = a.mins[(size_t)s * a.A + ai];
+    o[4] = a.maxs[(size_t)s * a.A + ai];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
     const DensePackArgs a) {
   extern __shared__ int s_gidx[];   // [max(Ph, Phll)]
   const int ng = a.Ph > a.Phll ? a.Ph : a.Phll;
-  const int wpr = (a.i32 ? a.ncols / 2 : a.ncols) + 2 * a.H;
   int nlive = 0;
   for (int base = 0; base < a.slots; base += THREADS) {
     const int s = base + threadIdx.x;
     bool live = false;
     if (s < a.slots) {
       const int src = src_row(a, s);
-      const bool live_row = s < a.slots - 1;
+      const bool live_row = !dead_slot(a, s);
       const unsigned long long* row =
           a.sums + (size_t)(src < 0 ? 0 : src) * a.L;
       const unsigned long long count =
@@ -110,28 +178,10 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
       const unsigned long long samples =
           (src >= 0 && live_row) ? row[1] : 0ull;
       live = (long long)count > 0 || (long long)samples > 0;
-      unsigned long long* out = a.main + a.W + (size_t)s * wpr;
-      const int per = a.i32 ? 2 : 1;
-      const int npack = a.ncols / per;
-      for (int w = 0; w < npack; ++w) {
-        unsigned long long word[2];
-        for (int h = 0; h < per; ++h) {
-          const int lane = (int)desc_at(a.desc, a.lane, w * per + h);
-          unsigned long long x = src >= 0 ? row[lane] : 0ull;
-          if (lane == 0) x = count;
-          if (lane == 1) x = samples;
-          if (lane >= 2 && (lane - 2) % 3 == 0) x = (long long)x > 0;  // exists
-          word[h] = x;
-        }
-        out[w] = a.i32 ? ((word[0] & 0xffffffffull) | (word[1] << 32))
-                       : word[0];
-      }
-      for (int h = 0; h < a.H; ++h) {
-        const long long mn = src >= 0 ? a.mins[(size_t)src * a.H + h] : BIG;
-        const long long mx = src >= 0 ? a.maxs[(size_t)src * a.H + h] : -BIG;
-        out[npack + 2 * h] = (unsigned long long)mn;
-        out[npack + 2 * h + 1] = (unsigned long long)mx;
-      }
+      if (a.keys)
+        write_keyed(a, s, row, count, samples);
+      else
+        write_compact(a, s, src, row, count, samples);
     }
     int n;
     const int pre = block_scan<THREADS>(live ? 1 : 0, &n);
@@ -151,12 +201,14 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    a.main[0] = (unsigned long long)nlive;
+    a.main[0] = a.num_groups ? (unsigned long long)*a.num_groups
+                             : (unsigned long long)nlive;
     a.main[1] = *a.spill;
     for (int h = 0; h < a.H; ++h) {
       const unsigned long long* nout = desc_at(a.desc, a.nout, h);
       if (nout) a.main[2 + h] = *nout;
     }
+    if (a.overflow) a.main[3 + a.H] = (unsigned long long)*a.overflow;
   }
   if (a.Phll) {
     unsigned long long* hg = a.main + (size_t)a.hll_gid_row * a.W;
@@ -190,7 +242,10 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
 extern "C" int dense_pack(const DensePackArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t row_bytes = (size_t)args->W * sizeof(long long);
-  if (args->Phll && !args->hll) return cudaErrorInvalidValue;
+  if ((args->Phll && !args->hll) ||
+      (args->keys && (args->compact || args->Sc != args->slots ||
+                      args->W < args->K + 2 + 5 * args->A)))
+    return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(args->desc, st);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(args->main, 0, args->out_lo * row_bytes, st);

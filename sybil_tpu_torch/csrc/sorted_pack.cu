@@ -5,10 +5,12 @@
 // Replaces sybil_tpu/ops/scan.py:pack_outputs for a non-dense scan:
 //   table    [S, K+2+5A] (1865-1872): each slot's keys, count, samples,
 //            and per aggregation exists (0/1: its lane sum > 0), count,
-//            wv, min, max (+2^62 / -2^62 for an avg aggregation); it stays
-//            on the device for the engine's escalation;
+//            wv, min, max (+2^62 / -2^62 for an avg aggregation; a mesh
+//            scan's merged table brings every aggregation's min and max,
+//            mmw = A); it stays on the device for the engine's escalation;
 //   meta     row 0 (1902-1965): [num_groups, spill, nout per hist agg,
-//            npairs (distinct pairs, else 0), overflow = 0, pruned,
+//            npairs (distinct pairs, else 0), the mesh shuffle's overflow
+//            (0 without a mesh), pruned,
 //            total count, total samples, nhistpairs per hist agg],
 //            zero-padded to W;
 //   prefix   rows 1..P: the table's first P rows, zero-padded to W;
@@ -113,6 +115,9 @@ struct SortedPackArgs {
   int pruned;                           // min(prune_topk, S, P)
   int D;                                // distinct columns
   int kmax_pairs;                       // rows of the distinct section
+  const long long* overflow;            // [1] meta word 3 + H, or null
+  int mmw;                              // words in a row of mins and maxs
+  int pad_;
 };
 
 // Mirrored field for field by EnumPackArgs in ops/scan.py (ctypes).
@@ -166,8 +171,8 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
           case 0: v = (long long)s[2 + 3 * ai] > 0; break;
           case 1: v = (long long)s[3 + 3 * ai]; break;
           case 2: v = (long long)s[4 + 3 * ai]; break;
-          case 3: v = mm >= 0 ? a.mins[g * a.H + mm] : BIG; break;
-          default: v = mm >= 0 ? a.maxs[g * a.H + mm] : -BIG; break;
+          case 3: v = mm >= 0 ? a.mins[g * a.mmw + mm] : BIG; break;
+          default: v = mm >= 0 ? a.maxs[g * a.mmw + mm] : -BIG; break;
         }
       }
       a.table[g * Wt + c] = v;
@@ -183,6 +188,8 @@ __global__ void __launch_bounds__(THREADS) table_kernel(
     } else if (c < 2 + a.H) {
       const long long* nout = desc_at(a.desc, a.nout, c - 2);
       v = nout ? nout[0] : 0ll;
+    } else if (c == 3 + a.H) {
+      v = a.overflow ? a.overflow[0] : 0ll;
     } else if (c == 4 + a.H) {
       v = a.prune ? a.pruned : 0;
     } else if (c >= 7 + a.H && c < 7 + 2 * a.H) {

@@ -27,6 +27,12 @@
 // Bound: memory.  The passes read the R scores once each (up to 9 reads
 // of 4 or 8 B a row); the rest touches k rows.  The engine asks for
 // k <= 1000, the one-CTA sort takes k <= 4096.
+//
+// Two-valued scores (the mesh scan's 0/1 live flags, mesh.py:291-294):
+// every key above T then equals every other, so the compaction already
+// writes the winners in (key descending, index ascending) order.  With
+// `two_valued` set the compaction writes straight into `out`, the sort is
+// skipped, and k is bounded by R alone.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -225,15 +231,17 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_kernel(TopkArgs a,
 
 }  // namespace
 
-// Runs the select passes, the compaction and the sort on `stream`; `grid`
-// sizes the histogram passes.  Returns cudaError_t.
+// Runs the select passes, the compaction and (unless two_valued) the sort
+// on `stream`; `grid` sizes the histogram passes.  Returns cudaError_t.
 extern "C" int topk_rows(const void* score, int* out,
                          unsigned long long* state, unsigned int* hist,
                          int* offsets, int* cand, long long R, int k,
-                         int dtype, int ntiles, int grid, void* stream) {
+                         int dtype, int ntiles, int two_valued, int grid,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R < 1 || R >= (1ll << 31) || k < 1 || k > KMAX || k > R ||
-      dtype < 0 || dtype > 2 || ntiles != (int)((R + TILE - 1) / TILE))
+  if (R < 1 || R >= (1ll << 31) || k < 1 || (k > KMAX && !two_valued) ||
+      k > R || dtype < 0 || dtype > 2 ||
+      ntiles != (int)((R + TILE - 1) / TILE) || (two_valued && cand != out))
     return cudaErrorInvalidValue;
   const TopkArgs a{score, out, state, hist, offsets, cand, R, k, dtype,
                    ntiles};
@@ -253,7 +261,7 @@ extern "C" int topk_rows(const void* score, int* out,
   scan_tiles<<<2, SCAN_THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   write_candidates<<<ntiles, THREADS, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess || two_valued) return err;
   int n = 1;
   while (n < k) n <<= 1;
   sort_kernel<<<1, SORT_THREADS, (size_t)n * (8 + 4), s>>>(a, n);

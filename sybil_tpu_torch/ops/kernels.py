@@ -25,7 +25,8 @@ import threading
 SOURCES = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
            "outlier_compact", "dense_pack", "sorted_front", "segment_reduce",
            "hist_pairs", "sorted_pack", "enum_segments", "topk_rows",
-           "hll_registers", "set_match")
+           "hll_registers", "set_match", "shuffle_partition",
+           "shuffle_reduce")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -33,9 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the wrappers that launch a source's other kernels: sort_permute
-# (sorted_front.cu), enum_pack and prune_gather (sorted_pack.cu)
+# (sorted_front.cu), enum_pack and prune_gather (sorted_pack.cu),
+# shuffle_keys and shuffle_unpack (shuffle_reduce.cu)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
-                 "prune_gather": "sorted_pack"}
+                 "prune_gather": "sorted_pack",
+                 "shuffle_keys": "shuffle_reduce",
+                 "shuffle_unpack": "shuffle_reduce"}
 # one count per wrapper: a source's name, and each entry above
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
 

@@ -101,9 +101,9 @@ descriptor block per launch (_set_desc, csrc/desc.cuh), so no kernel
 caps their counts.  A query-cache group scan (vg_span > 0, "__cg__" in
 group_cols) asks for the cache-group key, block position // vg_span, as
 its most significant key: K2, K7, K8 and K5 make it from the row index,
-reading no column.  scan_packed raises NotImplementedError, naming the
-ROADMAP item, for the scan shape the port does not carry yet (mesh
-scans).
+reading no column.  A mesh scan (no_compact_table) runs scan_core per
+shard and packs the merged table through K3's keyed form or K10
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -514,22 +514,6 @@ def enum_radix(config: ScanConfig) -> int:
         if radix > ENUM_RADIX_CAP:
             return 0
     return radix
-
-
-# ---------------------------------------------------------------------------
-# what this slice carries
-# ---------------------------------------------------------------------------
-
-def check_supported(config: ScanConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a scan
-    shape the port does not carry yet.  All three strategies are ported,
-    the enumerated one, the sorted strategy's device prune (prune_topk),
-    count distinct (the device HLL and the distinct pairs), set filters,
-    the samples mask and the query cache's group scans (the cache-group
-    key) included, for any number of keys, filters and aggregations."""
-    if config.no_compact_table:
-        raise NotImplementedError("the keyed dense table of mesh scans is "
-                                  "not ported yet (ROADMAP B11)")
 
 
 # the query cache's synthesized key: the group column name under which a
@@ -1484,7 +1468,8 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     version.
 
     mask bool [R], vals int64 [R] from K4 (or K9 in sorted order, with
-    K8's kmat as the key rows).  Replaces sybil_tpu/ops/
+    K8's kmat as the key rows; a multi-process dense mesh scan's outlier
+    rows come compacted with their keys as kmat, and cols None).  Replaces sybil_tpu/ops/
     scan.py:_mask_positions and the outlier section of pack_outputs.
     Bound by memory (one mask byte per row); a tile count, one small
     scan, and a ranked write (see the source note)."""
@@ -1495,8 +1480,7 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
         return
     if dev.type != "cuda":
         raise ValueError(f"outlier_compact: unsupported device {dev}")
-    B, C = _batch_shape(cols)
-    R = B * C
+    R = mask.numel()
     kmax = min(config.max_out, R)
     W = main.shape[1]
     _check_tensor(mask, (R,), torch.bool, "mask", dev, "outlier_compact")
@@ -1519,6 +1503,10 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
         a.kmat, a.kmat_K = kmat.data_ptr(), K
     else:
         kernel_lead(config, "outlier_compact")
+        B, C = _batch_shape(cols)
+        if B * C != R:
+            raise ValueError(f"outlier_compact: {R} mask rows for a "
+                             f"[{B}, {C}] batch")
         groups = key_columns(config)
         for g in groups:
             _check_col(cols, g, B, C, dev, "outlier_compact")
@@ -1572,6 +1560,9 @@ class DensePackArgs(ctypes.Structure):
         ("H", ctypes.c_int),
         ("Ph", ctypes.c_int),
         ("Phll", ctypes.c_int),
+    ] + _ptr_fields("keys", "num_groups", "overflow") + [
+        ("K", ctypes.c_int),
+        ("A", ctypes.c_int),
     ]
 
 
@@ -1601,57 +1592,92 @@ def outlier_rows(config: ScanConfig, R: int) -> tuple[int, int]:
     return lo, lo + layout["kmax_out"] * len(hist_aggs(config))
 
 
+def _keyed(config: ScanConfig, k2: dict) -> bool:
+    """Whether K3 packs a mesh scan's merged table (k2 with "keys"): the
+    keyed form's only input, and only under no_compact_table."""
+    merged = "keys" in k2
+    if merged and not config.no_compact_table:
+        raise ValueError("dense_pack: a merged table needs no_compact_table")
+    if config.no_compact_table and not merged:
+        raise NotImplementedError(
+            "dense_pack: the keyed table packs a mesh scan's merged table; "
+            "a scan's own keyed table is the row-store scan's (ROADMAP "
+            "A13.1)")
+    return merged
+
+
 def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
                      R: int, hll=None) -> None:
     """Plain PyTorch version of K3: expand, mask, stack and view into the
     packed `main` buffer [rows, W] int64, in place, outside K5's rows;
-    with the device HLL, `hll` is K13's uint8 [slots, HLL_M] planes."""
+    with the device HLL, `hll` is K13's uint8 [slots, HLL_M] planes.  The
+    keyed form (no_compact_table) writes a mesh scan's merged table (k2
+    with "keys") as the keyed table."""
     dev = main.device
     slots, Sc, compact = reduce_space(config)
+    merged = _keyed(config, k2)
+    if merged:          # every row a slot, none of them dead
+        Sc, compact = slots, False
     sums = k2["sums"]
 
     def expand(t, fill):
         """compact [Sc, X] -> [slots, X]: rows [0, Sc-1) map 1:1, the
         rest (padding and the dead slot) read as `fill`."""
         if not compact:
-            return t
+            return t[:slots]
         full = torch.full((slots, t.shape[1]), fill, dtype=t.dtype,
                           device=dev)
         full[:Sc - 1] = t[:Sc - 1]
         return full
 
     full = expand(sums, 0)
-    live_row = torch.arange(slots, device=dev) < slots - 1
+    live_row = torch.arange(slots, device=dev) < (slots if merged
+                                                  else slots - 1)
     lane_vals = [torch.where(live_row, full[:, 0], 0),
                  torch.where(live_row, full[:, 1], 0)]
     for ai in range(len(config.aggs)):
         lane_vals += [(full[:, 2 + 3 * ai] > 0).to(torch.int64),
                       full[:, 3 + 3 * ai], full[:, 4 + 3 * ai]]
     live = (lane_vals[0] > 0) | (lane_vals[1] > 0)
-    plan = dense_table_plan(config, R)
     layout = packed_layout(config, R)
     W = layout["W"]
-    lanes = _wire_lanes(plan)
-    if plan["i32"]:
-        a32 = torch.stack([lane_vals[li].to(torch.int32) for li in lanes],
-                          dim=1).contiguous()
-        table = a32.view(torch.int64)            # [slots, npack]
+    hist = hist_aggs(config)
+    H = len(hist)
+    if merged:
+        A = len(config.aggs)
+        keys, mins, maxs = k2["keys"], k2["mins"], k2["maxs"]
+        cols = [keys[:, k] for k in range(keys.shape[1])] + lane_vals[:2]
+        for ai in range(A):
+            cols += lane_vals[2 + 3 * ai: 5 + 3 * ai] + [mins[:, ai],
+                                                          maxs[:, ai]]
+        table = torch.zeros((slots, W), dtype=torch.int64, device=dev)
+        table[:, :len(cols)] = torch.stack(cols, dim=1)
     else:
-        table = torch.stack([lane_vals[li] for li in lanes], dim=1)
-    H = len(hist_aggs(config))
-    if H:
-        mins, maxs = expand(k2["mins"], _BIG), expand(k2["maxs"], -_BIG)
-        mm = torch.stack([mins, maxs], dim=2).reshape(slots, 2 * H)
-        table = torch.cat([table, mm], dim=1)
+        plan = dense_table_plan(config, R)
+        lanes = _wire_lanes(plan)
+        if plan["i32"]:
+            a32 = torch.stack([lane_vals[li].to(torch.int32)
+                               for li in lanes], dim=1).contiguous()
+            table = a32.view(torch.int64)            # [slots, npack]
+        else:
+            table = torch.stack([lane_vals[li] for li in lanes], dim=1)
+        if H:
+            mins = expand(k2["mins"], _BIG)
+            maxs = expand(k2["maxs"], -_BIG)
+            mm = torch.stack([mins, maxs], dim=2).reshape(slots, 2 * H)
+            table = torch.cat([table, mm], dim=1)
     trows = layout["table"][1]
     flat = torch.zeros(trows * W, dtype=torch.int64, device=dev)
     flat[: table.numel()] = table.reshape(-1)
     meta = torch.zeros(W, dtype=torch.int64, device=dev)
-    meta[0] = live.sum(dtype=torch.int64)
+    meta[0] = (k2["num_groups"].reshape(()) if merged
+               else live.sum(dtype=torch.int64))
     meta[1] = k2["spill"].reshape(())
     for i, n in enumerate(nouts):
         if n is not None:
             meta[2 + i] = n.reshape(())
+    if merged:
+        meta[3 + H] = k2["overflow"].reshape(())
     lo, hi = outlier_rows(config, R)
     main[:lo] = torch.cat([meta, flat]).reshape(lo, W)
     Ph, Phll = layout.get("Ph", 0), layout.get("Phll", 0)
@@ -1673,7 +1699,7 @@ def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
         tail.append(flat_rows(words, layout["hll_regs"][1]))
     if Ph:
         tail.append(flat_rows(gidx[:Ph], layout["hist_gids"][1]))
-        for ai, h in zip(hist_aggs(config), hists):
+        for ai, h in zip(hist, hists):
             tail.append(flat_rows(expand(h, 0)[gidx[:Ph]],
                                   layout[f"hist{ai}"][1]))
     if _tail_row(layout) != hi:
@@ -1697,11 +1723,16 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     k2: K2's outputs; hists: K4's [Sc, nv] counts and nouts its outlier
     counts (None without tracking), one per histogram aggregation; hll:
     K13's uint8 [slots, HLL_M] planes with the device HLL, else None.
+    With no_compact_table the table is keyed, and k2 is a mesh scan's
+    merged table, {"keys" [slots, K], "sums" [slots+1, L], "mins"/"maxs"
+    [slots, A] (every aggregation), "spill", "num_groups", "overflow"
+    [1]}, with hists [slots, nv] (K16's unpack).
     Replaces the dense compact part of sybil_tpu/ops/scan.py:_scan_dense
     (expand, dead slot, num_groups, min/max) and pack_outputs (meta,
-    compact table, dense hist sections, the HLL sections 1934-1945).  A
-    few KB (the HLL planes: 16 KB each): bound by launch latency; one CTA
-    (see the source note)."""
+    compact or keyed table 1865-1872, dense hist sections, the HLL
+    sections 1934-1945).  A few KB (the HLL planes: 16 KB each; the keyed
+    table slots x W words): bound by launch latency; one CTA (see the
+    source note)."""
     dev = main.device
     if dev.type == "cpu":
         dense_pack_plain(config, k2, hists, nouts, main, R, hll)
@@ -1709,16 +1740,27 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     if dev.type != "cuda":
         raise ValueError(f"dense_pack: unsupported device {dev}")
     slots, Sc, compact = reduce_space(config)
+    merged = _keyed(config, k2)
     hist = hist_aggs(config)
     H = len(hist)
-    L = 2 + 3 * len(config.aggs)
-    _check_tensor(k2["sums"], (Sc, L), torch.int64, "sums", dev,
-                  "dense_pack")
+    A = len(config.aggs)
+    L = 2 + 3 * A
+    K = config.n_key_cols
+    if merged:
+        Sc, compact = slots, False
+        _check_tensor(k2["sums"], (slots + 1, L), torch.int64, "sums", dev,
+                      "dense_pack")
+        _check_tensor(k2["keys"], (slots, K), torch.int64, "keys", dev,
+                      "dense_pack")
+        for key in ("num_groups", "overflow"):
+            _check_tensor(k2[key], (1,), torch.int64, key, dev, "dense_pack")
+    else:
+        _check_tensor(k2["sums"], (Sc, L), torch.int64, "sums", dev,
+                      "dense_pack")
     _check_tensor(k2["spill"], (1,), torch.int64, "spill", dev, "dense_pack")
-    _check_tensor(k2["mins"], (Sc, H), torch.int64, "mins", dev,
-                  "dense_pack")
-    _check_tensor(k2["maxs"], (Sc, H), torch.int64, "maxs", dev,
-                  "dense_pack")
+    for key in ("mins", "maxs"):
+        _check_tensor(k2[key], (Sc, A if merged else H), torch.int64, key,
+                      dev, "dense_pack")
     if len(hists) != H or len(nouts) != H:
         raise ValueError(f"dense_pack: expected {H} hist tables and outlier "
                          f"counts, got {len(hists)} and {len(nouts)}")
@@ -1726,7 +1768,7 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     rows, W = layout["rows"], layout["W"]
     _check_tensor(main, (rows, W), torch.int64, "main", dev, "dense_pack")
     plan = dense_table_plan(config, R)
-    lanes = _wire_lanes(plan)
+    lanes = _wire_lanes(plan) if plan is not None else []
     a = DensePackArgs()
     a.sums, a.spill = k2["sums"].data_ptr(), k2["spill"].data_ptr()
     a.mins, a.maxs = k2["mins"].data_ptr(), k2["maxs"].data_ptr()
@@ -1735,11 +1777,17 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
                       f"hist of agg {ai}", dev, "dense_pack")
         if n is not None:
             _check_tensor(n, (1,), torch.int64, "nout", dev, "dense_pack")
-    _set_desc(a, dev, {
+    desc = {
         "nout": [_ptr(n) for n in nouts], "hist": [_ptr(h) for h in hists],
         "hist_row": [layout[f"hist{ai}"][0] for ai in hist],
         "hist_nv": [config.aggs[ai].num_values for ai in hist],
-        "lane": lanes})
+        "lane": lanes}
+    if merged:
+        a.K, a.A = K, A
+        a.keys = k2["keys"].data_ptr()
+        a.num_groups = k2["num_groups"].data_ptr()
+        a.overflow = k2["overflow"].data_ptr()
+    _set_desc(a, dev, desc)
     a.main, a.rows = main.data_ptr(), rows
     a.out_lo, a.out_hi = outlier_rows(config, R)
     if H:
@@ -1753,7 +1801,7 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     if (H or "Phll" in layout) and _tail_row(layout) != a.out_hi:
         raise AssertionError("dense_pack: unexpected section between the "
                              "outlier rows and the HLL or hist sections")
-    a.ncols, a.i32 = len(lanes), int(plan["i32"])
+    a.ncols, a.i32 = len(lanes), int(bool(plan and plan["i32"]))
     a.slots, a.Sc, a.compact, a.L, a.W, a.H = (slots, Sc, int(compact), L,
                                                 W, H)
     fn = kernels.lib("dense_pack").dense_pack
@@ -2670,6 +2718,9 @@ class SortedPackArgs(ctypes.Structure):
         ("pruned", ctypes.c_int),
         ("D", ctypes.c_int),
         ("kmax_pairs", ctypes.c_int),
+        ("overflow", ctypes.c_void_p),
+        ("mmw", ctypes.c_int),
+        ("pad_", ctypes.c_int),
     ]
 
 
@@ -2694,12 +2745,14 @@ def prune_score_plain(config: ScanConfig, count, live, acnt, wv):
 
 
 def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
-                      main, R: int):
+                      main, R: int, overflow=None):
     """Plain PyTorch version of K10: the keyed [S, K+2+5A] table and the
     packed `main` buffer, in place, outside K5's rows (reference
     pack_outputs 1865-1872, 1902-1965, 1979-1998; with distinct columns
     the pair section 1925-1933 from K8's pair_mask, kmat and dmat, and
-    its npairs meta word).  Under the device
+    its npairs meta word).  A mesh scan's merged table (`overflow` [1]
+    given: its meta word) brings every aggregation's min and max [S, A].
+    Under the device
     prune (prune_topk > 0) the prefix rows stay zero for prune_gather,
     the meta row holds the pruned marker and the table's count and
     sample totals (1961-1963), and each row's prune score is returned.
@@ -2711,9 +2764,9 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
     hist = hist_aggs(config)
     cols = [k8["keys"][:, k] for k in range(K)] + [sums[:, 0], sums[:, 1]]
     for ai in range(A):
-        if ai in hist:
-            mn = k8["mins"][:, hist.index(ai)]
-            mx = k8["maxs"][:, hist.index(ai)]
+        if overflow is not None or ai in hist:
+            mi = ai if overflow is not None else hist.index(ai)
+            mn, mx = k8["mins"][:, mi], k8["maxs"][:, mi]
         else:
             mn = torch.full((S,), _BIG, dtype=torch.int64, device=dev)
             mx = torch.full((S,), -_BIG, dtype=torch.int64, device=dev)
@@ -2733,6 +2786,8 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
         meta[7 + H + i] = hp["npairs"].reshape(())
     if config.distinct_cols:
         meta[2 + H] = k8["pair_mask"].sum(dtype=torch.int64)
+    if overflow is not None:
+        meta[3 + H] = overflow.reshape(())
     score = None
     if config.prune_topk > 0:
         pi = 4 + H
@@ -2782,7 +2837,7 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
 
 
 def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
-                R: int):
+                R: int, overflow=None):
     """K10: as sorted_pack_plain -> {"table", "score"}.  CUDA tensors
     launch the kernel (csrc/sorted_pack.cu); CPU tensors take the plain
     version.
@@ -2798,7 +2853,8 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     K+2+5A] table and one byte of hp_mask or pair_mask per row)."""
     dev = main.device
     if dev.type == "cpu":
-        return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R)
+        return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R,
+                                 overflow)
     if dev.type != "cuda":
         raise ValueError(f"sorted_pack: unsupported device {dev}")
     K, A = config.n_key_cols, len(config.aggs)
@@ -2811,8 +2867,14 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     _check_tensor(main, (rows, W), torch.int64, "main", dev, "sorted_pack")
     _check_tensor(k8["sums"], (S + 1, L), torch.int64, "sums", dev,
                   "sorted_pack")
-    _check_tensor(k8["mins"], (S, H), torch.int64, "mins", dev, "sorted_pack")
-    _check_tensor(k8["maxs"], (S, H), torch.int64, "maxs", dev, "sorted_pack")
+    mmw = A if overflow is not None else H
+    _check_tensor(k8["mins"], (S, mmw), torch.int64, "mins", dev,
+                  "sorted_pack")
+    _check_tensor(k8["maxs"], (S, mmw), torch.int64, "maxs", dev,
+                  "sorted_pack")
+    if overflow is not None:
+        _check_tensor(overflow, (1,), torch.int64, "overflow", dev,
+                      "sorted_pack")
     _check_tensor(k8["keys"], (S, K), torch.int64, "keys", dev, "sorted_pack")
     _check_tensor(k8["num_groups"], (1,), torch.int64, "num_groups", dev,
                   "sorted_pack")
@@ -2844,7 +2906,9 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
         **{key: [hp[key].data_ptr() for hp in pairs]
            for key in ("hp_mask", "hp_keys", "hp_bv", "hp_w", "npairs")},
         "hp_row": [layout[f"hpair{ai}"][0] for ai in hist],
-        "agg_mm": [hist.index(i) if i in hist else -1 for i in range(A)]})
+        "agg_mm": [i if overflow is not None else
+                   (hist.index(i) if i in hist else -1) for i in range(A)]})
+    a.overflow, a.mmw = _ptr(overflow), mmw
     D = len(config.distinct_cols)
     if D:
         _check_tensor(k8["pair_mask"], (R,), torch.bool, "pair_mask", dev,
@@ -2935,21 +2999,14 @@ def prune_gather(config: ScanConfig, table, pidx, main):
 
 
 def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
-                 time_bucket: int, set_masks=None):
-    """The sorted strategy: K7, the sorts, K8, per histogram aggregation
-    K9 (prep, the pair sort, pairs) and K5 over kmat, then K10; under
-    the device prune K12 picks the top rows of K10's table and
-    prune_gather writes them as the prefix (the returned table is then
-    the pruned one, as the reference's pack returns it)."""
-    B, C = _batch_shape(cols)
-    R = B * C
+                 time_bucket: int, set_masks=None) -> dict:
+    """The sorted strategy up to the pack: K7, the sorts, K8, and per
+    histogram aggregation K9 (prep, the pair sort, pairs).  -> the
+    scan_core parts {"k8", "spill", "pairs", "nouts", "raw"}."""
     front = sorted_front(config, cols, nrec, filter_vals, bitsets,
                          time_bucket, set_masks)
     order = sort_rows(config, front)
     k8 = segment_reduce(config, cols, front, order, time_bucket)
-    layout = packed_layout(config, R)
-    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
-                       device=nrec.device)
     raw = {"kmat": k8["kmat"], "dmat": k8["dmat"],
            "pair_mask": k8["pair_mask"], "cols": cols,
            "time_bucket": time_bucket}
@@ -2967,15 +3024,8 @@ def _scan_sorted(config: ScanConfig, cols, nrec, filter_vals, bitsets,
         if config.track_outliers:
             raw[f"agg{ai}_out_mask"] = prep["out_mask"]
             raw[f"agg{ai}_out_val"] = prep["out_val"]
-            outlier_compact(config, cols, prep["out_mask"], prep["out_val"],
-                            main, layout[f"out{ai}"][0], time_bucket,
-                            kmat=k8["kmat"])
-    packed = sorted_pack(config, k8, front["spill"], pairs, nouts, main, R)
-    table = packed["table"]
-    if packed["score"] is not None:
-        pidx = topk_rows(packed["score"], table_prefix(config))
-        table = prune_gather(config, table, pidx, main)
-    return {"main": main, "table": table}, raw
+    return {"k8": k8, "spill": front["spill"], "pairs": pairs,
+            "nouts": nouts, "raw": raw}
 
 
 # ---------------------------------------------------------------------------
@@ -3140,10 +3190,12 @@ def topk_rows_plain(score, k: int):
     return idx.to(torch.int32)
 
 
-def topk_rows(score, k: int):
+def topk_rows(score, k: int, two_valued: bool = False):
     """K12: as topk_rows_plain, for int32, int64 and f32 scores.  CUDA
     tensors launch the kernel (csrc/topk_rows.cu); CPU tensors take the
-    plain version.
+    plain version.  two_valued: the scores take at most two values (a
+    mesh scan's 0/1 live flags), so the winners need no final sort and k
+    may pass TOPK_MAX.
 
     Replaces sybil_tpu/ops/scan.py:_topk_rows 1369-1399 (the tiled top-k
     whose fallback makes it equal lax.top_k) and the lax.top_k of the
@@ -3162,24 +3214,25 @@ def topk_rows(score, k: int):
     if score.dtype not in _TOPK_DTYPES:
         raise ValueError(f"topk_rows: scores of {score.dtype} are not taken")
     _check_tensor(score, (R,), score.dtype, "score", dev, "topk_rows")
-    if not 0 < k <= min(R, TOPK_MAX) or R >= 2 ** 31:
-        raise ValueError(f"topk_rows: k {k} must lie in [1, min({R}, "
-                         f"{TOPK_MAX})]")
+    kcap = R if two_valued else min(R, TOPK_MAX)
+    if not 0 < k <= kcap or R >= 2 ** 31:
+        raise ValueError(f"topk_rows: k {k} must lie in [1, {kcap}]")
     ntiles = -(-R // _SEG_TILE)
     out = torch.empty(k, dtype=torch.int32, device=dev)
     state = torch.empty(2, dtype=torch.int64, device=dev)
     hist = torch.empty(256, dtype=torch.int32, device=dev)
     offsets = torch.empty((2, ntiles + 1), dtype=torch.int32, device=dev)
-    cand = torch.empty(k, dtype=torch.int32, device=dev)
+    cand = out if two_valued else torch.empty(k, dtype=torch.int32,
+                                              device=dev)
     fn = kernels.lib("topk_rows").topk_rows
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     kernels.check(fn(score.data_ptr(), out.data_ptr(), state.data_ptr(),
                      hist.data_ptr(), offsets.data_ptr(), cand.data_ptr(),
                      R, k, _TOPK_DTYPES[score.dtype], ntiles,
-                     _grid(dev, R, 0, False), kernels.stream_handle(dev)),
-                  "topk_rows")
+                     int(two_valued), _grid(dev, R, 0, False),
+                     kernels.stream_handle(dev)), "topk_rows")
     kernels.LAUNCHES["topk_rows"] += 1
     return out
 
@@ -3345,48 +3398,41 @@ def _scan_enum(config: ScanConfig, cols, nrec, filter_vals, bitsets,
 # entry
 # ---------------------------------------------------------------------------
 
-def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
-                bitsets=(), time_bucket: int = 1, set_aux=None):
-    """-> (packed {"main": [rows, W] int64, and off the dense strategy
-    "table": the keyed [S, K+2+5A] group table, or its top P rows under
-    the device prune and on the enumerated strategy}, raw device
-    outputs).
+def scan_core(config: ScanConfig, cols, nrec, filter_vals=None,
+              bitsets=(), time_bucket: int = 1, set_aux=None) -> dict:
+    """The scan of one batch up to the pack, for the dense and sorted
+    strategies (the reference's scan_core, scan.py:1610-1630, whose
+    output dict these parts carry in the kernels' own form).
 
-    Same arguments as the reference's scan_packed_jit: filter_vals int64
-    [F] and the regex bitsets are device constants (the device HLL's
-    uint64 hash array as its int64 bits); time_bucket is the
-    rollup's bucket width (a host int: the kernels take it as a scalar
-    argument); set_aux: {set column: (prow int32 [M], pval int64 [M],
-    n real entries)}, the batch CSR the engine's loader keeps resident
-    (row ids in [0, R), the pads R).  First K14 once per set filter, its
-    bitmasks read by K2 or K7.  Routes as
-    the reference's scan_core: dense (K2, then K4 and K5 per histogram
-    aggregation, then K3), else enumerated when enum_radix(config) > 0
-    (K7 enum form, the sort, K11, K12, K10 enum_pack), else sorted (K7,
-    the sorts, K8, K9 and K5 per histogram aggregation, K10, and under
-    the device prune K12 and K10's prune_gather); a dense count distinct
-    runs K13 after K2.  `raw` keeps what escalation fetches when a packed
-    section overflows: "agg{ai}_hist" [Sc, nv] and "hll_regs" [slots,
-    HLL_M] (dense), "agg{ai}_hp_*" [R], "kmat" [R, K], "dmat" [R, D] and
-    "pair_mask" [R] (sorted), "agg{ai}_out_mask" / "agg{ai}_out_val" [R],
-    "matched" bool [B, C] under want_matched_mask (dense and sorted),
-    and "cols" and "time_bucket" for the key lanes (key_rows)."""
-    check_supported(config)
+    -> {"strategy", "R", "dev", "raw", "nouts": each histogram
+    aggregation's outlier count [1] (None without tracking), and
+      dense:  "k2" (K2's reduce-space sums, mins, maxs, spill), "hists"
+              (K4's [Sc, nv] per histogram aggregation), "hll" (K13's
+              planes or None);
+      sorted: "k8" (K8's keyed table: keys, sums, mins, maxs,
+              num_groups, and the distinct pairs), "spill" (K7's),
+              "pairs" (K9's sparse hist pairs per histogram
+              aggregation)}.
+    First K14 once per set filter, its bitmasks read by K2 or K7; then
+    dense: K2, K13 for a count distinct, K4 per histogram aggregation;
+    sorted: K7, the sorts, K8, K9 per histogram aggregation.  The
+    enumerated strategy has no such split (scan_packed).  `raw` keeps
+    what escalation fetches when a packed section overflows, as
+    scan_packed documents."""
     B, C = _batch_shape(cols)
     R = B * C
     time_bucket = int(time_bucket)
     set_masks = set_filter_masks(config, filter_vals, set_aux, R)
     if config.strategy != "dense":
         if enum_radix(config):
-            return _scan_enum(config, cols, nrec, filter_vals, bitsets,
-                              set_masks)
-        return _scan_sorted(config, cols, nrec, filter_vals, bitsets,
-                            time_bucket, set_masks)
+            raise ValueError("scan_core: the enumerated strategy packs in "
+                             "its scan (scan_packed)")
+        parts = _scan_sorted(config, cols, nrec, filter_vals, bitsets,
+                             time_bucket, set_masks)
+        parts.update(strategy="sorted", R=R, dev=nrec.device)
+        return parts
     k2 = dense_scan(config, cols, nrec, filter_vals, bitsets, time_bucket,
                     set_masks=set_masks)
-    layout = packed_layout(config, R)
-    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
-                       device=nrec.device)
     raw = {k: v for k, v in k2.items() if k not in ("gid", "mask")}
     if k2["mask"] is not None:
         raw["matched"] = k2["mask"]
@@ -3405,10 +3451,80 @@ def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
         if config.track_outliers:
             raw[f"agg{ai}_out_mask"] = h["out_mask"]
             raw[f"agg{ai}_out_val"] = h["out_val"]
-            outlier_compact(config, cols, h["out_mask"], h["out_val"], main,
-                            layout[f"out{ai}"][0], time_bucket)
-    dense_pack(config, k2, hists, nouts, main, R, hll)
-    return {"main": main}, raw
+    return {"strategy": "dense", "R": R, "dev": nrec.device, "k2": k2,
+            "hists": hists, "nouts": nouts, "hll": hll, "raw": raw}
+
+
+def pack_parts(config: ScanConfig, parts: dict) -> dict:
+    """The one packed download of scan_core's parts (or of a mesh scan's
+    merged parts, parallel/mesh.py): K5 per tracked histogram
+    aggregation (keys from the columns, or from raw's kmat: K8's on the
+    sorted strategy, a multi-process dense mesh's outlier rows), then K3
+    (dense) or K10 (with
+    K12 and prune_gather under the device prune).  -> {"main": [rows, W]
+    int64, and off the dense strategy "table": the keyed [S, K+2+5A]
+    group table, or its top P rows under the device prune}."""
+    R = parts["R"]
+    raw = parts["raw"]
+    layout = packed_layout(config, R)
+    main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
+                       device=parts["dev"])
+    dense = parts["strategy"] == "dense"
+    kmat = raw.get("kmat")
+    if config.track_outliers:
+        for ai in hist_aggs(config):
+            outlier_compact(config, raw.get("cols"), raw[f"agg{ai}_out_mask"],
+                            raw[f"agg{ai}_out_val"], main,
+                            layout[f"out{ai}"][0], raw["time_bucket"],
+                            kmat=kmat)
+    if dense:
+        dense_pack(config, parts["k2"], parts["hists"], parts["nouts"], main,
+                   R, parts["hll"])
+        return {"main": main}
+    packed = sorted_pack(config, parts["k8"], parts["spill"], parts["pairs"],
+                         parts["nouts"], main, R,
+                         overflow=parts.get("overflow"))
+    table = packed["table"]
+    if packed["score"] is not None:
+        # the device prune: K12 picks the top rows of K10's table and
+        # prune_gather writes them as the prefix (the returned table is
+        # then the pruned one, as the reference's pack returns it)
+        pidx = topk_rows(packed["score"], table_prefix(config))
+        table = prune_gather(config, table, pidx, main)
+    return {"main": main, "table": table}
+
+
+def scan_packed(config: ScanConfig, cols, nrec, filter_vals=None,
+                bitsets=(), time_bucket: int = 1, set_aux=None):
+    """-> (packed {"main": [rows, W] int64, and off the dense strategy
+    "table": the keyed [S, K+2+5A] group table, or its top P rows under
+    the device prune and on the enumerated strategy}, raw device
+    outputs).
+
+    Same arguments as the reference's scan_packed_jit: filter_vals int64
+    [F] and the regex bitsets are device constants (the device HLL's
+    uint64 hash array as its int64 bits); time_bucket is the
+    rollup's bucket width (a host int: the kernels take it as a scalar
+    argument); set_aux: {set column: (prow int32 [M], pval int64 [M],
+    n real entries)}, the batch CSR the engine's loader keeps resident
+    (row ids in [0, R), the pads R).  Routes as the reference's
+    scan_core: the enumerated strategy when enum_radix(config) > 0 (K14
+    per set filter, K7 enum form, the sort, K11, K12, K10 enum_pack),
+    else scan_core then pack_parts.  `raw` keeps what escalation fetches
+    when a packed section overflows: "agg{ai}_hist" [Sc, nv] and
+    "hll_regs" [slots, HLL_M] (dense), "agg{ai}_hp_*" [R], "kmat" [R, K],
+    "dmat" [R, D] and "pair_mask" [R] (sorted), "agg{ai}_out_mask" /
+    "agg{ai}_out_val" [R], "matched" bool [B, C] under want_matched_mask
+    (dense and sorted), and "cols" and "time_bucket" for the key lanes
+    (key_rows)."""
+    if config.strategy != "dense" and enum_radix(config):
+        B, C = _batch_shape(cols)
+        set_masks = set_filter_masks(config, filter_vals, set_aux, B * C)
+        return _scan_enum(config, cols, nrec, filter_vals, bitsets,
+                          set_masks)
+    parts = scan_core(config, cols, nrec, filter_vals, bitsets, time_bucket,
+                      set_aux)
+    return pack_parts(config, parts), parts["raw"]
 
 
 def fetch_outliers(config: ScanConfig, raw: dict, ai: int):

@@ -1,3 +1,4 @@
-"""The node protocol: the wire format of partial results and the
-`aggregate` merge (parallel/mesh.py and multihost.py are not ported yet,
-ROADMAP A14, A15)."""
+"""Across shards, processes and nodes: the mesh scan and its shuffle
+(mesh.py), the multi-process runtime (multihost.py), and the node
+protocol's wire format of partial results and `aggregate` merge (wire.py,
+aggregator.py)."""

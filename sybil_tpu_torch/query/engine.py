@@ -1,7 +1,7 @@
 """Query engine orchestrator.
 
-Port of sybil_tpu/query/engine.py for one device, without the row-store
-scan or meshes.  The plan:
+Port of sybil_tpu/query/engine.py, without the row-store scan
+(-read-log).  The plan:
 
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
@@ -22,6 +22,14 @@ scan or meshes.  The plan:
            HLL, K13) or (group, distinct) pairs (the sorted strategy)
   finish   translate group keys to display strings (aggregate.go:284-324),
            sort (aggregate.go:469-525), build the Cumulative row
+
+With -data-shards D the scan runs over a mesh of D data shards
+(parallel/mesh.py): each batch's blocks split into D contiguous shards,
+each scanned up to its group table, and the hash-partitioned shuffle
+(K15, the exchange, K16) merges the tables before one pack; with
+-dist-coordinator/-dist-pid/-dist-nproc N processes (one a card) join
+one torch.distributed group, each loading and scanning its span of
+every batch (parallel/multihost.py), and process 0 prints.
 
 With -cache-queries each stable group of 16 full blocks answers from its
 cache file (query/cache.py) or is scanned and written; the missed groups
@@ -677,6 +685,22 @@ def pad_set_csr(rows, vals, R: int):
     return prow, pval
 
 
+def shard_set_csr(rows, vals, shards: int, R_local: int):
+    """A batch's set-column CSR split into the mesh's contiguous shards
+    (reference engine.py:886-904): -> (prow int32 [shards, M], pval int64
+    [shards, M], entries per shard), row ids shard-local, one power-of-two
+    width M for all (pads: row R_local, value -2)."""
+    shard = rows // R_local
+    per = [np.nonzero(shard == d)[0] for d in range(shards)]
+    m = _pad_pow2(max([len(p) for p in per] + [1]))
+    prow = np.full((shards, m), R_local, dtype=np.int32)
+    pval = np.full((shards, m), -2, dtype=np.int64)
+    for d, p in enumerate(per):
+        prow[d, :len(p)] = rows[p] - d * R_local
+        pval[d, :len(p)] = vals[p]
+    return prow, pval, tuple(len(p) for p in per)
+
+
 class BatchLoader:
     """Assembles [B, C] device tensors for a batch of blocks, reusing the
     device-resident column cache: each (batch, column) decodes once and
@@ -684,11 +708,15 @@ class BatchLoader:
     column becomes the batch's flattened CSR, also resident."""
 
     def __init__(self, bound: BoundQuery, block_dirs: list[str], C: int,
-                 expected: dict[str, int] | None = None, device="cuda"):
+                 expected: dict[str, int] | None = None, device="cuda",
+                 shards: int = 0):
         self.bound = bound
         self.block_dirs = block_dirs
         self.C = C
         self.device = device
+        # > 0: the mesh's data shards among block_dirs, each with a set
+        # column CSR of its own
+        self.shards = shards
         # num_records per block as captured at query start; a column whose
         # decoded length disagrees means the block was republished between
         # the info read and the column load — skip it, mirroring the
@@ -776,7 +804,9 @@ class BatchLoader:
         set_aux {set column: (prow int32 [M], pval int64 [M], n)}): a set
         column's per-block CSR flattened into batch row ids (block bi's
         rows offset by bi * C) and values, padded to a power of two M
-        with row R and value -2, n real entries."""
+        with row R and value -2, n real entries.  With shards, each
+        shard's CSR: prow and pval [shards, M], shard-local row ids (pad
+        R_local), and n a tuple of each shard's entries."""
         import torch
 
         from ..ops.residency import CACHE, block_col_key
@@ -818,7 +848,7 @@ class BatchLoader:
                 block_col_key(bdir, blockio.column_file(SET_VAL, name),
                               name, C) for bdir in self.block_dirs)
             set_batch_keys[name] = ("set_batch", name, bkeys,
-                                    str(self.device))
+                                    str(self.device), self.shards)
             ent = CACHE.get(set_batch_keys[name])
             if ent is not None:
                 set_dev[name] = ent
@@ -897,12 +927,17 @@ class BatchLoader:
             else:
                 rows = np.zeros(0, dtype=np.int64)
                 vals = np.zeros(0, dtype=np.int64)
-            prow, pval = pad_set_csr(rows, vals, R)
+            if self.shards:
+                prow, pval, n = shard_set_csr(rows, vals, self.shards,
+                                              (B // self.shards) * C)
+            else:
+                prow, pval = pad_set_csr(rows, vals, R)
+                n = len(rows)
             dev = (torch.from_numpy(prow).to(self.device),
                    torch.from_numpy(pval).to(self.device))
             CACHE.put(set_batch_keys[name],
-                      (dev[0], dev[1], tuple(set_ncols[name]), len(rows)))
-            set_aux[name] = (dev[0], dev[1], len(rows))
+                      (dev[0], dev[1], tuple(set_ncols[name]), n))
+            set_aux[name] = (dev[0], dev[1], n)
         if self.changed:
             # zero out changed blocks so the kernel scans nothing from
             # them, after EVERY staleness probe has run, the set-batch
@@ -943,11 +978,6 @@ def _run_query_inner(table: Table, params: QueryParams,
         raise NotImplementedError(
             "-read-log (scanning the row store) is not ported yet "
             "(ROADMAP A13.1)")
-    if (flags.data_shards > 1 or flags.dist_coordinator
-            or flags.dist_num_processes > 1):
-        raise NotImplementedError(
-            "mesh and multi-process scans are not ported yet "
-            "(ROADMAP A14, A15, B11)")
     with timer.phase("bind"):
         if not table.load_info() and not table.exists():
             error("table", table.name,
@@ -967,7 +997,32 @@ def _run_query_inner(table: Table, params: QueryParams,
     C = CHUNK_SIZE if maxrec > 8192 else _pad_pow2(max(maxrec, 1))
     B = max(1, min(flags.device_batch, max(len(block_dirs), 1)))
 
-    ctx = _ScanCtx(bound, infos, params, timer, C, device)
+    from ..parallel import multihost as mh
+    mesh = None
+    mh.init_distributed(flags)
+    if mh.is_multiprocess() and flags.data_shards <= 1:
+        # N processes, one mesh: a shard a process by default
+        flags.data_shards = mh.process_count()
+    if flags.data_shards > 1:
+        import dataclasses as _dc
+
+        from ..parallel.mesh import Mesh
+        D = flags.data_shards
+        nproc = mh.process_count()
+        if D % nproc:
+            error("data-shards", D, "must divide evenly across", nproc,
+                  "processes")
+        import torch.distributed as dist
+        mesh = Mesh(D, dist.group.WORLD if nproc > 1 else None)
+        B = _mesh_batch(mesh, B)
+        # the HLL's register planes do not ride the shuffle payload (the
+        # sorted pair path instead), and shuffled table rows are not
+        # slot-aligned (the keyed table on the wire)
+        bound.config = _dc.replace(bound.config, no_compact_table=True,
+                                   **({"hll": False, "hll_hash_idx": -1}
+                                      if bound.config.hll else {}))
+
+    ctx = _ScanCtx(bound, infos, params, timer, C, device, mesh)
     # -read-log raised above, so the cache runs whenever it is asked for
     # and the query takes no samples
     if flags.cache_queries and not params.samples:
@@ -999,6 +1054,7 @@ def _cached_scan(ctx: "_ScanCtx", table: Table, block_dirs: list[str],
     cached partial must be exact."""
     import dataclasses as _dc
 
+    from ..parallel import multihost as mh
     from . import cache as qcache
     bound, params, timer = ctx.bound, ctx.params, ctx.timer
     infos = ctx.infos
@@ -1030,7 +1086,8 @@ def _cached_scan(ctx: "_ScanCtx", table: Table, block_dirs: list[str],
         # or, unbounded, the sorted strategy
         use_vg = False
         vg_cap = 1
-        if to_scan and B >= qcache.GROUP_SIZE and all(
+        # a mesh's shuffled rows are not slot-aligned: no vgroups there
+        if to_scan and ctx.mesh is None and B >= qcache.GROUP_SIZE and all(
                 len(g) <= qcache.GROUP_SIZE for _, g in to_scan):
             ng_try = max(1, min(len(to_scan),
                                 max(1, B // qcache.GROUP_SIZE)))
@@ -1071,8 +1128,10 @@ def _cached_scan(ctx: "_ScanCtx", table: Table, block_dirs: list[str],
             rest = []
         elif to_scan:
             # one group a batch: a group is GROUP_SIZE blocks, so a
-            # larger batch would only pad it
-            group_accs = _scan_dirs(ctx, [], min(B, qcache.GROUP_SIZE),
+            # larger batch would only pad it (to a mesh multiple)
+            group_accs = _scan_dirs(ctx, [],
+                                    _mesh_batch(ctx.mesh,
+                                                min(B, qcache.GROUP_SIZE)),
                                     allow_prune=False, groups=to_scan)
     for k, live in missed_live:
         if live:
@@ -1082,17 +1141,26 @@ def _cached_scan(ctx: "_ScanCtx", table: Table, block_dirs: list[str],
                             # a group not scanned is never cached
         else:               # every block pruned: cache the empty partial
             sub = _Accumulator(bound)
-        # one process writes: the port has no multi-process scan (the
-        # reference's mh.is_printer() gate, ROADMAP A15)
-        with timer.phase("cache_save"):
-            qcache.save_group_rows(table, k, sub)
+        if mh.is_printer():   # one writer per mesh; the others share disk
+            with timer.phase("cache_save"):
+                qcache.save_group_rows(table, k, sub)
         acc.merge_from(sub)
         acc.maybe_prune()
     if rest and not acc.distinct_limit_hit():
-        sub = _scan_dirs(ctx, rest, min(B, len(rest)), allow_prune=False)
+        sub = _scan_dirs(ctx, rest, _mesh_batch(ctx.mesh, min(B, len(rest))),
+                         allow_prune=False)
         acc.merge_from(sub)
         acc.maybe_prune()
     return acc
+
+
+def _mesh_batch(mesh, B: int) -> int:
+    """A batch size rounded UP to a multiple of the mesh's shards (down
+    would split, say, 31 blocks over 2 shards into two full-shape padded
+    batches)."""
+    if mesh is None:
+        return B
+    return -(-B // mesh.D) * mesh.D
 
 
 def _maybe_device_prune(bound: BoundQuery, params: QueryParams,
@@ -1129,13 +1197,14 @@ def _maybe_device_prune(bound: BoundQuery, params: QueryParams,
 class _ScanCtx:
     """Shared per-query scan state threaded through _scan_dirs."""
 
-    def __init__(self, bound, infos, params, timer, C, device):
+    def __init__(self, bound, infos, params, timer, C, device, mesh=None):
         self.bound = bound
         self.infos = infos
         self.params = params
         self.timer = timer
         self.C = C
         self.device = device
+        self.mesh = mesh          # parallel/mesh.py Mesh, or None
         self.refresh_consts()
 
     def refresh_consts(self):
@@ -1317,7 +1386,9 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
     the batch's matched rows until it holds 4 * limit.  When a batch
     reports a dense key bound spill, the whole scan restarts once on
     the unpacked sorted strategy, with fresh accumulators, as the
-    reference's does (engine.py:1379-1592).
+    reference's does (engine.py:1379-1592).  Under a mesh each batch is
+    a sharded_scan (parallel/mesh.py) packed once; a process of a
+    multi-process mesh loads only its span of each batch.
 
     groups: [(key, dirs), ...] or None.  When given, every group's
     batches ride the one pipeline but land in an accumulator of their
@@ -1327,10 +1398,12 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
     import dataclasses as _dc
 
     from ..ops.residency import device_const
-    from ..ops.scan import scan_packed
+    from ..ops.scan import pack_parts, scan_packed
+    from ..parallel.mesh import sharded_scan
 
     bound, params, timer = ctx.bound, ctx.params, ctx.timer
-    C, device, infos = ctx.C, ctx.device, ctx.infos
+    C, device, infos, mesh = ctx.C, ctx.device, ctx.infos, ctx.mesh
+    nproc, pid = (mesh.nproc, mesh.pid) if mesh else (1, 0)
     if groups is None:
         work = [(None, block_dirs[s: s + B])
                 for s in range(0, len(block_dirs), B)]
@@ -1394,19 +1467,38 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
             cfg = bound.config
             batch_dirs = batch + [batch[-1]] * (B - len(batch))  # pad
             R = B * C
+            # a process of a multi-process mesh loads and scans only its
+            # span of the batch (one process: all of it)
+            Bl = B // nproc
+            lo = pid * Bl
             with timer.phase("load"):
-                loader = BatchLoader(bound, batch_dirs, C, expected, device)
+                loader = BatchLoader(bound, batch_dirs[lo: lo + Bl], C,
+                                     expected, device,
+                                     shards=mesh.Dl if mesh else 0)
                 cols, nrec, set_aux = loader.load()
-            nrec[len(batch):] = 0  # padded repeats contribute nothing
+            # padded repeats contribute nothing
+            nrec[max(0, min(len(batch) - lo, Bl)):] = 0
+            nrec_all = nrec
+            if nproc > 1:
+                # the samples walk reads the whole batch's blocks
+                nrec_all = np.array([min(expected.get(d, 0), C)
+                                     for d in batch_dirs], dtype=np.int32)
+                nrec_all[len(batch):] = 0
             with timer.phase("dispatch"):
-                packed, out = scan_packed(cfg, cols,
-                                          device_const(nrec, device),
-                                          ctx.jfv, ctx.jbits,
-                                          params.time_bucket or 1, set_aux)
+                jnrec = device_const(nrec, device)
+                tb = params.time_bucket or 1
+                if mesh is None:
+                    packed, out = scan_packed(cfg, cols, jnrec, ctx.jfv,
+                                              ctx.jbits, tb, set_aux)
+                else:
+                    parts = sharded_scan(cfg, mesh, cols, jnrec, ctx.jfv,
+                                         ctx.jbits, tb, set_aux)
+                    packed, out = pack_parts(cfg, parts), parts["raw"]
             # the raw outputs stay beside the packed buffer until it
             # drains: escalation fetches from them when a packed section
             # overflows, and a samples query reads its matched mask
-            pending.append((gkey, cfg, packed, out, R, batch_dirs, nrec))
+            pending.append((gkey, cfg, packed, out, R, batch_dirs,
+                            nrec_all))
             _start_d2h(packed)
             if len(pending) >= PIPELINE:
                 with timer.phase("drain"):
@@ -1619,8 +1711,9 @@ class _Accumulator:
 
     def absorb_packed(self, packed, out, R: int, config=None) -> int:
         """Parse the single packed download (ops/scan.py scan_packed):
-        row 0 meta [num_groups, spill, nout per hist agg, npairs,
-        overflow, pruned, total count, total samples (the last two 0
+        row 0 meta [num_groups, spill, nout per hist agg, npairs, the mesh
+        shuffle's overflow (refused), pruned, total count, total samples
+        (the last two 0
         unless pruned), nhistpairs per hist agg]; then the group
         table (the dense compact keyless form, or the keyed prefix of the
         sorted strategy); then per-hist-agg compacted outlier rows; then
@@ -1656,6 +1749,13 @@ class _Accumulator:
             return spill
         nouts = {ai: int(meta[2 + i]) for i, ai in enumerate(hist_ais)}
         npairs = int(meta[2 + len(hist_ais)])
+        overflow = int(meta[3 + len(hist_ais)])
+        if overflow > 0:
+            # a mesh scan's shuffle capacity exceeded (extreme key-hash
+            # clustering, or more merged groups than table slots): refuse
+            # a silently truncated result (reference engine.py:1899-1904)
+            error("sharded shuffle overflowed by", overflow,
+                  "group rows; raise -max-groups or use fewer data shards")
         # device prune (prune_topk): the marker, then the whole batch's
         # count and sample totals
         pi = 4 + len(hist_ais)

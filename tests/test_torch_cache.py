@@ -42,6 +42,7 @@ from sybil_tpu.config import Flags as RefFlags
 from sybil_tpu.digest import digest_records
 from sybil_tpu.ingest import flatten_record
 from sybil_tpu.ops import scan as ref
+from sybil_tpu.parallel import mesh as ref_mesh
 from sybil_tpu.query.engine import run_query as ref_run_query
 from sybil_tpu.query.spec import AggDef as RefAgg
 from sybil_tpu.query.spec import FilterDef as RefFilter
@@ -50,6 +51,7 @@ from sybil_tpu.table import Table as RefTable
 from sybil_tpu_torch import cli as port_cli
 from sybil_tpu_torch.config import Flags
 from sybil_tpu_torch.ops import scan as port
+from sybil_tpu_torch.parallel import mesh as port_mesh
 from sybil_tpu_torch.query import cache as port_cache
 from sybil_tpu_torch.query import engine as port_engine
 from sybil_tpu_torch.query.engine import run_query
@@ -192,21 +194,42 @@ def test_cache_group_scan_matches_reference(name):
 
 def test_key_rows_cg_lane_and_check_supported():
     """key_rows (K5's and the escalation's key source) puts the cache
-    group first in both layouts; check_supported admits cache-group
-    configs and still refuses the mesh's keyed dense table."""
+    group first in both layouts; the scan admits cache-group configs, and
+    no_compact_table (the mesh's keyed dense table, no longer refused)
+    packs a mesh scan's merged table word for word as the reference does,
+    while a scan's own keyed table stays the row-store scan's (A13.1)."""
     cols = {k: (torch.from_numpy(v), torch.from_numpy(m))
             for k, (v, m) in unit_batch()[0].items()}
     idx = torch.tensor([0, C - 1, C, 3 * C + 5, R - 1])
     for name in ("dense", "rollup-vg-first"):
         pcfg = port.config_from_fields(dataclasses.asdict(unit_config(name)))
-        port.check_supported(pcfg)
         rows = port.key_rows(pcfg, cols, idx, 100)
         assert rows[:, 0].tolist() == [0, 0, 0, 1, 3]
         assert rows.shape[1] == pcfg.n_key_cols
-    pcfg = port.config_from_fields(dataclasses.asdict(unit_config("dense")))
-    with pytest.raises(NotImplementedError, match="B11"):
-        port.check_supported(dataclasses.replace(pcfg,
-                                                 no_compact_table=True))
+    _, nrec = unit_batch()
+    cfg = dataclasses.replace(unit_config("dense"), no_compact_table=True)
+    with pytest.raises(NotImplementedError, match="A13.1"):
+        port.scan_packed(port.config_from_fields(dataclasses.asdict(cfg)),
+                         cols, torch.from_numpy(nrec),
+                         torch.zeros(0, dtype=torch.int64), (), 100, {})
+    # the mesh's keyed table: the same key without the cache group
+    cfg = dataclasses.replace(cfg, group_cols=("g",), key_bounds=((0, 5),),
+                              vg_span=0)
+    out = ref_mesh.sharded_scan(
+        cfg, ref_mesh.make_mesh(2),
+        {k: (jnp.asarray(v), jnp.asarray(m))
+         for k, (v, m) in unit_batch()[0].items()},
+        jnp.asarray(nrec), jnp.zeros(0, jnp.int64), (),
+        jnp.asarray(100, jnp.int64), {})
+    packed = ref.pack_jit(cfg, out, R)
+    pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+    ppacked = port.pack_parts(pcfg, port_mesh.sharded_scan(
+        pcfg, port_mesh.Mesh(2), cols, torch.from_numpy(nrec),
+        torch.zeros(0, dtype=torch.int64), (), 100, {}))
+    np.testing.assert_array_equal(ppacked["main"].numpy(),
+                                  np.asarray(packed["main"]))
+    keyed = ppacked["main"].numpy()[1:1 + cfg.dense_slots]
+    assert set(keyed[keyed[:, 1] > 0, 0].tolist()) == {-1, 0, 1, 2, 3, 4}
 
 
 # ---------------------------------------------------------------------------

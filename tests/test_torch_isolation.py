@@ -1,6 +1,6 @@
 """The port stands alone: no file of sybil_tpu_torch/ (nor chip_smoke.py)
-imports jax or sybil_tpu, and a process that refuses both imports runs a
-port query to the end."""
+imports jax or sybil_tpu, and a process that refuses both imports runs
+port queries to the end, a mesh query included."""
 
 import ast
 import json
@@ -31,8 +31,9 @@ def _port_sources():
 def test_no_port_source_imports_jax_or_reference():
     sources = _port_sources()
     assert len(sources) > 20
-    assert os.path.join(REPO, "sybil_tpu_torch", "query",
-                        "cache.py") in sources
+    for mod in (("query", "cache.py"), ("parallel", "mesh.py"),
+                ("parallel", "multihost.py")):
+        assert os.path.join(REPO, "sybil_tpu_torch", *mod) in sources
     bad = []
     for path in sources:
         with open(path) as f:
@@ -235,3 +236,39 @@ def test_port_cached_query_runs_with_jax_and_reference_refused(tmp_path):
     assert "query cache: 2 group hits" in outs[1][1]
     assert len([f for f in os.listdir(os.path.join(d, "uptime", "cache"))
                 if f.startswith("q_")]) == 2
+
+
+def test_port_mesh_query_runs_with_jax_and_reference_refused(tmp_path):
+    """The mesh scan (parallel/mesh.py: the plain versions of K15, K16 and
+    K12's two-valued form, the local exchange) and K3's keyed form run in
+    the refusing process too, with the unsharded answer."""
+    from sybil_tpu_torch import digest
+    d = str(tmp_path / "db")
+    rng = np.random.default_rng(8)
+    n = 6000
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = 512              # 12 blocks over 4 shards
+    try:
+        Table("uptime", Flags(dir=d, table="uptime", skip_compact=True)
+              ).ingest_columns(
+            ints={"ping": rng.integers(0, 150, n)},
+            strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)]})
+    finally:
+        digest.CHUNK_SIZE = old
+    argv = ["query", "-dir", d, "-table", "uptime", "-group", "host",
+            "-int", "ping", "-op", "hist", "-json", "-device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    outs = []
+    for extra in (["-data-shards", "4"], []):
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                                  argv=argv + extra)],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        outs.append(json.loads(proc.stdout))
+    assert sum(r["Count"] for r in outs[0]) == n
+    key = lambda r: r["host"]  # noqa: E731
+    for a, b in zip(sorted(outs[0], key=key), sorted(outs[1], key=key)):
+        assert a["Count"] == b["Count"]
+        assert a["ping"]["percentiles"] == b["ping"]["percentiles"]

@@ -377,7 +377,11 @@ def test_default_device_without_cuda_raises(ref_table, capsys):
     # the query cache runs (tests/test_torch_cache.py); asked for beside
     # -read-log it still meets the row store's refusal (A13.1)
     ({"cache_queries": True, "read_log": True}, "A13"),
-    ({"data_shards": 2}, "A14"),
+    # the mesh scan runs (A14, tests/test_torch_mesh.py); asked for beside
+    # -read-log it still meets the row store's refusal (the case keeps its
+    # id)
+    pytest.param({"data_shards": 2, "read_log": True}, "A13",
+                 id="change2-A14"),
 ])
 def test_unported_engine_modes_raise(ref_table, change, item):
     flags = dataclasses.replace(
