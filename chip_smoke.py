@@ -154,7 +154,12 @@ Phases (any failure exits non-zero before the result lines):
      one (configs 1 and 4, path 2, S1); then the exchange over an NCCL
      process group of world size 1 against the local exchange: config 3
      -loghist's and path 2's whole sharded scans, packed word for word,
-     and a random buffer through all_to_all and all_gather
+     and a random buffer through all_to_all and all_gather; K16's corner
+     cases (k16_case_rows: no live row, one key, INT64_MAX keys tied
+     with dead rows, segments past the cap, MISSING keys, a 5,000-row
+     segment, path 2's 201,024-row owner with a segment across tiles,
+     without and with a tied row) at WP 174, 9 and 10, each entry held
+     to its plain version word for word, both walks of the merge run
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -174,7 +179,9 @@ Phases (any failure exits non-zero before the result lines):
      K15 at config 3 -loghist's and path 2's shard, K16's entries at one
      owner, the owner's sorts, K12's compaction and the unpack at both,
      and K3's keyed form at config 3 -loghist, beside their plain
-     versions and torch calls
+     versions and torch calls; K16's entries also queued behind a sleep
+     kernel (their device time without the wrappers' host time) and
+     through torch.profiler (their device launches per call)
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -3120,6 +3127,35 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_kernels(fn) -> str:
+    """The device work of one call of fn as torch.profiler's CUDA
+    activity records it: each kernel's (or copy's) name with its count
+    and self device time, and their total; "not measured" with the
+    reason when the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    except Exception as exc:   # the profiler is optional here
+        return f"not measured ({type(exc).__name__}: {exc})"
+    if not dev:
+        return "not measured (the profiler recorded no device event)"
+
+    def us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    parts = [f"{e.key[:48]} x{e.count} {us(e):.1f} us" for e in dev]
+    return (f"{sum(e.count for e in dev)} device ops, "
+            f"{sum(us(e) for e in dev):.1f} us: " + "; ".join(parts))
+
+
 def cache_kernel_rows(card, captured, device) -> list:
     """Each kernel with the cache-group key at the sweep's vgroup shapes:
     K2 at group_avg's (beside the same launch without the key, back to
@@ -3284,6 +3320,86 @@ MESH_CHECKED = ("shuffle_partition", "shuffle_keys", "shuffle_reduce",
                 "shuffle_unpack", "topk_rows", "dense_pack", "sorted_pack")
 
 
+# K16's corner cases, one owner's received rows each (the CPU test
+# tests/test_torch_shuffle.py holds the plain versions to the reference
+# on the same rows): the payload shapes, as scan config fields, at the
+# mesh queries' widths: "wide" config 3 -loghist's (1 key, a 166-bucket
+# hist: WP 174, the reduce's warp-a-row walk), "narrow" path 2's (2 keys,
+# an avg: WP 9, a row a lane), "three keys" (WP 10)
+K16_AVG = dict(hist_min=0, bucket_size=1, num_values=0, discard_min=-10 ** 9,
+               discard_max=10 ** 9)
+K16_SHAPES = {
+    "wide": dict(group_cols=("host",), aggs=(("ping", dict(
+        hist_min=0, bucket_size=1, num_values=166, discard_min=0,
+        discard_max=165)),), filters=(), key_bounds=((0, 5),)),
+    "narrow": dict(group_cols=("action", "page"),
+                   aggs=(("weight", K16_AVG),), filters=(),
+                   force_sorted=True),
+    "three keys": dict(group_cols=("host", "status", "page"),
+                       aggs=(("weight", K16_AVG),), filters=(),
+                       force_sorted=True),
+}
+# case -> (shapes, rows N, merge cap)
+K16_CASES = {
+    "no live row": (("wide", "narrow"), 1024, 128),
+    "every row live, one key": (("wide", "narrow"), 2048, 256),
+    "INT64_MAX keys tied with dead rows": (("wide", "narrow"), 2048, 256),
+    "segments past cap": (("wide", "narrow"), 2048, 64),
+    "MISSING keys": (("three keys",), 2048, 256),
+    "a 5,000-row segment": (("wide", "narrow"), 8192, 1024),
+}
+# on the card also path 2's owner (201,024 rows, 95% dead, a 1,500-row
+# segment across the merge's tiles), without and with one tied row
+K16_CARD_CASES = dict(K16_CASES, **{
+    "path 2's owner": (("narrow",), 201_024, 25_128),
+    "path 2's owner, one tied row": (("narrow",), 201_024, 25_128),
+})
+I64_MAX = 2 ** 63 - 1
+
+
+def k16_case_rows(case: str, K: int, WP: int, N: int, seed: int = 0):
+    """One owner's received rows [N, WP] int64 (numpy) for K16's corner
+    case `case`: random words; live rows with count or samples > 0; dead
+    rows with both 0 and their other words random, as the merge must
+    ignore them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-2 ** 40, 2 ** 40, (N, WP), dtype=np.int64)
+    keys = rng.integers(0, max(2, N // 4), (N, K), dtype=np.int64)
+    live = rng.random(N) < 0.8
+    if case == "no live row":
+        live[:] = False
+    elif case == "every row live, one key":
+        live[:] = True
+        keys[:] = 7
+    elif case == "INT64_MAX keys tied with dead rows":
+        keys[rng.random(N) < 0.15] = I64_MAX           # all K keys
+        keys[rng.random(N) < 0.05, 0] = I64_MAX        # the first only
+    elif case == "segments past cap":
+        keys = rng.integers(0, 8 * N, (N, K), dtype=np.int64)
+    elif case == "MISSING keys":
+        keys = rng.integers(-1, 3, (N, K), dtype=np.int64)   # -1: MISSING
+    elif case == "a 5,000-row segment":
+        seg = rng.choice(N, 5000, replace=False)
+        keys[seg] = -3
+        live[seg] = True
+    elif case.startswith("path 2's owner"):
+        live = rng.random(N) < 0.05
+        keys = rng.integers(0, N, (N, K), dtype=np.int64)
+        seg = rng.choice(np.flatnonzero(live), 1500, replace=False)
+        keys[seg] = N // 2
+        if case.endswith("one tied row"):
+            keys[seg[0]] = I64_MAX
+    else:
+        raise ValueError(f"unknown K16 case {case!r}")
+    rows[:, :K] = keys
+    count = rng.integers(1, 100, N)
+    count[rng.random(N) < 0.1] = 0                     # samples only
+    rows[:, K] = np.where(live, count, 0)
+    rows[:, K + 1] = np.where(live, rng.integers(1, 100, N), 0)
+    return rows
+
+
 def mesh_snapshot(qr):
     """snapshot() with each group's distinct registers and the samples."""
     rows, cum, matched = snapshot(qr)
@@ -3294,13 +3410,113 @@ def mesh_snapshot(qr):
     return rows, cum, matched, regs, tres, qr.samples
 
 
+def k16_keys_check(what, config, rows, got, errs) -> None:
+    """shuffle_keys' outputs `got` against its plain version's: the keys
+    word for word, the live counts summed over its CTAs."""
+    from sybil_tpu_torch.parallel import mesh
+    keys, counts = got
+    wkeys, wcounts = mesh.shuffle_keys_plain(config, rows)
+    check_equal(f"{what} keys", keys, wkeys, errs["shuffle_keys"])
+    check_equal(f"{what} live counts", counts.sum(dim=0).to(wcounts.dtype),
+                wcounts[0], errs["shuffle_keys"])
+
+
+def k16_reduce_check(what, config, rows, order, live_counts, merged, flive,
+                     ngroups, errs) -> None:
+    """shuffle_reduce's outputs (merged, flive, ngroups, filled) against
+    its plain version's on the same inputs, word for word."""
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    m2, f2 = torch.empty_like(merged), torch.empty_like(flive)
+    n2 = torch.empty_like(ngroups)
+    mesh.shuffle_reduce_plain(config, rows, order, live_counts, m2, f2, n2)
+    what += f" (N {rows.shape[0]}, cap {merged.shape[0]})"
+    for part, a, b in (("merged", merged, m2), ("flive", flive, f2),
+                       ("n_groups", ngroups, n2)):
+        check_equal(f"{what} {part}", a, b, errs["shuffle_reduce"])
+
+
+def k16_unpack_check(what, config, flat, flive, top, stats, S, got,
+                     errs) -> None:
+    """shuffle_unpack's outputs `got` against its plain version's."""
+    from sybil_tpu_torch.parallel import mesh
+    want = mesh.shuffle_unpack_plain(config, flat, flive, top, stats, S)
+    for key in ("keys", "sums", "mins", "maxs", "meta"):
+        check_equal(f"{what} {key}", got[key], want[key],
+                    errs["shuffle_unpack"])
+    for i, (a, b) in enumerate(zip(got["hists"], want["hists"])):
+        check_equal(f"{what} hist {i}", a, b, errs["shuffle_unpack"])
+
+
+def k16_edge_checks(card, device, errs) -> None:
+    """K16's corner cases (K16_CARD_CASES, each at its shapes' full
+    widths) through the kernels on the card, each entry held to its plain
+    version word for word: shuffle_keys, the owner's sorts, shuffle_reduce
+    (both walks: the live walk, and the general walk where a live row's
+    keys tie the dead rows'; both reduce forms: a row a lane at WP 9 and
+    10, a warp a row at WP 174), then two owners' merged tables compacted
+    by K12 and unpacked into a table past the live rows."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    seen = set()
+    n = 0
+    for case, (shapes, N, cap) in K16_CARD_CASES.items():
+        for shape in shapes:
+            o = dict(K16_SHAPES[shape])
+            o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+            config = scan.ScanConfig(no_compact_table=True, **o)
+            K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
+            rows = torch.from_numpy(k16_case_rows(case, K, WP, N, seed=11)
+                                    ).to(device)
+            what = f"K16 case {case!r} at {shape} (WP {WP}, N {N}, cap {cap})"
+            got = mesh.shuffle_keys(config, rows)
+            k16_keys_check(f"shuffle_keys {what}", config, rows, got, errs)
+            keys, live_counts = got
+            order = scan.sort_rows(config, {"key": None, "keys": keys})
+            merged = torch.full((cap, WP), FILL, dtype=torch.int64,
+                                device=device)
+            flive = torch.full((cap,), -7, dtype=torch.int32, device=device)
+            ngroups = torch.full((1,), -7, dtype=torch.int64, device=device)
+            mesh.shuffle_reduce(config, rows, order, live_counts, merged,
+                                flive, ngroups)
+            k16_reduce_check(f"shuffle_reduce {what}", config, rows, order,
+                             live_counts, merged, flive, ngroups, errs)
+            nl, nt = (int(x) for x in live_counts.sum(dim=0).tolist())
+            seen.add(("general" if nt else "live", "wide" if n_sum + 2 * A
+                      > 32 else "narrow"))
+            flat = torch.cat([merged, torch.roll(merged, 5, 0)])
+            fl = torch.cat([flive, torch.roll(flive, 5, 0)])
+            S = cap + cap // 2
+            top = scan.topk_rows(fl, min(S, flat.shape[0]), two_valued=True)
+            g = torch.Generator(device=device).manual_seed(3)
+            stats = torch.randint(0, 50, (2, mesh.n_stats(config)),
+                                  generator=g, device=device)
+            stats[:, 0] = ngroups
+            un = mesh.shuffle_unpack(config, flat, fl, top, stats, S)
+            k16_unpack_check(f"shuffle_unpack {what}", config, flat, fl, top,
+                             stats, S, un, errs)
+            n += 1
+    want = {(w, f) for w in ("live", "general") for f in ("wide", "narrow")}
+    if seen != want:
+        fail(f"K16 corner cases ran the walks {sorted(seen)}, not "
+             f"{sorted(want)}")
+    say(f"[{card}] K16 corner cases: {n} (case, shape) pairs, "
+        f"shuffle_keys, shuffle_reduce (both walks, both reduce forms) "
+        f"and shuffle_unpack == their plain versions word for word")
+
+
 def mesh_checked(errs, label_of):
     """Wrap the mesh path's wrappers (K15; K16's shuffle_keys,
     shuffle_reduce and shuffle_unpack; K12 as the mesh calls it; K3 and
-    K10 on a merged table) so each call also runs its plain version on
-    the same inputs on the card and is held to it bit for bit (errs), and
-    keep each one's arguments per spec label (label_of(); the first
-    shard's and owner's for K15 and K16), with the sharded_scan calls'.
+    K10 on a merged table) so each call made while label_of() names a
+    spec (the checked run) also runs its plain version on the same inputs
+    on the card and is held to it bit for bit (errs), and keep each one's
+    arguments per spec label (the first shard's and owner's for K15 and
+    K16), with the sharded_scan calls'.  Calls while label_of() is empty
+    (the timed runs) go to the kernels alone.
     -> (captured {(name, label): args}, undo)."""
     import torch
 
@@ -3327,34 +3543,24 @@ def mesh_checked(errs, label_of):
 
     def k16k(config, rows):
         got = real["shuffle_keys"](config, rows)
-        check_equal(f"shuffle_keys {label_of()} {list(rows.shape)}", got,
-                    mesh.shuffle_keys_plain(config, rows),
-                    errs["shuffle_keys"])
+        k16_keys_check(f"shuffle_keys {label_of()} {list(rows.shape)}",
+                       config, rows, got, errs)
         captured.setdefault(("shuffle_keys", label_of()), (config, rows))
         return got
 
-    def k16(config, rows, order, merged, flive, ngroups):
-        real["shuffle_reduce"](config, rows, order, merged, flive, ngroups)
-        m2, f2 = torch.empty_like(merged), torch.empty_like(flive)
-        n2 = torch.empty_like(ngroups)
-        mesh.shuffle_reduce_plain(config, rows, order, m2, f2, n2)
-        what = f"shuffle_reduce {label_of()} (N {rows.shape[0]}, cap " \
-            f"{merged.shape[0]})"
-        for part, a, b in (("merged", merged, m2), ("flive", flive, f2),
-                           ("n_groups", ngroups, n2)):
-            check_equal(f"{what} {part}", a, b, errs["shuffle_reduce"])
+    def k16(config, rows, order, live_counts, merged, flive, ngroups):
+        real["shuffle_reduce"](config, rows, order, live_counts, merged,
+                               flive, ngroups)
+        k16_reduce_check(f"shuffle_reduce {label_of()}", config, rows, order,
+                         live_counts, merged, flive, ngroups, errs)
         captured.setdefault(("shuffle_reduce", label_of()),
-                            (config, rows, order, merged, flive, ngroups))
+                            (config, rows, order, live_counts, merged, flive,
+                             ngroups))
 
     def k16u(config, flat, flive, top, stats, S):
         got = real["shuffle_unpack"](config, flat, flive, top, stats, S)
-        want = mesh.shuffle_unpack_plain(config, flat, flive, top, stats, S)
-        for key in ("keys", "sums", "mins", "maxs", "meta"):
-            check_equal(f"shuffle_unpack {label_of()} {key}", got[key],
-                        want[key], errs["shuffle_unpack"])
-        for i, (a, b) in enumerate(zip(got["hists"], want["hists"])):
-            check_equal(f"shuffle_unpack {label_of()} hist {i}", a, b,
-                        errs["shuffle_unpack"])
+        k16_unpack_check(f"shuffle_unpack {label_of()}", config, flat, flive,
+                         top, stats, S, got, errs)
         captured[("shuffle_unpack", label_of())] = (config, flat, flive, top,
                                                     stats, S)
         return got
@@ -3405,11 +3611,17 @@ def mesh_checked(errs, label_of):
         captured[("sharded_scan", label_of())] = args
         return real["sharded_scan"](*args)
 
+    def only_checked(fn, kernel):
+        def call(*args, **kwargs):
+            return (fn if label_of() else kernel)(*args, **kwargs)
+        return call
+
     for name, fn in (("shuffle_partition", k15), ("shuffle_keys", k16k),
                      ("shuffle_reduce", k16), ("shuffle_unpack", k16u),
                      ("topk_rows", k12), ("sharded_scan", shard)):
-        setattr(mesh, name, fn)
-    scan.dense_pack, scan.sorted_pack = k3, k10
+        setattr(mesh, name, only_checked(fn, real[name]))
+    scan.dense_pack = only_checked(k3, real_k3)
+    scan.sorted_pack = only_checked(k10, real_k10)
 
     def undo():
         for name, fn in real.items():
@@ -3508,6 +3720,7 @@ def mesh_phase(card, specs, errs, launches, device):
                      "shuffle_unpack"):
             if (name, sp["label"]) not in captured:
                 fail(f"mesh {sp['label']}: {name} was never checked")
+    k16_edge_checks(card, device, errs)
     mesh_nccl_check(card, captured, device)
     return mesh_kernel_rows(card, captured, device)
 
@@ -3632,13 +3845,16 @@ def mesh_kernel_rows(card, captured, device) -> list:
             rlive[None, :], rows_r[:, :K].t(), scan.SENTINEL).contiguous(),
             iters=20)
         nl = int(rlive.sum().item())
+        dms = queued_ms(lambda: mesh.shuffle_keys(config, rows_r), iters=50)
+        say(f"[{card}] shuffle_keys, mesh {label}: device {dms:.4f} ms, "
+            f"events {ms:.4f} ms")
         # every row's count and samples words read, a live row's K keys
-        # read, the [K, N] operands written
+        # read, the [K, N] operands and the per-CTA live counts written
+        keys, live_counts = mesh.shuffle_keys(config, rows_r)
         rows.append(("shuffle_keys", f"{label}, one owner ({N} rows, {nl} "
                      "live)", "sybil_tpu/parallel/mesh.py:156", ms, pms,
-                     N * 2 * 8 + nl * K * 8 + K * N * 8, N * 3 + nl * K,
-                     lib_ms))
-        keys = mesh.shuffle_keys(config, rows_r)
+                     N * 2 * 8 + nl * K * 8 + K * N * 8
+                     + live_counts.numel() * 4, N * 3 + nl * K, lib_ms))
         for k in range(K - 1, -1, -1):
             lane = keys[k]
             say(f"[{card}] sorts, mesh {label}: key {k} stable torch.sort "
@@ -3646,16 +3862,19 @@ def mesh_kernel_rows(card, captured, device) -> list:
                 f"{cuda_ms(lambda: torch.sort(lane, stable=True)):.4f} ms "
                 f"(bound {sort_bound_ms(N, 8):.4f} ms)")
 
-        config, rows_r, order, merged, flive, ngroups = captured[
-            ("shuffle_reduce", label)]
+        config, rows_r, order, live_counts, merged, flive, ngroups = \
+            captured[("shuffle_reduce", label)]
         cap = merged.shape[0]
-        ms = cuda_ms(lambda: mesh.shuffle_reduce(config, rows_r, order,
-                                                 merged, flive, ngroups),
-                     iters=50)
+
+        def k16():
+            mesh.shuffle_reduce(config, rows_r, order, live_counts, merged,
+                                flive, ngroups)
+        ms = cuda_ms(k16, iters=50)
+        dms = queued_ms(k16, iters=50)
         m2, f2, n2 = (torch.empty_like(merged), torch.empty_like(flive),
                       torch.empty_like(ngroups))
         pms = cuda_ms(lambda: mesh.shuffle_reduce_plain(
-            config, rows_r, order, m2, f2, n2), iters=5)
+            config, rows_r, order, live_counts, m2, f2, n2), iters=5)
         # one torch call: index_add_ of the sorted summed lanes by each
         # row's segment (gid and the sorted rows prebuilt), as row 5's
         # yardstick
@@ -3673,14 +3892,30 @@ def mesh_kernel_rows(card, captured, device) -> list:
         ng = int(ngroups.item())
         nl = int(slive.sum().item())
         del srows, skeys, lanes
-        # p (and base) read, every row's count and samples words read
-        # (the live test), a live row's WP words gathered, the merged
-        # table and its live flags written.  Per row: the live test; per
-        # live row: the K-key boundary test against the previous row, a
-        # block scan, a 5-step warp-run reduce a word
-        nbytes = (N * 8 * (1 if order["base"] is None else 2) + N * 2 * 8
-                  + nl * WP * 8 + cap * WP * 8 + cap * 4 + 8)
-        ops = N * 8 + nl * (4 * K + 12 * (n_sum + 2 * A))
+        # the walk: the live rows alone unless a live row's keys tie the
+        # dead rows' (then every row, each with its live test).  p (and
+        # base) of the walked positions read, a live row's WP words
+        # gathered, shuffle_keys' counts read, the merged table and its
+        # live flags written.  Per walked position: the gather and the
+        # K-key boundary test; per live row: a 5-step warp-run reduce a
+        # word
+        tied = int(live_counts[:, 1].sum().item())
+        M = N if tied else nl
+        nbytes = (M * 8 * (1 if order["base"] is None else 2)
+                  + (N * 2 * 8 if tied else 0) + nl * WP * 8
+                  + live_counts.numel() * 4 + cap * WP * 8 + cap * 4 + 8)
+        ops = M * (8 + 4 * K) + nl * 12 * (n_sum + 2 * A)
+        old_ms = (N * 8 * (1 if order["base"] is None else 2) + N * 2 * 8
+                  + nl * WP * 8 + cap * WP * 8 + cap * 4 + 8) \
+            / HBM_BYTES_PER_S * 1e3
+        say(f"[{card}] shuffle_reduce, mesh {label}: device {dms:.4f} ms, "
+            f"events {ms:.4f} ms; the {'general' if tied else 'live'} walk "
+            f"({M} of {N} positions); bound "
+            f"{max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+            f" ms (the whole-walk count of the previous design: "
+            f"{old_ms:.4f} ms); index_add_ {lib_ms:.4f} ms")
+        say(f"[{card}] shuffle_reduce, mesh {label}, launches per owner: "
+            f"{profiled_kernels(k16)}")
         rows.append(("shuffle_reduce", f"{label}, one owner ({N} rows, {nl} "
                      f"live, {ng} groups, cap {cap}, WP {WP})",
                      "sybil_tpu/parallel/mesh.py:146", ms, pms, nbytes, ops,
@@ -3699,13 +3934,18 @@ def mesh_kernel_rows(card, captured, device) -> list:
                      f"int32 [{Dn}], k {k12k}",
                      "sybil_tpu/parallel/mesh.py:291", ms, pms,
                      Dn * 4 + k12k * 4, Dn * 4 * 5, lib_ms))
-        ms = cuda_ms(lambda: mesh.shuffle_unpack(config, flat, flive_a, top,
-                                                 stats_a, S), iters=50)
+        def k16u():
+            mesh.shuffle_unpack(config, flat, flive_a, top, stats_a, S)
+        ms = cuda_ms(k16u, iters=50)
+        dms = queued_ms(k16u, iters=50)
         pms = cuda_ms(lambda: mesh.shuffle_unpack_plain(
             config, flat, flive_a, top, stats_a, S), iters=5)
         lib_ms = cuda_ms(lambda: torch.index_select(flat, 0,
                                                     top.to(torch.int64)),
                          iters=20)
+        say(f"[{card}] shuffle_unpack, mesh {label}: device {dms:.4f} ms, "
+            f"events {ms:.4f} ms; index_select {lib_ms:.4f} ms; launches "
+            f"{profiled_kernels(k16u)}")
         L = 2 + 3 * A
         nbytes = (kk * 4 + kk * 4 + kk * WP * 8 + stats_a.numel() * 8
                   + S * (K + L + 2 * A + nv_total) * 8 + L * 8

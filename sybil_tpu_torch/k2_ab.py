@@ -19,7 +19,10 @@ K14 and K2 at config 1's shape with one set filter (1 or 2 entries a
 row) and the matched mask, timed beside the same launch without them;
 and for a root with the query cache's cache-group key, K2 at config 1's
 shape with that key (8 groups of 16 blocks) and K7 unpacked at config
-3's filter with and without it.
+3's filter with and without it; for a root with the mesh scan, K16's
+shuffle_reduce at config 3 -loghist's and path 2's owner shapes (1,024
+rows of WP 174, none live; 201,024 rows of WP 9, 9,108 live) and
+shuffle_unpack at their final tables (128 and 100,000 rows).
 CUDA events over 20 launches
 (K3, K5 and K10 200), twice: back to back as a caller issues them
 ("wall", which includes the wrapper's host time whenever that exceeds
@@ -30,7 +33,8 @@ time).
 Walls (`--walls`): builds chip_smoke.py's uptime table (8,388,608 rows,
 bench.py's generator and seed) under DIR unless it is there, then for
 each root times `run_query` of config 1 and config 3 warm (decoded
-columns resident): 15 queries after 3 warm-ups, their median wall and
+columns resident), and for a root with the mesh scan the same two at
+`-data-shards 8`: 15 queries after 3 warm-ups, their median wall and
 quartiles, and the median of each of the engine's phases over the same
 15 queries.
 """
@@ -188,10 +192,81 @@ def time_kernels(root: str) -> str:
              lambda: scan.sorted_front(cg7, cols, nrec, fv)),
             ("K7 the same without it", 20,
              lambda: scan.sorted_front(c7u, cols, nrec, fv)))
+    if os.path.exists(os.path.join(root, "sybil_tpu_torch", "parallel",
+                                   "mesh.py")):
+        runs += k16_runs(dev)
     return "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"
         for what, n, fn in runs)
+
+
+def k16_owner(scan, mesh, dev, shape: str):
+    """One owner's received rows and its merge's operands, shaped like
+    chip_smoke's mesh queries at -data-shards 8: config 3 -loghist's
+    owner (8 x 128 rows of WP 174, none live) or path 2's (8 x 25,128
+    rows of WP 9: 9,108 live at the heads of the sources' blocks, 9,100
+    distinct keys), and the final table's operands (the gathered merged
+    tables, K12's order, the statistics rows) -> (config, the merge's
+    arguments in the root's signature, the unpack's arguments)."""
+    import numpy as np
+    import torch
+
+    sys.path.append(REPO)
+    import chip_smoke
+    o = dict(chip_smoke.K16_SHAPES["wide" if shape == "config 3" else
+                                   "narrow"])
+    o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+    config = scan.ScanConfig(no_compact_table=True, **o)
+    K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
+    rng = np.random.default_rng(1)
+    D = 8
+    Sc, nlive, ngroups, S = ((128, 0, 0, 128) if shape == "config 3" else
+                             (25_128, 9_108, 9_100, 100_000))
+    rows = np.zeros((D, Sc, WP), np.int64)
+    keys = rng.choice(10 ** 9, (ngroups, K), replace=False) if ngroups \
+        else np.zeros((0, K), np.int64)
+    keys = np.concatenate([keys, keys[:nlive - ngroups]])
+    per = np.array_split(np.arange(nlive), D)
+    for d, idx in enumerate(per):
+        blk = rows[d, :len(idx)]
+        blk[:] = rng.integers(0, 1000, blk.shape)
+        blk[:, :K] = keys[idx]
+        blk[:, K] = rng.integers(1, 100, len(idx))
+    rows_t = torch.from_numpy(rows.reshape(D * Sc, WP)).to(dev)
+    got = mesh.shuffle_keys(config, rows_t)
+    new = isinstance(got, tuple)          # shuffle_keys -> (keys, counts)
+    skeys, counts = got if new else (got, None)
+    order = scan.sort_rows(config, {"key": None, "keys": skeys})
+    merged = torch.empty((Sc, WP), dtype=torch.int64, device=dev)
+    flive = torch.empty(Sc, dtype=torch.int32, device=dev)
+    ng = torch.empty(1, dtype=torch.int64, device=dev)
+    red = ((config, rows_t, order, counts, merged, flive, ng) if new else
+           (config, rows_t, order, merged, flive, ng))
+    flat = torch.from_numpy(rng.integers(0, 1000, (D * Sc, WP))).to(dev)
+    fl = np.zeros((D, Sc), np.int32)
+    for d, idx in enumerate(np.array_split(np.arange(ngroups or 5), D)):
+        fl[d, :len(idx)] = 1
+    flive_all = torch.from_numpy(fl.reshape(-1)).to(dev)
+    top = scan.topk_rows(flive_all, min(S, D * Sc), two_valued=True)
+    stats = torch.zeros((D, mesh.n_stats(config)), dtype=torch.int64,
+                        device=dev)
+    return config, red, (config, flat, flive_all, top, stats, S)
+
+
+def k16_runs(dev) -> tuple:
+    """K16's reduce and unpack at config 3 -loghist's and path 2's owner
+    shapes (k16_owner)."""
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    runs = ()
+    for shape in ("config 3", "path 2"):
+        _, red, un = k16_owner(scan, mesh, dev, shape)
+        runs += ((f"K16 shuffle_reduce at {shape}'s owner", 50,
+                  lambda red=red: mesh.shuffle_reduce(*red)),
+                 (f"K16 shuffle_unpack at {shape}'s final table", 50,
+                  lambda un=un: mesh.shuffle_unpack(*un)))
+    return runs
 
 
 def build_walls_table(table_dir: str) -> None:
@@ -239,9 +314,14 @@ def time_walls(root: str, table_dir: str, n: int = 15) -> str:
             groups=("host",), aggs=(AggDef("ping", "hist", "basic"),),
             filters=(FilterDef("status", "eq", "200", "str"),)),
     }
+    runs = [(label, params, dataclasses.replace(flags))
+            for label, params in queries.items()]
+    if hasattr(flags, "data_shards"):   # the root has the mesh scan
+        runs += [(f"{label} -data-shards 8", params,
+                  dataclasses.replace(flags, data_shards=8))
+                 for label, params in queries.items()]
     out = []
-    for label, params in queries.items():
-        qflags = dataclasses.replace(flags)
+    for label, params, qflags in runs:
         for _ in range(3):
             run_query(table, params, qflags)
         walls = []

@@ -138,5 +138,10 @@ def resolve_device(name: str):
 
 
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on `device`, read
+    without building a torch.cuda.Stream object (which costs several
+    microseconds of host time a launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -625,8 +625,16 @@ def _grid(dev, R: int, tab_bytes: int, use_shared: bool) -> int:
     return max(1, min(-(-R // 256), _sm_count(dev) * per_sm))
 
 
+_SM_COUNTS: dict = {}
+
+
 def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    """The device's SM count, read once per device."""
+    n = _SM_COUNTS.get(dev.index)
+    if n is None:
+        n = _SM_COUNTS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _check_tensor(t, shape, dtype, what, dev, kernel):

@@ -38,6 +38,7 @@ all_to_all_single and all_gather_into_tensor over the process group
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -45,8 +46,9 @@ from . import multihost
 from ..ops import kernels
 from ..ops.scan import (SENTINEL, Desc, ScanConfig, _batch_shape,
                         _check_tensor, _grid, _ptr, _ptr_fields, _set_desc,
-                        dense_keys_np, hist_aggs, key_rows, reduce_space,
-                        scan_core, sort_rows, sorted_perm, topk_rows)
+                        _sm_count, dense_keys_np, hist_aggs, key_rows,
+                        reduce_space, scan_core, sort_rows, sorted_perm,
+                        topk_rows)
 
 _BIG = 2 ** 62
 _I64_MAX = 2 ** 63 - 1
@@ -383,18 +385,25 @@ def _recv_live(rows, K: int):
 
 
 def shuffle_keys_plain(config: ScanConfig, rows):
-    """Plain PyTorch version of shuffle_keys: [K, N] sort operands."""
+    """Plain PyTorch version of shuffle_keys: the [K, N] sort operands and
+    the live counts as one int32 [1, 2] row."""
     K = config.n_key_cols
     live = _recv_live(rows, K)
-    return torch.where(live[None, :], rows[:, :K].t(), SENTINEL).contiguous()
+    tied = live & (rows[:, :K] == SENTINEL).all(dim=1)
+    counts = torch.stack([live.sum(), tied.sum()]).to(torch.int32)
+    return (torch.where(live[None, :], rows[:, :K].t(), SENTINEL)
+            .contiguous(), counts.reshape(1, 2))
 
 
 def shuffle_keys(config: ScanConfig, rows):
-    """K16, shuffle_keys entry: the received rows [N, WP] -> their key
+    """K16, shuffle_keys entry: the received rows [N, WP] -> (their key
     columns [K, N] int64, SENTINEL where a row is dead (count and samples
     0), the operands of the owner's sort (reference _segment_reduce
-    156-157).  CUDA tensors launch the kernel (csrc/shuffle_reduce.cu);
-    CPU tensors take the plain version.  Bound by memory."""
+    156-157); the live counts int32 [G, 2]: per CTA the live rows and
+    the live rows whose keys all equal SENTINEL, which shuffle_reduce
+    reads to walk only the live rows).  CUDA tensors launch the kernel
+    (csrc/shuffle_reduce.cu); CPU tensors take the plain version (G = 1).
+    Bound by memory."""
     dev = rows.device
     if dev.type == "cpu":
         return shuffle_keys_plain(config, rows)
@@ -403,22 +412,25 @@ def shuffle_keys(config: ScanConfig, rows):
     K = config.n_key_cols
     N, WP = rows.shape
     _check_tensor(rows, (N, WP), torch.int64, "rows", dev, "shuffle_keys")
+    grid = _grid(dev, N, 0, False)
     keys = torch.empty((K, N), dtype=torch.int64, device=dev)
+    counts = torch.empty((grid, 2), dtype=torch.int32, device=dev)
     fn = kernels.lib("shuffle_reduce").shuffle_keys
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(rows.data_ptr(), keys.data_ptr(), N, K, WP,
-                     _grid(dev, N, 0, False), kernels.stream_handle(dev)),
+    kernels.check(fn(rows.data_ptr(), keys.data_ptr(), counts.data_ptr(), N,
+                     K, WP, grid, kernels.stream_handle(dev)),
                   "shuffle_keys")
     kernels.LAUNCHES["shuffle_keys"] += 1
-    return keys
+    return keys, counts
 
 
-def shuffle_reduce_plain(config: ScanConfig, rows, order, merged, flive,
-                         ngroups) -> None:
+def shuffle_reduce_plain(config: ScanConfig, rows, order, live_counts,
+                         merged, flive, ngroups) -> None:
     """Plain PyTorch version of K16 (reference _segment_reduce): fills
-    merged [cap, WP], flive int32 [cap] and ngroups [1] in place."""
+    merged [cap, WP], flive int32 [cap] and ngroups [1] in place.  It
+    derives everything from the rows; live_counts is the kernel's."""
     K, A, _, _, n_sum, WP = payload_spec(config)
     cap = merged.shape[0]
     dev = rows.device
@@ -454,37 +466,40 @@ def shuffle_reduce_plain(config: ScanConfig, rows, order, merged, flive,
 
 class ShuffleReduceArgs(ctypes.Structure):
     """Mirror of struct ShuffleReduceArgs in csrc/shuffle_reduce.cu."""
-    _fields_ = _ptr_fields("rows", "p", "base", "merged", "flive", "stats",
-                           "offsets") + [
+    _fields_ = _ptr_fields("rows", "p", "base", "counts", "merged", "flive",
+                           "stats", "scratch") + [
         ("N", ctypes.c_longlong),
         ("cap", ctypes.c_int),
         ("K", ctypes.c_int),
         ("n_sum", ctypes.c_int),
         ("A", ctypes.c_int),
         ("WP", ctypes.c_int),
-        ("ntiles", ctypes.c_int),
+        ("ncnt", ctypes.c_int),
     ]
 
 
-_RED_TILE = 4096               # rows per CTA of the tile scans (TILE)
+_RED_THREADS = 256             # rows a CTA numbers at a time (THREADS)
 
 
-def shuffle_reduce(config: ScanConfig, rows, order, merged, flive,
-                   ngroups) -> None:
+def shuffle_reduce(config: ScanConfig, rows, order, live_counts, merged,
+                   flive, ngroups) -> None:
     """K16: merges one owner's received rows [N, WP] in the sorted order
-    `order` (sort_rows over shuffle_keys) into merged [cap, WP] int64,
-    flive int32 [cap] (the first min(n_groups, cap) rows live) and
-    ngroups int64 [1] (live segments), in place.  CUDA tensors launch the
-    kernel (csrc/shuffle_reduce.cu); CPU tensors take the plain version.
+    `order` (sort_rows over shuffle_keys' operands) into merged [cap, WP]
+    int64, flive int32 [cap] (the first min(n_groups, cap) rows live) and
+    ngroups int64 [1] (live segments), in place; live_counts: shuffle_keys'
+    int32 [G, 2] counts of the same rows.  CUDA tensors launch the kernel
+    (csrc/shuffle_reduce.cu); CPU tensors take the plain version.
 
     Replaces sybil_tpu/parallel/mesh.py:_segment_reduce after its sort:
     the segment boundaries and ids, the segment sums, mins and maxs, the
-    key readout of each segment's first row.  Bound by memory (each row
-    gathered once in sorted order); a tile count, a scan, and a reduce
-    with one atomic per warp run of a segment (see the source note)."""
+    key readout of each segment's first row.  Bound by memory (the live
+    rows gathered once in sorted order); two launches over at most two
+    CTAs an SM, walking only the live rows when no live row ties the dead
+    rows' keys (see the source note)."""
     dev = rows.device
     if dev.type == "cpu":
-        shuffle_reduce_plain(config, rows, order, merged, flive, ngroups)
+        shuffle_reduce_plain(config, rows, order, live_counts, merged, flive,
+                             ngroups)
         return
     if dev.type != "cuda":
         raise ValueError(f"shuffle_reduce: unsupported device {dev}")
@@ -501,21 +516,21 @@ def shuffle_reduce(config: ScanConfig, rows, order, merged, flive,
     if order["base"] is not None:
         _check_tensor(order["base"], (N,), torch.int64, "base", dev,
                       "shuffle_reduce")
-    ntiles = -(-N // _RED_TILE)
-    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
-    a = ShuffleReduceArgs()
-    a.rows, a.p, a.base = rows.data_ptr(), order["p"].data_ptr(), \
-        _ptr(order["base"])
-    a.merged, a.flive, a.stats = (merged.data_ptr(), flive.data_ptr(),
-                                  ngroups.data_ptr())
-    a.offsets = offsets.data_ptr()
-    a.N, a.cap, a.K, a.n_sum, a.A, a.WP = N, cap, K, n_sum, A, WP
-    a.ntiles = ntiles
+    ncnt = live_counts.shape[0]
+    _check_tensor(live_counts, (ncnt, 2), torch.int32, "live_counts", dev,
+                  "shuffle_reduce")
+    grid = max(1, min(-(-N // _RED_THREADS), 2 * _sm_count(dev)))
+    scratch = torch.empty(2 * N + 2 * grid + 1, dtype=torch.int32,
+                          device=dev)
+    a = ShuffleReduceArgs(
+        rows.data_ptr(), order["p"].data_ptr(), _ptr(order["base"]),
+        live_counts.data_ptr(), merged.data_ptr(), flive.data_ptr(),
+        ngroups.data_ptr(), scratch.data_ptr(), N, cap, K, n_sum, A, WP, ncnt)
     fn = kernels.lib("shuffle_reduce").shuffle_reduce
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), _grid(dev, cap * WP, 0, False),
-                     kernels.stream_handle(dev)), "shuffle_reduce")
+    kernels.check(fn(ctypes.byref(a), grid, kernels.stream_handle(dev)),
+                  "shuffle_reduce")
     kernels.LAUNCHES["shuffle_reduce"] += 1
 
 
@@ -580,7 +595,8 @@ def shuffle_unpack(config: ScanConfig, flat, flive, top, stats,
 
     Replaces the compaction table[top] of sybil_tpu/parallel/mesh.py:
     _sharded_scan (291-295), its psums (296-305) and _unpack_payload.
-    Bound by memory: S rows of WP words read and written."""
+    Bound by memory: k rows of WP words read, S rows written, a thread
+    an output word."""
     dev = flat.device
     if dev.type == "cpu":
         return shuffle_unpack_plain(config, flat, flive, top, stats, S)
@@ -596,29 +612,33 @@ def shuffle_unpack(config: ScanConfig, flat, flive, top, stats,
     _check_tensor(top, (k,), torch.int32, "top", dev, "shuffle_unpack")
     _check_tensor(stats, (D, n_stats(config)), torch.int64, "stats", dev,
                   "shuffle_unpack")
-    out = {"keys": torch.empty((S, K), dtype=torch.int64, device=dev),
-           "sums": torch.empty((S + 1, L), dtype=torch.int64, device=dev),
-           "mins": torch.empty((S, A), dtype=torch.int64, device=dev),
-           "maxs": torch.empty((S, A), dtype=torch.int64, device=dev),
-           "hists": [torch.empty((S, config.aggs[ai].num_values),
-                                 dtype=torch.int64, device=dev)
-                     for ai in hist_ais],
-           "meta": torch.empty(ncols, dtype=torch.int64, device=dev)}
+    nvs = [config.aggs[ai].num_values for ai in hist_ais]
+    # the outputs are views of one allocation
+    shapes = [(S, K), (S + 1, L), (S, A), (S, A)] + [(S, nv) for nv in nvs] \
+        + [(ncols,)]
+    sizes = [math.prod(x) for x in shapes]
+    parts = torch.empty(sum(sizes), dtype=torch.int64,
+                        device=dev).split_with_sizes(sizes)
+    keys, sums, mins, maxs, *hists, meta = (t.view(x) for t, x in
+                                            zip(parts, shapes))
+    out = {"keys": keys, "sums": sums, "mins": mins, "maxs": maxs,
+           "hists": hists, "meta": meta}
     a = ShuffleUnpackArgs()
-    _set_desc(a, dev, {"hist": [h.data_ptr() for h in out["hists"]],
-                       "hist_nv": [config.aggs[ai].num_values
-                                   for ai in hist_ais]})
+    if hists:       # no histogram: the kernel reads no descriptor word
+        _set_desc(a, dev, {"hist": [h.data_ptr() for h in hists],
+                           "hist_nv": nvs})
     a.flat, a.flive, a.top, a.stats = (flat.data_ptr(), flive.data_ptr(),
                                        top.data_ptr(), stats.data_ptr())
-    a.keys, a.sums = out["keys"].data_ptr(), out["sums"].data_ptr()
-    a.mins, a.maxs = out["mins"].data_ptr(), out["maxs"].data_ptr()
-    a.meta = out["meta"].data_ptr()
+    a.keys, a.sums = keys.data_ptr(), sums.data_ptr()
+    a.mins, a.maxs = mins.data_ptr(), maxs.data_ptr()
+    a.meta = meta.data_ptr()
     a.k, a.S, a.K, a.L, a.n_sum, a.A = k, S, K, L, n_sum, A
     a.H, a.WP, a.D, a.ncols = len(hist_ais), WP, D, ncols
+    words = S * (K + L + nv_total + 2 * A) + L
     fn = kernels.lib("shuffle_reduce").shuffle_unpack
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), _grid(dev, S + 1, 0, False),
+    kernels.check(fn(ctypes.byref(a), _grid(dev, words, 0, False),
                      kernels.stream_handle(dev)), "shuffle_unpack")
     kernels.LAUNCHES["shuffle_unpack"] += 1
     return out
@@ -717,10 +737,10 @@ def sharded_scan(config: ScanConfig, mesh: Mesh, cols, nrec,
     merged = torch.empty((Dl, Sc, WP), dtype=torch.int64, device=dev)
     flive = torch.empty((Dl, Sc), dtype=torch.int32, device=dev)
     for d in range(Dl):
-        order = sort_rows(config, {"key": None,
-                                   "keys": shuffle_keys(config, recv[d])})
-        shuffle_reduce(config, recv[d], order, merged[d], flive[d],
-                       stats[d, 0:1])
+        keys, live_counts = shuffle_keys(config, recv[d])
+        order = sort_rows(config, {"key": None, "keys": keys})
+        shuffle_reduce(config, recv[d], order, live_counts, merged[d],
+                       flive[d], stats[d, 0:1])
     flat = mesh.all_gather(merged).reshape(D * Sc, WP)
     flive = mesh.all_gather(flive).reshape(D * Sc)
     stats = mesh.all_gather(stats)

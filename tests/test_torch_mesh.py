@@ -371,12 +371,14 @@ def test_k16_and_compaction_match_reference():
                                     static_argnums=(0, 3))(
             cfg, jnp.asarray(rows), jnp.asarray(live), cap)
         trows = torch.from_numpy(rows)
-        keys = port_mesh.shuffle_keys(pcfg, trows)
+        keys, live_counts = port_mesh.shuffle_keys(pcfg, trows)
+        assert live_counts.tolist() == [[int(live.sum()), 0]]
         order = port.sort_rows(pcfg, {"key": None, "keys": keys})
         pm = torch.empty((cap, WP), dtype=torch.int64)
         pl = torch.empty(cap, dtype=torch.int32)
         png = torch.empty(1, dtype=torch.int64)
-        port_mesh.shuffle_reduce(pcfg, trows, order, pm, pl, png)
+        port_mesh.shuffle_reduce(pcfg, trows, order, live_counts, pm, pl,
+                                 png)
         np.testing.assert_array_equal(pm.numpy(), np.asarray(merged))
         np.testing.assert_array_equal(pl.numpy(), np.asarray(mlive))
         assert int(png) == int(ng) > cap
