@@ -159,7 +159,26 @@ Phases (any failure exits non-zero before the result lines):
      with dead rows, segments past the cap, MISSING keys, a 5,000-row
      segment, path 2's 201,024-row owner with a segment across tiles,
      without and with a tied row) at WP 174, 9 and 10, each entry held
-     to its plain version word for word, both walks of the merge run
+     to its plain version word for word, both walks of the merge run.
+     Then the row store on copies of the uptime and sets tables: an
+     undigested tail through the port's `ingest -skip-compact` (16 logs
+     of 65,536 records from bench.py's generator continued at the
+     table's last row, with two hosts the blocks lack, pings above the
+     blocks' max inside the discard window and a weight past the blocks'
+     key bound; 65,536 records on the sets table), every log decoded by
+     the native WAL decoder; config 1, config 3 -loghist, a 1 h rollup,
+     path 1, -distinct index_int, host and weight (the sorted retry of a
+     spilled pseudo-block), config 1 at -data-shards 8 and S1 through
+     the CLI with -read-log against numpy over the blocks and the tail,
+     K3's keyed form of each pseudo-block's own table (`dense_keyed`)
+     held to its plain version word for word, and the rowstore phase's
+     launches of K2 and `dense_keyed` on cuda and its sorted retry
+     counted; config 1 -read-log's cold and warm walls and phases; the
+     keyed form on seven synthetic configs (no keys, a time key, MISSING
+     and negative keys, compact and full reduce spaces, hist and HLL
+     sections, an untracked aggregation, a weight column); then `python
+     -m sybil_tpu_torch digest` of both tails, and each query without
+     -read-log equal to its -read-log answer before the digest
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -181,7 +200,10 @@ Phases (any failure exits non-zero before the result lines):
      and K3's keyed form at config 3 -loghist, beside their plain
      versions and torch calls; K16's entries also queued behind a sleep
      kernel (their device time without the wrappers' host time) and
-     through torch.profiler (their device launches per call)
+     through torch.profiler (their device launches per call); K3's
+     keyed form at config 1's and config 3 -loghist's pseudo-blocks,
+     back to back and queued, beside its plain version; the row store's
+     ingest and digest rates
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 first.
@@ -220,7 +242,8 @@ KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "prune_gather": "sorted_pack",
                  "shuffle_keys": "shuffle_reduce",
-                 "shuffle_unpack": "shuffle_reduce"}
+                 "shuffle_unpack": "shuffle_reduce",
+                 "dense_keyed": "dense_pack"}
 COUNTED = KERNELS + tuple(ENTRY_SOURCES)
 C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
 P2_BUCKET = 300                 # config 4 zoomed in to 5-minute buckets
@@ -261,8 +284,8 @@ def say(*args) -> None:
 
 def build_table(root: str, n_rows: int):
     """bench.py build_dataset's generator and seed, written by the port.
-    Returns (Table, Flags, {"host", "status", "ping": per-row arrays},
-    host and status as list indices)."""
+    Returns (Table, Flags, {"host", "status", "ping", "weight", "time":
+    per-row arrays}, host and status as list indices)."""
     import numpy as np
 
     from sybil_tpu_torch.config import Flags
@@ -272,27 +295,25 @@ def build_table(root: str, n_rows: int):
                   device_batch=1024)
     t = Table("uptime", flags)
     rng = np.random.default_rng(BENCH_SEED)
-    hosts, stats, pings = [], [], []
+    parts = {k: [] for k in ("host", "status", "ping", "weight", "time")}
     for start in range(0, n_rows, STEP):
         n = min(STEP, n_rows - start)
         hosts_idx = rng.integers(0, 5, n)
         stat_idx = rng.integers(0, 5, n)
-        ping = np.abs(rng.normal(60, 20, n)).astype(np.int64)
+        ints = {
+            "ping": np.abs(rng.normal(60, 20, n)).astype(np.int64),
+            "weight": rng.choice([1, 10, 100], n).astype(np.int64),
+            "time": BENCH_NOW + rng.integers(-2419200, 2419200, n),
+            "index_int": np.arange(start, start + n, dtype=np.int64),
+        }
         t.ingest_columns(
-            ints={
-                "ping": ping,
-                "weight": rng.choice([1, 10, 100], n).astype(np.int64),
-                "time": BENCH_NOW + rng.integers(-2419200, 2419200, n),
-                "index_int": np.arange(start, start + n, dtype=np.int64),
-            },
-            strs={"host": [HOSTS[i] for i in hosts_idx],
-                  "status": [STATII[i] for i in stat_idx]})
-        hosts.append(hosts_idx)
-        stats.append(stat_idx)
-        pings.append(ping)
-    return t, flags, {"host": np.concatenate(hosts),
-                      "status": np.concatenate(stats),
-                      "ping": np.concatenate(pings)}
+            ints=ints, strs={"host": [HOSTS[i] for i in hosts_idx],
+                             "status": [STATII[i] for i in stat_idx]})
+        parts["host"].append(hosts_idx)
+        parts["status"].append(stat_idx)
+        for k in ("ping", "weight", "time"):
+            parts[k].append(ints[k])
+    return t, flags, {k: np.concatenate(v) for k, v in parts.items()}
 
 
 def build_sessions(root: str, sorted_root: str, n_rows: int):
@@ -3573,12 +3594,14 @@ def mesh_checked(errs, label_of):
         captured[("topk_rows", label_of())] = (score, k)
         return got
 
-    def k3(config, k2, hists, nouts, main, R, hll=None):
+    def k3(config, k2, hists, nouts, main, R, hll=None, time_bucket=1):
         if "keys" not in k2:
-            return real_k3(config, k2, hists, nouts, main, R, hll)
+            return real_k3(config, k2, hists, nouts, main, R, hll,
+                           time_bucket)
         want = main.clone()
-        real_k3(config, k2, hists, nouts, main, R, hll)
-        scan.dense_pack_plain(config, k2, hists, nouts, want, R, hll)
+        real_k3(config, k2, hists, nouts, main, R, hll, time_bucket)
+        scan.dense_pack_plain(config, k2, hists, nouts, want, R, hll,
+                              time_bucket)
         check_equal(f"dense_pack keyed {label_of()} (S {config.dense_slots})",
                     main, want, errs["dense_pack"])
         captured[("dense_pack", label_of())] = (config, k2, hists, nouts,
@@ -3976,6 +3999,545 @@ def mesh_kernel_rows(card, captured, device) -> list:
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the row store: -read-log over an undigested WAL tail (K3's keyed form of
+# a pseudo-block's own table), ingest and digest
+# ---------------------------------------------------------------------------
+
+RS_LOGS = 16                    # logs of the uptime table's tail
+RS_LOG_ROWS = 65536             # records a log: the ingest flushes a log a
+                                # CHUNK_SIZE records
+RS_SETS_ROWS = 65536            # the sets table's tail (one log)
+# the tail's hosts: bench.py's five and two the digested blocks lack
+RS_HOSTS = HOSTS + ["www.bing.com", "news.ycombinator.com"]
+RS_WEIGHT = 1000                # a weight past the blocks' (1, 10, 100)
+# the -read-log queries on the uptime table (flags after -dir, -table)
+RS_C1 = ["-group", "host", "-int", "ping", "-op", "avg"]
+RS_ARGV = {
+    "config 1": RS_C1,
+    "config 3 -loghist": ["-group", "host", "-int", "ping", "-op", "hist",
+                          "-str-filter", "status:eq:200", "-loghist"],
+    "1 h rollup": RS_C1 + ["-time", "-time-bucket", str(C4_BUCKET),
+                           "-time-col", "time"],
+    "path 1 (-tdigest)": P1_ARGV,
+    "distinct index_int": ["-group", "host", "-distinct", "index_int"],
+    # the tail's weight RS_WEIGHT spills the blocks' dense key bound: the
+    # sorted retry of a pseudo-block
+    "config 1 by host and weight": ["-group", "host,weight", "-int", "ping",
+                                    "-op", "avg"],
+    f"config 1 -data-shards {MESH_D}": RS_C1 + ["-data-shards", str(MESH_D)],
+}
+
+
+def rowstore_tail(start: int, n: int, pmax: int):
+    """n rows of bench.py's uptime generator continued at row `start` (its
+    seed rule 1337 + start, 1M-row steps), then: hosts 5 and 6 of RS_HOSTS
+    (absent from the blocks) at rows j % 97 == 5 and 50, pings above the
+    blocks' max `pmax` (pmax + 1 .. pmax + 40) at rows j % 1009 == 7, and
+    weight RS_WEIGHT at rows j % 4099 == 11.  -> (JSON lines, {"host"
+    (RS_HOSTS indices), "status", "ping", "weight", "time",
+    "index_int"})."""
+    import numpy as np
+    rng = np.random.default_rng(BENCH_SEED + start)
+    parts = {k: [] for k in ("host", "status", "ping", "weight", "time")}
+    for s in range(start, start + n, STEP):
+        m = min(STEP, start + n - s)
+        parts["host"].append(rng.integers(0, 5, m))
+        parts["status"].append(rng.integers(0, 5, m))
+        parts["ping"].append(np.abs(rng.normal(60, 20, m)).astype(np.int64))
+        parts["weight"].append(rng.choice([1, 10, 100], m).astype(np.int64))
+        parts["time"].append(BENCH_NOW + rng.integers(-2419200, 2419200, m))
+    arr = {k: np.concatenate(v) for k, v in parts.items()}
+    j = np.arange(n)
+    arr["host"][j % 97 == 5] = 5
+    arr["host"][j % 97 == 50] = 6
+    hi = j % 1009 == 7
+    arr["ping"][hi] = pmax + 1 + (j[hi] // 1009) % 40
+    arr["weight"][j % 4099 == 11] = RS_WEIGHT
+    arr["index_int"] = np.arange(start, start + n, dtype=np.int64)
+    lines = [f'{{"host":"{RS_HOSTS[h]}","status":"{STATII[st]}","ping":{p},'
+             f'"weight":{w},"time":{t},"index_int":{i}}}'
+             for h, st, p, w, t, i in zip(*(arr[k].tolist() for k in (
+                 "host", "status", "ping", "weight", "time",
+                 "index_int")))]
+    return lines, arr
+
+
+def sets_tail(start: int, n: int):
+    """n rows of the sets table's generator (uptime_set_columns) continued
+    at row `start`.  -> (JSON lines, {"host", "ping", "index_int"})."""
+    ints, strs, sets, _, host = uptime_set_columns(n, start)
+    lines = [json.dumps({"ping": p, "weight": w, "time": t, "index_int": i,
+                         "status": st, "host": h, "index_str": si,
+                         "groups": g})
+             for p, w, t, i, st, h, si, g in zip(
+                 *(ints[k].tolist() for k in ("ping", "weight", "time",
+                                              "index_int")),
+                 strs["status"], strs["host"], strs["index_str"],
+                 sets["groups"])]
+    return lines, {"host": host, "ping": ints["ping"],
+                   "index_int": ints["index_int"]}
+
+
+def keyed_edge_configs():
+    """Synthetic configs for K3's keyed form of a pseudo-block's own table:
+    label -> ScanConfig (no_compact_table, one [1, 65536] block)."""
+    from sybil_tpu_torch.ops import scan
+    hist = dict(hist_min=0, bucket_size=10, num_values=14, discard_min=0,
+                discard_max=1400)
+    avg = dict(hist_min=0, bucket_size=1, num_values=0,
+               discard_min=-10 ** 9, discard_max=10 ** 9)
+
+    def cfg(**o):
+        o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o.get("aggs",
+                                                                    ()))
+        return scan.ScanConfig(filters=(), no_compact_table=True, **o)
+    return {
+        "one key, MISSING rows, compact Sc": cfg(
+            group_cols=("host",), aggs=(("ping", avg),),
+            key_bounds=((0, 5),)),
+        "three keys, MISSING and negative values": cfg(
+            group_cols=("host", "user", "neg"), aggs=(("ping", avg),),
+            key_bounds=((0, 5), (0, 37), (-3, 6))),
+        "a time key (digit 0 at (min - 1) x bucket)": cfg(
+            group_cols=("host",), aggs=(("ping", avg),), time_col="time",
+            key_bounds=((-2, 12), (0, 5))),
+        "no keys (one zero column)": cfg(group_cols=(),
+                                         aggs=(("ping", avg),)),
+        "a hist with outliers beside an avg (sentinel min/max)": cfg(
+            group_cols=("host",), aggs=(("ping", hist), ("weight", avg)),
+            key_bounds=((0, 5),), track_outliers=True),
+        "the device HLL sections": cfg(
+            group_cols=("host",), distinct_cols=("user",), hll=True,
+            key_bounds=((0, 5),)),
+        "a weight column, no compact Sc (g + 1 = slots)": cfg(
+            group_cols=("user",), aggs=(("ping", avg),),
+            weight_col="weight", key_bounds=((0, 126),)),
+    }
+
+
+def keyed_edge_checks(device, errs) -> list:
+    """K3's keyed form against its plain version, word for word, on the
+    keyed_edge_configs over one synthetic pseudo-block.  -> labels."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import kernels, scan
+    rng = np.random.default_rng(11)
+    C = 65536
+
+    def col(v, p=0.95):
+        return (torch.from_numpy(np.asarray(v, np.int64).reshape(1, C))
+                .to(device),
+                torch.from_numpy(rng.random((1, C)) < p).to(device))
+    cols = {"host": col(rng.integers(-1, 6, C)),
+            "ping": col(rng.integers(0, 200, C)),
+            "weight": col(rng.choice([0, 1, 10, 100], C)),
+            "user": col(rng.integers(0, 130, C)),
+            "neg": col(rng.integers(-4, 4, C)),
+            "time": col(rng.integers(-300, 1300, C))}
+    nrec = torch.tensor([C - 17], dtype=torch.int32, device=device)
+    fv = torch.zeros(0, dtype=torch.int64, device=device)
+    labels = []
+    for label, cfg in keyed_edge_configs().items():
+        parts = scan.scan_core(cfg, cols, nrec, fv, (), 100, {})
+        if parts["strategy"] != "dense":
+            fail(f"keyed edge {label}: not the dense strategy")
+        lay = scan.packed_layout(cfg, C)
+        main = torch.full((lay["rows"], lay["W"]), FILL, dtype=torch.int64,
+                          device=device)
+        lo, hi = scan.outlier_rows(cfg, C)
+        main[lo:hi] = 0
+        before = kernels.LAUNCHES["dense_keyed"]
+        scan.dense_pack(cfg, parts["k2"], parts["hists"], parts["nouts"],
+                        main, C, parts["hll"], 100)
+        if kernels.LAUNCHES["dense_keyed"] != before + 1:
+            fail(f"keyed edge {label}: dense_keyed did not launch")
+        want = main.clone()
+        scan.dense_pack_plain(cfg, parts["k2"], parts["hists"],
+                              parts["nouts"], want, C, parts["hll"], 100)
+        check_equal(f"K3 keyed edge {label}", main, want,
+                    errs["dense_keyed"])
+        labels.append(f"{label} (slots {cfg.dense_slots}, Sc "
+                      f"{scan.reduce_space(cfg)[1]})")
+    return labels
+
+
+def json_rows(out: str):
+    """A -json answer as an order-free value: a list of rows sorted by
+    their JSON text, or a time rollup's {bucket: sorted rows}."""
+    v = json.loads(out)
+    if isinstance(v, dict):
+        return {k: sorted(json.dumps(r, sort_keys=True) for r in rows)
+                for k, rows in v.items()}
+    return sorted(json.dumps(r, sort_keys=True) for r in v)
+
+
+def rowstore_phase(card, root, table, up, stbl, sarr, errs, launches,
+                   device):
+    """-read-log on copies of the uptime and sets tables, each with an
+    undigested tail ingested through the port's `ingest -skip-compact`:
+    RS_LOGS logs of RS_LOG_ROWS records (rowstore_tail) on the uptime
+    copy, RS_SETS_ROWS on the sets copy.  Every RS_ARGV query and S1 run
+    through the CLI with -read-log against numpy over the digested rows
+    and the tail, each log decoded natively, K3's keyed form held to its
+    plain version on every pseudo-block; the launches of the rowstore
+    phase (K2 and K3's keyed form on `device`) and the sorted retry are
+    counted.  Then the walls with the rowstore phase, K3's keyed form on
+    synthetic configs, `python -m sybil_tpu_torch digest` of both tails,
+    and the same queries without -read-log, equal to the answers before
+    the digest.  The CLI queries' launches are added to `launches`.
+    -> the kernel table's rows."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch import columnar, native, rowstore
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.ops import kernels, residency, scan
+    from sybil_tpu_torch.query import engine
+    from sybil_tpu_torch.query.engine import run_query
+    from sybil_tpu_torch.table import Table
+
+    if not native.available():
+        fail("row store: the native WAL decoder is not available (g++)")
+    dev_arg = device.type
+    t0 = time.perf_counter()
+    rroot = os.path.join(root, "rs_up")
+    sroot = os.path.join(root, "rs_sets")
+    shutil.copytree(os.path.join(table.flags.dir, "uptime"),
+                    os.path.join(rroot, "uptime"))
+    shutil.copytree(os.path.join(stbl.flags.dir, "uptime"),
+                    os.path.join(sroot, "uptime"))
+    n0 = len(up["host"])
+    pmax = int(up["ping"].max())
+    ntail = RS_LOGS * RS_LOG_ROWS
+    lines, tail = rowstore_tail(n0, ntail, pmax)
+    upath = os.path.join(root, "rs_tail.json")
+    with open(upath, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    slines, stail = sets_tail(len(sarr["host"]), RS_SETS_ROWS)
+    spath = os.path.join(root, "rs_sets_tail.json")
+    with open(spath, "w") as f:
+        f.write("\n".join(slines) + "\n")
+    del lines, slines
+    say(f"row store: copies of the uptime and sets tables and the tails' "
+        f"JSON lines ({ntail} and {RS_SETS_ROWS} records) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for d, path, n, nlogs in ((rroot, upath, ntail, RS_LOGS),
+                              (sroot, spath, RS_SETS_ROWS, 1)):
+        rc, _, wall, _ = run_cli(["ingest", "-dir", d, "-table", "uptime",
+                                  "-skip-compact", "-infile", path])
+        logs = rowstore.list_logs(os.path.join(d, "uptime"))
+        if rc != 0 or len(logs) != nlogs:
+            fail(f"row store: ingest into {d} exited {rc} with {len(logs)} "
+                 f"logs, expected {nlogs}")
+        say(f"[{card}] row store: `ingest -skip-compact` of {n} records "
+            f"into {nlogs} log(s) in {wall:.3f}s ({n / wall:.0f} "
+            f"records/s, host CPU)")
+    rtab = Table("uptime", Flags(dir=rroot, table="uptime"))
+    stab = Table("uptime", Flags(dir=sroot, table="uptime"))
+    rtab.load_info()
+    stab.load_info()
+    B = len(rtab.block_infos())
+
+    # numpy over the digested rows and the tail
+    allv = {k: np.concatenate([up[k], tail[k]])
+            for k in ("host", "status", "ping", "weight", "time")}
+    allv["index_int"] = np.concatenate([np.arange(n0, dtype=np.int64),
+                                        tail["index_int"]])
+    f1, p1 = cli_query(rtab, RS_C1, dev_arg)
+    agg1 = bound_query(rtab, f1, p1).config.aggs[0]
+    if not (pmax + 40 <= agg1.discard_max):
+        fail(f"row store: the tail's pings up to {pmax + 40} leave the "
+             f"discard window {agg1.discard_max}")
+
+    def groupby(keys, vals):
+        uk, inv = np.unique(np.stack(keys, 1), axis=0, return_inverse=True)
+        cnt = np.bincount(inv.reshape(-1))
+        tot = np.zeros(len(uk), np.int64)
+        np.add.at(tot, inv.reshape(-1), vals)
+        return {tuple(k): (int(c), int(s_)) for k, c, s_ in
+                zip(uk.tolist(), cnt.tolist(), tot.tolist())}
+
+    want1 = {(RS_HOSTS[h],): v for (h,), v in
+             groupby([allv["host"]], allv["ping"]).items()}
+
+    def check_avg(label, rows, want, keys):
+        got = {tuple(str(r[k]) for k in keys): (r["Count"], r["Samples"],
+                                                r["ping"]) for r in rows}
+        exp = {tuple(str(x) for x in k): (c, c, s_ / c)
+               for k, (c, s_) in want.items()}
+        if got != exp:
+            bad = sorted(k for k in set(got) | set(exp)
+                         if got.get(k) != exp.get(k))[:5]
+            fail(f"row store {label}: rows differ from numpy at {bad}: "
+                 f"{[(got.get(k), exp.get(k)) for k in bad]}")
+        return len(exp)
+
+    ok200 = allv["status"] == STATII.index("200")
+
+    def check(label, out):
+        rows = json.loads(out)
+        if label.startswith("config 1 -data") or label == "config 1":
+            return f"{check_avg(label, rows, want1, ('host',))} groups"
+        if label == "config 3 -loghist":
+            f, p = cli_query(rtab, RS_ARGV[label], dev_arg)
+            agg = bound_query(rtab, f, p).config.aggs[0]
+            wanth = numpy_hist(allv["host"], len(RS_HOSTS), ok200,
+                               allv["ping"], agg)
+            ng, nout = check_hist_json(label, rows, agg, wanth,
+                                       lambda g: (RS_HOSTS[g],), ("host",))
+            return f"{ng} groups, {nout} outliers"
+        if label == "1 h rollup":
+            q = allv["time"] // C4_BUCKET * C4_BUCKET     # times > 0
+            want = groupby([q, allv["host"]], allv["ping"])
+            got = {(int(tb_), r["host"]): (r["Count"], r["ping"])
+                   for tb_, rs_ in rows.items() for r in rs_}
+            exp = {(tb_, RS_HOSTS[h]): (c, s_ / c)
+                   for (tb_, h), (c, s_) in want.items()}
+            if got != exp:
+                fail(f"row store {label}: rows differ from numpy")
+            return f"{len(exp)} (bucket, host) rows"
+        if label == "path 1 (-tdigest)":
+            f, p = cli_query(rtab, RS_ARGV[label], dev_arg)
+            agg = bound_query(rtab, f, p).config.aggs[0]
+            keep = ok200 & (allv["ping"] >= agg.discard_min) & \
+                (allv["ping"] <= agg.discard_max)
+            for r in rows:
+                h = RS_HOSTS.index(r["host"])
+                if r["Count"] != int((ok200 & (allv["host"] == h)).sum()) \
+                        or r["ping"]["samples"] != int(
+                            (keep & (allv["host"] == h)).sum()):
+                    fail(f"row store {label}: host {r['host']} differs "
+                         f"from numpy")
+            if len(rows) != len(np.unique(allv["host"][ok200])):
+                fail(f"row store {label}: {len(rows)} hosts")
+            return f"{len(rows)} hosts' counts and kept rows"
+        if label == "distinct index_int":
+            hlls = numpy_hlls(allv["host"], len(RS_HOSTS),
+                              allv["index_int"], "int")
+            for r in rows:
+                if r["Distinct"] != hlls[RS_HOSTS.index(
+                        r["host"])].cardinality():
+                    fail(f"row store {label}: {r} vs numpy")
+            return f"{len(rows)} groups' Distinct"
+        if label == "config 1 by host and weight":
+            want = {(RS_HOSTS[h], w): v for (h, w), v in
+                    groupby([allv["host"], allv["weight"]],
+                            allv["ping"]).items()}
+            ng = check_avg(label, rows, want, ("host", "weight"))
+            return f"{ng} groups"
+        raise AssertionError(label)
+
+    # counters of the rowstore phase, each log's decode, and K3's keyed
+    # form checked against its plain version on every pseudo-block
+    rs = {k: 0 for k in COUNTED}
+    decoded = {"native": 0, "fallback": 0}
+    devs = set()
+    state = {"label": None}
+    captured = {}
+    real_rs, real_pl = engine._scan_rowstore, columnar.parse_log_columnar
+    real_k3 = scan.dense_pack
+
+    def counted_rs(acc, ctx, table_):
+        before = dict(kernels.LAUNCHES)
+        real_rs(acc, ctx, table_)
+        for k in COUNTED:
+            rs[k] += kernels.LAUNCHES[k] - before[k]
+        devs.add(ctx.device.type)
+
+    def counted_pl(path, table_):
+        batch = real_pl(path, table_)
+        decoded["native" if batch is not None else "fallback"] += 1
+        return batch
+
+    def checked_k3(config, k2, hists, nouts, main, R, hll=None,
+                   time_bucket=1):
+        real_k3(config, k2, hists, nouts, main, R, hll, time_bucket)
+        if state["label"] is None or "keys" in k2 or \
+                not config.no_compact_table:
+            return
+        want = main.clone()
+        scan.dense_pack_plain(config, k2, hists, nouts, want, R, hll,
+                              time_bucket)
+        check_equal(f"K3 keyed {state['label']} pseudo-block (slots "
+                    f"{config.dense_slots}, Sc {scan.reduce_space(config)[1]})",
+                    main, want, errs["dense_keyed"])
+        captured.setdefault(state["label"], (config, k2, hists, nouts, main,
+                                             R, hll, time_bucket))
+
+    engine._scan_rowstore = counted_rs
+    columnar.parse_log_columnar = counted_pl
+    scan.dense_pack = checked_k3
+    engine.ROWSTORE["sorted_retries"] = 0
+    answers = {}
+    try:
+        queries = [(label, rroot, argv, RS_LOGS)
+                   for label, argv in RS_ARGV.items()]
+        queries.append(("S1", sroot, S_ARGV["S1"], 1))
+        residency.CACHE.clear()
+        for label, d, argv, nlogs in queries:
+            state["label"] = label
+            decoded.update(native=0, fallback=0)
+            retries = engine.ROWSTORE["sorted_retries"]
+            before = dict(rs)
+            rc, out, wall, ll = run_cli(
+                ["query", "-dir", d, "-table", "uptime", *argv, "-read-log",
+                 "-json", "-device-batch", str(B), "-device", dev_arg])
+            if rc != 0:
+                fail(f"row store {label}: port CLI query exited {rc}")
+            if decoded != {"native": nlogs, "fallback": 0}:
+                fail(f"row store {label}: logs decoded {decoded}, expected "
+                     f"{nlogs} natively")
+            if label == "S1":
+                sel_d = sarr["index_int"] % 3 == 0
+                sel_t = stail["index_int"] % 3 == 0
+                want_s = {(HOSTS[h],): v for (h,), v in groupby(
+                    [np.concatenate([sarr["host"][sel_d],
+                                     stail["host"][sel_t]])],
+                    np.concatenate([sarr["ping"][sel_d],
+                                    stail["ping"][sel_t]])).items()}
+                ng = check_avg(label, json.loads(out), want_s, ("host",))
+                what = f"{ng} groups"
+            else:
+                what = check(label, out)
+            phase = {k: rs[k] - before[k] for k in COUNTED
+                     if rs[k] != before[k]}
+            took = engine.ROWSTORE["sorted_retries"] - retries
+            if label == "config 1 by host and weight" and took < 1:
+                fail(f"row store {label}: no pseudo-block took the sorted "
+                     f"retry")
+            answers[label] = out
+            say(f"main path: CLI {label} -read-log on {dev_arg} == numpy "
+                f"over the blocks and the tail ({what}); {nlogs} log(s) "
+                f"decoded natively; rowstore phase launches {phase}; sorted "
+                f"retries {took}; wall {wall:.3f}s")
+            for k in COUNTED:
+                launches[k] += ll[k]
+        state["label"] = None
+        if devs != {dev_arg}:
+            fail(f"row store: the rowstore phase ran on {devs}")
+        for k in ("dense_scan", "dense_keyed"):
+            if rs[k] == 0:
+                fail(f"row store: the rowstore phase never launched {k}")
+        say(f"row store: the rowstore phase over every query launched "
+            f"{ {k: v for k, v in rs.items() if v} }; "
+            f"{engine.ROWSTORE['sorted_retries']} sorted retries")
+
+        # walls with the rowstore phase: config 1 through run_query
+        fq, pq = cli_query(rtab, RS_C1 + ["-read-log", "-device-batch",
+                                          str(B)], dev_arg)
+        walls = {"cold": [], "warm": []}
+        for kind in ("cold", "warm"):
+            for _ in range(3):
+                if kind == "cold":
+                    residency.CACHE.clear()
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run_query(Table("uptime", fq), pq, fq)
+                walls[kind].append(time.perf_counter() - t1)
+        for kind, ws in walls.items():
+            say(f"[{card}] config 1 -read-log ({n0} digested rows, {ntail} "
+                f"in {RS_LOGS} logs) {kind} query wall median of 3: "
+                f"{median(ws) * 1e3:.3f} ms "
+                f"({(n0 + ntail) / median(ws):.0f} rows/s); walls "
+                f"{[round(x * 1e3, 3) for x in ws]}")
+        phase_lines(card, "config 1 -read-log",
+                    lambda: run_query(Table("uptime", fq), pq, fq),
+                    residency.CACHE.clear)
+    finally:
+        engine._scan_rowstore, columnar.parse_log_columnar = real_rs, real_pl
+        scan.dense_pack = real_k3
+
+    edge = keyed_edge_checks(device, errs)
+    say(f"K3 keyed form == plain (tolerance 0) on every -read-log "
+        f"pseudo-block above and {len(edge)} synthetic configs: "
+        + "; ".join(edge))
+
+    # K3's keyed form at config 1's and config 3 -loghist's pseudo-block
+    rows = []
+    for label in ("config 1", "config 3 -loghist"):
+        config, k2, hists, nouts, main, R, hll, tb = captured[label]
+        ms = cuda_ms(lambda: scan.dense_pack(config, k2, hists, nouts, main,
+                                             R, hll, tb), iters=200)
+        dms = queued_ms(lambda: scan.dense_pack(config, k2, hists, nouts,
+                                                main, R, hll, tb))
+        pms = cuda_ms(lambda: scan.dense_pack_plain(
+            config, k2, hists, nouts, main, R, hll, tb), iters=20)
+        slots, Sc, _ = scan.reduce_space(config)
+        H = len(hists)
+        lo, hi = scan.outlier_rows(config, R)
+        lay = scan.packed_layout(config, R)
+        # the compact sums, min/max and bucket rows read once; every word
+        # of `main` outside K5's rows written once (the keyed table is
+        # slots x (K + 2 + 5A) of them)
+        nbytes = (k2["sums"].numel() + 2 * Sc * H
+                  + sum(h.numel() for h in hists)
+                  + (lay["rows"] - (hi - lo)) * lay["W"]) * 8
+        what = (f"{label} -read-log pseudo-block ({R} rows, slots {slots}, "
+                f"Sc {Sc}, {config.n_key_cols + 2 + 5 * len(config.aggs)} "
+                f"words a slot)")
+        say(f"[{card}] dense_keyed {what}: {ms:.4f} ms by events, "
+            f"{dms:.4f} ms device (queued behind a sleep kernel); plain "
+            f"{pms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
+            f"by bytes ({nbytes} B); {rs['dense_keyed']} launches in the "
+            f"rowstore phases of this section's queries and walls")
+        rows.append(("dense_keyed", what, "sybil_tpu/ops/scan.py:1865", ms,
+                     pms, nbytes, 0, None))
+
+    # digest both tails in a process of its own, then the same queries
+    # without -read-log
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    for d, n, nb_want in ((rroot, ntail, B + ntail // RS_LOG_ROWS),
+                          (sroot, RS_SETS_ROWS, None)):
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sybil_tpu_torch", "digest", "-dir", d,
+             "-table", "uptime"], cwd=here, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            fail(f"row store: digest of {d} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        tab = Table("uptime", Flags(dir=d, table="uptime"))
+        tab.load_info()
+        nb = len(tab.block_infos())
+        if rowstore.list_logs(tab.dir) or (nb_want and nb != nb_want):
+            fail(f"row store: after the digest {d} has "
+                 f"{len(rowstore.list_logs(tab.dir))} logs, {nb} blocks")
+        say(f"[{card}] `python -m sybil_tpu_torch digest`: {n} records in "
+            f"{wall:.3f}s ({n / wall:.0f} rows/s, the process's start "
+            f"included, host CPU), {nb} blocks")
+    residency.CACHE.clear()
+    for label, d, argv, _ in queries:
+        nb = len(Table("uptime", Flags(dir=d, table="uptime"))
+                 .block_infos())
+        rc, out, wall, ll = run_cli(
+            ["query", "-dir", d, "-table", "uptime", *argv, "-json",
+             "-device-batch", str(nb), "-device", dev_arg])
+        if rc != 0:
+            fail(f"row store {label} after the digest: exited {rc}")
+        pre, post = json.loads(answers[label]), json.loads(out)
+        if label.startswith("path 1"):
+            # a t-digest's percentiles depend on the batching: its counts
+            # and kept rows are exact
+            pre = sorted((r["host"], r["Count"], r["ping"]["samples"])
+                         for r in pre)
+            post = sorted((r["host"], r["Count"], r["ping"]["samples"])
+                          for r in post)
+            same = pre == post
+        else:
+            same = json_rows(answers[label]) == json_rows(out)
+        if not same:
+            fail(f"row store {label}: the digested table's answer differs "
+                 f"from the -read-log answer before the digest")
+        say(f"row store: {label} without -read-log after the digest == its "
+            f"-read-log answer before ({nb} blocks); wall {wall:.3f}s")
+    return rows
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -5151,6 +5713,8 @@ def main(argv=None) -> int:
             launches[k] += ll[k]
         say(f"main path: CLI config 1 -data-shards {MESH_D} on cuda == numpy "
             f"group-by; launches {ll}; wall {wall:.3f}s")
+        rs_rows = rowstore_phase(card, root, table, up, stbl, sarr, errs,
+                                 launches, dev)
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
@@ -6064,7 +6628,7 @@ def main(argv=None) -> int:
                 ("dense_pack", "config 3", "sybil_tpu/ops/scan.py:1825",
                  k3_ms, k3_plain, k3_bytes, 0, None),
                 *sorted_rows, *c5_rows, *distinct_rows, *sets_rows,
-                *cache_rows, *mesh_rows):
+                *cache_rows, *mesh_rows, *rs_rows):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / INT32_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)

@@ -1,9 +1,13 @@
 """CLI of the port (reference: sybil_tpu/cli.py, main.go:14-24).
 
-    python -m sybil_tpu_torch <query|aggregate|version> [flags]
+    python -m sybil_tpu_torch <ingest|digest|query|aggregate|version>
+                               [flags]
 
-`query` takes the reference's flags plus `-device` (cuda by default,
-cpu for the plain PyTorch versions of the kernels); `aggregate` merges
+`ingest` appends records to the row store (the WAL) and, without
+`-skip-compact`, digests them into blocks; `digest` collates the WAL
+into blocks.  `query` takes the reference's flags plus `-device` (cuda
+by default, cpu for the plain PyTorch versions of the kernels); with
+`-read-log` it also scans the undigested WAL.  `aggregate` merges
 per-node `query -encode-results` outputs on the host.  The other
 subcommands of the reference are not ported yet and exit non-zero.
 """
@@ -35,6 +39,79 @@ def _base_flags(args) -> Flags:
     if args.debug:
         dbg.DEBUG_FLAG = True
     return flags
+
+
+# ---------------------------------------------------------------------------
+def cmd_ingest(argv):
+    p = argparse.ArgumentParser(prog="ingest")
+    _add_common(p)
+    p.add_argument("-ints", "--ints", default="",
+                   help="columns to treat as ints (comma delimited)")
+    p.add_argument("-csv", "--csv", action="store_true")
+    p.add_argument("-exclude", "--exclude", default="")
+    p.add_argument("-path", "--path", default="$",
+                   help="path to JSON record, ex: $.foo.bar")
+    p.add_argument("-skip-compact", "--skip-compact", action="store_true")
+    p.add_argument("-infile", "--infile", default="")
+    p.add_argument("-timestamps", "--timestamps", default="")
+    p.add_argument("-timestamp-format", "--timestamp-format", default="")
+    # reference-CLI compatibility no-ops: the row store always uses the
+    # single WAL format here (cmd_ingest.go save-srb), and time-col only
+    # affects digestion ordering which reads the table flag
+    p.add_argument("-save-srb", "--save-srb", action="store_true")
+    p.add_argument("-time-col", "--time-col", default="time")
+    args = p.parse_args(argv)
+    flags = _base_flags(args)
+    flags.skip_compact = args.skip_compact
+    if not flags.table:
+        p.print_help()
+        return 1
+
+    from .ingest import parse_csv, parse_json_lines
+
+    stream = open(args.infile) if args.infile else sys.stdin
+    t = Table(flags.table, flags)
+    if args.csv:
+        parsed = parse_csv(stream, flags)
+    else:
+        parsed = parse_json_lines(
+            stream, flags,
+            excludes=frozenset(x for x in args.exclude.split(",") if x),
+            int_casts=frozenset(x for x in args.ints.split(",") if x),
+            timestamps=frozenset(x for x in args.timestamps.split(",") if x),
+            timestamp_format=args.timestamp_format,
+            json_path=args.path)
+    # stream in CHUNK_SIZE batches: constant memory on arbitrarily large
+    # pipes (the reference flushes every CHUNK_SIZE records too,
+    # cmd_ingest.go:188-226 -> ChunkAndSave table_io.go:376)
+    total, chunk = 0, []
+    for rec in parsed:
+        chunk.append(rec)
+        if len(chunk) >= constants.CHUNK_SIZE:
+            t.ingest_records(chunk)
+            total += len(chunk)
+            chunk = []
+    if chunk:
+        t.ingest_records(chunk)
+        total += len(chunk)
+    dbg.debug("ingested", total, "records into", flags.table)
+    return 0
+
+
+def cmd_digest(argv):
+    p = argparse.ArgumentParser(prog="digest")
+    _add_common(p)
+    args = p.parse_args(argv)
+    flags = _base_flags(args)
+    if not flags.table:
+        p.print_help()
+        return 1
+    from .digest import digest_records
+    from .profiler import device_trace
+    t = Table(flags.table, flags)
+    with device_trace(flags.profile_dir if flags.profile else None):
+        digest_records(t)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +335,14 @@ def cmd_aggregate(argv):
 
 
 COMMANDS = {
+    "ingest": cmd_ingest,
+    "digest": cmd_digest,
     "query": cmd_query,
     "aggregate": cmd_aggregate,
     "version": cmd_version,
 }
 # the reference's other subcommands, still to be ported (ROADMAP A16)
-NOT_PORTED = ("ingest", "digest", "trim", "index", "rebuild", "inspect")
+NOT_PORTED = ("trim", "index", "rebuild", "inspect")
 
 
 def main(argv=None):

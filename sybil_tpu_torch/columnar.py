@@ -1,22 +1,100 @@
-"""Columnar batch algebra for the bulk-ingest path.
+"""Columnar batch algebra for the digest/replay path.
 
 The reference replays WAL logs into row structs and re-pivots them per
 block (src/lib/table_ingest.go:125, table_io.go:80-130).  Here batches
-stay columnar end-to-end: {name: ColumnData} batches concatenate, sort by
+stay columnar end-to-end: each WAL log decodes (natively when possible,
+sybil_tpu/native) into {name: ColumnData}; batches concatenate, sort by
 the time column, top up the last partial block, and slice into
 CHUNK_SIZE blocks — all as vectorized numpy array ops, no per-row
-Python.  (The native WAL decoder that feeds digestion is not part of
-this package yet.)
+Python.
 """
 
 from __future__ import annotations
 
+import gzip
+import zlib
+
 import numpy as np
 
+from . import native
 from .blocks import (ColumnData, IntColumnData, SetColumnData,
                      StrColumnData)
+from .constants import INT_VAL, SET_VAL, STR_VAL
 
 Batch = tuple[dict[str, ColumnData], int]
+
+
+def _decode_dict(blob: bytes, offsets_raw: bytes) -> list[str]:
+    offs = np.frombuffer(offsets_raw, dtype=np.uint32)
+    return [blob[offs[i]: offs[i + 1]].decode("utf-8")
+            for i in range(len(offs) - 1)]
+
+
+def parse_log_columnar(path: str, table) -> Batch | None:
+    """Decode one WAL log natively into global-id ColumnData.  Returns
+    None when the native codec is unavailable or the file falls outside
+    the WAL shape (caller falls back to the row decoder).  Columns whose
+    type conflicts with the schema are dropped, exactly like the row
+    pivot (digest.rows_to_columns)."""
+    if not native.available():
+        return None
+    try:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            data = f.read()
+    except (OSError, EOFError, zlib.error):
+        # truncated/corrupt .wal.gz raises EOFError/zlib.error from the
+        # gzip read itself; fall back so the Python path's corrupt-file
+        # skip handles it rather than wedging digestion forever
+        return None
+    raw = native.parse_wal_bytes(data)
+    if raw is None:
+        return None
+    try:
+        return _raw_to_batch(raw, table)
+    except UnicodeDecodeError:
+        # the native decoder emitted bytes Python can't interpret as
+        # UTF-8 (an escape shape it doesn't model) — fall back to the
+        # Python row decoder, whose json.loads handles such strings
+        return None
+
+
+def _raw_to_batch(raw: dict, table) -> Batch:
+    schema = table.schema
+    n = raw["n"]
+    cols: dict[str, ColumnData] = {}
+    for name, (vals_b, valid_b) in raw["ints"].items():
+        if schema.col_type(name) != INT_VAL:
+            continue
+        cols[name] = IntColumnData(
+            np.frombuffer(vals_b, dtype=np.int64).copy(),
+            np.frombuffer(valid_b, dtype=np.uint8).astype(bool))
+    for name, (ids_b, valid_b, (blob, offs_b)) in raw["strs"].items():
+        if schema.col_type(name) != STR_VAL:
+            continue
+        local = _decode_dict(blob, offs_b)
+        gd = table.dicts.get(name)
+        remap = np.fromiter((gd.get_or_add(s) for s in local),
+                            dtype=np.int32, count=len(local))
+        lids = np.frombuffer(ids_b, dtype=np.int32)
+        valid = np.frombuffer(valid_b, dtype=np.uint8).astype(bool)
+        ids = remap[lids] if len(local) else np.zeros(n, dtype=np.int32)
+        cols[name] = StrColumnData(np.where(valid, ids, 0).astype(np.int32),
+                                   valid, local)
+    for name, (items_b, counts_b, (blob, offs_b)) in raw["sets"].items():
+        if schema.col_type(name) != SET_VAL:
+            continue
+        local = _decode_dict(blob, offs_b)
+        gd = table.dicts.get(name)
+        remap = np.fromiter((gd.get_or_add(s) for s in local),
+                            dtype=np.int32, count=len(local))
+        litems = np.frombuffer(items_b, dtype=np.int32)
+        counts = np.frombuffer(counts_b, dtype=np.int32)
+        offsets = np.zeros(n + 1, dtype=np.int32)
+        np.cumsum(counts, out=offsets[1:])
+        items = remap[litems] if len(local) else np.zeros(0, dtype=np.int32)
+        cols[name] = SetColumnData(offsets, items.astype(np.int32), local)
+    return cols, n
 
 
 def _empty_like(col: ColumnData, n: int) -> ColumnData:

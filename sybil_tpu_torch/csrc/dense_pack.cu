@@ -20,12 +20,19 @@
 // uint8 registers (K13's planes) as 2048 little-endian int64 words, and
 // leaves the npairs meta word 0.
 //
-// The keyed form (no_compact_table: mesh scans, pack_outputs 1865-1872)
-// writes a mesh scan's merged table (K16's unpack: `keys` given, every
-// row a slot, no dead slot, min/max of every aggregation, num_groups and
-// the overflow from the shards' merged statistics) as rows 1..slots of W
-// words each, [keys K, count, samples, (exists, count, wv, min, max) per
-// agg], and the meta word 3 + H (the shuffle overflow).
+// The keyed forms (no_compact_table, pack_outputs 1865-1872) write the
+// table as rows 1..slots of W words each, [keys K, count, samples,
+// (exists, count, wv, min, max) per agg].  The merged form packs a mesh
+// scan's merged table (K16's unpack: `keys` given, every row a slot, no
+// dead slot, min/max of every aggregation, num_groups and the overflow
+// from the shards' merged statistics; the meta word 3 + H is the shuffle
+// overflow).  The unmerged form, entry dense_keyed, packs the scan's own
+// reduce-space table (the row-store scan's): the compact expansion and
+// the dead slot as above, each slot's keys decoded from its index by
+// dense_key (dense_keys.cuh: _dense_decode_keys 608-626, digit 0 MISSING
+// or, for the time key, (min - 1) * bucket; one zero column without
+// keys), the tracked min/max of the histogram aggregations and the
+// sentinels +-2^62 for every other aggregation (_scan_dense 1005-1012).
 //
 // Bound: launch latency.  It reads the small sum, min/max and bucket
 // tables and writes a buffer of a few to a few hundred KB.  Design: one
@@ -39,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "dense_keys.cuh"
 #include "desc.cuh"
 
 namespace {
@@ -81,12 +89,22 @@ struct DensePackArgs {
   int H;        // histogram aggregations
   int Ph;       // hist gid rows shipped (0 without hist aggs)
   int Phll;     // HLL planes shipped (0 without the device HLL)
-  // the keyed form: a merged table's keys and statistics, else null
+  // the merged form: a merged table's keys and statistics, else null
   const long long* keys;        // [slots, K]
   const long long* num_groups;  // [1]
   const long long* overflow;    // [1] the shuffle overflow
-  int K;
-  int A;        // aggregations: words in a merged row of mins and maxs
+  // the unmerged keyed form: the key bounds (min, card) of the nkb keys,
+  // the time key's position (or -1) and bucket, and each aggregation's
+  // index among the histogram aggregations (-1: untracked)
+  const long long* kb_min;      // [nkb]
+  const long long* kb_card;     // [nkb]
+  const long long* agg_mm;      // [A]
+  long long tb;
+  int K;        // key columns of a keyed form (rows of K + 2 + 5A words),
+                // 0 for the compact table
+  int A;        // aggregations
+  int nkb;
+  int tpos;
 };
 
 namespace {
@@ -140,23 +158,35 @@ __device__ __forceinline__ void write_compact(const DensePackArgs& a, int s,
   }
 }
 
-// Row 1 + s of the keyed table (a merged table's row s).
+// Row 1 + s of the keyed table: a merged table's row s, or slot s of the
+// scan's own table (source row src, -1 for an empty one).
 __device__ __forceinline__ void write_keyed(const DensePackArgs& a, int s,
+                                            int src,
                                             const unsigned long long* row,
                                             unsigned long long count,
                                             unsigned long long samples) {
   long long* out =
       reinterpret_cast<long long*>(a.main) + (size_t)(1 + s) * a.W;
-  for (int k = 0; k < a.K; ++k) out[k] = a.keys[(size_t)s * a.K + k];
+  for (int k = 0; k < a.K; ++k)
+    out[k] = a.keys ? a.keys[(size_t)s * a.K + k]
+                    : dense_key(a.desc, a.kb_min, a.kb_card, a.nkb, a.tpos,
+                                a.tb, s, k);
   out[a.K] = (long long)count;
   out[a.K + 1] = (long long)samples;
   for (int ai = 0; ai < a.A; ++ai) {
     long long* o = out + a.K + 2 + 5 * ai;
-    o[0] = (long long)row[2 + 3 * ai] > 0;
-    o[1] = (long long)row[3 + 3 * ai];
-    o[2] = (long long)row[4 + 3 * ai];
-    o[3] = a.mins[(size_t)s * a.A + ai];
-    o[4] = a.maxs[(size_t)s * a.A + ai];
+    o[0] = src >= 0 && (long long)row[2 + 3 * ai] > 0;
+    o[1] = src >= 0 ? (long long)row[3 + 3 * ai] : 0;
+    o[2] = src >= 0 ? (long long)row[4 + 3 * ai] : 0;
+    if (a.keys) {
+      o[3] = a.mins[(size_t)s * a.A + ai];
+      o[4] = a.maxs[(size_t)s * a.A + ai];
+    } else {
+      const int h = (int)desc_at(a.desc, a.agg_mm, ai);
+      const bool mm = h >= 0 && src >= 0;
+      o[3] = mm ? a.mins[(size_t)src * a.H + h] : BIG;
+      o[4] = mm ? a.maxs[(size_t)src * a.H + h] : -BIG;
+    }
   }
 }
 
@@ -178,8 +208,8 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
       const unsigned long long samples =
           (src >= 0 && live_row) ? row[1] : 0ull;
       live = (long long)count > 0 || (long long)samples > 0;
-      if (a.keys)
-        write_keyed(a, s, row, count, samples);
+      if (a.K > 0)
+        write_keyed(a, s, src, row, count, samples);
       else
         write_compact(a, s, src, row, count, samples);
     }
@@ -234,17 +264,13 @@ __global__ void __launch_bounds__(THREADS) dense_pack_kernel(
   }
 }
 
-}  // namespace
-
-// Copies the descriptor block and zeroes the words of `main` this kernel
+// Copies the descriptor block and zeroes the words of `main` the kernel
 // owns (all but K5's outlier rows [out_lo, out_hi)) on `stream`, then
-// writes them.  Returns cudaError_t.
-extern "C" int dense_pack(const DensePackArgs* args, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// launches it.
+int launch(const DensePackArgs* args, cudaStream_t st) {
   const size_t row_bytes = (size_t)args->W * sizeof(long long);
   if ((args->Phll && !args->hll) ||
-      (args->keys && (args->compact || args->Sc != args->slots ||
-                      args->W < args->K + 2 + 5 * args->A)))
+      args->W < args->K + 2 + 5 * args->A)
     return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(args->desc, st);
   if (err != cudaSuccess) return err;
@@ -259,4 +285,24 @@ extern "C" int dense_pack(const DensePackArgs* args, void* stream) {
       (size_t)(args->Ph > args->Phll ? args->Ph : args->Phll) * sizeof(int);
   dense_pack_kernel<<<1, THREADS, shm, st>>>(*args);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// The compact form, and the keyed form of a merged table.  Returns
+// cudaError_t.
+extern "C" int dense_pack(const DensePackArgs* args, void* stream) {
+  if (args->K > 0 && (!args->keys || args->compact ||
+                      args->Sc != args->slots))
+    return cudaErrorInvalidValue;
+  return launch(args, static_cast<cudaStream_t>(stream));
+}
+
+// The keyed form of the scan's own table (the row-store scan).  Returns
+// cudaError_t.
+extern "C" int dense_keyed(const DensePackArgs* args, void* stream) {
+  if (args->K < 1 || args->keys || args->num_groups || args->overflow ||
+      !(args->nkb == args->K || (args->nkb == 0 && args->K == 1)))
+    return cudaErrorInvalidValue;
+  return launch(args, static_cast<cudaStream_t>(stream));
 }

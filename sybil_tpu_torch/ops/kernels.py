@@ -35,11 +35,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the wrappers that launch a source's other kernels: sort_permute
 # (sorted_front.cu), enum_pack and prune_gather (sorted_pack.cu),
-# shuffle_keys and shuffle_unpack (shuffle_reduce.cu)
+# shuffle_keys and shuffle_unpack (shuffle_reduce.cu), and the entry of
+# dense_pack.cu's keyed form of a scan's own table (dense_keyed: the
+# row-store scan's), counted apart from its other forms
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "prune_gather": "sorted_pack",
                  "shuffle_keys": "shuffle_reduce",
-                 "shuffle_unpack": "shuffle_reduce"}
+                 "shuffle_unpack": "shuffle_reduce",
+                 "dense_keyed": "dense_pack"}
 # one count per wrapper: a source's name, and each entry above
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
 

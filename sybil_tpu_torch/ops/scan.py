@@ -47,7 +47,9 @@ K5 outlier_compact  per tracked histogram aggregation: the first kmax
                     outlier rows [time key?, keys, value, live] of the
                     download
 K3 dense_pack       the meta row, the compact keyless table with the
-                    histogram min/max words, the HLL gid and register
+                    histogram min/max words (under no_compact_table the
+                    keyed table, its keys decoded from the slot index:
+                    the dense_keyed entry), the HLL gid and register
                     sections, and the dense histogram gid and bucket
                     sections; with K5's rows, word for word the
                     reference's `main`
@@ -103,7 +105,9 @@ group_cols) asks for the cache-group key, block position // vg_span, as
 its most significant key: K2, K7, K8 and K5 make it from the row index,
 reading no column.  A mesh scan (no_compact_table) runs scan_core per
 shard and packs the merged table through K3's keyed form or K10
-(parallel/mesh.py).
+(parallel/mesh.py); the row-store scan (no_compact_table, one [1, C]
+pseudo-block of WAL records) packs its own dense table through K3's
+keyed form with each slot's keys decoded in the kernel (dense_keyed).
 """
 
 from __future__ import annotations
@@ -1568,9 +1572,13 @@ class DensePackArgs(ctypes.Structure):
         ("H", ctypes.c_int),
         ("Ph", ctypes.c_int),
         ("Phll", ctypes.c_int),
-    ] + _ptr_fields("keys", "num_groups", "overflow") + [
+    ] + _ptr_fields("keys", "num_groups", "overflow", "kb_min", "kb_card",
+                    "agg_mm") + [
+        ("tb", ctypes.c_longlong),
         ("K", ctypes.c_int),
         ("A", ctypes.c_int),
+        ("nkb", ctypes.c_int),
+        ("tpos", ctypes.c_int),
     ]
 
 
@@ -1600,30 +1608,33 @@ def outlier_rows(config: ScanConfig, R: int) -> tuple[int, int]:
     return lo, lo + layout["kmax_out"] * len(hist_aggs(config))
 
 
-def _keyed(config: ScanConfig, k2: dict) -> bool:
-    """Whether K3 packs a mesh scan's merged table (k2 with "keys"): the
-    keyed form's only input, and only under no_compact_table."""
-    merged = "keys" in k2
-    if merged and not config.no_compact_table:
-        raise ValueError("dense_pack: a merged table needs no_compact_table")
-    if config.no_compact_table and not merged:
-        raise NotImplementedError(
-            "dense_pack: the keyed table packs a mesh scan's merged table; "
-            "a scan's own keyed table is the row-store scan's (ROADMAP "
-            "A13.1)")
-    return merged
+def _pack_form(config: ScanConfig, k2: dict) -> str:
+    """K3's form: "merged" packs a mesh scan's merged table (k2 with
+    "keys") as the keyed table; "keyed" packs the scan's own reduce-space
+    table as the keyed table (no_compact_table without a merged table:
+    the row-store scan, reference pack_outputs 1865-1872); "compact" the
+    keyless compact table."""
+    if "keys" in k2:
+        if not config.no_compact_table:
+            raise ValueError("dense_pack: a merged table needs "
+                             "no_compact_table")
+        return "merged"
+    return "keyed" if config.no_compact_table else "compact"
 
 
 def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
-                     R: int, hll=None) -> None:
+                     R: int, hll=None, time_bucket: int = 1) -> None:
     """Plain PyTorch version of K3: expand, mask, stack and view into the
     packed `main` buffer [rows, W] int64, in place, outside K5's rows;
-    with the device HLL, `hll` is K13's uint8 [slots, HLL_M] planes.  The
-    keyed form (no_compact_table) writes a mesh scan's merged table (k2
-    with "keys") as the keyed table."""
+    with the device HLL, `hll` is K13's uint8 [slots, HLL_M] planes.
+    Under no_compact_table the table is keyed: a mesh scan's merged table
+    (k2 with "keys"), or the scan's own table with each slot's keys
+    decoded from its index (time keys scaled by `time_bucket`) and
+    min/max sentinels for the aggregations without a histogram."""
     dev = main.device
     slots, Sc, compact = reduce_space(config)
-    merged = _keyed(config, k2)
+    form = _pack_form(config, k2)
+    merged = form == "merged"
     if merged:          # every row a slot, none of them dead
         Sc, compact = slots, False
     sums = k2["sums"]
@@ -1651,9 +1662,21 @@ def dense_pack_plain(config: ScanConfig, k2: dict, hists, nouts, main,
     W = layout["W"]
     hist = hist_aggs(config)
     H = len(hist)
-    if merged:
+    if form != "compact":
         A = len(config.aggs)
-        keys, mins, maxs = k2["keys"], k2["mins"], k2["maxs"]
+        if merged:
+            keys, mins, maxs = k2["keys"], k2["mins"], k2["maxs"]
+        else:
+            # _dense_decode_keys, and every aggregation's min/max column:
+            # the histogram aggregations' expanded, sentinels elsewhere
+            keys = torch.from_numpy(dense_keys_np(config, time_bucket)).to(
+                dev)
+            mins = torch.full((slots, max(A, 1)), _BIG, dtype=torch.int64,
+                              device=dev)
+            maxs = torch.full_like(mins, -_BIG)
+            emin, emax = expand(k2["mins"], _BIG), expand(k2["maxs"], -_BIG)
+            for h, ai in enumerate(hist):
+                mins[:, ai], maxs[:, ai] = emin[:, h], emax[:, h]
         cols = [keys[:, k] for k in range(keys.shape[1])] + lane_vals[:2]
         for ai in range(A):
             cols += lane_vals[2 + 3 * ai: 5 + 3 * ai] + [mins[:, ai],
@@ -1723,7 +1746,7 @@ def _tail_row(layout: dict) -> int:
 
 
 def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
-               R: int, hll=None) -> None:
+               R: int, hll=None, time_bucket: int = 1) -> None:
     """K3: writes the packed download buffer `main` [rows, W] int64 in
     place, all but K5's outlier rows.  CUDA tensors launch the kernel
     (csrc/dense_pack.cu); CPU tensors take dense_pack_plain.
@@ -1731,24 +1754,30 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     k2: K2's outputs; hists: K4's [Sc, nv] counts and nouts its outlier
     counts (None without tracking), one per histogram aggregation; hll:
     K13's uint8 [slots, HLL_M] planes with the device HLL, else None.
-    With no_compact_table the table is keyed, and k2 is a mesh scan's
-    merged table, {"keys" [slots, K], "sums" [slots+1, L], "mins"/"maxs"
+    With no_compact_table the table is keyed: k2 is a mesh scan's merged
+    table, {"keys" [slots, K], "sums" [slots+1, L], "mins"/"maxs"
     [slots, A] (every aggregation), "spill", "num_groups", "overflow"
-    [1]}, with hists [slots, nv] (K16's unpack).
+    [1]}, with hists [slots, nv] (K16's unpack); or K2's own outputs (the
+    row-store scan), whose slots' keys the kernel decodes from the slot
+    index (`dense_key`, time keys times `time_bucket`).  That form is
+    launched through its own entry point and counted as `dense_keyed`.
     Replaces the dense compact part of sybil_tpu/ops/scan.py:_scan_dense
-    (expand, dead slot, num_groups, min/max) and pack_outputs (meta,
-    compact or keyed table 1865-1872, dense hist sections, the HLL
+    (expand, dead slot, num_groups, min/max), its key decode
+    (_dense_decode_keys 608-626) under no_compact_table, and pack_outputs
+    (meta, compact or keyed table 1865-1872, dense hist sections, the HLL
     sections 1934-1945).  A few KB (the HLL planes: 16 KB each; the keyed
     table slots x W words): bound by launch latency; one CTA (see the
     source note)."""
     dev = main.device
     if dev.type == "cpu":
-        dense_pack_plain(config, k2, hists, nouts, main, R, hll)
+        dense_pack_plain(config, k2, hists, nouts, main, R, hll,
+                         time_bucket)
         return
     if dev.type != "cuda":
         raise ValueError(f"dense_pack: unsupported device {dev}")
     slots, Sc, compact = reduce_space(config)
-    merged = _keyed(config, k2)
+    form = _pack_form(config, k2)
+    merged = form == "merged"
     hist = hist_aggs(config)
     H = len(hist)
     A = len(config.aggs)
@@ -1790,11 +1819,19 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
         "hist_row": [layout[f"hist{ai}"][0] for ai in hist],
         "hist_nv": [config.aggs[ai].num_values for ai in hist],
         "lane": lanes}
-    if merged:
+    if form != "compact":
         a.K, a.A = K, A
+    if merged:
         a.keys = k2["keys"].data_ptr()
         a.num_groups = k2["num_groups"].data_ptr()
         a.overflow = k2["overflow"].data_ptr()
+    elif form == "keyed":
+        desc["kb_min"] = [mn for mn, _ in config.key_bounds]
+        desc["kb_card"] = [card for _, card in config.key_bounds]
+        desc["agg_mm"] = [hist.index(ai) if ai in hist else -1
+                          for ai in range(A)]
+        a.nkb, a.tpos = len(config.key_bounds), config.time_key_pos
+        a.tb = int(time_bucket)
     _set_desc(a, dev, desc)
     a.main, a.rows = main.data_ptr(), rows
     a.out_lo, a.out_hi = outlier_rows(config, R)
@@ -1812,12 +1849,12 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     a.ncols, a.i32 = len(lanes), int(bool(plan and plan["i32"]))
     a.slots, a.Sc, a.compact, a.L, a.W, a.H = (slots, Sc, int(compact), L,
                                                 W, H)
-    fn = kernels.lib("dense_pack").dense_pack
+    entry = "dense_keyed" if form == "keyed" else "dense_pack"
+    fn = getattr(kernels.lib("dense_pack"), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
-                  "dense_pack")
-    kernels.LAUNCHES["dense_pack"] += 1
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)), entry)
+    kernels.LAUNCHES[entry] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -3487,7 +3524,7 @@ def pack_parts(config: ScanConfig, parts: dict) -> dict:
                             kmat=kmat)
     if dense:
         dense_pack(config, parts["k2"], parts["hists"], parts["nouts"], main,
-                   R, parts["hll"])
+                   R, parts["hll"], raw.get("time_bucket", 1))
         return {"main": main}
     packed = sorted_pack(config, parts["k8"], parts["spill"], parts["pairs"],
                          parts["nouts"], main, R,

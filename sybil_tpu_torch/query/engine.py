@@ -1,7 +1,6 @@
 """Query engine orchestrator.
 
-Port of sybil_tpu/query/engine.py, without the row-store scan
-(-read-log).  The plan:
+Port of sybil_tpu/query/engine.py.  The plan:
 
   bind     resolve columns/types, build the static ScanConfig
   scan     batches of blocks -> [B, CHUNK] device tensors (decoded by
@@ -16,6 +15,8 @@ Port of sybil_tpu/query/engine.py, without the row-store scan
            blocking; a dense key bound that spills restarts the scan on
            the unpacked sorted strategy; a samples query reads its
            matched rows back from the blocks
+  rowstore with -read-log, the undigested WAL replayed into pseudo-blocks
+           on the device, each one scan_packed call (_scan_rowstore)
   merge    the host merges the (small) per-batch group tables, bucket
            matrices, sparse hist pairs, outlier rows, and a count
            distinct's HLL register planes (the dense strategy's device
@@ -37,8 +38,7 @@ share dispatches through the cache-group key, which the kernels make
 from each row's block position (_cached_scan, _scan_cache_vgroups).
 
 Block skipping replicates ShouldLoadBlockFromDir's min/max pruning
-(table_block_io.go:110-182).  Query shapes the port does not carry yet
-raise NotImplementedError naming their ROADMAP item.
+(table_block_io.go:110-182).
 """
 
 from __future__ import annotations
@@ -974,10 +974,6 @@ def _run_query_inner(table: Table, params: QueryParams,
     from ..ops.kernels import resolve_device
     flags = flags or table.flags
     device = resolve_device(flags.device)
-    if flags.read_log:
-        raise NotImplementedError(
-            "-read-log (scanning the row store) is not ported yet "
-            "(ROADMAP A13.1)")
     with timer.phase("bind"):
         if not table.load_info() and not table.exists():
             error("table", table.name,
@@ -1023,13 +1019,15 @@ def _run_query_inner(table: Table, params: QueryParams,
                                       if bound.config.hll else {}))
 
     ctx = _ScanCtx(bound, infos, params, timer, C, device, mesh)
-    # -read-log raised above, so the cache runs whenever it is asked for
-    # and the query takes no samples
-    if flags.cache_queries and not params.samples:
+    if flags.cache_queries and not params.samples and not flags.read_log:
         acc = _cached_scan(ctx, table, block_dirs, B)
     else:
         _maybe_device_prune(bound, params, block_dirs, B)
         acc = _scan_dirs(ctx, block_dirs, B, allow_prune=True)
+
+    if flags.read_log:
+        with timer.phase("rowstore"):
+            _scan_rowstore(acc, ctx, table)
 
     with timer.phase("finish"):
         qr = acc.finish()
@@ -1525,6 +1523,96 @@ def _scan_dirs(ctx: _ScanCtx, block_dirs: list[str], B: int,
         return acc
     return {k: a for k, a in accs.items()
             if drained.get(k, 0) == n_batches.get(k)}
+
+
+# -read-log's count of pseudo-blocks redone on the unpacked sorted
+# strategy after a dense key spilled (reset by the caller)
+ROWSTORE = {"sorted_retries": 0}
+
+
+def _scan_rowstore(acc: "_Accumulator", ctx: _ScanCtx,
+                   table: Table) -> None:
+    """-read-log (the reference's engine.py:1598-1673, table_query.go:
+    318-341): the undigested WAL records too.  The logs replay into
+    columnar pseudo-blocks of one [1, C] row each, built on the query's
+    device, and each goes through scan_packed unsharded (a mesh query's
+    blocks went through the mesh; its config is the mesh's).  WAL rows
+    are not covered by the digested blocks' exact statistics, so the
+    scan strips every bound-derived specialisation (limb compression,
+    value biasing, the lanes proven equal to samples, windowing, int32
+    time) and packs the keyed table (no_compact_table: K3's keyed form of
+    the scan's own table, the dense_keyed entry).  Strings found only in
+    the WAL got dict ids during the replay: the filter literals, regex
+    bitsets and str key bounds are re-resolved first, and a pseudo-block
+    whose dense keys still spill (an int key or a time past the blocks'
+    bounds) is redone, with every later one, on the unpacked sorted
+    strategy."""
+    import dataclasses as _dc
+
+    import torch
+
+    from .. import rowstore
+    from ..digest import replay_logs_columnar
+    from ..ops.scan import scan_packed
+
+    bound, params, device = ctx.bound, ctx.params, ctx.device
+    data, n = replay_logs_columnar(rowstore.list_logs(table.dir), table)
+    if not n:
+        return
+    bound.refresh_str_filters()  # WAL-only strings got dict ids just now
+    bound.refresh_key_bounds()
+    ctx.refresh_consts()
+    wal_cfg = _dc.replace(bound.config, lane_limbs8=(), agg_vbias=(),
+                          lane_row_bounds=(), lane_nrows=(), window=0,
+                          time_i32=False, no_compact_table=True)
+    C = _pad_pow2(min(n, CHUNK_SIZE))
+    tb = params.time_bucket or 1
+
+    def on_device(a):
+        return torch.from_numpy(a).to(device)
+
+    for lo in range(0, n, C):
+        hi = min(lo + C, n)
+        cols, set_aux = {}, {}
+        for name in bound.needed_cols:
+            typ = bound.col_types[name]
+            cd = data.get(name)
+            if typ == SET_VAL:
+                if isinstance(cd, blockio.SetColumnData):
+                    offs = cd.offsets[lo: hi + 1] - cd.offsets[lo]
+                    vals = cd.values[cd.offsets[lo]: cd.offsets[hi]]
+                    rws = np.repeat(np.arange(hi - lo), np.diff(offs))
+                else:
+                    rws = vals = np.zeros(0, dtype=np.int64)
+                prow, pval = pad_set_csr(rws, vals, C)
+                set_aux[name] = (on_device(prow), on_device(pval), len(rws))
+                continue
+            values = np.zeros((1, C), dtype=np.int64)
+            valid = np.zeros((1, C), dtype=bool)
+            if isinstance(cd, blockio.IntColumnData):
+                values[0, : hi - lo] = cd.values[lo:hi]
+                valid[0, : hi - lo] = cd.valid[lo:hi]
+            elif isinstance(cd, blockio.StrColumnData):
+                values[0, : hi - lo] = cd.ids[lo:hi]
+                valid[0, : hi - lo] = cd.valid[lo:hi]
+            cols[name] = (on_device(values), on_device(valid))
+        if not cols:
+            cols["__count__"] = (on_device(np.zeros((1, C), np.int64)),
+                                 on_device(np.ones((1, C), bool)))
+        nrec = on_device(np.array([hi - lo], dtype=np.int32))
+        packed, out = scan_packed(wal_cfg, cols, nrec, ctx.jfv, ctx.jbits,
+                                  tb, set_aux)
+        if acc.absorb_packed(packed, out, C, wal_cfg) > 0:
+            # a key of the WAL's rows lies past its bind-time bound (an
+            # int key or a time; str bounds were refreshed above): redo
+            # this pseudo-block on the unpacked sorted strategy
+            debug("row store: key bound spilled; retrying the pseudo-block "
+                  "on the unpacked sorted strategy")
+            wal_cfg = _dc.replace(wal_cfg, force_sorted=True, sort_pack=())
+            packed, out = scan_packed(wal_cfg, cols, nrec, ctx.jfv,
+                                      ctx.jbits, tb, set_aux)
+            ROWSTORE["sorted_retries"] += 1
+            acc.absorb_packed(packed, out, C, wal_cfg)
 
 
 class _Accumulator:

@@ -17,9 +17,10 @@ import numpy as np
 
 from . import blocks, codec, constants, rowstore
 from .config import Flags
+from .debug import debug, warn
 from .dicts import DictStore
 from .ingest import update_schema_stats
-from .locks import DigestLock, InfoLock
+from .locks import BlockLock, DigestLock, InfoLock
 from .schema import Schema
 
 
@@ -277,9 +278,9 @@ class Table:
 
     def maybe_compact(self) -> None:
         if self.should_compact():
-            raise NotImplementedError(
-                "digesting the row store is not ported yet (ROADMAP A13); "
-                "ingest with skip_compact or use Table.ingest_columns")
+            from .digest import digest_records
+            debug("auto-compacting row store for", self.name)
+            digest_records(self)
 
     # ------------------------------------------------------------------
     # info reporting (printer.go:583-598)

@@ -195,9 +195,10 @@ def test_cache_group_scan_matches_reference(name):
 def test_key_rows_cg_lane_and_check_supported():
     """key_rows (K5's and the escalation's key source) puts the cache
     group first in both layouts; the scan admits cache-group configs, and
-    no_compact_table (the mesh's keyed dense table, no longer refused)
-    packs a mesh scan's merged table word for word as the reference does,
-    while a scan's own keyed table stays the row-store scan's (A13.1)."""
+    no_compact_table packs the keyed dense table word for word as the
+    reference does: a scan's own table (the row-store scan's form, here
+    with the cache-group key decoded from the slot) and a mesh scan's
+    merged one."""
     cols = {k: (torch.from_numpy(v), torch.from_numpy(m))
             for k, (v, m) in unit_batch()[0].items()}
     idx = torch.tensor([0, C - 1, C, 3 * C + 5, R - 1])
@@ -208,10 +209,18 @@ def test_key_rows_cg_lane_and_check_supported():
         assert rows.shape[1] == pcfg.n_key_cols
     _, nrec = unit_batch()
     cfg = dataclasses.replace(unit_config("dense"), no_compact_table=True)
-    with pytest.raises(NotImplementedError, match="A13.1"):
-        port.scan_packed(port.config_from_fields(dataclasses.asdict(cfg)),
-                         cols, torch.from_numpy(nrec),
-                         torch.zeros(0, dtype=torch.int64), (), 100, {})
+    want, _ = ref.scan_packed_jit(
+        cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+              for k, (v, m) in unit_batch()[0].items()},
+        jnp.asarray(nrec), jnp.zeros(0, jnp.int64), (),
+        jnp.asarray(100, jnp.int64), {})
+    got, _ = port.scan_packed(port.config_from_fields(dataclasses.asdict(cfg)),
+                              cols, torch.from_numpy(nrec),
+                              torch.zeros(0, dtype=torch.int64), (), 100, {})
+    np.testing.assert_array_equal(got["main"].numpy(),
+                                  np.asarray(want["main"]))
+    keyed = got["main"].numpy()[1:1 + cfg.dense_slots]
+    assert set(keyed[keyed[:, 2] > 0, 0].tolist()) == {0, 1, 2, 3}
     # the mesh's keyed table: the same key without the cache group
     cfg = dataclasses.replace(cfg, group_cols=("g",), key_bounds=((0, 5),),
                               vg_span=0)

@@ -1,6 +1,6 @@
 """The port stands alone: no file of sybil_tpu_torch/ (nor chip_smoke.py)
 imports jax or sybil_tpu, and a process that refuses both imports runs
-port queries to the end, a mesh query included."""
+port queries to the end, a mesh query and the row store included."""
 
 import ast
 import json
@@ -32,7 +32,8 @@ def test_no_port_source_imports_jax_or_reference():
     sources = _port_sources()
     assert len(sources) > 20
     for mod in (("query", "cache.py"), ("parallel", "mesh.py"),
-                ("parallel", "multihost.py")):
+                ("parallel", "multihost.py"), ("native", "__init__.py"),
+                ("columnar.py",), ("digest.py",)):
         assert os.path.join(REPO, "sybil_tpu_torch", *mod) in sources
     bad = []
     for path in sources:
@@ -272,3 +273,37 @@ def test_port_mesh_query_runs_with_jax_and_reference_refused(tmp_path):
     for a, b in zip(sorted(outs[0], key=key), sorted(outs[1], key=key)):
         assert a["Count"] == b["Count"]
         assert a["ping"]["percentiles"] == b["ping"]["percentiles"]
+
+
+def test_port_row_store_runs_with_jax_and_reference_refused(tmp_path):
+    """The row store runs in the refusing process too: `ingest
+    -skip-compact` into the WAL, a -read-log query over it (the port's
+    native WAL decoder, the pseudo-blocks, K3's keyed form of their own
+    table), `digest`, and the same query without -read-log after it."""
+    d = str(tmp_path / "db")
+    rng = np.random.default_rng(9)
+    n = 2000
+    lines = "".join(json.dumps({"host": f"h{i}", "ping": int(p)}) + "\n"
+                    for i, p in zip(rng.integers(0, 4, n),
+                                    rng.integers(0, 150, n)))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    query = ["query", "-dir", d, "-table", "uptime", "-group", "host",
+             "-int", "ping", "-op", "avg", "-json", "-device", "cpu"]
+    outs = []
+    for argv, stdin in (
+            (["ingest", "-dir", d, "-table", "uptime", "-skip-compact"],
+             lines),
+            (query + ["-read-log"], ""),
+            (["digest", "-dir", d, "-table", "uptime"], ""),
+            (query, "")):
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKER.format(forbidden=FORBIDDEN,
+                                                  argv=argv)],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
+            input=stdin, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        outs.append(proc.stdout)
+    rows = json.loads(outs[1])
+    assert sum(r["Count"] for r in rows) == n
+    assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
+    assert json.loads(outs[3]) == rows

@@ -428,22 +428,56 @@ def test_k16_and_compaction_match_reference():
 
 
 def test_keyed_dense_table_of_an_unsharded_scan():
-    """K3's keyed form packs a mesh scan's merged table and nothing else:
-    an unsharded scan with no_compact_table (the row-store scan's keyed
-    table, ROADMAP A13.1) is refused, and so is a merged table without
-    no_compact_table."""
-    for name in ("dense-hist-outliers", "dense-rollup"):
-        _, bopts, fvals, tb, _ = CASES[name]
-        pcfg = port.config_from_fields(dataclasses.asdict(make_config(name)))
-        cols, _ = make_batch(**bopts)
+    """K3's keyed form of an unsharded scan's own table (no_compact_table
+    without a merged table: the row-store scan's) packs the reference's
+    words (scan_packed_jit), with the keys decoded from each slot (a time
+    key at digit 0 included); a merged table without no_compact_table is
+    still refused."""
+    for name in ("dense-hist-outliers", "dense-rollup",
+                 "dense-two-keys-set"):
+        _, bopts, fvals, tb, has_set = CASES[name]
+        cfg = make_config(name)
+        pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+        cols, (prow, pval, nent) = make_batch(**bopts)
         tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
                  for k, (v, m) in cols.items()}
-        nrec = torch.full((B,), C, dtype=torch.int32)
-        fv = torch.tensor(fvals, dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="A13.1"):
-            port.scan_packed(pcfg, tcols, nrec, fv, (), tb, {})
-        parts = port_mesh.sharded_scan(pcfg, port_mesh.Mesh(D), tcols, nrec,
-                                       fv, (), tb, {})
+        nrec = np.full(B, C, np.int32)
+        nrec[-1] = C // 3
+        fv = np.asarray(fvals, np.int64)
+        ref_aux, port_aux = {}, {}
+        if has_set:
+            # the global CSR: every shard's rows, moved to batch rows
+            R_local = R // D
+            rws = np.concatenate([prow[d, :n] + d * R_local
+                                  for d, n in enumerate(nent)])
+            vls = np.concatenate([pval[d, :n] for d, n in enumerate(nent)])
+            m = 128
+            while m < len(rws):
+                m *= 2
+            grow = np.full(m, R, np.int32)
+            gval = np.full(m, -2, np.int64)
+            grow[:len(rws)], gval[:len(vls)] = rws, vls
+            ref_aux = {"tags": (jnp.asarray(grow), jnp.asarray(gval))}
+            port_aux = {"tags": (torch.from_numpy(grow),
+                                 torch.from_numpy(gval), len(rws))}
+        want, _ = ref.scan_packed_jit(
+            cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+                  for k, (v, m) in cols.items()},
+            jnp.asarray(nrec), jnp.asarray(fv), (),
+            jnp.asarray(tb, jnp.int64), ref_aux)
+        got, _ = port.scan_packed(pcfg, tcols, torch.from_numpy(nrec),
+                                  torch.from_numpy(fv), (), tb, port_aux)
+        np.testing.assert_array_equal(got["main"].numpy(),
+                                      np.asarray(want["main"]))
+        K = pcfg.n_key_cols
+        keyed = got["main"].numpy()[1:1 + pcfg.dense_slots]
+        live = (keyed[:, K] > 0) | (keyed[:, K + 1] > 0)
+        assert live.sum() == got["main"].numpy()[0, 0] > 0
+        if has_set:
+            continue
+        parts = port_mesh.sharded_scan(pcfg, port_mesh.Mesh(D), tcols,
+                                       torch.from_numpy(nrec),
+                                       torch.from_numpy(fv), (), tb, {})
         flat = dataclasses.replace(pcfg, no_compact_table=False)
         lay = port.packed_layout(flat, R)
         main = torch.empty((lay["rows"], lay["W"]), dtype=torch.int64)

@@ -9,6 +9,7 @@ printed text byte for byte.  The on-disk format is shared both ways."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -373,23 +374,41 @@ def test_default_device_without_cuda_raises(ref_table, capsys):
 
 
 @pytest.mark.parametrize("change,item", [
+    # -read-log runs (A13.1, tests/test_torch_rowstore.py): alone, beside
+    # -cache-queries (the cache is skipped) and beside the mesh (the case
+    # keeps its id); each answer equals the reference's over the table's
+    # blocks and a WAL tail on a copy of it
     ({"read_log": True}, "A13"),
-    # the query cache runs (tests/test_torch_cache.py); asked for beside
-    # -read-log it still meets the row store's refusal (A13.1)
     ({"cache_queries": True, "read_log": True}, "A13"),
-    # the mesh scan runs (A14, tests/test_torch_mesh.py); asked for beside
-    # -read-log it still meets the row store's refusal (the case keeps its
-    # id)
     pytest.param({"data_shards": 2, "read_log": True}, "A13",
                  id="change2-A14"),
 ])
-def test_unported_engine_modes_raise(ref_table, change, item):
+def test_unported_engine_modes_raise(ref_table, change, item, tmp_path):
+    import shutil
+    d = str(tmp_path / "db")
+    shutil.copytree(os.path.join(ref_table, "uptime"),
+                    os.path.join(d, "uptime"))
+    rt = RefTable("uptime", RefFlags(dir=d, table="uptime",
+                                     skip_compact=True))
+    rng = np.random.default_rng(12)
+    rt.ingest_records([
+        {"s": {"host": ["wal.com", *HOSTS][i % 6]},
+         "i": {"ping": int(rng.integers(0, 400)), "index_int": 9000 + i}}
+        for i in range(600)])
+    want = ref_run_query(
+        RefTable("uptime", RefFlags(dir=d, table="uptime")),
+        RefParams(groups=("host",), aggs=(RefAgg("ping", "avg"),)),
+        dataclasses.replace(RefFlags(dir=d, table="uptime"), **change))
     flags = dataclasses.replace(
-        Flags(dir=ref_table, table="uptime", device="cpu"), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        run_query(Table("uptime", flags),
-                  QueryParams(groups=("host",),
-                              aggs=(AggDef("ping", "avg"),)), flags)
+        Flags(dir=d, table="uptime", device="cpu"), **change)
+    got = run_query(Table("uptime", flags),
+                    QueryParams(groups=("host",),
+                                aggs=(AggDef("ping", "avg"),)), flags)
+    assert _snapshot(got) == _snapshot(want)
+    assert got.results["wal.com\t"].count == 100
+    assert not os.path.isdir(os.path.join(d, "uptime", "cache")) or not [
+        f for f in os.listdir(os.path.join(d, "uptime", "cache"))
+        if f.startswith("q_")]
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -496,7 +515,7 @@ def test_past_former_kernel_caps_matches_reference(wide_table, what, argv,
 
 
 def test_other_subcommands_are_not_ported(capsys):
-    assert port_cli.main(["digest", "-dir", "x", "-table", "t"]) == 2
+    assert port_cli.main(["trim", "-dir", "x", "-table", "t"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert port_cli.main(["version", "-json"]) == 0
     assert json.loads(capsys.readouterr().out)["engine"] == "torch-cuda"
