@@ -44,7 +44,13 @@ Phases (any failure exits non-zero before the result lines):
      multihist sub-outliers, more outliers than the packed section holds,
      a hist table in global memory; negative times, times beyond 2^31,
      spilled quotients, rows without the time column, a span wider than
-     8 bands, a time rollup's tracked outliers).  Then the sorted strategy:
+     8 bands, a time rollup's tracked outliers); K2's windowed form on
+     its corner cases (K2W_CASES: spans wider than the shared budget,
+     sparse and dense, every row on one slot, no matched row, rows on the
+     dead slot, a spilled quotient, a hist with the mask and the
+     cache-group key, wrapping weighted lanes) and config 4's three
+     layouts, word for word, each path of its design (resident,
+     full-span, banded, direct, empty) taken.  Then the sorted strategy:
      K7 sorted_front, sort_permute, K8 segment_reduce, K9 hist_pairs (both
      entries), K5 over the sorted keys and K10 sorted_pack against their
      plain versions, word for word, on this slice's two paths (path 1:
@@ -159,7 +165,13 @@ Phases (any failure exits non-zero before the result lines):
      with dead rows, segments past the cap, MISSING keys, a 5,000-row
      segment, path 2's 201,024-row owner with a segment across tiles,
      without and with a tied row) at WP 174, 9 and 10, each entry held
-     to its plain version word for word, both walks of the merge run.
+     to its plain version word for word, both walks of the merge run;
+     K2's windowed form at the mesh's first windowed shard, and K12's
+     two-valued form on its corner cases (K12_CASES: all zeros, all
+     ones, k below, at and above the ones, k = R, R = 1, R at the
+     one-CTA limit of 16,384 flags and either side, many tiles) and at
+     the mesh's compactions, word for word, with torch.profiler's device
+     launches a call: 1 up to 16,384 flags, 2 above.
      Then the row store on copies of the uptime and sets tables: an
      undigested tail through the port's `ingest -skip-compact` (16 logs
      of 65,536 records from bench.py's generator continued at the
@@ -184,7 +196,8 @@ Phases (any failure exits non-zero before the result lines):
      kernel's time from CUDA events beside its bound (the larger of
      bytes / 3.35 TB/s and integer operations / the INT32 rate), its
      plain version's time and, where one torch call computes the same
-     function, that call's time; K2 on config 4 in both forms per table;
+     function, that call's time; K2 on config 4 in both forms per table,
+     also queued (device time) with its device launches a call;
      K7, sort_permute, K8, K9, K5 (sorted keys) and K10 at both paths'
      shapes, config 5's K7 enum form, K11, K12 ($COUNT and mean scores),
      K10 enum_pack and the device prune's forms, `aggregate`'s wall, K13
@@ -196,7 +209,9 @@ Phases (any failure exits non-zero before the result lines):
      and K7 at S3's and S4b's with and without the set filter and mask;
      the cache-group forms of K2, K8 and K5 beside their torch calls;
      K15 at config 3 -loghist's and path 2's shard, K16's entries at one
-     owner, the owner's sorts, K12's compaction and the unpack at both,
+     owner, the owner's sorts, K12's compaction (also at config 5
+     partition 1's, 2^18 group rows; queued, with its device launches)
+     and the unpack at both,
      and K3's keyed form at config 3 -loghist, beside their plain
      versions and torch calls; K16's entries also queued behind a sleep
      kernel (their device time without the wrappers' host time) and
@@ -3148,33 +3163,45 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_kernels(fn) -> str:
+def device_launches(fn, tries: int = 8):
     """The device work of one call of fn as torch.profiler's CUDA
-    activity records it: each kernel's (or copy's) name with its count
-    and self device time, and their total; "not measured" with the
-    reason when the profiler records none."""
+    activity records it: (kernels and copies a call, {name: (count, self
+    device us)}), the most over `tries` profiled calls (a profile
+    sometimes misses a short call's events, it never adds any), or (None,
+    the reason) when it records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    except Exception as exc:   # the profiler is optional here
-        return f"not measured ({type(exc).__name__}: {exc})"
-    if not dev:
-        return "not measured (the profiler recorded no device event)"
+    best = (None, "the profiler recorded no device event")
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        except Exception as exc:   # the profiler is optional here
+            return None, f"{type(exc).__name__}: {exc}"
+        n = sum(e.count for e in dev)
+        if dev and (best[0] is None or n > best[0]):
+            best = (n, {e.key[:48]: (e.count, getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))) for e in dev})
+    return best
 
-    def us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    parts = [f"{e.key[:48]} x{e.count} {us(e):.1f} us" for e in dev]
-    return (f"{sum(e.count for e in dev)} device ops, "
-            f"{sum(us(e) for e in dev):.1f} us: " + "; ".join(parts))
+
+def profiled_kernels(fn) -> str:
+    """device_launches(fn) as text: each kernel's (or copy's) name with
+    its count and self device time, and their total; "not measured" with
+    the reason when the profiler records none."""
+    n, per = device_launches(fn)
+    if n is None:
+        return f"not measured ({per})"
+    return (f"{n} device ops, {sum(us for _, us in per.values()):.1f} us: "
+            + "; ".join(f"{k} x{c} {us:.1f} us"
+                        for k, (c, us) in per.items()))
 
 
 def cache_kernel_rows(card, captured, device) -> list:
@@ -3529,6 +3556,245 @@ def k16_edge_checks(card, device, errs) -> None:
         f"and shuffle_unpack == their plain versions word for word")
 
 
+# K2's windowed form, corner cases (tests/test_torch_rollup.py holds the
+# plain version to the reference's windowed _scan_dense on the same
+# batches, made smaller): name -> options.  tcard: the time key's
+# quotient cardinality (1 s buckets of tb = 1000 from quotient 50); aggs
+# "avg", "hist" (H = 1) or "many" (16 avg aggregations); layout "random",
+# "sorted" or "one" (every row on one slot); spill: times past the
+# quotient bound on both sides; filter: an int filter's (op, value);
+# dead: rows out of their block's record count and without the time
+# column (the dead slot); weight: a weight column, with the values, of
+# +-2^40 and +-2^62 (wrapping 64-bit lanes); mask: the matched mask; cg:
+# the cache-group key (vg_span 2) ahead of the time key.  On the card
+# (B 3 or 4, C 65,536: 24 or 32 chunks of 8,192 rows) they take the
+# windowed form's paths as the comments say.
+K2W_CASES = {
+    # per chunk: a 7,040-slot table of 36 B slots, all of it a chunk's
+    # span at 1.2 rows a slot: direct
+    "span wider than the shared budget, sparse": dict(
+        tcard=699, aggs="hist", layout="random"),
+    # per chunk: 1,024 slots of 260 B, band 764, 8 rows a slot: banded
+    "span wider than the shared budget, dense": dict(
+        tcard=99, aggs="many", layout="random"),
+    # per chunk: full-span over one slot, every warp one group
+    "every row on one slot": dict(tcard=699, aggs="hist", layout="one"),
+    # per chunk: every chunk empty
+    "no matched row": dict(tcard=699, aggs="hist", layout="random",
+                           filter=("gt", 10 ** 9)),
+    # resident (5,120 slots of 36 B)
+    "rows on the dead slot": dict(tcard=499, aggs="hist", layout="sorted",
+                                  dead=True),
+    # resident (5,120 slots of 20 B)
+    "spilled time quotient": dict(tcard=499, aggs="avg", layout="random",
+                                  spill=True, filter=("lt", 75)),
+    # resident (4 x 100 x 10 + 1 = 4,096 slots of 36 B)
+    "hist with the mask and the cache-group key": dict(
+        tcard=99, aggs="hist", layout="sorted", mask=True, cg=True,
+        filter=("lt", 60)),
+    # resident (5,120 slots of 32 B), few slots a warp: carries
+    "weighted, wrapping 64-bit lanes": dict(tcard=499, aggs="avg",
+                                            layout="sorted", weight=True),
+}
+K2W_TB = 1000
+
+
+def k2w_case(name: str, B: int, C: int, seed: int = 0):
+    """K2's windowed corner case `name` as numpy arrays and scan config
+    fields -> (fields (aggs as (col, AggSpec fields) pairs, filters as
+    (col, op, kind) triples), {col: (values int64 [B, C], valid bool
+    [B, C])}, nrec int32 [B], filter values int64 [F], time bucket)."""
+    import numpy as np
+    o = K2W_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K2W_CASES).index(name))
+    R = B * C
+    q0, tcard = 50, o["tcard"]
+    lo, hi = (q0 - 20, q0 + tcard + 20) if o.get("spill") else \
+        (q0, q0 + tcard)
+    q = rng.integers(lo, hi, R)
+    if o["layout"] == "sorted":
+        q = np.sort(q)
+    elif o["layout"] == "one":
+        q[:] = q0 + 3
+    cols = {}
+
+    def put(col, v, m):
+        cols[col] = (np.asarray(v, np.int64).reshape(B, C),
+                     np.asarray(m, bool).reshape(B, C))
+
+    put("t", q * K2W_TB + rng.integers(0, K2W_TB, R),
+        rng.random(R) < (0.6 if o.get("dead") else 1.0))
+    one = o["layout"] == "one"
+    put("k0", np.full(R, 4) if one else rng.integers(0, 9, R),
+        np.ones(R, bool) if one else rng.random(R) < 0.9)
+    big = 2 ** 62 if o.get("weight") else 0
+    put("v", rng.integers(-big, big, R) if big else
+        rng.integers(-200, 700, R), rng.random(R) < 0.85)
+    put("f", rng.integers(0, 80, R), rng.random(R) < 0.95)
+    if o.get("weight"):
+        put("w", rng.integers(-2 ** 40, 2 ** 40, R), rng.random(R) < 0.9)
+    avg = dict(hist_min=0, bucket_size=0, num_values=0,
+               discard_min=-big or -100, discard_max=big or 600)
+    if o["aggs"] == "hist":
+        aggs = (("v", dict(hist_min=0, bucket_size=10, num_values=20,
+                           discard_min=-100, discard_max=650)),)
+    elif o["aggs"] == "many":
+        aggs = tuple(("v", dict(avg, discard_min=-100 + 7 * i,
+                                discard_max=600 - 5 * i)) for i in range(16))
+    else:
+        aggs = (("v", avg),)
+    filters, fvals = (), []
+    if o.get("filter"):
+        filters = (("f", o["filter"][0], "int"),)
+        fvals = [o["filter"][1]]
+    groups, bounds = ("k0",), ((q0, tcard), (0, 9))
+    if o.get("cg"):
+        groups, bounds = ("__cg__", "k0"), ((0, B // 2), (q0, tcard), (0, 9))
+    fields = dict(group_cols=groups, aggs=aggs, filters=filters,
+                  time_col="t", weight_col="w" if o.get("weight") else "",
+                  key_bounds=bounds, window=128, window_chunk=min(C, 8192),
+                  time_i32=True, want_matched_mask=bool(o.get("mask")),
+                  vg_span=2 if o.get("cg") else 0)
+    nrec = np.full(B, C, np.int32)
+    if o.get("dead"):
+        nrec[1] = C // 2 + 3
+    return fields, cols, nrec, np.asarray(fvals, np.int64), K2W_TB
+
+
+def k2w_config(scan, fields):
+    """The port's ScanConfig of k2w_case's fields."""
+    o = dict(fields)
+    o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+    o["filters"] = tuple(scan.FilterSpec(*f) for f in o["filters"])
+    return scan.ScanConfig(**o)
+
+
+def k2w_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
+              set_masks=None):
+    """K2's windowed form on the card held to its plain version word for
+    word (sums, spill, mins, maxs, gids, mask) -> {path: count} of the
+    windowed form's paths (scan.WINDOW_PATHS) this launch took."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    paths = torch.zeros(len(scan.WINDOW_PATHS), dtype=torch.int64,
+                        device=nrec.device)
+    got = scan.dense_scan(cfg, cols, nrec, fv, bits, tb, form="windowed",
+                          set_masks=set_masks, paths=paths)
+    want = scan.dense_scan_plain(cfg, cols, nrec, fv, bits, tb, set_masks)
+    check_outs("dense_scan", f"{what} (windowed)", got, want,
+               ("sums", "spill", "mins", "maxs", "gid", "mask"), errs)
+    return dict(zip(scan.WINDOW_PATHS, paths.tolist()))
+
+
+def k2w_edge_checks(card, device, errs, shapes, cases=True) -> dict:
+    """K2's windowed form on the card, each launch held to its plain
+    version word for word: the K2W_CASES batches (B 4, C 65,536) when
+    `cases`, then each of `shapes` ((label, config, cols, nrec, filter
+    values, bitsets, time bucket, set masks), the main path's captured
+    batches).  With the cases, fails unless every path of the design ran
+    (scan.WINDOW_PATHS).  -> {path: count} over every launch."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    total = dict.fromkeys(scan.WINDOW_PATHS, 0)
+    lines = []
+    runs = []
+    if cases:
+        for name in K2W_CASES:
+            fields, ncols, nrec, fv, tb = k2w_case(name, 4, 65536)
+            cfg = k2w_config(scan, fields)
+            if not scan.windowed(cfg):
+                fail(f"K2W case {name!r} is not windowed")
+            cols = {k: (torch.from_numpy(v).to(device),
+                        torch.from_numpy(m).to(device))
+                    for k, (v, m) in ncols.items()}
+            runs.append((f"K2W case {name!r}", cfg, cols,
+                         torch.from_numpy(nrec).to(device),
+                         torch.from_numpy(fv).to(device), (), tb, None))
+    for what, cfg, cols, nrec, fv, bits, tb, sm in list(runs) + list(shapes):
+        got = k2w_check(what, cfg, cols, nrec, errs, fv, bits, tb, sm)
+        for k, n in got.items():
+            total[k] += n
+        C = next(iter(cols.values()))[0].shape[1]
+        lines.append(f"{what}: band/chunk {scan.window_band(cfg, C)}, "
+                     + ", ".join(f"{k} {n}" for k, n in got.items() if n))
+    if cases and not all(total.values()):
+        fail(f"K2's windowed paths {total}: each must run")
+    say(f"[{card}] K2 windowed form == plain word for word on "
+        f"{len(lines)} batches; paths {total}: " + "; ".join(lines))
+    return total
+
+
+# K12's two-valued form (the mesh's compaction), corner cases
+# (tests/test_torch_shuffle.py holds the plain version to lax.top_k on
+# the same flags): name -> (rows R, share of ones, k); k -1 is R, and
+# "ones-1" / "ones" / "ones+1" are the count of ones and its neighbours.
+# R at the one-CTA limit (scan.TOPK_TV_TILE = 16,384) +-1 and across
+# many tiles.
+K12_CASES = {
+    "all zeros": (5000, 0.0, 700),
+    "all ones": (5000, 1.0, 700),
+    "k below the ones": (3000, 0.3, "ones-1"),
+    "k equal to the ones": (3000, 0.3, "ones"),
+    "k above the ones": (3000, 0.3, "ones+1"),
+    "k = R": (4099, 0.5, -1),
+    "R = 1": (1, 1.0, 1),
+    "R at the one-CTA limit - 1": (16383, 0.4, 9000),
+    "R at the one-CTA limit": (16384, 0.4, -1),
+    "R at the one-CTA limit + 1": (16385, 0.4, "ones+1"),
+    "R across many tiles": (200_003, 0.05, 100_000),
+}
+
+
+def k12_case(name: str, seed: int = 0):
+    """-> (flags int32 [R] of 0 and 1 (numpy), k) of K12_CASES[name]."""
+    import numpy as np
+    R, share, k = K12_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K12_CASES).index(name))
+    flags = (rng.random(R) < share).astype(np.int32)
+    ones = int(flags.sum())
+    if isinstance(k, str):
+        k = ones + {"ones-1": -1, "ones": 0, "ones+1": 1}[k]
+    elif k == -1:
+        k = R
+    return flags, k
+
+
+def k12_edge_checks(card, device, errs, shapes) -> None:
+    """K12's two-valued form on the card, held to its plain version word
+    for word on the K12_CASES flags and on `shapes` ((label, flags, k), the
+    mesh's captured compactions), with its device launches a call from
+    torch.profiler: 1 up to scan.TOPK_TV_TILE rows, 2 above.  Fails unless
+    both the one-CTA and the tiled form ran."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    runs = []
+    for name in K12_CASES:
+        flags, k = k12_case(name)
+        runs.append((f"K12 case {name!r}", torch.from_numpy(flags).to(device),
+                     k))
+    seen, lines = set(), []
+    for what, flags, k in runs + list(shapes):
+        R = flags.numel()
+        got = scan.topk_rows(flags, k, two_valued=True)
+        check_equal(f"topk_rows two-valued {what} ([{R}], k {k})", got,
+                    scan.topk_rows_plain(flags, k), errs["topk_rows"])
+        n, per = device_launches(
+            lambda: scan.topk_rows(flags, k, two_valued=True))
+        want = 1 if R <= scan.TOPK_TV_TILE else 2
+        if n != want:
+            fail(f"topk_rows two-valued {what} ([{R}]): {n} device "
+                 f"launches a call ({per}), not {want}")
+        seen.add(want)
+        lines.append(f"{what} [{R}] k {k}: {n:g}")
+    if seen != {1, 2}:
+        fail(f"K12's two-valued form ran only the {seen}-launch form")
+    say(f"[{card}] K12 two-valued == plain word for word on {len(lines)} "
+        f"flag sets, device launches a call: " + "; ".join(lines))
+
+
 def mesh_checked(errs, label_of):
     """Wrap the mesh path's wrappers (K15; K16's shuffle_keys,
     shuffle_reduce and shuffle_unpack; K12 as the mesh calls it; K3 and
@@ -3548,6 +3814,7 @@ def mesh_checked(errs, label_of):
         "shuffle_partition", "shuffle_keys", "shuffle_reduce",
         "shuffle_unpack", "topk_rows", "sharded_scan")}
     real_k3, real_k10 = scan.dense_pack, scan.sorted_pack
+    real_k2 = scan.dense_scan
 
     def k15(config, part, D, Sc, send, stats):
         st = stats.clone()
@@ -3634,6 +3901,16 @@ def mesh_checked(errs, label_of):
         captured[("sharded_scan", label_of())] = args
         return real["sharded_scan"](*args)
 
+    def k2(config, cols, nrec, filter_vals=None, bitsets=(),
+           time_bucket=1, form=None, set_masks=None):
+        # the first shard's windowed launch, for k2w_edge_checks
+        if scan.windowed(config):
+            captured.setdefault(("dense_scan", label_of()), (
+                config, cols, nrec, filter_vals, bitsets, time_bucket,
+                set_masks))
+        return real_k2(config, cols, nrec, filter_vals, bitsets,
+                       time_bucket, form, set_masks)
+
     def only_checked(fn, kernel):
         def call(*args, **kwargs):
             return (fn if label_of() else kernel)(*args, **kwargs)
@@ -3645,11 +3922,13 @@ def mesh_checked(errs, label_of):
         setattr(mesh, name, only_checked(fn, real[name]))
     scan.dense_pack = only_checked(k3, real_k3)
     scan.sorted_pack = only_checked(k10, real_k10)
+    scan.dense_scan = only_checked(k2, real_k2)
 
     def undo():
         for name, fn in real.items():
             setattr(mesh, name, fn)
         scan.dense_pack, scan.sorted_pack = real_k3, real_k10
+        scan.dense_scan = real_k2
     return captured, undo
 
 
@@ -3744,6 +4023,14 @@ def mesh_phase(card, specs, errs, launches, device):
             if (name, sp["label"]) not in captured:
                 fail(f"mesh {sp['label']}: {name} was never checked")
     k16_edge_checks(card, device, errs)
+    shards = [(f"mesh {lb}, first shard", *args) for (name, lb), args in
+              captured.items() if name == "dense_scan"]
+    if not shards:
+        fail("mesh: no shard took K2's windowed form")
+    k2w_edge_checks(card, device, errs, shards, cases=False)
+    k12_edge_checks(card, device, errs, [
+        (f"mesh {lb}", *args) for (name, lb), args in captured.items()
+        if name == "topk_rows"])
     mesh_nccl_check(card, captured, device)
     return mesh_kernel_rows(card, captured, device)
 
@@ -3803,6 +4090,33 @@ def mesh_nccl_check(card, captured, device):
     say(f"[{card}] mesh: the exchange over NCCL (world size 1) == the "
         f"local exchange: {', '.join(done)} packed word for word, and "
         f"all_to_all / all_gather on a random [8, 8, 64, 9] buffer")
+
+
+def k12_row(card, captured, label):
+    """K12's two-valued form at a mesh query's captured compaction: events
+    and device time, device launches a call, the plain version and
+    torch.topk -> the kernel table's row.  Bound: the flags read once,
+    the k indices written; per flag a load, a test and the rank's add."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    score, k = captured[("topk_rows", label)]
+    R = score.numel()
+
+    def k12():
+        scan.topk_rows(score, k, two_valued=True)
+    ms = cuda_ms(k12, iters=20)
+    dms = queued_ms(k12, iters=20)
+    nl, per = device_launches(k12)
+    pms = cuda_ms(lambda: scan.topk_rows_plain(score, k), iters=5)
+    lib_ms = cuda_ms(lambda: torch.topk(score, k), iters=5)
+    say(f"[{card}] topk_rows two-valued, mesh {label} (int32 [{R}], k {k}, "
+        f"{int(score.sum().item())} ones): device {dms:.4f} ms, {nl} device "
+        f"launches a call ({per}); events {ms:.4f} ms; plain {pms:.4f} ms; "
+        f"torch.topk {lib_ms:.4f} ms")
+    return ("topk_rows", f"{label}, the compaction: two-valued int32 [{R}], "
+            f"k {k}", "sybil_tpu/parallel/mesh.py:291", ms, pms,
+            R * 4 + k * 4, R * 3, lib_ms)
 
 
 def mesh_kernel_rows(card, captured, device) -> list:
@@ -3946,17 +4260,9 @@ def mesh_kernel_rows(card, captured, device) -> list:
 
         config, flat, flive_a, top, stats_a, S = captured[
             ("shuffle_unpack", label)]
-        Dn = flat.shape[0]
         kk = top.numel()
-        score, k12k = captured[("topk_rows", label)]
-        ms = cuda_ms(lambda: scan.topk_rows(score, k12k, two_valued=True),
-                     iters=20)
-        pms = cuda_ms(lambda: scan.topk_rows_plain(score, k12k), iters=5)
-        lib_ms = cuda_ms(lambda: torch.topk(score, k12k), iters=5)
-        rows.append(("topk_rows", f"{label}, the compaction: two-valued "
-                     f"int32 [{Dn}], k {k12k}",
-                     "sybil_tpu/parallel/mesh.py:291", ms, pms,
-                     Dn * 4 + k12k * 4, Dn * 4 * 5, lib_ms))
+        rows.append(k12_row(card, captured, label))
+
         def k16u():
             mesh.shuffle_unpack(config, flat, flive_a, top, stats_a, S)
         ms = cuda_ms(k16u, iters=50)
@@ -3978,6 +4284,7 @@ def mesh_kernel_rows(card, captured, device) -> list:
                      "sybil_tpu/parallel/mesh.py:197", ms, pms, nbytes,
                      S * (4 + WP), lib_ms))
 
+    rows.append(k12_row(card, captured, "config 5 partition 1"))
     config, k2, hists, nouts, main, R = captured[("dense_pack",
                                                   "config 3 -loghist")]
     want = main.clone()
@@ -4846,6 +5153,11 @@ def main(argv=None) -> int:
         c4["arrival order"] = (cfg4s, cols4s, nrec4s)
         say("K2 (windowed and global) and K3 == plain: config 4 with the "
             "bulk table's rows in arrival order, window 896")
+        # the windowed form's paths: its corner cases and config 4's
+        # three layouts
+        k2w_edge_checks(card, dev, errs, [
+            (f"config 4 {tl}", cfg, cols_, nrec_, None, (), C4_BUCKET, None)
+            for tl, (cfg, cols_, nrec_) in c4.items()])
 
         for label in EDGE_SCANS:
             cfg, ecols, enrec, efv, ebits, etb = edge_scan(label, dev)
@@ -4861,7 +5173,8 @@ def main(argv=None) -> int:
                     scan.dense_hist_path(cfg, 0) != "global":
                 fail(f"edge scan {label}: K4 took the shared path")
             if label == "time: span wider than 8 bands":
-                band, chunk = scan.window_band(cfg, C)
+                # 8 of the reference's bands (the bind's window)
+                band = cfg.window
                 sums = scan.dense_scan_plain(cfg, ecols, enrec, efv, ebits,
                                              etb)["sums"]
                 live = torch.nonzero(sums[:, 1]).reshape(-1)
@@ -5942,12 +6255,17 @@ def main(argv=None) -> int:
                     0, gid4, lanes), iters=5)
             del lanes, gid4
             for form in ("windowed", "global"):
-                ms = cuda_ms(lambda: scan.dense_scan(
-                    cfg4, sub4, nrec4, None, (), C4_BUCKET, form=form))
+                def k2c4():
+                    scan.dense_scan(cfg4, sub4, nrec4, None, (), C4_BUCKET,
+                                    form=form)
+                ms = cuda_ms(k2c4)
+                dms = queued_ms(k2c4)
+                nl, per = device_launches(k2c4)
                 k2_c4[(tlabel, form)] = (ms, pms, nbytes, k2_ops(cfg4, R4),
                                          lib)
                 say(f"[{card}] dense_scan config 4 {tlabel} {form}: "
-                    f"{ms:.4f} ms (bound "
+                    f"device {dms:.4f} ms, {nl} device launches a call "
+                    f"({per}); events {ms:.4f} ms (bound "
                     f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms bytes, "
                     f"{k2_ops(cfg4, R4) / INT32_OPS_PER_S * 1e3:.4f} ms "
                     f"ops; plain {pms:.4f} ms; index_add_ {lib:.4f} ms; "

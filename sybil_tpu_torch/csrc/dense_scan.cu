@@ -66,19 +66,21 @@
 //            global tables once (tables up to 200 KB);
 //   global   the same loop updating the global tables directly;
 //   windowed a rollup's table is often larger than a CTA's shared
-//            memory (config 4: 6,784 slots x 5 lanes = 271 KB), but a
-//            chunk of rows spans a narrow band of it, since digestion
-//            time-sorts rows and the time key is the most significant
-//            digit.  Each CTA takes whole chunks of `chunk` rows: it
-//            computes every row's gid into shared memory and the
-//            chunk's live-gid span [lo, hi] with a block reduce, then
-//            sweeps the span in bands of `band` slots (the reference's
-//            while_loop over [window, ch] bands): zero a shared [band,
-//            L + 2H] table, add the chunk's rows whose gid falls in the
-//            band, flush its non-empty entries to the global tables
-//            with 64-bit atomics.  A time-sorted chunk needs one band;
-//            a chunk of an unsorted table sweeps as many as its span
-//            needs.  Each row's lanes are read once, in its band.
+//            memory in 64-bit lanes (config 4: 6,784 slots x 5 lanes =
+//            271 KB).  A 64-bit shared atomicAdd compiles to a CAS spin
+//            loop (ATOMS.CAST.SPIN.64; sybil_tpu_torch/k2_ab.py --trace),
+//            which a time-sorted chunk (one or two hours: about 9
+//            distinct slots) makes every warp contend on, and a chunk of
+//            rows in arrival order spans every slot, so a band sized to
+//            the bind's window is swept many times (PERF.md row 15b).  So
+//            this form keeps narrow lanes (two native 32-bit atomics for
+//            a 64-bit sum), combines a warp's equal slots before it
+//            touches shared memory, holds the whole reduce space in one
+//            table a CTA when it fits (34 bytes a slot or fewer at config
+//            4's 6,784 slots: config 4 takes 20), and otherwise sizes each
+//            chunk's sweep to its live span or sends a sparse chunk
+//            straight to the global tables; see "the windowed form"
+//            below.
 
 #include <climits>
 #include <cstdint>
@@ -143,9 +145,11 @@ struct DenseScanArgs {
   int has_weight;
   int has_time;               // the time key follows the cg key, if any
   int time_i32;
-  int band;                   // windowed form: band width in slots
-  int chunk;                  // windowed form: rows per chunk
+  int band;                   // windowed form: slots of the shared table
+  int chunk;                  // windowed form: rows per chunk, 0 resident
   int vg_span;                // > 0: key 0 is the cache-group key
+  unsigned long long* counter;  // windowed form: the next chunk (zeroed)
+  unsigned long long* paths;    // windowed form: [5] path counts, or null
 };
 
 namespace {
@@ -332,82 +336,343 @@ __global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
   if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
 }
 
+// ---- the windowed form --------------------------------------------------
+//
+// One CTA of WT threads a SM.  A shared table holds the slots the CTA
+// accumulates into in narrow lanes (WinLayout): a lane that adds 0 or 1
+// a row (the count, each aggregation's exists, and w and kw when there is
+// no weight column, where they equal the count and the kept count) is one
+// 32-bit word, a lane of 64-bit sums two words (lo, hi) added by two
+// native 32-bit shared atomics with the carry taken from the returned old
+// low word.  A 64-bit shared atomicAdd compiles to a CAS spin loop
+// (ATOMS.CAST.SPIN.64 on sm_90a); two 32-bit ones do not spin.  Rows are
+// combined a warp at a time first: __match_any_sync groups the warp's
+// equal slots, 0/1 lanes are counted by ballot and popc, the 64-bit lanes
+// and the min/max are reduced over the group by shuffles (reduce_peers),
+// and one leader a group touches the table.  Modes (a.chunk):
+//   resident (chunk 0)  the whole reduce space fits: the table covers
+//            every slot, each CTA strides over rows (an equal share each)
+//            and flushes its non-zero entries to the global tables once;
+//   per chunk  otherwise: a CTA takes chunks of `chunk` rows from an
+//            atomic counter, stages their gids in shared memory with the
+//            live span [lo, hi] and the live count, then
+//            full-span  (span <= band) zeroes span slots, accumulates,
+//                       flushes them;
+//            banded     (span > band, at least 2 live rows a slot) sweeps
+//                       the span in bands of `band` slots;
+//            direct     (sparser) adds each warp group straight to the
+//                       global tables, as the global form does.
+// a.paths (optional, [5]) counts resident CTAs and full-span, banded,
+// direct and empty chunks: the checks read which paths ran.
+
+constexpr int WT = 1024;             // the windowed form's threads
+constexpr unsigned FULL = 0xffffffffu;
+
+// Word offsets of the narrow lanes of one slot: [w lo, w hi]? count,
+// then per aggregation [exists, kw (1 or 2 words), kwv lo, kwv hi].
+struct WinLayout {
+  int hw;   // a weight column: w and kw are 64-bit lanes
+  int cw;   // the count's word
+  int pa;   // words an aggregation
+  int sw;   // words a slot
+};
+
+__device__ __forceinline__ WinLayout win_layout(const DenseScanArgs& a) {
+  WinLayout w;
+  w.hw = a.has_weight;
+  w.cw = a.has_weight ? 2 : 0;
+  w.pa = a.has_weight ? 5 : 4;
+  w.sw = w.cw + 1 + a.naggs * w.pa;
+  return w;
+}
+
+__device__ __forceinline__ void add64(unsigned* p, unsigned long long x) {
+  const unsigned lo = (unsigned)x;
+  unsigned hi = (unsigned)(x >> 32);
+  if (lo) {
+    const unsigned old = atomicAdd(p, lo);
+    hi += (unsigned)(old + lo < old);     // the carry out of the low word
+  }
+  if (hi) atomicAdd(p + 1, hi);
+}
+
+__device__ __forceinline__ unsigned long long get64(const unsigned* p) {
+  return (unsigned long long)p[0] | ((unsigned long long)p[1] << 32);
+}
+
+// Lane j of the narrow slot at p, widened to its u64 sum.
+__device__ __forceinline__ unsigned long long lane_value(const WinLayout& w,
+                                                        const unsigned* p,
+                                                        int j) {
+  if (j < 2) return (j == 0 && w.hw) ? get64(p) : p[w.cw];
+  const int ai = (j - 2) / 3, k = j - 2 - 3 * ai;
+  const unsigned* q = p + w.cw + 1 + ai * w.pa;
+  if (k == 0) return q[0];
+  if (k == 1) return w.hw ? get64(q + 1) : q[1];
+  return get64(q + (w.hw ? 3 : 2));
+}
+
+struct OpAdd {
+  __device__ unsigned long long operator()(unsigned long long x,
+                                           unsigned long long y) const {
+    return x + y;
+  }
+};
+struct OpMin {
+  __device__ long long operator()(long long x, long long y) const {
+    return y < x ? y : x;
+  }
+};
+struct OpMax {
+  __device__ long long operator()(long long x, long long y) const {
+    return y > x ? y : x;
+  }
+};
+
+// x combined over the lanes of `peers` (this lane's group), a pairwise
+// tree in the order of the lanes; the result is valid at the group's
+// lowest lane.  Every lane of the warp calls it.
+template <typename T, typename Op>
+__device__ __forceinline__ T reduce_peers(unsigned peers, T x, Op op) {
+  const int lane = threadIdx.x & 31;
+  int rel = __popc(peers & ((1u << lane) - 1u));
+  unsigned rest = peers & (0xfffffffeu << lane);
+  while (__any_sync(FULL, rest)) {
+    const int next = __ffs(rest);
+    const T t = __shfl_sync(FULL, x, next ? next - 1 : lane);
+    if (next) x = op(x, t);
+    rest &= ~__ballot_sync(FULL, rel & 1);
+    rel >>= 1;
+  }
+  return x;
+}
+
+// Adds the warp's rows to their slots.  Each lane holds row r; `key` is
+// its slot in the shared table (GLOBAL: its gid in a.sums), -1 for a row
+// that adds nothing here.  Every lane of the warp calls it.
+template <bool HEAD, bool GLOBAL>
+__device__ __forceinline__ void warp_add(const DenseScanArgs& a,
+                                         const WinLayout& w, long long r,
+                                         int key, unsigned* s_tab,
+                                         long long* s_min, long long* s_max) {
+  const bool live = key >= 0;
+  const unsigned peers = __match_any_sync(FULL, key);
+  const bool lead = live && (threadIdx.x & 31) == __ffs(peers) - 1;
+  const unsigned n = __popc(peers);
+  unsigned long long wt = 1ull;
+  if (w.hw && live && a.w_valid[r]) wt = (unsigned long long)a.w_vals[r];
+  unsigned* p = s_tab + (size_t)(live ? key : 0) * w.sw;
+  unsigned long long* row = a.sums + (size_t)(live ? key : 0) * a.L;
+  unsigned long long sw = n;
+  if (w.hw) sw = reduce_peers(peers, live ? wt : 0ull, OpAdd());
+  if (lead) {
+    if (GLOBAL) {
+      if (sw) atomicAdd(row, sw);
+      atomicAdd(row + 1, (unsigned long long)n);
+    } else {
+      if (w.hw) add64(p, sw);
+      atomicAdd(p + w.cw, n);
+    }
+  }
+  for (int ai = 0; ai < a.naggs; ++ai) {
+    const bool ex = live && desc_at<HEAD>(a.desc, a.agg_valid, ai)[r];
+    const long long v = ex ? desc_at<HEAD>(a.desc, a.agg_vals, ai)[r] : 0ll;
+    const bool kept = ex && !(v > desc_at<HEAD>(a.desc, a.agg_dmax, ai) ||
+                              v < desc_at<HEAD>(a.desc, a.agg_dmin, ai));
+    const unsigned nex = __popc(__ballot_sync(FULL, ex) & peers);
+    unsigned long long kw;
+    if (w.hw)
+      kw = reduce_peers(peers, kept ? wt : 0ull, OpAdd());
+    else
+      kw = __popc(__ballot_sync(FULL, kept) & peers);
+    const unsigned long long kwv = reduce_peers(
+        peers,
+        kept ? wt * ((unsigned long long)v -
+                     (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias,
+                                                       ai))
+             : 0ull,
+        OpAdd());
+    if (lead) {
+      if (GLOBAL) {
+        unsigned long long* g = row + 2 + 3 * ai;
+        if (nex) atomicAdd(g, (unsigned long long)nex);
+        if (kw) atomicAdd(g + 1, kw);
+        if (kwv) atomicAdd(g + 2, kwv);
+      } else {
+        unsigned* q = p + w.cw + 1 + ai * w.pa;
+        if (nex) atomicAdd(q, nex);
+        if (w.hw) {
+          add64(q + 1, kw);
+          add64(q + 3, kwv);
+        } else {
+          if (kw) atomicAdd(q + 1, (unsigned)kw);
+          add64(q + 2, kwv);
+        }
+      }
+    }
+    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
+    if (mm >= 0) {
+      const long long mn = reduce_peers(peers, kept ? v : BIG, OpMin());
+      const long long mx = reduce_peers(peers, kept ? v : -BIG, OpMax());
+      if (lead) {
+        long long* gmn = GLOBAL ? a.mins : s_min;
+        long long* gmx = GLOBAL ? a.maxs : s_max;
+        const size_t o = (size_t)key * a.H + mm;
+        if (mn < *(volatile long long*)(gmn + o)) atomicMin(gmn + o, mn);
+        if (mx > *(volatile long long*)(gmx + o)) atomicMax(gmx + o, mx);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void band_zero(const WinLayout& w, int H,
+                                          unsigned* s_tab, long long* s_min,
+                                          long long* s_max, int nslots) {
+  for (int i = threadIdx.x; i < nslots * w.sw; i += WT) s_tab[i] = 0u;
+  for (int i = threadIdx.x; i < nslots * H; i += WT) {
+    s_min[i] = BIG;
+    s_max[i] = -BIG;
+  }
+}
+
+// The non-empty entries of slots [b0, b0 + nslots) to the global tables.
+__device__ __forceinline__ void band_flush(const DenseScanArgs& a,
+                                           const WinLayout& w,
+                                           const unsigned* s_tab,
+                                           const long long* s_min,
+                                           const long long* s_max, int b0,
+                                           int nslots) {
+  const int L = a.L;
+  for (int i = threadIdx.x; i < nslots * L; i += WT) {
+    const int s = i / L, j = i - s * L;
+    const unsigned long long v = lane_value(w, s_tab + (size_t)s * w.sw, j);
+    if (v) atomicAdd(a.sums + (size_t)(b0 + s) * L + j, v);
+  }
+  for (int i = threadIdx.x; i < nslots * a.H; i += WT) {
+    if (s_min[i] != BIG) atomicMin(a.mins + (size_t)b0 * a.H + i, s_min[i]);
+    if (s_max[i] != -BIG) atomicMax(a.maxs + (size_t)b0 * a.H + i, s_max[i]);
+  }
+}
+
+enum { P_RESIDENT, P_FULL_SPAN, P_BANDED, P_DIRECT, P_EMPTY };
+
 template <bool CG, bool TIME, bool HEAD, bool MASK>
-__global__ void __launch_bounds__(THREADS) dense_scan_windowed(
+__global__ void __launch_bounds__(WT, 1) dense_scan_windowed(
     const DenseScanArgs a) {
-  extern __shared__ __align__(16) unsigned long long s_band[];
+  extern __shared__ __align__(16) unsigned long long s_dyn[];
   __shared__ unsigned long long s_spill;
   __shared__ long long s_fv[FV_SMEM];
-  __shared__ int s_lo, s_hi;
-  const int band = a.band, chunk = a.chunk, L = a.L, H = a.H;
-  const int dead = a.Sc - 1;
-  long long* s_min = reinterpret_cast<long long*>(s_band + band * L);
-  long long* s_max = s_min + band * H;
-  int* s_gid = reinterpret_cast<int*>(s_max + band * H);
+  __shared__ long long s_chunk;
+  __shared__ int s_lo, s_hi, s_live;
+  const WinLayout w = win_layout(a);
+  const int band = a.band, H = a.H, lane = threadIdx.x & 31;
+  long long* s_min = reinterpret_cast<long long*>(s_dyn);  // [band, H]
+  long long* s_max = s_min + (size_t)band * H;
+  unsigned* s_tab = reinterpret_cast<unsigned*>(s_max + (size_t)band * H);
+  int* s_gid = reinterpret_cast<int*>(s_tab + (size_t)band * w.sw);
   if (threadIdx.x < min(a.nfilters, FV_SMEM))
     s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
   if (threadIdx.x == 0) s_spill = 0ull;
   unsigned long long my_spill = 0ull;
-  const long long nchunks = a.R / chunk;
 
-  for (long long c = blockIdx.x; c < nchunks; c += gridDim.x) {
-    const long long r0 = c * chunk;
-    if (threadIdx.x == 0) {
-      s_lo = INT_MAX;
-      s_hi = -1;
-    }
-    __syncthreads();  // also: s_fv loaded, the last chunk's flush done
-    int lo = INT_MAX, hi = -1;
-    for (int i = threadIdx.x; i < chunk; i += THREADS) {
-      int gid;
-      bool spilled;
-      const bool matched =
-          row_gid<CG, TIME, HEAD>(a, r0 + i, s_fv, &gid, &spilled);
-      if (MASK) a.mask[r0 + i] = matched;
-      if (matched) {
-        my_spill += spilled;
-        lo = min(lo, gid);
-        hi = max(hi, gid);
-      } else {
-        gid = dead;
+  if (a.chunk == 0) {
+    // resident: the table covers the reduce space
+    band_zero(w, H, s_tab, s_min, s_max, a.Sc);
+    __syncthreads();
+    for (long long r0 = (long long)blockIdx.x * WT + (threadIdx.x & ~31);
+         r0 < a.R; r0 += (long long)gridDim.x * WT) {
+      const long long r = r0 + lane;
+      int key = -1;
+      if (r < a.R) {
+        int gid;
+        bool spilled;
+        const bool matched =
+            row_gid<CG, TIME, HEAD>(a, r, s_fv, &gid, &spilled);
+        if (MASK) a.mask[r] = matched;
+        if (a.gid_out) a.gid_out[r] = matched ? gid : a.Sc - 1;
+        if (matched) {
+          my_spill += spilled;
+          key = gid;
+        }
       }
-      s_gid[i] = gid;
-      if (a.gid_out) a.gid_out[r0 + i] = gid;
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    if ((threadIdx.x & 31) == 0) {
-      atomicMin(&s_lo, lo);
-      atomicMax(&s_hi, hi);
+      warp_add<HEAD, false>(a, w, r, key, s_tab, s_min, s_max);
     }
     __syncthreads();
-    const int clo = s_lo, chi = s_hi;  // no live row: clo > chi, no band
-    for (int b0 = clo; b0 <= chi; b0 += band) {
-      for (int i = threadIdx.x; i < band * L; i += THREADS) s_band[i] = 0ull;
-      for (int i = threadIdx.x; i < band * H; i += THREADS) {
-        s_min[i] = BIG;
-        s_max[i] = -BIG;
+    band_flush(a, w, s_tab, s_min, s_max, 0, a.Sc);
+    if (a.paths && threadIdx.x == 0) atomicAdd(a.paths + P_RESIDENT, 1ull);
+  } else {
+    const long long nchunks = (a.R + a.chunk - 1) / a.chunk;
+    for (;;) {
+      if (threadIdx.x == 0) {
+        s_chunk = (long long)atomicAdd(a.counter, 1ull);
+        s_lo = INT_MAX;
+        s_hi = -1;
+        s_live = 0;
+      }
+      __syncthreads();  // also: the last chunk's flush is done
+      const long long c = s_chunk;
+      if (c >= nchunks) break;
+      const long long rc = c * a.chunk;
+      const int n = (int)min((long long)a.chunk, a.R - rc);
+      int lo = INT_MAX, hi = -1, nl = 0;
+      for (int i = threadIdx.x; i < n; i += WT) {
+        int gid;
+        bool spilled;
+        const bool matched =
+            row_gid<CG, TIME, HEAD>(a, rc + i, s_fv, &gid, &spilled);
+        if (MASK) a.mask[rc + i] = matched;
+        if (a.gid_out) a.gid_out[rc + i] = matched ? gid : a.Sc - 1;
+        if (matched) {
+          my_spill += spilled;
+          lo = min(lo, gid);
+          hi = max(hi, gid);
+          ++nl;
+        } else {
+          gid = -1;
+        }
+        s_gid[i] = gid;
+      }
+      lo = __reduce_min_sync(FULL, lo);
+      hi = __reduce_max_sync(FULL, hi);
+      nl = __reduce_add_sync(FULL, nl);
+      if (lane == 0 && nl) {
+        atomicMin(&s_lo, lo);
+        atomicMax(&s_hi, hi);
+        atomicAdd(&s_live, nl);
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < chunk; i += THREADS) {
-        const int g = s_gid[i];
-        if (g < b0 || g >= b0 + band || g == dead) continue;
-        const int o = g - b0;
-        accumulate<HEAD>(a, r0 + i, s_band + (size_t)o * L,
-                         s_min + (size_t)o * H, s_max + (size_t)o * H);
+      const int clo = s_lo, chi = s_hi, nlive = s_live;
+      const int span = chi - clo + 1;
+      int path = P_EMPTY;
+      if (nlive == 0) {
+      } else if (span <= band || nlive >= 2 * span) {
+        path = span <= band ? P_FULL_SPAN : P_BANDED;
+        for (int b0 = clo; b0 <= chi; b0 += band) {
+          const int nb = min(band, chi + 1 - b0);
+          band_zero(w, H, s_tab, s_min, s_max, nb);
+          __syncthreads();
+          for (int i0 = threadIdx.x & ~31; i0 < n; i0 += WT) {
+            const int i = i0 + lane;
+            const int g = i < n ? s_gid[i] : -1;
+            warp_add<HEAD, false>(a, w, rc + i,
+                                  g >= b0 && g < b0 + nb ? g - b0 : -1,
+                                  s_tab, s_min, s_max);
+          }
+          __syncthreads();
+          band_flush(a, w, s_tab, s_min, s_max, b0, nb);
+          __syncthreads();  // the band is free again
+        }
+      } else {
+        path = P_DIRECT;
+        for (int i0 = threadIdx.x & ~31; i0 < n; i0 += WT) {
+          const int i = i0 + lane;
+          warp_add<HEAD, true>(a, w, rc + i, i < n ? s_gid[i] : -1, s_tab,
+                               s_min, s_max);
+        }
       }
-      __syncthreads();
-      const int nrows = min(band, a.Sc - b0);
-      unsigned long long* g_sums = a.sums + (size_t)b0 * L;
-      for (int i = threadIdx.x; i < nrows * L; i += THREADS)
-        if (s_band[i]) atomicAdd(g_sums + i, s_band[i]);
-      for (int i = threadIdx.x; i < nrows * H; i += THREADS) {
-        if (s_min[i] != BIG) atomicMin(a.mins + (size_t)b0 * H + i, s_min[i]);
-        if (s_max[i] != -BIG) atomicMax(a.maxs + (size_t)b0 * H + i, s_max[i]);
-      }
-      __syncthreads();  // the band is free again
+      if (a.paths && threadIdx.x == 0) atomicAdd(a.paths + path, 1ull);
+      __syncthreads();  // every thread has read s_chunk, s_lo, s_hi
     }
-    __syncthreads();  // every thread has read s_lo and s_hi
   }
   if (my_spill) atomicAdd(&s_spill, my_spill);
   __syncthreads();
@@ -427,16 +692,19 @@ cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
                         size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
   cudaError_t err;
   if (form == 2) {
-    if (args->band <= 0 || args->chunk <= 0 || args->R % args->chunk)
+    const int sw = (args->has_weight ? 2 : 0) + 1 +
+                   args->naggs * (args->has_weight ? 5 : 4);
+    if (args->band <= 0 || args->chunk < 0 || args->band > args->Sc ||
+        (args->chunk == 0 && args->band != args->Sc) ||
+        (args->chunk > 0 && !args->counter) || args->R >= (1ll << 31))
       return cudaErrorInvalidValue;
-    const size_t shm = (size_t)args->band * (args->L + 2 * args->H) * 8 +
+    const size_t shm = (size_t)args->band * (16 * args->H + 4 * sw) +
                        (size_t)args->chunk * sizeof(int);
     err = cudaFuncSetAttribute(dense_scan_windowed<CG, TIME, HEAD, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
-    dense_scan_windowed<CG, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
-        *args);
+    dense_scan_windowed<CG, TIME, HEAD, MASK><<<grid, WT, shm, s>>>(*args);
   } else if (form == 1) {
     const size_t shm = tab_bytes + mm_bytes;
     err = cudaFuncSetAttribute(
@@ -481,23 +749,26 @@ cudaError_t launch_cg(const DenseScanArgs* args, int form, int grid,
 
 }  // namespace
 
-// Copies the descriptor block, zeroes sums and spill and sets the
-// min/max tables to their sentinels on `stream`, then launches one form:
-// 0 global atomics, 1 per-CTA shared tables, 2 windowed bands (band,
-// chunk set; chunk divides R); each writes the matched mask when `mask`
-// is set, and makes key 0 the cache-group key when vg_span > 0 (a power
-// of two; with at least one key).  Returns cudaError_t.
+// Copies the descriptor block, zeroes sums, spill and the chunk counter
+// (one block of words: spill follows the [Sc, L] sums, the counter
+// follows spill) and sets the min/max tables to their sentinels on
+// `stream`, then launches one form: 0 global atomics, 1 per-CTA shared
+// tables, 2 windowed (band slots of narrow lanes in shared memory; chunk
+// rows a chunk, or 0 for the resident table, band = Sc); each writes the
+// matched mask when `mask` is set, and makes key 0 the cache-group key
+// when vg_span > 0 (a power of two; with at least one key).  Returns
+// cudaError_t.
 extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t tab_bytes =
-      (size_t)args->Sc * args->L * sizeof(unsigned long long);
+  const size_t tabn = (size_t)args->Sc * args->L;
+  const size_t tab_bytes = tabn * sizeof(unsigned long long);
   const size_t mm_bytes = (size_t)args->Sc * args->H * 2 * sizeof(long long);
+  if (args->spill != args->sums + tabn || args->counter != args->spill + 1)
+    return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(args->desc, s);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(args->sums, 0, tab_bytes, s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long), s);
+  err = cudaMemsetAsync(args->sums, 0, tab_bytes + 2 * sizeof(long long), s);
   if (err != cudaSuccess) return err;
   const int mmn = args->Sc * args->H;
   if (mmn > 0) {

@@ -28,11 +28,21 @@
 // of 4 or 8 B a row); the rest touches k rows.  The engine asks for
 // k <= 1000, the one-CTA sort takes k <= 4096.
 //
-// Two-valued scores (the mesh scan's 0/1 live flags, mesh.py:291-294):
-// every key above T then equals every other, so the compaction already
-// writes the winners in (key descending, index ascending) order.  With
-// `two_valued` set the compaction writes straight into `out`, the sort is
-// skipped, and k is bounded by R alone.
+// The two-valued form (topk_two_valued) ranks 0/1 int32 flags, the mesh
+// scan's compaction (sybil_tpu/parallel/mesh.py:_sharded_scan 291,
+// lax.top_k(flive.astype(int32), k)): the indices of the rows with flag 1
+// in ascending order, then those with flag 0 in ascending order, the
+// first k (lax.top_k's order for two values; any non-zero flag counts as
+// 1, and the caller passes only 0 and 1).  No select, no state words, no
+// memset: each thread holds 16 consecutive flags as bits, a block scan of
+// their counts ranks the ones, and a row's place is its rank among the
+// ones, or the ones' total plus its rank among the zeros (its index less
+// the ones before it).  R <= TV_TILE rows are one CTA and one launch;
+// more are two: tv_count writes each tile's ones to an int32 scratch,
+// and tv_write's CTAs each sum the earlier tiles' and all tiles' counts
+// before ranking their own tile.  Bound: memory, the R flags read once
+// and k indices written; at the mesh's sizes (1,024 to 525,312 flags)
+// it is launch latency, which one or two launches keep small.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,6 +57,10 @@ constexpr int SCAN_THREADS = 1024;
 constexpr int SORT_THREADS = 1024;
 constexpr int KMAX = 4096;
 constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int TV_THREADS = 1024;
+constexpr int TV_PER = 16;                       // flags a thread
+constexpr int TV_TILE = TV_THREADS * TV_PER;     // rows a CTA
 
 struct TopkArgs {
   const void* score;
@@ -229,19 +243,95 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_kernel(TopkArgs a,
   for (int j = threadIdx.x; j < a.k; j += SORT_THREADS) a.out[j] = s_idx[j];
 }
 
+// This thread's TV_PER consecutive flags of the tile at lo, as bits.
+__device__ __forceinline__ unsigned tv_bits(const int* f, long long lo,
+                                            long long R) {
+  const long long base = lo + (long long)threadIdx.x * TV_PER;
+  unsigned b = 0u;
+#pragma unroll
+  for (int j = 0; j < TV_PER; ++j)
+    if (base + j < R && f[base + j] != 0) b |= 1u << j;
+  return b;
+}
+
+__global__ void __launch_bounds__(TV_THREADS) tv_count(const int* f,
+                                                       long long R,
+                                                       int* counts) {
+  int total;
+  block_scan<TV_THREADS>(
+      __popc(tv_bits(f, (long long)blockIdx.x * TV_TILE, R)), &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+template <bool TILED>
+__global__ void __launch_bounds__(TV_THREADS) tv_write(const int* f,
+                                                       long long R, int k,
+                                                       const int* counts,
+                                                       int ntiles, int* out) {
+  const long long lo = (long long)blockIdx.x * TV_TILE;
+  const unsigned b = tv_bits(f, lo, R);
+  int tile_ones;
+  const int pre = block_scan<TV_THREADS>(__popc(b), &tile_ones);
+  long long before = 0, ones = tile_ones;
+  if (TILED) {
+    int e = 0, t = 0;
+    for (int i = threadIdx.x; i < ntiles; i += TV_THREADS) {
+      const int c = counts[i];
+      t += c;
+      if (i < (int)blockIdx.x) e += c;
+    }
+    int te, tt;
+    block_scan<TV_THREADS>(e, &te);
+    block_scan<TV_THREADS>(t, &tt);
+    before = te;
+    ones = tt;
+  }
+  long long o = before + pre;   // the ones before this thread's first row
+  const long long base = lo + (long long)threadIdx.x * TV_PER;
+  for (int j = 0; j < TV_PER && base + j < R; ++j) {
+    const long long i = base + j;
+    if ((b >> j) & 1u) {
+      if (o < k) out[o] = (int)i;
+      ++o;
+    } else {
+      const long long z = ones + (i - o);
+      if (z < k) out[z] = (int)i;
+    }
+  }
+}
+
 }  // namespace
 
-// Runs the select passes, the compaction and (unless two_valued) the sort
-// on `stream`; `grid` sizes the histogram passes.  Returns cudaError_t.
+// The two-valued form on `stream`: one launch for R <= TV_TILE, else
+// tv_count and tv_write over ntiles = ceil(R / TV_TILE) tiles with
+// `counts` [ntiles] as scratch.  Returns cudaError_t.
+extern "C" int topk_two_valued(const int* flags, int* out, int* counts,
+                               long long R, int k, int ntiles, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R < 1 || R >= (1ll << 31) || k < 1 || k > R ||
+      ntiles != (int)((R + TV_TILE - 1) / TV_TILE) || (ntiles > 1 && !counts))
+    return cudaErrorInvalidValue;
+  if (ntiles == 1) {
+    tv_write<false><<<1, TV_THREADS, 0, s>>>(flags, R, k, nullptr, 1, out);
+    return cudaGetLastError();
+  }
+  tv_count<<<ntiles, TV_THREADS, 0, s>>>(flags, R, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tv_write<true><<<ntiles, TV_THREADS, 0, s>>>(flags, R, k, counts, ntiles,
+                                              out);
+  return cudaGetLastError();
+}
+
+// Runs the select passes, the compaction and the sort on `stream`; `grid`
+// sizes the histogram passes.  Returns cudaError_t.
 extern "C" int topk_rows(const void* score, int* out,
                          unsigned long long* state, unsigned int* hist,
                          int* offsets, int* cand, long long R, int k,
-                         int dtype, int ntiles, int two_valued, int grid,
-                         void* stream) {
+                         int dtype, int ntiles, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R < 1 || R >= (1ll << 31) || k < 1 || (k > KMAX && !two_valued) ||
-      k > R || dtype < 0 || dtype > 2 ||
-      ntiles != (int)((R + TILE - 1) / TILE) || (two_valued && cand != out))
+  if (R < 1 || R >= (1ll << 31) || k < 1 || k > KMAX || k > R ||
+      dtype < 0 || dtype > 2 || ntiles != (int)((R + TILE - 1) / TILE))
     return cudaErrorInvalidValue;
   const TopkArgs a{score, out, state, hist, offsets, cand, R, k, dtype,
                    ntiles};
@@ -261,7 +351,7 @@ extern "C" int topk_rows(const void* score, int* out,
   scan_tiles<<<2, SCAN_THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   write_candidates<<<ntiles, THREADS, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess || two_valued) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   int n = 1;
   while (n < k) n <<= 1;
   sort_kernel<<<1, SORT_THREADS, (size_t)n * (8 + 4), s>>>(a, n);

@@ -2,6 +2,7 @@
 warm query walls.
 
     python sybil_tpu_torch/k2_ab.py ROOT [ROOT ...]
+    python sybil_tpu_torch/k2_ab.py --trace ROOT
     python sybil_tpu_torch/k2_ab.py --walls DIR ROOT [ROOT ...]
 
 Each ROOT is a directory holding a `sybil_tpu_torch` package, such as
@@ -22,13 +23,25 @@ shape with that key (8 groups of 16 blocks) and K7 unpacked at config
 3's filter with and without it; for a root with the mesh scan, K16's
 shuffle_reduce at config 3 -loghist's and path 2's owner shapes (1,024
 rows of WP 174, none live; 201,024 rows of WP 9, 9,108 live) and
-shuffle_unpack at their final tables (128 and 100,000 rows).
+shuffle_unpack at their final tables (128 and 100,000 rows); K2's
+windowed form at config 4's shape (`group by action, avg weight` at 1 h
+buckets over four weeks: 6,784 slots) in its three layouts (the rows
+time-sorted, sorted in 1,000,000-row runs as bulk ingests write them,
+and in arrival order), and K12's two-valued form at the mesh's
+compactions of config 3 -loghist (int32 [1,024], k 128) and path 2
+([201,024], k 100,000).
 CUDA events over 20 launches
 (K3, K5 and K10 200), twice: back to back as a caller issues them
 ("wall", which includes the wrapper's host time whenever that exceeds
 the kernel's), and behind a sleep kernel long enough that the host has
 queued them all before the first starts ("device", the kernels' own
 time).
+
+Trace (`--trace ROOT`): the atomic instructions each kernel of the
+root's dense_scan and topk_rows libraries compiled to (cuobjdump -sass:
+a 64-bit shared atomicAdd is a CAS spin loop, ATOMS.CAST.SPIN.64), and
+the live-gid span and distinct gids of each 8,192-row chunk in the three
+config-4 layouts that the kernel runs time.
 
 Walls (`--walls`): builds chip_smoke.py's uptime table (8,388,608 rows,
 bench.py's generator and seed) under DIR unless it is there, then for
@@ -195,6 +208,7 @@ def time_kernels(root: str) -> str:
     if os.path.exists(os.path.join(root, "sybil_tpu_torch", "parallel",
                                    "mesh.py")):
         runs += k16_runs(dev)
+        runs += c4_runs(scan, dev) + k12_runs(scan, dev)
     return "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"
@@ -267,6 +281,121 @@ def k16_runs(dev) -> tuple:
                  (f"K16 shuffle_unpack at {shape}'s final table", 50,
                   lambda un=un: mesh.shuffle_unpack(*un)))
     return runs
+
+
+def c4_runs(scan, dev) -> tuple:
+    """K2's windowed form at config 4's shape (bench_configs.py:143-155:
+    activity_generator's times over four weeks, 9 actions, weights of 1,
+    10 and 100; 1 h buckets) in three layouts of the same rows: sorted by
+    time (a digested table), sorted in 1,000,000-row runs (bulk
+    ingests), and unsorted (arrival order)."""
+    import dataclasses
+
+    import torch
+    B, C = 128, 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(42)
+    now, month, tb = 1_755_000_000, 4 * 7 * 86400, 3600
+    t = now - torch.randint(0, month, (R,), device=dev, generator=g)
+    runs_ = t.clone()
+    for lo in range(0, R, 1_000_000):
+        runs_[lo:lo + 1_000_000] = torch.sort(runs_[lo:lo + 1_000_000])[0]
+    action = torch.randint(0, 9, (R,), device=dev, generator=g)
+    weight = torch.tensor([1, 10, 100], device=dev)[
+        torch.randint(0, 3, (R,), device=dev, generator=g)]
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    qmin = (now - month + 1) // tb
+    cfg = scan.ScanConfig(
+        group_cols=("action",), aggs=(scan.AggSpec("weight", 0, 0, 0, 1,
+                                                   100),),
+        filters=(), time_col="time",
+        key_bounds=((qmin, now // tb - qmin + 1), (0, 9)), window=128,
+        window_chunk=8192, time_i32=True, agg_vbias=(1,))
+    out = ()
+    # the bind's window: 128 slots for time-sorted blocks, 896 for blocks
+    # that span the four weeks (tests/test_torch_rollup.py's layouts)
+    for label, tv, window in (("time-sorted", torch.sort(t)[0], 128),
+                              ("bulk", runs_, 128),
+                              ("arrival order", t, 896)):
+        cols = {"time": (tv.reshape(B, C), valid),
+                "action": (action.reshape(B, C), valid),
+                "weight": (weight.reshape(B, C), valid)}
+        wcfg = dataclasses.replace(cfg, window=window)
+        out += ((f"K2 windowed at config 4, {label}", 20,
+                 lambda cols=cols, wcfg=wcfg: scan.dense_scan(
+                     wcfg, cols, nrec, None, (), tb, form="windowed")),)
+    return out
+
+
+def k12_runs(scan, dev) -> tuple:
+    """K12's two-valued form at the mesh's compactions: config 3
+    -loghist's (8 owners of 128 rows, 5 live) and path 2's (8 of 25,128,
+    9,100 live), each owner's live rows first."""
+    import torch
+    out = ()
+    for label, Sc, live, k in (("config 3 -loghist", 128, 5, 128),
+                               ("path 2", 25_128, 9_100, 100_000)):
+        fl = torch.zeros((8, Sc), dtype=torch.int32, device=dev)
+        for d, n in enumerate(torch.arange(live).chunk(8)):
+            fl[d, :n.numel()] = 1
+        fl = fl.reshape(-1)
+        out += ((f"K12 two-valued at {label}'s compaction ([{8 * Sc}], k "
+                 f"{k})", 20,
+                 lambda fl=fl, k=k: scan.topk_rows(fl, k, two_valued=True)),)
+    return out
+
+
+def trace(root: str) -> str:
+    """The root's K2 and K12 libraries' atomics by kernel, and config
+    4's chunk spans."""
+    import collections
+    import re
+
+    import torch
+    kernels, scan = _import_root(root)
+    out = []
+    paths = kernels.build(("dense_scan", "topk_rows"))
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    for name, so in paths.items():
+        sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+        fn, ops = None, collections.defaultdict(collections.Counter)
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?(ATOM\S*|RED(?!UX)\S*)",
+                          line)
+            if fn and m:
+                ops[fn][m.group(1)] += 1
+        # one line a kernel and atomics mix, over its template instances
+        seen = collections.Counter()
+        for fn, c in ops.items():
+            # the mangled name past its anonymous namespace, without its
+            # template arguments
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "", fn)
+            short = re.split(r"I[LE]|E", short)[0]
+            seen[(short, tuple(sorted(c.items())))] += 1
+        for (short, c), n in seen.items():
+            out.append(f"{root}: {name} {short} ({n} instances): {dict(c)}")
+    dev = torch.device("cuda")
+    for what, _, fn in c4_runs(scan, dev):
+        cols = fn.__defaults__[0]          # the layout's columns
+        t, a = cols["time"][0].reshape(-1), cols["action"][0].reshape(-1)
+        gid = (torch.div(t, 3600, rounding_mode="floor") * 10 + a).reshape(
+            -1, 8192)
+        span = (gid.max(1)[0] - gid.min(1)[0] + 1).float()
+        distinct = torch.tensor([torch.unique(gid[i]).numel()
+                                 for i in range(0, gid.shape[0], 64)])
+        out.append(f"{what}: 8,192-row chunks' live span median "
+                   f"{span.median().item():.0f} slots, max "
+                   f"{span.max().item():.0f}, {(span > 4096).sum().item()} "
+                   f"of {gid.shape[0]} wider than 4,096; distinct gids a "
+                   f"chunk (every 64th) median "
+                   f"{distinct.float().median().item():.0f}")
+    return "\n".join(out)
 
 
 def build_walls_table(table_dir: str) -> None:
@@ -348,6 +477,9 @@ def time_walls(root: str, table_dir: str, n: int = 15) -> str:
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(time_kernels(os.path.abspath(argv[1])), flush=True)
+        return 0
+    if len(argv) == 2 and argv[0] == "--trace":
+        print(trace(os.path.abspath(argv[1])), flush=True)
         return 0
     if len(argv) == 3 and argv[0] == "--one-walls":
         print(time_walls(os.path.abspath(argv[1]), argv[2]), flush=True)

@@ -47,6 +47,7 @@ ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -113,6 +114,19 @@ def lib(name: str) -> ctypes.CDLL:
         if handle is None:
             handle = _LIBS[name] = ctypes.CDLL(build((name,))[name])
         return handle
+
+
+def entry(name: str, fn: str, argtypes: list):
+    """The C entry point `fn` of source `name`'s library, its argtypes
+    and restype (cudaError_t as int) set once a loaded library rather than
+    on every call."""
+    handle = lib(name)
+    got = _ENTRIES.get((name, fn))
+    if got is None or got[0] is not handle:
+        f = getattr(handle, fn)
+        f.argtypes, f.restype = argtypes, ctypes.c_int
+        got = _ENTRIES[(name, fn)] = (handle, f)
+    return got[1]
 
 
 def check(rc: int, what: str) -> None:

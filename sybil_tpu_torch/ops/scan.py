@@ -938,6 +938,8 @@ class DenseScanArgs(ctypes.Structure):
         ("band", ctypes.c_int),
         ("chunk", ctypes.c_int),
         ("vg_span", ctypes.c_int),
+        ("counter", ctypes.c_void_p),
+        ("paths", ctypes.c_void_p),
     ]
 
 
@@ -1074,7 +1076,7 @@ def dense_scan_plain(config: ScanConfig, cols, nrec, filter_vals=None,
 
 def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
                bitsets=(), time_bucket: int = 1, form: str | None = None,
-               set_masks=None):
+               set_masks=None, paths=None):
     """K2: -> {"sums" int64 [Sc, L], "spill" int64 [1], "mins"/"maxs"
     int64 [Sc, H], "gid" int32 [R] or None, "mask" bool [B, C] or None},
     as dense_scan_plain.
@@ -1085,8 +1087,11 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     rollup's bucket width (a time_col config); set_masks: K14's (has,
     hit) per set filter (set_filter_masks).  form: "shared",
     "global" or "windowed" (default dense_scan_path's choice; all give
-    the same words).  CUDA tensors launch the kernel
-    (csrc/dense_scan.cu); CPU tensors take dense_scan_plain.
+    the same words).  paths: an int64 [5] CUDA tensor to which the
+    windowed form adds the CTAs that took its resident table and the
+    chunks it took full-span, banded, direct and empty (WINDOW_PATHS), or
+    None.  CUDA tensors launch the kernel (csrc/dense_scan.cu); CPU
+    tensors take dense_scan_plain.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (filters, the set ops over
     K14's bitmasks, the cache-group key and the time key included: the
@@ -1097,8 +1102,10 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     kernel, written for every row).  Bound by memory (9 B
     read per row per referenced column); one grid-stride pass with
     per-CTA shared-memory tables, or global atomics when they exceed
-    SHARED_TABLE_BYTES, or, for a windowed rollup, shared [band, L]
-    tables swept over each row chunk's live-gid span (see the source
+    SHARED_TABLE_BYTES, or, for a windowed rollup, one CTA a SM over a
+    shared table of narrow lanes fed by warp-combined rows: the whole
+    reduce space when it fits, else each row chunk's live span, banded,
+    or straight to the global tables when sparse (see the source
     note)."""
     B, C = _batch_shape(cols)
     dev = nrec.device
@@ -1130,8 +1137,14 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     hist = hist_aggs(config)
     H = len(hist)
     R = B * C
-    sums = torch.empty((Sc, L), dtype=torch.int64, device=dev)
-    spill = torch.empty(1, dtype=torch.int64, device=dev)
+    if form == "windowed" and R >= 2 ** 31:
+        raise ValueError(f"dense_scan: the windowed form takes fewer than "
+                         f"2^31 rows, got {R}")
+    # sums, spill and the windowed form's chunk counter, zeroed by one
+    # memset
+    zbuf = torch.empty(Sc * L + 2, dtype=torch.int64, device=dev)
+    sums = zbuf[:Sc * L].view(Sc, L)
+    spill = zbuf[Sc * L:Sc * L + 1]
     mins = torch.empty((Sc, H), dtype=torch.int64, device=dev)
     maxs = torch.empty((Sc, H), dtype=torch.int64, device=dev)
     gid = (torch.empty(R, dtype=torch.int32, device=dev)
@@ -1159,7 +1172,8 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     if config.weight_col:
         v, m = cols[config.weight_col]
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
-    a.nrec, a.sums, a.spill = nrec.data_ptr(), sums.data_ptr(), spill.data_ptr()
+    a.nrec, a.sums = nrec.data_ptr(), zbuf.data_ptr()
+    a.spill, a.counter = a.sums + 8 * Sc * L, a.sums + 8 * (Sc * L + 1)
     a.mins, a.maxs = mins.data_ptr(), maxs.data_ptr()
     a.gid_out, a.mask = _ptr(gid), _ptr(mask)
     a.R, a.log2C = R, C.bit_length() - 1
@@ -1167,17 +1181,20 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
 
     if form == "windowed":
+        # one CTA a SM: resident CTAs stride over the rows, chunked ones
+        # take chunks from the counter
         a.band, a.chunk = window_band(config, C)
-        # [band, L] sums, [band, H] mins and maxs, the chunk's gids
-        smem = a.band * _k2_slot_bytes(config) + a.chunk * 4
-        per_sm = max(1, min(8, (228 << 10) // (smem + 1024)))
-        grid = max(1, min(R // a.chunk, _sm_count(dev) * per_sm))
+        work = -(-R // (a.chunk or _WINDOW_THREADS))
+        grid = max(1, min(work, _sm_count(dev)))
+        if paths is not None:
+            _check_tensor(paths, (len(WINDOW_PATHS),), torch.int64,
+                          "paths", dev, "dense_scan")
+            a.paths = paths.data_ptr()
     else:
         grid = _grid(dev, R, _k2_table_bytes(config), form == "shared")
-    fn = kernels.lib("dense_scan").dense_scan
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("dense_scan", "dense_scan",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
     kernels.check(fn(ctypes.byref(a), _K2_FORMS[form], grid,
                      kernels.stream_handle(dev)), "dense_scan")
     kernels.LAUNCHES["dense_scan"] += 1
@@ -1197,24 +1214,37 @@ def _k2_table_bytes(config: ScanConfig) -> int:
 
 
 _K2_FORMS = {"global": 0, "shared": 1, "windowed": 2}
-# the windowed form's row chunk (its gids stay in shared memory) and
-# band budget
+# the windowed form: threads of its one CTA a SM, rows a chunk (their
+# gids staged in shared memory), the dynamic shared memory it may take
+# (the H100's 227 KB a CTA less 1 KB for the static part), and the paths
+# its `paths` counts take, in order
+_WINDOW_THREADS = 1024
 _WINDOW_CHUNK = 8192
-_BAND_BYTES = 160 << 10
+_WINDOW_SMEM = (227 << 10) - 1024
+WINDOW_PATHS = ("resident", "full-span", "banded", "direct", "empty")
+
+
+def _k2w_slot_bytes(config: ScanConfig) -> int:
+    """Bytes of one slot of the windowed form's shared table: narrow
+    lanes (one 32-bit word for a 0/1 lane, two for a 64-bit sum; w and
+    kw are 0/1 lanes without a weight column) and H mins and maxs."""
+    A = len(config.aggs)
+    words = (1 + 4 * A) if not config.weight_col else (3 + 5 * A)
+    return 4 * words + 16 * len(hist_aggs(config))
 
 
 def window_band(config: ScanConfig, C: int) -> tuple[int, int]:
-    """-> (band slots, chunk rows) of K2's windowed form: the chunk is
-    the reference's window_chunk (C when 0), at most _WINDOW_CHUNK rows,
-    rounded down to a power of two so chunks tile every block; the band
-    is the bind-time window, cut to the shared budget.  Both are the
-    kernel's own choice: any band and chunk give the same sums."""
-    wc = min(C, config.window_chunk) if config.window_chunk else C
-    wc = min(wc, _WINDOW_CHUNK)
-    chunk = 1 << (max(wc, 1).bit_length() - 1)
+    """-> (band slots, chunk rows) of K2's windowed form: (Sc, 0) when
+    the whole reduce space fits the shared table (the resident mode), else
+    chunks of min(C, _WINDOW_CHUNK) rows and as many slots as the rest of
+    the shared budget holds.  Both are the kernel's own choice: any band
+    and chunk give the same sums."""
     _, Sc, _ = reduce_space(config)
-    band = min(config.window, _BAND_BYTES // _k2_slot_bytes(config), Sc)
-    return max(1, band), chunk
+    slot = _k2w_slot_bytes(config)
+    if Sc * slot <= _WINDOW_SMEM:
+        return Sc, 0
+    chunk = min(C, _WINDOW_CHUNK)
+    return max(1, min(Sc, (_WINDOW_SMEM - 4 * chunk) // slot)), chunk
 
 
 def dense_scan_path(config: ScanConfig) -> str:
@@ -3222,6 +3252,9 @@ def enum_segments(config: ScanConfig, cols, skey, p):
 # K12 handles k up to this many winners (its one-CTA final sort holds
 # them in shared memory); the engine asks for at most 1000
 TOPK_MAX = 4096
+# rows a CTA of the two-valued form ranks (TV_TILE in the source): one
+# launch up to this many, two above
+TOPK_TV_TILE = 16384
 _TOPK_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
 
@@ -3238,19 +3271,28 @@ def topk_rows_plain(score, k: int):
 def topk_rows(score, k: int, two_valued: bool = False):
     """K12: as topk_rows_plain, for int32, int64 and f32 scores.  CUDA
     tensors launch the kernel (csrc/topk_rows.cu); CPU tensors take the
-    plain version.  two_valued: the scores take at most two values (a
-    mesh scan's 0/1 live flags), so the winners need no final sort and k
-    may pass TOPK_MAX.
+    plain version.
+
+    two_valued: the scores are 0/1 int32 flags (a mesh scan's live
+    flags, as the reference ranks flive.astype(int32)): the result is the
+    indices of the rows with flag 1 in ascending order, then those with
+    flag 0 in ascending order, the first k (lax.top_k's order for two
+    values), for any k in [1, R].  Any dtype but int32 raises.  Its own
+    kernels, no select: one launch for R <= TOPK_TV_TILE, two above.
 
     Replaces sybil_tpu/ops/scan.py:_topk_rows 1369-1399 (the tiled top-k
-    whose fallback makes it equal lax.top_k) and the lax.top_k of the
-    device prune (pack_outputs 1896-1898).  Bound by memory: a radix
-    select of the k-th value over order-preserving integer keys (8 bits
-    a pass), a ranked compaction of the rows above it and the first rows
-    equal to it, then a one-CTA bitonic sort of the winners by (value
-    descending, index ascending); no library sort (see the source
+    whose fallback makes it equal lax.top_k), the lax.top_k of the
+    device prune (pack_outputs 1896-1898) and, two-valued, the mesh's
+    compaction (sybil_tpu/parallel/mesh.py:291).  Bound by memory: a
+    radix select of the k-th value over order-preserving integer keys (8
+    bits a pass), a ranked compaction of the rows above it and the first
+    rows equal to it, then a one-CTA bitonic sort of the winners by
+    (value descending, index ascending); no library sort (see the source
     note)."""
     dev = score.device
+    if two_valued and score.dtype != torch.int32:
+        raise ValueError(f"topk_rows: two-valued flags must be int32, got "
+                         f"{score.dtype}")
     if dev.type == "cpu":
         return topk_rows_plain(score, k)
     if dev.type != "cuda":
@@ -3262,22 +3304,32 @@ def topk_rows(score, k: int, two_valued: bool = False):
     kcap = R if two_valued else min(R, TOPK_MAX)
     if not 0 < k <= kcap or R >= 2 ** 31:
         raise ValueError(f"topk_rows: k {k} must lie in [1, {kcap}]")
-    ntiles = -(-R // _SEG_TILE)
     out = torch.empty(k, dtype=torch.int32, device=dev)
+    if two_valued:
+        ntiles = -(-R // TOPK_TV_TILE)
+        counts = (torch.empty(ntiles, dtype=torch.int32, device=dev)
+                  if ntiles > 1 else None)
+        fn = kernels.entry("topk_rows", "topk_two_valued",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        kernels.check(fn(score.data_ptr(), out.data_ptr(), _ptr(counts), R,
+                         k, ntiles, kernels.stream_handle(dev)),
+                      "topk_rows")
+        kernels.LAUNCHES["topk_rows"] += 1
+        return out
+    ntiles = -(-R // _SEG_TILE)
     state = torch.empty(2, dtype=torch.int64, device=dev)
     hist = torch.empty(256, dtype=torch.int32, device=dev)
     offsets = torch.empty((2, ntiles + 1), dtype=torch.int32, device=dev)
-    cand = out if two_valued else torch.empty(k, dtype=torch.int32,
-                                              device=dev)
-    fn = kernels.lib("topk_rows").topk_rows
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    cand = torch.empty(k, dtype=torch.int32, device=dev)
+    fn = kernels.entry("topk_rows", "topk_rows",
+                       [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     kernels.check(fn(score.data_ptr(), out.data_ptr(), state.data_ptr(),
                      hist.data_ptr(), offsets.data_ptr(), cand.data_ptr(),
                      R, k, _TOPK_DTYPES[score.dtype], ntiles,
-                     int(two_valued), _grid(dev, R, 0, False),
-                     kernels.stream_handle(dev)), "topk_rows")
+                     _grid(dev, R, 0, False), kernels.stream_handle(dev)),
+                  "topk_rows")
     kernels.LAUNCHES["topk_rows"] += 1
     return out
 

@@ -19,11 +19,13 @@ integer, a bool or printed text: equality is exact."""
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import sybil_tpu.digest as ref_digest
 from sybil_tpu import cli as ref_cli
 from sybil_tpu.config import Flags as RefFlags
@@ -180,8 +182,66 @@ def test_rollup_kernel_forms_agree_on_cpu(name):
     assert torch.equal(w["sums"][:n], flat["sums"][:n])
     assert not w["sums"][n:].any()
     assert torch.equal(w["spill"], flat["spill"])
+    # the windowed kernel's own plan: the whole reduce space resident in
+    # shared memory, or chunks that tile a block with a band of slots
     band, chunk = port.window_band(pcfg, C)
-    assert 0 < band <= pcfg.window and C % chunk == 0
+    wSc = port.reduce_space(pcfg)[1]
+    assert (chunk == 0 and band == wSc) or (0 < band < wSc and
+                                            C % chunk == 0)
+
+
+# the windowed form's corner cases, as chip_smoke.py builds them for the
+# card (larger there): the reference's windowed _scan_dense against the
+# plain K2 that every kernel path is held to on the card
+SCAN_DENSE = jax.jit(ref._scan_dense, static_argnums=(0,))
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K2W_CASES))
+def test_windowed_case_matches_reference(name):
+    fields, cols, nrec, fvals, tb = chip_smoke.k2w_case(name, 2, 2048)
+    o = dict(fields)
+    o["aggs"] = tuple(ref.AggSpec(c, **kw) for c, kw in o["aggs"])
+    o["filters"] = tuple(ref.FilterSpec(*f, -1) for f in o["filters"])
+    cfg = ref.ScanConfig(**o)
+    pcfg = chip_smoke.k2w_config(port, fields)
+    assert port.config_from_fields(dataclasses.asdict(cfg)) == pcfg
+    assert 0 < cfg.window < cfg.dense_slots
+    assert port.dense_scan_path(pcfg) == "windowed"
+    want = SCAN_DENSE(cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+                            for k, (v, m) in cols.items()},
+                      jnp.asarray(nrec), jnp.asarray(fvals), (),
+                      jnp.asarray(tb, jnp.int64), {})
+    got = port.dense_scan_plain(
+        pcfg, {k: (torch.from_numpy(v), torch.from_numpy(m))
+               for k, (v, m) in cols.items()}, torch.from_numpy(nrec),
+        torch.from_numpy(fvals), (), tb)
+    sums = got["sums"].numpy()
+    assert sums.shape == (cfg.dense_slots, 2 + 3 * len(cfg.aggs))
+    np.testing.assert_array_equal(sums[:, 0], np.asarray(want["count"]))
+    np.testing.assert_array_equal(sums[:, 1], np.asarray(want["samples"]))
+    hist = port.hist_aggs(pcfg)
+    for ai in range(len(cfg.aggs)):
+        np.testing.assert_array_equal(sums[:, 2 + 3 * ai] > 0,
+                                      np.asarray(want[f"agg{ai}_exists"]))
+        np.testing.assert_array_equal(sums[:, 3 + 3 * ai],
+                                      np.asarray(want[f"agg{ai}_count"]))
+        np.testing.assert_array_equal(sums[:, 4 + 3 * ai],
+                                      np.asarray(want[f"agg{ai}_wv"]))
+        if ai in hist:
+            j = hist.index(ai)
+            np.testing.assert_array_equal(got["mins"][:, j].numpy(),
+                                          np.asarray(want[f"agg{ai}_min"]))
+            np.testing.assert_array_equal(got["maxs"][:, j].numpy(),
+                                          np.asarray(want[f"agg{ai}_max"]))
+    assert int(got["spill"][0]) == int(want["spill"])
+    assert (int(want["spill"]) > 0) == ("spilled" in name)
+    assert (int(np.asarray(want["count"]).sum()) == 0) == ("no matched"
+                                                            in name)
+    if cfg.want_matched_mask:
+        np.testing.assert_array_equal(got["mask"].numpy(),
+                                      np.asarray(want["matched"]))
+    if "one slot" in name:
+        assert int((sums[:, 1] > 0).sum()) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -115,3 +115,33 @@ def test_k16_corner_case_matches_reference(case, shape):
         wh = np.asarray(want[f"agg{ai}_hist"])
         np.testing.assert_array_equal(h.numpy()[:m], wh[:m])
         np.testing.assert_array_equal(wh[m:], 0)
+
+
+# K12's two-valued form (the mesh's compaction), on the flags chip_smoke.py
+# runs through the kernel on the card: the plain version against
+# lax.top_k of the int32 flags, index for index
+@pytest.mark.parametrize("case", list(chip_smoke.K12_CASES))
+def test_two_valued_compaction_matches_lax_top_k(case):
+    flags, k = chip_smoke.k12_case(case)
+    R = flags.shape[0]
+    assert 1 <= k <= R and set(np.unique(flags)) <= {0, 1}
+    got = port.topk_rows(torch.from_numpy(flags), k, two_valued=True)
+    _, want = jax.lax.top_k(jnp.asarray(flags), k)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    ones = int(flags.sum())
+    # the live rows in index order, then the dead ones, cut at k
+    order = np.concatenate([np.flatnonzero(flags), np.flatnonzero(flags == 0)])
+    np.testing.assert_array_equal(got.numpy(), order[:k])
+    if "above" in case or "+ 1" in case:
+        assert k == ones + 1
+    if "many tiles" in case:
+        assert R > 4 * port.TOPK_TV_TILE
+
+
+def test_two_valued_compaction_takes_only_int32():
+    for dtype in (torch.int64, torch.float32, torch.bool):
+        with pytest.raises(ValueError, match="int32"):
+            port.topk_rows(torch.ones(8, dtype=dtype), 3, two_valued=True)
+    # the general form takes int64 scores
+    assert port.topk_rows(torch.arange(8), 3).tolist() == [7, 6, 5]
