@@ -229,6 +229,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -831,6 +832,115 @@ def b5_edge_containers():
     ]
 
 
+# K6's id mode: name -> (blocks, C).  A block is None (the block lacks
+# the column), ("ids", n, p_valid): a str column past
+# CARDINALITY_THRESHOLD (6,000 distinct strings), ("neg", n): ids below
+# 0 as well (the widening sign-extends), or ("value", n): an int column
+# of value-encoded deltas (more than 5,000 distinct values), whose launch
+# runs before the ids' and zeroes the missing rows, so the id launch
+# leaves them (-2) rather than zeroes them (-1)
+K6_CASES = {
+    "one block, C 128": ([("ids", 100, 0.9)], 128),
+    "one block, C 65,536": ([("ids", 65536, 0.9)], 65536),
+    "blocks shorter than C": ([("ids", 700, 0.8), ("ids", 4096, 0.95),
+                               ("ids", 1, 1.0)], 4096),
+    "all rows invalid": ([("ids", 4096, 0.0), ("ids", 3000, 0.0)], 4096),
+    "negative ids": ([("neg", 4096), ("ids", 4096, 0.5)], 4096),
+    "missing blocks, zeroed by the id launch": (
+        [None, ("ids", 2000, 0.9), None, ("ids", 4096, 0.7)], 4096),
+    "after a value-mode launch": (
+        [("value", 8192), None, ("ids", 8192, 0.9), ("value", 6000), None,
+         ("ids", 100, 0.5)], 8192),
+}
+
+
+def k6_case(name: str, seed: int = 0):
+    """K6_CASES[name] encoded -> (containers, C): MemContainers of the
+    port's encoders (a negative-id block written by hand, as no encoder
+    writes one)."""
+    import numpy as np
+
+    from sybil_tpu_torch.blocks import (IntColumnData, StrColumnData,
+                                        encode_int_column, encode_str_column,
+                                        pack_bits)
+    blocks_, C = K6_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K6_CASES).index(name))
+    words = [f"user{i}" for i in range(6000)]
+    out = []
+    for blk in blocks_:
+        if blk is None:
+            out.append(None)
+        elif blk[0] == "ids":
+            _, n, p_valid = blk
+            meta, sec = encode_str_column(StrColumnData(
+                rng.integers(0, 6000, n).astype(np.int32),
+                rng.random(n) < p_valid, words))
+            out.append(MemContainer(meta, sec))
+        elif blk[0] == "neg":
+            n = blk[1]
+            ids = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+            meta = {"type": "str", "encoding": "value", "num_records": n,
+                    "cardinality": 6000}
+            out.append(MemContainer(meta, {
+                "ids": ids, "valid_bits": pack_bits(rng.random(n) < 0.9)}))
+        else:
+            n = blk[1]
+            v = 1_755_000_000 + np.cumsum(rng.integers(1, 3000, n))
+            meta, sec = encode_int_column(IntColumnData(
+                v.astype(np.int64), rng.random(n) < 0.9))
+            out.append(MemContainer(meta, sec))
+        if out[-1] is not None and out[-1].meta["encoding"] != "value":
+            fail(f"K6 case {name}: a block is {out[-1].meta['encoding']}-"
+                 f"encoded, not value")
+    return out, C
+
+
+def k6_edge_checks(card, device, errs) -> None:
+    """K6's id mode against its plain version on K6_CASES, through
+    decode_column_batch (each encoding's launch writing its own rows),
+    and each case's id launch alone on its batch; fails unless the id
+    launches took data rows, zeroed rows (-1) and rows of another launch
+    (-2)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import decode
+    seen = set()
+    for name in K6_CASES:
+        cs, C = k6_case(name)
+        kinds = decode_check(f"id mode: {name}", cs, C, device, errs)
+        if "str_value" not in kinds:
+            fail(f"K6 case {name}: no str-value block ({kinds})")
+        ks, _ = decode.classify_containers(cs, C)
+        idx = [i for i, k in enumerate(ks) if k == "str_value"]
+        first = [k for k in ("bucket2", "bucket", "value", "str_value")
+                 if k in ks][0] == "str_value"
+        src = np.full(len(cs), decode.ZERO_ROW if first else
+                      decode.OTHER_ROW, dtype=np.int32)
+        src[[i for i, k in enumerate(ks) if k != "missing"]] = \
+            decode.OTHER_ROW
+        src[idx] = np.arange(len(idx), dtype=np.int32)
+        seen |= {int(x) for x in src if x < 0} | {0}
+        ins = [torch.from_numpy(a).to(device)
+               for a in (*decode.ids_batch(cs, idx, C), src)]
+        # poisoned outputs: the rows another launch writes must keep it
+        got, want = ((torch.full((len(cs), C), FILL, dtype=torch.int64,
+                                 device=device),
+                      torch.ones((len(cs), C), dtype=torch.bool,
+                                 device=device)) for _ in range(2))
+        decode.decode_ids(*ins, C, out=got)
+        decode.decode_ids_plain(*ins, C, out=want)
+        check_equal(f"K6 ids {name} values", got[0], want[0],
+                    errs["decode_value"])
+        check_equal(f"K6 ids {name} valid", got[1], want[1],
+                    errs["decode_value"])
+    if seen != {0, decode.ZERO_ROW, decode.OTHER_ROW}:
+        fail(f"K6 id cases took row codes {sorted(seen)}, not data, "
+             f"{decode.ZERO_ROW} and {decode.OTHER_ROW}")
+    say(f"[{card}] K6 id mode == plain (tolerance 0) on {len(K6_CASES)} "
+        f"cases ({', '.join(K6_CASES)}): data, zeroed and skipped rows")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: K2-K5
 # ---------------------------------------------------------------------------
@@ -1187,6 +1297,23 @@ def check_outs(kernel, what, got: dict, want: dict, keys, errs):
                         errs[kernel])
 
 
+K8_OUTS = ("sums", "mins", "maxs", "keys", "kmat", "sidxm", "gid",
+           "num_groups", "dmat", "pair_mask")
+K8_PATHS = {}                   # device -> the path counts of K8's checks
+
+
+def k8_paths(device):
+    """The int64 counts every checked K8 launch on `device` adds its
+    paths to (scan.SEGMENT_PATHS)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    if device not in K8_PATHS:
+        K8_PATHS[device] = torch.zeros(len(scan.SEGMENT_PATHS),
+                                       dtype=torch.int64, device=device)
+    return K8_PATHS[device]
+
+
 def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
                  set_aux=None):
     """K14 per set filter, K7, the sorts (sort_permute between them), K8,
@@ -1211,10 +1338,10 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
                                              "totals", "mask"), errs)
     if front["key"] is not None:
         skey, p = torch.sort(front["key"], stable=True)
-        order = {"skey": skey, "p": p, "base": None}
+        order = {"skey": skey, "p": p, "base": None, "svals": None}
     else:
         keys = front["keys"]
-        _, p = torch.sort(keys[-1], stable=True)
+        svals, p = torch.sort(keys[-1], stable=True)
         base = None
         for k in range(keys.shape[0] - 2, -1, -1):
             nb, g = scan.sort_permute(base, p, keys[k])
@@ -1224,18 +1351,18 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
             check_equal(f"sort_permute {what} key {k}", g, gp,
                         errs["sort_permute"])
             base = nb
-            _, p = torch.sort(g, stable=True)
-        order = {"skey": None, "p": p, "base": base}
-    if not torch.equal(scan.sorted_perm(scan.sort_rows(cfg, front)),
-                       scan.sorted_perm(order)):
-        fail(f"{what}: sort_rows gives another order")
+            svals, p = torch.sort(g, stable=True)
+        order = {"skey": None, "p": p, "base": base, "svals": svals}
+    rows_order = scan.sort_rows(cfg, front)
+    for key in ("p", "base", "svals"):
+        if (rows_order[key] is None) != (order[key] is None) or (
+                order[key] is not None
+                and not torch.equal(rows_order[key], order[key])):
+            fail(f"{what}: sort_rows gives another {key}")
     S = cfg.max_groups
-    k8 = scan.segment_reduce(cfg, cols, front, order, tb)
+    k8 = scan.segment_reduce(cfg, cols, front, order, tb, paths=k8_paths(dev))
     check_outs("segment_reduce", what, k8, scan.segment_reduce_plain(
-        cfg, cols, front, order, tb), ("sums", "mins", "maxs", "keys",
-                                       "kmat", "sidxm", "gid",
-                                       "num_groups", "dmat", "pair_mask"),
-               errs)
+        cfg, cols, front, order, tb), K8_OUTS, errs)
     layout = scan.packed_layout(cfg, R)
     shape = (layout["rows"], layout["W"])
     main = torch.full(shape, FILL, dtype=torch.int64, device=dev)
@@ -1412,6 +1539,175 @@ def sorted_edge(name: str, device, B: int = 3, C: int = 65536):
     nrec = torch.tensor([C, 700, C - 3], dtype=torch.int32, device=device)
     return (cfg, cols, nrec, torch.tensor(fvals, dtype=torch.int64,
                                           device=device), bits, tb)
+
+
+# K8's own cases: name -> options.  B, C: the batch; keys: per group key
+# ((lo, hi) of the values, pack bound (min, card) or None), or a layout
+# name: "unique" (every row its own key), "edges" (a group key and one
+# distinct lane whose sorted runs start on edges of K8's 1,024-row
+# tiles: 2,048 rows of each of (0, 0), (0, 1), (1, 0), then (1, 1));
+# key_valid: the share of valid key values (0.9); distinct: the distinct
+# lanes' (lo, hi); hist: per aggregation "basic" | None; weight, filters,
+# partial (nrec below C in the middle block), time (lo, hi, bucket,
+# time_i32), cg (the cache-group key ahead of the keys, this many blocks
+# a group), extra: ScanConfig fields
+K8_CASES = {
+    "segments across tile and warp edges": dict(
+        B=3, C=4096, keys=[((0, 50), None)], hist=[None, "basic"],
+        weight=True),
+    "one segment across several tiles": dict(
+        B=4, C=8192, keys=[((0, 2), None)], hist=["basic"]),
+    "one group": dict(B=2, C=4096, keys=[((7, 8), None)], key_valid=1.0,
+                      hist=[None]),
+    "every row its own group": dict(B=3, C=4096, keys="unique",
+                                    hist=[None]),
+    "R not a multiple of the tile": dict(B=3, C=512, keys=[((0, 30), None)],
+                                         hist=["basic"], partial=True),
+    "R below one tile": dict(B=1, C=512, keys=[((0, 30), None)],
+                             hist=[None]),
+    "R of 12 rows: a thread's rows cut short": dict(
+        B=3, C=4, keys=[((0, 3), None)], hist=[None]),
+    "groups past S": dict(B=2, C=4096, keys=[((0, 400), None)],
+                          hist=["basic"], extra=dict(max_groups=50)),
+    "unmatched and spilled rows under the sentinel": dict(
+        B=3, C=4096, keys=[((0, 12), (0, 9)), ((0, 4), (0, 4))],
+        hist=["basic"], partial=True,
+        filters=[("fi", "gt", "int", 10)]),
+    "packed int32 key": dict(B=3, C=4096,
+                             keys=[((0, 9), (0, 9)), ((0, 7), (0, 7))],
+                             hist=[None], weight=True),
+    "packed int64 key": dict(B=2, C=4096,
+                             keys=[((0, 60000), (0, 60000)),
+                                   ((0, 50000), (0, 50000))], hist=[None]),
+    "packed key, values at min - 1": dict(
+        B=2, C=4096, keys=[((4, 14), (5, 9)), ((0, 3), (0, 3))],
+        hist=[None]),
+    "unpacked keys, MISSING and negative values": dict(
+        B=3, C=4096, keys=[((-5, 4), None), ((-3, 3), None),
+                           ((-1000, 1000), None)], hist=[None, "basic"]),
+    "pair and group starts on tile edges": dict(
+        B=2, C=4096, keys="edges", hist=[]),
+    "distinct pairs over two lanes": dict(
+        B=3, C=4096, keys=[((0, 5), None)], distinct=[(0, 3), (-5, 200)],
+        hist=[], partial=True),
+    "the cache-group key": dict(B=8, C=1024, keys=[((0, 6), None)],
+                                hist=["basic"], cg=2),
+    "time key": dict(B=3, C=4096, keys=[((0, 9), None)],
+                     time=(-400_000, 900_000, 100, True), hist=[None]),
+    "17 keys and 33 aggregations": dict(
+        B=2, C=1024, keys=[((0, 2), None)] * 17,
+        hist=["basic"] + [None] * 32, weight=True),
+}
+
+
+def k8_case(name: str, seed: int = 0):
+    """K8_CASES[name] -> (ScanConfig fields with aggs and filters as field
+    dicts, {col: (values int64 [B, C], valid bool [B, C])}, nrec int32
+    [B], filter constants int64 [F], regex bitsets, time bucket), all
+    numpy, made from the seed."""
+    import numpy as np
+    o = K8_CASES[name]
+    B, C = o["B"], o["C"]
+    R = B * C
+    rng = np.random.default_rng(seed + 500 + sorted(K8_CASES).index(name))
+    cols = {}
+
+    def put(col, v, p_valid):
+        cols[col] = (np.asarray(v, np.int64).reshape(B, C),
+                     (rng.random(R) < p_valid).reshape(B, C))
+
+    groups, pack, distinct = [], [], []
+    if o["keys"] == "unique":
+        put("k0", rng.permutation(R), 1.0)
+        groups, pack = ["k0"], [None]
+    elif o["keys"] == "edges":
+        pair = np.repeat(np.arange(4), [2048, 2048, 2048, R - 6144])
+        perm = rng.permutation(R)
+        k, d = np.empty(R, np.int64), np.empty(R, np.int64)
+        k[perm], d[perm] = pair // 2, pair % 2
+        put("k0", k, 1.0)
+        put("d0", d, 1.0)
+        groups, pack, distinct = ["k0"], [None], ["d0"]
+    else:
+        for i, ((lo, hi), pb) in enumerate(o["keys"]):
+            put(f"k{i}", rng.integers(lo, hi, R), o.get("key_valid", 0.9))
+            groups.append(f"k{i}")
+            pack.append(pb)
+    for i, (lo, hi) in enumerate(o.get("distinct", ())):
+        put(f"d{i}", rng.integers(lo, hi, R), 0.9)
+        distinct.append(f"d{i}")
+    tkw, tb = {}, 1
+    if "time" in o:
+        lo, hi, tb, i32 = o["time"]
+        put("t", rng.integers(lo, hi, R), 0.95)
+        tkw = dict(time_col="t", time_i32=i32)
+        pack = []
+    if o.get("cg"):
+        groups = ["__cg__"] + groups
+        tkw["vg_span"] = o["cg"]
+        pack = []
+    aggs = []
+    for a, h in enumerate(o["hist"]):
+        put(f"v{a}", np.where(rng.random(R) < 0.03,
+                              rng.integers(500, 3000, R),
+                              rng.integers(-20, 400, R)), 0.85)
+        aggs.append(dict(col=f"v{a}", hist_min=0, bucket_size=0,
+                         num_values=0, discard_min=-10, discard_max=2500)
+                    if h is None else
+                    dict(col=f"v{a}", hist_min=0, bucket_size=10,
+                         num_values=40, discard_min=0, discard_max=2500))
+    filters, fvals = [], []
+    for col, op, kind, val in o.get("filters", ()):
+        put(col, rng.integers(0, 80, R), 0.9)
+        filters.append(dict(col=col, op=op, kind=kind, bitset_idx=-1))
+        fvals.append(val)
+    if o.get("weight"):
+        put("w", rng.integers(0, 101, R), 0.8)
+    fields = dict(group_cols=tuple(groups), aggs=tuple(aggs),
+                  filters=tuple(filters), distinct_cols=tuple(distinct),
+                  weight_col="w" if o.get("weight") else "",
+                  force_sorted=True, track_outliers=any(o["hist"]),
+                  sort_pack=(tuple(pack) if pack and not distinct and
+                             all(p is not None for p in pack) else ()),
+                  **tkw, **o.get("extra", {}))
+    nrec = np.full(B, C, dtype=np.int32)
+    if o.get("partial"):
+        nrec[B // 2] = C // 3
+    return (fields, cols, nrec, np.asarray(fvals, np.int64),
+            (np.array([i % 3 == 0 for i in range(10)]),), tb)
+
+
+def k8_edge_checks(card, device, errs) -> None:
+    """K8 against its plain version on K8_CASES; then fails unless K8's
+    checks so far (these and sorted_check's, the main path's shapes among
+    them) took a look-back past one tile, a segment cut by a tile edge
+    and a run carried from lane to lane."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    for name in K8_CASES:
+        fields, cols, nrec, fv, bits, tb = k8_case(name)
+        cfg = scan.config_from_fields(fields)
+        tc = {k: (torch.from_numpy(v).to(device),
+                  torch.from_numpy(m).to(device))
+              for k, (v, m) in cols.items()}
+        front = scan.sorted_front(
+            cfg, tc, torch.from_numpy(nrec).to(device),
+            torch.from_numpy(fv).to(device),
+            tuple(torch.from_numpy(b).to(device) for b in bits), tb)
+        order = scan.sort_rows(cfg, front)
+        check_outs("segment_reduce", f"case {name}",
+                   scan.segment_reduce(cfg, tc, front, order, tb,
+                                       paths=k8_paths(device)),
+                   scan.segment_reduce_plain(cfg, tc, front, order, tb),
+                   K8_OUTS, errs)
+    n = dict(zip(scan.SEGMENT_PATHS, k8_paths(device).tolist()))
+    for label in ("look-back past one tile", "cut segment", "carried run"):
+        if not n[label]:
+            fail(f"K8's checks never took the path {label!r}: {n}")
+    say(f"[{card}] K8 segment_reduce == plain (tolerance 0) on "
+        f"{len(K8_CASES)} cases ({', '.join(K8_CASES)}); paths over every "
+        f"checked launch: {n}")
 
 
 def sorted_edge_expect(name, cfg, main, R):
@@ -3192,6 +3488,12 @@ def device_launches(fn, tries: int = 8):
     return best
 
 
+# (label, call) pairs whose device work the kernel-times phase profiles:
+# calls made in earlier phases, so that no profiler session runs before
+# the mesh phase's launch-count checks (device_launches)
+LATE_PROFILES = []
+
+
 def profiled_kernels(fn) -> str:
     """device_launches(fn) as text: each kernel's (or copy's) name with
     its count and self device time, and their total; "not measured" with
@@ -3322,6 +3624,15 @@ def cache_kernel_rows(card, captured, device) -> list:
                  f"kmat and the key table, K {K}",
                  "sybil_tpu/ops/scan.py:405", ms, pms, nbytes,
                  R * (12 + 4 * K + 12 * L), lib))
+    def k8_call():
+        scan.segment_reduce(cfg, cols, front, order, tb)
+    say(f"[{card}] segment_reduce cache group_tdigest: device "
+        f"{queued_ms(k8_call):.4f} ms, events {ms:.4f} ms, index_add_ "
+        f"{lib:.4f} ms")
+    # the call's own arguments: the names are rebound or deleted below
+    LATE_PROFILES.append(("segment_reduce cache group_tdigest",
+                          functools.partial(scan.segment_reduce, cfg, cols,
+                                            front, order, tb)))
     del front, order
 
     cfg, cols, nrec, fv, bits, tb, _ = captured["group_loghist"]
@@ -5012,6 +5323,33 @@ def main(argv=None) -> int:
             say(f"  decode edge batch {label}: kinds {kinds} == plain")
         say(f"K6 decode_value and K1's v1 mode == plain (tolerance 0) on "
             f"{len(b5)} edge batches, mixed kinds included")
+        # K6's id mode on the sets table's index_str, a distinct string a
+        # row: the str-value containers a column past
+        # CARDINALITY_THRESHOLD distinct values a block writes
+        sdirs = sorted(stbl.block_infos())
+        styp = stbl.schema.col_type("index_str")
+        ids_main = [blocks.open_column(d, styp, "index_str") for d in sdirs]
+        encs = {c.meta["encoding"] for c in ids_main}
+        if encs != {"value"}:
+            fail(f"sets table: index_str is {encs}-encoded, not value")
+        if decode_check("sets table index_str", ids_main, C, dev,
+                        errs) != ["str_value"]:
+            fail("sets table: index_str did not decode as str ids")
+        from sybil_tpu_torch.ops.decode import decode_column_batch as dcb
+        got = dcb(ids_main, C, dev)
+        for bi in (0, len(ids_main) - 1):
+            host = blocks.decode_str_container(ids_main[bi])
+            n = len(host.ids)
+            if not (np.array_equal(got[0][bi, :n].cpu().numpy(), host.ids)
+                    and np.array_equal(got[1][bi, :n].cpu().numpy(),
+                                       host.valid)):
+                fail(f"K6 ids: sets index_str block {bi} differs from the "
+                     f"host decoder")
+        del got
+        say(f"K6 id mode == plain (tolerance 0) on the sets table's "
+            f"index_str ({len(ids_main)} str-value blocks) and the host "
+            f"decoder")
+        k6_edge_checks(card, dev, errs)
 
         # ---- phase 4: K2-K5 ----------------------------------------------
         cols, _ = decoded_cols(table, ["host", "ping", "status", "weight"],
@@ -5255,6 +5593,7 @@ def main(argv=None) -> int:
         say(f"K7-K10, sort_permute and K5 (kmat keys) == plain on "
             f"{len(SORTED_EDGES)} synthetic sorted batches (3 x 65536 "
             f"rows): " + ", ".join(SORTED_EDGES))
+        k8_edge_checks(card, dev, errs)
 
         # ---- phase 4: the enumerated strategy and the device prune -----
         from sybil_tpu_torch import blocks as blocks5
@@ -6295,9 +6634,16 @@ def main(argv=None) -> int:
             f"{k6_ms:.4f} ms (plain {k6_plain:.4f} ms; cumsum + unpack "
             f"{k6_lib_ms:.4f} ms)")
 
-        # K6's id mode and K1's v1 mode run off the main path (no bench
-        # column needs them): one edge block of each, 65,536 rows,
-        # repeated for as many rows as the main path's batches
+        def k6_call():
+            decode_value(dl, bits6, bases6, src6, C)
+        say(f"[{card}] decode_value bulk time: device "
+            f"{queued_ms(k6_call):.4f} ms; {profiled_kernels(k6_call)}")
+
+        # K6's id mode on the sets table's index_str (a cold query keyed
+        # or filtered on it decodes these containers), and K1's v1 mode
+        # off the main path (no bench column needs it): one edge block,
+        # 65,536 rows, repeated for as many rows as the main path's
+        # batches
         from sybil_tpu_torch.ops.decode import (bucket_v1_batch,
                                                 decode_bucket_v1,
                                                 decode_bucket_v1_plain,
@@ -6307,21 +6653,33 @@ def main(argv=None) -> int:
         rows_idx = list(range(B6))
         src_all = torch.arange(B6, dtype=torch.int32, device=dev)
         ids_t, bits_t = (torch.from_numpy(a).to(dev) for a in ids_batch(
-            [edge_of["str ids, 6000 distinct"][0]] * B6, rows_idx, C))
-        got = decode_ids(ids_t, bits_t, src_all, C)
-        want = decode_ids_plain(ids_t, bits_t, src_all, C)
-        check_equal(f"K6 ids {B6} blocks values", got[0], want[0],
+            ids_main, list(range(len(ids_main))), C))
+        Bi = ids_t.shape[0]
+        src_ids = torch.arange(Bi, dtype=torch.int32, device=dev)
+        got = decode_ids(ids_t, bits_t, src_ids, C)
+        want = decode_ids_plain(ids_t, bits_t, src_ids, C)
+        check_equal(f"K6 ids {Bi} index_str blocks values", got[0], want[0],
                     errs["decode_value"])
-        check_equal(f"K6 ids {B6} blocks valid", got[1], want[1],
+        check_equal(f"K6 ids {Bi} index_str blocks valid", got[1], want[1],
                     errs["decode_value"])
-        kid_ms = cuda_ms(lambda: decode_ids(ids_t, bits_t, src_all, C))
-        kid_plain = cuda_ms(lambda: decode_ids_plain(ids_t, bits_t, src_all,
+
+        def kid_call():
+            decode_ids(ids_t, bits_t, src_ids, C)
+        kid_ms = cuda_ms(kid_call)
+        kid_dev = queued_ms(kid_call)
+        kid_plain = cuda_ms(lambda: decode_ids_plain(ids_t, bits_t, src_ids,
                                                      C), iters=5)
         kid_lib = cuda_ms(lambda: (
             ids_t.to(torch.int64),
-            ((bits_t[:, :, None] >> sh6) & 1).reshape(B6, C) > 0), iters=5)
-        kid_bytes = B6 * C * 4 + bits_t.numel() + B6 * 4 + B6 * C * 9
-        kid_ops = B6 * C * 4
+            ((bits_t[:, :, None] >> sh6) & 1).reshape(Bi, C) > 0), iters=5)
+        # ids and bits read once, the row map, values and validity written
+        kid_bytes = Bi * C * 4 + bits_t.numel() + Bi * 4 + Bi * C * 9
+        kid_ops = Bi * C * 4
+        say(f"[{card}] decode_ids sets index_str ({Bi} str-id blocks): "
+            f"device {kid_dev:.4f} ms, events {kid_ms:.4f} ms (bound "
+            f"{kid_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; plain "
+            f"{kid_plain:.4f} ms; widen + unpack {kid_lib:.4f} ms); "
+            f"{profiled_kernels(kid_call)}")
         v1_ins = [torch.from_numpy(a).to(dev) for a in bucket_v1_batch(
             [edge_of["bucket v1"][0]] * B6, rows_idx)]
         got = decode_bucket_v1(*v1_ins, src_all, C)
@@ -6338,10 +6696,9 @@ def main(argv=None) -> int:
         v1_bytes = (v1_live * v1_ins[0].element_size() + B6 * v1_K * (4 + 8)
                     + B6 * 4 * 3 + B6 * C * 9)
         v1_ops = v1_live * 20
-        say(f"[{card}] decode_ids {B6} str-id blocks: {kid_ms:.4f} ms (plain "
-            f"{kid_plain:.4f} ms; widen + unpack {kid_lib:.4f} ms); "
-            f"decode_bucket_v1 {B6} v1 blocks ({v1_ins[0].dtype} deltas, "
-            f"{v1_live} postings): {v1_ms:.4f} ms (plain {v1_plain:.4f} ms)")
+        say(f"[{card}] decode_bucket_v1 {B6} v1 blocks ({v1_ins[0].dtype} "
+            f"deltas, {v1_live} postings): {v1_ms:.4f} ms (plain "
+            f"{v1_plain:.4f} ms)")
 
         # K4 on config 3 (and, in the text, -loghist and config 2)
         k4_times = {}
@@ -6529,6 +6886,14 @@ def main(argv=None) -> int:
             sorted_rows.append(("segment_reduce", plabel,
                                 "sybil_tpu/ops/scan.py:1133", k8_ms,
                                 k8_plain, k8_bytes, k8_ops, k8_lib))
+
+            def k8_call():
+                scan.segment_reduce(cfg, sub, front, order, tb)
+            say(f"[{card}] segment_reduce {plabel}: device "
+                f"{queued_ms(k8_call):.4f} ms, events {k8_ms:.4f} ms, "
+                f"index_add_ {k8_lib:.4f} ms, bound "
+                f"{k8_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+                f"{profiled_kernels(k8_call)}")
             layout = scan.packed_layout(cfg, Rn)
             mainx = torch.empty((layout["rows"], layout["W"]),
                                 dtype=torch.int64, device=dev)
@@ -6834,7 +7199,10 @@ def main(argv=None) -> int:
                               k7d_plain, len(sub) * R * 9 + B * 4
                               + R * (4 + 8 * (K + D)), R * (6 + 6 * (K + D)),
                               None))
-        frontd, orderd = parts["front"], parts["order"]
+        # sort_rows' order, as the engine runs it (lane 0 from the last
+        # sort's values)
+        frontd = parts["front"]
+        orderd = scan.sort_rows(cfg, frontd)
         for k in range(K + D - 1, -1, -1):
             lane = frontd["keys"][k]
             say(f"[{card}] sorts, {plabel}: lane {k} stable torch.sort of "
@@ -6862,6 +7230,14 @@ def main(argv=None) -> int:
                               "sybil_tpu/ops/scan.py:1191", k8d_ms,
                               k8d_plain, k8d_bytes,
                               R * (12 + 4 * (K + D) + 12 * L), k8d_lib))
+
+        def k8d_call():
+            scan.segment_reduce(cfg, sub, frontd, orderd)
+        say(f"[{card}] segment_reduce {plabel}: device "
+            f"{queued_ms(k8d_call):.4f} ms, events {k8d_ms:.4f} ms, "
+            f"index_add_ {k8d_lib:.4f} ms, bound "
+            f"{k8d_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+            f"{profiled_kernels(k8d_call)}")
         layd = scan.packed_layout(cfg, R)
         maind = torch.empty((layd["rows"], layd["W"]), dtype=torch.int64,
                             device=dev)
@@ -6932,9 +7308,9 @@ def main(argv=None) -> int:
                 ("decode_value", "config 4 time column, bulk table",
                  "sybil_tpu/ops/decode.py:40", k6_ms, k6_plain, k6_bytes,
                  k6_ops, k6_lib_ms),
-                ("decode_value", f"id mode, {B6} str-id edge blocks, off the "
-                 "main path", "sybil_tpu/ops/decode.py:51", kid_ms,
-                 kid_plain, kid_bytes, kid_ops, kid_lib),
+                ("decode_value", f"id mode, the sets table's index_str "
+                 f"({Bi} str-id blocks)", "sybil_tpu/ops/decode.py:51",
+                 kid_ms, kid_plain, kid_bytes, kid_ops, kid_lib),
                 ("dense_scan", "config 3", "sybil_tpu/ops/scan.py:629",
                  k2c3[0], k2c3[1], k2c3[2], k2c3[3], k2_lib3),
                 *c4rows,
@@ -6966,6 +7342,9 @@ def main(argv=None) -> int:
                 f"plain {pms:.4f} ms"
                 + (f"; library {lib:.4f} ms" if lib is not None else "")
                 + ")")
+        for label, fn in LATE_PROFILES:
+            say(f"[{card}] {label}: {profiled_kernels(fn)}")
+        del LATE_PROFILES[:]
         say(f"[{card}] dense_scan config 1 (PR-1 shape): "
             f"{k2_times['config 1'][0]:.4f} ms; index_add_ over prebuilt "
             f"lanes {k2_lib:.4f} ms")

@@ -35,23 +35,56 @@
 //
 // Bound: memory.  Per row: p and base, the random gathers of idxm, the
 // key lanes (unpacked) and the aggregation and weight columns at the
-// sorted row, and kmat, sidxm and gid written.  Design, four launches:
-//   1. gather: sidxm and kmat (and dmat) per sorted row (grid-stride);
-//   2. count:  each CTA counts the boundaries of its TILE-row tile;
-//   3. scan:   one CTA turns the counts into exclusive offsets and
-//              writes num_groups;
-//   4. reduce: each CTA walks its tile 256 rows at a time: a block scan
-//              of the boundaries gives each row's gid; boundary rows
-//              write the key table; the lanes are summed per warp run of
-//              equal gids (rows of a group are contiguous after the sort)
-//              with shuffles, and each run's first lane adds its sums to
-//              the global [S+1, L] table with one 64-bit atomic per lane,
-//              so a warp of one group issues one atomic, not 32.  All sums
-//              are unsigned 64-bit, wrapping mod 2^64 like the reference's
-//              int64 nibble sums.  Min/max: signed 64-bit atomics after a
-//              warp-run min/max, skipped when the value cannot move the
-//              bound.  With distinct lanes each row also writes its pair
-//              flag from its dmat row and the one before it.
+// sorted row, and kmat, sidxm and gid written: 69 B a row at path 2
+// (0.1745 ms at 8,388,608 rows on an H100, 3.35 TB/s).
+//
+// What a trace of the former design showed (torch.profiler on the H100;
+// PERF.md §6).  It ran four launches and two memsets: a gather of sidxm
+// and kmat, a count of each tile's boundaries that reread kmat, a
+// one-CTA scan of the counts, and a reduce that reread kmat and sidxm.
+// At path 2 the gather took 239 us, the count 53 and the reduce 195; in
+// the pair form (three lanes, every source row random) the gather took
+// 1,212 us, one dependent chain of loads a thread at a time; at path 1
+// (7 groups) the reduce took 244 us, its atomics a warp run each piling
+// onto the same few words.
+//
+// Design: one launch (after one memset, and fill_bounds when H > 0), a
+// CTA per TILE rows, the tile taken from an atomic ticket, so that every
+// tile before it has started.
+//   A. Gather: a warp takes 128 consecutive sorted rows, 32 consecutive
+//      rows an item, so every load and store of a sorted row (p, svals,
+//      the packed key; sidxm, kmat, dmat, pair_mask) is coalesced.  It
+//      loads its rows' p, then their source rows r, then idxm at r, each
+//      stage's ITEMS loads in flight before any store.  Its keys: a
+//      packed key's word (a boundary is a change of the word), or each
+//      lane gathered at r but lane 0, which the last sort's sorted values
+//      hold already (svals).  Each row
+//      is compared with the row before it in registers: the previous
+//      lane's row or lane 31's of the previous item by a shuffle, or, for
+//      the warp's first row, the row before the warp, loaded once more.
+//      So kmat and dmat are written once and never read to find a
+//      boundary.  The tile's idxm and boundary flags go to shared memory.
+//   B. Look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan
+//      with Decoupled Look-back", 2016): the CTA publishes its tile's
+//      boundary count, warp 0 sums its predecessors' published counts,
+//      32 tiles a step, until it meets an inclusive prefix, and
+//      publishes its own.  A status word is a flag in its top two bits
+//      and the count below, stored with st.release and read with
+//      ld.acquire.  No scan launch, no offsets scratch.
+//   C. Reduce: a thread takes ITEMS consecutive rows from shared memory;
+//      one block scan of the threads' counts gives each row's gid (staged
+//      in shared memory, stored coalesced); a boundary row writes the key
+//      table from its kmat row (this CTA's write, an L1 or L2 hit); the
+//      last tile writes num_groups.
+//      Every lane of [w, 1, (exists, kw, kw*(v-bias)) x A] is summed a
+//      run at a time in the thread's rows, and the thread's last run is
+//      carried across the warp by a segmented scan, so a segment adds to
+//      its row of the [S+1, L] table once per warp it touches (one
+//      64-bit atomic a lane; 128 rows a warp), not once per warp run.
+//      The sums are unsigned 64-bit, wrapping mod 2^64 like the
+//      reference's int64 nibble sums.  Min/max: signed 64-bit atomics the
+//      same way, skipped when the value cannot move the bound.  Rows of
+//      groups at or past S add nothing (the dead slot S stays 0).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,11 +95,20 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE = 4096;
-constexpr int SCAN_THREADS = 1024;
+constexpr int ITEMS = 4;                  // rows a thread
+constexpr int TILE = THREADS * ITEMS;     // rows a CTA
 constexpr long long BIG = 1ll << 62;
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
 constexpr unsigned FULL = 0xffffffffu;
+// look-back status words: a flag in the top two bits, the count below
+constexpr unsigned long long FLAG_AGG = 1ull << 62;
+constexpr unsigned long long FLAG_PREFIX = 2ull << 62;
+constexpr unsigned long long COUNT_MASK = FLAG_AGG - 1;
+// a.paths (optional) counts, for the checks: tiles whose look-back read
+// more than one predecessor's word, and more than one window of 32;
+// tiles whose first row continues a segment (cut by the tile edge); and
+// warps where a lane's first rows continue a run of an earlier lane
+enum { P_MULTI, P_DEEP, P_CUT, P_CARRY };
 
 }  // namespace
 
@@ -80,6 +122,7 @@ struct SegmentReduceArgs {
   const int* idxm;                 // [R] K7's row index | matched bit
   const void* skey;                // packed: sorted key [R], int32/int64
   const long long* keys;           // unpacked: K7's key lanes [K + D, R]
+  const long long* svals;          // unpacked: lane 0 sorted [R]
   const long long* const* key_vals;  // [ngroups] group columns
   const unsigned char* const* key_valid;
   const long long* pack_min;       // [K]
@@ -103,7 +146,11 @@ struct SegmentReduceArgs {
   long long* maxs;                 // [S, H]
   long long* keys_tbl;             // [S, K]
   long long* num_groups;           // [1]
-  int* offsets;                    // [ntiles + 1] scratch
+  unsigned long long* status;      // [1 + ntiles]: the ticket, then a
+                                   // status word a tile
+  unsigned long long* zero;        // the block the memset clears (sums,
+  long long nzero;                 // keys_tbl and status), in words
+  unsigned long long* paths;       // [4] path counts (P_*), or null
   long long R;
   long long tb;                    // time bucket (> 0)
   long long sent;                  // packed sentinel
@@ -165,195 +212,388 @@ __device__ __forceinline__ long long sorted_key(const SegmentReduceArgs& a,
                        : static_cast<const long long*>(a.skey)[i];
 }
 
-__global__ void __launch_bounds__(THREADS) gather_kernel(
-    const SegmentReduceArgs a) {
-  const int K = a.K;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < a.R;
-       i += (long long)gridDim.x * THREADS) {
-    const long long j = a.p[i];
-    const long long r = a.base ? a.base[j] : j;
-    const int m = a.idxm[r];
-    a.sidxm[i] = m;
-    long long* row = a.kmat + (size_t)i * K;
-    if (!a.packed) {
-      for (int k = 0; k < K; ++k) row[k] = a.keys[(size_t)k * a.R + r];
-      for (int j = 0; j < a.D; ++j)
-        a.dmat[(size_t)i * a.D + j] = a.keys[(size_t)(K + j) * a.R + r];
-      continue;
+// Key lane k (of K + D) of sorted row i, whose source row is r: lane 0
+// from the last sort's values, the others gathered.
+__device__ __forceinline__ long long sorted_lane(const SegmentReduceArgs& a,
+                                                 int k, long long i, int r) {
+  return k == 0 ? a.svals[i] : a.keys[(size_t)k * a.R + r];
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// The three reductions of a lane and their atomics: the operation, its
+// identity, and the flush of a segment's partial into the table (skipped
+// when it cannot change the word).
+struct SumOp {
+  typedef unsigned long long T;
+  unsigned long long* col;  // the lane's word of row 0; rows L apart
+  int L;
+  __device__ static T identity() { return 0ull; }
+  __device__ static T combine(T x, T y) { return x + y; }
+  __device__ void flush(int g, T v) const {
+    if (v) atomicAdd(col + (size_t)g * L, v);
+  }
+};
+
+struct MinOp {
+  typedef long long T;
+  long long* col;  // rows H apart
+  int H;
+  __device__ static T identity() { return BIG; }
+  __device__ static T combine(T x, T y) { return y < x ? y : x; }
+  __device__ void flush(int g, T v) const {
+    long long* w = col + (size_t)g * H;
+    if (v != BIG && v < *(volatile long long*)w) atomicMin(w, v);
+  }
+};
+
+struct MaxOp {
+  typedef long long T;
+  long long* col;
+  int H;
+  __device__ static T identity() { return -BIG; }
+  __device__ static T combine(T x, T y) { return y > x ? y : x; }
+  __device__ void flush(int g, T v) const {
+    long long* w = col + (size_t)g * H;
+    if (v != -BIG && v > *(volatile long long*)w) atomicMax(w, v);
+  }
+};
+
+template <class T>
+__device__ __forceinline__ T shfl_up(T v, int d) {
+  return __shfl_up_sync(FULL, v, d);
+}
+
+// Adds one lane's values x of the thread's ITEMS rows to the table, a
+// segment at a time.  bm holds the rows that start a segment, g their
+// gids (all threads of the warp call it).  A run that starts and ends in
+// the thread is flushed at once; the thread's last run is carried to the
+// next lanes by a segmented scan and flushed by the lane where its
+// segment ends, or by lane 31; the first run, when the thread's first
+// row does not start a segment, joins what the previous lanes carried.
+template <class Op>
+__device__ __forceinline__ void seg_flush(const Op& op,
+                                          const typename Op::T (&x)[ITEMS],
+                                          unsigned bm, const int (&g)[ITEMS],
+                                          int S, int lane) {
+  typedef typename Op::T T;
+  T acc = Op::identity(), head = Op::identity();
+  const bool open = !(bm & 1u);  // the first run continues a segment
+  bool first = true;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    if (k > 0 && ((bm >> k) & 1u)) {
+      if (first && open)
+        head = acc;
+      else if (g[k - 1] < S)
+        op.flush(g[k - 1], acc);
+      first = false;
+      acc = Op::identity();
     }
-    long long x = sorted_key(a, i);
-    if (x != a.sent) {
-      // a packed key below the sentinel: every digit is in [0, card].
-      // Digits 1..card give the key exactly; digit 0 is MISSING (-1) or,
-      // when min != 0, possibly a value of min - 1, so that key is read
-      // from its column
-      for (int k = K - 1; k >= 0; --k) {
-        const long long radix = desc_at(a.desc, a.pack_card, k) + 1;
-        const long long mn = desc_at(a.desc, a.pack_min, k);
-        const long long d = x % radix;
-        x /= radix;
-        if (d != 0)
-          row[k] = (long long)((unsigned long long)d - 1ull +
-                               (unsigned long long)mn);
-        else
-          row[k] = mn == 0 ? -1ll : key_lane(a, k, r);
+    acc = Op::combine(acc, x[k]);
+  }
+  // inclusive segmented scan of the lanes' last runs: a lane that starts
+  // a segment restarts it
+  T s = acc;
+  bool f = bm != 0u;
+  for (int d = 1; d < 32; d <<= 1) {
+    const T su = shfl_up(s, d);
+    const bool fu = __shfl_up_sync(FULL, (int)f, d);
+    if (lane >= d) {
+      if (!f) s = Op::combine(su, s);
+      f = f || fu;
+    }
+  }
+  T carry = shfl_up(s, 1);
+  if (lane == 0) carry = Op::identity();
+  if (bm != 0u && open && g[0] < S)  // the first run ends in this thread
+    op.flush(g[0], Op::combine(carry, head));
+  const unsigned next_starts = __shfl_down_sync(FULL, bm & 1u, 1);
+  if ((lane == 31 || next_starts) && g[ITEMS - 1] < S)
+    op.flush(g[ITEMS - 1], s);
+}
+
+__global__ void __launch_bounds__(THREADS, 4) segment_kernel(
+    const SegmentReduceArgs a) {
+  __shared__ int s_tile;
+  __shared__ int s_prefix;
+  __shared__ int s_count[THREADS / 32];
+  __shared__ int s_m[TILE];            // idxm of the tile's rows, then gid
+  __shared__ unsigned char s_b[TILE];  // the rows that start a group
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0)
+    s_tile = (int)atomicAdd(a.status, 1ull);  // the ticket
+  __syncthreads();
+  const int tile = s_tile;
+  const long long R = a.R;
+  const long long lo = (long long)tile * TILE;
+  const int K = a.K, KD = a.K + a.D;
+
+  // ---- A. gather --------------------------------------------------------
+  // Warp w takes the tile's rows [w * 128, (w + 1) * 128), row k * 32 +
+  // lane of them in its item k, so every load and store of a sorted row
+  // is coalesced.  Each stage issues all its loads before any store (a
+  // store may alias a later load, so it would hold that load back): p,
+  // then the source rows, then idxm with the first gathered key lane.
+  // A row's predecessor is the previous lane's row, lane 31's of the
+  // previous item, or, for lane 0 of item 0, the row before the warp,
+  // loaded again (lead).
+  {
+    const long long wb = lo + (long long)warp * (ITEMS * 32);
+    const bool lead = lane == 0 && wb > 0 && wb < R;
+    int r[ITEMS], m[ITEMS];
+    // lane 0's row before the warp: its source row for lanes past 0
+    long long rp = lead && !a.packed && KD > 1 ? a.p[wb - 1] : 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const long long i = wb + k * 32 + lane;
+      r[k] = i < R ? (int)a.p[i] : 0;
+    }
+    if (a.base) {
+      if (lead && !a.packed && KD > 1) rp = a.base[rp];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k)
+        if (wb + k * 32 + lane < R) r[k] = (int)a.base[r[k]];
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      m[k] = wb + k * 32 + lane < R ? a.idxm[r[k]] : 0;
+    unsigned bm = 0u, pm = 0u;  // items whose row starts a group / tuple
+    if (a.packed) {
+      long long x[ITEMS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const long long i = wb + k * 32 + lane;
+        x[k] = i < R ? sorted_key(a, i) : 0;
       }
-    } else if (m < 0) {  // spilled: matched, sorted under the sentinel
-      for (int k = 0; k < K; ++k) row[k] = key_lane(a, k, r);
-    } else {
-      for (int k = 0; k < K; ++k) row[k] = SENTINEL;
-    }
-  }
-}
-
-__device__ __forceinline__ bool boundary(const SegmentReduceArgs& a,
-                                         long long i) {
-  if (i == 0) return true;
-  if (a.packed) return sorted_key(a, i) != sorted_key(a, i - 1);
-  const long long* row = a.kmat + (size_t)i * a.K;
-  for (int k = 0; k < a.K; ++k)
-    if (row[k] != row[k - a.K]) return true;
-  return false;
-}
-
-// Row i starts a new (group, distinct) tuple: a group boundary, or a
-// distinct lane that differs from the row before.
-__device__ __forceinline__ bool pair_boundary(const SegmentReduceArgs& a,
-                                              long long i, bool b) {
-  if (b) return true;
-  const long long* row = a.dmat + (size_t)i * a.D;
-  for (int j = 0; j < a.D; ++j)
-    if (row[j] != row[j - a.D]) return true;
-  return false;
-}
-
-__global__ void __launch_bounds__(THREADS) count_tiles(
-    const SegmentReduceArgs a) {
-  const long long lo = (long long)blockIdx.x * TILE;
-  int n = 0;
-  for (int t = threadIdx.x; t < TILE; t += THREADS) {
-    const long long i = lo + t;
-    if (i < a.R && boundary(a, i)) ++n;
-  }
-  n = __reduce_add_sync(FULL, n);
-  __shared__ int s_n;
-  if (threadIdx.x == 0) s_n = 0;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0 && n) atomicAdd(&s_n, n);
-  __syncthreads();
-  if (threadIdx.x == 0) a.offsets[blockIdx.x] = s_n;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(
-    const SegmentReduceArgs a) {
-  int carry = 0;
-  for (int base = 0; base < a.ntiles; base += SCAN_THREADS) {
-    const int t = base + threadIdx.x;
-    const int x = t < a.ntiles ? a.offsets[t] : 0;
-    int total;
-    const int pre = block_scan<SCAN_THREADS>(x, &total);
-    if (t < a.ntiles) a.offsets[t] = carry + pre;
-    carry += total;
-  }
-  if (threadIdx.x == 0) {
-    a.offsets[a.ntiles] = carry;
-    a.num_groups[0] = carry;
-  }
-}
-
-// Warp-run reductions: lanes [lane, end] hold the rows of one run; after
-// the call the run's first lane holds the run's total.
-__device__ __forceinline__ unsigned long long run_sum(unsigned long long x,
-                                                      int lane, int end) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned long long y = __shfl_down_sync(FULL, x, d);
-    if (lane + d <= end) x += y;
-  }
-  return x;
-}
-
-__device__ __forceinline__ long long run_min(long long x, int lane, int end) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_down_sync(FULL, x, d);
-    if (lane + d <= end && y < x) x = y;
-  }
-  return x;
-}
-
-__device__ __forceinline__ long long run_max(long long x, int lane, int end) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_down_sync(FULL, x, d);
-    if (lane + d <= end && y > x) x = y;
-  }
-  return x;
-}
-
-__global__ void __launch_bounds__(THREADS) reduce_kernel(
-    const SegmentReduceArgs a) {
-  const long long lo = (long long)blockIdx.x * TILE;
-  const int lane = threadIdx.x & 31;
-  const int S = a.S, L = a.L, H = a.H, K = a.K;
-  int run = a.offsets[blockIdx.x];  // boundaries before this row block
-  for (int t0 = 0; t0 < TILE && lo + t0 < a.R; t0 += THREADS) {
-    const long long i = lo + t0 + threadIdx.x;
-    const bool in = i < a.R;
-    const int b = in && boundary(a, i);
-    int total;
-    const int pre = block_scan<THREADS>(b, &total);
-    const int gid = run + pre + b - 1;
-    run += total;
-    int m = 0;
-    if (in) {
-      a.gid[i] = gid;
-      m = a.sidxm[i];
-      if (a.D) a.pair_mask[i] = m < 0 && pair_boundary(a, i, b);
-      if (b && gid < S)
-        for (int k = 0; k < K; ++k)
-          a.keys_tbl[(size_t)gid * K + k] = a.kmat[(size_t)i * K + k];
-    }
-    const bool contrib = in && m < 0 && gid < S;
-    const long long r = m & 0x7fffffff;
-    const int cg = contrib ? gid : S;
-    // this warp's runs of equal cg
-    const int prev = __shfl_up_sync(FULL, cg, 1);
-    const unsigned heads = __ballot_sync(FULL, lane == 0 || prev != cg);
-    const unsigned after = lane == 31 ? 0u : heads & (FULL << (lane + 1));
-    const int end = after ? __ffs(after) - 2 : 31;
-    const bool head = (heads >> lane) & 1u;
-    const bool add = head && cg < S;
-    unsigned long long* row = a.sums + (size_t)cg * L;
-    unsigned long long w = 0ull;
-    if (contrib)
-      w = a.has_weight && a.w_valid[r] ? (unsigned long long)a.w_vals[r] : 1ull;
-    unsigned long long x = run_sum(w, lane, end);
-    if (add && x) atomicAdd(row, x);
-    x = run_sum(contrib ? 1ull : 0ull, lane, end);
-    if (add && x) atomicAdd(row + 1, x);
-    for (int ai = 0; ai < a.naggs; ++ai) {
-      const bool valid = contrib && desc_at(a.desc, a.agg_valid, ai)[r];
-      const long long v = valid ? desc_at(a.desc, a.agg_vals, ai)[r] : 0ll;
-      const bool keep = valid && !(v > desc_at(a.desc, a.agg_dmax, ai) ||
-                                   v < desc_at(a.desc, a.agg_dmin, ai));
-      x = run_sum(valid ? 1ull : 0ull, lane, end);
-      if (add && x) atomicAdd(row + 2 + 3 * ai, x);
-      x = run_sum(keep ? w : 0ull, lane, end);
-      if (add && x) atomicAdd(row + 3 + 3 * ai, x);
-      const unsigned long long bias =
-          (unsigned long long)desc_at(a.desc, a.agg_bias, ai);
-      x = run_sum(keep ? w * ((unsigned long long)v - bias) : 0ull, lane,
-                  end);
-      if (add && x) atomicAdd(row + 4 + 3 * ai, x);
-      const int mm = (int)desc_at(a.desc, a.agg_mm, ai);
-      if (mm >= 0) {
-        const long long mn = run_min(keep ? v : BIG, lane, end);
-        const long long mx = run_max(keep ? v : -BIG, lane, end);
-        if (add) {
-          long long* pmn = a.mins + (size_t)cg * H + mm;
-          long long* pmx = a.maxs + (size_t)cg * H + mm;
-          if (mn != BIG && mn < *(volatile long long*)pmn) atomicMin(pmn, mn);
-          if (mx != -BIG && mx > *(volatile long long*)pmx) atomicMax(pmx, mx);
+      const long long before = lead ? sorted_key(a, wb - 1) : x[0];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const long long up = shfl_up(x[k], 1);
+        const long long last = __shfl_sync(FULL, k ? x[k - 1] : 0ll, 31);
+        if (x[k] != (lane ? up : k ? last : before)) bm |= 1u << k;
+      }
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const long long i = wb + k * 32 + lane;
+        if (i >= R) continue;
+        long long* row = a.kmat + (size_t)i * K;
+        long long y = x[k];
+        if (y != a.sent) {
+          // a packed key below the sentinel: every digit is in [0, card].
+          // Digits 1..card give the key exactly; digit 0 is MISSING (-1)
+          // or, when min != 0, possibly a value of min - 1, so that key
+          // is read from its column
+          for (int kk = K - 1; kk >= 0; --kk) {
+            const long long radix = desc_at(a.desc, a.pack_card, kk) + 1;
+            const long long mn = desc_at(a.desc, a.pack_min, kk);
+            const long long d = y % radix;
+            y /= radix;
+            if (d != 0)
+              row[kk] = (long long)((unsigned long long)d - 1ull +
+                                    (unsigned long long)mn);
+            else
+              row[kk] = mn == 0 ? -1ll : key_lane(a, kk, r[k]);
+          }
+        } else if (m[k] < 0) {  // spilled: matched, sorted under the sentinel
+          for (int kk = 0; kk < K; ++kk) row[kk] = key_lane(a, kk, r[k]);
+        } else {
+          for (int kk = 0; kk < K; ++kk) row[kk] = SENTINEL;
         }
       }
+    } else {
+      for (int kk = 0; kk < KD; ++kk) {
+        long long v[ITEMS];
+#pragma unroll
+        for (int k = 0; k < ITEMS; ++k) {
+          const long long i = wb + k * 32 + lane;
+          v[k] = i < R ? sorted_lane(a, kk, i, r[k]) : 0;
+        }
+        const long long before =
+            lead ? sorted_lane(a, kk, wb - 1, (int)rp) : v[0];
+        const bool grp = kk < K;
+#pragma unroll
+        for (int k = 0; k < ITEMS; ++k) {
+          const long long up = shfl_up(v[k], 1);
+          const long long last = __shfl_sync(FULL, k ? v[k - 1] : 0ll, 31);
+          if (v[k] != (lane ? up : k ? last : before)) {
+            if (grp) bm |= 1u << k;
+            else pm |= 1u << k;
+          }
+        }
+        long long* out = grp ? a.kmat + kk : a.dmat + (kk - K);
+        const int stride = grp ? K : a.D;
+#pragma unroll
+        for (int k = 0; k < ITEMS; ++k) {
+          const long long i = wb + k * 32 + lane;
+          if (i < R) out[(size_t)i * stride] = v[k];
+        }
+      }
+    }
+    if (wb == 0 && lane == 0) bm |= 1u;  // row 0 starts the first group
+    int own = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const long long i = wb + k * 32 + lane;
+      const bool b = i < R && ((bm >> k) & 1u);
+      own += b;
+      s_m[warp * (ITEMS * 32) + k * 32 + lane] = m[k];
+      s_b[warp * (ITEMS * 32) + k * 32 + lane] = b;
+      if (i < R) {
+        a.sidxm[i] = m[k];
+        if (a.D) a.pair_mask[i] = m[k] < 0 && (((bm | pm) >> k) & 1u);
+      }
+    }
+    own = __reduce_add_sync(FULL, own);
+    if (lane == 0) s_count[warp] = own;
+  }
+  __syncthreads();
+
+  // ---- B. the tile's prefix by decoupled look-back -----------------------
+  if (warp == 0) {
+    int count = lane < THREADS / 32 ? s_count[lane] : 0;
+    count = __reduce_add_sync(FULL, count);
+    unsigned long long* st = a.status + 1;
+    unsigned long long excl = 0ull;
+    if (tile == 0) {
+      if (lane == 0)
+        st_release(st, FLAG_PREFIX | (unsigned long long)count);
+    } else {
+      if (lane == 0)
+        st_release(st + tile, FLAG_AGG | (unsigned long long)count);
+      int reads = 0, windows = 0;
+      for (int hi = tile - 1;; hi -= 32) {
+        const int j = hi - lane;
+        unsigned long long w = j >= 0 ? ld_acquire(st + j) : FLAG_PREFIX;
+        // wait until the 32 tiles before have each published
+        while (__any_sync(FULL, (w >> 62) == 0))
+          if ((w >> 62) == 0) w = ld_acquire(st + j);
+        const unsigned pre = __ballot_sync(FULL, (w >> 62) == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        unsigned long long c = lane <= stop ? (w & COUNT_MASK) : 0ull;
+        for (int d = 16; d; d >>= 1) c += __shfl_xor_sync(FULL, c, d);
+        excl += c;
+        reads += stop + 1;
+        ++windows;
+        if (pre) break;
+      }
+      if (lane == 0)
+        st_release(st + tile,
+                   FLAG_PREFIX | (excl + (unsigned long long)count));
+      if (a.paths && lane == 0) {
+        if (reads > 1) atomicAdd(a.paths + P_MULTI, 1ull);
+        if (windows > 1) atomicAdd(a.paths + P_DEEP, 1ull);
+      }
+    }
+    if (lane == 0) {
+      s_prefix = (int)excl;
+      if (tile == a.ntiles - 1) a.num_groups[0] = (long long)excl + count;
+    }
+  }
+  __syncthreads();
+
+  // ---- C. gids, the key table and the lanes ------------------------------
+  // Thread t takes the tile's rows [t * ITEMS, (t + 1) * ITEMS) from
+  // shared memory, so that its runs are consecutive rows.
+  const int t0 = threadIdx.x * ITEMS;
+  const long long i0 = lo + t0;
+  const int nin = i0 >= R ? 0 : (int)min((long long)ITEMS, R - i0);
+  int m[ITEMS];
+  unsigned bm = 0u;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    m[k] = s_m[t0 + k];
+    bm |= (unsigned)s_b[t0 + k] << k;
+  }
+  if (a.paths) {
+    if (threadIdx.x == 0 && tile > 0 && !(bm & 1u))
+      atomicAdd(a.paths + P_CUT, 1ull);
+    if (__any_sync(FULL, lane > 0 && nin > 0 && !(bm & 1u)) && lane == 0)
+      atomicAdd(a.paths + P_CARRY, 1ull);
+  }
+  int total;
+  const int before = s_prefix + block_scan<THREADS>(__popc(bm), &total);
+  int g[ITEMS];
+  const int S = a.S;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    g[k] = before + __popc(bm & ((2u << k) - 1u)) - 1;
+    s_m[t0 + k] = g[k];  // the thread's own slots, read above
+    if (k < nin && ((bm >> k) & 1u) && g[k] < S)
+      for (int kk = 0; kk < K; ++kk)
+        a.keys_tbl[(size_t)g[k] * K + kk] = a.kmat[(size_t)(i0 + k) * K + kk];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < TILE && lo + j < R; j += THREADS)
+    a.gid[lo + j] = s_m[j];
+  bool contrib[ITEMS];
+  int r[ITEMS];
+  unsigned long long w[ITEMS], one[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    contrib[k] = k < nin && m[k] < 0 && g[k] < S;
+    r[k] = m[k] & 0x7fffffff;
+    w[k] = contrib[k] && a.has_weight && a.w_valid[r[k]]
+               ? (unsigned long long)a.w_vals[r[k]]
+               : 1ull;
+    if (!contrib[k]) w[k] = 0ull;
+    one[k] = contrib[k] ? 1ull : 0ull;
+  }
+  const int L = a.L, H = a.H;
+  seg_flush(SumOp{a.sums, L}, w, bm, g, S, lane);
+  seg_flush(SumOp{a.sums + 1, L}, one, bm, g, S, lane);
+  for (int ai = 0; ai < a.naggs; ++ai) {
+    const long long* vals = desc_at(a.desc, a.agg_vals, ai);
+    const unsigned char* valid = desc_at(a.desc, a.agg_valid, ai);
+    const long long dmax = desc_at(a.desc, a.agg_dmax, ai);
+    const long long dmin = desc_at(a.desc, a.agg_dmin, ai);
+    const unsigned long long bias =
+        (unsigned long long)desc_at(a.desc, a.agg_bias, ai);
+    long long v[ITEMS];
+    unsigned ok = 0u, keep = 0u;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      v[k] = contrib[k] ? vals[r[k]] : 0ll;
+      if (contrib[k] && valid[r[k]]) ok |= 1u << k;
+    }
+    unsigned long long x[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (!((ok >> k) & 1u)) v[k] = 0ll;
+      if (((ok >> k) & 1u) && !(v[k] > dmax || v[k] < dmin)) keep |= 1u << k;
+      x[k] = (ok >> k) & 1u;
+    }
+    unsigned long long* row = a.sums + 2 + 3 * ai;
+    seg_flush(SumOp{row, L}, x, bm, g, S, lane);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) x[k] = (keep >> k) & 1u ? w[k] : 0ull;
+    seg_flush(SumOp{row + 1, L}, x, bm, g, S, lane);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      x[k] = (keep >> k) & 1u ? w[k] * ((unsigned long long)v[k] - bias)
+                              : 0ull;
+    seg_flush(SumOp{row + 2, L}, x, bm, g, S, lane);
+    const int mm = (int)desc_at(a.desc, a.agg_mm, ai);
+    if (mm >= 0) {
+      long long y[ITEMS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) y[k] = (keep >> k) & 1u ? v[k] : BIG;
+      seg_flush(MinOp{a.mins + mm, H}, y, bm, g, S, lane);
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) y[k] = (keep >> k) & 1u ? v[k] : -BIG;
+      seg_flush(MaxOp{a.maxs + mm, H}, y, bm, g, S, lane);
     }
   }
 }
@@ -368,24 +608,24 @@ __global__ void fill_bounds(long long* mins, long long* maxs, long long n) {
 
 }  // namespace
 
-// Copies the descriptor block, zeroes the sums and the key table and sets
-// the min/max tables to their sentinels on `stream`, then runs the four
-// launches.  `grid` sizes the grid-stride gather.  Returns cudaError_t.
-extern "C" int segment_reduce(const SegmentReduceArgs* args, int grid,
-                              void* stream) {
+// Copies the descriptor block, zeroes the sums, the key table, the ticket
+// and the status words with one memset, sets the min/max tables to their
+// sentinels when H > 0, then runs the kernel, a CTA a tile, on `stream`.
+// Returns cudaError_t.
+extern "C" int segment_reduce(const SegmentReduceArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SegmentReduceArgs& a = *args;
-  if (a.R >= (1ll << 31) || a.ntiles != (int)((a.R + TILE - 1) / TILE) ||
-      a.K < 1 || (a.D > 0 && (a.packed || !a.dmat || !a.pair_mask)) ||
-      a.vg_span < 0 || (a.vg_span & (a.vg_span - 1)))
+  if (a.R < 1 || a.R >= (1ll << 31) ||
+      a.ntiles != (int)((a.R + TILE - 1) / TILE) || a.K < 1 ||
+      (a.D > 0 && (a.packed || !a.dmat || !a.pair_mask)) ||
+      (!a.packed && !a.svals) || a.vg_span < 0 ||
+      (a.vg_span & (a.vg_span - 1)) ||
+      a.nzero < (long long)(a.S + 1) * a.L + (long long)a.S * a.K + 1 +
+                    a.ntiles)
     return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(a.desc, s);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(
-      a.sums, 0, (size_t)(a.S + 1) * a.L * sizeof(unsigned long long), s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(a.keys_tbl, 0, (size_t)a.S * a.K * sizeof(long long),
-                        s);
+  err = cudaMemsetAsync(a.zero, 0, (size_t)a.nzero * sizeof(long long), s);
   if (err != cudaSuccess) return err;
   const long long mmn = (long long)a.S * a.H;
   if (mmn > 0) {
@@ -393,12 +633,6 @@ extern "C" int segment_reduce(const SegmentReduceArgs* args, int grid,
         a.mins, a.maxs, mmn);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  gather_kernel<<<grid, THREADS, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  count_tiles<<<a.ntiles, THREADS, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_tiles<<<1, SCAN_THREADS, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_kernel<<<a.ntiles, THREADS, 0, s>>>(a);
+  segment_kernel<<<a.ntiles, THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

@@ -37,11 +37,24 @@ the kernel's), and behind a sleep kernel long enough that the host has
 queued them all before the first starts ("device", the kernels' own
 time).
 
+K6 and K8 (both roots): K6's id mode at row 9's shape (128 blocks of
+65,536 str ids) and its value mode on the same rows as int32 deltas;
+K8 at path 2's shape (two unpacked int64 lanes, about 72,576 groups),
+path 1's (an int32 packed key and a min/max lane), the distinct pairs'
+(K + D = 3 lanes) and the cache-group form's.  `--only K6,K8` (before
+the roots) times only the runs whose label starts with one of the
+prefixes.
+
 Trace (`--trace ROOT`): the atomic instructions each kernel of the
 root's dense_scan and topk_rows libraries compiled to (cuobjdump -sass:
 a 64-bit shared atomicAdd is a CAS spin loop, ATOMS.CAST.SPIN.64), and
 the live-gid span and distinct gids of each 8,192-row chunk in the three
-config-4 layouts that the kernel runs time.
+config-4 layouts that the kernel runs time; then each K6 and K8 run's
+wall and device times and its device work a call as torch.profiler
+records it (each kernel, copy and memset with its count and device
+time), and for K8 its groups, how often a sorted row's source row shares
+its predecessor's 32-byte sector, and the 4,096-row tile edges that cut
+a segment.
 
 Walls (`--walls`): builds chip_smoke.py's uptime table (8,388,608 rows,
 bench.py's generator and seed) under DIR unless it is there, then for
@@ -91,7 +104,7 @@ def _ms(fn, iters=20, queued=False):
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(root: str) -> str:
+def time_kernels(root: str, only=()) -> str:
     import numpy as np
     import torch
 
@@ -209,6 +222,11 @@ def time_kernels(root: str) -> str:
                                    "mesh.py")):
         runs += k16_runs(dev)
         runs += c4_runs(scan, dev) + k12_runs(scan, dev)
+    runs += k6_runs(dev) + k8_runs(scan, dev)
+    if only:
+        runs = tuple(r for r in runs
+                     if any(r[0].split(": ")[-1].startswith(o)
+                            for o in only))
     return "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"
@@ -346,6 +364,96 @@ def k12_runs(scan, dev) -> tuple:
     return out
 
 
+def k6_runs(dev, B: int = 128) -> tuple:
+    """K6 at row 9's shape: 128 blocks of 65,536 str ids (6,000 distinct,
+    about half the rows valid) in its id mode, and the same rows as int32
+    deltas in its value mode (config 4's time column is int32 deltas)."""
+    import torch
+
+    from sybil_tpu_torch.ops import decode
+    C = 65536
+    g = torch.Generator(dev).manual_seed(6)
+    ids = torch.randint(0, 6000, (B, C), dtype=torch.int32, device=dev,
+                        generator=g)
+    bits = torch.randint(0, 256, (B, C // 8), dtype=torch.uint8,
+                         device=dev, generator=g)
+    bases = torch.randint(0, 1 << 40, (B,), device=dev, generator=g)
+    src = torch.arange(B, dtype=torch.int32, device=dev)
+    return ((f"K6 id mode, {B} blocks of {C} str ids", 20,
+             lambda: decode.decode_ids(ids, bits, src, C)),
+            (f"K6 value mode, {B} blocks of {C} int32 deltas", 20,
+             lambda: decode.decode_value(ids, bits, bases, src, C)))
+
+
+def k8_runs(scan, dev, B: int = 128) -> tuple:
+    """K8 at the main path's shapes, each after its K7 and sorts: path 2
+    (config 4 at 300 s buckets: time bucket and action as two unpacked
+    int64 lanes, avg weight, about 72,576 groups; the rows time-sorted
+    in 1,000,000-row runs as bulk ingests write them), path 1 (config
+    3 -tdigest: status eq 200, an int32 packed host key, value-identity
+    buckets of ping, so one min/max lane), the distinct pairs (group by
+    host, distinct status, ping: K + D = 3 unpacked lanes) and the
+    cache-group form (path 1's filter, unpacked, the cache-group key of
+    8 groups of 16 blocks ahead of host)."""
+    import dataclasses
+
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(8)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    now, month = 1_755_000_000, 4 * 7 * 86400
+    t = now - torch.randint(0, month, (R,), device=dev, generator=g)
+    for lo in range(0, R, 1_000_000):
+        t[lo:lo + 1_000_000] = torch.sort(t[lo:lo + 1_000_000])[0]
+    c4 = {"time": (t.reshape(B, C), valid),
+          "action": (torch.randint(0, 9, (B, C), device=dev, generator=g),
+                     valid),
+          "weight": (torch.tensor([1, 10, 100], device=dev)[torch.randint(
+              0, 3, (B, C), device=dev, generator=g)], valid)}
+    p2 = scan.ScanConfig(
+        group_cols=("action",), aggs=(scan.AggSpec("weight", 0, 0, 0, 1,
+                                                   100),),
+        filters=(), time_col="time", force_sorted=True, time_i32=True,
+        agg_vbias=(1,))
+
+    def col(v, p_valid):
+        return v.reshape(B, C), (torch.rand((B, C), device=dev, generator=g)
+                                 < p_valid)
+
+    up = {"host": col(torch.randint(0, 5, (R,), device=dev, generator=g),
+                      0.93),
+          "ping": col((torch.randn(R, device=dev, generator=g) * 20 + 60)
+                      .abs().to(torch.int64), 0.89),
+          "status": col(torch.randint(0, 5, (R,), device=dev, generator=g),
+                        1.0)}
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    status = (scan.FilterSpec("status", "eq", "str"),)
+    p1 = scan.ScanConfig(
+        group_cols=("host",), aggs=(scan.AggSpec("ping", 0, 1, 202, 0,
+                                                 200),),
+        filters=status, key_bounds=((0, 5),), force_sorted=True,
+        sort_pack=((0, 5),))
+    pairs = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
+                            distinct_cols=("status", "ping"),
+                            force_sorted=True)
+    cg = dataclasses.replace(p1, group_cols=("__cg__", "host"), sort_pack=(),
+                             key_bounds=((0, B // 16), (0, 5)), vg_span=16)
+    out = ()
+    for label, cfg, cols, fv_, tb in (
+            ("path 2 (two unpacked int64 lanes)", p2, c4, None, 300),
+            ("path 1 (int32 packed key, a min/max lane)", p1, up, fv, 1),
+            ("the distinct pairs (K + D = 3 lanes)", pairs, up, None, 1),
+            ("the cache-group form (unpacked)", cg, up, fv, 1)):
+        front = scan.sorted_front(cfg, cols, nrec, fv_, (), tb)
+        order = scan.sort_rows(cfg, front)
+        out += ((f"K8 at {label}", 20,
+                 lambda cfg=cfg, cols=cols, front=front, order=order, tb=tb:
+                 scan.segment_reduce(cfg, cols, front, order, tb)),)
+    return out
+
+
 def trace(root: str) -> str:
     """The root's K2 and K12 libraries' atomics by kernel, and config
     4's chunk spans."""
@@ -395,6 +503,31 @@ def trace(root: str) -> str:
                    f"of {gid.shape[0]} wider than 4,096; distinct gids a "
                    f"chunk (every 64th) median "
                    f"{distinct.float().median().item():.0f}")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    for what, n, fn in k6_runs(dev) + k8_runs(scan, dev):
+        out.append(f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
+                   f"{_ms(fn, n, queued=True):.4f} ms device; "
+                   f"{chip_smoke.profiled_kernels(fn)}")
+        if not what.startswith("K8"):
+            continue
+        # the sorted rows' gathers: how often a row's source row shares
+        # its predecessor's 32-byte sector (int32 and int64 columns), and
+        # the segments a 4,096-row tile holds or cuts
+        _, _, front, order, _ = fn.__defaults__
+        perm = scan.sorted_perm(order)
+        k8 = fn()
+        gid = k8["gid"].to(torch.int64)
+        R = gid.numel()
+        edges = torch.arange(4096, R, 4096, device=gid.device)
+        cut = (gid[edges] == gid[edges - 1]).sum().item()
+        out.append(
+            f"{root}: {what}: {int(k8['num_groups'].item())} groups; "
+            f"source row in its predecessor's sector: int32 "
+            f"{(perm[1:] // 8 == perm[:-1] // 8).float().mean().item():.3f}"
+            f", int64 "
+            f"{(perm[1:] // 4 == perm[:-1] // 4).float().mean().item():.3f};"
+            f" {cut} of {edges.numel()} tile edges cut a segment")
     return "\n".join(out)
 
 
@@ -475,8 +608,11 @@ def time_walls(root: str, table_dir: str, n: int = 15) -> str:
 
 
 def main(argv: list[str]) -> int:
+    only = ()
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = tuple(argv[1].split(",")), argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(time_kernels(os.path.abspath(argv[1])), flush=True)
+        print(time_kernels(os.path.abspath(argv[1]), only), flush=True)
         return 0
     if len(argv) == 2 and argv[0] == "--trace":
         print(trace(os.path.abspath(argv[1])), flush=True)
@@ -500,7 +636,9 @@ def main(argv: list[str]) -> int:
         # one process per root: each imports its own package
         cmd = ([sys.executable, os.path.abspath(__file__), "--one-walls",
                 root, table_dir] if walls else
-               [sys.executable, os.path.abspath(__file__), "--one", root])
+               [sys.executable, os.path.abspath(__file__),
+                *(["--only", ",".join(only)] if only else []), "--one",
+                root])
         subprocess.run(cmd, check=True)
     return 0
 

@@ -10,8 +10,10 @@ K1 decode_bucket2  bucket containers, both layouts: v2 (within-segment
                    posting deltas + per-segment first-row bases) and v1
                    (cross-segment deltas + one id_base per block)
 K6 decode_value    value containers: int64 cumsum of the deltas + the
-                   block's base; str-value containers: widened int32
-                   dict ids; validity bit-unpacked in both modes
+                   block's base; str-value containers (a str column past
+                   CARDINALITY_THRESHOLD distinct values a block):
+                   widened int32 dict ids, in a kernel of their own;
+                   validity bit-unpacked in both modes
 
 Every kernel writes int64 values and bool validity straight into the
 rows of the [B, C] batch that hold its blocks, through a row -> block
@@ -296,17 +298,27 @@ def _launch_k6(ids_mode: bool, lanes, bits, bases, src_of_row, C: int, out):
     values, valid = _outputs(out, B, C, dev)
     if B == 0:
         return values, valid
-    fn = kernels.lib("decode_value").decode_value
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    kernels.check(fn(lanes.data_ptr(), _TORCH_CODE[lanes.dtype],
-                     int(ids_mode), bits.data_ptr(),
-                     0 if ids_mode else bases.data_ptr(),
-                     src_of_row.data_ptr(), values.data_ptr(),
-                     valid.data_ptr(), B, C, kernels.stream_handle(dev)),
-                  kernel)
+    if ids_mode:
+        # the id mode's 16-byte loads and stores
+        if (lanes.data_ptr() | values.data_ptr()) % 16 \
+                or valid.data_ptr() % 4:
+            raise ValueError("decode_ids: ids and values must be 16-byte "
+                             "aligned, valid 4-byte aligned")
+        fn = kernels.entry("decode_value", "decode_ids",
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+        rc = fn(lanes.data_ptr(), bits.data_ptr(), src_of_row.data_ptr(),
+                values.data_ptr(), valid.data_ptr(), B, C,
+                kernels.stream_handle(dev))
+    else:
+        fn = kernels.entry("decode_value", "decode_value",
+                           [ctypes.c_void_p, ctypes.c_int]
+                           + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+        rc = fn(lanes.data_ptr(), _TORCH_CODE[lanes.dtype], bits.data_ptr(),
+                bases.data_ptr(), src_of_row.data_ptr(), values.data_ptr(),
+                valid.data_ptr(), B, C, kernels.stream_handle(dev))
+    kernels.check(rc, kernel)
     kernels.LAUNCHES["decode_value"] += 1
     return values, valid
 
@@ -337,7 +349,10 @@ def decode_ids(ids, bits, src_of_row, C: int, out=None):
     in its id mode; CPU tensors take decode_ids_plain.
 
     Replaces sybil_tpu/ops/decode.py:_decode_ids_jit and its reassembly
-    gather."""
+    gather.  Bound by memory (4 B of ids and 1/8 B of bits read, 9 B
+    written an entry); a flat grid over quads of the output, a 16-byte
+    load of ids and 16-byte stores of values a quad (see the source
+    note)."""
     if ids.device.type == "cpu":
         return decode_ids_plain(ids, bits, src_of_row, C, out)
     if ids.device.type != "cuda":

@@ -2306,18 +2306,21 @@ def sort_rows(config: ScanConfig, front: dict) -> dict:
     least significant up, each on the lane permuted by the sorts so far
     (sort_permute), which gives lax.sort's order, ties in row order.
     -> {"skey": the sorted packed key or None, "p": the last sort's
-    indices int64 [R], "base": the permutation before it or None}; row
+    indices int64 [R], "base": the permutation before it or None,
+    "svals": without a packed key, the last sort's sorted values (lane
+    0 in sorted order, which K8 reads instead of gathering it), else
+    None}; row
     i of the sorted order is base[p[i]] (p[i] without a base)."""
     if front["key"] is not None:
         skey, p = torch.sort(front["key"], stable=True)
-        return {"skey": skey, "p": p, "base": None}
+        return {"skey": skey, "p": p, "base": None, "svals": None}
     keys = front["keys"]
-    _, p = torch.sort(keys[-1], stable=True)
+    svals, p = torch.sort(keys[-1], stable=True)
     base = None
     for k in range(keys.shape[0] - 2, -1, -1):
         base, g = sort_permute(base, p, keys[k])
-        _, p = torch.sort(g, stable=True)
-    return {"skey": None, "p": p, "base": base}
+        svals, p = torch.sort(g, stable=True)
+    return {"skey": None, "p": p, "base": base, "svals": svals}
 
 
 def sorted_perm(order: dict):
@@ -2328,10 +2331,10 @@ def sorted_perm(order: dict):
 class SegmentReduceArgs(ctypes.Structure):
     """Mirror of struct SegmentReduceArgs in csrc/segment_reduce.cu."""
     _fields_ = [("desc", Desc)] + _ptr_fields(
-        "p", "base", "idxm", "skey", "keys", "key_vals", "key_valid",
-        "pack_min", "pack_card", "t_vals", "agg_vals", "agg_valid",
-        "agg_dmin", "agg_dmax", "agg_bias", "agg_mm", "w_vals", "w_valid",
-        "kmat", "dmat", "pair_mask") + [
+        "p", "base", "idxm", "skey", "keys", "svals", "key_vals",
+        "key_valid", "pack_min", "pack_card", "t_vals", "agg_vals",
+        "agg_valid", "agg_dmin", "agg_dmax", "agg_bias", "agg_mm", "w_vals",
+        "w_valid", "kmat", "dmat", "pair_mask") + [
         ("sidxm", ctypes.c_void_p),
         ("gid", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
@@ -2339,7 +2342,10 @@ class SegmentReduceArgs(ctypes.Structure):
         ("maxs", ctypes.c_void_p),
         ("keys_tbl", ctypes.c_void_p),
         ("num_groups", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
+        ("status", ctypes.c_void_p),
+        ("zero", ctypes.c_void_p),
+        ("nzero", ctypes.c_longlong),
+        ("paths", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
@@ -2361,6 +2367,10 @@ class SegmentReduceArgs(ctypes.Structure):
 
 
 _SEG_TILE = 4096               # rows per CTA of the tile scans (TILE)
+_K8_TILE = 1024                # rows per CTA of segment_reduce.cu (TILE)
+# the paths segment_reduce's `paths` counts, in order
+SEGMENT_PATHS = ("look-back past one tile", "look-back past 32 tiles",
+                 "cut segment", "carried run")
 
 
 def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
@@ -2443,8 +2453,12 @@ def segment_reduce_plain(config: ScanConfig, cols, front: dict, order: dict,
 
 
 def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
-                   time_bucket: int = 1):
-    """K8: as segment_reduce_plain.  CUDA tensors launch the kernel
+                   time_bucket: int = 1, paths=None):
+    """K8: as segment_reduce_plain.  paths: an int64 [4] CUDA tensor to
+    which the kernel adds the tiles whose look-back read more than one
+    predecessor, or more than 32, the tiles whose first row continues a
+    segment, and the warps that carried a run from lane to lane
+    (SEGMENT_PATHS), or None.  CUDA tensors launch the kernel
     (csrc/segment_reduce.cu); CPU tensors take the plain version.
 
     Replaces sybil_tpu/ops/scan.py:_scan_sorted 1106-1233: the sorted
@@ -2455,9 +2469,12 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
     aggregations' scatter min/max, kmat, and the distinct pairs' mask and
     sorted keys (1191-1198); a group scan's cache-group lane rides in
     K7's lanes, and a packed key's column reads make it from the row
-    index.  Bound by memory (random
-    gathers of the columns at the sorted rows); a tile scan for the gid,
-    and one atomic per warp run of equal gids (see the source note)."""
+    index.  order["svals"] (sort_rows') is lane 0 in sorted order, so
+    unpacked keys gather one lane fewer.  Bound by memory (random gathers
+    of the columns at the sorted rows); one launch after one memset: a
+    CTA a tile gathers its rows and finds their boundaries in registers,
+    takes its gid prefix by a decoupled look-back, and adds a segment's
+    lanes once per warp (see the source note)."""
     dev = front["idxm"].device
     if dev.type == "cpu":
         return segment_reduce_plain(config, cols, front, order, time_bucket)
@@ -2494,6 +2511,12 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
         _check_tensor(front["keys"], (K + D, R), torch.int64, "keys", dev,
                       "segment_reduce")
         a.keys = front["keys"].data_ptr()
+        if order.get("svals") is None:
+            raise ValueError("segment_reduce: unpacked keys need the last "
+                             "sort's values, order['svals'] (sort_rows)")
+        _check_tensor(order["svals"], (R,), torch.int64, "svals", dev,
+                      "segment_reduce")
+        a.svals = order["svals"].data_ptr()
     kernel_lead(config, "segment_reduce")
     groups = key_columns(config)
     for name in (*groups, *(g.col for g in config.aggs)):
@@ -2517,11 +2540,16 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
         v, m = _check_col(cols, config.weight_col, B, C, dev,
                           "segment_reduce")
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
-    ntiles = -(-R // _SEG_TILE)
-    out = {"sums": torch.empty((S + 1, L), dtype=torch.int64, device=dev),
+    ntiles = -(-R // _K8_TILE)
+    # one block for the memset: the sums, the key table (0 past
+    # num_groups), the look-back's ticket and a status word a tile
+    n_sums, n_keys = (S + 1) * L, S * K
+    zero = torch.empty(n_sums + n_keys + 1 + ntiles, dtype=torch.int64,
+                       device=dev)
+    out = {"sums": zero[:n_sums].view(S + 1, L),
            "mins": torch.empty((S, H), dtype=torch.int64, device=dev),
            "maxs": torch.empty((S, H), dtype=torch.int64, device=dev),
-           "keys": torch.empty((S, K), dtype=torch.int64, device=dev),
+           "keys": zero[n_sums:n_sums + n_keys].view(S, K),
            "kmat": torch.empty((R, K), dtype=torch.int64, device=dev),
            "sidxm": torch.empty(R, dtype=torch.int32, device=dev),
            "gid": torch.empty(R, dtype=torch.int32, device=dev),
@@ -2532,20 +2560,24 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
         out["pair_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
         a.dmat, a.pair_mask = (out["dmat"].data_ptr(),
                                out["pair_mask"].data_ptr())
-    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
     a.kmat, a.sidxm = out["kmat"].data_ptr(), out["sidxm"].data_ptr()
     a.gid, a.sums = out["gid"].data_ptr(), out["sums"].data_ptr()
     a.mins, a.maxs = out["mins"].data_ptr(), out["maxs"].data_ptr()
     a.keys_tbl = out["keys"].data_ptr()
-    a.num_groups, a.offsets = out["num_groups"].data_ptr(), offsets.data_ptr()
+    a.num_groups = out["num_groups"].data_ptr()
+    a.zero, a.nzero = zero.data_ptr(), zero.numel()
+    if paths is not None:
+        _check_tensor(paths, (len(SEGMENT_PATHS),), torch.int64, "paths",
+                      dev, "segment_reduce")
+        a.paths = paths.data_ptr()
+    a.status = zero[n_sums + n_keys:].data_ptr()
     a.R = R
     a.S, a.L, a.H, a.K, a.D = S, L, H, K, D
     a.ngroups, a.naggs, a.ntiles = len(groups), A, ntiles
-    fn = kernels.lib("segment_reduce").segment_reduce
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
-                     kernels.stream_handle(dev)), "segment_reduce")
+    fn = kernels.entry("segment_reduce", "segment_reduce",
+                       [ctypes.c_void_p, ctypes.c_void_p])
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
+                  "segment_reduce")
     kernels.LAUNCHES["segment_reduce"] += 1
     return out
 

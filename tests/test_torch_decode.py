@@ -3,15 +3,21 @@
 Containers are encoded by sybil_tpu.blocks, written with sybil_tpu.codec
 and read back once; the same Container objects go through the reference's
 decode_column_batch and the port's (device="cpu", so K1's plain PyTorch
-version).  Every output is an integer or a bool: equality is exact."""
+version).  K6's id mode also runs chip_smoke.py's K6 cases (the card
+holds the kernel to its plain version on the same cases).  Every output
+is an integer or a bool: equality is exact."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sybil_tpu import blocks as ref_blocks
 from sybil_tpu import codec as ref_codec
+from sybil_tpu.ops import decode as ref_decode_mod
 from sybil_tpu.ops.decode import decode_column_batch as ref_decode
+from sybil_tpu_torch.ops import decode as port_decode
 from sybil_tpu_torch.ops.decode import decode_bucket2, decode_column_batch
 
 
@@ -237,3 +243,32 @@ def test_decode_wrapper_takes_plain_version_on_cpu():
                           torch.zeros((1, 8), dtype=torch.int32),
                           torch.tensor([0, -1], dtype=torch.int32), 128)
     assert v.shape == (2, 128) and not m.any() and not v.any()
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K6_CASES))
+def test_id_mode_case_matches_reference(name):
+    """K6's id mode on chip_smoke.py's K6 cases (the card runs the same
+    cases through the kernel): decode_ids_plain against _decode_ids_jit
+    on the case's str-id batch, and the whole column batch, -1 and -2
+    rows and a value-mode launch included, against the reference's
+    reassembly.  Tolerance 0."""
+    containers, C = chip_smoke.k6_case(name)
+    kinds, _ = port_decode.classify_containers(containers, C)
+    idx = [i for i, k in enumerate(kinds) if k == "str_value"]
+    ids, bits = port_decode.ids_batch(containers, idx, C)
+    rv, rm = ref_decode_mod._decode_ids_jit(C, jnp.asarray(ids),
+                                            jnp.asarray(bits))
+    src = torch.arange(len(idx), dtype=torch.int32)
+    pv, pm = port_decode.decode_ids_plain(torch.from_numpy(ids),
+                                          torch.from_numpy(bits), src, C)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
+    rv, rm, rn = ref_decode(containers, C)
+    pv, pm, pn = decode_column_batch(containers, C, "cpu")
+    assert pn == rn
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
+    if name == "negative ids":
+        assert (pv.numpy() < 0).any()
+    if name == "all rows invalid":
+        assert not pm.numpy().any()

@@ -5,7 +5,8 @@ Scan level: the same numpy batch goes through sybil_tpu.ops.scan.
 scan_packed_jit and sybil_tpu_torch.ops.scan.scan_packed (CPU tensors);
 the packed `main` buffer, the keyed group table and the raw arrays that
 escalation fetches (the sparse hist pairs, the outlier mask and values,
-the sorted keys) must agree word for word.
+the sorted keys) must agree word for word.  K8 alone: segment_reduce_plain
+against _scan_sorted on chip_smoke.py's K8 cases.
 
 Query level: small tables answer -tdigest, a rollup past
 DENSE_WINDOW_SLOT_CAP, high-cardinality packed str groups with a missing
@@ -21,11 +22,13 @@ equality is exact."""
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import sybil_tpu.digest as ref_digest
 from sybil_tpu import cli as ref_cli
 from sybil_tpu.config import Flags as RefFlags
@@ -588,3 +591,102 @@ def test_config_1_past_16_blocks_with_the_default_limit(tmp_path, capsys,
         got = _cli_out(port_cli.main, argv + ["-device", "cpu"], capsys)
         assert got == want
     assert prunes == [(1000, "dense")] * 2
+
+
+# ---------------------------------------------------------------------------
+# K8 alone: segment_reduce_plain against the reference's _scan_sorted on
+# chip_smoke.py's K8 cases (the card runs the same cases through the
+# kernel): tile and warp edges, one group, a group a row, short batches,
+# groups past S, unmatched and spilled rows, the three key forms, the
+# distinct pairs, the cache-group and time keys, 17 keys and 33
+# aggregations.  Tolerance 0.
+# ---------------------------------------------------------------------------
+
+SCAN_SORTED = jax.jit(ref._scan_sorted, static_argnums=(0,))
+
+
+def _ref_config(fields):
+    f = dict(fields)
+    f["aggs"] = tuple(ref.AggSpec(**a) for a in f["aggs"])
+    f["filters"] = tuple(ref.FilterSpec(**x) for x in f["filters"])
+    return ref.ScanConfig(**f)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K8_CASES))
+def test_segment_reduce_case_matches_reference(name):
+    fields, cols, nrec, fvals, bits, tb = chip_smoke.k8_case(name)
+    cfg = _ref_config(fields)
+    pcfg = port.config_from_fields(fields)
+    out = SCAN_SORTED(cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+                            for k, (v, m) in cols.items()},
+                      jnp.asarray(nrec), jnp.asarray(fvals),
+                      tuple(jnp.asarray(b) for b in bits),
+                      jnp.asarray(tb, jnp.int64), {})
+    tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
+             for k, (v, m) in cols.items()}
+    front = port.sorted_front_plain(
+        pcfg, tcols, torch.from_numpy(nrec), torch.from_numpy(fvals),
+        tuple(torch.from_numpy(b) for b in bits), tb)
+    k8 = port.segment_reduce_plain(pcfg, tcols, front,
+                                   port.sort_rows(pcfg, front), tb)
+    S = pcfg.max_groups
+    sums = k8["sums"].numpy()
+    assert int(k8["num_groups"][0]) == int(out["num_groups"])
+    np.testing.assert_array_equal(k8["keys"].numpy(), np.asarray(out["keys"]))
+    np.testing.assert_array_equal(sums[:S, 0], np.asarray(out["count"]))
+    np.testing.assert_array_equal(sums[:S, 1], np.asarray(out["samples"]))
+    assert not sums[S].any()
+    hist = port.hist_aggs(pcfg)
+    for ai in range(len(pcfg.aggs)):
+        for j, key in enumerate(("exists", "count", "wv")):
+            got = sums[:S, 2 + 3 * ai + j]
+            np.testing.assert_array_equal(
+                got > 0 if key == "exists" else got,
+                np.asarray(out[f"agg{ai}_{key}"]), err_msg=key)
+        if ai in hist:
+            for key in ("min", "max"):
+                np.testing.assert_array_equal(
+                    k8[key + "s"][:, hist.index(ai)].numpy(),
+                    np.asarray(out[f"agg{ai}_{key}"]), err_msg=key)
+    if pcfg.track_outliers:
+        np.testing.assert_array_equal(k8["kmat"].numpy(),
+                                      np.asarray(out["sorted_gkeys"]))
+    if pcfg.distinct_cols:
+        np.testing.assert_array_equal(k8["pair_mask"].numpy(),
+                                      np.asarray(out["pair_mask"]))
+        np.testing.assert_array_equal(
+            torch.cat([k8["kmat"], k8["dmat"]], dim=1).numpy(),
+            np.asarray(out["sorted_keys"]))
+    # each case reaches the edge it is named for
+    gid = k8["gid"].numpy()
+    R = gid.size
+    tile = port._K8_TILE
+    edges = np.arange(tile, R, tile)
+    if name in ("segments across tile and warp edges",
+                "one segment across several tiles"):
+        assert (gid[edges] == gid[edges - 1]).any()
+    if name == "one segment across several tiles":
+        assert np.bincount(gid).max() > 2 * tile
+    if name == "one group":
+        assert int(k8["num_groups"][0]) == 1
+    if name == "every row its own group":
+        assert int(k8["num_groups"][0]) == R
+    if name.startswith("R "):
+        assert R % tile
+    if name == "groups past S":
+        assert int(k8["num_groups"][0]) > S
+    if name.startswith("unmatched"):
+        assert int(front["spill"].sum()) > 0
+        assert (k8["sidxm"].numpy() >= 0).any()
+    if name == "packed int64 key":
+        assert order_dtype(pcfg) == torch.int64
+    if name == "pair and group starts on tile edges":
+        pm = k8["pair_mask"].numpy()
+        assert pm[2048] and pm[4096] and pm[6144] and gid[2048] == gid[2047]
+        assert gid[4096] == gid[4095] + 1
+    if name == "17 keys and 33 aggregations":
+        assert pcfg.n_key_cols == 17 and len(pcfg.aggs) == 33
+
+
+def order_dtype(pcfg):
+    return port.pack_sentinel(pcfg)[1]
