@@ -70,7 +70,8 @@ Phases (any failure exits non-zero before the result lines):
      keys with a weight column, mean scores with and without a value
      bias, every row unmatched), K12 alone on tie pile-ups, -inf ties,
      int64 scores and k = R, and the sorted strategy's device prune (K10's
-     prune form, K12 over the slots, prune_gather) on config 5's batch.
+     prune form, then K12 over the slots and its gather in one call,
+     prune_topk_gather) on config 5's batch.
      Then count distinct: K13 hll_registers and K3's HLL sections on the
      uptime batch (group by host, distinct index_int: the int hash; by
      host, distinct status: a str column's hash array, the reference's
@@ -110,7 +111,7 @@ Phases (any failure exits non-zero before the result lines):
      -prune-sort weight form (the printed users are numpy's top 100 by
      the f32 mean score) and a 4-batch form; the sorted device prune
      (one user's rows of partition 1 grouped by the second: K7, K8,
-     K10, K12 and prune_gather once, the 100 busiest seconds in order
+     K10, K12 and its gather once, the 100 busiest seconds in order
      against numpy); count distinct: -group host -distinct index_int and
      -distinct status (K13 once), -group host,status -op distinct (D = 2
      pairs) and config 5's partition 1 -group userid -distinct weight
@@ -153,14 +154,19 @@ Phases (any failure exits non-zero before the result lines):
      shuffle_unpack, K12's two-valued form, K3's keyed form and K10 on
      the merged table each held to its plain version bit for bit, then
      cold and five warm walls beside five unsharded warm walls, the
-     launches per mesh query (K15, K16 and the shard scans once per
-     shard, the unpack and the pack once), every answer equal to the
+     launches per mesh query (K16 and the shard scans once per shard,
+     K15 once over all shards, the unpack and the pack once), every
+     answer equal to the
      unsharded one (config 5: the printed counts, each kept user's count
      and mean against numpy) and to numpy's where the earlier phases have
      one (configs 1 and 4, path 2, S1); then the exchange over an NCCL
      process group of world size 1 against the local exchange: config 3
      -loghist's and path 2's whole sharded scans, packed word for word,
-     and a random buffer through all_to_all and all_gather; K16's corner
+     and a random buffer through all_to_all and all_gather; K15's corner
+     cases (k15_edge_checks: a shard with no live row, overflow, D = 1,
+     D = 6, 2 of 8 shards, multi-tile dense and sorted tables, int64
+     keys whose halves both matter) held shard by shard to its plain
+     version word for word; K16's corner
      cases (k16_case_rows: no live row, one key, INT64_MAX keys tied
      with dead rows, segments past the cap, MISSING keys, a 5,000-row
      segment, path 2's 201,024-row owner with a segment across tiles,
@@ -208,7 +214,9 @@ Phases (any failure exits non-zero before the result lines):
      beside its plain version and two index_add_ passes, K2 at S1's shape
      and K7 at S3's and S4b's with and without the set filter and mask;
      the cache-group forms of K2, K8 and K5 beside their torch calls;
-     K15 at config 3 -loghist's and path 2's shard, K16's entries at one
+     K15 over config 3 -loghist's and path 2's 8 shards (one call, beside
+     the argsort and index_copy_ over the same shards; queued, with its
+     device launches), K16's entries at one
      owner, the owner's sorts, K12's compaction (also at config 5
      partition 1's, 2^18 group rows; queued, with its device launches)
      and the unpack at both,
@@ -256,7 +264,7 @@ KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
 # the launch-counted wrappers: each source's, and those of a source's
 # other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
-                 "prune_gather": "sorted_pack",
+                 "prune_gather": "topk_rows",
                  "shuffle_keys": "shuffle_reduce",
                  "shuffle_unpack": "shuffle_reduce",
                  "dense_keyed": "dense_pack"}
@@ -1399,16 +1407,16 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
     check_outs("sorted_pack", what, k10, k10p, ("table", "score"), errs)
     table = k10["table"]
     if k10["score"] is not None:
-        # the device prune: K12 over the slots' scores, then the gather
+        # the device prune: K12 over the slots' scores, then the gather,
+        # in one call
         P = scan.table_prefix(cfg)
-        pidx = scan.topk_rows(k10["score"], P)
+        pidx, table = scan.prune_topk_gather(cfg, k10["score"], table, main)
+        want_pidx = scan.topk_rows_plain(k10["score"], P)
         check_equal(f"topk_rows {what} (prune, {k10['score'].dtype} [{S}])",
-                    pidx, scan.topk_rows_plain(k10["score"], P),
-                    errs["topk_rows"])
-        table = scan.prune_gather(cfg, table, pidx, main)
+                    pidx, want_pidx, errs["topk_rows"])
         check_equal(f"prune_gather {what} table", table,
-                    scan.prune_gather_plain(cfg, k10p["table"], pidx, main_p),
-                    errs["prune_gather"])
+                    scan.prune_gather_plain(cfg, k10p["table"], want_pidx,
+                                            main_p), errs["prune_gather"])
     check_equal(f"sorted_pack {what} main", main, main_p,
                 errs["sorted_pack"])
     packed, raw = scan.scan_packed(cfg, cols, nrec, fv, bits, tb, set_aux)
@@ -4106,14 +4114,153 @@ def k12_edge_checks(card, device, errs, shapes) -> None:
         f"flag sets, device launches a call: " + "; ".join(lines))
 
 
+def k15_check(what, config, parts, D, Sc, send, stats, before, errs):
+    """K15's one call over the shards `parts` (send [Dl, D, Sc, WP] and
+    the statistics rows it wrote, `before` them) held to the plain
+    version shard by shard, bit for bit."""
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    if tuple(send.shape[:3]) != (len(parts), D, Sc):
+        fail(f"{what}: send buffers of shape {tuple(send.shape)}")
+    for d, part in enumerate(parts):
+        want, st = torch.empty_like(send[d]), before[d].clone()
+        mesh.shuffle_partition_plain(config, part, D, Sc, want, st)
+        w = (f"{what} ({config.strategy}, shard {d} of {len(parts)}, D {D}, "
+             f"Sc {Sc})")
+        check_equal(w + " send", send[d], want, errs["shuffle_partition"])
+        check_equal(w + " stats", stats[d, 1:], st[1:],
+                    errs["shuffle_partition"])
+
+
+# K15's corner cases: name -> (the table's scan config fields, local
+# shards Dl, shards D, per-owner capacity (None: shuffle_caps'), live
+# rows ("first n" as K8 writes them, "scattered" at a rate, shard 3 of a
+# case "empty" has none))
+K15_AVG = ("weight", dict(hist_min=0, bucket_size=1, num_values=0,
+                          discard_min=-10 ** 9, discard_max=10 ** 9))
+K15_CASES = {
+    "one tile, a shard with no live row": (
+        K16_SHAPES["wide"], 8, 8, None, "empty"),
+    "a time key, overflow (Sc 4)": (
+        dict(group_cols=("host",), aggs=(K15_AVG,), filters=(),
+             time_col="time", key_bounds=((0, 10), (0, 5))), 8, 8, 4, 0.9),
+    "D = 1": (dict(K16_SHAPES["narrow"], max_groups=3000), 1, 1, None,
+              "first"),
+    "D = 6": (K16_SHAPES["wide"], 6, 6, None, 0.8),
+    "2 of 8 shards, three keys, MISSING": (
+        dict(K16_SHAPES["three keys"], max_groups=5000), 2, 8, None,
+        "first"),
+    "dense, 4 tiles, compact": (
+        dict(group_cols=("host",), aggs=(K15_AVG,), filters=(),
+             key_bounds=((0, 4000),)), 8, 8, None, 0.5),
+    "path 2's table, int64 keys, rows in every tile": (
+        K16_SHAPES["narrow"], 8, 8, None, 0.1),
+    "path 2's table, overflow": (K16_SHAPES["narrow"], 8, 8, 1000, 0.3),
+    "sorted, a histogram's min and max": (
+        dict(K16_SHAPES["wide"], force_sorted=True, max_groups=2000), 8, 8,
+        None, 0.6),
+}
+
+
+def k15_case_parts(case: str, device, seed: int = 15):
+    """One K15 corner case's scan config and its Dl shards' tables as
+    scan_core returns them (random lanes, min/max and bucket rows; sorted
+    keys over the whole int64 range with MISSING, so both halves of a key
+    move its owner) -> (config, parts, D, Sc, time bucket)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    fields, Dl, D, Sc, live = K15_CASES[case]
+    o = dict(fields)
+    o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+    config = scan.ScanConfig(no_compact_table=True, **o)
+    Seff, caps = mesh.shuffle_caps(config, D)
+    K, A = config.n_key_cols, len(config.aggs)
+    L, H = 2 + 3 * A, len(scan.hist_aggs(config))
+    g = torch.Generator(device=device).manual_seed(seed)
+    dense = config.strategy == "dense"
+    rows = scan.reduce_space(config)[1] if dense else Seff
+    tb = 500
+
+    def rand(*shape, lo=-10 ** 6, hi=10 ** 6):
+        return torch.randint(lo, hi, shape, generator=g, device=device)
+
+    parts = []
+    for d in range(Dl):
+        if live == "first":
+            on = torch.arange(rows, device=device) < (d + 1) * rows // (
+                Dl + 1)
+        elif live == "empty":
+            on = torch.full((rows,), d != 3, device=device)
+        else:
+            on = torch.rand(rows, generator=g, device=device) < live
+        sums = rand(rows + (0 if dense else 1), L)
+        sums[:rows, :2] = torch.where(on[:, None], rand(rows, 2, lo=0,
+                                                         hi=100), 0)
+        sums[:rows, 0] = torch.where(on & (sums[:rows, 0] == 0) & (
+            sums[:rows, 1] == 0), 1, sums[:rows, 0])
+        tab = {"sums": sums, "mins": rand(rows, H), "maxs": rand(rows, H)}
+        nouts = [rand(1, lo=0, hi=50) for _ in range(H)]
+        part = {"strategy": config.strategy, "nouts": nouts, "dev": device,
+                "raw": {"time_bucket": tb}}
+        if dense:
+            tab["spill"] = rand(1, lo=0, hi=9)
+            part.update(k2=tab, hists=[rand(rows, config.aggs[ai].num_values,
+                                            lo=0, hi=10 ** 4)
+                                       for ai in scan.hist_aggs(config)])
+        else:
+            keys = torch.randint(-2 ** 63, 2 ** 63 - 1, (rows, K),
+                                 generator=g, device=device)
+            keys[rand(rows, K, lo=0, hi=10) == 0] = -1
+            tab["keys"] = keys
+            part.update(k8=tab, spill=rand(1, lo=0, hi=9),
+                        pairs=[{"npairs": rand(1, lo=0, hi=50)}
+                               for _ in range(H)] or None)
+        parts.append(part)
+    return config, parts, D, Sc or caps, tb
+
+
+def k15_edge_checks(card, device, errs) -> None:
+    """K15's corner cases (K15_CASES) through one call each on the card,
+    held shard by shard to the plain version word for word; the one-tile
+    and the look-back forms and overflow must each have run."""
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    t0 = time.perf_counter()
+    lines, seen = [], set()
+    for case in K15_CASES:
+        config, parts, D, Sc, _ = k15_case_parts(case, device)
+        stats = torch.zeros((len(parts), mesh.n_stats(config)),
+                            dtype=torch.int64, device=device)
+        send = mesh.shuffle_partition(config, parts, D, Sc, stats)
+        k15_check(f"K15 case {case!r}", config, parts, D, Sc, send, stats,
+                  torch.zeros_like(stats), errs)
+        Seff = mesh.shuffle_caps(config, D)[0]
+        over = int(stats[:, 2].sum().item())
+        seen.add("one tile" if Seff <= 1024 else "look-back")
+        if over:
+            seen.add("overflow")
+        lines.append(f"{case} ({config.strategy}, {len(parts)} of {D} "
+                     f"shards, {Seff} rows, Sc {Sc}, overflow {over})")
+    if seen != {"one tile", "look-back", "overflow"}:
+        fail(f"K15's corner cases ran only {sorted(seen)}")
+    say(f"[{card}] K15 == plain word for word on {len(lines)} corner "
+        "cases: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.2f} s)")
+
+
 def mesh_checked(errs, label_of):
-    """Wrap the mesh path's wrappers (K15; K16's shuffle_keys,
+    """Wrap the mesh path's wrappers (K15 over every shard; K16's
+    shuffle_keys,
     shuffle_reduce and shuffle_unpack; K12 as the mesh calls it; K3 and
     K10 on a merged table) so each call made while label_of() names a
     spec (the checked run) also runs its plain version on the same inputs
     on the card and is held to it bit for bit (errs), and keep each one's
-    arguments per spec label (the first shard's and owner's for K15 and
-    K16), with the sharded_scan calls'.  Calls while label_of() is empty
+    arguments per spec label (the first owner's for K16), with the
+    sharded_scan calls'.  Calls while label_of() is empty
     (the timed runs) go to the kernels alone.
     -> (captured {(name, label): args}, undo)."""
     import torch
@@ -4127,18 +4274,14 @@ def mesh_checked(errs, label_of):
     real_k3, real_k10 = scan.dense_pack, scan.sorted_pack
     real_k2 = scan.dense_scan
 
-    def k15(config, part, D, Sc, send, stats):
-        st = stats.clone()
-        real["shuffle_partition"](config, part, D, Sc, send, stats)
-        want = torch.empty_like(send)
-        mesh.shuffle_partition_plain(config, part, D, Sc, want, st)
-        what = f"shuffle_partition {label_of()} ({config.strategy}, D {D}, "
-        check_equal(what + f"Sc {Sc}) send", send, want,
-                    errs["shuffle_partition"])
-        check_equal(what + f"Sc {Sc}) stats", stats[1:], st[1:],
-                    errs["shuffle_partition"])
+    def k15(config, parts, D, Sc, stats):
+        before = stats.clone()
+        send = real["shuffle_partition"](config, parts, D, Sc, stats)
+        k15_check(f"shuffle_partition {label_of()}", config, parts, D, Sc,
+                  send, stats, before, errs)
         captured.setdefault(("shuffle_partition", label_of()),
-                            (config, part, D, Sc, send, stats))
+                            (config, parts, D, Sc, stats))
+        return send
 
     def k16k(config, rows):
         got = real["shuffle_keys"](config, rows)
@@ -4195,7 +4338,7 @@ def mesh_checked(errs, label_of):
         what = f"sorted_pack merged {label_of()}"
         keep = torch.ones(main.shape[0], dtype=torch.bool, device=main.device)
         if got["score"] is not None:
-            # under the device prune the prefix is prune_gather's to write
+            # under the device prune the prefix is K12's gather's to write
             keep[1:1 + scan.table_prefix(config)] = False
         check_equal(f"{what} main", main[keep], want[keep],
                     errs["sorted_pack"])
@@ -4297,7 +4440,7 @@ def mesh_phase(card, specs, errs, launches, device):
                 launches[k] += lw[k]
             per = {k: n / 5 for k, n in lw.items() if n}
             nb = sp["batches"]
-            for k, n in dict(sp["expect"], shuffle_partition=MESH_D,
+            for k, n in dict(sp["expect"], shuffle_partition=1,
                              shuffle_keys=MESH_D, shuffle_reduce=MESH_D,
                              shuffle_unpack=1).items():
                 if lw[k] != 5 * n * nb:
@@ -4334,6 +4477,7 @@ def mesh_phase(card, specs, errs, launches, device):
             if (name, sp["label"]) not in captured:
                 fail(f"mesh {sp['label']}: {name} was never checked")
     k16_edge_checks(card, device, errs)
+    k15_edge_checks(card, device, errs)
     shards = [(f"mesh {lb}, first shard", *args) for (name, lb), args in
               captured.items() if name == "dense_scan"]
     if not shards:
@@ -4430,11 +4574,98 @@ def k12_row(card, captured, label):
             R * 4 + k * 4, R * 3, lib_ms)
 
 
+def k15_row(card, config, parts, D, Sc, stats, label):
+    """K15 over a mesh query's captured batch (every shard in one call):
+    events and device time, its device launches a call (a memset and one
+    kernel; at most a memset and two above one tile), the plain version
+    and the two torch calls that place the same shards' rows (a stable
+    argsort of the owners keyed shard x (D + 1) + owner, an index_copy_
+    of the payload rows) -> the kernel table's row; per-shard figures are
+    a batch's over its shards."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.parallel import mesh
+    K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
+    Dl, Seff = len(parts), config.table_slots
+    device = stats.device
+    t0 = time.perf_counter()
+
+    def k15():
+        mesh.shuffle_partition(config, parts, D, Sc, stats)
+    dms = queued_ms(k15, iters=50)
+    nl, per = device_launches(k15)
+    most = 2 if Seff <= 1024 else 3
+    if nl is None or nl > most:
+        fail(f"K15 at {label}: {nl} device operations a call ({per}), "
+             f"more than {most}")
+    st2 = stats.clone()
+    s2 = torch.empty((Dl, D, Sc, WP), dtype=torch.int64, device=device)
+
+    def plain():
+        for d, part in enumerate(parts):
+            mesh.shuffle_partition_plain(config, part, D, Sc, s2[d], st2[d])
+    pms = cuda_ms(plain, iters=5)
+    pays, keys = [], []
+    for d, part in enumerate(parts):
+        payload, live = mesh.build_payload_plain(config, part)
+        owner = torch.where(live, mesh.mix_keys_plain(payload[:, :K]) % D,
+                            D)
+        pays.append(payload)
+        keys.append(owner + d * (D + 1))
+    payload, key = torch.cat(pays), torch.cat(keys)
+    # each shard's live rows per owner, and those placed (within Sc)
+    per_owner = torch.bincount(key, minlength=Dl * (D + 1)).view(
+        Dl, D + 1)[:, :D]
+    nlive = int(per_owner.sum().item())
+    placed = int(per_owner.clamp(max=Sc).sum().item())
+    buf = torch.zeros_like(payload)
+    dst = torch.arange(payload.shape[0], device=device)
+
+    def lib():
+        buf.index_copy_(0, dst, payload[torch.argsort(key, stable=True)])
+    # both host-bound at config 3's shape: timed in turns (K15, torch,
+    # torch, K15) twice, the median of each, as one host stall moves a
+    # single reading by tens of microseconds
+    ev = {k15: [], lib: []}
+    for fn in (k15, lib, lib, k15) * 2:
+        ev[fn].append(cuda_ms(fn, iters=50))
+    ms, lib_ms = median(ev[k15]), median(ev[lib])
+    del pays, keys, payload, buf
+    dense = config.strategy == "dense"
+    Sr = scan.reduce_space(config)[1] if dense else Seff
+    H = len(scan.hist_aggs(config))
+    # what this run's data needs: every row's count and samples words
+    # (its live test), a live row's keys (sorted: read for its owner), a
+    # placed row's other lanes, min/max and bucket rows; every send
+    # buffer and statistics word written.  Per row the live test; per
+    # live row the hash over 2K halves and the finaliser, (dense) each
+    # key's digit by a division and a modulo; a word a placed row's word
+    nbytes = (Dl * Sr * 2 * 8 + (0 if dense else nlive * K * 8)
+              + placed * (3 * A + 2 * H + nv_total) * 8
+              + Dl * (D * Sc * WP + stats.shape[1]) * 8)
+    ops = Dl * Seff * 4 + nlive * (6 * K + 6 + (60 * K if dense else 0)) \
+        + placed * WP
+    say(f"[{card}] shuffle_partition, mesh {label}, {Dl} shards in one "
+        f"call: device {dms:.4f} ms ({dms / Dl:.4f} a shard), events "
+        f"{ms:.4f} ms ({ms / Dl:.4f} a shard); the argsort and index_copy_ "
+        f"over the same shards {lib_ms:.4f} ms ({lib_ms / Dl:.4f} a "
+        f"shard); plain {pms:.4f} ms; bound "
+        f"{max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+        f" ms; {nl} device operations a call ({per}); this row "
+        f"{time.perf_counter() - t0:.2f} s")
+    return ("shuffle_partition", f"{label}, a mesh batch: {Dl} shards in "
+            f"one call ({Seff} table rows each, {nlive} live in all, D {D}, "
+            f"Sc {Sc}, WP {WP})", "sybil_tpu/parallel/mesh.py:88", ms, pms,
+            nbytes, ops, lib_ms)
+
+
 def mesh_kernel_rows(card, captured, device) -> list:
-    """Each mesh kernel at the captured shapes: K15 at config 3 -loghist's
-    shard (dense, hist lanes) and path 2's (sorted, the 100,000-slot
-    table), K16's entries, K12 two-valued and the unpack at path 2's
-    owner and compaction, K3's keyed form at config 3 -loghist; beside
+    """Each mesh kernel at the captured shapes: K15 over config 3
+    -loghist's 8 shards (dense, hist lanes) and path 2's (sorted, the
+    100,000-slot tables) in one call each, K16's entries, K12 two-valued
+    and the unpack at path 2's owner and compaction, K3's keyed form at
+    config 3 -loghist; beside
     the plain versions and one torch call each where there is one.  ->
     the kernel table's rows (name, shape, replaces, ms, plain ms, bytes,
     operations, library ms)."""
@@ -4444,43 +4675,9 @@ def mesh_kernel_rows(card, captured, device) -> list:
     from sybil_tpu_torch.parallel import mesh
     rows = []
     for label in ("config 3 -loghist", "path 2"):
-        config, part, D, Sc, send, stats = captured[("shuffle_partition",
-                                                     label)]
+        config, parts, D, Sc, stats = captured[("shuffle_partition", label)]
+        rows.append(k15_row(card, config, parts, D, Sc, stats, label))
         K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
-        Seff = config.table_slots
-        ms = cuda_ms(lambda: mesh.shuffle_partition(config, part, D, Sc,
-                                                    send, stats), iters=50)
-        s2, st2 = torch.empty_like(send), stats.clone()
-        pms = cuda_ms(lambda: mesh.shuffle_partition_plain(
-            config, part, D, Sc, s2, st2), iters=5)
-        # one torch call's worth of the placement: a stable argsort of
-        # the owners and an index_copy_ of the payload rows
-        payload, live = mesh.build_payload_plain(config, part)
-        owner = torch.where(live, mesh.mix_keys_plain(payload[:, :K]) % D,
-                            D)
-        nlive = int(live.sum().item())
-        buf = torch.zeros((Seff, WP), dtype=torch.int64, device=device)
-        dst = torch.arange(Seff, device=device)
-
-        def lib():
-            order = torch.argsort(owner, stable=True)
-            buf.index_copy_(0, dst, payload[order])
-        lib_ms = cuda_ms(lib, iters=20)
-        dense = config.strategy == "dense"
-        Sr = scan.reduce_space(config)[1] if dense else Seff
-        H = len(scan.hist_aggs(config))
-        # the table read once (lanes, min/max, bucket rows, and the keyed
-        # table's keys), the send buffer and the statistics written.  Per
-        # row: the live test, the hash over 2K halves and the finaliser,
-        # (dense) each key's digit by a 64-bit division and modulo
-        nbytes = (Sr * (2 + 3 * A + 2 * H + nv_total) * 8
-                  + (0 if dense else Seff * K * 8) + D * Sc * WP * 8
-                  + stats.numel() * 8)
-        ops = Seff * (4 + 6 * K + 6 + (60 * K if dense else 0)) + nlive * WP
-        rows.append(("shuffle_partition", f"{label}, one shard ({Seff} "
-                     f"table rows, {nlive} live, D {D}, Sc {Sc}, WP {WP})",
-                     "sybil_tpu/parallel/mesh.py:88", ms, pms, nbytes, ops,
-                     lib_ms))
 
         config, rows_r = captured[("shuffle_keys", label)]
         N = rows_r.shape[0]
@@ -5661,7 +5858,7 @@ def main(argv=None) -> int:
             cfg_m = dataclasses.replace(cfg_sp, prune_agg=wk)
             sorted_check(f"config 5, sorted device prune, prune_agg {wk}",
                          cfg_m, cols5, nr5, errs)
-        say(f"K7/sort/K8/K10 (prune form)/K12/prune_gather == plain: config "
+        say(f"K7/sort/K8/K10 (prune form)/K12 and its gather == plain: config "
             f"5's batch on the sorted strategy, $COUNT and mean scores over "
             f"{cfg_sp.max_groups} slots, pruned {int(main_sp[0, 4])}")
         for label in ENUM_EDGES:
@@ -6358,7 +6555,7 @@ def main(argv=None) -> int:
             r = got[h]
             if r["Count"] != cnt or r["ping"] != s_ / cnt:
                 fail(f"mesh config 1 CLI: group {h} differs from numpy")
-        if ll["shuffle_partition"] != MESH_D or ll["shuffle_reduce"] != \
+        if ll["shuffle_partition"] != 1 or ll["shuffle_reduce"] != \
                 MESH_D or ll["dense_scan"] != MESH_D:
             fail(f"mesh config 1 CLI: launches {ll}")
         for k in COUNTED:
@@ -7101,15 +7298,56 @@ def main(argv=None) -> int:
                         S_sp * 4 * 9, k12s_lib))
         pidx_sp = scan.topk_rows(sc_sp, P5)
         tbl_sp = k10_sp["table"]
-        kpg_ms = cuda_ms(lambda: scan.prune_gather(cfg_sp, tbl_sp, pidx_sp,
-                                                   main_sp), iters=50)
+        # the gather runs inside K12's call (prune_topk_gather): its share
+        # is that call's time less K12 alone's, timed in turns (alone,
+        # both, both, alone, twice; medians), by events and queued
+        def k12_alone():
+            scan.topk_rows(sc_sp, P5)
+
+        def k12_gather():
+            scan.prune_topk_gather(cfg_sp, sc_sp, tbl_sp, main_sp)
+        ev, dv = {k12_alone: [], k12_gather: []}, {k12_alone: [],
+                                                   k12_gather: []}
+        for fn in (k12_alone, k12_gather, k12_gather, k12_alone) * 2:
+            ev[fn].append(cuda_ms(fn, iters=50))
+            dv[fn].append(queued_ms(fn, iters=50))
+        ev_both, ev_alone = median(ev[k12_gather]), median(ev[k12_alone])
+        dv_both, dv_alone = median(dv[k12_gather]), median(dv[k12_alone])
+        nl_alone, _ = device_launches(k12_alone)
+        nl_both, per_both = device_launches(k12_gather)
+        if nl_alone is None or nl_both != nl_alone + 1:
+            fail(f"the device prune's select and gather: {nl_both} device "
+                 f"operations a call ({per_both}), not K12's {nl_alone} "
+                 f"+ 1")
         kpg_plain = cuda_ms(lambda: scan.prune_gather_plain(
             cfg_sp, tbl_sp, pidx_sp, main_sp), iters=5)
         kpg_lib = cuda_ms(lambda: tbl_sp[pidx_sp.to(torch.int64)], iters=20)
+        # the gather has no host call of its own: the table's ms is its
+        # kernel's self device time as the profiler records it; the share
+        # of the call by events (a difference of two medians, within
+        # their noise) is printed beside it, flagged when not above 0
+        gk = [(c, us) for k, (c, us) in per_both.items()
+              if "gather_kernel" in k]
+        if len(gk) != 1:
+            fail(f"the device prune's select and gather: the profiler "
+                 f"recorded no gather_kernel ({per_both})")
+        kpg_ms = gk[0][1] / gk[0][0] / 1e3
+        share = ev_both - ev_alone
+        say(f"[{card}] the device prune's select and gather at config 5 "
+            f"(one call, prune_topk_gather): events {ev_both:.4f} ms, "
+            f"device {dv_both:.4f} ms, {nl_both} device operations a call "
+            f"({per_both}); K12 alone: events {ev_alone:.4f} ms, device "
+            f"{dv_alone:.4f} ms, {nl_alone} device operations; the gather's "
+            f"kernel {kpg_ms:.4f} ms by the profiler; its share of the "
+            f"call: events {share:.4f} ms"
+            + ("" if share > 0 else " (not above 0: below the noise)")
+            + f", device {dv_both - dv_alone:.4f} ms; table[pidx] "
+            f"{kpg_lib:.4f} ms")
         c5_rows.append(("prune_gather", f"config 5 sorted device prune "
-                        f"({P5} rows)",
-                        "sybil_tpu/ops/scan.py:1900", kpg_ms, kpg_plain,
-                        P5 * (4 + Wt_sp * 8 * 2 + lay_sp["W"] * 8),
+                        f"({P5} rows; inside K12's call: its kernel's "
+                        f"device time by the profiler)",
+                        "sybil_tpu/ops/scan.py:1900", kpg_ms,
+                        kpg_plain, P5 * (4 + Wt_sp * 8 * 2 + lay_sp["W"] * 8),
                         P5 * lay_sp["W"], kpg_lib))
         say(f"[{card}] config 5 device work per batch: K7 {k7e_ms:.4f} + "
             f"sort {sort5_ms:.4f} + K11 {k11_ms:.4f} + K12 {k12_ms:.4f} + "

@@ -1,5 +1,6 @@
-// The dense strategy's slot -> key decode: the keys of K15's payload rows
-// from a dense shard's table.
+// The dense strategy's slot -> key decode: the keys of K3's keyed table of
+// a scan's own dense table (dense_pack.cu's dense_keyed entry; K15 decodes
+// the same digits with 32-bit arithmetic, shuffle_partition.cu).
 //
 // Replaces sybil_tpu/ops/scan.py:_dense_decode_keys (608-626): the slot
 // index is a mixed-radix number over the key bounds (min, card), the last

@@ -1,5 +1,5 @@
 // K10 sorted_pack: the keyed group table and the packed download buffer of
-// the sorted scan strategy, with the device prune's score and gather, and
+// the sorted scan strategy, with the device prune's score and totals, and
 // the enumerated strategy's table (enum_pack).
 //
 // Replaces sybil_tpu/ops/scan.py:pack_outputs for a non-dense scan:
@@ -31,8 +31,9 @@
 // f32(wv) / f32(max(count, 1)) where live and count > 0, else -inf, with
 // IEEE division) goes to `score` for K12, and the meta row gets pruned =
 // min(prune_topk, S, P) and the sums of the count and samples columns over
-// the whole [S] table.  prune_gather then writes table[pidx] (K12's
-// winners, in their order) as the prefix and as the pruned table.
+// the whole [S] table.  K12's entry then writes table[pidx] (its winners,
+// in their order) as the prefix and as the pruned table, right after its
+// select (topk_rows.cu: the gather, which was prune_gather here).
 //
 // enum_pack replaces the readout of _scan_enum (1547-1607) and its part of
 // pack_outputs (1866-1879, 1902-1960): for each of the Pk = min(P, R)
@@ -52,8 +53,8 @@
 // totals, per-CTA sums and one atomic each); then, for all histogram
 // aggregations at once (gridDim.y), K5's compaction: count the set rows
 // per TILE-row tile, scan the counts (one CTA each), rank and write the
-// first Hcap rows, then the padding rows.  prune_gather and enum_pack are
-// one grid-stride launch each over P rows.
+// first Hcap rows, then the padding rows.  enum_pack is one grid-stride
+// launch over P rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -237,23 +238,6 @@ __global__ void __launch_bounds__(THREADS) prune_score_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) prune_gather_kernel(
-    const long long* table, const int* pidx, long long* main,
-    long long* ptable, int P, int Wt, int W) {
-  const long long n = (long long)P * W;
-  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < n;
-       idx += (long long)gridDim.x * THREADS) {
-    const long long j = idx / W;
-    const int c = (int)(idx - j * W);
-    long long v = 0;
-    if (c < Wt) {
-      v = table[(long long)pidx[j] * Wt + c];
-      ptable[j * Wt + c] = v;
-    }
-    main[(1 + j) * W + c] = v;
-  }
-}
-
 __global__ void __launch_bounds__(THREADS) enum_pack_kernel(
     const EnumPackArgs a) {
   const int K = a.K, L = a.L, Wt = a.K + 2 + 5 * a.A;
@@ -431,21 +415,6 @@ extern "C" int sorted_pack(const SortedPackArgs* args, void* stream) {
   scan_tiles<<<nsec, SCAN_THREADS, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   write_pairs<<<dim3(a.ntiles, nsec), THREADS, 0, s>>>(a);
-  return cudaGetLastError();
-}
-
-// The device prune's second launch: main rows 1..P and ptable [P, Wt] =
-// table[pidx].  Returns cudaError_t.
-extern "C" int prune_gather(const long long* table, const int* pidx,
-                            long long* main, long long* ptable, int S, int P,
-                            int Wt, int W, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P < 1 || P > S || W < Wt) return cudaErrorInvalidValue;
-  const long long n = (long long)P * W;
-  const int grid = (int)((n + THREADS - 1) / THREADS < 1024
-                             ? (n + THREADS - 1) / THREADS : 1024);
-  prune_gather_kernel<<<grid, THREADS, 0, s>>>(table, pidx, main, ptable, P,
-                                               Wt, W);
   return cudaGetLastError();
 }
 

@@ -28,6 +28,17 @@
 // of 4 or 8 B a row); the rest touches k rows.  The engine asks for
 // k <= 1000, the one-CTA sort takes k <= 4096.
 //
+// The device prune (sybil_tpu/ops/scan.py:pack_outputs 1896-1900) takes
+// the table's winning rows right after the select: given the keyed table
+// [S, Wt], main [rows, W] and ptable [k, Wt], the entry also writes
+// table[out[j]] as main's row 1 + j (zero-padded to W) and as ptable's
+// row j, on the same stream, so the prune costs one host call.  This
+// gather (K10's prune_gather, which was a launch of its own in
+// sorted_pack.cu) moves k * Wt words: a warp a winner row, its index
+// read once, the lanes on the row's consecutive words, no division.  A
+// form that gathered inside the sort's one CTA, where the winners are in
+// shared memory, ran slower than this launch (PERF.md §6).
+//
 // The two-valued form (topk_two_valued) ranks 0/1 int32 flags, the mesh
 // scan's compaction (sybil_tpu/parallel/mesh.py:_sharded_scan 291,
 // lax.top_k(flive.astype(int32), k)): the indices of the rows with flag 1
@@ -74,6 +85,16 @@ struct TopkArgs {
   int dtype;                   // 0 int32, 1 int64, 2 f32
   int ntiles;
 };
+
+// The device prune's gather: table [S, Wt], main [rows, W], ptable [k, Wt].
+struct Gather {
+  const long long* table;
+  long long* main;
+  long long* ptable;
+  int Wt;
+  int W;
+};
+
 
 __device__ __forceinline__ unsigned long long okey(const TopkArgs& a,
                                                    long long i) {
@@ -243,6 +264,21 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_kernel(TopkArgs a,
   for (int j = threadIdx.x; j < a.k; j += SORT_THREADS) a.out[j] = s_idx[j];
 }
 
+// The device prune's gather: winner j (table row out[j]) as main's row
+// 1 + j and ptable's row j, a warp a row.
+__global__ void __launch_bounds__(256) gather_kernel(const int* out, int k,
+                                                     Gather g) {
+  const int j = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (j >= k) return;
+  const long long* src = g.table + (size_t)out[j] * g.Wt;
+  long long* dst = g.main + (size_t)(1 + j) * g.W;
+  for (int c = threadIdx.x & 31; c < g.W; c += 32) {
+    const long long v = c < g.Wt ? src[c] : 0;
+    dst[c] = v;
+    if (c < g.Wt) g.ptable[(size_t)j * g.Wt + c] = v;
+  }
+}
+
 // This thread's TV_PER consecutive flags of the tile at lo, as bits.
 __device__ __forceinline__ unsigned tv_bits(const int* f, long long lo,
                                             long long R) {
@@ -324,15 +360,21 @@ extern "C" int topk_two_valued(const int* flags, int* out, int* counts,
 }
 
 // Runs the select passes, the compaction and the sort on `stream`; `grid`
-// sizes the histogram passes.  Returns cudaError_t.
+// sizes the histogram passes.  With a table (the device prune), then the
+// gather of the winners into main's prefix rows and ptable, one launch
+// after the sort.  Returns cudaError_t.
 extern "C" int topk_rows(const void* score, int* out,
                          unsigned long long* state, unsigned int* hist,
                          int* offsets, int* cand, long long R, int k,
-                         int dtype, int ntiles, int grid, void* stream) {
+                         int dtype, int ntiles, int grid,
+                         const long long* table, long long* main,
+                         long long* ptable, int Wt, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R < 1 || R >= (1ll << 31) || k < 1 || k > KMAX || k > R ||
-      dtype < 0 || dtype > 2 || ntiles != (int)((R + TILE - 1) / TILE))
+      dtype < 0 || dtype > 2 || ntiles != (int)((R + TILE - 1) / TILE) ||
+      (table && (!main || !ptable || Wt < 1 || W < Wt)))
     return cudaErrorInvalidValue;
+  const Gather g{table, main, ptable, Wt, W};
   const TopkArgs a{score, out, state, hist, offsets, cand, R, k, dtype,
                    ntiles};
   cudaError_t err = cudaMemsetAsync(hist, 0, 256 * sizeof(unsigned), s);
@@ -355,5 +397,7 @@ extern "C" int topk_rows(const void* score, int* out,
   int n = 1;
   while (n < k) n <<= 1;
   sort_kernel<<<1, SORT_THREADS, (size_t)n * (8 + 4), s>>>(a, n);
+  if ((err = cudaGetLastError()) != cudaSuccess || !table) return err;
+  gather_kernel<<<(k + 7) / 8, 256, 0, s>>>(out, k, g);
   return cudaGetLastError();
 }

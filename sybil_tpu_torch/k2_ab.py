@@ -41,9 +41,22 @@ K6 and K8 (both roots): K6's id mode at row 9's shape (128 blocks of
 65,536 str ids) and its value mode on the same rows as int32 deltas;
 K8 at path 2's shape (two unpacked int64 lanes, about 72,576 groups),
 path 1's (an int32 packed key and a min/max lane), the distinct pairs'
-(K + D = 3 lanes) and the cache-group form's.  `--only K6,K8` (before
-the roots) times only the runs whose label starts with one of the
-prefixes.
+(K + D = 3 lanes) and the cache-group form's.
+
+K15 and the device prune (both roots): K15 over a whole mesh batch, 8
+shards each scanned by scan_core, at config 3 -loghist's shape (128
+table rows a shard, WP 174) and path 2's (100,000 rows, about 9,070
+live, Sc 25,128, WP 9), as the root runs it (one call a shard, or one
+call over the 8), beside the two torch calls that place the same rows (a
+stable argsort of the owners keyed shard x 9 + owner, an index_copy_);
+the sorted device prune at config 5's shape: K12 alone over 100,000
+int64 scores (k 1,000), the select and the gather as the root runs them
+(two calls, or prune_topk_gather's one), and table[pidx].
+
+`--only K6,K8` (before the roots) times only the runs whose label
+starts with one of the prefixes (`--only K15,prune` the runs above).
+With `--trace ROOT`, `--only` prints each selected run's wall and
+device times and its device work a call as torch.profiler records it.
 
 Trace (`--trace ROOT`): the atomic instructions each kernel of the
 root's dense_scan and topk_rows libraries compiled to (cuobjdump -sass:
@@ -104,7 +117,9 @@ def _ms(fn, iters=20, queued=False):
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(root: str, only=()) -> str:
+def kernel_runs(root: str, only=()) -> tuple:
+    """(label, iterations, call) of every run of the root, or of those
+    whose label starts with one of the prefixes `only`."""
     import numpy as np
     import torch
 
@@ -161,7 +176,7 @@ def time_kernels(root: str, only=()) -> str:
     _, main10 = main_of(c7)
 
     runs = (
-        (f"{root}: K2 config-1 shape", 20,
+        ("K2 config-1 shape", 20,
          lambda: scan.dense_scan(c1, cols1, nrec)),
         ("K2 config-3 shape", 20, lambda: scan.dense_scan(c3, cols, nrec, fv)),
         ("K3 config-1 shape", 200,
@@ -222,15 +237,19 @@ def time_kernels(root: str, only=()) -> str:
                                    "mesh.py")):
         runs += k16_runs(dev)
         runs += c4_runs(scan, dev) + k12_runs(scan, dev)
-    runs += k6_runs(dev) + k8_runs(scan, dev)
+        runs += k15_runs(scan, dev)
+    runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
     if only:
         runs = tuple(r for r in runs
-                     if any(r[0].split(": ")[-1].startswith(o)
-                            for o in only))
-    return "; ".join(
+                     if any(r[0].startswith(o) for o in only))
+    return runs
+
+
+def time_kernels(root: str, only=()) -> str:
+    return f"{root}: " + "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
         f"{_ms(fn, n, queued=True):.4f} ms device"
-        for what, n, fn in runs)
+        for what, n, fn in kernel_runs(root, only))
 
 
 def k16_owner(scan, mesh, dev, shape: str):
@@ -362,6 +381,159 @@ def k12_runs(scan, dev) -> tuple:
                  f"{k})", 20,
                  lambda fl=fl, k=k: scan.topk_rows(fl, k, two_valued=True)),)
     return out
+
+
+def k15_batch(scan, dev, shape: str, B: int = 128, D: int = 8):
+    """A mesh batch's D shards, each scanned by scan_core as sharded_scan
+    scans it, at config 3 -loghist's shape (status eq 200, group by host,
+    a 166-bucket hist of ping: 128 table rows a shard, WP 174) or path 2's
+    (config 4 at 300 s buckets on the sorted strategy over a time-sorted
+    table, as chip_smoke's mesh spec: 100,000 table rows a shard, about
+    9,070 live, WP 9), B blocks of 65,536 rows -> (config, parts, Sc)."""
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(15)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    if shape == "config 3":
+        cols = {"host": (torch.randint(0, 5, (B, C), device=dev,
+                                       generator=g),
+                         torch.rand((B, C), device=dev, generator=g) < 0.93),
+                "ping": ((torch.randn((B, C), device=dev, generator=g) * 20
+                          + 60).abs().to(torch.int64),
+                         torch.rand((B, C), device=dev, generator=g) < 0.89),
+                "status": (torch.randint(0, 5, (B, C), device=dev,
+                                         generator=g), valid)}
+        config = scan.ScanConfig(
+            group_cols=("host",), aggs=(scan.AggSpec("ping", 0, 1, 166, 0,
+                                                     165),),
+            filters=(scan.FilterSpec("status", "eq", "str"),),
+            key_bounds=((0, 5),), no_compact_table=True)
+        fv, tb = torch.tensor([0], dtype=torch.int64, device=dev), 1
+    else:
+        now, month = 1_755_000_000, 4 * 7 * 86400
+        t = torch.sort(now - torch.randint(0, month, (R,), device=dev,
+                                           generator=g))[0]
+        cols = {"time": (t.reshape(B, C), valid),
+                "action": (torch.randint(0, 9, (B, C), device=dev,
+                                         generator=g), valid),
+                "weight": (torch.tensor([1, 10, 100], device=dev)[
+                    torch.randint(0, 3, (B, C), device=dev, generator=g)],
+                    valid)}
+        config = scan.ScanConfig(
+            group_cols=("action",), aggs=(scan.AggSpec("weight", 0, 0, 0, 1,
+                                                       100),),
+            filters=(), time_col="time", force_sorted=True, time_i32=True,
+            agg_vbias=(1,), no_compact_table=True)
+        fv, tb = None, 300
+    Bs = B // D
+    parts = [scan.scan_core(config, {k: (v[d * Bs:(d + 1) * Bs],
+                                         m[d * Bs:(d + 1) * Bs])
+                                     for k, (v, m) in cols.items()},
+                            nrec[d * Bs:(d + 1) * Bs], fv, (), tb)
+             for d in range(D)]
+    return config, parts, mesh.shuffle_caps(config, D)[1]
+
+
+def k15_call(config, parts, D: int, Sc: int):
+    """K15 over the shards `parts` in the root's form: one call over all
+    of them (shuffle_partition(config, parts, D, Sc, stats) -> send), or
+    one call a shard into a [Dl, D, Sc, WP] send buffer."""
+    import inspect
+
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    dev = parts[0]["dev"]
+    Dl = len(parts)
+    stats = torch.zeros((Dl, mesh.n_stats(config)), dtype=torch.int64,
+                        device=dev)
+    if "parts" in inspect.signature(mesh.shuffle_partition).parameters:
+        return lambda: mesh.shuffle_partition(config, parts, D, Sc, stats)
+    WP = mesh.payload_spec(config)[-1]
+    send = torch.empty((Dl, D, Sc, WP), dtype=torch.int64, device=dev)
+
+    def per_shard():
+        for d, part in enumerate(parts):
+            mesh.shuffle_partition(config, part, D, Sc, send[d], stats[d])
+    return per_shard
+
+
+def k15_torch(config, parts, D: int):
+    """The two torch calls that place the same shards' payload rows: a
+    stable argsort of every shard's row owners keyed shard x (D + 1) +
+    owner (D = dead), and an index_copy_ of the rows in that order; the
+    payloads and owners prebuilt by the plain version."""
+    import torch
+
+    from sybil_tpu_torch.parallel import mesh
+    K = config.n_key_cols
+    pays, keys = [], []
+    for d, part in enumerate(parts):
+        payload, live = mesh.build_payload_plain(config, part)
+        owner = torch.where(live, mesh.mix_keys_plain(payload[:, :K]) % D,
+                            D)
+        pays.append(payload)
+        keys.append(owner + d * (D + 1))
+    payload, key = torch.cat(pays), torch.cat(keys)
+    buf = torch.zeros_like(payload)
+    dst = torch.arange(payload.shape[0], device=payload.device)
+
+    def lib():
+        buf.index_copy_(0, dst, payload[torch.argsort(key, stable=True)])
+    return lib
+
+
+def k15_runs(scan, dev) -> tuple:
+    """K15 over a whole mesh batch (8 shards) at config 3 -loghist's and
+    path 2's shapes (k15_batch), beside the two torch calls over the same
+    shards (k15_torch)."""
+    out = ()
+    for shape, what in (("config 3", "config 3 -loghist's 8 shards (128 "
+                         "rows, WP 174)"),
+                        ("path 2", "path 2's 8 shards (100,000 rows, WP "
+                         "9)")):
+        config, parts, Sc = k15_batch(scan, dev, shape)
+        out += ((f"K15 at {what}", 50, k15_call(config, parts, 8, Sc)),
+                (f"K15's torch calls at {what}", 20,
+                 k15_torch(config, parts, 8)))
+    return out
+
+
+def prune_runs(scan, dev) -> tuple:
+    """The sorted device prune at config 5's shape (group by userid, avg
+    weight, -limit 100: K12 over the 100,000 slots' int64 $COUNT scores,
+    k = P = 1,000, then the gather of the [100,000, 8] table's winners into
+    main's prefix rows, W 9): K12 alone, the select and the gather as the
+    root runs them (K12 then prune_gather, or prune_topk_gather's one
+    call), and table[pidx]."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    cfg = scan.ScanConfig(group_cols=("userid",),
+                          aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                          filters=(), force_sorted=True, prune_topk=1000)
+    S, P = cfg.max_groups, scan.table_prefix(cfg)
+    Wt, W = scan.table_width(cfg), scan.main_width(cfg)
+    score = torch.from_numpy(np.minimum(rng.zipf(1.3, S), 10 ** 6)
+                             .astype(np.int64)).to(dev)
+    table = torch.from_numpy(rng.integers(-10 ** 9, 10 ** 9, (S, Wt))).to(dev)
+    main = torch.zeros((1 + P + 64, W), dtype=torch.int64, device=dev)
+    if hasattr(scan, "prune_topk_gather"):
+        def both():
+            scan.prune_topk_gather(cfg, score, table, main)
+    else:
+        def both():
+            scan.prune_gather(cfg, table, scan.topk_rows(score, P), main)
+    pidx = scan.topk_rows(score, P).to(torch.int64)
+    return ((f"prune: K12 alone at config 5 ([{S}] int64, k {P})", 50,
+             lambda: scan.topk_rows(score, P)),
+            (f"prune: the select and the gather at config 5 ({P} rows of "
+             f"{Wt} words, W {W})", 50, both),
+            ("prune: table[pidx] (torch)", 50, lambda: table[pidx]))
 
 
 def k6_runs(dev, B: int = 128) -> tuple:
@@ -531,6 +703,18 @@ def trace(root: str) -> str:
     return "\n".join(out)
 
 
+def trace_runs(root: str, only) -> str:
+    """Each run selected by `only`: its wall and device times and its
+    device work a call as torch.profiler records it."""
+    runs = kernel_runs(root, only)
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    return "\n".join(f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
+                     f"{_ms(fn, n, queued=True):.4f} ms device; "
+                     f"{chip_smoke.profiled_kernels(fn)}"
+                     for what, n, fn in runs)
+
+
 def build_walls_table(table_dir: str) -> None:
     """chip_smoke.py's uptime table under table_dir, unless it is there."""
     if os.path.isdir(os.path.join(table_dir, "uptime")):
@@ -615,7 +799,8 @@ def main(argv: list[str]) -> int:
         print(time_kernels(os.path.abspath(argv[1]), only), flush=True)
         return 0
     if len(argv) == 2 and argv[0] == "--trace":
-        print(trace(os.path.abspath(argv[1])), flush=True)
+        root = os.path.abspath(argv[1])
+        print(trace_runs(root, only) if only else trace(root), flush=True)
         return 0
     if len(argv) == 3 and argv[0] == "--one-walls":
         print(time_walls(os.path.abspath(argv[1]), argv[2]), flush=True)

@@ -79,8 +79,9 @@ K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
                     pair section and the sparse hist pair sections of
                     `main`; under the device prune
                     (prune_topk) each row's score and the table totals
-                    instead of the prefix, then (prune_gather, after K12)
-                    the top rows as the prefix
+                    instead of the prefix, then (K12's entry, its select
+                    and the gather: prune_topk_gather) the top rows as
+                    the prefix
 
 Enumerated:
 
@@ -642,7 +643,10 @@ def _sm_count(dev) -> int:
 
 
 def _check_tensor(t, shape, dtype, what, dev, kernel):
-    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+    # get_device() and the torch.Size compare: a wrapper checks each
+    # table it is passed, so this runs tens of times a query
+    if (t.shape != shape or t.dtype != dtype
+            or t.get_device() != (-1 if dev.type == "cpu" else dev.index)
             or not t.is_contiguous()):
         raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
                          f"{list(shape)} tensor on {dev}, got {t.dtype} "
@@ -808,7 +812,7 @@ def _set_desc(args, dev, arrays: dict):
     words, offs = [], {}
     for name, vals in arrays.items():
         offs[name] = len(words)
-        words.extend(int(v) for v in vals)
+        words += vals           # ints; ctypes refuses anything else
     n = len(words)
     args.desc.n = n
     args.desc.head[:min(n, _DESC_HEAD)] = words[:_DESC_HEAD]
@@ -2860,7 +2864,7 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
     its npairs meta word).  A mesh scan's merged table (`overflow` [1]
     given: its meta word) brings every aggregation's min and max [S, A].
     Under the device
-    prune (prune_topk > 0) the prefix rows stay zero for prune_gather,
+    prune (prune_topk > 0) the prefix rows stay zero for K12's gather,
     the meta row holds the pruned marker and the table's count and
     sample totals (1961-1963), and each row's prune score is returned.
     -> {"table": the table, "score": [S] (int64 or f32) or None}."""
@@ -2956,7 +2960,7 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     sparse hist pair sections (1979-1991, _mask_positions), the distinct
     pair section (1925-1933) from K8's pair_mask, kmat and dmat, and
     under the device prune the score and totals of 1886-1899, 1961-1963
-    (K12 and prune_gather do the rest).  Bound by memory (the [S,
+    (K12 and its gather do the rest).  Bound by memory (the [S,
     K+2+5A] table and one byte of hp_mask or pair_mask per row)."""
     dev = main.device
     if dev.type == "cpu":
@@ -3070,38 +3074,6 @@ def prune_gather_plain(config: ScanConfig, table, pidx, main):
     n, Wt = ptable.shape
     main[1:1 + n] = 0
     main[1:1 + n, :Wt] = ptable
-    return ptable
-
-
-def prune_gather(config: ScanConfig, table, pidx, main):
-    """K10, prune_gather entry: as prune_gather_plain.  CUDA tensors
-    launch the kernel (csrc/sorted_pack.cu); CPU tensors take the plain
-    version.  pidx: K12's int32 [P] row indices into the [S, Wt] table.
-    Replaces the gather table[pidx] of sybil_tpu/ops/scan.py:pack_outputs
-    (1900) and its prefix.  Bound by memory (P rows read and written)."""
-    dev = main.device
-    if dev.type == "cpu":
-        return prune_gather_plain(config, table, pidx, main)
-    if dev.type != "cuda":
-        raise ValueError(f"prune_gather: unsupported device {dev}")
-    S, Wt = config.max_groups, table_width(config)
-    P = table_prefix(config)
-    W = main.shape[1]
-    _check_tensor(table, (S, Wt), torch.int64, "table", dev, "prune_gather")
-    _check_tensor(pidx, (P,), torch.int32, "pidx", dev, "prune_gather")
-    if (main.dtype != torch.int64 or main.dim() != 2 or W < Wt
-            or not main.is_contiguous() or main.shape[0] < 1 + P):
-        raise ValueError("prune_gather: main must be a contiguous int64 "
-                         f"[rows >= {1 + P}, W >= {Wt}]")
-    ptable = torch.empty((P, Wt), dtype=torch.int64, device=dev)
-    fn = kernels.lib("sorted_pack").prune_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(table.data_ptr(), pidx.data_ptr(), main.data_ptr(),
-                     ptable.data_ptr(), S, P, Wt, W,
-                     kernels.stream_handle(dev)), "prune_gather")
-    kernels.LAUNCHES["prune_gather"] += 1
     return ptable
 
 
@@ -3349,21 +3321,77 @@ def topk_rows(score, k: int, two_valued: bool = False):
                       "topk_rows")
         kernels.LAUNCHES["topk_rows"] += 1
         return out
+    _topk_launch(score, out, R, k, dev)
+    return out
+
+
+def _topk_launch(score, out, R: int, k: int, dev, gather=None) -> None:
+    """K12's select, compaction and sort of `score` into out [k], and
+    with gather = (table, main, ptable) the device prune's gather of the
+    winners, in one C call."""
     ntiles = -(-R // _SEG_TILE)
-    state = torch.empty(2, dtype=torch.int64, device=dev)
-    hist = torch.empty(256, dtype=torch.int32, device=dev)
-    offsets = torch.empty((2, ntiles + 1), dtype=torch.int32, device=dev)
-    cand = torch.empty(k, dtype=torch.int32, device=dev)
+    # state [2] int64, then hist [256], offsets [2, ntiles + 1] and cand
+    # [k] int32: one allocation
+    scratch = torch.empty(4 + 256 + 2 * (ntiles + 1) + k, dtype=torch.int32,
+                          device=dev)
+    base = scratch.data_ptr()
+    table, main, ptable = gather or (None, None, None)
     fn = kernels.entry("topk_rows", "topk_rows",
                        [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    kernels.check(fn(score.data_ptr(), out.data_ptr(), state.data_ptr(),
-                     hist.data_ptr(), offsets.data_ptr(), cand.data_ptr(),
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    kernels.check(fn(score.data_ptr(), out.data_ptr(), base, base + 16,
+                     base + 16 + 1024, base + 16 + 1024 + 8 * (ntiles + 1),
                      R, k, _TOPK_DTYPES[score.dtype], ntiles,
-                     _grid(dev, R, 0, False), kernels.stream_handle(dev)),
-                  "topk_rows")
+                     _grid(dev, R, 0, False), _ptr(table), _ptr(main),
+                     _ptr(ptable), 0 if table is None else table.shape[1],
+                     0 if main is None else main.shape[1],
+                     kernels.stream_handle(dev)), "topk_rows")
     kernels.LAUNCHES["topk_rows"] += 1
-    return out
+
+
+def prune_topk_gather(config: ScanConfig, score, table, main):
+    """The sorted strategy's device prune after K10: K12's top P rows of
+    the slots' scores (P = table_prefix), then K10's gather of those rows
+    of the keyed table [S, Wt] as main's prefix rows 1..P (zero-padded
+    to W), in place -> (pidx int32 [P], the pruned table [P, Wt]).  CUDA
+    tensors run both in one C call of K12's entry (csrc/topk_rows.cu: the
+    gather right after the sort, on the same stream), counted as one
+    launch of topk_rows and one of prune_gather; CPU tensors take
+    topk_rows_plain and prune_gather_plain.
+
+    Replaces the lax.top_k and the gather table[pidx] of sybil_tpu/ops/
+    scan.py:pack_outputs (1896-1900) and its prefix.  Bound by memory:
+    the scores read by the select's passes, P rows of Wt words gathered
+    and written twice."""
+    dev = main.device
+    P = table_prefix(config)
+    if dev.type == "cpu":
+        pidx = topk_rows_plain(score, P)
+        return pidx, prune_gather_plain(config, table, pidx, main)
+    if dev.type != "cuda":
+        raise ValueError(f"prune_topk_gather: unsupported device {dev}")
+    S, Wt = config.max_groups, table_width(config)
+    W = main.shape[1]
+    if score.dtype not in _TOPK_DTYPES:
+        raise ValueError(f"prune_topk_gather: scores of {score.dtype} are "
+                         "not taken")
+    _check_tensor(score, (S,), score.dtype, "score", dev, "prune_topk_gather")
+    _check_tensor(table, (S, Wt), torch.int64, "table", dev,
+                  "prune_topk_gather")
+    if (main.dtype != torch.int64 or main.dim() != 2 or W < Wt
+            or not main.is_contiguous() or main.shape[0] < 1 + P
+            or main.device != dev):
+        raise ValueError("prune_topk_gather: main must be a contiguous int64 "
+                         f"[rows >= {1 + P}, W >= {Wt}] tensor on {dev}")
+    if not 0 < P <= min(S, TOPK_MAX) or S >= 2 ** 31:
+        raise ValueError(f"prune_topk_gather: P {P} must lie in [1, "
+                         f"{min(S, TOPK_MAX)}]")
+    pidx = torch.empty(P, dtype=torch.int32, device=dev)
+    ptable = torch.empty((P, Wt), dtype=torch.int64, device=dev)
+    _topk_launch(score, pidx, S, P, dev, (table, main, ptable))
+    kernels.LAUNCHES["prune_gather"] += 1
+    return pidx, ptable
 
 
 class EnumPackArgs(ctypes.Structure):
@@ -3589,8 +3617,8 @@ def pack_parts(config: ScanConfig, parts: dict) -> dict:
     merged parts, parallel/mesh.py): K5 per tracked histogram
     aggregation (keys from the columns, or from raw's kmat: K8's on the
     sorted strategy, a multi-process dense mesh's outlier rows), then K3
-    (dense) or K10 (with
-    K12 and prune_gather under the device prune).  -> {"main": [rows, W]
+    (dense) or K10 (with K12 and its gather under the device prune,
+    prune_topk_gather).  -> {"main": [rows, W]
     int64, and off the dense strategy "table": the keyed [S, K+2+5A]
     group table, or its top P rows under the device prune}."""
     R = parts["R"]
@@ -3615,11 +3643,10 @@ def pack_parts(config: ScanConfig, parts: dict) -> dict:
                          overflow=parts.get("overflow"))
     table = packed["table"]
     if packed["score"] is not None:
-        # the device prune: K12 picks the top rows of K10's table and
-        # prune_gather writes them as the prefix (the returned table is
-        # then the pruned one, as the reference's pack returns it)
-        pidx = topk_rows(packed["score"], table_prefix(config))
-        table = prune_gather(config, table, pidx, main)
+        # the device prune: K12 picks the top rows of K10's table and its
+        # gather writes them as the prefix (the returned table is then
+        # the pruned one, as the reference's pack returns it)
+        table = prune_topk_gather(config, packed["score"], table, main)[1]
     return {"main": main, "table": table}
 
 

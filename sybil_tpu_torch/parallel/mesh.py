@@ -8,10 +8,11 @@ one card with one process).  Per query batch:
   1. each shard scans its blocks up to the pack (ops/scan.py scan_core:
      K14, then K2 and K4, or K7, the sorts, K8 and K9), so a hot key is
      one row per shard by the time it reaches the wire;
-  2. K15 shuffle_partition turns the shard's group table into payload
-     rows [keys | summed lanes | bucket counts | min | max] and places
-     the live ones by key owner (a hash of the keys modulo D) into the
-     shard's send buffer [D, Sc, WP];
+  2. K15 shuffle_partition turns every local shard's group table into
+     payload rows [keys | summed lanes | bucket counts | min | max] and
+     places the live ones by key owner (a hash of the keys modulo D)
+     into the shard's send buffer [D, Sc, WP], one launch over all the
+     local shards;
   3. the exchange (Mesh.all_to_all) sends every row once, to its key's
      owner;
   4. each owner sorts what it received by key (K16's shuffle_keys, the
@@ -264,116 +265,112 @@ def shuffle_partition_plain(config: ScanConfig, part: dict, D: int, Sc: int,
 class ShufflePartitionArgs(ctypes.Structure):
     """Mirror of struct ShufflePartitionArgs in csrc/shuffle_partition.cu."""
     _fields_ = [("desc", Desc)] + _ptr_fields(
-        "sums", "mins", "maxs", "keys", "hist", "hist_nv", "agg_mm",
-        "kb_min", "kb_card", "stat_src", "spill", "send", "stats", "owner",
-        "counts") + [
-        ("tb", ctypes.c_longlong),
-        ("Seff", ctypes.c_int),
-        ("D", ctypes.c_int),
-        ("Sc", ctypes.c_int),
-        ("K", ctypes.c_int),
-        ("A", ctypes.c_int),
-        ("L", ctypes.c_int),
-        ("H", ctypes.c_int),
-        ("WP", ctypes.c_int),
-        ("dense", ctypes.c_int),
-        ("compact", ctypes.c_int),
-        ("Sr", ctypes.c_int),
-        ("slots", ctypes.c_int),
-        ("nkb", ctypes.c_int),
-        ("tpos", ctypes.c_int),
-        ("ntiles", ctypes.c_int),
-        ("nstat", ctypes.c_int),
-    ]
+        "tabs", "hist_nv", "agg_mm", "kb_min", "kb_card", "send", "status",
+        "stats") + [("tb", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in (
+            "Dl", "Seff", "D", "Sc", "K", "A", "L", "H", "WP", "dense",
+            "compact", "Sr", "slots", "nkb", "tpos", "ntiles", "nstat")]
 
 
 _PART_TILE = 1024              # rows per CTA (TILE in the source)
 
 
-def shuffle_partition(config: ScanConfig, part: dict, D: int, Sc: int,
-                      send, stats) -> None:
-    """K15: one shard's payload rows placed by key owner into its send
-    buffer `send` [D, Sc, WP] int64 (zero where no row lands), and its
-    statistics row `stats` [n_stats] int64 words 1.. (spill, overflow,
-    outlier and hist pair counts), in place.  CUDA tensors launch the
-    kernel (csrc/shuffle_partition.cu); CPU tensors take the plain
-    version.
+def shuffle_partition(config: ScanConfig, parts: list, D: int, Sc: int,
+                      stats):
+    """K15: every local shard's payload rows placed by key owner -> the
+    send buffers [Dl, D, Sc, WP] int64 (zero where no row lands), and each
+    shard's statistics row stats[d] [n_stats] int64 words 1.. (spill,
+    overflow, outlier and hist pair counts), in place.  parts: the Dl
+    shards' scan_core parts.  CUDA tensors launch the kernel once over
+    every shard (csrc/shuffle_partition.cu: one memset and one launch);
+    CPU tensors take the plain version shard by shard.
 
-    part: the shard's scan_core parts.  Replaces sybil_tpu/parallel/
-    mesh.py:_build_payload, _mix_keys and _partition_rows, and on the
-    dense strategy sybil_tpu/ops/scan.py:_dense_decode_keys (608-626) and
-    the reduce-space expansion of _scan_dense.  Bound by memory: the
-    table read once, the live rows written once (see the source note)."""
-    dev = send.device
+    Replaces sybil_tpu/parallel/mesh.py:_build_payload, _mix_keys and
+    _partition_rows, and on the dense strategy sybil_tpu/ops/scan.py:
+    _dense_decode_keys (608-626) and the reduce-space expansion of
+    _scan_dense.  Bound by memory: the tables read once, the send buffers
+    written once (see the source note).  A mesh batch makes one call, so
+    the per-shard host work here is a few pointers and shape checks."""
+    dev = stats.device
+    Dl = len(parts)
+    K, A, *_, WP = payload_spec(config)
     if dev.type == "cpu":
-        shuffle_partition_plain(config, part, D, Sc, send, stats)
-        return
+        send = torch.empty((Dl, D, Sc, WP), dtype=torch.int64)
+        for d, part in enumerate(parts):
+            shuffle_partition_plain(config, part, D, Sc, send[d], stats[d])
+        return send
     if dev.type != "cuda":
         raise ValueError(f"shuffle_partition: unsupported device {dev}")
-    K, A, hist_ais, nv_total, n_sum, WP = payload_spec(config)
-    hist = hist_aggs(config)
-    H = len(hist)
-    L = 2 + 3 * A
-    Seff, _ = shuffle_caps(config, D)
     if not 1 <= D <= MAX_SHARDS:
         raise ValueError(f"shuffle_partition: D {D} past {MAX_SHARDS}")
-    _check_tensor(send, (D, Sc, WP), torch.int64, "send", dev,
-                  "shuffle_partition")
-    _check_tensor(stats, (n_stats(config),), torch.int64, "stats", dev,
+    hist = hist_aggs(config)
+    H, L = len(hist), 2 + 3 * A
+    _check_tensor(stats, (Dl, 3 + 2 * H), torch.int64, "stats", dev,
                   "shuffle_partition")
     a = ShufflePartitionArgs()
-    desc = {"agg_mm": [hist.index(ai) if ai in hist else -1
-                       for ai in range(A)],
-            "stat_src": [_ptr(n) for n in _stat_sources(config, part)]}
-    if part["strategy"] == "dense":
-        k2 = part["k2"]
-        slots, Sr, compact = reduce_space(config)
-        _check_tensor(k2["sums"], (Sr, L), torch.int64, "sums", dev,
-                      "shuffle_partition")
-        for h, ai in zip(part["hists"], hist):
-            _check_tensor(h, (Sr, config.aggs[ai].num_values), torch.int64,
-                          f"hist of agg {ai}", dev, "shuffle_partition")
-        desc["hist"] = [h.data_ptr() for h in part["hists"]]
-        desc["hist_nv"] = [config.aggs[ai].num_values for ai in hist]
-        desc["kb_min"] = [mn for mn, _ in config.key_bounds]
-        desc["kb_card"] = [card for _, card in config.key_bounds]
-        a.dense, a.compact, a.Sr, a.slots = 1, int(compact), Sr, slots
+    slots = config.dense_slots
+    dense = slots > 0
+    if dense:
+        _, rows, compact = reduce_space(config)
+        Seff = slots
+        nvs = [config.aggs[ai].num_values for ai in hist]
+        a.dense, a.compact, a.Sr, a.slots = 1, int(compact), rows, slots
         a.nkb, a.tpos = len(config.key_bounds), config.time_key_pos
-        a.tb = int(part["raw"]["time_bucket"])
-        tab, spill = k2, k2["spill"]
-        rows_mm = Sr
+        a.tb = int(parts[0]["raw"]["time_bucket"])
     else:
-        k8 = part["k8"]
-        _check_tensor(k8["sums"], (Seff + 1, L), torch.int64, "sums", dev,
-                      "shuffle_partition")
-        _check_tensor(k8["keys"], (Seff, K), torch.int64, "keys", dev,
-                      "shuffle_partition")
-        a.keys = k8["keys"].data_ptr()
-        tab, spill = k8, part["spill"]
-        rows_mm = Seff
-    for key in ("mins", "maxs"):
-        _check_tensor(tab[key], (rows_mm, H), torch.int64, key, dev,
-                      "shuffle_partition")
-    _check_tensor(spill, (1,), torch.int64, "spill", dev,
-                  "shuffle_partition")
+        Seff = rows = config.max_groups
+        nvs = []
+    # the descriptor block: a record a shard (csrc/shuffle_partition.cu,
+    # T_SUMS..: its tables' pointers, each checked against the shape the
+    # kernel reads; min/max only when it reads them, and its statistics
+    # sources), then the words every shard shares.  Built a record field
+    # at a time over the shards.
+    tabs = [part["k2" if dense else "k8"] for part in parts]
+
+    def field(ts, shape, what):
+        for d, t in enumerate(ts):
+            _check_tensor(t, shape, torch.int64, f"shard {d}'s {what}", dev,
+                          "shuffle_partition")
+        return [t.data_ptr() for t in ts]
+
+    zero = [0] * Dl
+    fields = [field([t["sums"] for t in tabs],
+                    (rows + (0 if dense else 1), L), "sums")]
+    fields += [field([t[k] for t in tabs], (rows, H), k)
+               for k in ("mins", "maxs")] if H else [zero, zero]
+    fields.append(zero if dense else field([t["keys"] for t in tabs],
+                                           (rows, K), "keys"))
+    fields.append(field([t["spill"] for t in tabs] if dense else
+                        [part["spill"] for part in parts], (1,), "spill"))
+    if dense:
+        fields += [field([part["hists"][h] for part in parts], (rows, nv),
+                         "hist") for h, nv in enumerate(nvs)]
+    else:
+        fields += [zero] * H
+    stat = [_stat_sources(config, part) for part in parts]
+    fields += [[_ptr(st[i]) for st in stat] for i in range(2 * H)]
+    _set_desc(a, dev, {
+        "tabs": [w for rec in zip(*fields) for w in rec], "hist_nv": nvs,
+        "agg_mm": [hist.index(ai) if ai in hist else -1 for ai in range(A)],
+        "kb_min": [mn for mn, _ in config.key_bounds] if dense else [],
+        "kb_card": [card for _, card in config.key_bounds] if dense else []})
+    # one allocation, zeroed by the kernel's one memset: the send buffers,
+    # and above one tile the look-back's ticket and status words
     ntiles = -(-Seff // _PART_TILE)
-    owner = torch.empty(Seff, dtype=torch.int32, device=dev)
-    counts = torch.empty((ntiles, D), dtype=torch.int32, device=dev)
-    _set_desc(a, dev, desc)
-    a.sums, a.mins, a.maxs = (tab["sums"].data_ptr(), tab["mins"].data_ptr(),
-                              tab["maxs"].data_ptr())
-    a.spill, a.send, a.stats = spill.data_ptr(), send.data_ptr(), \
-        stats.data_ptr()
-    a.owner, a.counts = owner.data_ptr(), counts.data_ptr()
-    a.Seff, a.D, a.Sc, a.K, a.A, a.L, a.H, a.WP = (Seff, D, Sc, K, A, L, H,
-                                                   WP)
+    nsend = Dl * D * Sc * WP
+    buf = torch.empty(nsend + 1 + Dl * ntiles * D if ntiles > 1 else
+                      (Dl, D, Sc, WP), dtype=torch.int64, device=dev)
+    a.send, a.stats = buf.data_ptr(), stats.data_ptr()
+    a.status = a.send + 8 * nsend if ntiles > 1 else 0
+    a.Dl, a.Seff, a.D, a.Sc, a.K, a.A, a.L, a.H, a.WP = (Dl, Seff, D, Sc, K,
+                                                          A, L, H, WP)
     a.ntiles, a.nstat = ntiles, 2 * H
-    fn = kernels.lib("shuffle_partition").shuffle_partition
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("shuffle_partition", "shuffle_partition",
+                       [ctypes.c_void_p, ctypes.c_void_p])
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "shuffle_partition")
     kernels.LAUNCHES["shuffle_partition"] += 1
+    return buf if ntiles == 1 else buf[:nsend].view(Dl, D, Sc, WP)
 
 
 # ---------------------------------------------------------------------------
@@ -720,19 +717,19 @@ def sharded_scan(config: ScanConfig, mesh: Mesh, cols, nrec,
     K, A, hist_ais, nv_total, n_sum, WP = payload_spec(config)
     time_bucket = int(time_bucket)
     set_aux = set_aux or {}
-    send = torch.empty((Dl, D, Sc, WP), dtype=torch.int64, device=dev)
     stats = torch.zeros((Dl, n_stats(config)), dtype=torch.int64,
                         device=dev)
-    raws = []
+    parts = []
     for d in range(Dl):
         blk = slice(d * Bs, (d + 1) * Bs)
-        part = scan_core(
+        parts.append(scan_core(
             config, {k: (v[blk], m[blk]) for k, (v, m) in cols.items()},
             nrec[blk], filter_vals, bitsets, time_bucket,
             {k: (pr[d], pv[d], ns[d]) for k, (pr, pv, ns) in
-             set_aux.items()})
-        shuffle_partition(config, part, D, Sc, send[d], stats[d])
-        raws.append(part["raw"])
+             set_aux.items()}))
+    send = shuffle_partition(config, parts, D, Sc, stats)
+    raws = [part["raw"] for part in parts]
+    del parts
     recv = mesh.all_to_all(send)
     merged = torch.empty((Dl, Sc, WP), dtype=torch.int64, device=dev)
     flive = torch.empty((Dl, Sc), dtype=torch.int32, device=dev)

@@ -246,6 +246,50 @@ def test_sorted_device_prune_matches_reference(name):
         assert meta[6 + H] < _make(name)[2].sum()
 
 
+@pytest.mark.parametrize("name", SORTED_CASES)
+def test_prune_topk_gather_matches_reference(name):
+    """The device prune's wrapper (K12's select and K10's gather in one
+    call) on the port's K10 table and scores, against pack_outputs'
+    device prune (1874-1900) on the reference's scan of the same batch:
+    the winners' indices (lax.top_k of the same scores), the pruned table
+    and main's prefix rows, word for word."""
+    cfg, cols, nrec, fvals, bits, tb = _make(name, "gather")
+    jcols = {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+             cols.items()}
+    packed, out = ref.scan_packed_jit(
+        cfg, jcols, jnp.asarray(nrec), jnp.asarray(fvals),
+        tuple(jnp.asarray(b) for b in bits), jnp.asarray(tb, jnp.int64), {})
+    pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+    P = port.table_prefix(pcfg)
+    live = (out["count"] > 0) | (out["samples"] > 0)
+    if cfg.prune_agg >= 0:
+        acnt = out[f"agg{cfg.prune_agg}_count"]
+        score = jnp.where(live & (acnt > 0),
+                          out[f"agg{cfg.prune_agg}_wv"].astype(jnp.float32)
+                          / jnp.maximum(acnt, 1).astype(jnp.float32),
+                          -jnp.inf)
+    else:
+        score = jnp.where(live, out["count"], -1)
+    want_pidx = np.asarray(jax.lax.top_k(score, P)[1])
+    parts = port.scan_core(
+        pcfg, {k: (torch.from_numpy(v), torch.from_numpy(m))
+               for k, (v, m) in cols.items()}, torch.from_numpy(nrec),
+        torch.from_numpy(fvals), tuple(torch.from_numpy(b) for b in bits),
+        tb)
+    R = nrec.size * cols["k0"][0].shape[1]
+    lay = port.packed_layout(pcfg, R)
+    main = torch.zeros((lay["rows"], lay["W"]), dtype=torch.int64)
+    k10 = port.sorted_pack(pcfg, parts["k8"], parts["spill"],
+                           parts["pairs"], parts["nouts"], main, R)
+    pidx, ptable = port.prune_topk_gather(pcfg, k10["score"], k10["table"],
+                                          main)
+    np.testing.assert_array_equal(pidx.numpy(), want_pidx)
+    np.testing.assert_array_equal(ptable.numpy(), np.asarray(packed["table"]))
+    want_main = np.asarray(packed["main"])
+    np.testing.assert_array_equal(main.numpy()[1:1 + P], want_main[1:1 + P])
+    assert len(want_pidx) == P and (want_main[1:1 + P] != 0).any()
+
+
 # ---------------------------------------------------------------------------
 # K12's plain version against _topk_rows and lax.top_k
 # ---------------------------------------------------------------------------

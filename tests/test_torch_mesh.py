@@ -331,13 +331,65 @@ def test_k15_pieces_match_reference():
         # a per-owner capacity of 4 rows: the two wide tables overflow
         send, overflow = ref_mesh._partition_rows(payload, live,
                                                   payload[:, :K], D, 4)
-        psend = torch.empty((D, 4, ppay.shape[1]), dtype=torch.int64)
-        stats = torch.zeros(port_mesh.n_stats(pcfg), dtype=torch.int64)
-        port_mesh.shuffle_partition(pcfg, part, D, 4, psend, stats)
-        np.testing.assert_array_equal(psend.numpy(), np.asarray(send))
-        assert int(stats[2]) == int(overflow)
+        stats = torch.zeros((1, port_mesh.n_stats(pcfg)), dtype=torch.int64)
+        psend = port_mesh.shuffle_partition(pcfg, [part], D, 4, stats)
+        np.testing.assert_array_equal(psend[0].numpy(), np.asarray(send))
+        assert int(stats[0, 2]) == int(overflow)
         assert (int(overflow) > 0) == (name in ("dense-rollup",
                                                 "sorted-hist-pairs"))
+
+
+@pytest.mark.parametrize("cap", ["shuffle caps", "4 rows"])
+@pytest.mark.parametrize("Dl", [8, 2])
+@pytest.mark.parametrize("name", ["dense-rollup", "sorted-hist-pairs"])
+def test_k15_batched_matches_reference(name, Dl, cap):
+    """K15 over a process's Dl local shards in one call (sharded_scan's
+    form), shard by shard against _build_payload and _partition_rows on
+    the same shard's reference scan: the send buffers word for word, the
+    overflow and spill words.  Shard 3 has no record (no live row); a
+    per-owner capacity of 4 rows overflows."""
+    _, bopts, fvals, tb, _ = CASES[name]
+    cfg = make_config(name)
+    pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+    K = pcfg.n_key_cols
+    cols, _ = make_batch(**bopts)
+    Bs = B // D
+    nrec = np.full(B, C, np.int32)
+    nrec[3 * Bs:4 * Bs] = 0
+    fv = np.asarray(fvals, np.int64)
+    Seff, Sc = port_mesh.shuffle_caps(pcfg, D)
+    if cap == "4 rows":
+        Sc = 4
+    # the shards of process 1 of 4 (Dl 2) or of the only process, shard
+    # 3 among them
+    shards = range(2, 4) if Dl == 2 else range(8)
+    build = jax.jit(ref_mesh._build_payload, static_argnums=(0, 2))
+    want, parts = [], []
+    for d in shards:
+        blk = slice(d * Bs, (d + 1) * Bs)
+        sc = {k: (v[blk], m[blk]) for k, (v, m) in cols.items()}
+        out = ref.scan_batch(cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+                                   for k, (v, m) in sc.items()},
+                             jnp.asarray(nrec[blk]), jnp.asarray(fv), (),
+                             jnp.asarray(tb, jnp.int64), {})
+        payload, live = build(cfg, out, Seff)
+        send, overflow = ref_mesh._partition_rows(payload, live,
+                                                  payload[:, :K], D, Sc)
+        want.append((np.asarray(send), int(overflow), int(out["spill"]),
+                     int(np.asarray(live).sum())))
+        parts.append(port.scan_core(
+            pcfg, {k: (torch.from_numpy(v), torch.from_numpy(m))
+                   for k, (v, m) in sc.items()},
+            torch.from_numpy(nrec[blk]), torch.from_numpy(fv), (), tb, {}))
+    stats = torch.zeros((Dl, port_mesh.n_stats(pcfg)), dtype=torch.int64)
+    got = port_mesh.shuffle_partition(pcfg, parts, D, Sc, stats)
+    assert tuple(got.shape) == (Dl, D, Sc, port_mesh.payload_spec(pcfg)[-1])
+    for i, (send, overflow, spill, nlive) in enumerate(want):
+        np.testing.assert_array_equal(got[i].numpy(), send)
+        assert int(stats[i, 2]) == overflow and int(stats[i, 1]) == spill
+    nlive = [w[3] for w in want]
+    assert nlive[list(shards).index(3)] == 0 and max(nlive) > 0
+    assert (sum(w[1] for w in want) > 0) == (cap == "4 rows")
 
 
 def test_dense_slot_keys_match_reference():
