@@ -269,6 +269,16 @@ ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "shuffle_unpack": "shuffle_reduce",
                  "dense_keyed": "dense_pack"}
 COUNTED = KERNELS + tuple(ENTRY_SOURCES)
+
+
+def tally(launches: dict, *counts) -> None:
+    """Adds launch counts (kernels.snapshot()s) to the main path's tally:
+    every counted kernel, and K2's launches by form (their `forms`)."""
+    for c in counts:
+        for k in COUNTED:
+            launches[k] += c[k]
+        for k, n in getattr(c, "forms", {}).items():
+            launches[k] = launches.get(k, 0) + n
 C4_BUCKET = 3600                # scripts/bench_configs.py:152-153
 P2_BUCKET = 300                 # config 4 zoomed in to 5-minute buckets
 # this slice's two paths: config 3 with -tdigest, config 4 at 300 s
@@ -838,6 +848,174 @@ def b5_edge_containers():
                          value(60000, -3000, 30000, -5, 0.95, None), None,
                          bucket2(3000, 40)], C),
     ]
+
+
+# K1's corner cases (tests/test_torch_decode.py holds the plain version
+# and the column batch to the reference's _decode_bucket2_jit,
+# _decode_bucket_jit and decode_column_batch on the same cases): name ->
+# (blocks, C).  A block is None (the block lacks the column), ("value",
+# n): an int block of value-encoded deltas (a row of another launch: -2
+# in the bucket launches), or (layout, n, values, p_valid, options): a
+# bucket block of n rows in layout "v2" or "v1", its values drawn from
+# `values` distinct ones ("one": a single value; "rare": a second value
+# every 997th row; "cap": every value of 8,192 eight times, the K cap),
+# options dtype (the deltas' type; default the v2 encoder's or the v1
+# narrowing) and shift (every row id moved: v2 seg_bases, v1 id_base).
+# On the card (units of 2,048 postings, 32 a block of
+# 65,536) the few-valued and one-valued blocks' segments cross unit edges,
+# and the v1 blocks carry a prefix through every unit.
+K1_CASES = {
+    "uint8 deltas": ([("v2", 65536, 5, 0.97, {})], 65536),
+    "uint16 deltas": ([("v2", 65536, "rare", 1.0, {})], 65536),
+    "int32 deltas": ([("v2", 65536, 40, 0.8, {"dtype": "int32"})], 65536),
+    "int8 deltas": ([("v2", 65536, 5, 0.97, {"dtype": "int8"}),
+                     ("v2", 30000, 5, 0.9, {"dtype": "int8"})], 65536),
+    "int16 deltas": ([("v2", 65536, "rare", 1.0, {"dtype": "int16"})],
+                     65536),
+    "int64 deltas": ([("v2", 65536, 150, 0.99, {"dtype": "int64"})], 65536),
+    "v1 layout": ([("v1", 65536, 50, 0.9, {}), ("v1", 40000, 7, 0.8, {}),
+                   ("v1", 100, 3, 1.0, {"dtype": "int8"}),
+                   ("v1", 20000, 9, 0.9, {"dtype": "int16"})], 65536),
+    "segments across unit edges": ([("v2", 65536, 3, 0.95, {}),
+                                    ("v2", 65536, 2, 0.5, {})], 65536),
+    "one value a block": ([("v2", 65536, "one", 1.0, {}),
+                           ("v2", 50000, "one", 0.6, {})], 65536),
+    "K at the 8,192 cap": ([("v2", 65536, "cap", 1.0, {})], 65536),
+    "missing and skipped blocks": ([("v2", 65536, 5, 0.9, {}), None,
+                                    ("value", 65536),
+                                    ("v2", 3000, 7, 0.9, {}), None], 65536),
+    "ids outside [0, C)": ([("v2", 4096, 9, 0.8, {"shift": -100}),
+                            ("v2", 4096, 4, 0.9, {"shift": 300}),
+                            ("v1", 4096, 9, 0.8, {"shift": -100}),
+                            ("v1", 4096, 4, 0.9, {"shift": 300})], 4096),
+}
+
+
+def k1_block(rng, spec):
+    """One block of a K1 case (K1_CASES) as a MemContainer, or None."""
+    import numpy as np
+
+    from sybil_tpu_torch.blocks import (BLOCK_VERSION, IntColumnData, _narrow,
+                                        encode_int_column)
+    if spec is None:
+        return None
+    if spec[0] == "value":
+        n = spec[1]
+        meta, s = encode_int_column(IntColumnData(
+            rng.integers(0, 10 ** 9, n).astype(np.int64), rng.random(n) < 0.9))
+        if meta["encoding"] != "value":
+            fail("K1 case: the value block is not value-encoded")
+        return MemContainer(meta, s)
+    layout, n, card, p_valid, opt = spec
+    if card == "one":
+        values = np.full(n, 7, np.int64)
+    elif card == "rare":
+        values = np.zeros(n, np.int64)
+        values[::997] = 1
+    elif card == "cap":
+        values = rng.permutation(np.arange(n, dtype=np.int64) % 8192)
+    else:
+        values = rng.integers(0, card, n).astype(np.int64)
+    valid = rng.random(n) < p_valid
+    rows = np.nonzero(valid)[0].astype(np.int64)
+    order = np.argsort(values[rows], kind="stable")
+    srt = rows[order]
+    uniq, starts = np.unique(values[rows][order], return_index=True)
+    deltas = np.zeros(len(srt), np.int64)
+    deltas[1:] = srt[1:] - srt[:-1]
+    shift = opt.get("shift", 0)
+    meta = {"type": "int", "encoding": "bucket", "num_records": n,
+            "cardinality": len(uniq)}
+    sections = {"uniq": uniq.astype(np.int64),
+                "offsets": np.append(starts, len(srt)).astype(np.int32)}
+    if layout == "v2":
+        deltas[starts] = 0
+        sections["seg_bases"] = (srt[starts] + shift).astype(np.int32)
+        meta["version"] = BLOCK_VERSION
+        hi = int(deltas.max()) if len(deltas) else 0
+        dt = np.uint8 if hi < 256 else np.uint16 if hi < 65536 else np.int32
+    else:
+        meta.update(id_base=int(srt[0]) + shift, version=1)
+        dt = _narrow(deltas).dtype
+    dt = np.dtype(opt.get("dtype", dt))
+    cast = deltas.astype(dt)
+    if not np.array_equal(cast.astype(np.int64), deltas):
+        fail(f"K1 case block {spec}: its deltas do not fit {dt}")
+    sections["id_deltas"] = cast
+    return MemContainer(meta, sections)
+
+
+def k1_case(name: str, seed: int = 0):
+    """K1's corner case `name` -> (containers, C)."""
+    import numpy as np
+    blocks_, C = K1_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K1_CASES).index(name))
+    return [k1_block(rng, b) for b in blocks_], C
+
+
+def k1_layout_inputs(containers, kind: str):
+    """The inputs of one K1 launch over a case's blocks of `kind`
+    ("bucket2" or "bucket", as classify_containers names them): numpy
+    (deltas, counts, offsets, uniq, bases, src_of_row), src -1 for a
+    missing block and -2 for a block of another kind; None when the case
+    has no such block."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import decode
+    kinds, _ = decode.classify_containers(containers, 1 << 30)
+    idx = [i for i, k in enumerate(kinds) if k == kind]
+    if not idx:
+        return None
+    batch = decode.bucket2_batch if kind == "bucket2" else \
+        decode.bucket_v1_batch
+    src = np.array([-1 if k == "missing" else -2 for k in kinds], np.int32)
+    src[idx] = np.arange(len(idx), dtype=np.int32)
+    return (*batch(containers, idx), src)
+
+
+def k1_edge_checks(card, device, errs) -> None:
+    """K1 on the card over K1_CASES, each launch (v2 and v1) held to its
+    plain version bit for bit, the rows another launch owns left as they
+    were, and each case's column batch (decode_check); fails unless a
+    unit's first segment began in an earlier unit (a cut segment) and a
+    look-back read past one unit (decode.K1_PATHS)."""
+    import torch
+
+    from sybil_tpu_torch.ops import decode
+    total = dict.fromkeys(decode.K1_PATHS, 0)
+    for name in K1_CASES:
+        containers, C = k1_case(name)
+        for kind, kern, plain in (
+                ("bucket2", decode.decode_bucket2,
+                 decode.decode_bucket2_plain),
+                ("bucket", decode.decode_bucket_v1,
+                 decode.decode_bucket_v1_plain)):
+            ins = k1_layout_inputs(containers, kind)
+            if ins is None:
+                continue
+            ins = [torch.from_numpy(x).to(device) for x in ins]
+            B = len(containers)
+            # rows of another launch keep what the buffers held
+            out = (torch.full((B, C), FILL, dtype=torch.int64,
+                              device=device),
+                   torch.ones((B, C), dtype=torch.bool, device=device))
+            outp = (out[0].clone(), out[1].clone())
+            paths = torch.zeros(len(decode.K1_PATHS), dtype=torch.int64,
+                                device=device)
+            kern(*ins, C, out=out, paths=paths)
+            plain(*ins, C, out=outp)
+            check_equal(f"K1 case {name!r} {kind} values", out[0], outp[0],
+                        errs["decode_bucket2"])
+            check_equal(f"K1 case {name!r} {kind} valid", out[1], outp[1],
+                        errs["decode_bucket2"])
+            for k, n in zip(decode.K1_PATHS, paths.tolist()):
+                total[k] += n
+        decode_check(f"K1 case {name!r}", containers, C, device, errs)
+    if not all(total.values()):
+        fail(f"K1's paths {total}: each must run")
+    say(f"[{card}] K1 == plain bit for bit on {len(K1_CASES)} corner cases "
+        f"(both layouts, six delta types; the column batches too); paths "
+        f"{total}")
 
 
 # K6's id mode: name -> (blocks, C).  A block is None (the block lacks
@@ -2615,8 +2793,7 @@ def sets_main_path(card, table, arr, launches):
             fail(f"{label}: port CLI query exited {rc}")
         if ll != dict(zero, **expect):
             fail(f"{label}: launches {ll}, expected {expect}")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
         return json.loads(out), wall, ll
 
     residency.CACHE.clear()
@@ -2719,13 +2896,12 @@ def sets_main_path(card, table, arr, launches):
         f5, p5 = cli_query(table, S_ARGV[label] + ["-device-batch", str(nb)])
         kernels.reset_launches()
         qr = run_query(table, p5, f5)
-        ll = dict(kernels.LAUNCHES)
+        ll = kernels.snapshot()
         if ll != dict(zero, set_match=1, dense_scan=1, dense_pack=1):
             fail(f"{label}: launches {ll}")
         if qr.matched_count != want_n or qr.cumulative.count != want_n:
             fail(f"{label}: {qr.matched_count} rows, numpy {want_n}")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
         say(f"main path: {label} (groups:{label.split()[1]}:nosuch) on "
             f"cuda: {want_n} rows == numpy; launches {ll}")
 
@@ -2891,7 +3067,7 @@ def run_cli(argv):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    return rc, buf.getvalue(), wall, dict(kernels.LAUNCHES)
+    return rc, buf.getvalue(), wall, kernels.snapshot()
 
 
 def snapshot(qr):
@@ -2955,7 +3131,7 @@ def timed_queries(card, label, table, params, qflags, rows, B, expect):
         t0 = time.perf_counter()
         qr = run_query(table, params, qflags)
         warm.append(time.perf_counter() - t0)
-    wl = dict(kernels.LAUNCHES)
+    wl = kernels.snapshot()
     if wl["decode_bucket2"] != 0 or wl["decode_value"] != 0:
         fail(f"{label}: warm queries ran a decode kernel: {wl}")
     for k, n in expect.items():
@@ -2967,7 +3143,7 @@ def timed_queries(card, label, table, params, qflags, rows, B, expect):
         kernels.reset_launches()
         multi = run_query(table, params, dataclasses.replace(
             qflags, device_batch=nb))
-        ml = dict(kernels.LAUNCHES)
+        ml = kernels.snapshot()
         for k, n in expect.items():
             if ml[k] != nbatch * n:
                 fail(f"{label}: {nbatch}-batch query: expected {k} {n}x "
@@ -3265,7 +3441,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
         try:
             qr_w = run_query(ctab, params, cflags)
         finally:
-            lw = dict(kernels.LAUNCHES)
+            lw = kernels.snapshot()
             scan.scan_packed = real
             state["kind"] = None
         if qcache.MISSES - m0 != ng or len(qfiles()) != ng:
@@ -3274,7 +3450,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
         h0, m0 = qcache.HITS, qcache.MISSES
         kernels.reset_launches()
         qr_h = run_query(ctab, params, cflags)
-        lh = dict(kernels.LAUNCHES)
+        lh = kernels.snapshot()
         if (qcache.HITS - h0, qcache.MISSES - m0) != (ng, 0):
             fail(f"cache {kind}: the hit run hit {qcache.HITS - h0} and "
                  f"missed {qcache.MISSES - m0} of {ng} groups")
@@ -3296,8 +3472,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
                              f"numpy")
         if kind not in captured:
             fail(f"cache {kind}: no cache-group scan ran")
-        for k in COUNTED:
-            launches[k] += lw[k] + lh[k]
+        tally(launches, lw, lh)
         cfg = captured[kind][0]
         say(f"cache {kind}: write and hit == uncached ({len(qr_u.results)} "
             f"groups, {qr_u.matched_count} rows); {cfg.strategy} strategy, "
@@ -3322,8 +3497,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
             r = got[h]
             if r["Count"] != cnt or r["ping"] != s / cnt:
                 fail(f"cache CLI {run} group {h}: {r} vs numpy {cnt}, {s}")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
         say(f"main path: CLI -cache-queries group by host avg ping, the "
             f"{run}, == numpy; launches {nonzero(ll)}; wall {wall:.3f}s")
 
@@ -3332,14 +3506,13 @@ def cache_phase(card, root, table, up, errs, launches, device):
     p_ga = cache_params("group_avg")
     kernels.reset_launches()
     qr = run_query(ctab, p_ga, dataclasses.replace(cflags, device_batch=16))
-    ll = dict(kernels.LAUNCHES)
+    ll = kernels.snapshot()
     if cache_snapshot(qr) != uncached["group_avg"]:
         fail("cache group_avg at device_batch 16 differs from uncached")
     if ll["dense_scan"] != ng or ll["dense_pack"] != ng:
         fail(f"cache group_avg at device_batch 16: launches {nonzero(ll)}, "
              f"expected one K2 and one K3 a group")
-    for k in COUNTED:
-        launches[k] += ll[k]
+    tally(launches, ll)
     say(f"cache group_avg at device_batch 16 (one group a dispatch) == "
         f"uncached; launches {nonzero(ll)}")
 
@@ -3425,7 +3598,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
     h0, m0 = qcache.HITS, qcache.MISSES
     kernels.reset_launches()
     qr = run_query(Table("uptime", flags), p_ga, cflags)
-    ll = dict(kernels.LAUNCHES)
+    ll = kernels.snapshot()
     hits, misses = qcache.HITS - h0, qcache.MISSES - m0
     want2 = numpy_groupby(np.concatenate([up["host"], h_new]),
                           np.concatenate([up["ping"], p_new]))
@@ -3437,8 +3610,7 @@ def cache_phase(card, root, table, up, errs, launches, device):
     if (hits, misses) != (ng, 1):
         fail(f"cache group_avg after the append: {hits} hits and {misses} "
              f"misses, not {ng} and 1")
-    for k in COUNTED:
-        launches[k] += ll[k]
+    tally(launches, ll)
     say(f"cache group_avg after the append: {hits} hits, {misses} miss(es) "
         f"== numpy over {len(up['host']) + n_new} rows; launches "
         f"{nonzero(ll)}")
@@ -3873,6 +4045,164 @@ def k16_edge_checks(card, device, errs) -> None:
     say(f"[{card}] K16 corner cases: {n} (case, shape) pairs, "
         f"shuffle_keys, shuffle_reduce (both walks, both reduce forms) "
         f"and shuffle_unpack == their plain versions word for word")
+
+
+# K2's shared and global forms, corner cases (tests/test_torch_scan.py
+# holds the plain version to the reference's _scan_dense and _dense_gid on
+# the same batches, made smaller): name -> options.  keys: the group keys'
+# (min, card); layout "random" (MISSING keys among them), "one" (every
+# row on one gid) or "lanes" (row r on gid r % 32: a warp's 32 rows on 32
+# gids); aggs "avg" or "hist" (a histogram aggregation: min/max, gid_out);
+# filters: (column, op, value, kind) on the int column f or the str column
+# s; weight: a weight column of +-2^40 and values of +-2^62 (wrapping
+# 64-bit lanes); mask: the matched mask; cg: the cache-group key
+# (vg_span 2) ahead of the keys; time: a time key's (quotient min, card)
+# at tb 1,000, not windowed unless `window`; spill: keys and quotients
+# past their bounds; form: the form launched (default dense_scan_path's).
+# The last block holds C // 2 + 3 records.  On the card (B 4, C 65,536)
+# the cards at the limits put the shared form's tables where the names say
+# (scan.dense_scan_route: 32 narrow tables of 204 slots fit the per-warp
+# budget, 205 do not; 5,120 wide slots fit SHARED_TABLE_BYTES, 5,121 do
+# not; 11,520 windowed slots fit one CTA's shared memory).
+K2_CASES = {
+    "every row of a warp on one gid": dict(keys=((0, 5),), layout="one"),
+    "32 gids a warp": dict(keys=((0, 63),), layout="lanes"),
+    "filters and the mask": dict(
+        keys=((0, 5), (0, 3)), mask=True,
+        filters=(("f", "lt", 60, "int"), ("s", "neq", 2, "str"))),
+    "weighted, wrapping 64-bit lanes": dict(keys=((0, 5),), weight=True),
+    "hist min/max and gid_out": dict(keys=((0, 5), (0, 4)), aggs="hist"),
+    "the cache-group key": dict(keys=((0, 5),), cg=True, aggs="hist"),
+    "a time key, not windowed": dict(keys=((0, 5),), time=(50, 20)),
+    "spilled keys and quotients": dict(keys=((0, 3),), time=(50, 20),
+                                       spill=True),
+    "per-warp tables at their limit": dict(keys=((0, 202),)),
+    "a table a CTA past the per-warp limit": dict(keys=((0, 203),)),
+    "a table a CTA at the shared limit": dict(keys=((0, 5118),)),
+    "global tables past the shared limit": dict(keys=((0, 5119),)),
+    "the global form forced": dict(keys=((0, 5), (0, 4)), aggs="hist",
+                                   form="global"),
+    "a windowed table at the resident limit": dict(
+        keys=((0, 9),), time=(50, 1150), window=128),
+}
+K2_TB = 1000
+
+
+def k2_case(name: str, B: int, C: int, seed: int = 0):
+    """K2's corner case `name` as numpy arrays and scan config fields ->
+    (fields (aggs as (col, AggSpec fields) pairs, filters as (col, op,
+    kind) triples), {col: (values int64 [B, C], valid bool [B, C])}, nrec
+    int32 [B], filter values int64 [F], time bucket, form or None)."""
+    import numpy as np
+    o = K2_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K2_CASES).index(name))
+    R = B * C
+    cols = {}
+
+    def put(col, v, m):
+        cols[col] = (np.asarray(v, np.int64).reshape(B, C),
+                     np.asarray(m, bool).reshape(B, C))
+
+    spill = o.get("spill", False)
+    layout = o.get("layout", "random")
+    groups, bounds = [], []
+    if o.get("cg"):
+        groups.append("__cg__")
+        bounds.append((0, B // 2))
+    if o.get("time"):
+        q0, tcard = o["time"]
+        q = rng.integers(q0 - 20 if spill else q0,
+                         q0 + tcard + (20 if spill else 0), R)
+        put("t", q * K2_TB + rng.integers(0, K2_TB, R), rng.random(R) < 0.95)
+        bounds.append((q0, tcard))
+    for i, (mn, card) in enumerate(o["keys"]):
+        if layout == "one":
+            k, m = np.full(R, mn + 2), np.ones(R, bool)
+        elif layout == "lanes":
+            k, m = mn + np.arange(R) % 32, np.ones(R, bool)
+        else:
+            k = rng.integers(mn, mn + card + (1 if spill else 0), R)
+            m = rng.random(R) < 0.9
+        put(f"k{i}", k, m)
+        groups.append(f"k{i}")
+        bounds.append((mn, card))
+    big = 2 ** 62 if o.get("weight") else 0
+    put("v", rng.integers(-big, big, R) if big else
+        rng.integers(-200, 700, R), rng.random(R) < 0.85)
+    put("f", rng.integers(0, 80, R), rng.random(R) < 0.95)
+    put("s", rng.integers(0, 4, R), rng.random(R) < 0.9)
+    if o.get("weight"):
+        put("w", rng.integers(-2 ** 40, 2 ** 40, R), rng.random(R) < 0.9)
+    if o.get("aggs") == "hist":
+        aggs = (("v", dict(hist_min=0, bucket_size=10, num_values=20,
+                           discard_min=-100, discard_max=650)),)
+    else:
+        aggs = (("v", dict(hist_min=0, bucket_size=0, num_values=0,
+                           discard_min=-big or -100,
+                           discard_max=big or 600)),)
+    window = o.get("window", 0)
+    fields = dict(
+        group_cols=tuple(groups), aggs=aggs,
+        filters=tuple((c, op, kind) for c, op, _, kind in
+                      o.get("filters", ())),
+        time_col="t" if o.get("time") else "",
+        weight_col="w" if o.get("weight") else "", key_bounds=tuple(bounds),
+        window=window, window_chunk=min(C, 8192) if window else 0,
+        time_i32=bool(o.get("time")), want_matched_mask=bool(o.get("mask")),
+        vg_span=2 if o.get("cg") else 0)
+    nrec = np.full(B, C, np.int32)
+    nrec[-1] = C // 2 + 3
+    fvals = np.asarray([v for _, _, v, _ in o.get("filters", ())], np.int64)
+    return fields, cols, nrec, fvals, K2_TB, o.get("form")
+
+
+def k2_edge_checks(card, device, errs) -> None:
+    """K2's shared and global forms on the card over K2_CASES (B 4, C
+    65,536), each launch held to its plain version word for word: every
+    form that applies (shared and global; windowed and global for a
+    windowed rollup) or the case's own.  Fails unless every route of the
+    tiled kernel (scan.K2_PATHS: a table a warp, a table a CTA, the global
+    tables) and the windowed form's resident mode ran."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    total = dict.fromkeys(scan.K2_PATHS, 0)
+    resident = 0
+    lines = []
+    for name in K2_CASES:
+        fields, ncols, nrec, fv, tb, form = k2_case(name, 4, 65536)
+        cfg = k2w_config(scan, fields)
+        cols = {k: (torch.from_numpy(v).to(device),
+                    torch.from_numpy(m).to(device))
+                for k, (v, m) in ncols.items()}
+        nrec_t = torch.from_numpy(nrec).to(device)
+        fv_t = torch.from_numpy(fv).to(device)
+        forms = ([form] if form else ["windowed", "global"]
+                 if scan.windowed(cfg) else
+                 ["shared", "global"] if scan.dense_scan_path(cfg) == "shared"
+                 else ["global"])
+        want = scan.dense_scan_plain(cfg, cols, nrec_t, fv_t, (), tb)
+        took = []
+        for f in forms:
+            names = scan.WINDOW_PATHS if f == "windowed" else scan.K2_PATHS
+            paths = torch.zeros(len(names), dtype=torch.int64, device=device)
+            got = scan.dense_scan(cfg, cols, nrec_t, fv_t, (), tb, form=f,
+                                  paths=paths)
+            check_outs("dense_scan", f"case {name!r} ({f})", got, want,
+                       ("sums", "spill", "mins", "maxs", "gid", "mask"), errs)
+            for k, n in zip(names, paths.tolist()):
+                if n and f != "windowed":
+                    total[k] += n
+                if n:
+                    took.append(k)
+            if f == "windowed":
+                resident += paths[0].item()
+        lines.append(f"{name}: {', '.join(took)}")
+    if not all(total.values()) or not resident:
+        fail(f"K2's routes {total}, resident CTAs {resident}: each must run")
+    say(f"[{card}] K2 shared and global forms == plain word for word on "
+        f"{len(K2_CASES)} corner cases; routes (CTAs) {total}, windowed "
+        f"resident {resident}: " + "; ".join(lines))
 
 
 # K2's windowed form, corner cases (tests/test_torch_rollup.py holds the
@@ -4435,9 +4765,8 @@ def mesh_phase(card, specs, errs, launches, device):
                 t0 = time.perf_counter()
                 qr_m = run_query(table, params, dataclasses.replace(mflags))
                 warm.append(time.perf_counter() - t0)
-            lw = dict(kernels.LAUNCHES)
-            for k in COUNTED:
-                launches[k] += lw[k]
+            lw = kernels.snapshot()
+            tally(launches, lw)
             per = {k: n / 5 for k, n in lw.items() if n}
             nb = sp["batches"]
             for k, n in dict(sp["expect"], shuffle_partition=1,
@@ -5156,7 +5485,7 @@ def rowstore_phase(card, root, table, up, stbl, sarr, errs, launches,
     real_k3 = scan.dense_pack
 
     def counted_rs(acc, ctx, table_):
-        before = dict(kernels.LAUNCHES)
+        before = kernels.snapshot()
         real_rs(acc, ctx, table_)
         for k in COUNTED:
             rs[k] += kernels.LAUNCHES[k] - before[k]
@@ -5228,8 +5557,7 @@ def rowstore_phase(card, root, table, up, stbl, sarr, errs, launches,
                 f"over the blocks and the tail ({what}); {nlogs} log(s) "
                 f"decoded natively; rowstore phase launches {phase}; sorted "
                 f"retries {took}; wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
         state["label"] = None
         if devs != {dev_arg}:
             fail(f"row store: the rowstore phase ran on {devs}")
@@ -5482,6 +5810,7 @@ def main(argv=None) -> int:
         say(f"K1 decode_bucket2 == plain (tolerance 0) on the table's host "
             f"and ping columns and {len(edges)} edge batches: "
             + ", ".join(label for label, _, _ in edges))
+        k1_edge_checks(card, dev, errs)
 
         # K6 on the real time containers of both user_sessions tables
         k6_main = {}
@@ -5693,6 +6022,7 @@ def main(argv=None) -> int:
         k2w_edge_checks(card, dev, errs, [
             (f"config 4 {tl}", cfg, cols_, nrec_, None, (), C4_BUCKET, None)
             for tl, (cfg, cols_, nrec_) in c4.items()])
+        k2_edge_checks(card, dev, errs)
 
         for label in EDGE_SCANS:
             cfg, ecols, enrec, efv, ebits, etb = edge_scan(label, dev)
@@ -5982,8 +6312,7 @@ def main(argv=None) -> int:
         say(f"main path: CLI query group by host avg ping on cuda == numpy "
             f"group-by ({len(want)} groups, {args.rows} rows); launches "
             f"{l1}; wall {cli_wall:.3f}s")
-        for k in COUNTED:
-            launches[k] += l1[k]
+        tally(launches, l1)
 
         hist_argv = {
             "config 3": ["-group", "host", "-int", "ping", "-op", "hist",
@@ -6033,8 +6362,7 @@ def main(argv=None) -> int:
             say(f"main path: CLI {label} on cuda == numpy group-by ({ng} "
                 f"groups, {args.rows} rows, count, sum, bucket counts, "
                 f"{nout} outliers); launches {ll}; wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
         # config 4 on both user_sessions tables, cold (cache cleared)
         want4 = numpy_rollup(us["time"], us["action"], us["weight"],
                              C4_BUCKET)
@@ -6071,8 +6399,7 @@ def main(argv=None) -> int:
                 f"group-by ({len(want4)} (time bucket, action) rows, "
                 f"{args.rows} rows, count and weight sum each); cold "
                 f"launches {ll}; wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
 
         # path 1 through the CLI, cold: -tdigest on uptime.  The (host,
         # ping) pairs the engine absorbs are recorded on their way in
@@ -6142,8 +6469,7 @@ def main(argv=None) -> int:
             f"rows, {len(want_pairs)} (host, ping) pairs with their counts, "
             f"percentiles of a t-digest of numpy's pairs); cold launches "
             f"{ll}; wall {wall:.3f}s")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
 
         # path 2 through the CLI, cold, on both user_sessions tables
         want_p2 = numpy_rollup(us["time"], us["action"], us["weight"],
@@ -6180,8 +6506,7 @@ def main(argv=None) -> int:
                 f"cuda, {tlabel} table == numpy group-by ({len(want_p2)} "
                 f"(time bucket, action) rows, {args.rows} rows, count and "
                 f"weight sum each); cold launches {ll}; wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
 
         # a dense key bound that spills, retried on the sorted strategy
         sroot, snb, want_s = spill_table(os.path.join(root, "spill"))
@@ -6279,8 +6604,7 @@ def main(argv=None) -> int:
                 f"group's count and mean weight == numpy; Cumulative and "
                 f"matched == {len(uid5)} rows; cold launches {ll}; wall "
                 f"{wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
 
         def run_aggregate(extra):
             """`aggregate` in-process over the results directory, with an
@@ -6347,8 +6671,7 @@ def main(argv=None) -> int:
             say(f"main path: CLI config 5 {label} on cuda (partition 1): "
                 f"{len(counts)} printed groups == numpy; launches {ll}; "
                 f"wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
 
         # the sorted strategy's device prune: one user's rows of
         # partition 1 grouped by the second (past ENUM_RADIX_CAP)
@@ -6383,8 +6706,7 @@ def main(argv=None) -> int:
             f"numpy, in order ({len(secs)} seconds, counts "
             f"{hc[top[0]]}..{hc[top[-1]]}); launches {ll}; wall "
             f"{wall:.3f}s")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
 
         # count distinct through the CLI: the device HLL (int and str
         # distinct columns), the distinct pairs of -op distinct (D = 2)
@@ -6457,8 +6779,7 @@ def main(argv=None) -> int:
             say(f"main path: CLI {label} on cuda: {len(rows_d)} printed "
                 f"groups' Distinct == port HLLs fed the numpy values; "
                 f"launches {ll}; wall {wall:.3f}s")
-            for k in COUNTED:
-                launches[k] += ll[k]
+            tally(launches, ll)
 
         sets_main_path(card, stbl, sarr, launches)
         cache_rows = cache_phase(card, root, table, up, errs, launches, dev)
@@ -6558,8 +6879,7 @@ def main(argv=None) -> int:
         if ll["shuffle_partition"] != 1 or ll["shuffle_reduce"] != \
                 MESH_D or ll["dense_scan"] != MESH_D:
             fail(f"mesh config 1 CLI: launches {ll}")
-        for k in COUNTED:
-            launches[k] += ll[k]
+        tally(launches, ll)
         say(f"main path: CLI config 1 -data-shards {MESH_D} on cuda == numpy "
             f"group-by; launches {ll}; wall {wall:.3f}s")
         rs_rows = rowstore_phase(card, root, table, up, stbl, sarr, errs,

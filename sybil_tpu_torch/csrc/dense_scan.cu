@@ -51,36 +51,62 @@
 // referenced column, plus 4 B of gid written when K4 follows.  The sums
 // are tiny.  All lane arithmetic is unsigned 64-bit, so products and
 // sums wrap mod 2^64 exactly as the reference's int64 lanes do.  Min and
-// max are signed 64-bit atomics; a thread reads the current bound first
-// and skips the atomic when its value cannot change it (bounds only
-// move one way, so a stale read only costs an extra atomic).  Empty
-// slots keep the reference's sentinels, +2^62 and -2^62.  Unmatched
-// rows add nothing (every lane is masked by `matched`, and spills only
-// count matched rows), so they are skipped.  The reference's byte-limb
-// encoding (lane_limbs8), f32 min/max and one-hot matmuls are TPU
-// devices and do not apply: all give the same int64 results.  Three
-// forms, the same words:
-//   shared   a grid-stride loop, one row per thread per step; each CTA
-//            accumulates private copies of the [Sc, L] sums and [Sc, H]
-//            min/max tables in shared memory and merges them into the
-//            global tables once (tables up to 200 KB);
-//   global   the same loop updating the global tables directly;
-//   windowed a rollup's table is often larger than a CTA's shared
-//            memory in 64-bit lanes (config 4: 6,784 slots x 5 lanes =
-//            271 KB).  A 64-bit shared atomicAdd compiles to a CAS spin
-//            loop (ATOMS.CAST.SPIN.64; sybil_tpu_torch/k2_ab.py --trace),
-//            which a time-sorted chunk (one or two hours: about 9
-//            distinct slots) makes every warp contend on, and a chunk of
-//            rows in arrival order spans every slot, so a band sized to
-//            the bind's window is swept many times (PERF.md row 15b).  So
-//            this form keeps narrow lanes (two native 32-bit atomics for
-//            a 64-bit sum), combines a warp's equal slots before it
-//            touches shared memory, holds the whole reduce space in one
-//            table a CTA when it fits (34 bytes a slot or fewer at config
-//            4's 6,784 slots: config 4 takes 20), and otherwise sizes each
-//            chunk's sweep to its live span or sends a sparse chunk
-//            straight to the global tables; see "the windowed form"
-//            below.
+// max are signed 64-bit; a leader reads the current bound first and
+// skips the atomic when its value cannot change it (bounds only move one
+// way, so a stale read only costs an extra atomic).  Empty slots keep the
+// reference's sentinels, +2^62 and -2^62.  Unmatched rows add nothing
+// (every lane is masked by `matched`, and spills only count matched
+// rows).  The reference's byte-limb encoding (lane_limbs8), f32 min/max
+// and one-hot matmuls are TPU devices and do not apply: all give the
+// same int64 results.
+//
+// What a trace of the former shared and global forms showed (PERF.md §6,
+// PR 15; torch.profiler and cuobjdump on the H100).  They took one row a
+// thread a step, 8 CTAs of 256 threads a SM, and each matched row made
+// its L = 2 + 3A 64-bit atomics on its own: a shared 64-bit atomicAdd is
+// a CAS spin loop (ATOMS.CAST.SPIN.64), which every warp of a CTA spun on
+// for config 1's 5 hosts (357 us at 8,388,608 rows; 179 us with 500
+// hosts; 167 us at config 3, whose filter drops four rows of five), and
+// the global form's uncombined 64-bit atomics piled onto the same words
+// (27.2 ms at config 1).  A row's loads also formed one chain: the
+// filters, then the keys, then each aggregation, each waiting on the
+// last.
+//
+// Design: the tiled kernel (dense_scan_tiles), one CTA of TT threads a
+// SM, serves the shared and global forms and the windowed form's
+// resident mode.  A warp takes tiles of 32 x TU rows, TU rows a lane
+// (rows lane + 32u, so every load and store is coalesced), and reads a
+// tile a column at a time: a filter's, a key's or an aggregation's TU rows
+// are loaded together, unconditionally, so a tile waits on one load a
+// column rather than each row on one load a column.  The table, by size
+// (the wrapper's choice, dense_scan_route; any gives the same words):
+//   per warp   a table a warp in shared memory (the CTA's 32 fit): no
+//              warp's atomics meet another's;
+//   per CTA    one table a CTA (the windowed form's resident mode too);
+//   global     the global tables directly.
+// Shared tables keep narrow lanes (WinLayout): a lane that adds 0 or 1 a
+// row is one 32-bit word, a 64-bit lane two words added by two native
+// 32-bit atomics with the carry taken from the old low word, so nothing
+// spins, and each matched row adds itself (add_own).  A CTA flushes its
+// tables' non-zero words to the global tables once.  The global form
+// first combines a warp's equal gids (add_rows: __match_any_sync groups
+// them, 0/1 lanes are counted by ballot, the 64-bit lanes and the min/max
+// reduced by shuffles, one leader a group touches the table), since its
+// 64-bit global atomics pile onto the same words.  Tried and dropped on
+// the H100 (PERF.md §6, PR 15): that combining in shared tables too
+// (config 1 0.131 ms against 0.080 uncombined; the match and the shuffle
+// rounds cost more than the atomics they save), a slot a lane summed by
+// warp reductions (REDUX; twice as slow), an L2 prefetch of the next tile
+// (7-18% slower) and tiles of 8 rows a lane (register spills).
+
+// The windowed form (a rollup's table past a CTA's shared memory, PR 12)
+// keeps its chunked kernel: a time-sorted chunk (one or two hours: about
+// 9 distinct slots) spans a narrow band of slots, and a chunk of rows in
+// arrival order spans every slot, so a band sized to the bind's window
+// would be swept many times (PERF.md row 15b).  A CTA takes chunks of
+// rows from an atomic counter and sizes each chunk's sweep to its live
+// span, or sends a sparse chunk straight to the global tables; see "the
+// windowed form" below.
 
 #include <climits>
 #include <cstdint>
@@ -91,9 +117,14 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;       // fill_bounds
 constexpr long long BIG = 1ll << 62;
 constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TT = 1024;     // the tiled kernel's threads (one CTA a SM)
+constexpr int TU = 4;        // rows a lane a tile: 32 x TU rows a warp
+constexpr int TH = 2;        // rows a lane add_own / add_rows take at once
+constexpr int WT = 1024;     // the windowed kernel's threads
 
 }  // namespace
 
@@ -165,208 +196,195 @@ __device__ __forceinline__ T go_trunc_div(T x, T d) {
   return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
 }
 
-// Row r's match and reduce-space gid (s_fv: the first FV_SMEM filter
-// constants).  Returns false for an unmatched row (gid and spill
-// untouched).  CG (key 0 is the cache-group key) and TIME (the time key
-// comes next) are template parameters and their digits are peeled off
-// the key loop: a branch on the time key inside the loop made K2 a third
-// slower or more on scans without one (sybil_tpu_torch/k2_ab.py on the
-// H100).  So is HEAD, where the descriptor block lies (desc.cuh).
-template <bool CG, bool TIME, bool HEAD>
-__device__ __forceinline__ bool row_gid(const DenseScanArgs& a, long long r,
-                                        const long long* s_fv, int* gid_out,
-                                        bool* spill_out) {
+// The match and reduce-space gid of the N rows r + 32u (u < N; a warp's
+// tile, or one row), a column at a time: each filter's, the time
+// column's and each key's N rows are loaded before any of them is used.
+// key[u] is row r + 32u's gid, or -1 for an unmatched row or one past R.
+// Writes the rows' matched mask (MASK) and gid_out (dead rows Sc-1), and
+// adds the matched rows that spilled to *spill.  A filter never passes on
+// a missing value; CG (key 0 is the cache-group key) and TIME (the time
+// key comes next) are template parameters and their digits are peeled
+// off the key loop: a branch on the time key inside the loop made K2 a
+// third slower or more on scans without one (sybil_tpu_torch/k2_ab.py on
+// the H100).  So is HEAD, where the descriptor block lies (desc.cuh).
+template <bool CG, bool TIME, bool HEAD, bool MASK, int N>
+__device__ __forceinline__ void tile_gids(const DenseScanArgs& a,
+                                          long long r, const long long* s_fv,
+                                          int* key,
+                                          unsigned long long* spill) {
   const long long cmask = (1ll << a.log2C) - 1;
-  bool matched = (r & cmask) < a.nrec[r >> a.log2C];
-  // the staged constants first, the rest (past FV_SMEM) from global
-  const int nfs = min(a.nfilters, FV_SMEM);
-  for (int i = 0; matched && i < nfs; ++i)
-    matched = passes<HEAD>(a, i, r, s_fv[i]);
-  for (int i = FV_SMEM; matched && i < a.nfilters; ++i)
-    matched = passes<HEAD>(a, i, r, a.filter_vals[i]);
-  if (TIME && matched) matched = a.t_valid[r] != 0;
-  if (!matched) return false;
-  int gid = 0;
-  bool spilled = false;
+  unsigned inr = 0u, live = 0u, sp = 0u;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const long long ru = r + 32 * u;
+    if (ru < a.R) {
+      inr |= 1u << u;
+      live |= (unsigned)((ru & cmask) < a.nrec[ru >> a.log2C]) << u;
+    }
+  }
+  for (int i = 0; i < a.nfilters; ++i) {
+    const long long fv = i < FV_SMEM ? s_fv[i] : a.filter_vals[i];
+    const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
+    unsigned pass = 0u;
+    if (op >= 7) {  // a set filter: K14's bitmasks, no validity lane
+      const unsigned* has = reinterpret_cast<const unsigned*>(
+          desc_at<HEAD>(a.desc, a.f_valid, i));
+      const unsigned* hit = reinterpret_cast<const unsigned*>(
+          desc_at<HEAD>(a.desc, a.f_vals, i));
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const long long ru = r + 32 * u;
+        if (!((inr >> u) & 1u)) continue;
+        const unsigned bit = 1u << (ru & 31);
+        const bool h = (hit[ru >> 5] & bit) != 0u;
+        pass |= (unsigned)((has[ru >> 5] & bit) && (op == 7 ? h : !h)) << u;
+      }
+    } else {
+      const long long* vals = desc_at<HEAD>(a.desc, a.f_vals, i);
+      const unsigned char* valid = desc_at<HEAD>(a.desc, a.f_valid, i);
+      long long v[N];
+      unsigned ok = 0u;
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const long long ru = r + 32 * u;
+        v[u] = 0;
+        if ((inr >> u) & 1u) {
+          ok |= (unsigned)(valid[ru] != 0) << u;
+          v[u] = vals[ru];
+        }
+      }
+      if (op == 4 || op == 5) {
+        const unsigned char* bits = desc_at<HEAD>(a.desc, a.f_bits, i);
+        const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
+          if (!((ok >> u) & 1u)) continue;
+          const long long j = v[u] < 0 ? 0 : (v[u] > n - 1 ? n - 1 : v[u]);
+          const bool h = bits[j] != 0;
+          pass |= (unsigned)(op == 4 ? h : !h) << u;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
+          const bool p = op == 0 ? v[u] > fv : op == 1 ? v[u] < fv
+                       : op == 2 ? v[u] == fv : op == 3 ? v[u] != fv : false;
+          pass |= (unsigned)p << u;
+        }
+      }
+      pass &= ok;
+    }
+    live &= pass;
+  }
+  int gid[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) gid[u] = 0;
   int first = 0;
   if (CG) {
-    const long long k = r >> (a.log2C + __ffs(a.vg_span) - 1);
     const long long mn = desc_at<HEAD>(a.desc, a.key_min, 0);
     const long long card = desc_at<HEAD>(a.desc, a.key_card, 0);
-    const long long digit =
-        (long long)((unsigned long long)k - (unsigned long long)mn + 1ull);
-    spilled = (k < mn) |
-              (k >= (long long)((unsigned long long)mn +
-                                (unsigned long long)card));
-    gid = (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    const int sh = a.log2C + __ffs(a.vg_span) - 1;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long k = (r + 32 * u) >> sh;
+      const long long digit =
+          (long long)((unsigned long long)k - (unsigned long long)mn + 1ull);
+      sp |= (unsigned)((k < mn) |
+                       (k >= (long long)((unsigned long long)mn +
+                                         (unsigned long long)card))) << u;
+      gid[u] = (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    }
     first = 1;
   }
   if (TIME) {
     const long long mn = desc_at<HEAD>(a.desc, a.key_min, first);
     const long long card = desc_at<HEAD>(a.desc, a.key_card, first);
-    const long long t = a.t_vals[r];
-    long long q, digit;
-    if (a.time_i32) {
-      const int q32 = go_trunc_div<int, unsigned>(static_cast<int>(t),
-                                                  static_cast<int>(a.tb));
-      q = q32;
-      // int32 like the reference's digit q - mn + 1
-      digit = static_cast<int>(static_cast<unsigned>(q32) -
-                               static_cast<unsigned>(mn) + 1u);
-    } else {
-      q = go_trunc_div<long long, unsigned long long>(t, a.tb);
-      digit = (long long)((unsigned long long)q - (unsigned long long)mn +
-                          1ull);
+    long long t[N];
+    unsigned tv = 0u;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long ru = r + 32 * u;
+      t[u] = 0;
+      if ((inr >> u) & 1u) {
+        tv |= (unsigned)(a.t_valid[ru] != 0) << u;
+        t[u] = a.t_vals[ru];
+      }
     }
-    spilled |= (q < mn) | (q >= mn + card);
-    gid = gid * (int)(card + 1) +
-          (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    live &= tv;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      long long q, digit;
+      if (a.time_i32) {
+        const int q32 = go_trunc_div<int, unsigned>(static_cast<int>(t[u]),
+                                                    static_cast<int>(a.tb));
+        q = q32;
+        // int32 like the reference's digit q - mn + 1
+        digit = static_cast<int>(static_cast<unsigned>(q32) -
+                                 static_cast<unsigned>(mn) + 1u);
+      } else {
+        q = go_trunc_div<long long, unsigned long long>(t[u], a.tb);
+        digit = (long long)((unsigned long long)q - (unsigned long long)mn +
+                            1ull);
+      }
+      sp |= (unsigned)((q < mn) | (q >= mn + card)) << u;
+      gid[u] = gid[u] * (int)(card + 1) +
+               (int)(digit < 0 ? 0 : (digit > card ? card : digit));
+    }
     ++first;
   }
   for (int i = first; i < a.nkeys; ++i) {
-    const long long k = desc_at<HEAD>(a.desc, a.key_valid, i)[r]
-                            ? desc_at<HEAD>(a.desc, a.key_vals, i)[r] : -1ll;
+    const long long* kv = desc_at<HEAD>(a.desc, a.key_vals, i);
+    const unsigned char* km = desc_at<HEAD>(a.desc, a.key_valid, i);
     const long long mn = desc_at<HEAD>(a.desc, a.key_min, i);
     const long long card = desc_at<HEAD>(a.desc, a.key_card, i);
-    long long digit = 0;
-    if (k != -1ll) {
-      digit = (long long)((unsigned long long)k - (unsigned long long)mn
-                          + 1ull);
-      const long long hi =
-          (long long)((unsigned long long)mn + (unsigned long long)card);
-      spilled |= (k < mn) | (k >= hi);
+    const long long hi =
+        (long long)((unsigned long long)mn + (unsigned long long)card);
+    long long k[N];
+    unsigned kok = 0u;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long ru = r + 32 * u;
+      k[u] = 0;
+      if ((inr >> u) & 1u) {
+        kok |= (unsigned)(km[ru] != 0) << u;
+        k[u] = kv[ru];
+      }
     }
-    digit = digit < 0 ? 0 : (digit > card ? card : digit);
-    gid = gid * (int)(card + 1) + (int)digit;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long kk = ((kok >> u) & 1u) ? k[u] : -1ll;
+      long long digit = 0;
+      if (kk != -1ll) {
+        digit = (long long)((unsigned long long)kk - (unsigned long long)mn
+                            + 1ull);
+        sp |= (unsigned)((kk < mn) | (kk >= hi)) << u;
+      }
+      digit = digit < 0 ? 0 : (digit > card ? card : digit);
+      gid[u] = gid[u] * (int)(card + 1) + (int)digit;
+    }
   }
-  // a matched row's gid is below g <= Sc-1, the dead row
-  *gid_out = gid;
-  *spill_out = spilled;
-  return true;
-}
-
-// Adds matched row r's lanes to `row` ([L] sums) and its kept values to
-// `mn`/`mx` ([H] min and max) of its slot.
-template <bool HEAD>
-__device__ __forceinline__ void accumulate(const DenseScanArgs& a,
-                                           long long r,
-                                           unsigned long long* row,
-                                           long long* mn, long long* mx) {
-  unsigned long long w = 1ull;
-  if (a.has_weight && a.w_valid[r]) w = (unsigned long long)a.w_vals[r];
-  if (w) atomicAdd(row, w);
-  atomicAdd(row + 1, 1ull);
-  for (int ai = 0; ai < a.naggs; ++ai) {
-    if (!desc_at<HEAD>(a.desc, a.agg_valid, ai)[r]) continue;
-    const long long v = desc_at<HEAD>(a.desc, a.agg_vals, ai)[r];
-    atomicAdd(row + 2 + 3 * ai, 1ull);
-    if (v > desc_at<HEAD>(a.desc, a.agg_dmax, ai) ||
-        v < desc_at<HEAD>(a.desc, a.agg_dmin, ai))
-      continue;  // not kept
-    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
-    if (mm >= 0) {
-      if (v < *(volatile long long*)(mn + mm)) atomicMin(mn + mm, v);
-      if (v > *(volatile long long*)(mx + mm)) atomicMax(mx + mm, v);
+  live &= inr;
+  *spill += __popc(sp & live);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const long long ru = r + 32 * u;
+    const bool m = (live >> u) & 1u;
+    if ((inr >> u) & 1u) {
+      if (MASK) a.mask[ru] = m;
+      if (a.gid_out) a.gid_out[ru] = m ? gid[u] : a.Sc - 1;
     }
-    if (!w) continue;
-    atomicAdd(row + 3 + 3 * ai, w);
-    const unsigned long long kwv =
-        w * ((unsigned long long)v -
-             (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias, ai));
-    if (kwv) atomicAdd(row + 4 + 3 * ai, kwv);
+    key[u] = m ? gid[u] : -1;
   }
 }
 
-// At most 32 registers a thread, so the 8 CTAs a SM that the wrapper's
-// grid assumes fit: left free, the descriptor offsets hoisted out of the
-// row loop took 48, 5 CTAs fit, and K2 ran 19% (config 1's shape) and
-// 63% (config 3's) slower, a second wave included (k2_ab.py on the H100).
-template <bool SHARED, bool CG, bool TIME, bool HEAD, bool MASK>
-__global__ void __launch_bounds__(THREADS, 8) dense_scan_kernel(
-    const DenseScanArgs a) {
-  extern __shared__ __align__(16) unsigned long long s_tab[];
-  __shared__ unsigned long long s_spill;
-  __shared__ long long s_fv[FV_SMEM];
-  const int tabn = a.Sc * a.L;
-  const int mmn = a.Sc * a.H;
-  long long* s_min = reinterpret_cast<long long*>(s_tab + tabn);
-  long long* s_max = s_min + mmn;
-  if (SHARED) {
-    for (int i = threadIdx.x; i < tabn; i += THREADS) s_tab[i] = 0ull;
-    for (int i = threadIdx.x; i < mmn; i += THREADS) {
-      s_min[i] = BIG;
-      s_max[i] = -BIG;
-    }
-  }
-  if (threadIdx.x < min(a.nfilters, FV_SMEM))
-    s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
-  if (threadIdx.x == 0) s_spill = 0ull;
-  __syncthreads();
-  unsigned long long* tab = SHARED ? s_tab : a.sums;
-  long long* mins = SHARED ? s_min : a.mins;
-  long long* maxs = SHARED ? s_max : a.maxs;
-  unsigned long long my_spill = 0ull;
-
-  for (long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-       r < a.R; r += (long long)gridDim.x * THREADS) {
-    int gid;
-    bool spilled;
-    const bool matched =
-        row_gid<CG, TIME, HEAD>(a, r, s_fv, &gid, &spilled);
-    if (MASK) a.mask[r] = matched;
-    if (!matched) {
-      if (a.gid_out) a.gid_out[r] = a.Sc - 1;
-      continue;
-    }
-    if (a.gid_out) a.gid_out[r] = gid;
-    my_spill += spilled;
-    accumulate<HEAD>(a, r, tab + (size_t)gid * a.L,
-                     mins + (size_t)gid * a.H, maxs + (size_t)gid * a.H);
-  }
-  if (my_spill) atomicAdd(&s_spill, my_spill);
-  __syncthreads();
-  if (SHARED) {
-    for (int i = threadIdx.x; i < tabn; i += THREADS)
-      if (s_tab[i]) atomicAdd(a.sums + i, s_tab[i]);
-    for (int i = threadIdx.x; i < mmn; i += THREADS) {
-      if (s_min[i] != BIG) atomicMin(a.mins + i, s_min[i]);
-      if (s_max[i] != -BIG) atomicMax(a.maxs + i, s_max[i]);
-    }
-  }
-  if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
-}
-
-// ---- the windowed form --------------------------------------------------
+// ---- narrow shared tables and the warp's combine -------------------------
 //
-// One CTA of WT threads a SM.  A shared table holds the slots the CTA
-// accumulates into in narrow lanes (WinLayout): a lane that adds 0 or 1
-// a row (the count, each aggregation's exists, and w and kw when there is
-// no weight column, where they equal the count and the kept count) is one
-// 32-bit word, a lane of 64-bit sums two words (lo, hi) added by two
-// native 32-bit shared atomics with the carry taken from the returned old
-// low word.  A 64-bit shared atomicAdd compiles to a CAS spin loop
-// (ATOMS.CAST.SPIN.64 on sm_90a); two 32-bit ones do not spin.  Rows are
-// combined a warp at a time first: __match_any_sync groups the warp's
-// equal slots, 0/1 lanes are counted by ballot and popc, the 64-bit lanes
-// and the min/max are reduced over the group by shuffles (reduce_peers),
-// and one leader a group touches the table.  Modes (a.chunk):
-//   resident (chunk 0)  the whole reduce space fits: the table covers
-//            every slot, each CTA strides over rows (an equal share each)
-//            and flushes its non-zero entries to the global tables once;
-//   per chunk  otherwise: a CTA takes chunks of `chunk` rows from an
-//            atomic counter, stages their gids in shared memory with the
-//            live span [lo, hi] and the live count, then
-//            full-span  (span <= band) zeroes span slots, accumulates,
-//                       flushes them;
-//            banded     (span > band, at least 2 live rows a slot) sweeps
-//                       the span in bands of `band` slots;
-//            direct     (sparser) adds each warp group straight to the
-//                       global tables, as the global form does.
-// a.paths (optional, [5]) counts resident CTAs and full-span, banded,
-// direct and empty chunks: the checks read which paths ran.
-
-constexpr int WT = 1024;             // the windowed form's threads
-constexpr unsigned FULL = 0xffffffffu;
+// A shared table holds narrow lanes: a lane that adds 0 or 1 a row (the
+// count, each aggregation's exists, and w and kw when there is no weight
+// column, where they equal the count and the kept count) is one 32-bit
+// word, a lane of 64-bit sums two words (lo, hi) added by two native
+// 32-bit shared atomics with the carry taken from the returned old low
+// word.  A 64-bit shared atomicAdd compiles to a CAS spin loop
+// (ATOMS.CAST.SPIN.64 on sm_90a); two 32-bit ones do not spin.
 
 // Word offsets of the narrow lanes of one slot: [w lo, w hi]? count,
 // then per aggregation [exists, kw (1 or 2 words), kwv lo, kwv hi].
@@ -399,6 +417,7 @@ __device__ __forceinline__ void add64(unsigned* p, unsigned long long x) {
 __device__ __forceinline__ unsigned long long get64(const unsigned* p) {
   return (unsigned long long)p[0] | ((unsigned long long)p[1] << 32);
 }
+
 
 // Lane j of the narrow slot at p, widened to its u64 sum.
 __device__ __forceinline__ unsigned long long lane_value(const WinLayout& w,
@@ -447,79 +466,194 @@ __device__ __forceinline__ T reduce_peers(unsigned peers, T x, Op op) {
   return x;
 }
 
-// Adds the warp's rows to their slots.  Each lane holds row r; `key` is
-// its slot in the shared table (GLOBAL: its gid in a.sums), -1 for a row
-// that adds nothing here.  Every lane of the warp calls it.
-template <bool HEAD, bool GLOBAL>
-__device__ __forceinline__ void warp_add(const DenseScanArgs& a,
+// The table a row adds to: a warp's own shared table, a CTA's shared
+// table, or the global tables.
+enum { M_WARP, M_CTA, M_GLOBAL };
+
+// Adds each matched row r + 32u (u < N; r is this lane's first row) of
+// the warp to its slot key[u] (-1: none) of a shared table on its own:
+// native 32-bit shared atomics (two, with the carry, for a 64-bit lane),
+// and the min/max by 64-bit atomics when a plain read shows the value can
+// move the bound.  A row's weight and each aggregation's N rows are
+// loaded together.
+template <bool HEAD, int N>
+__device__ __forceinline__ void add_own(const DenseScanArgs& a,
+                                        const WinLayout& w, long long r,
+                                        const int* key, unsigned* tab,
+                                        long long* tmin, long long* tmax) {
+  unsigned long long wt[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const long long ru = r + 32 * u;
+    bool wv = false;
+    long long wx = 1;
+    if (w.hw && key[u] >= 0) {
+      wv = a.w_valid[ru] != 0;
+      wx = a.w_vals[ru];
+    }
+    wt[u] = wv ? (unsigned long long)wx : 1ull;
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    if (key[u] < 0) continue;
+    unsigned* p = tab + (size_t)key[u] * w.sw;
+    if (w.hw) add64(p, wt[u]);
+    atomicAdd(p + w.cw, 1u);
+  }
+  for (int ai = 0; ai < a.naggs; ++ai) {
+    const long long* vals = desc_at<HEAD>(a.desc, a.agg_vals, ai);
+    const unsigned char* valid = desc_at<HEAD>(a.desc, a.agg_valid, ai);
+    const long long dmin = desc_at<HEAD>(a.desc, a.agg_dmin, ai);
+    const long long dmax = desc_at<HEAD>(a.desc, a.agg_dmax, ai);
+    const unsigned long long bias =
+        (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias, ai);
+    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
+    long long v[N];
+    unsigned ex = 0u;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long ru = r + 32 * u;
+      v[u] = 0;
+      if (key[u] >= 0) {
+        ex |= (unsigned)(valid[ru] != 0) << u;
+        v[u] = vals[ru];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      if (!((ex >> u) & 1u)) continue;
+      unsigned* q = tab + (size_t)key[u] * w.sw + w.cw + 1 + ai * w.pa;
+      atomicAdd(q, 1u);
+      if (v[u] > dmax || v[u] < dmin) continue;  // not kept
+      const unsigned long long kwv = wt[u] * ((unsigned long long)v[u] - bias);
+      if (w.hw) {
+        add64(q + 1, wt[u]);
+        add64(q + 3, kwv);
+      } else {
+        atomicAdd(q + 1, 1u);
+        add64(q + 2, kwv);
+      }
+      if (mm >= 0) {
+        const size_t o = (size_t)key[u] * a.H + mm;
+        if (v[u] < *(volatile long long*)(tmin + o)) atomicMin(tmin + o, v[u]);
+        if (v[u] > *(volatile long long*)(tmax + o)) atomicMax(tmax + o, v[u]);
+      }
+    }
+  }
+}
+
+// Adds the warp's rows r + 32u (u < N; r is this lane's first row) to
+// their slots: key[u] is the row's slot in the shared table (M_GLOBAL: its
+// gid in a.sums), -1 for a row that adds nothing.  A row's weight and each
+// aggregation's N rows are loaded together.  Every lane of the warp calls
+// it.
+template <bool HEAD, int N>
+__device__ __forceinline__ void add_rows(const DenseScanArgs& a,
                                          const WinLayout& w, long long r,
-                                         int key, unsigned* s_tab,
-                                         long long* s_min, long long* s_max) {
-  const bool live = key >= 0;
-  const unsigned peers = __match_any_sync(FULL, key);
-  const bool lead = live && (threadIdx.x & 31) == __ffs(peers) - 1;
-  const unsigned n = __popc(peers);
-  unsigned long long wt = 1ull;
-  if (w.hw && live && a.w_valid[r]) wt = (unsigned long long)a.w_vals[r];
-  unsigned* p = s_tab + (size_t)(live ? key : 0) * w.sw;
-  unsigned long long* row = a.sums + (size_t)(live ? key : 0) * a.L;
-  unsigned long long sw = n;
-  if (w.hw) sw = reduce_peers(peers, live ? wt : 0ull, OpAdd());
-  if (lead) {
-    if (GLOBAL) {
-      if (sw) atomicAdd(row, sw);
-      atomicAdd(row + 1, (unsigned long long)n);
-    } else {
-      if (w.hw) add64(p, sw);
-      atomicAdd(p + w.cw, n);
+                                         const int* key, int mode,
+                                         unsigned* tab, long long* tmin,
+                                         long long* tmax) {
+  const int lane = threadIdx.x & 31;
+  const bool global = mode == M_GLOBAL;
+  unsigned peers[N];
+  unsigned long long wt[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const long long ru = r + 32 * u;
+    // a row that adds nothing is a group of its own and takes no part in
+    // the match, whose time grows with the values it sees
+    const unsigned lm = __ballot_sync(FULL, key[u] >= 0);
+    peers[u] = 1u << lane;
+    if (key[u] >= 0) peers[u] = __match_any_sync(lm, key[u]);
+    bool wv = false;
+    long long wx = 1;
+    if (w.hw && key[u] >= 0) {
+      wv = a.w_valid[ru] != 0;
+      wx = a.w_vals[ru];
+    }
+    wt[u] = wv ? (unsigned long long)wx : 1ull;
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const bool live = key[u] >= 0;
+    const bool lead = live && lane == __ffs(peers[u]) - 1;
+    const unsigned n = __popc(peers[u]);
+    unsigned long long sw = n;
+    if (w.hw) sw = reduce_peers(peers[u], live ? wt[u] : 0ull, OpAdd());
+    if (lead) {
+      if (global) {
+        unsigned long long* row = a.sums + (size_t)key[u] * a.L;
+        if (sw) atomicAdd(row, sw);
+        atomicAdd(row + 1, (unsigned long long)n);
+      } else {
+        unsigned* p = tab + (size_t)key[u] * w.sw;
+        if (w.hw) add64(p, sw);
+        atomicAdd(p + w.cw, n);
+      }
     }
   }
   for (int ai = 0; ai < a.naggs; ++ai) {
-    const bool ex = live && desc_at<HEAD>(a.desc, a.agg_valid, ai)[r];
-    const long long v = ex ? desc_at<HEAD>(a.desc, a.agg_vals, ai)[r] : 0ll;
-    const bool kept = ex && !(v > desc_at<HEAD>(a.desc, a.agg_dmax, ai) ||
-                              v < desc_at<HEAD>(a.desc, a.agg_dmin, ai));
-    const unsigned nex = __popc(__ballot_sync(FULL, ex) & peers);
-    unsigned long long kw;
-    if (w.hw)
-      kw = reduce_peers(peers, kept ? wt : 0ull, OpAdd());
-    else
-      kw = __popc(__ballot_sync(FULL, kept) & peers);
-    const unsigned long long kwv = reduce_peers(
-        peers,
-        kept ? wt * ((unsigned long long)v -
-                     (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias,
-                                                       ai))
-             : 0ull,
-        OpAdd());
-    if (lead) {
-      if (GLOBAL) {
-        unsigned long long* g = row + 2 + 3 * ai;
-        if (nex) atomicAdd(g, (unsigned long long)nex);
-        if (kw) atomicAdd(g + 1, kw);
-        if (kwv) atomicAdd(g + 2, kwv);
-      } else {
-        unsigned* q = p + w.cw + 1 + ai * w.pa;
-        if (nex) atomicAdd(q, nex);
-        if (w.hw) {
-          add64(q + 1, kw);
-          add64(q + 3, kwv);
-        } else {
-          if (kw) atomicAdd(q + 1, (unsigned)kw);
-          add64(q + 2, kwv);
-        }
+    const long long* vals = desc_at<HEAD>(a.desc, a.agg_vals, ai);
+    const unsigned char* valid = desc_at<HEAD>(a.desc, a.agg_valid, ai);
+    const long long dmin = desc_at<HEAD>(a.desc, a.agg_dmin, ai);
+    const long long dmax = desc_at<HEAD>(a.desc, a.agg_dmax, ai);
+    const unsigned long long bias =
+        (unsigned long long)desc_at<HEAD>(a.desc, a.agg_bias, ai);
+    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
+    long long v[N];
+    unsigned ex = 0u;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long ru = r + 32 * u;
+      v[u] = 0;
+      if (key[u] >= 0) {
+        ex |= (unsigned)(valid[ru] != 0) << u;
+        v[u] = vals[ru];
       }
     }
-    const int mm = (int)desc_at<HEAD>(a.desc, a.agg_mm, ai);
-    if (mm >= 0) {
-      const long long mn = reduce_peers(peers, kept ? v : BIG, OpMin());
-      const long long mx = reduce_peers(peers, kept ? v : -BIG, OpMax());
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const bool e = (ex >> u) & 1u;
+      const bool kept = e && !(v[u] > dmax || v[u] < dmin);
+      const bool lead = key[u] >= 0 && lane == __ffs(peers[u]) - 1;
+      const unsigned nex = __popc(__ballot_sync(FULL, e) & peers[u]);
+      unsigned long long kw;
+      if (w.hw)
+        kw = reduce_peers(peers[u], kept ? wt[u] : 0ull, OpAdd());
+      else
+        kw = __popc(__ballot_sync(FULL, kept) & peers[u]);
+      const unsigned long long kwv = reduce_peers(
+          peers[u], kept ? wt[u] * ((unsigned long long)v[u] - bias) : 0ull,
+          OpAdd());
       if (lead) {
-        long long* gmn = GLOBAL ? a.mins : s_min;
-        long long* gmx = GLOBAL ? a.maxs : s_max;
-        const size_t o = (size_t)key * a.H + mm;
-        if (mn < *(volatile long long*)(gmn + o)) atomicMin(gmn + o, mn);
-        if (mx > *(volatile long long*)(gmx + o)) atomicMax(gmx + o, mx);
+        if (global) {
+          unsigned long long* g = a.sums + (size_t)key[u] * a.L + 2 + 3 * ai;
+          if (nex) atomicAdd(g, (unsigned long long)nex);
+          if (kw) atomicAdd(g + 1, kw);
+          if (kwv) atomicAdd(g + 2, kwv);
+        } else {
+          unsigned* q = tab + (size_t)key[u] * w.sw + w.cw + 1 + ai * w.pa;
+          if (nex) atomicAdd(q, nex);
+          if (w.hw) {
+            add64(q + 1, kw);
+            add64(q + 3, kwv);
+          } else {
+            if (kw) atomicAdd(q + 1, (unsigned)kw);
+            add64(q + 2, kwv);
+          }
+        }
+      }
+      if (mm >= 0) {
+        const long long lo = reduce_peers(peers[u], kept ? v[u] : BIG, OpMin());
+        const long long hi =
+            reduce_peers(peers[u], kept ? v[u] : -BIG, OpMax());
+        if (lead) {
+          const size_t o = (size_t)key[u] * a.H + mm;
+          long long* pmn = (global ? a.mins : tmin) + o;
+          long long* pmx = (global ? a.maxs : tmax) + o;
+          if (lo < *(volatile long long*)pmn) atomicMin(pmn, lo);
+          if (hi > *(volatile long long*)pmx) atomicMax(pmx, hi);
+        }
       }
     }
   }
@@ -528,34 +662,124 @@ __device__ __forceinline__ void warp_add(const DenseScanArgs& a,
 __device__ __forceinline__ void band_zero(const WinLayout& w, int H,
                                           unsigned* s_tab, long long* s_min,
                                           long long* s_max, int nslots) {
-  for (int i = threadIdx.x; i < nslots * w.sw; i += WT) s_tab[i] = 0u;
-  for (int i = threadIdx.x; i < nslots * H; i += WT) {
+  for (int i = threadIdx.x; i < nslots * w.sw; i += blockDim.x) s_tab[i] = 0u;
+  for (int i = threadIdx.x; i < nslots * H; i += blockDim.x) {
     s_min[i] = BIG;
     s_max[i] = -BIG;
   }
 }
 
-// The non-empty entries of slots [b0, b0 + nslots) to the global tables.
-__device__ __forceinline__ void band_flush(const DenseScanArgs& a,
-                                           const WinLayout& w,
-                                           const unsigned* s_tab,
-                                           const long long* s_min,
-                                           const long long* s_max, int b0,
-                                           int nslots) {
+// The non-empty entries of slots [b0, b0 + nslots), summed over `nt`
+// shared tables of nslots slots each ([nt][nslots, sw] narrow lanes,
+// [nt][nslots, H] mins and maxs), to the global tables.
+__device__ __forceinline__ void table_flush(const DenseScanArgs& a,
+                                            const WinLayout& w,
+                                            const unsigned* s_tab,
+                                            const long long* s_min,
+                                            const long long* s_max, int b0,
+                                            int nslots, int nt) {
   const int L = a.L;
-  for (int i = threadIdx.x; i < nslots * L; i += WT) {
+  const size_t tw = (size_t)nslots * w.sw, mw = (size_t)nslots * a.H;
+  for (int i = threadIdx.x; i < nslots * L; i += blockDim.x) {
     const int s = i / L, j = i - s * L;
-    const unsigned long long v = lane_value(w, s_tab + (size_t)s * w.sw, j);
+    unsigned long long v = 0ull;
+    for (int t = 0; t < nt; ++t)
+      v += lane_value(w, s_tab + t * tw + (size_t)s * w.sw, j);
     if (v) atomicAdd(a.sums + (size_t)(b0 + s) * L + j, v);
   }
-  for (int i = threadIdx.x; i < nslots * a.H; i += WT) {
-    if (s_min[i] != BIG) atomicMin(a.mins + (size_t)b0 * a.H + i, s_min[i]);
-    if (s_max[i] != -BIG) atomicMax(a.maxs + (size_t)b0 * a.H + i, s_max[i]);
+  for (int i = threadIdx.x; i < nslots * a.H; i += blockDim.x) {
+    long long mn = BIG, mx = -BIG;
+    for (int t = 0; t < nt; ++t) {
+      mn = min(mn, s_min[t * mw + i]);
+      mx = max(mx, s_max[t * mw + i]);
+    }
+    if (mn != BIG) atomicMin(a.mins + (size_t)b0 * a.H + i, mn);
+    if (mx != -BIG) atomicMax(a.maxs + (size_t)b0 * a.H + i, mx);
   }
 }
 
+// a.paths (optional) counts, for the checks, the CTAs of each table mode
+// of the tiled kernel (shared and global forms: [per warp, per CTA,
+// global]) and the windowed form's resident CTAs and chunks
+// (WINDOW_PATHS of ops/scan.py).
 enum { P_RESIDENT, P_FULL_SPAN, P_BANDED, P_DIRECT, P_EMPTY };
 
+// ---- the tiled kernel ----------------------------------------------------
+//
+// One CTA of TT threads a SM.  A warp takes tiles of 32 x TU rows by a
+// grid stride: tile_gids, then add_rows over TH rows a lane at a time.
+// `mode` picks the table (M_WARP: TT / 32 tables of [Sc] slots, one a
+// warp; M_CTA: one; M_GLOBAL: none); each CTA adds one to a.paths[path].
+template <bool CG, bool TIME, bool HEAD, bool MASK>
+__global__ void __launch_bounds__(TT, 1) dense_scan_tiles(
+    const DenseScanArgs a, int mode, int path) {
+  extern __shared__ __align__(16) unsigned long long s_dyn[];
+  __shared__ unsigned long long s_spill;
+  __shared__ long long s_fv[FV_SMEM];
+  const WinLayout w = win_layout(a);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = mode == M_WARP ? TT / 32 : (mode == M_CTA ? 1 : 0);
+  const size_t mmn = (size_t)a.Sc * a.H, tw = (size_t)a.Sc * w.sw;
+  long long* s_min = reinterpret_cast<long long*>(s_dyn);  // [nt][Sc, H]
+  long long* s_max = s_min + nt * mmn;
+  unsigned* s_tab = reinterpret_cast<unsigned*>(s_max + nt * mmn);
+  for (size_t i = threadIdx.x; i < nt * tw; i += TT) s_tab[i] = 0u;
+  for (size_t i = threadIdx.x; i < nt * mmn; i += TT) {
+    s_min[i] = BIG;
+    s_max[i] = -BIG;
+  }
+  if (threadIdx.x < min(a.nfilters, FV_SMEM))
+    s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
+  if (threadIdx.x == 0) s_spill = 0ull;
+  __syncthreads();
+  const int t = mode == M_WARP ? warp : 0;
+  unsigned* tab = s_tab + t * tw;
+  long long* tmin = s_min + t * mmn;
+  long long* tmax = s_max + t * mmn;
+  unsigned long long my_spill = 0ull;
+  const long long step = (long long)gridDim.x * TT * TU;
+  for (long long r0 = ((long long)blockIdx.x * (TT / 32) + warp) * (32 * TU);
+       r0 < a.R; r0 += step) {
+    int key[TU];
+    tile_gids<CG, TIME, HEAD, MASK, TU>(a, r0 + lane, s_fv, key, &my_spill);
+#pragma unroll
+    for (int h = 0; h < TU; h += TH) {
+      bool any = false;
+#pragma unroll
+      for (int u = h; u < h + TH; ++u) any |= key[u] >= 0;
+      if (mode == M_GLOBAL) {
+        if (__any_sync(FULL, any))
+          add_rows<HEAD, TH>(a, w, r0 + lane + 32 * h, key + h, M_GLOBAL,
+                             tab, tmin, tmax);
+      } else if (any) {
+        add_own<HEAD, TH>(a, w, r0 + lane + 32 * h, key + h, tab, tmin,
+                          tmax);
+      }
+    }
+  }
+  if (my_spill) atomicAdd(&s_spill, my_spill);
+  __syncthreads();
+  if (nt) table_flush(a, w, s_tab, s_min, s_max, 0, a.Sc, nt);
+  if (threadIdx.x == 0) {
+    if (s_spill) atomicAdd(a.spill, s_spill);
+    if (a.paths) atomicAdd(a.paths + path, 1ull);
+  }
+}
+
+// ---- the windowed form ---------------------------------------------------
+//
+// One CTA of WT threads a SM takes chunks of `chunk` rows from an atomic
+// counter, stages their gids in shared memory with the live span [lo, hi]
+// and the live count, then
+//   full-span  (span <= band) zeroes span slots of its shared table of
+//              narrow lanes, accumulates, flushes them;
+//   banded     (span > band, at least 2 live rows a slot) sweeps the span
+//              in bands of `band` slots;
+//   direct     (sparser) adds each warp group straight to the global
+//              tables, as the global form does.
+// Rows are combined a warp at a time by add_rows.  When the whole reduce
+// space fits one shared table (chunk 0, band = Sc), the tiled kernel runs
+// instead with one table a CTA: the resident mode, counted as P_RESIDENT.
 template <bool CG, bool TIME, bool HEAD, bool MASK>
 __global__ void __launch_bounds__(WT, 1) dense_scan_windowed(
     const DenseScanArgs a) {
@@ -575,104 +799,69 @@ __global__ void __launch_bounds__(WT, 1) dense_scan_windowed(
   if (threadIdx.x == 0) s_spill = 0ull;
   unsigned long long my_spill = 0ull;
 
-  if (a.chunk == 0) {
-    // resident: the table covers the reduce space
-    band_zero(w, H, s_tab, s_min, s_max, a.Sc);
-    __syncthreads();
-    for (long long r0 = (long long)blockIdx.x * WT + (threadIdx.x & ~31);
-         r0 < a.R; r0 += (long long)gridDim.x * WT) {
-      const long long r = r0 + lane;
-      int key = -1;
-      if (r < a.R) {
-        int gid;
-        bool spilled;
-        const bool matched =
-            row_gid<CG, TIME, HEAD>(a, r, s_fv, &gid, &spilled);
-        if (MASK) a.mask[r] = matched;
-        if (a.gid_out) a.gid_out[r] = matched ? gid : a.Sc - 1;
-        if (matched) {
-          my_spill += spilled;
-          key = gid;
-        }
+  const long long nchunks = (a.R + a.chunk - 1) / a.chunk;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      s_chunk = (long long)atomicAdd(a.counter, 1ull);
+      s_lo = INT_MAX;
+      s_hi = -1;
+      s_live = 0;
+    }
+    __syncthreads();  // also: the last chunk's flush is done
+    const long long c = s_chunk;
+    if (c >= nchunks) break;
+    const long long rc = c * a.chunk;
+    const int n = (int)min((long long)a.chunk, a.R - rc);
+    int lo = INT_MAX, hi = -1, nl = 0;
+    for (int i = threadIdx.x; i < n; i += WT) {
+      int gid;
+      tile_gids<CG, TIME, HEAD, MASK, 1>(a, rc + i, s_fv, &gid, &my_spill);
+      if (gid >= 0) {
+        lo = min(lo, gid);
+        hi = max(hi, gid);
+        ++nl;
       }
-      warp_add<HEAD, false>(a, w, r, key, s_tab, s_min, s_max);
+      s_gid[i] = gid;
+    }
+    lo = __reduce_min_sync(FULL, lo);
+    hi = __reduce_max_sync(FULL, hi);
+    nl = __reduce_add_sync(FULL, nl);
+    if (lane == 0 && nl) {
+      atomicMin(&s_lo, lo);
+      atomicMax(&s_hi, hi);
+      atomicAdd(&s_live, nl);
     }
     __syncthreads();
-    band_flush(a, w, s_tab, s_min, s_max, 0, a.Sc);
-    if (a.paths && threadIdx.x == 0) atomicAdd(a.paths + P_RESIDENT, 1ull);
-  } else {
-    const long long nchunks = (a.R + a.chunk - 1) / a.chunk;
-    for (;;) {
-      if (threadIdx.x == 0) {
-        s_chunk = (long long)atomicAdd(a.counter, 1ull);
-        s_lo = INT_MAX;
-        s_hi = -1;
-        s_live = 0;
-      }
-      __syncthreads();  // also: the last chunk's flush is done
-      const long long c = s_chunk;
-      if (c >= nchunks) break;
-      const long long rc = c * a.chunk;
-      const int n = (int)min((long long)a.chunk, a.R - rc);
-      int lo = INT_MAX, hi = -1, nl = 0;
-      for (int i = threadIdx.x; i < n; i += WT) {
-        int gid;
-        bool spilled;
-        const bool matched =
-            row_gid<CG, TIME, HEAD>(a, rc + i, s_fv, &gid, &spilled);
-        if (MASK) a.mask[rc + i] = matched;
-        if (a.gid_out) a.gid_out[rc + i] = matched ? gid : a.Sc - 1;
-        if (matched) {
-          my_spill += spilled;
-          lo = min(lo, gid);
-          hi = max(hi, gid);
-          ++nl;
-        } else {
-          gid = -1;
-        }
-        s_gid[i] = gid;
-      }
-      lo = __reduce_min_sync(FULL, lo);
-      hi = __reduce_max_sync(FULL, hi);
-      nl = __reduce_add_sync(FULL, nl);
-      if (lane == 0 && nl) {
-        atomicMin(&s_lo, lo);
-        atomicMax(&s_hi, hi);
-        atomicAdd(&s_live, nl);
-      }
-      __syncthreads();
-      const int clo = s_lo, chi = s_hi, nlive = s_live;
-      const int span = chi - clo + 1;
-      int path = P_EMPTY;
-      if (nlive == 0) {
-      } else if (span <= band || nlive >= 2 * span) {
-        path = span <= band ? P_FULL_SPAN : P_BANDED;
-        for (int b0 = clo; b0 <= chi; b0 += band) {
-          const int nb = min(band, chi + 1 - b0);
-          band_zero(w, H, s_tab, s_min, s_max, nb);
-          __syncthreads();
-          for (int i0 = threadIdx.x & ~31; i0 < n; i0 += WT) {
-            const int i = i0 + lane;
-            const int g = i < n ? s_gid[i] : -1;
-            warp_add<HEAD, false>(a, w, rc + i,
-                                  g >= b0 && g < b0 + nb ? g - b0 : -1,
-                                  s_tab, s_min, s_max);
-          }
-          __syncthreads();
-          band_flush(a, w, s_tab, s_min, s_max, b0, nb);
-          __syncthreads();  // the band is free again
-        }
-      } else {
-        path = P_DIRECT;
+    const int clo = s_lo, chi = s_hi, nlive = s_live;
+    const int span = chi - clo + 1;
+    int path = P_EMPTY;
+    if (nlive == 0) {
+    } else if (span <= band || nlive >= 2 * span) {
+      path = span <= band ? P_FULL_SPAN : P_BANDED;
+      for (int b0 = clo; b0 <= chi; b0 += band) {
+        const int nb = min(band, chi + 1 - b0);
+        band_zero(w, H, s_tab, s_min, s_max, nb);
+        __syncthreads();
         for (int i0 = threadIdx.x & ~31; i0 < n; i0 += WT) {
           const int i = i0 + lane;
-          warp_add<HEAD, true>(a, w, rc + i, i < n ? s_gid[i] : -1, s_tab,
-                               s_min, s_max);
+          const int g = i < n ? s_gid[i] : -1;
+          const int k = g >= b0 && g < b0 + nb ? g - b0 : -1;
+          add_rows<HEAD, 1>(a, w, rc + i, &k, M_CTA, s_tab, s_min, s_max);
         }
+        __syncthreads();
+        table_flush(a, w, s_tab, s_min, s_max, b0, nb, 1);
+        __syncthreads();  // the band is free again
       }
-      if (a.paths && threadIdx.x == 0) atomicAdd(a.paths + path, 1ull);
-      __syncthreads();  // every thread has read s_chunk, s_lo, s_hi
+    } else {
+      path = P_DIRECT;
+      for (int i0 = threadIdx.x & ~31; i0 < n; i0 += WT) {
+        const int i = i0 + lane;
+        const int g = i < n ? s_gid[i] : -1;
+        add_rows<HEAD, 1>(a, w, rc + i, &g, M_GLOBAL, s_tab, s_min, s_max);
+      }
     }
+    if (a.paths && threadIdx.x == 0) atomicAdd(a.paths + path, 1ull);
+    __syncthreads();  // every thread has read s_chunk, s_lo, s_hi
   }
   if (my_spill) atomicAdd(&s_spill, my_spill);
   __syncthreads();
@@ -687,64 +876,71 @@ __global__ void fill_bounds(long long* mins, long long* maxs, int n) {
   }
 }
 
+// The C entry's forms (ops/scan.py _K2_FORMS): the tiled kernel with the
+// global tables, one shared table a CTA, or one a warp (at most 32 slots:
+// a lane a slot); the windowed form.
+enum { F_GLOBAL, F_SHARED, F_WINDOWED, F_WARP };
+
 template <bool CG, bool TIME, bool HEAD, bool MASK>
 cudaError_t launch_form(const DenseScanArgs* args, int form, int grid,
-                        size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
+                        cudaStream_t s) {
   cudaError_t err;
-  if (form == 2) {
-    const int sw = (args->has_weight ? 2 : 0) + 1 +
-                   args->naggs * (args->has_weight ? 5 : 4);
+  const int sw = (args->has_weight ? 2 : 0) + 1 +
+                 args->naggs * (args->has_weight ? 5 : 4);
+  const size_t slot = 16 * (size_t)args->H + 4 * (size_t)sw;
+  if (args->R >= (1ll << 31)) return cudaErrorInvalidValue;  // 32-bit lanes
+  if (form == F_WINDOWED && args->chunk != 0) {
     if (args->band <= 0 || args->chunk < 0 || args->band > args->Sc ||
-        (args->chunk == 0 && args->band != args->Sc) ||
-        (args->chunk > 0 && !args->counter) || args->R >= (1ll << 31))
+        !args->counter)
       return cudaErrorInvalidValue;
-    const size_t shm = (size_t)args->band * (16 * args->H + 4 * sw) +
-                       (size_t)args->chunk * sizeof(int);
+    const size_t shm =
+        (size_t)args->band * slot + (size_t)args->chunk * sizeof(int);
     err = cudaFuncSetAttribute(dense_scan_windowed<CG, TIME, HEAD, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
     if (err != cudaSuccess) return err;
     dense_scan_windowed<CG, TIME, HEAD, MASK><<<grid, WT, shm, s>>>(*args);
-  } else if (form == 1) {
-    const size_t shm = tab_bytes + mm_bytes;
-    err = cudaFuncSetAttribute(
-        dense_scan_kernel<true, CG, TIME, HEAD, MASK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (err != cudaSuccess) return err;
-    dense_scan_kernel<true, CG, TIME, HEAD, MASK><<<grid, THREADS, shm, s>>>(
-        *args);
-  } else if (form == 0) {
-    dense_scan_kernel<false, CG, TIME, HEAD, MASK><<<grid, THREADS, 0, s>>>(
-        *args);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
+  int mode, path;
+  switch (form) {
+    case F_GLOBAL: mode = M_GLOBAL; path = 2; break;
+    case F_SHARED: mode = M_CTA; path = 1; break;
+    case F_WARP: mode = M_WARP; path = 0; break;
+    case F_WINDOWED:  // the resident mode
+      if (args->band != args->Sc) return cudaErrorInvalidValue;
+      mode = M_CTA;
+      path = P_RESIDENT;
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  const int nt = mode == M_WARP ? TT / 32 : (mode == M_CTA ? 1 : 0);
+  const size_t shm = (size_t)nt * args->Sc * slot;
+  err = cudaFuncSetAttribute(dense_scan_tiles<CG, TIME, HEAD, MASK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shm);
+  if (err != cudaSuccess) return err;
+  dense_scan_tiles<CG, TIME, HEAD, MASK><<<grid, TT, shm, s>>>(*args, mode,
+                                                                path);
   return cudaGetLastError();
 }
 
 template <bool CG, bool TIME, bool HEAD>
 cudaError_t launch_mask(const DenseScanArgs* args, int form, int grid,
-                        size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
-  return args->mask
-             ? launch_form<CG, TIME, HEAD, true>(args, form, grid, tab_bytes,
-                                                 mm_bytes, s)
-             : launch_form<CG, TIME, HEAD, false>(args, form, grid,
-                                                  tab_bytes, mm_bytes, s);
+                        cudaStream_t s) {
+  return args->mask ? launch_form<CG, TIME, HEAD, true>(args, form, grid, s)
+                    : launch_form<CG, TIME, HEAD, false>(args, form, grid, s);
 }
 
 template <bool CG>
 cudaError_t launch_cg(const DenseScanArgs* args, int form, int grid,
-                      size_t tab_bytes, size_t mm_bytes, cudaStream_t s) {
+                      cudaStream_t s) {
   const bool head = args->desc.n <= DESC_HEAD;
   if (args->has_time)
-    return head ? launch_mask<CG, true, true>(args, form, grid, tab_bytes,
-                                              mm_bytes, s)
-                : launch_mask<CG, true, false>(args, form, grid, tab_bytes,
-                                               mm_bytes, s);
-  return head ? launch_mask<CG, false, true>(args, form, grid, tab_bytes,
-                                             mm_bytes, s)
-              : launch_mask<CG, false, false>(args, form, grid, tab_bytes,
-                                              mm_bytes, s);
+    return head ? launch_mask<CG, true, true>(args, form, grid, s)
+                : launch_mask<CG, true, false>(args, form, grid, s);
+  return head ? launch_mask<CG, false, true>(args, form, grid, s)
+              : launch_mask<CG, false, false>(args, form, grid, s);
 }
 
 }  // namespace
@@ -752,18 +948,19 @@ cudaError_t launch_cg(const DenseScanArgs* args, int form, int grid,
 // Copies the descriptor block, zeroes sums, spill and the chunk counter
 // (one block of words: spill follows the [Sc, L] sums, the counter
 // follows spill) and sets the min/max tables to their sentinels on
-// `stream`, then launches one form: 0 global atomics, 1 per-CTA shared
-// tables, 2 windowed (band slots of narrow lanes in shared memory; chunk
-// rows a chunk, or 0 for the resident table, band = Sc); each writes the
-// matched mask when `mask` is set, and makes key 0 the cache-group key
-// when vg_span > 0 (a power of two; with at least one key).  Returns
-// cudaError_t.
+// `stream`, then launches one form (F_*): the tiled kernel with the
+// global tables (0), one shared table a CTA (1) or one a warp (3), or the
+// windowed form (2: band slots of narrow lanes in shared memory, chunk
+// rows a chunk; chunk 0 is the resident mode, band = Sc, which runs the
+// tiled kernel with one table a CTA).  Each writes the matched mask when
+// `mask` is set, and makes key 0 the cache-group key when vg_span > 0 (a
+// power of two; with at least one key).  Takes fewer than 2^31 rows (the
+// shared tables' 32-bit lanes).  Returns cudaError_t.
 extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t tabn = (size_t)args->Sc * args->L;
   const size_t tab_bytes = tabn * sizeof(unsigned long long);
-  const size_t mm_bytes = (size_t)args->Sc * args->H * 2 * sizeof(long long);
   if (args->spill != args->sums + tabn || args->counter != args->spill + 1)
     return cudaErrorInvalidValue;
   cudaError_t err = desc_upload(args->desc, s);
@@ -780,7 +977,6 @@ extern "C" int dense_scan(const DenseScanArgs* args, int form, int grid,
   if (args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)) ||
       (args->vg_span > 0 && args->nkeys < 1))
     return cudaErrorInvalidValue;
-  return args->vg_span > 0
-             ? launch_cg<true>(args, form, grid, tab_bytes, mm_bytes, s)
-             : launch_cg<false>(args, form, grid, tab_bytes, mm_bytes, s);
+  return args->vg_span > 0 ? launch_cg<true>(args, form, grid, s)
+                           : launch_cg<false>(args, form, grid, s);
 }

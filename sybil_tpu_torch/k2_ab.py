@@ -53,10 +53,24 @@ the sorted device prune at config 5's shape: K12 alone over 100,000
 int64 scores (k 1,000), the select and the gather as the root runs them
 (two calls, or prune_topk_gather's one), and table[pidx].
 
+K1 and K2 (`--only K1,K2`): K1 at row 1's shape (128 v2 blocks of
+65,536 rows of config 1's `ping` and of `host`), the same `ping` launch
+with every row a missing block (the zeroing alone) and row 10's (128 v1
+edge blocks); K2's shared form at config 1's shape (also with 500 hosts,
+with a set filter and the mask beside the same launch without them, and
+with the cache-group key of group_avg: 8 groups of 16 blocks), config
+3's and config 2's (`action neq pageload, weight gt 5, group by action,
+page, hist weight`: 91 compact slots), its global form forced at config
+1's and config 3's shapes, and the windowed form's three config-4
+layouts beside the global form forced on each.
+
 `--only K6,K8` (before the roots) times only the runs whose label
-starts with one of the prefixes (`--only K15,prune` the runs above).
+starts with one of the prefixes and a non-digit (`--only K15,prune` the
+runs above; K1 does not select K10).
 With `--trace ROOT`, `--only` prints each selected run's wall and
-device times and its device work a call as torch.profiler records it.
+device times and its device work a call as torch.profiler records it;
+with K1 or K2 selected, first the atomics and the ptxas registers of each
+kernel of the decode_bucket2 and dense_scan libraries.
 
 Trace (`--trace ROOT`): the atomic instructions each kernel of the
 root's dense_scan and topk_rows libraries compiled to (cuobjdump -sass:
@@ -175,10 +189,20 @@ def kernel_runs(root: str, only=()) -> tuple:
     k8 = scan.segment_reduce(c7, cols, front7, order7)
     _, main10 = main_of(c7)
 
+    c1w = scan.ScanConfig(group_cols=("host",), aggs=(avg,), filters=(),
+                          key_bounds=((0, 500),))
+    cols1w = {"host": col(rng.integers(0, 500, R), 0.93),
+              "ping": cols["ping"]}
     runs = (
         ("K2 config-1 shape", 20,
          lambda: scan.dense_scan(c1, cols1, nrec)),
         ("K2 config-3 shape", 20, lambda: scan.dense_scan(c3, cols, nrec, fv)),
+        ("K2 config-1 shape, 500 hosts (fewer rows a slot)", 20,
+         lambda: scan.dense_scan(c1w, cols1w, nrec)),
+        ("K2 global form forced at config-1 shape", 20,
+         lambda: scan.dense_scan(c1, cols1, nrec, form="global")),
+        ("K2 global form forced at config-3 shape", 20,
+         lambda: scan.dense_scan(c3, cols, nrec, fv, form="global")),
         ("K3 config-1 shape", 200,
          lambda: scan.dense_pack(c1, k2c1, [], [], main1, R)),
         ("K3 config-3 shape", 200,
@@ -239,10 +263,16 @@ def kernel_runs(root: str, only=()) -> tuple:
         runs += c4_runs(scan, dev) + k12_runs(scan, dev)
         runs += k15_runs(scan, dev)
     runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
+    runs += c2_runs(scan, dev) + k1_runs(dev)
     if only:
-        runs = tuple(r for r in runs
-                     if any(r[0].startswith(o) for o in only))
+        runs = tuple(r for r in runs if any(_selects(o, r[0]) for o in only))
     return runs
+
+
+def _selects(prefix: str, label: str) -> bool:
+    """Whether `--only` prefix selects the run `label`: K1 selects "K1
+    v2 ..." but not "K10 ..."."""
+    return label.startswith(prefix) and not label[len(prefix):][:1].isdigit()
 
 
 def time_kernels(root: str, only=()) -> str:
@@ -361,7 +391,10 @@ def c4_runs(scan, dev) -> tuple:
         wcfg = dataclasses.replace(cfg, window=window)
         out += ((f"K2 windowed at config 4, {label}", 20,
                  lambda cols=cols, wcfg=wcfg: scan.dense_scan(
-                     wcfg, cols, nrec, None, (), tb, form="windowed")),)
+                     wcfg, cols, nrec, None, (), tb, form="windowed")),
+                (f"K2 global form forced at config 4, {label}", 20,
+                 lambda cols=cols, wcfg=wcfg: scan.dense_scan(
+                     wcfg, cols, nrec, None, (), tb, form="global")))
     return out
 
 
@@ -536,6 +569,80 @@ def prune_runs(scan, dev) -> tuple:
             ("prune: table[pidx] (torch)", 50, lambda: table[pidx]))
 
 
+def c2_runs(scan, dev, B: int = 128) -> tuple:
+    """K2 at config 2's shape (bench_configs.py:143-155: `action neq
+    pageload, weight gt 5, group by action, page, hist weight`; 9 actions,
+    8 pages, weights of 1, 10 and 100: 91 compact slots)."""
+    import torch
+    C = 65536
+    g = torch.Generator(dev).manual_seed(2)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    cols = {"action": (torch.randint(0, 9, (B, C), device=dev, generator=g),
+                       valid),
+            "page": (torch.randint(0, 8, (B, C), device=dev, generator=g),
+                     valid),
+            "weight": (torch.tensor([1, 10, 100], device=dev)[torch.randint(
+                0, 3, (B, C), device=dev, generator=g)], valid)}
+    cfg = scan.ScanConfig(
+        group_cols=("action", "page"),
+        aggs=(scan.AggSpec("weight", 1, 1, 100, 1, 100),),
+        filters=(scan.FilterSpec("action", "neq", "str"),
+                 scan.FilterSpec("weight", "gt", "int")),
+        key_bounds=((0, 9), (0, 8)))
+    fv = torch.tensor([0, 5], dtype=torch.int64, device=dev)
+    return (("K2 config-2 shape", 20,
+             lambda: scan.dense_scan(cfg, cols, nrec, fv)),)
+
+
+def k1_runs(dev, B: int = 128) -> tuple:
+    """K1 at row 1's shape (128 v2 blocks of 65,536 rows of config 1's
+    `ping`, bench.py's abs(normal(60, 20)) at 89% valid, and of `host`, 5
+    strings at 93%; 8 encoded blocks, each repeated 16 times) and at row
+    10's (128 v1 edge blocks: chip_smoke's `bucket v1` block, 50 values
+    at 90%); and the v2 `ping` launch with every row a missing block
+    (src_of_row -1: only the zeroing runs)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.blocks import (IntColumnData, StrColumnData,
+                                        encode_int_column, encode_str_column)
+    from sybil_tpu_torch.ops import decode
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    C = 65536
+    rng = np.random.default_rng(1)
+
+    def mem(enc):
+        return chip_smoke.MemContainer(*enc)
+
+    ping = [mem(encode_int_column(IntColumnData(
+        np.abs(rng.normal(60, 20, C)).astype(np.int64), rng.random(C) < 0.89)))
+        for _ in range(8)]
+    host = [mem(encode_str_column(StrColumnData(
+        rng.integers(0, 5, C).astype(np.int32), rng.random(C) < 0.93,
+        [f"h{i}" for i in range(5)]))) for _ in range(8)]
+    idx = list(range(B))
+    src = torch.arange(B, dtype=torch.int32, device=dev)
+    zero = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    out = ()
+    for label, cs in (("ping", ping), ("host", host)):
+        ins = [torch.from_numpy(a).to(dev)
+               for a in decode.bucket2_batch([cs[i % 8] for i in idx], idx)]
+        out += ((f"K1 v2 at config 1's {label} ({B} blocks, "
+                 f"{ins[0].dtype} deltas, K {ins[3].shape[1]})", 20,
+                 lambda ins=ins: decode.decode_bucket2(*ins, src, C)),)
+        if label == "ping":
+            out += ((f"K1 v2 zeroing alone ({B} missing blocks)", 20,
+                     lambda ins=ins: decode.decode_bucket2(*ins, zero, C)),)
+    v1 = chip_smoke.v1_container(np.random.default_rng(11), C, 50, 0.9)
+    ins = [torch.from_numpy(a).to(dev)
+           for a in decode.bucket_v1_batch([v1] * B, idx)]
+    out += ((f"K1 v1 edge blocks ({B}, {ins[0].dtype} deltas)", 20,
+             lambda: decode.decode_bucket_v1(*ins, src, C)),)
+    return out
+
+
 def k6_runs(dev, B: int = 128) -> tuple:
     """K6 at row 9's shape: 128 blocks of 65,536 str ids (6,000 distinct,
     about half the rows valid) in its id mode, and the same rows as int32
@@ -626,16 +733,14 @@ def k8_runs(scan, dev, B: int = 128) -> tuple:
     return out
 
 
-def trace(root: str) -> str:
-    """The root's K2 and K12 libraries' atomics by kernel, and config
-    4's chunk spans."""
+def atomics(root: str, kernels, names) -> list:
+    """The atomic instructions each kernel of the root's libraries
+    `names` compiled to (cuobjdump -sass), one line a kernel over its
+    template instances, and ptxas's registers of each instance."""
     import collections
     import re
-
-    import torch
-    kernels, scan = _import_root(root)
     out = []
-    paths = kernels.build(("dense_scan", "topk_rows"))
+    paths = kernels.build(names)
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     for name, so in paths.items():
         sass = subprocess.run([tool, "-sass", so], capture_output=True,
@@ -660,8 +765,36 @@ def trace(root: str) -> str:
             seen[(short, tuple(sorted(c.items())))] += 1
         for (short, c), n in seen.items():
             out.append(f"{root}: {name} {short} ({n} instances): {dict(c)}")
+        log = os.path.join(os.path.dirname(so), name + ".log")
+        if os.path.exists(log):
+            regs = collections.Counter()
+            fn = None
+            for line in open(log, errors="replace"):
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "",
+                                m.group(1))
+                    fn = re.split(r"I[LE]|E", fn)[0]
+                m = re.search(r"Used (\d+) registers", line)
+                if m and fn:
+                    regs[(fn, int(m.group(1)))] += 1
+            out.append(f"{root}: {name} registers (kernel, registers: "
+                       f"instances): "
+                       + ", ".join(f"{f} {r}: {n}"
+                                   for (f, r), n in sorted(regs.items())))
+    return out
+
+
+def trace(root: str) -> str:
+    """The root's K2 and K12 libraries' atomics by kernel, and config
+    4's chunk spans."""
+    import torch
+    kernels, scan = _import_root(root)
+    out = atomics(root, kernels, ("dense_scan", "topk_rows"))
     dev = torch.device("cuda")
     for what, _, fn in c4_runs(scan, dev):
+        if "windowed" not in what:
+            continue
         cols = fn.__defaults__[0]          # the layout's columns
         t, a = cols["time"][0].reshape(-1), cols["action"][0].reshape(-1)
         gid = (torch.div(t, 3600, rounding_mode="floor") * 10 + a).reshape(
@@ -709,10 +842,14 @@ def trace_runs(root: str, only) -> str:
     runs = kernel_runs(root, only)
     sys.path.insert(0, REPO)
     import chip_smoke
-    return "\n".join(f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
-                     f"{_ms(fn, n, queued=True):.4f} ms device; "
-                     f"{chip_smoke.profiled_kernels(fn)}"
-                     for what, n, fn in runs)
+    out = []
+    if any(o.startswith(("K1", "K2")) for o in only):
+        from sybil_tpu_torch.ops import kernels
+        out += atomics(root, kernels, ("decode_bucket2", "dense_scan"))
+    return "\n".join(out + [f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
+                            f"{_ms(fn, n, queued=True):.4f} ms device; "
+                            f"{chip_smoke.profiled_kernels(fn)}"
+                            for what, n, fn in runs])
 
 
 def build_walls_table(table_dir: str) -> None:

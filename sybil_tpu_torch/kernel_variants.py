@@ -1,0 +1,165 @@
+"""Variants of K1's and K2's sources timed side by side on one card.
+
+    python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
+
+Each variant is a copy of `csrc/` under `archive_check/var/<name>/` with
+text replacements in one source (and, where the wrapper must agree, module
+constants of ops/scan.py set in the timing process), built by `nvcc` in
+parallel, then timed in a fresh process each, in two rounds (the second
+in reverse order) on the same card: K2 (dense_scan) at config 1's,
+config 1's global form's, config 3's and config 2's shapes and config 4's
+three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes.  A
+variant that drops work (the row pass, the adds) gives wrong words: it
+only splits the time.  Prints each run's wall and device ms (k2_ab._ms)
+and the ptxas spill lines of the variant's build.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "sybil_tpu_torch", "csrc")
+OUT = os.path.join(ROOT, "archive_check", "var")
+K2S, K1S = "dense_scan", "decode_bucket2"
+# name -> (source, [(old, new)], {ops/scan.py constant: value})
+VARIANTS = {
+    "k2 as committed": (K2S, [], {}),
+    "k2 2 rows a lane": (K2S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 2;")], {"_K2_ROWS": 2}),
+    "k2 8 rows a lane": (K2S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 8;")], {"_K2_ROWS": 8}),
+    "k2 4 rows a step": (K2S, [("constexpr int TH = 2;",
+                                "constexpr int TH = 4;")], {}),
+    "k2 a table a CTA": (K2S, [], {"_K2_WARP_TABLES": 0}),
+    "k2 gids only": (K2S, [("      } else if (any) {",
+                            "      } else if (false) {")], {}),
+    "k1 as committed": (K1S, [], {}),
+    "k1 scan pass alone": (K1S, [
+        ("  bucket_rows<<<dim3(a.nr, a.B), THREADS, shm, s>>>(a);\n", "")],
+        {}),
+    "k1 16 postings a thread": (K1S, [("constexpr int ITEMS = 8;",
+                                       "constexpr int ITEMS = 16;")], {}),
+    "k1 512 threads": (K1S, [("constexpr int THREADS = 256;",
+                              "constexpr int THREADS = 512;")], {}),
+    "k1 16 row ranges": (K1S, [("constexpr int NR = 32;",
+                                "constexpr int NR = 16;")], {}),
+}
+
+
+def make(name: str) -> str:
+    """The variant's copy of csrc/ -> its directory."""
+    src, reps, consts = VARIANTS[name]
+    d = os.path.join(OUT, name.replace(" ", "_"))
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(d, "build"))
+    for f in os.listdir(CSRC):
+        if f.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(CSRC, f), d)
+    path = os.path.join(d, src + ".cu")
+    with open(path) as f:
+        text = f.read()
+    for old, new in reps:
+        if old not in text:
+            raise SystemExit(f"variant {name!r}: {old!r} is not in {src}.cu")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    with open(os.path.join(d, "consts.json"), "w") as f:
+        json.dump(consts, f)
+    return d
+
+
+def k2_shapes(scan, dev) -> list:
+    """(label, iterations, call) of K2 at configs 1 (and its global form)
+    and 3, as k2_ab.py builds them, config 2 and config 4's layouts."""
+    import numpy as np
+    import torch
+
+    import k2_ab
+    rng = np.random.default_rng(0)
+    B, C = 128, 65536
+    R = B * C
+
+    def col(v, p):
+        return (torch.from_numpy(np.asarray(v, np.int64).reshape(B, C))
+                .to(dev),
+                torch.from_numpy(rng.random(R) < p).reshape(B, C).to(dev))
+
+    cols = {"host": col(rng.integers(0, 5, R), 0.93),
+            "ping": col(np.abs(rng.normal(60, 20, R)).astype(np.int64), 0.89),
+            "status": col(rng.integers(0, 5, R), 1.0)}
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    c1 = scan.ScanConfig(group_cols=("host",),
+                         aggs=(scan.AggSpec("ping", 0, 0, 0, 0, 200),),
+                         filters=(), key_bounds=((0, 5),))
+    c3 = scan.ScanConfig(group_cols=("host",),
+                         aggs=(scan.AggSpec("ping", 0, 1, 166, 0, 165),),
+                         filters=(scan.FilterSpec("status", "eq", "str"),),
+                         key_bounds=((0, 5),))
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    cols1 = {k: cols[k] for k in ("host", "ping")}
+    return ([("K2 config-1 shape", 20,
+              lambda: scan.dense_scan(c1, cols1, nrec)),
+             ("K2 global form at config-1 shape", 20,
+              lambda: scan.dense_scan(c1, cols1, nrec, form="global")),
+             ("K2 config-3 shape", 20,
+              lambda: scan.dense_scan(c3, cols, nrec, fv))]
+            + list(k2_ab.c2_runs(scan, dev)) + list(k2_ab.c4_runs(scan, dev)))
+
+
+def child(d: str, src: str) -> None:
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "sybil_tpu_torch"))
+    import torch
+
+    import k2_ab
+    from sybil_tpu_torch.ops import kernels, scan
+    kernels.CSRC, kernels.BUILD_DIR = d, os.path.join(d, "build")
+    with open(os.path.join(d, "consts.json")) as f:
+        for k, v in json.load(f).items():
+            setattr(scan, k, v)
+    dev = torch.device("cuda")
+    runs = k2_shapes(scan, dev) if src == K2S else list(k2_ab.k1_runs(dev))
+    name = os.path.basename(d)
+    for what, n, fn in runs:
+        print(f"{name}: {what}: {k2_ab._ms(fn, n):.4f} ms wall, "
+              f"{k2_ab._ms(fn, n, queued=True):.4f} ms device", flush=True)
+    with open(os.path.join(d, "build", src + ".log")) as f:
+        spills = sorted({line.strip() for line in f if "spill stores" in line
+                         and " 0 bytes spill stores" not in line})
+    print(f"{name}: ptxas spill lines {spills}", flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--child"]:
+        child(argv[1], argv[2])
+        return 0
+    names = argv[0].split(",") if argv else list(VARIANTS)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    dirs = [(make(n), VARIANTS[n][0]) for n in names]
+    builds = [subprocess.Popen([
+        sys.executable, "-c",
+        "import sys; sys.path.insert(0, sys.argv[1]); "
+        "from sybil_tpu_torch.ops import kernels; "
+        "kernels.CSRC, kernels.BUILD_DIR = sys.argv[2], sys.argv[3]; "
+        "kernels.build((sys.argv[4],))", ROOT, d, os.path.join(d, "build"),
+        src]) for d, src in dirs]
+    if any(p.wait() for p in builds):
+        return 1
+    for order in (dirs, dirs[::-1]):
+        for d, src in order:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--child", d, src], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -47,6 +47,12 @@ MAX_K = 8192
 # launch), and a row that another launch writes (left alone)
 ZERO_ROW = -1
 OTHER_ROW = -2
+# K1: the largest C its row ranges take (each range's rows staged in
+# shared memory), and the paths its `paths` counts: v2 units whose first
+# segment began in an earlier unit, and units whose look-back read more
+# than one earlier unit's word
+K1_MAX_C = 1 << 19
+K1_PATHS = ("cut segment", "look-back past one unit")
 
 
 def _pad_pow2(n: int, floor: int = 128) -> int:
@@ -180,7 +186,7 @@ def decode_bucket_v1_plain(deltas, counts, offsets, uniq, id_bases,
 
 
 def _launch_k1(v1: bool, deltas, counts, offsets, uniq, bases, src_of_row,
-               C: int, out):
+               C: int, out, paths):
     dev = deltas.device
     kernel = "decode_bucket_v1" if v1 else "decode_bucket2"
     b, P = deltas.shape
@@ -197,25 +203,35 @@ def _launch_k1(v1: bool, deltas, counts, offsets, uniq, bases, src_of_row,
     _check_C(kernel, C)
     if K > MAX_K:
         raise ValueError(f"{kernel}: K must be <= {MAX_K}, got {K}")
+    if C > K1_MAX_C:
+        raise ValueError(f"{kernel}: C must be <= {K1_MAX_C}, got {C}")
+    if paths is not None:
+        _check_inputs(kernel, [(paths, torch.int64, (len(K1_PATHS),))], dev)
     values, valid = _outputs(out, B, C, dev)
     if B == 0:
         return values, valid
-    fn = kernels.lib("decode_bucket2").decode_bucket2
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    # the ticket and look-back status words (zeroed by the C entry), the
+    # postings by row range and their counts
+    size = kernels.entry("decode_bucket2", "decode_bucket2_scratch",
+                         [ctypes.c_int] * 3, ctypes.c_longlong)
+    scratch = torch.empty(size(B, P, C), dtype=torch.int64, device=dev)
+    fn = kernels.entry("decode_bucket2", "decode_bucket2",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
     kernels.check(fn(deltas.data_ptr(), _TORCH_CODE[deltas.dtype], int(v1),
                      counts.data_ptr(), offsets.data_ptr(), uniq.data_ptr(),
                      bases.data_ptr(), src_of_row.data_ptr(),
-                     values.data_ptr(), valid.data_ptr(), B, P, K, C,
+                     values.data_ptr(), valid.data_ptr(),
+                     scratch.data_ptr(),
+                     0 if paths is None else paths.data_ptr(), B, P, K, C,
                      kernels.stream_handle(dev)), kernel)
     kernels.LAUNCHES["decode_bucket2"] += 1
     return values, valid
 
 
 def decode_bucket2(deltas, counts, offsets, uniq, seg_bases, src_of_row,
-                   C: int, out=None):
+                   C: int, out=None, paths=None):
     """K1, v2 layout: -> (values int64 [B, C], valid bool [B, C]).
 
     deltas [b, P] (u8/u16/i32/i8/i16/i64; the cumsum takes their int32
@@ -223,13 +239,17 @@ def decode_bucket2(deltas, counts, offsets, uniq, seg_bases, src_of_row,
     with 2**31-1); uniq i64 [b, K]; seg_bases i32 [b, K]; src_of_row i32
     [B]: the block (row of the b inputs) of each output row, ZERO_ROW
     for a missing block, OTHER_ROW for a row another launch writes.
-    out: optional (values, valid) to write in place.  CUDA tensors launch
-    csrc/decode_bucket2.cu; CPU tensors take decode_bucket2_plain.
+    out: optional (values, valid) to write in place.  paths: an int64 [2]
+    CUDA tensor to which the launch adds the units that took each of
+    K1_PATHS, or None.  CUDA tensors launch csrc/decode_bucket2.cu; CPU
+    tensors take decode_bucket2_plain.
 
     Replaces sybil_tpu/ops/decode.py:_decode_bucket2_jit and its
     reassembly gather.  Bound by memory (9 B written per output row);
-    one CTA per output row zeroes the row and scatters its block's
-    postings into it with a running block scan (see the source note)."""
+    units of 2,048 postings, many a block, find each posting's row (a
+    decoupled look-back carries a segment's sum across units) and sort
+    them by row range, then a CTA a row range gathers them in shared
+    memory and writes the range whole (see the source note)."""
     if deltas.device.type == "cpu":
         return decode_bucket2_plain(deltas, counts, offsets, uniq,
                                     seg_bases, src_of_row, C, out)
@@ -237,11 +257,11 @@ def decode_bucket2(deltas, counts, offsets, uniq, seg_bases, src_of_row,
         raise ValueError(f"decode_bucket2: unsupported device "
                          f"{deltas.device}")
     return _launch_k1(False, deltas, counts, offsets, uniq, seg_bases,
-                      src_of_row, C, out)
+                      src_of_row, C, out, paths)
 
 
 def decode_bucket_v1(deltas, counts, offsets, uniq, id_bases, src_of_row,
-                     C: int, out=None):
+                     C: int, out=None, paths=None):
     """K1, v1 layout: as decode_bucket2, with id_bases i32 [b] (each
     block's meta id_base, cast to int32) in place of seg_bases; ids
     outside [0, C) (cross-segment cumsums can go negative) are dropped.
@@ -257,7 +277,7 @@ def decode_bucket_v1(deltas, counts, offsets, uniq, id_bases, src_of_row,
         raise ValueError(f"decode_bucket_v1: unsupported device "
                          f"{deltas.device}")
     return _launch_k1(True, deltas, counts, offsets, uniq, id_bases,
-                      src_of_row, C, out)
+                      src_of_row, C, out, paths)
 
 
 # ---------------------------------------------------------------------------

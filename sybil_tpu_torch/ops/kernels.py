@@ -46,6 +46,10 @@ ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "dense_keyed": "dense_pack"}
 # one count per wrapper: a source's name, and each entry above
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
+# K2's launches split by form: its wrapper adds one to LAUNCHES and one
+# here where it launches
+FORMS: dict[str, int] = {"dense_scan shared or resident": 0,
+                         "dense_scan global": 0, "dense_scan windowed": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict = {}
@@ -53,8 +57,23 @@ _LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FORMS):
+        for k in counts:
+            counts[k] = 0
+
+
+class Launches(dict):
+    """A copy of LAUNCHES; `forms` holds a copy of FORMS taken with it.
+    It compares as the plain dict of counts."""
+    forms: dict
+
+
+def snapshot() -> Launches:
+    """The launch counts since the last reset_launches, K2's by form in
+    `.forms`."""
+    got = Launches(LAUNCHES)
+    got.forms = dict(FORMS)
+    return got
 
 
 def nvcc_path() -> str:
@@ -117,15 +136,15 @@ def lib(name: str) -> ctypes.CDLL:
         return handle
 
 
-def entry(name: str, fn: str, argtypes: list):
+def entry(name: str, fn: str, argtypes: list, restype=ctypes.c_int):
     """The C entry point `fn` of source `name`'s library, its argtypes
-    and restype (cudaError_t as int) set once a loaded library rather than
-    on every call."""
+    and restype (default cudaError_t as int) set once a loaded library
+    rather than on every call."""
     handle = lib(name)
     got = _ENTRIES.get((name, fn))
     if got is None or got[0] is not handle:
         f = getattr(handle, fn)
-        f.argtypes, f.restype = argtypes, ctypes.c_int
+        f.argtypes, f.restype = argtypes, restype
         got = _ENTRIES[(name, fn)] = (handle, f)
     return got[1]
 

@@ -884,9 +884,9 @@ def _agg_desc(config: ScanConfig, cols) -> dict:
                        for i in range(len(config.aggs))]}
 
 
-# per-CTA private tables up to this size live in shared memory (the H100
-# lets one CTA opt in to 227 KB); larger tables update global memory
-# directly
+# K2's and K4's tables of up to this size a CTA, in 64-bit words, take
+# their shared form (the H100 lets one CTA opt in to 227 KB); larger
+# tables update global memory directly
 SHARED_TABLE_BYTES = 200 << 10
 # filter op codes of csrc/dense_scan.cu and csrc/sorted_front.cu; any
 # other op never matches; a set filter is `in`, or else `nin` (as the
@@ -1091,10 +1091,12 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     rollup's bucket width (a time_col config); set_masks: K14's (has,
     hit) per set filter (set_filter_masks).  form: "shared",
     "global" or "windowed" (default dense_scan_path's choice; all give
-    the same words).  paths: an int64 [5] CUDA tensor to which the
-    windowed form adds the CTAs that took its resident table and the
-    chunks it took full-span, banded, direct and empty (WINDOW_PATHS), or
-    None.  CUDA tensors launch the kernel (csrc/dense_scan.cu); CPU
+    the same words).  paths: an int64 CUDA tensor, or None, to which the
+    launch adds the paths it took: for the windowed form [5], the CTAs
+    that took its resident table and the chunks it took full-span,
+    banded, direct and empty (WINDOW_PATHS); for the others [3], the CTAs
+    that added to a table a warp, one a CTA, or the global tables
+    (K2_PATHS).  CUDA tensors launch the kernel (csrc/dense_scan.cu); CPU
     tensors take dense_scan_plain.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (filters, the set ops over
@@ -1104,13 +1106,15 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     the _dense_reduce sums and min/max of _scan_dense, plain and
     windowed, and its matched mask (1062-1063, a template flag of the
     kernel, written for every row).  Bound by memory (9 B
-    read per row per referenced column); one grid-stride pass with
-    per-CTA shared-memory tables, or global atomics when they exceed
-    SHARED_TABLE_BYTES, or, for a windowed rollup, one CTA a SM over a
-    shared table of narrow lanes fed by warp-combined rows: the whole
-    reduce space when it fits, else each row chunk's live span, banded,
-    or straight to the global tables when sparse (see the source
-    note)."""
+    read per row per referenced column).  One CTA a SM; a warp reads
+    tiles of 32 x _K2_ROWS rows a column at a time, and each matched
+    row adds itself by native 32-bit atomics to a shared table a warp
+    when the CTA's 32 fit (dense_scan_route), else to one a CTA; the
+    global tables, when the per-CTA tables exceed SHARED_TABLE_BYTES,
+    take a warp's rows combined by slot first; a windowed rollup's whole
+    reduce space when it fits one CTA's table, else each row chunk's
+    live span, banded, or straight to the global tables when sparse (see
+    the source note)."""
     B, C = _batch_shape(cols)
     dev = nrec.device
     nf = len(config.filters)
@@ -1129,6 +1133,9 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
             form == "shared" and _k2_table_bytes(config)
             > SHARED_TABLE_BYTES):
         raise ValueError(f"dense_scan: form {form!r} does not apply")
+    if B * C >= 2 ** 31:
+        raise ValueError(f"dense_scan: takes fewer than 2^31 rows (the "
+                         f"shared tables' 32-bit lanes), got {B * C}")
     tb = _time_bucket_arg(config, time_bucket, "dense_scan")
     _check_tensor(nrec, (B,), torch.int32, "nrec", dev, "dense_scan")
     _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
@@ -1141,9 +1148,6 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     hist = hist_aggs(config)
     H = len(hist)
     R = B * C
-    if form == "windowed" and R >= 2 ** 31:
-        raise ValueError(f"dense_scan: the windowed form takes fewer than "
-                         f"2^31 rows, got {R}")
     # sums, spill and the windowed form's chunk counter, zeroed by one
     # memset
     zbuf = torch.empty(Sc * L + 2, dtype=torch.int64, device=dev)
@@ -1184,24 +1188,26 @@ def dense_scan(config: ScanConfig, cols, nrec, filter_vals=None,
     a.nkeys, a.naggs, a.nfilters = nk, na, nf
     a.slots, a.Sc, a.L, a.H = slots, Sc, L, H
 
+    # one CTA a SM: the tiled kernel's CTAs stride over tiles of
+    # _K2_THREADS * _K2_ROWS rows, the windowed chunks' take chunks from
+    # the counter
+    route = dense_scan_route(config, form)
     if form == "windowed":
-        # one CTA a SM: resident CTAs stride over the rows, chunked ones
-        # take chunks from the counter
         a.band, a.chunk = window_band(config, C)
-        work = -(-R // (a.chunk or _WINDOW_THREADS))
-        grid = max(1, min(work, _sm_count(dev)))
-        if paths is not None:
-            _check_tensor(paths, (len(WINDOW_PATHS),), torch.int64,
-                          "paths", dev, "dense_scan")
-            a.paths = paths.data_ptr()
-    else:
-        grid = _grid(dev, R, _k2_table_bytes(config), form == "shared")
+    work = -(-R // (a.chunk or _K2_THREADS * _K2_ROWS))
+    grid = max(1, min(work, _sm_count(dev)))
+    if paths is not None:
+        _check_tensor(paths, (len(WINDOW_PATHS if form == "windowed" else
+                                  K2_PATHS),), torch.int64, "paths", dev,
+                      "dense_scan")
+        a.paths = paths.data_ptr()
     fn = kernels.entry("dense_scan", "dense_scan",
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                         ctypes.c_void_p])
-    kernels.check(fn(ctypes.byref(a), _K2_FORMS[form], grid,
+    kernels.check(fn(ctypes.byref(a), _K2_FORMS[route], grid,
                      kernels.stream_handle(dev)), "dense_scan")
     kernels.LAUNCHES["dense_scan"] += 1
+    kernels.FORMS[_K2_FORM_COUNT[route]] += 1
     return {"sums": sums, "spill": spill, "mins": mins, "maxs": maxs,
             "gid": gid, "mask": mask}
 
@@ -1217,12 +1223,30 @@ def _k2_table_bytes(config: ScanConfig) -> int:
     return Sc * _k2_slot_bytes(config)
 
 
-_K2_FORMS = {"global": 0, "shared": 1, "windowed": 2}
-# the windowed form: threads of its one CTA a SM, rows a chunk (their
-# gids staged in shared memory), the dynamic shared memory it may take
-# (the H100's 227 KB a CTA less 1 KB for the static part), and the paths
-# its `paths` counts take, in order
-_WINDOW_THREADS = 1024
+# the C entry's forms by route (csrc/dense_scan.cu F_*): the tiled kernel
+# with the global tables, one shared table a CTA or one a warp; the
+# windowed form (its resident mode runs the tiled kernel with one table a
+# CTA)
+_K2_FORMS = {"global": 0, "cta": 1, "windowed": 2, "resident": 2,
+             "warp": 3}
+# the count of kernels.FORMS each route adds to
+_K2_FORM_COUNT = {"global": "dense_scan global",
+                  "cta": "dense_scan shared or resident",
+                  "warp": "dense_scan shared or resident",
+                  "resident": "dense_scan shared or resident",
+                  "windowed": "dense_scan windowed"}
+# the tiled kernel: threads of its one CTA a SM, rows a lane a tile (TT
+# and TU in the source), and the shared memory the 32 tables of its
+# per-warp route may take (the rest of the SM's 256 KB stays L1)
+_K2_THREADS = 1024
+_K2_ROWS = 4
+_K2_WARP_TABLES = 128 << 10
+# the CTAs of the tiled kernel's routes that its `paths` counts, in order
+K2_PATHS = ("warp", "cta", "global")
+# the windowed form: rows a chunk (their gids staged in shared memory),
+# the dynamic shared memory it may take (the H100's 227 KB a CTA less 1
+# KB for the static part), and the paths its `paths` counts take, in
+# order
 _WINDOW_CHUNK = 8192
 _WINDOW_SMEM = (227 << 10) - 1024
 WINDOW_PATHS = ("resident", "full-span", "banded", "direct", "empty")
@@ -1249,6 +1273,23 @@ def window_band(config: ScanConfig, C: int) -> tuple[int, int]:
         return Sc, 0
     chunk = min(C, _WINDOW_CHUNK)
     return max(1, min(Sc, (_WINDOW_SMEM - 4 * chunk) // slot)), chunk
+
+
+def dense_scan_route(config: ScanConfig, form: str | None = None) -> str:
+    """Which table K2's form (default dense_scan_path's) adds to: "warp"
+    (the shared form, a table a warp: the CTA's _K2_THREADS / 32 narrow
+    tables fit _K2_WARP_TABLES), "cta" (the shared form, a table a CTA),
+    "global", "resident" (the windowed form's whole reduce space in a
+    table a CTA) or "windowed" (its chunks)."""
+    form = form or dense_scan_path(config)
+    if form == "shared":
+        _, Sc, _ = reduce_space(config)
+        return ("warp" if _K2_THREADS // 32 * Sc * _k2w_slot_bytes(config)
+                <= _K2_WARP_TABLES else "cta")
+    if form == "windowed":
+        return "resident" if window_band(config, 1 << 30)[1] == 0 \
+            else "windowed"
+    return form
 
 
 def dense_scan_path(config: ScanConfig) -> str:

@@ -272,3 +272,63 @@ def test_id_mode_case_matches_reference(name):
         assert (pv.numpy() < 0).any()
     if name == "all rows invalid":
         assert not pm.numpy().any()
+
+
+# the deltas' type each K1 case is named for
+_K1_DTYPES = {"uint8 deltas": np.uint8, "uint16 deltas": np.uint16,
+              "int32 deltas": np.int32, "int8 deltas": np.int8,
+              "int16 deltas": np.int16, "int64 deltas": np.int64}
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K1_CASES))
+def test_bucket2_case_matches_reference(name):
+    """K1 on chip_smoke.py's K1 cases (the card holds the kernel to its
+    plain version on the same cases): decode_bucket2_plain and
+    decode_bucket_v1_plain against _decode_bucket2_jit and
+    _decode_bucket_jit on the case's v2 and v1 blocks, the rows of a
+    missing block zeroed and the rows of another launch left as they
+    were; and the whole column batch against the reference's reassembly.
+    Tolerance 0."""
+    containers, C = chip_smoke.k1_case(name)
+    B = len(containers)
+    launched = 0
+    for kind, plain, ref_fn in (
+            ("bucket2", port_decode.decode_bucket2_plain,
+             ref_decode_mod._decode_bucket2_jit),
+            ("bucket", port_decode.decode_bucket_v1_plain,
+             ref_decode_mod._decode_bucket_jit)):
+        ins = chip_smoke.k1_layout_inputs(containers, kind)
+        if ins is None:
+            continue
+        launched += 1
+        *arrays, src = ins
+        if name in _K1_DTYPES:
+            assert arrays[0].dtype == _K1_DTYPES[name]
+        if name == "K at the 8,192 cap":
+            assert arrays[3].shape[1] == port_decode.MAX_K
+        rv, rm = ref_fn(C, *[jnp.asarray(x) for x in arrays])
+        rv, rm = np.asarray(rv), np.asarray(rm)
+        out = (torch.full((B, C), 5, dtype=torch.int64),
+               torch.ones((B, C), dtype=torch.bool))
+        pv, pm = plain(*[torch.from_numpy(x) for x in arrays],
+                       torch.from_numpy(src), C, out=out)
+        pv, pm = pv.numpy(), pm.numpy()
+        for i, j in enumerate(src):
+            if j >= 0:
+                np.testing.assert_array_equal(pv[i], rv[j])
+                np.testing.assert_array_equal(pm[i], rm[j])
+            elif j == port_decode.ZERO_ROW:
+                assert not pv[i].any() and not pm[i].any()
+            else:
+                assert (pv[i] == 5).all() and pm[i].all()
+        if name == "ids outside [0, C)":
+            counts = arrays[1]
+            assert rm.sum() < counts.sum()
+    # a launch for each layout among the case's bucket blocks
+    assert launched == len({b[0] for b in chip_smoke.K1_CASES[name][0]
+                            if b is not None and b[0] in ("v2", "v1")})
+    rv, rm, rn = ref_decode(containers, C)
+    pv, pm, pn = decode_column_batch(containers, C, "cpu")
+    assert pn == rn
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))

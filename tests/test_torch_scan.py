@@ -7,12 +7,15 @@ from the reference's field dict (config_from_fields)."""
 
 import ctypes
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sybil_tpu.ops import scan as ref
 from sybil_tpu_torch.ops import scan as port
 
@@ -219,3 +222,90 @@ def test_descriptor_block_head_and_device_copy(n):
         assert a.desc_keep[1].numel() == n
     assert (a.pack_min or 0) - base == 0
     assert (a.pack_card or 0) - base == 8 * split
+
+
+_SCAN_DENSE = jax.jit(ref._scan_dense, static_argnums=(0,))
+
+
+@functools.partial(jax.jit, static_argnums=(0,))
+def _ref_gid(cfg, cols, nrec, fv, tb):
+    """The reference's reduce-space gid of every row (dead rows slots-1)."""
+    _, _, _, _, matched, keys, _, _ = ref._front_end(cfg, cols, nrec, fv, (),
+                                                     tb, {})
+    return ref._dense_gid(cfg, keys, matched, tb)[0]
+
+
+# the table each limit case of K2_CASES puts the shared form in
+_K2_ROUTES = {"per-warp tables at their limit": "warp",
+              "a table a CTA past the per-warp limit": "cta",
+              "a table a CTA at the shared limit": "cta",
+              "global tables past the shared limit": "global",
+              "a windowed table at the resident limit": "resident"}
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K2_CASES))
+def test_dense_scan_case_matches_reference(name):
+    """K2 on chip_smoke.py's K2 cases (the card holds the kernel's shared,
+    global and windowed forms to the plain version on the same cases):
+    dense_scan_plain against the reference's jitted _scan_dense (the sums
+    of every live slot, the min/max, the spill count, the matched mask)
+    and its _dense_gid (the gid of every row, the dead slot remapped to
+    Sc-1 in the compact reduce space).  Tolerance 0."""
+    fields, cols, nrec, fvals, tb, _ = chip_smoke.k2_case(name, 2, 2048)
+    o = dict(fields)
+    o["aggs"] = tuple(ref.AggSpec(c, **kw) for c, kw in o["aggs"])
+    o["filters"] = tuple(ref.FilterSpec(*f, -1) for f in o["filters"])
+    cfg = ref.ScanConfig(**o)
+    pcfg = chip_smoke.k2w_config(port, fields)
+    assert port.config_from_fields(dataclasses.asdict(cfg)) == pcfg
+    assert cfg.strategy == "dense"
+    if name in _K2_ROUTES:
+        assert port.dense_scan_route(pcfg) == _K2_ROUTES[name]
+    jcols = {k: (jnp.asarray(v), jnp.asarray(m)) for k, (v, m) in
+             cols.items()}
+    jargs = (jnp.asarray(nrec), jnp.asarray(fvals))
+    want = _SCAN_DENSE(cfg, jcols, *jargs, (), jnp.asarray(tb, jnp.int64),
+                       {})
+    got = port.dense_scan_plain(
+        pcfg, {k: (torch.from_numpy(v), torch.from_numpy(m))
+               for k, (v, m) in cols.items()}, torch.from_numpy(nrec),
+        torch.from_numpy(fvals), (), tb)
+    slots, Sc, compact = port.reduce_space(pcfg)
+    n = Sc - 1                         # the live rows of both tables
+    sums = got["sums"].numpy()
+    count = np.asarray(want["count"])
+    np.testing.assert_array_equal(sums[:n, 0], count[:n])
+    np.testing.assert_array_equal(sums[:n, 1],
+                                  np.asarray(want["samples"])[:n])
+    assert not count[n:].any()
+    hist = port.hist_aggs(pcfg)
+    for ai in range(len(cfg.aggs)):
+        np.testing.assert_array_equal(sums[:n, 2 + 3 * ai] > 0,
+                                      np.asarray(want[f"agg{ai}_exists"])[:n])
+        np.testing.assert_array_equal(sums[:n, 3 + 3 * ai],
+                                      np.asarray(want[f"agg{ai}_count"])[:n])
+        np.testing.assert_array_equal(sums[:n, 4 + 3 * ai],
+                                      np.asarray(want[f"agg{ai}_wv"])[:n])
+        if ai in hist:
+            j = hist.index(ai)
+            np.testing.assert_array_equal(got["mins"][:n, j].numpy(),
+                                          np.asarray(want[f"agg{ai}_min"])[:n])
+            np.testing.assert_array_equal(got["maxs"][:n, j].numpy(),
+                                          np.asarray(want[f"agg{ai}_max"])[:n])
+    spill = int(want["spill"])
+    assert int(got["spill"][0]) == spill
+    assert (spill > 0) == ("spill" in name)
+    if cfg.want_matched_mask:
+        np.testing.assert_array_equal(got["mask"].numpy(),
+                                      np.asarray(want["matched"]))
+    if got["gid"] is not None:
+        gid = np.asarray(_ref_gid(cfg, jcols, *jargs,
+                                  jnp.asarray(tb, jnp.int64)))
+        if compact:
+            gid = np.where(gid == slots - 1, Sc - 1, gid)
+        np.testing.assert_array_equal(got["gid"].numpy(), gid)
+    live = sums[:n, 1] > 0
+    if name == "every row of a warp on one gid":
+        assert live.sum() == 1
+    if name == "32 gids a warp":
+        assert live.sum() == 32
