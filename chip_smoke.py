@@ -61,7 +61,19 @@ Phases (any failure exits non-zero before the result lines):
      three unpacked keys with MISSING and negative values, both time
      divisions, weights and filters, multihist and value-identity layouts
      with live outliers, groups past prefix_rows, pairs past Hcap, the
-     group cap, no keys).  Then the enumerated strategy: K7's enum form,
+     group cap, no keys); K7 alone on its corner cases (K7_CASES: packed
+     int32 and int64 keys, a packed spill, values at min - 1, MISSING and
+     negative unpacked keys, time keys in int32 and int64 arithmetic with
+     negative times, distinct lanes, the cache-group lane with and
+     without a time key, a packed key with the cache-group lane and under
+     a time key, every filter op, an unknown op, 17 filters, the
+     descriptor past its head unpacked and packed, the mask packed and
+     unpacked, the enum form with wrapping weights and with a spill, 12-
+     and 320-row batches, one zero lane) and a seeded random sweep of 32
+     shapes, each unpacked batch's sort_rows with its sort_permute steps
+     and sort_permute's own cases (PERMUTE_CASES), word for word, every
+     template choice of K7 taken (k7_edge_checks).  Then the enumerated
+     strategy: K7's enum form,
      K11 enum_segments, K12 topk_rows and K10's enum_pack against their
      plain versions on config 5's real batches of both partitions ($COUNT
      and f32 mean scores, the mean's winners against numpy) and on
@@ -205,7 +217,9 @@ Phases (any failure exits non-zero before the result lines):
      function, that call's time; K2 on config 4 in both forms per table,
      also queued (device time) with its device launches a call;
      K7, sort_permute, K8, K9, K5 (sorted keys) and K10 at both paths'
-     shapes, config 5's K7 enum form, K11, K12 ($COUNT and mean scores),
+     shapes (K7 and sort_permute also queued, with their device
+     operations a call), config 5's K7 enum form (also queued), K11,
+     K12 ($COUNT and mean scores),
      K10 enum_pack and the device prune's forms, `aggregate`'s wall, K13
      on both hash paths (beside scatter_reduce_ amax), K3's HLL sections,
      the pairs' K7, K8 and K10, K5 over the sorted keys, and the stable
@@ -1791,11 +1805,20 @@ def k8_case(name: str, seed: int = 0):
     dicts, {col: (values int64 [B, C], valid bool [B, C])}, nrec int32
     [B], filter constants int64 [F], regex bitsets, time bucket), all
     numpy, made from the seed."""
+    return sorted_case(K8_CASES[name],
+                       seed + 500 + sorted(K8_CASES).index(name))[:6]
+
+
+def sorted_case(o: dict, seed: int):
+    """A sorted-strategy batch from K8_CASES' or K7_CASES' options ->
+    (ScanConfig fields with aggs and filters as field dicts, {col: (values
+    int64 [B, C], valid bool [B, C])}, nrec int32 [B], filter constants
+    int64 [F], regex bitsets, time bucket, {set column: (row ids int32
+    [M], values int64 [M])}), all numpy, made from the seed."""
     import numpy as np
-    o = K8_CASES[name]
     B, C = o["B"], o["C"]
     R = B * C
-    rng = np.random.default_rng(seed + 500 + sorted(K8_CASES).index(name))
+    rng = np.random.default_rng(seed)
     cols = {}
 
     def put(col, v, p_valid):
@@ -1822,16 +1845,20 @@ def k8_case(name: str, seed: int = 0):
     for i, (lo, hi) in enumerate(o.get("distinct", ())):
         put(f"d{i}", rng.integers(lo, hi, R), 0.9)
         distinct.append(f"d{i}")
+    # lead_pack: the (min, card) bounds of the cache-group and time lanes,
+    # which then join the packed key
+    lead = o.get("lead_pack")
     tkw, tb = {}, 1
     if "time" in o:
         lo, hi, tb, i32 = o["time"]
         put("t", rng.integers(lo, hi, R), 0.95)
         tkw = dict(time_col="t", time_i32=i32)
-        pack = []
+        pack = pack if lead else []
     if o.get("cg"):
         groups = ["__cg__"] + groups
         tkw["vg_span"] = o["cg"]
-        pack = []
+        pack = pack if lead else []
+    pack = (lead or []) + pack
     aggs = []
     for a, h in enumerate(o["hist"]):
         put(f"v{a}", np.where(rng.random(R) < 0.03,
@@ -1842,17 +1869,31 @@ def k8_case(name: str, seed: int = 0):
                     if h is None else
                     dict(col=f"v{a}", hist_min=0, bucket_size=10,
                          num_values=40, discard_min=0, discard_max=2500))
-    filters, fvals = [], []
+    # filters: (col, op, kind, constant); a column's values are drawn
+    # from fcols[col] (default [0, 80)) at 90% valid, a set column's rows
+    # hold 0-3 values of [0, 5)
+    filters, fvals, sets = [], [], {}
     for col, op, kind, val in o.get("filters", ()):
-        put(col, rng.integers(0, 80, R), 0.9)
-        filters.append(dict(col=col, op=op, kind=kind, bitset_idx=-1))
+        if kind == "set":
+            if col not in sets:
+                rows = np.repeat(np.arange(R, dtype=np.int32),
+                                 rng.integers(0, 4, R))
+                sets[col] = (rows, rng.integers(0, 5, len(rows)))
+        else:
+            lo, hi = o.get("fcols", {}).get(col, (0, 80))
+            put(col, rng.integers(lo, hi, R), 0.9)
+        filters.append(dict(col=col, op=op, kind=kind,
+                            bitset_idx=0 if op in ("re", "nre") else -1))
         fvals.append(val)
-    if o.get("weight"):
+    if o.get("weight") == "wrap":
+        put("w", rng.integers(-2 ** 62, 2 ** 62, R), 0.8)
+    elif o.get("weight"):
         put("w", rng.integers(0, 101, R), 0.8)
     fields = dict(group_cols=tuple(groups), aggs=tuple(aggs),
                   filters=tuple(filters), distinct_cols=tuple(distinct),
                   weight_col="w" if o.get("weight") else "",
                   force_sorted=True, track_outliers=any(o["hist"]),
+                  want_matched_mask=bool(o.get("mask")),
                   sort_pack=(tuple(pack) if pack and not distinct and
                              all(p is not None for p in pack) else ()),
                   **tkw, **o.get("extra", {}))
@@ -1860,7 +1901,7 @@ def k8_case(name: str, seed: int = 0):
     if o.get("partial"):
         nrec[B // 2] = C // 3
     return (fields, cols, nrec, np.asarray(fvals, np.int64),
-            (np.array([i % 3 == 0 for i in range(10)]),), tb)
+            (np.array([i % 3 == 0 for i in range(10)]),), tb, sets)
 
 
 def k8_edge_checks(card, device, errs) -> None:
@@ -1894,6 +1935,292 @@ def k8_edge_checks(card, device, errs) -> None:
     say(f"[{card}] K8 segment_reduce == plain (tolerance 0) on "
         f"{len(K8_CASES)} cases ({', '.join(K8_CASES)}); paths over every "
         f"checked launch: {n}")
+
+
+# K7's and sort_permute's own cases (tests/test_torch_sorted.py holds the
+# plain versions to the reference's _front_end, the packed key of
+# _scan_sorted and _scan_enum and lax.sort's order on the same batches;
+# the card holds the kernels to the plain versions): name -> sorted_case
+# options (K8_CASES' and fcols: a filter column's value range; weight
+# "wrap": weights of +-2^62; mask: the matched mask; lead_pack: the
+# cache-group and time lanes' packed bounds).  The filter "zz" is
+# an unknown op; 17 filters put constants past the 16 K7 stages in shared
+# memory; 17 keys with 40 or 48 filters put the descriptor block past
+# its 256-word head.
+K7_CASES = {
+    "packed int32 key": dict(
+        B=3, C=4096, keys=[((0, 9), (0, 9)), ((0, 7), (0, 7))], hist=[],
+        filters=[("fi", "gt", "int", 10)]),
+    "packed int64 key": dict(
+        B=2, C=4096, keys=[((0, 60000), (0, 60000)),
+                           ((0, 50000), (0, 50000))], hist=[]),
+    "packed spill": dict(B=3, C=4096, keys=[((0, 12), (0, 9)),
+                                            ((0, 4), (0, 4))], hist=[],
+                         partial=True),
+    "packed key, values at min - 1": dict(
+        B=2, C=4096, keys=[((4, 14), (5, 9)), ((0, 3), (0, 3))], hist=[]),
+    "unpacked keys, MISSING and negative values": dict(
+        B=3, C=4096, keys=[((-5, 4), None), ((-3, 3), None),
+                           ((-1000, 1000), None)], hist=[]),
+    "time key, int32 arithmetic, negative times": dict(
+        B=3, C=4096, keys=[((0, 9), None)],
+        time=(-400_000, 900_000, 100, True), hist=[]),
+    "time key, int64 arithmetic, negative times": dict(
+        B=3, C=4096, keys=[((0, 5), None)],
+        time=(-(1 << 40), 1 << 40, 7, False), hist=[]),
+    "distinct lanes (K + D = 3)": dict(
+        B=3, C=4096, keys=[((0, 5), None)], distinct=[(0, 3), (-5, 200)],
+        hist=[], partial=True),
+    "the cache-group lane": dict(B=8, C=1024, keys=[((0, 6), None)],
+                                 hist=[], cg=2),
+    "the cache-group lane under a time key": dict(
+        B=8, C=1024, keys=[((0, 6), None)], hist=[], cg=4,
+        time=(-50_000, 50_000, 1000, True)),
+    "int and str filters (gt, lt, eq, neq)": dict(
+        B=3, C=4096, keys=[((0, 5), (0, 5))], hist=[],
+        filters=[("fi", "gt", "int", 10), ("fj", "lt", "int", 70),
+                 ("fe", "eq", "str", 1), ("fs", "neq", "str", 4)],
+        fcols={"fe": (0, 2), "fs": (0, 10)}),
+    "regex and set filters (re, nre, in, nin)": dict(
+        B=3, C=4096, keys=[((0, 5), None)], hist=[],
+        filters=[("fs", "re", "str", 0), ("fr", "nre", "str", 0),
+                 ("g", "in", "set", 1), ("g", "nin", "set", 2)],
+        fcols={"fs": (-2, 12), "fr": (-2, 12)}),
+    "an unknown op: every row unmatched": dict(
+        B=3, C=4096, keys=[((0, 5), (0, 5))], hist=[],
+        filters=[("fi", "zz", "int", 0)]),
+    "17 filters (constants past the staged 16)": dict(
+        B=2, C=4096, keys=[((0, 5), None)], hist=[],
+        filters=[(f"f{i}", "gt", "int", 2) for i in range(16)]
+        + [("f16", "lt", "int", 40)]),
+    "17 keys and 48 filters (the descriptor past its head)": dict(
+        B=2, C=1024, keys=[((0, 2), None)] * 17, hist=[],
+        filters=[(f"f{i % 4}", "gt", "int", i % 3) for i in range(48)]),
+    "17 packed keys and 40 filters (the descriptor past its head)": dict(
+        B=2, C=1024, keys=[((0, 2), (0, 2))] * 17, hist=[],
+        filters=[(f"f{i % 4}", "gt", "int", i % 3) for i in range(40)]),
+    "packed key with the cache-group lane, a spill": dict(
+        B=8, C=1024, keys=[((0, 6), (0, 5))], hist=[], cg=2,
+        lead_pack=[(0, 3)]),
+    "packed key under a time key, a spill": dict(
+        B=3, C=4096, keys=[((0, 5), (0, 5))], hist=[],
+        time=(-40_000, 90_000, 100, True), lead_pack=[(-40_000, 100_000)]),
+    "the matched mask, packed": dict(
+        B=3, C=4096, keys=[((0, 5), (0, 5))], hist=[], mask=True,
+        filters=[("fi", "gt", "int", 40)]),
+    "the matched mask, unpacked under a time key": dict(
+        B=3, C=4096, keys=[((0, 5), None)], hist=[], mask=True,
+        time=(-40_000, 90_000, 100, True), filters=[("fi", "gt", "int", 40)]),
+    "the enum form, weights wrapping mod 2^64": dict(
+        B=3, C=4096, keys=[((0, 300), (0, 300))], hist=[], weight="wrap",
+        filters=[("fi", "gt", "int", 10)], extra=dict(prune_topk=100)),
+    "the enum form without a weight column, a spill": dict(
+        B=3, C=4096, keys=[((0, 600), (0, 500)), ((0, 4), (0, 4))], hist=[],
+        partial=True, extra=dict(prune_topk=100)),
+    "R of 12 rows: a tile cut short": dict(
+        B=3, C=4, keys=[((0, 3), None)], hist=[],
+        filters=[("fi", "gt", "int", 10)]),
+    "R of 320 rows, not a multiple of a warp's tile": dict(
+        B=5, C=64, keys=[((0, 3), (0, 3))], hist=[], partial=True),
+    "no group keys: one zero lane": dict(B=2, C=1024, keys=[],
+                                         hist=[None]),
+}
+K7_SWEEP_SEED = 16              # the random sweep's shapes
+K7_SWEEP = 32
+
+
+def k7_case(name: str, seed: int = 0):
+    """K7_CASES[name] -> sorted_case's numpy batch."""
+    return sorted_case(K7_CASES[name],
+                       seed + 700 + sorted(K7_CASES).index(name))
+
+
+def k7_sweep(seed: int = K7_SWEEP_SEED, n: int = K7_SWEEP) -> dict:
+    """n seeded random K7 shapes -> {name: sorted_case options}: 0-3
+    filters of every op, 0-3 keys of each kind, packed (int32 or int64,
+    with spills) or unpacked (MISSING and negative values), a time key
+    (int32 or int64 arithmetic, negative times), distinct lanes, the
+    cache-group lane, the mask, the enum form (weights wrapping or
+    none), batches of 1-5 blocks of 4-8,192 rows, a short block."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ops = [("fi", "gt", "int"), ("fi", "lt", "int"), ("fe", "eq", "str"),
+           ("fe", "neq", "str"), ("fs", "re", "str"), ("fs", "nre", "str"),
+           ("g", "in", "set"), ("g", "nin", "set")]
+    out = {}
+    for i in range(n):
+        form = ("lanes", "packed", "enum")[i % 3]
+        o = dict(B=int(rng.integers(1, 6)), C=2 ** int(rng.integers(2, 14)),
+                 hist=[None], partial=bool(rng.integers(0, 2)),
+                 fcols={"fe": (0, 4), "fs": (-2, 12)})
+        o["filters"] = [ops[j] + (int(rng.integers(0, 60)) if j < 2 else
+                                  int(rng.integers(0, 4)),)
+                        for j in rng.integers(0, len(ops),
+                                              int(rng.integers(0, 4)))]
+        nk = int(rng.integers(0 if form == "lanes" else 1, 4))
+        if form == "lanes":
+            o["keys"] = [((int(rng.integers(-50, 1)),
+                           int(rng.integers(1, 50))), None)
+                         for _ in range(nk)]
+            if rng.integers(0, 2):
+                o["time"] = ((-1 << 34, 1 << 34, 7, False) if
+                             rng.integers(0, 2) else
+                             (-400_000, 900_000, 100, True))
+            if rng.integers(0, 3) == 0:
+                o["distinct"] = [(-3, 9)] * int(rng.integers(1, 3))
+            if rng.integers(0, 3) == 0:
+                o["cg"] = 2 ** int(rng.integers(0, 3))
+            o["mask"] = bool(rng.integers(0, 2))
+        else:
+            wide = form == "packed" and rng.integers(0, 2)
+            o["keys"] = []
+            for _ in range(nk):
+                card = int(rng.integers(1, 60000 if wide else 40))
+                o["keys"].append(((0, card + int(rng.integers(0, 3))),
+                                  (0, card)))
+            if form == "enum":
+                o["extra"] = dict(prune_topk=100)
+                o["weight"] = ("wrap", True, False)[int(rng.integers(0, 3))]
+            else:
+                o["mask"] = bool(rng.integers(0, 2))
+        out[f"sweep {i} ({form})"] = o
+    return out
+
+
+# sort_permute's and sort_rows' own cases: name -> (rows, the lanes'
+# value ranges [lo, hi), None for a lane of SENTINEL alone); lane 0 is
+# the most significant
+PERMUTE_CASES = {
+    "two lanes": (5000, [(0, 9), (0, 1000)]),
+    "three lanes: a base": (5000, [(0, 5), (0, 3), (-5, 200)]),
+    "four lanes, ties everywhere": (4096, [(0, 2)] * 4),
+    "every row SENTINEL": (3000, [None] * 3),
+    "R = 1": (1, [(0, 5), (0, 5)]),
+    # an H100's 528 CTAs of sort_permute (4 a SM) take 5 or 6 chunks of
+    # 512 rows each, in their sources' order: lane 1's sort leaves 9
+    # ascending runs in p
+    "more chunks than CTAs": (1_500_000, [(0, 1 << 40), (0, 9)]),
+}
+
+
+def permute_case(name: str, seed: int = 0):
+    """PERMUTE_CASES[name] -> its lanes, int64 [n, R] numpy."""
+    import numpy as np
+    R, lanes = PERMUTE_CASES[name]
+    rng = np.random.default_rng(seed + 900 + sorted(PERMUTE_CASES).index(
+        name))
+    return np.stack([np.full(R, I64_MAX, np.int64) if lane is None else
+                     rng.integers(*lane, R) for lane in lanes])
+
+
+def k7_tensors(case, device):
+    """sorted_case's numpy batch on `device` -> (config, cols, nrec,
+    filter constants, bitsets, time bucket, the set filters' K14 masks
+    or None)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.query.engine import pad_set_csr
+    fields, cols, nrec, fv, bits, tb, sets = case
+    cfg = scan.config_from_fields(fields)
+    tcols = {k: (torch.from_numpy(v).to(device),
+                 torch.from_numpy(m).to(device))
+             for k, (v, m) in cols.items()}
+    fv_t = torch.from_numpy(fv).to(device)
+    R = nrec.size * next(iter(cols.values()))[0].shape[1]
+    sm = None
+    if sets:
+        aux = {}
+        for col, (rows, vals) in sets.items():
+            prow, pval = pad_set_csr(rows, vals, R)
+            aux[col] = (torch.from_numpy(prow).to(device),
+                        torch.from_numpy(pval).to(device), len(rows))
+        sm = scan.set_filter_masks(cfg, fv_t, aux, R)
+    return (cfg, tcols, torch.from_numpy(nrec).to(device), fv_t,
+            tuple(torch.from_numpy(b).to(device) for b in bits), tb, sm)
+
+
+def sort_rows_plain(keys):
+    """sort_rows over the key lanes [n, R] with sort_permute_plain between
+    the stable sorts."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    svals, p = torch.sort(keys[-1], stable=True)
+    base = None
+    for k in range(keys.shape[0] - 2, -1, -1):
+        base, g = scan.sort_permute_plain(base, p, keys[k])
+        svals, p = torch.sort(g, stable=True)
+    return {"skey": None, "p": p, "base": base, "svals": svals}
+
+
+def order_check(what, lanes, errs) -> None:
+    """sort_rows (sort_permute between its sorts) against the plain
+    steps, and each step's sort_permute against its plain version."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    got = scan.sort_rows(None, {"key": None, "keys": lanes})
+    want = sort_rows_plain(lanes)
+    for key in ("p", "base", "svals"):
+        if (got[key] is None) != (want[key] is None):
+            fail(f"sort_rows {what}: {key} present on one side only")
+        if got[key] is not None:
+            check_equal(f"sort_rows {what} {key}", got[key], want[key],
+                        errs["sort_permute"])
+    p = torch.sort(lanes[-1], stable=True)[1]
+    base = None
+    for k in range(lanes.shape[0] - 2, -1, -1):
+        nb, g = scan.sort_permute(base, p, lanes[k])
+        nbp, gp = scan.sort_permute_plain(base, p, lanes[k])
+        check_equal(f"sort_permute {what} perm", nb, nbp,
+                    errs["sort_permute"])
+        check_equal(f"sort_permute {what} lane {k}", g, gp,
+                    errs["sort_permute"])
+        base = nb
+        p = torch.sort(g, stable=True)[1]
+
+
+def k7_edge_checks(card, device, errs) -> None:
+    """K7 against its plain version, word for word, on K7_CASES and a
+    seeded random sweep (k7_sweep), each unpacked batch's sort_rows and
+    sort_permute steps against the plain steps, and PERMUTE_CASES; fails
+    unless every template choice of the kernel (scan.K7_PATHS: the enum
+    form, the mask, the cache-group lane, the time key, both places of
+    the descriptor, unpacked, packed int32 and int64, distinct lanes)
+    ran."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    paths = torch.zeros(len(scan.K7_PATHS), dtype=torch.int64,
+                        device=device)
+    sweep = k7_sweep()
+    cases = [(name, k7_case(name)) for name in K7_CASES] + [
+        (name, sorted_case(o, K7_SWEEP_SEED + i))
+        for i, (name, o) in enumerate(sweep.items())]
+    for name, case in cases:
+        cfg, cols, nrec, fv, bits, tb, sm = k7_tensors(case, device)
+        got = scan.sorted_front(cfg, cols, nrec, fv, bits, tb, sm,
+                                paths=paths)
+        check_outs("sorted_front", f"case {name!r}", got,
+                   scan.sorted_front_plain(cfg, cols, nrec, fv, bits, tb,
+                                           sm),
+                   ("key", "keys", "idxm", "spill", "totals", "mask"), errs)
+        if got["keys"] is not None and got["keys"].shape[0] > 1:
+            order_check(f"case {name!r}", got["keys"], errs)
+    for name in PERMUTE_CASES:
+        order_check(f"case {name!r}",
+                    torch.from_numpy(permute_case(name)).to(device), errs)
+    n = dict(zip(scan.K7_PATHS, paths.tolist()))
+    if not all(n.values()):
+        fail(f"K7's checks never took {[k for k, v in n.items() if not v]}:"
+             f" {n}")
+    say(f"[{card}] K7 sorted_front == plain (tolerance 0) on "
+        f"{len(K7_CASES)} cases ({', '.join(K7_CASES)}) and a random sweep "
+        f"of {len(sweep)} shapes (seed {K7_SWEEP_SEED}); sort_rows and "
+        f"sort_permute == plain on their unpacked lanes and "
+        f"{len(PERMUTE_CASES)} cases ({', '.join(PERMUTE_CASES)}); CTAs "
+        f"by template choice: {n}")
 
 
 def sorted_edge_expect(name, cfg, main, R):
@@ -6121,6 +6448,7 @@ def main(argv=None) -> int:
             f"{len(SORTED_EDGES)} synthetic sorted batches (3 x 65536 "
             f"rows): " + ", ".join(SORTED_EDGES))
         k8_edge_checks(card, dev, errs)
+        k7_edge_checks(card, dev, errs)
 
         # ---- phase 4: the enumerated strategy and the device prune -----
         from sybil_tpu_torch import blocks as blocks5
@@ -7355,6 +7683,11 @@ def main(argv=None) -> int:
             sorted_rows.append(("sorted_front", plabel,
                                 "sybil_tpu/ops/scan.py:1071", k7_ms, k7_plain,
                                 k7_bytes, k7_ops, None))
+            k7_call = functools.partial(scan.sorted_front, cfg, sub, nr, fv,
+                                        bits, tb)
+            say(f"[{card}] sorted_front {plabel}: device "
+                f"{queued_ms(k7_call):.4f} ms, events {k7_ms:.4f} ms")
+            LATE_PROFILES.append((f"sorted_front {plabel}", k7_call))
             front = scan.sorted_front(cfg, sub, nr, fv, bits, tb)
             # the sorts: one stable torch.sort (CUB radix sort) per key
             # lane, or of the packed key
@@ -7375,6 +7708,12 @@ def main(argv=None) -> int:
                 sorted_rows.append(("sort_permute", plabel,
                                     "sybil_tpu/ops/scan.py:1119", sp_ms,
                                     sp_plain, Rn * 24, Rn * 4, sp_lib))
+                sp_call = functools.partial(scan.sort_permute, None, p_last,
+                                            keys0)
+                say(f"[{card}] sort_permute {plabel}: device "
+                    f"{queued_ms(sp_call):.4f} ms, events {sp_ms:.4f} ms, "
+                    f"keys[p] {sp_lib:.4f} ms")
+                LATE_PROFILES.append((f"sort_permute {plabel}", sp_call))
             k8 = scan.segment_reduce(cfg, sub, front, order, tb)
             k8_ms = cuda_ms(lambda: scan.segment_reduce(cfg, sub, front,
                                                         order, tb))
@@ -7523,6 +7862,10 @@ def main(argv=None) -> int:
                         "sybil_tpu/ops/scan.py:1420", k7e_ms, k7e_plain,
                         R5 * (9 * k7_cols + 4) + nr5.numel() * 4 + 24,
                         R5 * 16, None))
+        k7e_call = functools.partial(scan.sorted_front, cfg5, cols5, nr5)
+        say(f"[{card}] sorted_front config 5, enum form: device "
+            f"{queued_ms(k7e_call):.4f} ms, events {k7e_ms:.4f} ms")
+        LATE_PROFILES.append(("sorted_front config 5, enum form", k7e_call))
         key5 = parts5["front"]["key"]
         sort5_ms = cuda_ms(lambda: torch.sort(key5, stable=True))
         say(f"[{card}] sorts, config 5: 1 x stable torch.sort of int32 "
@@ -7757,6 +8100,10 @@ def main(argv=None) -> int:
                               k7d_plain, len(sub) * R * 9 + B * 4
                               + R * (4 + 8 * (K + D)), R * (6 + 6 * (K + D)),
                               None))
+        k7d_call = functools.partial(scan.sorted_front, cfg, sub, nr)
+        say(f"[{card}] sorted_front {plabel}: device "
+            f"{queued_ms(k7d_call):.4f} ms, events {k7d_ms:.4f} ms")
+        LATE_PROFILES.append((f"sorted_front {plabel}", k7d_call))
         # sort_rows' order, as the engine runs it (lane 0 from the last
         # sort's values)
         frontd = parts["front"]

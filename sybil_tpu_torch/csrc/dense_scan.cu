@@ -114,12 +114,12 @@
 
 #include "desc.cuh"
 #include "filters.cuh"
+#include "time_key.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;       // fill_bounds
 constexpr long long BIG = 1ll << 62;
-constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int TT = 1024;     // the tiled kernel's threads (one CTA a SM)
 constexpr int TU = 4;        // rows a lane a tile: 32 x TU rows a warp
@@ -185,17 +185,6 @@ struct DenseScanArgs {
 
 namespace {
 
-// The reference's _trunc_div for d > 0, in the width of T: q = |x| // d
-// (floor division; |x| wraps at T's minimum as jnp.abs does), then
-// x >= 0 ? q : -q, wrapping.
-template <typename T, typename U>
-__device__ __forceinline__ T go_trunc_div(T x, T d) {
-  const T ax = x < 0 ? static_cast<T>(U(0) - static_cast<U>(x)) : x;
-  T q = ax / d;
-  if (ax < 0 && q * d != ax) --q;  // floor for the one negative |x|
-  return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
-}
-
 // The match and reduce-space gid of the N rows r + 32u (u < N; a warp's
 // tile, or one row), a column at a time: each filter's, the time
 // column's and each key's N rows are loaded before any of them is used.
@@ -212,69 +201,10 @@ __device__ __forceinline__ void tile_gids(const DenseScanArgs& a,
                                           long long r, const long long* s_fv,
                                           int* key,
                                           unsigned long long* spill) {
-  const long long cmask = (1ll << a.log2C) - 1;
-  unsigned inr = 0u, live = 0u, sp = 0u;
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const long long ru = r + 32 * u;
-    if (ru < a.R) {
-      inr |= 1u << u;
-      live |= (unsigned)((ru & cmask) < a.nrec[ru >> a.log2C]) << u;
-    }
-  }
-  for (int i = 0; i < a.nfilters; ++i) {
-    const long long fv = i < FV_SMEM ? s_fv[i] : a.filter_vals[i];
-    const long long op = desc_at<HEAD>(a.desc, a.f_op, i);
-    unsigned pass = 0u;
-    if (op >= 7) {  // a set filter: K14's bitmasks, no validity lane
-      const unsigned* has = reinterpret_cast<const unsigned*>(
-          desc_at<HEAD>(a.desc, a.f_valid, i));
-      const unsigned* hit = reinterpret_cast<const unsigned*>(
-          desc_at<HEAD>(a.desc, a.f_vals, i));
-#pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const long long ru = r + 32 * u;
-        if (!((inr >> u) & 1u)) continue;
-        const unsigned bit = 1u << (ru & 31);
-        const bool h = (hit[ru >> 5] & bit) != 0u;
-        pass |= (unsigned)((has[ru >> 5] & bit) && (op == 7 ? h : !h)) << u;
-      }
-    } else {
-      const long long* vals = desc_at<HEAD>(a.desc, a.f_vals, i);
-      const unsigned char* valid = desc_at<HEAD>(a.desc, a.f_valid, i);
-      long long v[N];
-      unsigned ok = 0u;
-#pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const long long ru = r + 32 * u;
-        v[u] = 0;
-        if ((inr >> u) & 1u) {
-          ok |= (unsigned)(valid[ru] != 0) << u;
-          v[u] = vals[ru];
-        }
-      }
-      if (op == 4 || op == 5) {
-        const unsigned char* bits = desc_at<HEAD>(a.desc, a.f_bits, i);
-        const long long n = desc_at<HEAD>(a.desc, a.f_bits_len, i);
-#pragma unroll
-        for (int u = 0; u < N; ++u) {
-          if (!((ok >> u) & 1u)) continue;
-          const long long j = v[u] < 0 ? 0 : (v[u] > n - 1 ? n - 1 : v[u]);
-          const bool h = bits[j] != 0;
-          pass |= (unsigned)(op == 4 ? h : !h) << u;
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < N; ++u) {
-          const bool p = op == 0 ? v[u] > fv : op == 1 ? v[u] < fv
-                       : op == 2 ? v[u] == fv : op == 3 ? v[u] != fv : false;
-          pass |= (unsigned)p << u;
-        }
-      }
-      pass &= ok;
-    }
-    live &= pass;
-  }
+  unsigned inr;
+  unsigned live = tile_in_range<N>(a.nrec, a.R, a.log2C, r, &inr);
+  live = tile_filters<HEAD, N>(a, r, inr, live, s_fv);
+  unsigned sp = 0u;
   int gid[N];
 #pragma unroll
   for (int u = 0; u < N; ++u) gid[u] = 0;

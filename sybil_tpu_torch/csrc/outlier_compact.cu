@@ -35,6 +35,7 @@
 
 #include "block_scan.cuh"
 #include "desc.cuh"
+#include "time_key.cuh"
 
 namespace {
 
@@ -73,27 +74,6 @@ struct OutlierCompactArgs {
 
 namespace {
 
-// The reference's _trunc_div for d > 0 (as in dense_scan.cu).
-template <typename T, typename U>
-__device__ __forceinline__ T go_trunc_div(T x, T d) {
-  const T ax = x < 0 ? static_cast<T>(U(0) - static_cast<U>(x)) : x;
-  T q = ax / d;
-  if (ax < 0 && q * d != ax) --q;
-  return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
-}
-
-__device__ __forceinline__ long long time_key(const OutlierCompactArgs& a,
-                                              long long t) {
-  if (a.time_i32) {
-    const int tb = static_cast<int>(a.tb);
-    const int q = go_trunc_div<int, unsigned>(static_cast<int>(t), tb);
-    return static_cast<int>(static_cast<unsigned>(q) *
-                            static_cast<unsigned>(tb));
-  }
-  const long long q = go_trunc_div<long long, unsigned long long>(t, a.tb);
-  return (long long)((unsigned long long)q * (unsigned long long)a.tb);
-}
-
 __device__ __forceinline__ void write_row(const OutlierCompactArgs& a,
                                           long long j, long long r,
                                           long long live) {
@@ -108,7 +88,7 @@ __device__ __forceinline__ void write_row(const OutlierCompactArgs& a,
   } else {
     // vg_span is a power of two
     if (cg) o[0] = r >> (a.log2C + __ffs(a.vg_span) - 1);
-    if (a.has_time) o[cg] = time_key(a, a.t_vals[r]);
+    if (a.has_time) o[cg] = time_key(a.t_vals[r], a.tb, a.time_i32);
     for (int k = 0; k < a.nkeys; ++k)
       o[lead + k] = desc_at(a.desc, a.key_valid, k)[r]
                         ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;

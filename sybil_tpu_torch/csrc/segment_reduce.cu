@@ -91,6 +91,7 @@
 
 #include "block_scan.cuh"
 #include "desc.cuh"
+#include "time_key.cuh"
 
 namespace {
 
@@ -172,15 +173,6 @@ struct SegmentReduceArgs {
 
 namespace {
 
-// The reference's _trunc_div for d > 0 (as in dense_scan.cu).
-template <typename T, typename U>
-__device__ __forceinline__ T go_trunc_div(T x, T d) {
-  const T ax = x < 0 ? static_cast<T>(U(0) - static_cast<U>(x)) : x;
-  T q = ax / d;
-  if (ax < 0 && q * d != ax) --q;
-  return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
-}
-
 // Key lane k of original row r (as sorted_front.cu computes it).
 __device__ __forceinline__ long long key_lane(const SegmentReduceArgs& a,
                                               int k, long long r) {
@@ -189,17 +181,7 @@ __device__ __forceinline__ long long key_lane(const SegmentReduceArgs& a,
       return r >> (a.log2C + __ffs(a.vg_span) - 1);
     --k;
   }
-  if (a.has_time && k == 0) {
-    const long long t = a.t_vals[r];
-    if (a.time_i32) {
-      const int tb = static_cast<int>(a.tb);
-      const int q = go_trunc_div<int, unsigned>(static_cast<int>(t), tb);
-      return static_cast<int>(static_cast<unsigned>(q) *
-                              static_cast<unsigned>(tb));
-    }
-    const long long q = go_trunc_div<long long, unsigned long long>(t, a.tb);
-    return (long long)((unsigned long long)q * (unsigned long long)a.tb);
-  }
+  if (a.has_time && k == 0) return time_key(a.t_vals[r], a.tb, a.time_i32);
   const int g = k - a.has_time;
   if (g >= a.ngroups) return 0ll;
   return desc_at(a.desc, a.key_valid, g)[r]

@@ -19,27 +19,23 @@
 // The cache-group key of a query-cache group scan (vg_span > 0; cg_key,
 // 405-411, 424-428) is lane 0: the row's block position over the group
 // span, (r >> log2C) / vg_span (a power of two: one shift), made from
-// the row index with no column read, never MISSING; a group scan's config has no sort_pack, so it is
-// an unpacked int64 lane sorted like any other.  CG is a template
-// parameter, as in K2.
-// Filters and the time key are K2's (dense_scan.cu), copied: a filter
-// never passes on a missing value; re/nre read the regex bitset at
-// clamp(v, 0, len-1); a set filter reads K14's bitmasks (in: has & hit,
-// nin: has & ~hit; the op is read first, a set column has no validity
-// lane); an unknown op never matches; a row without the time column is
-// unmatched; the time key is trunc_div(t, tb) * tb with Go's division, in
-// int32 arithmetic under time_i32 like the reference's.  For a samples
-// query the sorted form also writes the matched mask, one byte a row
-// (_scan_sorted 1273-1274; MASK, a template parameter); the enum form
-// never does (enum_radix declines samples).
+// the row index with no column read, never MISSING; a group scan's
+// config has no sort_pack, so it is an unpacked int64 lane sorted like
+// any other (a packed key takes it, and the time key, as a digit like
+// any lane).  Filters are K2's (filters.cuh); a row without the time
+// column is unmatched; the time key is trunc_div(t, tb) * tb with Go's
+// division, in int32 arithmetic under time_i32 like the reference's
+// (time_key.cuh).  For a samples query the sorted form also
+// writes the matched mask, one byte a row (_scan_sorted 1273-1274); the
+// enum form never does (enum_radix declines samples).
 //
-// In its enum form (a template parameter, chosen when the engine runs the
-// enumerated strategy) it replaces the front end of _scan_enum
-// (1420-1435, 1596-1597): the same packed key, always int32 there since
-// the radix is at most 2^21, the spill count, and the whole-scan totals
-// totals[0] = sum of the matched rows' weights (1 where the weight column
-// is missing or absent) and totals[1] = matched rows, exact and wrapping
-// mod 2^64 like the reference's int64 sums; idxm is not written.
+// In its enum form (chosen when the engine runs the enumerated strategy)
+// it replaces the front end of _scan_enum (1420-1435, 1596-1597): the
+// same packed key, always int32 there since the radix is at most 2^21,
+// the spill count, and the whole-scan totals totals[0] = sum of the
+// matched rows' weights (1 where the weight column is missing or absent)
+// and totals[1] = matched rows, exact and wrapping mod 2^64 like the
+// reference's int64 sums; idxm is not written.
 //
 // sort_permute replaces the operand permutation inside the reference's
 // multi-key lax.sort (1119): the port sorts the key lanes one stable
@@ -49,21 +45,63 @@
 //
 // Bound: memory.  sorted_front reads 9 B per referenced column per row
 // and writes 4 B of idxm plus the 4 or 8 B packed key, or 8 B per key
-// lane (the enum form: the 4 B key, and the weight column read); one
-// grid-stride pass, the spill count and the totals summed per CTA and
-// added once.  sort_permute reads p and gathers 8 B twice per row.
+// lane (the enum form: the 4 B key, and the weight column read).
+// sort_permute reads p and gathers 8 B once or twice per row; a gathered
+// word costs a whole 32-byte sector unless its neighbours are read while
+// the sector is in L2.
+//
+// What a trace of the former kernels showed (PERF.md §6, the sorted
+// front end's redesign; torch.profiler on the H100).  sorted_front took
+// one row a thread, 8 CTAs of 256 threads a SM, and a row's loads formed
+// one chain (the record count, then each filter, short-circuited, then
+// the time column, then each key lane, the time key's branch taken
+// inside the key loop):
+// path 1's one filter cost 56 us of 151 (S4b's same launch without a
+// filter 94 us), and a call was one or two memsets and the kernel.
+// sort_permute took one row a thread, a chain of two or three dependent
+// loads each.
+//
+// Design.  sorted_front is K2's tile (dense_scan.cu): one CTA of TT
+// threads a SM, a warp's tiles of 32 x TU rows (rows lane + 32u, so each
+// load and store is coalesced) read a column at a time: the record
+// counts, each filter's TU rows (filters.cuh), the time column's and then
+// each key's TU rows are loaded together, unconditionally, before any of
+// them is used.  The form (unpacked, packed int32 or int64, enum), MASK,
+// CG, TIME and HEAD (where the descriptor block lies, desc.cuh) are
+// template parameters, so the time and cache-group lanes are peeled off
+// the key loop.  The spill count and the totals are summed a warp at a
+// time by shuffles, then a CTA at a time, and added once a CTA; they
+// share one buffer, zeroed by the call's one memset (the unpacked form
+// needs none: its spill, always 0, is written by the kernel).
+// sort_permute: a lane's PU rows (lane + 32u) load their p together, then
+// their base words, then their nxt words, so a thread has PU chains in
+// flight rather than one; and each CTA takes its chunks of rows in the
+// order of their first row's source, so that the ascending runs of a
+// stable sort's p gather each sector of the sources from L2 together
+// rather than from memory once a run.  The more chunks a CTA orders, the
+// narrower that window: 2 rows a lane and 4 CTAs of 256 threads a SM give
+// path 2's 8,388,608 rows 31 chunks a CTA (kernel_variants.py on the
+// H100: 0.076 ms; 4 rows a lane and 8 CTAs a SM, 8 chunks, 0.105; in row
+// order 0.134).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "desc.cuh"
 #include "filters.cuh"
+#include "time_key.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int TT = 1024;     // sorted_front's threads (one CTA a SM)
+constexpr int TU = 4;        // rows a lane a tile: 32 x TU rows a warp
+constexpr int PT = 256;      // sort_permute's threads a CTA
+constexpr int PU = 2;        // sort_permute's rows a lane a tile
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
-constexpr int FV_SMEM = 16;  // filter constants staged in shared memory
+constexpr unsigned FULL = 0xffffffffu;
+
+// the forms: the key lanes, the packed key (int32, int64), the enum form
+enum { F_LANES, F_I32, F_I64, F_ENUM };
 
 }  // namespace
 
@@ -90,11 +128,13 @@ struct SortedFrontArgs {
   const int* nrec;                    // [B] valid records per block
   void* key_out;             // int32/int64 [R] packed, int64 [K + D, R]
   int* idxm;                          // [R] (not in the enum form)
-  unsigned long long* spill;          // [1]
-  unsigned long long* totals;         // [2] enum form: sum w, matched rows
+  // [3]: the spill count, then the enum form's totals (sum w, matched
+  // rows)
+  unsigned long long* counts;
   const long long* w_vals;            // weight column (has_weight)
   const unsigned char* w_valid;
   unsigned char* mask;                // [R] matched rows (MASK), or null
+  unsigned long long* paths;          // [K7_PATHS] CTA counts, or null
   long long R;
   long long tb;                       // time bucket (> 0)
   long long sent;                     // packed sentinel
@@ -112,206 +152,388 @@ struct SortedFrontArgs {
 
 namespace {
 
-// The reference's _trunc_div for d > 0 (as in dense_scan.cu).
-template <typename T, typename U>
-__device__ __forceinline__ T go_trunc_div(T x, T d) {
-  const T ax = x < 0 ? static_cast<T>(U(0) - static_cast<U>(x)) : x;
-  T q = ax / d;
-  if (ax < 0 && q * d != ax) --q;
-  return x >= 0 ? q : static_cast<T>(U(0) - static_cast<U>(q));
-}
+// The instantiations a launch adds its CTAs to (`paths`, ops/scan.py
+// K7_PATHS): the enum form, the mask, the cache-group lane, the time key,
+// the descriptor in the parameters or in device memory, unpacked lanes,
+// packed int32 and int64, the distinct lanes.
+enum { P_ENUM, P_MASK, P_CG, P_TIME, P_HEAD, P_DEV, P_LANES, P_I32, P_I64,
+       P_DIST, NPATHS };
 
-__device__ __forceinline__ long long time_lane(const SortedFrontArgs& a,
-                                               long long t) {
-  if (a.time_i32) {
-    const int tb = static_cast<int>(a.tb);
-    const int q = go_trunc_div<int, unsigned>(static_cast<int>(t), tb);
-    return static_cast<int>(static_cast<unsigned>(q) *
-                            static_cast<unsigned>(tb));
+// The key state of a warp's tile: unpacked, each lane's TU values are
+// written as they come (SENTINEL for unmatched rows); packed, they fold
+// into the mixed-radix key and the bad-digit bits.
+template <int F, bool HEAD>
+struct TileKeys {
+  const SortedFrontArgs& a;
+  long long r;
+  unsigned inr, live;
+  unsigned long long acc[TU];
+  unsigned bad = 0u;
+  int k = 0;                          // the next key lane
+
+  __device__ __forceinline__ TileKeys(const SortedFrontArgs& args,
+                                      long long row, unsigned in,
+                                      unsigned lv)
+      : a(args), r(row), inr(in), live(lv) {
+#pragma unroll
+    for (int u = 0; u < TU; ++u) acc[u] = 0ull;
   }
-  const long long q = go_trunc_div<long long, unsigned long long>(t, a.tb);
-  return (long long)((unsigned long long)q * (unsigned long long)a.tb);
-}
 
-// Key lane k of row r: the cache-group key (CG, lane 0), the time key, a
-// group column (MISSING = -1), or the single zero lane of a scan without
-// any.
-template <bool HEAD, bool CG>
-__device__ __forceinline__ long long key_lane(const SortedFrontArgs& a,
-                                              int k, long long r) {
+  // lane k's value of each row (MISSING = -1)
+  __device__ __forceinline__ void put(const long long* v) {
+    if (F == F_LANES) {
+      long long* out = static_cast<long long*>(a.key_out) + (size_t)k * a.R;
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+        if ((inr >> u) & 1u)
+          out[r + 32 * u] = (live >> u) & 1u ? v[u] : SENTINEL;
+    } else {
+      const long long card = desc_at<HEAD>(a.desc, a.pack_card, k);
+      const unsigned long long mn =
+          (unsigned long long)desc_at<HEAD>(a.desc, a.pack_min, k);
+#pragma unroll
+      for (int u = 0; u < TU; ++u) {
+        const long long d =
+            v[u] == -1ll ? 0ll
+                         : (long long)((unsigned long long)v[u] - mn + 1ull);
+        bad |= (unsigned)(d < 0 || d > card) << u;
+        acc[u] = acc[u] * (unsigned long long)(card + 1) +
+                 (unsigned long long)d;
+      }
+    }
+    ++k;
+  }
+
+  // a column's lane: its TU rows loaded together, MISSING where invalid
+  __device__ __forceinline__ void put_col(const long long* vals,
+                                          const unsigned char* valid) {
+    long long v[TU];
+    unsigned ok = 0u;
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      v[u] = 0;
+      if ((inr >> u) & 1u) {
+        ok |= (unsigned)(valid[r + 32 * u] != 0) << u;
+        v[u] = vals[r + 32 * u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TU; ++u)
+      if (!((ok >> u) & 1u)) v[u] = -1ll;
+    put(v);
+  }
+};
+
+// One warp's tile, rows r + 32u: the match, idxm and the mask, then the
+// key lanes in order [cg?, time?, *groups, zero lane?, *distinct].
+// Returns the rows that spilled (packed forms); the enum form adds the
+// matched rows' weights to *wsum and their count to *nmatch.
+template <int F, bool HEAD, bool MASK, bool CG, bool TIME>
+__device__ __forceinline__ unsigned front_tile(const SortedFrontArgs& a,
+                                               long long r,
+                                               const long long* s_fv,
+                                               unsigned long long* wsum,
+                                               unsigned* nmatch) {
+  unsigned inr;
+  unsigned live = tile_in_range<TU>(a.nrec, a.R, a.log2C, r, &inr);
+  live = tile_filters<HEAD, TU>(a, r, inr, live, s_fv);
+  long long tk[TU];
+  if (TIME) {
+    unsigned tv = 0u;
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      tk[u] = 0;
+      if ((inr >> u) & 1u) {
+        tv |= (unsigned)(a.t_valid[r + 32 * u] != 0) << u;
+        tk[u] = a.t_vals[r + 32 * u];
+      }
+    }
+    live &= tv;
+#pragma unroll
+    for (int u = 0; u < TU; ++u) tk[u] = time_key(tk[u], a.tb, a.time_i32);
+  }
+  if (F == F_ENUM) {
+    unsigned long long w = 0ull;
+    if (a.has_weight) {
+      long long wv[TU];
+      unsigned ok = 0u;
+#pragma unroll
+      for (int u = 0; u < TU; ++u) {
+        wv[u] = 0;
+        if ((inr >> u) & 1u) {
+          ok |= (unsigned)(a.w_valid[r + 32 * u] != 0) << u;
+          wv[u] = a.w_vals[r + 32 * u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+        if ((live >> u) & 1u)
+          w += (ok >> u) & 1u ? (unsigned long long)wv[u] : 1ull;
+    } else {
+      w = __popc(live);
+    }
+    *wsum += w;
+    *nmatch += __popc(live);
+  } else {
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      if (!((inr >> u) & 1u)) continue;
+      const long long ru = r + 32 * u;
+      a.idxm[ru] = (live >> u) & 1u ? (int)((unsigned)ru | 0x80000000u)
+                                    : (int)ru;
+      if (MASK) a.mask[ru] = (live >> u) & 1u;
+    }
+  }
+  TileKeys<F, HEAD> keys(a, r, inr, live);
   if (CG) {
-    if (k == 0) return r >> (a.log2C + __ffs(a.vg_span) - 1);
-    --k;
+    const int sh = a.log2C + __ffs(a.vg_span) - 1;
+    long long v[TU];
+#pragma unroll
+    for (int u = 0; u < TU; ++u) v[u] = (r + 32 * u) >> sh;
+    keys.put(v);
   }
-  if (a.has_time && k == 0) return time_lane(a, a.t_vals[r]);
-  const int g = k - a.has_time;
-  if (g >= a.ngroups) return 0ll;
-  return desc_at<HEAD>(a.desc, a.key_valid, g)[r]
-             ? desc_at<HEAD>(a.desc, a.key_vals, g)[r] : -1ll;
+  if (TIME) keys.put(tk);
+  for (int g = 0; g < a.ngroups; ++g)
+    keys.put_col(desc_at<HEAD>(a.desc, a.key_vals, g),
+                 desc_at<HEAD>(a.desc, a.key_valid, g));
+  while (keys.k < a.nkeys) {  // a scan without keys: one zero lane
+    const long long zero[TU] = {};
+    keys.put(zero);
+  }
+  if (F == F_LANES) {
+    for (int j = 0; j < a.ndist; ++j)
+      keys.put_col(desc_at<HEAD>(a.desc, a.d_vals, j),
+                   desc_at<HEAD>(a.desc, a.d_valid, j));
+    return 0u;
+  }
+#pragma unroll
+  for (int u = 0; u < TU; ++u) {
+    if (!((inr >> u) & 1u)) continue;
+    const bool ok = ((live & ~keys.bad) >> u) & 1u;
+    const long long out = ok ? (long long)keys.acc[u] : a.sent;
+    if (F == F_I64)
+      static_cast<long long*>(a.key_out)[r + 32 * u] = out;
+    else
+      static_cast<int*>(a.key_out)[r + 32 * u] = (int)out;
+  }
+  return __popc(live & keys.bad);
 }
 
-// HEAD: where the descriptor block lies (desc.cuh), a template
-// parameter as in K2; MASK: write the matched mask (not with ENUM); CG:
-// lane 0 is the cache-group key (not with ENUM).
-template <bool ENUM, bool HEAD, bool MASK, bool CG>
-__global__ void __launch_bounds__(THREADS) sorted_front_kernel(
+// One CTA of TT threads a SM; a warp takes tiles of 32 x TU rows by a
+// grid stride.  The packed forms' spill counts and the enum form's
+// totals are summed a warp, then a CTA at a time, and added once a CTA.
+template <int F, bool HEAD, bool MASK, bool CG, bool TIME>
+__global__ void __launch_bounds__(TT, 1) sorted_front_tiles(
     const SortedFrontArgs a) {
-  __shared__ unsigned long long s_spill, s_count, s_samples;
   __shared__ long long s_fv[FV_SMEM];
+  __shared__ unsigned s_spill[TT / 32], s_n[TT / 32];
+  __shared__ unsigned long long s_w[TT / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x < min(a.nfilters, FV_SMEM))
     s_fv[threadIdx.x] = a.filter_vals[threadIdx.x];
-  if (threadIdx.x == 0) s_spill = s_count = s_samples = 0ull;
   __syncthreads();
-  const long long cmask = (1ll << a.log2C) - 1;
-  unsigned long long my_spill = 0ull, my_count = 0ull, my_samples = 0ull;
-  for (long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-       r < a.R; r += (long long)gridDim.x * THREADS) {
-    bool matched = (r & cmask) < a.nrec[r >> a.log2C];
-    // the staged constants first, the rest (past FV_SMEM) from global
-    const int nfs = min(a.nfilters, FV_SMEM);
-    for (int i = 0; matched && i < nfs; ++i)
-      matched = passes<HEAD>(a, i, r, s_fv[i]);
-    for (int i = FV_SMEM; matched && i < a.nfilters; ++i)
-      matched = passes<HEAD>(a, i, r, a.filter_vals[i]);
-    if (a.has_time && matched) matched = a.t_valid[r] != 0;
-    if (MASK) a.mask[r] = matched;
-    if (ENUM) {
-      if (matched) {
-        my_count += a.has_weight && a.w_valid[r]
-                        ? (unsigned long long)a.w_vals[r] : 1ull;
-        ++my_samples;
-      }
-    } else {
-      a.idxm[r] = matched ? (int)((unsigned)r | 0x80000000u) : (int)r;
-    }
-    if (ENUM || a.packed) {
-      unsigned long long acc = 0ull;
-      bool bad = false;
-      for (int k = 0; k < a.nkeys; ++k) {
-        const long long key = key_lane<HEAD, CG>(a, k, r);
-        const long long card = desc_at<HEAD>(a.desc, a.pack_card, k);
-        const unsigned long long mn =
-            (unsigned long long)desc_at<HEAD>(a.desc, a.pack_min, k);
-        const long long digit =
-            key == -1ll ? 0ll
-                        : (long long)((unsigned long long)key - mn + 1ull);
-        bad |= digit < 0 || digit > card;
-        acc = acc * (unsigned long long)(card + 1) + (unsigned long long)digit;
-      }
-      const long long out = matched && !bad ? (long long)acc : a.sent;
-      if (ENUM || a.packed == 1)
-        static_cast<int*>(a.key_out)[r] = (int)out;
-      else
-        static_cast<long long*>(a.key_out)[r] = out;
-      my_spill += matched && bad;
-    } else {
-      long long* keys = static_cast<long long*>(a.key_out);
-      for (int k = 0; k < a.nkeys; ++k)
-        keys[(size_t)k * a.R + r] =
-            matched ? key_lane<HEAD, CG>(a, k, r) : SENTINEL;
-      for (int j = 0; j < a.ndist; ++j) {
-        long long v = SENTINEL;
-        if (matched)
-          v = desc_at<HEAD>(a.desc, a.d_valid, j)[r]
-                  ? desc_at<HEAD>(a.desc, a.d_vals, j)[r] : -1ll;
-        keys[(size_t)(a.nkeys + j) * a.R + r] = v;
-      }
-    }
-  }
-  if (my_spill) atomicAdd(&s_spill, my_spill);
-  if (ENUM) {
-    if (my_count) atomicAdd(&s_count, my_count);
-    if (my_samples) atomicAdd(&s_samples, my_samples);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0 && s_spill) atomicAdd(a.spill, s_spill);
-  if (ENUM && threadIdx.x == 0) {
-    if (s_count) atomicAdd(a.totals, s_count);
-    if (s_samples) atomicAdd(a.totals + 1, s_samples);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) sort_permute_kernel(
-    const long long* base, const long long* p, const long long* nxt,
-    long long* base_out, long long* gathered, long long R) {
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < R;
-       i += (long long)gridDim.x * THREADS) {
-    const long long j = p[i];
-    const long long b = base ? base[j] : j;
-    if (base_out) base_out[i] = b;
-    if (gathered) gathered[i] = nxt[b];
-  }
-}
-
-template <bool CG>
-void launch_sorted(const SortedFrontArgs* args, bool head, int grid,
-                   cudaStream_t s) {
-  if (args->mask) {
-    if (head)
-      sorted_front_kernel<false, true, true, CG><<<grid, THREADS, 0, s>>>(
-          *args);
-    else
-      sorted_front_kernel<false, false, true, CG><<<grid, THREADS, 0, s>>>(
-          *args);
+  unsigned spill = 0u, n = 0u;
+  unsigned long long w = 0ull;
+  const long long step = (long long)gridDim.x * TT * TU;
+  for (long long r0 = ((long long)blockIdx.x * (TT / 32) + warp) * (32 * TU);
+       r0 < a.R; r0 += step)
+    spill += front_tile<F, HEAD, MASK, CG, TIME>(a, r0 + lane, s_fv, &w, &n);
+  if (F == F_LANES) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.counts[0] = 0ull;
   } else {
-    if (head)
-      sorted_front_kernel<false, true, false, CG><<<grid, THREADS, 0, s>>>(
-          *args);
-    else
-      sorted_front_kernel<false, false, false, CG><<<grid, THREADS, 0, s>>>(
-          *args);
+    spill = __reduce_add_sync(FULL, spill);
+    if (F == F_ENUM) {
+      n = __reduce_add_sync(FULL, n);
+#pragma unroll
+      for (int o = 16; o; o >>= 1) w += __shfl_xor_sync(FULL, w, o);
+    }
+    if (lane == 0) {
+      s_spill[warp] = spill;
+      s_n[warp] = n;
+      s_w[warp] = w;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const bool in = lane < TT / 32;
+      spill = __reduce_add_sync(FULL, in ? s_spill[lane] : 0u);
+      if (lane == 0 && spill) atomicAdd(a.counts, (unsigned long long)spill);
+      if (F == F_ENUM) {
+        n = __reduce_add_sync(FULL, in ? s_n[lane] : 0u);
+        w = in ? s_w[lane] : 0ull;
+#pragma unroll
+        for (int o = 16; o; o >>= 1) w += __shfl_xor_sync(FULL, w, o);
+        if (lane == 0) {
+          if (w) atomicAdd(a.counts + 1, w);
+          if (n) atomicAdd(a.counts + 2, (unsigned long long)n);
+        }
+      }
+    }
   }
+  if (a.paths && threadIdx.x == 0) {
+    const bool took[NPATHS] = {F == F_ENUM, MASK, CG, TIME, HEAD, !HEAD,
+                               F == F_LANES, F == F_I32 || F == F_ENUM,
+                               F == F_I64, F == F_LANES && a.ndist > 0};
+    for (int i = 0; i < NPATHS; ++i)
+      if (took[i]) atomicAdd(a.paths + i, 1ull);
+  }
+}
+
+// base_out[i] = base[p[i]] (BASE) and gathered[i] = nxt[that] (GATHER),
+// or nxt[p[i]] without a base, over chunks of PT * PU rows, a tile a warp:
+// a lane's PU rows (lane + 32u) load their p together, then
+// their base words, then their nxt words.  CTA b takes the chunks b +
+// grid * i (i < m <= 32: the entry sizes the grid) in the order of their
+// first row's source, p[chunk start]: a stable sort's p is a few
+// ascending runs, which row order sweeps over the source rows one run
+// after another, each gathered word a 32-byte sector from memory; in
+// source order every CTA's k-th chunk reads about the same window of the
+// sources, so the runs share each sector while it is in L2.
+template <bool BASE, bool GATHER>
+__global__ void __launch_bounds__(PT) sort_permute_chunks(
+    const long long* __restrict__ base, const long long* __restrict__ p,
+    const long long* __restrict__ nxt, long long* __restrict__ base_out,
+    long long* __restrict__ gathered, long long R) {
+  __shared__ int s_ord[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int CH = PT * PU;
+  const long long nch = (R + CH - 1) / CH;
+  const int m = (int)((nch - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  if (m > 1 && warp == 0) {  // each chunk's rank by its first source
+    const long long key =
+        lane < m ? p[(blockIdx.x + (long long)gridDim.x * lane) * CH]
+                 : 0x7fffffffffffffffll;
+    int rank = 0;
+    for (int o = 0; o < 32; ++o) {
+      const long long ko = __shfl_sync(FULL, key, o);
+      rank += ko < key || (ko == key && o < lane);
+    }
+    if (lane < m) s_ord[rank] = lane;
+  }
+  if (m > 1) __syncthreads();
+  for (int k = 0; k < m; ++k) {
+    const long long c =
+        blockIdx.x + (long long)gridDim.x * (m > 1 ? s_ord[k] : 0);
+    const long long r1 = min(R, (c + 1) * CH);
+    const long long r = c * CH + warp * 32 * PU + lane;
+    long long j[PU];
+#pragma unroll
+    for (int u = 0; u < PU; ++u)
+      j[u] = r + 32 * u < r1 ? __ldcs(p + r + 32 * u) : 0ll;
+    if (BASE) {
+#pragma unroll
+      for (int u = 0; u < PU; ++u)
+        if (r + 32 * u < r1) j[u] = base[j[u]];
+    }
+    long long g[PU];
+    if (GATHER) {
+#pragma unroll
+      for (int u = 0; u < PU; ++u)
+        g[u] = r + 32 * u < r1 ? nxt[j[u]] : 0ll;
+    }
+#pragma unroll
+    for (int u = 0; u < PU; ++u) {
+      if (r + 32 * u >= r1) continue;
+      if (BASE) __stcs(base_out + r + 32 * u, j[u]);
+      if (GATHER) __stcs(gathered + r + 32 * u, g[u]);
+    }
+  }
+}
+
+template <int F, bool HEAD, bool MASK>
+void launch_lanes(const SortedFrontArgs* args, int grid, cudaStream_t s) {
+  const bool cg = args->vg_span > 0, time = args->has_time;
+  if (cg && time)
+    sorted_front_tiles<F, HEAD, MASK, true, true><<<grid, TT, 0, s>>>(*args);
+  else if (cg)
+    sorted_front_tiles<F, HEAD, MASK, true, false><<<grid, TT, 0, s>>>(
+        *args);
+  else if (time)
+    sorted_front_tiles<F, HEAD, MASK, false, true><<<grid, TT, 0, s>>>(
+        *args);
+  else
+    sorted_front_tiles<F, HEAD, MASK, false, false><<<grid, TT, 0, s>>>(
+        *args);
+}
+
+template <int F, bool HEAD>
+void launch_mask(const SortedFrontArgs* args, int grid, cudaStream_t s) {
+  if constexpr (F == F_ENUM) {
+    sorted_front_tiles<F, HEAD, false, false, false><<<grid, TT, 0, s>>>(
+        *args);
+  } else {
+    if (args->mask) launch_lanes<F, HEAD, true>(args, grid, s);
+    else launch_lanes<F, HEAD, false>(args, grid, s);
+  }
+}
+
+template <int F>
+void launch_form(const SortedFrontArgs* args, int grid, cudaStream_t s) {
+  if (args->desc.n <= DESC_HEAD) launch_mask<F, true>(args, grid, s);
+  else launch_mask<F, false>(args, grid, s);
 }
 
 }  // namespace
 
-// Copies the descriptor block, zeroes the spill count (and the enum
-// form's totals), then one grid-stride pass on `stream`, the enum form
-// when `enum_form` is set, writing the matched mask when `mask` is set
-// and making lane 0 the cache-group key when vg_span > 0 (the sorted
-// form only).  Returns cudaError_t.
+// Copies the descriptor block when it passes its head, zeroes the spill
+// count (and the enum form's totals: one memset; the unpacked form needs
+// none), then one launch of TT-thread CTAs (`grid`, one a SM) on
+// `stream`: the enum form when `enum_form` is set (packed int32, no mask,
+// no cache-group or time key), else the packed key (packed 1 or 2) or
+// the key lanes and the distinct lanes (packed 0),
+// writing the matched mask when `mask` is set and making lane 0 the
+// cache-group key when vg_span > 0 (a power of two).  Returns
+// cudaError_t.
 extern "C" int sorted_front(const SortedFrontArgs* args, int enum_form,
                             int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->R >= (1ll << 31) || (enum_form && args->packed != 1) ||
-      (args->ndist > 0 && args->packed) || (enum_form && args->mask) ||
+  const int packed = args->packed;
+  if (args->R >= (1ll << 31) || packed < 0 || packed > 2 ||
+      (enum_form && (packed != 1 || args->mask)) ||
+      (args->ndist > 0 && packed) ||
+      (enum_form && (args->has_time || args->vg_span)) ||
       args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)) ||
-      (enum_form && args->vg_span) ||
       (args->vg_span && args->nkeys < 1 + args->has_time))
     return cudaErrorInvalidValue;
-  const bool head = args->desc.n <= DESC_HEAD;
   cudaError_t err = desc_upload(args->desc, s);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(args->spill, 0, sizeof(unsigned long long), s);
-  if (err != cudaSuccess) return err;
-  if (enum_form) {
-    err = cudaMemsetAsync(args->totals, 0, 2 * sizeof(unsigned long long), s);
+  if (packed) {
+    err = cudaMemsetAsync(args->counts, 0,
+                          (enum_form ? 3 : 1) * sizeof(unsigned long long),
+                          s);
     if (err != cudaSuccess) return err;
-    if (head)
-      sorted_front_kernel<true, true, false, false><<<grid, THREADS, 0, s>>>(
-          *args);
-    else
-      sorted_front_kernel<true, false, false, false><<<grid, THREADS, 0, s>>>(
-          *args);
-  } else if (args->vg_span) {
-    launch_sorted<true>(args, head, grid, s);
-  } else {
-    launch_sorted<false>(args, head, grid, s);
   }
+  if (enum_form) launch_form<F_ENUM>(args, grid, s);
+  else if (packed == 1) launch_form<F_I32>(args, grid, s);
+  else if (packed == 2) launch_form<F_I64>(args, grid, s);
+  else launch_form<F_LANES>(args, grid, s);
   return cudaGetLastError();
 }
 
 // base_out[i] = base[p[i]] (base non-null) and gathered[i] = nxt[base_out
-// [i]], or nxt[p[i]] without a base.  Returns cudaError_t.
+// [i]], or nxt[p[i]] without a base, over R rows in `grid` CTAs of PT
+// threads on `stream` (more where a CTA would take over 32 chunks of
+// PT * PU rows, fewer where there are fewer chunks), each CTA taking its
+// chunks in their sources' order.  Returns cudaError_t.
 extern "C" int sort_permute(const long long* base, const long long* p,
                             const long long* nxt, long long* base_out,
                             long long* gathered, long long R, int grid,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((base == nullptr) != (base_out == nullptr) ||
-      (nxt == nullptr) != (gathered == nullptr))
+      (nxt == nullptr) != (gathered == nullptr) || grid < 1 || R < 0)
     return cudaErrorInvalidValue;
-  sort_permute_kernel<<<grid, THREADS, 0, s>>>(base, p, nxt, base_out,
-                                               gathered, R);
+  if (R == 0 || (!base && !nxt)) return cudaSuccess;
+  const long long nch = (R + PT * PU - 1) / (PT * PU);
+  if (grid > nch) grid = (int)nch;
+  if (grid < (nch + 31) / 32) grid = (int)((nch + 31) / 32);
+  if (base && nxt)
+    sort_permute_chunks<true, true><<<grid, PT, 0, s>>>(
+        base, p, nxt, base_out, gathered, R);
+  else if (base)
+    sort_permute_chunks<true, false><<<grid, PT, 0, s>>>(
+        base, p, nxt, base_out, gathered, R);
+  else
+    sort_permute_chunks<false, true><<<grid, PT, 0, s>>>(
+        base, p, nxt, base_out, gathered, R);
   return cudaGetLastError();
 }

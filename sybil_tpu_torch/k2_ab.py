@@ -64,6 +64,20 @@ page, hist weight`: 91 compact slots), its global form forced at config
 1's and config 3's shapes, and the windowed form's three config-4
 layouts beside the global form forced on each.
 
+K7 and sort_permute (`--only K7,sort_permute`): K7 at path 1 (config 3
+-tdigest: an int32 packed key after one filter), path 2 (config 4 at 300
+s buckets: two int64 lanes), the distinct lanes (K + D = 3), the
+cache-group lane of group_tdigest, S3 with and without its set filter,
+S4b with and without the matched mask, config 5's enum form (4,194,304
+rows) and one mesh shard of path 2 (1,048,576 rows); sort_permute at
+path 2's step (no base), the distinct pairs' second step (a base) and
+path 2's mesh owner (201,024 rows), each beside its torch call, and path
+2's gather with p the identity and with p a random permutation.  With
+`--trace`, first the atomics and ptxas registers of each kernel of the
+sorted_front library; each sort_permute run also prints how often a row's
+source shares its predecessor's 32-byte sector, and the ascending runs
+of p.
+
 `--only K6,K8` (before the roots) times only the runs whose label
 starts with one of the prefixes and a non-digit (`--only K15,prune` the
 runs above; K1 does not select K10).
@@ -264,6 +278,7 @@ def kernel_runs(root: str, only=()) -> tuple:
         runs += k15_runs(scan, dev)
     runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
     runs += c2_runs(scan, dev) + k1_runs(dev)
+    runs += k7_runs(scan, dev) + permute_runs(scan, dev)
     if only:
         runs = tuple(r for r in runs if any(_selects(o, r[0]) for o in only))
     return runs
@@ -733,6 +748,182 @@ def k8_runs(scan, dev, B: int = 128) -> tuple:
     return out
 
 
+def k7_runs(scan, dev, B: int = 128) -> tuple:
+    """K7 at the main path's shapes, 8,388,608 rows unless noted: path 1
+    (config 3 -tdigest: status eq 200, an int32 packed host key), path 2
+    (config 4 at 300 s buckets: the time key and action, two int64
+    lanes), the distinct lanes (group by host, distinct status, ping: K +
+    D = 3), the cache-group lane (group_tdigest: 8 groups of 16 blocks
+    ahead of host, unpacked), S3 (group by host, status, an int32 packed
+    key, groups:in:mod5) and S4b (group by host, the matched mask) each
+    beside the same launch without its set filter or mask, the enum form
+    at config 5 (4,194,304 rows, group by userid, about 200,000 users)
+    and one mesh shard of path 2 (1,048,576 rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(7)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+
+    def col(v, p_valid):
+        return v.reshape(B, C), (torch.rand((B, C), device=dev, generator=g)
+                                 < p_valid)
+
+    up = {"host": col(torch.randint(0, 5, (R,), device=dev, generator=g),
+                      0.93),
+          "ping": col((torch.randn(R, device=dev, generator=g) * 20 + 60)
+                      .abs().to(torch.int64), 0.89),
+          "status": col(torch.randint(0, 5, (R,), device=dev, generator=g),
+                        1.0)}
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    tdig = scan.AggSpec("ping", 0, 1, 202, 0, 200)
+    status = (scan.FilterSpec("status", "eq", "str"),)
+    p1 = scan.ScanConfig(group_cols=("host",), aggs=(tdig,), filters=status,
+                         key_bounds=((0, 5),), force_sorted=True,
+                         sort_pack=((0, 5),))
+    now, month = 1_755_000_000, 4 * 7 * 86400
+    t = now - torch.randint(0, month, (R,), device=dev, generator=g)
+    for lo in range(0, R, 1_000_000):
+        t[lo:lo + 1_000_000] = torch.sort(t[lo:lo + 1_000_000])[0]
+    c4 = {"time": (t.reshape(B, C), valid),
+          "action": (torch.randint(0, 9, (B, C), device=dev, generator=g),
+                     valid),
+          "weight": (torch.tensor([1, 10, 100], device=dev)[torch.randint(
+              0, 3, (B, C), device=dev, generator=g)], valid)}
+    p2 = scan.ScanConfig(
+        group_cols=("action",), aggs=(scan.AggSpec("weight", 0, 0, 0, 1,
+                                                   100),),
+        filters=(), time_col="time", force_sorted=True, time_i32=True,
+        agg_vbias=(1,))
+    pairs = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
+                            distinct_cols=("status", "ping"),
+                            force_sorted=True)
+    cg = scan.ScanConfig(group_cols=("__cg__", "host"), aggs=(tdig,),
+                         filters=(), key_bounds=((0, B // 16), (0, 5)),
+                         force_sorted=True, vg_span=16)
+    # S3 and S4b over the sets table's shape: `groups` holds mod2, mod3
+    # and mod5 of a row's index (or none), K14's bitmasks prebuilt
+    rng = np.random.default_rng(3)
+    idx = np.arange(R)
+    tags = [np.nonzero(idx % m == 0)[0] for m in (2, 3, 5)]
+    rows = np.concatenate(tags).astype(np.int32)
+    vals = np.concatenate([np.full(len(x), i) for i, x in enumerate(tags)])
+    order = np.argsort(rows, kind="stable")
+    from sybil_tpu_torch.query.engine import pad_set_csr
+    prow, pval = pad_set_csr(rows[order], vals[order], R)
+    csr = (torch.from_numpy(prow).to(dev), torch.from_numpy(pval).to(dev),
+           len(rows))
+    s3 = scan.ScanConfig(group_cols=("host", "status"), aggs=(tdig,),
+                         filters=(scan.FilterSpec("groups", "in", "set"),),
+                         force_sorted=True, sort_pack=((0, 5), (0, 5)))
+    fv3 = torch.tensor([2], dtype=torch.int64, device=dev)
+    sm3 = scan.set_filter_masks(s3, fv3, {"groups": csr}, R)
+    s3_bare = dataclasses.replace(s3, filters=())
+    s4 = scan.ScanConfig(group_cols=("host",), aggs=(tdig,), filters=(),
+                         force_sorted=True, sort_pack=((0, 5),),
+                         want_matched_mask=True)
+    s4_bare = dataclasses.replace(s4, want_matched_mask=False)
+    del rng
+    # config 5: one partition's batch of 64 blocks, userid packed
+    B5 = B // 2
+    users = {"userid": (torch.randint(0, 200_000, (B5, C), device=dev,
+                                      generator=g), valid[:B5]),
+             "weight": (c4["weight"][0][:B5], valid[:B5])}
+    c5 = scan.ScanConfig(group_cols=("userid",),
+                         aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                         filters=(), force_sorted=True,
+                         sort_pack=((0, 200_000),), prune_topk=1000)
+    if scan.enum_radix(c5) <= 0:
+        raise SystemExit("k7_runs: config 5's shape is not enumerable")
+    Bs = B // 8
+    shard = {k: (v[:Bs], m[:Bs]) for k, (v, m) in c4.items()}
+    return (
+        ("K7 path 1 (config 3 -tdigest: status eq 200, int32 packed host "
+         "key)", 20, lambda: scan.sorted_front(p1, up, nrec, fv)),
+        ("K7 path 2 (config 4 at 300 s buckets: time and action, two int64 "
+         "lanes)", 20,
+         lambda: scan.sorted_front(p2, c4, nrec, None, (), 300)),
+        ("K7 the distinct lanes (host, distinct status, ping: K + D = 3)",
+         20, lambda: scan.sorted_front(pairs, up, nrec)),
+        ("K7 the cache-group lane (group_tdigest: 8 groups of 16 blocks, "
+         "host)", 20, lambda: scan.sorted_front(cg, up, nrec)),
+        ("K7 S3 with its set filter (host, status packed; groups:in:mod5)",
+         20, lambda: scan.sorted_front(s3, up, nrec, fv3, set_masks=sm3)),
+        ("K7 S3 without it (the same launch)", 20,
+         lambda: scan.sorted_front(s3_bare, up, nrec)),
+        ("K7 S4b with the matched mask (host packed)", 20,
+         lambda: scan.sorted_front(s4, up, nrec)),
+        ("K7 S4b without it (the same launch)", 20,
+         lambda: scan.sorted_front(s4_bare, up, nrec)),
+        (f"K7 enum form at config 5 ({B5 * C} rows, group by userid)", 20,
+         lambda: scan.sorted_front(c5, users, nrec[:B5])),
+        (f"K7 at one mesh shard ({Bs * C} rows, path 2's config)", 20,
+         lambda: scan.sorted_front(p2, shard, nrec[:Bs], None, (), 300)))
+
+
+# sort_permute run label -> its p, for the trace's sector counts
+PERMUTES: dict = {}
+
+
+def permute_runs(scan, dev, B: int = 128) -> tuple:
+    """sort_permute at the main path's shapes, each beside its torch
+    call: path 2's single step (8,388,608 rows, no base: the time lane
+    gathered through the stable sort of action), the distinct pairs'
+    second step (a base: the host lane through the sorts of ping and
+    status) and path 2's mesh owner (201,024 rows of two lanes, 9,104
+    live at the heads of the 8 sources' blocks, the rest SENTINEL); and
+    path 2's gather with p the identity and with p a random permutation,
+    which bracket what any gather of those bytes reaches on the card."""
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(16)
+    now, month = 1_755_000_000, 4 * 7 * 86400
+    t = now - torch.randint(0, month, (R,), device=dev, generator=g)
+    action = torch.randint(0, 9, (R,), device=dev, generator=g)
+    p2 = torch.sort(action, stable=True)[1]
+    host = torch.randint(0, 5, (R,), device=dev, generator=g)
+    status = torch.randint(0, 5, (R,), device=dev, generator=g)
+    ping = (torch.randn(R, device=dev, generator=g) * 20 + 60).abs().to(
+        torch.int64)
+    p0 = torch.sort(ping, stable=True)[1]
+    base1, g1 = scan.sort_permute(None, p0, status)
+    p1 = torch.sort(g1, stable=True)[1]
+    D, Sc, live = 8, 25_128, 9_104
+    N = D * Sc
+    sent = torch.full((2, N), 2 ** 63 - 1, dtype=torch.int64, device=dev)
+    for d, n in enumerate(torch.arange(live).chunk(D)):
+        sent[0, d * Sc:d * Sc + n.numel()] = now - torch.randint(
+            0, month, (n.numel(),), device=dev, generator=g)
+        sent[1, d * Sc:d * Sc + n.numel()] = torch.randint(
+            0, 9, (n.numel(),), device=dev, generator=g)
+    po = torch.sort(sent[1], stable=True)[1]
+    ident = torch.arange(R, device=dev)
+    rand = torch.randperm(R, device=dev, generator=g)
+    runs = (
+        (f"sort_permute path 2, no base ({R} rows)", p2,
+         lambda: scan.sort_permute(None, p2, t)),
+        ("sort_permute path 2's torch call keys[p]", None, lambda: t[p2]),
+        ("sort_permute the distinct pairs' second step, with a base", p1,
+         lambda: scan.sort_permute(base1, p1, host)),
+        ("sort_permute that step's torch calls base[p], nxt[perm]", None,
+         lambda: host[base1[p1]]),
+        (f"sort_permute path 2's owner ({N} rows, two lanes)", po,
+         lambda: scan.sort_permute(None, po, sent[0])),
+        ("sort_permute the owner's torch call keys[p]", None,
+         lambda: sent[0][po]),
+        ("sort_permute gather reference: path 2 with p the identity", ident,
+         lambda: scan.sort_permute(None, ident, t)),
+        ("sort_permute gather reference: path 2 with p a random "
+         "permutation", rand, lambda: scan.sort_permute(None, rand, t)))
+    PERMUTES.update({label: p for label, p, _ in runs if p is not None})
+    return tuple((label, 20, fn) for label, _, fn in runs)
+
+
 def atomics(root: str, kernels, names) -> list:
     """The atomic instructions each kernel of the root's libraries
     `names` compiled to (cuobjdump -sass), one line a kernel over its
@@ -843,13 +1034,25 @@ def trace_runs(root: str, only) -> str:
     sys.path.insert(0, REPO)
     import chip_smoke
     out = []
+    from sybil_tpu_torch.ops import kernels
     if any(o.startswith(("K1", "K2")) for o in only):
-        from sybil_tpu_torch.ops import kernels
         out += atomics(root, kernels, ("decode_bucket2", "dense_scan"))
-    return "\n".join(out + [f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
-                            f"{_ms(fn, n, queued=True):.4f} ms device; "
-                            f"{chip_smoke.profiled_kernels(fn)}"
-                            for what, n, fn in runs])
+    if any(o.startswith(("K7", "sort_permute")) for o in only):
+        out += atomics(root, kernels, ("sorted_front",))
+    for what, n, fn in runs:
+        line = (f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
+                f"{_ms(fn, n, queued=True):.4f} ms device; "
+                f"{chip_smoke.profiled_kernels(fn)}")
+        p = PERMUTES.get(what)
+        if p is not None:
+            # how often row i's source shares row i-1's 32-byte sector
+            # of an int64 lane, and the ascending runs p walks
+            same = (p[1:] // 4 == p[:-1] // 4).float().mean().item()
+            line += (f"; source row in its predecessor's sector {same:.3f}"
+                     f", runs of ascending p "
+                     f"{int((p[1:] < p[:-1]).sum().item()) + 1}")
+        out.append(line)
+    return "\n".join(out)
 
 
 def build_walls_table(table_dir: str) -> None:

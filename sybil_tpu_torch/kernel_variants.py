@@ -1,4 +1,4 @@
-"""Variants of K1's and K2's sources timed side by side on one card.
+"""Variants of K1's, K2's and K7's sources timed side by side on one card.
 
     python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
 
@@ -8,7 +8,9 @@ constants of ops/scan.py set in the timing process), built by `nvcc` in
 parallel, then timed in a fresh process each, in two rounds (the second
 in reverse order) on the same card: K2 (dense_scan) at config 1's,
 config 1's global form's, config 3's and config 2's shapes and config 4's
-three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes.  A
+three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes;
+K7 and sort_permute (sorted_front) at k2_ab.py's K7 and sort_permute
+shapes.  A
 variant that drops work (the row pass, the adds) gives wrong words: it
 only splits the time.  Prints each run's wall and device ms (k2_ab._ms)
 and the ptxas spill lines of the variant's build.
@@ -25,7 +27,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "sybil_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "archive_check", "var")
-K2S, K1S = "dense_scan", "decode_bucket2"
+K2S, K1S, K7S = "dense_scan", "decode_bucket2", "sorted_front"
 # name -> (source, [(old, new)], {ops/scan.py constant: value})
 VARIANTS = {
     "k2 as committed": (K2S, [], {}),
@@ -38,6 +40,46 @@ VARIANTS = {
     "k2 a table a CTA": (K2S, [], {"_K2_WARP_TABLES": 0}),
     "k2 gids only": (K2S, [("      } else if (any) {",
                             "      } else if (false) {")], {}),
+    "k7 as committed": (K7S, [], {}),
+    "k7 2 rows a lane": (K7S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 2;")], {"_K7_ROWS": 2}),
+    "k7 8 rows a lane": (K7S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 8;")], {"_K7_ROWS": 8}),
+    "k7 512 threads 2 CTAs a SM": (K7S, [
+        ("constexpr int TT = 1024;", "constexpr int TT = 512;"),
+        ("__launch_bounds__(TT, 1) sorted_front_tiles",
+         "__launch_bounds__(TT, 2) sorted_front_tiles")],
+        {"_K7_THREADS": 512, "_K7_CTAS": 2}),
+    "sp 4 rows a lane 8 CTAs a SM": (K7S, [("constexpr int PU = 2;",
+                                            "constexpr int PU = 4;")],
+                                     {"_PERMUTE_ROWS": 4,
+                                      "_PERMUTE_CTAS": 8}),
+    "sp 4 rows a lane": (K7S, [("constexpr int PU = 2;",
+                                "constexpr int PU = 4;")],
+                         {"_PERMUTE_ROWS": 4}),
+    "sp 8 CTAs a SM": (K7S, [], {"_PERMUTE_CTAS": 8}),
+    "sp 1 row a lane 8 CTAs a SM": (K7S, [("constexpr int PU = 2;",
+                                           "constexpr int PU = 1;")],
+                                    {"_PERMUTE_ROWS": 1,
+                                     "_PERMUTE_CTAS": 8}),
+    "sp no cache hints": (K7S, [("__ldcs(p + r + 32 * u)", "p[r + 32 * u]"),
+                               ("__stcs(base_out + r + 32 * u, j[u])",
+                                "base_out[r + 32 * u] = j[u]"),
+                               ("__stcs(gathered + r + 32 * u, g[u])",
+                                "gathered[r + 32 * u] = g[u]")], {}),
+    "sp nxt kept in L2 (evict_last)": (K7S, [
+        ("template <bool BASE, bool GATHER>\n__global__",
+         "__device__ __forceinline__ long long ld_last(const long long* q) "
+         "{\n  long long v;\n  asm volatile(\"{\\n\\t.reg .b64 pol;\\n\\t"
+         "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\\n\\t"
+         "ld.global.L2::cache_hint.b64 %0, [%1], pol;\\n}\" : \"=l\"(v) : "
+         "\"l\"(q));\n  return v;\n}\n\n"
+         "template <bool BASE, bool GATHER>\n__global__"),
+        ("g[u] = r + 32 * u < r1 ? nxt[j[u]] : 0ll;",
+         "g[u] = r + 32 * u < r1 ? ld_last(nxt + j[u]) : 0ll;")], {}),
+    "sp chunks in row order": (K7S, [("if (lane < m) s_ord[rank] = lane;",
+                                      "if (lane < m) s_ord[lane] = lane;")],
+                               {}),
     "k1 as committed": (K1S, [], {}),
     "k1 scan pass alone": (K1S, [
         ("  bucket_rows<<<dim3(a.nr, a.B), THREADS, shm, s>>>(a);\n", "")],
@@ -124,7 +166,12 @@ def child(d: str, src: str) -> None:
         for k, v in json.load(f).items():
             setattr(scan, k, v)
     dev = torch.device("cuda")
-    runs = k2_shapes(scan, dev) if src == K2S else list(k2_ab.k1_runs(dev))
+    # a sort_permute variant ("sp ...") times sort_permute's runs alone
+    runs = (k2_shapes(scan, dev) if src == K2S else
+            list(k2_ab.k1_runs(dev)) if src == K1S else
+            list(k2_ab.permute_runs(scan, dev)) if
+            os.path.basename(d).startswith("sp_") else
+            list(k2_ab.k7_runs(scan, dev) + k2_ab.permute_runs(scan, dev)))
     name = os.path.basename(d)
     for what, n, fn in runs:
         print(f"{name}: {what}: {k2_ab._ms(fn, n):.4f} ms wall, "
@@ -152,12 +199,15 @@ def main(argv: list[str]) -> int:
         "kernels.CSRC, kernels.BUILD_DIR = sys.argv[2], sys.argv[3]; "
         "kernels.build((sys.argv[4],))", ROOT, d, os.path.join(d, "build"),
         src]) for d, src in dirs]
-    if any(p.wait() for p in builds):
-        return 1
+    failed = {d for (d, _), p in zip(dirs, builds) if p.wait()}
+    for d in failed:
+        print(f"{os.path.basename(d)}: the build failed", flush=True)
+    dirs = [(d, src) for d, src in dirs if d not in failed]
     for order in (dirs, dirs[::-1]):
         for d, src in order:
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", d, src], check=True)
+            if subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--child", d, src]).returncode:
+                print(f"{os.path.basename(d)}: the run failed", flush=True)
     return 0
 
 

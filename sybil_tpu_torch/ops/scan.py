@@ -642,12 +642,16 @@ def _sm_count(dev) -> int:
     return n
 
 
-def _check_tensor(t, shape, dtype, what, dev, kernel):
-    # get_device() and the torch.Size compare: a wrapper checks each
-    # table it is passed, so this runs tens of times a query
-    if (t.shape != shape or t.dtype != dtype
+def _check_tensor(t, shape, dtype, what, dev, kernel, col=None):
+    """Raises unless t is a contiguous `dtype` tensor of `shape` on `dev`
+    (`what`, of column `col` where given, names it in the message).  A
+    wrapper checks each table it is passed, so this runs tens of times a
+    query: a few attribute reads, the message built only on a failure."""
+    if (t.dtype is not dtype or t.shape != shape
             or t.get_device() != (-1 if dev.type == "cpu" else dev.index)
             or not t.is_contiguous()):
+        if col is not None:
+            what = f"{what} of {col}"
         raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
                          f"{list(shape)} tensor on {dev}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
@@ -657,8 +661,8 @@ def _check_col(cols, name, B, C, dev, kernel):
     """-> (values, valid) of column `name`, checked as int64 and bool
     [B, C] contiguous tensors on `dev`."""
     v, m = cols[name]
-    _check_tensor(v, (B, C), torch.int64, f"values of {name}", dev, kernel)
-    _check_tensor(m, (B, C), torch.bool, f"validity of {name}", dev, kernel)
+    _check_tensor(v, (B, C), torch.int64, "values", dev, kernel, name)
+    _check_tensor(m, (B, C), torch.bool, "validity", dev, kernel, name)
     return v, m
 
 
@@ -2121,11 +2125,11 @@ class SortedFrontArgs(ctypes.Structure):
         ("nrec", ctypes.c_void_p),
         ("key_out", ctypes.c_void_p),
         ("idxm", ctypes.c_void_p),
-        ("spill", ctypes.c_void_p),
-        ("totals", ctypes.c_void_p),
+        ("counts", ctypes.c_void_p),
         ("w_vals", ctypes.c_void_p),
         ("w_valid", ctypes.c_void_p),
         ("mask", ctypes.c_void_p),
+        ("paths", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
         ("sent", ctypes.c_longlong),
@@ -2198,24 +2202,29 @@ def sorted_front_plain(config: ScanConfig, cols, nrec, filter_vals=None,
 
 
 def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
-                 bitsets=(), time_bucket: int = 1, set_masks=None):
+                 bitsets=(), time_bucket: int = 1, set_masks=None,
+                 paths=None):
     """K7: as sorted_front_plain (set_masks: K14's (has, hit) per set
-    filter).  CUDA tensors launch the kernel (csrc/sorted_front.cu); CPU
-    tensors take the plain version.
+    filter).  paths: an int64 CUDA tensor [len(K7_PATHS)], or None, to
+    which the launch adds its CTAs under each template choice it took
+    (K7_PATHS).  CUDA tensors launch the kernel (csrc/sorted_front.cu);
+    CPU tensors take the plain version.
 
     Replaces sybil_tpu/ops/scan.py:_front_end (row-in-range, the
     int/str/regex filters, the set ops over K14's bitmasks, the time
-    key, the key lanes with a group scan's cache-group lane (a template
-    flag of the kernel), the distinct lanes), the sort operands of
-    _scan_sorted (1076-1104, 1117-1118) and its matched mask (1273-1274,
-    a template flag of the kernel); in its enum form
-    (a template parameter of the kernel) the packed key, spill count and
-    whole-scan totals of _scan_enum (1420-1435, 1596-1597).  Bound by
-    memory: one pass, 9 B read per row per referenced column, the key
-    and idxm (not in the enum form) written."""
-    B, C = _batch_shape(cols)
+    key, the key lanes with a group scan's cache-group lane, the
+    distinct lanes), the sort operands of _scan_sorted (1076-1104,
+    1117-1118) and its matched mask (1273-1274); in its enum form the
+    packed key, spill count and whole-scan totals of _scan_enum
+    (1420-1435, 1596-1597).  Bound by memory: one pass, 9 B read per row
+    per referenced column, the key and idxm (not in the enum form)
+    written.  One CTA a SM; a warp reads tiles of 32 x _K7_ROWS rows a
+    column at a time, as K2 does; the form, the mask, the cache-group
+    lane, the time key and the descriptor's place are template choices
+    of the kernel.  A call is one launch, after one memset of the spill
+    count and the enum form's totals (one buffer) in the packed forms,
+    and a descriptor copy past its head."""
     dev = nrec.device
-    nf = len(config.filters)
     if filter_vals is None:
         filter_vals = torch.zeros(0, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
@@ -2223,32 +2232,40 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
                                   time_bucket, set_masks)
     if dev.type != "cuda":
         raise ValueError(f"sorted_front: unsupported device {dev}")
+    B, C = _batch_shape(cols)
     if C & (C - 1):
         raise ValueError(f"sorted_front: C must be a power of two, got {C}")
     R = B * C
     if R >= 2 ** 31:
         raise ValueError(f"sorted_front: {R} rows do not fit the int32 index")
+    enum = enum_radix(config) > 0
+    pack = config.sort_pack if sort_packed(config) else ()
+    if enum and has_cg(config):
+        raise ValueError("sorted_front: the enum form takes no "
+                         "cache-group key")
+    kernel_lead(config, "sorted_front")
+    groups = key_columns(config)
     tb = _time_bucket_arg(config, time_bucket, "sorted_front")
+    nf = len(config.filters)
     _check_tensor(nrec, (B,), torch.int32, "nrec", dev, "sorted_front")
     _check_tensor(filter_vals, (nf,), torch.int64, "filter_vals", dev,
                   "sorted_front")
-    K = config.n_key_cols
-    D = len(config.distinct_cols)
     for name in cols:
         _check_col(cols, name, B, C, dev, "sorted_front")
+    K = config.n_key_cols
+    D = len(config.distinct_cols)
     a = SortedFrontArgs()
     if config.time_col:
         v, m = cols[config.time_col]
         a.t_vals, a.t_valid, a.has_time = v.data_ptr(), m.data_ptr(), 1
         a.tb, a.time_i32 = tb, int(config.time_i32)
     a.filter_vals = filter_vals.data_ptr()
-    enum = enum_radix(config) > 0
-    spill = torch.empty(1, dtype=torch.int64, device=dev)
-    out = {"key": None, "keys": None, "idxm": None, "spill": spill,
-           "totals": None, "mask": None}
+    # the spill count, then the enum form's totals: one buffer, one memset
+    counts = torch.empty(3 if enum else 1, dtype=torch.int64, device=dev)
+    out = {"key": None, "keys": None, "idxm": None, "spill": counts[:1],
+           "totals": counts[1:] if enum else None, "mask": None}
+    a.counts = counts.data_ptr()
     if enum:
-        out["totals"] = torch.empty(2, dtype=torch.int64, device=dev)
-        a.totals = out["totals"].data_ptr()
         if config.weight_col:
             v, m = cols[config.weight_col]
             a.w_vals, a.w_valid, a.has_weight = (v.data_ptr(), m.data_ptr(),
@@ -2259,12 +2276,10 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         if config.want_matched_mask:
             out["mask"] = torch.empty((B, C), dtype=torch.bool, device=dev)
             a.mask = out["mask"].data_ptr()
-    pack = ()
-    if sort_packed(config):
+    if pack:
         sent, dtype = pack_sentinel(config)
         if enum and dtype != torch.int32:
             raise ValueError(f"sorted_front: enum radix {sent} is not int32")
-        pack = config.sort_pack
         out["key"] = torch.empty(R, dtype=dtype, device=dev)
         a.key_out, a.sent = out["key"].data_ptr(), sent
         a.packed = 1 if dtype == torch.int32 else 2
@@ -2272,12 +2287,7 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         out["keys"] = torch.empty((K + D, R), dtype=torch.int64, device=dev)
         a.key_out = out["keys"].data_ptr()
         a.ndist = D
-    kernel_lead(config, "sorted_front")
-    groups = key_columns(config)
     if has_cg(config):
-        if enum:
-            raise ValueError("sorted_front: the enum form takes no "
-                             "cache-group key")
         a.vg_span = _cg_span(config, "sorted_front")
     kv, km = _col_ptrs(cols, groups)
     dv, dm = _col_ptrs(cols, config.distinct_cols if not pack else ())
@@ -2288,17 +2298,40 @@ def sorted_front(config: ScanConfig, cols, nrec, filter_vals=None,
         "d_vals": dv, "d_valid": dm,
         **_filter_desc(config, cols, bitsets, dev, "sorted_front",
                        set_masks)})
-    a.spill, a.nrec = spill.data_ptr(), nrec.data_ptr()
+    a.nrec = nrec.data_ptr()
     a.R, a.log2C = R, C.bit_length() - 1
     a.nkeys, a.ngroups, a.nfilters = K, len(groups), nf
-    fn = kernels.lib("sorted_front").sorted_front
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), int(enum), _grid(dev, R, 0, False),
+    if paths is not None:
+        _check_tensor(paths, (len(K7_PATHS),), torch.int64, "paths", dev,
+                      "sorted_front")
+        a.paths = paths.data_ptr()
+    # _K7_CTAS a SM over tiles of _K7_THREADS * _K7_ROWS rows
+    grid = max(1, min(-(-R // (_K7_THREADS * _K7_ROWS)),
+                      _sm_count(dev) * _K7_CTAS))
+    fn = kernels.entry("sorted_front", "sorted_front", _K7_ARGS)
+    kernels.check(fn(ctypes.byref(a), int(enum), grid,
                      kernels.stream_handle(dev)), "sorted_front")
     kernels.LAUNCHES["sorted_front"] += 1
     return out
+
+
+# sorted_front's C entry: the args, the enum form, grid, stream
+_K7_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# K7's tiles (TT and TU in csrc/sorted_front.cu): threads of a CTA, rows
+# a lane a tile, and CTAs a SM
+_K7_THREADS = 1024
+_K7_ROWS = 4
+_K7_CTAS = 1
+# the template choices whose CTAs sorted_front's `paths` counts, in order
+K7_PATHS = ("enum", "mask", "cache-group lane", "time key",
+            "descriptor in the parameters", "descriptor in device memory",
+            "unpacked lanes", "packed int32", "packed int64",
+            "distinct lanes")
+# sort_permute's CTAs (PT and PU in the source): threads, rows a lane a
+# tile (a CTA takes chunks of PT * PU rows, a tile a warp), and CTAs a SM
+_PERMUTE_THREADS = 256
+_PERMUTE_ROWS = 2
+_PERMUTE_CTAS = 4
 
 
 def sort_permute_plain(base, p, nxt):
@@ -2308,6 +2341,12 @@ def sort_permute_plain(base, p, nxt):
     return perm, (None if nxt is None else nxt[perm])
 
 
+# sort_permute's C entry: base, p, nxt, base_out, gathered, R, grid,
+# stream
+_PERMUTE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_void_p]
+
+
 def sort_permute(base, p, nxt):
     """One step between the stable sorts of the unpacked keys: composes
     the running permutation with the last sort's indices and gathers the
@@ -2315,7 +2354,11 @@ def sort_permute(base, p, nxt):
     kernel (csrc/sorted_front.cu); CPU tensors take the plain version.
 
     Replaces the operand permutation inside the reference's multi-key
-    lax.sort (scan.py:1119).  Bound by memory: random 8 B gathers."""
+    lax.sort (scan.py:1119).  Bound by memory: random 8 B gathers; a
+    lane's rows load their p, then their base words, then their nxt
+    words together, and each CTA takes its chunks of rows in the order of
+    their first row's source, so that p's ascending runs share the
+    sectors they gather while those are in L2."""
     dev = p.device
     if dev.type == "cpu":
         return sort_permute_plain(base, p, nxt)
@@ -2329,16 +2372,12 @@ def sort_permute(base, p, nxt):
         _check_tensor(nxt, (R,), torch.int64, "nxt", dev, "sort_permute")
     perm = p if base is None else torch.empty_like(p)
     gathered = None if nxt is None else torch.empty_like(nxt)
-    fn = kernels.lib("sorted_front").sort_permute
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(base.data_ptr() if base is not None else None,
-                     p.data_ptr(),
-                     nxt.data_ptr() if nxt is not None else None,
-                     perm.data_ptr() if base is not None else None,
-                     gathered.data_ptr() if gathered is not None else None,
-                     R, _grid(dev, R, 0, False), kernels.stream_handle(dev)),
+    grid = max(1, min(-(-R // (_PERMUTE_THREADS * _PERMUTE_ROWS)),
+                      _sm_count(dev) * _PERMUTE_CTAS))
+    fn = kernels.entry("sorted_front", "sort_permute", _PERMUTE_ARGS)
+    kernels.check(fn(_ptr(base), p.data_ptr(), _ptr(nxt),
+                     _ptr(perm) if base is not None else None,
+                     _ptr(gathered), R, grid, kernels.stream_handle(dev)),
                   "sort_permute")
     kernels.LAUNCHES["sort_permute"] += 1
     return perm, gathered

@@ -690,3 +690,186 @@ def test_segment_reduce_case_matches_reference(name):
 
 def order_dtype(pcfg):
     return port.pack_sentinel(pcfg)[1]
+
+
+# ---------------------------------------------------------------------------
+# K7 and sort_permute alone: sorted_front_plain against the reference's
+# _front_end on chip_smoke.py's K7 cases (the card runs the same cases
+# and a random sweep through the kernel): the key lanes with MISSING and
+# SENTINEL, the matched flag (idxm's sign bit, the mask), the packed key
+# and spill as _scan_sorted makes them (1083-1104), the enum form's key,
+# spill and totals as _scan_enum makes them (1420-1435, 1596-1597), and
+# the full sorted order idxm[sorted_perm(sort_rows(...))] against the
+# reference's lax.sort over the same operands (1105, 1119); sort_rows
+# alone on chip_smoke.py's sort_permute cases.  Tolerance 0.
+# ---------------------------------------------------------------------------
+
+def _ref_pack(pack, keys, matched, sent, dtype):
+    """The reference's mixed-radix pack (_scan_sorted 1090-1104,
+    _scan_enum 1426-1433): -> (packed key, spill count)."""
+    R = matched.shape[0]
+    packed = jnp.zeros((R,), dtype)
+    bad = jnp.zeros((R,), bool)
+    for (mn, card), k in zip(pack, keys):
+        digit = jnp.where(k == ref.MISSING, 0, k - mn + 1)
+        bad = bad | (digit < 0) | (digit > card)
+        packed = packed * (card + 1) + digit.astype(dtype)
+    spill = jnp.sum((matched & bad).astype(jnp.int64))
+    return jnp.where(matched & ~bad, packed, jnp.asarray(sent, dtype)), spill
+
+
+def _matched_without(pcfg, case, i):
+    """The port's matched rows of the same batch with filter i dropped."""
+    pcfg_i = dataclasses.replace(pcfg, filters=pcfg.filters[:i]
+                                 + pcfg.filters[i + 1:])
+    _, tcols, nrec, fv, bits, tb, sm = chip_smoke.k7_tensors(
+        case, torch.device("cpu"))
+    keep = [j for j in range(len(pcfg.filters)) if j != i]
+    sm_i = None if sm is None else [sm[j] for j in keep]
+    out = port.sorted_front_plain(pcfg_i, tcols, nrec, fv[keep], bits, tb,
+                                  sm_i if any(sm_i or ()) else None)
+    if out["idxm"] is None:
+        return None
+    return out["idxm"].numpy() < 0
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K7_CASES))
+def test_sorted_front_case_matches_reference(name):
+    case = chip_smoke.k7_case(name)
+    fields, cols, nrec, fvals, bits, tb, sets = case
+    cfg = _ref_config(fields)
+    pcfg, tcols, tnrec, tfv, tbits, _, sm = chip_smoke.k7_tensors(
+        case, torch.device("cpu"))
+    _, _, R, _, matched, keys, dkeys, weight = ref._front_end(
+        cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+              for k, (v, m) in cols.items()},
+        jnp.asarray(nrec), jnp.asarray(fvals),
+        tuple(jnp.asarray(b) for b in bits), jnp.asarray(tb, jnp.int64),
+        {c: (jnp.asarray(r), jnp.asarray(v)) for c, (r, v) in sets.items()})
+    front = port.sorted_front_plain(pcfg, tcols, tnrec, tfv, tbits, tb, sm)
+    live = np.asarray(matched)
+    enum = ref.enum_radix(cfg) > 0
+    assert enum == (port.enum_radix(pcfg) > 0)
+    idx = np.arange(R, dtype=np.int32)
+    idxm = np.where(live, idx | np.int32(-2 ** 31), idx)
+    if enum:
+        assert front["idxm"] is None and front["mask"] is None
+        np.testing.assert_array_equal(
+            front["totals"].numpy(),
+            [int(jnp.sum(jnp.where(matched, weight, 0))), int(live.sum())])
+    else:
+        np.testing.assert_array_equal(front["idxm"].numpy(), idxm)
+        assert (front["mask"] is not None) == cfg.want_matched_mask
+        if cfg.want_matched_mask:
+            np.testing.assert_array_equal(front["mask"].numpy().reshape(R),
+                                          live)
+    pack = cfg.sort_pack
+    if pack and not dkeys and len(pack) == len(keys):
+        if enum:
+            sent = ref.enum_radix(cfg)
+            dtype = jnp.int32 if sent + 1 < 2 ** 31 - 1 else jnp.int64
+        else:
+            sent = int(np.prod([card + 1 for _, card in pack]))
+            dtype = jnp.int32 if sent < 2 ** 31 - 1 else jnp.int64
+        packed, spill = _ref_pack(pack, keys, matched, sent, dtype)
+        assert front["keys"] is None
+        assert str(front["key"].dtype) == f"torch.{jnp.dtype(dtype)}"
+        np.testing.assert_array_equal(front["key"].numpy(),
+                                      np.asarray(packed))
+        assert int(front["spill"][0]) == int(spill)
+        ops = [packed, jnp.asarray(idxm)]
+    else:
+        lanes = [jnp.where(matched, k, ref.SENTINEL) for k in keys + dkeys]
+        assert front["key"] is None
+        np.testing.assert_array_equal(front["keys"].numpy(),
+                                      np.stack([np.asarray(x)
+                                                for x in lanes]))
+        assert int(front["spill"][0]) == 0
+        ops = lanes + [jnp.asarray(idxm)]
+    if not enum:
+        want = jax.lax.sort(ops, num_keys=len(ops) - 1)[-1]
+        order = port.sort_rows(pcfg, front)
+        np.testing.assert_array_equal(
+            front["idxm"][port.sorted_perm(order)].numpy(), np.asarray(want))
+    # each case reaches the edge it is named for
+    lane = np.stack([np.asarray(k) for k in keys])
+    nf = len(cfg.filters)
+    words = (2 * len(port.key_columns(pcfg)) + 2 * len(dkeys) + 5 * nf
+             + (4 * len(pack) if front["key"] is not None else 0))
+    assert live.any() == (name != "an unknown op: every row unmatched")
+    if name.startswith(("int and str", "regex and set", "17 filters")):
+        for i in range(nf):     # every filter drops rows of its own
+            assert _matched_without(pcfg, case, i).sum() > live.sum(), i
+    reached = {
+        "packed int32 key": front["key"] is not None
+        and front["key"].dtype == torch.int32,
+        "packed int64 key": front["key"] is not None
+        and front["key"].dtype == torch.int64,
+        "packed spill": int(front["spill"][0]) > 0,
+        "packed key, values at min - 1": (live & (lane[0] == 4)).any(),
+        "unpacked keys, MISSING and negative values":
+            (live & (lane == -1)).any() and (live & (lane < -1)).any(),
+        "time key, int32 arithmetic, negative times":
+            cfg.time_i32 and (live & (lane[0] < 0)).any(),
+        "time key, int64 arithmetic, negative times":
+            not cfg.time_i32 and (live & (lane[0] < -2 ** 31)).any(),
+        "distinct lanes (K + D = 3)": front["keys"] is not None
+        and front["keys"].shape[0] == 3 and len(dkeys) == 2,
+        "the cache-group lane": port.has_cg(pcfg) and lane[0].max() > 0,
+        "the cache-group lane under a time key":
+            pcfg.vg_first and lane[0].max() > 0 and lane[1].min() < 0,
+        "17 filters (constants past the staged 16)": nf == 17,
+        "17 keys and 48 filters (the descriptor past its head)":
+            words > port._DESC_HEAD and front["keys"] is not None,
+        "17 packed keys and 40 filters (the descriptor past its head)":
+            words > port._DESC_HEAD and front["key"] is not None,
+        "packed key with the cache-group lane, a spill":
+            front["key"] is not None and port.has_cg(pcfg)
+            and int(front["spill"][0]) > 0,
+        "packed key under a time key, a spill": front["key"] is not None
+        and bool(cfg.time_col) and int(front["spill"][0]) > 0,
+        "the matched mask, packed": front["mask"] is not None
+        and front["key"] is not None,
+        "the matched mask, unpacked under a time key":
+            front["mask"] is not None and bool(cfg.time_col),
+        "the enum form, weights wrapping mod 2^64": enum and not (
+            -2 ** 63 <= sum(int(w) for w in np.asarray(weight)[live])
+            < 2 ** 63),
+        "the enum form without a weight column, a spill":
+            enum and not cfg.weight_col and int(front["spill"][0]) > 0,
+        "R of 12 rows: a tile cut short": R == 12,
+        "R of 320 rows, not a multiple of a warp's tile":
+            R == 320 and R % 128 != 0,
+        "no group keys: one zero lane": not cfg.group_cols
+        and front["keys"].shape == (1, R),
+    }
+    assert reached.get(name, True), name
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.PERMUTE_CASES))
+def test_sort_rows_case_matches_reference(name):
+    """sort_rows (sort_permute_plain between its stable sorts) against
+    the reference's multi-key lax.sort over the same lanes and the row
+    index."""
+    lanes = chip_smoke.permute_case(name)
+    n, R = lanes.shape
+    order = port.sort_rows(None, {"key": None,
+                                  "keys": torch.from_numpy(lanes)})
+    perm = port.sorted_perm(order).numpy()
+    want = jax.lax.sort([jnp.asarray(x) for x in lanes]
+                        + [jnp.arange(R, dtype=jnp.int32)], num_keys=n)[-1]
+    np.testing.assert_array_equal(perm, np.asarray(want))
+    np.testing.assert_array_equal(order["svals"].numpy(), lanes[0][perm])
+    assert (order["base"] is None) == (n == 1)
+    reached = {
+        "three lanes: a base": n == 3 and order["base"] is not None,
+        "four lanes, ties everywhere":
+            n == 4 and len({tuple(c) for c in lanes.T}) <= 16 < R,
+        "every row SENTINEL": (lanes == chip_smoke.I64_MAX).all()
+        and (perm == np.arange(R)).all(),
+        "R = 1": R == 1,
+        "more chunks than CTAs": R // (port._PERMUTE_THREADS
+                                       * port._PERMUTE_ROWS)
+        > 132 * port._PERMUTE_CTAS,
+    }
+    assert reached.get(name, True), name
