@@ -81,8 +81,13 @@ Phases (any failure exits non-zero before the result lines):
      k, R below the prefix, a packed spill, filters with MISSING keys, two
      keys with a weight column, mean scores with and without a value
      bias, every row unmatched), K12 alone on tie pile-ups, -inf ties,
-     int64 scores and k = R, and the sorted strategy's device prune (K10's
-     prune form, then K12 over the slots and its gather in one call,
+     int64 scores and k = R, K12's general form on its corner cases
+     (K12G_CASES: all-equal scores, also past a candidate buffer,
+     INT64/INT32 extremes and f32 infinities, 56 shared top bits, config
+     5's count ties straddling k and mean ties past it, k 4,096, k = R,
+     R = 1) and a seeded 24-shape sweep (k12g_edge_checks), and the
+     sorted strategy's device prune (K10's
+     prune form, then K12 over the slots and its gather in one launch,
      prune_topk_gather) on config 5's batch.
      Then count distinct: K13 hll_registers and K3's HLL sections on the
      uptime batch (group by host, distinct index_int: the int hash; by
@@ -166,8 +171,9 @@ Phases (any failure exits non-zero before the result lines):
      shuffle_unpack, K12's two-valued form, K3's keyed form and K10 on
      the merged table each held to its plain version bit for bit, then
      cold and five warm walls beside five unsharded warm walls, the
-     launches per mesh query (K16 and the shard scans once per shard,
-     K15 once over all shards, the unpack and the pack once), every
+     launches per mesh query (the shard scans once per shard; K15, K16's
+     shuffle_keys and shuffle_reduce once over all shards or owners, the
+     unpack and the pack once), every
      answer equal to the
      unsharded one (config 5: the printed counts, each kept user's count
      and mean against numpy) and to numpy's where the earlier phases have
@@ -183,7 +189,10 @@ Phases (any failure exits non-zero before the result lines):
      with dead rows, segments past the cap, MISSING keys, a 5,000-row
      segment, path 2's 201,024-row owner with a segment across tiles,
      without and with a tied row) at WP 174, 9 and 10, each entry held
-     to its plain version word for word, both walks of the merge run;
+     to its plain version word for word, rows tied with the dead rows'
+     keys and not, and one stacked call over 8 owners at each width
+     (an all-dead and an empty owner among them) against the plain
+     version owner by owner;
      K2's windowed form at the mesh's first windowed shard, and K12's
      two-valued form on its corner cases (K12_CASES: all zeros, all
      ones, k below, at and above the ones, k = R, R = 1, R at the
@@ -2500,6 +2509,131 @@ def topk_edges(device):
             for label, x, k in out]
 
 
+# K12's general form, corner cases (tests/test_torch_enum.py holds the
+# plain version to lax.top_k on the same scores): name -> (dtype, R, k,
+# values).  values: "equal" (one value: -1, 5 or -inf), "extremes" (the
+# type's least and greatest values and their neighbours, +-inf in f32),
+# "shared56" (int64 scores that share their top 56 bits), "c5" (-1
+# around a twentieth of rows holding Zipf counts; k "tie": the middle of
+# a run of equal counts), "c5w" (-inf around a tenth holding mean weights
+# of {1, 10, 100}: more than k ties at 100), "random" (1,000 values),
+# "sparse" (-1 around three scores).  R past 2^18 with one value puts
+# more candidates in a round than a buffer holds (the rounds that read
+# the scores again).
+K12G_CASES = {
+    "all -1 (int64)": ("int64", 50_000, 1000, "equal"),
+    "all equal past the buffer cap (int64, 1,048,576 rows)": (
+        "int64", 1 << 20, 1000, "equal"),
+    "all equal (int32), k 4,096": ("int32", 70_000, 4096, "equal"),
+    "all -inf (f32)": ("float32", 30_000, 777, "equal"),
+    "INT64_MIN and INT64_MAX": ("int64", 60_000, 3000, "extremes"),
+    "INT32_MIN and INT32_MAX": ("int32", 60_000, 3000, "extremes"),
+    "f32 infinities and extremes": ("float32", 60_000, 3000, "extremes"),
+    "top 56 bits shared (int64)": ("int64", 40_000, 1000, "shared56"),
+    "config 5's counts, ties straddling k": ("int64", 262_144, "tie", "c5"),
+    "config 5's mean weights, ties past k (f32)": (
+        "float32", 262_144, 1000, "c5w"),
+    "k 4,096 over random int64": ("int64", 100_000, 4096, "random"),
+    "k = R (f32)": ("float32", 3000, 3000, "random"),
+    "R = 1 (int32)": ("int32", 1, 1, "random"),
+    "fewer live than k (int64)": ("int64", 8192, 64, "sparse"),
+}
+K12G_SWEEP_SEED = 17            # the random sweep's shapes
+K12G_SWEEP = 24
+
+
+def k12g_case(name: str, seed: int = 0):
+    """-> (scores [R] (numpy), k) of K12G_CASES[name]."""
+    import numpy as np
+    dtype, R, k, values = K12G_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K12G_CASES).index(name))
+    dt = np.dtype(dtype)
+    low = -np.inf if dt.kind == "f" else -1
+    if values == "equal":
+        s = np.full(R, {"int64": -1, "int32": 5}.get(dtype, -np.inf))
+    elif values == "extremes":
+        if dt.kind == "f":
+            top = float(np.finfo(np.float32).max)
+            pool = [-np.inf, -top, -1.0, 0.0, 1.5, top, np.inf]
+        else:
+            lo, hi = int(np.iinfo(dt).min), int(np.iinfo(dt).max)
+            pool = [lo, lo + 1, -1, 0, 1, hi - 1, hi]
+        s = np.array(pool, dtype=object)[rng.integers(0, len(pool), R)]
+    elif values == "shared56":
+        s = 0x7ABCDEF012345600 + rng.integers(0, 256, R)
+    elif values in ("c5", "c5w"):
+        s = np.full(R, low)
+        live = rng.random(R) < (0.05 if values == "c5" else 0.1)
+        n = np.minimum(rng.zipf(1.3, int(live.sum())), 10 ** 6)
+        if values == "c5":
+            s[live] = n
+        else:
+            w = np.array([1, 10, 100])
+            s[live] = [w[rng.integers(0, 3, m)].sum() / m
+                       for m in np.minimum(n, 50)]
+    elif values == "random":
+        s = rng.integers(-1000, 1000, R) / (8 if dt.kind == "f" else 1)
+    else:
+        s = np.full(R, low)
+        s[[5, 999, 7000]] = [3, 9, 1]
+    s = np.asarray(s).astype(dt)
+    if k == "tie":
+        # the middle of the first run of 20 or more equal scores at or
+        # past rank 500
+        v = np.sort(s)[::-1]
+        starts = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+        ends = np.r_[starts[1:], R]
+        i = np.flatnonzero((ends - starts >= 20) & (starts >= 500))[0]
+        k = int(starts[i] + ends[i]) // 2
+    return s, k
+
+
+def k12g_sweep(seed: int = K12G_SWEEP_SEED, n: int = K12G_SWEEP) -> list:
+    """A seeded sweep of K12's general form: -> [(label, scores, k)] of
+    random dtype, R (log-uniform to 4,194,304), k (log-uniform to
+    min(R, 4,096)) and value range (2, 16 or 1,024 values, or the type's
+    full range), a third of rows at the type's background (-1 or -inf)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        dtype = ("int32", "int64", "float32")[j % 3]
+        R = int(np.exp(rng.uniform(0, np.log(4_194_304))))
+        k = int(np.exp(rng.uniform(0, np.log(min(R, 4096))))) or 1
+        span = (2, 16, 1024, None)[rng.integers(0, 4)]
+        if span is None:
+            s = (rng.standard_normal(R) * 1e30 if dtype == "float32" else
+                 rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, R,
+                              dtype=dtype, endpoint=True))
+        else:
+            s = rng.integers(0, span, R)
+        s = np.where(rng.random(R) < 1 / 3,
+                     -np.inf if dtype == "float32" else -1, s).astype(dtype)
+        out.append((f"sweep {j}: {dtype} [{R}], k {k}, "
+                    f"{span or 'full range'}", s, k))
+    return out
+
+
+def k12g_edge_checks(card, device, errs) -> None:
+    """K12's general form on the card, held to its plain version word for
+    word on the K12G_CASES scores and a seeded sweep (k12g_sweep).  (Its
+    device work a call is profiled late, with LATE_PROFILES: no profiler
+    session runs before the mesh phase's launch checks.)"""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    t0 = time.perf_counter()
+    runs = [(f"K12 case {name!r}", *k12g_case(name)) for name in K12G_CASES]
+    runs += k12g_sweep()
+    for what, s, k in runs:
+        sc = torch.from_numpy(s).to(device)
+        check_equal(f"topk_rows {what}", scan.topk_rows(sc, k),
+                    scan.topk_rows_plain(sc, k), errs["topk_rows"])
+    say(f"[{card}] K12 general form == plain word for word on "
+        f"{len(K12G_CASES)} corner cases and a {K12G_SWEEP}-shape sweep "
+        f"(seed {K12G_SWEEP_SEED}) ({time.perf_counter() - t0:.2f} s)")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: count distinct (K13, K3's HLL sections, K7-K10's distinct
 # pairs) and the kernels' former fixed caps (C1)
@@ -3971,18 +4105,31 @@ def device_launches(fn, tries: int = 8):
     activity records it: (kernels and copies a call, {name: (count, self
     device us)}), the most over `tries` profiled calls (a profile
     sometimes misses a short call's events, it never adds any), or (None,
-    the reason) when it records none."""
+    the reason) when it records none.  When the first `tries` profiles
+    record no device event, up to 2 * `tries` more are taken, each with
+    its window padded by PROFILE_PAD_S of host time either side of the
+    call; PROFILE_MISSES counts those calls and how many the padded
+    profiles recovered."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     best = (None, "the profiler recorded no device event")
-    for _ in range(tries):
+    missed = False
+    for i in range(3 * tries):
+        if i == tries:
+            if best[0] is not None:
+                break
+            missed = True
+            PROFILE_MISSES["calls"] += 1
+        pad = PROFILE_PAD_S if missed else 0.0
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                time.sleep(pad)
                 fn()
                 torch.cuda.synchronize()
+                time.sleep(pad)
             dev = [e for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")]
         except Exception as exc:   # the profiler is optional here
@@ -3992,8 +4139,15 @@ def device_launches(fn, tries: int = 8):
             best = (n, {e.key[:48]: (e.count, getattr(
                 e, "self_device_time_total",
                 getattr(e, "self_cuda_time_total", 0.0))) for e in dev})
+    if missed and best[0] is not None:
+        PROFILE_MISSES["recovered"] += 1
     return best
 
+
+# device_launches' calls whose first profiles recorded no device event,
+# and those of them that a padded profile recovered
+PROFILE_MISSES = {"calls": 0, "recovered": 0}
+PROFILE_PAD_S = 0.05
 
 # (label, call) pairs whose device work the kernel-times phase profiles:
 # calls made in earlier phases, so that no profiler session runs before
@@ -4276,30 +4430,37 @@ def mesh_snapshot(qr):
     return rows, cum, matched, regs, tres, qr.samples
 
 
-def k16_keys_check(what, config, rows, got, errs) -> None:
-    """shuffle_keys' outputs `got` against its plain version's: the keys
-    word for word, the live counts summed over its CTAs."""
+def k16_keys_check(what, config, recv, got, errs) -> None:
+    """shuffle_keys' outputs `got` (front, src, off) against its plain
+    version's, word for word, the packed key or the lanes alike."""
     from sybil_tpu_torch.parallel import mesh
-    keys, counts = got
-    wkeys, wcounts = mesh.shuffle_keys_plain(config, rows)
-    check_equal(f"{what} keys", keys, wkeys, errs["shuffle_keys"])
-    check_equal(f"{what} live counts", counts.sum(dim=0).to(wcounts.dtype),
-                wcounts[0], errs["shuffle_keys"])
+    (front, src, off), (wfront, wsrc, woff) = got, \
+        mesh.shuffle_keys_plain(config, recv)
+    for part in ("key", "keys"):
+        if (front[part] is None) != (wfront[part] is None):
+            fail(f"{what}: the kernel's sort operands take the form of "
+                 f"{[k for k in front if front[k] is not None]}, the plain "
+                 f"version's {[k for k in wfront if wfront[k] is not None]}")
+        if front[part] is not None:
+            check_equal(f"{what} {part}", front[part], wfront[part],
+                        errs["shuffle_keys"])
+    check_equal(f"{what} src", src, wsrc, errs["shuffle_keys"])
+    check_equal(f"{what} off", off, woff, errs["shuffle_keys"])
 
 
-def k16_reduce_check(what, config, rows, order, live_counts, merged, flive,
-                     ngroups, errs) -> None:
-    """shuffle_reduce's outputs (merged, flive, ngroups, filled) against
-    its plain version's on the same inputs, word for word."""
+def k16_reduce_check(what, config, recv, src, order, off, merged, flive,
+                     stats, errs) -> None:
+    """shuffle_reduce's outputs (merged, flive, stats' word 0, filled)
+    against its plain version's on the same inputs, word for word."""
     import torch
 
     from sybil_tpu_torch.parallel import mesh
     m2, f2 = torch.empty_like(merged), torch.empty_like(flive)
-    n2 = torch.empty_like(ngroups)
-    mesh.shuffle_reduce_plain(config, rows, order, live_counts, m2, f2, n2)
-    what += f" (N {rows.shape[0]}, cap {merged.shape[0]})"
+    s2 = stats.clone()
+    mesh.shuffle_reduce_plain(config, recv, src, order, off, m2, f2, s2)
+    what += f" (Dl {recv.shape[0]}, N {recv.shape[1]}, cap {merged.shape[1]})"
     for part, a, b in (("merged", merged, m2), ("flive", flive, f2),
-                       ("n_groups", ngroups, n2)):
+                       ("stats", stats, s2)):
         check_equal(f"{what} {part}", a, b, errs["shuffle_reduce"])
 
 
@@ -4315,19 +4476,36 @@ def k16_unpack_check(what, config, flat, flive, top, stats, S, got,
         check_equal(f"{what} hist {i}", a, b, errs["shuffle_unpack"])
 
 
+def k16_stacked_rows(K: int, WP: int, N: int = 2048, Dl: int = 8):
+    """A mesh batch's received rows [Dl, N, WP] (numpy) for the stacked
+    check: owner d the rows of the N-row K16 cases in turn (seed 20 + d),
+    owner 1 all dead (random words, count and samples 0), the last owner
+    empty (all zero: no shard sent it a row)."""
+    import numpy as np
+    cases = [c for c, (_, n, _) in K16_CASES.items() if n == N]
+    out = np.stack([k16_case_rows(cases[d % len(cases)], K, WP, N,
+                                  seed=20 + d) for d in range(Dl)])
+    out[1, :, K:K + 2] = 0
+    out[-1] = 0
+    return out
+
+
 def k16_edge_checks(card, device, errs) -> None:
     """K16's corner cases (K16_CARD_CASES, each at its shapes' full
     widths) through the kernels on the card, each entry held to its plain
-    version word for word: shuffle_keys, the owner's sorts, shuffle_reduce
-    (both walks: the live walk, and the general walk where a live row's
-    keys tie the dead rows'; both reduce forms: a row a lane at WP 9 and
-    10, a warp a row at WP 174), then two owners' merged tables compacted
-    by K12 and unpacked into a table past the live rows."""
+    version word for word: shuffle_keys, the owners' sorts,
+    shuffle_reduce (rows that tie the dead rows' keys and rows that do
+    not; both reduce forms: a row a lane at WP 9 and 10, a warp a row at
+    WP 174), then two owners' merged tables compacted by K12 and unpacked
+    into a table past the live rows; and at each shape one stacked call
+    over 8 owners (k16_stacked_rows) against the plain version run owner
+    by owner."""
+    import numpy as np
     import torch
 
     from sybil_tpu_torch.ops import scan
     from sybil_tpu_torch.parallel import mesh
-    seen = set()
+    seen, forms = set(), set()
     n = 0
     for case, (shapes, N, cap) in K16_CARD_CASES.items():
         for shape in shapes:
@@ -4335,43 +4513,79 @@ def k16_edge_checks(card, device, errs) -> None:
             o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
             config = scan.ScanConfig(no_compact_table=True, **o)
             K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
-            rows = torch.from_numpy(k16_case_rows(case, K, WP, N, seed=11)
-                                    ).to(device)
+            rows_np = k16_case_rows(case, K, WP, N, seed=11)
+            recv = torch.from_numpy(rows_np).to(device)[None]
             what = f"K16 case {case!r} at {shape} (WP {WP}, N {N}, cap {cap})"
-            got = mesh.shuffle_keys(config, rows)
-            k16_keys_check(f"shuffle_keys {what}", config, rows, got, errs)
-            keys, live_counts = got
-            order = scan.sort_rows(config, {"key": None, "keys": keys})
-            merged = torch.full((cap, WP), FILL, dtype=torch.int64,
+            got = mesh.shuffle_keys(config, recv)
+            k16_keys_check(f"shuffle_keys {what}", config, recv, got, errs)
+            front, src, off = got
+            forms.add("packed " + str(front["key"].dtype) if front["key"]
+                      is not None else "lanes")
+            order = scan.sort_rows(config, front)
+            merged = torch.full((1, cap, WP), FILL, dtype=torch.int64,
                                 device=device)
-            flive = torch.full((cap,), -7, dtype=torch.int32, device=device)
-            ngroups = torch.full((1,), -7, dtype=torch.int64, device=device)
-            mesh.shuffle_reduce(config, rows, order, live_counts, merged,
-                                flive, ngroups)
-            k16_reduce_check(f"shuffle_reduce {what}", config, rows, order,
-                             live_counts, merged, flive, ngroups, errs)
-            nl, nt = (int(x) for x in live_counts.sum(dim=0).tolist())
-            seen.add(("general" if nt else "live", "wide" if n_sum + 2 * A
-                      > 32 else "narrow"))
-            flat = torch.cat([merged, torch.roll(merged, 5, 0)])
-            fl = torch.cat([flive, torch.roll(flive, 5, 0)])
+            flive = torch.full((1, cap), -7, dtype=torch.int32,
+                               device=device)
+            stats = torch.full((1, mesh.n_stats(config)), -7,
+                               dtype=torch.int64, device=device)
+            mesh.shuffle_reduce(config, recv, src, order, off, merged,
+                                flive, stats)
+            k16_reduce_check(f"shuffle_reduce {what}", config, recv, src,
+                             order, off, merged, flive, stats, errs)
+            live = (rows_np[:, K] > 0) | (rows_np[:, K + 1] > 0)
+            tied = live & (rows_np[:, :K] == I64_MAX).all(axis=1)
+            seen.add(("tied" if tied.any() else "untied", "wide" if n_sum
+                      + 2 * A > 32 else "narrow"))
+            flat = torch.cat([merged[0], torch.roll(merged[0], 5, 0)])
+            fl = torch.cat([flive[0], torch.roll(flive[0], 5, 0)])
             S = cap + cap // 2
             top = scan.topk_rows(fl, min(S, flat.shape[0]), two_valued=True)
             g = torch.Generator(device=device).manual_seed(3)
-            stats = torch.randint(0, 50, (2, mesh.n_stats(config)),
-                                  generator=g, device=device)
-            stats[:, 0] = ngroups
-            un = mesh.shuffle_unpack(config, flat, fl, top, stats, S)
+            st2 = torch.randint(0, 50, (2, mesh.n_stats(config)),
+                                generator=g, device=device)
+            st2[:, 0] = stats[0, 0]
+            un = mesh.shuffle_unpack(config, flat, fl, top, st2, S)
             k16_unpack_check(f"shuffle_unpack {what}", config, flat, fl, top,
-                             stats, S, un, errs)
+                             st2, S, un, errs)
             n += 1
-    want = {(w, f) for w in ("live", "general") for f in ("wide", "narrow")}
+    want = {(w, f) for w in ("tied", "untied") for f in ("wide", "narrow")}
     if seen != want:
-        fail(f"K16 corner cases ran the walks {sorted(seen)}, not "
+        fail(f"K16 corner cases ran {sorted(seen)}, not {sorted(want)}")
+    want = {"lanes", "packed torch.int32", "packed torch.int64"}
+    if forms != want:
+        fail(f"K16 corner cases sorted by {sorted(forms)}, not "
              f"{sorted(want)}")
-    say(f"[{card}] K16 corner cases: {n} (case, shape) pairs, "
-        f"shuffle_keys, shuffle_reduce (both walks, both reduce forms) "
-        f"and shuffle_unpack == their plain versions word for word")
+    # one stacked call over 8 owners against the plain version owner by
+    # owner
+    for shape in ("wide", "narrow", "three keys"):
+        o = dict(K16_SHAPES[shape])
+        o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+        config = scan.ScanConfig(no_compact_table=True, **o)
+        K, *_, WP = mesh.payload_spec(config)
+        recv = torch.from_numpy(k16_stacked_rows(K, WP)).to(device)
+        Dl, cap = recv.shape[0], 256
+        out = [torch.full((Dl, cap, WP), FILL, dtype=torch.int64,
+                          device=device),
+               torch.full((Dl, cap), -7, dtype=torch.int32, device=device),
+               torch.full((Dl, mesh.n_stats(config)), -7, dtype=torch.int64,
+                          device=device)]
+        mesh.merge_owners(config, recv, *out)
+        for d in range(Dl):
+            want = [torch.empty_like(out[0][:1]), torch.empty_like(
+                out[1][:1]), out[2][d:d + 1].clone()]
+            one = recv[d:d + 1]
+            front, src, off = mesh.shuffle_keys_plain(config, one)
+            mesh.shuffle_reduce_plain(config, one, src, scan.sort_rows(
+                config, front), off, *want)
+            for part, a, b in zip(("merged", "flive", "stats"), out, want):
+                check_equal(f"K16 stacked call over {Dl} owners at {shape}, "
+                            f"owner {d}'s {part}", a[d:d + 1], b,
+                            errs["shuffle_reduce"])
+        n += 1
+    say(f"[{card}] K16 corner cases: {n} (case, shape) pairs and stacked "
+        f"calls over 8 owners, shuffle_keys (sort keys {sorted(forms)}), "
+        f"shuffle_reduce (rows tied with the dead rows and not, both reduce "
+        f"forms) and shuffle_unpack == their plain versions word for word")
 
 
 # K2's shared and global forms, corner cases (tests/test_torch_scan.py
@@ -4911,13 +5125,12 @@ def k15_edge_checks(card, device, errs) -> None:
 
 def mesh_checked(errs, label_of):
     """Wrap the mesh path's wrappers (K15 over every shard; K16's
-    shuffle_keys,
-    shuffle_reduce and shuffle_unpack; K12 as the mesh calls it; K3 and
-    K10 on a merged table) so each call made while label_of() names a
-    spec (the checked run) also runs its plain version on the same inputs
-    on the card and is held to it bit for bit (errs), and keep each one's
-    arguments per spec label (the first owner's for K16), with the
-    sharded_scan calls'.  Calls while label_of() is empty
+    shuffle_keys and shuffle_reduce over every owner, shuffle_unpack; K12
+    as the mesh calls it; K3 and K10 on a merged table) so each call made
+    while label_of() names a spec (the checked run) also runs its plain
+    version on the same inputs on the card and is held to it bit for bit
+    (errs), and keep each one's arguments per spec label (the first
+    batch's), with the sharded_scan calls'.  Calls while label_of() is empty
     (the timed runs) go to the kernels alone.
     -> (captured {(name, label): args}, undo)."""
     import torch
@@ -4940,21 +5153,21 @@ def mesh_checked(errs, label_of):
                             (config, parts, D, Sc, stats))
         return send
 
-    def k16k(config, rows):
-        got = real["shuffle_keys"](config, rows)
-        k16_keys_check(f"shuffle_keys {label_of()} {list(rows.shape)}",
-                       config, rows, got, errs)
-        captured.setdefault(("shuffle_keys", label_of()), (config, rows))
+    def k16k(config, recv):
+        got = real["shuffle_keys"](config, recv)
+        k16_keys_check(f"shuffle_keys {label_of()} {list(recv.shape)}",
+                       config, recv, got, errs)
+        captured.setdefault(("shuffle_keys", label_of()), (config, recv))
         return got
 
-    def k16(config, rows, order, live_counts, merged, flive, ngroups):
-        real["shuffle_reduce"](config, rows, order, live_counts, merged,
-                               flive, ngroups)
-        k16_reduce_check(f"shuffle_reduce {label_of()}", config, rows, order,
-                         live_counts, merged, flive, ngroups, errs)
+    def k16(config, recv, src, order, off, merged, flive, stats):
+        real["shuffle_reduce"](config, recv, src, order, off, merged, flive,
+                               stats)
+        k16_reduce_check(f"shuffle_reduce {label_of()}", config, recv, src,
+                         order, off, merged, flive, stats, errs)
         captured.setdefault(("shuffle_reduce", label_of()),
-                            (config, rows, order, live_counts, merged, flive,
-                             ngroups))
+                            (config, recv, src, order, off, merged, flive,
+                             stats))
 
     def k16u(config, flat, flive, top, stats, S):
         got = real["shuffle_unpack"](config, flat, flive, top, stats, S)
@@ -5097,7 +5310,7 @@ def mesh_phase(card, specs, errs, launches, device):
             per = {k: n / 5 for k, n in lw.items() if n}
             nb = sp["batches"]
             for k, n in dict(sp["expect"], shuffle_partition=1,
-                             shuffle_keys=MESH_D, shuffle_reduce=MESH_D,
+                             shuffle_keys=1, shuffle_reduce=1,
                              shuffle_unpack=1).items():
                 if lw[k] != 5 * n * nb:
                     fail(f"mesh {label}: expected {k} {n}x per batch over "
@@ -5335,92 +5548,111 @@ def mesh_kernel_rows(card, captured, device) -> list:
         rows.append(k15_row(card, config, parts, D, Sc, stats, label))
         K, A, hist_ais, nv_total, n_sum, WP = mesh.payload_spec(config)
 
-        config, rows_r = captured[("shuffle_keys", label)]
-        N = rows_r.shape[0]
-        ms = cuda_ms(lambda: mesh.shuffle_keys(config, rows_r), iters=50)
-        pms = cuda_ms(lambda: mesh.shuffle_keys_plain(config, rows_r),
+        config, recv = captured[("shuffle_keys", label)]
+        Dl, N, _ = recv.shape
+        ms = cuda_ms(lambda: mesh.shuffle_keys(config, recv), iters=50)
+        pms = cuda_ms(lambda: mesh.shuffle_keys_plain(config, recv),
                       iters=5)
-        # one torch call: the masked transpose, the live mask prebuilt
-        rlive = (rows_r[:, K] > 0) | (rows_r[:, K + 1] > 0)
+        # one torch call: the masked transpose of every owner's keys, the
+        # live mask prebuilt
+        flat_r = recv.reshape(Dl * N, WP)
+        rlive = (flat_r[:, K] > 0) | (flat_r[:, K + 1] > 0)
         lib_ms = cuda_ms(lambda: torch.where(
-            rlive[None, :], rows_r[:, :K].t(), scan.SENTINEL).contiguous(),
+            rlive[None, :], flat_r[:, :K].t(), scan.SENTINEL).contiguous(),
             iters=20)
         nl = int(rlive.sum().item())
-        dms = queued_ms(lambda: mesh.shuffle_keys(config, rows_r), iters=50)
-        say(f"[{card}] shuffle_keys, mesh {label}: device {dms:.4f} ms, "
-            f"events {ms:.4f} ms")
+        front, src, off = mesh.shuffle_keys(config, recv)
+        M = src.numel()
+        # its device work from the profiler, late (LATE_PROFILES): the
+        # call waits on the device for M, so a queue behind a sleep kernel
+        # cannot time it
+        LATE_PROFILES.append((
+            f"shuffle_keys, mesh {label}",
+            lambda config=config, recv=recv: mesh.shuffle_keys(config, recv)))
+        say(f"[{card}] shuffle_keys, mesh {label}: events {ms:.4f} ms; {M} "
+            f"of {Dl * N} rows kept ({nl} live)")
         # every row's count and samples words read, a live row's K keys
-        # read, the [K, N] operands and the per-CTA live counts written
-        keys, live_counts = mesh.shuffle_keys(config, rows_r)
-        rows.append(("shuffle_keys", f"{label}, one owner ({N} rows, {nl} "
-                     "live)", "sybil_tpu/parallel/mesh.py:156", ms, pms,
-                     N * 2 * 8 + nl * K * 8 + K * N * 8
-                     + live_counts.numel() * 4, N * 3 + nl * K, lib_ms))
-        for k in range(K - 1, -1, -1):
-            lane = keys[k]
-            say(f"[{card}] sorts, mesh {label}: key {k} stable torch.sort "
-                f"of int64 [{N}] "
+        # read; src, off and the sort operands the call returns written:
+        # the packed key at its width, else the K + 1 lanes
+        out_b = (M * front["key"].element_size() if front["key"] is not None
+                 else (K + 1) * M * 8)
+        rows.append(("shuffle_keys", f"{label}, a mesh batch ({Dl} owners of "
+                     f"{N} rows, {nl} live, {M} kept)",
+                     "sybil_tpu/parallel/mesh.py:156", ms, pms,
+                     Dl * N * 2 * 8 + nl * K * 8 + M * 4 + (Dl + 1) * 4
+                     + out_b, Dl * N * 3 + M * K, lib_ms))
+        lanes = [front["key"]] if front["key"] is not None else \
+            list(front["keys"])
+        for lane in lanes:
+            say(f"[{card}] sorts, mesh {label}: a stable torch.sort of "
+                f"{'the packed key' if front['key'] is not None else 'a lane'}"
+                f", {lane.dtype} [{M}] "
                 f"{cuda_ms(lambda: torch.sort(lane, stable=True)):.4f} ms "
-                f"(bound {sort_bound_ms(N, 8):.4f} ms)")
+                f"(bound {sort_bound_ms(M, lane.element_size()):.4f} ms)")
 
-        config, rows_r, order, live_counts, merged, flive, ngroups = \
+        config, recv, src, order, off, merged, flive, stats_r = \
             captured[("shuffle_reduce", label)]
-        cap = merged.shape[0]
+        M = src.numel()
+        cap = merged.shape[1]
 
         def k16():
-            mesh.shuffle_reduce(config, rows_r, order, live_counts, merged,
-                                flive, ngroups)
+            mesh.shuffle_reduce(config, recv, src, order, off, merged, flive,
+                                stats_r)
         ms = cuda_ms(k16, iters=50)
         dms = queued_ms(k16, iters=50)
-        m2, f2, n2 = (torch.empty_like(merged), torch.empty_like(flive),
-                      torch.empty_like(ngroups))
+        m2, f2, s2 = (torch.empty_like(merged), torch.empty_like(flive),
+                      stats_r.clone())
         pms = cuda_ms(lambda: mesh.shuffle_reduce_plain(
-            config, rows_r, order, live_counts, m2, f2, n2), iters=5)
+            config, recv, src, order, off, m2, f2, s2), iters=5)
         # one torch call: index_add_ of the sorted summed lanes by each
-        # row's segment (gid and the sorted rows prebuilt), as row 5's
-        # yardstick
-        srows = rows_r[scan.sorted_perm(order)]
+        # row's segment, owner-major (gid and the sorted rows prebuilt),
+        # as row 5's yardstick
+        srows = recv.reshape(-1, WP)[src.to(torch.int64)[
+            scan.sorted_perm(order)]]
         slive = (srows[:, K] > 0) | (srows[:, K + 1] > 0)
         skeys = torch.where(slive[:, None], srows[:, :K], scan.SENTINEL)
-        differs = torch.ones(N, dtype=torch.bool, device=device)
+        bnd = off.tolist()
+        differs = torch.ones(M, dtype=torch.bool, device=device)
         differs[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
+        differs[torch.tensor(bnd[:-1], device=device)] = True
         gid = torch.cumsum(differs.to(torch.int64), 0) - 1
-        cgid = torch.where(slive & (gid < cap), gid, cap)
         lanes = srows[:, K:K + n_sum].contiguous()
+        ng_all = int(gid[-1].item()) + 1
         lib_ms = cuda_ms(lambda: torch.zeros(
-            (cap + 1, n_sum), dtype=torch.int64, device=device).index_add_(
-                0, cgid, lanes), iters=20)
-        ng = int(ngroups.item())
+            (ng_all, n_sum), dtype=torch.int64, device=device).index_add_(
+                0, gid, lanes), iters=20)
+        ng = int(stats_r[:, 0].sum().item())
         nl = int(slive.sum().item())
         del srows, skeys, lanes
-        # the walk: the live rows alone unless a live row's keys tie the
-        # dead rows' (then every row, each with its live test).  p (and
-        # base) of the walked positions read, a live row's WP words
-        # gathered, shuffle_keys' counts read, the merged table and its
-        # live flags written.  Per walked position: the gather and the
-        # K-key boundary test; per live row: a 5-step warp-run reduce a
-        # word
-        tied = int(live_counts[:, 1].sum().item())
-        M = N if tied else nl
-        nbytes = (M * 8 * (1 if order["base"] is None else 2)
-                  + (N * 2 * 8 if tied else 0) + nl * WP * 8
-                  + live_counts.numel() * 4 + cap * WP * 8 + cap * 4 + 8)
+        # every kept position walked: p (and base) and src read, a live
+        # row's WP words gathered (its keys and live words among them), a
+        # dead row's two live words; off read; the merged tables and
+        # their live flags written.  Per walked position: the gather and
+        # the K-key boundary test; per live row: a 5-step warp-run reduce
+        # a word
+        nbytes = (M * 8 * (1 if order["base"] is None else 2) + M * 4
+                  + nl * WP * 8 + (M - nl) * 2 * 8 + (Dl + 1) * 4
+                  + Dl * cap * WP * 8 + Dl * cap * 4 + Dl * 8)
         ops = M * (8 + 4 * K) + nl * 12 * (n_sum + 2 * A)
-        old_ms = (N * 8 * (1 if order["base"] is None else 2) + N * 2 * 8
-                  + nl * WP * 8 + cap * WP * 8 + cap * 4 + 8) \
-            / HBM_BYTES_PER_S * 1e3
         say(f"[{card}] shuffle_reduce, mesh {label}: device {dms:.4f} ms, "
-            f"events {ms:.4f} ms; the {'general' if tied else 'live'} walk "
-            f"({M} of {N} positions); bound "
+            f"events {ms:.4f} ms; {M} kept positions walked over {Dl} "
+            f"owners; bound "
             f"{max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
-            f" ms (the whole-walk count of the previous design: "
-            f"{old_ms:.4f} ms); index_add_ {lib_ms:.4f} ms")
-        say(f"[{card}] shuffle_reduce, mesh {label}, launches per owner: "
+            f" ms; index_add_ {lib_ms:.4f} ms")
+        say(f"[{card}] shuffle_reduce, mesh {label}, launches a batch: "
             f"{profiled_kernels(k16)}")
-        rows.append(("shuffle_reduce", f"{label}, one owner ({N} rows, {nl} "
-                     f"live, {ng} groups, cap {cap}, WP {WP})",
-                     "sybil_tpu/parallel/mesh.py:146", ms, pms, nbytes, ops,
-                     lib_ms))
+        rows.append(("shuffle_reduce", f"{label}, a mesh batch ({Dl} owners, "
+                     f"{M} kept rows, {nl} live, {ng} groups, cap {cap}, WP "
+                     f"{WP})", "sybil_tpu/parallel/mesh.py:146", ms, pms,
+                     nbytes, ops, lib_ms))
+
+        def loop(config=config, recv=recv, merged=merged, flive=flive,
+                 stats_r=stats_r):
+            mesh.merge_owners(config, recv, merged, flive, stats_r)
+        LATE_PROFILES.append((f"the owner loop (merge_owners), mesh {label}",
+                              loop))
+        say(f"[{card}] the owner loop (merge_owners), mesh {label}: events "
+            f"{cuda_ms(loop, iters=20):.4f} ms a mesh batch")
 
         config, flat, flive_a, top, stats_a, S = captured[
             ("shuffle_unpack", label)]
@@ -6527,6 +6759,7 @@ def main(argv=None) -> int:
         for label, sc, kk in topk_edges(dev):
             check_equal(f"topk_rows {label}", scan.topk_rows(sc, kk),
                         scan.topk_rows_plain(sc, kk), errs["topk_rows"])
+        k12g_edge_checks(card, dev, errs)
         say(f"K7 (enum form), K11, K12 and K10 enum_pack == plain on "
             f"{len(ENUM_EDGES)} synthetic enumerated batches: "
             + ", ".join(ENUM_EDGES) + "; K12 alone on "
@@ -7204,8 +7437,8 @@ def main(argv=None) -> int:
             r = got[h]
             if r["Count"] != cnt or r["ping"] != s_ / cnt:
                 fail(f"mesh config 1 CLI: group {h} differs from numpy")
-        if ll["shuffle_partition"] != 1 or ll["shuffle_reduce"] != \
-                MESH_D or ll["dense_scan"] != MESH_D:
+        if ll["shuffle_partition"] != 1 or ll["shuffle_reduce"] != 1 \
+                or ll["dense_scan"] != MESH_D:
             fail(f"mesh config 1 CLI: launches {ll}")
         tally(launches, ll)
         say(f"main path: CLI config 1 -data-shards {MESH_D} on cuda == numpy "
@@ -7895,13 +8128,15 @@ def main(argv=None) -> int:
                         R5 * (12 + 12 * L5), k11_lib))
         sc5 = seg5["score"]
         k12_ms = cuda_ms(lambda: scan.topk_rows(sc5, Pk5))
+        LATE_PROFILES.append(("topk_rows config 5",
+                              lambda: scan.topk_rows(sc5, Pk5)))
         k12_plain = cuda_ms(lambda: scan.topk_rows_plain(sc5, Pk5), iters=5)
         k12_lib = cuda_ms(lambda: torch.topk(sc5, Pk5), iters=5)
-        # the scores read once, k indices written; per row and pass a
-        # key transform and a compare
+        # the scores read once, k indices written; per row and pass over
+        # the scores (two) a key transform, a prefix test and a digit
         c5_rows.append(("topk_rows", f"config 5, int64 [{R5}], k {Pk5}",
                         "sybil_tpu/ops/scan.py:1369", k12_ms, k12_plain,
-                        R5 * 8 + Pk5 * 4, R5 * 4 * 9, k12_lib))
+                        R5 * 8 + Pk5 * 4, R5 * 4 * 2, k12_lib))
         cfg5w = dataclasses.replace(cfg5, prune_agg=0)
         sc5w = scan.enum_segments(cfg5w, cols5, skey5, p5)["score"]
         k12w_ms = cuda_ms(lambda: scan.topk_rows(sc5w, Pk5))
@@ -7910,7 +8145,7 @@ def main(argv=None) -> int:
         k12w_lib = cuda_ms(lambda: torch.topk(sc5w, Pk5), iters=5)
         c5_rows.append(("topk_rows", f"config 5 -prune-sort weight, f32 "
                         f"[{R5}], k {Pk5}", "sybil_tpu/ops/scan.py:1369",
-                        k12w_ms, k12w_plain, R5 * 4 + Pk5 * 4, R5 * 4 * 5,
+                        k12w_ms, k12w_plain, R5 * 4 + Pk5 * 4, R5 * 4 * 2,
                         k12w_lib))
         widx5 = parts5["widx"]
         lay5 = scan.packed_layout(cfg5, R5)
@@ -7958,12 +8193,14 @@ def main(argv=None) -> int:
         c5_rows.append(("topk_rows", f"config 5 sorted device prune, int64 "
                         f"[{S_sp}], k {P5}", "sybil_tpu/ops/scan.py:1896",
                         k12s_ms, k12s_plain, S_sp * 8 + P5 * 4,
-                        S_sp * 4 * 9, k12s_lib))
+                        S_sp * 4 * 2, k12s_lib))
         pidx_sp = scan.topk_rows(sc_sp, P5)
         tbl_sp = k10_sp["table"]
-        # the gather runs inside K12's call (prune_topk_gather): its share
-        # is that call's time less K12 alone's, timed in turns (alone,
-        # both, both, alone, twice; medians), by events and queued
+        # the gather runs inside K12's launch (prune_topk_gather: the warp
+        # that ranks a winner copies its row), so its row of the table is
+        # that one launch, select and gather, timed in turns with K12
+        # alone (alone, both, both, alone, twice; medians), by events and
+        # queued
         def k12_alone():
             scan.topk_rows(sc_sp, P5)
 
@@ -7978,40 +8215,31 @@ def main(argv=None) -> int:
         dv_both, dv_alone = median(dv[k12_gather]), median(dv[k12_alone])
         nl_alone, _ = device_launches(k12_alone)
         nl_both, per_both = device_launches(k12_gather)
-        if nl_alone is None or nl_both != nl_alone + 1:
+        if nl_alone is None or nl_both != nl_alone:
             fail(f"the device prune's select and gather: {nl_both} device "
-                 f"operations a call ({per_both}), not K12's {nl_alone} "
-                 f"+ 1")
+                 f"operations a call ({per_both}), not K12's {nl_alone}")
         kpg_plain = cuda_ms(lambda: scan.prune_gather_plain(
             cfg_sp, tbl_sp, pidx_sp, main_sp), iters=5)
         kpg_lib = cuda_ms(lambda: tbl_sp[pidx_sp.to(torch.int64)], iters=20)
-        # the gather has no host call of its own: the table's ms is its
-        # kernel's self device time as the profiler records it; the share
-        # of the call by events (a difference of two medians, within
-        # their noise) is printed beside it, flagged when not above 0
-        gk = [(c, us) for k, (c, us) in per_both.items()
-              if "gather_kernel" in k]
-        if len(gk) != 1:
-            fail(f"the device prune's select and gather: the profiler "
-                 f"recorded no gather_kernel ({per_both})")
-        kpg_ms = gk[0][1] / gk[0][0] / 1e3
-        share = ev_both - ev_alone
         say(f"[{card}] the device prune's select and gather at config 5 "
-            f"(one call, prune_topk_gather): events {ev_both:.4f} ms, "
-            f"device {dv_both:.4f} ms, {nl_both} device operations a call "
-            f"({per_both}); K12 alone: events {ev_alone:.4f} ms, device "
-            f"{dv_alone:.4f} ms, {nl_alone} device operations; the gather's "
-            f"kernel {kpg_ms:.4f} ms by the profiler; its share of the "
-            f"call: events {share:.4f} ms"
-            + ("" if share > 0 else " (not above 0: below the noise)")
-            + f", device {dv_both - dv_alone:.4f} ms; table[pidx] "
+            f"(one call, prune_topk_gather): events {ev_both:.4f} ms "
+            f"(runs {', '.join(f'{v:.4f}' for v in ev[k12_gather])}), "
+            f"device {dv_both:.4f} ms (runs "
+            f"{', '.join(f'{v:.4f}' for v in dv[k12_gather])}), {nl_both} "
+            f"device operations a call ({per_both}); K12 alone: events "
+            f"{ev_alone:.4f} ms, device {dv_alone:.4f} ms, {nl_alone} device "
+            f"operations; plain select and gather {k12s_plain:.4f} + "
+            f"{kpg_plain:.4f} ms; torch.topk {k12s_lib:.4f} ms, table[pidx] "
             f"{kpg_lib:.4f} ms")
-        c5_rows.append(("prune_gather", f"config 5 sorted device prune "
-                        f"({P5} rows; inside K12's call: its kernel's "
-                        f"device time by the profiler)",
-                        "sybil_tpu/ops/scan.py:1900", kpg_ms,
-                        kpg_plain, P5 * (4 + Wt_sp * 8 * 2 + lay_sp["W"] * 8),
-                        P5 * lay_sp["W"], kpg_lib))
+        # the scores read, pidx written, P rows of Wt words gathered and
+        # written twice (main's prefix zero-padded to W, the pruned table)
+        c5_rows.append(("prune_gather", f"config 5 sorted device prune, "
+                        f"K12's select and the gather of {P5} rows in one "
+                        f"launch (prune_topk_gather), int64 [{S_sp}]",
+                        "sybil_tpu/ops/scan.py:1900", ev_both,
+                        k12s_plain + kpg_plain,
+                        S_sp * 8 + P5 * (4 + Wt_sp * 8 * 2 + lay_sp["W"] * 8),
+                        S_sp * 4 * 2 + P5 * lay_sp["W"], None))
         say(f"[{card}] config 5 device work per batch: K7 {k7e_ms:.4f} + "
             f"sort {sort5_ms:.4f} + K11 {k11_ms:.4f} + K12 {k12_ms:.4f} + "
             f"K10 {kep_ms:.4f} = "
@@ -8250,6 +8478,10 @@ def main(argv=None) -> int:
         for label, fn in LATE_PROFILES:
             say(f"[{card}] {label}: {profiled_kernels(fn)}")
         del LATE_PROFILES[:]
+        say(f"[{card}] torch.profiler: {PROFILE_MISSES['calls']} profiled "
+            f"calls recorded no device event in their first 8 profiles; "
+            f"padded profiles ({PROFILE_PAD_S * 1e3:.0f} ms either side) "
+            f"recovered {PROFILE_MISSES['recovered']} of them")
         say(f"[{card}] dense_scan config 1 (PR-1 shape): "
             f"{k2_times['config 1'][0]:.4f} ms; index_add_ over prebuilt "
             f"lanes {k2_lib:.4f} ms")

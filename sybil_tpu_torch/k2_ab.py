@@ -53,6 +53,19 @@ the sorted device prune at config 5's shape: K12 alone over 100,000
 int64 scores (k 1,000), the select and the gather as the root runs them
 (two calls, or prune_topk_gather's one), and table[pidx].
 
+K12 and K16 (`--only K12,K16`; a root without the mesh times K12
+alone): K12's general form at config 5's enumerated shape (a
+partition's 4,194,304 K11 scores: -1, or a user's row count at the end
+of its segment; and the f32 mean weights of -prune-sort weight), k
+1,000, and at the sorted device prune's 100,000 slots alone and with its
+gather, each beside torch.topk; a mesh batch's owner loop (8 owners:
+shuffle_keys, the sorts and shuffle_reduce, as the root runs them: one
+call over the owners, or one an owner) at config 3 -loghist's and path
+2's shapes (on a root whose shuffle_keys packs the sort key, also with
+the K + 1 lanes sorted instead, then packed again), beside its torch
+calls (the masked transpose of every owner's keys and the stable sorts
+by owner and key); and K16's and K12's two-valued runs above.
+
 K1 and K2 (`--only K1,K2`): K1 at row 1's shape (128 v2 blocks of
 65,536 rows of config 1's `ping` and of `host`), the same `ping` launch
 with every row a missing block (the zeroing alone) and row 10's (128 v1
@@ -98,12 +111,12 @@ its predecessor's 32-byte sector, and the 4,096-row tile edges that cut
 a segment.
 
 Walls (`--walls`): builds chip_smoke.py's uptime table (8,388,608 rows,
-bench.py's generator and seed) under DIR unless it is there, then for
-each root times `run_query` of config 1 and config 3 warm (decoded
-columns resident), and for a root with the mesh scan the same two at
-`-data-shards 8`: 15 queries after 3 warm-ups, their median wall and
-quartiles, and the median of each of the engine's phases over the same
-15 queries.
+bench.py's generator and seed) and its time-sorted user_sessions table
+under DIR unless they are there, then for each root times `run_query` of
+config 1, config 3 and path 2 warm (decoded columns resident), and for a
+root with the mesh scan the same three at `-data-shards 8`: 15 queries
+after 3 warm-ups, their median wall and quartiles, and the median of each
+of the engine's phases over the same 15 queries.
 """
 
 from __future__ import annotations
@@ -153,6 +166,11 @@ def kernel_runs(root: str, only=()) -> tuple:
 
     _, scan = _import_root(root)
     dev = torch.device("cuda")
+
+    def wanted(prefix: str) -> bool:
+        # the runs whose inputs take seconds to build, only when selected
+        return not only or prefix in only
+
     rng = np.random.default_rng(0)
     B, C = 128, 65536
     R = B * C
@@ -276,6 +294,10 @@ def kernel_runs(root: str, only=()) -> tuple:
         runs += k16_runs(dev)
         runs += c4_runs(scan, dev) + k12_runs(scan, dev)
         runs += k15_runs(scan, dev)
+        if wanted("K16"):
+            runs += owner_runs(scan, dev)
+    if wanted("K12"):
+        runs += k12g_runs(scan, dev)
     runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
     runs += c2_runs(scan, dev) + k1_runs(dev)
     runs += k7_runs(scan, dev) + permute_runs(scan, dev)
@@ -330,15 +352,23 @@ def k16_owner(scan, mesh, dev, shape: str):
         blk[:, :K] = keys[idx]
         blk[:, K] = rng.integers(1, 100, len(idx))
     rows_t = torch.from_numpy(rows.reshape(D * Sc, WP)).to(dev)
-    got = mesh.shuffle_keys(config, rows_t)
-    new = isinstance(got, tuple)          # shuffle_keys -> (keys, counts)
-    skeys, counts = got if new else (got, None)
-    order = scan.sort_rows(config, {"key": None, "keys": skeys})
     merged = torch.empty((Sc, WP), dtype=torch.int64, device=dev)
     flive = torch.empty(Sc, dtype=torch.int32, device=dev)
-    ng = torch.empty(1, dtype=torch.int64, device=dev)
-    red = ((config, rows_t, order, counts, merged, flive, ng) if new else
-           (config, rows_t, order, merged, flive, ng))
+    if hasattr(mesh, "merge_owners"):     # one call over stacked owners
+        recv = rows_t[None]
+        front, src, off = mesh.shuffle_keys(config, recv)
+        order = scan.sort_rows(config, front)
+        st = torch.zeros((1, mesh.n_stats(config)), dtype=torch.int64,
+                         device=dev)
+        red = (config, recv, src, order, off, merged[None], flive[None], st)
+    else:
+        got = mesh.shuffle_keys(config, rows_t)
+        new = isinstance(got, tuple)      # shuffle_keys -> (keys, counts)
+        skeys, counts = got if new else (got, None)
+        order = scan.sort_rows(config, {"key": None, "keys": skeys})
+        ng = torch.empty(1, dtype=torch.int64, device=dev)
+        red = ((config, rows_t, order, counts, merged, flive, ng) if new
+               else (config, rows_t, order, merged, flive, ng))
     flat = torch.from_numpy(rng.integers(0, 1000, (D * Sc, WP))).to(dev)
     fl = np.zeros((D, Sc), np.int32)
     for d, idx in enumerate(np.array_split(np.arange(ngroups or 5), D)):
@@ -582,6 +612,204 @@ def prune_runs(scan, dev) -> tuple:
             (f"prune: the select and the gather at config 5 ({P} rows of "
              f"{Wt} words, W {W})", 50, both),
             ("prune: table[pidx] (torch)", 50, lambda: table[pidx]))
+
+
+C5_ROWS = 4_194_304            # a config-5 partition's batch (64 blocks)
+
+
+def c5_scores(dev):
+    """Config 5's scores as K11 writes them for a partition's batch
+    (bench_configs.py:64-98: userid = zipf(1.2) % 200,000 over 4,194,304
+    rows, weight from {1, 10, 100}): in key order, the last row of each
+    user's segment holds the user's row count (int64, $COUNT) or mean
+    weight (f32, -prune-sort weight) and every other row -1 or -inf ->
+    (int64 scores, f32 scores, live rows)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    uid = np.sort(rng.zipf(1.2, C5_ROWS) % 200_000)
+    w = rng.choice([1, 10, 100], C5_ROWS).astype(np.int64)
+    ends = np.flatnonzero(np.r_[uid[1:] != uid[:-1], True])
+    starts = np.r_[0, ends[:-1] + 1]
+    cnt = ends - starts + 1
+    s64 = np.full(C5_ROWS, -1, np.int64)
+    s64[ends] = cnt
+    f32 = np.full(C5_ROWS, -np.inf, np.float32)
+    f32[ends] = (np.add.reduceat(w, starts).astype(np.float32)
+                 / cnt.astype(np.float32))
+    return (torch.from_numpy(s64).to(dev), torch.from_numpy(f32).to(dev),
+            len(ends))
+
+
+def k12g_runs(scan, dev) -> tuple:
+    """K12's general form at config 5's shapes, each beside torch.topk on
+    the same scores: the enumerated strategy's select over a partition's
+    4,194,304 K11 scores (int64 $COUNT, and f32 for -prune-sort weight),
+    k 1,000; and the sorted device prune's over its 100,000 slots
+    (prune_runs' scores), alone and with its gather (prune_topk_gather's
+    one call)."""
+    import numpy as np
+    import torch
+    s64, f32, live = c5_scores(dev)
+    k = 1000
+    rng = np.random.default_rng(5)
+    cfg = scan.ScanConfig(group_cols=("userid",),
+                          aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                          filters=(), force_sorted=True, prune_topk=1000)
+    S, P = cfg.max_groups, scan.table_prefix(cfg)
+    Wt, W = scan.table_width(cfg), scan.main_width(cfg)
+    score = torch.from_numpy(np.minimum(rng.zipf(1.3, S), 10 ** 6)
+                             .astype(np.int64)).to(dev)
+    table = torch.from_numpy(rng.integers(-10 ** 9, 10 ** 9, (S, Wt))).to(dev)
+    main = torch.zeros((1 + P + 64, W), dtype=torch.int64, device=dev)
+    out = ()
+    for what, sc in ((f"config 5 (int64 [{C5_ROWS}], {live} live, k {k})",
+                      s64),
+                     (f"config 5 -prune-sort weight (f32 [{C5_ROWS}], k {k})",
+                      f32)):
+        out += ((f"K12 general form at {what}", 20,
+                 lambda sc=sc: scan.topk_rows(sc, k)),
+                (f"K12's torch call torch.topk at {what}", 20,
+                 lambda sc=sc: torch.topk(sc, k)))
+    return out + (
+        (f"K12 general form at the device prune ([{S}] int64, k {P})", 50,
+         lambda: scan.topk_rows(score, P)),
+        (f"K12 general form at the device prune with its gather ({P} rows "
+         f"of {Wt} words, W {W})", 50,
+         lambda: scan.prune_topk_gather(cfg, score, table, main)),
+        (f"K12's torch call torch.topk at the device prune ([{S}] int64)", 50,
+         lambda: torch.topk(score, P)))
+
+
+def owner_batch(mesh, dev, shape: str, D: int = 8):
+    """A mesh batch's received rows at -data-shards 8 on one process, as
+    the exchange hands them to the owner loop: [8, D * Sc, WP] int64, each
+    owner's D source blocks of Sc rows holding their live rows first (K15
+    places them so).  Config 3 -loghist (Sc 128, WP 174): the 5 hosts'
+    rows, one a source shard, at owners 0-4, owners 5-7 without a live
+    row; path 2 (Sc 25,128, WP 9): every owner 9,108 live rows of 9,100
+    keys.  The keys are the queries' own: config 3's host ids 0-4, path
+    2's (action 0-8, a 300 s bucket of the four weeks) pairs -> (config,
+    recv)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    sys.path.append(REPO)
+    import chip_smoke
+    o = dict(chip_smoke.K16_SHAPES["wide" if shape == "config 3" else
+                                   "narrow"])
+    o["aggs"] = tuple(scan.AggSpec(c, **kw) for c, kw in o["aggs"])
+    config = scan.ScanConfig(no_compact_table=True, **o)
+    K, *_, WP = mesh.payload_spec(config)
+    rng = np.random.default_rng(17)
+    Sc = 128 if shape == "config 3" else 25_128
+    recv = np.zeros((D, D, Sc, WP), np.int64)
+    for d in range(D):
+        nlive, ngroups = ((D, 1) if d < 5 else (0, 0)) \
+            if shape == "config 3" else (9_108, 9_100)
+        if not nlive:
+            continue
+        if shape == "config 3":
+            keys = np.full((ngroups, K), d)
+        else:
+            pair = rng.choice(9 * 8064, ngroups, replace=False)
+            keys = np.stack([pair // 8064,
+                             1_752_580_800 + 300 * (pair % 8064)], axis=1)
+        keys = keys[np.arange(nlive) % ngroups]
+        for s, idx in enumerate(np.array_split(np.arange(nlive), D)):
+            blk = recv[d, s, :len(idx)]
+            blk[:] = rng.integers(0, 1000, blk.shape)
+            blk[:, :K] = keys[idx]
+            blk[:, K] = rng.integers(1, 100, len(idx))
+    return config, torch.from_numpy(recv.reshape(D, D * Sc, WP)).to(dev)
+
+
+def owner_loop(scan, mesh, config, recv):
+    """A mesh batch's owner loop as the root runs it: one merge_owners
+    call over every local owner, or shuffle_keys, sort_rows and
+    shuffle_reduce an owner."""
+    import torch
+    Dl, N, WP = recv.shape
+    Sc = N // 8
+    dev = recv.device
+    merged = torch.empty((Dl, Sc, WP), dtype=torch.int64, device=dev)
+    flive = torch.empty((Dl, Sc), dtype=torch.int32, device=dev)
+    stats = torch.zeros((Dl, mesh.n_stats(config)), dtype=torch.int64,
+                        device=dev)
+    if hasattr(mesh, "merge_owners"):
+        return lambda: mesh.merge_owners(config, recv, merged, flive, stats)
+
+    def per_owner():
+        for d in range(Dl):
+            keys, live_counts = mesh.shuffle_keys(config, recv[d])
+            order = scan.sort_rows(config, {"key": None, "keys": keys})
+            mesh.shuffle_reduce(config, recv[d], order, live_counts,
+                                merged[d], flive[d], stats[d, 0:1])
+    return per_owner
+
+
+def owner_lanes(scan, mesh, config, recv):
+    """The same owner loop with shuffle_keys' packed sort key refused
+    (mesh._pack_plan answering None), so that sort_rows takes the K + 1
+    lanes: the A/B of the two sort-key forms on one root's code."""
+    loop = owner_loop(scan, mesh, config, recv)
+    plan = mesh._pack_plan
+
+    def lanes():
+        mesh._pack_plan = lambda Dl, ranges: None
+        try:
+            loop()
+        finally:
+            mesh._pack_plan = plan
+    return lanes
+
+
+def owner_torch(scan, config, recv):
+    """The owner loop's torch calls over the same batch: the masked
+    transpose of every owner's keys (torch.where + contiguous, the live
+    mask prebuilt) and the stable sorts by (owner, keys), the least
+    significant first."""
+    import torch
+    K = config.n_key_cols
+    Dl, N, WP = recv.shape
+    flat = recv.reshape(Dl * N, WP)
+    live = (flat[:, K] > 0) | (flat[:, K + 1] > 0)
+    owner = torch.arange(Dl, device=recv.device).repeat_interleave(N)
+
+    def lib():
+        keys = torch.where(live[None, :], flat[:, :K].t(),
+                           scan.SENTINEL).contiguous()
+        p = torch.sort(keys[K - 1], stable=True)[1]
+        for k in range(K - 2, -1, -1):
+            p = p[torch.sort(keys[k][p], stable=True)[1]]
+        return p[torch.sort(owner[p], stable=True)[1]]
+    return lib
+
+
+def owner_runs(scan, dev) -> tuple:
+    """K16's owner loop over a whole mesh batch (8 owners) at config 3
+    -loghist's and path 2's shapes (owner_batch), as the root runs it (on
+    a root with the packed sort key, then with the K + 1 lanes and the
+    packed key again, owner_lanes), beside its torch calls
+    (owner_torch)."""
+    from sybil_tpu_torch.parallel import mesh
+    out = ()
+    for shape, what in (("config 3", "config 3 -loghist (8 owners of 1,024 "
+                         "rows, WP 174)"),
+                        ("path 2", "path 2 (8 owners of 201,024 rows, WP "
+                         "9)")):
+        config, recv = owner_batch(mesh, dev, shape)
+        out += ((f"K16 owner loop at {what}", 20,
+                 owner_loop(scan, mesh, config, recv)),)
+        if hasattr(mesh, "_pack_plan"):
+            out += ((f"K16 owner loop, the K + 1 lanes sorted, at {what}", 20,
+                     owner_lanes(scan, mesh, config, recv)),
+                    (f"K16 owner loop, the packed key again, at {what}", 20,
+                     owner_loop(scan, mesh, config, recv)))
+        out += ((f"K16 owner loop's torch calls at {what}", 20,
+                 owner_torch(scan, config, recv)),)
+    return out
 
 
 def c2_runs(scan, dev, B: int = 128) -> tuple:
@@ -1056,15 +1284,23 @@ def trace_runs(root: str, only) -> str:
 
 
 def build_walls_table(table_dir: str) -> None:
-    """chip_smoke.py's uptime table under table_dir, unless it is there."""
-    if os.path.isdir(os.path.join(table_dir, "uptime")):
-        return
+    """chip_smoke.py's uptime table under table_dir, and its time-sorted
+    user_sessions table under table_dir/sessions (path 2's), unless they
+    are there."""
     sys.path.insert(0, REPO)
     import chip_smoke
-    t0 = time.perf_counter()
-    chip_smoke.build_table(table_dir, ROWS)
-    print(f"built the uptime table ({ROWS} rows) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not os.path.isdir(os.path.join(table_dir, "uptime")):
+        t0 = time.perf_counter()
+        chip_smoke.build_table(table_dir, ROWS)
+        print(f"built the uptime table ({ROWS} rows) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sessions = os.path.join(table_dir, "sessions")
+    if not os.path.isdir(os.path.join(sessions, "user_sessions")):
+        t0 = time.perf_counter()
+        chip_smoke.build_sessions(os.path.join(table_dir, "sessions_bulk"),
+                                  sessions, ROWS)
+        print(f"built the user_sessions tables ({ROWS} rows) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def time_walls(root: str, table_dir: str, n: int = 15) -> str:
@@ -1100,22 +1336,35 @@ def time_walls(root: str, table_dir: str, n: int = 15) -> str:
             groups=("host",), aggs=(AggDef("ping", "hist", "basic"),),
             filters=(FilterDef("status", "eq", "200", "str"),)),
     }
-    runs = [(label, params, dataclasses.replace(flags))
+    runs = [(label, table, params, dataclasses.replace(flags))
             for label, params in queries.items()]
+    # path 2 (config 4 at 300 s buckets, the sorted strategy) on the
+    # time-sorted user_sessions table, one batch, as chip_smoke's mesh
+    # phase runs it
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    stable = Table("user_sessions", Flags(
+        dir=os.path.join(table_dir, "sessions"), table="user_sessions",
+        skip_compact=True, device="cuda", device_batch=1024))
+    stable.load_info()
+    sflags, sparams = chip_smoke.cli_query(
+        stable, chip_smoke.P2_ARGV + ["-device-batch",
+                                      str(len(stable.block_infos()))])
+    runs.append(("path 2", stable, sparams, sflags))
     if hasattr(flags, "data_shards"):   # the root has the mesh scan
-        runs += [(f"{label} -data-shards 8", params,
-                  dataclasses.replace(flags, data_shards=8))
-                 for label, params in queries.items()]
+        runs += [(f"{label} -data-shards 8", t, params,
+                  dataclasses.replace(f, data_shards=8))
+                 for label, t, params, f in list(runs)]
     out = []
-    for label, params, qflags in runs:
+    for label, qtable, params, qflags in runs:
         for _ in range(3):
-            run_query(table, params, qflags)
+            run_query(qtable, params, qflags)
         walls = []
         del seen[:]
         for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_query(table, params, qflags)
+            run_query(qtable, params, qflags)
             walls.append((time.perf_counter() - t0) * 1e3)
         q1, med, q3 = np.percentile(walls, [25, 50, 75])
         names = sorted({k for t in seen for k in t},

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # shuffle_unpack (shuffle_reduce.cu), and the entry of dense_pack.cu's
 # keyed form of a scan's own table (dense_keyed: the row-store scan's),
 # counted apart from its other forms; and the device prune's gather, which
-# K12's entry launches after its select (topk_rows.cu, prune_topk_gather)
+# K12's one launch runs after its select (topk_rows.cu, prune_topk_gather)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "prune_gather": "topk_rows",
                  "shuffle_keys": "shuffle_reduce",

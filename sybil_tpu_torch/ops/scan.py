@@ -79,9 +79,9 @@ K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
                     pair section and the sparse hist pair sections of
                     `main`; under the device prune
                     (prune_topk) each row's score and the table totals
-                    instead of the prefix, then (K12's entry, its select
-                    and the gather: prune_topk_gather) the top rows as
-                    the prefix
+                    instead of the prefix, then (K12's launch, its
+                    select and the gather: prune_topk_gather) the top
+                    rows as the prefix
 
 Enumerated:
 
@@ -3333,12 +3333,14 @@ def enum_segments(config: ScanConfig, cols, skey, p):
     return out
 
 
-# K12 handles k up to this many winners (its one-CTA final sort holds
-# them in shared memory); the engine asks for at most 1000
+# K12 handles k up to this many winners (its ranking CTAs hold them in
+# shared memory); the engine asks for at most 1000
 TOPK_MAX = 4096
 # rows a CTA of the two-valued form ranks (TV_TILE in the source): one
 # launch up to this many, two above
 TOPK_TV_TILE = 16384
+# the general form's histogram bins (NB in the source: 11-bit digits)
+_TOPK_BINS = 2048
 _TOPK_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
 
@@ -3367,11 +3369,12 @@ def topk_rows(score, k: int, two_valued: bool = False):
     Replaces sybil_tpu/ops/scan.py:_topk_rows 1369-1399 (the tiled top-k
     whose fallback makes it equal lax.top_k), the lax.top_k of the
     device prune (pack_outputs 1896-1898) and, two-valued, the mesh's
-    compaction (sybil_tpu/parallel/mesh.py:291).  Bound by memory: a
-    radix select of the k-th value over order-preserving integer keys (8
-    bits a pass), a ranked compaction of the rows above it and the first
-    rows equal to it, then a one-CTA bitonic sort of the winners by
-    (value descending, index ascending); no library sort (see the source
+    compaction (sybil_tpu/parallel/mesh.py:291).  Bound by memory: one
+    cooperative launch, a radix select of the k-th (score, index)
+    composite, 11 bits a digit, whose first round reads the scores twice
+    and whose later rounds read a candidate buffer (the bits all
+    candidates share skipped), then a ranking of the winners by (value
+    descending, index ascending); no library sort (see the source
     note)."""
     dev = score.device
     if two_valued and score.dtype != torch.int32:
@@ -3405,26 +3408,30 @@ def topk_rows(score, k: int, two_valued: bool = False):
     return out
 
 
+# topk_rows' C entry: score, out, scratch, R, k, dtype, cap, table, main,
+# ptable, Wt, W, stream
+_TOPK_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def _topk_launch(score, out, R: int, k: int, dev, gather=None) -> None:
-    """K12's select, compaction and sort of `score` into out [k], and
-    with gather = (table, main, ptable) the device prune's gather of the
-    winners, in one C call."""
-    ntiles = -(-R // _SEG_TILE)
-    # state [2] int64, then hist [256], offsets [2, ntiles + 1] and cand
-    # [k] int32: one allocation
-    scratch = torch.empty(4 + 256 + 2 * (ntiles + 1) + k, dtype=torch.int32,
-                          device=dev)
-    base = scratch.data_ptr()
+    """K12's select and ranking of `score` into out [k], and with gather
+    = (table, main, ptable) the device prune's gather of the winners, in
+    one C call and one launch."""
+    # candidates a buffer holds: a quarter of the rows (at least 2^18);
+    # past that a round reads the scores again
+    cap = min(R, max(1 << 18, R // 4))
+    # the histograms, counters, AND/OR words, k winners and two candidate
+    # buffers (the source's Scratch): one allocation, zeroed by the kernel
+    scratch = torch.empty(_TOPK_BINS + 10 + k + (k + 1) // 2 + 3 * cap,
+                          dtype=torch.int64, device=dev)
     table, main, ptable = gather or (None, None, None)
-    fn = kernels.entry("topk_rows", "topk_rows",
-                       [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    kernels.check(fn(score.data_ptr(), out.data_ptr(), base, base + 16,
-                     base + 16 + 1024, base + 16 + 1024 + 8 * (ntiles + 1),
-                     R, k, _TOPK_DTYPES[score.dtype], ntiles,
-                     _grid(dev, R, 0, False), _ptr(table), _ptr(main),
-                     _ptr(ptable), 0 if table is None else table.shape[1],
+    fn = kernels.entry("topk_rows", "topk_rows", _TOPK_ARGS)
+    kernels.check(fn(score.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     R, k, _TOPK_DTYPES[score.dtype], cap, _ptr(table),
+                     _ptr(main), _ptr(ptable),
+                     0 if table is None else table.shape[1],
                      0 if main is None else main.shape[1],
                      kernels.stream_handle(dev)), "topk_rows")
     kernels.LAUNCHES["topk_rows"] += 1
@@ -3435,10 +3442,10 @@ def prune_topk_gather(config: ScanConfig, score, table, main):
     the slots' scores (P = table_prefix), then K10's gather of those rows
     of the keyed table [S, Wt] as main's prefix rows 1..P (zero-padded
     to W), in place -> (pidx int32 [P], the pruned table [P, Wt]).  CUDA
-    tensors run both in one C call of K12's entry (csrc/topk_rows.cu: the
-    gather right after the sort, on the same stream), counted as one
-    launch of topk_rows and one of prune_gather; CPU tensors take
-    topk_rows_plain and prune_gather_plain.
+    tensors run both in K12's one launch (csrc/topk_rows.cu: the warp
+    that ranks a winner gathers its row), counted as one launch of
+    topk_rows and one of prune_gather; CPU tensors take topk_rows_plain
+    and prune_gather_plain.
 
     Replaces the lax.top_k and the gather table[pidx] of sybil_tpu/ops/
     scan.py:pack_outputs (1896-1900) and its prefix.  Bound by memory:

@@ -15,9 +15,11 @@ one card with one process).  Per query batch:
      local shards;
   3. the exchange (Mesh.all_to_all) sends every row once, to its key's
      owner;
-  4. each owner sorts what it received by key (K16's shuffle_keys, the
-     stable torch.sort passes of sort_rows) and K16 shuffle_reduce merges
-     equal keys into at most Sc2 rows;
+  4. the owners sort what they received by (owner, key) (K16's
+     shuffle_keys compacts their live rows, the stable torch.sort passes
+     of sort_rows) and K16 shuffle_reduce merges equal keys into at most
+     Sc rows an owner, one call each over every local owner
+     (merge_owners);
   5. the exchange gathers the owners' disjoint merged tables and their
      statistics to every process; K12 (two-valued) puts the live rows
      first, and K16's shuffle_unpack splits the final table into the
@@ -381,154 +383,285 @@ def _recv_live(rows, K: int):
     return (rows[:, K] > 0) | (rows[:, K + 1] > 0)
 
 
-def shuffle_keys_plain(config: ScanConfig, rows):
-    """Plain PyTorch version of shuffle_keys: the [K, N] sort operands and
-    the live counts as one int32 [1, 2] row."""
+_KEYS_TILE = 8192              # rows a shuffle_keys CTA (KTILE in the source)
+_MAX_PACK = 64                 # lanes a packed sort key holds (MAX_PACK)
+_M64 = 2 ** 64 - 1
+
+
+def _pack_plan(Dl: int, ranges: list):
+    """How shuffle_keys packs the owners' sort key: the owner's lane and
+    each key lane whose kept rows hold more than one value, the most
+    significant first, lane k's code v - lo (SENTINEL: `dead`, the code
+    past the live rows' greatest, or the greatest's own when that is
+    INT64_MAX, so that a live INT64_MAX ties the dead rows as the
+    reference's sort ties them) in just enough bits.  ranges: each key
+    lane's (least, greatest) over the kept live rows, None when no row is
+    live.  -> (wide: an int64 key, else int32; lanes, bits, lo, dead), or
+    None when the codes take more than 63 bits (then one sort a lane)."""
+    lanes, bits, lo, dead = [0], [(Dl - 1).bit_length()], [0], [0]
+    for k, rg in enumerate(ranges):
+        if rg is None:
+            continue                   # every kept row SENTINEL: one code
+        mn, mx = rg
+        dk = mx - mn if mx == SENTINEL else mx - mn + 1
+        if dk.bit_length():
+            lanes.append(k + 1)
+            bits.append(dk.bit_length())
+            lo.append(mn)
+            dead.append(dk)
+    if sum(bits) > 63:
+        return None
+    return sum(bits) > 31, lanes, bits, lo, dead
+
+
+def _pack_plain(lanes, plan):
+    """The packed sort key of shuffle_keys' lanes [K + 1, M] by plan."""
+    wide, idx, bits, lo, dead = plan
+    code = torch.zeros(lanes.shape[1], dtype=torch.int64,
+                       device=lanes.device)
+    for k, b, mn, dk in zip(idx, bits, lo, dead):
+        v = lanes[k]
+        code = (code << b) | torch.where(v == SENTINEL, dk, v - mn)
+    return code if wide else code.to(torch.int32)
+
+
+def shuffle_keys_plain(config: ScanConfig, recv):
+    """Plain PyTorch version of shuffle_keys -> (front, src int32 [M], off
+    int32 [Dl + 1])."""
     K = config.n_key_cols
-    live = _recv_live(rows, K)
-    tied = live & (rows[:, :K] == SENTINEL).all(dim=1)
-    counts = torch.stack([live.sum(), tied.sum()]).to(torch.int32)
-    return (torch.where(live[None, :], rows[:, :K].t(), SENTINEL)
-            .contiguous(), counts.reshape(1, 2))
+    Dl, N, WP = recv.shape
+    dev = recv.device
+    flat = recv.reshape(Dl * N, WP)
+    live = _recv_live(flat, K)
+    # each tile's first dead row: the tiles of _KEYS_TILE rows an owner
+    i = torch.arange(Dl * N, device=dev)
+    tile = (i // N) * -(-N // _KEYS_TILE) + (i % N) // _KEYS_TILE
+    ntl = Dl * -(-N // _KEYS_TILE)
+    first = torch.full((ntl,), Dl * N, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, tile[~live], i[~live], "amin")
+    src = torch.nonzero(live | (i == first[tile])).reshape(-1)
+    owner = src // N
+    klive = live[src]
+    keys = torch.cat([owner[None, :], torch.where(
+        klive[None, :], flat[src, :K].t(), SENTINEL)])
+    off = torch.zeros(Dl + 1, dtype=torch.int64, device=dev)
+    off[1:] = torch.cumsum(torch.bincount(owner, minlength=Dl), 0)
+    ranges = [None] * K
+    if klive.any():
+        lv = flat[src[klive], :K]
+        ranges = list(zip(lv.min(dim=0)[0].tolist(),
+                          lv.max(dim=0)[0].tolist()))
+    plan = _pack_plan(Dl, ranges)
+    front = ({"key": _pack_plain(keys, plan), "keys": None} if plan else
+             {"key": None, "keys": keys})
+    return front, src.to(torch.int32), off.to(torch.int32)
 
 
-def shuffle_keys(config: ScanConfig, rows):
-    """K16, shuffle_keys entry: the received rows [N, WP] -> (their key
-    columns [K, N] int64, SENTINEL where a row is dead (count and samples
-    0), the operands of the owner's sort (reference _segment_reduce
-    156-157); the live counts int32 [G, 2]: per CTA the live rows and
-    the live rows whose keys all equal SENTINEL, which shuffle_reduce
-    reads to walk only the live rows).  CUDA tensors launch the kernel
-    (csrc/shuffle_reduce.cu); CPU tensors take the plain version (G = 1).
-    Bound by memory."""
-    dev = rows.device
+class ShuffleKeysArgs(ctypes.Structure):
+    """Mirror of struct ShuffleKeysArgs in csrc/shuffle_reduce.cu."""
+    _fields_ = _ptr_fields("rows", "keys", "src", "off", "status",
+                           "info") + [("N", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("Dl", "K", "WP", "ntiles")]
+
+
+class ShufflePackArgs(ctypes.Structure):
+    """Mirror of struct ShufflePackArgs in csrc/shuffle_reduce.cu."""
+    _fields_ = _ptr_fields("keys", "out") + [
+        ("stride", ctypes.c_longlong), ("M", ctypes.c_longlong),
+        ("n", ctypes.c_int), ("wide", ctypes.c_int),
+        ("lane", ctypes.c_int * _MAX_PACK), ("bits", ctypes.c_int * _MAX_PACK),
+        ("lo", ctypes.c_longlong * _MAX_PACK),
+        ("dead", ctypes.c_longlong * _MAX_PACK)]
+
+
+def shuffle_keys(config: ScanConfig, recv):
+    """K16, shuffle_keys entry: every local owner's received rows [Dl, N,
+    WP] compacted to the owner's live rows and the first dead row of each
+    _KEYS_TILE-row tile (which keeps the reference's segment of dead and
+    all-SENTINEL rows: see the source note), in row order, owner after
+    owner -> (front, src, off).  front: the operands of the owners' sort
+    by (owner, key 0, ...) (reference _segment_reduce 156-157, dead rows
+    keyed SENTINEL), as sort_rows takes them: "key", the packed key
+    (_pack_plan: int32 or int64 [M]) when the owner and the keys' codes
+    fit 63 bits, else None and "keys" [K + 1, M] int64 (row 0 the owner,
+    row 1 + k key k).  src int32 [M]: each kept row's index in recv viewed
+    as [Dl * N, WP]; off int32 [Dl + 1]: each owner's first kept
+    position, M last.  CUDA tensors launch the kernels
+    (csrc/shuffle_reduce.cu: one memset and one launch over every owner,
+    then, packed, one more) with one device-to-host read between (M and
+    the key ranges); CPU tensors take the plain version.  Bound by
+    memory."""
+    dev = recv.device
     if dev.type == "cpu":
-        return shuffle_keys_plain(config, rows)
+        return shuffle_keys_plain(config, recv)
     if dev.type != "cuda":
         raise ValueError(f"shuffle_keys: unsupported device {dev}")
     K = config.n_key_cols
-    N, WP = rows.shape
-    _check_tensor(rows, (N, WP), torch.int64, "rows", dev, "shuffle_keys")
-    grid = _grid(dev, N, 0, False)
-    keys = torch.empty((K, N), dtype=torch.int64, device=dev)
-    counts = torch.empty((grid, 2), dtype=torch.int32, device=dev)
-    fn = kernels.lib("shuffle_reduce").shuffle_keys
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(rows.data_ptr(), keys.data_ptr(), counts.data_ptr(), N,
-                     K, WP, grid, kernels.stream_handle(dev)),
+    Dl, N, WP = recv.shape
+    _check_tensor(recv, (Dl, N, WP), torch.int64, "recv", dev, "shuffle_keys")
+    ntiles = -(-N // _KEYS_TILE)
+    cap = Dl * N
+    # one allocation: the lanes [K + 1, cap], the look-back's ticket and
+    # status words and the info words (the memset's), then src and off as
+    # int32
+    w_st = (K + 1) * cap
+    w_info = w_st + 1 + Dl * ntiles
+    w_int = w_info + 1 + 2 * K
+    buf = torch.empty(w_int + (cap + Dl + 2) // 2, dtype=torch.int64,
+                      device=dev)
+    base = buf.data_ptr()
+    a = ShuffleKeysArgs(recv.data_ptr(), base, base + 8 * w_int,
+                        base + 8 * w_int + 4 * cap, base + 8 * w_st,
+                        base + 8 * w_info, N, Dl, K, WP, ntiles)
+    fn = kernels.entry("shuffle_reduce", "shuffle_keys",
+                       [ctypes.c_void_p, ctypes.c_void_p])
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "shuffle_keys")
     kernels.LAUNCHES["shuffle_keys"] += 1
-    return keys, counts
+    M, *mm = buf[w_info:w_int].tolist()
+    ints = buf[w_int:].view(torch.int32)
+    src, off = ints[:M], ints[cap:cap + Dl + 1]
+    ranges = [None] * K
+    if mm[0] or mm[1]:         # a live row: each lane's greatest u and ~u
+        ranges = [((~mm[2 * k + 1] & _M64) - 2 ** 63,
+                   (mm[2 * k] & _M64) - 2 ** 63) for k in range(K)]
+    plan = _pack_plan(Dl, ranges)
+    if plan is None:
+        return ({"key": None, "keys": buf[:w_st].view(K + 1, cap)[:, :M]},
+                src, off)
+    wide, idx, bits, lo, dead = plan
+    packed = torch.empty(M, dtype=torch.int64 if wide else torch.int32,
+                         device=dev)
+    n = len(idx)
+    p = ShufflePackArgs(base, packed.data_ptr(), cap, M, n, int(wide))
+    p.lane[:n], p.bits[:n], p.lo[:n], p.dead[:n] = idx, bits, lo, dead
+    fn = kernels.entry("shuffle_reduce", "shuffle_pack",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    kernels.check(fn(ctypes.byref(p), _grid(dev, M, 0, False),
+                     kernels.stream_handle(dev)), "shuffle_keys")
+    return {"key": packed, "keys": None}, src, off
 
 
-def shuffle_reduce_plain(config: ScanConfig, rows, order, live_counts,
-                         merged, flive, ngroups) -> None:
-    """Plain PyTorch version of K16 (reference _segment_reduce): fills
-    merged [cap, WP], flive int32 [cap] and ngroups [1] in place.  It
-    derives everything from the rows; live_counts is the kernel's."""
+def shuffle_reduce_plain(config: ScanConfig, recv, src, order, off, merged,
+                         flive, stats) -> None:
+    """Plain PyTorch version of K16 (reference _segment_reduce, owner by
+    owner over shuffle_keys' kept rows): fills merged [Dl, cap, WP], flive
+    int32 [Dl, cap] and stats[:, 0] in place."""
     K, A, _, _, n_sum, WP = payload_spec(config)
-    cap = merged.shape[0]
-    dev = rows.device
-    srows = rows[sorted_perm(order)]
-    slive = _recv_live(srows, K)
-    skeys = torch.where(slive[:, None], srows[:, :K], SENTINEL)
-    differs = torch.ones(srows.shape[0], dtype=torch.bool, device=dev)
-    differs[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
-    gid = torch.cumsum(differs.to(torch.int64), 0) - 1
-    contrib = slive & (gid < cap)
-    cgid = torch.where(contrib, gid, cap)
-    ng = (differs & slive).sum()
-    sums = torch.zeros((cap + 1, n_sum), dtype=torch.int64, device=dev)
-    sums.index_add_(0, cgid, torch.where(contrib[:, None],
-                                         srows[:, K:K + n_sum], 0))
-    out = [None, sums[:cap], None, None]
-    for i, (lo, init, fill, how) in enumerate(
-            ((K + n_sum, _I64_MAX, _BIG, "amin"),
-             (K + n_sum + A, _I64_MIN, -_BIG, "amax"))):
-        acc = torch.full((cap + 1, A), init, dtype=torch.int64, device=dev)
-        acc.scatter_reduce_(0, cgid[:, None].expand(-1, A),
-                            torch.where(contrib[:, None],
-                                        srows[:, lo:lo + A], fill), how)
-        out[2 + i] = acc[:cap]
-    kt = torch.zeros((cap + 1, K), dtype=torch.int64, device=dev)
-    kt[torch.where(differs & contrib, cgid, cap)] = skeys
-    out[0] = kt[:cap]
-    merged.copy_(torch.cat(out, dim=1))
-    flive.copy_((torch.arange(cap, device=dev) < torch.clamp(ng, max=cap))
-                .to(torch.int32))
-    ngroups.copy_(ng.reshape(1))
+    Dl, cap = flive.shape
+    dev = recv.device
+    rows = recv.reshape(-1, WP)[src.to(torch.int64)[sorted_perm(order)]]
+    bounds = off.tolist()
+    for d in range(Dl):
+        srows = rows[bounds[d]:bounds[d + 1]]
+        slive = _recv_live(srows, K)
+        skeys = torch.where(slive[:, None], srows[:, :K], SENTINEL)
+        differs = torch.ones(srows.shape[0], dtype=torch.bool, device=dev)
+        differs[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
+        gid = torch.cumsum(differs.to(torch.int64), 0) - 1
+        contrib = slive & (gid < cap)
+        cgid = torch.where(contrib, gid, cap)
+        ng = (differs & slive).sum()
+        sums = torch.zeros((cap + 1, n_sum), dtype=torch.int64, device=dev)
+        sums.index_add_(0, cgid, torch.where(contrib[:, None],
+                                             srows[:, K:K + n_sum], 0))
+        out = [None, sums[:cap], None, None]
+        for i, (lo, init, fill, how) in enumerate(
+                ((K + n_sum, _I64_MAX, _BIG, "amin"),
+                 (K + n_sum + A, _I64_MIN, -_BIG, "amax"))):
+            acc = torch.full((cap + 1, A), init, dtype=torch.int64,
+                             device=dev)
+            acc.scatter_reduce_(0, cgid[:, None].expand(-1, A),
+                                torch.where(contrib[:, None],
+                                            srows[:, lo:lo + A], fill), how)
+            out[2 + i] = acc[:cap]
+        kt = torch.zeros((cap + 1, K), dtype=torch.int64, device=dev)
+        kt[torch.where(differs & contrib, cgid, cap)] = skeys
+        out[0] = kt[:cap]
+        merged[d].copy_(torch.cat(out, dim=1))
+        flive[d].copy_((torch.arange(cap, device=dev)
+                        < torch.clamp(ng, max=cap)).to(torch.int32))
+        stats[d, 0] = ng
 
 
 class ShuffleReduceArgs(ctypes.Structure):
     """Mirror of struct ShuffleReduceArgs in csrc/shuffle_reduce.cu."""
-    _fields_ = _ptr_fields("rows", "p", "base", "counts", "merged", "flive",
-                           "stats", "scratch") + [
-        ("N", ctypes.c_longlong),
-        ("cap", ctypes.c_int),
-        ("K", ctypes.c_int),
-        ("n_sum", ctypes.c_int),
-        ("A", ctypes.c_int),
-        ("WP", ctypes.c_int),
-        ("ncnt", ctypes.c_int),
-    ]
+    _fields_ = _ptr_fields("rows", "src", "p", "base", "off", "merged",
+                           "flive", "stats", "scratch") + [
+        ("M", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("cap", "K", "n_sum", "A", "WP", "Dl",
+                                    "nstat")]
 
 
 _RED_THREADS = 256             # rows a CTA numbers at a time (THREADS)
 
 
-def shuffle_reduce(config: ScanConfig, rows, order, live_counts, merged,
-                   flive, ngroups) -> None:
-    """K16: merges one owner's received rows [N, WP] in the sorted order
-    `order` (sort_rows over shuffle_keys' operands) into merged [cap, WP]
-    int64, flive int32 [cap] (the first min(n_groups, cap) rows live) and
-    ngroups int64 [1] (live segments), in place; live_counts: shuffle_keys'
-    int32 [G, 2] counts of the same rows.  CUDA tensors launch the kernel
+def shuffle_reduce(config: ScanConfig, recv, src, order, off, merged, flive,
+                   stats) -> None:
+    """K16: merges every local owner's kept rows (shuffle_keys' src and
+    off over recv [Dl, N, WP]) in the sorted order `order` (sort_rows
+    over shuffle_keys' operands: owner d's rows at positions [off[d],
+    off[d + 1])) into merged [Dl, cap, WP] int64 and flive int32 [Dl, cap]
+    (owner d's first min(n_groups, cap) rows live), and writes each
+    owner's n_groups (live segments) as stats[d, 0] of the int64 [Dl,
+    n_stats] statistics rows, in place.  CUDA tensors launch the kernel
     (csrc/shuffle_reduce.cu); CPU tensors take the plain version.
 
-    Replaces sybil_tpu/parallel/mesh.py:_segment_reduce after its sort:
-    the segment boundaries and ids, the segment sums, mins and maxs, the
-    key readout of each segment's first row.  Bound by memory (the live
-    rows gathered once in sorted order); two launches over at most two
-    CTAs an SM, walking only the live rows when no live row ties the dead
-    rows' keys (see the source note)."""
-    dev = rows.device
+    Replaces sybil_tpu/parallel/mesh.py:_segment_reduce after its sort,
+    for every owner: the segment boundaries and ids, the segment sums,
+    mins and maxs, the key readout of each segment's first row.  Bound by
+    memory (the kept rows gathered once in sorted order); two launches of
+    G CTAs an owner, at most two CTAs an SM in all (see the source
+    note)."""
+    dev = recv.device
     if dev.type == "cpu":
-        shuffle_reduce_plain(config, rows, order, live_counts, merged, flive,
-                             ngroups)
+        shuffle_reduce_plain(config, recv, src, order, off, merged, flive,
+                             stats)
         return
     if dev.type != "cuda":
         raise ValueError(f"shuffle_reduce: unsupported device {dev}")
     K, A, _, _, n_sum, WP = payload_spec(config)
-    N = rows.shape[0]
-    cap = merged.shape[0]
-    _check_tensor(rows, (N, WP), torch.int64, "rows", dev, "shuffle_reduce")
-    _check_tensor(merged, (cap, WP), torch.int64, "merged", dev,
-                  "shuffle_reduce")
-    _check_tensor(flive, (cap,), torch.int32, "flive", dev, "shuffle_reduce")
-    _check_tensor(ngroups, (1,), torch.int64, "ngroups", dev,
-                  "shuffle_reduce")
-    _check_tensor(order["p"], (N,), torch.int64, "p", dev, "shuffle_reduce")
+    Dl, N, _ = recv.shape
+    M = src.shape[0]
+    cap = merged.shape[1]
+    ns = stats.shape[1]
+    for t, shape, dtype, what in (
+            (recv, (Dl, N, WP), torch.int64, "recv"),
+            (src, (M,), torch.int32, "src"),
+            (order["p"], (M,), torch.int64, "p"),
+            (off, (Dl + 1,), torch.int32, "off"),
+            (merged, (Dl, cap, WP), torch.int64, "merged"),
+            (flive, (Dl, cap), torch.int32, "flive"),
+            (stats, (Dl, ns), torch.int64, "stats")):
+        _check_tensor(t, shape, dtype, what, dev, "shuffle_reduce")
     if order["base"] is not None:
-        _check_tensor(order["base"], (N,), torch.int64, "base", dev,
+        _check_tensor(order["base"], (M,), torch.int64, "base", dev,
                       "shuffle_reduce")
-    ncnt = live_counts.shape[0]
-    _check_tensor(live_counts, (ncnt, 2), torch.int32, "live_counts", dev,
-                  "shuffle_reduce")
-    grid = max(1, min(-(-N // _RED_THREADS), 2 * _sm_count(dev)))
-    scratch = torch.empty(2 * N + 2 * grid + 1, dtype=torch.int32,
-                          device=dev)
+    # G CTAs an owner: about an owner's share of the walk a CTA, at most
+    # two CTAs an SM over all the owners
+    G = max(1, min(-(-M // (Dl * _RED_THREADS)), 2 * _sm_count(dev) // Dl))
+    scratch = torch.empty(2 * M + 2 * Dl * G, dtype=torch.int32, device=dev)
     a = ShuffleReduceArgs(
-        rows.data_ptr(), order["p"].data_ptr(), _ptr(order["base"]),
-        live_counts.data_ptr(), merged.data_ptr(), flive.data_ptr(),
-        ngroups.data_ptr(), scratch.data_ptr(), N, cap, K, n_sum, A, WP, ncnt)
-    fn = kernels.lib("shuffle_reduce").shuffle_reduce
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), grid, kernels.stream_handle(dev)),
+        recv.data_ptr(), src.data_ptr(), order["p"].data_ptr(),
+        _ptr(order["base"]), off.data_ptr(), merged.data_ptr(),
+        flive.data_ptr(), stats.data_ptr(), scratch.data_ptr(), M, cap, K,
+        n_sum, A, WP, Dl, ns)
+    fn = kernels.entry("shuffle_reduce", "shuffle_reduce",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    kernels.check(fn(ctypes.byref(a), G, kernels.stream_handle(dev)),
                   "shuffle_reduce")
     kernels.LAUNCHES["shuffle_reduce"] += 1
+
+
+def merge_owners(config: ScanConfig, recv, merged, flive, stats) -> None:
+    """The owners' merge of a mesh batch (reference _segment_reduce, every
+    local owner): shuffle_keys over recv [Dl, N, WP], the stable sort of
+    sort_rows by (owner, keys) (one of the packed key, or K + 1 of the
+    lanes), shuffle_reduce into merged [Dl, cap, WP], flive [Dl, cap] and
+    stats[:, 0]."""
+    front, src, off = shuffle_keys(config, recv)
+    shuffle_reduce(config, recv, src, sort_rows(config, front), off, merged,
+                   flive, stats)
 
 
 def shuffle_unpack_plain(config: ScanConfig, flat, flive, top, stats,
@@ -632,9 +765,8 @@ def shuffle_unpack(config: ScanConfig, flat, flive, top, stats,
     a.k, a.S, a.K, a.L, a.n_sum, a.A = k, S, K, L, n_sum, A
     a.H, a.WP, a.D, a.ncols = len(hist_ais), WP, D, ncols
     words = S * (K + L + nv_total + 2 * A) + L
-    fn = kernels.lib("shuffle_reduce").shuffle_unpack
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("shuffle_reduce", "shuffle_unpack",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     kernels.check(fn(ctypes.byref(a), _grid(dev, words, 0, False),
                      kernels.stream_handle(dev)), "shuffle_unpack")
     kernels.LAUNCHES["shuffle_unpack"] += 1
@@ -733,11 +865,7 @@ def sharded_scan(config: ScanConfig, mesh: Mesh, cols, nrec,
     recv = mesh.all_to_all(send)
     merged = torch.empty((Dl, Sc, WP), dtype=torch.int64, device=dev)
     flive = torch.empty((Dl, Sc), dtype=torch.int32, device=dev)
-    for d in range(Dl):
-        keys, live_counts = shuffle_keys(config, recv[d])
-        order = sort_rows(config, {"key": None, "keys": keys})
-        shuffle_reduce(config, recv[d], order, live_counts, merged[d],
-                       flive[d], stats[d, 0:1])
+    merge_owners(config, recv, merged, flive, stats)
     flat = mesh.all_gather(merged).reshape(D * Sc, WP)
     flive = mesh.all_gather(flive).reshape(D * Sc)
     stats = mesh.all_gather(stats)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import sybil_tpu.digest as ref_digest
 from sybil_tpu import cli as ref_cli
 from sybil_tpu.config import Flags as RefFlags
@@ -316,6 +317,11 @@ def _topk_cases():
     out.append(("int64", (rng.integers(-3, 3, 20_000)
                           * (1 << 40)).astype(np.int64), 300))
     out.append(("k-equals-r", rng.integers(0, 4, 500).astype(np.int64), 500))
+    # the general form's corner cases, as chip_smoke.py runs them through
+    # the kernel: all-equal keys, the types' extremes, 56 shared top bits,
+    # config 5's ties straddling k, k = 4,096
+    out += [(f"card-{name}", *chip_smoke.k12g_case(name))
+            for name in chip_smoke.K12G_CASES]
     return out
 
 

@@ -422,15 +422,16 @@ def test_k16_and_compaction_match_reference():
         merged, mlive, ng = jax.jit(ref_mesh._segment_reduce,
                                     static_argnums=(0, 3))(
             cfg, jnp.asarray(rows), jnp.asarray(live), cap)
-        trows = torch.from_numpy(rows)
-        keys, live_counts = port_mesh.shuffle_keys(pcfg, trows)
-        assert live_counts.tolist() == [[int(live.sum()), 0]]
-        order = port.sort_rows(pcfg, {"key": None, "keys": keys})
-        pm = torch.empty((cap, WP), dtype=torch.int64)
-        pl = torch.empty(cap, dtype=torch.int32)
-        png = torch.empty(1, dtype=torch.int64)
-        port_mesh.shuffle_reduce(pcfg, trows, order, live_counts, pm, pl,
-                                 png)
+        trows = torch.from_numpy(rows)[None]
+        front, src, off = port_mesh.shuffle_keys(pcfg, trows)
+        assert off.tolist() == [0, int(live.sum()) + 1]   # one dead row
+        order = port.sort_rows(pcfg, front)
+        pm = torch.empty((1, cap, WP), dtype=torch.int64)
+        pl = torch.empty((1, cap), dtype=torch.int32)
+        pstats = torch.zeros((1, 3), dtype=torch.int64)
+        port_mesh.shuffle_reduce(pcfg, trows, src, order, off, pm, pl,
+                                 pstats)
+        pm, pl, png = pm[0], pl[0], pstats[0, 0]
         np.testing.assert_array_equal(pm.numpy(), np.asarray(merged))
         np.testing.assert_array_equal(pl.numpy(), np.asarray(mlive))
         assert int(png) == int(ng) > cap

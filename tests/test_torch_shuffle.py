@@ -50,13 +50,19 @@ def test_k16_corner_case_matches_reference(case, shape):
     merged, mlive, ng = SEGMENT_REDUCE(cfg, jnp.asarray(rows),
                                        jnp.asarray(live), cap)
     trows = torch.from_numpy(rows)
-    keys, live_counts = port_mesh.shuffle_keys(pcfg, trows)
-    assert live_counts.tolist() == [[int(live.sum()), int(tied.sum())]]
-    order = port.sort_rows(pcfg, {"key": None, "keys": keys})
-    pm = torch.empty((cap, WP), dtype=torch.int64)
-    pl = torch.empty(cap, dtype=torch.int32)
-    png = torch.empty(1, dtype=torch.int64)
-    port_mesh.shuffle_reduce(pcfg, trows, order, live_counts, pm, pl, png)
+    front, src, off = port_mesh.shuffle_keys(pcfg, trows[None])
+    # the live rows and each tile's first dead row, in row order
+    kept = src.numpy()
+    assert set(np.flatnonzero(live)) <= set(kept) and \
+        (np.diff(kept) > 0).all() and off.tolist() == [0, len(kept)]
+    assert len(kept) - int(live.sum()) <= -(-N // port_mesh._KEYS_TILE)
+    order = port.sort_rows(pcfg, front)
+    pm = torch.empty((1, cap, WP), dtype=torch.int64)
+    pl = torch.empty((1, cap), dtype=torch.int32)
+    pstats = torch.zeros((1, port_mesh.n_stats(pcfg)), dtype=torch.int64)
+    port_mesh.shuffle_reduce(pcfg, trows[None], src, order, off, pm, pl,
+                             pstats)
+    pm, pl, png = pm[0], pl[0], pstats[0, 0]
     np.testing.assert_array_equal(pm.numpy(), np.asarray(merged))
     np.testing.assert_array_equal(pl.numpy(), np.asarray(mlive))
     assert int(png) == int(ng)
@@ -115,6 +121,63 @@ def test_k16_corner_case_matches_reference(case, shape):
         wh = np.asarray(want[f"agg{ai}_hist"])
         np.testing.assert_array_equal(h.numpy()[:m], wh[:m])
         np.testing.assert_array_equal(wh[m:], 0)
+
+
+# the owner loop over every local owner at once (merge_owners: one
+# shuffle_keys, the K + 1 sorts, one shuffle_reduce) against the
+# reference's _segment_reduce owner by owner: Dl owners of one K16 case's
+# rows each (seeds apart), some owners replaced by an all-dead one
+# (random words, count and samples 0) or an empty one (all zero, as the
+# exchange leaves a block no shard filled)
+STACKED = [(Dl, case, shape) for Dl, case, shape in (
+    (8, "INT64_MAX keys tied with dead rows", "narrow"),
+    (8, "segments past cap", "wide"),
+    (2, "INT64_MAX keys tied with dead rows", "wide"),
+    (2, "MISSING keys", "three keys"),
+)]
+
+
+def stacked_rows(Dl: int, case: str, K: int, WP: int, N: int):
+    """[Dl, N, WP]: owner d the case's rows of seed 11 + d, but for owner
+    1 (all dead) and the last (empty); with Dl 8 owners 2 and 4 take the
+    rows of "every row live, one key" (no dead row at all) and "no live
+    row"."""
+    out = np.stack([chip_smoke.k16_case_rows(case, K, WP, N, seed=11 + d)
+                    for d in range(Dl)])
+    out[1, :, K:K + 2] = 0
+    out[-1] = 0
+    if Dl == 8:
+        out[2] = chip_smoke.k16_case_rows("every row live, one key", K, WP,
+                                          N, seed=2)
+        out[4] = chip_smoke.k16_case_rows("no live row", K, WP, N, seed=4)
+    return out
+
+
+@pytest.mark.parametrize("Dl,case,shape", STACKED)
+def test_stacked_owner_loop_matches_reference(Dl, case, shape):
+    _, N, cap = chip_smoke.K16_CASES[case]
+    cfg, pcfg = configs(shape)
+    K, A, _, _, _, WP = port_mesh.payload_spec(pcfg)
+    recv = stacked_rows(Dl, case, K, WP, N)
+    merged = torch.full((Dl, cap, WP), 7, dtype=torch.int64)
+    flive = torch.full((Dl, cap), 7, dtype=torch.int32)
+    stats = torch.full((Dl, port_mesh.n_stats(pcfg)), 7, dtype=torch.int64)
+    port_mesh.merge_owners(pcfg, torch.from_numpy(recv), merged, flive,
+                           stats)
+    tied_owners = 0
+    for d in range(Dl):
+        rows = recv[d]
+        live = (rows[:, K] > 0) | (rows[:, K + 1] > 0)
+        tied = live & (rows[:, :K] == chip_smoke.I64_MAX).all(axis=1)
+        tied_owners += bool(tied.any())
+        m, ml, ng = SEGMENT_REDUCE(cfg, jnp.asarray(rows), jnp.asarray(live),
+                                   cap)
+        np.testing.assert_array_equal(merged[d].numpy(), np.asarray(m))
+        np.testing.assert_array_equal(flive[d].numpy(), np.asarray(ml))
+        assert int(stats[d, 0]) == int(ng)
+    assert (stats[:, 1:] == 7).all()          # only word 0 is K16's
+    if "tied" in case:
+        assert 0 < tied_owners < Dl
 
 
 # K12's two-valued form (the mesh's compaction), on the flags chip_smoke.py
