@@ -72,8 +72,19 @@ Phases (any failure exits non-zero before the result lines):
      and 320-row batches, one zero lane) and a seeded random sweep of 32
      shapes, each unpacked batch's sort_rows with its sort_permute steps
      and sort_permute's own cases (PERMUTE_CASES), word for word, every
-     template choice of K7 taken (k7_edge_checks).  Then the enumerated
-     strategy: K7's enum form,
+     template choice of K7 taken (k7_edge_checks).  K10 sorted_pack (its
+     table, pair, distinct, prune and merged forms) and enum_pack, then K3
+     dense_pack (compact, HLL, hist and merged forms) and dense_keyed, on
+     synthetic tables at their wrappers' interfaces (K10_CASES, K3_CASES:
+     no pairs, exactly and more than Hcap pairs, distinct pairs past
+     max_pairs, masks off 16-byte alignment, W past 32, descriptors past
+     their head, Ph and Phll above the live slots, odd int32 wire
+     columns, prune ties and dead slots, time keys, 8,192 slots) and a
+     24-shape sweep each, word for word on a `main` filled with FILL
+     first: K5's rows, and the pruned prefix until K12's gather, must
+     stay FILL (k10_edge_checks, k3_edge_checks); after the kernel table
+     each form's device operations a call (K3: 1, K10: at most 2;
+     late_op_checks).  Then the enumerated strategy: K7's enum form,
      K11 enum_segments, K12 topk_rows and K10's enum_pack against their
      plain versions on config 5's real batches of both partitions ($COUNT
      and f32 mean scores, the mean's winners against numpy) and on
@@ -133,7 +144,9 @@ Phases (any failure exits non-zero before the result lines):
      -distinct status (K13 once), -group host,status -op distinct (D = 2
      pairs) and config 5's partition 1 -group userid -distinct weight
      (the pair escalation), every printed Distinct against a port HLL fed
-     the numpy values of its group.  Then cold and warm queries
+     the numpy values of its group.  At the default rows the pack kernels'
+     launches over these queries must be K10 82, enum_pack 7, K3 71 and
+     dense_keyed 66 (PACK_LAUNCHES).  Then cold and warm queries
      through run_query for each config and path, checking via the counts that
      warm queries run no decode (residency) and the scan kernels once per
      batch, also through a three-batch pipeline, the four distinct queries
@@ -310,6 +323,10 @@ P1_ARGV = ["-group", "host", "-int", "ping", "-op", "hist", "-tdigest",
 P2_ARGV = ["-group", "action", "-int", "weight", "-op", "avg", "-time",
            "-time-bucket", str(P2_BUCKET), "-time-col", "time"]
 FILL = 0x5A5A5A5A5A5A5A5A        # poison for buffers a kernel must write
+DEFAULT_ROWS = 8_388_608
+# the pack kernels' launches over phase 5's queries at the default rows
+PACK_LAUNCHES = {"sorted_pack": 82, "enum_pack": 7, "dense_pack": 71,
+                 "dense_keyed": 66}
 # config 5 (scripts/bench_configs.py:64-98, 171-201): group by userid, avg
 # weight, the default -limit 100 and -prune-sort $COUNT, on each of two
 # partitions, then `aggregate`
@@ -2255,6 +2272,471 @@ def sorted_edge_expect(name, cfg, main, R):
     if not ok:
         fail(f"sorted edge batch {name}: meta {meta[:8 + 2 * H]} misses "
              f"its edge")
+
+
+# ---------------------------------------------------------------------------
+# K10 and K3 at their wrappers' interfaces: corner cases and sweeps
+# ---------------------------------------------------------------------------
+
+# name -> options of a K10 call (sorted_pack) on synthetic group tables:
+# K keys, A aggregations (the first H histograms), D distinct columns, R
+# mask rows, S slots (max_groups), P prefix_rows; hp / pm the density of
+# each hist pair mask / the distinct pair mask ("cap": exactly the
+# section's rows set); prune None, -1 ($COUNT) or the scored
+# aggregation; ties (counts of few values), dead (count-0 and dead
+# slots); merged (a mesh scan's table with the overflow word);
+# misalign (the masks 1 byte past 16-byte alignment); extra ScanConfig
+# fields
+K10_CASES = {
+    "no pairs": dict(H=1, hp=0.0),
+    "exactly Hcap pairs": dict(H=1, hp="cap", R=50_000,
+                               extra=dict(max_hist_pairs=777)),
+    "more than Hcap pairs, two sections": dict(
+        A=3, H=2, hp=0.3, R=40_000, extra=dict(max_hist_pairs=64)),
+    "distinct pairs past max_pairs": dict(D=2, pm=0.4, A=0, R=30_000,
+                                          extra=dict(max_pairs=500)),
+    "distinct pairs below the cap, a hist section too": dict(
+        D=1, pm=0.001, H=1, hp=0.002, R=300_001),
+    "path 2: no pair section": dict(K=2, A=1, H=0),
+    "prune by $COUNT with ties": dict(A=1, H=0, prune=-1, ties=True,
+                                      extra=dict(prune_topk=300)),
+    "prune by a mean, count-0 and dead slots": dict(
+        A=2, H=0, prune=1, dead=True, extra=dict(prune_topk=1000)),
+    "merged table, every aggregation's min and max": dict(
+        A=2, H=1, hp=0.05, merged=True),
+    "masks not 16-byte aligned, R % 16 != 0": dict(
+        H=1, D=1, hp=0.01, pm=0.02, R=70_001, misalign=True),
+    "R below one vector, one row a thread": dict(H=1, hp=0.5, R=7),
+    "W past 32 words (nine aggregations)": dict(A=9, H=2, hp=0.01),
+    "the descriptor past its head (40 hist aggregations)": dict(
+        A=40, H=40, hp=0.02, R=2_000, S=300, P=100),
+    "prefix = S": dict(H=1, hp=0.01, S=3_000, P=3_000),
+    "tracked outliers: K5's rows left alone": dict(H=2, A=2, hp=0.01,
+                                                   track=True),
+}
+K10_SWEEP_SEED = 18             # the random sweeps' shapes (K10 and K3)
+K10_SWEEP = 24
+
+# name -> options of a K3 call (dense_pack, dense_keyed) on synthetic
+# reduce-space tables: keys [(min, card)], A aggregations (the first H
+# histograms, nv buckets), live the share of live slots, hll (the device
+# HLL), i32 (lane_row_bounds that pack int32 pairs), keyed (the row-store
+# scan's dense_keyed), merged (a mesh scan's table), time (a time key
+# first, bucket tb), track (outlier rows), extra ScanConfig fields
+K3_CASES = {
+    "config 1: compact, avg": dict(keys=[(0, 5)], A=1, H=0),
+    "hist sections, Ph above the live slots": dict(
+        keys=[(0, 40)], A=2, H=1, live=0.05, extra=dict(hist_prefix=128)),
+    "HLL planes, Phll above the live slots": dict(
+        keys=[(0, 6)], A=0, hll=True, live=0.5),
+    "i32 wire columns, an odd count": dict(keys=[(0, 9), (3, 4)], A=1,
+                                           H=0, i32=True),
+    "merged keyed table, hist and outlier rows": dict(
+        keys=[(0, 5)], A=2, H=1, merged=True, track=True),
+    "dense_keyed with a time key": dict(keys=[(-3, 20), (0, 4)], A=1, H=1,
+                                        keyed=True, time=3600),
+    "dense_keyed, 8,192 slots": dict(keys=[(0, 90), (0, 89)], A=1, H=0,
+                                     keyed=True, live=0.3),
+    "no live slot": dict(keys=[(0, 7)], A=1, H=1, live=0.0),
+    "compact with outlier rows and two hists": dict(
+        keys=[(0, 12)], A=3, H=2, track=True),
+    "the descriptor past its head (90 aggregations)": dict(
+        keys=[(0, 3)], A=90, H=0),
+}
+
+
+def _pack_agg(scan, i: int, hist: bool, nv: int = 12):
+    return scan.AggSpec(f"v{i}", 0, 1 if hist else 0, nv if hist else 0, 0,
+                        100)
+
+
+def k10_case(o: dict, seed: int, device):
+    """K10_CASES' options -> (ScanConfig, R, the wrapper's arguments
+    k8, spill, pairs, nouts, overflow), synthetic tensors on `device`."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    rng = np.random.default_rng(seed)
+    K, A, H, D = o.get("K", 1), o.get("A", max(o.get("H", 0), 1)), \
+        o.get("H", 0), o.get("D", 0)
+    R, S = o.get("R", 100_000), o.get("S", 20_000)
+    prune = o.get("prune")
+    extra = dict(o.get("extra", {}))
+    if prune is not None:
+        extra["prune_agg"] = prune
+    cfg = scan.ScanConfig(
+        group_cols=tuple(f"k{i}" for i in range(K)),
+        aggs=tuple(_pack_agg(scan, i, i < H) for i in range(A)),
+        filters=(), distinct_cols=tuple(f"d{i}" for i in range(D)),
+        force_sorted=True, max_groups=S, prefix_rows=o.get("P", 8192),
+        track_outliers=bool(o.get("track")), **extra)
+    K = cfg.n_key_cols
+    L = 2 + 3 * A
+    mmw = A if o.get("merged") else H
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def ints(lo, hi, *shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64)
+
+    sums = ints(0, 2 ** 40, S + 1, L)
+    sums[:, 2::3] = ints(-3, 4, S + 1, A)              # exists lanes
+    if o.get("ties"):
+        sums[:, 0] = ints(0, 4, S + 1)
+    if o.get("dead"):
+        dead = rng.random(S + 1) < 0.3
+        sums[dead, :2] = 0
+        sums[rng.random(S + 1) < 0.3, 3::3] = 0       # count-0 aggs
+        sums[:, 4::3] = ints(-10 ** 6, 10 ** 6, S + 1, A)
+    k8 = {"sums": t(sums), "keys": t(ints(-5, 10 ** 12, S, K)),
+          "mins": t(ints(-100, 100, S, mmw)),
+          "maxs": t(ints(-100, 100, S, mmw)),
+          "num_groups": t(ints(0, 10 ** 6, 1))}
+
+    def mask(p, cap):
+        m = np.zeros(R, bool)
+        if p == "cap":
+            m[rng.choice(R, cap, replace=False)] = True
+        else:
+            m = rng.random(R) < p
+        if o.get("misalign"):
+            buf = torch.zeros(R + 1, dtype=torch.bool, device=device)
+            buf[1:] = t(m)
+            return buf[1:]
+        return t(m)
+
+    layout = scan.packed_layout(cfg, R)
+    pairs, nouts = [], []
+    for i in range(H):
+        pairs.append({"hp_mask": mask(o.get("hp", 0.01), layout["Hcap"]),
+                      "hp_keys": t(ints(-5, 10 ** 9, R, K)),
+                      "hp_bv": t(ints(0, 12, R)), "hp_w": t(ints(0, 99, R)),
+                      "npairs": t(ints(0, R, 1))})
+        nouts.append(t(ints(0, 50, 1)) if cfg.track_outliers or i % 2
+                     else None)
+    if D:
+        k8.update(pair_mask=mask(o.get("pm", 0.01), layout["kmax_pairs"]),
+                  kmat=t(ints(-5, 10 ** 9, R, K)),
+                  dmat=t(ints(-(2 ** 62), 2 ** 62, R, D)))
+    overflow = t(ints(0, 9, 1)) if o.get("merged") else None
+    return cfg, R, k8, t(ints(0, 5, 1)), pairs, nouts, overflow
+
+
+def k3_case(o: dict, seed: int, device):
+    """K3_CASES' options -> (ScanConfig, R, the wrapper's arguments k2,
+    hists, nouts, hll, time bucket), synthetic tensors on `device`."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    rng = np.random.default_rng(seed)
+    A, H = o.get("A", 1), o.get("H", 0)
+    R = o.get("R", 65_536)
+    keyed, merged = bool(o.get("keyed")), bool(o.get("merged"))
+    groups = tuple(f"k{i}" for i in range(len(o["keys"])
+                                          - (1 if o.get("time") else 0)))
+    extra = dict(o.get("extra", {}))
+    if o.get("i32"):
+        extra["lane_row_bounds"] = (1,) * (2 + 3 * A)
+    if o.get("hll"):
+        extra.update(hll=True, distinct_cols=("d",))
+    cfg = scan.ScanConfig(
+        group_cols=groups,
+        aggs=tuple(_pack_agg(scan, i, i < H) for i in range(A)),
+        filters=(), key_bounds=tuple(o["keys"]),
+        time_col="t" if o.get("time") else "",
+        track_outliers=bool(o.get("track")),
+        no_compact_table=keyed or merged, **extra)
+    slots, Sc, _ = scan.reduce_space(cfg)
+    if not slots:
+        raise ValueError(f"K3 case {o}: not a dense config")
+    if merged:
+        Sc = slots
+    L = 2 + 3 * A
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def ints(lo, hi, *shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64)
+
+    n = slots + 1 if merged else Sc
+    sums = ints(0, 2 ** 20, n, L)
+    sums[:, 2::3] = ints(-2, 3, n, A)
+    dead = rng.random(n) >= o.get("live", 0.7)
+    sums[dead, :2] = 0
+    k2 = {"sums": t(sums), "spill": t(ints(0, 5, 1)),
+          "mins": t(ints(-9, 9, Sc, A if merged else H)),
+          "maxs": t(ints(-9, 9, Sc, A if merged else H))}
+    if merged:
+        k2.update(keys=t(ints(-1, 10 ** 6, slots, cfg.n_key_cols)),
+                  num_groups=t(ints(0, slots, 1)),
+                  overflow=t(ints(0, 9, 1)))
+    hists = [t(ints(0, 10 ** 6, Sc, cfg.aggs[i].num_values))
+             for i in range(H)]
+    nouts = [t(ints(0, 99, 1)) if cfg.track_outliers or i % 2 else None
+             for i in range(H)]
+    hll = (t(rng.integers(0, 50, (slots, scan.HLL_M), dtype=np.uint8))
+           if o.get("hll") else None)
+    return cfg, R, k2, hists, nouts, hll, o.get("time", 1)
+
+
+def pack_sweep(kind: str, seed: int = K10_SWEEP_SEED,
+               n: int = K10_SWEEP) -> dict:
+    """A seeded random sweep of K10 (kind "K10") or K3 ("K3") shapes:
+    name -> options as K10_CASES / K3_CASES take them."""
+    import numpy as np
+    rng = np.random.default_rng(seed + (0 if kind == "K10" else 1))
+    out = {}
+    for i in range(n):
+        if kind == "K10":
+            A = int(rng.integers(0, 5))
+            o = dict(K=int(rng.integers(0, 4)), A=A,
+                     H=int(rng.integers(0, A + 1)),
+                     D=int(rng.integers(0, 3)) if rng.random() < 0.4 else 0,
+                     R=int(rng.choice([1, 15, 4096, 16_383, 16_385, 99_999,
+                                       400_000])),
+                     S=int(rng.choice([1, 50, 3_000, 40_000])),
+                     P=int(rng.choice([1, 64, 8192])),
+                     hp=float(rng.choice([0.0, 0.001, 0.05, 0.9])),
+                     pm=float(rng.choice([0.0, 0.01, 0.5])),
+                     misalign=bool(rng.random() < 0.3),
+                     merged=bool(rng.random() < 0.2),
+                     track=bool(rng.random() < 0.2),
+                     extra=dict(max_hist_pairs=int(rng.choice([16, 8192])),
+                                max_pairs=int(rng.choice([32, 16384]))))
+            o["P"] = min(o["P"], o["S"])
+            if rng.random() < 0.25 and not o["H"] and not o["D"] and A:
+                o.update(prune=int(rng.integers(-1, A)),
+                         dead=bool(rng.random() < 0.5),
+                         ties=bool(rng.random() < 0.5))
+                o["extra"]["prune_topk"] = int(rng.choice([1, 100, 4000]))
+                o["merged"] = False
+        else:
+            nk = int(rng.integers(1, 3))
+            keys = [(int(rng.integers(-5, 5)), int(rng.integers(1, 40)))
+                    for _ in range(nk)]
+            A = int(rng.integers(0, 4))
+            form = rng.choice(["compact", "keyed", "merged"])
+            o = dict(keys=keys, A=A, H=int(rng.integers(0, A + 1)),
+                     live=float(rng.choice([0.0, 0.05, 0.7, 1.0])),
+                     i32=bool(rng.random() < 0.4),
+                     hll=bool(rng.random() < 0.25),
+                     track=bool(rng.random() < 0.3),
+                     keyed=form == "keyed", merged=form == "merged",
+                     R=int(rng.choice([1000, 65_536])),
+                     extra=dict(hist_prefix=int(rng.choice([1, 128, 4096])),
+                                hll_ship=int(rng.choice([1, 8, 40]))))
+            if o["keyed"] and rng.random() < 0.4:
+                o["time"] = int(rng.choice([1, 300, 3600]))
+                o["keys"] = [(int(rng.integers(-50, 50)), 30)] + keys[:1]
+            if o["hll"]:
+                o["merged"] = o["keyed"] = False
+                o.pop("time", None)
+        out[f"{kind} sweep {i}"] = o
+    return out
+
+
+# (label, call, device operations a call) of the K3 and K10 calls whose
+# device work is profiled late (no profiler session runs before the mesh
+# phase's launch-count checks): K3 one operation, K10 at most two
+LATE_OP_CHECKS = []
+
+
+def pack_check(kernel, what, got_main, want_main, lo, hi, errs) -> None:
+    """The kernel's `main` against its plain version's, both pre-filled
+    with FILL, word for word, and K5's rows [lo, hi) still FILL."""
+    check_equal(f"{kernel} {what} main", got_main, want_main, errs)
+    if hi > lo and not bool((got_main[lo:hi] == FILL).all()):
+        fail(f"{kernel} {what}: K5's rows [{lo}, {hi}) were written")
+
+
+def k10_edge_checks(card, device, errs) -> None:
+    """K10 (sorted_pack, every form) and its enum_pack entry against their
+    plain versions, word for word, on K10_CASES and a seeded sweep of
+    K10_SWEEP shapes (pack_sweep), each on a `main` pre-filled with FILL:
+    every word but K5's rows, which must stay FILL, and under the device
+    prune the prefix rows too, left to K12's gather (then both gathers run
+    and `main` is compared whole).  enum_pack on three shapes (Pk < P
+    among them).  Each form's device operations a call are checked late
+    (LATE_OP_CHECKS): at most 2."""
+    import torch
+
+    from sybil_tpu_torch.ops import kernels, scan
+    t0 = time.perf_counter()
+    cases = [(f"case {name!r}", o) for name, o in K10_CASES.items()]
+    cases += list(pack_sweep("K10").items())
+    forms = {}
+    for i, (name, o) in enumerate(cases):
+        cfg, R, k8, spill, pairs, nouts, ov = k10_case(
+            o, K10_SWEEP_SEED + 1000 + i, device)
+        layout = scan.packed_layout(cfg, R)
+        shape = (layout["rows"], layout["W"])
+        got_main = torch.full(shape, FILL, dtype=torch.int64, device=device)
+        want_main = got_main.clone()
+        got = scan.sorted_pack(cfg, k8, spill, pairs, nouts, got_main, R,
+                               overflow=ov)
+        want = scan.sorted_pack_plain(cfg, k8, spill, pairs, nouts,
+                                      want_main, R, overflow=ov)
+        lo, hi = scan.outlier_rows(cfg, R)
+        check_equal(f"sorted_pack {name} table", got["table"],
+                    want["table"], errs["sorted_pack"])
+        if (got["score"] is None) != (want["score"] is None):
+            fail(f"sorted_pack {name}: the score's presence differs")
+        P = scan.table_prefix(cfg)
+        if got["score"] is not None:
+            check_equal(f"sorted_pack {name} score", got["score"],
+                        want["score"], errs["sorted_pack"])
+            # the prefix rows are K12's gather's: the kernel leaves them
+            # as they were (the plain version zeroes them)
+            if (device.type == "cuda"
+                    and not bool((got_main[1:1 + P] == FILL).all())):
+                fail(f"sorted_pack {name}: the pruned prefix was written")
+            got_main[1:1 + P] = want_main[1:1 + P]
+        pack_check("sorted_pack", name, got_main, want_main, lo, hi,
+                   errs["sorted_pack"])
+        if got["score"] is not None:
+            gm, wm = got_main.clone(), want_main.clone()
+            gm[1:1 + P] = FILL
+            scan.prune_topk_gather(cfg, got["score"], got["table"], gm)
+            pidx = scan.topk_rows_plain(want["score"], P)
+            scan.prune_gather_plain(cfg, want["table"], pidx, wm)
+            check_equal(f"sorted_pack {name} main after the gather", gm, wm,
+                        errs["sorted_pack"])
+        form = ("prune" if got["score"] is not None else "merged"
+                if ov is not None else "pairs" if pairs or cfg.distinct_cols
+                else "table")
+        if form not in forms:
+            forms[form] = name
+            LATE_OP_CHECKS.append((
+                f"sorted_pack {form} ({name})", 2,
+                lambda a=(cfg, k8, spill, pairs, nouts, got_main, R, ov):
+                scan.sorted_pack(*a[:7], overflow=a[7])))
+    enums = []
+    for i, (what, R, P, K) in enumerate((
+            ("1,000 winners of 200,000 users", 400_000, 1000, 1),
+            ("Pk < P: 700 rows under a prefix of 1,000", 700, 1000, 2),
+            ("three keys, W past 32 (six aggregations)", 50_000, 64, 3))):
+        cfg, args = enum_pack_case(K, R, P, 6 if K == 3 else 1,
+                                   K10_SWEEP_SEED + 2000 + i, device)
+        layout = scan.packed_layout(cfg, R)
+        shape = (layout["rows"], layout["W"])
+        got_main = torch.full(shape, FILL, dtype=torch.int64, device=device)
+        want_main = got_main.clone()
+        check_equal(f"enum_pack {what} table",
+                    scan.enum_pack(cfg, *args, got_main),
+                    scan.enum_pack_plain(cfg, *args, want_main),
+                    errs["enum_pack"])
+        check_equal(f"enum_pack {what} main", got_main, want_main,
+                    errs["enum_pack"])
+        enums.append(what)
+        if i == 0:
+            LATE_OP_CHECKS.append((
+                f"enum_pack ({what})", 1,
+                lambda a=(cfg, args, got_main): scan.enum_pack(
+                    a[0], *a[1], a[2])))
+    say(f"[{card}] K10 sorted_pack == plain word for word on a FILL-filled "
+        f"main (K5's rows and the pruned prefix left alone) on "
+        f"{len(K10_CASES)} cases ({', '.join(K10_CASES)}) and a sweep of "
+        f"{K10_SWEEP} shapes (seed {K10_SWEEP_SEED}), forms "
+        f"{sorted(forms)}; enum_pack == plain on {'; '.join(enums)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def enum_pack_case(K: int, R: int, P: int, A: int, seed: int, device):
+    """An enumerated batch's sorted packed keys (K keys of random
+    cardinality, some rows past the radix: unmatched), K11-like segments
+    and sums, and min(P, R) distinct winner rows -> (ScanConfig,
+    (skey, seg, widx, spill, totals))."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    rng = np.random.default_rng(seed)
+    bounds = tuple((int(rng.integers(-9, 9)), int(rng.integers(1, 60)))
+                   for _ in range(K))
+    cfg = scan.ScanConfig(
+        group_cols=tuple(f"k{i}" for i in range(K)),
+        aggs=tuple(_pack_agg(scan, i, False) for i in range(A)),
+        filters=(), force_sorted=True, prune_topk=P, prefix_rows=P,
+        sort_pack=bounds)
+    radix = scan.enum_radix(cfg)
+    if radix <= 0:
+        raise ValueError("enum_pack_case: not enumerable")
+    skey = np.sort(rng.integers(0, radix + 1, R).astype(np.int32))
+    starts = np.r_[True, skey[1:] != skey[:-1]]
+    gid = (np.cumsum(starts) - 1).astype(np.int32)
+    Smax = scan.enum_slots(cfg, R)
+    sums = rng.integers(-5, 10 ** 9, (Smax, 2 + 3 * A), dtype=np.int64)
+    Pk = min(scan.table_prefix(cfg), R)
+    widx = rng.choice(R, Pk, replace=False).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    seg = {"gid": t(gid), "sums": t(sums),
+           "num_groups": t(np.array([starts.sum()], np.int64))}
+    return cfg, (t(skey), seg, t(widx), t(np.array([3], np.int64)),
+                 t(np.array([R, R - 1], np.int64)))
+
+
+def k3_edge_checks(card, device, errs) -> None:
+    """K3 (dense_pack's compact and merged forms, dense_keyed) against its
+    plain version, word for word, on K3_CASES and a seeded sweep of
+    K10_SWEEP shapes (pack_sweep), each on a `main` pre-filled with FILL
+    whose K5 rows must stay FILL.  Each form's device operations a call
+    are checked late (LATE_OP_CHECKS): exactly 1."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    t0 = time.perf_counter()
+    cases = [(f"case {name!r}", o) for name, o in K3_CASES.items()]
+    cases += list(pack_sweep("K3").items())
+    forms = {}
+    for i, (name, o) in enumerate(cases):
+        cfg, R, k2, hists, nouts, hll, tb = k3_case(
+            o, K10_SWEEP_SEED + 3000 + i, device)
+        layout = scan.packed_layout(cfg, R)
+        shape = (layout["rows"], layout["W"])
+        got_main = torch.full(shape, FILL, dtype=torch.int64, device=device)
+        want_main = got_main.clone()
+        scan.dense_pack(cfg, k2, hists, nouts, got_main, R, hll, tb)
+        scan.dense_pack_plain(cfg, k2, hists, nouts, want_main, R, hll, tb)
+        lo, hi = scan.outlier_rows(cfg, R)
+        kernel = ("dense_keyed" if cfg.no_compact_table and "keys" not in k2
+                  else "dense_pack")
+        pack_check(kernel, name, got_main, want_main, lo, hi, errs[kernel])
+        form = (kernel + (" merged" if "keys" in k2 else "")
+                + (" hll" if hll is not None else "")
+                + (" hist" if hists else ""))
+        if form not in forms:
+            forms[form] = name
+            LATE_OP_CHECKS.append((
+                f"{form} ({name})", 1,
+                lambda a=(cfg, k2, hists, nouts, got_main, R, hll, tb):
+                scan.dense_pack(*a)))
+    say(f"[{card}] K3 dense_pack and dense_keyed == plain word for word on "
+        f"a FILL-filled main (K5's rows left alone) on {len(K3_CASES)} "
+        f"cases ({', '.join(K3_CASES)}) and a sweep of {K10_SWEEP} shapes "
+        f"(seed {K10_SWEEP_SEED}), forms {sorted(forms)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def late_op_checks(card) -> None:
+    """LATE_OP_CHECKS' calls profiled: each must be recorded, and within
+    its device operations a call (K3: 1, K10 at most 2)."""
+    lines = []
+    for label, most, fn in LATE_OP_CHECKS:
+        n, per = device_launches(fn)
+        if n is None or n > most or (most == 1 and n != 1):
+            fail(f"{label}: {n} device operations a call ({per}), want "
+                 f"{'exactly' if most == 1 else 'at most'} {most}")
+        lines.append(f"{label}: {n}")
+    del LATE_OP_CHECKS[:]
+    say(f"[{card}] K3 and K10 device operations a call (torch.profiler): "
+        + "; ".join(lines))
 
 
 # ---------------------------------------------------------------------------
@@ -6243,7 +6725,7 @@ def rowstore_phase(card, root, table, up, stbl, sarr, errs, launches,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rows", type=int, default=8_388_608)
+    ap.add_argument("--rows", type=int, default=DEFAULT_ROWS)
     args = ap.parse_args(argv)
 
     import torch
@@ -6681,6 +7163,8 @@ def main(argv=None) -> int:
             f"rows): " + ", ".join(SORTED_EDGES))
         k8_edge_checks(card, dev, errs)
         k7_edge_checks(card, dev, errs)
+        k10_edge_checks(card, dev, errs)
+        k3_edge_checks(card, dev, errs)
 
         # ---- phase 4: the enumerated strategy and the device prune -----
         from sybil_tpu_torch import blocks as blocks5
@@ -7448,6 +7932,12 @@ def main(argv=None) -> int:
         missing = [k for k in COUNTED if launches[k] == 0]
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
+        if args.rows == DEFAULT_ROWS:
+            off = {k: (launches[k], n) for k, n in PACK_LAUNCHES.items()
+                   if launches[k] != n}
+            if off:
+                fail(f"the pack kernels' main-path launches (got, want): "
+                     f"{off}")
         say(f"main path launches over every query of phase 5: {launches}")
 
         # cold/warm walls, no decode when warm, the batch pipeline
@@ -8478,6 +8968,7 @@ def main(argv=None) -> int:
         for label, fn in LATE_PROFILES:
             say(f"[{card}] {label}: {profiled_kernels(fn)}")
         del LATE_PROFILES[:]
+        late_op_checks(card)
         say(f"[{card}] torch.profiler: {PROFILE_MISSES['calls']} profiled "
             f"calls recorded no device event in their first 8 profiles; "
             f"padded profiles ({PROFILE_PAD_S * 1e3:.0f} ms either side) "

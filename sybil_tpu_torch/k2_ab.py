@@ -35,7 +35,8 @@ CUDA events over 20 launches
 ("wall", which includes the wrapper's host time whenever that exceeds
 the kernel's), and behind a sleep kernel long enough that the host has
 queued them all before the first starts ("device", the kernels' own
-time).
+time); and the host's time a call, a host clock over 100 calls queued
+behind a sleep kernel ("host").
 
 K6 and K8 (both roots): K6's id mode at row 9's shape (128 blocks of
 65,536 str ids) and its value mode on the same rows as int32 deltas;
@@ -91,11 +92,25 @@ sorted_front library; each sort_permute run also prints how often a row's
 source shares its predecessor's 32-byte sector, and the ascending runs
 of p.
 
+K3 and K10 with their second entries (`--only
+K3,K10,enum_pack,dense_keyed`, pack_runs): K3 at config 1 (7 compact
+slots), config 3 with its gid and bucket sections, the device HLL's 8
+planes and a mesh's merged keyed table (config 3 -loghist, 128 rows,
+outliers tracked); dense_keyed at a -read-log pseudo-block (65,536 rows,
+128 slots, Sc 9); K10 at path 1 (its 8,192-row pair section), path 2,
+the distinct pairs (a 16,384-row section), the device prune at config
+5's 100,000 slots and a mesh batch's merged table (path 2's); enum_pack
+at config 5 (4,194,304 rows, 1,000 winners).  `--only B5` (b5_runs):
+K4, K13, K9's two entries and K11 at their main-path shapes, the
+wrappers that bind their C entry once.
+
 `--only K6,K8` (before the roots) times only the runs whose label
 starts with one of the prefixes and a non-digit (`--only K15,prune` the
 runs above; K1 does not select K10).
 With `--trace ROOT`, `--only` prints each selected run's wall and
-device times and its device work a call as torch.profiler records it;
+device times, its host time a call (a host clock over 100 calls queued
+behind a sleep kernel) and its device work a call as torch.profiler
+records it;
 with K1 or K2 selected, first the atomics and the ptxas registers of each
 kernel of the decode_bucket2 and dense_scan libraries.
 
@@ -156,6 +171,22 @@ def _ms(fn, iters=20, queued=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_us(fn, iters=100) -> float:
+    """The host's time a call of fn in µs: a host clock over `iters` calls
+    queued behind a sleep kernel, so that none waits on the card."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def kernel_runs(root: str, only=()) -> tuple:
@@ -301,6 +332,10 @@ def kernel_runs(root: str, only=()) -> tuple:
     runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
     runs += c2_runs(scan, dev) + k1_runs(dev)
     runs += k7_runs(scan, dev) + permute_runs(scan, dev)
+    if not only or any(o in only for o in PACK_PREFIXES):
+        runs += pack_runs(scan, dev)
+    if not only or "B5" in only:
+        runs += b5_runs(scan, dev)
     if only:
         runs = tuple(r for r in runs if any(_selects(o, r[0]) for o in only))
     return runs
@@ -315,7 +350,7 @@ def _selects(prefix: str, label: str) -> bool:
 def time_kernels(root: str, only=()) -> str:
     return f"{root}: " + "; ".join(
         f"{what} {_ms(fn, n):.4f} ms wall, "
-        f"{_ms(fn, n, queued=True):.4f} ms device"
+        f"{_ms(fn, n, queued=True):.4f} ms device, {_host_us(fn):.1f} us host"
         for what, n, fn in kernel_runs(root, only))
 
 
@@ -1095,6 +1130,8 @@ def k7_runs(scan, dev, B: int = 128) -> tuple:
 
 # sort_permute run label -> its p, for the trace's sector counts
 PERMUTES: dict = {}
+# the --only prefixes that select pack_runs
+PACK_PREFIXES = ("K3", "K10", "enum_pack", "dense_keyed")
 
 
 def permute_runs(scan, dev, B: int = 128) -> tuple:
@@ -1150,6 +1187,260 @@ def permute_runs(scan, dev, B: int = 128) -> tuple:
          "permutation", rand, lambda: scan.sort_permute(None, rand, t)))
     PERMUTES.update({label: p for label, p, _ in runs if p is not None})
     return tuple((label, 20, fn) for label, _, fn in runs)
+
+
+def pack_runs(scan, dev, B: int = 128) -> tuple:
+    """K3 and K10, both entries each, at the main path's shapes
+    (8,388,608 rows unless noted; `main` allocated once a run, as
+    pack_parts allocates it once a batch): K3 at config 1 (group by host,
+    avg ping: 7 compact slots), config 3 (status eq 200, hist ping: its
+    gid and bucket sections), the device HLL's 8 planes (group by host,
+    distinct ping: K13's registers) and a mesh's merged keyed table
+    (config 3 -loghist at -data-shards 8: 128 rows, outliers tracked);
+    dense_keyed at a -read-log pseudo-block (config 1, 65,536 rows, 128
+    slots, Sc 9); K10 at path 1 (config 3 -tdigest: an int32 packed key
+    and value-identity buckets of ping, its 8,192-row pair section, about
+    750 pairs), path 2 (config 4 at 300 s buckets: two unpacked int64
+    lanes), the distinct pairs (group by host, distinct status, ping: a
+    16,384-row pair section), the device prune (config 5's 100,000 slots,
+    $COUNT scores and totals) and a mesh batch's merged table (path 2's,
+    every aggregation's min and max, the overflow word); enum_pack at
+    config 5 (a partition's 4,194,304 sorted packed keys, 1,000
+    winners)."""
+    import dataclasses
+
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(18)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+
+    def col(v, p_valid, b=B):
+        return (v.reshape(b, -1),
+                torch.rand(v.numel(), device=dev, generator=g).reshape(b, -1)
+                < p_valid)
+
+    def rint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), device=dev, generator=g)
+
+    def main_of(cfg, rows=R):
+        lay = scan.packed_layout(cfg, rows)
+        return torch.zeros((lay["rows"], lay["W"]), dtype=torch.int64,
+                           device=dev)
+
+    ping = (torch.randn(R, device=dev, generator=g) * 20 + 60).abs().to(
+        torch.int64)
+    up = {"host": col(rint(0, 5, R), 0.93), "ping": col(ping, 0.89),
+          "status": col(rint(0, 5, R), 1.0)}
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    status = (scan.FilterSpec("status", "eq", "str"),)
+    avg = scan.AggSpec("ping", 0, 0, 0, 0, 200)
+    hist = scan.AggSpec("ping", 0, 1, 166, 0, 165)
+    c1 = scan.ScanConfig(group_cols=("host",), aggs=(avg,), filters=(),
+                         key_bounds=((0, 5),))
+    c3 = scan.ScanConfig(group_cols=("host",), aggs=(hist,), filters=status,
+                         key_bounds=((0, 5),))
+    chll = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
+                           distinct_cols=("ping",), key_bounds=((0, 5),),
+                           hll=True)
+    runs = []
+    k2 = scan.dense_scan(c1, up, nrec)
+    runs.append(("K3 at config 1 (compact table)", c1, k2, [], [], None,
+                 main_of(c1), R))
+    k2 = scan.dense_scan(c3, up, nrec, fv)
+    h = scan.dense_hist(c3, 0, up, k2["gid"])
+    runs.append(("K3 at config 3 with its hist sections (Ph 128)", c3, k2,
+                 [h["hist"]], [h["nout"]], None, main_of(c3), R))
+    k2 = scan.dense_scan(chll, up, nrec)
+    regs = scan.hll_registers(chll, up, k2["gid"])
+    runs.append(("K3 with the device HLL's 8 planes", chll, k2, [], [],
+                 regs, main_of(chll), R))
+    # a mesh's merged keyed table at config 3 -loghist: every slot a row
+    cm = dataclasses.replace(c3, track_outliers=True, no_compact_table=True)
+    slots, A, nv = cm.dense_slots, 1, hist.num_values
+    merged = {"keys": rint(-1, 5, slots).reshape(slots, 1),
+              "sums": rint(0, 1000, (slots + 1) * (2 + 3 * A)).reshape(
+                  slots + 1, 2 + 3 * A),
+              "mins": rint(0, 50, slots * A).reshape(slots, A),
+              "maxs": rint(50, 166, slots * A).reshape(slots, A),
+              "spill": torch.zeros(1, dtype=torch.int64, device=dev),
+              "num_groups": torch.tensor([5], dtype=torch.int64, device=dev),
+              "overflow": torch.zeros(1, dtype=torch.int64, device=dev)}
+    mh = rint(0, 1000, slots * nv).reshape(slots, nv)
+    mn = torch.zeros(1, dtype=torch.int64, device=dev)
+    runs.append((f"K3 merged keyed form (config 3 -loghist at 8 shards, "
+                 f"{slots} rows)", cm, merged, [mh], [mn], None, main_of(cm),
+                 R))
+    # a -read-log pseudo-block: one [1, 65536] batch, 8 hosts
+    ck = dataclasses.replace(c1, key_bounds=((0, 7),), no_compact_table=True)
+    pb = {"host": col(rint(0, 8, C), 0.93, 1), "ping": col(ping[:C], 0.89, 1)}
+    k2 = scan.dense_scan(ck, pb, nrec[:1])
+    runs.append((f"dense_keyed at a -read-log pseudo-block ({C} rows, "
+                 f"{ck.dense_slots} slots, Sc {scan.reduce_space(ck)[1]})",
+                 ck, k2, [], [], None, main_of(ck, C), C))
+    out = tuple(
+        (label, 200, lambda cfg=cfg, k2=k2, hs=hs, ns=ns, hll=hll, m=m, r=r:
+         scan.dense_pack(cfg, k2, hs, ns, m, r, hll))
+        for label, cfg, k2, hs, ns, hll, m, r in runs)
+
+    # K10: the sorted strategy's parts, as scan_core hands them to the pack
+    now, month = 1_755_000_000, 4 * 7 * 86400
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    tcol = now - rint(0, month, R)
+    for lo in range(0, R, 1_000_000):
+        tcol[lo:lo + 1_000_000] = torch.sort(tcol[lo:lo + 1_000_000])[0]
+    c4 = {"time": (tcol.reshape(B, C), valid),
+          "action": (rint(0, 9, R).reshape(B, C), valid),
+          "weight": (torch.tensor([1, 10, 100], device=dev)[rint(0, 3, R)]
+                     .reshape(B, C), valid)}
+    p1 = scan.ScanConfig(
+        group_cols=("host",), aggs=(scan.AggSpec("ping", 0, 1, 202, 0,
+                                                 200),),
+        filters=status, key_bounds=((0, 5),), force_sorted=True,
+        sort_pack=((0, 5),))
+    p2 = scan.ScanConfig(
+        group_cols=("action",), aggs=(scan.AggSpec("weight", 0, 0, 0, 1,
+                                                   100),),
+        filters=(), time_col="time", force_sorted=True, time_i32=True,
+        agg_vbias=(1,))
+    pairs = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
+                            distinct_cols=("status", "ping"),
+                            force_sorted=True)
+    runs = []
+    for label, cfg, cols, fv_, tb in (
+            ("path 1 (config 3 -tdigest, its pair section)", p1, up, fv, 1),
+            ("path 2 (two unpacked int64 lanes)", p2, c4, None, 300),
+            ("the distinct pairs (16,384-row section)", pairs, up, None, 1)):
+        parts = scan.scan_core(cfg, cols, nrec, fv_, (), tb)
+        npairs = [int(hp["npairs"].item()) for hp in parts["pairs"]]
+        runs.append((f"K10 at {label}"
+                     + (f", {npairs[0]} pairs" if npairs else ""), cfg,
+                     parts["k8"], parts["spill"], parts["pairs"],
+                     parts["nouts"], main_of(cfg), None))
+    # the device prune at config 5: 100,000 slots' sums, 7,000 live
+    cp = scan.ScanConfig(group_cols=("userid",),
+                         aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                         filters=(), force_sorted=True, prune_topk=1000)
+    S, L = cp.max_groups, 5
+    sums = torch.zeros((S + 1, L), dtype=torch.int64, device=dev)
+    sums[:7000] = rint(1, 5000, 7000 * L).reshape(7000, L)
+    k8p = {"keys": rint(0, 200_000, S).reshape(S, 1), "sums": sums,
+           "mins": torch.zeros((S, 0), dtype=torch.int64, device=dev),
+           "maxs": torch.zeros((S, 0), dtype=torch.int64, device=dev),
+           "num_groups": torch.tensor([7000], dtype=torch.int64, device=dev)}
+    spill = torch.zeros(1, dtype=torch.int64, device=dev)
+    runs.append((f"K10 prune form at config 5 ({S} slots: score and "
+                 f"totals)", cp, k8p, spill, [], [], main_of(cp, C5_ROWS),
+                 None))
+    # a mesh batch's merged table at path 2 (every aggregation's min/max)
+    k8m = {"keys": rint(0, 10 ** 6, S * 2).reshape(S, 2),
+           "sums": rint(0, 1000, (S + 1) * L).reshape(S + 1, L),
+           "mins": rint(1, 50, S).reshape(S, 1),
+           "maxs": rint(50, 100, S).reshape(S, 1),
+           "num_groups": torch.tensor([72_585], dtype=torch.int64,
+                                      device=dev)}
+    runs.append((f"K10 merged form (path 2's mesh batch, {S} rows)", p2, k8m,
+                 spill, [], [], main_of(p2),
+                 torch.zeros(1, dtype=torch.int64, device=dev)))
+    out += tuple(
+        (label, 50, lambda cfg=cfg, k8=k8, sp=sp, hp=hp, ns=ns, m=m, ov=ov:
+         scan.sorted_pack(cfg, k8, sp, hp, ns, m,
+                          C5_ROWS if cfg.prune_topk else R, overflow=ov))
+        for label, cfg, k8, sp, hp, ns, m, ov in runs)
+
+    # enum_pack at config 5: K11's segments of sorted zipf user ids
+    ce = dataclasses.replace(cp, sort_pack=((0, 200_000),))
+    Re = C5_ROWS
+    skey = torch.sort((torch.rand(Re, device=dev, generator=g) ** 4
+                       * 200_000).to(torch.int32))[0]
+    starts = torch.ones(Re, dtype=torch.bool, device=dev)
+    starts[1:] = skey[1:] != skey[:-1]
+    gid = (torch.cumsum(starts.to(torch.int32), 0) - 1).to(torch.int32)
+    Smax = scan.enum_slots(ce, Re)
+    seg = {"gid": gid,
+           "sums": rint(0, 5000, Smax * L).reshape(Smax, L),
+           "num_groups": starts.sum().reshape(1)}
+    ends = torch.nonzero(torch.cat([starts[1:], starts[:1]])).reshape(-1)
+    widx = ends[torch.randperm(ends.numel(), device=dev,
+                               generator=g)[:1000]].to(torch.int32)
+    totals = torch.tensor([Re, Re], dtype=torch.int64, device=dev)
+    me = main_of(ce, Re)
+    return out + ((f"enum_pack at config 5 ({Re} rows, "
+                   f"{int(seg['num_groups'].item())} users, 1000 winners)",
+                   50, lambda: scan.enum_pack(ce, skey, seg, widx, spill,
+                                              totals, me)),)
+
+
+def b5_runs(scan, dev, B: int = 128) -> tuple:
+    """Five of the wrappers that bind their C entry once (kernels.entry)
+    at the main path's shapes, 8,388,608 rows unless noted: K4
+    dense_hist at config 3, K13 hll_registers at group by host, distinct
+    ping (the int hash), K9's hist_prep and hist_pairs at path 1 (config
+    3 -tdigest) and K11 enum_segments at config 5 (a partition's
+    4,194,304 rows, zipf user ids).  (K14 set_match and K5
+    outlier_compact: the K14 and K5 runs.)"""
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(19)
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+
+    def col(v, p_valid, b=B):
+        return (v.reshape(b, -1),
+                torch.rand(v.numel(), device=dev, generator=g).reshape(b, -1)
+                < p_valid)
+
+    def rint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), device=dev, generator=g)
+
+    ping = (torch.randn(R, device=dev, generator=g) * 20 + 60).abs().to(
+        torch.int64)
+    up = {"host": col(rint(0, 5, R), 0.93), "ping": col(ping, 0.89),
+          "status": col(rint(0, 5, R), 1.0)}
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    status = (scan.FilterSpec("status", "eq", "str"),)
+    c3 = scan.ScanConfig(group_cols=("host",),
+                         aggs=(scan.AggSpec("ping", 0, 1, 166, 0, 165),),
+                         filters=status, key_bounds=((0, 5),))
+    chll = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
+                           distinct_cols=("ping",), key_bounds=((0, 5),),
+                           hll=True)
+    p1 = scan.ScanConfig(
+        group_cols=("host",), aggs=(scan.AggSpec("ping", 0, 1, 202, 0,
+                                                 200),),
+        filters=status, key_bounds=((0, 5),), force_sorted=True,
+        sort_pack=((0, 5),))
+    k2 = scan.dense_scan(c3, up, nrec, fv)
+    k2h = scan.dense_scan(chll, up, nrec)
+    front = scan.sorted_front(p1, up, nrec, fv)
+    k8 = scan.segment_reduce(p1, up, front, scan.sort_rows(p1, front))
+    prep = scan.hist_prep(p1, 0, up, k8)
+    spk, si2 = torch.sort(prep["pairkey"], stable=True)
+    # config 5: a partition's batch of 64 blocks
+    B5 = C5_ROWS // C
+    ce = scan.ScanConfig(group_cols=("userid",),
+                         aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                         filters=(), force_sorted=True, prune_topk=1000,
+                         sort_pack=((0, 200_000),))
+    uid = (torch.rand(C5_ROWS, device=dev, generator=g) ** 4
+           * 200_000).to(torch.int64)
+    valid = torch.ones((B5, C), dtype=torch.bool, device=dev)
+    cols5 = {"userid": (uid.reshape(B5, C), valid),
+             "weight": (torch.tensor([1, 10, 100], device=dev)[
+                 rint(0, 3, C5_ROWS)].reshape(B5, C), valid)}
+    front5 = scan.sorted_front(ce, cols5, nrec[:B5])
+    skey, p = torch.sort(front5["key"], stable=True)
+    return (
+        ("B5 dense_hist at config 3", 20,
+         lambda: scan.dense_hist(c3, 0, up, k2["gid"])),
+        ("B5 hll_registers at distinct ping (int hash)", 20,
+         lambda: scan.hll_registers(chll, up, k2h["gid"])),
+        ("B5 hist_prep at path 1", 20,
+         lambda: scan.hist_prep(p1, 0, up, k8)),
+        ("B5 hist_pairs at path 1", 20,
+         lambda: scan.hist_pairs(p1, 0, spk, si2, prep["w"], k8["kmat"])),
+        (f"B5 enum_segments at config 5 ({C5_ROWS} rows)", 20,
+         lambda: scan.enum_segments(ce, cols5, skey, p)))
 
 
 def atomics(root: str, kernels, names) -> list:
@@ -1269,7 +1560,8 @@ def trace_runs(root: str, only) -> str:
         out += atomics(root, kernels, ("sorted_front",))
     for what, n, fn in runs:
         line = (f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
-                f"{_ms(fn, n, queued=True):.4f} ms device; "
+                f"{_ms(fn, n, queued=True):.4f} ms device, "
+                f"{_host_us(fn):.1f} us host; "
                 f"{chip_smoke.profiled_kernels(fn)}")
         p = PERMUTES.get(what)
         if p is not None:

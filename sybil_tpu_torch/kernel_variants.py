@@ -1,4 +1,5 @@
-"""Variants of K1's, K2's and K7's sources timed side by side on one card.
+"""Variants of K1's, K2's, K7's and K10's sources timed side by side on one
+card.
 
     python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
 
@@ -10,7 +11,7 @@ in reverse order) on the same card: K2 (dense_scan) at config 1's,
 config 1's global form's, config 3's and config 2's shapes and config 4's
 three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes;
 K7 and sort_permute (sorted_front) at k2_ab.py's K7 and sort_permute
-shapes.  A
+shapes; K10 (sorted_pack) at k2_ab.py's K10 shapes (pack_runs).  A
 variant that drops work (the row pass, the adds) gives wrong words: it
 only splits the time.  Prints each run's wall and device ms (k2_ab._ms)
 and the ptxas spill lines of the variant's build.
@@ -28,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "sybil_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "archive_check", "var")
 K2S, K1S, K7S = "dense_scan", "decode_bucket2", "sorted_front"
+K10S = "sorted_pack"
 # name -> (source, [(old, new)], {ops/scan.py constant: value})
 VARIANTS = {
     "k2 as committed": (K2S, [], {}),
@@ -80,6 +82,36 @@ VARIANTS = {
     "sp chunks in row order": (K7S, [("if (lane < m) s_ord[rank] = lane;",
                                       "if (lane < m) s_ord[lane] = lane;")],
                                {}),
+    "k10 as committed": (K10S, [], {}),
+    "k10 look-back 32 tiles a window": (K10S, [
+        ("constexpr int LB = 4;", "constexpr int LB = 1;")], {}),
+    "k10 table CTAs first": (K10S, [
+        ("  if ((int)blockIdx.x >= npc) {\n"
+         "    table_part(a, (int)blockIdx.x - npc);",
+         "  if ((int)blockIdx.x < a.tctas) {\n"
+         "    table_part(a, (int)blockIdx.x);")], {}),
+    "k10 pair CTAs alone (no table)": (K10S, [
+        ("    table_part(a, (int)blockIdx.x - npc);\n", "")], {}),
+    "k10 no pair rows written": (K10S, [
+        ("    for (int i = threadIdx.x; i < n * a.W; i += THREADS) {",
+         "    for (int i = threadIdx.x; i < 0 * n * a.W; i += THREADS) {")],
+        {}),
+    "k10 no padding rows written": (K10S, [
+        ("  if (lo >= hi) return;", "  if (lo >= hi || hi > lo) return;")],
+        {}),
+    "k10 mask reads alone": (K10S, [
+        ("  const int mine = __popcll(bits);\n",
+         "  const int mine = __popcll(bits);\n"
+         "  if (bits == 0x123456789abcdefull) a.main[0] = 0;\n  return;\n"),
+        ("    pad_part(a, (t - ntile) / NHELP, (t - ntile) % NHELP);",
+         "    return;"),
+        ("    table_part(a, (int)blockIdx.x - npc);\n", "")], {}),
+    "k10 mask reads and look-back alone": (K10S, [
+        ("  const int count = s_count[0];\n",
+         "  const int count = s_count[0];\n  if (count >= 0) return;\n"),
+        ("    pad_part(a, (t - ntile) / NHELP, (t - ntile) % NHELP);",
+         "    return;"),
+        ("    table_part(a, (int)blockIdx.x - npc);\n", "")], {}),
     "k1 as committed": (K1S, [], {}),
     "k1 scan pass alone": (K1S, [
         ("  bucket_rows<<<dim3(a.nr, a.B), THREADS, shm, s>>>(a);\n", "")],
@@ -169,6 +201,8 @@ def child(d: str, src: str) -> None:
     # a sort_permute variant ("sp ...") times sort_permute's runs alone
     runs = (k2_shapes(scan, dev) if src == K2S else
             list(k2_ab.k1_runs(dev)) if src == K1S else
+            [r for r in k2_ab.pack_runs(scan, dev) if r[0].startswith("K10")]
+            if src == K10S else
             list(k2_ab.permute_runs(scan, dev)) if
             os.path.basename(d).startswith("sp_") else
             list(k2_ab.k7_runs(scan, dev) + k2_ab.permute_runs(scan, dev)))
@@ -192,14 +226,27 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     dirs = [(make(n), VARIANTS[n][0]) for n in names]
+    # the sources no variant edits, built once for every variant's runs
+    shared = os.path.join(OUT, "shared_build")
+    edited = sorted({src for _, src in dirs})
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from sybil_tpu_torch.ops import kernels; "
+             "kernels.CSRC, kernels.BUILD_DIR = sys.argv[2], sys.argv[3]; "
+             "kernels.build(tuple(sys.argv[4].split(',')))")
     builds = [subprocess.Popen([
-        sys.executable, "-c",
-        "import sys; sys.path.insert(0, sys.argv[1]); "
-        "from sybil_tpu_torch.ops import kernels; "
-        "kernels.CSRC, kernels.BUILD_DIR = sys.argv[2], sys.argv[3]; "
-        "kernels.build((sys.argv[4],))", ROOT, d, os.path.join(d, "build"),
+        sys.executable, "-c", build, ROOT, d, os.path.join(d, "build"),
         src]) for d, src in dirs]
+    sys.path.insert(0, ROOT)
+    from sybil_tpu_torch.ops import kernels
+    rest = subprocess.Popen([sys.executable, "-c", build, ROOT, CSRC, shared,
+                             ",".join(n for n in kernels.SOURCES
+                                      if n not in edited)])
     failed = {d for (d, _), p in zip(dirs, builds) if p.wait()}
+    rest.wait()
+    for d, _ in dirs:
+        for f in os.listdir(shared):
+            if f.endswith(".so"):
+                shutil.copy(os.path.join(shared, f), os.path.join(d, "build"))
     for d in failed:
         print(f"{os.path.basename(d)}: the build failed", flush=True)
     dirs = [(d, src) for d, src in dirs if d not in failed]

@@ -115,6 +115,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -647,14 +648,14 @@ def _check_tensor(t, shape, dtype, what, dev, kernel, col=None):
     (`what`, of column `col` where given, names it in the message).  A
     wrapper checks each table it is passed, so this runs tens of times a
     query: a few attribute reads, the message built only on a failure."""
-    if (t.dtype is not dtype or t.shape != shape
-            or t.get_device() != (-1 if dev.type == "cpu" else dev.index)
-            or not t.is_contiguous()):
-        if col is not None:
-            what = f"{what} of {col}"
-        raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
-                         f"{list(shape)} tensor on {dev}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
+    if (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+            and t.get_device() == (-1 if dev.type == "cpu" else dev.index)):
+        return
+    if col is not None:
+        what = f"{what} of {col}"
+    raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
+                     f"{list(shape)} tensor on {dev}, got {t.dtype} "
+                     f"{tuple(t.shape)} on {t.device}")
 
 
 def _check_col(cols, name, B, C, dev, kernel):
@@ -736,12 +737,10 @@ def set_match(prow, pval, n: int, filter_vals, fi: int, R: int):
     W = mask_words(R)
     has = torch.empty(W, dtype=torch.int32, device=dev)
     hit = torch.empty(W, dtype=torch.int32, device=dev)
-    fn = kernels.lib("set_match").set_match
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("set_match", "set_match", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p])
     kernels.check(fn(prow.data_ptr(), pval.data_ptr(), n,
                      filter_vals.data_ptr(), fi, has.data_ptr(),
                      hit.data_ptr(), R, _grid(dev, max(n, 1), 0, False),
@@ -829,6 +828,100 @@ def _set_desc(args, dev, arrays: dict):
         args.desc_keep = (host, buf)        # until the launch is queued
     for name, off in offs.items():
         setattr(args, name, base + 8 * off)
+
+
+# ---------------------------------------------------------------------------
+# launch plans
+# ---------------------------------------------------------------------------
+#
+# What a wrapper launches is fixed by (config, R, form): the layout of
+# `main`, its sections' rows, the kernel's constant arguments and
+# descriptor words.  A plan holds them, with a template of the argument
+# struct whose constant fields are set; a call copies the template and
+# writes only its data pointers.  A plan holds no tensor and no data
+# pointer, and its layout is read-only (a mappingproxy).
+
+_PLANS: dict = {}
+_PLAN_CAP = 256          # plans kept; past it the cache starts over
+
+
+def _plan(kind: str, config: ScanConfig, R: int, form: str, make):
+    """The plan of `kind` for (config, R, form), made by make(config, R,
+    form) on first use."""
+    key = (kind, config, R, form)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= _PLAN_CAP:
+            _PLANS.clear()
+        plan = _PLANS[key] = make(config, R, form)
+    return plan
+
+
+def _layout_plan(config: ScanConfig, R: int, form: str = ""):
+    """packed_layout(config, R), read-only, computed once."""
+    return types.MappingProxyType(packed_layout(config, R))
+
+
+def _desc_plan(args, ncall: int, arrays: dict) -> dict:
+    """Lay out the descriptor block of a plan's template `args`: its first
+    `ncall` words are each call's own (data pointers, zeros here), then
+    the constant arrays (name -> a list of ints), after the per-call
+    arrays, whose names map to their word counts.  A block of at most
+    _DESC_HEAD words is written into the template's head, each field at
+    its array's byte offset.  -> {"n": words, "ncall": ncall, "offs":
+    {name: (first word, length)}, "words": the block}."""
+    words, offs = [0] * ncall, {}
+    at = 0
+    for name, vals in arrays.items():
+        if isinstance(vals, int):          # a per-call array
+            offs[name] = (at, vals)
+            at += vals
+            continue
+        offs[name] = (len(words), len(vals))
+        words += list(vals)
+    if at != ncall:
+        raise ValueError(f"descriptor: {at} per-call words, not {ncall}")
+    args.desc.n = len(words)
+    if len(words) <= _DESC_HEAD:
+        args.desc.head[:len(words)] = words
+        for name, (off, _) in offs.items():
+            setattr(args, name, 8 * off)
+    return {"n": len(words), "ncall": ncall, "offs": offs,
+            "words": tuple(words)}
+
+
+def _desc_call(args, dplan: dict, dev, call_words: list) -> None:
+    """A call's own descriptor words (the block's first dplan["ncall"])
+    into `args`, a copy of its plan's template: one slice of the head, or,
+    for a block past _DESC_HEAD words, the whole block through _set_desc
+    (a device copy on the current stream)."""
+    if dplan["n"] <= _DESC_HEAD:
+        if call_words:
+            args.desc.head[:len(call_words)] = call_words
+        return
+    words = list(call_words) + list(dplan["words"][dplan["ncall"]:])
+    _set_desc(args, dev, {name: words[off:off + n]
+                          for name, (off, n) in dplan["offs"].items()})
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, words: int, stream: int):
+    """K10's int64 scratch for the calls on `stream` of `dev`, at least
+    `words` long, kept across calls (the C entry zeroes it on the stream
+    before each launch, so the calls of one stream share it in order)."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        n = 0 if buf is None else buf.numel()
+        buf = _SCRATCH[key] = torch.empty(max(words, 2 * n),
+                                          dtype=torch.int64, device=dev)
+    return buf
+
+
+# the C entries that take (args struct, grid, stream)
+_GRID_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def _ptr(t) -> int:
@@ -1447,10 +1540,8 @@ def dense_hist(config: ScanConfig, ai: int, cols, gid):
     a.nv, a.Sc = nv, Sc
     tab_bytes = Sc * nv * 8
     use_shared = dense_hist_path(config, ai) == "shared"
-    fn = kernels.lib("dense_hist").dense_hist
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("dense_hist", "dense_hist", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     kernels.check(fn(ctypes.byref(a), int(use_shared),
                      _grid(dev, R, tab_bytes, use_shared),
                      kernels.stream_handle(dev)), "dense_hist")
@@ -1618,9 +1709,8 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     a.R, a.kmax, a.W = R, kmax, W
     a.nkeys, a.ntiles = len(kv), ntiles
     _set_desc(a, dev, {"key_vals": kv, "key_valid": km})
-    fn = kernels.lib("outlier_compact").outlier_compact
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("outlier_compact", "outlier_compact",
+                       [ctypes.c_void_p, ctypes.c_void_p])
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "outlier_compact")
     kernels.LAUNCHES["outlier_compact"] += 1
@@ -1659,6 +1749,10 @@ class DensePackArgs(ctypes.Structure):
         ("nkb", ctypes.c_int),
         ("tpos", ctypes.c_int),
     ]
+
+
+# the C entries of K3 and K10: (args struct, stream)
+_PACK_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _wire_lanes(plan: dict) -> list[int]:
@@ -1824,6 +1918,54 @@ def _tail_row(layout: dict) -> int:
     return layout["hll_gids" if "hll_gids" in layout else "hist_gids"][0]
 
 
+def _dense_plan(config: ScanConfig, R: int, form: str):
+    """K3's launch plan for (config, R, form), form as _pack_form."""
+    slots, Sc, compact = reduce_space(config)
+    if form == "merged":          # every row a slot, none of them dead
+        Sc, compact = slots, False
+    hist = hist_aggs(config)
+    H, A, K = len(hist), len(config.aggs), config.n_key_cols
+    layout = packed_layout(config, R)
+    plan = dense_table_plan(config, R)
+    lanes = _wire_lanes(plan) if plan is not None else []
+    lo, hi = outlier_rows(config, R)
+    if (H or "Phll" in layout) and _tail_row(layout) != hi:
+        raise AssertionError("dense_pack: unexpected section between the "
+                             "outlier rows and the HLL or hist sections")
+    a = DensePackArgs()
+    arrays = {"nout": H, "hist": H,
+              "hist_row": [layout[f"hist{ai}"][0] for ai in hist],
+              "hist_nv": [config.aggs[ai].num_values for ai in hist],
+              "lane": lanes}
+    if form == "keyed":
+        arrays["kb_min"] = [mn for mn, _ in config.key_bounds]
+        arrays["kb_card"] = [card for _, card in config.key_bounds]
+        arrays["agg_mm"] = [hist.index(ai) if ai in hist else -1
+                            for ai in range(A)]
+        a.nkb, a.tpos = len(config.key_bounds), config.time_key_pos
+    desc = _desc_plan(a, 2 * H, arrays)
+    if form != "compact":
+        a.K, a.A = K, A
+    a.rows, a.out_lo, a.out_hi = layout["rows"], lo, hi
+    if H:
+        a.gid_row, a.Ph = layout["hist_gids"][0], layout["Ph"]
+    if "Phll" in layout:
+        a.Phll = layout["Phll"]
+        a.hll_gid_row = layout["hll_gids"][0]
+        a.hll_reg_row = layout["hll_regs"][0]
+    a.ncols, a.i32 = len(lanes), int(bool(plan and plan["i32"]))
+    a.slots, a.Sc, a.compact = slots, Sc, int(compact)
+    a.L, a.W, a.H = 2 + 3 * A, layout["W"], H
+    return types.SimpleNamespace(
+        layout=types.MappingProxyType(layout), slots=slots, Sc=Sc, H=H, A=A,
+        K=K, L=a.L, rows=layout["rows"], W=layout["W"],
+        hist=tuple(hist), nv=tuple(config.aggs[ai].num_values
+                                   for ai in hist),
+        hll="Phll" in layout, keyed=form == "keyed",
+        entry="dense_keyed" if form == "keyed" else "dense_pack",
+        desc=desc, tmpl=bytes(a))
+
+
 def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
                R: int, hll=None, time_bucket: int = 1) -> None:
     """K3: writes the packed download buffer `main` [rows, W] int64 in
@@ -1845,8 +1987,10 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
     (_dense_decode_keys 608-626) under no_compact_table, and pack_outputs
     (meta, compact or keyed table 1865-1872, dense hist sections, the HLL
     sections 1934-1945).  A few KB (the HLL planes: 16 KB each; the keyed
-    table slots x W words): bound by launch latency; one CTA (see the
-    source note)."""
+    table slots x W words): bound by launch latency; one launch, no
+    memset, a CTA a 1,024-word piece of the rows it owns (see the source
+    note); what the config fixes comes from its launch plan
+    (_dense_plan)."""
     dev = main.device
     if dev.type == "cpu":
         dense_pack_plain(config, k2, hists, nouts, main, R, hll,
@@ -1854,86 +1998,51 @@ def dense_pack(config: ScanConfig, k2: dict, hists, nouts, main,
         return
     if dev.type != "cuda":
         raise ValueError(f"dense_pack: unsupported device {dev}")
-    slots, Sc, compact = reduce_space(config)
     form = _pack_form(config, k2)
     merged = form == "merged"
-    hist = hist_aggs(config)
-    H = len(hist)
-    A = len(config.aggs)
-    L = 2 + 3 * A
-    K = config.n_key_cols
+    p = _plan("dense_pack", config, R, form, _dense_plan)
+    Sc, H = p.Sc, p.H
+    i64 = torch.int64
     if merged:
-        Sc, compact = slots, False
-        _check_tensor(k2["sums"], (slots + 1, L), torch.int64, "sums", dev,
-                      "dense_pack")
-        _check_tensor(k2["keys"], (slots, K), torch.int64, "keys", dev,
-                      "dense_pack")
-        for key in ("num_groups", "overflow"):
-            _check_tensor(k2[key], (1,), torch.int64, key, dev, "dense_pack")
+        checks = [(k2["sums"], (p.slots + 1, p.L), i64, "sums"),
+                  (k2["keys"], (p.slots, p.K), i64, "keys"),
+                  (k2["num_groups"], (1,), i64, "num_groups"),
+                  (k2["overflow"], (1,), i64, "overflow")]
     else:
-        _check_tensor(k2["sums"], (Sc, L), torch.int64, "sums", dev,
-                      "dense_pack")
-    _check_tensor(k2["spill"], (1,), torch.int64, "spill", dev, "dense_pack")
-    for key in ("mins", "maxs"):
-        _check_tensor(k2[key], (Sc, A if merged else H), torch.int64, key,
-                      dev, "dense_pack")
+        checks = [(k2["sums"], (Sc, p.L), i64, "sums")]
+    mm = (Sc, p.A if merged else H)
+    checks += [(k2["spill"], (1,), i64, "spill"),
+               (k2["mins"], mm, i64, "mins"), (k2["maxs"], mm, i64, "maxs"),
+               (main, (p.rows, p.W), i64, "main")]
     if len(hists) != H or len(nouts) != H:
         raise ValueError(f"dense_pack: expected {H} hist tables and outlier "
                          f"counts, got {len(hists)} and {len(nouts)}")
-    layout = packed_layout(config, R)
-    rows, W = layout["rows"], layout["W"]
-    _check_tensor(main, (rows, W), torch.int64, "main", dev, "dense_pack")
-    plan = dense_table_plan(config, R)
-    lanes = _wire_lanes(plan) if plan is not None else []
-    a = DensePackArgs()
+    for ai, nv, h, n in zip(p.hist, p.nv, hists, nouts):
+        checks.append((h, (Sc, nv), i64, f"hist of agg {ai}"))
+        if n is not None:
+            checks.append((n, (1,), i64, "nout"))
+    if p.hll:
+        checks.append((hll, (p.slots, HLL_M), torch.uint8, "hll"))
+    for t, shape, dtype, what in checks:
+        _check_tensor(t, shape, dtype, what, dev, "dense_pack")
+    a = DensePackArgs.from_buffer_copy(p.tmpl)
     a.sums, a.spill = k2["sums"].data_ptr(), k2["spill"].data_ptr()
     a.mins, a.maxs = k2["mins"].data_ptr(), k2["maxs"].data_ptr()
-    for ai, h, n in zip(hist, hists, nouts):
-        _check_tensor(h, (Sc, config.aggs[ai].num_values), torch.int64,
-                      f"hist of agg {ai}", dev, "dense_pack")
-        if n is not None:
-            _check_tensor(n, (1,), torch.int64, "nout", dev, "dense_pack")
-    desc = {
-        "nout": [_ptr(n) for n in nouts], "hist": [_ptr(h) for h in hists],
-        "hist_row": [layout[f"hist{ai}"][0] for ai in hist],
-        "hist_nv": [config.aggs[ai].num_values for ai in hist],
-        "lane": lanes}
-    if form != "compact":
-        a.K, a.A = K, A
+    a.main = main.data_ptr()
+    if H or p.desc["n"] > _DESC_HEAD:
+        _desc_call(a, p.desc, dev, [_ptr(n) for n in nouts]
+                   + [h.data_ptr() for h in hists])
     if merged:
         a.keys = k2["keys"].data_ptr()
         a.num_groups = k2["num_groups"].data_ptr()
         a.overflow = k2["overflow"].data_ptr()
-    elif form == "keyed":
-        desc["kb_min"] = [mn for mn, _ in config.key_bounds]
-        desc["kb_card"] = [card for _, card in config.key_bounds]
-        desc["agg_mm"] = [hist.index(ai) if ai in hist else -1
-                          for ai in range(A)]
-        a.nkb, a.tpos = len(config.key_bounds), config.time_key_pos
+    elif p.keyed:
         a.tb = int(time_bucket)
-    _set_desc(a, dev, desc)
-    a.main, a.rows = main.data_ptr(), rows
-    a.out_lo, a.out_hi = outlier_rows(config, R)
-    if H:
-        a.gid_row, a.Ph = layout["hist_gids"][0], layout["Ph"]
-    if "Phll" in layout:
-        _check_tensor(hll, (slots, HLL_M), torch.uint8, "hll", dev,
-                      "dense_pack")
-        a.hll, a.Phll = hll.data_ptr(), layout["Phll"]
-        a.hll_gid_row = layout["hll_gids"][0]
-        a.hll_reg_row = layout["hll_regs"][0]
-    if (H or "Phll" in layout) and _tail_row(layout) != a.out_hi:
-        raise AssertionError("dense_pack: unexpected section between the "
-                             "outlier rows and the HLL or hist sections")
-    a.ncols, a.i32 = len(lanes), int(bool(plan and plan["i32"]))
-    a.slots, a.Sc, a.compact, a.L, a.W, a.H = (slots, Sc, int(compact), L,
-                                                W, H)
-    entry = "dense_keyed" if form == "keyed" else "dense_pack"
-    fn = getattr(kernels.lib("dense_pack"), entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)), entry)
-    kernels.LAUNCHES[entry] += 1
+    if p.hll:
+        a.hll = hll.data_ptr()
+    fn = kernels.entry("dense_pack", p.entry, _PACK_ARGS)
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)), p.entry)
+    kernels.LAUNCHES[p.entry] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -2061,9 +2170,7 @@ def hll_registers(config: ScanConfig, cols, gid, bitsets=()):
         a.hashes, a.nd = hashes.data_ptr(), hashes.shape[0]
     regs = torch.empty((slots, HLL_M), dtype=torch.uint8, device=dev)
     a.regs, a.R, a.Sc, a.slots = regs.data_ptr(), R, Sc, slots
-    fn = kernels.lib("hll_registers").hll_registers
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("hll_registers", "hll_registers", _GRID_ARGS)
     kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
                      kernels.stream_handle(dev)), "hll_registers")
     kernels.LAUNCHES["hll_registers"] += 1
@@ -2831,9 +2938,7 @@ def hist_prep(config: ScanConfig, ai: int, cols, k8: dict):
         a.out_mask = out["out_mask"].data_ptr()
         a.out_val = out["out_val"].data_ptr()
         a.nout = out["nout"].data_ptr()
-    fn = kernels.lib("hist_pairs").hist_prep
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("hist_pairs", "hist_prep", _GRID_ARGS)
     kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
                      kernels.stream_handle(dev)), "hist_prep")
     kernels.LAUNCHES["hist_pairs"] += 1
@@ -2874,9 +2979,7 @@ def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat):
     a.hp_w, a.hp_keys = out["hp_w"].data_ptr(), out["hp_keys"].data_ptr()
     a.npairs, a.seg = out["npairs"].data_ptr(), seg.data_ptr()
     a.segstart, a.offsets = segstart.data_ptr(), offsets.data_ptr()
-    fn = kernels.lib("hist_pairs").hist_pairs
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("hist_pairs", "hist_pairs", _GRID_ARGS)
     kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
                      kernels.stream_handle(dev)), "hist_pairs")
     kernels.LAUNCHES["hist_pairs"] += 1
@@ -2892,7 +2995,7 @@ class SortedPackArgs(ctypes.Structure):
         ("pair_row", ctypes.c_longlong),
         ("table", ctypes.c_void_p),
         ("main", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
         ("score", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("S", ctypes.c_int),
@@ -2911,7 +3014,7 @@ class SortedPackArgs(ctypes.Structure):
         ("kmax_pairs", ctypes.c_int),
         ("overflow", ctypes.c_void_p),
         ("mmw", ctypes.c_int),
-        ("pad_", ctypes.c_int),
+        ("tctas", ctypes.c_int),
     ]
 
 
@@ -3027,6 +3130,64 @@ def sorted_pack_plain(config: ScanConfig, k8: dict, spill, pairs, nouts,
     return {"table": table, "score": score}
 
 
+# K10's compaction tile (TILE in csrc/sorted_pack.cu), its table CTAs'
+# unrolled steps (UNROLL) and their most CTAs (MAX_TCTAS: 4 a SM of the
+# H100's 132)
+_PACK_TILE = 16384
+_PACK_STEPS = 4
+_PACK_TABLE_CTAS = 528
+# the per-call descriptor arrays of K10 after `nout`: a pointer a hist
+# aggregation each
+_PAIR_KEYS = ("hp_mask", "hp_keys", "hp_bv", "hp_w", "npairs")
+
+
+def _sorted_plan(config: ScanConfig, R: int, form: str):
+    """K10's launch plan for (config, R, form), form "table" (the scan's
+    own group table) or "merged" (a mesh scan's, with every aggregation's
+    min and max and the overflow word)."""
+    merged = form == "merged"
+    K, A = config.n_key_cols, len(config.aggs)
+    S, L = config.max_groups, 2 + 3 * A
+    hist = hist_aggs(config)
+    H, D = len(hist), len(config.distinct_cols)
+    layout = packed_layout(config, R)
+    W, P = layout["W"], table_prefix(config)
+    lo, hi = outlier_rows(config, R)
+    if (lo != 1 + P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)
+            or (D and layout["pairs"][0] < hi)):
+        raise AssertionError("sorted_pack: unexpected section order")
+    ntiles = -(-R // _PACK_TILE)
+    nsec = H + (1 if D else 0)
+    rpw = 32 // W if W <= 32 else 1
+    tctas = max(1, min(-(-S // (8 * rpw * _PACK_STEPS)), _PACK_TABLE_CTAS))
+    prune = config.prune_topk > 0
+    a = SortedPackArgs()
+    desc = _desc_plan(a, 6 * H, {
+        **{key: H for key in ("nout",) + _PAIR_KEYS},
+        "hp_row": [layout[f"hpair{ai}"][0] for ai in hist],
+        "agg_mm": [i if merged else (hist.index(i) if i in hist else -1)
+                   for i in range(A)]})
+    a.R, a.S, a.P, a.K, a.A, a.L, a.H, a.W = R, S, P, K, A, L, H, W
+    a.Hcap, a.ntiles = layout.get("Hcap", 0), ntiles
+    a.mmw, a.tctas = A if merged else H, tctas
+    if D:
+        a.D = D
+        a.pair_row, a.kmax_pairs = layout["pairs"]
+    if prune:
+        a.prune, a.prune_agg = 1, config.prune_agg
+        a.pruned = min(config.prune_topk, S, P)
+    return types.SimpleNamespace(
+        layout=types.MappingProxyType(layout), out_rows=(lo, hi), K=K, S=S,
+        L=L, H=H, D=D, W=W, rows=layout["rows"], mmw=a.mmw,
+        Wt=table_width(config), tctas=tctas,
+        score_dtype=_score_dtype(config) if prune else None,
+        # the ticket, the done count, the table CTAs' sums, the status
+        # words (S_STATUS in the source)
+        scratch=(2 + 2 * _PACK_TABLE_CTAS + nsec * ntiles
+                 if nsec or prune else 0),
+        desc=desc, tmpl=bytes(a))
+
+
 def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
                 R: int, overflow=None):
     """K10: as sorted_pack_plain -> {"table", "score"}.  CUDA tensors
@@ -3041,101 +3202,70 @@ def sorted_pack(config: ScanConfig, k8: dict, spill, pairs, nouts, main,
     pair section (1925-1933) from K8's pair_mask, kmat and dmat, and
     under the device prune the score and totals of 1886-1899, 1961-1963
     (K12 and its gather do the rest).  Bound by memory (the [S,
-    K+2+5A] table and one byte of hp_mask or pair_mask per row)."""
+    K+2+5A] table and one byte of hp_mask or pair_mask per row): one
+    launch a call, after a memset of its look-back's status words in a
+    scratch of the stream's (_scratch); what the config fixes comes from
+    its launch plan (_sorted_plan)."""
     dev = main.device
     if dev.type == "cpu":
         return sorted_pack_plain(config, k8, spill, pairs, nouts, main, R,
                                  overflow)
     if dev.type != "cuda":
         raise ValueError(f"sorted_pack: unsupported device {dev}")
-    K, A = config.n_key_cols, len(config.aggs)
-    S = config.max_groups
-    L = 2 + 3 * A
-    hist = hist_aggs(config)
-    H = len(hist)
-    layout = packed_layout(config, R)
-    rows, W = layout["rows"], layout["W"]
-    _check_tensor(main, (rows, W), torch.int64, "main", dev, "sorted_pack")
-    _check_tensor(k8["sums"], (S + 1, L), torch.int64, "sums", dev,
-                  "sorted_pack")
-    mmw = A if overflow is not None else H
-    _check_tensor(k8["mins"], (S, mmw), torch.int64, "mins", dev,
-                  "sorted_pack")
-    _check_tensor(k8["maxs"], (S, mmw), torch.int64, "maxs", dev,
-                  "sorted_pack")
+    p = _plan("sorted_pack", config, R,
+              "table" if overflow is None else "merged", _sorted_plan)
+    S, K, H = p.S, p.K, p.H
+    i64 = torch.int64
+    checks = [(main, (p.rows, p.W), i64, "main"),
+              (k8["sums"], (S + 1, p.L), i64, "sums"),
+              (k8["mins"], (S, p.mmw), i64, "mins"),
+              (k8["maxs"], (S, p.mmw), i64, "maxs"),
+              (k8["keys"], (S, K), i64, "keys"),
+              (k8["num_groups"], (1,), i64, "num_groups"),
+              (spill, (1,), i64, "spill")]
     if overflow is not None:
-        _check_tensor(overflow, (1,), torch.int64, "overflow", dev,
-                      "sorted_pack")
-    _check_tensor(k8["keys"], (S, K), torch.int64, "keys", dev, "sorted_pack")
-    _check_tensor(k8["num_groups"], (1,), torch.int64, "num_groups", dev,
-                  "sorted_pack")
-    _check_tensor(spill, (1,), torch.int64, "spill", dev, "sorted_pack")
+        checks.append((overflow, (1,), i64, "overflow"))
     if len(pairs) != H or len(nouts) != H:
         raise ValueError(f"sorted_pack: expected {H} hist pair sets and "
                          f"outlier counts, got {len(pairs)} and {len(nouts)}")
-    table = torch.empty((S, table_width(config)), dtype=torch.int64,
-                        device=dev)
-    a = SortedPackArgs()
+    for hp, n in zip(pairs, nouts):
+        checks += [(hp["hp_mask"], (R,), torch.bool, "hp_mask"),
+                   (hp["hp_keys"], (R, K), i64, "hp_keys"),
+                   (hp["hp_bv"], (R,), i64, "hp_bv"),
+                   (hp["hp_w"], (R,), i64, "hp_w"),
+                   (hp["npairs"], (1,), i64, "npairs")]
+        if n is not None:
+            checks.append((n, (1,), i64, "nout"))
+    if p.D:
+        checks += [(k8["pair_mask"], (R,), torch.bool, "pair_mask"),
+                   (k8["kmat"], (R, K), i64, "kmat"),
+                   (k8["dmat"], (R, p.D), i64, "dmat")]
+    for t, shape, dtype, what in checks:
+        _check_tensor(t, shape, dtype, what, dev, "sorted_pack")
+    table = torch.empty((S, p.Wt), dtype=torch.int64, device=dev)
+    a = SortedPackArgs.from_buffer_copy(p.tmpl)
     a.sums, a.mins, a.maxs = (k8["sums"].data_ptr(), k8["mins"].data_ptr(),
                               k8["maxs"].data_ptr())
-    a.keys_tbl, a.num_groups = k8["keys"].data_ptr(), \
-        k8["num_groups"].data_ptr()
-    a.spill = spill.data_ptr()
-    for hp, n in zip(pairs, nouts):
-        _check_tensor(hp["hp_mask"], (R,), torch.bool, "hp_mask", dev,
-                      "sorted_pack")
-        _check_tensor(hp["hp_keys"], (R, K), torch.int64, "hp_keys", dev,
-                      "sorted_pack")
-        for key in ("hp_bv", "hp_w"):
-            _check_tensor(hp[key], (R,), torch.int64, key, dev, "sorted_pack")
-        _check_tensor(hp["npairs"], (1,), torch.int64, "npairs", dev,
-                      "sorted_pack")
-        if n is not None:
-            _check_tensor(n, (1,), torch.int64, "nout", dev, "sorted_pack")
-    _set_desc(a, dev, {
-        "nout": [_ptr(n) for n in nouts],
-        **{key: [hp[key].data_ptr() for hp in pairs]
-           for key in ("hp_mask", "hp_keys", "hp_bv", "hp_w", "npairs")},
-        "hp_row": [layout[f"hpair{ai}"][0] for ai in hist],
-        "agg_mm": [i if overflow is not None else
-                   (hist.index(i) if i in hist else -1) for i in range(A)]})
-    a.overflow, a.mmw = _ptr(overflow), mmw
-    D = len(config.distinct_cols)
-    if D:
-        _check_tensor(k8["pair_mask"], (R,), torch.bool, "pair_mask", dev,
-                      "sorted_pack")
-        _check_tensor(k8["kmat"], (R, K), torch.int64, "kmat", dev,
-                      "sorted_pack")
-        _check_tensor(k8["dmat"], (R, D), torch.int64, "dmat", dev,
-                      "sorted_pack")
+    a.keys_tbl = k8["keys"].data_ptr()
+    a.num_groups = k8["num_groups"].data_ptr()
+    a.spill, a.overflow = spill.data_ptr(), _ptr(overflow)
+    a.table, a.main = table.data_ptr(), main.data_ptr()
+    if H or p.desc["n"] > _DESC_HEAD:
+        _desc_call(a, p.desc, dev, [_ptr(n) for n in nouts] + [
+            hp[key].data_ptr() for key in _PAIR_KEYS for hp in pairs])
+    if p.D:
         a.pair_mask, a.kmat = (k8["pair_mask"].data_ptr(),
                                k8["kmat"].data_ptr())
-        a.dmat, a.D = k8["dmat"].data_ptr(), D
-        a.pair_row, a.kmax_pairs = layout["pairs"]
-    ntiles = -(-R // _SEG_TILE)
-    offsets = torch.empty((max(H + (1 if D else 0), 1), ntiles + 1),
-                          dtype=torch.int32, device=dev)
-    a.table, a.main, a.offsets = (table.data_ptr(), main.data_ptr(),
-                                  offsets.data_ptr())
-    a.R = R
-    a.S, a.P, a.K, a.A, a.L, a.H, a.W = (S, table_prefix(config), K, A, L,
-                                         H, W)
+        a.dmat = k8["dmat"].data_ptr()
     score = None
-    if config.prune_topk > 0:
-        score = torch.empty(S, dtype=_score_dtype(config), device=dev)
-        a.score, a.prune = score.data_ptr(), 1
-        a.prune_agg = config.prune_agg
-        a.pruned = min(config.prune_topk, S, a.P)
-    a.Hcap, a.ntiles = layout.get("Hcap", 0), ntiles
-    lo, hi = outlier_rows(config, R)
-    if (lo != 1 + a.P or any(layout[f"hpair{ai}"][0] < hi for ai in hist)
-            or (D and layout["pairs"][0] < hi)):
-        raise AssertionError("sorted_pack: unexpected section order")
-    fn = kernels.lib("sorted_pack").sorted_pack
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
-                  "sorted_pack")
+    if p.score_dtype is not None:
+        score = torch.empty(S, dtype=p.score_dtype, device=dev)
+        a.score = score.data_ptr()
+    stream = kernels.stream_handle(dev)
+    fn = kernels.entry("sorted_pack", "sorted_pack", _PACK_ARGS)
+    if p.scratch:
+        a.scratch = _scratch(dev, p.scratch, stream).data_ptr()
+    kernels.check(fn(ctypes.byref(a), stream), "sorted_pack")
     kernels.LAUNCHES["sorted_pack"] += 1
     return {"table": table, "score": score}
 
@@ -3324,9 +3454,7 @@ def enum_segments(config: ScanConfig, cols, skey, p):
     a.R, a.radix, a.Smax, a.L, a.naggs, a.ntiles = R, radix, Smax, L, A, \
         ntiles
     a.prune_agg = config.prune_agg
-    fn = kernels.lib("enum_segments").enum_segments
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("enum_segments", "enum_segments", _GRID_ARGS)
     kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
                      kernels.stream_handle(dev)), "enum_segments")
     kernels.LAUNCHES["enum_segments"] += 1
@@ -3560,6 +3688,22 @@ def enum_pack_plain(config: ScanConfig, skey, seg: dict, widx, spill,
     return table
 
 
+def _enum_plan(config: ScanConfig, R: int, form: str):
+    """enum_pack's launch plan for (config, R)."""
+    K, A = config.n_key_cols, len(config.aggs)
+    layout = packed_layout(config, R)
+    P = table_prefix(config)
+    a = EnumPackArgs()
+    desc = _desc_plan(a, 0, {"pack_min": [mn for mn, _ in config.sort_pack],
+                          "pack_card": [card for _, card in config.sort_pack]})
+    a.R, a.radix, a.Pk, a.P = R, enum_radix(config), min(P, R), P
+    a.K, a.A, a.L, a.W = K, A, 2 + 3 * A, layout["W"]
+    return types.SimpleNamespace(
+        rows=layout["rows"], W=layout["W"], P=P, Pk=min(P, R), L=a.L,
+        Wt=table_width(config), Smax=enum_slots(config, R), desc=desc,
+        tmpl=bytes(a))
+
+
 def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
               main):
     """K10, enum_pack entry: as enum_pack_plain.  CUDA tensors launch the
@@ -3569,49 +3713,39 @@ def enum_pack(config: ScanConfig, skey, seg: dict, widx, spill, totals,
     [Pk] winners; spill, totals: K7's.  Replaces the winners' readout of
     sybil_tpu/ops/scan.py:_scan_enum (1547-1607) and the enumerated
     strategy's table, pruned marker and totals in pack_outputs (1866-1879,
-    1902-1960).  Bound by memory (P rows of a few words)."""
+    1902-1960).  Bound by memory (P rows of a few words): one launch, a
+    warp a row; what the config fixes comes from its launch plan
+    (_enum_plan)."""
     dev = main.device
     if dev.type == "cpu":
         return enum_pack_plain(config, skey, seg, widx, spill, totals, main)
     if dev.type != "cuda":
         raise ValueError(f"enum_pack: unsupported device {dev}")
     R = skey.numel()
-    K, A = config.n_key_cols, len(config.aggs)
-    L = 2 + 3 * A
-    P = table_prefix(config)
+    p = _plan("enum_pack", config, R, "enum", _enum_plan)
     Pk = widx.numel()
-    layout = packed_layout(config, R)
-    W = layout["W"]
-    if Pk != min(P, R):
-        raise ValueError(f"enum_pack: {Pk} winners for a prefix of {P} "
+    if Pk != p.Pk:
+        raise ValueError(f"enum_pack: {Pk} winners for a prefix of {p.P} "
                          f"over {R} rows")
-    _check_tensor(main, (layout["rows"], W), torch.int64, "main", dev,
-                  "enum_pack")
-    _check_tensor(skey, (R,), torch.int32, "skey", dev, "enum_pack")
-    _check_tensor(seg["gid"], (R,), torch.int32, "gid", dev, "enum_pack")
-    _check_tensor(seg["sums"], (enum_slots(config, R), L), torch.int64,
-                  "sums", dev, "enum_pack")
-    _check_tensor(seg["num_groups"], (1,), torch.int64, "num_groups", dev,
-                  "enum_pack")
-    _check_tensor(widx, (Pk,), torch.int32, "widx", dev, "enum_pack")
-    _check_tensor(spill, (1,), torch.int64, "spill", dev, "enum_pack")
-    _check_tensor(totals, (2,), torch.int64, "totals", dev, "enum_pack")
-    table = torch.empty((P, table_width(config)), dtype=torch.int64,
-                        device=dev)
-    a = EnumPackArgs()
+    i64, i32 = torch.int64, torch.int32
+    for t, shape, dtype, what in [
+            (main, (p.rows, p.W), i64, "main"), (skey, (R,), i32, "skey"),
+            (seg["gid"], (R,), i32, "gid"),
+            (seg["sums"], (p.Smax, p.L), i64, "sums"),
+            (seg["num_groups"], (1,), i64, "num_groups"),
+            (widx, (Pk,), i32, "widx"), (spill, (1,), i64, "spill"),
+            (totals, (2,), i64, "totals")]:
+        _check_tensor(t, shape, dtype, what, dev, "enum_pack")
+    table = torch.empty((p.P, p.Wt), dtype=torch.int64, device=dev)
+    a = EnumPackArgs.from_buffer_copy(p.tmpl)
     a.skey, a.gid, a.sums = (skey.data_ptr(), seg["gid"].data_ptr(),
                              seg["sums"].data_ptr())
     a.widx, a.num_groups = widx.data_ptr(), seg["num_groups"].data_ptr()
     a.spill, a.totals = spill.data_ptr(), totals.data_ptr()
     a.table, a.main = table.data_ptr(), main.data_ptr()
-    _set_desc(a, dev, {
-        "pack_min": [mn for mn, _ in config.sort_pack],
-        "pack_card": [card for _, card in config.sort_pack]})
-    a.R, a.radix, a.Pk, a.P = R, enum_radix(config), Pk, P
-    a.K, a.A, a.L, a.W = K, A, L, W
-    fn = kernels.lib("sorted_pack").enum_pack
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if p.desc["n"] > _DESC_HEAD:
+        _desc_call(a, p.desc, dev, [])
+    fn = kernels.entry("sorted_pack", "enum_pack", _PACK_ARGS)
     kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
                   "enum_pack")
     kernels.LAUNCHES["enum_pack"] += 1
@@ -3630,7 +3764,7 @@ def _scan_enum(config: ScanConfig, cols, nrec, filter_vals, bitsets,
     skey, p = torch.sort(front["key"], stable=True)
     seg = enum_segments(config, cols, skey, p)
     widx = topk_rows(seg["score"], min(table_prefix(config), R))
-    layout = packed_layout(config, R)
+    layout = _plan("layout", config, R, "", _layout_plan)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
                        device=nrec.device)
     table = enum_pack(config, skey, seg, widx, front["spill"],
@@ -3710,7 +3844,7 @@ def pack_parts(config: ScanConfig, parts: dict) -> dict:
     group table, or its top P rows under the device prune}."""
     R = parts["R"]
     raw = parts["raw"]
-    layout = packed_layout(config, R)
+    layout = _plan("layout", config, R, "", _layout_plan)
     main = torch.empty((layout["rows"], layout["W"]), dtype=torch.int64,
                        device=parts["dev"])
     dense = parts["strategy"] == "dense"
