@@ -50,7 +50,14 @@ Phases (any failure exits non-zero before the result lines):
      dead slot, a spilled quotient, a hist with the mask and the
      cache-group key, wrapping weighted lanes) and config 4's three
      layouts, word for word, each path of its design (resident,
-     full-span, banded, direct, empty) taken.  Then the sorted strategy:
+     full-span, banded, direct, empty) taken; K4 on its corner cases
+     (K4_CASES: one bucket of one gid, wrapping weights, a multihist
+     value past its sub's array, discard bounds, a bucket size past 32
+     bits, the dead gid, a table at the shared limit and one word past
+     it) and K13 on its (K13_CASES: rank 51, MISSING values,
+     str ids out of range, one register for every row, 3, 8, 12, 13 and
+     128 planes, the dead slot), bit for bit, each table or form of each
+     taken (their CTA counts).  Then the sorted strategy:
      K7 sorted_front, sort_permute, K8 segment_reduce, K9 hist_pairs (both
      entries), K5 over the sorted keys and K10 sorted_pack against their
      plain versions, word for word, on this slice's two paths (path 1:
@@ -83,8 +90,9 @@ Phases (any failure exits non-zero before the result lines):
      24-shape sweep each, word for word on a `main` filled with FILL
      first: K5's rows, and the pruned prefix until K12's gather, must
      stay FILL (k10_edge_checks, k3_edge_checks); after the kernel table
-     each form's device operations a call (K3: 1, K10: at most 2;
-     late_op_checks).  Then the enumerated strategy: K7's enum form,
+     each form's device operations a call (K3 and each form of K13: 1;
+     K10 and each table of K4: at most 2; late_op_checks).  Then the
+     enumerated strategy: K7's enum form,
      K11 enum_segments, K12 topk_rows and K10's enum_pack against their
      plain versions on config 5's real batches of both partitions ($COUNT
      and f32 mean scores, the mean's winners against numpy) and on
@@ -144,9 +152,9 @@ Phases (any failure exits non-zero before the result lines):
      -distinct status (K13 once), -group host,status -op distinct (D = 2
      pairs) and config 5's partition 1 -group userid -distinct weight
      (the pair escalation), every printed Distinct against a port HLL fed
-     the numpy values of its group.  At the default rows the pack kernels'
-     launches over these queries must be K10 82, enum_pack 7, K3 71 and
-     dense_keyed 66 (PACK_LAUNCHES).  Then cold and warm queries
+     the numpy values of its group.  At the default rows the launches over
+     these queries must be K10 82, enum_pack 7, K3 71, dense_keyed 66, K4
+     63 and K13 20 (MAIN_LAUNCHES).  Then cold and warm queries
      through run_query for each config and path, checking via the counts that
      warm queries run no decode (residency) and the scan kernels once per
      batch, also through a three-batch pipeline, the four distinct queries
@@ -324,9 +332,10 @@ P2_ARGV = ["-group", "action", "-int", "weight", "-op", "avg", "-time",
            "-time-bucket", str(P2_BUCKET), "-time-col", "time"]
 FILL = 0x5A5A5A5A5A5A5A5A        # poison for buffers a kernel must write
 DEFAULT_ROWS = 8_388_608
-# the pack kernels' launches over phase 5's queries at the default rows
-PACK_LAUNCHES = {"sorted_pack": 82, "enum_pack": 7, "dense_pack": 71,
-                 "dense_keyed": 66}
+# the pack kernels', K4's and K13's launches over phase 5's queries at
+# the default rows
+MAIN_LAUNCHES = {"sorted_pack": 82, "enum_pack": 7, "dense_pack": 71,
+                 "dense_keyed": 66, "dense_hist": 63, "hll_registers": 20}
 # config 5 (scripts/bench_configs.py:64-98, 171-201): group by userid, avg
 # weight, the default -limit 100 and -prune-sort $COUNT, on each of two
 # partitions, then `aggregate`
@@ -2539,9 +2548,10 @@ def pack_sweep(kind: str, seed: int = K10_SWEEP_SEED,
     return out
 
 
-# (label, call, device operations a call) of the K3 and K10 calls whose
-# device work is profiled late (no profiler session runs before the mesh
-# phase's launch-count checks): K3 one operation, K10 at most two
+# (label, device operations a call, call) of the K3, K10, K4 and K13 calls
+# whose device work is profiled late (no profiler session runs before the
+# mesh phase's launch-count checks): K3 and K13 one operation, K10 and K4
+# at most two
 LATE_OP_CHECKS = []
 
 
@@ -2724,18 +2734,44 @@ def k3_edge_checks(card, device, errs) -> None:
         f"({time.perf_counter() - t0:.2f} s)")
 
 
+# rounds of late_op_checks: a call whose profiles all recorded nothing is
+# profiled again in the next round, LATE_ROUND_GAP_S later
+LATE_ROUNDS = 3
+LATE_ROUND_GAP_S = 2.0
+
+
 def late_op_checks(card) -> None:
     """LATE_OP_CHECKS' calls profiled: each must be recorded, and within
-    its device operations a call (K3: 1, K10 at most 2)."""
+    its device operations a call (K3 and K13: 1; K10 and K4 at most 2).  A
+    call the profiler recorded nothing of (device_launches' None: a
+    profile that misses a call's events, PERF.md §7) is profiled again in
+    a later round, up to LATE_ROUNDS in all; one still unrecorded fails."""
     lines = []
-    for label, most, fn in LATE_OP_CHECKS:
-        n, per = device_launches(fn)
-        if n is None or n > most or (most == 1 and n != 1):
-            fail(f"{label}: {n} device operations a call ({per}), want "
-                 f"{'exactly' if most == 1 else 'at most'} {most}")
-        lines.append(f"{label}: {n}")
+    pending = list(LATE_OP_CHECKS)
+    for rnd in range(LATE_ROUNDS):
+        missed = []
+        for label, most, fn in pending:
+            n, per = device_launches(fn)
+            if n is None:
+                missed.append((label, most, fn, per))
+                continue
+            if n > most or (most == 1 and n != 1):
+                fail(f"{label}: {n} device operations a call ({per}), want "
+                     f"{'exactly' if most == 1 else 'at most'} {most}")
+            lines.append(f"{label}: {n}" + (f" (round {rnd + 1})" if rnd
+                                            else ""))
+        if not missed:
+            break
+        pending = [m[:3] for m in missed]
+        time.sleep(LATE_ROUND_GAP_S)
+    if missed:
+        fail("; ".join(f"{label}: the profiler recorded no device event in "
+                       f"{LATE_ROUNDS} rounds ({per}), want "
+                       f"{'exactly' if most == 1 else 'at most'} {most}"
+                       for label, most, _, per in missed))
     del LATE_OP_CHECKS[:]
-    say(f"[{card}] K3 and K10 device operations a call (torch.profiler): "
+    say(f"[{card}] K3, K10, K4 and K13 device operations a call "
+        f"(torch.profiler): "
         + "; ".join(lines))
 
 
@@ -4631,6 +4667,19 @@ def device_launches(fn, tries: int = 8):
 PROFILE_MISSES = {"calls": 0, "recovered": 0}
 PROFILE_PAD_S = 0.05
 
+
+def recorded_launches(fn):
+    """device_launches(fn) for a check that needs the count: a call the
+    profiler recorded nothing of is profiled again, up to LATE_ROUNDS
+    times in all, LATE_ROUND_GAP_S apart."""
+    for rnd in range(LATE_ROUNDS):
+        got = device_launches(fn)
+        if got[0] is not None:
+            return got
+        if rnd + 1 < LATE_ROUNDS:
+            time.sleep(LATE_ROUND_GAP_S)
+    return got
+
 # (label, call) pairs whose device work the kernel-times phase profiles:
 # calls made in earlier phases, so that no profiler session runs before
 # the mesh phase's launch-count checks (device_launches)
@@ -5228,6 +5277,261 @@ def k2_edge_checks(card, device, errs) -> None:
         f"resident {resident}: " + "; ".join(lines))
 
 
+# K4's corner cases (tests/test_torch_hist_hll_cases.py holds the plain
+# version to the reference's _hist_bucket, _hist_scatter and
+# _outlier_outputs on the same batches, made smaller): name -> options.
+# keys: key bounds (Sc = the product of card + 1, plus the dead slot);
+# hist: (hist_min, bucket_size, nv, discard_min, discard_max), or "multi"
+# (K4_MULTI: sub 0's 5 buckets of 10 end at 150, so 150-199 overflow it);
+# vals: the values' range (default -50 to 450: below the first bucket,
+# past the last and past the discard bound); gids: "random" (a tenth of
+# the rows dead), "one" (every row on gid 0), "few" (gids 0-3), "dead"
+# (nine rows in ten dead); weight: a weight column of +-2^62 (the counts
+# wrap mod 2^64), valid at 90%; outliers: outlier tracking.  The tables
+# land where the names say (scan.dense_hist_path: 51,200 words fit
+# SHARED_TABLE_BYTES, 51,201, one word past it, do not).
+K4_MULTI = ((100, 199, 10, 5, 0), (0, 99, 10, 10, 5))
+K4_CASES = {
+    "every row in one bucket of one gid": dict(
+        keys=((0, 5),), hist=(0, 10, 20, 0, 400), vals=(55, 56), gids="one"),
+    "weights that wrap mod 2^64": dict(
+        keys=((0, 5),), hist=(0, 10, 20, -200, 700), gids="few",
+        weight=True),
+    "a multihist value past its sub's array": dict(
+        keys=((0, 5),), hist="multi", vals=(-20, 230), outliers=True),
+    "discard bounds": dict(keys=((0, 5),), hist=(0, 7, 30, -150, 400),
+                           vals=(-300, 500), outliers=True),
+    "a bucket size past 32 bits": dict(
+        keys=((0, 5),), hist=(-2 ** 40, 2 ** 33, 300, -2 ** 41, 2 ** 41),
+        vals=(-2 ** 41, 2 ** 41), outliers=True),
+    "the dead gid": dict(keys=((0, 5),), hist=(0, 10, 20, 0, 400),
+                         gids="dead", outliers=True),
+    "a table at SHARED_TABLE_BYTES": dict(
+        keys=((0, 7),), hist=(0, 1, 6400, 0, 7000), vals=(-10, 6500),
+        outliers=True),
+    "a table one word past SHARED_TABLE_BYTES": dict(
+        keys=((0, 8),), hist=(0, 1, 5689, 0, 7000), vals=(-10, 6000),
+        outliers=True),
+    "global counts, every row on one entry": dict(
+        keys=((0, 8),), hist=(0, 1, 5689, 0, 7000), vals=(55, 56),
+        gids="one"),
+    "global counts, weighted, rows on few entries": dict(
+        keys=((0, 90), (0, 89)), hist=(0, 40, 12, 0, 400), vals=(0, 80),
+        gids="few", weight=True, outliers=True),
+}
+# the table each case's K4 takes (scan.dense_hist_path)
+K4_ROUTES = {"a table at SHARED_TABLE_BYTES": "shared",
+             "a table one word past SHARED_TABLE_BYTES": "global",
+             "global counts, every row on one entry": "global",
+             "global counts, weighted, rows on few entries": "global"}
+
+
+def _case_gids(rng, how: str, Sc: int, R: int):
+    """int32 [R] reduce-space gids (dead = Sc-1) laid out as `how` says."""
+    import numpy as np
+    if how == "one":
+        return np.zeros(R, np.int32)
+    if how == "few":
+        return rng.integers(0, min(4, Sc - 1), R).astype(np.int32)
+    g = rng.integers(0, Sc - 1, R)
+    dead = rng.random(R) < (0.9 if how == "dead" else 0.1)
+    return np.where(dead, Sc - 1, g).astype(np.int32)
+
+
+def k4_case(name: str, B: int, C: int, seed: int = 0):
+    """K4's corner case `name` as numpy arrays -> (scan config fields, as
+    k2w_config takes them; K2's gid int32 [R]; {col: (values int64 [B,
+    C], valid bool [B, C])}; Sc)."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import scan
+    o = K4_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K4_CASES).index(name))
+    R = B * C
+    lo, hi = o.get("vals", (-50, 450))
+    cols = {"v": (rng.integers(lo, hi, R).reshape(B, C),
+                  (rng.random(R) < 0.9).reshape(B, C))}
+    if o.get("weight"):
+        cols["w"] = (rng.integers(-2 ** 62, 2 ** 62, R).reshape(B, C),
+                     (rng.random(R) < 0.9).reshape(B, C))
+    if o["hist"] == "multi":
+        agg = dict(hist_min=0, bucket_size=0, num_values=15,
+                   discard_min=-1000, discard_max=1000, sub_edges=K4_MULTI)
+    else:
+        hmin, bs, nv, dmin, dmax = o["hist"]
+        agg = dict(hist_min=hmin, bucket_size=bs, num_values=nv,
+                   discard_min=dmin, discard_max=dmax)
+    fields = dict(group_cols=tuple(f"k{i}" for i in range(len(o["keys"]))),
+                  aggs=(("v", agg),), filters=(),
+                  weight_col="w" if o.get("weight") else "",
+                  key_bounds=tuple(o["keys"]),
+                  track_outliers=bool(o.get("outliers")))
+    Sc = scan.reduce_space(k2w_config(scan, fields))[1]
+    return fields, _case_gids(rng, o.get("gids", "random"), Sc, R), cols, Sc
+
+
+def k4_edge_checks(card, device, errs) -> None:
+    """K4 on the card over K4_CASES (B 4, C 65,536), each launch held to
+    its plain version word for word (the counts, the outlier mask, values
+    and count).  Fails unless every table of scan.K4_PATHS ran (by the
+    kernel's own CTA counts), each case in its K4_ROUTES route.  A call's
+    device operations (at most 2: the memset and the kernel) are checked
+    late, one call a route (LATE_OP_CHECKS)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    total = dict.fromkeys(scan.K4_PATHS, 0)
+    lines, seen = [], set()
+    for name in K4_CASES:
+        fields, gid, ncols, _ = k4_case(name, 4, 65536)
+        cfg = k2w_config(scan, fields)
+        cols = {k: (torch.from_numpy(v).to(device),
+                    torch.from_numpy(m).to(device))
+                for k, (v, m) in ncols.items()}
+        gid_t = torch.from_numpy(gid).to(device)
+        route = scan.dense_hist_path(cfg, 0)
+        if route != K4_ROUTES.get(name, route):
+            fail(f"K4 case {name!r} takes the {route} table, not "
+                 f"{K4_ROUTES[name]}")
+        paths = torch.zeros(len(scan.K4_PATHS), dtype=torch.int64,
+                            device=device)
+        got = scan.dense_hist(cfg, 0, cols, gid_t, paths=paths)
+        want = scan.dense_hist_plain(cfg, 0, cols, gid_t)
+        check_outs("dense_hist", f"case {name!r}", got, want,
+                   ("hist", "out_mask", "out_val", "nout"), errs)
+        took = [k for k, n in zip(scan.K4_PATHS, paths.tolist()) if n]
+        if took != [route]:
+            fail(f"K4 case {name!r}: CTAs took {took}, not {route}")
+        total[route] += int(paths.sum().item())
+        lines.append(f"{name}: {route}")
+        if route not in seen:
+            seen.add(route)
+            LATE_OP_CHECKS.append((
+                f"dense_hist {route} ({name})", 2,
+                lambda a=(cfg, 0, cols, gid_t): scan.dense_hist(*a)))
+    if not all(total.values()):
+        fail(f"K4's tables (CTAs) {total}: each must run")
+    say(f"[{card}] K4 == plain word for word on {len(K4_CASES)} corner "
+        f"cases; tables (CTAs) {total}: " + "; ".join(lines))
+
+
+# K13's corner cases (tests/test_torch_hist_hll_cases.py holds the plain
+# version to the reference's _hash_int_col, _hll_idx_rank and
+# _hll_registers on the same batches, made smaller): name -> options.
+# keys: key bounds (the planes the rows reach: Sc, the live slots and the
+# dead one; 128 slots at most); hash: "int" (FNV-1a and splitmix64 in the
+# kernel) or "str" (a per-id hash array of `nd` entries, its last the
+# missing value's); vals: the values' range (str: ids, clamped to [0,
+# nd-1]); crafted: hash entries whose low 50 bits are zero (rank 51);
+# gids: as K4's; valid: the share of rows with a value (MISSING
+# otherwise).  The forms follow the planes (scan.hll_route: 12 planes of
+# 16 KB fit SHARED_TABLE_BYTES, 13 do not).
+K13_CASES = {
+    "rank 51, a zero remainder": dict(keys=((0, 5),), hash="str", nd=9,
+                                      crafted=True),
+    "MISSING values, int hash": dict(keys=((0, 5),), hash="int",
+                                     valid=0.5),
+    "MISSING values, str hash": dict(keys=((0, 5),), hash="str", nd=40,
+                                     valid=0.5),
+    "str ids below 0 and past nd - 1": dict(keys=((0, 5),), hash="str",
+                                            nd=12, vals=(-5, 18)),
+    "one register hit by every row": dict(keys=((0, 5),), hash="int",
+                                          vals=(7, 8), gids="one",
+                                          valid=1.0),
+    "one live slot": dict(keys=((0, 1),), hash="int", gids="one"),
+    "8 planes": dict(keys=((0, 6),), hash="str", nd=5000),
+    "12 planes, at SHARED_TABLE_BYTES": dict(keys=((0, 10),), hash="int"),
+    "13 planes, past it": dict(keys=((0, 11),), hash="int"),
+    "128 slots, str hash": dict(keys=((0, 126),), hash="str", nd=6),
+    "128 slots, int hash": dict(keys=((0, 126),), hash="int"),
+    "the dead slot": dict(keys=((0, 5),), hash="int", gids="dead"),
+}
+# the form each case's K13 takes (scan.hll_route)
+K13_ROUTES = {"12 planes, at SHARED_TABLE_BYTES": "shared",
+              "13 planes, past it": "global",
+              "128 slots, str hash": "global",
+              "128 slots, int hash": "global"}
+
+
+def k13_case(name: str, B: int, C: int, seed: int = 0):
+    """K13's corner case `name` as numpy arrays -> (scan config fields, as
+    k2w_config takes them; K2's gid int32 [R]; {"d": (values int64 [B,
+    C], valid bool [B, C])}; the str hash array as uint64 [nd], or None;
+    Sc)."""
+    import numpy as np
+
+    from sybil_tpu_torch.ops import scan
+    o = K13_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K13_CASES).index(name))
+    R = B * C
+    str_hash = o["hash"] == "str"
+    lo, hi = o.get("vals", (0, o["nd"]) if str_hash else (-2 ** 62,
+                                                          2 ** 62))
+    cols = {"d": (rng.integers(lo, hi, R).reshape(B, C),
+                  (rng.random(R) < o.get("valid", 0.9)).reshape(B, C))}
+    hashes = None
+    if str_hash:
+        hashes = rng.integers(0, 2 ** 64, o["nd"], dtype=np.uint64)
+        if o.get("crafted"):
+            # the top 14 bits only: rest == 0, rank 51
+            hashes[::2] = rng.integers(0, 2 ** 14, len(hashes[::2]),
+                                       dtype=np.uint64) << np.uint64(50)
+    fields = dict(group_cols=tuple(f"k{i}" for i in range(len(o["keys"]))),
+                  aggs=(), filters=(), distinct_cols=("d",),
+                  key_bounds=tuple(o["keys"]), hll=True,
+                  hll_hash_idx=0 if str_hash else -1)
+    Sc = scan.reduce_space(k2w_config(scan, fields))[1]
+    return (fields, _case_gids(rng, o.get("gids", "random"), Sc, R), cols,
+            hashes, Sc)
+
+
+def k13_edge_checks(card, device, errs) -> None:
+    """K13 on the card over K13_CASES (B 4, C 65,536), each launch held to
+    its plain version byte for byte.  Fails unless both forms of
+    scan.K13_PATHS ran (by the kernel's own CTA counts), each case in its
+    K13_ROUTES form.  A call's device operations (exactly 1: the
+    cooperative launch, no memset) are checked late, one call a form
+    (LATE_OP_CHECKS)."""
+    import numpy as np
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    total = dict.fromkeys(scan.K13_PATHS, 0)
+    lines, seen = [], set()
+    for name in K13_CASES:
+        fields, gid, ncols, hashes, _ = k13_case(name, 4, 65536)
+        cfg = k2w_config(scan, fields)
+        cols = {k: (torch.from_numpy(v).to(device),
+                    torch.from_numpy(m).to(device))
+                for k, (v, m) in ncols.items()}
+        gid_t = torch.from_numpy(gid).to(device)
+        bits = (() if hashes is None else
+                (torch.from_numpy(hashes.view(np.int64)).to(device),))
+        route = scan.hll_route(cfg)
+        if route != K13_ROUTES.get(name, "shared"):
+            fail(f"K13 case {name!r} takes the {route} form")
+        paths = torch.zeros(len(scan.K13_PATHS), dtype=torch.int64,
+                            device=device)
+        got = scan.hll_registers(cfg, cols, gid_t, bits, paths=paths)
+        want = scan.hll_registers_plain(cfg, cols, gid_t, bits)
+        check_equal(f"hll_registers case {name!r}", got, want,
+                    errs["hll_registers"])
+        took = [k for k, n in zip(scan.K13_PATHS, paths.tolist()) if n]
+        if took != [route]:
+            fail(f"K13 case {name!r}: CTAs took {took}, not {route}")
+        total[route] += int(paths.sum().item())
+        lines.append(f"{name}: {route}")
+        if route not in seen:
+            seen.add(route)
+            LATE_OP_CHECKS.append((
+                f"hll_registers {route} ({name})", 1,
+                lambda a=(cfg, cols, gid_t, bits): scan.hll_registers(*a)))
+    if not all(total.values()):
+        fail(f"K13's forms (CTAs) {total}: each must run")
+    say(f"[{card}] K13 == plain byte for byte on {len(K13_CASES)} corner "
+        f"cases; forms (CTAs) {total}: " + "; ".join(lines))
+
+
 # K2's windowed form, corner cases (tests/test_torch_rollup.py holds the
 # plain version to the reference's windowed _scan_dense on the same
 # batches, made smaller): name -> options.  tcard: the time key's
@@ -5453,7 +5757,7 @@ def k12_edge_checks(card, device, errs, shapes) -> None:
         got = scan.topk_rows(flags, k, two_valued=True)
         check_equal(f"topk_rows two-valued {what} ([{R}], k {k})", got,
                     scan.topk_rows_plain(flags, k), errs["topk_rows"])
-        n, per = device_launches(
+        n, per = recorded_launches(
             lambda: scan.topk_rows(flags, k, two_valued=True))
         want = 1 if R <= scan.TOPK_TV_TILE else 2
         if n != want:
@@ -5945,7 +6249,7 @@ def k15_row(card, config, parts, D, Sc, stats, label):
     def k15():
         mesh.shuffle_partition(config, parts, D, Sc, stats)
     dms = queued_ms(k15, iters=50)
-    nl, per = device_launches(k15)
+    nl, per = recorded_launches(k15)
     most = 2 if Seff <= 1024 else 3
     if nl is None or nl > most:
         fail(f"K15 at {label}: {nl} device operations a call ({per}), "
@@ -7064,6 +7368,8 @@ def main(argv=None) -> int:
             (f"config 4 {tl}", cfg, cols_, nrec_, None, (), C4_BUCKET, None)
             for tl, (cfg, cols_, nrec_) in c4.items()])
         k2_edge_checks(card, dev, errs)
+        k4_edge_checks(card, dev, errs)
+        k13_edge_checks(card, dev, errs)
 
         for label in EDGE_SCANS:
             cfg, ecols, enrec, efv, ebits, etb = edge_scan(label, dev)
@@ -7933,10 +8239,10 @@ def main(argv=None) -> int:
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
         if args.rows == DEFAULT_ROWS:
-            off = {k: (launches[k], n) for k, n in PACK_LAUNCHES.items()
+            off = {k: (launches[k], n) for k, n in MAIN_LAUNCHES.items()
                    if launches[k] != n}
             if off:
-                fail(f"the pack kernels' main-path launches (got, want): "
+                fail(f"the main path's launches (got, want): "
                      f"{off}")
         say(f"main path launches over every query of phase 5: {launches}")
 
@@ -8703,8 +9009,8 @@ def main(argv=None) -> int:
             dv[fn].append(queued_ms(fn, iters=50))
         ev_both, ev_alone = median(ev[k12_gather]), median(ev[k12_alone])
         dv_both, dv_alone = median(dv[k12_gather]), median(dv[k12_alone])
-        nl_alone, _ = device_launches(k12_alone)
-        nl_both, per_both = device_launches(k12_gather)
+        nl_alone, _ = recorded_launches(k12_alone)
+        nl_both, per_both = recorded_launches(k12_gather)
         if nl_alone is None or nl_both != nl_alone:
             fail(f"the device prune's select and gather: {nl_both} device "
                  f"operations a call ({per_both}), not K12's {nl_alone}")

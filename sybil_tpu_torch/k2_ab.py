@@ -101,8 +101,17 @@ outliers tracked); dense_keyed at a -read-log pseudo-block (65,536 rows,
 the distinct pairs (a 16,384-row section), the device prune at config
 5's 100,000 slots and a mesh batch's merged table (path 2's); enum_pack
 at config 5 (4,194,304 rows, 1,000 winners).  `--only B5` (b5_runs):
-K4, K13, K9's two entries and K11 at their main-path shapes, the
-wrappers that bind their C entry once.
+K9's two entries and K11 at their main-path shapes, the wrappers that
+bind their C entry once.
+
+K4 and K13 (`--only K4,K13`, hist_hll_runs): K4 at config 3, config 3
+-loghist, config 2 and chip_smoke.py's global-table edge batch after
+K2's gid; K13 with the int hash (a distinct
+index a row) and the str hash (5 status ids) at `group by host` (7
+planes) and at 126 groups (128 planes); each label gives the table, the
+route and the grid the root takes.  With `--trace`, first the atomics
+and ptxas registers of each kernel of the dense_hist and hll_registers
+libraries.
 
 `--only K6,K8` (before the roots) times only the runs whose label
 starts with one of the prefixes and a non-digit (`--only K15,prune` the
@@ -336,6 +345,8 @@ def kernel_runs(root: str, only=()) -> tuple:
         runs += pack_runs(scan, dev)
     if not only or "B5" in only:
         runs += b5_runs(scan, dev)
+    if not only or "K4" in only or "K13" in only:
+        runs += hist_hll_runs(scan, dev)
     if only:
         runs = tuple(r for r in runs if any(_selects(o, r[0]) for o in only))
     return runs
@@ -1372,13 +1383,12 @@ def pack_runs(scan, dev, B: int = 128) -> tuple:
 
 
 def b5_runs(scan, dev, B: int = 128) -> tuple:
-    """Five of the wrappers that bind their C entry once (kernels.entry)
-    at the main path's shapes, 8,388,608 rows unless noted: K4
-    dense_hist at config 3, K13 hll_registers at group by host, distinct
-    ping (the int hash), K9's hist_prep and hist_pairs at path 1 (config
-    3 -tdigest) and K11 enum_segments at config 5 (a partition's
-    4,194,304 rows, zipf user ids).  (K14 set_match and K5
-    outlier_compact: the K14 and K5 runs.)"""
+    """Three of the wrappers that bind their C entry once (kernels.entry)
+    at the main path's shapes: K9's hist_prep and hist_pairs at path 1
+    (config 3 -tdigest, 8,388,608 rows) and K11 enum_segments at config 5
+    (a partition's 4,194,304 rows, zipf user ids).  (K4 and K13: the K4
+    and K13 runs; K14 set_match and K5 outlier_compact: the K14 and K5
+    runs.)"""
     import torch
     C = 65536
     R = B * C
@@ -1399,19 +1409,11 @@ def b5_runs(scan, dev, B: int = 128) -> tuple:
           "status": col(rint(0, 5, R), 1.0)}
     fv = torch.tensor([0], dtype=torch.int64, device=dev)
     status = (scan.FilterSpec("status", "eq", "str"),)
-    c3 = scan.ScanConfig(group_cols=("host",),
-                         aggs=(scan.AggSpec("ping", 0, 1, 166, 0, 165),),
-                         filters=status, key_bounds=((0, 5),))
-    chll = scan.ScanConfig(group_cols=("host",), aggs=(), filters=(),
-                           distinct_cols=("ping",), key_bounds=((0, 5),),
-                           hll=True)
     p1 = scan.ScanConfig(
         group_cols=("host",), aggs=(scan.AggSpec("ping", 0, 1, 202, 0,
                                                  200),),
         filters=status, key_bounds=((0, 5),), force_sorted=True,
         sort_pack=((0, 5),))
-    k2 = scan.dense_scan(c3, up, nrec, fv)
-    k2h = scan.dense_scan(chll, up, nrec)
     front = scan.sorted_front(p1, up, nrec, fv)
     k8 = scan.segment_reduce(p1, up, front, scan.sort_rows(p1, front))
     prep = scan.hist_prep(p1, 0, up, k8)
@@ -1431,16 +1433,121 @@ def b5_runs(scan, dev, B: int = 128) -> tuple:
     front5 = scan.sorted_front(ce, cols5, nrec[:B5])
     skey, p = torch.sort(front5["key"], stable=True)
     return (
-        ("B5 dense_hist at config 3", 20,
-         lambda: scan.dense_hist(c3, 0, up, k2["gid"])),
-        ("B5 hll_registers at distinct ping (int hash)", 20,
-         lambda: scan.hll_registers(chll, up, k2h["gid"])),
         ("B5 hist_prep at path 1", 20,
          lambda: scan.hist_prep(p1, 0, up, k8)),
         ("B5 hist_pairs at path 1", 20,
          lambda: scan.hist_pairs(p1, 0, spk, si2, prep["w"], k8["kmat"])),
         (f"B5 enum_segments at config 5 ({C5_ROWS} rows)", 20,
          lambda: scan.enum_segments(ce, cols5, skey, p)))
+
+
+def _k4_form(scan, cfg, dev, R: int) -> str:
+    """K4's table and grid at a config, as the root picks them: Sc, nv,
+    the table and the CTAs."""
+    _, Sc, _ = scan.reduce_space(cfg)
+    nv = cfg.aggs[0].num_values
+    form = scan.dense_hist_path(cfg, 0)
+    grid = (scan.tile_grid(dev, R) if hasattr(scan, "tile_grid") else
+            scan._grid(dev, R, Sc * nv * 8, form == "shared"))
+    return f"Sc {Sc}, nv {nv}, {form}, grid {grid}"
+
+
+def _k13_form(scan, cfg, dev, R: int) -> str:
+    """K13's planes and grid at a config, as the root picks them."""
+    slots, Sc, _ = scan.reduce_space(cfg)
+    if hasattr(scan, "hll_route"):
+        form, grid = scan.hll_route(cfg), scan.tile_grid(dev, R)
+    else:
+        form, grid = "global", scan._grid(dev, R, 0, False)
+    return f"slots {slots}, Sc {Sc}, {form}, grid {grid}"
+
+
+def hist_hll_runs(scan, dev, B: int = 128) -> tuple:
+    """K4 and K13 at the main path's shapes, 8,388,608 rows (k2_ab's
+    uptime columns: 5 hosts at 93%, ping abs(normal(60, 20)) at 89%, 5
+    statuses): K4 at config 3 (`status eq 200, group by host, hist ping`:
+    Sc 7, nv 166), config 3 -loghist (one multihist sub-range, outliers
+    tracked), config 2 (`action neq pageload, weight gt 5, group by
+    action, page, hist weight`: Sc 91, nv 101) and chip_smoke.py's
+    global-table edge batch, after K2's gid; K13 at
+    `group by host` (Sc 7 planes) with the int hash (index_int: a distinct
+    value a row) and the str hash (status: 5 ids, a 6-entry hash array),
+    and both again at 126 groups (128 slots, the bind's cap, none compact:
+Sc 128 planes).  Each
+    label names the table, the route and the grid the root takes."""
+    import torch
+    C = 65536
+    R = B * C
+    g = torch.Generator(dev).manual_seed(4)
+
+    def rint(lo, hi, shape=(B, C)):
+        return torch.randint(lo, hi, shape, device=dev, generator=g)
+
+    def valid(p):
+        return torch.rand((B, C), device=dev, generator=g) < p
+
+    nrec = torch.full((B,), C, dtype=torch.int32, device=dev)
+    ping = (torch.randn((B, C), device=dev, generator=g) * 20 + 60).abs().to(
+        torch.int64)
+    up = {"host": (rint(0, 5), valid(0.93)), "ping": (ping, valid(0.89)),
+          "status": (rint(0, 5), torch.ones((B, C), dtype=torch.bool,
+                                            device=dev))}
+    fv = torch.tensor([0], dtype=torch.int64, device=dev)
+    status = (scan.FilterSpec("status", "eq", "str"),)
+    c3 = scan.ScanConfig(group_cols=("host",),
+                         aggs=(scan.AggSpec("ping", 0, 1, 166, 0, 1640),),
+                         filters=status, key_bounds=((0, 5),))
+    c3l = scan.ScanConfig(
+        group_cols=("host",),
+        aggs=(scan.AggSpec("ping", 0, 0, 166, 0, 1640,
+                           sub_edges=((0, 164, 1, 166, 0),)),),
+        filters=status, key_bounds=((0, 5),), track_outliers=True)
+    ones = torch.ones((B, C), dtype=torch.bool, device=dev)
+    c2cols = {"action": (rint(0, 9), ones), "page": (rint(0, 8), ones),
+              "weight": (torch.tensor([1, 10, 100], device=dev)[rint(0, 3)],
+                         ones)}
+    c2 = scan.ScanConfig(
+        group_cols=("action", "page"),
+        aggs=(scan.AggSpec("weight", 1, 1, 101, 1, 1000),),
+        filters=(scan.FilterSpec("action", "neq", "str"),
+                 scan.FilterSpec("weight", "gt", "int")),
+        key_bounds=((0, 9), (0, 8)))
+    c2fv = torch.tensor([0, 5], dtype=torch.int64, device=dev)
+    # chip_smoke.py's edge batch whose hist table is past the shared
+    # budget (3 x 65,536 rows, Sc 8,191, nv 12, weighted)
+    sys.path.append(REPO)
+    import chip_smoke
+    edge = chip_smoke.edge_scan("hist table in global memory", dev)
+    runs = []
+    for label, cfg, cols, f, n in (
+            ("config 3", c3, up, fv, nrec),
+            ("config 3 -loghist", c3l, up, fv, nrec),
+            ("config 2", c2, c2cols, c2fv, nrec),
+            ("global-table edge batch", edge[0], edge[1], edge[3], edge[2])):
+        gid = scan.dense_scan(cfg, cols, n, f)["gid"]
+        rows = n.numel() * C
+        runs.append((f"K4 {label} ({_k4_form(scan, cfg, dev, rows)})", 20,
+                     lambda cfg=cfg, cols=cols, gid=gid:
+                     scan.dense_hist(cfg, 0, cols, gid)))
+    hll = dict(up, index_int=(torch.arange(R, device=dev).reshape(B, C),
+                              ones),
+               many=(rint(0, 126), valid(0.97)))
+    hashes = (torch.randint(-2 ** 63, 2 ** 63 - 1, (6,), device=dev,
+                            generator=g),)
+    for keys, bounds in ((("host",), ((0, 5),)), (("many",), ((0, 126),))):
+        for tag, col, idx in (("int", "index_int", -1),
+                              ("str", "status", 0)):
+            cfg = scan.ScanConfig(group_cols=keys, aggs=(), filters=(),
+                                  distinct_cols=(col,), key_bounds=bounds,
+                                  hll=True, hll_hash_idx=idx)
+            sub = {k: hll[k] for k in keys + (col,)}
+            gid = scan.dense_scan(cfg, sub, nrec)["gid"]
+            bits = hashes if idx >= 0 else ()
+            runs.append((f"K13 {tag} hash, distinct {col} "
+                         f"({_k13_form(scan, cfg, dev, R)})", 20,
+                         lambda cfg=cfg, sub=sub, gid=gid, bits=bits:
+                         scan.hll_registers(cfg, sub, gid, bits)))
+    return tuple(runs)
 
 
 def atomics(root: str, kernels, names) -> list:
@@ -1554,10 +1661,12 @@ def trace_runs(root: str, only) -> str:
     import chip_smoke
     out = []
     from sybil_tpu_torch.ops import kernels
-    if any(o.startswith(("K1", "K2")) for o in only):
+    if any(o in ("K1", "K2") for o in only):
         out += atomics(root, kernels, ("decode_bucket2", "dense_scan"))
     if any(o.startswith(("K7", "sort_permute")) for o in only):
         out += atomics(root, kernels, ("sorted_front",))
+    if any(o in ("K4", "K13") for o in only):
+        out += atomics(root, kernels, ("dense_hist", "hll_registers"))
     for what, n, fn in runs:
         line = (f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
                 f"{_ms(fn, n, queued=True):.4f} ms device, "

@@ -1,5 +1,5 @@
-"""Variants of K1's, K2's, K7's and K10's sources timed side by side on one
-card.
+"""Variants of K1's, K2's, K4's, K7's, K10's and K13's sources timed side
+by side on one card.
 
     python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
 
@@ -11,10 +11,11 @@ in reverse order) on the same card: K2 (dense_scan) at config 1's,
 config 1's global form's, config 3's and config 2's shapes and config 4's
 three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes;
 K7 and sort_permute (sorted_front) at k2_ab.py's K7 and sort_permute
-shapes; K10 (sorted_pack) at k2_ab.py's K10 shapes (pack_runs).  A
-variant that drops work (the row pass, the adds) gives wrong words: it
-only splits the time.  Prints each run's wall and device ms (k2_ab._ms)
-and the ptxas spill lines of the variant's build.
+shapes; K10 (sorted_pack) at k2_ab.py's K10 shapes (pack_runs); K4
+(dense_hist) and K13 (hll_registers) at k2_ab.py's K4 and K13 shapes
+(hist_hll_runs).  A variant that drops work (the row pass, the adds)
+gives wrong words: it only splits the time.  Prints each run's wall and
+device ms (k2_ab._ms) and the ptxas spill lines of the variant's build.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "sybil_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "archive_check", "var")
 K2S, K1S, K7S = "dense_scan", "decode_bucket2", "sorted_front"
-K10S = "sorted_pack"
+K10S, K4S, K13S = "sorted_pack", "dense_hist", "hll_registers"
 # name -> (source, [(old, new)], {ops/scan.py constant: value})
 VARIANTS = {
     "k2 as committed": (K2S, [], {}),
@@ -112,6 +113,45 @@ VARIANTS = {
         ("    pad_part(a, (t - ntile) / NHELP, (t - ntile) % NHELP);",
          "    return;"),
         ("    table_part(a, (int)blockIdx.x - npc);\n", "")], {}),
+    "k4 as committed": (K4S, [], {}),
+    "k4 2 rows a lane": (K4S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 2;")], {}),
+    "k4 8 rows a lane": (K4S, [("constexpr int TU = 4;",
+                                "constexpr int TU = 8;")], {}),
+    "k4 streaming outlier stores": (K4S, [
+        ("          a.out_mask[ru] = o;\n"
+         "          a.out_val[ru] = o ? cur.v[u] : 0ll;",
+         "          __stcs(a.out_mask + ru, (unsigned char)o);\n"
+         "          __stcs(a.out_val + ru, o ? cur.v[u] : 0ll);")], {}),
+    "k4 no adds (loads and buckets alone)": (K4S, [
+        ("      } else if (e >= 0) {", "      } else if (e == -7) {")], {}),
+    "k13 as committed": (K13S, [], {}),
+    "k13 8 rows a lane": (K13S, [("constexpr int TU = 4;",
+                                  "constexpr int TU = 8;")], {}),
+    "k13 no OR (register reads alone)": (K13S, [
+        ("      if ((old[u] & th) != th) {", "      if ((old[u] & th) == 7u) {")],
+        {}),
+    "k13 global form: the word read first (no cache)": (K13S, [
+        ("        old[u] = e.x == wi[u] ? e.y : 0u;",
+         "        old[u] = __ldcg(planes + wi[u]);")], {}),
+    "k13 global form: an OR a row (no cache)": (K13S, [
+        ("        old[u] = e.x == wi[u] ? e.y : 0u;", "        old[u] = 0u;")],
+        {}),
+    "k13 no ranks past 8 sent": (K13S, [
+        ("      if (rank[u] > TH_MAX) send_high(",
+         "      if (rank[u] > 99) send_high(")], {}),
+    "k13 one multiply for the int hash": (K13S, [
+        ("      h = hash_int(cur.ok[u] ? cur.v[u] : -1ll);",
+         "      h = (unsigned long long)(cur.ok[u] ? cur.v[u] : -1ll) * "
+         "0x9E3779B97F4A7C15ull;")], {}),
+    "k13 no phase 2": (K13S, [
+        ("  for (int cb = c0; cb < c1; cb += TT) {",
+         "  for (int cb = c0; cb < c1 && a.R < 0; cb += TT) {")], {}),
+    "k13 no prefetch": (K13S, [
+        ("    load_rows(a, r0 + step + lane, nxt);  // in flight while these "
+         "hash\n", ""),
+        ("    cur = nxt;\n", "    load_rows(a, r0 + step + lane, cur);\n")],
+        {}),
     "k1 as committed": (K1S, [], {}),
     "k1 scan pass alone": (K1S, [
         ("  bucket_rows<<<dim3(a.nr, a.B), THREADS, shm, s>>>(a);\n", "")],
@@ -200,6 +240,9 @@ def child(d: str, src: str) -> None:
     dev = torch.device("cuda")
     # a sort_permute variant ("sp ...") times sort_permute's runs alone
     runs = (k2_shapes(scan, dev) if src == K2S else
+            [r for r in k2_ab.hist_hll_runs(scan, dev)
+             if r[0].startswith("K4 " if src == K4S else "K13 ")]
+            if src in (K4S, K13S) else
             list(k2_ab.k1_runs(dev)) if src == K1S else
             [r for r in k2_ab.pack_runs(scan, dev) if r[0].startswith("K10")]
             if src == K10S else

@@ -1399,10 +1399,32 @@ def dense_scan_path(config: ScanConfig) -> str:
 
 
 # ---------------------------------------------------------------------------
+# K4 dense_hist and K13 hll_registers: the tiled kernels' grid
+# ---------------------------------------------------------------------------
+
+# K4's and K13's kernels: threads of their one CTA a SM and rows a lane a
+# tile (TT and TU in csrc/dense_hist.cu and hll_registers.cu); their C
+# entries take (args struct, form, grid, stream)
+_TILE_THREADS = 1024
+_TILE_ROWS = 4
+_FORM_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def tile_grid(dev, R: int) -> int:
+    """CTAs of K4's and K13's tiled kernels over R rows: one a SM, at most
+    one a tile of _TILE_THREADS x _TILE_ROWS rows."""
+    return max(1, min(-(-R // (_TILE_THREADS * _TILE_ROWS)), _sm_count(dev)))
+
+
+# ---------------------------------------------------------------------------
 # K4 dense_hist
 # ---------------------------------------------------------------------------
 
 _MAXSUB = 64
+_SPAN_CAP = 2 ** 63
+# the CTAs of K4's tables that its `paths` counts, in order (the C entry's
+# `mode` is the index)
+K4_PATHS = ("shared", "global")
 
 
 class DenseHistArgs(ctypes.Structure):
@@ -1416,15 +1438,17 @@ class DenseHistArgs(ctypes.Structure):
         ("counts", ctypes.c_void_p),
         ("out_mask", ctypes.c_void_p),
         ("out_val", ctypes.c_void_p),
-        ("nout", ctypes.c_void_p),
+        ("paths", ctypes.c_void_p),
         ("sub_min", ctypes.c_longlong * _MAXSUB),
         ("sub_max", ctypes.c_longlong * _MAXSUB),
         ("sub_bs", ctypes.c_longlong * _MAXSUB),
+        ("sub_span", ctypes.c_ulonglong * _MAXSUB),
         ("sub_nv", ctypes.c_longlong * _MAXSUB),
         ("sub_off", ctypes.c_longlong * _MAXSUB),
         ("R", ctypes.c_longlong),
         ("hist_min", ctypes.c_longlong),
         ("bucket_size", ctypes.c_longlong),
+        ("span", ctypes.c_ulonglong),
         ("dmin", ctypes.c_longlong),
         ("dmax", ctypes.c_longlong),
         ("nv", ctypes.c_int),
@@ -1486,22 +1510,9 @@ def dense_hist_plain(config: ScanConfig, ai: int, cols, gid):
     return out
 
 
-def dense_hist(config: ScanConfig, ai: int, cols, gid):
-    """K4 for aggregation `ai`: as dense_hist_plain.  CUDA tensors launch
-    the kernel (csrc/dense_hist.cu); CPU tensors take dense_hist_plain.
-
-    gid: K2's int32 [R] reduce-space gid (dead rows Sc-1).  Replaces
-    sybil_tpu/ops/scan.py:_hist_bucket, _hist_matmul / _hist_scatter and
-    _outlier_outputs.  Bound by memory; a per-CTA shared [Sc, nv] table
-    of exact 64-bit atomic adds, or global atomics when it exceeds
-    SHARED_TABLE_BYTES (see the source note)."""
-    B, C = _batch_shape(cols)
-    dev = gid.device
-    if dev.type == "cpu":
-        return dense_hist_plain(config, ai, cols, gid)
-    if dev.type != "cuda":
-        raise ValueError(f"dense_hist: unsupported device {dev}")
-    R = B * C
+def _hist_plan(config: ScanConfig, R: int, form: str):
+    """K4's launch plan for aggregation int(form) of (config, R)."""
+    ai = int(form)
     agg = config.aggs[ai]
     nv = agg.num_values
     if nv <= 0:
@@ -1512,48 +1523,96 @@ def dense_hist(config: ScanConfig, ai: int, cols, gid):
             f"{len(agg.sub_edges)}")
     if not agg.sub_edges and agg.bucket_size <= 0:
         raise ValueError(f"dense_hist: bucket size {agg.bucket_size}")
-    _check_tensor(gid, (R,), torch.int32, "gid", dev, "dense_hist")
-    v, m = _check_col(cols, agg.col, B, C, dev, "dense_hist")
     _, Sc, _ = reduce_space(config)
-    counts = torch.empty((Sc, nv), dtype=torch.int64, device=dev)
-    out = {"hist": counts, "out_mask": None, "out_val": None, "nout": None}
+    if R >= 2 ** 31 or Sc * nv >= 2 ** 31:
+        raise ValueError(f"dense_hist: takes fewer than 2^31 rows and "
+                         f"table entries, got {R} and {Sc * nv}")
     a = DenseHistArgs()
+    for i, (smin, smax, sbs, snv, soff) in enumerate(agg.sub_edges):
+        a.sub_min[i], a.sub_max[i], a.sub_bs[i] = smin, smax, sbs
+        a.sub_span[i] = min(snv * sbs, _SPAN_CAP)
+        a.sub_nv[i], a.sub_off[i] = snv, soff
+    a.nsub = len(agg.sub_edges)
+    a.R, a.hist_min, a.bucket_size = R, agg.hist_min, agg.bucket_size
+    a.span = min(nv * agg.bucket_size, _SPAN_CAP) if not agg.sub_edges else 0
+    a.dmin, a.dmax = agg.discard_min, agg.discard_max
+    a.nv, a.Sc, a.has_weight = nv, Sc, int(bool(config.weight_col))
+    route = dense_hist_path(config, ai)
+    return types.SimpleNamespace(Sc=Sc, nv=nv, col=agg.col, route=route,
+                                 mode=K4_PATHS.index(route),
+                                 track=config.track_outliers,
+                                 tmpl=bytes(a))
+
+
+def dense_hist(config: ScanConfig, ai: int, cols, gid, paths=None):
+    """K4 for aggregation `ai`: as dense_hist_plain.  CUDA tensors launch
+    the kernel (csrc/dense_hist.cu); CPU tensors take dense_hist_plain.
+
+    gid: K2's int32 [R] reduce-space gid (dead rows Sc-1).  paths: an
+    int64 [2] CUDA tensor, or None, to which the launch adds its CTAs by
+    table (K4_PATHS: the CTA's shared table, the global counts).
+    Replaces sybil_tpu/ops/scan.py:_hist_bucket, _hist_matmul /
+    _hist_scatter and _outlier_outputs.  Bound by memory; one CTA a SM,
+    a warp reads tiles of 32 x _TILE_ROWS rows a column at a time, and
+    each counted row adds itself to the CTA's shared table of narrow
+    words, or, past SHARED_TABLE_BYTES, a warp's rows on one (gid, bucket)
+    combined add to the global counts (dense_hist_path; see the source
+    note).  A call is one memset (the counts and the outlier count, one
+    buffer) and one launch; what the config fixes comes from its launch
+    plan (_hist_plan)."""
+    B, C = _batch_shape(cols)
+    dev = gid.device
+    if dev.type == "cpu":
+        return dense_hist_plain(config, ai, cols, gid)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_hist: unsupported device {dev}")
+    R = B * C
+    p = _plan("dense_hist", config, R, str(ai), _hist_plan)
+    _check_tensor(gid, (R,), torch.int32, "gid", dev, "dense_hist")
+    v, m = _check_col(cols, p.col, B, C, dev, "dense_hist")
+    a = DenseHistArgs.from_buffer_copy(p.tmpl)
     a.gid, a.vals, a.valid = gid.data_ptr(), v.data_ptr(), m.data_ptr()
     if config.weight_col:
         wv, wm = _check_col(cols, config.weight_col, B, C, dev,
                             "dense_hist")
-        a.w_vals, a.w_valid, a.has_weight = wv.data_ptr(), wm.data_ptr(), 1
-    a.counts = counts.data_ptr()
-    if config.track_outliers:
+        a.w_vals, a.w_valid = wv.data_ptr(), wm.data_ptr()
+    n = p.Sc * p.nv
+    # the counts, then the outlier count: one buffer, one memset
+    buf = torch.empty(n + p.track, dtype=torch.int64, device=dev)
+    out = {"hist": buf[:n].view(p.Sc, p.nv), "out_mask": None,
+           "out_val": None, "nout": None}
+    a.counts = buf.data_ptr()
+    if p.track:
         out["out_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
         out["out_val"] = torch.empty(R, dtype=torch.int64, device=dev)
-        out["nout"] = torch.empty(1, dtype=torch.int64, device=dev)
+        out["nout"] = buf[n:]
         a.out_mask = out["out_mask"].data_ptr()
         a.out_val = out["out_val"].data_ptr()
-        a.nout = out["nout"].data_ptr()
-    for i, (smin, smax, sbs, snv, soff) in enumerate(agg.sub_edges):
-        a.sub_min[i], a.sub_max[i], a.sub_bs[i] = smin, smax, sbs
-        a.sub_nv[i], a.sub_off[i] = snv, soff
-    a.nsub = len(agg.sub_edges)
-    a.R, a.hist_min, a.bucket_size = R, agg.hist_min, agg.bucket_size
-    a.dmin, a.dmax = agg.discard_min, agg.discard_max
-    a.nv, a.Sc = nv, Sc
-    tab_bytes = Sc * nv * 8
-    use_shared = dense_hist_path(config, ai) == "shared"
-    fn = kernels.entry("dense_hist", "dense_hist", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    kernels.check(fn(ctypes.byref(a), int(use_shared),
-                     _grid(dev, R, tab_bytes, use_shared),
+    if paths is not None:
+        _check_tensor(paths, (len(K4_PATHS),), torch.int64, "paths", dev,
+                      "dense_hist")
+        a.paths = paths.data_ptr()
+    fn = kernels.entry("dense_hist", "dense_hist", _FORM_ARGS)
+    kernels.check(fn(ctypes.byref(a), p.mode, tile_grid(dev, R),
                      kernels.stream_handle(dev)), "dense_hist")
     kernels.LAUNCHES["dense_hist"] += 1
+    kernels.FORMS["dense_hist " + p.route] += 1
     return out
 
 
-def dense_hist_path(config: ScanConfig, ai: int) -> str:
-    """Which form of K4 an aggregation takes: "shared" or "global"."""
+def _k4_table_bytes(config: ScanConfig, ai: int) -> int:
+    """K4's shared table: the Sc-1 live slots' nv entries, a 32-bit word
+    each, two with a weight column."""
     _, Sc, _ = reduce_space(config)
-    tab = Sc * config.aggs[ai].num_values * 8
-    return "shared" if tab <= SHARED_TABLE_BYTES else "global"
+    words = 2 if config.weight_col else 1
+    return (Sc - 1) * config.aggs[ai].num_values * 4 * words
+
+
+def dense_hist_path(config: ScanConfig, ai: int) -> str:
+    """Which table K4 adds to for aggregation `ai`: "shared" (one a CTA,
+    within SHARED_TABLE_BYTES) or "global" (the global counts)."""
+    return ("shared" if _k4_table_bytes(config, ai) <= SHARED_TABLE_BYTES
+            else "global")
 
 
 # ---------------------------------------------------------------------------
@@ -2132,7 +2191,8 @@ def hll_registers_plain(config: ScanConfig, cols, gid, bitsets=()):
 
 class HllArgs(ctypes.Structure):
     """Mirror of struct HllArgs in csrc/hll_registers.cu."""
-    _fields_ = _ptr_fields("gid", "vals", "valid", "hashes", "regs") + [
+    _fields_ = _ptr_fields("gid", "vals", "valid", "hashes", "regs",
+                           "scratch", "paths") + [
         ("R", ctypes.c_longlong),
         ("nd", ctypes.c_longlong),
         ("Sc", ctypes.c_int),
@@ -2140,16 +2200,48 @@ class HllArgs(ctypes.Structure):
     ]
 
 
-def hll_registers(config: ScanConfig, cols, gid, bitsets=()):
+# the CTAs of K13's forms that its `paths` counts, in order
+K13_PATHS = ("shared", "global")
+
+
+def hll_route(config: ScanConfig) -> str:
+    """Which form of K13 a config takes: "shared" when the Sc planes the
+    rows reach (the live slots and the dead one, 16 KB each) fit
+    SHARED_TABLE_BYTES, else "global"."""
+    _, Sc, _ = reduce_space(config)
+    return "shared" if Sc * HLL_M <= SHARED_TABLE_BYTES else "global"
+
+
+def _hll_plan(config: ScanConfig, R: int, form: str):
+    """K13's launch plan for (config, R)."""
+    if R >= 2 ** 31:
+        raise ValueError(f"hll_registers: takes fewer than 2^31 rows, got "
+                         f"{R}")
+    slots, Sc, _ = reduce_space(config)
+    a = HllArgs()
+    a.R, a.Sc, a.slots = R, Sc, slots
+    route = hll_route(config)
+    return types.SimpleNamespace(slots=slots, Sc=Sc,
+                                 col=config.distinct_cols[0], route=route,
+                                 shared=int(route == "shared"),
+                                 tmpl=bytes(a))
+
+
+def hll_registers(config: ScanConfig, cols, gid, bitsets=(), paths=None):
     """K13: as hll_registers_plain.  CUDA tensors launch the kernel
     (csrc/hll_registers.cu); CPU tensors take the plain version.
 
-    Replaces sybil_tpu/ops/scan.py:_hash_int_col, _hll_idx_rank,
-    _key_counts and _hll_registers, both forms.  Bound by memory (K2's
-    gid and the distinct column read once, the 2 MB of planes at most
-    kept in L2); the registers are raised by a 32-bit atomicCAS on the
-    word that holds four of them, after a read that skips the rows whose
-    rank cannot raise theirs (see the source note)."""
+    paths: an int64 [2] CUDA tensor, or None, to which the launch adds its
+    CTAs by form (K13_PATHS).  Replaces sybil_tpu/ops/scan.py:
+    _hash_int_col, _hll_idx_rank, _key_counts and _hll_registers, both
+    forms.  Bound by memory (a str column) or the int hash's operations;
+    one cooperative launch, no memset: one CTA a SM reads tiles of 32 x
+    _TILE_ROWS rows and ORs each row's rank, as a thermometer byte, into
+    the CTA's shared planes where the Sc planes fit SHARED_TABLE_BYTES,
+    else into one set of planes in a scratch buffer (a rank past 8 into a
+    word of its register), then the CTAs turn the union into the
+    registers (hll_route; see the source note).  What the config fixes
+    comes from its launch plan (_hll_plan)."""
     dev = gid.device
     if dev.type == "cpu":
         return hll_registers_plain(config, cols, gid, bitsets)
@@ -2157,23 +2249,33 @@ def hll_registers(config: ScanConfig, cols, gid, bitsets=()):
         raise ValueError(f"hll_registers: unsupported device {dev}")
     B, C = _batch_shape(cols)
     R = B * C
-    slots, Sc, _ = reduce_space(config)
+    p = _plan("hll_registers", config, R, "", _hll_plan)
     _check_tensor(gid, (R,), torch.int32, "gid", dev, "hll_registers")
-    v, m = _check_col(cols, config.distinct_cols[0], B, C, dev,
-                      "hll_registers")
-    a = HllArgs()
+    v, m = _check_col(cols, p.col, B, C, dev, "hll_registers")
+    a = HllArgs.from_buffer_copy(p.tmpl)
     a.gid, a.vals, a.valid = gid.data_ptr(), v.data_ptr(), m.data_ptr()
     if config.hll_hash_idx >= 0:
         hashes = bitsets[config.hll_hash_idx]
         _check_tensor(hashes, (hashes.shape[0],), torch.int64, "hashes", dev,
                       "hll_registers")
         a.hashes, a.nd = hashes.data_ptr(), hashes.shape[0]
-    regs = torch.empty((slots, HLL_M), dtype=torch.uint8, device=dev)
-    a.regs, a.R, a.Sc, a.slots = regs.data_ptr(), R, Sc, slots
-    fn = kernels.entry("hll_registers", "hll_registers", _GRID_ARGS)
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
+    grid = tile_grid(dev, R)
+    regs = torch.empty((p.slots, HLL_M), dtype=torch.uint8, device=dev)
+    # a rank word a register, then the thermometer planes: each CTA's own
+    # (the shared form) or one set
+    scratch = torch.empty(p.Sc * HLL_M + (grid if p.shared else 1)
+                          * p.Sc * HLL_M // 4, dtype=torch.int32,
+                          device=dev)
+    a.regs, a.scratch = regs.data_ptr(), scratch.data_ptr()
+    if paths is not None:
+        _check_tensor(paths, (len(K13_PATHS),), torch.int64, "paths", dev,
+                      "hll_registers")
+        a.paths = paths.data_ptr()
+    fn = kernels.entry("hll_registers", "hll_registers", _FORM_ARGS)
+    kernels.check(fn(ctypes.byref(a), p.shared, grid,
                      kernels.stream_handle(dev)), "hll_registers")
     kernels.LAUNCHES["hll_registers"] += 1
+    kernels.FORMS["hll_registers " + p.route] += 1
     return regs
 
 
