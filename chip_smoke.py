@@ -27,7 +27,11 @@ Phases (any failure exits non-zero before the result lines):
      decode_column_batch, each kernel against its plain version: value
      blocks with int8/16/32/64 deltas, large bases, invalid rows, short
      and missing blocks, str-id blocks of 6000 distinct values, bucket-v1
-     blocks (K1's v1 mode, ids out of range), and a batch mixing kinds
+     blocks (K1's v1 mode, ids out of range), and a batch mixing kinds;
+     K6's id mode on K6_CASES and its value mode on K6V_CASES (each
+     delta type, C 128 to 262,144, short and one-record blocks, no valid
+     entry, int64 sums that wrap, -1 and -2 rows into a poisoned output;
+     k6_edge_checks)
   4. K2 dense_scan, K4 dense_hist, K5 outlier_compact and K3 dense_pack
      against their plain versions, word for word: on the decoded uptime
      batch (group by host avg ping, a weight column, three keys whose sum
@@ -90,8 +94,9 @@ Phases (any failure exits non-zero before the result lines):
      24-shape sweep each, word for word on a `main` filled with FILL
      first: K5's rows, and the pruned prefix until K12's gather, must
      stay FILL (k10_edge_checks, k3_edge_checks); after the kernel table
-     each form's device operations a call (K3 and each form of K13: 1;
-     K10 and each table of K4: at most 2; late_op_checks).  Then the
+     each form's device operations a call (K3, each form of K13 and K11:
+     1; K10, each table of K4 and K6's value mode: at most 2;
+     late_op_checks).  Then the
      enumerated strategy: K7's enum form,
      K11 enum_segments, K12 topk_rows and K10's enum_pack against their
      plain versions on config 5's real batches of both partitions ($COUNT
@@ -104,7 +109,12 @@ Phases (any failure exits non-zero before the result lines):
      (K12G_CASES: all-equal scores, also past a candidate buffer,
      INT64/INT32 extremes and f32 infinities, 56 shared top bits, config
      5's count ties straddling k and mean ties past it, k 4,096, k = R,
-     R = 1) and a seeded 24-shape sweep (k12g_edge_checks), and the
+     R = 1) and a seeded 24-shape sweep (k12g_edge_checks), K11 on its
+     corner cases (K11_CASES: a segment across more than 32 ranges,
+     segments of a range's length, every row its own segment, every row
+     unmatched, R not a multiple of the range, sums that wrap, acnt 0
+     under prune_agg, 33 aggregations; both score forms each; fails
+     unless every path of scan.K11_PATHS ran; k11_edge_checks), and the
      sorted strategy's device prune (K10's
      prune form, then K12 over the slots and its gather in one launch,
      prune_topk_gather) on config 5's batch.
@@ -1130,6 +1140,72 @@ def k6_case(name: str, seed: int = 0):
     return out, C
 
 
+# K6's value mode: name -> options.  dtype: the deltas' type; C; blocks:
+# one output row each, an int (a block of that many records: random deltas
+# over the type's range, zero past them, as value_batch pads), None (a
+# block that lacks the column: zeroed, -1) or "other" (a row another
+# launch writes: left alone, -2); p_valid: the share of valid entries;
+# wrap: int64 deltas near +-2^62 and bases near +-2^63, so the running sum
+# wraps mod 2^64.  A tile of the look-back is 4,096 entries (a row of
+# fewer is one tile).
+K6V_CASES = {
+    "uint8 deltas, C 128": dict(dtype="uint8", C=128, blocks=(100, 128, 1)),
+    "uint16 deltas, blocks shorter than C": dict(
+        dtype="uint16", C=4096, blocks=(4096, 3000, 17)),
+    "int32 deltas, C 65,536": dict(dtype="int32", C=65536,
+                                   blocks=(65536, 40000, None, "other")),
+    "int8 deltas": dict(dtype="int8", C=8192, blocks=(8192, 5)),
+    "int16 deltas, C 16,384": dict(dtype="int16", C=16384,
+                                         blocks=(16384, 10000, None)),
+    "int64 deltas that wrap": dict(dtype="int64", C=65536,
+                                   blocks=(65536, 65536), wrap=True),
+    "a block of one record": dict(dtype="int32", C=1024, blocks=(1, 1)),
+    "all entries invalid": dict(dtype="int16", C=2048, blocks=(2048, 700),
+                                p_valid=0.0),
+    "-1 and -2 rows into a poisoned output": dict(
+        dtype="uint8", C=32768,
+        blocks=(None, "other", 20000, None, "other", 32768)),
+    "C 262,144": dict(dtype="int32", C=262144,
+                                        blocks=(262144, 100000)),
+}
+
+
+def k6v_case(name: str, seed: int = 0):
+    """K6V_CASES[name] as numpy arrays -> (deltas [b, C] of the case's
+    type, bits uint8 [b, C/8], bases int64 [b], src_of_row int32 [B], C)."""
+    import numpy as np
+    o = K6V_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K6V_CASES).index(name))
+    C = o["C"]
+    dt = np.dtype(o["dtype"])
+    info = np.iinfo(dt)
+    blocks = [n for n in o["blocks"] if isinstance(n, int)]
+    deltas = np.zeros((len(blocks), C), dt)
+    bits = np.zeros((len(blocks), C // 8), np.uint8)
+    for j, n in enumerate(blocks):
+        if o.get("wrap"):
+            d = rng.integers(2 ** 62 - 2 ** 20, 2 ** 62, n)
+            deltas[j, :n] = np.where(rng.random(n) < 0.5, d, -d)
+        else:
+            deltas[j, :n] = rng.integers(max(info.min, -2 ** 62),
+                                         min(info.max, 2 ** 62), n,
+                                         endpoint=True)
+        m = rng.random(n) < o.get("p_valid", 0.9)
+        bits[j, : -(-n // 8)] = np.packbits(m, bitorder="little")
+    hi = 2 ** 63 - 1 if o.get("wrap") else 2 ** 40
+    bases = rng.integers(-hi, hi, len(blocks), dtype=np.int64)
+    src, j = [], 0
+    for n in o["blocks"]:
+        if n is None:
+            src.append(-1)
+        elif n == "other":
+            src.append(-2)
+        else:
+            src.append(j)
+            j += 1
+    return deltas, bits, bases, np.asarray(src, np.int32), C
+
+
 def k6_edge_checks(card, device, errs) -> None:
     """K6's id mode against its plain version on K6_CASES, through
     decode_column_batch (each encoding's launch writing its own rows),
@@ -1174,6 +1250,35 @@ def k6_edge_checks(card, device, errs) -> None:
              f"{decode.ZERO_ROW} and {decode.OTHER_ROW}")
     say(f"[{card}] K6 id mode == plain (tolerance 0) on {len(K6_CASES)} "
         f"cases ({', '.join(K6_CASES)}): data, zeroed and skipped rows")
+    # the value mode on K6V_CASES, each launch into a poisoned output
+    seen, dts = set(), set()
+    for name in K6V_CASES:
+        deltas, bits, bases, src, C = k6v_case(name)
+        seen |= {int(x) for x in src if x < 0} | {0}
+        dts.add(str(deltas.dtype))
+        ins = [torch.from_numpy(a).to(device)
+               for a in (deltas, bits, bases, src)]
+        got, want = ((torch.full((len(src), C), FILL, dtype=torch.int64,
+                                 device=device),
+                      torch.ones((len(src), C), dtype=torch.bool,
+                                 device=device)) for _ in range(2))
+        decode.decode_value(*ins, C, out=got)
+        decode.decode_value_plain(*ins, C, out=want)
+        check_equal(f"K6 value {name} values", got[0], want[0],
+                    errs["decode_value"])
+        check_equal(f"K6 value {name} valid", got[1], want[1],
+                    errs["decode_value"])
+    if seen != {0, decode.ZERO_ROW, decode.OTHER_ROW} or len(dts) != 6:
+        fail(f"K6 value cases took row codes {sorted(seen)} and delta "
+             f"types {sorted(dts)}, not all three and six")
+    deltas, bits, bases, src, C = k6v_case("int32 deltas, C 65,536")
+    ins = [torch.from_numpy(a).to(device) for a in (deltas, bits, bases,
+                                                     src)]
+    LATE_OP_CHECKS.append(("decode_value value mode (int32, C 65,536)", 2,
+                           lambda: decode.decode_value(*ins, C)))
+    say(f"[{card}] K6 value mode == plain (tolerance 0) on "
+        f"{len(K6V_CASES)} cases ({', '.join(K6V_CASES)}): six delta "
+        f"types, data, zeroed and skipped rows, 1 to 64 tiles a row")
 
 
 # ---------------------------------------------------------------------------
@@ -2742,7 +2847,8 @@ LATE_ROUND_GAP_S = 2.0
 
 def late_op_checks(card) -> None:
     """LATE_OP_CHECKS' calls profiled: each must be recorded, and within
-    its device operations a call (K3 and K13: 1; K10 and K4 at most 2).  A
+    its device operations a call (K3, K13 and K11: 1; K10, K4 and K6's
+    value mode at most 2).  A
     call the profiler recorded nothing of (device_launches' None: a
     profile that misses a call's events, PERF.md §7) is profiled again in
     a later round, up to LATE_ROUNDS in all; one still unrecorded fails."""
@@ -2770,7 +2876,8 @@ def late_op_checks(card) -> None:
                        f"{'exactly' if most == 1 else 'at most'} {most}"
                        for label, most, _, per in missed))
     del LATE_OP_CHECKS[:]
-    say(f"[{card}] K3, K10, K4 and K13 device operations a call "
+    say(f"[{card}] K3, K10, K4, K13, K6's value mode and K11 device "
+        f"operations a call "
         f"(torch.profiler): "
         + "; ".join(lines))
 
@@ -3150,6 +3257,165 @@ def k12g_edge_checks(card, device, errs) -> None:
     say(f"[{card}] K12 general form == plain word for word on "
         f"{len(K12G_CASES)} corner cases and a {K12G_SWEEP}-shape sweep "
         f"(seed {K12G_SWEEP_SEED}) ({time.perf_counter() - t0:.2f} s)")
+
+
+# K11's corner cases (tests/test_torch_enum.py runs scan_packed on the same
+# batches, made smaller, against the reference's in both enum forms):
+# name -> options.  keys: how the one packed key is drawn ("one big": key
+# 0 on 60% of the rows, the rest uniform below card; "spans": runs of
+# exactly the kernel's range length, scan.enum_ranges; "distinct": every
+# row its own key; "uniform": below card); aggs: [(lo, hi) of the values,
+# discard (min, max)]; vbias: each aggregation's bias its discard min;
+# weight: (lo, hi) of a weight column; prune: (prune_topk, prune_agg);
+# unmatched: every block's nrec 0; shape: (B, C) on the card (3 x 65,536
+# otherwise: ranges of 96 rows, two steps of 64)
+K11_CASES = {
+    "a segment across more than 32 ranges": dict(keys="one big", card=500,
+                                                 shape=(16, 65536)),
+    "segments of a range's length": dict(keys="spans"),
+    "every row its own segment": dict(keys="distinct"),
+    "all rows unmatched": dict(keys="uniform", card=800, unmatched=True,
+                               prune=(100, 0)),
+    # 458,752 rows in ranges of 220 on 132 SMs
+    "R not a multiple of the range": dict(keys="uniform", card=3000,
+                                          shape=(7, 65536)),
+    "sums that wrap mod 2^64": dict(
+        keys="one big", card=50,
+        aggs=[((-2 ** 62, 2 ** 62), (-2 ** 62, 2 ** 62))],
+        weight=(-2 ** 62, 2 ** 62)),
+    "acnt 0 under prune_agg": dict(keys="uniform", card=20000,
+                                   aggs=[((-100, 100), (90, 100))],
+                                   vbias=True, weight=(0, 2), prune=(200, 0)),
+    "33 aggregations": dict(keys="uniform", card=1000,
+                            aggs=[((0, 90), (0, 100))] * 33,
+                            weight=(0, 101)),
+}
+
+
+def k11_case(name: str, B: int, C: int, span: int = 48, seed: int = 0):
+    """K11's corner case `name` as numpy arrays -> (scan config fields, as
+    k2w_config takes them; {col: (values int64 [B, C], valid bool [B,
+    C])}; nrec int32 [B]).  span: the kernel's range length (the
+    "spans" case's runs)."""
+    import numpy as np
+    o = K11_CASES[name]
+    rng = np.random.default_rng(seed + sorted(K11_CASES).index(name))
+    R = B * C
+    how = o["keys"]
+    if how == "one big":
+        key = np.where(rng.random(R) < 0.6, 0, rng.integers(1, o["card"], R))
+        card = o["card"]
+    elif how == "spans":
+        key = rng.permutation(np.arange(R) // span)
+        card = -(-R // span)
+    elif how == "distinct":
+        key, card = rng.permutation(R), R
+    else:
+        key, card = rng.integers(0, o["card"], R), o["card"]
+    cols = {"k0": (key.astype(np.int64).reshape(B, C),
+                   np.ones((B, C), bool))}
+    aggs = []
+    for a, ((lo, hi), (dmin, dmax)) in enumerate(
+            o.get("aggs", [((0, 90), (0, 100))])):
+        cols[f"v{a}"] = (rng.integers(lo, hi, R).reshape(B, C),
+                         (rng.random(R) < 0.85).reshape(B, C))
+        aggs.append((f"v{a}", dict(hist_min=dmin, bucket_size=0,
+                                   num_values=0, discard_min=dmin,
+                                   discard_max=dmax)))
+    if "weight" in o:
+        cols["w"] = (rng.integers(*o["weight"], R).reshape(B, C),
+                     (rng.random(R) < 0.9).reshape(B, C))
+    prune_topk, prune_agg = o.get("prune", (1000, -1))
+    fields = dict(group_cols=("k0",), aggs=tuple(aggs), filters=(),
+                  weight_col="w" if "weight" in o else "",
+                  sort_pack=((0, card),), key_bounds=((0, card),),
+                  force_sorted=True, prune_topk=prune_topk,
+                  prune_agg=prune_agg,
+                  agg_vbias=(tuple(kw["discard_min"] for _, kw in aggs)
+                             if o.get("vbias") else ()))
+    nrec = np.full(B, 0 if o.get("unmatched") else C, np.int32)
+    return fields, cols, nrec
+
+
+def k11_case_expect(name: str, R: int, span: int, seg: dict) -> None:
+    """Each K11 case reaches the edge it is named for (seg: K11's outputs,
+    on any device; span: the kernel's range length)."""
+    import torch
+    gid = seg["gid"].to(torch.int64)
+    ng = int(seg["num_groups"].item())
+    nseg = int(gid[-1].item()) + 1
+    longest = int(torch.bincount(gid).max().item())
+    score = seg["score"]
+    ok = {"a segment across more than 32 ranges": longest > 33 * span,
+          "segments of a range's length": (
+              nseg == -(-R // span) and longest == span),
+          "every row its own segment": ng == nseg == R,
+          "all rows unmatched": ng == 0 and nseg == 1,
+          "R not a multiple of the range": R % span != 0 and ng > 1,
+          "sums that wrap mod 2^64": bool((seg["sums"][:ng] < 0).any()),
+          # a live segment's end scored -inf: more than the R - ng rows
+          # that are no live end
+          "acnt 0 under prune_agg": score.dtype == torch.float32 and int(
+              (score == float("-inf")).sum().item()) > R - ng,
+          "33 aggregations": seg["sums"].shape[1] == 2 + 3 * 33}[name]
+    if not ok:
+        fail(f"K11 case {name!r} misses its edge: {ng} live groups, {nseg} "
+             f"segments, the longest {longest} rows, span {span}, R {R}")
+
+
+def k11_edge_checks(card, device, errs) -> None:
+    """K11 on the card over K11_CASES, after K7's enum form and the
+    stable sort, each launch held to its plain version word for word
+    (gid, sums, score, num_groups), by $COUNT and by the first
+    aggregation's f32 mean.  Fails unless every path of scan.K11_PATHS
+    ran (the kernel's own counts).  A call's device operations (1: one
+    cooperative launch) are checked late."""
+    import dataclasses
+
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    total = dict.fromkeys(scan.K11_PATHS, 0)
+    lines = []
+    for name, o in K11_CASES.items():
+        B, C = o.get("shape", (3, 65536))
+        R = B * C
+        span = scan.enum_ranges(device, R)[0]
+        fields, ncols, nrec = k11_case(name, B, C, span)
+        cfg = k2w_config(scan, fields)
+        if scan.enum_radix(cfg) <= 0:
+            fail(f"K11 case {name!r} is not enumerable")
+        cols = {k: (torch.from_numpy(v).to(device),
+                    torch.from_numpy(m).to(device))
+                for k, (v, m) in ncols.items()}
+        front = scan.sorted_front(cfg, cols, torch.from_numpy(nrec)
+                                  .to(device))
+        skey, p = torch.sort(front["key"], stable=True)
+        forms = [cfg, dataclasses.replace(
+            cfg, prune_agg=0 if cfg.prune_agg < 0 else -1)]
+        for cf in forms:
+            paths = torch.zeros(len(scan.K11_PATHS), dtype=torch.int64,
+                                device=device)
+            got = scan.enum_segments(cf, cols, skey, p, paths=paths)
+            want = scan.enum_segments_plain(cf, cols, skey, p)
+            check_outs("enum_segments", f"case {name!r} (prune_agg "
+                       f"{cf.prune_agg})", got, want,
+                       ("gid", "sums", "score", "num_groups"), errs)
+            for k, n in zip(scan.K11_PATHS, paths.tolist()):
+                total[k] += n
+            if cf is cfg:
+                k11_case_expect(name, R, span, got)
+        lines.append(f"{name}: R {R}, span {span}, "
+                     f"{int(got['num_groups'].item())} live groups")
+        if name == "33 aggregations":
+            LATE_OP_CHECKS.append((
+                f"enum_segments ({name})", 1,
+                lambda a=(cfg, cols, skey, p): scan.enum_segments(*a)))
+    if not all(total.values()):
+        fail(f"K11's paths {total}: each must run")
+    say(f"[{card}] K11 == plain word for word on {len(K11_CASES)} corner "
+        f"cases, $COUNT and f32 scores; paths {total}: " + "; ".join(lines))
+
 
 
 # ---------------------------------------------------------------------------
@@ -7550,6 +7816,7 @@ def main(argv=None) -> int:
             check_equal(f"topk_rows {label}", scan.topk_rows(sc, kk),
                         scan.topk_rows_plain(sc, kk), errs["topk_rows"])
         k12g_edge_checks(card, dev, errs)
+        k11_edge_checks(card, dev, errs)
         say(f"K7 (enum form), K11, K12 and K10 enum_pack == plain on "
             f"{len(ENUM_EDGES)} synthetic enumerated batches: "
             + ", ".join(ENUM_EDGES) + "; K12 alone on "
@@ -8912,15 +9179,15 @@ def main(argv=None) -> int:
         # the sorted key (each row and its neighbour, counted once) and p
         # read; each aggregation's column and the weight column where
         # bound gathered at the sorted rows (9 B a row each; config 5:
-        # weight alone); gid and the score written; the segment sums and
-        # ends written.  Per row: the boundary, a block scan, a 5-step
-        # warp-run sum a lane
+        # weight alone); gid and the score written; the segment sums
+        # written.  Per row: the boundary, a warp scan of its gid, a
+        # 5-step warp scan a lane
         k11_cols = len(cfg5.aggs) + (1 if cfg5.weight_col else 0)
         c5_rows.append(("enum_segments", "config 5",
                         "sybil_tpu/ops/scan.py:1484", k11_ms, k11_plain,
                         R5 * (4 + 8 + 9 * k11_cols + 4
                               + seg5["score"].element_size())
-                        + Smax5 * (L5 * 8 + 4),
+                        + Smax5 * L5 * 8,
                         R5 * (12 + 12 * L5), k11_lib))
         sc5 = seg5["score"]
         k12_ms = cuda_ms(lambda: scan.topk_rows(sc5, Pk5))

@@ -39,8 +39,10 @@ time); and the host's time a call, a host clock over 100 calls queued
 behind a sleep kernel ("host").
 
 K6 and K8 (both roots): K6's id mode at row 9's shape (128 blocks of
-65,536 str ids) and its value mode on the same rows as int32 deltas;
-K8 at path 2's shape (two unpacked int64 lanes, about 72,576 groups),
+65,536 str ids) and its value mode on the same rows as int32 deltas,
+then at each other delta type (uint8, uint16, int8, int16, int64), each
+width beside its torch call (an int64 cumsum plus the base, and the
+bit-unpack); K8 at path 2's shape (two unpacked int64 lanes, about 72,576 groups),
 path 1's (an int32 packed key and a min/max lane), the distinct pairs'
 (K + D = 3 lanes) and the cache-group form's.
 
@@ -103,6 +105,13 @@ the distinct pairs (a 16,384-row section), the device prune at config
 at config 5 (4,194,304 rows, 1,000 winners).  `--only B5` (b5_runs):
 K9's two entries and K11 at their main-path shapes, the wrappers that
 bind their C entry once.
+
+K11 (`--only K11`, k11_runs): K11 at config 5's shape (a partition's
+4,194,304 rows, userid zipf(1.2) % 200,000, after K7's enum form and the
+sort), by $COUNT and by -prune-sort weight's f32 mean, beside its torch
+call (index_add_ of the prebuilt lanes by segment).  With `--trace`,
+`--only K6,K11` first prints the atomics and ptxas registers of each
+kernel of the decode_value and enum_segments libraries.
 
 K4 and K13 (`--only K4,K13`, hist_hll_runs): K4 at config 3, config 3
 -loghist, config 2 and chip_smoke.py's global-table edge batch after
@@ -339,6 +348,8 @@ def kernel_runs(root: str, only=()) -> tuple:
     if wanted("K12"):
         runs += k12g_runs(scan, dev)
     runs += k6_runs(dev) + k8_runs(scan, dev) + prune_runs(scan, dev)
+    if not only or "K11" in only:
+        runs += k11_runs(scan, dev)
     runs += c2_runs(scan, dev) + k1_runs(dev)
     runs += k7_runs(scan, dev) + permute_runs(scan, dev)
     if not only or any(o in only for o in PACK_PREFIXES):
@@ -932,10 +943,18 @@ def k1_runs(dev, B: int = 128) -> tuple:
     return out
 
 
+# K6's value-mode delta types (decode._TORCH_CODE), each run at row 8's
+# shape; int32 is config 4's time column's
+K6_WIDTHS = ("uint8", "uint16", "int32", "int8", "int16", "int64")
+
+
 def k6_runs(dev, B: int = 128) -> tuple:
     """K6 at row 9's shape: 128 blocks of 65,536 str ids (6,000 distinct,
     about half the rows valid) in its id mode, and the same rows as int32
-    deltas in its value mode (config 4's time column is int32 deltas)."""
+    deltas in its value mode (config 4's time column is int32 deltas);
+    then the value mode at each other delta type (random deltas over the
+    type's range), and each width beside its torch call (an int64 cumsum
+    plus the base, and the bit-unpack)."""
     import torch
 
     from sybil_tpu_torch.ops import decode
@@ -947,10 +966,75 @@ def k6_runs(dev, B: int = 128) -> tuple:
                          device=dev, generator=g)
     bases = torch.randint(0, 1 << 40, (B,), device=dev, generator=g)
     src = torch.arange(B, dtype=torch.int32, device=dev)
-    return ((f"K6 id mode, {B} blocks of {C} str ids", 20,
-             lambda: decode.decode_ids(ids, bits, src, C)),
-            (f"K6 value mode, {B} blocks of {C} int32 deltas", 20,
-             lambda: decode.decode_value(ids, bits, bases, src, C)))
+    sh = torch.arange(8, dtype=torch.uint8, device=dev)
+
+    def torch_call(d):
+        return (torch.cumsum(d.to(torch.int64), 1) + bases[:, None],
+                ((bits[:, :, None] >> sh) & 1).reshape(B, C) > 0)
+
+    runs = [(f"K6 id mode, {B} blocks of {C} str ids", 20,
+             lambda: decode.decode_ids(ids, bits, src, C))]
+    for name in K6_WIDTHS:
+        dt = getattr(torch, name)
+        if dt is torch.int32:
+            d = ids
+        else:
+            info = torch.iinfo(dt)
+            d = torch.randint(max(info.min, -(1 << 62)),
+                              min(info.max, 1 << 62), (B, C),
+                              dtype=torch.int64, device=dev,
+                              generator=g).to(dt)
+        runs += [(f"K6 value mode, {B} blocks of {C} {name} deltas", 20,
+                  lambda d=d: decode.decode_value(d, bits, bases, src, C)),
+                 (f"K6's torch call cumsum + bit-unpack, {B} blocks of {C} "
+                  f"{name} deltas", 20, lambda d=d: torch_call(d))]
+    return tuple(runs)
+
+
+def k11_runs(scan, dev) -> tuple:
+    """K11 at config 5's shape (bench_configs.py:64-98: a partition's
+    4,194,304 rows, userid = zipf(1.2) % 200,000, weight from {1, 10,
+    100}, `group by userid, avg weight, limit 100`), after K7's enum form
+    and the stable sort: its $COUNT score (int64) and -prune-sort
+    weight's (the f32 mean), each beside its torch call (index_add_ of
+    the L prebuilt lanes by segment into the zeroed [Smax, L] sums)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    C = 65536
+    B5 = C5_ROWS // C
+    rng = np.random.default_rng(5)
+    uid = rng.zipf(1.2, C5_ROWS) % 200_000
+    w = rng.choice([1, 10, 100], C5_ROWS)
+    valid = torch.ones((B5, C), dtype=torch.bool, device=dev)
+    cols = {"userid": (torch.from_numpy(uid.astype(np.int64)).to(dev)
+                       .reshape(B5, C), valid),
+            "weight": (torch.from_numpy(w.astype(np.int64)).to(dev)
+                       .reshape(B5, C), valid)}
+    cfg = scan.ScanConfig(group_cols=("userid",),
+                          aggs=(scan.AggSpec("weight", 0, 0, 0, 1, 100),),
+                          filters=(), force_sorted=True, prune_topk=1000,
+                          sort_pack=((0, 200_000),))
+    cfgw = dataclasses.replace(cfg, prune_agg=0)
+    nrec = torch.full((B5,), C, dtype=torch.int32, device=dev)
+    front = scan.sorted_front(cfg, cols, nrec)
+    skey, p = torch.sort(front["key"], stable=True)
+    seg = scan.enum_segments(cfg, cols, skey, p)
+    users = int(seg["num_groups"].item())
+    smax = scan.enum_slots(cfg, C5_ROWS)
+    L = 2 + 3 * len(cfg.aggs)
+    g64 = seg["gid"].to(torch.int64)
+    lanes = torch.ones((C5_ROWS, L), dtype=torch.int64, device=dev)
+    what = f"config 5 ({C5_ROWS} rows, {users} users)"
+    return (
+        (f"K11 at {what}, $COUNT", 20,
+         lambda: scan.enum_segments(cfg, cols, skey, p)),
+        (f"K11 at {what}, -prune-sort weight (f32 score)", 20,
+         lambda: scan.enum_segments(cfgw, cols, skey, p)),
+        (f"K11's torch call index_add_ at {what}", 20,
+         lambda: torch.zeros((smax, L), dtype=torch.int64,
+                             device=dev).index_add_(0, g64, lanes)))
 
 
 def k8_runs(scan, dev, B: int = 128) -> tuple:
@@ -1667,6 +1751,8 @@ def trace_runs(root: str, only) -> str:
         out += atomics(root, kernels, ("sorted_front",))
     if any(o in ("K4", "K13") for o in only):
         out += atomics(root, kernels, ("dense_hist", "hll_registers"))
+    if any(o in ("K6", "K11") for o in only):
+        out += atomics(root, kernels, ("decode_value", "enum_segments"))
     for what, n, fn in runs:
         line = (f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
                 f"{_ms(fn, n, queued=True):.4f} ms device, "

@@ -1,5 +1,5 @@
-"""Variants of K1's, K2's, K4's, K7's, K10's and K13's sources timed side
-by side on one card.
+"""Variants of K1's, K2's, K4's, K6's, K7's, K10's, K11's and K13's sources
+timed side by side on one card.
 
     python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
 
@@ -13,7 +13,9 @@ three windowed layouts; K1 (decode_bucket2) at k2_ab.py's K1 shapes;
 K7 and sort_permute (sorted_front) at k2_ab.py's K7 and sort_permute
 shapes; K10 (sorted_pack) at k2_ab.py's K10 shapes (pack_runs); K4
 (dense_hist) and K13 (hll_registers) at k2_ab.py's K4 and K13 shapes
-(hist_hll_runs).  A variant that drops work (the row pass, the adds)
+(hist_hll_runs); K6 (decode_value) at k2_ab.py's K6 runs (the id mode and
+every width of the value mode) and K11 (enum_segments) at its config-5
+runs.  A variant that drops work (the row pass, the adds)
 gives wrong words: it only splits the time.  Prints each run's wall and
 device ms (k2_ab._ms) and the ptxas spill lines of the variant's build.
 """
@@ -31,6 +33,7 @@ CSRC = os.path.join(ROOT, "sybil_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "archive_check", "var")
 K2S, K1S, K7S = "dense_scan", "decode_bucket2", "sorted_front"
 K10S, K4S, K13S = "sorted_pack", "dense_hist", "hll_registers"
+K6S, K11S = "decode_value", "enum_segments"
 # name -> (source, [(old, new)], {ops/scan.py constant: value})
 VARIANTS = {
     "k2 as committed": (K2S, [], {}),
@@ -152,6 +155,64 @@ VARIANTS = {
          "hash\n", ""),
         ("    cur = nxt;\n", "    load_rows(a, r0 + step + lane, cur);\n")],
         {}),
+    "k6 as committed": (K6S, [], {}),
+    "k6 tiles of 8192 (512 threads)": (K6S, [
+        ("constexpr int V_THREADS = 256;", "constexpr int V_THREADS = 512;")],
+        {}),
+    "k6 tiles of 8192 (8 quads a thread)": (K6S, [
+        ("constexpr int V_QUADS = 4; ", "constexpr int V_QUADS = 8; ")], {}),
+    "k6 no ticket (tiles by block index)": (K6S, [
+        ("    s_tile = (int)atomicAdd(status, 1ull);  // the ticket: tiles in "
+         "order\n  __syncthreads();", "    s_tile = 0;"),
+        ("  const int tile = s_tile;", "  const int tile = blockIdx.x;")], {}),
+    "k6 6 CTAs a SM": (K6S, [
+        ("__global__ void __launch_bounds__(V_THREADS) decode_value_kernel(",
+         "__global__ void __launch_bounds__(V_THREADS, 6) "
+         "decode_value_kernel(")], {}),
+    "k6 no look-back (no carry)": (K6S, [
+        ("      for (int top = part - 1;; top -= 32) {",
+         "      for (int top = part - 1; top < -1; top -= 32) {")], {}),
+    "k11 as committed": (K11S, [], {}),
+    "k11 1024 threads a SM": (K11S, [("constexpr int TT = 512; ",
+                                      "constexpr int TT = 1024; ")],
+                              {"_K11_WARPS": 32}),
+    "k11 4 rows a lane": (K11S, [("constexpr int RL = 2; ",
+                                  "constexpr int RL = 4; ")], {}),
+    "k11 phase 1 alone": (K11S, [
+        ("  grid.sync();\n\n  // ---- phase 2",
+         "  grid.sync();\n  if (a.R > 0) return;\n\n  // ---- phase 2")], {}),
+    "k11 phase clocks": (K11S, [
+        ("#include <cstring>\n", "#include <cstring>\n#include <cstdio>\n"),
+        ("  const int prev0 = lo > 0 && lo < hi ? skey[lo - 1] : 0;\n",
+         "  const int prev0 = lo > 0 && lo < hi ? skey[lo - 1] : 0;\n"
+         "  unsigned long long T0, T1, T2, T3;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(T0));\n"),
+        ("  grid.sync();\n\n  // ---- phase 2",
+         "  grid.sync();\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(T1));\n"
+         "\n  // ---- phase 2"),
+        ("  // the range's tail: its sums past its last start",
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(T2));\n"
+         "  // the range's tail: its sums past its last start"),
+        ("  grid.sync();\n\n  // ---- phase 3",
+         "  grid.sync();\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(T3));\n"
+         "  if ((blockIdx.x == 0 || blockIdx.x == gridDim.x - 1) && "
+         "threadIdx.x == 0)\n"
+         "    printf(\"k11 clocks: CTA %d: phase 1 %llu ns, phase 2 %llu ns, "
+         "tails and barrier %llu ns\\n\", blockIdx.x, T1 - T0, T2 - T1, "
+         "T3 - T2);\n\n  // ---- phase 3")], {}),
+    "k11 no gathers": (K11S, [
+        ("        v[j] = lv ? vals[r[j]] : 0ll;\n"
+         "        if (lv && valid[r[j]]) ok |= 1u << j;",
+         "        v[j] = lv ? r[j] : 0ll;\n        if (lv) ok |= 1u << j;")],
+        {}),
+    "k11 no scans": (K11S, [
+        ("  unsigned long long c[4][RL], inc[4];",
+         "  for (int n = 0; n < 4; ++n)\n"
+         "    for (int j = 0; j < RL; ++j) seg[n][j] = x[n][j];\n"
+         "  if (lane < 32) return;\n"
+         "  unsigned long long c[4][RL], inc[4];")], {}),
     "k1 as committed": (K1S, [], {}),
     "k1 scan pass alone": (K1S, [
         ("  bucket_rows<<<dim3(a.nr, a.B), THREADS, shm, s>>>(a);\n", "")],
@@ -244,6 +305,10 @@ def child(d: str, src: str) -> None:
              if r[0].startswith("K4 " if src == K4S else "K13 ")]
             if src in (K4S, K13S) else
             list(k2_ab.k1_runs(dev)) if src == K1S else
+            [r for r in k2_ab.k6_runs(dev) if "torch call" not in r[0]]
+            if src == K6S else
+            [r for r in k2_ab.k11_runs(scan, dev) if "torch call" not in r[0]]
+            if src == K11S else
             [r for r in k2_ab.pack_runs(scan, dev) if r[0].startswith("K10")]
             if src == K10S else
             list(k2_ab.permute_runs(scan, dev)) if

@@ -53,6 +53,8 @@ OTHER_ROW = -2
 # than one earlier unit's word
 K1_MAX_C = 1 << 19
 K1_PATHS = ("cut segment", "look-back past one unit")
+# K6's value mode: entries a tile of its look-back (V_TILE in the source)
+K6_TILE = 4096
 
 
 def _pad_pow2(n: int, floor: int = 128) -> int:
@@ -318,12 +320,12 @@ def _launch_k6(ids_mode: bool, lanes, bits, bases, src_of_row, C: int, out):
     values, valid = _outputs(out, B, C, dev)
     if B == 0:
         return values, valid
+    # both modes' 16-byte loads and stores
+    if (lanes.data_ptr() | values.data_ptr()) % 16 or valid.data_ptr() % 4:
+        raise ValueError(f"{kernel}: the {'ids' if ids_mode else 'deltas'} "
+                         f"and values must be 16-byte aligned, valid "
+                         f"4-byte aligned")
     if ids_mode:
-        # the id mode's 16-byte loads and stores
-        if (lanes.data_ptr() | values.data_ptr()) % 16 \
-                or valid.data_ptr() % 4:
-            raise ValueError("decode_ids: ids and values must be 16-byte "
-                             "aligned, valid 4-byte aligned")
         fn = kernels.entry("decode_value", "decode_ids",
                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                            + [ctypes.c_void_p])
@@ -331,13 +333,20 @@ def _launch_k6(ids_mode: bool, lanes, bits, bases, src_of_row, C: int, out):
                 values.data_ptr(), valid.data_ptr(), B, C,
                 kernels.stream_handle(dev))
     else:
+        # the look-back's ticket, then a flag, a total and a prefix word a
+        # tile of K6_TILE entries (a row of fewer is one tile); the C
+        # entry's memset clears them
+        status = torch.empty(1 + 3 * B * max(1, C // K6_TILE),
+                             dtype=torch.int64, device=dev)
         fn = kernels.entry("decode_value", "decode_value",
                            [ctypes.c_void_p, ctypes.c_int]
-                           + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p] * 6
+                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
         rc = fn(lanes.data_ptr(), _TORCH_CODE[lanes.dtype], bits.data_ptr(),
                 bases.data_ptr(), src_of_row.data_ptr(), values.data_ptr(),
-                valid.data_ptr(), B, C, kernels.stream_handle(dev))
+                valid.data_ptr(), status.data_ptr(), status.numel(), B, C,
+                kernels.stream_handle(dev))
     kernels.check(rc, kernel)
     kernels.LAUNCHES["decode_value"] += 1
     return values, valid
@@ -354,8 +363,10 @@ def decode_value(deltas, bits, bases, src_of_row, C: int, out=None):
 
     Replaces sybil_tpu/ops/decode.py:_decode_value_jit and its
     reassembly gather.  Bound by memory (the deltas and bits read, 9 B
-    written per row); one CTA per output row walks its block in tiles
-    with a running block scan (see the source note)."""
+    written per row); a flat grid of 4,096-entry tiles, a thread's quads
+    of 4 consecutive entries read and written in 16-byte accesses, the
+    carry between a row's tiles by a decoupled look-back after one memset
+    (see the source note)."""
     if deltas.device.type == "cpu":
         return decode_value_plain(deltas, bits, bases, src_of_row, C, out)
     if deltas.device.type != "cuda":

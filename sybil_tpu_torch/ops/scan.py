@@ -3446,19 +3446,42 @@ class EnumSegmentsArgs(ctypes.Structure):
         ("gid", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
         ("score", ctypes.c_void_p),
-        ("segend", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
+        ("tails", ctypes.c_void_p),
+        ("cta_tails", ctypes.c_void_p),
+        ("counts", ctypes.c_void_p),
+        ("cta_counts", ctypes.c_void_p),
+        ("cta_last", ctypes.c_void_p),
+        ("paths", ctypes.c_void_p),
         ("num_groups", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
+        ("span", ctypes.c_longlong),
         ("radix", ctypes.c_int),
         ("Smax", ctypes.c_int),
         ("L", ctypes.c_int),
         ("naggs", ctypes.c_int),
-        ("ntiles", ctypes.c_int),
+        ("nranges", ctypes.c_int),
         ("has_weight", ctypes.c_int),
         ("prune_agg", ctypes.c_int),
         ("pad_", ctypes.c_int),
     ]
+
+
+# K11's warps a CTA (the source's NW; one CTA a SM, its launch bounds),
+# and the paths its `paths` counts, in order (P_* in the source)
+_K11_WARPS = 16
+K11_PATHS = ("cut by a range edge", "carry past one range",
+             "carry past 32 ranges", "ends on a range's last row",
+             "carried across a step")
+
+
+def enum_ranges(dev, R: int) -> tuple[int, int, int]:
+    """K11's split of R sorted rows: (span, nranges, grid).  Every warp of
+    the grid's CTAs (one a SM) takes span rows (a multiple of 4), in
+    order."""
+    warps = _sm_count(dev) * _K11_WARPS
+    span = max(4, -(-R // (warps * 4)) * 4)
+    nranges = -(-R // span)
+    return span, nranges, -(-nranges // _K11_WARPS)
 
 
 def enum_segments_plain(config: ScanConfig, cols, skey, p):
@@ -3506,9 +3529,14 @@ def enum_segments_plain(config: ScanConfig, cols, skey, p):
             "num_groups": live_end.sum(dtype=torch.int64).reshape(1)}
 
 
-def enum_segments(config: ScanConfig, cols, skey, p):
-    """K11: as enum_segments_plain.  CUDA tensors launch the kernel
-    (csrc/enum_segments.cu); CPU tensors take the plain version.
+def enum_segments(config: ScanConfig, cols, skey, p, paths=None):
+    """K11: as enum_segments_plain.  paths: an int64 [5] CUDA tensor to
+    which the kernel adds the warp ranges whose first row continues a
+    segment, the heads whose carry read more than one earlier range's
+    tail and more than 32, the ranges whose last row ends a segment, and
+    the steps that began inside a segment of their range (K11_PATHS), or
+    None.  CUDA tensors launch the kernel (csrc/enum_segments.cu); CPU
+    tensors take the plain version.
 
     Replaces sybil_tpu/ops/scan.py:_scan_enum 1484-1546: the segment
     boundaries, start rows and live ends, the carrier cumsums minus their
@@ -3516,9 +3544,12 @@ def enum_segments(config: ScanConfig, cols, skey, p):
     per-segment row counts, num_groups and the prune score.  The port
     sums each segment directly: every lane exact in u64, whatever the
     carry plan.  Bound by memory (p read, the aggregation and weight
-    columns gathered at the sorted rows, gid and score written); a tile
-    scan numbers the segments and one atomic per warp run of equal
-    segments adds each lane (see the source note)."""
+    columns gathered at the sorted rows, gid and score written); one
+    cooperative launch, no memset and no atomics: each warp of the card
+    takes a contiguous range of rows, counts its starts, and after a grid
+    barrier writes gids and each segment's sums and score from running
+    prefixes; a segment cut by a range edge is finished after a second
+    barrier from the tails of the ranges before (see the source note)."""
     dev = skey.device
     if dev.type == "cpu":
         return enum_segments_plain(config, cols, skey, p)
@@ -3533,6 +3564,8 @@ def enum_segments(config: ScanConfig, cols, skey, p):
     L = 2 + 3 * A
     _check_tensor(skey, (R,), torch.int32, "skey", dev, "enum_segments")
     _check_tensor(p, (R,), torch.int64, "p", dev, "enum_segments")
+    if (skey.data_ptr() | p.data_ptr()) % 16:
+        raise ValueError("enum_segments: skey and p must be 16-byte aligned")
     a = EnumSegmentsArgs()
     a.skey, a.p = skey.data_ptr(), p.data_ptr()
     for agg in config.aggs:
@@ -3543,22 +3576,34 @@ def enum_segments(config: ScanConfig, cols, skey, p):
         v, m = _check_col(cols, config.weight_col, B, C, dev, "enum_segments")
         a.w_vals, a.w_valid, a.has_weight = v.data_ptr(), m.data_ptr(), 1
     Smax = enum_slots(config, R)
-    ntiles = -(-R // _SEG_TILE)
+    span, nranges, grid = enum_ranges(dev, R)
     out = {"gid": torch.empty(R, dtype=torch.int32, device=dev),
            "sums": torch.empty((Smax, L), dtype=torch.int64, device=dev),
            "score": torch.empty(R, dtype=_score_dtype(config), device=dev),
            "num_groups": torch.empty(1, dtype=torch.int64, device=dev)}
-    segend = torch.empty(Smax, dtype=torch.int32, device=dev)
-    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    # the ranges' and the CTAs' tails, then (int32) the ranges' counts, the
+    # CTAs' and each CTA's last range with a start: every word is written
+    # before it is read
+    words = (nranges + grid) * L
+    scratch = torch.empty(words + -(-(nranges + 2 * grid) // 2),
+                          dtype=torch.int64, device=dev)
     a.gid, a.sums = out["gid"].data_ptr(), out["sums"].data_ptr()
-    a.score, a.segend = out["score"].data_ptr(), segend.data_ptr()
-    a.offsets, a.num_groups = offsets.data_ptr(), out["num_groups"].data_ptr()
-    a.R, a.radix, a.Smax, a.L, a.naggs, a.ntiles = R, radix, Smax, L, A, \
-        ntiles
-    a.prune_agg = config.prune_agg
+    a.score, a.num_groups = (out["score"].data_ptr(),
+                             out["num_groups"].data_ptr())
+    a.tails = scratch.data_ptr()
+    a.cta_tails = a.tails + 8 * nranges * L
+    a.counts = a.tails + 8 * words
+    a.cta_counts = a.counts + 4 * nranges
+    a.cta_last = a.cta_counts + 4 * grid
+    if paths is not None:
+        _check_tensor(paths, (len(K11_PATHS),), torch.int64, "paths", dev,
+                      "enum_segments")
+        a.paths = paths.data_ptr()
+    a.R, a.span, a.radix, a.Smax, a.L = R, span, radix, Smax, L
+    a.naggs, a.nranges, a.prune_agg = A, nranges, config.prune_agg
     fn = kernels.entry("enum_segments", "enum_segments", _GRID_ARGS)
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
-                     kernels.stream_handle(dev)), "enum_segments")
+    kernels.check(fn(ctypes.byref(a), grid, kernels.stream_handle(dev)),
+                  "enum_segments")
     kernels.LAUNCHES["enum_segments"] += 1
     return out
 

@@ -332,3 +332,39 @@ def test_bucket2_case_matches_reference(name):
     assert pn == rn
     np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
     np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K6V_CASES))
+def test_value_mode_case_matches_reference(name):
+    """K6's value mode on chip_smoke.py's K6V cases (the card holds the
+    kernel to its plain version on the same cases): decode_value_plain
+    into a poisoned output against _decode_value_jit on the case's
+    blocks; a row of a block gets its block's values and validity, a -1
+    row is zeroed and a -2 row keeps the poison.  Tolerance 0."""
+    deltas, bits, bases, src, C = chip_smoke.k6v_case(name)
+    assert str(deltas.dtype) == chip_smoke.K6V_CASES[name]["dtype"]
+    rv, rm = ref_decode_mod._decode_value_jit(
+        C, jnp.asarray(deltas), jnp.asarray(bits), jnp.asarray(bases))
+    rv, rm = np.asarray(rv), np.asarray(rm)
+    B = len(src)
+    out = (torch.full((B, C), 5, dtype=torch.int64),
+           torch.ones((B, C), dtype=torch.bool))
+    pv, pm = port_decode.decode_value_plain(
+        *[torch.from_numpy(x) for x in (deltas, bits, bases, src)], C,
+        out=out)
+    pv, pm = pv.numpy(), pm.numpy()
+    for i, j in enumerate(src):
+        if j >= 0:
+            np.testing.assert_array_equal(pv[i], rv[j])
+            np.testing.assert_array_equal(pm[i], rm[j])
+        elif j == port_decode.ZERO_ROW:
+            assert not pv[i].any() and not pm[i].any()
+        else:
+            assert (pv[i] == 5).all() and pm[i].all()
+    if name == "all entries invalid":
+        assert not rm.any()
+    if name == "int64 deltas that wrap":
+        # the running sum passes 2^63 at least once
+        wide = bases[:, None].astype(object) + np.cumsum(
+            deltas.astype(object), axis=1)
+        assert any(abs(x) >= 2 ** 63 for x in wide.reshape(-1)[::97])

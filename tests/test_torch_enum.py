@@ -229,6 +229,79 @@ def test_enum_scan_matches_reference(name, form):
         assert (want[1:, 0] == port.MISSING).any()
 
 
+# chip_smoke.py's K11 cases in both of the reference's enum forms, but the
+# carry form of the wrapping sums: their lanes have no bound to pack
+K11_FORMS = [(name, form) for name in chip_smoke.K11_CASES
+             for form in ("carry", "gather")
+             if not (form == "carry" and name == "sums that wrap mod 2^64")]
+
+
+@pytest.mark.parametrize("name,form", K11_FORMS)
+def test_k11_case_matches_reference(name, form):
+    """K11 on chip_smoke.py's K11 cases (the card holds the kernel to its
+    plain version on the same cases at 196,608 rows and more): the port's
+    scan_packed (K7's enum form, the sort, K11, K12, K10's enum_pack,
+    plain) against the reference's scan_packed_jit on the same batch, made
+    smaller, main and table word for word; and K11's plain outputs reach
+    the case's edge."""
+    Bk, Ck = 2, 2048
+    fields, cols, nrec = chip_smoke.k11_case(name, Bk, Ck)
+    o = dict(fields)
+    o["aggs"] = tuple(ref.AggSpec(c, **kw) for c, kw in o["aggs"])
+    if form == "carry":
+        # exact per-row lane bounds, as the bind derives them
+        lo, hi = chip_smoke.K11_CASES[name].get("weight", (1, 2))
+        wmax = hi - 1
+        assert lo >= 0
+        rb = [wmax, 1]
+        for a, bias in zip(o["aggs"], o["agg_vbias"] or (0,) * len(o["aggs"])):
+            rb += [1, wmax, wmax * (a.discard_max - bias)]
+        o["lane_row_bounds"] = tuple(rb)
+    cfg = ref.ScanConfig(**o)
+    L = 2 + 3 * len(cfg.aggs)
+    plan, _ = ref._enum_carry_plan(cfg, L, Bk * Ck)
+    assert (plan is not None) == (form == "carry")
+    fv = np.zeros(0, np.int64)
+    packed, _ = ref.scan_packed_jit(
+        cfg, {k: (jnp.asarray(v), jnp.asarray(m))
+              for k, (v, m) in cols.items()},
+        jnp.asarray(nrec), jnp.asarray(fv), (), jnp.asarray(1, jnp.int64), {})
+    pcfg = port.config_from_fields(dataclasses.asdict(cfg))
+    assert port.enum_radix(pcfg) == ref.enum_radix(cfg) > 0
+    tcols = {k: (torch.from_numpy(v), torch.from_numpy(m))
+             for k, (v, m) in cols.items()}
+    ppacked, _ = port.scan_packed(pcfg, tcols, torch.from_numpy(nrec),
+                                  torch.from_numpy(fv), (), 1)
+    np.testing.assert_array_equal(ppacked["main"].numpy(),
+                                  np.asarray(packed["main"]))
+    np.testing.assert_array_equal(ppacked["table"].numpy(),
+                                  np.asarray(packed["table"]))
+    front = port.sorted_front_plain(pcfg, tcols, torch.from_numpy(nrec),
+                                    torch.from_numpy(fv), ())
+    skey, p = torch.sort(front["key"], stable=True)
+    # 48: a range length at which each case reaches its edge at this size
+    chip_smoke.k11_case_expect(name, Bk * Ck, 48,
+                               port.enum_segments_plain(pcfg, tcols, skey, p))
+
+
+@pytest.mark.parametrize("R", [4, 128, 40_960, 196_608, 1_048_576,
+                               4_194_304, 2 ** 31 - 2 ** 20])
+def test_k11_ranges_cover_the_rows(R, monkeypatch):
+    """K11's split of the sorted rows over the warps of a 132-SM card
+    (enum_ranges, which the C entry checks): spans of a multiple of 4
+    rows and below 2^21 (the count fields), every row in exactly one
+    range, a range a warp and one CTA a SM."""
+    dev = torch.device("cpu")
+    monkeypatch.setitem(port._SM_COUNTS, dev.index, 132)
+    span, nranges, grid = port.enum_ranges(dev, R)
+    assert 4 <= span < 2 ** 21 and span % 4 == 0
+    assert (nranges - 1) * span < R <= nranges * span
+    assert grid == -(-nranges // port._K11_WARPS) <= 132
+    if R == 4_194_304:
+        # config 5's partition: 1,988 rows a warp, every SM
+        assert (span, nranges, grid) == (1988, 2110, 132)
+
+
 @pytest.mark.parametrize("name", SORTED_CASES)
 def test_sorted_device_prune_matches_reference(name):
     cfg, pcfg, packed, ppacked = _run_both(name, "gather")
