@@ -62,8 +62,10 @@ Phases (any failure exits non-zero before the result lines):
      str ids out of range, one register for every row, 3, 8, 12, 13 and
      128 planes, the dead slot), bit for bit, each table or form of each
      taken (their CTA counts).  Then the sorted strategy:
-     K7 sorted_front, sort_permute, K8 segment_reduce, K9 hist_pairs (both
-     entries), K5 over the sorted keys and K10 sorted_pack against their
+     K7 sorted_front, sort_permute, K8 segment_reduce, K9's hist_prep and
+     hist_pairs (its hp_bv, hp_w and hp_keys at the rows hp_mask sets and
+     at row R-1, the rows it writes), K5 over the sorted keys and K10
+     sorted_pack against their
      plain versions, word for word, on this slice's two paths (path 1:
      config 3 with -tdigest, an int32 packed key, its (host, ping) pairs
      against numpy; path 2: config 4 at 5-minute buckets, 80,660 slots
@@ -93,10 +95,21 @@ Phases (any failure exits non-zero before the result lines):
      columns, prune ties and dead slots, time keys, 8,192 slots) and a
      24-shape sweep each, word for word on a `main` filled with FILL
      first: K5's rows, and the pruned prefix until K12's gather, must
-     stay FILL (k10_edge_checks, k3_edge_checks); after the kernel table
-     each form's device operations a call (K3, each form of K13 and K11:
-     1; K10, each table of K4 and K6's value mode: at most 2;
-     late_op_checks).  Then the
+     stay FILL (k10_edge_checks, k3_edge_checks); K7 to K10 on K9's
+     corner cases (K9_CASES: a pair segment across 160 tiles, weighted
+     and counted, segments on tile, chunk and thread edges, every row
+     unmatched, every row in the sentinel segment, row R-1 a valid
+     segment start, the last segment ending on row R-1 across tiles,
+     weights of +-2^62, multihist sub-ranges, both pair-key widths at
+     (S+1)nv just under and at 2^31; hist_pairs held at the rows its
+     readers read; fails unless its look-back and one past 128 tiles
+     ran; k9_edge_checks) and K5 on its own (K5_CASES: no live row,
+     exactly kmax, past kmax, a live row R-1, tile edges, the cache-group
+     and time keys, kmat keys with and without columns, max_out 5, a
+     batch shorter than kmax, a 600-word row; k5_edge_checks); after the
+     kernel table each form's device operations a call (K3, each form of
+     K13, K11, hist_prep and K5: 1; K10, each table of K4, K6's value
+     mode and hist_pairs: at most 2; late_op_checks).  Then the
      enumerated strategy: K7's enum form,
      K11 enum_segments, K12 topk_rows and K10's enum_pack against their
      plain versions on config 5's real batches of both partitions ($COUNT
@@ -318,7 +331,7 @@ KERNELS = ("decode_bucket2", "decode_value", "dense_scan", "dense_hist",
 # the launch-counted wrappers: each source's, and those of a source's
 # other kernels (sybil_tpu_torch/ops/kernels.py ENTRY_SOURCES)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
-                 "prune_gather": "topk_rows",
+                 "hist_prep": "hist_pairs", "prune_gather": "topk_rows",
                  "shuffle_keys": "shuffle_reduce",
                  "shuffle_unpack": "shuffle_reduce",
                  "dense_keyed": "dense_pack"}
@@ -1637,9 +1650,44 @@ def check_outs(kernel, what, got: dict, want: dict, keys, errs):
                         errs[kernel])
 
 
+PREP_OUTS = ("pairkey", "w", "out_mask", "out_val", "nout")
+
+
+def check_pairs(what, got: dict, want: dict, errs) -> None:
+    """K9's hist_pairs against its plain version: hp_mask and npairs
+    whole, hp_bv, hp_w and hp_keys at the rows hp_mask sets and at row
+    R-1, the rows the kernel writes and its readers read (the plain
+    version fills every row)."""
+    import torch
+    check_outs("hist_pairs", what, got, want, ("hp_mask", "npairs"), errs)
+    mask = want["hp_mask"]
+    R = mask.numel()
+    rows = torch.cat([torch.nonzero(mask[:R - 1]).reshape(-1),
+                      torch.tensor([R - 1], device=mask.device)])
+    for key in ("hp_bv", "hp_w", "hp_keys"):
+        check_equal(f"hist_pairs {what} {key} at {rows.numel() - 1} set "
+                    f"rows before R-1 and row R-1", got[key][rows],
+                    want[key][rows], errs["hist_pairs"])
+
+
 K8_OUTS = ("sums", "mins", "maxs", "keys", "kmat", "sidxm", "gid",
            "num_groups", "dmat", "pair_mask")
 K8_PATHS = {}                   # device -> the path counts of K8's checks
+K9_PATHS = {}                   # the same of K9's hist_pairs
+
+
+def k9_paths(device):
+    """The int64 counts every checked hist_pairs launch on `device` adds
+    its paths to (scan.K9_PATHS)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    # "cuda" and "cuda:0" are one card
+    key = torch.empty(0, device=device).device
+    if key not in K9_PATHS:
+        K9_PATHS[key] = torch.zeros(len(scan.K9_PATHS), dtype=torch.int64,
+                                    device=key)
+    return K9_PATHS[key]
 
 
 def k8_paths(device):
@@ -1710,15 +1758,13 @@ def sorted_check(what, cfg, cols, nrec, errs, fv=None, bits=(), tb=1,
     preps, pairs, nouts = [], [], []
     for ai in scan.hist_aggs(cfg):
         prep = scan.hist_prep(cfg, ai, cols, k8)
-        check_outs("hist_pairs", f"{what} agg{ai} prep", prep,
-                   scan.hist_prep_plain(cfg, ai, cols, k8),
-                   ("pairkey", "w", "out_mask", "out_val", "nout"), errs)
+        check_outs("hist_prep", f"{what} agg{ai}", prep,
+                   scan.hist_prep_plain(cfg, ai, cols, k8), PREP_OUTS, errs)
         spk, si2 = torch.sort(prep["pairkey"], stable=True)
-        hp = scan.hist_pairs(cfg, ai, spk, si2, prep["w"], k8["kmat"])
-        check_outs("hist_pairs", f"{what} agg{ai}", hp,
-                   scan.hist_pairs_plain(cfg, ai, spk, si2, prep["w"],
-                                         k8["kmat"]),
-                   ("hp_mask", "hp_bv", "hp_w", "hp_keys", "npairs"), errs)
+        hp = scan.hist_pairs(cfg, ai, spk, si2, prep["w"], k8["kmat"],
+                             paths=k9_paths(dev))
+        check_pairs(f"{what} agg{ai}", hp, scan.hist_pairs_plain(
+            cfg, ai, spk, si2, prep["w"], k8["kmat"]), errs)
         preps.append(prep)
         pairs.append(hp)
         nouts.append(prep["nout"])
@@ -2389,6 +2435,336 @@ def sorted_edge_expect(name, cfg, main, R):
 
 
 # ---------------------------------------------------------------------------
+# K9 (hist_prep, hist_pairs) and K5 (outlier_compact): corner cases
+# ---------------------------------------------------------------------------
+
+# K9's corner cases (tests/test_torch_hist_outlier_cases.py holds the
+# plain versions to the reference's _scan_sorted, its pair arrays at the
+# rows hp_mask sets and at row R-1, and its outlier outputs, on the same
+# batches made smaller): name -> options.  B: blocks of C rows (65,536 on
+# the card); T = C // 4 rows (16,384 on the card: four of hist_pairs'
+# 4,096-row tiles, one of K5's and K10's).
+# segs: the (group, bucket) segments in the pair sort's order, each
+# ((tiles, rows), key, value) of tiles * T + rows rows, or (-1, key,
+# value) for the rows the others leave; the packed group key "k0" and
+# the value "v" (value-identity buckets) make them, the batch shuffled.
+# rest: (kind, (tiles, rows) or -1) rows after the segments: "unmatched"
+# (the filter drops them: hist_prep gathers nothing for them) or
+# "missing" (matched, no value: the sentinel segment).  random: (keys,
+# lo, hi): every row a random key in [0, keys) and value in [lo, hi)
+# instead.  hist: (nv, max_groups) of the value-identity buckets
+# (default (40, 100,000)), or "multi" (MULTI_EDGES); weight: "small"
+# (1-100) or "huge" (+-2^62: the sums wrap mod 2^64), 80% valid; track:
+# outlier tracking.
+K9_CASES = {
+    "one segment across 160 tiles, weighted": dict(
+        B=48, segs=[((0.3, 0), 0, 3), ((160, 0), 0, 5), (-1, 1, 7)],
+        rest=("unmatched", (28, 0)), weight="small"),
+    "one segment across 160 tiles, row counts": dict(
+        B=48, segs=[((0.3, 0), 0, 3), ((160, 0), 0, 5), (-1, 1, 7)],
+        rest=("missing", (28, 0))),
+    "segments on tile, chunk and thread edges": dict(
+        B=4, segs=[((1, 0), 0, 1), ((1, 0), 0, 2), ((0, 1), 0, 3),
+                   ((1, -2), 0, 4), ((0, 1), 0, 5), ((0.25, 0), 1, 0),
+                   ((0, 16), 1, 1), ((0, 15), 1, 2), ((0, 17), 1, 3),
+                   ((0.25, -48), 1, 4), ((2, 0), 2, 9), ((0, 1), 3, 0),
+                   ((3, 5), 3, 1), (-1, 4, 39)],
+        rest=("unmatched", (1, 3))),
+    "every row unmatched": dict(B=4, rest=("unmatched", -1)),
+    "every row in the sentinel segment": dict(B=4, rest=("missing", -1),
+                                              weight="small"),
+    "row R-1 a valid segment start": dict(
+        B=4, segs=[((3, 0), 0, 1), (-1, 0, 2), ((0, 1), 5, 0)],
+        weight="small", track=True),
+    "the last segment ends on row R-1, across tiles": dict(
+        B=4, segs=[((0.05, 0), 0, 1), (-1, 1, 3)], weight="huge"),
+    "weights of +-2^62 wrap mod 2^64": dict(
+        B=4, segs=[((2, 0), 0, 1), ((3, 7), 0, 2), ((0, 3), 1, 0),
+                   (-1, 1, 1)], rest=("missing", (2, 0)), weight="huge"),
+    "multihist sub-ranges, live outliers": dict(
+        B=4, random=(7, -20, 450), hist="multi", weight="small",
+        track=True),
+    "int32 pair key, (S+1)nv just under 2^31": dict(
+        B=4, random=(70000, 0, 40000), hist=(32768, 65534), track=True),
+    "int64 pair key, (S+1)nv at 2^31": dict(
+        B=4, random=(70000, 0, 40000), hist=(32768, 65535), track=True,
+        weight="small"),
+}
+
+
+def k9_case(name: str, C: int = 65536, seed: int = 0):
+    """K9_CASES[name] -> (ScanConfig fields with aggs and filters as field
+    dicts, {col: (values int64 [B, C], valid bool [B, C])}, nrec int32
+    [B], filter constants int64 [1], time bucket), all numpy, made from
+    the seed."""
+    import numpy as np
+    o = K9_CASES[name]
+    B = o["B"]
+    R, T = B * C, C // 4
+    rng = np.random.default_rng(seed + 900 + sorted(K9_CASES).index(name))
+
+    def rows(c):
+        return int(c[0] * T) + c[1]
+    segs = o.get("segs", [])
+    kind, rc = o.get("rest", (None, (0, 0)))
+    fixed = sum(rows(c) for c, _, _ in segs if c != -1)
+    fixed += rows(rc) if rc != -1 else 0
+    fill = R - fixed
+    if fill < 0 or (fill and not o.get("random") and rc != -1 and
+                    all(c != -1 for c, _, _ in segs)):
+        raise ValueError(f"K9 case {name!r}: its rows do not make {R}")
+    if o.get("random"):
+        nk, lo, hi = o["random"]
+        k, v = rng.integers(0, nk, R), rng.integers(lo, hi, R)
+        ok, f = np.ones(R, bool), np.ones(R, np.int64)
+    else:
+        parts = [(fill if c == -1 else rows(c), key, val)
+                 for c, key, val in segs]
+        k = np.concatenate([np.full(n, key) for n, key, _ in parts]
+                           + [np.zeros(0, np.int64)])
+        v = np.concatenate([np.full(n, val) for n, _, val in parts]
+                           + [np.zeros(0, np.int64)])
+        nrest = fill if rc == -1 else rows(rc)
+        top = max([key for _, key, _ in segs], default=0)
+        k = np.concatenate([k, rng.integers(0, top + 1, nrest)])
+        v = np.concatenate([v, rng.integers(0, 40, nrest)])
+        ok = np.arange(R) < R - nrest if kind == "missing" else \
+            np.ones(R, bool)
+        f = (np.arange(R) < R - nrest if kind == "unmatched"
+             else np.ones(R, bool)).astype(np.int64)
+    perm = rng.permutation(R)
+    cols = {"k0": (k[perm].reshape(B, C), np.ones((B, C), bool)),
+            "v": (v[perm].reshape(B, C), ok[perm].reshape(B, C)),
+            "f": (f[perm].reshape(B, C), np.ones((B, C), bool))}
+    if o.get("weight"):
+        w = (rng.integers(1, 101, R) if o["weight"] == "small"
+             else rng.integers(-2 ** 62, 2 ** 62, R))
+        cols["w"] = (w.reshape(B, C), (rng.random(R) < 0.8).reshape(B, C))
+    if o.get("hist") == "multi":
+        agg, S = dict(col="v", hist_min=0, bucket_size=0, num_values=70,
+                      discard_min=0, discard_max=2500,
+                      sub_edges=MULTI_EDGES), 100_000
+    else:
+        nv, S = o.get("hist", (40, 100_000))
+        agg = dict(col="v", hist_min=0, bucket_size=1, num_values=nv,
+                   discard_min=0, discard_max=10 ** 6)
+    fields = dict(group_cols=("k0",), aggs=(agg,),
+                  filters=(dict(col="f", op="eq", kind="int",
+                                bitset_idx=-1),),
+                  weight_col="w" if o.get("weight") else "",
+                  force_sorted=True, max_groups=S,
+                  track_outliers=bool(o.get("track")),
+                  sort_pack=((0, int(k.max()) + 1),))
+    return (fields, cols, np.full(B, C, dtype=np.int32),
+            np.asarray([1], np.int64), 1)
+
+
+def k9_case_expect(name: str, cfg, prep: dict, hp: dict, T: int) -> None:
+    """Each K9 case reaches the edge it is named for (numpy or torch
+    outputs of either version): its pair-key width, the set rows, the
+    outliers."""
+    import numpy as np
+    mask = np.asarray(hp["hp_mask"].cpu() if hasattr(hp["hp_mask"], "cpu")
+                      else hp["hp_mask"])
+    R = mask.size
+    set_rows = np.flatnonzero(mask)
+    nv = cfg.aggs[0].num_values
+    wide = (cfg.max_groups + 1) * nv >= 2 ** 31
+    if (str(prep["pairkey"].dtype).endswith("int64")) != wide:
+        fail(f"K9 case {name!r}: pair key {prep['pairkey'].dtype} at "
+             f"(S+1)nv = {(cfg.max_groups + 1) * nv}")
+    nout = prep["nout"]
+    tiles = 160 * T
+    ok = {
+        "one segment across 160 tiles, weighted":
+            lambda: np.diff(set_rows).max(initial=0) >= tiles,
+        "one segment across 160 tiles, row counts":
+            lambda: np.diff(set_rows).max(initial=0) >= tiles,
+        "segments on tile, chunk and thread edges":
+            lambda: all(mask[[T, 2 * T, 2 * T + 1, 3 * T - 1, 3 * T]]),
+        "every row unmatched": lambda: set_rows.size == 0,
+        "every row in the sentinel segment": lambda: set_rows.size == 0,
+        "row R-1 a valid segment start": lambda: bool(mask[R - 1]),
+        "the last segment ends on row R-1, across tiles":
+            lambda: set_rows.size == 2 and set_rows[-1] < R - 10 * T,
+        "multihist sub-ranges, live outliers": lambda: int(nout[0]) > 0,
+        "int32 pair key, (S+1)nv just under 2^31": lambda: int(nout[0]) > 0,
+        "int64 pair key, (S+1)nv at 2^31": lambda: int(nout[0]) > 0,
+    }.get(name, lambda: True)()
+    if not ok:
+        fail(f"K9 case {name!r} misses its edge: {set_rows.size} set rows "
+             f"of {R}")
+
+
+def k9_edge_checks(card, device, errs) -> None:
+    """K7 to K10 on K9_CASES (sorted_check: K9's two entries and K5 each
+    held to its plain version word for word, hist_pairs' outputs at the
+    rows its readers read), each case checked to reach its edge; then
+    fails unless hist_pairs' checks so far took a look-back and one past
+    128 tiles.  A call's device operations are checked late (hist_prep
+    1, hist_pairs at most 2)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    t0 = time.perf_counter()
+    for name in K9_CASES:
+        fields, cols, nrec, fv, tb = k9_case(name)
+        cfg = scan.config_from_fields(fields)
+        tc = {k: (torch.from_numpy(v).to(device),
+                  torch.from_numpy(m).to(device))
+              for k, (v, m) in cols.items()}
+        _, _, parts = sorted_check(
+            f"K9 case {name!r}", cfg, tc, torch.from_numpy(nrec).to(device),
+            errs, torch.from_numpy(fv).to(device), (), tb)
+        prep, hp = parts["preps"][0], parts["pairs"][0]
+        k9_case_expect(name, cfg, prep, hp, cols["k0"][0].shape[1] // 4)
+        if name == "one segment across 160 tiles, weighted":
+            k8 = parts["k8"]
+            spk, si2 = torch.sort(prep["pairkey"], stable=True)
+            LATE_OP_CHECKS.append((
+                f"hist_prep ({name})", 1,
+                lambda a=(cfg, 0, tc, k8): scan.hist_prep(*a)))
+            LATE_OP_CHECKS.append((
+                f"hist_pairs ({name})", 2,
+                lambda a=(cfg, 0, spk, si2, prep["w"], k8["kmat"]):
+                scan.hist_pairs(*a)))
+        del parts, prep, hp
+    n = dict(zip(scan.K9_PATHS, k9_paths(device).tolist()))
+    if not all(n.values()):
+        fail(f"K9's checks never took every path: {n}")
+    say(f"[{card}] K9 hist_prep and hist_pairs == plain (tolerance 0) on "
+        f"{len(K9_CASES)} cases in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(K9_CASES)}); hist_pairs' paths over every checked "
+        f"launch: {n}")
+
+
+# K5's corner cases (tests/test_torch_hist_outlier_cases.py holds the
+# plain version to the reference's _mask_positions and pack_outputs'
+# outlier section on the same batches, made smaller): name -> options.
+# B, C: the batch (4 x 65,536 on the card; a tile is T = C // 4 rows,
+# outlier_compact's 16,384 there); live: the mask's set rows, "none",
+# "kmax" (exactly kmax, spread over the batch), "all", "from tile 3"
+# (every row from 3 T on), "R-1" (row R-1 and 20 more), "edges" (k T - 1,
+# k T and k T + 1 for each tile k); keys: "cols" (two int group columns
+# with MISSING), "cg" (the cache-group key ahead of them, 4 blocks a
+# group), "time32" / "time64" (a rollup's time key ahead of them), "kmat"
+# (the sorted strategy's key rows), "kmat only" (a multi-process mesh's
+# compacted rows: no columns); max_out (1,024); W: the row's words (the
+# keys, value and live, and 3 more).
+K5_CASES = {
+    "no live row": dict(live="none"),
+    "exactly kmax live rows": dict(live="kmax"),
+    "every row live (past kmax)": dict(live="all"),
+    "live rows from tile 3 on": dict(live="from tile 3"),
+    "a live row R-1": dict(live="R-1"),
+    "live rows on tile edges, kmat keys": dict(live="edges", keys="kmat"),
+    "the cache-group key": dict(B=16, live="kmax", keys="cg"),
+    "the time key, int32": dict(live="R-1", keys="time32"),
+    "the time key, int64": dict(live="edges", keys="time64"),
+    "kmat keys, every row live": dict(live="all", keys="kmat"),
+    "a mesh's compacted rows (kmat, no columns)": dict(
+        B=1, C=3000, live="R-1", keys="kmat only"),
+    "max_out 5 under many live rows": dict(live="edges", max_out=5),
+    "a batch shorter than kmax": dict(B=1, C=512, live="all"),
+    "a 600-word row (past the shared copy)": dict(live="R-1", W=600),
+}
+
+
+def k5_case(name: str, C: int = 65536, seed: int = 0):
+    """K5_CASES[name] -> (ScanConfig fields with aggs as field dicts,
+    {col: (values int64 [B, C], valid bool [B, C])} or None, mask bool
+    [R], values int64 [R], kmat int64 [R, K] or None, W, time bucket),
+    all numpy, made from the seed."""
+    import numpy as np
+    o = K5_CASES[name]
+    B, C = o.get("B", 4), o.get("C", C)
+    R, T = B * C, C // 4
+    rng = np.random.default_rng(seed + 950 + sorted(K5_CASES).index(name))
+    max_out = o.get("max_out", 1024)
+    kmax = min(max_out, R)
+    live = o["live"]
+    mask = np.zeros(R, bool)
+    if live == "kmax":
+        mask[rng.choice(R, kmax, replace=False)] = True
+    elif live == "all":
+        mask[:] = True
+    elif live == "from tile 3":
+        mask[3 * T:] = True
+    elif live == "R-1":
+        mask[rng.choice(R - 1, 20, replace=False)] = True
+        mask[R - 1] = True
+    elif live == "edges":
+        for e in range(T, R, T):
+            mask[e - 1: e + 2] = True
+    keys = o.get("keys", "cols")
+    cols = {} if keys != "kmat only" else None
+    groups, extra, tb = ["k0", "k1"], {}, 1
+    if cols is not None:
+        for g in groups:
+            cols[g] = (rng.integers(-50, 50, R).reshape(B, C),
+                       (rng.random(R) < 0.9).reshape(B, C))
+        cols["v"] = (rng.integers(0, 500, R).reshape(B, C),
+                     np.ones((B, C), bool))
+    if keys == "cg":
+        groups = ["__cg__"] + groups
+        extra = dict(vg_span=4)
+    elif keys in ("time32", "time64"):
+        lo, hi, tb = ((-400_000, 900_000, 100) if keys == "time32" else
+                      ((1 << 33) - 5_000_000, (1 << 33) + 5_000_000, 7))
+        cols["t"] = (rng.integers(lo, hi, R).reshape(B, C),
+                     (rng.random(R) < 0.95).reshape(B, C))
+        extra = dict(time_col="t", time_i32=keys == "time32")
+    fields = dict(group_cols=tuple(groups),
+                  aggs=(dict(col="v", hist_min=0, bucket_size=10,
+                             num_values=40, discard_min=0,
+                             discard_max=2500),),
+                  filters=(), track_outliers=True, max_out=max_out,
+                  **extra)
+    K = len(groups) + (1 if "time_col" in extra else 0)
+    kmat = (rng.integers(-2 ** 40, 2 ** 40, (R, K))
+            if keys in ("kmat", "kmat only") else None)
+    vals = np.where(mask, rng.integers(-2 ** 50, 2 ** 50, R), 0)
+    return fields, cols, mask, vals, kmat, o.get("W", K + 5), tb
+
+
+def k5_edge_checks(card, device, errs) -> None:
+    """K5 on K5_CASES, each launch's rows held to the plain version's word
+    for word in a FILL-filled buffer (the rows outside the section must
+    stay FILL); a call's device operations are checked late (1: the
+    kernel, no memset)."""
+    import torch
+
+    from sybil_tpu_torch.ops import scan
+    lines = []
+    for name in K5_CASES:
+        fields, cols, mask, vals, kmat, W, tb = k5_case(name)
+        cfg = scan.config_from_fields(fields)
+        tc = None if cols is None else {
+            k: (torch.from_numpy(v).to(device),
+                torch.from_numpy(m).to(device)) for k, (v, m) in cols.items()}
+        R = mask.size
+        kmax = min(cfg.max_out, R)
+        km = None if kmat is None else torch.from_numpy(kmat).to(device)
+        mt = torch.from_numpy(mask).to(device)
+        vt = torch.from_numpy(vals).to(device)
+        got = torch.full((kmax + 5, W), FILL, dtype=torch.int64,
+                         device=device)
+        want = got.clone()
+        scan.outlier_compact(cfg, tc, mt, vt, got, 2, tb, kmat=km)
+        scan.outlier_compact_plain(cfg, tc, mt, vt, want, 2, tb, kmat=km)
+        check_equal(f"outlier_compact case {name!r}", got, want,
+                    errs["outlier_compact"])
+        lines.append(f"{name}: {int(mask.sum())} live of {R}")
+        if name == "no live row":
+            LATE_OP_CHECKS.append((
+                f"outlier_compact ({name})", 1,
+                lambda a=(cfg, tc, mt, vt, got, 2, tb):
+                scan.outlier_compact(*a)))
+    say(f"[{card}] K5 outlier_compact == plain word for word on "
+        f"{len(K5_CASES)} corner cases: " + "; ".join(lines))
+
+
+# ---------------------------------------------------------------------------
 # K10 and K3 at their wrappers' interfaces: corner cases and sweeps
 # ---------------------------------------------------------------------------
 
@@ -2653,10 +3029,10 @@ def pack_sweep(kind: str, seed: int = K10_SWEEP_SEED,
     return out
 
 
-# (label, device operations a call, call) of the K3, K10, K4 and K13 calls
-# whose device work is profiled late (no profiler session runs before the
-# mesh phase's launch-count checks): K3 and K13 one operation, K10 and K4
-# at most two
+# (label, device operations a call, call) of the K3, K10, K4, K13, K6, K11,
+# K9 and K5 calls whose device work is profiled late (no profiler session
+# runs before the mesh phase's launch-count checks): K3, K13, K11,
+# hist_prep and K5 one operation, the others at most two
 LATE_OP_CHECKS = []
 
 
@@ -2847,8 +3223,8 @@ LATE_ROUND_GAP_S = 2.0
 
 def late_op_checks(card) -> None:
     """LATE_OP_CHECKS' calls profiled: each must be recorded, and within
-    its device operations a call (K3, K13 and K11: 1; K10, K4 and K6's
-    value mode at most 2).  A
+    its device operations a call (K3, K13, K11, hist_prep and K5: 1; K10,
+    K4, K6's value mode and hist_pairs at most 2).  A
     call the profiler recorded nothing of (device_launches' None: a
     profile that misses a call's events, PERF.md §7) is profiled again in
     a later round, up to LATE_ROUNDS in all; one still unrecorded fails."""
@@ -2876,8 +3252,8 @@ def late_op_checks(card) -> None:
                        f"{'exactly' if most == 1 else 'at most'} {most}"
                        for label, most, _, per in missed))
     del LATE_OP_CHECKS[:]
-    say(f"[{card}] K3, K10, K4, K13, K6's value mode and K11 device "
-        f"operations a call "
+    say(f"[{card}] K3, K10, K4, K13, K6's value mode, K11, K9 and K5 "
+        f"device operations a call "
         f"(torch.profiler): "
         + "; ".join(lines))
 
@@ -4069,8 +4445,9 @@ def sets_main_path(card, table, arr, launches):
     agg3 = b3.config.aggs[0]
     track3 = int(b3.config.track_outliers)
     rows, wall, ll = run("S3", dict(set_match=1, sorted_front=1,
-                                    segment_reduce=1, hist_pairs=2,
-                                    outlier_compact=track3, sorted_pack=1))
+                                    segment_reduce=1, hist_prep=1,
+                                    hist_pairs=1, outlier_compact=track3,
+                                    sorted_pack=1))
     sel = idx % 5 == 0
     keep = sel & (ping >= agg3.discard_min) & (ping <= agg3.discard_max)
     got = {(r["host"], r["status"]): r for r in rows}
@@ -4111,8 +4488,8 @@ def sets_main_path(card, table, arr, launches):
             ("S4a", idx % 3 == 0, all_cols,
              dict(set_match=1, dense_scan=1, dense_pack=1)),
             ("S4b", np.ones(N, bool), ["host", "ping", "groups"],
-             dict(sorted_front=1, segment_reduce=1, hist_pairs=2,
-                  outlier_compact=track4b, sorted_pack=1))):
+             dict(sorted_front=1, segment_reduce=1, hist_prep=1,
+                  hist_pairs=1, outlier_compact=track4b, sorted_pack=1))):
         rows, wall, ll = run(label, expect)
         from sybil_tpu_torch import blocks
         bidx = blocks.load_block_columns(first, table.schema,
@@ -7734,6 +8111,8 @@ def main(argv=None) -> int:
             f"{len(SORTED_EDGES)} synthetic sorted batches (3 x 65536 "
             f"rows): " + ", ".join(SORTED_EDGES))
         k8_edge_checks(card, dev, errs)
+        k9_edge_checks(card, dev, errs)
+        k5_edge_checks(card, dev, errs)
         k7_edge_checks(card, dev, errs)
         k10_edge_checks(card, dev, errs)
         k3_edge_checks(card, dev, errs)
@@ -8044,8 +8423,8 @@ def main(argv=None) -> int:
         # the value-identity buckets hold every kept ping turn it off
         track1 = int(cfg_p1.track_outliers)
         cold1 = dict({k: 0 for k in COUNTED}, decode_bucket2=3,
-                     sorted_front=1, segment_reduce=1, hist_pairs=2,
-                     outlier_compact=track1, sorted_pack=1)
+                     sorted_front=1, segment_reduce=1, hist_prep=1,
+                     hist_pairs=1, outlier_compact=track1, sorted_pack=1)
         if ll != cold1:
             fail(f"path 1: cold launches {ll}, expected {cold1}")
         got_pairs = {}
@@ -8553,7 +8932,8 @@ def main(argv=None) -> int:
         qr1 = timed_queries(card, "path 1 (config 3 -tdigest)", table,
                             params_p1, flags_p1, args.rows, B,
                             {"sorted_front": 1, "segment_reduce": 1,
-                             "hist_pairs": 2, "outlier_compact": track1,
+                             "hist_prep": 1, "hist_pairs": 1,
+                             "outlier_compact": track1,
                              "sorted_pack": 1, "dense_scan": 0})
         for i, h in enumerate(HOSTS):
             r = qr1.results[h + "\t"]
@@ -9057,11 +9437,17 @@ def main(argv=None) -> int:
                 kp_plain = cuda_ms(lambda: scan.hist_prep_plain(
                     cfg, ai, sub, k8), iters=5)
                 track = cfg.track_outliers
-                kp_bytes = (Rn * (4 + 4 + 9) + (Rn * 9 if cfg.weight_col
-                                                else 0)
-                            + Rn * 16 + (Rn * 9 + 8 if track else 0))
+                wb = 8 if cfg.weight_col else 0
+                keyb = prep["pairkey"].element_size()
+                # every row: sidxm read, the key (and w, the outliers)
+                # written; a matched row: gid read, the value, its valid
+                # byte (and the weight's) gathered
+                nm = int((k8["sidxm"] < 0).sum().item())
+                kp_bytes = (Rn * (4 + keyb + wb + (9 if track else 0))
+                            + nm * (4 + 9 + (9 if wb else 0))
+                            + (8 if track else 0))
                 kp_ops = Rn * (14 + 4 * len(agg.sub_edges))
-                sorted_rows.append(("hist_pairs", f"{plabel}, prep",
+                sorted_rows.append(("hist_prep", plabel,
                                     "sybil_tpu/ops/scan.py:1247", kp_ms,
                                     kp_plain, kp_bytes, kp_ops, None))
                 pk = prep["pairkey"]
@@ -9078,19 +9464,29 @@ def main(argv=None) -> int:
                 pb = torch.ones(Rn, dtype=torch.bool, device=dev)
                 pb[1:] = spk[1:] != spk[:-1]
                 seg = torch.cumsum(pb.to(torch.int64), 0) - 1
-                sw = prep["w"][si2]
+                sent = (cfg.max_groups + 1) * agg.num_values
+                below = spk < sent
+                sw = (below.to(torch.int64) if prep["w"] is None
+                      else prep["w"][si2])
                 kq_lib = cuda_ms(lambda: torch.zeros(
                     Rn, dtype=torch.int64, device=dev).index_add_(0, seg, sw),
                     iters=5)
-                del pb, seg, sw
-                kq_bytes = (Rn * 24 + Rn * 8 * K + Rn * 17 + Rn * 8 * K + 8)
-                kq_ops = Rn * 30
-                sorted_rows.append(("hist_pairs", f"{plabel}, pairs",
+                # every row: the key read and the mask byte written; a row
+                # below the sentinel with a weight column: si2 read, w
+                # gathered; a set row and row R-1: si2 and kmat's row
+                # read, hp_bv, hp_w and hp_keys written; npairs
+                nset = int(hpx["npairs"][0].item()) + 1
+                nbelow = int(below.sum().item()) if wb else 0
+                kq_bytes = (Rn * (keyb + 1) + nbelow * 16
+                            + nset * (8 + 8 * K + 16 + 8 * K) + 8)
+                kq_ops = Rn * 12
+                del pb, seg, sw, below
+                sorted_rows.append(("hist_pairs", plabel,
                                     "sybil_tpu/ops/scan.py:1256", kq_ms,
                                     kq_plain, kq_bytes, kq_ops, kq_lib))
-                say(f"[{card}] sorts, {plabel}: pair-key sort (int64 [R], "
-                    f"stable torch.sort) {pair_sort_ms:.4f} ms (bound "
-                    f"{sort_bound_ms(Rn, 8):.4f} ms)")
+                say(f"[{card}] sorts, {plabel}: pair-key sort ({pk.dtype} "
+                    f"[R], stable torch.sort) {pair_sort_ms:.4f} ms (bound "
+                    f"{sort_bound_ms(Rn, keyb):.4f} ms)")
                 pairs.append(hpx)
                 nouts.append(prep["nout"])
                 if track:

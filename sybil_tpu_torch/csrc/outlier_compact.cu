@@ -14,35 +14,67 @@
 // group key (MISSING = -1 where the key column is missing); a scan with
 // none has one zero key.  Under the sorted
 // strategy the mask and values are in sorted order and a row's keys are
-// its row of K8's kmat [R, K] (the reference's sorted_gkeys there).  When
-// fewer than kmax rows are set, the reference
+// its row of K8's kmat [R, K] (the reference's sorted_gkeys there); a
+// multi-process dense mesh scan's outlier rows come compacted with their
+// keys as kmat.  When fewer than kmax rows are set, the reference
 // gathers row R-1 for each remaining entry (searchsorted returns R,
 // clipped to R-1), so padding rows hold row R-1's keys and value with
 // live = 0; this kernel writes the same words.
 //
 // Bound: memory, one read of the 1 B mask per row; the section itself
-// is at most kmax * W words.  Design, three launches on one stream:
-//   1. count: each CTA counts the set rows of its TILE-row tile;
-//   2. scan:  one CTA turns the tile counts into exclusive offsets and
-//             the total;
-//   3. write: each CTA whose offset is below kmax ranks its set rows in
-//             row order (a warp ballot and a block scan per 256 rows)
-//             and writes those with rank < kmax; then all CTAs together
-//             write the padding rows [total, kmax).
+// is at most kmax * W words.
+//
+// What a trace of the former design showed (torch.profiler on the H100;
+// PERF.md §6): three launches, 34-35 us of device work a call with no
+// row set: a count of each 4,096-row tile (one byte a thread a load),
+// a one-CTA scan of the counts, and a write pass whose CTAs ran a block
+// scan every 256 rows whether or not a row was set (26.6 us).
+//
+// Design: one launch, no memset.  The grid's CTAs take an atomic ticket
+// each: the TILE-row tiles in order, then NHELP padding helpers.  A tile
+// reads its mask 16 bytes at a time (64 rows a thread, lookback.cuh's
+// mask_bits) and publishes its set-row count in its status word; a tile
+// with no set row is done.  A tile with set rows finds the rows set
+// before it as the sum of its predecessors' counts (warp 0, 32 x LB words
+// a round, every load of a round in flight at once; by the ticket every
+// predecessor has started, and each publishes without waiting), stopping
+// once the sum reaches kmax, when the tile writes nothing; the others
+// rank their set rows with one block scan and write their rows word by
+// word, so the stores of a row run are coalesced.  A helper sums every
+// tile's count (the total) and writes its share of the padding rows
+// [total, kmax) from a copy of row R-1 in shared memory.  No tile waits
+// for another's inclusive prefix, as the chained look-back of K10's pair
+// sections does: with no row set, only the helpers read the counts.  The
+// ticket and the status words live in a scratch of the wrapper's, one per
+// device and stream, that no call clears: the ticket counts on across
+// calls (the wrapper passes the value its call's first ticket draws), and
+// a status word holds the call's epoch (its number on the stream) above
+// its count, so the words of earlier calls read as unpublished.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
 #include "desc.cuh"
+#include "lookback.cuh"
 #include "time_key.cuh"
 
 namespace {
 
+using lookback::FULL;
+using lookback::ROWS_T;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 4096;
-constexpr int SCAN_THREADS = 1024;
+constexpr int TILE = THREADS * ROWS_T;        // mask rows a CTA: 16,384
+constexpr int NHELP = 8;                      // padding helpers
+// status words a lane a round: 512 tiles (8,388,608 rows) a round
+constexpr int LB = 16;
+constexpr int PAD_WORDS = 512;                // padding row kept in smem
+// the scratch words: the ticket, then a status word a tile
+constexpr int S_TICKET = 0;
+constexpr int S_STATUS = 1;
+constexpr unsigned long long COUNT_BITS = 0xffffffffull;
 
 }  // namespace
 
@@ -58,9 +90,10 @@ struct OutlierCompactArgs {
   const long long* t_vals;     // time column (has_time)
   const long long* kmat;       // [R, kmat_K] sorted keys, or null
   long long* out;              // [kmax, W] rows of the download buffer
-  int* offsets;                // [ntiles + 1] scratch: counts, then offsets
+  unsigned long long* scratch; // [S_STATUS + ntiles], kept across calls
   long long R;
   long long tb;                // time bucket (> 0)
+  long long base;              // the call's first ticket
   int kmax;
   int W;
   int nkeys;                   // group columns; none and no time = one zero key
@@ -70,103 +103,192 @@ struct OutlierCompactArgs {
   int kmat_K;
   int log2C;                   // rows per block, log2
   int vg_span;                 // > 0: key 0 is the cache-group key
+  unsigned epoch;              // the call's number on the stream, from 1
+  int grid;                    // ntiles + NHELP CTAs
 };
 
 namespace {
 
-__device__ __forceinline__ void write_row(const OutlierCompactArgs& a,
-                                          long long j, long long r,
-                                          long long live) {
-  long long* o = a.out + j * a.W;
+// Word c of the section's row for mask row r, live 1 (a set row) or 0 (a
+// padding row).
+__device__ __forceinline__ long long row_word(const OutlierCompactArgs& a,
+                                              long long r, int c,
+                                              long long live) {
   const int cg = a.vg_span > 0;
   const int lead = cg + a.has_time;
   const int nk = a.nkeys + lead;
-  int K = nk > 0 ? nk : 1;
-  if (a.kmat) {
-    K = a.kmat_K;
-    for (int k = 0; k < K; ++k) o[k] = a.kmat[r * K + k];
-  } else {
+  const int K = a.kmat ? a.kmat_K : (nk > 0 ? nk : 1);
+  if (c < K) {
+    if (a.kmat) return a.kmat[r * K + c];
+    if (nk == 0) return 0ll;
     // vg_span is a power of two
-    if (cg) o[0] = r >> (a.log2C + __ffs(a.vg_span) - 1);
-    if (a.has_time) o[cg] = time_key(a.t_vals[r], a.tb, a.time_i32);
-    for (int k = 0; k < a.nkeys; ++k)
-      o[lead + k] = desc_at(a.desc, a.key_valid, k)[r]
-                        ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;
-    if (nk == 0) o[0] = 0;
+    if (c < cg) return r >> (a.log2C + __ffs(a.vg_span) - 1);
+    if (c < lead) return time_key(a.t_vals[r], a.tb, a.time_i32);
+    const int k = c - lead;
+    return desc_at(a.desc, a.key_valid, k)[r]
+               ? desc_at(a.desc, a.key_vals, k)[r] : -1ll;
   }
-  o[K] = a.vals[r];
-  o[K + 1] = live;
-  for (int k = K + 2; k < a.W; ++k) o[k] = 0;
+  if (c == K) return a.vals[r];
+  return c == K + 1 ? live : 0ll;
 }
 
-__global__ void __launch_bounds__(THREADS) count_tiles(
-    const OutlierCompactArgs a) {
-  const long long lo = (long long)blockIdx.x * TILE;
-  int n = 0;
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    const long long r = lo + i;
-    if (r < a.R && a.mask[r]) ++n;
+// The counts that tiles [0, hi) published in this call (epoch), summed
+// by a warp (every lane gets the sum), the nearest tile first, waiting for
+// those not yet published; it stops once the sum reaches cap.
+__device__ unsigned long long counts_before(const unsigned long long* st,
+                                            int hi, long long cap,
+                                            unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long none = (unsigned long long)epoch << 32;
+  unsigned long long sum = 0ull;
+  for (int top = hi - 1; top >= 0 && (long long)sum < cap;
+       top -= 32 * LB) {
+    unsigned long long w[LB];
+    bool unset = false;
+#pragma unroll
+    for (int k = 0; k < LB; ++k) {
+      const int j = top - LB * lane - k;
+      w[k] = j >= 0 ? lookback::ld_relaxed(st + j) : none;
+      unset |= (w[k] >> 32) != epoch;
+    }
+    while (__any_sync(FULL, unset)) {
+      unset = false;
+#pragma unroll
+      for (int k = 0; k < LB; ++k) {
+        if ((w[k] >> 32) != epoch)
+          w[k] = lookback::ld_relaxed(st + top - LB * lane - k);
+        unset |= (w[k] >> 32) != epoch;
+      }
+    }
+    unsigned long long c = 0ull;
+#pragma unroll
+    for (int k = 0; k < LB; ++k) c += w[k] & COUNT_BITS;
+    for (int d = 16; d; d >>= 1) c += __shfl_xor_sync(FULL, c, d);
+    sum += c;
   }
-  __shared__ int s_n;
-  if (threadIdx.x == 0) s_n = 0;
+  return sum;
+}
+
+// A compaction CTA: tile `tile` of the mask.
+__device__ void tile_part(const OutlierCompactArgs& a, int tile) {
+  __shared__ int s_count[WARPS];
+  __shared__ unsigned long long s_excl;
+  __shared__ unsigned short s_rows[TILE];   // the tile's set rows, ranked
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long lo = (long long)tile * TILE;
+  const unsigned long long bits =
+      lookback::mask_bits(a.mask, lo + (long long)threadIdx.x * ROWS_T, a.R);
+  const int mine = __popcll(bits);
+  const int wsum = __reduce_add_sync(FULL, mine);
+  if (lane == 0) s_count[warp] = wsum;
   __syncthreads();
-  if (n) atomicAdd(&s_n, n);
-  __syncthreads();
-  if (threadIdx.x == 0) a.offsets[blockIdx.x] = s_n;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(
-    const OutlierCompactArgs a) {
-  int carry = 0;
-  for (int base = 0; base < a.ntiles; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    const int x = i < a.ntiles ? a.offsets[i] : 0;
-    int total;
-    const int pre = block_scan<SCAN_THREADS>(x, &total);
-    if (i < a.ntiles) a.offsets[i] = carry + pre;
-    carry += total;
-  }
-  if (threadIdx.x == 0) a.offsets[a.ntiles] = carry;
-}
-
-__global__ void __launch_bounds__(THREADS) write_rows(
-    const OutlierCompactArgs a) {
-  const long long lo = (long long)blockIdx.x * TILE;
-  int rank = a.offsets[blockIdx.x];
-  const int total = a.offsets[a.ntiles];
-  if (rank < a.kmax) {
-    for (int i = 0; i < TILE && rank < a.kmax; i += THREADS) {
-      const long long r = lo + i + threadIdx.x;
-      const bool set = r < a.R && a.mask[r];
-      int n;
-      const int pre = block_scan<THREADS>(set ? 1 : 0, &n);
-      if (set && rank + pre < a.kmax) write_row(a, rank + pre, r, 1);
-      rank += n;
+  if (warp == 0) {
+    unsigned long long* st = a.scratch + S_STATUS;
+    int count = lane < WARPS ? s_count[lane] : 0;
+    count = __reduce_add_sync(FULL, count);
+    if (lane == 0)
+      lookback::st_release(st + tile, ((unsigned long long)a.epoch << 32) |
+                                          (unsigned)count);
+    const unsigned long long excl =
+        count ? counts_before(st, tile, a.kmax, a.epoch) : 0ull;
+    if (lane == 0) {
+      s_excl = excl;
+      s_count[0] = count;
     }
   }
-  // padding entries gather row R-1, as the reference's clipped
-  // searchsorted does
-  for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
-       j < a.kmax; j += (long long)gridDim.x * THREADS)
-    if (j >= total) write_row(a, j, a.R - 1, 0);
+  __syncthreads();
+  const long long excl = (long long)s_excl;
+  const int count = s_count[0];
+  if (count == 0 || excl >= a.kmax) return;
+  // the tile's set rows below kmax, ranked, to shared memory; then the
+  // CTA writes their rows word by word
+  int total;
+  int k = block_scan<THREADS>(mine, &total);
+  const int n = (int)(a.kmax - excl < count ? a.kmax - excl : count);
+  for (unsigned long long b = bits; b && k < n; b &= b - 1, ++k)
+    s_rows[k] = (unsigned short)(threadIdx.x * ROWS_T +
+                                 __ffsll((long long)b) - 1);
+  __syncthreads();
+  long long* o = a.out + excl * a.W;
+  int c = threadIdx.x % a.W;
+  const int adv = THREADS % a.W;
+  for (int i = threadIdx.x; i < n * a.W; i += THREADS) {
+    o[i] = row_word(a, lo + s_rows[i / a.W], c, 1ll);
+    c += adv;
+    if (c >= a.W) c -= a.W;
+  }
+}
+
+// A padding helper (slice `slice` of NHELP): sums every tile's count,
+// the total, then writes its share of the padding rows [total, kmax),
+// copies of row R-1 with live 0.
+__device__ void pad_part(const OutlierCompactArgs& a, int slice) {
+  __shared__ long long s_total;
+  __shared__ long long s_pad[PAD_WORDS];
+  if (threadIdx.x < 32) {
+    const unsigned long long total =
+        counts_before(a.scratch + S_STATUS, a.ntiles, a.kmax, a.epoch);
+    if (threadIdx.x == 0) s_total = (long long)total;
+  }
+  __syncthreads();
+  const long long total = s_total;
+  if (total >= a.kmax) return;
+  const long long share = (a.kmax - total + NHELP - 1) / NHELP;
+  const long long lo = total + slice * share;
+  const long long hi = lo + share < a.kmax ? lo + share : a.kmax;
+  if (lo >= hi) return;
+  long long* dst = a.out + lo * a.W;
+  const long long npad = hi - lo;
+  if (a.W <= PAD_WORDS) {
+    for (int c = threadIdx.x; c < a.W; c += THREADS)
+      s_pad[c] = row_word(a, a.R - 1, c, 0ll);
+    __syncthreads();
+    const long long n = npad * a.W;
+    int c = threadIdx.x % a.W;
+    const int adv = THREADS % a.W;
+    for (long long i = threadIdx.x; i < n; i += THREADS) {
+      dst[i] = s_pad[c];
+      c += adv;
+      if (c >= a.W) c -= a.W;
+    }
+  } else {
+    for (long long j = threadIdx.x; j < npad; j += THREADS)
+      for (int c = 0; c < a.W; ++c)
+        dst[j * a.W + c] = row_word(a, a.R - 1, c, 0ll);
+  }
+}
+
+// The grid: ntiles compaction CTAs, then NHELP padding helpers, each
+// given its role by an atomic ticket (the hardware need not start CTAs
+// in index order; the ticket's order is the order they started in).
+__global__ void __launch_bounds__(THREADS) outlier_kernel(
+    const OutlierCompactArgs a) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0)
+    s_ticket = (int)(atomicAdd(a.scratch + S_TICKET, 1ull) -
+                     (unsigned long long)a.base);
+  __syncthreads();
+  const int t = s_ticket;
+  if (t < a.ntiles)
+    tile_part(a, t);
+  else
+    pad_part(a, t - a.ntiles);
 }
 
 }  // namespace
 
-// Copies the descriptor block, then runs the three steps on `stream`.
+// Copies the descriptor block, then runs the one launch on `stream`.
 // Returns cudaError_t.
 extern "C" int outlier_compact(const OutlierCompactArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->vg_span < 0 || (args->vg_span & (args->vg_span - 1)))
+  const OutlierCompactArgs& a = *args;
+  if (a.vg_span < 0 || (a.vg_span & (a.vg_span - 1)) || a.R < 1 ||
+      a.R >= (1ll << 31) || a.kmax < 0 || a.kmax > a.R || a.W < 2 ||
+      a.ntiles != (int)((a.R + TILE - 1) / TILE) || a.scratch == nullptr ||
+      a.epoch == 0u || a.grid != a.ntiles + NHELP)
     return cudaErrorInvalidValue;
-  cudaError_t err = desc_upload(args->desc, s);
+  const cudaError_t err = desc_upload(a.desc, s);
   if (err != cudaSuccess) return err;
-  count_tiles<<<args->ntiles, THREADS, 0, s>>>(*args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_tiles<<<1, SCAN_THREADS, 0, s>>>(*args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  write_rows<<<args->ntiles, THREADS, 0, s>>>(*args);
+  outlier_kernel<<<a.grid, THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

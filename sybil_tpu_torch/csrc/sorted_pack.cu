@@ -74,10 +74,12 @@
 // rows by Merrill and Garland's decoupled look-back (as K8's
 // segment_reduce.cu): a thread loads its 64 mask bytes as four 16-byte
 // vectors (byte loads where the mask is not 16-byte aligned or R % 16
-// leaves a tail), the tile publishes its count, warp 0 sums its
-// predecessors' published counts 32 x LB tiles a step (every tile of a
-// call runs at once, so a walk of 32 a step back to tile 0 was 16 steps
-// at 512 tiles) until it meets an inclusive prefix, and a tile whose exclusive prefix reaches the
+// leaves a tail; lookback.cuh's mask_bits, shared with K5), the tile
+// publishes its count, warp 0 sums its predecessors' published counts 32
+// x LB tiles a step, by acquire loads (every tile of a call runs at once,
+// so a walk of 32 a step back to tile 0 was 16 steps at 512 tiles;
+// relaxed loads, all in flight at once, were 1.5 us slower at path 1's
+// pair section) until it meets an inclusive prefix, and a tile whose exclusive prefix reaches the
 // section's cap writes nothing; the others rank their set rows with one
 // block scan and write them, and the last tile writes npairs (distinct).
 // A helper waits for its section's last tile to publish the total (its
@@ -95,15 +97,18 @@
 
 #include "block_scan.cuh"
 #include "desc.cuh"
+#include "lookback.cuh"
 #include <math_constants.h>
 
 namespace {
 
+using lookback::FULL;
+using lookback::ROWS_T;
+using lookback::ld_acquire;
+using lookback::st_release;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int VEC = 16;                       // mask bytes a vector load
-constexpr int VECS = 4;                       // vectors a thread a tile
-constexpr int ROWS_T = VEC * VECS;            // mask rows a thread
 constexpr int TILE = THREADS * ROWS_T;        // mask rows a CTA: 16,384
 constexpr int UNROLL = 4;                     // table steps a loop
 constexpr int PAD_WORDS = 512;                // padding row kept in smem
@@ -111,7 +116,6 @@ constexpr int NHELP = 16;                     // padding helpers a section
 constexpr int LB = 4;                         // look-back words a lane
 constexpr long long BIG = 1ll << 62;
 constexpr long long SENTINEL = 0x7fffffffffffffffll;
-constexpr unsigned FULL = 0xffffffffu;
 // look-back status words: 0 until published, then the aggregate flag
 // (bit 62) or the inclusive-prefix flag (bit 63), the count below
 constexpr unsigned long long PREFIX_BIT = 1ull << 63;
@@ -203,20 +207,6 @@ struct EnumPackArgs {
 };
 
 namespace {
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
 
 // A published status word: an aggregate or an inclusive prefix, and its
 // count.
@@ -468,37 +458,6 @@ __device__ __forceinline__ long long pair_word(const SortedPackArgs& a,
   return c == a.K + 2 ? live : 0ll;
 }
 
-// The thread's 64 mask rows [r0, r0 + 64) as bits, row r0 + i at bit i.
-__device__ __forceinline__ unsigned long long mask_bits(
-    const unsigned char* mask, long long r0, long long R) {
-  unsigned long long bits = 0ull;
-  if (r0 >= R) return 0ull;
-  if (r0 + ROWS_T <= R && ((uintptr_t)(mask + r0) & (VEC - 1)) == 0) {
-    const uint4* p = reinterpret_cast<const uint4*>(mask + r0);
-    uint4 q[VECS];
-#pragma unroll
-    for (int k = 0; k < VECS; ++k) q[k] = __ldcs(p + k);
-#pragma unroll
-    for (int k = 0; k < VECS; ++k) {
-      const unsigned w[4] = {q[k].x, q[k].y, q[k].z, q[k].w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // 0x80 in each byte that is not zero
-        const unsigned nz = __vcmpne4(w[i], 0u) & 0x80808080u;
-        // gather the four flags into bits 0..3
-        const unsigned b = ((nz >> 7) & 1u) | ((nz >> 14) & 2u) |
-                           ((nz >> 21) & 4u) | ((nz >> 28) & 8u);
-        bits |= (unsigned long long)b << (16 * k + 4 * i);
-      }
-    }
-    return bits;
-  }
-  const int n = (int)(R - r0 < ROWS_T ? R - r0 : ROWS_T);
-  for (int i = 0; i < n; ++i)
-    if (mask[r0 + i]) bits |= 1ull << i;
-  return bits;
-}
-
 // A compaction CTA: tile `tile` of section h.
 __device__ void pairs_part(const SortedPackArgs& a, int h, int tile) {
   __shared__ int s_count[WARPS];
@@ -508,7 +467,7 @@ __device__ void pairs_part(const SortedPackArgs& a, int h, int tile) {
   const unsigned char* mask = sec_mask(a, h);
   const long long cap = sec_cap(a, h);
   const long long r0 = (long long)tile * TILE + (long long)threadIdx.x * ROWS_T;
-  const unsigned long long bits = mask_bits(mask, r0, a.R);
+  const unsigned long long bits = lookback::mask_bits(mask, r0, a.R);
   const int mine = __popcll(bits);
   const int wsum = __reduce_add_sync(FULL, mine);
   if (lane == 0) s_count[warp] = wsum;

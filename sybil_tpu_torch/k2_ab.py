@@ -103,8 +103,12 @@ outliers tracked); dense_keyed at a -read-log pseudo-block (65,536 rows,
 the distinct pairs (a 16,384-row section), the device prune at config
 5's 100,000 slots and a mesh batch's merged table (path 2's); enum_pack
 at config 5 (4,194,304 rows, 1,000 winners).  `--only B5` (b5_runs):
-K9's two entries and K11 at their main-path shapes, the wrappers that
-bind their C entry once.
+K9's two entries, the stable sort of the pair key between them and K11
+at their main-path shapes, the wrappers that bind their C entry once;
+with K5 also selected, K5 over path 1's sorted keys (kmat) with
+outliers tracked (no live row).  With `--trace`, `--only B5` or `K5`
+first prints the atomics and ptxas registers of each kernel of the
+hist_pairs and outlier_compact libraries.
 
 K11 (`--only K11`, k11_runs): K11 at config 5's shape (a partition's
 4,194,304 rows, userid zipf(1.2) % 200,000, after K7's enum form and the
@@ -1468,11 +1472,14 @@ def pack_runs(scan, dev, B: int = 128) -> tuple:
 
 def b5_runs(scan, dev, B: int = 128) -> tuple:
     """Three of the wrappers that bind their C entry once (kernels.entry)
-    at the main path's shapes: K9's hist_prep and hist_pairs at path 1
-    (config 3 -tdigest, 8,388,608 rows) and K11 enum_segments at config 5
-    (a partition's 4,194,304 rows, zipf user ids).  (K4 and K13: the K4
-    and K13 runs; K14 set_match and K5 outlier_compact: the K14 and K5
-    runs.)"""
+    at the main path's shapes: K9's hist_prep, the stable sort of its
+    pair key and hist_pairs at path 1 (config 3 -tdigest, 8,388,608 rows)
+    and K11 enum_segments at config 5 (a partition's 4,194,304 rows, zipf
+    user ids); and K5 over path 1's kmat with outliers tracked.  (K4 and
+    K13: the K4 and K13 runs; K14 set_match and K5 at config 3's shape:
+    the K14 and K5 runs.)"""
+    import dataclasses
+
     import torch
     C = 65536
     R = B * C
@@ -1501,7 +1508,19 @@ def b5_runs(scan, dev, B: int = 128) -> tuple:
     front = scan.sorted_front(p1, up, nrec, fv)
     k8 = scan.segment_reduce(p1, up, front, scan.sort_rows(p1, front))
     prep = scan.hist_prep(p1, 0, up, k8)
-    spk, si2 = torch.sort(prep["pairkey"], stable=True)
+    pk = prep["pairkey"]
+    spk, si2 = torch.sort(pk, stable=True)
+    # K5 over path 1's sorted keys with outliers tracked: ping's hist ends
+    # at the discard bound, so no row is live, as on the bench table
+    p1t = dataclasses.replace(p1, track_outliers=True)
+    front_t = scan.sorted_front(p1t, up, nrec, fv)
+    k8t = scan.segment_reduce(p1t, up, front_t, scan.sort_rows(p1t, front_t))
+    prep_t = scan.hist_prep(p1t, 0, up, k8t)
+    lay_t = scan.packed_layout(p1t, R)
+    main_t = torch.zeros((lay_t["rows"], lay_t["W"]), dtype=torch.int64,
+                         device=dev)
+    off_t = lay_t["out0"][0]
+    n_t = int(prep_t["nout"].item())
     # config 5: a partition's batch of 64 blocks
     B5 = C5_ROWS // C
     ce = scan.ScanConfig(group_cols=("userid",),
@@ -1519,8 +1538,14 @@ def b5_runs(scan, dev, B: int = 128) -> tuple:
     return (
         ("B5 hist_prep at path 1", 20,
          lambda: scan.hist_prep(p1, 0, up, k8)),
+        (f"B5 pair-key sort at path 1 ({str(pk.dtype)[6:]})", 20,
+         lambda: torch.sort(pk, stable=True)),
         ("B5 hist_pairs at path 1", 20,
          lambda: scan.hist_pairs(p1, 0, spk, si2, prep["w"], k8["kmat"])),
+        (f"K5 path 1 over kmat ({n_t} live rows)", 50,
+         lambda: scan.outlier_compact(p1t, up, prep_t["out_mask"],
+                                      prep_t["out_val"], main_t, off_t,
+                                      kmat=k8t["kmat"])),
         (f"B5 enum_segments at config 5 ({C5_ROWS} rows)", 20,
          lambda: scan.enum_segments(ce, cols5, skey, p)))
 
@@ -1753,6 +1778,8 @@ def trace_runs(root: str, only) -> str:
         out += atomics(root, kernels, ("dense_hist", "hll_registers"))
     if any(o in ("K6", "K11") for o in only):
         out += atomics(root, kernels, ("decode_value", "enum_segments"))
+    if any(o in ("B5", "K5") for o in only):
+        out += atomics(root, kernels, ("hist_pairs", "outlier_compact"))
     for what, n, fn in runs:
         line = (f"{root}: {what}: {_ms(fn, n):.4f} ms wall, "
                 f"{_ms(fn, n, queued=True):.4f} ms device, "

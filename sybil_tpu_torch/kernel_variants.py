@@ -1,5 +1,5 @@
-"""Variants of K1's, K2's, K4's, K6's, K7's, K10's, K11's and K13's sources
-timed side by side on one card.
+"""Variants of K1's, K2's, K4's, K5's, K6's, K7's, K9's, K10's, K11's and
+K13's sources timed side by side on one card.
 
     python sybil_tpu_torch/kernel_variants.py [NAME,NAME,...]
 
@@ -15,7 +15,8 @@ shapes; K10 (sorted_pack) at k2_ab.py's K10 shapes (pack_runs); K4
 (dense_hist) and K13 (hll_registers) at k2_ab.py's K4 and K13 shapes
 (hist_hll_runs); K6 (decode_value) at k2_ab.py's K6 runs (the id mode and
 every width of the value mode) and K11 (enum_segments) at its config-5
-runs.  A variant that drops work (the row pass, the adds)
+runs; K9 (hist_pairs: both entries) and K5 (outlier_compact) at k2_ab.py's
+path-1 runs (b5_runs).  A variant that drops work (the row pass, the adds)
 gives wrong words: it only splits the time.  Prints each run's wall and
 device ms (k2_ab._ms) and the ptxas spill lines of the variant's build.
 """
@@ -34,6 +35,7 @@ OUT = os.path.join(ROOT, "archive_check", "var")
 K2S, K1S, K7S = "dense_scan", "decode_bucket2", "sorted_front"
 K10S, K4S, K13S = "sorted_pack", "dense_hist", "hll_registers"
 K6S, K11S = "decode_value", "enum_segments"
+K9S, K5S = "hist_pairs", "outlier_compact"
 # name -> (source, [(old, new)], {ops/scan.py constant: value})
 VARIANTS = {
     "k2 as committed": (K2S, [], {}),
@@ -223,6 +225,43 @@ VARIANTS = {
                               "constexpr int THREADS = 512;")], {}),
     "k1 16 row ranges": (K1S, [("constexpr int NR = 32;",
                                 "constexpr int NR = 16;")], {}),
+    "k9 as committed": (K9S, [], {}),
+    "k9 tiles of 16384 (four chunks)": (K9S, [
+        ("constexpr int CHUNKS = 1;", "constexpr int CHUNKS = 4;")],
+        {"_PAIRS_TILE": 16384}),
+    "k9 tiles of 65536 (16 chunks)": (K9S, [
+        ("constexpr int CHUNKS = 1;", "constexpr int CHUNKS = 16;")],
+        {"_PAIRS_TILE": 65536}),
+    "k9 rows alone (no carry or walk)": (K9S, [
+        ("    Carry total;\n    const Carry in = combine(",
+         "    if (lo >= 0) continue;\n    Carry total;\n"
+         "    const Carry in = combine(")], {}),
+    "k9 no walk": (K9S, [("  if (s_head_ends && warp == 0) {",
+                          "  if (false && s_head_ends && warp == 0) {")], {}),
+    "k9 prep 8 CTAs a SM": (K9S, [
+        ("__global__ void __launch_bounds__(THREADS) prep_kernel",
+         "__global__ void __launch_bounds__(THREADS, 8) prep_kernel")], {}),
+    "k5 as committed": (K5S, [], {}),
+    "k5 mask reads alone": (K5S, [
+        ("  const int mine = __popcll(bits);\n",
+         "  const int mine = __popcll(bits);\n"
+         "  if (bits == 0x123456789abcdefull) a.out[0] = 0;\n  return;\n"),
+        ("    pad_part(a, t - a.ntiles);", "    ;")], {}),
+    "k5 mask reads and count sums alone": (K5S, [
+        ("  const int count = s_count[0];\n",
+         "  const int count = s_count[0];\n  if (count >= 0) return;\n"),
+        ("    pad_part(a, t - a.ntiles);", "    ;")], {}),
+    "k5 16 helpers": (K5S, [("constexpr int NHELP = 8;",
+                             "constexpr int NHELP = 16;")],
+                      {"_OUTLIER_HELPERS": 16}),
+    "k5 4 helpers": (K5S, [("constexpr int NHELP = 8;",
+                            "constexpr int NHELP = 4;")],
+                     {"_OUTLIER_HELPERS": 4}),
+    "k5 4 status words a lane a round": (K5S, [
+        ("constexpr int LB = 16;", "constexpr int LB = 4;")], {}),
+    "k9 tiles of 8192 (two chunks)": (K9S, [
+        ("constexpr int CHUNKS = 1;", "constexpr int CHUNKS = 2;")],
+        {"_PAIRS_TILE": 8192}),
 }
 
 
@@ -311,6 +350,11 @@ def child(d: str, src: str) -> None:
             if src == K11S else
             [r for r in k2_ab.pack_runs(scan, dev) if r[0].startswith("K10")]
             if src == K10S else
+            [r for r in k2_ab.b5_runs(scan, dev)
+             if r[0].startswith(("B5 hist_prep", "B5 hist_pairs"))]
+            if src == K9S else
+            [r for r in k2_ab.b5_runs(scan, dev) if r[0].startswith("K5")]
+            if src == K5S else
             list(k2_ab.permute_runs(scan, dev)) if
             os.path.basename(d).startswith("sp_") else
             list(k2_ab.k7_runs(scan, dev) + k2_ab.permute_runs(scan, dev)))

@@ -34,13 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the wrappers that launch a source's other kernels: sort_permute
-# (sorted_front.cu), enum_pack (sorted_pack.cu), shuffle_keys and
+# (sorted_front.cu), enum_pack (sorted_pack.cu), hist_prep (K9's first
+# entry, hist_pairs.cu), shuffle_keys and
 # shuffle_unpack (shuffle_reduce.cu), and the entry of dense_pack.cu's
 # keyed form of a scan's own table (dense_keyed: the row-store scan's),
 # counted apart from its other forms; and the device prune's gather, which
 # K12's one launch runs after its select (topk_rows.cu, prune_topk_gather)
 ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
-                 "prune_gather": "topk_rows",
+                 "hist_prep": "hist_pairs", "prune_gather": "topk_rows",
                  "shuffle_keys": "shuffle_reduce",
                  "shuffle_unpack": "shuffle_reduce",
                  "dense_keyed": "dense_pack"}

@@ -69,10 +69,12 @@ K8 segment_reduce   the sorted rows' keys (kmat, and the distinct lanes
                     key table at segment starts, exact lane sums and hist
                     min/max per group under the group cap, and the
                     distinct pair mask
-K9 hist_pairs       per histogram aggregation: bucket ids, pair keys and
-                    weights, outlier mask and values (hist_prep); after a
-                    stable sort of the pair keys, the (group, bucket)
-                    segment starts, buckets, weight sums and keys
+K9 hist_pairs       per histogram aggregation: bucket ids, pair keys
+                    (int32 when the sentinel fits) and, with a weight
+                    column, weights, outlier mask and values (the
+                    hist_prep entry); after a stable sort of the pair
+                    keys, the (group, bucket) segment starts, and at
+                    them (and row R-1) buckets, weight sums and keys
 K5 outlier_compact  the outlier rows, keyed by kmat
 K10 sorted_pack     the keyed [S, K+2+5A] table (kept on the device for
                     escalation), the meta row, its prefix, the distinct
@@ -905,6 +907,39 @@ def _desc_call(args, dplan: dict, dev, call_words: list) -> None:
 
 
 _SCRATCH: dict = {}
+_PREP_DONE: dict = {}
+
+
+def _prep_done(dev, stream: int):
+    """hist_prep's count of finished CTAs for its calls on `stream` of
+    `dev`, zeroed here once: the kernel's last CTA to finish finds itself
+    by an atomicInc that wraps the count to 0 at the grid's last, so each
+    call on the stream finds it zero."""
+    key = (dev.index, stream)
+    buf = _PREP_DONE.get(key)
+    if buf is None:
+        buf = _PREP_DONE[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return buf
+
+
+_EPOCHS: dict = {}
+
+
+def _epoch_scratch(dev, words: int, stream: int) -> list:
+    """K5's scratch for its calls on `stream` of `dev`, never cleared ->
+    [int64 buffer of at least `words`, the call's epoch, the value its
+    first ticket draws]; the wrapper advances both after each launch.  A
+    status word holds its call's epoch above its count, so the words of
+    earlier calls read as unpublished; a new buffer (zeros) starts again
+    at epoch 1, as one does before the epoch would wrap."""
+    key = (dev.index, stream)
+    state = _EPOCHS.get(key)
+    if state is None or state[0].numel() < words or state[1] >= 2 ** 32 - 1:
+        n = 0 if state is None else state[0].numel()
+        state = _EPOCHS[key] = [torch.zeros(max(words, 2 * n),
+                                            dtype=torch.int64, device=dev),
+                                1, 0]
+    return state
 
 
 def _scratch(dev, words: int, stream: int):
@@ -1619,7 +1654,8 @@ def dense_hist_path(config: ScanConfig, ai: int) -> str:
 # K5 outlier_compact
 # ---------------------------------------------------------------------------
 
-_OUTLIER_TILE = 4096           # rows per CTA (TILE in the source)
+_OUTLIER_TILE = 16384          # mask rows a CTA (TILE in the source)
+_OUTLIER_HELPERS = 8           # its padding CTAs (NHELP)
 
 
 class OutlierCompactArgs(ctypes.Structure):
@@ -1633,9 +1669,10 @@ class OutlierCompactArgs(ctypes.Structure):
         ("t_vals", ctypes.c_void_p),
         ("kmat", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
         ("R", ctypes.c_longlong),
         ("tb", ctypes.c_longlong),
+        ("base", ctypes.c_longlong),
         ("kmax", ctypes.c_int),
         ("W", ctypes.c_int),
         ("nkeys", ctypes.c_int),
@@ -1645,6 +1682,8 @@ class OutlierCompactArgs(ctypes.Structure):
         ("kmat_K", ctypes.c_int),
         ("log2C", ctypes.c_int),
         ("vg_span", ctypes.c_int),
+        ("epoch", ctypes.c_uint),
+        ("grid", ctypes.c_int),
     ]
 
 
@@ -1712,8 +1751,10 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
     K8's kmat as the key rows; a multi-process dense mesh scan's outlier
     rows come compacted with their keys as kmat, and cols None).  Replaces sybil_tpu/ops/
     scan.py:_mask_positions and the outlier section of pack_outputs.
-    Bound by memory (one mask byte per row); a tile count, one small
-    scan, and a ranked write (see the source note)."""
+    Bound by memory (one mask byte per row); one launch, no memset: over
+    16,384-row tiles a tile with set rows sums the counts its
+    predecessors published, in the stream's scratch that no call clears
+    (_epoch_scratch; see the source note)."""
     dev = main.device
     if dev.type == "cpu":
         outlier_compact_plain(config, cols, mask, vals, main, row0,
@@ -1733,7 +1774,7 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
                          f"[rows, W] with rows >= {row0 + kmax}")
     tb = _time_bucket_arg(config, time_bucket, "outlier_compact")
     ntiles = -(-R // _OUTLIER_TILE)
-    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    stream = kernels.stream_handle(dev)
     a = OutlierCompactArgs()
     a.mask, a.vals = mask.data_ptr(), vals.data_ptr()
     kv = km = []
@@ -1764,14 +1805,18 @@ def outlier_compact(config: ScanConfig, cols, mask, vals, main,
             a.t_vals, a.has_time = tv.data_ptr(), 1
             a.tb, a.time_i32 = tb, int(config.time_i32)
     a.out = main.data_ptr() + row0 * W * 8
-    a.offsets = offsets.data_ptr()
+    a.grid = ntiles + _OUTLIER_HELPERS
+    state = _epoch_scratch(dev, 1 + ntiles, stream)
+    a.scratch, a.epoch, a.base = state[0].data_ptr(), state[1], state[2]
     a.R, a.kmax, a.W = R, kmax, W
     a.nkeys, a.ntiles = len(kv), ntiles
     _set_desc(a, dev, {"key_vals": kv, "key_valid": km})
     fn = kernels.entry("outlier_compact", "outlier_compact",
                        [ctypes.c_void_p, ctypes.c_void_p])
-    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
-                  "outlier_compact")
+    kernels.check(fn(ctypes.byref(a), stream), "outlier_compact")
+    # the next call's epoch and first ticket
+    state[1] += 1
+    state[2] += a.grid
     kernels.LAUNCHES["outlier_compact"] += 1
 
 
@@ -2659,7 +2704,6 @@ class SegmentReduceArgs(ctypes.Structure):
     ]
 
 
-_SEG_TILE = 4096               # rows per CTA of the tile scans (TILE)
 _K8_TILE = 1024                # rows per CTA of segment_reduce.cu (TILE)
 # the paths segment_reduce's `paths` counts, in order
 SEGMENT_PATHS = ("look-back past one tile", "look-back past 32 tiles",
@@ -2877,29 +2921,11 @@ def segment_reduce(config: ScanConfig, cols, front: dict, order: dict,
 
 class HistPairsArgs(ctypes.Structure):
     """Mirror of struct HistPairsArgs in csrc/hist_pairs.cu."""
-    _fields_ = [
-        ("sidxm", ctypes.c_void_p),
-        ("gid", ctypes.c_void_p),
-        ("vals", ctypes.c_void_p),
-        ("valid", ctypes.c_void_p),
-        ("w_vals", ctypes.c_void_p),
-        ("w_valid", ctypes.c_void_p),
-        ("pairkey", ctypes.c_void_p),
-        ("w", ctypes.c_void_p),
-        ("out_mask", ctypes.c_void_p),
-        ("out_val", ctypes.c_void_p),
-        ("nout", ctypes.c_void_p),
-        ("spk", ctypes.c_void_p),
-        ("si2", ctypes.c_void_p),
-        ("kmat", ctypes.c_void_p),
-        ("hp_mask", ctypes.c_void_p),
-        ("hp_bv", ctypes.c_void_p),
-        ("hp_w", ctypes.c_void_p),
-        ("hp_keys", ctypes.c_void_p),
-        ("npairs", ctypes.c_void_p),
-        ("seg", ctypes.c_void_p),
-        ("segstart", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
+    _fields_ = _ptr_fields(
+        "sidxm", "gid", "vals", "valid", "w_vals", "w_valid", "pairkey", "w",
+        "out_mask", "out_val", "nout", "part", "done", "spk", "si2", "kmat",
+        "hp_mask", "hp_bv", "hp_w", "hp_keys", "scratch", "tsum",
+        "paths") + [
         ("sub_min", ctypes.c_longlong * _MAXSUB),
         ("sub_max", ctypes.c_longlong * _MAXSUB),
         ("sub_bs", ctypes.c_longlong * _MAXSUB),
@@ -2915,17 +2941,38 @@ class HistPairsArgs(ctypes.Structure):
         ("S", ctypes.c_int),
         ("K", ctypes.c_int),
         ("nsub", ctypes.c_int),
-        ("has_weight", ctypes.c_int),
         ("ntiles", ctypes.c_int),
+        ("key32", ctypes.c_int),
         ("pad_", ctypes.c_int),
     ]
+
+
+# hist_pairs' rows a CTA (TILE in csrc/hist_pairs.cu), hist_prep's rows a
+# thread a step (PREP_ROWS), and the scratch words ahead of the status
+# words (S_STATUS: npairs, the ticket)
+_PAIRS_TILE = 4096
+_PREP_ROWS = 4
+_PAIRS_HEAD = 2
+# the paths hist_pairs' `paths` counts, in order
+K9_PATHS = ("look-back", "look-back past 128 tiles")
+
+
+def pair_key_dtype(config: ScanConfig, ai: int) -> torch.dtype:
+    """K9's pair key for histogram aggregation `ai`: int32 when its
+    sentinel (S+1)·nv fits 31 bits, else int64.  The map between the
+    widths is monotone, so the stable sort orders both alike."""
+    nv = config.aggs[ai].num_values
+    return (torch.int32 if (config.max_groups + 1) * nv < 2 ** 31
+            else torch.int64)
 
 
 def hist_prep_plain(config: ScanConfig, ai: int, cols, k8: dict):
     """Plain PyTorch version of K9's first entry for histogram
     aggregation `ai` over the sorted rows (reference _scan_sorted
-    1247-1255, _outlier_outputs): -> {"pairkey" int64 [R] (cgid·nv + bv,
-    (S+1)·nv where the row adds to no bucket), "w" int64 [R], and with
+    1247-1255, _outlier_outputs): -> {"pairkey" [R] (cgid·nv + bv,
+    (S+1)·nv where the row adds to no bucket; pair_key_dtype's width),
+    "w" int64 [R] with a weight column (the row's weight where it adds,
+    else 0), else None (every row that adds weighs 1), and with
     track_outliers "out_mask" bool [R], "out_val" int64 [R], "nout" int64
     [1] (else None)}."""
     B, C = _batch_shape(cols)
@@ -2946,9 +2993,10 @@ def hist_prep_plain(config: ScanConfig, ai: int, cols, k8: dict):
                                    (v < agg.discard_min))
     bv, inrange, is_out = hist_bucket_plain(agg, v)
     hc = keep & inrange
-    pairkey = torch.where(hc, gid.to(torch.int64) * nv + bv, (S + 1) * nv)
-    w = torch.where(hc, _weight_plain(config, flat, R, dev)[sidx]
-                    if config.weight_col else 1, 0)
+    pairkey = torch.where(hc, gid.to(torch.int64) * nv + bv,
+                          (S + 1) * nv).to(pair_key_dtype(config, ai))
+    w = (torch.where(hc, _weight_plain(config, flat, R, dev)[sidx], 0)
+         if config.weight_col else None)
     out = {"pairkey": pairkey, "w": w, "out_mask": None, "out_val": None,
            "nout": None}
     if config.track_outliers:
@@ -2964,7 +3012,10 @@ def hist_pairs_plain(config: ScanConfig, ai: int, spk, si2, w, kmat):
     of the pair keys (reference _scan_sorted 1256-1266): -> {"hp_mask"
     bool [R] (the first row of each (group, bucket) segment), "hp_bv"
     int64 [R], "hp_w" int64 [R] (the segment's weight sum at its first
-    row), "hp_keys" int64 [R, K] = kmat[si2], "npairs" int64 [1]}."""
+    row: w[si2] summed, or its row count when w is None), "hp_keys" int64
+    [R, K] = kmat[si2], "npairs" int64 [1]}.  The kernel writes hp_bv,
+    hp_w and hp_keys at the rows hp_mask sets and at row R-1 only; this
+    version writes every row."""
     R = spk.numel()
     dev = spk.device
     nv = config.aggs[ai].num_values
@@ -2972,10 +3023,12 @@ def hist_pairs_plain(config: ScanConfig, ai: int, spk, si2, w, kmat):
     pb = torch.ones(R, dtype=torch.bool, device=dev)
     pb[1:] = spk[1:] != spk[:-1]
     seg = torch.cumsum(pb.to(torch.int64), 0) - 1
+    x = (spk < sent_pk).to(torch.int64) if w is None else w[si2]
     wsum = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
-        0, seg, w[si2])[seg]
+        0, seg, x)[seg]
     valid = pb & (spk < sent_pk)
-    return {"hp_mask": valid, "hp_bv": torch.where(valid, spk % nv, 0),
+    return {"hp_mask": valid,
+            "hp_bv": torch.where(valid, spk.to(torch.int64) % nv, 0),
             "hp_w": torch.where(valid, wsum, 0), "hp_keys": kmat[si2],
             "npairs": valid.sum(dtype=torch.int64).reshape(1)}
 
@@ -2987,6 +3040,8 @@ def _hist_args(config: ScanConfig, ai: int, R: int) -> HistPairsArgs:
             f"hist_pairs takes at most {_MAXSUB} multihist sub-ranges")
     if not agg.sub_edges and agg.bucket_size <= 0:
         raise ValueError(f"hist_pairs: bucket size {agg.bucket_size}")
+    if agg.num_values <= 0:
+        raise ValueError(f"hist_pairs: aggregation {ai} has no buckets")
     a = HistPairsArgs()
     for i, (smin, smax, sbs, snv, soff) in enumerate(agg.sub_edges):
         a.sub_min[i], a.sub_max[i], a.sub_bs[i] = smin, smax, sbs
@@ -2997,7 +3052,7 @@ def _hist_args(config: ScanConfig, ai: int, R: int) -> HistPairsArgs:
     a.nv = agg.num_values
     a.sent_pk = (config.max_groups + 1) * agg.num_values
     a.S, a.K = config.max_groups, config.n_key_cols
-    a.ntiles = -(-R // _SEG_TILE)
+    a.key32 = int(pair_key_dtype(config, ai) == torch.int32)
     return a
 
 
@@ -3007,8 +3062,11 @@ def hist_prep(config: ScanConfig, ai: int, cols, k8: dict):
 
     Replaces sybil_tpu/ops/scan.py:_hist_bucket (the bucket math of K4),
     the pair key and weight of the sparse histogram (1247-1255) and
-    _outlier_outputs of the sorted strategy.  Bound by memory: random
-    gathers of the value and weight columns at the sorted rows."""
+    _outlier_outputs of the sorted strategy.  Bound by memory: sidxm
+    read and the pair key written for every row, gid and the gathers of
+    the value and weight columns at the sorted rows for the matched
+    rows only.  One launch, no memset: with outliers tracked its last
+    CTA adds the CTAs' counts into nout (see the source note)."""
     sidxm = k8["sidxm"]
     dev = sidxm.device
     if dev.type == "cpu":
@@ -3018,44 +3076,59 @@ def hist_prep(config: ScanConfig, ai: int, cols, k8: dict):
     B, C = _batch_shape(cols)
     R = B * C
     agg = config.aggs[ai]
-    if agg.num_values <= 0:
-        raise ValueError(f"hist_prep: aggregation {ai} has no buckets")
     _check_tensor(sidxm, (R,), torch.int32, "sidxm", dev, "hist_prep")
     _check_tensor(k8["gid"], (R,), torch.int32, "gid", dev, "hist_prep")
     a = _hist_args(config, ai, R)
     v, m = _check_col(cols, agg.col, B, C, dev, "hist_prep")
     a.sidxm, a.gid = sidxm.data_ptr(), k8["gid"].data_ptr()
     a.vals, a.valid = v.data_ptr(), m.data_ptr()
+    out = {"pairkey": torch.empty(R, dtype=pair_key_dtype(config, ai),
+                                  device=dev),
+           "w": None, "out_mask": None, "out_val": None, "nout": None}
+    a.pairkey = out["pairkey"].data_ptr()
     if config.weight_col:
         wv, wm = _check_col(cols, config.weight_col, B, C, dev, "hist_prep")
-        a.w_vals, a.w_valid, a.has_weight = wv.data_ptr(), wm.data_ptr(), 1
-    out = {"pairkey": torch.empty(R, dtype=torch.int64, device=dev),
-           "w": torch.empty(R, dtype=torch.int64, device=dev),
-           "out_mask": None, "out_val": None, "nout": None}
-    a.pairkey, a.w = out["pairkey"].data_ptr(), out["w"].data_ptr()
+        a.w_vals, a.w_valid = wv.data_ptr(), wm.data_ptr()
+        out["w"] = torch.empty(R, dtype=torch.int64, device=dev)
+        a.w = out["w"].data_ptr()
+    grid = _grid(dev, -(-R // _PREP_ROWS), 0, False)
+    stream = kernels.stream_handle(dev)
     if config.track_outliers:
+        # nout, then a word a CTA for the CTAs' counts: one buffer
+        buf = torch.empty(1 + grid, dtype=torch.int64, device=dev)
         out["out_mask"] = torch.empty(R, dtype=torch.bool, device=dev)
         out["out_val"] = torch.empty(R, dtype=torch.int64, device=dev)
-        out["nout"] = torch.empty(1, dtype=torch.int64, device=dev)
+        out["nout"] = buf[:1]
         a.out_mask = out["out_mask"].data_ptr()
         a.out_val = out["out_val"].data_ptr()
-        a.nout = out["nout"].data_ptr()
+        a.nout, a.part = buf.data_ptr(), buf.data_ptr() + 8
+        a.done = _prep_done(dev, stream).data_ptr()
     fn = kernels.entry("hist_pairs", "hist_prep", _GRID_ARGS)
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
-                     kernels.stream_handle(dev)), "hist_prep")
-    kernels.LAUNCHES["hist_pairs"] += 1
+    kernels.check(fn(ctypes.byref(a), grid, stream), "hist_prep")
+    kernels.LAUNCHES["hist_prep"] += 1
     return out
 
 
-def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat):
-    """K9, second entry: as hist_pairs_plain.  CUDA tensors launch the
-    kernel (csrc/hist_pairs.cu); CPU tensors take the plain version.
+def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat, paths=None):
+    """K9, second entry: as hist_pairs_plain, but hp_bv, hp_w and hp_keys
+    hold their values at the rows hp_mask sets and at row R-1 (the
+    packed section's padding rows repeat it) only, the other rows
+    unwritten: every reader (K10's pair sections and sorted_pack_plain,
+    fetch_hist_pairs, a mesh scan's joined rows) reads them there only.
+    CUDA tensors launch the kernel (csrc/hist_pairs.cu); CPU tensors take
+    the plain version.
 
-    Replaces sybil_tpu/ops/scan.py:_scan_sorted 1256-1266 after the pair
-    sort: the segment starts, hp_bv, the segment weight sums (the
-    reference's segment_sum broadcast) and hp_keys.  Bound by memory;
-    a tile scan numbers the segments, one atomic per warp run adds the
-    weights (see the source note)."""
+    spk [R] the sorted pair keys (pair_key_dtype's width), si2 int64 [R]
+    their stable sort's indices, w hist_prep's weights (None without a
+    weight column), kmat int64 [R, K] K8's sorted keys; paths (an int64
+    [2] CUDA tensor) gets the tiles that walked back for a segment begun
+    in an earlier tile, and the walks past 128 tiles (K9_PATHS).  Replaces
+    sybil_tpu/ops/scan.py:_scan_sorted 1256-1266 after the pair sort: the
+    segment starts, hp_bv, the segment weight sums (the reference's
+    segment_sum broadcast) and hp_keys.  Bound by memory: the key read
+    and the mask byte written a row.  One launch after one memset of
+    npairs, a ticket and a status word a tile; a segment's sum is carried
+    across tiles by decoupled look-back (see the source note)."""
     dev = spk.device
     if dev.type == "cpu":
         return hist_pairs_plain(config, ai, spk, si2, w, kmat)
@@ -3063,27 +3136,41 @@ def hist_pairs(config: ScanConfig, ai: int, spk, si2, w, kmat):
         raise ValueError(f"hist_pairs: unsupported device {dev}")
     R = spk.numel()
     K = config.n_key_cols
-    for t, what in ((spk, "spk"), (si2, "si2"), (w, "w")):
-        _check_tensor(t, (R,), torch.int64, what, dev, "hist_pairs")
+    _check_tensor(spk, (R,), pair_key_dtype(config, ai), "spk", dev,
+                  "hist_pairs")
+    _check_tensor(si2, (R,), torch.int64, "si2", dev, "hist_pairs")
+    if (w is None) != (not config.weight_col):
+        raise ValueError("hist_pairs: w is hist_prep's, None exactly "
+                         "without a weight column")
+    if w is not None:
+        _check_tensor(w, (R,), torch.int64, "w", dev, "hist_pairs")
     _check_tensor(kmat, (R, K), torch.int64, "kmat", dev, "hist_pairs")
     a = _hist_args(config, ai, R)
+    ntiles = -(-R // _PAIRS_TILE)
+    # npairs, the ticket and a status word a tile (zeroed by the C
+    # entry), then each tile's published sum: one buffer
+    buf = torch.empty(_PAIRS_HEAD + 2 * ntiles, dtype=torch.int64,
+                      device=dev)
     out = {"hp_mask": torch.empty(R, dtype=torch.bool, device=dev),
            "hp_bv": torch.empty(R, dtype=torch.int64, device=dev),
            "hp_w": torch.empty(R, dtype=torch.int64, device=dev),
            "hp_keys": torch.empty((R, K), dtype=torch.int64, device=dev),
-           "npairs": torch.empty(1, dtype=torch.int64, device=dev)}
-    seg = torch.empty(R, dtype=torch.int32, device=dev)
-    segstart = torch.empty(R, dtype=torch.int32, device=dev)
-    offsets = torch.empty(a.ntiles + 1, dtype=torch.int32, device=dev)
-    a.spk, a.si2, a.w, a.kmat = (spk.data_ptr(), si2.data_ptr(),
-                                 w.data_ptr(), kmat.data_ptr())
+           "npairs": buf[:1]}
+    a.spk, a.si2, a.w, a.kmat = (spk.data_ptr(), si2.data_ptr(), _ptr(w),
+                                 kmat.data_ptr())
     a.hp_mask, a.hp_bv = out["hp_mask"].data_ptr(), out["hp_bv"].data_ptr()
     a.hp_w, a.hp_keys = out["hp_w"].data_ptr(), out["hp_keys"].data_ptr()
-    a.npairs, a.seg = out["npairs"].data_ptr(), seg.data_ptr()
-    a.segstart, a.offsets = segstart.data_ptr(), offsets.data_ptr()
-    fn = kernels.entry("hist_pairs", "hist_pairs", _GRID_ARGS)
-    kernels.check(fn(ctypes.byref(a), _grid(dev, R, 0, False),
-                     kernels.stream_handle(dev)), "hist_pairs")
+    a.scratch = buf.data_ptr()
+    a.tsum = buf.data_ptr() + (_PAIRS_HEAD + ntiles) * 8
+    a.ntiles = ntiles
+    if paths is not None:
+        _check_tensor(paths, (len(K9_PATHS),), torch.int64, "paths", dev,
+                      "hist_pairs")
+        a.paths = paths.data_ptr()
+    fn = kernels.entry("hist_pairs", "hist_pairs",
+                       [ctypes.c_void_p, ctypes.c_void_p])
+    kernels.check(fn(ctypes.byref(a), kernels.stream_handle(dev)),
+                  "hist_pairs")
     kernels.LAUNCHES["hist_pairs"] += 1
     return out
 
