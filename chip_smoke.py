@@ -18,7 +18,7 @@ Phases (any failure exits non-zero before the result lines):
      and a fourth uptime table of N rows with the `groups` set column, from
      this script's copy of scripts/fakedata/host_generator.py:columns
      (seed 1337 + start_index, 1M-row steps, its `now` fixed to
-     BENCH_NOW)
+     BENCH_NOW), built in a process of its own beside the others
   3. K1 decode_bucket2 against its plain PyTorch version on the card,
      bit for bit: the table's real host and ping containers, then edge
      blocks (u8/u16/i32 deltas, short, missing, invalid rows); K6
@@ -261,7 +261,20 @@ Phases (any failure exits non-zero before the result lines):
      and negative keys, compact and full reduce spaces, hist and HLL
      sections, an untracked aggregation, a weight column); then `python
      -m sybil_tpu_torch digest` of both tails, and each query without
-     -read-log equal to its -read-log answer before the digest
+     -read-log equal to its -read-log answer before the digest.
+     Then the host tools (tools_phase; its queries' launches printed,
+     not added to the main path's): on a copy of the uptime table config
+     1, `index` (the table's ping and time min/max equal numpy's, config
+     1's bytes unchanged), `rebuild` of a deleted info.json (new key
+     ids; config 1 equal to numpy in this process and in a fresh
+     `python -m sybil_tpu_torch query`), the client API's group-by on
+     cuda in process and as a subprocess; on a copy of the first 16
+     blocks `query -update-info`, `trim -mb` (the blocks numpy's ranking
+     names), calculate_icc of a hist group-by on cuda and on the CPU
+     (1e-12 relative, the hists equal), `trim -before -delete -really`
+     and config 1 over the blocks left, `query -export` (every TSV equal
+     to numpy's); `inspect` of the table info, a block info, a column, a
+     dictionary and a WAL log of 65,536 records; each step's wall
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -4097,16 +4110,20 @@ def uptime_set_columns(n: int, start_index: int):
     return ints, strs, sets, status, host
 
 
+def sets_flags(root: str):
+    from sybil_tpu_torch.config import Flags
+    return Flags(dir=root, table="uptime", skip_compact=True,
+                 device_batch=1024)
+
+
 def build_sets_table(root: str, n_rows: int):
     """The uptime table with `groups`, written by the port in 1M-row
     steps.  -> (Table, Flags, {"host", "status": list indices, "ping",
     "index_int"})."""
     import numpy as np
 
-    from sybil_tpu_torch.config import Flags
     from sybil_tpu_torch.table import Table
-    flags = Flags(dir=root, table="uptime", skip_compact=True,
-                  device_batch=1024)
+    flags = sets_flags(root)
     t = Table("uptime", flags)
     parts = {"host": [], "status": [], "ping": [], "index_int": []}
     for start in range(0, n_rows, STEP):
@@ -4118,6 +4135,42 @@ def build_sets_table(root: str, n_rows: int):
         parts["ping"].append(ints["ping"])
         parts["index_int"].append(ints["index_int"])
     return t, flags, {k: np.concatenate(v) for k, v in parts.items()}
+
+
+def start_sets_table(root: str, n_rows: int):
+    """build_sets_table in a process of its own, so that its host work (a
+    distinct index_str a row through the dictionary, the longest of the
+    builds) runs beside the other tables'; its arrays go to root + ".npz".
+    -> the process, for join_sets_table."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.save_sets_table(sys.argv[1], int(sys.argv[2]))")
+    return subprocess.Popen([sys.executable, "-c", code, root, str(n_rows)],
+                            cwd=here)
+
+
+def save_sets_table(root: str, n_rows: int) -> None:
+    import numpy as np
+    t0 = time.perf_counter()
+    _, _, arr = build_sets_table(root, n_rows)
+    np.savez(root + ".npz", **arr)
+    say(f"built the sets table (uptime with groups): {n_rows} rows in "
+        f"{time.perf_counter() - t0:.1f}s (host CPU, a process of its own)")
+
+
+def join_sets_table(proc, root: str):
+    """Wait for start_sets_table's process -> build_sets_table's
+    (Table, Flags, arrays)."""
+    import numpy as np
+
+    from sybil_tpu_torch.table import Table
+    if proc.wait() != 0:
+        fail(f"the sets table's build exited {proc.returncode}")
+    flags = sets_flags(root)
+    t = Table("uptime", flags)
+    t.load_info()
+    with np.load(root + ".npz") as z:
+        return t, flags, {k: z[k] for k in z.files}
 
 
 def cli_query(table, argv, device="cuda"):
@@ -7670,6 +7723,335 @@ def rowstore_phase(card, root, table, up, stbl, sarr, errs, launches,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the host tools: index, rebuild, -update-info, trim, -export, inspect, API
+# ---------------------------------------------------------------------------
+
+TOOLS_BLOCKS = 16               # the trim and export copy: 1,048,576 rows
+TOOLS_WAL_ROWS = 65536          # the log that `inspect` reads
+
+
+def tools_phase(card, root, table, up, device):
+    """The port's host tools on copies of the uptime table, every query on
+    `device` through the CLI (in process, or in a fresh `python -m
+    sybil_tpu_torch`) or the client API, each answer against numpy over
+    the arrays that built the table.  On a full copy: config 1, `index`
+    (the table's int min/max of ping and time == numpy's, config 1's
+    bytes unchanged), `rebuild` of a deleted info.json (config 1 == numpy
+    in this process and in a fresh one), the API's group-by in process
+    and in a subprocess.  On a copy of the first TOOLS_BLOCKS blocks:
+    `query -update-info`, `trim -mb` (the blocks numpy's ranking names),
+    calculate_icc of a hist group-by on `device` and on the CPU, `trim
+    -before -delete -really` and config 1 over the rest, `query -export`
+    (every TSV == numpy's).  `inspect` of the table info, a block info, a
+    column, a dictionary and a WAL log of TOOLS_WAL_ROWS records."""
+    import gzip
+
+    import numpy as np
+
+    from sybil_tpu_torch import api, blocks, rowstore
+    from sybil_tpu_torch.config import Flags
+    from sybil_tpu_torch.ops import kernels
+    from sybil_tpu_torch.query.engine import run_query
+    from sybil_tpu_torch.query.stats import calculate_icc
+    from sybil_tpu_torch.table import Table
+
+    dev_arg = device.type
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t_phase = time.perf_counter()
+    walls = []
+
+    def step(short, label, t1):
+        walls.append((short, time.perf_counter() - t1))
+        say(f"[{card}] tools: {label}: wall {walls[-1][1]:.3f}s")
+
+    def cli(label, argv):
+        rc, out, _, ll = run_cli(argv)
+        if rc != 0:
+            fail(f"tools {label}: `{' '.join(argv[:1])}` exited {rc}")
+        return out, ll
+
+    def query(label, d, argv=RS_C1):
+        out, ll = cli(label, ["query", "-dir", d, "-table", "uptime", *argv,
+                              "-json", "-device-batch", "1024", "-device",
+                              dev_arg])
+        ran = {k: v for k, v in ll.items() if v}
+        if dev_arg == "cuda" and not (ll["dense_scan"] and
+                                      ll["dense_pack"]):
+            fail(f"tools {label}: the query launched {ran}")
+        return out, ran
+
+    def check_c1(label, rows, sel):
+        want = numpy_groupby(up["host"][sel], up["ping"][sel])
+        got = {r["host"]: (r["Count"], r["Samples"], r["ping"])
+               for r in rows}
+        exp = {h: (c, c, s_ / c) for h, (c, s_) in want.items() if c}
+        if got != exp:
+            bad = sorted(h for h in set(got) | set(exp)
+                         if got.get(h) != exp.get(h))
+            fail(f"tools {label}: rows differ from numpy at {bad}: "
+                 f"{[(got.get(h), exp.get(h)) for h in bad]}")
+        return sum(c for c, _, _ in exp.values())
+
+    def block_rows(tab, bdir):
+        """The table rows a block holds, in its order (its index_int)."""
+        cd = blocks.load_block_columns(bdir, tab.schema, ["index_int"])
+        return cd["index_int"].values[:blocks.load_block_info(
+            bdir).num_records]
+
+    def int_bounds(label, tab, sel):
+        tab.load_info()
+        for col in ("ping", "time"):
+            ii = tab.schema.int_info[tab.schema.key_table[col]]
+            want = (int(up[col][sel].min()), int(up[col][sel].max()))
+            if (ii.min, ii.max) != want:
+                fail(f"tools {label}: the table's {col} min/max "
+                     f"{(ii.min, ii.max)}, numpy {want}")
+
+    n0 = len(up["host"])
+    every = np.ones(n0, bool)
+
+    # ---- a full copy: index, rebuild ---------------------------------
+    t1 = time.perf_counter()
+    froot = os.path.join(root, "tools_full")
+    shutil.copytree(table.dir, os.path.join(froot, "uptime"))
+    ftab = Table("uptime", Flags(dir=froot, table="uptime"))
+    nb = len(ftab.list_block_dirs())
+    step("full copy", f"copy of the uptime table ({nb} blocks)", t1)
+    t1 = time.perf_counter()
+    c1, ran = query("config 1", froot)
+    n = check_c1("config 1", json.loads(c1), every)
+    step("config 1",
+         f"config 1 on {dev_arg} == numpy ({n} rows; launches {ran})", t1)
+
+    t1 = time.perf_counter()
+    cli("index", ["index", "-dir", froot, "-table", "uptime"])
+    int_bounds("index", ftab, every)
+    out, ran = query("config 1 after index", froot)
+    if out != c1:
+        fail("tools: config 1 after `index` prints other bytes")
+    step("index",
+         f"`index`: ping and time min/max == numpy's; config 1 prints the "
+         f"same bytes (launches {ran})", t1)
+
+    t1 = time.perf_counter()
+    kt_before = dict(ftab.schema.key_table)
+    for f in ("info.json", "info.json.bak"):
+        if os.path.exists(os.path.join(ftab.dir, f)):
+            os.unlink(os.path.join(ftab.dir, f))
+    cli("rebuild", ["rebuild", "-dir", froot, "-table", "uptime"])
+    ftab.load_info()
+    if set(ftab.schema.key_table) != set(kt_before):
+        fail(f"tools: rebuild's columns {ftab.schema.key_table}, before "
+             f"{kt_before}")
+    out, ran = query("config 1 after rebuild", froot)
+    check_c1("config 1 after rebuild", json.loads(out), every)
+    step("rebuild",
+         f"`rebuild` of a deleted info.json (key ids {kt_before} -> "
+         f"{ftab.schema.key_table}); config 1 in this process == numpy "
+         f"(launches {ran})", t1)
+
+    # config 1 in a fresh process (seconds to reach the card) runs beside
+    # the steps below; read at the phase's end
+    cfg = api.SybilConfig(dir=froot, table="uptime", device=dev_arg)
+    t_fresh = time.perf_counter()
+    fresh_proc = subprocess.Popen(
+        [sys.executable, "-m", "sybil_tpu_torch", "query", "-dir", froot,
+         "-table", "uptime", *RS_C1, "-json", "-device-batch", "1024",
+         "-device", dev_arg], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # ---- the client API over the full copy, in process and as a
+        # subprocess (its `python -m sybil_tpu_torch` found from the cwd)
+        t1 = time.perf_counter()
+        kernels.reset_launches()
+        rows = api.SybilTable(cfg).query().group_by("host").aggregate(
+            "ping").execute()
+        ll = kernels.snapshot()
+        check_c1("API in process", rows, every)
+        if dev_arg == "cuda" and not ll["dense_scan"]:
+            fail(f"tools: the API's query launched {dict(ll)}")
+        step("API",
+             f"API group_by(host).aggregate(ping) in process on {dev_arg} "
+             f"== numpy (dense_scan launches {ll['dense_scan']})", t1)
+
+        t1 = time.perf_counter()
+        with contextlib.chdir(here):
+            rows = api.SybilTable(cfg, subprocess_mode=True).query(
+            ).group_by("host").aggregate("ping").execute()
+        check_c1("API subprocess", rows, every)
+        step("API subprocess", f"API group_by(host).aggregate(ping) with "
+             f"subprocess_mode on {dev_arg} == numpy", t1)
+
+        # ---- a 16-block copy: -update-info, trim, ICC, -export --------
+        t1 = time.perf_counter()
+        sroot = os.path.join(root, "tools_16")
+        sdir = os.path.join(sroot, "uptime")
+        os.makedirs(sdir)
+        for name in ("dicts", "info.json"):
+            src = os.path.join(table.dir, name)
+            (shutil.copytree if os.path.isdir(src) else shutil.copy2)(
+                src, os.path.join(sdir, name))
+        for bdir in sorted(table.block_infos())[:TOOLS_BLOCKS]:
+            shutil.copytree(bdir, os.path.join(sdir, os.path.basename(bdir)))
+        stab = Table("uptime", Flags(dir=sroot, table="uptime"))
+        stab.load_info()
+        sdirs = stab.list_block_dirs()
+        rows_of = {d: block_rows(stab, d) for d in sdirs}
+        sel16 = np.zeros(n0, bool)
+        sel16[np.concatenate(list(rows_of.values()))] = True
+        step("16-block copy",
+             f"copy of {len(sdirs)} blocks ({int(sel16.sum())} rows)", t1)
+
+        t1 = time.perf_counter()
+        cli("-update-info", ["query", "-dir", sroot, "-table", "uptime",
+                             "-update-info", "-device", dev_arg])
+        int_bounds("-update-info", stab, sel16)
+        step("-update-info",
+             "`query -update-info`: ping and time min/max == numpy's over the "
+             "copy", t1)
+
+        t1 = time.perf_counter()
+        infos = stab.block_infos()
+        tmax = {d: int(up["time"][r].max()) for d, r in rows_of.items()}
+        # newest first; blocks that share their newest time keep their order
+        # by name, as trim's stable sort of the block listing does
+        ranked = sorted(sdirs, key=lambda d: tmax[d], reverse=True)
+        total = sum(infos[d].size for d in sdirs)
+        mb = max(1, total // 2 // (1 << 20))
+        cum, want = 0, []
+        for d in ranked:
+            cum += infos[d].size
+            if cum > mb << 20:
+                want.append(d)
+        out, _ = cli("trim -mb", ["trim", "-dir", sroot, "-table", "uptime",
+                                  "-mb", str(mb)])
+        if out.splitlines() != want or not 0 < len(want) < len(sdirs):
+            fail(f"tools: trim -mb {mb} listed {len(out.splitlines())} "
+                 f"blocks, numpy's ranking {len(want)}")
+        step("trim -mb",
+             f"`trim -mb {mb}` ({total} bytes in {len(sdirs)} blocks) lists "
+             f"the {len(want)} blocks past the budget, oldest last, as numpy "
+             f"ranks them", t1)
+
+        t1 = time.perf_counter()
+        # the time column's hist by weight: group means that differ (by about
+        # a thousand seconds), so the ICC is not 0
+        icc_argv = ["-group", "weight", "-int", "time", "-op", "hist"]
+        fh, ph = cli_query(stab, icc_argv, dev_arg)
+        fc, pc = cli_query(stab, icc_argv, "cpu")
+        qr_dev = run_query(Table("uptime", fh), ph, fh)
+        qr_cpu = run_query(Table("uptime", fc), pc, fc)
+        if snapshot(qr_dev) != snapshot(qr_cpu):
+            fail(f"tools: -op hist by weight on {dev_arg} differs from the "
+                 f"CPU")
+        icc = calculate_icc(qr_dev, ph)["time"]
+        icc_cpu = calculate_icc(qr_cpu, pc)["time"]
+        if not (np.isfinite(icc) and 0 < icc_cpu
+                and abs(icc - icc_cpu) <= 1e-12 * abs(icc_cpu)):
+            fail(f"tools: calculate_icc on {dev_arg} {icc!r}, on the CPU "
+                 f"{icc_cpu!r}")
+        step("ICC", f"calculate_icc of -op hist of time by weight on "
+             f"{dev_arg} {icc!r} == on the CPU {icc_cpu!r} (1e-12 relative; "
+             f"the hists equal)", t1)
+
+        t1 = time.perf_counter()
+        cut = tmax[ranked[len(ranked) // 2 - 1]]
+        gone = sorted(d for d in sdirs if tmax[d] < cut)
+        out, _ = cli("trim -delete", ["trim", "-dir", sroot, "-table",
+                                      "uptime", "-before", str(cut),
+                                      "-delete", "-really"])
+        left = stab.list_block_dirs()
+        if sorted(ln.split(" ", 1)[1] for ln in out.splitlines()) != gone or \
+                sorted(set(sdirs) - set(left)) != gone:
+            fail(f"tools: trim -before {cut} -delete -really left {len(left)} "
+                 f"blocks, numpy {len(sdirs) - len(gone)}")
+        keep = np.zeros(n0, bool)
+        keep[np.concatenate([rows_of[d] for d in left])] = True
+        out, ran = query("config 1 after trim", sroot)
+        n = check_c1("config 1 after trim", json.loads(out), keep)
+        step("trim -delete",
+             f"`trim -before {cut} -delete -really` deleted the {len(gone)} "
+             f"blocks numpy names; config 1 over the {len(left)} left == "
+             f"numpy ({n} rows; launches {ran})", t1)
+
+        t1 = time.perf_counter()
+        out, ran = query("-export", sroot, ["-export", "-group", "host",
+                                             "-int", "ping"])
+        if not out.startswith("EXPORTED RECORDS TO "):
+            fail(f"tools: -export printed {out[:200]!r}")
+        check_c1("-export's query", json.loads(out.split("\n", 1)[1]), keep)
+        ints = ["index_int", "ping", "time", "weight"]
+        header = "\t".join(ints + ["host", "status"])
+        for d in left:
+            r = rows_of[d]
+            cols = [up[c][r].tolist() if c != "index_int" else r.tolist()
+                    for c in ints]
+            cols.append([HOSTS[i] for i in up["host"][r].tolist()])
+            cols.append([STATII[i] for i in up["status"][r].tolist()])
+            want = header + "\n" + "\n".join(
+                "\t".join(map(str, row)) for row in zip(*cols))
+            path = os.path.join(sdir, "export",
+                                os.path.basename(d) + ".tsv.gz")
+            with gzip.open(path, "rt") as f:
+                if f.read() != want:
+                    fail(f"tools: {path} differs from numpy's TSV")
+        step("-export",
+             f"`query -export -group host -int ping`: {len(left)} TSVs == "
+             f"numpy's, the query == numpy (launches {ran})", t1)
+
+        # ---- inspect --------------------------------------------------
+        t1 = time.perf_counter()
+        wroot = os.path.join(root, "tools_wal")
+        lines, _ = rowstore_tail(n0, TOOLS_WAL_ROWS, int(up["ping"].max()))
+        wpath = os.path.join(root, "tools_wal.json")
+        with open(wpath, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        cli("ingest", ["ingest", "-dir", wroot, "-table", "uptime",
+                       "-skip-compact", "-infile", wpath])
+        logs = rowstore.list_logs(os.path.join(wroot, "uptime"))
+        if len(logs) != 1:
+            fail(f"tools: the ingest wrote {len(logs)} logs")
+        b0 = ftab.list_block_dirs()[0]
+        targets = [
+            (os.path.join(ftab.dir, "info.json"), "# info.json: json"),
+            (os.path.join(b0, "info.json"), "# info.json: json"),
+            (os.path.join(b0, "int_ping.sy"),
+             "# int_ping.sy: container meta="),
+            (os.path.join(ftab.dir, "dicts", "host.sy"),
+             "# host.sy: container meta="),
+            (logs[0], f"# {os.path.basename(logs[0])}: row-store log, "
+                      f"{TOOLS_WAL_ROWS} records")]
+        for path, head in targets:
+            out, _ = cli("inspect", ["inspect", path])
+            first = out.split("\n", 1)[0]
+            if not (first == head or (head.endswith("=") and
+                                      first.startswith(head))):
+                fail(f"tools: inspect {path} printed {first!r}")
+        step("inspect", f"`inspect` of the table info, a block info, "
+             f"int_ping.sy, dicts/host.sy and a log of {TOOLS_WAL_ROWS} "
+             f"records: each header as expected", t1)
+
+        out, err = fresh_proc.communicate(timeout=600)
+    finally:
+        if fresh_proc.poll() is None:
+            fresh_proc.kill()
+            fresh_proc.wait()
+    if fresh_proc.returncode != 0:
+        fail(f"tools: the fresh `python -m sybil_tpu_torch query` exited "
+             f"{fresh_proc.returncode}: {err[-2000:]}")
+    check_c1("fresh query", json.loads(out), every)
+    walls.append(("fresh query", time.perf_counter() - t_fresh))
+    say(f"[{card}] tools: config 1 after rebuild in a fresh `python -m "
+        f"sybil_tpu_torch query` == numpy: started {walls[-1][1]:.3f}s "
+        f"before the phase's end read it, beside the steps after `rebuild`")
+
+    total_s = time.perf_counter() - t_phase
+    say(f"[{card}] tools phase: {total_s:.1f}s in all; walls "
+        + "; ".join(f"{short} {w:.3f}s" for short, w in walls))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=DEFAULT_ROWS)
@@ -7717,8 +8099,11 @@ def main(argv=None) -> int:
                     say(f"  ptxas {name} {fn}: {line.strip()}")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    sets_proc = None
     try:
         # ---- phase 2 ---------------------------------------------------
+        sets_root = os.path.join(root, "sets")
+        sets_proc = start_sets_table(sets_root, args.rows)
         t0 = time.perf_counter()
         table, flags, up = build_table(os.path.join(root, "up"), args.rows)
         nblocks = len(table.block_infos())
@@ -7760,11 +8145,10 @@ def main(argv=None) -> int:
         say(f"built config 5's two partitions in "
             f"{time.perf_counter() - t0:.1f}s (host CPU)")
         t0 = time.perf_counter()
-        stbl, stflags, sarr = build_sets_table(os.path.join(root, "sets"),
-                                               args.rows)
-        say(f"built the sets table (uptime with groups): {args.rows} rows, "
-            f"{len(stbl.block_infos())} blocks in "
-            f"{time.perf_counter() - t0:.1f}s (host CPU)")
+        stbl, stflags, sarr = join_sets_table(sets_proc, sets_root)
+        say(f"the sets table (uptime with groups): {args.rows} rows, "
+            f"{len(stbl.block_infos())} blocks; waited "
+            f"{time.perf_counter() - t0:.1f}s for its process")
         C = 65536 if args.rows > 8192 else 128
         while C < min(args.rows, 65536):
             C *= 2
@@ -8891,6 +9275,9 @@ def main(argv=None) -> int:
                 fail(f"the main path's launches (got, want): "
                      f"{off}")
         say(f"main path launches over every query of phase 5: {launches}")
+        # the host tools on copies of the uptime table: their queries
+        # launch K1, K2 and K3 as config 1 does, counted apart
+        tools_phase(card, root, table, up, dev)
 
         # cold/warm walls, no decode when warm, the batch pipeline
         qflags = dataclasses.replace(flags, device="cuda", device_batch=B)
@@ -9947,6 +10334,9 @@ def main(argv=None) -> int:
             f"lanes {k2_lib:.4f} ms")
         say(json.dumps({"kernels": rows_out}))
     finally:
+        if sets_proc is not None and sets_proc.poll() is None:
+            sets_proc.kill()
+            sets_proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
     say(smi)

@@ -1,21 +1,27 @@
 """CLI of the port (reference: sybil_tpu/cli.py, main.go:14-24).
 
-    python -m sybil_tpu_torch <ingest|digest|query|aggregate|version>
-                               [flags]
+    python -m sybil_tpu_torch <ingest|digest|query|trim|index|rebuild|
+                               inspect|aggregate|version> [flags]
 
 `ingest` appends records to the row store (the WAL) and, without
 `-skip-compact`, digests them into blocks; `digest` collates the WAL
 into blocks.  `query` takes the reference's flags plus `-device` (cuda
 by default, cpu for the plain PyTorch versions of the kernels); with
-`-read-log` it also scans the undigested WAL.  `aggregate` merges
-per-node `query -encode-results` outputs on the host.  The other
-subcommands of the reference are not ported yet and exit non-zero.
+`-read-log` it also scans the undigested WAL, `-update-info` re-derives
+the table's int stats, `-export` writes every block to TSV before the
+query.  `trim` lists (or deletes) the blocks past a size or age limit,
+`index` re-derives the table's and the blocks' stats, `rebuild`
+reconstructs a lost table info from the blocks, `inspect` dumps any
+file of a table.  `aggregate` merges per-node `query -encode-results`
+outputs on the host.  Only `query` reads the device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import sys
 
 from . import constants, debug as dbg
@@ -274,11 +280,19 @@ def run_query_flags(flags: Flags) -> int:
         return 0
 
     if flags.update_table_info:
-        raise NotImplementedError("-update-info is not ported yet "
-                                  "(ROADMAP A16)")
+        from .recover import update_table_info
+        # the table's info first, as `index` loads it: without it the
+        # stats are rewritten from an empty schema
+        t.load_info()
+        update_table_info(t)
+        return 0
 
     if flags.export:
-        raise NotImplementedError("-export is not ported yet (ROADMAP A16)")
+        # query -export dumps block data to TSV (cmd_query.go:346,371)
+        from .export import export_table
+        t.load_info()
+        export_table(t, flags)
+        print("EXPORTED RECORDS TO", os.path.join(t.dir, "export"))
 
     from .profiler import device_trace
     from .query.engine import run_query
@@ -295,6 +309,69 @@ def run_query_flags(flags: Flags) -> int:
         else:
             printer.print_results(qr, params, flags)
     multihost.shutdown()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+def cmd_trim(argv):
+    p = argparse.ArgumentParser(prog="trim")
+    _add_common(p)
+    p.add_argument("-mb", "--mb", type=int, default=0,
+                   help="size limit in MB")
+    p.add_argument("-before", "--before", type=int, default=0,
+                   help="delete blocks older than this timestamp")
+    p.add_argument("-delete", "--delete", action="store_true")
+    p.add_argument("-really", "--really", action="store_true")
+    p.add_argument("-time-col", "--time-col", default="time")
+    args = p.parse_args(argv)
+    flags = _base_flags(args)
+    flags.time_col = args.time_col
+    from .trim import trim_table
+    t = Table(flags.table, flags)
+    t.load_info()
+    to_trim = trim_table(t, mb_limit=args.mb, delete_before=args.before)
+    for bdir in to_trim:
+        if args.delete and args.really:
+            shutil.rmtree(bdir, ignore_errors=True)
+            print("deleted", bdir)
+        else:
+            print(bdir)
+    return 0
+
+
+def cmd_index(argv):
+    p = argparse.ArgumentParser(prog="index")
+    _add_common(p)
+    args = p.parse_args(argv)
+    flags = _base_flags(args)
+    from .recover import update_table_info
+    t = Table(flags.table, flags)
+    t.load_info()
+    update_table_info(t)
+    return 0
+
+
+def cmd_rebuild(argv):
+    p = argparse.ArgumentParser(prog="rebuild")
+    _add_common(p)
+    p.add_argument("-replace", "--replace", action="store_true")
+    p.add_argument("-force", "--force", action="store_true")
+    args = p.parse_args(argv)
+    flags = _base_flags(args)
+    from .recover import rebuild_table_info
+    t = Table(flags.table, flags)
+    rebuild_table_info(t, replace=args.replace, force=args.force)
+    return 0
+
+
+def cmd_inspect(argv):
+    p = argparse.ArgumentParser(prog="inspect")
+    p.add_argument("-file", "--file", default="")
+    p.add_argument("files", nargs="*")
+    args = p.parse_args(argv)
+    from .inspect_cmd import inspect_file
+    for fname in ([args.file] if args.file else []) + args.files:
+        inspect_file(fname)
     return 0
 
 
@@ -338,19 +415,17 @@ COMMANDS = {
     "ingest": cmd_ingest,
     "digest": cmd_digest,
     "query": cmd_query,
+    "trim": cmd_trim,
+    "index": cmd_index,
+    "rebuild": cmd_rebuild,
+    "inspect": cmd_inspect,
     "aggregate": cmd_aggregate,
     "version": cmd_version,
 }
-# the reference's other subcommands, still to be ported (ROADMAP A16)
-NOT_PORTED = ("trim", "index", "rebuild", "inspect")
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"sybil_tpu_torch: '{argv[0]}' is not ported yet; use "
-              f"python -m sybil_tpu {argv[0]}", file=sys.stderr)
-        return 2
     if not argv or argv[0] not in COMMANDS:
         print("usage: sybil_tpu_torch <%s>" % "|".join(sorted(COMMANDS)),
               file=sys.stderr)

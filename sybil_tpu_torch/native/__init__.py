@@ -44,7 +44,7 @@ def _load():
                 ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
                  f"-I{inc}", src, "-o", tmp],
                 check=True, capture_output=True, timeout=120)
-            os.replace(tmp, so)  # atomic publish: concurrent builds converge
+            os.replace(tmp, so)  # atomic publish, racing builders converge
         spec = importlib.util.spec_from_file_location("_walcodec", so)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)

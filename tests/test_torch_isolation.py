@@ -307,3 +307,50 @@ def test_port_row_store_runs_with_jax_and_reference_refused(tmp_path):
     assert sum(r["Count"] for r in rows) == n
     assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
     assert json.loads(outs[3]) == rows
+
+
+def test_port_host_tools_run_with_jax_and_reference_refused(tmp_path):
+    """`rebuild` of a lost table info, `query -export` and a query through
+    the client API run in the refusing process too."""
+    from sybil_tpu_torch import digest
+    d = str(tmp_path / "db")
+    rng = np.random.default_rng(10)
+    n = 3000
+    old = digest.CHUNK_SIZE
+    digest.CHUNK_SIZE = 1024             # 3 blocks
+    try:
+        Table("uptime", Flags(dir=d, table="uptime", skip_compact=True)
+              ).ingest_columns(
+            ints={"ping": rng.integers(0, 150, n)},
+            strs={"host": [f"h{i}" for i in rng.integers(0, 4, n)]})
+    finally:
+        digest.CHUNK_SIZE = old
+    for f in ("info.json", "info.json.bak"):
+        if os.path.exists(os.path.join(d, "uptime", f)):
+            os.unlink(os.path.join(d, "uptime", f))
+    script = BLOCKER.split("sys.argv = ")[0] + f"""
+import contextlib, io, json
+from sybil_tpu_torch import cli
+from sybil_tpu_torch.api import SybilConfig, SybilTable
+d = {d!r}
+assert cli.main(["rebuild", "-dir", d, "-table", "uptime"]) == 0
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main(["query", "-dir", d, "-table", "uptime", "-export",
+                     "-group", "host", "-device", "cpu"]) == 0
+rows = (SybilTable(SybilConfig(dir=d, table="uptime", device="cpu"))
+        .query().read_row_log(False).group_by("host").aggregate("ping")
+        .execute())
+print(json.dumps(rows))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script.format(forbidden=FORBIDDEN)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = json.loads(proc.stdout)
+    assert sum(r["Count"] for r in rows) == n
+    assert {r["host"] for r in rows} == {"h0", "h1", "h2", "h3"}
+    exported = os.listdir(os.path.join(d, "uptime", "export"))
+    assert len(exported) == 3 and all(f.endswith(".tsv.gz")
+                                      for f in exported)
