@@ -18,7 +18,11 @@ Phases (any failure exits non-zero before the result lines):
      and a fourth uptime table of N rows with the `groups` set column, from
      this script's copy of scripts/fakedata/host_generator.py:columns
      (seed 1337 + start_index, 1M-row steps, its `now` fixed to
-     BENCH_NOW), built in a process of its own beside the others
+     BENCH_NOW), built in a process of its own beside the others; and the
+     random-shape sweep's table (FUZZ_FULL_BLOCKS full blocks and a short
+     one, last, of tests/test_fuzz_parity.py's schema with uid over
+     0..5,999 and its str twin `user`, seed FUZZ_TABLE_SEED), in a
+     process of its own too
   3. K1 decode_bucket2 against its plain PyTorch version on the card,
      bit for bit: the table's real host and ping containers, then edge
      blocks (u8/u16/i32 deltas, short, missing, invalid rows); K6
@@ -274,7 +278,22 @@ Phases (any failure exits non-zero before the result lines):
      (1e-12 relative, the hists equal), `trim -before -delete -really`
      and config 1 over the blocks left, `query -export` (every TSV equal
      to numpy's); `inspect` of the table info, a block info, a column, a
-     dictionary and a WAL log of 65,536 records; each step's wall
+     dictionary and a WAL log of 65,536 records; each step's wall.
+     Then the random-shape sweep (fuzz_phase, after the kernel table's
+     timings): FUZZ_NAMED's shapes (the K2 shared, global and windowed
+     forms, K4's two tables and K5, the sorted strategy with int64 keys,
+     K9's -tdigest, the enumerated strategy, the sorted device prune,
+     K13's two forms, the distinct pairs, K14's in and nin, -data-shards
+     8 dense and sorted, -cache-queries dense and sorted, written and
+     hit) and FUZZ_RANDOM shapes from fuzz_shape, through run_query on
+     the card, each against the port's oracle (run_oracle in a pool of
+     CPU processes started with the phase) under fuzz_diff's rules, and
+     a shape whose answer depends on the batching (-tdigest, a mixed
+     distinct, a prune that may cut groups) also exactly against the
+     port's own -device cpu run; fails on any mismatch, when a named
+     shape misses its form or a launch, and unless every entry of
+     kernels.LAUNCHES (but dense_keyed, which only -read-log launches)
+     and of kernels.FORMS (K6's id and value modes among them) launched
   6. timings: query walls (median of 5) and rows/s, and the engine's
      phase breakdown of one cold and one warm query, per config; each
      kernel's time from CUDA events beside its bound (the larger of
@@ -8052,6 +8071,841 @@ def tools_phase(card, root, table, up, device):
         + "; ".join(f"{short} {w:.3f}s" for short, w in walls))
 
 
+# ---------------------------------------------------------------------------
+# the random-shape sweep: fuzz_phase on the card; tests/test_torch_fuzz*.py
+# draw the same shapes on the CPU
+# ---------------------------------------------------------------------------
+
+# the sweep table's columns, tests/test_fuzz_parity.py:33-47's: host h0-h7
+# (5% missing), status, ping -50..400 (8% missing), weight, uid, time over
+# 500,000 s, tags (0-3 of t0-t4, else "none"); uid spans 0..5,999 (the
+# reference's 0..300) so that a group by uid passes K2's shared table, and
+# `user` is uid as a string ("u" + uid): a str key of 6,000 values (str-id
+# blocks, dictionary-bounded packed keys, str hashes for count distinct)
+FUZZ_HOSTS = 8
+FUZZ_STATII = ("200", "404", "500")
+FUZZ_UIDS = 6000
+FUZZ_TIME0 = 1_700_000_000
+FUZZ_TIME_SPAN = 500_000
+FUZZ_TAGS = 5
+# the sweep's shapes: tests/test_fuzz_parity.py:109's and :127's seeds
+FUZZ_SHAPE_SEED = 7
+FUZZ_MESH_SEED = 11
+FUZZ_REGEXES = ("^[24]", "0$", "^5", "4")
+# constants.INTERNAL_RESULT_LIMIT: a batch past this many group rows
+# drops its highest-keyed groups (the reference's group cap), which the
+# oracle, scanning a row at a time, does not
+FUZZ_GROUP_CAP = 100_000
+# each key's slots: host and its MISSING value, status, uid or user
+FUZZ_CARD = {"host": FUZZ_HOSTS + 1, "status": len(FUZZ_STATII),
+             "uid": FUZZ_UIDS, "user": FUZZ_UIDS}
+
+
+def fuzz_shape(rng, nblocks: int, block_rows: int) -> dict:
+    """One query of the sweep as plain values (fuzz_params turns it into
+    either package's QueryParams).  tests/test_fuzz_parity.py:54-87's
+    _random_params draws first, in its order; then the axes its sweep
+    leaves out: -loghist and -tdigest, -int-bucket, re and nre over
+    status, a group on `user` for one on uid, distincts, order, limit
+    and prune, and the device batch (1, 3, or past the table's block
+    count).  A shape whose batch could hold more group rows than
+    FUZZ_GROUP_CAP takes one block a batch."""
+    groups = list(rng.sample(["host", "status", "uid"], rng.randint(0, 2)))
+    aggs = []
+    if rng.random() < 0.8:
+        aggs.append(["ping", rng.choice(["avg", "hist"]), "basic"])
+    filters = []
+    kind = ""
+    if rng.random() < 0.6:
+        kind = rng.choice(["int", "str", "set"])
+        if kind == "int":
+            filters.append(["ping", rng.choice(["gt", "lt", "neq"]),
+                            str(rng.randint(-20, 300)), "int"])
+        elif kind == "str":
+            filters.append(["status", rng.choice(["eq", "neq"]),
+                            rng.choice(["200", "404", "500", "418"]),
+                            "str"])
+        else:
+            filters.append(["tags", rng.choice(["in", "nin"]),
+                            rng.choice(["t0", "t3", "none"]), "set"])
+    shape = {"groups": groups, "aggs": aggs, "filters": filters}
+    if rng.random() < 0.3:
+        shape["time_bucket"] = rng.choice([3600, 86400])
+    if rng.random() < 0.3:
+        shape["weight_col"] = "weight"
+    # the axes the reference's sweep leaves out
+    if aggs and aggs[0][1] == "hist":
+        aggs[0][2] = rng.choice(["basic", "multi", "tdigest"])
+        if aggs[0][2] != "tdigest" and rng.random() < 0.4:
+            shape["hist_bucket"] = rng.choice([3, 25])
+    if kind == "str" and rng.random() < 0.5:
+        filters[0] = ["status", rng.choice(["re", "nre"]),
+                      rng.choice(FUZZ_REGEXES), "str"]
+    if "uid" in groups and rng.random() < 0.4:
+        groups[groups.index("uid")] = "user"
+    if rng.random() < 0.25:
+        shape["distincts"] = rng.sample(["uid", "user", "host", "ping"],
+                                        rng.randint(1, 2))
+    scores = ["$COUNT"] + (["ping"] if aggs else [])
+    r = rng.random()
+    if r < 0.15:
+        shape["order_by"] = ""
+    elif r < 0.4:
+        shape["order_by"] = rng.choice(scores)
+    if rng.random() < 0.3:
+        shape["order_asc"] = True
+    if rng.random() < 0.4:
+        shape["limit"] = rng.choice([5, 30, 1000])
+    r = rng.random()
+    if r < 0.2:
+        shape["prune_by"] = ""
+    elif r < 0.45:
+        shape["prune_by"] = scores[-1]
+    shape["device_batch"] = rng.choice([1, 3, nblocks + 1])
+    if (fuzz_group_rows(shape, block_rows * shape["device_batch"])
+            > FUZZ_GROUP_CAP):
+        shape["device_batch"] = 1
+    return shape
+
+
+def fuzz_group_rows(shape: dict, rows: int) -> int:
+    """The most group rows (time rows included) that an answer of `shape`
+    over `rows` rows can hold."""
+    n = 1
+    for g in shape["groups"]:
+        n *= FUZZ_CARD.get(g, rows)
+    if shape.get("time_bucket"):
+        n *= FUZZ_TIME_SPAN // shape["time_bucket"] + 2
+    return min(n, rows)
+
+
+def fuzz_params(shape: dict, spec):
+    """`shape` as the QueryParams of `spec` (either package's query.spec
+    module)."""
+    kw = {k: shape[k] for k in ("time_bucket", "weight_col", "hist_bucket",
+                                "order_by", "order_asc", "limit",
+                                "prune_by") if k in shape}
+    if kw.get("time_bucket"):
+        kw["time_col"] = "time"
+    return spec.QueryParams(
+        groups=tuple(shape["groups"]),
+        aggs=tuple(spec.AggDef(*a) for a in shape["aggs"]),
+        filters=tuple(spec.FilterDef(*f) for f in shape["filters"]),
+        distincts=tuple(shape.get("distincts", ())), **kw)
+
+
+def fuzz_label(shape: dict) -> str:
+    """The shape as the CLI's flags, to print beside a mismatch."""
+    out = []
+    if shape["groups"]:
+        out += ["-group", ",".join(shape["groups"])]
+    for col, op, htype in shape["aggs"]:
+        out += ["-int", col, "-op", op] + (
+            ["-loghist"] if htype == "multi" else
+            ["-tdigest"] if htype == "tdigest" else [])
+    for col, op, value, kind in shape["filters"]:
+        out += [f"-{kind}-filter", f"{col}:{op}:{value}"]
+    if shape.get("distincts"):
+        out += ["-distinct", ",".join(shape["distincts"])]
+    if shape.get("time_bucket"):
+        out += ["-time", "-time-bucket", str(shape["time_bucket"])]
+    for key, flag in (("weight_col", "-weight-col"),
+                      ("hist_bucket", "-int-bucket"),
+                      ("order_by", "-sort"), ("limit", "-limit"),
+                      ("prune_by", "-prune-sort")):
+        if key in shape:
+            out += [flag, repr(shape[key]) if shape[key] == ""
+                    else str(shape[key])]
+    if shape.get("order_asc"):
+        out += ["-sort-asc"]
+    out += ["-device-batch", str(shape["device_batch"])]
+    if shape.get("data_shards"):
+        out += ["-data-shards", str(shape["data_shards"])]
+    if shape.get("cache"):
+        out += ["-cache-queries"]
+    return " ".join(out)
+
+
+def fuzz_snapshot(qr, params) -> dict:
+    """A query's answer as plain values (either package's QueryResults,
+    the oracle's among them): each group's and each (time bucket, group)
+    row's count, samples, histograms and HLL registers (their sha1), the
+    Cumulative row's count and samples, matched_count, and `sorted` as
+    (group key, sort key) in its order."""
+    import hashlib
+
+    import numpy as np
+
+    def hist(h):
+        td = hasattr(h, "td")
+        pm = bool(getattr(h, "percentile_mode", False))
+        out = {"kind": "tdigest" if td else type(h).__name__,
+               "count": int(h.count), "samples": int(h.samples),
+               "total": int(h.total_count()), "avg": float(h.avg),
+               "mean": float(h.mean()), "pm": pm,
+               "min": getattr(h, "min", None),
+               "max": getattr(h, "max", None)}
+        if pm:
+            out["values"] = np.asarray(h.values).tolist()
+            out["outliers"] = sorted(int(v) for v in h.outliers)
+            out["percentiles"] = [int(v) for v in h.get_percentiles()]
+            out["stddev"] = float(h.get_stddev())
+        return out
+
+    def row(r):
+        regs = None
+        if r.distinct is not None:
+            regs = hashlib.sha1(np.ascontiguousarray(
+                r.distinct.registers, dtype=np.uint8).tobytes()).hexdigest()
+        return {"count": int(r.count), "samples": int(r.samples),
+                "hists": {c: hist(h) for c, h in r.hists.items()},
+                "distinct": regs}
+
+    def sort_key(r):
+        if params.order_by == "$COUNT":
+            return int(r.count)
+        h = r.hists.get(params.order_by)
+        return float(h.mean()) if h else 0.0
+
+    cum = qr.cumulative
+    snap = {"matched": int(qr.matched_count),
+            "cumulative": (int(cum.count), int(cum.samples)),
+            "results": {k: row(r) for k, r in qr.results.items()},
+            "time": {}, "order": [], "order_td": False}
+    if params.time_bucket > 0:
+        snap["time"] = {(int(tb), k): row(r)
+                        for tb, rs in qr.time_results.items()
+                        for k, r in rs.items()}
+    if params.order_by:
+        snap["order"] = [(r.group_key, sort_key(r)) for r in qr.sorted]
+        # a t-digest's mean() is its median, which depends on the batching
+        snap["order_td"] = any(a.col == params.order_by
+                               and a.hist_type == "tdigest"
+                               for a in params.aggs)
+    return snap
+
+
+def _fuzz_close(a, b, rel: float) -> bool:
+    import math
+    if a is None or b is None:
+        return a is b
+    return a == b or math.isclose(a, b, rel_tol=rel, abs_tol=0.0)
+
+
+def _fuzz_hist_diff(g: dict, w: dict, mode: str, at: str):
+    if mode == "exact":
+        for f in ("kind", "count", "samples", "total", "pm", "min", "max",
+                  "values", "outliers", "percentiles"):
+            if g.get(f) != w.get(f):
+                return f"{at}.{f}", g.get(f), w.get(f)
+        for f in ("avg", "mean", "stddev"):
+            if not _fuzz_close(g.get(f), w.get(f), 1e-12):
+                return f"{at}.{f}", g.get(f), w.get(f)
+        return None
+    # against the oracle: tests/test_query_engine.py:63-84's rules
+    if g["total"] != w["total"]:
+        return f"{at}.total", g["total"], w["total"]
+    if "tdigest" in (g["kind"], w["kind"]):
+        # its centroids, so its median (mean()) and percentiles, depend on
+        # how the rows were batched: its count and its sum hold
+        if g["kind"] != w["kind"]:
+            return f"{at}.kind", g["kind"], w["kind"]
+        if abs(g["avg"] - w["avg"]) >= 1e-6 * max(1.0, abs(w["avg"])):
+            return f"{at}.avg", g["avg"], w["avg"]
+        return None
+    if abs(g["mean"] - w["mean"]) >= 1e-6 * max(1.0, abs(w["mean"])):
+        return f"{at}.mean", g["mean"], w["mean"]
+    if g["pm"] != w["pm"]:
+        return f"{at}.percentile_mode", g["pm"], w["pm"]
+    if w["pm"]:
+        for f in ("values", "outliers", "percentiles"):
+            if g[f] != w[f]:
+                return f"{at}.{f}", g[f], w[f]
+        if abs(g["stddev"] - w["stddev"]) >= 1e-9:
+            return f"{at}.stddev", g["stddev"], w["stddev"]
+    return None
+
+
+def _fuzz_row_diff(g: dict, w: dict, mode: str, at: str,
+                   registers: bool = True):
+    for f in ("count", "samples"):
+        if g[f] != w[f]:
+            return f"{at}.{f}", g[f], w[f]
+    if sorted(g["hists"]) != sorted(w["hists"]):
+        return f"{at}.hists", sorted(g["hists"]), sorted(w["hists"])
+    for c in sorted(w["hists"]):
+        d = _fuzz_hist_diff(g["hists"][c], w["hists"][c], mode,
+                            f"{at}.hists[{c!r}]")
+        if d:
+            return d
+    if (g["distinct"] is None) != (w["distinct"] is None) or (
+            registers and g["distinct"] != w["distinct"]):
+        return f"{at}.distinct registers (sha1)", g["distinct"], \
+            w["distinct"]
+    return None
+
+
+def _fuzz_keys_diff(g: dict, w: dict, at: str):
+    if set(g) != set(w):
+        only = sorted(set(g) ^ set(w), key=repr)[:3]
+        return f"{at} keys ({len(g)} against {len(w)})", \
+            [k for k in only if k in g], [k for k in only if k in w]
+    return None
+
+
+def fuzz_prune_score(row: dict, prune_by: str) -> float:
+    """The engine's prune score of an answer's group row: its count, or
+    the mean (Σw·v / Σw) of prune_by's histogram, 0 without one."""
+    if prune_by == "$COUNT":
+        return row["count"]
+    h = row["hists"].get(prune_by)
+    return h["avg"] if h else 0.0
+
+
+def fuzz_diff(got: dict, want: dict, mode: str, prune=None,
+              registers: bool = True):
+    """The first field where fuzz_snapshot `got` departs from `want`, as
+    (field, got's value, want's value), or None.
+
+    mode "exact" (the port against the reference, or the card against
+    the port's own -device cpu run): every field equal, float means and
+    stddevs within 1e-12 relative (merge orders), the `sorted` order too.
+    mode "oracle" (an answer against run_oracle):
+    tests/test_query_engine.py:63-84's rules (keys, counts, samples,
+    totals, bucket values, outliers and percentiles exact; stddev within
+    1e-9; mean within 1e-6 relative; a t-digest's count and sum only),
+    HLL registers exact, and the sort keys of `sorted` in order.
+
+    registers=False leaves the HLL registers out (fuzz_mixed_distinct).
+
+    prune: None, or (prune_by, cap, top_exact) when the engine may have
+    pruned (more groups than cap = 10 x limit, capped at 1,000, and a
+    prune that can act: several batches or cache groups merged, or the
+    device prune).  The engine then keeps at most cap groups, and a group
+    that lost a batch's rows to a prune comes back from a later batch
+    with only that batch's rows (the reference's own approximation,
+    aggregate.go:422-471).  So: its groups are the oracle's, none has
+    more rows than the oracle's, one with as many rows (samples) was
+    never pruned and equals the oracle's group whole, with its time rows,
+    and the Cumulative row and matched_count are exact.  top_exact (one
+    batch: only the device prune or the enumerated strategy's per-batch
+    top cap acted) also asks every oracle group strictly above the first
+    tie at the cut to be kept whole; a mean's tie takes in every score
+    within 1e-5 relative of the cut's (the device ranks f32 means)."""
+    for f in ("matched", "cumulative"):
+        if got[f] != want[f]:
+            return f, got[f], want[f]
+    gres, wres = got["results"], want["results"]
+    if prune is None:
+        d = (_fuzz_keys_diff(gres, wres, "results")
+             or _fuzz_keys_diff(got["time"], want["time"], "time rows"))
+        if d:
+            return d
+        for k in sorted(wres):
+            d = _fuzz_row_diff(gres[k], wres[k], mode, f"results[{k!r}]",
+                               registers)
+            if d:
+                return d
+        for k in sorted(want["time"]):
+            d = _fuzz_row_diff(got["time"][k], want["time"][k], mode,
+                               f"time[{k!r}]", registers)
+            if d:
+                return d
+        go, wo = got["order"], want["order"]
+        if mode == "exact":
+            same = len(go) == len(wo) and all(
+                a[0] == b[0] and _fuzz_close(a[1], b[1], 1e-12)
+                for a, b in zip(go, wo))
+        elif want["order_td"]:
+            keys = [v for _, v in go]
+            same = len(go) == len(wo) and (keys == sorted(keys)
+                                           or keys == sorted(keys,
+                                                             reverse=True))
+        else:
+            same = len(go) == len(wo) and all(
+                abs(a[1] - b[1]) < 1e-6 * max(1.0, abs(b[1]))
+                for a, b in zip(go, wo))
+        if not same:
+            return "sorted", go[:5], wo[:5]
+        return None
+    prune_by, cap, top_exact = prune
+    extra = set(gres) - set(wres)
+    if extra:
+        return "results keys past the oracle's", sorted(extra)[:3], []
+    if len(gres) > cap:
+        return "results kept past the prune cap", len(gres), cap
+    tgot = {}
+    for (tb, k), r in got["time"].items():
+        tgot.setdefault(k, {})[tb] = r
+    twant = {}
+    for (tb, k), r in want["time"].items():
+        twant.setdefault(k, {})[tb] = r
+    for k in sorted(gres):
+        g, w = gres[k], wres[k]
+        if g["samples"] > w["samples"] or g["count"] > w["count"]:
+            return f"results[{k!r}] (count, samples) past the oracle's", \
+                (g["count"], g["samples"]), (w["count"], w["samples"])
+        gt, wt = tgot.get(k, {}), twant.get(k, {})
+        if g["samples"] == w["samples"]:
+            d = (_fuzz_row_diff(g, w, mode, f"results[{k!r}]", registers)
+                 or _fuzz_keys_diff(gt, wt, f"time rows of {k!r}"))
+            if d:
+                return d
+            for tb in sorted(wt):
+                d = _fuzz_row_diff(gt[tb], wt[tb], mode, f"time[{tb}, {k!r}]",
+                                   registers)
+                if d:
+                    return d
+        elif set(gt) - set(wt):
+            return f"time rows of {k!r} past the oracle's", \
+                sorted(set(gt) - set(wt))[:3], []
+    if top_exact and len(wres) > cap:
+        ranked = sorted((fuzz_prune_score(r, prune_by) for r in
+                         wres.values()), reverse=True)
+        cut = ranked[cap - 1]
+        margin = 0 if prune_by == "$COUNT" else 1e-5 * max(1.0, abs(cut))
+        for k, w in sorted(wres.items()):
+            if fuzz_prune_score(w, prune_by) <= cut + margin:
+                continue
+            g = gres.get(k)
+            if g is None or g["samples"] != w["samples"]:
+                return f"results[{k!r}] above the prune's cut", \
+                    None if g is None else g["samples"], w["samples"]
+    keys = [v for _, v in got["order"]]
+    if keys != sorted(keys, reverse=True) and keys != sorted(keys):
+        return "sorted (not monotone)", keys[:5], []
+    return None
+
+
+FUZZ_STR_COLS = ("host", "status", "user")
+
+
+def fuzz_mixed_distinct(shape: dict) -> bool:
+    """Whether the shape counts distinct tuples of a str and an int
+    column.  The reference's engine then hashes an int value of -1 as a
+    missing one (engine.py's _absorb_distinct tests each value against
+    MISSING_I64 = -1, as the port's copy does), where the oracle writes
+    "-1" (oracle.py:_distinct_bytes): their registers differ for a group
+    that holds a ping of -1.  The registers of such a shape are held to
+    the reference's (or on the card to the port's -device cpu run), and
+    the rest of its answer to the oracle's."""
+    d = shape.get("distincts", ())
+    return (any(c in FUZZ_STR_COLS for c in d)
+            and any(c not in FUZZ_STR_COLS for c in d))
+
+
+def fuzz_prune(params, device_prunes: bool, batches: int, cached: bool,
+               ngroups: int):
+    """fuzz_diff's `prune` argument for an answer of `params` with
+    `ngroups` oracle groups: None when no prune can drop a group."""
+    if not params.prune_by or params.limit <= 0:
+        return None
+    cap = min(params.limit * 10, 1000)
+    merged = cached or batches > 1
+    if ngroups <= cap or not (merged or device_prunes):
+        return None
+    return params.prune_by, cap, not merged
+
+
+def fuzz_device_prunes(table, flags, params) -> tuple[bool, str]:
+    """-> (whether the scan of `params` ships only each batch's top rows,
+    the strategy and form it takes), from the port's bind as run_query
+    makes it (exact bounds over every block, the device prune's rule)."""
+    from sybil_tpu_torch.ops import scan
+    from sybil_tpu_torch.query import engine
+    b = bound_query(table, flags, params)
+    dirs = list(table.block_infos())
+    engine._maybe_device_prune(b, params, dirs, flags.device_batch)
+    cfg = b.config
+    if flags.data_shards > 1:
+        cfg = dataclasses.replace(cfg, no_compact_table=True)
+    if cfg.strategy == "dense":
+        form = "dense " + scan.dense_scan_route(cfg)
+        if cfg.hll:
+            form += ", hll " + scan.hll_route(cfg)
+        return False, form
+    if cfg.prune_topk > 0:
+        return True, ("enumerated" if scan.enum_radix(cfg) > 0
+                      else "sorted, device prune")
+    return False, "sorted" + (", pairs" if cfg.distinct_cols else "")
+
+
+# one named shape for each strategy and form that a seed might miss: its
+# strategy and form as fuzz_device_prunes names them (the start of the
+# name: the bind is the same on either device), and the counted launches
+# (kernels.LAUNCHES and FORMS entries) it must take on the card, where
+# `user` (6,000 values a block, past CARDINALITY_THRESHOLD) is a str-id
+# column and uid a value one; device_batch 0 stands for one batch (past
+# the block count)
+FUZZ_AVG = ["ping", "avg", "basic"]
+FUZZ_NAMED = (
+    ("K2 shared form", dict(groups=["host", "status"], aggs=[FUZZ_AVG]),
+     "dense warp", ("dense_scan shared or resident",)),
+    ("K2 and K4 global forms: group by uid, 6,001 slots",
+     dict(groups=["uid"], aggs=[["ping", "hist", "basic"]], device_batch=0),
+     "dense global",
+     ("dense_scan global", "dense_hist global", "decode_value values")),
+    ("K4 shared form and K5: -loghist",
+     dict(groups=["status"], aggs=[["ping", "hist", "multi"]]),
+     "dense warp", ("dense_hist shared", "outlier_compact")),
+    ("a 3,600 s rollup (K2's windowed form, resident)",
+     dict(groups=["host"], aggs=[FUZZ_AVG], time_bucket=3600),
+     "dense resident", ("dense_scan",)),
+    ("K2 windowed form: uid x 86,400 s",
+     dict(groups=["uid"], aggs=[FUZZ_AVG], time_bucket=86400, prune_by=""),
+     "dense windowed", ("dense_scan windowed",)),
+    ("sorted strategy, int64 keys: uid x 3,600 s, past 65,536 slots",
+     dict(groups=["uid"], aggs=[FUZZ_AVG], time_bucket=3600, prune_by="",
+          filters=[["ping", "gt", "300", "int"]], device_batch=1),
+     "sorted", ("sorted_front", "sort_permute", "segment_reduce",
+                "sorted_pack")),
+    ("K9: -tdigest", dict(groups=["host"], aggs=[["ping", "hist", "tdigest"]],
+                          device_batch=3),
+     "sorted", ("hist_prep", "hist_pairs")),
+    ("enumerated strategy: user, status, host, -limit 100, $COUNT",
+     dict(groups=["user", "status", "host"], aggs=[FUZZ_AVG], device_batch=0),
+     "enumerated", ("sorted_front", "enum_segments", "topk_rows", "enum_pack",
+                    "decode_value ids")),
+    ("sorted device prune: time, host, past the enumerated radix cap",
+     dict(groups=["time", "host"], aggs=[FUZZ_AVG], weight_col="weight",
+          filters=[["ping", "gt", "380", "int"]], device_batch=0),
+     "sorted, device prune", ("sorted_front", "sorted_pack", "topk_rows",
+                              "prune_gather")),
+    ("K13 shared form: status, distinct uid",
+     dict(groups=["status"], distincts=["uid"]), "dense warp, hll shared",
+     ("hll_registers shared",)),
+    ("K13 global form: host, status, distinct ping",
+     dict(groups=["host", "status"], distincts=["ping"]),
+     "dense warp, hll global", ("hll_registers global",)),
+    ("distinct pairs: -group host,status -op distinct",
+     dict(groups=[], distincts=["host", "status"]), "sorted, pairs",
+     ("sorted_front", "segment_reduce", "sorted_pack")),
+    ("K14: tags in and nin",
+     dict(groups=["host"], aggs=[FUZZ_AVG],
+          filters=[["tags", "in", "t1", "set"], ["tags", "nin", "t3", "set"]]),
+     "dense warp", ("set_match",)),
+    ("-data-shards 8, dense",
+     dict(groups=["host"], aggs=[["ping", "hist", "multi"]], data_shards=8,
+          device_batch=0),
+     "dense warp", ("shuffle_partition", "shuffle_reduce")),
+    ("-data-shards 8, sorted",
+     dict(groups=["user", "status"], aggs=[FUZZ_AVG], prune_by="",
+          data_shards=8, device_batch=0),
+     "sorted", ("shuffle_partition", "shuffle_keys", "shuffle_reduce",
+                "shuffle_unpack", "decode_value ids")),
+    ("-cache-queries, dense",
+     dict(groups=["host", "status"], aggs=[["ping", "hist", "multi"]],
+          cache=True), "dense warp", ("dense_scan", "dense_hist",
+                                      "outlier_compact")),
+    ("-cache-queries, sorted: uid x 3,600 s",
+     dict(groups=["uid"], aggs=[FUZZ_AVG], time_bucket=3600, prune_by="",
+          filters=[["ping", "gt", "380", "int"]], cache=True),
+     "sorted", ("sorted_front", "segment_reduce", "sorted_pack")),
+)
+
+
+def fuzz_named(nblocks: int) -> list:
+    """FUZZ_NAMED as (label, shape, form, must launch), device_batch 0
+    made one batch of the table's nblocks blocks."""
+    out = []
+    for label, shape, form, expect in FUZZ_NAMED:
+        s = {"filters": [], "aggs": [], **shape}
+        s["device_batch"] = s.get("device_batch", 3) or nblocks + 1
+        out.append((label, s, form, expect))
+    return out
+
+
+# the card's sweep table: 18 full blocks of 65,536 rows and a short one,
+# last (1,192,216 rows): full blocks run every kernel at C = 65,536, more
+# than 16 blocks let the device prune and the enumerated strategy act,
+# and the 16 oldest make one query-cache group (query/cache.py), the two
+# other full blocks and the short one scanned outside it; the oracle's
+# cost, a Python loop over every row of every shape, sets the row count
+FUZZ_FULL_BLOCKS = 18
+FUZZ_SHORT_ROWS = 12_568
+FUZZ_TABLE_SEED = 2323
+FUZZ_RANDOM = 24
+# the launches no sweep query can take: the row store's keyed pack runs
+# only under -read-log (rowstore_phase drives it)
+FUZZ_EXEMPT = ("dense_keyed",)
+
+
+def fuzz_columns(rng, n: int):
+    """n rows of the sweep table's columns from numpy generator rng ->
+    (ints, strs, sets, valid) for Table.ingest_columns: fuzz_shape's
+    schema (tests/test_torch_fuzz.py:fuzz_records' distributions)."""
+    import numpy as np
+    uid = rng.integers(0, FUZZ_UIDS, n)
+    ints = {"ping": rng.integers(-50, 401, n),
+            "weight": rng.choice(np.array([1, 2, 10]), n),
+            "uid": uid,
+            "time": FUZZ_TIME0 + rng.integers(0, FUZZ_TIME_SPAN + 1, n)}
+    hosts = np.array([f"h{i}" for i in range(FUZZ_HOSTS)], dtype=object)
+    statii = np.array(FUZZ_STATII, dtype=object)
+    users = np.array([f"u{i}" for i in range(FUZZ_UIDS)], dtype=object)
+    strs = {"host": hosts[rng.integers(0, FUZZ_HOSTS, n)].tolist(),
+            "status": statii[rng.integers(0, len(FUZZ_STATII), n)].tolist(),
+            "user": users[uid].tolist()}
+    ntags = rng.integers(0, 4, n)
+    tags = rng.integers(0, FUZZ_TAGS, int(ntags.sum())).tolist()
+    lists, at = [], 0
+    for k in ntags.tolist():
+        lists.append([f"t{v}" for v in tags[at: at + k]] or ["none"])
+        at += k
+    valid = {"ping": rng.random(n) >= 0.08, "host": rng.random(n) >= 0.05}
+    return ints, strs, {"tags": lists}, valid
+
+
+def fuzz_flags(root: str, **kw):
+    from sybil_tpu_torch.config import Flags
+    return Flags(dir=root, table="fz", skip_compact=True, **kw)
+
+
+def build_fuzz_table(root: str) -> None:
+    """The sweep table under root, written by the port's ingest_columns
+    one block at a time (the short block last)."""
+    import numpy as np
+
+    from sybil_tpu_torch.digest import CHUNK_SIZE
+    from sybil_tpu_torch.table import Table
+    t = Table("fz", fuzz_flags(root))
+    rng = np.random.default_rng(FUZZ_TABLE_SEED)
+    for b in range(FUZZ_FULL_BLOCKS + 1):
+        n = CHUNK_SIZE if b < FUZZ_FULL_BLOCKS else FUZZ_SHORT_ROWS
+        ints, strs, sets, valid = fuzz_columns(rng, n)
+        t.ingest_columns(ints=ints, strs=strs, sets=sets, valid=valid)
+
+
+def start_fuzz_table(root: str):
+    """build_fuzz_table in a process of its own, beside the other
+    tables' builds -> the process, for fuzz_phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, time, chip_smoke; t0 = time.perf_counter(); "
+            "chip_smoke.build_fuzz_table(sys.argv[1]); "
+            "chip_smoke.say(f'built the sweep table in "
+            "{time.perf_counter() - t0:.1f}s (host CPU, a process of its "
+            "own)')")
+    return subprocess.Popen([sys.executable, "-c", code, root], cwd=here)
+
+
+def _fuzz_worker_init() -> None:
+    # the oracle's processes use the CPU alone, one thread each
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(1)
+
+
+def fuzz_oracle_job(root: str, shape: dict) -> tuple:
+    """run_oracle's answer to `shape` -> (fuzz_snapshot, seconds)."""
+    import sybil_tpu_torch.query.spec as spec
+    from sybil_tpu_torch.query.oracle import run_oracle
+    from sybil_tpu_torch.table import Table
+    t0 = time.perf_counter()
+    params = fuzz_params(shape, spec)
+    flags = fuzz_flags(root, device="cpu")
+    snap = fuzz_snapshot(run_oracle(Table("fz", flags), params, flags),
+                         params)
+    return snap, time.perf_counter() - t0
+
+
+def fuzz_cpu_job(root: str, shape: dict) -> tuple:
+    """The port's own answer to `shape` on the CPU (the kernels' plain
+    versions), at the shape's device batch and data shards ->
+    (fuzz_snapshot, seconds)."""
+    import sybil_tpu_torch.query.spec as spec
+    from sybil_tpu_torch.query.engine import run_query
+    from sybil_tpu_torch.table import Table
+    t0 = time.perf_counter()
+    params = fuzz_params(shape, spec)
+    flags = fuzz_flags(root, device="cpu",
+                       device_batch=shape["device_batch"],
+                       data_shards=shape.get("data_shards", 0))
+    snap = fuzz_snapshot(run_query(Table("fz", flags), params, flags),
+                         params)
+    return snap, time.perf_counter() - t0
+
+
+def fuzz_oracle_key(shape: dict) -> str:
+    """Shapes that differ only in how they are scanned share one oracle
+    answer."""
+    return json.dumps({k: v for k, v in shape.items()
+                       if k not in ("device_batch", "data_shards", "cache")},
+                      sort_keys=True)
+
+
+def fuzz_phase(card, root: str, proc, device) -> None:
+    """The random-shape sweep on the card (ROADMAP C3): FUZZ_NAMED's
+    shapes, then FUZZ_RANDOM from fuzz_shape at FUZZ_SHAPE_SEED, each
+    through run_query on `device` with the launch counts reset just before
+    and read just after, against the port's oracle (run_oracle in a pool
+    of CPU processes that import only the port, started here) under
+    fuzz_diff's rules.  A shape whose answer depends on how its rows were
+    batched is also held to the port's own -device cpu run at the same
+    device batch, exactly: a -tdigest shape (its percentiles and median),
+    a mixed str/int distinct (its HLL registers, fuzz_mixed_distinct) and
+    one that a prune may cut (fuzz_prune: the oracle then only bounds
+    its groups).  A cached shape runs twice (written, then hit), each
+    answer compared.  Fails on any mismatch (printing the shape, its
+    first differing field and the seeds), when a named shape misses its
+    form or a launch it must take, or when an entry of kernels.LAUNCHES
+    (FUZZ_EXEMPT aside) or kernels.FORMS never launched across the
+    sweep."""
+    import collections
+    import concurrent.futures
+    import multiprocessing
+    import random
+    import shutil as sh
+
+    import sybil_tpu_torch.query.spec as spec
+    from sybil_tpu_torch.ops import kernels
+    from sybil_tpu_torch.query import cache as port_cache
+    from sybil_tpu_torch.query.engine import run_query
+    from sybil_tpu_torch.table import Table
+
+    t_phase = time.perf_counter()
+    if proc is not None and proc.wait() != 0:
+        fail(f"the sweep table's build exited {proc.returncode}")
+    table = Table("fz", fuzz_flags(root))
+    table.load_info()
+    infos = table.block_infos()
+    nblocks = len(infos)
+    block_rows = max(i.num_records for i in infos.values())
+    nrows = sum(i.num_records for i in infos.values())
+    shapes = fuzz_named(nblocks)
+    rng = random.Random(FUZZ_SHAPE_SEED)
+    shapes += [(f"random {i}", fuzz_shape(rng, nblocks, block_rows), "", ())
+               for i in range(FUZZ_RANDOM)]
+
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, initializer=_fuzz_worker_init,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # each shape's flags, strategy and form, and the batches its scan
+        # merges; its oracle answer and, where the answer depends on the
+        # batching, its -device cpu run, queued in the pool
+        plans, oracle_jobs, cpu_jobs = [], {}, {}
+        for label, shape, named_form, expect in shapes:
+            params = fuzz_params(shape, spec)
+            flags = fuzz_flags(root, device=device.type,
+                               device_batch=shape["device_batch"],
+                               data_shards=shape.get("data_shards", 0),
+                               cache_queries=bool(shape.get("cache")))
+            prunes, form = fuzz_device_prunes(Table("fz", flags), flags,
+                                              params)
+            if not form.startswith(named_form):
+                fail(f"sweep {label}: takes {form!r}, not {named_form!r}")
+            form += (", mesh" if flags.data_shards else "") + (
+                ", cached" if flags.cache_queries else "")
+            B = min(shape["device_batch"], nblocks)
+            if flags.data_shards:
+                B = -(-B // flags.data_shards) * flags.data_shards
+            batches = -(-nblocks // B)
+            key = fuzz_oracle_key(shape)
+            if key not in oracle_jobs:
+                oracle_jobs[key] = pool.submit(fuzz_oracle_job, root, shape)
+            if (any(a[2] == "tdigest" for a in shape["aggs"])
+                    or fuzz_mixed_distinct(shape)
+                    or fuzz_prune(params, prunes, batches, flags.cache_queries,
+                                  fuzz_group_rows(shape, nrows)) is not None):
+                cpu_jobs[label] = pool.submit(fuzz_cpu_job, root, shape)
+            plans.append((label, shape, params, flags, prunes, form, batches,
+                          expect))
+        say(f"[{card}] sweep: {nrows} rows, {nblocks} blocks of up to "
+            f"{block_rows} rows; {len(shapes)} shapes ({len(FUZZ_NAMED)} "
+            f"named, {FUZZ_RANDOM} random at seed {FUZZ_SHAPE_SEED}, table "
+            f"seed {FUZZ_TABLE_SEED}); {len(oracle_jobs)} oracle answers "
+            f"and {len(cpu_jobs)} -device cpu runs in a pool of {workers} "
+            f"processes")
+
+        total = collections.Counter()
+        forms = collections.Counter()
+        by_form = collections.Counter()
+        answers = []
+        walls = []
+        for label, shape, params, flags, prunes, form, batches, expect \
+                in plans:
+            by_form[form] += 1
+            runs = ("written", "hit") if flags.cache_queries else ("",)
+            if flags.cache_queries:
+                sh.rmtree(os.path.join(root, "fz", "cache"),
+                          ignore_errors=True)
+            for run in runs:
+                h0 = port_cache.HITS
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                qr = run_query(Table("fz", flags), params, flags)
+                walls.append(time.perf_counter() - t0)
+                ll = kernels.snapshot()
+                total.update(ll)
+                forms.update(ll.forms)
+                if run == "hit" and port_cache.HITS <= h0:
+                    fail(f"sweep {label}: the second run did not hit the "
+                         f"cache")
+                missing = [k for k in expect
+                           if ll.get(k, 0) == 0 and ll.forms.get(k, 0) == 0]
+                if missing and run != "hit":
+                    fail(f"sweep {label} ({form}): {missing} never "
+                         f"launched: {dict(ll)} {ll.forms}")
+                answers.append((label, run, shape, params, prunes, form,
+                                batches, fuzz_snapshot(qr, params)))
+                del qr
+        t_card = time.perf_counter() - t_phase
+
+        mismatches = []
+        job_s = []
+        rules = collections.Counter()
+        for label, run, shape, params, prunes, form, batches, got in answers:
+            want, s = oracle_jobs[fuzz_oracle_key(shape)].result()
+            job_s.append(s)
+            prune = fuzz_prune(params, prunes, batches,
+                               bool(shape.get("cache")),
+                               len(want["results"]))
+            rule = ("the oracle" if prune is None else
+                    "the oracle's groups, the top ones whole" if prune[2]
+                    else "the oracle's groups, each no larger")
+            checks = [("oracle", fuzz_diff(got, want, "oracle", prune,
+                                           not fuzz_mixed_distinct(shape)))]
+            if label in cpu_jobs:
+                cpu, s = cpu_jobs[label].result()
+                job_s.append(s)
+                rule += ", and the -device cpu run exactly"
+                checks.append(("the port's -device cpu run",
+                               fuzz_diff(got, cpu, "exact")))
+            rules[rule] += 1
+            if run:
+                label += f", {run}"
+            for against, diff in checks:
+                if diff is not None:
+                    field, a, b = diff
+                    mismatches.append(label)
+                    say(f"[{card}] sweep MISMATCH {label} ({form}) against "
+                        f"{against}: {fuzz_label(shape)}; shape seed "
+                        f"{FUZZ_SHAPE_SEED}, table seed {FUZZ_TABLE_SEED}: "
+                        f"{field}: card {str(a)[:300]} vs {str(b)[:300]}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    never = [k for k in kernels.LAUNCHES
+             if total[k] == 0 and k not in FUZZ_EXEMPT]
+    never += [k for k in kernels.FORMS if forms[k] == 0]
+    say(f"[{card}] sweep shapes by strategy and form: "
+        f"{dict(sorted(by_form.items()))}")
+    say(f"[{card}] sweep launches: {dict(total)}; by form: {dict(forms)} "
+        f"(exempt: {list(FUZZ_EXEMPT)}, which only -read-log launches)")
+    say(f"[{card}] sweep answers by what held them: "
+        f"{dict(sorted(rules.items()))}")
+    say(f"[{card}] sweep: {len(answers)} answers, {len(mismatches)} "
+        f"mismatches; card queries {t_card:.1f}s (median wall "
+        f"{median(walls):.3f}s), oracle and cpu jobs "
+        f"{sum(job_s):.1f}s of {workers} processes; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    if mismatches:
+        fail(f"the sweep found {len(mismatches)} mismatches: {mismatches}")
+    if never:
+        fail(f"the sweep never launched {never}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=DEFAULT_ROWS)
@@ -8099,11 +8953,13 @@ def main(argv=None) -> int:
                     say(f"  ptxas {name} {fn}: {line.strip()}")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
-    sets_proc = None
+    sets_proc = fuzz_proc = None
     try:
         # ---- phase 2 ---------------------------------------------------
         sets_root = os.path.join(root, "sets")
         sets_proc = start_sets_table(sets_root, args.rows)
+        fuzz_root = os.path.join(root, "fz")
+        fuzz_proc = start_fuzz_table(fuzz_root)
         t0 = time.perf_counter()
         table, flags, up = build_table(os.path.join(root, "up"), args.rows)
         nblocks = len(table.block_infos())
@@ -10329,14 +11185,17 @@ def main(argv=None) -> int:
             f"calls recorded no device event in their first 8 profiles; "
             f"padded profiles ({PROFILE_PAD_S * 1e3:.0f} ms either side) "
             f"recovered {PROFILE_MISSES['recovered']} of them")
+        # the random-shape sweep against the port's oracle
+        fuzz_phase(card, fuzz_root, fuzz_proc, dev)
         say(f"[{card}] dense_scan config 1 (PR-1 shape): "
             f"{k2_times['config 1'][0]:.4f} ms; index_add_ over prebuilt "
             f"lanes {k2_lib:.4f} ms")
         say(json.dumps({"kernels": rows_out}))
     finally:
-        if sets_proc is not None and sets_proc.poll() is None:
-            sets_proc.kill()
-            sets_proc.wait()
+        for proc in (sets_proc, fuzz_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
     say(smi)

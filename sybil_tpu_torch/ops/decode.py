@@ -349,6 +349,8 @@ def _launch_k6(ids_mode: bool, lanes, bits, bases, src_of_row, C: int, out):
                 kernels.stream_handle(dev))
     kernels.check(rc, kernel)
     kernels.LAUNCHES["decode_value"] += 1
+    kernels.FORMS["decode_value ids" if ids_mode else "decode_value values"] \
+        += 1
     return values, valid
 
 

@@ -47,13 +47,14 @@ ENTRY_SOURCES = {"sort_permute": "sorted_front", "enum_pack": "sorted_pack",
                  "dense_keyed": "dense_pack"}
 # one count per wrapper: a source's name, and each entry above
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES + tuple(ENTRY_SOURCES)}
-# K2's, K4's and K13's launches split by form: each wrapper adds one to
-# LAUNCHES and one here where it launches
+# K2's, K4's and K13's launches split by form, and K6's by mode: each
+# wrapper adds one to LAUNCHES and one here where it launches
 FORMS: dict[str, int] = {"dense_scan shared or resident": 0,
                          "dense_scan global": 0, "dense_scan windowed": 0,
                          "dense_hist shared": 0, "dense_hist global": 0,
                          "hll_registers shared": 0,
-                         "hll_registers global": 0}
+                         "hll_registers global": 0,
+                         "decode_value values": 0, "decode_value ids": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict = {}
@@ -73,7 +74,7 @@ class Launches(dict):
 
 
 def snapshot() -> Launches:
-    """The launch counts since the last reset_launches, K2's by form in
+    """The launch counts since the last reset_launches, by form in
     `.forms`."""
     got = Launches(LAUNCHES)
     got.forms = dict(FORMS)

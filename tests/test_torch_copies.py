@@ -176,7 +176,8 @@ def test_the_copies_cover_every_shared_device_free_module():
     assert set(NEW) <= set(COPIES)
     assert set(DEPARTURES) <= set(COPIES)
     for mod in ("table.py", "blocks.py", "codec.py", "rowstore.py",
-                "query/hist.py", "query/cache.py", "native/walcodec.cpp"):
+                "query/hist.py", "query/cache.py", "query/oracle.py",
+                "native/walcodec.cpp"):
         assert mod in COPIES
 
 
